@@ -7,21 +7,34 @@ Run from the repository root on a machine with an NVIDIA H100::
 Phases (any failure propagates and the exit code is not 0):
 
 1. Device: the card's name, and its name and power limit from nvidia-smi.
-2. Kernels: build every CUDA kernel of the main path from
+2. Kernels: build every CUDA kernel of both serving paths from
    ``langstream_tpu_torch/csrc`` (one nvcc per source, started together),
-   hold each against its plain PyTorch version at the main path's shapes
-   in bf16, and time kernel, plain version, the PyTorch library call
+   hold each against its plain PyTorch version at the paths' shapes in
+   bf16, and time kernel, plain version, the PyTorch library call
    (``scaled_dot_product_attention``, a yardstick only) and the least time
-   the card could take (bound).
+   the card could take (bound). Times are device times: the timed calls
+   are enqueued while a sleep kernel holds the card, so the host's share
+   is left out; each kernel's wall time per call with the host in the
+   loop is printed beside it. B1 flash prefill and B2 flash decode
+   carry the dense path; B3 ragged paged attention the paged path, at a
+   decode and a prefill-at-offset shape.
 3. Reference: the model at Llama-3-8B width, depth cut to 2 layers, on the
-   card (kernels) against the same weights on the CPU (plain path).
-4. Serving: Llama-3-8B (bf16, random weights from seed 0) behind the
-   port's OpenAI server, started as ``python -m langstream_tpu_torch
+   card (kernels) against the same weights on the CPU (plain path), for
+   the dense layout and the paged one (cold prefill, prefill-at-offset
+   onto another row's blocks, decode). On the card the paged logits are
+   also held against the dense ones, and the windowed prefill of a long
+   prompt (both layouts) against a one-shot prefill.
+4. Dense serving: Llama-3-8B (bf16, random weights from seed 0) behind
+   the port's OpenAI server, started as ``python -m langstream_tpu_torch
    serve`` starts it, answering 16 concurrent chat and text completions
    plus one SSE stream. The kernels' launch counters are zeroed just
-   before and read just after; each kernel must have been launched.
-   Then one eager decode step of that model: host enqueue time against
-   wall time.
+   before and read just after; B1 and B2 must have been launched once per
+   layer per model call. Then one eager decode step of that model: host
+   enqueue time against wall time.
+5. Paged serving: the same model with ``--kv-layout paged``, answering 16
+   chats that share a ~512-byte system message, 8 text completions and
+   one SSE stream. The prefix cache must have served tokens, B3 must have
+   been launched once per layer per model call, and B1 and B2 not at all.
 
 The line before the last holds the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -29,6 +42,7 @@ The line before the last holds the kernels' JSON; the last line is
 
 import concurrent.futures
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -45,10 +59,18 @@ import torch.nn.functional as F  # noqa: E402
 
 from langstream_tpu_torch.cli.main import build_parser, start_server  # noqa: E402
 from langstream_tpu_torch.ops import _build  # noqa: E402
-from langstream_tpu_torch.ops.attention import decode_attention, prefill_attention  # noqa: E402
+from langstream_tpu_torch.ops.attention import (  # noqa: E402
+    decode_attention,
+    gather_blocks,
+    paged_chunk_attention,
+    paged_decode_attention,
+    prefill_attention,
+)
 from langstream_tpu_torch.ops.decode_kernel import flash_decode_attention  # noqa: E402
 from langstream_tpu_torch.ops.flash_attention import flash_prefill_attention  # noqa: E402
+from langstream_tpu_torch.ops.paged_attention import block_bounds, ragged_paged_attention  # noqa: E402
 from langstream_tpu_torch.providers.torch_local import model  # noqa: E402
+from langstream_tpu_torch.providers.torch_local.engine import long_prefill_windows  # noqa: E402
 
 # H100 SXM published peaks (dense bf16 tensor cores, HBM3)
 PEAK_BF16_FLOPS = 989e12
@@ -74,16 +96,38 @@ def card_label() -> str:
 
 
 def time_ms(fn, warmup: int = 3, iters: int = 20) -> float:
+    """Device time per call: CUDA events around ``iters`` calls that were
+    all enqueued while the card was held busy by a sleep kernel longer
+    than their host time, so they run back to back and the host's
+    enqueue time (Python checks, allocation, the launch) is not counted."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    started = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_s = time.perf_counter() - started
+    torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2 * host_s * 2.0e9) + 1_000_000)  # cycles at <= 2 GHz
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def call_ms(fn, iters: int = 20) -> float:
+    """Wall time per call with the host in the loop (enqueue + device),
+    what a caller that waits on each call pays."""
+    fn()
+    torch.cuda.synchronize()
+    started = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - started) / iters * 1e3
 
 
 def bound(flops: float, nbytes: float):
@@ -118,6 +162,7 @@ def check_prefill_kernel(device) -> dict:
     sdpa_mask = (rows[None, :] <= rows[:, None])[None, None] & mask[:, None, None, :]
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     kernel_ms = time_ms(lambda: flash_prefill_attention(q, k, v, lengths=lengths))
+    wall_ms = call_ms(lambda: flash_prefill_attention(q, k, v, lengths=lengths))
     plain_ms = time_ms(lambda: prefill_attention(q, k, v, mask=mask))
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=sdpa_mask, enable_gqa=True))
@@ -128,8 +173,8 @@ def check_prefill_kernel(device) -> dict:
     bound_ms, bound_by = bound(flops, nbytes)
     log(f"B1 flash_prefill [B={batch} T={seq} H={heads} KVH={kv_heads} D={dim} bf16]: "
         f"max_abs_err={worst_abs:.3e} max_rel_err={worst_rel:.3e} (tol {KERNEL_TOLERANCE}) "
-        f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
-        f"bound_ms={bound_ms:.5f} ({bound_by})")
+        f"kernel_ms={kernel_ms:.4f} (call with host {wall_ms:.4f}) plain_ms={plain_ms:.4f} "
+        f"library_ms={library_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by})")
     return {
         "name": "flash_prefill", "route": "cuda",
         "source": "langstream_tpu_torch/csrc/flash_prefill.cu",
@@ -161,6 +206,7 @@ def check_decode_kernel(device) -> dict:
     sdpa_mask = (torch.arange(max_len, device=device)[None, :] < lengths[:, None])[:, None, None, :]
     qt, kt, vt = q[:, :, None, :], kc.transpose(1, 2), vc.transpose(1, 2)
     kernel_ms = time_ms(lambda: flash_decode_attention(q, kc, vc, lengths))
+    wall_ms = call_ms(lambda: flash_decode_attention(q, kc, vc, lengths))
     plain_ms = time_ms(lambda: decode_attention(q, kc, vc, lengths))
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=sdpa_mask, enable_gqa=True))
@@ -170,8 +216,8 @@ def check_decode_kernel(device) -> dict:
     bound_ms, bound_by = bound(flops, nbytes)
     log(f"B2 flash_decode [S={slots} T={max_len} H={heads} KVH={kv_heads} D={dim} bf16, "
         f"live rows {int(live)}]: max_abs_err={worst_abs:.3e} max_rel_err={worst_rel:.3e} "
-        f"(tol {KERNEL_TOLERANCE}) kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
-        f"library_ms={library_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by})")
+        f"(tol {KERNEL_TOLERANCE}) kernel_ms={kernel_ms:.4f} (call with host {wall_ms:.4f}) "
+        f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by})")
     return {
         "name": "flash_decode", "route": "cuda",
         "source": "langstream_tpu_torch/csrc/flash_decode.cu",
@@ -179,6 +225,104 @@ def check_decode_kernel(device) -> dict:
         "max_abs_err": worst_abs, "ms": kernel_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
     }
+
+
+def _paged_bound(seq, heads, kv_heads, dim, block_size, table_width, starts, lengths, window=0):
+    """The least time B3 could take on these inputs (and its kind, and the
+    live (query, key) pairs): q and out once, every live block-padded k/v
+    block inside each row's [first, last] once, the tables; 4·H·D FLOPs
+    per live pair."""
+    batch = len(starts)
+    pairs = blocks = 0
+    for start, total in zip(starts, lengths):
+        new = min(seq, total - start)
+        if total <= 0 or new <= 0:
+            continue
+        first, last = block_bounds(start, total, window, 0, new, block_size)
+        blocks += last - first + 1
+        for t in range(new):
+            pos = start + t
+            low = max(0, pos - window + 1) if window > 0 else 0
+            pairs += min(pos + 1, total) - low
+    flops = 4.0 * heads * dim * pairs
+    nbytes = (2.0 * 2 * batch * seq * heads * dim
+              + 2.0 * 2 * blocks * block_size * kv_heads * dim
+              + 4.0 * batch * (table_width + 2))
+    return (*bound(flops, nbytes), pairs)
+
+
+def check_paged_kernel(device) -> dict:
+    """B3 at the paged path's two shapes, Llama-3-8B heads, bf16, 16-token
+    blocks, in one pool of 2049 blocks through seeded permuted tables
+    (rows 0 and 1 share their prefix blocks): a decode step of 32 rows
+    over 1024 positions, and a prefill-at-offset of 4 rows."""
+    heads, kv_heads, dim, block_size, num_blocks, width = 32, 8, 128, 16, 2049, 64
+    gen = torch.Generator(device=device).manual_seed(4)
+    k_pool = torch.randn(num_blocks, block_size, kv_heads, dim, device=device, generator=gen).bfloat16()
+    v_pool = torch.randn(num_blocks, block_size, kv_heads, dim, device=device, generator=gen).bfloat16()
+    rng = np.random.default_rng(4)
+    decode_lengths = [0, 1, 16, 17, 1024] + rng.integers(2, 1025, size=27).tolist()
+    cases = [
+        ("decode", 1, [max(n - 1, 0) for n in decode_lengths], decode_lengths),
+        ("prefill-at-offset", 256, [0, 256, 512, 767], [256, 457, 609, 768]),
+    ]
+    entry = None
+    for label, seq, starts_host, lengths_host in cases:
+        batch = len(starts_host)
+        tables_host = (rng.permutation(num_blocks - 1) + 1)[: batch * width].reshape(batch, width)
+        tables_host[1, : width // 2] = tables_host[0, : width // 2]
+        tables = torch.from_numpy(tables_host.astype(np.int32)).to(device)
+        starts = torch.tensor(starts_host, dtype=torch.int32, device=device)
+        lengths = torch.tensor(lengths_host, dtype=torch.int32, device=device)
+        q = torch.randn(batch, seq, heads, dim, device=device, generator=gen).bfloat16()
+
+        def plain():
+            if seq == 1:
+                return paged_decode_attention(q[:, 0], k_pool, v_pool, tables, lengths)[:, None]
+            return paged_chunk_attention(q, k_pool, v_pool, tables, starts, lengths)
+
+        out = ragged_paged_attention(q, k_pool, v_pool, tables, starts, lengths)
+        ref = plain()
+        torch.cuda.synchronize()
+        worst_abs = worst_rel = 0.0
+        for b, (start, total) in enumerate(zip(starts_host, lengths_host)):
+            if total == 0:
+                assert float(out[b].float().abs().max()) == 0.0, "an empty row must yield zeros"
+                continue
+            a, r = errors(out[b, : total - start], ref[b, : total - start])
+            worst_abs, worst_rel = max(worst_abs, a), max(worst_rel, r)
+        assert worst_rel < KERNEL_TOLERANCE, f"paged_attention ({label}) disagrees: {worst_rel}"
+        # SDPA yardstick on a contiguous copy gathered through the tables
+        # beforehand (the gather is not timed)
+        kt = gather_blocks(k_pool, tables).transpose(1, 2)
+        vt = gather_blocks(v_pool, tables).transpose(1, 2)
+        pos_q = starts[:, None] + torch.arange(seq, device=device)[None, :]
+        pos_s = torch.arange(kt.shape[2], device=device)
+        sdpa_mask = ((pos_s[None, None, :] <= pos_q[:, :, None])
+                     & (pos_s[None, None, :] < lengths[:, None, None]))[:, None]
+        qt = q.transpose(1, 2)
+        kernel_ms = time_ms(lambda: ragged_paged_attention(q, k_pool, v_pool, tables, starts, lengths))
+        wall_ms = call_ms(lambda: ragged_paged_attention(q, k_pool, v_pool, tables, starts, lengths))
+        plain_ms = time_ms(plain)
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=sdpa_mask, enable_gqa=True))
+        bound_ms, bound_by, pairs = _paged_bound(
+            seq, heads, kv_heads, dim, block_size, width, starts_host, lengths_host)
+        log(f"B3 paged_attention {label} [B={batch} Tq={seq} H={heads} KVH={kv_heads} D={dim} "
+            f"Bs={block_size} M={width} N={num_blocks} bf16, {pairs} live (query, key) pairs]: "
+            f"max_abs_err={worst_abs:.3e} max_rel_err={worst_rel:.3e} (tol {KERNEL_TOLERANCE}) "
+            f"kernel_ms={kernel_ms:.4f} (call with host {wall_ms:.4f}) plain_ms={plain_ms:.4f} "
+            f"library_ms={library_ms:.4f} (SDPA on the pre-gathered view, gather untimed) "
+            f"bound_ms={bound_ms:.5f} ({bound_by})")
+        if entry is None:  # the decode shape stands for B3 in the kernels line
+            entry = {
+                "name": "paged_attention", "route": "cuda",
+                "source": "langstream_tpu_torch/csrc/paged_attention.cu",
+                "replaces": "langstream_tpu/ops/paged_attention.py:245",
+                "max_abs_err": worst_abs, "ms": kernel_ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+            }
+    return entry
 
 
 def check_model_against_cpu(device) -> None:
@@ -218,6 +362,107 @@ def check_model_against_cpu(device) -> None:
         f"max_rel_err={worst:.3e} (tol {MODEL_TOLERANCE})")
 
 
+def check_paged_model(device) -> None:
+    """Llama-3-8B width, 2 layers, paged layout (16-token blocks): cold
+    prefill of two prompts, prefill-at-offset of a third row whose table
+    reuses the first prompt's first two blocks, then four decode steps (a
+    fourth, empty row rides along), on the card (B3) against the CPU
+    (plain), and on the card against the dense path (B1/B2). Then a
+    200-token prompt prefilled in the engine's long-prompt windows
+    (buckets 64/128), dense and paged, against a one-shot prefill."""
+    config = dataclasses.replace(model.LlamaConfig.llama3_8b(max_seq_len=256), num_layers=2)
+    params = model.init_params(config, seed=7, device=device)
+    cpu_params = {name: p.cpu() for name, p in params.items()}
+    block, width = 16, 256 // 16
+    num_blocks = 4 * width + 1
+    rng = np.random.default_rng(9)
+    tables = np.zeros((4, width), dtype=np.int32)
+    tables[:3] = (rng.permutation(num_blocks - 1) + 1)[: 3 * width].reshape(3, width)
+    tables[2, :2] = tables[0, :2]
+    tables = torch.from_numpy(tables)
+    prompts = torch.from_numpy(rng.integers(0, config.vocab_size, size=(2, 48)))
+    lengths = torch.tensor([48, 30], dtype=torch.int32)
+    suffix = torch.from_numpy(rng.integers(0, config.vocab_size, size=(1, 16)))
+    active = torch.tensor([True, True, True, False])
+
+    def run(where, p, layout, step_tokens):
+        """Logits of each stage; decode feeds ``step_tokens`` (or, when
+        None, its own argmax, which it returns)."""
+        i32 = dict(dtype=torch.int32, device=where)
+        freqs = model.model_freqs(config, device=where)
+        t = tables.to(where)
+        if layout == "paged":
+            cache = model.init_paged_cache(config, num_blocks, block, device=where)
+            cold = model.paged_prefill(config, p, cache, prompts.to(where), lengths.to(where), t[:2], freqs)
+            warm = model.paged_prefill_at_offset(
+                config, p, cache, suffix.to(where), torch.tensor([16], **i32),
+                torch.tensor([32], **i32), t[2:3], freqs)
+        else:
+            cache = model.init_cache(config, 4, 256, device=where)
+            cold = model.prefill(config, p, cache, prompts.to(where), lengths.to(where),
+                                 torch.tensor([0, 1], device=where), freqs)
+            model.prefill(config, p, cache, prompts[:1, :32].to(where), torch.tensor([32], **i32),
+                          torch.tensor([2], device=where), freqs)
+            warm = model.prefill_at_offset(
+                config, p, cache, suffix.to(where), torch.tensor([16], **i32),
+                torch.tensor([32], **i32), torch.tensor([2], device=where), freqs)
+        stages = [cold, warm]
+        tokens = torch.zeros(4, dtype=torch.long)
+        tokens[:2] = cold.argmax(-1).cpu()
+        tokens[2] = warm[0].argmax().cpu()
+        step_lengths = torch.tensor([49, 31, 49, 0], dtype=torch.int32)
+        used = []
+        for step in range(4):
+            if step_tokens is not None:
+                tokens = step_tokens[step]
+            used.append(tokens.clone())
+            args = (tokens.to(where), step_lengths.to(where))
+            if layout == "paged":
+                logits = model.paged_decode_step(config, p, cache, *args, t, freqs, active.to(where))
+            else:
+                logits = model.decode_step(config, p, cache, *args, freqs, active.to(where))
+            stages.append(logits[active.to(where)])
+            tokens = torch.where(active, logits.argmax(-1).cpu(), torch.zeros_like(tokens))
+            step_lengths = torch.where(active, step_lengths + 1, step_lengths)
+        return [x.float().cpu() for x in stages], used
+
+    card, used = run(device, params, "paged", None)
+    cpu, _ = run("cpu", cpu_params, "paged", used)
+    dense, _ = run(device, params, "dense", used)
+    worst = {"cpu": 0.0, "dense": 0.0}
+    for name, other in (("cpu", cpu), ("dense", dense)):
+        for out, ref in zip(card, other):
+            assert out.shape == ref.shape and bool(torch.isfinite(out).all())
+            worst[name] = max(worst[name], errors(out, ref)[1])
+        assert worst[name] < MODEL_TOLERANCE, f"paged model on the card vs {name}: {worst[name]}"
+
+    # the engine's long-prompt schedule, both layouts, against one shot
+    long_prompt = torch.from_numpy(rng.integers(0, config.vocab_size, size=(1, 256)))
+    total = 200
+    freqs = model.model_freqs(config, device=device)
+    i32 = dict(dtype=torch.int32, device=device)
+    dense_cache = model.init_cache(config, 2, 256, device=device)
+    one_shot = model.prefill(config, params, dense_cache, long_prompt.to(device),
+                             torch.tensor([total], **i32), torch.tensor([1], device=device), freqs)
+    pool = model.init_paged_cache(config, num_blocks, block, device=device)
+    windows = long_prefill_windows(total, 0, [64, 128])
+    for offset, bucket in windows:
+        chunk = torch.zeros((1, bucket), dtype=torch.long)
+        piece = long_prompt[0, offset:min(offset + bucket, total)]
+        chunk[0, : len(piece)] = piece
+        args = (chunk.to(device), torch.tensor([len(piece)], **i32), torch.tensor([offset], **i32))
+        dense_logits = model.prefill_at_offset(
+            config, params, dense_cache, *args, torch.tensor([0], device=device), freqs)
+        paged_logits = model.paged_prefill_at_offset(
+            config, params, pool, *args, tables[:1].to(device), freqs)
+    windowed = max(errors(dense_logits, one_shot)[1], errors(paged_logits, one_shot)[1])
+    assert windowed < MODEL_TOLERANCE, f"windowed prefill disagrees with one shot: {windowed}"
+    log(f"paged reference: Llama-3-8B width, 2 layers, paged prefill + prefill-at-offset + 4 decode "
+        f"steps, card (B3) vs CPU max_rel_err={worst['cpu']:.3e}, card paged vs card dense "
+        f"max_rel_err={worst['dense']:.3e}; windowed prefill {windows} (dense and paged) vs one "
+        f"shot max_rel_err={windowed:.3e} (tol {MODEL_TOLERANCE})")
+
+
 def time_decode_step(engine, live: int = 512, iters: int = 5) -> None:
     """One eager decode step of the stopped engine's model (all slots at
     ``live`` rows): host time to enqueue it against wall time to finish
@@ -246,69 +491,63 @@ def time_decode_step(engine, live: int = 512, iters: int = 5) -> None:
         f"{weight_bytes / PEAK_BYTES * 1e3:.2f} ms")
 
 
-def serve_and_check(label: str) -> dict:
+WORDS = ["stream", "token", "kernel", "batch", "event", "topic", "agent", "model",
+         "cache", "device", "latency", "record", "gateway", "prompt", "answer"]
+KERNELS = {
+    "flash_prefill": flash_prefill_attention,
+    "flash_decode": flash_decode_attention,
+    "paged_attention": ragged_paged_attention,
+}
+
+
+def prompt_text(rng, n_bytes: int) -> str:
+    text = ""
+    while len(text) < n_bytes:
+        text += rng.choice(WORDS) + " "
+    return text.strip()
+
+
+def start_llama_server(*extra: str):
     args = build_parser().parse_args([
         "serve", "--model", "llama-3-8b", "--max-slots", "32", "--max-seq-len", "1024",
-        "--decode-chunk", "8", "--host", "127.0.0.1", "--port", "0",
+        "--decode-chunk", "8", "--host", "127.0.0.1", "--port", "0", *extra,
     ])
     t0 = time.perf_counter()
     service, server = start_server(args)
-    log(f"serve: Llama-3-8B bf16 random weights up in {time.perf_counter() - t0:.1f}s "
-        f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated)")
+    log(f"serve {' '.join(extra) or '(dense)'}: Llama-3-8B bf16 random weights up in "
+        f"{time.perf_counter() - t0:.1f}s ({torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated)")
+    return service, server
+
+
+def run_burst(service, server, jobs):
+    """All jobs at once against the server: the main path's run, with
+    every kernel's launch count zeroed just before and read just after."""
     url = f"http://127.0.0.1:{server.port}"
-    try:
-        rng = np.random.default_rng(0)
-        words = ["stream", "token", "kernel", "batch", "event", "topic", "agent", "model",
-                 "cache", "device", "latency", "record", "gateway", "prompt", "answer"]
 
-        def prompt_text(n_bytes: int) -> str:
-            text = ""
-            while len(text) < n_bytes:
-                text += rng.choice(words) + " "
-            return text.strip()
+    def post(job):
+        path, body = job
+        request = urllib.request.Request(
+            url + path, data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(request, timeout=600) as response:
+            return response.read().decode()
 
-        jobs = []
-        for i in range(16):
-            body = {"max_tokens": int(32 + 2 * i)}
-            if i % 4 == 3:
-                body.update(temperature=0.8, top_p=0.9, seed=i)
-            if i % 2 == 0:
-                jobs.append(("/v1/chat/completions", dict(
-                    body, messages=[{"role": "user", "content": prompt_text(100 + 12 * i)}])))
-            else:
-                jobs.append(("/v1/completions", dict(body, prompt=prompt_text(100 + 12 * i))))
-        jobs.append(("/v1/chat/completions", {
-            "messages": [{"role": "user", "content": prompt_text(180)}],
-            "max_tokens": 48, "stream": True}))
+    service.engine.reset_stats()
+    torch.cuda.reset_peak_memory_stats()
+    for wrapper in KERNELS.values():
+        wrapper.launches = 0
+    started = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        replies = list(pool.map(post, jobs))
+    wall = time.perf_counter() - started
+    launches = {name: wrapper.launches for name, wrapper in KERNELS.items()}
+    stats = dict(service.engine.stats)
+    return replies, wall, launches, stats, torch.cuda.max_memory_allocated() / 2**30
 
-        def post(job):
-            path, body = job
-            request = urllib.request.Request(
-                url + path, data=json.dumps(body).encode(),
-                headers={"Content-Type": "application/json"})
-            with urllib.request.urlopen(request, timeout=600) as response:
-                return response.read().decode()
 
-        # the main path's run: counts zeroed just before, read just after
-        service.engine.reset_stats()
-        torch.cuda.reset_peak_memory_stats()
-        flash_prefill_attention.launches = 0
-        flash_decode_attention.launches = 0
-        started = time.perf_counter()
-        with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
-            replies = list(pool.map(post, jobs))
-        wall = time.perf_counter() - started
-        launches = {
-            "flash_prefill": flash_prefill_attention.launches,
-            "flash_decode": flash_decode_attention.launches,
-        }
-        stats = dict(service.engine.stats)
-        peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    finally:
-        server.stop()
-        service.engine.stop()
-    time_decode_step(service.engine)
-
+def check_replies(jobs, replies) -> int:
+    """Every reply complete (its max_tokens, or stopped) and the stream
+    (the last job) ended by [DONE]; returns the completion tokens."""
     tokens = 0
     for (path, body), raw in zip(jobs[:-1], replies[:-1]):
         reply = json.loads(raw)
@@ -321,18 +560,85 @@ def serve_and_check(label: str) -> dict:
     assert frames[-1] == "[DONE]", "the SSE stream must end with [DONE]"
     final = json.loads(frames[-2])
     streamed = final["usage"]["completion_tokens"]
-    assert streamed == 48 or final["choices"][0]["finish_reason"] == "stop"
-    tokens += streamed
-    layers = model.LlamaConfig.llama3_8b().num_layers
-    assert launches["flash_prefill"] > 0 and launches["flash_decode"] > 0, launches
-    assert launches["flash_prefill"] == layers * stats["prefill_calls"], (launches, stats)
-    assert launches["flash_decode"] == layers * stats["decode_steps"], (launches, stats)
+    assert streamed == jobs[-1][1]["max_tokens"] or final["choices"][0]["finish_reason"] == "stop"
+    return tokens + streamed
+
+
+def report(label, kind, jobs, wall, tokens, stats, launches, peak_gib) -> None:
     requests = stats["requests"]
-    log(f"serving [{label}]: {requests} requests, {tokens} completion tokens in {wall:.3f}s "
+    log(f"serving {kind} [{label}]: {requests} requests, {tokens} completion tokens in {wall:.3f}s "
         f"= {tokens / wall:.1f} tok/s; mean TTFT {stats['ttft_time'] / requests * 1e3:.1f} ms "
-        f"(engine submit → first token); prefill calls {stats['prefill_calls']} "
-        f"({stats['prefill_time']:.3f}s), decode steps {stats['decode_steps']} "
-        f"({stats['decode_time']:.3f}s); peak memory {peak_gib:.2f} GiB; launches {launches}")
+        f"(engine submit → first token); prefill calls {stats['prefill_calls']} + warm "
+        f"{stats['warm_prefill_calls']} ({stats['prefill_time']:.3f}s), decode steps "
+        f"{stats['decode_steps']} ({stats['decode_time']:.3f}s); prefix hits {stats['prefix_hits']}, "
+        f"reused tokens {stats['prefix_tokens_reused']}; model calls {stats['model_dispatches']}; "
+        f"peak memory {peak_gib:.2f} GiB; launches {launches}")
+    assert requests == len(jobs), (requests, len(jobs))
+
+
+def serve_dense_and_check(label: str) -> dict:
+    service, server = start_llama_server()
+    rng = np.random.default_rng(0)
+    jobs = []
+    for i in range(16):
+        body = {"max_tokens": int(32 + 2 * i)}
+        if i % 4 == 3:
+            body.update(temperature=0.8, top_p=0.9, seed=i)
+        if i % 2 == 0:
+            jobs.append(("/v1/chat/completions", dict(
+                body, messages=[{"role": "user", "content": prompt_text(rng, 100 + 12 * i)}])))
+        else:
+            jobs.append(("/v1/completions", dict(body, prompt=prompt_text(rng, 100 + 12 * i))))
+    jobs.append(("/v1/chat/completions", {
+        "messages": [{"role": "user", "content": prompt_text(rng, 180)}],
+        "max_tokens": 48, "stream": True}))
+    try:
+        replies, wall, launches, stats, peak_gib = run_burst(service, server, jobs)
+    finally:
+        server.stop()
+        service.engine.stop()
+    time_decode_step(service.engine)
+    tokens = check_replies(jobs, replies)
+    layers = model.LlamaConfig.llama3_8b().num_layers
+    calls = stats["model_dispatches"]
+    assert launches["flash_prefill"] > 0 and launches["flash_decode"] > 0, launches
+    assert launches["flash_prefill"] == layers * calls.get("prefill", 0), (launches, calls)
+    assert launches["flash_decode"] == layers * calls.get("decode_step", 0), (launches, calls)
+    assert launches["paged_attention"] == 0, launches
+    report(label, "dense", jobs, wall, tokens, stats, launches, peak_gib)
+    return launches
+
+
+def serve_paged_and_check(label: str) -> dict:
+    service, server = start_llama_server("--kv-layout", "paged", "--kv-block-size", "16")
+    rng = np.random.default_rng(1)
+    system = {"role": "system", "content": prompt_text(rng, 512)}
+    jobs = []
+    for i in range(16):
+        body = {"max_tokens": int(24 + 2 * i), "messages": [
+            system, {"role": "user", "content": f"question {i}: " + prompt_text(rng, 40 + 6 * i)}]}
+        if i % 4 == 3:
+            body.update(temperature=0.8, top_p=0.9, seed=i)
+        jobs.append(("/v1/chat/completions", body))
+    for i in range(8):
+        jobs.append(("/v1/completions", {
+            "prompt": prompt_text(rng, 120 + 20 * i), "max_tokens": int(32 + 3 * i)}))
+    jobs.append(("/v1/chat/completions", {
+        "messages": [system, {"role": "user", "content": prompt_text(rng, 60)}],
+        "max_tokens": 40, "stream": True}))
+    try:
+        replies, wall, launches, stats, peak_gib = run_burst(service, server, jobs)
+    finally:
+        server.stop()
+        service.engine.stop()
+    tokens = check_replies(jobs, replies)
+    layers = model.LlamaConfig.llama3_8b().num_layers
+    calls = sum(stats["model_dispatches"].values())
+    assert stats["prefix_tokens_reused"] > 0, stats
+    assert launches["paged_attention"] > 0, launches
+    assert launches["paged_attention"] == layers * calls, (launches, stats["model_dispatches"])
+    assert launches["flash_prefill"] == 0 and launches["flash_decode"] == 0, launches
+    report(label, "paged", jobs, wall, tokens, stats, launches, peak_gib)
     return launches
 
 
@@ -345,11 +651,16 @@ def main() -> None:
     t0 = time.perf_counter()
     _build.build_all()
     log(f"built {sorted(_build.SIGNATURES)} in {time.perf_counter() - t0:.1f}s -> {_build.BUILD_DIR}")
-    kernels = [check_prefill_kernel(device), check_decode_kernel(device)]
+    kernels = [check_prefill_kernel(device), check_decode_kernel(device), check_paged_kernel(device)]
     check_model_against_cpu(device)
-    launches = serve_and_check(label)
+    check_paged_model(device)
+    launches = serve_dense_and_check(label)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["paged_attention"] = serve_paged_and_check(label)["paged_attention"]
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]
+        assert entry["launches"] > 0, entry
     log(label)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

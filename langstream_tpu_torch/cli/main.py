@@ -20,6 +20,25 @@ def build_parser() -> argparse.ArgumentParser:
     serve.add_argument("--max-slots", type=int, default=8)
     serve.add_argument("--max-seq-len", type=int, default=2048)
     serve.add_argument("--decode-chunk", type=int, default=16)
+    serve.add_argument(
+        "--kv-layout", default="dense", choices=["dense", "paged"],
+        help="KV cache layout: dense per-slot regions, or a paged block pool "
+             "with a persistent refcounted prefix cache",
+    )
+    serve.add_argument("--kv-block-size", type=int, default=16,
+                       help="paged layout: tokens per pool block")
+    serve.add_argument(
+        "--kv-blocks", type=int, default=0,
+        help="paged layout: pool size in blocks (0 = the dense-equivalent "
+             "worst case, slots x ceil(max_seq/block) + 1)",
+    )
+    serve.add_argument(
+        "--paged-kernel", default="fused", choices=["fused", "reference"],
+        help="paged attention: the ragged CUDA kernel over the block tables "
+             "(default) or the gather composition in plain PyTorch",
+    )
+    serve.add_argument("--no-prefix-cache", action="store_true",
+                       help="disable prompt-prefix KV reuse (on by default)")
     serve.add_argument("--host", default="0.0.0.0")
     serve.add_argument("--port", type=int, default=8000)
     return parser
@@ -34,6 +53,11 @@ def start_server(args: argparse.Namespace) -> Tuple[TorchCompletionsService, Ope
             "max-slots": args.max_slots,
             "max-seq-len": args.max_seq_len,
             "decode-chunk": args.decode_chunk,
+            "kv-layout": args.kv_layout,
+            "kv-block-size": args.kv_block_size,
+            "kv-blocks": args.kv_blocks,
+            "paged-kernel": args.paged_kernel,
+            "prefix-cache": not args.no_prefix_cache,
         },
     }
     service = TorchCompletionsService(config, device=args.device)

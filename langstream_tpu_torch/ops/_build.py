@@ -42,6 +42,14 @@ SIGNATURES = {
     "flash_decode": {
         "flash_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
     },
+    "paged_attention": {
+        "paged_attention": [
+            _P, _P, _P, _P, _P, _P, _P,          # q, pools, out, tables, starts, lengths
+            _I, _I, _I, _I, _I, _I, _I, _I, _I,  # batch, seq, heads, kv_heads, dim,
+                                                 # blocks, block size, table width, dtype
+            _F, _F, _I, _P,                      # scale, softcap, window, stream
+        ],
+    },
 }
 
 _lock = threading.Lock()

@@ -1,4 +1,4 @@
-"""Carry the JAX package's parameters into the port.
+"""Carry the JAX package's parameters and KV caches into the port.
 
 The JAX stacked-layer param dict (``model.init_params``) holds arrays in
 the ``[in, out]`` layout the port keeps, so each leaf crosses as it is.
@@ -50,3 +50,16 @@ def params_from_jax(
         out[name] = tensor_from_numpy(leaf, device)
     validate_family_params(config, out)
     return out
+
+
+def cache_from_jax(
+    np_cache: Dict[str, Any], device: torch.device | str = "cpu"
+) -> Dict[str, torch.Tensor]:
+    """A JAX KV cache (numpy arrays, or anything ``np.asarray`` takes) →
+    the port's cache dict on ``device``. Both layouts cross as they are:
+    the dense ``[L, S, T, KVH, D]`` cache and the paged ``[L, N, Bs, KVH,
+    D]`` pool have the same shapes on both sides. The int8 cache (its
+    scale leaves) is not ported yet."""
+    if "k_scale" in np_cache:
+        raise NotImplementedError("the int8 KV cache is not ported yet (see ROADMAP.md)")
+    return {name: tensor_from_numpy(leaf, device) for name, leaf in np_cache.items()}

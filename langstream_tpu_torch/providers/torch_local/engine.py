@@ -2,15 +2,23 @@
 ``torch-local``.
 
 Port of ``langstream_tpu/providers/jax_local/engine.py`` reduced to the
-dense-cache split path:
+split-prefill path over either KV layout:
 
-- **Slot-based static batch**: the KV cache holds ``max_slots`` sequences
-  of ``max_seq_len``; every decode step runs ALL slots through
-  ``model.decode_step``. Empty slots ride along masked.
+- **Slot-based static batch**: every decode step runs ALL ``max_slots``
+  slots through the model. Empty slots ride along masked.
+- **Two KV layouts**: ``kv_layout="dense"`` (the default) gives each slot
+  ``max_seq_len`` cache rows; ``kv_layout="paged"`` shares one block pool
+  through host-authoritative per-slot block tables, with a persistent
+  block prefix cache (``paged.py``): a request whose prompt starts with a
+  published chain of full blocks references those blocks and prefills
+  only its suffix. Every request reserves its worst case (prompt +
+  max_new_tokens) at admission, so decode never allocates; when the pool
+  cannot cover a reservation even after LRU eviction, the request waits.
 - **Continuous batching**: requests join mid-flight. Cold requests that
   share a prompt bucket are prefilled together (power-of-two groups) and
   their first token is sampled in the same call; a finishing request
-  frees its slot at once.
+  frees its slot at once. A prompt longer than the largest bucket is
+  prefilled in bucket-sized windows (``_prefill_long``).
 - **K-step decode chunks**: the JAX ``lax.scan`` becomes a host loop of K
   steps whose sampled tokens stay on the device; the chunk's tokens cross
   to the host once, are emitted per chunk, and a stop in mid-chunk
@@ -22,10 +30,10 @@ dense-cache split path:
   :meth:`DecodeEngine.submit`, or ``await`` :meth:`DecodeEngine.generate`)
   and receive per-token callbacks on their own event loop.
 
-Not in this slice (ROADMAP.md): the prefix cache and warm sessions, the
-paged layout, chunked prefill of prompts past the largest bucket,
-speculative and mixed dispatch, the pipelined carry, the supervisor and
-the telemetry planes.
+Not in this slice (ROADMAP.md): warm sessions (and the paged
+copy-on-write they need), the dense layout's cross-slot prefix copy, host
+KV tiers and handoffs, speculative and mixed dispatch, the pipelined
+carry, the supervisor and the telemetry planes.
 """
 
 from __future__ import annotations
@@ -42,8 +50,10 @@ import numpy as np
 import torch
 
 from langstream_tpu_torch.device import resolve_device
+from langstream_tpu_torch.ops.paged_attention import fused_shapes_ok
 from langstream_tpu_torch.providers.torch_local import model as model_lib
 from langstream_tpu_torch.providers.torch_local import prng, sampling
+from langstream_tpu_torch.providers.torch_local.paged import PagedKVManager
 
 logger = logging.getLogger(__name__)
 
@@ -99,6 +109,7 @@ class _Slot:
     logprobs: Optional[List[float]] = None
     history: Optional[List[int]] = None  # tokens in cache + the pending one
     epoch: int = 0                  # bumps on assign/finish
+    blocks: Optional[List[int]] = None   # paged: the slot's reserved pool blocks
 
     @property
     def active(self) -> bool:
@@ -110,6 +121,23 @@ def _bucket(length: int, buckets: List[int]) -> int:
         if length <= size:
             return size
     return buckets[-1]
+
+
+def long_prefill_windows(total: int, reused: int, buckets: List[int]) -> List[Tuple[int, int]]:
+    """(offset, bucket) windows that prefill positions [reused, total):
+    largest-bucket windows left to right, then the tail's bucket shifted
+    left to end exactly at ``total`` (it re-teaches a few written
+    positions, same tokens and so the same KV, instead of needing a
+    ragged tail, and never writes past the prompt)."""
+    largest = buckets[-1]
+    windows: List[Tuple[int, int]] = []
+    position = reused
+    while total - position > largest:
+        windows.append((position, largest))
+        position += largest
+    tail_bucket = _bucket(total - position, buckets)
+    windows.append((max(0, total - tail_bucket), tail_bucket))
+    return windows
 
 
 def _pow2_groups(batch: List[Any]) -> List[List[Any]]:
@@ -143,6 +171,14 @@ class DecodeEngine:
         prefill_buckets: Optional[List[int]] = None,
         decode_chunk: int = 8,
         seed: int = 0,
+        kv_layout: str = "dense",         # "dense" | "paged" (block pool)
+        kv_block_size: int = 16,          # paged: tokens per pool block
+        kv_blocks: Optional[int] = None,  # paged: pool size (None = the
+                                          # dense-equivalent worst case)
+        paged_kernel: str = "fused",      # paged attention: "fused" (the
+                                          # ragged kernel) | "reference"
+                                          # (the gather composition)
+        prefix_cache: bool = True,
     ) -> None:
         self.device = resolve_device(device)
         self.config = config
@@ -150,13 +186,58 @@ class DecodeEngine:
         self.decode_chunk = max(1, decode_chunk)
         self.max_seq_len = min(max_seq_len or config.max_seq_len, config.max_seq_len)
         self.prefill_buckets = sorted(prefill_buckets or self._default_buckets())
+        if kv_layout not in ("dense", "paged"):
+            raise ValueError(f"unknown kv layout {kv_layout!r}")
+        if paged_kernel not in model_lib.PAGED_KERNELS:
+            raise ValueError(f"unknown paged kernel {paged_kernel!r}")
+        self.kv_layout = kv_layout
+        self.paged = kv_layout == "paged"
+        self.paged_kernel = paged_kernel if self.paged else None
+        self.prefix_cache = prefix_cache
         model_lib.validate_family_params(config, params)
+        if (
+            self.paged_kernel == "fused" and self.device.type == "cuda"
+            and not fused_shapes_ok(config.num_heads, config.num_kv_heads, config.dims_per_head)
+        ):
+            # never relabelled to "reference" quietly: the caller asks for it
+            raise ValueError(
+                f"the ragged paged-attention kernel cannot take {config.num_heads} heads "
+                f"over {config.num_kv_heads} kv heads at head_dim {config.dims_per_head}; "
+                f"pass paged_kernel='reference' to run the gather composition"
+            )
         self.params = {name: p.to(self.device) for name, p in params.items()}
         self.freqs = model_lib.model_freqs(config, device=self.device)
+        self.kv_manager: Optional[PagedKVManager] = None
         # device state, mutated in place only on the engine thread
-        self.cache = model_lib.init_cache(
-            config, max_slots, self.max_seq_len, device=self.device
-        )
+        if self.paged:
+            self.block_size = max(1, int(kv_block_size))
+            # per-slot table width: enough blocks to address max_seq_len
+            self.max_blocks = -(-self.max_seq_len // self.block_size)
+            # default pool = the dense layout's worst case (+ the null
+            # block); deployments size it down
+            self.num_blocks = int(kv_blocks or max_slots * self.max_blocks + 1)
+            if self.num_blocks < self.max_blocks + 1:
+                raise ValueError(
+                    f"kv_blocks={self.num_blocks} cannot hold even one "
+                    f"max-length sequence ({self.max_blocks} blocks of "
+                    f"{self.block_size})"
+                )
+            self.kv_manager = PagedKVManager(self.num_blocks, self.block_size)
+            # host-authoritative block tables [slots, max_blocks]; rows are
+            # uploaded per dispatch (0 = the null block)
+            self._block_tables = np.zeros((max_slots, self.max_blocks), dtype=np.int32)
+            self.cache = model_lib.init_paged_cache(
+                config, self.num_blocks, self.block_size, device=self.device
+            )
+        else:
+            self.cache = model_lib.init_cache(
+                config, max_slots, self.max_seq_len, device=self.device
+            )
+            if prefix_cache:
+                logger.info(
+                    "prefix_cache on the dense layout: the cross-slot prefix "
+                    "copy is not ported yet, so dense prompts prefill cold"
+                )
         # per-slot generated-token counts for presence/frequency penalties
         self._counts = torch.zeros(
             (max_slots, config.vocab_size), dtype=torch.int32, device=self.device
@@ -181,6 +262,11 @@ class DecodeEngine:
             "prefill_time": 0.0,  # wall secs inside prefill calls
             "ttft_time": 0.0,     # summed submit → first-token secs of
                                   # finished requests
+            "warm_prefill_calls": 0,     # prefills at an offset (prefix hits)
+            "prefix_hits": 0,            # admissions onto a cached prefix
+            "prefix_tokens_reused": 0,   # prompt tokens those did not prefill
+            # every call into the model, by model function
+            "model_dispatches": {},
         }
 
     def reset_stats(self) -> None:
@@ -229,12 +315,13 @@ class DecodeEngine:
             )
         if not request.prompt_tokens:
             raise ValueError("empty prompt")
-        limit = min(self.max_seq_len - 1, self.prefill_buckets[-1])
+        # prompts longer than the largest bucket prefill in bucket-sized
+        # windows, so context length is the only limit
+        limit = self.max_seq_len - 1
         if len(request.prompt_tokens) > limit:
             raise ValueError(
                 f"prompt of {len(request.prompt_tokens)} tokens exceeds the "
-                f"limit of {limit} (max_seq_len {self.max_seq_len}, largest "
-                f"prefill bucket {self.prefill_buckets[-1]})"
+                f"context limit of {limit} (max_seq_len {self.max_seq_len})"
             )
         request._submit_ts = time.perf_counter()  # type: ignore[attr-defined]
         self._queue.put(request)
@@ -325,7 +412,8 @@ class DecodeEngine:
     def _admit(self) -> None:
         """Move pending requests into free slots. Cold requests sharing a
         prompt bucket are prefilled in one batched call (FIFO; a request
-        in another bucket starts the next round)."""
+        in another bucket starts the next round); a prompt longer than the
+        largest bucket is prefilled at once in windows."""
         if any(r.cancelled for r in self._pending):
             keep = []
             for request in self._pending:
@@ -334,12 +422,21 @@ class DecodeEngine:
                 else:
                     keep.append(request)
             self._pending = keep
+        if self.paged:
+            return self._admit_paged()
+        largest = self.prefill_buckets[-1]
         while self._pending:
             batch: List[Tuple[int, GenerationRequest]] = []
             bucket: Optional[int] = None
             free = [i for i, slot in enumerate(self.slots) if not slot.active]
             while self._pending and free:
                 request = self._pending[0]
+                if len(request.prompt_tokens) > largest:
+                    self._pending.pop(0)
+                    index = free.pop(0)
+                    self.slots[index].request = request  # reserve the slot
+                    self._prefill_long(index, request, 0)
+                    continue
                 size = _bucket(len(request.prompt_tokens), self.prefill_buckets)
                 if bucket is None:
                     bucket = size
@@ -352,6 +449,137 @@ class DecodeEngine:
             if not batch:
                 return
             self._prefill_batch(batch, bucket)
+
+    def _free_slot(self) -> Optional[int]:
+        for i, slot in enumerate(self.slots):
+            if not slot.active:
+                return i
+        return None
+
+    def _admit_paged(self) -> None:
+        """Paged admission. Block-granular matching against the prefix
+        cache: shared blocks are referenced through the table, never
+        copied, so a shared system or RAG prefix survives any slot
+        turnover. Every request reserves its worst case up front; when
+        the pool (after LRU eviction) cannot cover it, the request stays
+        pending until running requests release blocks.
+
+        A round dispatches cold batch → long prefills → warm suffixes, so
+        a suffix admitted onto blocks published this round reads rows
+        whose writes already ran."""
+        largest = self.prefill_buckets[-1]
+        while self._pending:
+            cold: List[Tuple[int, GenerationRequest]] = []
+            cold_bucket: Optional[int] = None
+            # suffix bucket -> [(slot, request, resume offset)]
+            warm: Dict[int, List[Tuple[int, GenerationRequest, int]]] = {}
+            long_entries: List[Tuple[int, GenerationRequest, int]] = []
+            progressed = False
+            while self._pending:
+                index = self._free_slot()
+                if index is None:
+                    break
+                request = self._pending[0]
+                # probe the resume offset without committing, so the
+                # cold-bucket grouping can end the round before any block
+                # moves (match() only touches LRU ticks); the probe's match
+                # is handed to _paged_reserve so the chain walk runs once
+                prompt_len = len(request.prompt_tokens)
+                probe_match = None
+                probe = 0
+                if self.prefix_cache:
+                    probe_match = self.kv_manager.match(request.prompt_tokens)
+                    probe = probe_match[1]
+                    while probe >= prompt_len:
+                        probe -= self.block_size
+                suffix = prompt_len - probe
+                needs_long = suffix > largest or (
+                    probe > 0
+                    and probe + _bucket(suffix, self.prefill_buckets) > self.max_seq_len
+                )
+                if probe == 0 and not needs_long:
+                    bucket = _bucket(prompt_len, self.prefill_buckets)
+                    if cold_bucket is None:
+                        cold_bucket = bucket
+                    elif bucket != cold_bucket:
+                        break  # different bucket: next outer round
+                resume = self._paged_reserve(index, request, probe_match)
+                if resume is None:
+                    # pool exhausted even after eviction: every block is
+                    # referenced by running work — wait for releases
+                    break
+                self._pending.pop(0)
+                self.slots[index].request = request  # reserve the slot
+                if needs_long:
+                    long_entries.append((index, request, resume))
+                elif resume == 0:
+                    cold.append((index, request))
+                    if len(cold) >= self.max_slots:
+                        break
+                else:
+                    warm.setdefault(
+                        _bucket(prompt_len - resume, self.prefill_buckets), []
+                    ).append((index, request, resume))
+            if cold:
+                self._prefill_batch(cold, cold_bucket)
+                progressed = True
+            for index, request, resume in long_entries:
+                self._prefill_long(index, request, resume)
+                progressed = True
+            for suffix_bucket, batch in warm.items():
+                self._prefill_warm_batch(batch, suffix_bucket)
+                progressed = True
+            if not progressed:
+                return
+
+    def _paged_reserve(
+        self,
+        index: int,
+        request: GenerationRequest,
+        match: Optional[Tuple[List[int], int]],
+    ) -> Optional[int]:
+        """Commit pool blocks for a request before it is admitted: the
+        prefix chain ``match`` found (None with the prefix cache off),
+        referenced, plus fresh blocks up to its worst case. Returns the
+        resume offset (prompt tokens already in the pool), or None when
+        the pool cannot cover the reservation."""
+        slot = self.slots[index]
+        manager = self.kv_manager
+        size = self.block_size
+        prompt = request.prompt_tokens
+        need_tokens = min(len(prompt) + request.sampling.max_new_tokens, self.max_seq_len)
+        need_blocks = -(-need_tokens // size)
+        matched: List[int] = []
+        matched_tokens = 0
+        if match is not None:
+            # the admission probe already walked the chain; nothing can
+            # change it between probe and commit
+            matched, matched_tokens = list(match[0]), match[1]
+        # re-prefill at least the last prompt token so fresh logits exist
+        # for the first sample
+        while matched and matched_tokens >= len(prompt):
+            matched.pop()
+            matched_tokens -= size
+        manager.ref(matched)
+        fresh = manager.allocate(need_blocks - len(matched))
+        if fresh is None:
+            manager.release(matched)
+            return None
+        slot.blocks = matched + fresh
+        if matched_tokens:
+            self.stats["prefix_hits"] += 1
+            self.stats["prefix_tokens_reused"] += matched_tokens
+            manager.stats["hit_tokens"] += matched_tokens
+        if self.prefix_cache and not matched_tokens:
+            # publish a fully cold prompt's blocks now so same-round
+            # duplicates share them: the cold batch (or long prefill) that
+            # writes them dispatches before any warm suffix of this round.
+            # Partially matched prompts publish their tail at finish.
+            manager.publish(prompt, slot.blocks)
+        table = self._block_tables[index]
+        table[:] = 0
+        table[: len(slot.blocks)] = slot.blocks
+        return matched_tokens
 
     def _assign_slot(self, index: int, request: GenerationRequest) -> None:
         slot = self.slots[index]
@@ -419,6 +647,55 @@ class DecodeEngine:
         ]
         return tensors, tiers
 
+    def _count_dispatch(self, name: str) -> None:
+        dispatches = self.stats["model_dispatches"]
+        dispatches[name] = dispatches.get(name, 0) + 1
+
+    def _table_rows(self, slot_ids: np.ndarray) -> torch.Tensor:
+        return self._to_device(self._block_tables[slot_ids])
+
+    def _prefill_at_offset(self, tokens, lengths, offsets, slot_ids) -> torch.Tensor:
+        """One prefill-at-offset model call on either layout; host arrays
+        in, logits [B, V] out."""
+        args = (self._to_device(tokens), self._to_device(lengths), self._to_device(offsets))
+        if self.paged:
+            self._count_dispatch("paged_prefill_at_offset")
+            return model_lib.paged_prefill_at_offset(
+                self.config, self.params, self.cache, *args,
+                self._table_rows(slot_ids), self.freqs, kernel=self.paged_kernel,
+            )
+        self._count_dispatch("prefill_at_offset")
+        return model_lib.prefill_at_offset(
+            self.config, self.params, self.cache, *args,
+            self._to_device(slot_ids), self.freqs,
+        )
+
+    def _sample_first(
+        self,
+        requests: List[GenerationRequest],
+        slot_ids: np.ndarray,
+        logits: torch.Tensor,
+        positions: np.ndarray,
+    ) -> Tuple[List[int], List[float]]:
+        """First-token sampling after a prefill. ``positions`` is each
+        row's total cache length, so a warm continuation samples exactly
+        like a cold run of the same full prompt. Resets the slots'
+        penalty counts, then counts the sampled token."""
+        (temperature, top_k, top_p, seeds, bias_ids, bias_vals), tiers = (
+            self._sampling_inputs(requests)
+        )
+        adjusted = logits.scatter_add(1, bias_ids, bias_vals)
+        key = prng.sampling_keys(seeds, self._to_device(positions))
+        sampled = sampling.sample(adjusted, temperature, top_k, key, top_p, **tiers)
+        lps = sampling.token_logprob(logits, sampled)
+        slots_d = self._to_device(slot_ids)
+        self._counts[slots_d] = 0
+        self._counts.index_put_(
+            (slots_d, sampled), torch.ones_like(sampled, dtype=torch.int32),
+            accumulate=True,
+        )
+        return sampled.cpu().tolist(), lps.cpu().tolist()
+
     def _prefill_batch(
         self, batch: List[Tuple[int, GenerationRequest]], bucket: int
     ) -> None:
@@ -436,35 +713,76 @@ class DecodeEngine:
                 lengths[row] = len(prompt)
                 slot_ids[row] = index
                 self._assign_slot(index, request)
-            requests = [request for _, request in group]
-            (temperature, top_k, top_p, seeds, bias_ids, bias_vals), tiers = (
-                self._sampling_inputs(requests)
+            if self.paged:
+                self._count_dispatch("paged_prefill")
+                logits = model_lib.paged_prefill(
+                    self.config, self.params, self.cache, self._to_device(tokens),
+                    self._to_device(lengths), self._table_rows(slot_ids), self.freqs,
+                    kernel=self.paged_kernel,
+                )
+            else:
+                self._count_dispatch("prefill")
+                logits = model_lib.prefill(
+                    self.config, self.params, self.cache, self._to_device(tokens),
+                    self._to_device(lengths), self._to_device(slot_ids), self.freqs,
+                )
+            firsts, lps = self._sample_first(
+                [request for _, request in group], slot_ids, logits, lengths
             )
-            lengths_d = self._to_device(lengths)
-            slots_d = self._to_device(slot_ids)
-            logits = model_lib.prefill(
-                self.config, self.params, self.cache, self._to_device(tokens),
-                lengths_d, slots_d, self.freqs,
-            )
-            adjusted = logits.scatter_add(1, bias_ids, bias_vals)
-            key = prng.sampling_keys(seeds, lengths_d)
-            sampled = sampling.sample(
-                adjusted, temperature, top_k, key, top_p, **tiers
-            )
-            lps = sampling.token_logprob(logits, sampled)
-            # fresh requests: reset the slots' penalty counts, then count
-            # the first sampled token
-            self._counts[slots_d] = 0
-            self._counts.index_put_(
-                (slots_d, sampled), torch.ones_like(sampled, dtype=torch.int32),
-                accumulate=True,
-            )
-            firsts = sampled.cpu().tolist()
-            lps_host = lps.cpu().tolist()
             self.stats["prefill_calls"] += 1
             self.stats["prefill_time"] += time.perf_counter() - started
             for row, (index, _) in enumerate(group):
-                self._emit_token(index, firsts[row], lps_host[row])
+                self._emit_token(index, firsts[row], lps[row])
+
+    def _prefill_warm_batch(
+        self, batch: List[Tuple[int, GenerationRequest, int]], bucket: int
+    ) -> None:
+        """Admissions onto a cached prefix that share a suffix bucket: one
+        prefill-at-offset call writes every suffix. Groups split to
+        power-of-two sizes, like cold prefill."""
+        for group in _pow2_groups(batch):
+            started = time.perf_counter()
+            size = len(group)
+            tokens = np.zeros((size, bucket), dtype=np.int64)
+            lengths = np.zeros((size,), dtype=np.int32)
+            offsets = np.zeros((size,), dtype=np.int32)
+            slot_ids = np.zeros((size,), dtype=np.int64)
+            for row, (index, request, reused) in enumerate(group):
+                suffix = request.prompt_tokens[reused:]
+                tokens[row, : len(suffix)] = suffix
+                lengths[row] = len(suffix)
+                offsets[row] = reused
+                slot_ids[row] = index
+                self._assign_slot(index, request)
+            logits = self._prefill_at_offset(tokens, lengths, offsets, slot_ids)
+            firsts, lps = self._sample_first(
+                [request for _, request, _ in group], slot_ids, logits, offsets + lengths
+            )
+            self.stats["warm_prefill_calls"] += 1
+            self.stats["prefill_time"] += time.perf_counter() - started
+            for row, (index, _, _) in enumerate(group):
+                self._emit_token(index, firsts[row], lps[row])
+
+    def _prefill_long(self, index: int, request: GenerationRequest, reused: int) -> None:
+        """Chunked prefill of a prompt (or suffix past a cached prefix)
+        longer than the largest bucket: one prefill-at-offset call per
+        window of :func:`long_prefill_windows`. Only the final window's
+        sample is kept."""
+        prompt = request.prompt_tokens
+        self._assign_slot(index, request)
+        started = time.perf_counter()
+        slot_ids = np.asarray([index], dtype=np.int64)
+        for offset, bucket in long_prefill_windows(len(prompt), reused, self.prefill_buckets):
+            chunk = prompt[offset:offset + bucket]
+            tokens = np.zeros((1, bucket), dtype=np.int64)
+            tokens[0, : len(chunk)] = chunk
+            lengths = np.asarray([len(chunk)], dtype=np.int32)
+            offsets = np.asarray([offset], dtype=np.int32)
+            logits = self._prefill_at_offset(tokens, lengths, offsets, slot_ids)
+        firsts, lps = self._sample_first([request], slot_ids, logits, offsets + lengths)
+        self.stats["warm_prefill_calls" if reused else "prefill_calls"] += 1
+        self.stats["prefill_time"] += time.perf_counter() - started
+        self._emit_token(index, firsts[0], lps[0])
 
     def _dispatch_decode(self) -> Dict[str, Any]:
         """Run one K-step decode chunk over every slot. Tokens, lengths
@@ -504,12 +822,21 @@ class DecodeEngine:
         frequency_d = self._to_device(frequency)[:, None]
         rows = torch.arange(slots, device=self.device)
         active_counts = active_d.to(torch.int32)
+        tables_d = self._to_device(self._block_tables) if self.paged else None
         out_tokens, out_lps = [], []
         for _ in range(steps):
-            logits = model_lib.decode_step(
-                self.config, self.params, self.cache, tokens_d, lengths_d,
-                self.freqs, write_mask=active_d,
-            )
+            if self.paged:
+                self._count_dispatch("paged_decode_step")
+                logits = model_lib.paged_decode_step(
+                    self.config, self.params, self.cache, tokens_d, lengths_d,
+                    tables_d, self.freqs, write_mask=active_d, kernel=self.paged_kernel,
+                )
+            else:
+                self._count_dispatch("decode_step")
+                logits = model_lib.decode_step(
+                    self.config, self.params, self.cache, tokens_d, lengths_d,
+                    self.freqs, write_mask=active_d,
+                )
             # presence/frequency penalties over generated tokens
             counts = self._counts
             adjusted = logits - presence_d * (counts > 0) - frequency_d * counts
@@ -597,6 +924,16 @@ class DecodeEngine:
         submitted = getattr(request, "_submit_ts", None)
         if submitted is not None:
             self.stats["ttft_time"] += request._first_token_ts - submitted
+        if self.paged and slot.blocks is not None:
+            if self.prefix_cache:
+                # publish the completed prefix (prompt + generated): only
+                # rows actually IN the cache (the final sampled token is
+                # never written), full blocks only. The chain outlives the
+                # slot, refcounted by the map, until LRU eviction needs it
+                self.kv_manager.publish(slot.history[: slot.length], slot.blocks)
+            self.kv_manager.release(slot.blocks)
+            slot.blocks = None
+            self._block_tables[index, :] = 0
         slot.request = None
         slot.epoch += 1
         slot.generated = None

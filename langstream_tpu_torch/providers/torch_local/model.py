@@ -1,7 +1,7 @@
 """Llama-family decoder in PyTorch over a stacked-parameter dict.
 
-Port of ``langstream_tpu/providers/jax_local/model.py`` for the dense
-serving path. Parameters are a dict of tensors with the per-layer weights
+Port of ``langstream_tpu/providers/jax_local/model.py`` for the dense and
+paged serving paths. Parameters are a dict of tensors with the per-layer weights
 stacked on a leading layer axis, in the JAX package's ``[in, out]``
 layout, so ``x @ W`` is what its ``qeinsum("...h,hd->...d")`` computed and
 parameters carry across unchanged (see ``convert.py``). The ``lax.scan``
@@ -9,7 +9,9 @@ over layers is a Python loop.
 
 Attention goes through the kernel wrappers in ``ops/``: on the card they
 launch the hand-written CUDA kernels, on the CPU they run the plain
-versions. The matrix products outside attention stay ``torch.matmul``.
+versions. Dense prefill-at-offset attention is plain PyTorch everywhere,
+as the JAX package leaves it to XLA. The matrix products outside
+attention stay ``torch.matmul``.
 """
 
 from __future__ import annotations
@@ -21,8 +23,15 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from langstream_tpu_torch.ops.attention import (
+    chunk_attention,
+    paged_chunk_attention,
+    paged_decode_attention,
+    paged_write_rows,
+)
 from langstream_tpu_torch.ops.decode_kernel import flash_decode_attention
 from langstream_tpu_torch.ops.flash_attention import flash_prefill_attention
+from langstream_tpu_torch.ops.paged_attention import ragged_paged_attention
 from langstream_tpu_torch.ops.norms import rms_norm
 from langstream_tpu_torch.ops.rope import apply_rope, rope_frequencies
 
@@ -315,6 +324,31 @@ def init_cache(
     }
 
 
+def init_paged_cache(
+    config: LlamaConfig,
+    num_blocks: int,
+    block_size: int,
+    kv_quant: bool = False,
+    device: torch.device | str = "cpu",
+) -> Dict[str, torch.Tensor]:
+    """Paged KV cache (``kv_layout="paged"``): one block pool
+    [layers, num_blocks, block_size, kv_heads, head_dim] shared by every
+    slot, addressed through per-slot block tables (``paged.py`` owns the
+    block accounting). Block 0 is the null block (padding and masked
+    writes; never read live). The layout is the JAX package's, so a pool
+    crosses between the two as it is."""
+    if kv_quant:
+        raise NotImplementedError(f"the int8 KV cache {_NOT_PORTED}")
+    shape = (
+        config.num_layers, num_blocks, block_size,
+        config.num_kv_heads, config.dims_per_head,
+    )
+    return {
+        "k": torch.zeros(shape, dtype=config.dtype, device=device),
+        "v": torch.zeros(shape, dtype=config.dtype, device=device),
+    }
+
+
 def model_freqs(
     config: LlamaConfig, dtype=torch.float32, device: torch.device | str = "cpu"
 ) -> torch.Tensor:
@@ -444,6 +478,42 @@ def _layer_tail(config, params, i, x, attn):
     return x + delta
 
 
+def _require_bf16_pool(cache: Dict[str, torch.Tensor]) -> None:
+    if "k_scale" in cache:
+        raise NotImplementedError(f"the int8 KV cache {_NOT_PORTED}")
+
+
+def _prefill_scan(config, params, tokens, offsets, freqs, attend):
+    """The prefill layer loop: token t of row b sits at global position
+    ``offsets[b] + t``; ``attend(i, q, k, v, window)`` stores layer i's
+    new KV [B, T, KVH, D] and returns its attention [B, T, H, D].
+    Returns the final hidden states."""
+    batch, seq = tokens.shape
+    hd = config.dims_per_head
+    positions = offsets.long()[:, None] + torch.arange(seq, device=tokens.device)[None, :]
+    # positions past the RoPE table clamp to its last row, as JAX's gather
+    # does (only padding tokens of a window at the context's end reach it)
+    positions = positions.clamp(max=freqs.shape[1] - 1)
+    windows = layer_windows(config)
+    x = _embed(config, params, tokens)
+    for i in range(config.num_layers):
+        normed = _norm(config, x, params["attn_norm"][i])
+        q, k, v = _project_qkv(normed, params, i)
+        q = apply_rope(q.reshape(batch, seq, config.num_heads, hd), freqs, positions)
+        k = apply_rope(k.reshape(batch, seq, config.num_kv_heads, hd), freqs, positions)
+        v = v.reshape(batch, seq, config.num_kv_heads, hd)
+        attn = attend(i, q, k, v, windows[i] if windows else None)
+        x = _layer_tail(config, params, i, x, attn.reshape(batch, seq, -1))
+    return x
+
+
+def _last_token_logits(config, params, x, lengths):
+    """Logits [B, V] (f32) of each row's last real token."""
+    batch = x.shape[0]
+    last = x[torch.arange(batch, device=x.device), lengths.long() - 1]  # [B, hidden]
+    return _logits(config, params, _norm(config, last, params["final_norm"]))
+
+
 @torch.inference_mode()
 def prefill(
     config: LlamaConfig,
@@ -455,32 +525,66 @@ def prefill(
     freqs: torch.Tensor,
 ) -> torch.Tensor:
     """Run the prompts through the model, write their KV rows [0, T) into
-    the cache at ``slot_ids`` (IN PLACE: the cache tensors are updated,
+    the cache at ``slot_ids`` and zero rows [T, max_len) of those slots,
+    as the JAX ``prefill`` does (IN PLACE: the cache tensors are updated,
     not copied), and return the logits of each prompt's last real token
-    [B, V] in f32. Rows past T keep their old contents; no live length
-    ever reads them before a decode step rewrites them."""
+    [B, V] in f32."""
     _require_dense(config)
     validate_family_params(config, params)
-    batch, seq = tokens.shape
-    hd = config.dims_per_head
-    positions = torch.arange(seq, device=tokens.device)[None, :].expand(batch, seq)
+    seq = tokens.shape[1]
     slot_ids = slot_ids.long()
-    windows = layer_windows(config)
-    x = _embed(config, params, tokens)  # [B, T, hidden]
-    for i in range(config.num_layers):
-        normed = _norm(config, x, params["attn_norm"][i])
-        q, k, v = _project_qkv(normed, params, i)
-        q = apply_rope(q.reshape(batch, seq, config.num_heads, hd), freqs, positions)
-        k = apply_rope(k.reshape(batch, seq, config.num_kv_heads, hd), freqs, positions)
-        v = v.reshape(batch, seq, config.num_kv_heads, hd)
-        cache["k"][i, slot_ids, :seq] = k.to(cache["k"].dtype)
-        cache["v"][i, slot_ids, :seq] = v.to(cache["v"].dtype)
-        attn = _prefill_attn(
-            config, q, k, v, lengths, window=windows[i] if windows else None
+
+    def attend(i, q, k, v, window):
+        for leaf, new in (("k", k), ("v", v)):
+            rows = cache[leaf][i]  # [S, max_len, KVH, D] view
+            rows[slot_ids, :seq] = new.to(rows.dtype)
+            rows[slot_ids, seq:] = 0
+        return _prefill_attn(config, q, k, v, lengths, window=window)
+
+    x = _prefill_scan(config, params, tokens, torch.zeros_like(lengths), freqs, attend)
+    return _last_token_logits(config, params, x, lengths)
+
+
+@torch.inference_mode()
+def prefill_at_offset(
+    config: LlamaConfig,
+    params: Dict[str, torch.Tensor],
+    cache: Dict[str, torch.Tensor],
+    tokens: torch.Tensor,     # [B, T] suffix tokens (right-padded)
+    lengths: torch.Tensor,    # [B] int32 true suffix lengths
+    offsets: torch.Tensor,    # [B] int32 existing valid cache length per row
+    slot_ids: torch.Tensor,   # [B] cache slots to extend
+    freqs: torch.Tensor,
+) -> torch.Tensor:
+    """Prefill of a suffix into cache slots that already hold a prefix:
+    positions are offset by the prefix, the new KV rows are written at
+    ``offset .. offset + T - 1`` (IN PLACE), and attention runs over
+    prefix + suffix (:func:`chunk_attention`). The caller keeps
+    ``offset + T <= max_len``; past it the window is clamped to end at
+    ``max_len``, as JAX's ``dynamic_update_slice`` clamps. Returns the
+    logits [B, V] (f32) of each row's last real suffix token."""
+    _require_dense(config)
+    validate_family_params(config, params)
+    _require_bf16_pool(cache)
+    seq = tokens.shape[1]
+    max_len = cache["k"].shape[2]
+    totals = offsets + lengths
+    slots = slot_ids.long()
+    write_start = offsets.long().clamp(0, max(max_len - seq, 0))
+    rows = write_start[:, None] + torch.arange(seq, device=tokens.device)[None, :]  # [B, T]
+    scale = _attn_scale(config)
+
+    def attend(i, q, k, v, window):
+        kc, vc = cache["k"][i], cache["v"][i]
+        kc[slots[:, None], rows] = k.to(kc.dtype)
+        vc[slots[:, None], rows] = v.to(vc.dtype)
+        return chunk_attention(
+            q, kc[slots], vc[slots], offsets, totals,
+            softcap=config.attn_logit_softcap, window=window, scale=scale,
         )
-        x = _layer_tail(config, params, i, x, attn.reshape(batch, seq, -1))
-    last = x[torch.arange(batch, device=x.device), lengths.long() - 1]  # [B, hidden]
-    return _logits(config, params, _norm(config, last, params["final_norm"]))
+
+    x = _prefill_scan(config, params, tokens, offsets, freqs, attend)
+    return _last_token_logits(config, params, x, lengths)
 
 
 @torch.inference_mode()
@@ -524,9 +628,159 @@ def decode_step(
     return _logits(config, params, _norm(config, x, params["final_norm"]))
 
 
-def prefill_at_offset(*args, **kwargs):
-    """Warm-session suffix prefill (JAX ``model.prefill_at_offset``)."""
-    raise NotImplementedError(f"prefill_at_offset {_NOT_PORTED}")
+PAGED_KERNELS = ("fused", "reference")
+
+
+def _paged_attn(config, q, k_pool, v_pool, tables, starts, totals, *, window, kernel):
+    """Paged attention, one seam for every ragged case: decode (q
+    [S, H, D], starts = lengths - 1), prefill-at-offset and cold paged
+    prefill (q [B, T, H, D]). ``kernel="fused"`` goes through
+    :func:`ragged_paged_attention`, which launches the CUDA kernel on a
+    card tensor (or raises) and runs its plain version on a CPU tensor;
+    ``"reference"`` (asked for explicitly) runs the gather composition
+    on any device."""
+    family = dict(
+        softcap=config.attn_logit_softcap, window=window, scale=_attn_scale(config)
+    )
+    decode = q.dim() == 3
+    if kernel == "fused":
+        out = ragged_paged_attention(
+            q[:, None] if decode else q, k_pool, v_pool, tables, starts, totals, **family
+        )
+        return out[:, 0] if decode else out
+    if kernel != "reference":
+        raise ValueError(f"unknown paged kernel {kernel!r}")
+    if decode:
+        return paged_decode_attention(q, k_pool, v_pool, tables, totals, **family)
+    return paged_chunk_attention(q, k_pool, v_pool, tables, starts, totals, **family)
+
+
+@torch.inference_mode()
+def paged_prefill(
+    config: LlamaConfig,
+    params: Dict[str, torch.Tensor],
+    cache: Dict[str, torch.Tensor],   # paged pool (init_paged_cache)
+    tokens: torch.Tensor,             # [B, T] (right-padded)
+    lengths: torch.Tensor,            # [B] int32 true prompt lengths
+    block_tables: torch.Tensor,       # [B, M] int32 pool block per seq block
+    freqs: torch.Tensor,
+    kernel: str = "fused",            # paged attention: fused | reference
+) -> torch.Tensor:
+    """Cold prefill into the block pool (IN PLACE); returns the logits
+    [B, V] of each prompt's last real token.
+
+    Fused route: cold prefill is prefill-at-offset with every offset 0,
+    the same ragged launch the warm and decode paths use, reading the
+    just-written blocks through the tables. Reference route: the dense
+    cold layer loop of :func:`prefill` (self-attention never reads the
+    cache) with the KV scattered through the tables."""
+    if kernel == "fused":
+        return paged_prefill_at_offset(
+            config, params, cache, tokens, lengths, torch.zeros_like(lengths),
+            block_tables, freqs, kernel=kernel,
+        )
+    if kernel != "reference":
+        raise ValueError(f"unknown paged kernel {kernel!r}")
+    _require_dense(config)
+    validate_family_params(config, params)
+    _require_bf16_pool(cache)
+    batch, seq = tokens.shape
+    valid = torch.arange(seq, device=tokens.device)[None, :] < lengths[:, None]
+    zeros = torch.zeros((batch,), dtype=torch.int32, device=tokens.device)
+
+    def attend(i, q, k, v, window):
+        paged_write_rows(cache["k"][i], k, block_tables, zeros, valid)
+        paged_write_rows(cache["v"][i], v, block_tables, zeros, valid)
+        return _prefill_attn(config, q, k, v, lengths, window=window)
+
+    x = _prefill_scan(config, params, tokens, zeros, freqs, attend)
+    return _last_token_logits(config, params, x, lengths)
+
+
+@torch.inference_mode()
+def paged_prefill_at_offset(
+    config: LlamaConfig,
+    params: Dict[str, torch.Tensor],
+    cache: Dict[str, torch.Tensor],   # paged pool
+    tokens: torch.Tensor,             # [B, T] suffix tokens (right-padded)
+    lengths: torch.Tensor,            # [B] int32 true suffix lengths
+    offsets: torch.Tensor,            # [B] int32 existing valid length per row
+    block_tables: torch.Tensor,       # [B, M] int32
+    freqs: torch.Tensor,
+    kernel: str = "fused",            # paged attention: fused | reference
+) -> torch.Tensor:
+    """Paged twin of :func:`prefill_at_offset`: the suffix KV scatters
+    into table-addressed blocks (IN PLACE; padding rows go to the null
+    block) and attention reads prefix + suffix through the same tables,
+    which is how a request admitted onto a cached prefix chain attends
+    over blocks another request's prefill wrote. Shared blocks are never
+    written here: the engine admits suffixes at block boundaries into
+    private blocks. Returns the logits [B, V] of each row's last real
+    suffix token."""
+    _require_dense(config)
+    validate_family_params(config, params)
+    _require_bf16_pool(cache)
+    seq = tokens.shape[1]
+    valid = torch.arange(seq, device=tokens.device)[None, :] < lengths[:, None]
+    totals = offsets + lengths
+
+    def attend(i, q, k, v, window):
+        k_pool, v_pool = cache["k"][i], cache["v"][i]
+        paged_write_rows(k_pool, k, block_tables, offsets, valid)
+        paged_write_rows(v_pool, v, block_tables, offsets, valid)
+        return _paged_attn(
+            config, q, k_pool, v_pool, block_tables, offsets, totals,
+            window=window, kernel=kernel,
+        )
+
+    x = _prefill_scan(config, params, tokens, offsets, freqs, attend)
+    return _last_token_logits(config, params, x, lengths)
+
+
+@torch.inference_mode()
+def paged_decode_step(
+    config: LlamaConfig,
+    params: Dict[str, torch.Tensor],
+    cache: Dict[str, torch.Tensor],   # paged pool
+    tokens: torch.Tensor,             # [S] one new token per slot
+    lengths: torch.Tensor,            # [S] int32 length INCLUDING the new token
+    block_tables: torch.Tensor,       # [S, M] int32
+    freqs: torch.Tensor,
+    write_mask: Optional[torch.Tensor] = None,  # [S] bool
+    kernel: str = "fused",            # paged attention: fused | reference
+) -> torch.Tensor:
+    """Paged twin of :func:`decode_step`: the new token's KV scatters
+    into its slot's current block (IN PLACE; masked slots route to the
+    null block) and attention reads the live context through the tables,
+    the decode case (Tq = 1, start = length - 1) of :func:`_paged_attn`.
+    Decode never allocates: the engine reserves each request's worst case
+    at admission. Returns next-token logits [S, V] in f32."""
+    _require_dense(config)
+    validate_family_params(config, params)
+    _require_bf16_pool(cache)
+    slots = tokens.shape[0]
+    hd = config.dims_per_head
+    positions = lengths - 1  # -1 (empty slot) wraps in RoPE; its write is masked
+    if write_mask is None:
+        write_mask = torch.ones(slots, dtype=torch.bool, device=tokens.device)
+    rope_positions = positions.long()[:, None]
+    windows = layer_windows(config)
+    x = _embed(config, params, tokens)  # [S, hidden]
+    for i in range(config.num_layers):
+        normed = _norm(config, x, params["attn_norm"][i])
+        q, k, v = _project_qkv(normed, params, i)
+        q = apply_rope(q.reshape(slots, 1, config.num_heads, hd), freqs, rope_positions)[:, 0]
+        k = apply_rope(k.reshape(slots, 1, config.num_kv_heads, hd), freqs, rope_positions)[:, 0]
+        v = v.reshape(slots, config.num_kv_heads, hd)
+        k_pool, v_pool = cache["k"][i], cache["v"][i]
+        paged_write_rows(k_pool, k[:, None], block_tables, positions, write_mask[:, None])
+        paged_write_rows(v_pool, v[:, None], block_tables, positions, write_mask[:, None])
+        attn = _paged_attn(
+            config, q, k_pool, v_pool, block_tables, positions, lengths,
+            window=windows[i] if windows else None, kernel=kernel,
+        )
+        x = _layer_tail(config, params, i, x, attn.reshape(slots, -1))
+    return _logits(config, params, _norm(config, x, params["final_norm"]))
 
 
 def verify_step(*args, **kwargs):

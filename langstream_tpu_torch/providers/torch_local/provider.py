@@ -7,7 +7,9 @@ Configuration, with the JAX provider's keys::
     model: {preset: "llama-3-8b"}      # or explicit dims; default "tiny"
     seed: 0                            # random-init weight seed
     engine: {max-slots: 16, max-seq-len: 4096, decode-chunk: 8,
-             prefill-buckets: [64, 128], sampling-seed: 7}
+             prefill-buckets: [64, 128], sampling-seed: 7,
+             kv-layout: paged, kv-block-size: 16, kv-blocks: 4097,
+             paged-kernel: fused, prefix-cache: true}
 
 With no ``checkpoint`` the weights are random, drawn from ``seed`` on the
 device (checkpoint loading is not ported yet and raises).
@@ -86,6 +88,16 @@ class TorchCompletionsService:
             prefill_buckets=_buckets(engine_config.get("prefill-buckets")),
             decode_chunk=int(engine_config.get("decode-chunk", 8)),
             seed=sampling_seed,
+            # paged KV cache + persistent prefix-block pool (dense stays the
+            # default); values may arrive as strings, like every engine knob
+            kv_layout=str(engine_config.get("kv-layout") or "dense").lower(),
+            kv_block_size=int(engine_config.get("kv-block-size") or 16),
+            kv_blocks=(
+                int(engine_config["kv-blocks"]) if engine_config.get("kv-blocks") else None
+            ),
+            paged_kernel=str(engine_config.get("paged-kernel") or "fused").lower(),
+            prefix_cache=str(engine_config.get("prefix-cache", "true")).lower()
+            not in ("0", "false", "no"),
         )
         self.engine.start()
 

@@ -3,7 +3,7 @@ the sampling noise against ``jax.random``.
 
 Both engines serve ``tiny`` with the same carried-across weights,
 ``decode_chunk=4``, ``max_slots=4`` and ``prefix_cache=False`` on the JAX
-side (the port has no prefix cache yet). Six concurrent requests of
+side (the port's dense layout has no cross-slot prefix copy yet). Six concurrent requests of
 different lengths — greedy with a repetition penalty, a stop token
 landing mid-chunk, seeded
 temperature / top-k / top-p with penalties and logit bias, and one
@@ -126,7 +126,7 @@ def test_token_streams_match_jax_engine(engines):
 
 
 def test_engine_streams_and_cancels(engines):
-    ported, _ = engines
+    ported, reference = engines
     seen = []
     handle = []
 
@@ -146,8 +146,15 @@ def test_engine_streams_and_cancels(engines):
     streamed, cancelled = asyncio.run(main())
     assert [t for t, _ in seen] == streamed.tokens and seen[-1][1] is True
     assert cancelled.finish_reason == "cancelled" and len(cancelled.tokens) < 100
-    with pytest.raises(ValueError):
-        ported.submit(engine.GenerationRequest(prompt_tokens=[1] * 40, sampling=engine.SamplingParams()))
+    # a prompt past the largest bucket (32) is prefilled in windows and
+    # answered as the JAX engine answers it; max_seq_len tokens are refused
+    long_prompt = [(7 * i) % 250 + 1 for i in range(40)]
+    (mine,) = _generate(ported, [(long_prompt, engine.SamplingParams(max_new_tokens=6), set())])
+    (theirs,) = _generate(reference, [(long_prompt, jax_engine.SamplingParams(max_new_tokens=6), set())])
+    assert mine.tokens == theirs.tokens and len(mine.tokens) == 6
+    np.testing.assert_allclose(mine.logprobs, theirs.logprobs, rtol=1e-4, atol=1e-4)
+    with pytest.raises(ValueError, match="context limit"):
+        ported.submit(engine.GenerationRequest(prompt_tokens=[1] * 128, sampling=engine.SamplingParams()))
 
 
 def test_submit_from_plain_threads(engines):

@@ -8,13 +8,22 @@ test, never at import). Run on a GPU machine with::
 port does not need.)
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
-from langstream_tpu_torch.ops.attention import decode_attention, prefill_attention
+from langstream_tpu_torch.ops.attention import (
+    decode_attention,
+    paged_chunk_attention,
+    paged_decode_attention,
+    prefill_attention,
+)
 from langstream_tpu_torch.ops.decode_kernel import flash_decode_attention
 from langstream_tpu_torch.ops.flash_attention import flash_prefill_attention
+from langstream_tpu_torch.ops.paged_attention import ragged_paged_attention
+from langstream_tpu_torch.providers.torch_local import engine, model
 
 # bf16: p is rounded to bf16 before p·v and sums run in another order
 # than the plain einsum; f32: only the summation order differs
@@ -102,3 +111,99 @@ def test_kernels_refuse_what_they_cannot_take():
     cache = torch.zeros(1, 8, 4, 64, dtype=torch.bfloat16, device=device)
     with pytest.raises(ValueError):
         flash_decode_attention(cache[:, 0], cache, cache, torch.ones(1, dtype=torch.int64, device=device))
+
+
+# B3: heads, kv_heads, dim, softcap, window, scale — D 64/128/256 and GQA
+# groups 1/2/4/8 between them
+PAGED_FAMILIES = [
+    (32, 8, 128, None, 0, None),   # Llama-3-8B (G 4)
+    (4, 4, 64, None, 0, None),     # G 1
+    (8, 4, 256, 50.0, 40, 0.0625), # Gemma-2 mechanisms (G 2)
+    (16, 2, 64, 30.0, 0, 0.2),     # G 8
+]
+
+
+def _paged_case(rng, device, torch_dtype, heads, kv_heads, dim, block_size, seq):
+    """A shuffled pool with rows 0 and 1 sharing their first blocks, an
+    empty row, a single-token row, a block-boundary row and a full-table
+    row; ``seq`` new tokens per row at most (fewer where the row is
+    shorter)."""
+    width = 96 // block_size + 2  # table entries per row
+    lengths = [96, 80, 0, 1, block_size, width * block_size]
+    batch = len(lengths)
+    num_blocks = batch * width + 1
+    order = rng.permutation(num_blocks - 1) + 1  # block 0 stays the null block
+    tables = order[: batch * width].reshape(batch, width).astype(np.int32)
+    tables[1, :3] = tables[0, :3]  # a shared prefix chain
+    news = [min(seq, n) for n in lengths]
+    starts = [n - m for n, m in zip(lengths, news)]
+
+    def draw(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device, torch_dtype)
+
+    q = draw(batch, seq, heads, dim)
+    k_pool = draw(num_blocks, block_size, kv_heads, dim)
+    v_pool = draw(num_blocks, block_size, kv_heads, dim)
+
+    def ints(values):
+        return torch.tensor(values, dtype=torch.int32, device=device)
+
+    return q, k_pool, v_pool, ints(tables), ints(starts), ints(lengths), news
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("heads,kv_heads,dim,softcap,window,scale", PAGED_FAMILIES)
+@pytest.mark.parametrize("block_size", [8, 16, 32])
+@pytest.mark.parametrize("seq", [1, 64])
+def test_ragged_paged_kernel_matches_plain(dtype, heads, kv_heads, dim, softcap, window, scale, block_size, seq):
+    device = _card()
+    rng = np.random.default_rng(block_size * 1000 + seq)
+    q, k_pool, v_pool, tables, starts, lengths, news = _paged_case(
+        rng, device, getattr(torch, dtype), heads, kv_heads, dim, block_size, seq)
+    family = dict(softcap=softcap, window=window, scale=scale)
+    before = ragged_paged_attention.launches
+    out = ragged_paged_attention(q, k_pool, v_pool, tables, starts, lengths, **family)
+    torch.cuda.synchronize()
+    assert ragged_paged_attention.launches == before + 1
+    if seq == 1:
+        ref = paged_decode_attention(q[:, 0], k_pool, v_pool, tables, lengths, **family)[:, None]
+    else:
+        ref = paged_chunk_attention(q, k_pool, v_pool, tables, starts, lengths, **family)
+    for b, n in enumerate(news):
+        if int(lengths[b]) == 0:
+            assert float(out[b].float().abs().max()) == 0.0, "an empty row must yield zeros"
+            continue
+        assert _rel_err(out[b, :n], ref[b, :n]) < TOLERANCE[dtype], b
+
+
+@pytest.mark.gpu
+def test_ragged_paged_kernel_is_deterministic_and_refuses():
+    device = _card()
+    rng = np.random.default_rng(5)
+    q, k_pool, v_pool, tables, starts, lengths, _ = _paged_case(
+        rng, device, torch.bfloat16, 32, 8, 128, 16, 64)
+    first = ragged_paged_attention(q, k_pool, v_pool, tables, starts, lengths)
+    second = ragged_paged_attention(q, k_pool, v_pool, tables, starts, lengths)
+    assert torch.equal(first, second)
+    with pytest.raises(TypeError):
+        ragged_paged_attention(q.half(), k_pool.half(), v_pool.half(), tables, starts, lengths)
+    with pytest.raises(ValueError):
+        ragged_paged_attention(q, k_pool.cpu(), v_pool.cpu(), tables, starts, lengths)
+    with pytest.raises(ValueError):
+        ragged_paged_attention(q, k_pool, v_pool, tables.long(), starts, lengths)
+    with pytest.raises(ValueError):
+        ragged_paged_attention(q[..., :12].contiguous(), k_pool[..., :12].contiguous(),
+                               v_pool[..., :12].contiguous(), tables, starts, lengths)
+
+
+@pytest.mark.gpu
+def test_paged_engine_refuses_shapes_the_kernel_cannot_take():
+    """On the card a paged engine whose config B3 cannot take raises at
+    init instead of running the gather composition quietly."""
+    device = _card()
+    config = dataclasses.replace(model.LlamaConfig.tiny(), head_dim=12)
+    params = model.init_params(config)
+    with pytest.raises(ValueError, match="paged_kernel='reference'"):
+        engine.DecodeEngine(config, params, device=device, kv_layout="paged")
+    engine.DecodeEngine(config, params, device=device, kv_layout="paged", paged_kernel="reference")

@@ -90,6 +90,69 @@ def test_bad_requests_answer_400(server):
         assert error.value.code == 400
 
 
+@pytest.fixture(scope="module")
+def paged_server():
+    args = build_parser().parse_args([
+        "serve", "--device", "cpu", "--model", "tiny", "--host", "127.0.0.1", "--port", "0",
+        "--max-slots", "4", "--max-seq-len", "256", "--decode-chunk", "4",
+        "--kv-layout", "paged", "--kv-block-size", "8",
+    ])
+    service, api = start_server(args)
+    yield f"http://127.0.0.1:{api.port}", service.engine
+    api.stop()
+    service.engine.stop()
+
+
+def test_paged_server_answers_chat_text_and_sse(paged_server):
+    url, eng = paged_server
+    assert eng.paged and eng.kv_manager is not None
+    system = {"role": "system", "content": "You answer briefly about stream processing. " * 3}
+    for question in ("what is a topic?", "what is an agent?"):
+        chat = json.loads(_post(url + "/v1/chat/completions", {
+            "messages": [system, {"role": "user", "content": question}], "max_tokens": 6,
+        }))
+        assert chat["usage"]["completion_tokens"] == 6
+    # the second chat reused the first one's system-prompt blocks
+    assert eng.stats["prefix_hits"] >= 1 and eng.stats["prefix_tokens_reused"] >= 8
+    text = json.loads(_post(url + "/v1/completions", {"prompt": "once upon", "max_tokens": 5}))
+    assert text["usage"]["completion_tokens"] == 5
+    raw = _post(url + "/v1/chat/completions", {
+        "messages": [{"role": "user", "content": "hi"}], "max_tokens": 7, "stream": True,
+    })
+    frames = [line[len("data: "):] for line in raw.split("\n\n") if line.startswith("data: ")]
+    assert frames[-1] == "[DONE]"
+    assert json.loads(frames[-2])["usage"]["completion_tokens"] == 7
+
+
+def test_paged_flags_and_provider_keys_reach_the_engine():
+    args = build_parser().parse_args([
+        "serve", "--kv-layout", "paged", "--kv-block-size", "32", "--kv-blocks", "40",
+        "--paged-kernel", "reference", "--no-prefix-cache",
+    ])
+    assert (args.kv_layout, args.kv_block_size, args.kv_blocks, args.paged_kernel,
+            args.no_prefix_cache) == ("paged", 32, 40, "reference", True)
+    defaults = build_parser().parse_args(["serve"])
+    assert (defaults.kv_layout, defaults.kv_block_size, defaults.kv_blocks,
+            defaults.paged_kernel, defaults.no_prefix_cache) == ("dense", 16, 0, "fused", False)
+    service = TorchCompletionsService({
+        "model": {"preset": "tiny", "max_seq_len": 128},
+        "engine": {"max-slots": 2, "kv-layout": "PAGED", "kv-block-size": "32",
+                   "kv-blocks": "9", "paged-kernel": "reference", "prefix-cache": "false"},
+    }, device="cpu")
+    try:
+        eng = service.engine
+        assert (eng.kv_layout, eng.block_size, eng.num_blocks, eng.paged_kernel,
+                eng.prefix_cache) == ("paged", 32, 9, "reference", False)
+    finally:
+        eng.stop()
+    dense = TorchCompletionsService({"model": {"preset": "tiny", "max_seq_len": 128}}, device="cpu")
+    try:
+        assert (dense.engine.kv_layout, dense.engine.paged_kernel, dense.engine.prefix_cache) == (
+            "dense", None, True)
+    finally:
+        dense.engine.stop()
+
+
 def _imports(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
