@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import argparse
 import logging
-from typing import List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 from langstream_tpu_torch.providers.torch_local.provider import TorchCompletionsService
 from langstream_tpu_torch.serving.openai_api import OpenAIApiServer
@@ -44,10 +44,11 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def start_server(args: argparse.Namespace) -> Tuple[TorchCompletionsService, OpenAIApiServer]:
-    """Build the service (random weights from seed 0) and start the
-    server thread; the caller owns stopping both."""
-    config = {
+def serve_config(args: argparse.Namespace) -> Dict[str, Any]:
+    """The provider config ``serve`` builds from its flags. Engine keys
+    without a flag (``kv-quant``, as in the JAX ``serve``) reach the
+    engine through this config, as they do from a deployment's."""
+    return {
         "model": {"preset": args.model, "max_seq_len": args.max_seq_len},
         "engine": {
             "max-slots": args.max_slots,
@@ -60,7 +61,15 @@ def start_server(args: argparse.Namespace) -> Tuple[TorchCompletionsService, Ope
             "prefix-cache": not args.no_prefix_cache,
         },
     }
-    service = TorchCompletionsService(config, device=args.device)
+
+
+def start_server(
+    args: argparse.Namespace, config: Optional[Dict[str, Any]] = None
+) -> Tuple[TorchCompletionsService, OpenAIApiServer]:
+    """Build the service (random weights from seed 0) from ``config``
+    (default: :func:`serve_config` of ``args``) and start the server
+    thread; the caller owns stopping both."""
+    service = TorchCompletionsService(config or serve_config(args), device=args.device)
     server = OpenAIApiServer(service, model=args.model, host=args.host, port=args.port)
     server.start()
     return service, server

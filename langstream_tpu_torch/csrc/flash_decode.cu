@@ -9,6 +9,16 @@
 // softmax in f32, p rounded to the cache type before p.v, and an empty
 // slot (length 0) writes zeros.
 //
+// Also replaces ::_decode_kernel_quant (flash_decode_attention_quant): the
+// same walk over an int8 cache [S, T, KVH, D] with one f32 scale per
+// (position, kv head) in [S, T, KVH]; entry point flash_decode_quant, the
+// KV = int8_t instantiation. Tiles arrive as int8 (16 values per 16-byte
+// load) and stay int8 in shared memory; the k scale multiplies the score
+// after q.k, before the softcap and the mask; l sums the masked p; then
+// p * v_scale (f32) multiplies v in f32, as the Pallas body does. Its
+// bytes per live position and kv head are 2*D + 8 instead of 4*D.
+// head_dim must be a multiple of 16 for int8.
+//
 // What bounds it on the H100: bytes. Per slot it does 4*H*len*D FLOPs
 // over 2*KVH*len*D cache elements, i.e. ~G FLOPs per byte (G = H/KVH = 4
 // for Llama-3-8B), far below the ~295 FLOPs per byte where the tensor
@@ -30,6 +40,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int BK = 64;   // cache rows per tile
@@ -38,6 +50,10 @@ constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(int8_t x) { return float(x); }
+
+template <typename KV>
+__host__ __device__ constexpr bool is_int8() { return std::is_same<KV, int8_t>::value; }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
@@ -52,41 +68,51 @@ __device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 __device__ __forceinline__ float2 load_pair(const float* p) { return make_float2(p[0], p[1]); }
+__device__ __forceinline__ float4 load_quad(const int8_t* p) {
+  const char4 c = *reinterpret_cast<const char4*>(p);
+  return make_float4(c.x, c.y, c.z, c.w);
+}
 
 // k rows in shared memory are padded so that row j starts at bank j
-// (an odd number of 32-bit words per row)
-template <typename T> __host__ __device__ constexpr int k_pad() { return sizeof(T) == 2 ? 2 : 1; }
+// (an odd number of 32-bit words per row): one word of elements
+template <typename T> __host__ __device__ constexpr int k_pad() { return 4 / sizeof(T); }
 
 constexpr size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
 
 struct Layout {
-  size_t v, k, q, acc, s, stats, total;
+  size_t v, k, q, acc, s, stats, scales, total;
 };
 
-template <typename T>
+// KV: the cache element type (the k/v tiles); int8 adds the tile's scales
+template <typename KV>
 Layout layout(int dim, int group) {
   Layout L;
   L.v = 0;
-  L.k = L.v + align16(sizeof(T) * size_t(BK) * dim);
-  L.q = L.k + align16(sizeof(T) * size_t(BK) * (dim + k_pad<T>()));
+  L.k = L.v + align16(sizeof(KV) * size_t(BK) * dim);
+  L.q = L.k + align16(sizeof(KV) * size_t(BK) * (dim + k_pad<KV>()));
   L.acc = L.q + align16(sizeof(float) * size_t(group) * dim);
   L.s = L.acc + align16(sizeof(float) * size_t(group) * dim);
   L.stats = L.s + align16(sizeof(float) * size_t(group) * BK);
-  L.total = L.stats + align16(sizeof(float) * 3 * size_t(group));
+  L.scales = L.stats + align16(sizeof(float) * 3 * size_t(group));
+  L.total = L.scales + (is_int8<KV>() ? align16(sizeof(float) * 2 * BK) : 0);
   return L;
 }
 
-template <typename T>
+// T: the type of q and out. KV: the cache's, T itself, or int8_t with
+// k_scale/v_scale [S, T, KVH] f32.
+template <typename T, typename KV>
 __global__ void __launch_bounds__(NT)
-flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
-                    const T* __restrict__ vc, T* __restrict__ out,
-                    const int* __restrict__ lengths, int max_len, int heads,
+flash_decode_kernel(const T* __restrict__ q, const KV* __restrict__ kc,
+                    const KV* __restrict__ vc, T* __restrict__ out,
+                    const int* __restrict__ lengths, const float* __restrict__ k_scale,
+                    const float* __restrict__ v_scale, int max_len, int heads,
                     int kv_heads, int dim, float scale, float softcap, int window,
                     Layout L) {
+  constexpr bool QUANT = is_int8<KV>();
   extern __shared__ float4 smem4[];
   char* base = reinterpret_cast<char*>(smem4);
-  T* sV = reinterpret_cast<T*>(base + L.v);
-  T* sK = reinterpret_cast<T*>(base + L.k);
+  KV* sV = reinterpret_cast<KV*>(base + L.v);
+  KV* sK = reinterpret_cast<KV*>(base + L.k);
   float* sQ = reinterpret_cast<float*>(base + L.q);
   float* sAcc = reinterpret_cast<float*>(base + L.acc);
   float* sS = reinterpret_cast<float*>(base + L.s);
@@ -94,6 +120,8 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   float* sM = reinterpret_cast<float*>(base + L.stats);
   float* sL = sM + group;
   float* sAlpha = sL + group;
+  float* sKs = reinterpret_cast<float*>(base + L.scales);  // int8 only
+  float* sVs = sKs + BK;
 
   const int kvh = blockIdx.x;
   const int slot = blockIdx.y;
@@ -101,7 +129,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int KP = dim + k_pad<T>();
+  const int KP = dim + k_pad<KV>();
   const int gd = group * dim;
 
   const T* q_base = q + (size_t(slot) * heads + size_t(kvh) * group) * dim;
@@ -120,9 +148,9 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   const int last = (length + BK - 1) / BK;  // exclusive
 
   const size_t row_stride = size_t(kv_heads) * dim;
-  const T* k_base = kc + size_t(slot) * max_len * row_stride + size_t(kvh) * dim;
-  const T* v_base = vc + size_t(slot) * max_len * row_stride + size_t(kvh) * dim;
-  constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte load
+  const KV* k_base = kc + size_t(slot) * max_len * row_stride + size_t(kvh) * dim;
+  const KV* v_base = vc + size_t(slot) * max_len * row_stride + size_t(kvh) * dim;
+  constexpr int VEC = 16 / sizeof(KV);  // elements per 16-byte load
   const int vecs_per_row = dim / VEC;
   const int words_per_vec = 4;
 
@@ -144,19 +172,35 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 #pragma unroll
       for (int w = 0; w < words_per_vec; ++w) kdst[w] = kwords[w];
     }
+    if constexpr (QUANT) {
+      for (int j = tid; j < BK; j += NT) {
+        const int t = k_start + j;
+        const size_t at = (size_t(slot) * max_len + t) * kv_heads + kvh;
+        sKs[j] = t < max_len ? k_scale[at] : 0.f;
+        sVs[j] = t < max_len ? v_scale[at] : 0.f;
+      }
+    }
     __syncthreads();
 
     // scores: one thread per (query head of the group, cache row)
     for (int idx = tid; idx < group * BK; idx += NT) {
       const int gi = idx / BK, j = idx % BK;
       const float* qrow = sQ + gi * dim;
-      const T* krow = sK + j * KP;
+      const KV* krow = sK + j * KP;
       float acc = 0.f;
-      for (int d = 0; d < dim; d += 2) {
-        const float2 kv = load_pair(krow + d);
-        acc += qrow[d] * kv.x + qrow[d + 1] * kv.y;
+      if constexpr (QUANT) {
+        for (int d = 0; d < dim; d += 4) {
+          const float4 kv = load_quad(krow + d);
+          acc += qrow[d] * kv.x + qrow[d + 1] * kv.y + qrow[d + 2] * kv.z + qrow[d + 3] * kv.w;
+        }
+      } else {
+        for (int d = 0; d < dim; d += 2) {
+          const float2 kv = load_pair(krow + d);
+          acc += qrow[d] * kv.x + qrow[d + 1] * kv.y;
+        }
       }
-      float x = acc * scale;
+      // int8: the k scale multiplies the score of its row first
+      float x = QUANT ? acc * sKs[j] * scale : acc * scale;
       if (softcap > 0.f) x = softcap * tanhf(x / softcap);
       sS[idx] = x;
     }
@@ -184,7 +228,8 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
       for (int u = 0; u < BK / 32; ++u) {
         const float p = ok[u] ? expf(sv[u] - m_new) : 0.f;
         psum += p;
-        sS[gi * BK + lane + 32 * u] = round_to<T>(p);
+        // int8: the v scale folds into p after l has summed it; f32 p.v
+        sS[gi * BK + lane + 32 * u] = QUANT ? p * sVs[lane + 32 * u] : round_to<T>(p);
       }
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) psum += __shfl_xor_sync(0xffffffffu, psum, off);
@@ -216,20 +261,21 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   }
 }
 
-template <typename T>
+template <typename T, typename KV>
 cudaError_t launch(const void* q, const void* kc, const void* vc, void* out,
-                   const void* lengths, int slots, int max_len, int heads,
-                   int kv_heads, int dim, float scale, float softcap, int window,
-                   cudaStream_t stream) {
-  const Layout L = layout<T>(dim, heads / kv_heads);
+                   const void* lengths, const void* k_scale, const void* v_scale, int slots,
+                   int max_len, int heads, int kv_heads, int dim, float scale, float softcap,
+                   int window, cudaStream_t stream) {
+  const Layout L = layout<KV>(dim, heads / kv_heads);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(L.total));
+      flash_decode_kernel<T, KV>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(L.total));
   if (err != cudaSuccess) return err;
   dim3 grid(kv_heads, slots);
-  flash_decode_kernel<T><<<grid, NT, L.total, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kc), static_cast<const T*>(vc),
-      static_cast<T*>(out), static_cast<const int*>(lengths), max_len, heads, kv_heads,
-      dim, scale, softcap, window, L);
+  flash_decode_kernel<T, KV><<<grid, NT, L.total, stream>>>(
+      static_cast<const T*>(q), static_cast<const KV*>(kc), static_cast<const KV*>(vc),
+      static_cast<T*>(out), static_cast<const int*>(lengths),
+      static_cast<const float*>(k_scale), static_cast<const float*>(v_scale), max_len, heads,
+      kv_heads, dim, scale, softcap, window, L);
   return cudaGetLastError();
 }
 
@@ -249,11 +295,37 @@ extern "C" int flash_decode(const void* q, const void* kc, const void* vc,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
-    err = launch<__nv_bfloat16>(q, kc, vc, out, lengths, slots, max_len, heads,
-                                kv_heads, dim, scale, softcap, window, s);
+    err = launch<__nv_bfloat16, __nv_bfloat16>(q, kc, vc, out, lengths, nullptr, nullptr, slots,
+                                               max_len, heads, kv_heads, dim, scale, softcap,
+                                               window, s);
   } else if (dtype == 1) {
-    err = launch<float>(q, kc, vc, out, lengths, slots, max_len, heads, kv_heads,
-                        dim, scale, softcap, window, s);
+    err = launch<float, float>(q, kc, vc, out, lengths, nullptr, nullptr, slots, max_len, heads,
+                               kv_heads, dim, scale, softcap, window, s);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  return int(err);
+}
+
+// The int8 cache: kc/vc int8 [S, T, KVH, D] with k_scale/v_scale [S, T,
+// KVH] f32; q/out of ``dtype`` (0 = bfloat16, 1 = float32). dim must be a
+// multiple of 16 up to 256. Returns cudaGetLastError().
+extern "C" int flash_decode_quant(const void* q, const void* kc, const void* k_scale,
+                                  const void* vc, const void* v_scale, void* out,
+                                  const void* lengths, int slots, int max_len, int heads,
+                                  int kv_heads, int dim, int dtype, float scale, float softcap,
+                                  int window, void* stream) {
+  if (slots <= 0) return int(cudaSuccess);
+  if (kv_heads <= 0 || heads % kv_heads != 0 || dim % 16 != 0 || dim > 256 || dim <= 0)
+    return int(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype == 0) {
+    err = launch<__nv_bfloat16, int8_t>(q, kc, vc, out, lengths, k_scale, v_scale, slots,
+                                        max_len, heads, kv_heads, dim, scale, softcap, window, s);
+  } else if (dtype == 1) {
+    err = launch<float, int8_t>(q, kc, vc, out, lengths, k_scale, v_scale, slots, max_len,
+                                heads, kv_heads, dim, scale, softcap, window, s);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -12,6 +12,16 @@
 // zeros. One launch serves decode (Tq = 1, start = length - 1),
 // prefill-at-offset (start = offset) and cold paged prefill (start = 0).
 //
+// Also replaces ::_ragged_kernel_quant (ragged_paged_attention_quant):
+// the same walk over int8 pools [N, Bs, KVH, D] with one f32 scale per
+// (block, offset, kv head) in [N, Bs, KVH], reached through the same table
+// entry as the values; entry point paged_attention_quant, the KV = int8_t
+// instantiation. Tiles arrive as int8 (16 values per 16-byte load) and
+// stay int8 in shared memory; the k scale multiplies the score after q.k,
+// before the softcap and the mask; l sums the masked p; then p * v_scale
+// (f32) multiplies v in f32, as the Pallas body does. head_dim must be a
+// multiple of 16 for int8.
+//
 // What bounds it on the H100: bytes at decode, where each live key is
 // read once for G = H / KVH query heads (~G FLOPs per byte, far below the
 // ~295 where the tensor cores would take over); at long prefill tiles
@@ -47,6 +57,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int NT = 256;        // threads per CTA
@@ -73,14 +85,22 @@ __device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 __device__ __forceinline__ float2 load_pair(const float* p) { return make_float2(p[0], p[1]); }
+__device__ __forceinline__ float2 load_pair(const int8_t* p) {
+  const char2 c = *reinterpret_cast<const char2*>(p);
+  return make_float2(c.x, c.y);
+}
+
+template <typename KV>
+__host__ __device__ constexpr bool is_int8() { return std::is_same<KV, int8_t>::value; }
 
 // q.k for one key (``krow``) against rows r0, r0 + rstep, ... of the q
 // tile, NR of them at compile time so the loop carries no predicates: a
-// thread past the last row repeats the last row's work and stores nothing
-template <typename T, int NR>
-__device__ __forceinline__ void tile_scores(const float* sQ, const T* krow, float* sS, int dim,
+// thread past the last row repeats the last row's work and stores nothing.
+// int8 keys: ``kscale`` (the key's scale) multiplies the score first.
+template <typename KV, int NR>
+__device__ __forceinline__ void tile_scores(const float* sQ, const KV* krow, float* sS, int dim,
                                             int rows, int r0, int rstep, int key, int bk,
-                                            float scale, float softcap) {
+                                            float scale, float softcap, float kscale) {
   const float* qrow[NR];
   float acc[NR];
 #pragma unroll
@@ -100,7 +120,7 @@ __device__ __forceinline__ void tile_scores(const float* sQ, const T* krow, floa
   for (int i = 0; i < NR; ++i) {
     const int r = r0 + i * rstep;
     if (r < rows) {
-      float x = acc[i] * scale;
+      float x = is_int8<KV>() ? acc[i] * kscale * scale : acc[i] * scale;
       if (softcap > 0.f) x = softcap * tanhf(x / softcap);
       sS[r * bk + key] = x;
     }
@@ -112,42 +132,49 @@ __host__ __device__ __forceinline__ int floor_div(int a, int b) {
 }
 
 // k rows in shared memory are padded to an odd number of 32-bit words so
-// that the threads of a warp, one key each, read distinct banks
-template <typename T> __host__ __device__ constexpr int k_pad() { return sizeof(T) == 2 ? 2 : 1; }
+// that the threads of a warp, one key each, read distinct banks: one word
+// of elements
+template <typename T> __host__ __device__ constexpr int k_pad() { return 4 / sizeof(T); }
 
 constexpr size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
 
 struct Layout {
-  size_t v, k, q, acc, s, stats, rows, total;
+  size_t v, k, q, acc, s, stats, rows, scales, total;
 };
 
-template <typename T>
+// KV: the pool element type (the k/v tiles); int8 adds the tile's scales
+template <typename KV>
 Layout layout(int dim, int rows, int bk) {
   Layout L;
   L.v = 0;
-  L.k = L.v + align16(sizeof(T) * size_t(bk) * dim);
-  L.q = L.k + align16(sizeof(T) * size_t(bk) * (dim + k_pad<T>()));
+  L.k = L.v + align16(sizeof(KV) * size_t(bk) * dim);
+  L.q = L.k + align16(sizeof(KV) * size_t(bk) * (dim + k_pad<KV>()));
   L.acc = L.q + align16(sizeof(float) * size_t(rows) * dim);
   L.s = L.acc + align16(sizeof(float) * size_t(rows) * dim);
   L.stats = L.s + align16(sizeof(float) * size_t(rows) * bk);
   L.rows = L.stats + align16(sizeof(float) * 3 * size_t(rows));
-  L.total = L.rows + align16(sizeof(long long) * size_t(bk));
+  L.scales = L.rows + align16(sizeof(long long) * size_t(bk));
+  L.total = L.scales + (is_int8<KV>() ? align16(sizeof(float) * 2 * size_t(bk)) : 0);
   return L;
 }
 
-template <typename T>
+// T: the type of q and out. KV: the pools', T itself, or int8_t with
+// k_scale/v_scale [N, Bs, KVH] f32.
+template <typename T, typename KV>
 __global__ void __launch_bounds__(NT)
-paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-                       const T* __restrict__ vp, T* __restrict__ out,
+paged_attention_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
+                       const KV* __restrict__ vp, T* __restrict__ out,
                        const int* __restrict__ tables, const int* __restrict__ starts,
-                       const int* __restrict__ lengths, int seq, int heads,
+                       const int* __restrict__ lengths, const float* __restrict__ k_scale,
+                       const float* __restrict__ v_scale, int seq, int heads,
                        int kv_heads, int dim, int num_blocks, int block_size,
                        int max_blocks, int block_q, int bk, float scale,
                        float softcap, int window, Layout L) {
+  constexpr bool QUANT = is_int8<KV>();
   extern __shared__ float4 smem4[];
   char* base = reinterpret_cast<char*>(smem4);
-  T* sV = reinterpret_cast<T*>(base + L.v);
-  T* sK = reinterpret_cast<T*>(base + L.k);
+  KV* sV = reinterpret_cast<KV*>(base + L.v);
+  KV* sK = reinterpret_cast<KV*>(base + L.k);
   float* sQ = reinterpret_cast<float*>(base + L.q);
   float* sAcc = reinterpret_cast<float*>(base + L.acc);
   float* sS = reinterpret_cast<float*>(base + L.s);
@@ -157,6 +184,8 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   float* sM = reinterpret_cast<float*>(base + L.stats);
   float* sL = sM + rows;
   float* sAlpha = sL + rows;
+  float* sKs = reinterpret_cast<float*>(base + L.scales);  // int8 only
+  float* sVs = sKs + bk;
 
   const int kvh = blockIdx.x;
   const int b = blockIdx.y;
@@ -171,7 +200,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int KP = dim + k_pad<T>();
+  const int KP = dim + k_pad<KV>();
   const int n_out = rows * dim;
 
   const size_t q_row_stride = size_t(heads) * dim;
@@ -212,7 +241,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   const int k_lo = first * block_size;
   const int k_hi = min(min((last + 1) * block_size, length), last_query + 1);
 
-  constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte load
+  constexpr int VEC = 16 / sizeof(KV);  // elements per 16-byte load
   const int vecs_per_row = dim / VEC;
   const int rstep = NT / bk;
   const int rows_per_thread = (rows + rstep - 1) / rstep;
@@ -248,22 +277,36 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
       kdst[2] = kw.z;
       kdst[3] = kw.w;
     }
+    if constexpr (QUANT) {
+      // a key's scale sits at its pool row: [N, Bs, KVH] is [N, Bs, KVH, D]
+      // without the head dim
+      for (int j = tid; j < bk; j += NT) {
+        const long long row = sRow[j];
+        sKs[j] = row >= 0 ? k_scale[row] : 0.f;
+        sVs[j] = row >= 0 ? v_scale[row] : 0.f;
+      }
+    }
     __syncthreads();
 
     // scores: thread = one key x its query rows, as many as the tile has
     {
-      const T* krow = sK + size_t(score_key) * KP;
+      const KV* krow = sK + size_t(score_key) * KP;
+      const float ks = QUANT ? sKs[score_key] : 1.f;
       if (rows_per_thread <= 1) {
-        tile_scores<T, 1>(sQ, krow, sS, dim, rows, score_row0, rstep, score_key, bk, scale, softcap);
+        tile_scores<KV, 1>(sQ, krow, sS, dim, rows, score_row0, rstep, score_key, bk, scale,
+                           softcap, ks);
       } else if (rows_per_thread <= 2) {
-        tile_scores<T, 2>(sQ, krow, sS, dim, rows, score_row0, rstep, score_key, bk, scale, softcap);
+        tile_scores<KV, 2>(sQ, krow, sS, dim, rows, score_row0, rstep, score_key, bk, scale,
+                           softcap, ks);
       } else if (rows_per_thread <= 4) {
-        tile_scores<T, 4>(sQ, krow, sS, dim, rows, score_row0, rstep, score_key, bk, scale, softcap);
+        tile_scores<KV, 4>(sQ, krow, sS, dim, rows, score_row0, rstep, score_key, bk, scale,
+                           softcap, ks);
       } else if (rows_per_thread <= 8) {
-        tile_scores<T, 8>(sQ, krow, sS, dim, rows, score_row0, rstep, score_key, bk, scale, softcap);
+        tile_scores<KV, 8>(sQ, krow, sS, dim, rows, score_row0, rstep, score_key, bk, scale,
+                           softcap, ks);
       } else {
-        tile_scores<T, SROWS>(sQ, krow, sS, dim, rows, score_row0, rstep, score_key, bk, scale,
-                              softcap);
+        tile_scores<KV, SROWS>(sQ, krow, sS, dim, rows, score_row0, rstep, score_key, bk, scale,
+                               softcap, ks);
       }
     }
     __syncthreads();
@@ -288,7 +331,8 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
         // p is zeroed (not just -inf shifted) so fully masked rows stay 0
         const float p = ok ? expf(sS[r * bk + j] - m_new) : 0.f;
         psum += p;
-        sS[r * bk + j] = round_to<T>(p);
+        // int8: the v scale folds into p after l has summed it; f32 p.v
+        sS[r * bk + j] = QUANT ? p * sVs[j] : round_to<T>(p);
       }
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) psum += __shfl_xor_sync(0xffffffffu, psum, off);
@@ -329,12 +373,12 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   }
 }
 
-template <typename T>
+template <typename T, typename KV>
 cudaError_t launch(const void* q, const void* kp, const void* vp, void* out,
                    const void* tables, const void* starts, const void* lengths,
-                   int batch, int seq, int heads, int kv_heads, int dim,
-                   int num_blocks, int block_size, int max_blocks, float scale,
-                   float softcap, int window, cudaStream_t stream) {
+                   const void* k_scale, const void* v_scale, int batch, int seq, int heads,
+                   int kv_heads, int dim, int num_blocks, int block_size, int max_blocks,
+                   float scale, float softcap, int window, cudaStream_t stream) {
   const int group = heads / kv_heads;
   if (group > MAX_ROWS) return cudaErrorInvalidValue;
   // q tile: the most tokens whose rows fit, then shrink until the
@@ -342,7 +386,7 @@ cudaError_t launch(const void* q, const void* kp, const void* vp, void* out,
   int block_q = 1;
   while (block_q * 2 * group <= MAX_ROWS && block_q * 2 <= seq) block_q *= 2;
   int bk = MAX_BK;
-  Layout L = layout<T>(dim, block_q * group, bk);
+  Layout L = layout<KV>(dim, block_q * group, bk);
   while (L.total > SMEM_LIMIT) {
     if (block_q > 1) {
       block_q /= 2;
@@ -351,20 +395,22 @@ cudaError_t launch(const void* q, const void* kp, const void* vp, void* out,
     } else {
       return cudaErrorInvalidValue;
     }
-    L = layout<T>(dim, block_q * group, bk);
+    L = layout<KV>(dim, block_q * group, bk);
   }
   static size_t granted = 0;  // the largest dynamic shared memory asked for so far
   if (L.total > granted) {
     cudaError_t err = cudaFuncSetAttribute(
-        paged_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(SMEM_LIMIT));
+        paged_attention_kernel<T, KV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        int(SMEM_LIMIT));
     if (err != cudaSuccess) return err;
     granted = SMEM_LIMIT;
   }
   dim3 grid(kv_heads, batch, (seq + block_q - 1) / block_q);
-  paged_attention_kernel<T><<<grid, NT, L.total, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp),
+  paged_attention_kernel<T, KV><<<grid, NT, L.total, stream>>>(
+      static_cast<const T*>(q), static_cast<const KV*>(kp), static_cast<const KV*>(vp),
       static_cast<T*>(out), static_cast<const int*>(tables), static_cast<const int*>(starts),
-      static_cast<const int*>(lengths), seq, heads, kv_heads, dim, num_blocks, block_size,
+      static_cast<const int*>(lengths), static_cast<const float*>(k_scale),
+      static_cast<const float*>(v_scale), seq, heads, kv_heads, dim, num_blocks, block_size,
       max_blocks, block_q, bk, scale, softcap, window, L);
   return cudaGetLastError();
 }
@@ -388,12 +434,45 @@ extern "C" int paged_attention(const void* q, const void* kp, const void* vp,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
-    err = launch<__nv_bfloat16>(q, kp, vp, out, tables, starts, lengths, batch, seq, heads,
-                                kv_heads, dim, num_blocks, block_size, max_blocks, scale,
-                                softcap, window, s);
+    err = launch<__nv_bfloat16, __nv_bfloat16>(q, kp, vp, out, tables, starts, lengths, nullptr,
+                                               nullptr, batch, seq, heads, kv_heads, dim,
+                                               num_blocks, block_size, max_blocks, scale, softcap,
+                                               window, s);
   } else if (dtype == 1) {
-    err = launch<float>(q, kp, vp, out, tables, starts, lengths, batch, seq, heads, kv_heads,
-                        dim, num_blocks, block_size, max_blocks, scale, softcap, window, s);
+    err = launch<float, float>(q, kp, vp, out, tables, starts, lengths, nullptr, nullptr, batch,
+                               seq, heads, kv_heads, dim, num_blocks, block_size, max_blocks,
+                               scale, softcap, window, s);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  return int(err);
+}
+
+// The int8 pools: kp/vp int8 [N, Bs, KVH, D] with k_scale/v_scale [N, Bs,
+// KVH] f32; q/out of ``dtype`` (0 = bfloat16, 1 = float32). dim must be a
+// multiple of 16 up to 256; the rest as paged_attention. Returns
+// cudaGetLastError().
+extern "C" int paged_attention_quant(const void* q, const void* kp, const void* k_scale,
+                                     const void* vp, const void* v_scale, void* out,
+                                     const void* tables, const void* starts,
+                                     const void* lengths, int batch, int seq, int heads,
+                                     int kv_heads, int dim, int num_blocks, int block_size,
+                                     int max_blocks, int dtype, float scale, float softcap,
+                                     int window, void* stream) {
+  if (batch <= 0 || seq <= 0) return int(cudaSuccess);
+  if (kv_heads <= 0 || heads % kv_heads != 0 || dim % 16 != 0 || dim <= 0 || dim > 256 ||
+      num_blocks <= 0 || block_size <= 0 || max_blocks <= 0)
+    return int(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype == 0) {
+    err = launch<__nv_bfloat16, int8_t>(q, kp, vp, out, tables, starts, lengths, k_scale, v_scale,
+                                        batch, seq, heads, kv_heads, dim, num_blocks, block_size,
+                                        max_blocks, scale, softcap, window, s);
+  } else if (dtype == 1) {
+    err = launch<float, int8_t>(q, kp, vp, out, tables, starts, lengths, k_scale, v_scale, batch,
+                                seq, heads, kv_heads, dim, num_blocks, block_size, max_blocks,
+                                scale, softcap, window, s);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -1,6 +1,6 @@
 """Build and load the port's CUDA kernels.
 
-Each ``csrc/<name>.cu`` exposes a plain C entry point and is compiled on
+Each ``csrc/<name>.cu`` exposes plain C entry points and is compiled on
 first use by ``nvcc`` into its own shared library under ``build/kernels/``
 at the repository root (git-ignored), then loaded with ``ctypes``. No
 PyTorch headers are involved, so a build takes seconds. The library name
@@ -38,9 +38,17 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "flash_prefill": {
         "flash_prefill": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
+        # q, k, k_scale, v, v_scale, out, lengths, then as flash_prefill
+        "flash_prefill_quant": [
+            _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P,
+        ],
     },
     "flash_decode": {
         "flash_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
+        # q, k, k_scale, v, v_scale, out, lengths, then as flash_decode
+        "flash_decode_quant": [
+            _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P,
+        ],
     },
     "paged_attention": {
         "paged_attention": [
@@ -48,6 +56,12 @@ SIGNATURES = {
             _I, _I, _I, _I, _I, _I, _I, _I, _I,  # batch, seq, heads, kv_heads, dim,
                                                  # blocks, block size, table width, dtype
             _F, _F, _I, _P,                      # scale, softcap, window, stream
+        ],
+        "paged_attention_quant": [
+            _P, _P, _P, _P, _P, _P,              # q, k pool, k scales, v pool, v scales, out
+            _P, _P, _P,                          # tables, starts, lengths
+            _I, _I, _I, _I, _I, _I, _I, _I, _I,  # as paged_attention
+            _F, _F, _I, _P,
         ],
     },
 }

@@ -1,5 +1,6 @@
 """Plain attention ops for prefill, prefill-at-offset and decode (GQA),
-over the dense cache and the paged block pool.
+over the dense cache and the paged block pool, in the model's dtype or
+over an int8 cache with per-(position, kv head) scales.
 
 These are the PyTorch compositions of the attention functions the serving
 paths run. They are the CPU path and the reference the CUDA kernels
@@ -16,7 +17,7 @@ Conventions: q/k/v are [batch, seq, heads, head_dim]; the KV cache is
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -251,5 +252,139 @@ def paged_chunk_attention(
     a cached prefix some other request's prefill wrote)."""
     return chunk_attention(
         q, gather_blocks(k_pool, block_tables), gather_blocks(v_pool, block_tables),
+        starts, lengths, softcap=softcap, window=window, scale=scale,
+    )
+
+
+# ---------------------------------------------------------------------- #
+# int8 KV cache (kv_quant="int8")
+# ---------------------------------------------------------------------- #
+# The cache stores int8 values with one f32 scale per (position, kv head).
+# Per-row scales commute with both attention contractions, so neither
+# touches a dequantized cache-sized tensor:
+#   q·kᵀ: q · (K_q * s)ᵀ = (q · K_qᵀ) * s   (s scales the score columns)
+#   p·v:  p · (V_q * s)  = (p * s) · V_q    (s folds into the probabilities,
+#                                           after they are normalized)
+# The softmax sums the probabilities before the v-scale fold. p·v runs in
+# f32 with the int8 values as f32 (exact), and the output takes q's dtype.
+
+
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric int8: x [..., D] → (int8 values [..., D], f32
+    scales [...]) with scale = max(amax, 1e-8) / 127 over the head dim.
+    ``torch.round`` rounds half to even, as ``jnp.round`` does."""
+    xf = x.float()
+    amax = torch.amax(torch.abs(xf), dim=-1)
+    scale = torch.clamp(amax, min=1e-8) / 127.0
+    return torch.round(xf / scale[..., None]).to(torch.int8), scale
+
+
+def decode_attention_quant(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,  # [B, T, KVH, D] int8
+    k_scale: torch.Tensor,  # [B, T, KVH] f32
+    v_cache: torch.Tensor,
+    v_scale: torch.Tensor,
+    lengths: torch.Tensor,
+    *,
+    softcap: Optional[float] = None,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """:func:`decode_attention` over an int8 cache (the algebra above)."""
+    batch, heads, dim = q.shape
+    max_len, kv_heads = k_cache.shape[1], k_cache.shape[2]
+    scale = dim ** -0.5 if scale is None else scale
+    qg = q.reshape(batch, kv_heads, heads // kv_heads, dim)
+    scores = torch.einsum("bkgd,bskd->bkgs", qg.float(), k_cache.float())
+    scores = scores * k_scale.float().transpose(1, 2)[:, :, None, :] * scale
+    scores = _cap_scores(scores, softcap)
+    valid = _decode_valid(max_len, lengths, window)
+    scores = torch.where(
+        valid[:, None, None, :], scores, torch.full_like(scores, NEG_INF)
+    )
+    weights = _softmax(scores) * v_scale.float().transpose(1, 2)[:, :, None, :]
+    out = torch.einsum("bkgs,bskd->bkgd", weights, v_cache.float())
+    return out.reshape(batch, heads, dim).to(q.dtype)
+
+
+def chunk_attention_quant(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,  # [B, S, KVH, D] int8
+    k_scale: torch.Tensor,  # [B, S, KVH] f32
+    v_cache: torch.Tensor,
+    v_scale: torch.Tensor,
+    starts: torch.Tensor,
+    lengths: torch.Tensor,
+    *,
+    softcap: Optional[float] = None,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """:func:`chunk_attention` over an int8 cache. With ``starts = 0`` it
+    is cold prefill's self-attention over the just-quantized prompt, the
+    plain version of the int8 flash-prefill kernel."""
+    batch, seq, heads, dim = q.shape
+    max_len, kv_heads = k_cache.shape[1], k_cache.shape[2]
+    scale = dim ** -0.5 if scale is None else scale
+    qg = _group_query(q, kv_heads)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k_cache.float())
+    scores = scores * k_scale.float().transpose(1, 2)[:, :, None, None, :] * scale
+    scores = _cap_scores(scores, softcap)
+    pos_q = starts[:, None] + torch.arange(seq, device=q.device)[None, :]
+    pos_s = torch.arange(max_len, device=q.device)[None, None, :]
+    allowed = (pos_s <= pos_q[:, :, None]) & (pos_s < lengths[:, None, None])
+    if window is not None and window > 0:
+        allowed = allowed & (pos_s > pos_q[:, :, None] - window)
+    scores = torch.where(
+        allowed[:, None, None], scores, torch.full_like(scores, NEG_INF)
+    )
+    weights = _softmax(scores) * v_scale.float().transpose(1, 2)[:, :, None, None, :]
+    out = torch.einsum("bkgqs,bskd->bqkgd", weights, v_cache.float())
+    return out.reshape(batch, seq, heads, dim).to(q.dtype)
+
+
+def paged_decode_attention_quant(
+    q: torch.Tensor,
+    k_pool: torch.Tensor,        # [N, Bs, KVH, D] int8
+    k_scale: torch.Tensor,       # [N, Bs, KVH] f32
+    v_pool: torch.Tensor,
+    v_scale: torch.Tensor,
+    block_tables: torch.Tensor,
+    lengths: torch.Tensor,
+    *,
+    softcap: Optional[float] = None,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Int8-pool twin of :func:`paged_decode_attention`: the scales
+    gather through the same tables as the values."""
+    return decode_attention_quant(
+        q,
+        gather_blocks(k_pool, block_tables), gather_blocks(k_scale, block_tables),
+        gather_blocks(v_pool, block_tables), gather_blocks(v_scale, block_tables),
+        lengths, softcap=softcap, window=window, scale=scale,
+    )
+
+
+def paged_chunk_attention_quant(
+    q: torch.Tensor,
+    k_pool: torch.Tensor,
+    k_scale: torch.Tensor,
+    v_pool: torch.Tensor,
+    v_scale: torch.Tensor,
+    block_tables: torch.Tensor,
+    starts: torch.Tensor,
+    lengths: torch.Tensor,
+    *,
+    softcap: Optional[float] = None,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Int8-pool twin of :func:`paged_chunk_attention`."""
+    return chunk_attention_quant(
+        q,
+        gather_blocks(k_pool, block_tables), gather_blocks(k_scale, block_tables),
+        gather_blocks(v_pool, block_tables), gather_blocks(v_scale, block_tables),
         starts, lengths, softcap=softcap, window=window, scale=scale,
     )

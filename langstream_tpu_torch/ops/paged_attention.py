@@ -21,6 +21,13 @@ tensor it launches the kernel or raises; on a CPU tensor it runs the
 plain version (:func:`~langstream_tpu_torch.ops.attention.
 paged_chunk_attention`, or :func:`~langstream_tpu_torch.ops.attention.
 paged_decode_attention` at Tq == 1).
+
+:func:`ragged_paged_attention_quant` is the int8 twin
+(``_ragged_kernel_quant``): int8 pools with one f32 scale per (block,
+offset, kv head), reached through the same table entries, the same kernel
+source instantiated for int8 tiles (entry point ``paged_attention_quant``);
+plain versions ``paged_chunk_attention_quant`` and, at Tq == 1,
+``paged_decode_attention_quant``.
 """
 
 from __future__ import annotations
@@ -32,7 +39,9 @@ import torch
 from langstream_tpu_torch.ops import _build
 from langstream_tpu_torch.ops.attention import (
     paged_chunk_attention,
+    paged_chunk_attention_quant,
     paged_decode_attention,
+    paged_decode_attention_quant,
 )
 
 KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
@@ -62,13 +71,17 @@ def block_bounds(
     return min(first, last), last
 
 
-def fused_shapes_ok(heads: int, kv_heads: int, dim: Optional[int] = None) -> bool:
+def fused_shapes_ok(
+    heads: int, kv_heads: int, dim: Optional[int] = None, quantized: bool = False
+) -> bool:
     """Whether the kernel takes a config's shapes: query heads group
     evenly over kv heads, at most MAX_TILE_ROWS of them per kv head, and
-    (when given) a head_dim that is a multiple of 8 up to 256."""
+    (when given) a head_dim up to 256 that is a multiple of 8, or of 16
+    over int8 pools (``quantized``: one 16-byte load holds 16 values)."""
     if kv_heads <= 0 or heads % kv_heads != 0 or heads // kv_heads > MAX_TILE_ROWS:
         return False
-    return dim is None or (dim % 8 == 0 and 0 < dim <= MAX_HEAD_DIM)
+    step = 16 if quantized else 8
+    return dim is None or (dim % step == 0 and 0 < dim <= MAX_HEAD_DIM)
 
 
 def _check_inputs(q, k_pool, v_pool, block_tables, starts, lengths) -> None:
@@ -166,3 +179,104 @@ def ragged_paged_attention(
 
 
 ragged_paged_attention.launches = 0
+
+
+def _check_quant_inputs(q, k_pool, k_scale, v_pool, v_scale, block_tables, starts, lengths) -> None:
+    name = "ragged_paged_attention_quant"
+    batch, _, heads, dim = q.shape
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    tensors = (
+        ("k_pool", k_pool), ("k_scale", k_scale), ("v_pool", v_pool), ("v_scale", v_scale),
+        ("block_tables", block_tables), ("starts", starts), ("lengths", lengths),
+    )
+    for label, tensor in tensors:
+        if tensor.device != q.device:
+            raise ValueError(f"{name}: {label} on {tensor.device}, q on {q.device}")
+    if q.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"{name}: q must be one of {list(KERNEL_DTYPES)}, got {q.dtype}")
+    if k_pool.dtype != torch.int8 or v_pool.dtype != torch.int8:
+        raise TypeError(f"{name}: the pools must be int8, got {k_pool.dtype}/{v_pool.dtype}")
+    if k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32:
+        raise TypeError(f"{name}: scales must be float32, got {k_scale.dtype}/{v_scale.dtype}")
+    if k_pool.dim() != 4 or k_pool.shape != v_pool.shape or k_pool.shape[3] != dim:
+        raise ValueError(
+            f"{name}: pools must be [N, Bs, KVH, D] matching q {tuple(q.shape)}, got "
+            f"{tuple(k_pool.shape)}/{tuple(v_pool.shape)}"
+        )
+    if k_scale.shape != k_pool.shape[:3] or v_scale.shape != k_pool.shape[:3]:
+        raise ValueError(
+            f"{name}: scales must be [N, Bs, KVH] {tuple(k_pool.shape[:3])}, got "
+            f"{tuple(k_scale.shape)}/{tuple(v_scale.shape)}"
+        )
+    if not fused_shapes_ok(heads, k_pool.shape[2], dim, quantized=True):
+        raise ValueError(
+            f"{name}: {heads} heads over {k_pool.shape[2]} kv heads at head_dim {dim} "
+            f"(needs an even grouping of at most {MAX_TILE_ROWS} and a head_dim that is "
+            f"a multiple of 16 up to {MAX_HEAD_DIM})"
+        )
+    if block_tables.dtype != torch.int32 or block_tables.dim() != 2 or block_tables.shape[0] != batch:
+        raise ValueError(
+            f"{name}: block_tables must be int32 [{batch}, M], got "
+            f"{block_tables.dtype} {tuple(block_tables.shape)}"
+        )
+    for label, tensor in (("starts", starts), ("lengths", lengths)):
+        if tensor.dtype != torch.int32 or tensor.shape != (batch,):
+            raise ValueError(
+                f"{name}: {label} must be int32 [{batch}], got {tensor.dtype} {tuple(tensor.shape)}"
+            )
+    for label, tensor in (("q", q),) + tensors:
+        if not tensor.is_contiguous():
+            raise ValueError(f"{name}: {label} must be contiguous")
+    for label, tensor in (("k_pool", k_pool), ("v_pool", v_pool)):
+        if tensor.data_ptr() % 16:
+            raise ValueError(f"{name}: {label} must be 16-byte aligned")
+
+
+def ragged_paged_attention_quant(
+    q: torch.Tensor,             # [B, Tq, H, D]
+    k_pool: torch.Tensor,        # [N, Bs, KVH, D] int8
+    k_scale: torch.Tensor,       # [N, Bs, KVH] f32
+    v_pool: torch.Tensor,
+    v_scale: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, M] int32
+    starts: torch.Tensor,        # [B] int32
+    lengths: torch.Tensor,       # [B] int32 TOTAL live context
+    *,
+    softcap: Optional[float] = None,
+    window: Optional[int] = None,  # None/0 = full attention
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """:func:`ragged_paged_attention` over int8 pools. Returns [B, Tq, H,
+    D] in q's dtype; the same callers' contract (outputs past a row's new
+    tokens are discarded, a row with no live key yields zeros on the
+    card)."""
+    if q.device.type == "cpu":
+        family = dict(softcap=softcap, window=window, scale=scale)
+        if q.shape[1] == 1:
+            return paged_decode_attention_quant(
+                q[:, 0], k_pool, k_scale, v_pool, v_scale, block_tables, lengths, **family
+            )[:, None]
+        return paged_chunk_attention_quant(
+            q, k_pool, k_scale, v_pool, v_scale, block_tables, starts, lengths, **family
+        )
+    _check_quant_inputs(q, k_pool, k_scale, v_pool, v_scale, block_tables, starts, lengths)
+    batch, seq, heads, dim = q.shape
+    num_blocks, block_size, kv_heads = k_pool.shape[:3]
+    lib = _build.load("paged_attention")
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    status = lib.paged_attention_quant(
+        q.data_ptr(), k_pool.data_ptr(), k_scale.data_ptr(), v_pool.data_ptr(),
+        v_scale.data_ptr(), out.data_ptr(), block_tables.data_ptr(), starts.data_ptr(),
+        lengths.data_ptr(), batch, seq, heads, kv_heads, dim, num_blocks, block_size,
+        block_tables.shape[1], KERNEL_DTYPES[q.dtype],
+        float(dim ** -0.5 if scale is None else scale),
+        float(softcap or 0.0), int(window or 0), stream,
+    )
+    _build.check(status, "paged_attention_quant")
+    ragged_paged_attention_quant.launches += 1
+    return out
+
+
+ragged_paged_attention_quant.launches = 0

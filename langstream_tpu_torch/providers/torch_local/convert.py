@@ -19,7 +19,7 @@ from langstream_tpu_torch.providers.torch_local.model import (
     validate_family_params,
 )
 
-_TORCH_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+_TORCH_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "int8": torch.int8}
 
 
 def tensor_from_numpy(array: Any, device: torch.device | str = "cpu") -> torch.Tensor:
@@ -58,8 +58,6 @@ def cache_from_jax(
     """A JAX KV cache (numpy arrays, or anything ``np.asarray`` takes) →
     the port's cache dict on ``device``. Both layouts cross as they are:
     the dense ``[L, S, T, KVH, D]`` cache and the paged ``[L, N, Bs, KVH,
-    D]`` pool have the same shapes on both sides. The int8 cache (its
-    scale leaves) is not ported yet."""
-    if "k_scale" in np_cache:
-        raise NotImplementedError("the int8 KV cache is not ported yet (see ROADMAP.md)")
+    D]`` pool have the same shapes on both sides, and so does the int8
+    cache (int8 values, f32 ``k_scale``/``v_scale`` without the head dim)."""
     return {name: tensor_from_numpy(leaf, device) for name, leaf in np_cache.items()}

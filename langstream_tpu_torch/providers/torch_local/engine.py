@@ -6,7 +6,10 @@ split-prefill path over either KV layout:
 
 - **Slot-based static batch**: every decode step runs ALL ``max_slots``
   slots through the model. Empty slots ride along masked.
-- **Two KV layouts**: ``kv_layout="dense"`` (the default) gives each slot
+- **Two KV layouts**, each in the model's dtype or, with ``kv_quant="int8"``,
+  as int8 values with one f32 scale per (position, kv head) (half the
+  bytes; the attention kernels read the int8 rows): ``kv_layout="dense"``
+  (the default) gives each slot
   ``max_seq_len`` cache rows; ``kv_layout="paged"`` shares one block pool
   through host-authoritative per-slot block tables, with a persistent
   block prefix cache (``paged.py``): a request whose prompt starts with a
@@ -179,6 +182,7 @@ class DecodeEngine:
                                           # ragged kernel) | "reference"
                                           # (the gather composition)
         prefix_cache: bool = True,
+        kv_quant: Optional[str] = None,   # "int8" = int8 KV cache
     ) -> None:
         self.device = resolve_device(device)
         self.config = config
@@ -190,6 +194,9 @@ class DecodeEngine:
             raise ValueError(f"unknown kv layout {kv_layout!r}")
         if paged_kernel not in model_lib.PAGED_KERNELS:
             raise ValueError(f"unknown paged kernel {paged_kernel!r}")
+        if kv_quant not in (None, "int8"):
+            raise ValueError(f"unknown kv cache quantization {kv_quant!r}")
+        self.kv_quant = kv_quant == "int8"
         self.kv_layout = kv_layout
         self.paged = kv_layout == "paged"
         self.paged_kernel = paged_kernel if self.paged else None
@@ -197,12 +204,15 @@ class DecodeEngine:
         model_lib.validate_family_params(config, params)
         if (
             self.paged_kernel == "fused" and self.device.type == "cuda"
-            and not fused_shapes_ok(config.num_heads, config.num_kv_heads, config.dims_per_head)
+            and not fused_shapes_ok(
+                config.num_heads, config.num_kv_heads, config.dims_per_head, quantized=self.kv_quant
+            )
         ):
             # never relabelled to "reference" quietly: the caller asks for it
             raise ValueError(
                 f"the ragged paged-attention kernel cannot take {config.num_heads} heads "
-                f"over {config.num_kv_heads} kv heads at head_dim {config.dims_per_head}; "
+                f"over {config.num_kv_heads} kv heads at head_dim {config.dims_per_head}"
+                f"{' over int8 pools' if self.kv_quant else ''}; "
                 f"pass paged_kernel='reference' to run the gather composition"
             )
         self.params = {name: p.to(self.device) for name, p in params.items()}
@@ -227,11 +237,12 @@ class DecodeEngine:
             # uploaded per dispatch (0 = the null block)
             self._block_tables = np.zeros((max_slots, self.max_blocks), dtype=np.int32)
             self.cache = model_lib.init_paged_cache(
-                config, self.num_blocks, self.block_size, device=self.device
+                config, self.num_blocks, self.block_size, kv_quant=self.kv_quant,
+                device=self.device,
             )
         else:
             self.cache = model_lib.init_cache(
-                config, max_slots, self.max_seq_len, device=self.device
+                config, max_slots, self.max_seq_len, kv_quant=self.kv_quant, device=self.device
             )
             if prefix_cache:
                 logger.info(

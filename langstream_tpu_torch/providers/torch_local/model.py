@@ -12,6 +12,11 @@ launch the hand-written CUDA kernels, on the CPU they run the plain
 versions. Dense prefill-at-offset attention is plain PyTorch everywhere,
 as the JAX package leaves it to XLA. The matrix products outside
 attention stay ``torch.matmul``.
+
+The int8 KV cache (``kv_quant``) is chosen by the ``k_scale`` leaf, as in
+the JAX package: each layer's new k/v rows are quantized once
+(``quantize_kv``), written with their scales, and every attention seam
+takes the int8 twin of its function (the JAX ``_*_attn_quant``s).
 """
 
 from __future__ import annotations
@@ -25,13 +30,26 @@ import torch.nn.functional as F
 
 from langstream_tpu_torch.ops.attention import (
     chunk_attention,
+    chunk_attention_quant,
     paged_chunk_attention,
+    paged_chunk_attention_quant,
     paged_decode_attention,
+    paged_decode_attention_quant,
     paged_write_rows,
+    quantize_kv,
 )
-from langstream_tpu_torch.ops.decode_kernel import flash_decode_attention
-from langstream_tpu_torch.ops.flash_attention import flash_prefill_attention
-from langstream_tpu_torch.ops.paged_attention import ragged_paged_attention
+from langstream_tpu_torch.ops.decode_kernel import (
+    flash_decode_attention,
+    flash_decode_attention_quant,
+)
+from langstream_tpu_torch.ops.flash_attention import (
+    flash_prefill_attention,
+    flash_prefill_attention_quant,
+)
+from langstream_tpu_torch.ops.paged_attention import (
+    ragged_paged_attention,
+    ragged_paged_attention_quant,
+)
 from langstream_tpu_torch.ops.norms import rms_norm
 from langstream_tpu_torch.ops.rope import apply_rope, rope_frequencies
 
@@ -306,6 +324,22 @@ def init_params(
     return params
 
 
+def _cache_leaves(config: LlamaConfig, shape, kv_quant: bool, device) -> Dict[str, torch.Tensor]:
+    """k/v of ``shape`` in the model's dtype, or (``kv_quant``) int8 with
+    f32 scales of ``shape[:-1]``, one per (position, kv head)."""
+    if kv_quant:
+        return {
+            "k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_scale": torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+            "v_scale": torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+        }
+    return {
+        "k": torch.zeros(shape, dtype=config.dtype, device=device),
+        "v": torch.zeros(shape, dtype=config.dtype, device=device),
+    }
+
+
 def init_cache(
     config: LlamaConfig,
     batch: int,
@@ -313,15 +347,12 @@ def init_cache(
     kv_quant: bool = False,
     device: torch.device | str = "cpu",
 ) -> Dict[str, torch.Tensor]:
-    """Dense KV cache: [layers, batch, max_len, kv_heads, head_dim]."""
-    if kv_quant:
-        raise NotImplementedError(f"the int8 KV cache {_NOT_PORTED}")
+    """Dense KV cache: [layers, batch, max_len, kv_heads, head_dim]
+    (``kv_quant``: int8, plus f32 ``k_scale``/``v_scale`` [layers, batch,
+    max_len, kv_heads])."""
     max_len = max_len or config.max_seq_len
     shape = (config.num_layers, batch, max_len, config.num_kv_heads, config.dims_per_head)
-    return {
-        "k": torch.zeros(shape, dtype=config.dtype, device=device),
-        "v": torch.zeros(shape, dtype=config.dtype, device=device),
-    }
+    return _cache_leaves(config, shape, kv_quant, device)
 
 
 def init_paged_cache(
@@ -336,17 +367,14 @@ def init_paged_cache(
     slot, addressed through per-slot block tables (``paged.py`` owns the
     block accounting). Block 0 is the null block (padding and masked
     writes; never read live). The layout is the JAX package's, so a pool
-    crosses between the two as it is."""
-    if kv_quant:
-        raise NotImplementedError(f"the int8 KV cache {_NOT_PORTED}")
+    crosses between the two as it is. ``kv_quant`` mirrors the dense
+    layout: int8 pools plus f32 scales [layers, num_blocks, block_size,
+    kv_heads]."""
     shape = (
         config.num_layers, num_blocks, block_size,
         config.num_kv_heads, config.dims_per_head,
     )
-    return {
-        "k": torch.zeros(shape, dtype=config.dtype, device=device),
-        "v": torch.zeros(shape, dtype=config.dtype, device=device),
-    }
+    return _cache_leaves(config, shape, kv_quant, device)
 
 
 def model_freqs(
@@ -446,22 +474,49 @@ def _logits(config: LlamaConfig, params, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
-def _prefill_attn(config, q, k, v, lengths, window=None):
-    """Prefill attention through the flash wrapper: the CUDA kernel when
-    the tensors are on the card, the plain version on the CPU."""
-    return flash_prefill_attention(
-        q, k, v, lengths=lengths, softcap=config.attn_logit_softcap,
-        window=window, scale=_attn_scale(config),
-    )
+def _family(config: LlamaConfig, window) -> Dict[str, Any]:
+    return dict(softcap=config.attn_logit_softcap, window=window, scale=_attn_scale(config))
 
 
-def _decode_attn(config, q, kc, vc, lengths, window=None):
-    """Decode attention through the flash-decode wrapper: the CUDA kernel
+def _new_rows(cache: Dict[str, torch.Tensor], k: torch.Tensor, v: torch.Tensor):
+    """A layer's new KV rows by cache leaf: k/v as they are, or over an
+    int8 cache quantized once, values and scales (the rows attention
+    reads, so cold, warm and decode paths see the same contents)."""
+    if "k_scale" not in cache:
+        return {"k": k, "v": v}
+    k_q, k_s = quantize_kv(k)
+    v_q, v_s = quantize_kv(v)
+    return {"k": k_q, "v": v_q, "k_scale": k_s, "v_scale": v_s}
+
+
+def _kv_args(kv: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+    """A layer's leaves in the attention functions' order: (k, v), or
+    (k, k_scale, v, v_scale) for the int8 twins."""
+    if "k_scale" in kv:
+        return kv["k"], kv["k_scale"], kv["v"], kv["v_scale"]
+    return kv["k"], kv["v"]
+
+
+def _prefill_attn(config, q, kv, lengths, window=None):
+    """Cold prefill self-attention over the prompt's own rows ``kv``
+    through the flash wrapper (B1, or B4 over int8 rows): the CUDA kernel
     when the tensors are on the card, the plain version on the CPU."""
-    return flash_decode_attention(
-        q, kc, vc, lengths, softcap=config.attn_logit_softcap,
-        window=window, scale=_attn_scale(config),
-    )
+    fn = flash_prefill_attention_quant if "k_scale" in kv else flash_prefill_attention
+    return fn(q, *_kv_args(kv), lengths=lengths, **_family(config, window))
+
+
+def _decode_attn(config, q, kv, lengths, window=None):
+    """Decode attention over a layer's dense cache ``kv`` through the
+    flash-decode wrapper (B2, or B5 over an int8 cache)."""
+    fn = flash_decode_attention_quant if "k_scale" in kv else flash_decode_attention
+    return fn(q, *_kv_args(kv), lengths, **_family(config, window))
+
+
+def _chunk_attn(config, q, kv, starts, totals, window=None):
+    """Dense prefill-at-offset attention: plain PyTorch on every device,
+    as the JAX package leaves it to XLA."""
+    fn = chunk_attention_quant if "k_scale" in kv else chunk_attention
+    return fn(q, *_kv_args(kv), starts, totals, **_family(config, window))
 
 
 def _layer_tail(config, params, i, x, attn):
@@ -476,11 +531,6 @@ def _layer_tail(config, params, i, x, attn):
     if "post_mlp_norm" in params:
         delta = _norm(config, delta, params["post_mlp_norm"][i])
     return x + delta
-
-
-def _require_bf16_pool(cache: Dict[str, torch.Tensor]) -> None:
-    if "k_scale" in cache:
-        raise NotImplementedError(f"the int8 KV cache {_NOT_PORTED}")
 
 
 def _prefill_scan(config, params, tokens, offsets, freqs, attend):
@@ -525,21 +575,23 @@ def prefill(
     freqs: torch.Tensor,
 ) -> torch.Tensor:
     """Run the prompts through the model, write their KV rows [0, T) into
-    the cache at ``slot_ids`` and zero rows [T, max_len) of those slots,
-    as the JAX ``prefill`` does (IN PLACE: the cache tensors are updated,
-    not copied), and return the logits of each prompt's last real token
-    [B, V] in f32."""
+    the cache at ``slot_ids`` and zero rows [T, max_len) of those slots
+    (values and, int8, scales), as the JAX ``prefill`` does (IN PLACE:
+    the cache tensors are updated, not copied), and return the logits of
+    each prompt's last real token [B, V] in f32. Over an int8 cache the
+    prompt attends to its quantized rows."""
     _require_dense(config)
     validate_family_params(config, params)
     seq = tokens.shape[1]
     slot_ids = slot_ids.long()
 
     def attend(i, q, k, v, window):
-        for leaf, new in (("k", k), ("v", v)):
-            rows = cache[leaf][i]  # [S, max_len, KVH, D] view
-            rows[slot_ids, :seq] = new.to(rows.dtype)
+        new = _new_rows(cache, k, v)
+        for leaf, value in new.items():
+            rows = cache[leaf][i]  # [S, max_len, KVH(, D)] view
+            rows[slot_ids, :seq] = value.to(rows.dtype)
             rows[slot_ids, seq:] = 0
-        return _prefill_attn(config, q, k, v, lengths, window=window)
+        return _prefill_attn(config, q, new, lengths, window=window)
 
     x = _prefill_scan(config, params, tokens, torch.zeros_like(lengths), freqs, attend)
     return _last_token_logits(config, params, x, lengths)
@@ -565,23 +617,20 @@ def prefill_at_offset(
     logits [B, V] (f32) of each row's last real suffix token."""
     _require_dense(config)
     validate_family_params(config, params)
-    _require_bf16_pool(cache)
     seq = tokens.shape[1]
     max_len = cache["k"].shape[2]
     totals = offsets + lengths
     slots = slot_ids.long()
     write_start = offsets.long().clamp(0, max(max_len - seq, 0))
     rows = write_start[:, None] + torch.arange(seq, device=tokens.device)[None, :]  # [B, T]
-    scale = _attn_scale(config)
 
     def attend(i, q, k, v, window):
-        kc, vc = cache["k"][i], cache["v"][i]
-        kc[slots[:, None], rows] = k.to(kc.dtype)
-        vc[slots[:, None], rows] = v.to(vc.dtype)
-        return chunk_attention(
-            q, kc[slots], vc[slots], offsets, totals,
-            softcap=config.attn_logit_softcap, window=window, scale=scale,
-        )
+        layer = {}
+        for leaf, value in _new_rows(cache, k, v).items():
+            stored = cache[leaf][i]
+            stored[slots[:, None], rows] = value.to(stored.dtype)
+            layer[leaf] = stored[slots]
+        return _chunk_attn(config, q, layer, offsets, totals, window=window)
 
     x = _prefill_scan(config, params, tokens, offsets, freqs, attend)
     return _last_token_logits(config, params, x, lengths)
@@ -609,7 +658,6 @@ def decode_step(
     rows = torch.arange(slots, device=tokens.device)
     if write_mask is None:
         write_mask = torch.ones(slots, dtype=torch.bool, device=tokens.device)
-    keep = write_mask[:, None, None]
     windows = layer_windows(config)
     x = _embed(config, params, tokens)  # [S, hidden]
     for i in range(config.num_layers):
@@ -618,11 +666,16 @@ def decode_step(
         q = apply_rope(q.reshape(slots, 1, config.num_heads, hd), freqs, positions[:, None])[:, 0]
         k = apply_rope(k.reshape(slots, 1, config.num_kv_heads, hd), freqs, positions[:, None])[:, 0]
         v = v.reshape(slots, config.num_kv_heads, hd)
-        kc, vc = cache["k"][i], cache["v"][i]  # [S, T, KVH, D] views
-        kc[rows, positions] = torch.where(keep, k.to(kc.dtype), kc[rows, positions])
-        vc[rows, positions] = torch.where(keep, v.to(vc.dtype), vc[rows, positions])
+        layer = {}
+        for leaf, value in _new_rows(cache, k, v).items():
+            stored = cache[leaf][i]  # [S, T, KVH(, D)] view
+            keep = write_mask.reshape(-1, *([1] * (value.dim() - 1)))
+            stored[rows, positions] = torch.where(
+                keep, value.to(stored.dtype), stored[rows, positions]
+            )
+            layer[leaf] = stored
         attn = _decode_attn(
-            config, q, kc, vc, lengths, window=windows[i] if windows else None
+            config, q, layer, lengths, window=windows[i] if windows else None
         )
         x = _layer_tail(config, params, i, x, attn.reshape(slots, -1))
     return _logits(config, params, _norm(config, x, params["final_norm"]))
@@ -631,28 +684,29 @@ def decode_step(
 PAGED_KERNELS = ("fused", "reference")
 
 
-def _paged_attn(config, q, k_pool, v_pool, tables, starts, totals, *, window, kernel):
-    """Paged attention, one seam for every ragged case: decode (q
-    [S, H, D], starts = lengths - 1), prefill-at-offset and cold paged
-    prefill (q [B, T, H, D]). ``kernel="fused"`` goes through
-    :func:`ragged_paged_attention`, which launches the CUDA kernel on a
-    card tensor (or raises) and runs its plain version on a CPU tensor;
-    ``"reference"`` (asked for explicitly) runs the gather composition
-    on any device."""
-    family = dict(
-        softcap=config.attn_logit_softcap, window=window, scale=_attn_scale(config)
-    )
+def _paged_attn(config, q, kv, tables, starts, totals, *, window, kernel):
+    """Paged attention over a layer's pools ``kv``, one seam for every
+    ragged case: decode (q [S, H, D], starts = lengths - 1),
+    prefill-at-offset and cold paged prefill (q [B, T, H, D]).
+    ``kernel="fused"`` goes through :func:`ragged_paged_attention` (B3,
+    or :func:`ragged_paged_attention_quant`, B6, over int8 pools), which
+    launches the CUDA kernel on a card tensor (or raises) and runs its
+    plain version on a CPU tensor; ``"reference"`` (asked for explicitly)
+    runs the gather composition on any device."""
+    family = _family(config, window)
+    quant = "k_scale" in kv
     decode = q.dim() == 3
     if kernel == "fused":
-        out = ragged_paged_attention(
-            q[:, None] if decode else q, k_pool, v_pool, tables, starts, totals, **family
-        )
+        fn = ragged_paged_attention_quant if quant else ragged_paged_attention
+        out = fn(q[:, None] if decode else q, *_kv_args(kv), tables, starts, totals, **family)
         return out[:, 0] if decode else out
     if kernel != "reference":
         raise ValueError(f"unknown paged kernel {kernel!r}")
     if decode:
-        return paged_decode_attention(q, k_pool, v_pool, tables, totals, **family)
-    return paged_chunk_attention(q, k_pool, v_pool, tables, starts, totals, **family)
+        fn = paged_decode_attention_quant if quant else paged_decode_attention
+        return fn(q, *_kv_args(kv), tables, totals, **family)
+    fn = paged_chunk_attention_quant if quant else paged_chunk_attention
+    return fn(q, *_kv_args(kv), tables, starts, totals, **family)
 
 
 @torch.inference_mode()
@@ -673,7 +727,8 @@ def paged_prefill(
     the same ragged launch the warm and decode paths use, reading the
     just-written blocks through the tables. Reference route: the dense
     cold layer loop of :func:`prefill` (self-attention never reads the
-    cache) with the KV scattered through the tables."""
+    cache; over int8 pools it reads the quantized rows through B4) with
+    the KV scattered through the tables."""
     if kernel == "fused":
         return paged_prefill_at_offset(
             config, params, cache, tokens, lengths, torch.zeros_like(lengths),
@@ -683,15 +738,15 @@ def paged_prefill(
         raise ValueError(f"unknown paged kernel {kernel!r}")
     _require_dense(config)
     validate_family_params(config, params)
-    _require_bf16_pool(cache)
     batch, seq = tokens.shape
     valid = torch.arange(seq, device=tokens.device)[None, :] < lengths[:, None]
     zeros = torch.zeros((batch,), dtype=torch.int32, device=tokens.device)
 
     def attend(i, q, k, v, window):
-        paged_write_rows(cache["k"][i], k, block_tables, zeros, valid)
-        paged_write_rows(cache["v"][i], v, block_tables, zeros, valid)
-        return _prefill_attn(config, q, k, v, lengths, window=window)
+        new = _new_rows(cache, k, v)
+        for leaf, value in new.items():
+            paged_write_rows(cache[leaf][i], value, block_tables, zeros, valid)
+        return _prefill_attn(config, q, new, lengths, window=window)
 
     x = _prefill_scan(config, params, tokens, zeros, freqs, attend)
     return _last_token_logits(config, params, x, lengths)
@@ -719,18 +774,17 @@ def paged_prefill_at_offset(
     suffix token."""
     _require_dense(config)
     validate_family_params(config, params)
-    _require_bf16_pool(cache)
     seq = tokens.shape[1]
     valid = torch.arange(seq, device=tokens.device)[None, :] < lengths[:, None]
     totals = offsets + lengths
 
     def attend(i, q, k, v, window):
-        k_pool, v_pool = cache["k"][i], cache["v"][i]
-        paged_write_rows(k_pool, k, block_tables, offsets, valid)
-        paged_write_rows(v_pool, v, block_tables, offsets, valid)
+        layer = {
+            leaf: paged_write_rows(cache[leaf][i], value, block_tables, offsets, valid)
+            for leaf, value in _new_rows(cache, k, v).items()
+        }
         return _paged_attn(
-            config, q, k_pool, v_pool, block_tables, offsets, totals,
-            window=window, kernel=kernel,
+            config, q, layer, block_tables, offsets, totals, window=window, kernel=kernel,
         )
 
     x = _prefill_scan(config, params, tokens, offsets, freqs, attend)
@@ -757,7 +811,6 @@ def paged_decode_step(
     at admission. Returns next-token logits [S, V] in f32."""
     _require_dense(config)
     validate_family_params(config, params)
-    _require_bf16_pool(cache)
     slots = tokens.shape[0]
     hd = config.dims_per_head
     positions = lengths - 1  # -1 (empty slot) wraps in RoPE; its write is masked
@@ -772,11 +825,14 @@ def paged_decode_step(
         q = apply_rope(q.reshape(slots, 1, config.num_heads, hd), freqs, rope_positions)[:, 0]
         k = apply_rope(k.reshape(slots, 1, config.num_kv_heads, hd), freqs, rope_positions)[:, 0]
         v = v.reshape(slots, config.num_kv_heads, hd)
-        k_pool, v_pool = cache["k"][i], cache["v"][i]
-        paged_write_rows(k_pool, k[:, None], block_tables, positions, write_mask[:, None])
-        paged_write_rows(v_pool, v[:, None], block_tables, positions, write_mask[:, None])
+        layer = {
+            leaf: paged_write_rows(
+                cache[leaf][i], value[:, None], block_tables, positions, write_mask[:, None]
+            )
+            for leaf, value in _new_rows(cache, k, v).items()
+        }
         attn = _paged_attn(
-            config, q, k_pool, v_pool, block_tables, positions, lengths,
+            config, q, layer, block_tables, positions, lengths,
             window=windows[i] if windows else None, kernel=kernel,
         )
         x = _layer_tail(config, params, i, x, attn.reshape(slots, -1))

@@ -9,10 +9,13 @@ Configuration, with the JAX provider's keys::
     engine: {max-slots: 16, max-seq-len: 4096, decode-chunk: 8,
              prefill-buckets: [64, 128], sampling-seed: 7,
              kv-layout: paged, kv-block-size: 16, kv-blocks: 4097,
-             paged-kernel: fused, prefix-cache: true}
+             paged-kernel: fused, prefix-cache: true, kv-quant: int8}
 
 With no ``checkpoint`` the weights are random, drawn from ``seed`` on the
-device (checkpoint loading is not ported yet and raises).
+device (checkpoint loading is not ported yet and raises). ``kv-quant:
+int8`` stores the KV cache as int8 with per-(position, kv head) scales on
+either layout. The top-level ``quantization: int8`` (int8 weights) is not
+ported yet and raises rather than serving bf16 weights.
 """
 
 from __future__ import annotations
@@ -59,6 +62,14 @@ class TorchCompletionsService:
                 "checkpoint loading is not ported to langstream_tpu_torch yet "
                 "(see ROADMAP.md); omit `checkpoint` for random weights"
             )
+        quantization = config.get("quantization")
+        if quantization == "int8":
+            raise NotImplementedError(
+                "quantization: int8 (int8 weight-only params) is not ported to "
+                "langstream_tpu_torch yet (see ROADMAP.md, Queue A); omit it for bf16 weights"
+            )
+        if quantization:
+            raise ValueError(f"unknown quantization {quantization!r}")
         model_config = model_lib.LlamaConfig.from_dict(
             config.get("model", {"preset": "tiny"})
         )
@@ -98,6 +109,7 @@ class TorchCompletionsService:
             paged_kernel=str(engine_config.get("paged-kernel") or "fused").lower(),
             prefix_cache=str(engine_config.get("prefix-cache", "true")).lower()
             not in ("0", "false", "no"),
+            kv_quant=engine_config.get("kv-quant") or None,
         )
         self.engine.start()
 

@@ -7,7 +7,8 @@ side (the port's dense layout has no cross-slot prefix copy yet). Six concurrent
 different lengths — greedy with a repetition penalty, a stop token
 landing mid-chunk, seeded
 temperature / top-k / top-p with penalties and logit bias, and one
-auto-seeded request — must produce the same token streams.
+auto-seeded request — must produce the same token streams. The same
+holds over the int8 KV cache (``kv_quant="int8"``) on both sides.
 """
 
 import asyncio
@@ -178,3 +179,99 @@ def test_submit_from_plain_threads(engines):
         thread.join(timeout=60)
     assert not any(thread.is_alive() for thread in threads)
     assert {i: len(r.tokens) for i, r in results.items()} == {i: 3 + i for i in range(6)}
+
+
+# ---------------------------------------------------------------------- #
+# the int8 KV cache
+# ---------------------------------------------------------------------- #
+@pytest.fixture(scope="module")
+def int8_engines():
+    jcfg = jax_model.LlamaConfig.tiny(max_seq_len=128)
+    tcfg = model.LlamaConfig.tiny(max_seq_len=128)
+    jparams = jax_model.init_params(jcfg, seed=5)
+    tparams = params_from_jax({k: np.asarray(v) for k, v in jparams.items()}, tcfg)
+    ported = engine.DecodeEngine(tcfg, tparams, device="cpu", kv_quant="int8", **ENGINE_ARGS)
+    reference = jax_engine.DecodeEngine(
+        jcfg, jparams, prefix_cache=False, kv_quant="int8", **ENGINE_ARGS
+    )
+    yield ported, reference
+    ported.stop()
+    reference.stop()
+
+
+def test_int8_token_streams_match_jax_engine(int8_engines):
+    """Greedy and seeded streams over the int8 dense cache, one prompt
+    past the largest bucket (prefilled in windows), equal the JAX int8
+    engine's."""
+    ported, reference = int8_engines
+    assert ported.kv_quant and ported.cache["k"].dtype == torch.int8
+    rng = np.random.default_rng(31)
+
+    def prompt(n):
+        return rng.integers(0, 256, size=n).tolist()
+
+    S = engine.SamplingParams
+    requests = [
+        (prompt(5), S(frequency_penalty=1.5, max_new_tokens=12), set()),
+        (prompt(17), S(temperature=0.8, seed=11, max_new_tokens=10), set()),
+        (prompt(30), S(temperature=1.0, top_k=20, seed=5, max_new_tokens=14), set()),
+        (prompt(9), S(temperature=0.9, top_p=0.8, seed=3, presence_penalty=0.5, max_new_tokens=9), set()),
+        (prompt(45), S(max_new_tokens=8), set()),
+    ]
+    jax_requests = [(p, jax_engine.SamplingParams(**s.__dict__), stops) for p, s, stops in requests]
+    got = _generate(ported, requests)
+    want = _generate(reference, jax_requests)
+    for index, (mine, theirs) in enumerate(zip(got, want)):
+        assert mine.tokens == theirs.tokens, index
+        np.testing.assert_allclose(mine.logprobs, theirs.logprobs, rtol=1e-4, atol=1e-4)
+    assert [len(r.tokens) for r in got] == [12, 10, 14, 9, 8]
+
+
+def test_int8_long_prompt_chunked_matches_whole():
+    """A 90-token prompt prefilled in 32-token windows gives the tokens of
+    one whole 128-token prefill (``tests/test_kv_quant.py``'s contract)."""
+    config = model.LlamaConfig.tiny(max_seq_len=256)
+    params = model.init_params(config, seed=2)
+    prompt = [(13 * i) % 250 + 1 for i in range(90)]
+
+    def run(buckets):
+        eng = engine.DecodeEngine(config, params, device="cpu", kv_quant="int8", max_slots=2,
+                                  max_seq_len=256, prefill_buckets=buckets)
+        try:
+            return _generate(eng, [(prompt, engine.SamplingParams(max_new_tokens=8), set())])[0].tokens
+        finally:
+            eng.stop()
+
+    chunked = run([32])
+    assert len(chunked) == 8 and chunked == run([128])
+
+
+def test_int8_logits_close_to_bf16_cache():
+    """Prefill and four greedy decode steps: logits over the int8 cache
+    within 5% of max |logit| of the model-dtype cache's, argmax agreeing
+    on at least 80% of steps (``tests/test_kv_quant.py``'s bound)."""
+    config = model.LlamaConfig.tiny(max_seq_len=64)
+    params = model.init_params(config, seed=0)
+    freqs = model.model_freqs(config)
+    tokens = torch.tensor([[(7 * i) % 250 + 1 for i in range(12)]])
+    outs = {}
+    for quant in (False, True):
+        cache = model.init_cache(config, 1, 64, kv_quant=quant)
+        lengths = torch.tensor([12], dtype=torch.int32)
+        logits = model.prefill(config, params, cache, tokens, lengths, torch.tensor([0]), freqs)
+        steps = [logits]
+        for _ in range(4):
+            lengths = lengths + 1
+            logits = model.decode_step(config, params, cache, logits.argmax(-1), lengths, freqs)
+            steps.append(logits)
+        outs[quant] = torch.stack(steps).numpy()
+    reference, quantized = outs[False], outs[True]
+    assert np.abs(reference - quantized).max() < 0.05 * np.abs(reference).max()
+    assert (reference.argmax(-1) == quantized.argmax(-1)).mean() >= 0.8
+
+
+def test_unknown_kv_quant_rejected():
+    config = model.LlamaConfig.tiny(max_seq_len=64)
+    with pytest.raises(ValueError, match="kv cache quantization"):
+        engine.DecodeEngine(config, model.init_params(config), device="cpu", kv_quant="fp4",
+                            max_slots=2, max_seq_len=64)

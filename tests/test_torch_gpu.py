@@ -15,14 +15,19 @@ import pytest
 import torch
 
 from langstream_tpu_torch.ops.attention import (
+    chunk_attention_quant,
     decode_attention,
+    decode_attention_quant,
     paged_chunk_attention,
+    paged_chunk_attention_quant,
     paged_decode_attention,
+    paged_decode_attention_quant,
     prefill_attention,
+    quantize_kv,
 )
-from langstream_tpu_torch.ops.decode_kernel import flash_decode_attention
-from langstream_tpu_torch.ops.flash_attention import flash_prefill_attention
-from langstream_tpu_torch.ops.paged_attention import ragged_paged_attention
+from langstream_tpu_torch.ops.decode_kernel import flash_decode_attention, flash_decode_attention_quant
+from langstream_tpu_torch.ops.flash_attention import flash_prefill_attention, flash_prefill_attention_quant
+from langstream_tpu_torch.ops.paged_attention import ragged_paged_attention, ragged_paged_attention_quant
 from langstream_tpu_torch.providers.torch_local import engine, model
 
 # bf16: p is rounded to bf16 before p·v and sums run in another order
@@ -207,3 +212,139 @@ def test_paged_engine_refuses_shapes_the_kernel_cannot_take():
     with pytest.raises(ValueError, match="paged_kernel='reference'"):
         engine.DecodeEngine(config, params, device=device, kv_layout="paged")
     engine.DecodeEngine(config, params, device=device, kv_layout="paged", paged_kernel="reference")
+
+
+# ---------------------------------------------------------------------- #
+# B4, B5, B6: the int8 kernels against their plain versions. k/v are
+# quantize_kv of seeded activations; p.v runs in f32 in the kernels as in
+# the plain versions, so only q's and out's dtype and the summation order
+# differ.
+# ---------------------------------------------------------------------- #
+# FAMILIES plus GQA 8 at head_dim 80 (int8 tiles padded to 128 in B4)
+QUANT_FAMILIES = FAMILIES + [(16, 2, 80, 30.0, 0, 0.2)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("heads,kv_heads,dim,softcap,window,scale", QUANT_FAMILIES)
+def test_flash_prefill_quant_kernel_matches_plain(dtype, heads, kv_heads, dim, softcap, window, scale):
+    device = _card()
+    rng = np.random.default_rng(10)
+    batch, seq = 5, 200
+    torch_dtype = getattr(torch, dtype)
+
+    def draw(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device, torch_dtype)
+
+    q = draw(batch, seq, heads, dim)
+    k, k_scale = quantize_kv(draw(batch, seq, kv_heads, dim))
+    v, v_scale = quantize_kv(draw(batch, seq, kv_heads, dim))
+    lengths = torch.tensor([200, 128, 64, 1, 0], dtype=torch.int32, device=device)
+    family = dict(softcap=softcap, window=window, scale=scale)
+    before = flash_prefill_attention_quant.launches
+    out = flash_prefill_attention_quant(q, k, k_scale, v, v_scale, lengths=lengths, **family)
+    torch.cuda.synchronize()
+    assert flash_prefill_attention_quant.launches == before + 1
+    assert out.dtype == torch_dtype
+    ref = chunk_attention_quant(q, k, k_scale, v, v_scale, torch.zeros_like(lengths), lengths, **family)
+    assert float(out[4].float().abs().max()) == 0.0, "an empty prompt must yield zeros"
+    for b in range(batch - 1):
+        n = int(lengths[b])
+        assert _rel_err(out[b, :n], ref[b, :n]) < TOLERANCE[dtype], b
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("heads,kv_heads,dim,softcap,window,scale", QUANT_FAMILIES)
+def test_flash_decode_quant_kernel_matches_plain(dtype, heads, kv_heads, dim, softcap, window, scale):
+    device = _card()
+    rng = np.random.default_rng(11)
+    slots, max_len = 6, 300
+    torch_dtype = getattr(torch, dtype)
+
+    def draw(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device, torch_dtype)
+
+    q = draw(slots, heads, dim)
+    k, k_scale = quantize_kv(draw(slots, max_len, kv_heads, dim))
+    v, v_scale = quantize_kv(draw(slots, max_len, kv_heads, dim))
+    lengths = torch.tensor([300, 129, 64, 1, 0, 77], dtype=torch.int32, device=device)
+    family = dict(softcap=softcap, window=window, scale=scale)
+    before = flash_decode_attention_quant.launches
+    out = flash_decode_attention_quant(q, k, k_scale, v, v_scale, lengths, **family)
+    torch.cuda.synchronize()
+    assert flash_decode_attention_quant.launches == before + 1
+    ref = decode_attention_quant(q, k, k_scale, v, v_scale, lengths, **family)
+    for s in range(slots):
+        if int(lengths[s]) == 0:
+            assert float(out[s].float().abs().max()) == 0.0
+            continue
+        assert _rel_err(out[s], ref[s]) < TOLERANCE[dtype], s
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("heads,kv_heads,dim,softcap,window,scale", PAGED_FAMILIES)
+@pytest.mark.parametrize("block_size", [8, 16, 32])
+@pytest.mark.parametrize("seq", [1, 64])
+def test_ragged_paged_quant_kernel_matches_plain(dtype, heads, kv_heads, dim, softcap, window, scale,
+                                                 block_size, seq):
+    device = _card()
+    rng = np.random.default_rng(block_size * 1000 + seq + 7)
+    q, k_pool, v_pool, tables, starts, lengths, news = _paged_case(
+        rng, device, getattr(torch, dtype), heads, kv_heads, dim, block_size, seq)
+    pools = (*quantize_kv(k_pool), *quantize_kv(v_pool))
+    family = dict(softcap=softcap, window=window, scale=scale)
+    before = ragged_paged_attention_quant.launches
+    out = ragged_paged_attention_quant(q, *pools, tables, starts, lengths, **family)
+    torch.cuda.synchronize()
+    assert ragged_paged_attention_quant.launches == before + 1
+    if seq == 1:
+        ref = paged_decode_attention_quant(q[:, 0], *pools, tables, lengths, **family)[:, None]
+    else:
+        ref = paged_chunk_attention_quant(q, *pools, tables, starts, lengths, **family)
+    for b, n in enumerate(news):
+        if int(lengths[b]) == 0:
+            assert float(out[b].float().abs().max()) == 0.0, "an empty row must yield zeros"
+            continue
+        assert _rel_err(out[b, :n], ref[b, :n]) < TOLERANCE[dtype], b
+
+
+@pytest.mark.gpu
+def test_quant_kernels_are_deterministic_and_refuse():
+    device = _card()
+    rng = np.random.default_rng(6)
+    q, k_pool, v_pool, tables, starts, lengths, _ = _paged_case(
+        rng, device, torch.bfloat16, 32, 8, 128, 16, 64)
+    (kq, ks), (vq, vs) = quantize_kv(k_pool), quantize_kv(v_pool)
+    first = ragged_paged_attention_quant(q, kq, ks, vq, vs, tables, starts, lengths)
+    second = ragged_paged_attention_quant(q, kq, ks, vq, vs, tables, starts, lengths)
+    assert torch.equal(first, second)
+    with pytest.raises(TypeError):  # bf16 pools
+        ragged_paged_attention_quant(q, k_pool, ks, v_pool, vs, tables, starts, lengths)
+    with pytest.raises(TypeError):  # bf16 scales
+        ragged_paged_attention_quant(q, kq, ks.bfloat16(), vq, vs.bfloat16(), tables, starts, lengths)
+    with pytest.raises(ValueError):  # head_dim 40
+        ragged_paged_attention_quant(q[..., :40].contiguous(), kq[..., :40].contiguous(), ks,
+                                     vq[..., :40].contiguous(), vs, tables, starts, lengths)
+    qd = torch.zeros(2, 8, 40, dtype=torch.bfloat16, device=device)
+    cache = torch.zeros(2, 16, 4, 40, dtype=torch.int8, device=device)
+    scales = torch.ones(2, 16, 4, device=device)
+    lens = torch.ones(2, dtype=torch.int32, device=device)
+    with pytest.raises(ValueError):  # head_dim 40
+        flash_decode_attention_quant(qd, cache, scales, cache, scales, lens)
+    with pytest.raises(ValueError):
+        flash_prefill_attention_quant(qd[:, None], cache[:, :1], scales[:, :1], cache[:, :1],
+                                      scales[:, :1])
+    good = torch.zeros(2, 16, 4, 64, dtype=torch.int8, device=device)
+    qg = torch.zeros(2, 8, 64, dtype=torch.bfloat16, device=device)
+    with pytest.raises(TypeError):  # k not int8
+        flash_decode_attention_quant(qg, good.bfloat16(), scales, good, scales, lens)
+    with pytest.raises(TypeError):  # scales not f32
+        flash_decode_attention_quant(qg, good, scales.half(), good, scales.half(), lens)
+    with pytest.raises(TypeError):
+        flash_prefill_attention_quant(qg[:, None], good[:, :1].bfloat16(), scales[:, :1],
+                                      good[:, :1], scales[:, :1])
+    with pytest.raises(TypeError):
+        flash_prefill_attention_quant(qg[:, None], good[:, :1], scales[:, :1].double(),
+                                      good[:, :1], scales[:, :1].double())

@@ -121,10 +121,25 @@ def test_unported_paths_raise():
         model.init_params(moe)
     with pytest.raises(NotImplementedError):
         model.verify_step()
-    with pytest.raises(NotImplementedError):
-        model.init_cache(model.LlamaConfig.tiny(), 1, kv_quant=True)
-    with pytest.raises(NotImplementedError):
-        model.init_paged_cache(model.LlamaConfig.tiny(), 9, 8, kv_quant=True)
+
+
+def _assert_int8_cache(cache, shape):
+    assert set(cache) == {"k", "v", "k_scale", "v_scale"}
+    for leaf in ("k", "v"):
+        assert cache[leaf].dtype == torch.int8 and tuple(cache[leaf].shape) == shape
+        assert cache[leaf + "_scale"].dtype == torch.float32
+        assert tuple(cache[leaf + "_scale"].shape) == shape[:-1]
+    assert not any(bool(leaf.any()) for leaf in cache.values())
+
+
+def test_init_cache_int8_dtypes_and_shapes():
+    config = model.LlamaConfig.tiny()
+    _assert_int8_cache(model.init_cache(config, 3, 40, kv_quant=True), (2, 3, 40, 2, 16))
+
+
+def test_init_paged_cache_int8_dtypes_and_shapes():
+    config = model.LlamaConfig.tiny_gemma2()
+    _assert_int8_cache(model.init_paged_cache(config, 9, 8, kv_quant=True), (2, 9, 8, 2, 16))
 
 
 def _jit(fn, cfg, **kw):

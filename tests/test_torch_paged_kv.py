@@ -11,7 +11,9 @@ The engine with ``kv_layout="paged"`` against the JAX paged engine
 prefix hit after slot turnover, a shared 288-token prefix that prefills
 only its suffix with the same hit count as JAX, eviction under pool
 pressure, admission that waits for blocks, the constructor's refusals,
-and the port's paged layout against its dense one.
+and the port's paged layout against its dense one. Over int8 pools
+(``kv_quant="int8"``): the streams against the JAX int8 paged engine,
+warm-by-prefix against cold, and paged against the int8 dense layout.
 """
 
 import asyncio
@@ -334,3 +336,75 @@ def test_reference_kernel_matches_fused_route(weights, engines):
         _assert_same(_in_order(oracle, requests), _in_order(ported, requests))
     finally:
         oracle.stop()
+
+
+# ---------------------------------------------------------------------- #
+# int8 pools
+# ---------------------------------------------------------------------- #
+@pytest.fixture(scope="module")
+def int8_engines(weights):
+    jcfg, jparams, tcfg, tparams = weights
+    ported = engine.DecodeEngine(tcfg, tparams, device="cpu", kv_quant="int8",
+                                 **ENGINE_ARGS, **PAGED_ARGS)
+    reference = jax_engine.DecodeEngine(
+        jcfg, jparams, paged_kernel="reference", kv_quant="int8", **ENGINE_ARGS, **PAGED_ARGS
+    )
+    yield ported, reference
+    for eng in (ported, reference):
+        eng.stop()
+
+
+def test_int8_paged_token_streams_match_jax_paged_engine(int8_engines):
+    ported, reference = int8_engines
+    assert ported.cache["k"].dtype == torch.int8 and "v_scale" in ported.cache
+    rng = np.random.default_rng(41)
+
+    def prompt(n):
+        return rng.integers(1, 256, size=n).tolist()
+
+    shared = prompt(20)
+    S = engine.SamplingParams
+    requests = [
+        (prompt(5), S(frequency_penalty=1.5, max_new_tokens=12), set()),
+        (shared + prompt(7), S(max_new_tokens=10), set()),
+        (prompt(17), S(temperature=0.8, seed=11, max_new_tokens=10), set()),
+        (shared[:18] + prompt(3), S(temperature=0.9, top_p=0.8, seed=3, max_new_tokens=9), set()),
+        (prompt(70), S(temperature=0.7, seed=8, max_new_tokens=11), set()),
+    ]
+    _assert_same(_generate(ported, requests), _generate(reference, _jax_requests(requests)))
+
+
+def test_int8_paged_warm_by_prefix_equals_cold(weights, int8_engines):
+    """A prompt admitted onto another request's int8 blocks decodes the
+    tokens of a cold run on an engine without the prefix cache."""
+    _, _, tcfg, tparams = weights
+    ported, _ = int8_engines
+    shared = [(11 * i) % 250 + 1 for i in range(40)]
+    S = engine.SamplingParams
+    first = (shared + [7, 8], S(max_new_tokens=6), set())
+    follow = (shared + [9, 9, 9], S(max_new_tokens=6), set())
+    hits = ported.stats["prefix_hits"]
+    warm = _in_order(ported, [first, follow])[1]
+    assert ported.stats["prefix_hits"] > hits
+    cold_engine = engine.DecodeEngine(tcfg, tparams, device="cpu", kv_quant="int8",
+                                      prefix_cache=False, **ENGINE_ARGS, **PAGED_ARGS)
+    try:
+        (cold,) = _generate(cold_engine, [follow])
+        assert cold_engine.stats["prefix_hits"] == 0
+    finally:
+        cold_engine.stop()
+    assert warm.tokens == cold.tokens
+
+
+def test_int8_paged_matches_int8_dense_greedy(weights, int8_engines):
+    _, _, tcfg, tparams = weights
+    ported, _ = int8_engines
+    dense = engine.DecodeEngine(tcfg, tparams, device="cpu", kv_quant="int8", **ENGINE_ARGS)
+    prompts = [[i + 1, i + 2, i + 3, i + 4, i + 5] for i in range(4)] + [list(range(1, 30))]
+    requests = [(p, engine.SamplingParams(max_new_tokens=6), set()) for p in prompts]
+    try:
+        assert [r.tokens for r in _generate(ported, requests)] == [
+            r.tokens for r in _generate(dense, requests)
+        ]
+    finally:
+        dense.stop()

@@ -10,7 +10,7 @@ import urllib.request
 import pytest
 import torch
 
-from langstream_tpu_torch.cli.main import build_parser, start_server
+from langstream_tpu_torch.cli.main import build_parser, serve_config, start_server
 from langstream_tpu_torch.providers.torch_local import engine, model
 from langstream_tpu_torch.providers.torch_local.provider import TorchCompletionsService
 
@@ -183,3 +183,45 @@ def test_entry_points_refuse_the_cpu_unless_asked():
         TorchCompletionsService({})
     with pytest.raises(RuntimeError, match="device='cpu'"):
         start_server(build_parser().parse_args(["serve", "--port", "0"]))
+
+
+def test_provider_kv_quant_serves_chat_text_and_sse():
+    """``engine.kv-quant: int8`` in the provider config (``serve`` has no
+    flag for it, as in the JAX package) builds an int8 cache, and the
+    OpenAI server over it answers chat, text and SSE."""
+    args = build_parser().parse_args([
+        "serve", "--device", "cpu", "--host", "127.0.0.1", "--port", "0",
+        "--max-slots", "2", "--max-seq-len", "128", "--decode-chunk", "4",
+    ])
+    config = serve_config(args)
+    config["engine"]["kv-quant"] = "int8"
+    service, api = start_server(args, config)
+    url = f"http://127.0.0.1:{api.port}"
+    try:
+        cache = service.engine.cache
+        assert service.engine.kv_quant and cache["k"].dtype == torch.int8
+        assert cache["k_scale"].dtype == torch.float32
+        chat = json.loads(_post(url + "/v1/chat/completions", {
+            "messages": [{"role": "user", "content": "hello there"}], "max_tokens": 6,
+        }))
+        assert chat["usage"]["completion_tokens"] == 6
+        text = json.loads(_post(url + "/v1/completions", {"prompt": "once upon", "max_tokens": 5}))
+        assert text["usage"]["completion_tokens"] == 5
+        raw = _post(url + "/v1/chat/completions", {
+            "messages": [{"role": "user", "content": "hi"}], "max_tokens": 7, "stream": True,
+        })
+        frames = [line[len("data: "):] for line in raw.split("\n\n") if line.startswith("data: ")]
+        assert frames[-1] == "[DONE]"
+        assert json.loads(frames[-2])["usage"]["completion_tokens"] == 7
+    finally:
+        api.stop()
+        service.engine.stop()
+
+
+def test_provider_refuses_int8_weights():
+    """``quantization: int8`` (int8 weights) is not ported: the provider
+    raises instead of serving the model-dtype weights."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        TorchCompletionsService({"model": {"preset": "tiny"}, "quantization": "int8"}, device="cpu")
+    with pytest.raises(ValueError, match="unknown quantization"):
+        TorchCompletionsService({"model": {"preset": "tiny"}, "quantization": "fp4"}, device="cpu")
