@@ -19,7 +19,11 @@ Phases (any failure propagates and the exit code is not 0):
    loop is printed beside it. B1 flash prefill and B2 flash decode carry
    the dense path; B3 ragged paged attention the paged path, at a decode
    and a prefill-at-offset shape; B4, B5 and B6 are their int8-KV twins,
-   at the same shapes over ``quantize_kv`` of the same activations.
+   at the same shapes over ``quantize_kv`` of the same activations. B7
+   (and B8 over int8 pools), the token-ragged kernel of the mixed step,
+   at its shape (32 rows of a 64-wide span: decode rows, two windows,
+   idle rows), also with packed non-uniform ``q_offsets``; its rows must
+   equal B3's (B6's) bit for bit and its dead tiles be exactly zero.
 3. Reference: the model at Llama-3-8B width, depth cut to 2 layers, on the
    card (kernels) against the same weights on the CPU (plain path), for
    the dense layout and the paged one (cold prefill, prefill-at-offset
@@ -27,6 +31,8 @@ Phases (any failure propagates and the exit code is not 0):
    int8 one. On the card the paged logits are also held against the
    dense ones, the windowed prefill of a long prompt (both layouts)
    against a one-shot prefill, and the int8 logits against the bf16 ones.
+   Then one mixed step (``paged_mixed_step``, both caches) on the card
+   against the CPU and against the split calls on the card.
 4. Dense serving: Llama-3-8B (bf16, random weights from seed 0) behind
    the port's OpenAI server, started as ``python -m langstream_tpu_torch
    serve`` starts it, answering 16 concurrent chat and text completions
@@ -36,12 +42,19 @@ Phases (any failure propagates and the exit code is not 0):
    enqueue time against wall time (again in phase 6, over the int8 cache).
 5. Paged serving: the same model with ``--kv-layout paged``, answering 16
    chats that share a ~512-byte system message, 8 text completions and
-   one SSE stream. The prefix cache must have served tokens, B3 must have
-   been launched once per layer per model call, and B1 and B2 not at all.
+   one SSE stream, all arriving cold. The prefix cache must have served
+   tokens, B3 must have been launched once per layer per model call, and
+   no other kernel at all. Then the same burst on a new server after one
+   uncounted chat with that system message (the twin of the mixed run),
+   and with ``--prefill-mode mixed`` after that chat: no prefill model
+   call, B7 once per layer per mixed step, B3 once per layer per plain
+   decode step; and one bare paged decode step and one mixed step of
+   that model, host enqueue against wall time.
 6. int8 serving: phases 4 and 5 again, same model and traffic, with
    ``kv-quant: int8`` in the provider's engine config (``serve`` has no
    flag for it). Dense: B4 and B5 once per layer per model call; paged:
-   B6 once per layer per model call; no other kernel launched.
+   B6 once per layer per model call; mixed: B8 per mixed step and B6 per
+   decode step; no other kernel launched.
 
 The line before the last holds the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -49,6 +62,7 @@ The line before the last holds the kernels' JSON; the last line is
 
 import concurrent.futures
 import dataclasses
+import functools
 import gc
 import json
 import subprocess
@@ -75,6 +89,8 @@ from langstream_tpu_torch.ops.attention import (  # noqa: E402
     paged_chunk_attention_quant,
     paged_decode_attention,
     paged_decode_attention_quant,
+    paged_ragged_q_attention,
+    paged_ragged_q_attention_quant,
     prefill_attention,
     quantize_kv,
 )
@@ -90,6 +106,8 @@ from langstream_tpu_torch.ops.paged_attention import (  # noqa: E402
     block_bounds,
     ragged_paged_attention,
     ragged_paged_attention_quant,
+    ragged_q_paged_attention,
+    ragged_q_paged_attention_quant,
 )
 from langstream_tpu_torch.providers.torch_local import model  # noqa: E402
 from langstream_tpu_torch.providers.torch_local.engine import long_prefill_windows  # noqa: E402
@@ -109,7 +127,7 @@ INT8_TOLERANCE = 5e-2
 # bytes of the int8 cache per live position and kv head beyond the values:
 # one f32 k scale and one f32 v scale
 SCALE_BYTES = 8
-# (name, source, TPU kernel) of each kernel, B1-B6
+# (name, source, TPU kernel) of each kernel, B1-B8
 SOURCES = {
     "flash_prefill": ("flash_prefill.cu", "flash_attention.py:64"),
     "flash_decode": ("flash_decode.cu", "decode_kernel.py:198"),
@@ -117,6 +135,8 @@ SOURCES = {
     "flash_prefill_quant": ("flash_prefill.cu", "flash_attention.py:153"),
     "flash_decode_quant": ("flash_decode.cu", "decode_kernel.py:206"),
     "paged_attention_quant": ("paged_attention.cu", "paged_attention.py:254"),
+    "paged_attention_ragged_q": ("paged_attention.cu", "paged_attention.py:263"),
+    "paged_attention_ragged_q_quant": ("paged_attention.cu", "paged_attention.py:276"),
 }
 
 
@@ -313,17 +333,20 @@ def check_decode_kernel(device, quant: bool = False) -> dict:
 
 def _paged_bound(seq, heads, kv_heads, dim, block_size, table_width, starts, lengths,
                  window=0, quant=False):
-    """The least time B3 (B6 with ``quant``) could take on these inputs
-    (and its kind, and the live (query, key) pairs): q and out once, every
-    live block-padded k/v block inside each row's [first, last] once (int8
+    """The least time B3 (B6 with ``quant``; B7, B8 over the same rows
+    laid out flat) could take on these inputs (and its kind, and the live
+    (query, key) pairs): the q rows of each row's new tokens once (the
+    kernel reads no other), the whole out tile once, every live
+    block-padded k/v block inside each row's [first, last] once (int8
     values and their f32 scales for B6), the tables; 4·H·D FLOPs per live
     pair."""
     batch = len(starts)
-    pairs = blocks = 0
+    pairs = blocks = q_rows = 0
     for start, total in zip(starts, lengths):
         new = min(seq, total - start)
         if total <= 0 or new <= 0:
             continue
+        q_rows += new
         first, last = block_bounds(start, total, window, 0, new, block_size)
         blocks += last - first + 1
         for t in range(new):
@@ -333,7 +356,7 @@ def _paged_bound(seq, heads, kv_heads, dim, block_size, table_width, starts, len
     flops = 4.0 * heads * dim * pairs
     kv_rows = float(blocks * block_size * kv_heads)
     kv_bytes = kv_rows * (2 * dim + SCALE_BYTES) if quant else 2.0 * 2 * kv_rows * dim
-    nbytes = 2.0 * 2 * batch * seq * heads * dim + kv_bytes + 4.0 * batch * (table_width + 2)
+    nbytes = 2.0 * (q_rows + batch * seq) * heads * dim + kv_bytes + 4.0 * batch * (table_width + 2)
     return (*bound(flops, nbytes), pairs)
 
 
@@ -417,6 +440,127 @@ def check_paged_kernel(device, quant: bool = False) -> dict:
         if first_entry is None:  # the decode shape stands for the kernel in the kernels line
             first_entry = entry(name, worst_abs, kernel_ms, plain_ms, bound_ms, bound_by, library_ms)
     return first_entry
+
+
+def check_ragged_q_kernel(device, quant: bool = False) -> dict:
+    """B7 at the mixed step's shape: Llama-3-8B heads, 32 rows of a 64-wide
+    span (block_q 8, q_offsets = b * 64), 16-token blocks, the 2049-block
+    pool through seeded permuted tables. Rows: 28 decode rows at B3's
+    decode contexts, a warm window of 40 at offset 512, a cold window of
+    24 at offset 0, two idle rows. Held against the plain version (and
+    again with the spans packed at non-uniform offsets), bitwise against
+    B3's Tq = 1 and Tq = 64 launches row by row, and its dead tiles and
+    idle rows exactly zero. With ``quant``, B8 over ``quantize_kv`` of the
+    same pools, against B6."""
+    heads, kv_heads, dim, block_size, num_blocks, table_width = 32, 8, 128, 16, 2049, 64
+    slots, width, block_q = 32, 64, 8
+    gen = torch.Generator(device=device).manual_seed(5)
+    k_pool = torch.randn(num_blocks, block_size, kv_heads, dim, device=device, generator=gen).bfloat16()
+    v_pool = torch.randn(num_blocks, block_size, kv_heads, dim, device=device, generator=gen).bfloat16()
+    if quant:
+        pools = (*quantize_kv(k_pool), *quantize_kv(v_pool))
+        k_pool, v_pool = dequantize(*pools[:2]), dequantize(*pools[2:])  # the SDPA yardstick's
+    else:
+        pools = (k_pool, v_pool)
+    name = "paged_attention_ragged_q_quant" if quant else "paged_attention_ragged_q"
+    kernel_fn = ragged_q_paged_attention_quant if quant else ragged_q_paged_attention
+    plain_fn = paged_ragged_q_attention_quant if quant else paged_ragged_q_attention
+    fixed_fn = ragged_paged_attention_quant if quant else ragged_paged_attention
+    rng = np.random.default_rng(4)
+    decode_lengths = [0, 1, 16, 17, 1024] + rng.integers(2, 1025, size=27).tolist()  # B3's
+    rows = [(n - 1, n) for n in decode_lengths[1:29]] + [(512, 552), (0, 24), (0, 0), (0, 0)]
+    starts_host, lengths_host = (list(column) for column in zip(*rows))
+    tables_host = (rng.permutation(num_blocks - 1) + 1)[: slots * table_width].reshape(slots, table_width)
+    tables = torch.from_numpy(tables_host.astype(np.int32)).to(device)
+    starts = torch.tensor(starts_host, dtype=torch.int32, device=device)
+    lengths = torch.tensor(lengths_host, dtype=torch.int32, device=device)
+    live = [total - start for start, total in rows]
+
+    def held(q, q_offsets, offsets_host):
+        """The kernel against the plain version on these spans; dead
+        tiles, idle rows and uncovered positions exactly zero."""
+        args = (q, *pools, tables, starts, lengths, q_offsets)
+        out = kernel_fn(*args, max_q_len=width, block_q=block_q)
+        ref = plain_fn(*args, max_q_len=width, block_q=block_q)
+        torch.cuda.synchronize()
+        worst_abs = worst_rel = 0.0
+        covered = torch.zeros(q.shape[0], dtype=torch.bool, device=device)
+        for b, offset in enumerate(offsets_host):
+            covered[offset:offset + width] = True
+            if live[b]:
+                a, r = errors(out[offset:offset + live[b]], ref[offset:offset + live[b]])
+                worst_abs, worst_rel = max(worst_abs, a), max(worst_rel, r)
+            dead = offset + -(-live[b] // block_q) * block_q
+            assert not bool(out[dead:offset + width].any()), f"{name}: row {b} dead tiles not zero"
+        assert not bool(out[~covered].any()), f"{name}: positions outside every span not zero"
+        assert worst_rel < KERNEL_TOLERANCE, f"{name} disagrees: {worst_rel}"
+        return out, worst_abs, worst_rel
+
+    # the mixed step's layout: row b's span at b * 64
+    q = torch.randn(slots * width, heads, dim, device=device, generator=gen).bfloat16()
+    uniform = [b * width for b in range(slots)]
+    q_offsets = torch.tensor(uniform, dtype=torch.int32, device=device)
+    out, worst_abs, worst_rel = held(q, q_offsets, uniform)
+    # bitwise B3 (B6) row by row at window 0: decode rows against a Tq = 1
+    # launch, the windows against a Tq = 64 launch over the same spans
+    q4 = q.view(slots, width, heads, dim)
+    decode = fixed_fn(q4[:, :1].contiguous(), *pools, tables, starts, lengths)
+    windows = fixed_fn(q4, *pools, tables, starts, lengths)
+    out4 = out.view(slots, width, heads, dim)
+    torch.cuda.synchronize()
+    for b, n in enumerate(live):
+        if n == 1:
+            assert torch.equal(out4[b, 0], decode[b, 0]), f"{name}: decode row {b} is not B3's"
+        elif n:
+            assert torch.equal(out4[b, :n], windows[b, :n]), f"{name}: window row {b} is not B3's"
+    # the spans packed at non-uniform tile-aligned offsets, in another order
+    order = rng.permutation(slots)
+    gaps = rng.integers(0, 3, size=slots) * block_q
+    packed_host = [0] * slots
+    position = 0
+    for b, gap in zip(order, gaps):
+        position += int(gap)
+        packed_host[b] = position
+        position += width
+    packed_q = torch.randn(position + block_q, heads, dim, device=device, generator=gen).bfloat16()
+    packed = torch.tensor(packed_host, dtype=torch.int32, device=device)
+    _, packed_abs, packed_rel = held(packed_q, packed, packed_host)
+
+    def kernel():  # the offsets from the host, as the model passes them: no read from the card
+        return kernel_fn(q, *pools, tables, starts, lengths, q_offsets, max_q_len=width,
+                         block_q=block_q, q_offsets_host=uniform)
+
+    def plain():
+        return plain_fn(q, *pools, tables, starts, lengths, q_offsets, max_q_len=width, block_q=block_q)
+
+    # SDPA yardstick on a contiguous copy gathered through the tables
+    # beforehand (the gather, and for B8 the dequantization, untimed)
+    kt = gather_blocks(k_pool, tables).transpose(1, 2)
+    vt = gather_blocks(v_pool, tables).transpose(1, 2)
+    pos_q = starts[:, None] + torch.arange(width, device=device)[None, :]
+    pos_s = torch.arange(kt.shape[2], device=device)
+    sdpa_mask = ((pos_s[None, None, :] <= pos_q[:, :, None])
+                 & (pos_s[None, None, :] < lengths[:, None, None]))[:, None]
+    qt = q4.transpose(1, 2)
+    kernel_ms = time_ms(kernel)
+    wall_ms = call_ms(kernel)
+    plain_ms = time_ms(plain)
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=sdpa_mask, enable_gqa=True))
+    bound_ms, bound_by, pairs = _paged_bound(
+        width, heads, kv_heads, dim, block_size, table_width, starts_host, lengths_host, quant=quant)
+    tag = ("B8", "int8 pools", "B6") if quant else ("B7", "bf16", "B3")
+    log(f"{tag[0]} {name} mixed step [S={slots} W={width} block_q={block_q} H={heads} "
+        f"KVH={kv_heads} D={dim} Bs={block_size} M={table_width} N={num_blocks} q bf16, {tag[1]}; "
+        f"28 decode rows, windows of 40 at 512 and 24 at 0, 2 idle; {pairs} live (query, key) "
+        f"pairs]: max_abs_err={worst_abs:.3e} max_rel_err={worst_rel:.3e}, packed q_offsets "
+        f"max_abs_err={packed_abs:.3e} max_rel_err={packed_rel:.3e} (tol {KERNEL_TOLERANCE}); "
+        f"rows bitwise {tag[2]}'s, dead tiles and idle rows zero; kernel_ms={kernel_ms:.4f} (call "
+        f"with host {wall_ms:.4f}) plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} (SDPA on "
+        f"the pre-gathered{' dequantized' if quant else ''} view, untimed) "
+        f"bound_ms={bound_ms:.5f} ({bound_by})")
+    return entry(name, max(worst_abs, packed_abs), kernel_ms, plain_ms, bound_ms, bound_by,
+                 library_ms)
 
 
 def check_model_against_cpu(device, kv_quant: bool = False, feed=None):
@@ -579,6 +723,73 @@ def check_paged_model(device, kv_quant: bool = False) -> None:
         f"shot max_rel_err={windowed:.3e} (tol {MODEL_TOLERANCE})")
 
 
+def check_mixed_model(device, kv_quant: bool = False) -> None:
+    """Llama-3-8B width, 2 layers, paged (16-token blocks): two prompts
+    prefilled cold, then one mixed step of five rows (the two prompts
+    decoding, a warm window of 40 at offset 32 over the first prompt's
+    blocks, a cold window of 24, an idle row; W 64) on the card (B7; B8
+    over int8 pools) against the CPU (plain), and on the card against the
+    split calls on the same cache state: ``paged_decode_step`` for the
+    decode rows, ``paged_prefill_at_offset`` for the windows (B3; B6)."""
+    config = dataclasses.replace(model.LlamaConfig.llama3_8b(max_seq_len=256), num_layers=2)
+    params = model.init_params(config, seed=7, device=device)
+    cpu_params = {name: p.cpu() for name, p in params.items()}
+    block, table_width, width = 16, 256 // 16, 64
+    num_blocks = 5 * table_width + 1
+    rng = np.random.default_rng(11)
+    tables = np.zeros((5, table_width), dtype=np.int32)
+    tables[:4] = (rng.permutation(num_blocks - 1) + 1)[: 4 * table_width].reshape(4, table_width)
+    tables[2, :2] = tables[0, :2]  # the warm window resumes on the first prompt's blocks
+    tables = torch.from_numpy(tables)
+    prompts = torch.from_numpy(rng.integers(0, config.vocab_size, size=(2, 48)))
+    prompt_lengths = torch.tensor([48, 30], dtype=torch.int32)
+    windows = torch.from_numpy(rng.integers(0, config.vocab_size, size=(2, width)))
+    offsets = torch.tensor([48, 30, 32, 0, 0], dtype=torch.int32)
+    num_tokens = torch.tensor([1, 1, 40, 24, 0], dtype=torch.int32)
+    live = num_tokens > 0
+
+    def prefilled(where, p):
+        cache = model.init_paged_cache(config, num_blocks, block, kv_quant=kv_quant, device=where)
+        logits = model.paged_prefill(config, p, cache, prompts.to(where), prompt_lengths.to(where),
+                                     tables[:2].to(where), model.model_freqs(config, device=where))
+        return cache, logits.argmax(-1).cpu()
+
+    def mixed(where, p, cache, firsts):
+        tokens = torch.zeros((5, width), dtype=torch.long)
+        tokens[:2, 0] = firsts
+        tokens[2:4] = windows
+        args = [x.to(where) for x in (tokens, offsets, num_tokens, tables)]
+        logits = model.paged_mixed_step(config, p, cache, *args, model.model_freqs(config, device=where))
+        return logits.float().cpu(), tokens
+
+    card_cache, firsts = prefilled(device, params)
+    split_cache = {leaf: value.clone() for leaf, value in card_cache.items()}
+    card, tokens = mixed(device, params, card_cache, firsts)
+    cpu_cache, _ = prefilled("cpu", cpu_params)
+    cpu, _ = mixed("cpu", cpu_params, cpu_cache, firsts)
+    # the split paths on the card over the same cache state
+    freqs = model.model_freqs(config, device=device)
+    i32 = dict(dtype=torch.int32, device=device)
+    decode_rows = torch.tensor([True, True, False, False, False])
+    decode = model.paged_decode_step(
+        config, params, split_cache, tokens[:, 0].to(device), (offsets + 1).to(device),
+        tables.to(device), freqs, decode_rows.to(device)).float().cpu()
+    warm = model.paged_prefill_at_offset(
+        config, params, split_cache, tokens[2:4].to(device), torch.tensor([40, 24], **i32),
+        torch.tensor([32, 0], **i32), tables[2:4].to(device), freqs).float().cpu()
+    split = torch.cat([decode[:2], warm])
+    assert card.shape == cpu.shape and bool(torch.isfinite(card[live]).all())
+    to_cpu = errors(card[live], cpu[live])[1]
+    to_split = errors(card[:4], split)[1]
+    assert to_cpu < MODEL_TOLERANCE, f"mixed step on the card vs the CPU: {to_cpu}"
+    assert to_split < MODEL_TOLERANCE, f"mixed step vs the split calls on the card: {to_split}"
+    log(f"mixed reference: Llama-3-8B width, 2 layers, {'int8' if kv_quant else 'bf16'} paged KV "
+        f"cache, one mixed step (2 decode rows, windows of 40 at 32 and 24 at 0, an idle row; W "
+        f"{width}): card ({'B8' if kv_quant else 'B7'}) vs CPU max_rel_err={to_cpu:.3e}, card "
+        f"mixed vs card split ({'B6' if kv_quant else 'B3'} decode + prefill-at-offset) "
+        f"max_rel_err={to_split:.3e} (tol {MODEL_TOLERANCE})")
+
+
 def time_decode_step(engine, live: int = 512, iters: int = 5) -> None:
     """One eager decode step of the stopped engine's model (all slots at
     ``live`` rows): host time to enqueue it against wall time to finish
@@ -608,6 +819,51 @@ def time_decode_step(engine, live: int = 512, iters: int = 5) -> None:
         f"{weight_bytes / PEAK_BYTES * 1e3:.2f} ms")
 
 
+def time_paged_steps(engine, live: int = 512, iters: int = 5) -> None:
+    """One eager paged decode step and one mixed step (64 wide, one row a
+    64-token window, the others decoding) of the stopped engine's model,
+    every slot at ``live`` rows over its own blocks: host enqueue time
+    against wall time for each. The mixed step runs its whole [S, 64]
+    grid through the projections, as the JAX step does."""
+    slots, width = engine.max_slots, 64
+    device = engine.device
+    blocks_per_row = (engine.num_blocks - 1) // slots
+    tables = (torch.arange(slots * blocks_per_row, dtype=torch.int32, device=device) + 1).view(
+        slots, blocks_per_row)[:, : engine.max_blocks].contiguous()
+    tokens = torch.zeros((slots, width), dtype=torch.long, device=device)
+    offsets = torch.full((slots,), live, dtype=torch.int32, device=device)
+    num_tokens = torch.ones(slots, dtype=torch.int32, device=device)
+    num_tokens[0] = width
+
+    def decode():
+        model.paged_decode_step(engine.config, engine.params, engine.cache, tokens[:, 0],
+                                offsets + 1, tables, engine.freqs)
+
+    def mixed():
+        model.paged_mixed_step(engine.config, engine.params, engine.cache, tokens, offsets,
+                               num_tokens, tables, engine.freqs)
+
+    cache = "int8" if engine.kv_quant else "bf16"
+    for label, step in (("paged decode step", decode), ("mixed step (W 64)", mixed)):
+        step()
+        torch.cuda.synchronize()
+        started = time.perf_counter()
+        for _ in range(iters):
+            step()
+        enqueued = time.perf_counter()
+        torch.cuda.synchronize()
+        finished = time.perf_counter()
+        log(f"{label} (model only, {cache} paged KV cache, {slots} slots x {live} live rows): "
+            f"wall {(finished - started) / iters * 1e3:.2f} ms, host enqueue "
+            f"{(enqueued - started) / iters * 1e3:.2f} ms")
+    hidden, inter = engine.config.hidden_size, engine.config.intermediate_size
+    layer = hidden * engine.config.dims_per_head * (
+        2 * engine.config.num_heads + 2 * engine.config.num_kv_heads) + 3 * hidden * inter
+    flops = 2.0 * slots * width * (engine.config.num_layers * layer + hidden * engine.config.vocab_size / width)
+    log(f"mixed step matmul FLOPs {flops:.3e} (all {slots} x {width} rows through every "
+        f"projection): {flops / PEAK_BF16_FLOPS * 1e3:.2f} ms at the bf16 peak")
+
+
 WORDS = ["stream", "token", "kernel", "batch", "event", "topic", "agent", "model",
          "cache", "device", "latency", "record", "gateway", "prompt", "answer"]
 KERNELS = {
@@ -617,6 +873,8 @@ KERNELS = {
     "flash_prefill_quant": flash_prefill_attention_quant,
     "flash_decode_quant": flash_decode_attention_quant,
     "paged_attention_quant": ragged_paged_attention_quant,
+    "paged_attention_ragged_q": ragged_q_paged_attention,
+    "paged_attention_ragged_q_quant": ragged_q_paged_attention_quant,
 }
 
 
@@ -645,9 +903,10 @@ def start_llama_server(*extra: str, kv_quant: bool = False):
     return service, server
 
 
-def run_burst(service, server, jobs):
+def run_burst(service, server, jobs, warmup=()):
     """All jobs at once against the server: the main path's run, with
-    every kernel's launch count zeroed just before and read just after."""
+    every kernel's launch count zeroed just before and read just after.
+    The ``warmup`` jobs are answered one by one before that, uncounted."""
     url = f"http://127.0.0.1:{server.port}"
 
     def post(job):
@@ -658,6 +917,8 @@ def run_burst(service, server, jobs):
         with urllib.request.urlopen(request, timeout=600) as response:
             return response.read().decode()
 
+    for job in warmup:
+        post(job)
     service.engine.reset_stats()
     torch.cuda.reset_peak_memory_stats()
     for wrapper in KERNELS.values():
@@ -692,11 +953,18 @@ def check_replies(jobs, replies) -> int:
 
 def report(label, kind, jobs, wall, tokens, stats, launches, peak_gib) -> None:
     requests = stats["requests"]
+    mixed, plain = stats["mixed_steps"], stats["decode_steps"] - stats["mixed_steps"]
+    plain_time = stats["decode_time"] - stats["mixed_time"]
     log(f"serving {kind} [{label}]: {requests} requests, {tokens} completion tokens in {wall:.3f}s "
         f"= {tokens / wall:.1f} tok/s; mean TTFT {stats['ttft_time'] / requests * 1e3:.1f} ms "
         f"(engine submit → first token); prefill calls {stats['prefill_calls']} + warm "
-        f"{stats['warm_prefill_calls']} ({stats['prefill_time']:.3f}s), decode steps "
-        f"{stats['decode_steps']} ({stats['decode_time']:.3f}s); prefix hits {stats['prefix_hits']}, "
+        f"{stats['warm_prefill_calls']} ({stats['prefill_time']:.3f}s in prefill calls, "
+        f"{stats['mixed_admit_time']:.3f}s summed admission → first token of mixed-step "
+        f"prompts), decode steps "
+        f"{stats['decode_steps']} ({stats['decode_time']:.3f}s): plain {plain} "
+        f"({plain_time:.3f}s, {plain_time / max(plain, 1) * 1e3:.1f} ms/step), mixed {mixed} "
+        f"({stats['mixed_time']:.3f}s, {stats['mixed_time'] / max(mixed, 1) * 1e3:.1f} ms/step); "
+        f"prefix hits {stats['prefix_hits']}, "
         f"reused tokens {stats['prefix_tokens_reused']}; model calls {stats['model_dispatches']}; "
         f"peak memory {peak_gib:.2f} GiB; launches {launches}")
     assert requests == len(jobs), (requests, len(jobs))
@@ -739,9 +1007,22 @@ def serve_dense_and_check(label: str, kv_quant: bool = False) -> dict:
     return launches
 
 
-def serve_paged_and_check(label: str, kv_quant: bool = False) -> dict:
-    service, server = start_llama_server(
-        "--kv-layout", "paged", "--kv-block-size", "16", kv_quant=kv_quant)
+def serve_paged_and_check(label: str, kv_quant: bool = False, mixed: bool = False,
+                          warm: bool = False) -> dict:
+    """The paged layout, split (bucketed prefill calls, B3/B6 for all) or
+    ``mixed`` (``--prefill-mode mixed``: prompt windows ride the decode
+    step, B7/B8 for mixed steps, B3/B6 for the plain decode steps
+    between them). The split burst arrives cold: its duplicate system
+    prompts share blocks the cold batch publishes at reserve and writes
+    before a warm suffix reads them. The mixed engine publishes a cold
+    prompt's blocks only when it finishes, so a burst that arrives at
+    once would find nothing to share: with ``warm`` (always with
+    ``mixed``) one chat with the system message is answered first,
+    uncounted, and the split run so is the mixed one's twin."""
+    extra = ["--kv-layout", "paged", "--kv-block-size", "16"]
+    if mixed:
+        extra += ["--prefill-mode", "mixed"]
+    service, server = start_llama_server(*extra, kv_quant=kv_quant)
     rng = np.random.default_rng(1)
     system = {"role": "system", "content": prompt_text(rng, 512)}
     jobs = []
@@ -757,21 +1038,37 @@ def serve_paged_and_check(label: str, kv_quant: bool = False) -> dict:
     jobs.append(("/v1/chat/completions", {
         "messages": [system, {"role": "user", "content": prompt_text(rng, 60)}],
         "max_tokens": 40, "stream": True}))
+    warmup = [("/v1/chat/completions", {
+        "messages": [system, {"role": "user", "content": "warm up"}], "max_tokens": 8})]
+    if not (warm or mixed):
+        warmup = []
     try:
-        replies, wall, launches, stats, peak_gib = run_burst(service, server, jobs)
+        replies, wall, launches, stats, peak_gib = run_burst(service, server, jobs, warmup)
     finally:
         server.stop()
         service.engine.stop()
+    if mixed:
+        time_paged_steps(service.engine)
     tokens = check_replies(jobs, replies)
     layers = model.LlamaConfig.llama3_8b().num_layers
-    calls = sum(stats["model_dispatches"].values())
+    calls = stats["model_dispatches"]
     paged = "paged_attention_quant" if kv_quant else "paged_attention"
+    ragged_q = "paged_attention_ragged_q_quant" if kv_quant else "paged_attention_ragged_q"
     assert stats["prefix_tokens_reused"] > 0, stats
     assert launches[paged] > 0, launches
-    assert launches[paged] == layers * calls, (launches, stats["model_dispatches"])
-    assert all(launches[name] == 0 for name in KERNELS if name != paged), launches
-    report(label, "paged int8 KV" if kv_quant else "paged", jobs, wall, tokens, stats, launches,
-           peak_gib)
+    if mixed:
+        assert not any(name.startswith("paged_prefill") for name in calls), calls
+        assert launches[ragged_q] > 0, launches
+        assert launches[ragged_q] == layers * calls.get("paged_mixed_step", 0), (launches, calls)
+        assert launches[paged] == layers * calls.get("paged_decode_step", 0), (launches, calls)
+        used = (paged, ragged_q)
+    else:
+        assert launches[paged] == layers * sum(calls.values()), (launches, calls)
+        used = (paged,)
+    assert all(launches[name] == 0 for name in KERNELS if name not in used), launches
+    kind = (("mixed paged" if mixed else "paged") + (" int8 KV" if kv_quant else "")
+            + (" warm" if warmup else " cold"))
+    report(label, kind, jobs, wall, tokens, stats, launches, peak_gib)
     return launches
 
 
@@ -786,16 +1083,24 @@ def main() -> None:
     log(f"built {sorted(_build.SIGNATURES)} in {time.perf_counter() - t0:.1f}s -> {_build.BUILD_DIR}")
     kernels = [check(device, quant) for quant in (False, True)
                for check in (check_prefill_kernel, check_decode_kernel, check_paged_kernel)]
+    kernels += [check_ragged_q_kernel(device, quant) for quant in (False, True)]
     check_int8_against_bf16(device)
-    check_paged_model(device)
-    check_paged_model(device, kv_quant=True)
+    for kv_quant in (False, True):
+        check_paged_model(device, kv_quant=kv_quant)
+        check_mixed_model(device, kv_quant=kv_quant)
     # each kernel's launches come from the serving phase of its own path
     launches = {}
+    mixed = functools.partial(serve_paged_and_check, mixed=True)
+    warm_split = functools.partial(serve_paged_and_check, warm=True)  # the mixed run's twin
     for serve, kv_quant, names in (
         (serve_dense_and_check, False, ("flash_prefill", "flash_decode")),
         (serve_paged_and_check, False, ("paged_attention",)),
+        (warm_split, False, ()),
+        (mixed, False, ("paged_attention_ragged_q",)),
         (serve_dense_and_check, True, ("flash_prefill_quant", "flash_decode_quant")),
         (serve_paged_and_check, True, ("paged_attention_quant",)),
+        (warm_split, True, ()),
+        (mixed, True, ("paged_attention_ragged_q_quant",)),
     ):
         counts = serve(label, kv_quant=kv_quant)
         launches.update({name: counts[name] for name in names})

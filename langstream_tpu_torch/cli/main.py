@@ -37,6 +37,18 @@ def build_parser() -> argparse.ArgumentParser:
         help="paged attention: the ragged CUDA kernel over the block tables "
              "(default) or the gather composition in plain PyTorch",
     )
+    serve.add_argument(
+        "--prefill-mode", default="split", choices=["split", "mixed"],
+        help="paged prefill scheduling: split (bucketed prefill calls) or mixed "
+             "(prompt windows ride the decode step through the token-ragged kernel)",
+    )
+    serve.add_argument("--prefill-chunk", type=int, default=64,
+                       help="mixed prefill mode: most prompt tokens one step carries")
+    serve.add_argument(
+        "--mixed-carry", default="on", choices=["on", "off"],
+        help="mixed prefill mode: chain steps off the previous step's outputs "
+             "(accepted as the JAX serve's flag and ignored: the carry is not ported)",
+    )
     serve.add_argument("--no-prefix-cache", action="store_true",
                        help="disable prompt-prefix KV reuse (on by default)")
     serve.add_argument("--host", default="0.0.0.0")
@@ -59,6 +71,9 @@ def serve_config(args: argparse.Namespace) -> Dict[str, Any]:
             "kv-blocks": args.kv_blocks,
             "paged-kernel": args.paged_kernel,
             "prefix-cache": not args.no_prefix_cache,
+            "prefill-mode": args.prefill_mode,
+            "prefill-chunk": args.prefill_chunk,
+            "mixed-carry": args.mixed_carry,
         },
     }
 

@@ -22,6 +22,21 @@
 // (f32) multiplies v in f32, as the Pallas body does. head_dim must be a
 // multiple of 16 for int8.
 //
+// Also replaces ::_ragged_q_kernel and ::_ragged_q_kernel_quant (the
+// token-ragged form, ragged_q_paged_attention(_quant), which the mixed
+// prefill+decode step launches): entry points paged_attention_ragged_q
+// and paged_attention_ragged_q_quant launch the SAME kernel body with a
+// q_offsets operand. q and out are a flat [Q, H, D] tile; row b's span of
+// max_q_len tokens starts at q_offsets[b] (cu_q_lens style) in place of
+// b * Tq, the caller's block_q sets the q tile (cut to a divisor of it
+// when its score rows would not fit a CTA), and the row's live count is
+// lengths[b] - starts[b] (decode rows 1, prefill windows their width,
+// idle rows 0). Tiles past it read nothing and write zeros to their own
+// span. The key walk and the key-tile width are B3's for the same dim,
+// and every score and p.v product is a fused multiply-add in a fixed
+// order, so at window 0 each row's output is bitwise what B3 gives for
+// that row, whatever the q tile.
+//
 // What bounds it on the H100: bytes at decode, where each live key is
 // read once for G = H / KVH query heads (~G FLOPs per byte, far below the
 // ~295 where the tensor cores would take over); at long prefill tiles
@@ -44,10 +59,15 @@
 //   the tile's query tokens x the G query heads of the kv head all read
 //   it: each byte is read once per q tile.
 // - A q tile wholly past the row's new tokens (a padded prefill row)
-//   loads and computes nothing and writes zeros; the discarded rows of a
-//   partly live tile are computed over the live tile's keys only.
+//   loads and computes nothing and writes zeros; so do the rows of a
+//   partly live tile past them (a decode row in an 8-token tile of the
+//   token-ragged form computes one token's rows, not eight).
 // - One (row, head, tile) is never split across CTAs, so the reduction
-//   order is fixed and the kernel is deterministic.
+//   order is fixed and the kernel is deterministic. A query row's result
+//   does not depend on the other rows of its tile: key tiles start at
+//   the same keys (window 0), and a key tile past the row's causal
+//   frontier leaves its running max, sum and accumulator bit for bit as
+//   they were (p = 0, alpha = 1).
 // - Scores: each thread owns one key of the tile and the tile's query
 //   rows (up to 16, a compile-time count), so it loads every k pair once
 //   for all its rows. p.v: one thread per (query row, column pair),
@@ -113,7 +133,8 @@ __device__ __forceinline__ void tile_scores(const float* sQ, const KV* krow, flo
 #pragma unroll
     for (int i = 0; i < NR; ++i) {
       const float2 qv = *reinterpret_cast<const float2*>(qrow[i] + d);
-      acc[i] += qv.x * kv.x + qv.y * kv.y;
+      // explicit fmas: the same rounding in every NR instantiation
+      acc[i] = __fmaf_rn(qv.y, kv.y, __fmaf_rn(qv.x, kv.x, acc[i]));
     }
   }
 #pragma unroll
@@ -159,14 +180,17 @@ Layout layout(int dim, int rows, int bk) {
 }
 
 // T: the type of q and out. KV: the pools', T itself, or int8_t with
-// k_scale/v_scale [N, Bs, KVH] f32.
+// k_scale/v_scale [N, Bs, KVH] f32. q_offsets: null for [B, seq, H, D]
+// q/out (row b at b * seq), else the flat tile's row offsets, seq being
+// the span capacity; a tile outside q/out's total_rows rows is skipped.
 template <typename T, typename KV>
 __global__ void __launch_bounds__(NT)
 paged_attention_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
                        const KV* __restrict__ vp, T* __restrict__ out,
                        const int* __restrict__ tables, const int* __restrict__ starts,
-                       const int* __restrict__ lengths, const float* __restrict__ k_scale,
-                       const float* __restrict__ v_scale, int seq, int heads,
+                       const int* __restrict__ lengths, const int* __restrict__ q_offsets,
+                       const float* __restrict__ k_scale,
+                       const float* __restrict__ v_scale, int total_rows, int seq, int heads,
                        int kv_heads, int dim, int num_blocks, int block_size,
                        int max_blocks, int block_q, int bk, float scale,
                        float softcap, int window, Layout L) {
@@ -205,7 +229,9 @@ paged_attention_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
 
   const size_t q_row_stride = size_t(heads) * dim;
   const size_t head_offset = size_t(kvh) * group * dim;
-  T* o_base = out + (size_t(b) * seq + q0) * q_row_stride + head_offset;
+  const long long row0 = (q_offsets ? (long long)q_offsets[b] : (long long)b * seq) + q0;
+  if (row0 < 0 || row0 + q_count > total_rows) return;  // the caller checks; never write outside
+  T* o_base = out + row0 * q_row_stride + head_offset;
   if (live_q == 0) {
     // a tile wholly past the row's new tokens reads and computes nothing;
     // it writes zeros so the output is deterministic
@@ -216,7 +242,7 @@ paged_attention_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
     }
     return;
   }
-  const T* q_base = q + (size_t(b) * seq + q0) * q_row_stride + head_offset;
+  const T* q_base = q + row0 * q_row_stride + head_offset;
   for (int o = tid; o < n_out; o += NT) {
     const int r = o / dim, d = o % dim;
     const int t = r / group, gi = r % group;
@@ -244,7 +270,10 @@ paged_attention_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
   constexpr int VEC = 16 / sizeof(KV);  // elements per 16-byte load
   const int vecs_per_row = dim / VEC;
   const int rstep = NT / bk;
-  const int rows_per_thread = (rows + rstep - 1) / rstep;
+  // score rows of the tile's new tokens: the rest compute nothing and
+  // their outputs stay 0 (acc 0 over l 0)
+  const int live_rows = live_q * group;
+  const int rows_per_thread = (live_rows + rstep - 1) / rstep;
   const int score_key = tid % bk;
   const int score_row0 = tid / bk;
 
@@ -293,26 +322,26 @@ paged_attention_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
       const KV* krow = sK + size_t(score_key) * KP;
       const float ks = QUANT ? sKs[score_key] : 1.f;
       if (rows_per_thread <= 1) {
-        tile_scores<KV, 1>(sQ, krow, sS, dim, rows, score_row0, rstep, score_key, bk, scale,
+        tile_scores<KV, 1>(sQ, krow, sS, dim, live_rows, score_row0, rstep, score_key, bk, scale,
                            softcap, ks);
       } else if (rows_per_thread <= 2) {
-        tile_scores<KV, 2>(sQ, krow, sS, dim, rows, score_row0, rstep, score_key, bk, scale,
+        tile_scores<KV, 2>(sQ, krow, sS, dim, live_rows, score_row0, rstep, score_key, bk, scale,
                            softcap, ks);
       } else if (rows_per_thread <= 4) {
-        tile_scores<KV, 4>(sQ, krow, sS, dim, rows, score_row0, rstep, score_key, bk, scale,
+        tile_scores<KV, 4>(sQ, krow, sS, dim, live_rows, score_row0, rstep, score_key, bk, scale,
                            softcap, ks);
       } else if (rows_per_thread <= 8) {
-        tile_scores<KV, 8>(sQ, krow, sS, dim, rows, score_row0, rstep, score_key, bk, scale,
+        tile_scores<KV, 8>(sQ, krow, sS, dim, live_rows, score_row0, rstep, score_key, bk, scale,
                            softcap, ks);
       } else {
-        tile_scores<KV, SROWS>(sQ, krow, sS, dim, rows, score_row0, rstep, score_key, bk, scale,
+        tile_scores<KV, SROWS>(sQ, krow, sS, dim, live_rows, score_row0, rstep, score_key, bk, scale,
                                softcap, ks);
       }
     }
     __syncthreads();
 
     // online softmax: one warp per query row
-    for (int r = warp; r < rows; r += NT / 32) {
+    for (int r = warp; r < live_rows; r += NT / 32) {
       const int q_pos = start + q0 + r / group;
       float mx = NEG_INF;
       for (int j = lane; j < bk; j += 32) {
@@ -346,7 +375,7 @@ paged_attention_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
     __syncthreads();
 
     // p.v into the f32 accumulator: one thread per (query row, column pair)
-    for (int o = 2 * tid; o < n_out; o += 2 * NT) {
+    for (int o = 2 * tid; o < live_rows * dim; o += 2 * NT) {
       const int r = o / dim, d = o % dim;
       const float* prow = sS + r * bk;
       const float alpha = sAlpha[r];
@@ -354,8 +383,8 @@ paged_attention_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
       for (int j = 0; j < bk; ++j) {
         const float p = prow[j];
         const float2 v = load_pair(sV + size_t(j) * dim + d);
-        a0 += p * v.x;
-        a1 += p * v.y;
+        a0 = __fmaf_rn(p, v.x, a0);
+        a1 = __fmaf_rn(p, v.y, a1);
       }
       sAcc[o] = a0;
       sAcc[o + 1] = a1;
@@ -373,30 +402,58 @@ paged_attention_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
   }
 }
 
+// The q tile and key-tile width. B3 (block_q_req == 0): the most tokens
+// whose rows fit, then halved until the shared-memory plan fits. B7
+// (block_q_req > 0): the largest divisor of the caller's tile whose rows
+// fit, cut the same way. Either shrinks the key tile only once a one-token
+// tile does not fit, so both take the same bk at the same dim and group.
+template <typename KV>
+bool plan(int dim, int group, int seq, int block_q_req, int* block_q, int* bk, Layout* L) {
+  if (group > MAX_ROWS) return false;
+  auto next_tile = [&](int tile) {  // the next smaller candidate tile
+    if (block_q_req == 0) return tile / 2;
+    do --tile; while (tile > 0 && block_q_req % tile != 0);
+    return tile;
+  };
+  int tile;
+  if (block_q_req == 0) {
+    tile = 1;
+    while (tile * 2 * group <= MAX_ROWS && tile * 2 <= seq) tile *= 2;
+  } else {
+    tile = block_q_req;
+    while (tile * group > MAX_ROWS) tile = next_tile(tile);
+  }
+  int width = MAX_BK;
+  *L = layout<KV>(dim, tile * group, width);
+  while (L->total > SMEM_LIMIT) {
+    if (tile > 1) {
+      tile = next_tile(tile);
+    } else if (width > MIN_BK) {
+      width /= 2;
+    } else {
+      return false;
+    }
+    *L = layout<KV>(dim, tile * group, width);
+  }
+  *block_q = tile;
+  *bk = width;
+  return true;
+}
+
+// q_offsets null: q/out [batch, seq, H, D], the tile B3 picks. Otherwise
+// a flat [Q, H, D] tile with row spans of ``seq`` tokens at q_offsets and
+// the caller's q tile ``block_q_req`` (B7).
 template <typename T, typename KV>
 cudaError_t launch(const void* q, const void* kp, const void* vp, void* out,
                    const void* tables, const void* starts, const void* lengths,
-                   const void* k_scale, const void* v_scale, int batch, int seq, int heads,
-                   int kv_heads, int dim, int num_blocks, int block_size, int max_blocks,
-                   float scale, float softcap, int window, cudaStream_t stream) {
-  const int group = heads / kv_heads;
-  if (group > MAX_ROWS) return cudaErrorInvalidValue;
-  // q tile: the most tokens whose rows fit, then shrink until the
-  // shared-memory plan fits the block's limit
-  int block_q = 1;
-  while (block_q * 2 * group <= MAX_ROWS && block_q * 2 <= seq) block_q *= 2;
-  int bk = MAX_BK;
-  Layout L = layout<KV>(dim, block_q * group, bk);
-  while (L.total > SMEM_LIMIT) {
-    if (block_q > 1) {
-      block_q /= 2;
-    } else if (bk > MIN_BK) {
-      bk /= 2;
-    } else {
-      return cudaErrorInvalidValue;
-    }
-    L = layout<KV>(dim, block_q * group, bk);
-  }
+                   const void* q_offsets, const void* k_scale, const void* v_scale, int batch,
+                   int total_rows, int seq, int block_q_req, int heads, int kv_heads, int dim,
+                   int num_blocks, int block_size, int max_blocks, float scale, float softcap,
+                   int window, cudaStream_t stream) {
+  int block_q, bk;
+  Layout L;
+  if (!plan<KV>(dim, heads / kv_heads, seq, block_q_req, &block_q, &bk, &L))
+    return cudaErrorInvalidValue;
   static size_t granted = 0;  // the largest dynamic shared memory asked for so far
   if (L.total > granted) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -409,10 +466,35 @@ cudaError_t launch(const void* q, const void* kp, const void* vp, void* out,
   paged_attention_kernel<T, KV><<<grid, NT, L.total, stream>>>(
       static_cast<const T*>(q), static_cast<const KV*>(kp), static_cast<const KV*>(vp),
       static_cast<T*>(out), static_cast<const int*>(tables), static_cast<const int*>(starts),
-      static_cast<const int*>(lengths), static_cast<const float*>(k_scale),
-      static_cast<const float*>(v_scale), seq, heads, kv_heads, dim, num_blocks, block_size,
-      max_blocks, block_q, bk, scale, softcap, window, L);
+      static_cast<const int*>(lengths), static_cast<const int*>(q_offsets),
+      static_cast<const float*>(k_scale), static_cast<const float*>(v_scale), total_rows, seq, heads,
+      kv_heads, dim, num_blocks, block_size, max_blocks, block_q, bk, scale, softcap, window, L);
   return cudaGetLastError();
+}
+
+// One dispatch over the pool element type and q's dtype (0 = bfloat16,
+// 1 = float32); ``quant`` selects the int8 pools.
+cudaError_t dispatch(bool quant, int dtype, const void* q, const void* kp, const void* vp,
+                     void* out, const void* tables, const void* starts, const void* lengths,
+                     const void* q_offsets, const void* k_scale, const void* v_scale, int batch,
+                     int total_rows, int seq, int block_q_req, int heads, int kv_heads, int dim,
+                     int num_blocks, int block_size, int max_blocks, float scale, float softcap,
+                     int window, void* stream) {
+  if (batch <= 0 || seq <= 0) return cudaSuccess;
+  if (kv_heads <= 0 || heads % kv_heads != 0 || dim % (quant ? 16 : 8) != 0 || dim <= 0 ||
+      dim > 256 || num_blocks <= 0 || block_size <= 0 || max_blocks <= 0 || block_q_req < 0 ||
+      (block_q_req > 0 && seq % block_q_req != 0))
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define PAGED_LAUNCH(T, KV)                                                                     \
+  launch<T, KV>(q, kp, vp, out, tables, starts, lengths, q_offsets, k_scale, v_scale, batch,    \
+                total_rows, seq, block_q_req, heads, kv_heads, dim, num_blocks, block_size,     \
+                max_blocks, scale, softcap, window, s)
+  if (dtype == 0) return quant ? PAGED_LAUNCH(__nv_bfloat16, int8_t)
+                               : PAGED_LAUNCH(__nv_bfloat16, __nv_bfloat16);
+  if (dtype == 1) return quant ? PAGED_LAUNCH(float, int8_t) : PAGED_LAUNCH(float, float);
+#undef PAGED_LAUNCH
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -427,25 +509,9 @@ extern "C" int paged_attention(const void* q, const void* kp, const void* vp,
                                int kv_heads, int dim, int num_blocks, int block_size,
                                int max_blocks, int dtype, float scale, float softcap,
                                int window, void* stream) {
-  if (batch <= 0 || seq <= 0) return int(cudaSuccess);
-  if (kv_heads <= 0 || heads % kv_heads != 0 || dim % 8 != 0 || dim <= 0 || dim > 256 ||
-      num_blocks <= 0 || block_size <= 0 || max_blocks <= 0)
-    return int(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0) {
-    err = launch<__nv_bfloat16, __nv_bfloat16>(q, kp, vp, out, tables, starts, lengths, nullptr,
-                                               nullptr, batch, seq, heads, kv_heads, dim,
-                                               num_blocks, block_size, max_blocks, scale, softcap,
-                                               window, s);
-  } else if (dtype == 1) {
-    err = launch<float, float>(q, kp, vp, out, tables, starts, lengths, nullptr, nullptr, batch,
-                               seq, heads, kv_heads, dim, num_blocks, block_size, max_blocks,
-                               scale, softcap, window, s);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return int(err);
+  return int(dispatch(false, dtype, q, kp, vp, out, tables, starts, lengths, nullptr, nullptr,
+                      nullptr, batch, batch * seq, seq, 0, heads, kv_heads, dim, num_blocks,
+                      block_size, max_blocks, scale, softcap, window, stream));
 }
 
 // The int8 pools: kp/vp int8 [N, Bs, KVH, D] with k_scale/v_scale [N, Bs,
@@ -459,22 +525,38 @@ extern "C" int paged_attention_quant(const void* q, const void* kp, const void* 
                                      int kv_heads, int dim, int num_blocks, int block_size,
                                      int max_blocks, int dtype, float scale, float softcap,
                                      int window, void* stream) {
-  if (batch <= 0 || seq <= 0) return int(cudaSuccess);
-  if (kv_heads <= 0 || heads % kv_heads != 0 || dim % 16 != 0 || dim <= 0 || dim > 256 ||
-      num_blocks <= 0 || block_size <= 0 || max_blocks <= 0)
-    return int(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0) {
-    err = launch<__nv_bfloat16, int8_t>(q, kp, vp, out, tables, starts, lengths, k_scale, v_scale,
-                                        batch, seq, heads, kv_heads, dim, num_blocks, block_size,
-                                        max_blocks, scale, softcap, window, s);
-  } else if (dtype == 1) {
-    err = launch<float, int8_t>(q, kp, vp, out, tables, starts, lengths, k_scale, v_scale, batch,
-                                seq, heads, kv_heads, dim, num_blocks, block_size, max_blocks,
-                                scale, softcap, window, s);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return int(err);
+  return int(dispatch(true, dtype, q, kp, vp, out, tables, starts, lengths, nullptr, k_scale,
+                      v_scale, batch, batch * seq, seq, 0, heads, kv_heads, dim, num_blocks,
+                      block_size, max_blocks, scale, softcap, window, stream));
+}
+
+// The token-ragged form (B7): q/out a flat [total_q, H, D] tile, row b's
+// span of max_q_len tokens at q_offsets[b] ([batch] int32), block_q the q
+// tile (a divisor of max_q_len); the rest as paged_attention. Returns
+// cudaGetLastError().
+extern "C" int paged_attention_ragged_q(const void* q, const void* kp, const void* vp,
+                                        void* out, const void* tables, const void* starts,
+                                        const void* lengths, const void* q_offsets, int batch,
+                                        int total_q, int max_q_len, int block_q, int heads,
+                                        int kv_heads, int dim, int num_blocks, int block_size,
+                                        int max_blocks, int dtype, float scale, float softcap,
+                                        int window, void* stream) {
+  if (block_q <= 0) return int(cudaErrorInvalidValue);
+  return int(dispatch(false, dtype, q, kp, vp, out, tables, starts, lengths, q_offsets, nullptr,
+                      nullptr, batch, total_q, max_q_len, block_q, heads, kv_heads, dim,
+                      num_blocks, block_size, max_blocks, scale, softcap, window, stream));
+}
+
+// B8: paged_attention_ragged_q over the int8 pools and scales of
+// paged_attention_quant.
+extern "C" int paged_attention_ragged_q_quant(
+    const void* q, const void* kp, const void* k_scale, const void* vp, const void* v_scale,
+    void* out, const void* tables, const void* starts, const void* lengths,
+    const void* q_offsets, int batch, int total_q, int max_q_len, int block_q, int heads,
+    int kv_heads, int dim, int num_blocks, int block_size, int max_blocks, int dtype,
+    float scale, float softcap, int window, void* stream) {
+  if (block_q <= 0) return int(cudaErrorInvalidValue);
+  return int(dispatch(true, dtype, q, kp, vp, out, tables, starts, lengths, q_offsets, k_scale,
+                      v_scale, batch, total_q, max_q_len, block_q, heads, kv_heads, dim,
+                      num_blocks, block_size, max_blocks, scale, softcap, window, stream));
 }

@@ -63,6 +63,22 @@ SIGNATURES = {
             _I, _I, _I, _I, _I, _I, _I, _I, _I,  # as paged_attention
             _F, _F, _I, _P,
         ],
+        "paged_attention_ragged_q": [
+            _P, _P, _P, _P, _P, _P, _P, _P,      # q, pools, out, tables, starts,
+                                                 # lengths, q_offsets
+            _I, _I, _I, _I, _I, _I,              # batch, flat q rows, max_q_len,
+                                                 # block_q, heads, kv_heads,
+            _I, _I, _I, _I, _I,                  # dim, blocks, block size, table
+                                                 # width, dtype
+            _F, _F, _I, _P,                      # scale, softcap, window, stream
+        ],
+        "paged_attention_ragged_q_quant": [
+            _P, _P, _P, _P, _P, _P,              # q, k pool, k scales, v pool, v scales, out
+            _P, _P, _P, _P,                      # tables, starts, lengths, q_offsets
+            _I, _I, _I, _I, _I, _I,              # as paged_attention_ragged_q
+            _I, _I, _I, _I, _I,
+            _F, _F, _I, _P,
+        ],
     },
 }
 

@@ -388,3 +388,73 @@ def paged_chunk_attention_quant(
         gather_blocks(v_pool, block_tables), gather_blocks(v_scale, block_tables),
         starts, lengths, softcap=softcap, window=window, scale=scale,
     )
+
+
+# ---------------------------------------------------------------------- #
+# token-ragged q (the mixed prefill+decode step)
+# ---------------------------------------------------------------------- #
+def _ragged_q_spans(chunk, q, leaves, block_tables, starts, lengths, q_offsets, max_q_len,
+                    block_q, family) -> torch.Tensor:
+    """Un-flatten each row's span of the [Q, H, D] tile (``max_q_len``
+    tokens at ``q_offsets[b]``) to [B, max_q_len, H, D], run ``chunk`` over
+    it, zero the q tiles past each row's live count ``lengths - starts``,
+    and write the spans back into a zero [Q, H, D] tile."""
+    span = q_offsets.long()[:, None] + torch.arange(max_q_len, device=q.device)[None, :]
+    rows = chunk(q[span], *leaves, block_tables, starts, lengths, **family)
+    live = (lengths - starts).clamp(min=0)
+    tile_start = torch.arange(max_q_len, device=q.device) // block_q * block_q
+    dead = tile_start[None, :] >= live[:, None]
+    out = torch.zeros_like(q)
+    out[span] = rows.masked_fill(dead[:, :, None, None], 0).to(q.dtype)
+    return out
+
+
+def paged_ragged_q_attention(
+    q: torch.Tensor,             # [Q, H, D] flat new-token tile
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, M]
+    starts: torch.Tensor,        # [B]
+    lengths: torch.Tensor,       # [B] TOTAL live context
+    q_offsets: torch.Tensor,     # [B] row offsets into q
+    *,
+    max_q_len: int,
+    block_q: int,
+    softcap: Optional[float] = None,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """:func:`paged_chunk_attention` over the token-ragged layout: row
+    ``b``'s queries are the ``max_q_len`` tokens at ``q_offsets[b]`` of the
+    flat tile, ``lengths[b] - starts[b]`` of them live. q tiles (of
+    ``block_q``) past the live count, and positions no span covers, are
+    zero."""
+    return _ragged_q_spans(
+        paged_chunk_attention, q, (k_pool, v_pool), block_tables, starts, lengths, q_offsets,
+        max_q_len, block_q, dict(softcap=softcap, window=window, scale=scale),
+    )
+
+
+def paged_ragged_q_attention_quant(
+    q: torch.Tensor,
+    k_pool: torch.Tensor,        # [N, Bs, KVH, D] int8
+    k_scale: torch.Tensor,       # [N, Bs, KVH] f32
+    v_pool: torch.Tensor,
+    v_scale: torch.Tensor,
+    block_tables: torch.Tensor,
+    starts: torch.Tensor,
+    lengths: torch.Tensor,
+    q_offsets: torch.Tensor,
+    *,
+    max_q_len: int,
+    block_q: int,
+    softcap: Optional[float] = None,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Int8-pool twin of :func:`paged_ragged_q_attention`."""
+    return _ragged_q_spans(
+        paged_chunk_attention_quant, q, (k_pool, k_scale, v_pool, v_scale), block_tables,
+        starts, lengths, q_offsets, max_q_len, block_q,
+        dict(softcap=softcap, window=window, scale=scale),
+    )

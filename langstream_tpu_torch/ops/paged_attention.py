@@ -28,11 +28,21 @@ offset, kv head), reached through the same table entries, the same kernel
 source instantiated for int8 tiles (entry point ``paged_attention_quant``);
 plain versions ``paged_chunk_attention_quant`` and, at Tq == 1,
 ``paged_decode_attention_quant``.
+
+:func:`ragged_q_paged_attention` and its int8 twin
+:func:`ragged_q_paged_attention_quant` replace the token-ragged TPU
+kernels ``_ragged_q_kernel`` and ``_ragged_q_kernel_quant`` (B7, B8), the
+launch of the mixed prefill+decode step: q is a flat [Q, H, D] tile whose
+rows start at ``q_offsets`` (cu_q_lens style), each row carrying its own
+live count ``lengths - starts``. They launch the same kernel body through
+the entry points ``paged_attention_ragged_q(_quant)``; their plain
+versions are ``paged_ragged_q_attention(_quant)``, which un-flatten the
+spans and run ``paged_chunk_attention(_quant)``.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -42,6 +52,8 @@ from langstream_tpu_torch.ops.attention import (
     paged_chunk_attention_quant,
     paged_decode_attention,
     paged_decode_attention_quant,
+    paged_ragged_q_attention,
+    paged_ragged_q_attention_quant,
 )
 
 KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
@@ -84,52 +96,83 @@ def fused_shapes_ok(
     return dim is None or (dim % step == 0 and 0 < dim <= MAX_HEAD_DIM)
 
 
-def _check_inputs(q, k_pool, v_pool, block_tables, starts, lengths) -> None:
-    batch, _, heads, dim = q.shape
+def _check_inputs(name, q, pools, block_tables, row_ints, *, batch, quantized) -> None:
+    """Raise on what the kernel does not take. ``pools``: (k_pool,
+    v_pool), or (k_pool, k_scale, v_pool, v_scale) over int8 pools;
+    ``row_ints``: the int32 [batch] operands by name."""
+    heads, dim = q.shape[-2:]
     if q.device.type != "cuda":
-        raise ValueError(f"ragged_paged_attention: unsupported device {q.device}")
-    for name, tensor in (
-        ("k_pool", k_pool), ("v_pool", v_pool), ("block_tables", block_tables),
-        ("starts", starts), ("lengths", lengths),
-    ):
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    k_pool, v_pool = pools[0], pools[-2]
+    labels = ("k_pool", "k_scale", "v_pool", "v_scale") if quantized else ("k_pool", "v_pool")
+    tensors = (*zip(labels, pools), ("block_tables", block_tables), *row_ints.items())
+    for label, tensor in tensors:
         if tensor.device != q.device:
-            raise ValueError(f"ragged_paged_attention: {name} on {tensor.device}, q on {q.device}")
-    if q.dtype not in KERNEL_DTYPES or k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
+            raise ValueError(f"{name}: {label} on {tensor.device}, q on {q.device}")
+    if q.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"{name}: q must be one of {list(KERNEL_DTYPES)}, got {q.dtype}")
+    if quantized:
+        if k_pool.dtype != torch.int8 or v_pool.dtype != torch.int8:
+            raise TypeError(f"{name}: the pools must be int8, got {k_pool.dtype}/{v_pool.dtype}")
+        k_scale, v_scale = pools[1], pools[3]
+        if k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32:
+            raise TypeError(f"{name}: scales must be float32, got {k_scale.dtype}/{v_scale.dtype}")
+    elif k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
         raise TypeError(
-            f"ragged_paged_attention: q and the pools must share one of "
-            f"{list(KERNEL_DTYPES)}, got {q.dtype}/{k_pool.dtype}/{v_pool.dtype}"
+            f"{name}: q and the pools must share one of {list(KERNEL_DTYPES)}, got "
+            f"{q.dtype}/{k_pool.dtype}/{v_pool.dtype}"
         )
     if k_pool.dim() != 4 or k_pool.shape != v_pool.shape or k_pool.shape[3] != dim:
         raise ValueError(
-            f"ragged_paged_attention: pools must be [N, Bs, KVH, D] matching q "
-            f"{tuple(q.shape)}, got {tuple(k_pool.shape)}/{tuple(v_pool.shape)}"
+            f"{name}: pools must be [N, Bs, KVH, D] matching q {tuple(q.shape)}, got "
+            f"{tuple(k_pool.shape)}/{tuple(v_pool.shape)}"
         )
-    if not fused_shapes_ok(heads, k_pool.shape[2], dim):
+    if quantized and (pools[1].shape != k_pool.shape[:3] or pools[3].shape != k_pool.shape[:3]):
         raise ValueError(
-            f"ragged_paged_attention: {heads} heads over {k_pool.shape[2]} kv heads "
-            f"at head_dim {dim} (needs an even grouping of at most {MAX_TILE_ROWS} "
-            f"and a head_dim that is a multiple of 8 up to {MAX_HEAD_DIM})"
+            f"{name}: scales must be [N, Bs, KVH] {tuple(k_pool.shape[:3])}, got "
+            f"{tuple(pools[1].shape)}/{tuple(pools[3].shape)}"
+        )
+    if not fused_shapes_ok(heads, k_pool.shape[2], dim, quantized=quantized):
+        raise ValueError(
+            f"{name}: {heads} heads over {k_pool.shape[2]} kv heads at head_dim {dim} "
+            f"(needs an even grouping of at most {MAX_TILE_ROWS} and a head_dim that is "
+            f"a multiple of {16 if quantized else 8} up to {MAX_HEAD_DIM})"
         )
     if block_tables.dtype != torch.int32 or block_tables.dim() != 2 or block_tables.shape[0] != batch:
         raise ValueError(
-            f"ragged_paged_attention: block_tables must be int32 [{batch}, M], got "
+            f"{name}: block_tables must be int32 [{batch}, M], got "
             f"{block_tables.dtype} {tuple(block_tables.shape)}"
         )
-    for name, tensor in (("starts", starts), ("lengths", lengths)):
+    for label, tensor in row_ints.items():
         if tensor.dtype != torch.int32 or tensor.shape != (batch,):
             raise ValueError(
-                f"ragged_paged_attention: {name} must be int32 [{batch}], got "
-                f"{tensor.dtype} {tuple(tensor.shape)}"
+                f"{name}: {label} must be int32 [{batch}], got {tensor.dtype} {tuple(tensor.shape)}"
             )
-    for name, tensor in (
-        ("q", q), ("k_pool", k_pool), ("v_pool", v_pool), ("block_tables", block_tables),
-        ("starts", starts), ("lengths", lengths),
-    ):
+    for label, tensor in (("q", q),) + tensors:
         if not tensor.is_contiguous():
-            raise ValueError(f"ragged_paged_attention: {name} must be contiguous")
-    for name, tensor in (("k_pool", k_pool), ("v_pool", v_pool)):
+            raise ValueError(f"{name}: {label} must be contiguous")
+    for label, tensor in (("k_pool", k_pool), ("v_pool", v_pool)):
         if tensor.data_ptr() % 16:
-            raise ValueError(f"ragged_paged_attention: {name} must be 16-byte aligned")
+            raise ValueError(f"{name}: {label} must be 16-byte aligned")
+
+
+def _launch(entry, q, pools, block_tables, starts, lengths, softcap, window, scale):
+    """One launch of B3 (``entry`` paged_attention) or B6
+    (paged_attention_quant) into a new output; returns it."""
+    batch, seq, heads, dim = q.shape
+    num_blocks, block_size, kv_heads = pools[0].shape[:3]
+    out = torch.empty_like(q)
+    status = getattr(_build.load("paged_attention"), entry)(
+        q.data_ptr(), *(p.data_ptr() for p in pools), out.data_ptr(),
+        block_tables.data_ptr(), starts.data_ptr(), lengths.data_ptr(),
+        batch, seq, heads, kv_heads, dim, num_blocks, block_size,
+        block_tables.shape[1], KERNEL_DTYPES[q.dtype],
+        float(dim ** -0.5 if scale is None else scale),
+        float(softcap or 0.0), int(window or 0),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(status, entry)
+    return out
 
 
 def ragged_paged_attention(
@@ -147,9 +190,8 @@ def ragged_paged_attention(
     """One launch over the block pool for decode, prefill-at-offset and
     cold paged prefill. Returns [B, Tq, H, D]. Outputs past a row's
     new-token count (``t >= lengths[b] - starts[b]``) are discarded by
-    every caller: the kernel writes zeros for its q tiles wholly past it
-    and never faults there. A row with no live key yields zeros on the
-    card."""
+    every caller: the kernel computes nothing there, writes zeros and
+    never faults. A row with no live key yields zeros on the card."""
     if q.device.type == "cpu":
         family = dict(softcap=softcap, window=window, scale=scale)
         if q.shape[1] == 1:
@@ -159,78 +201,15 @@ def ragged_paged_attention(
         return paged_chunk_attention(
             q, k_pool, v_pool, block_tables, starts, lengths, **family
         )
-    _check_inputs(q, k_pool, v_pool, block_tables, starts, lengths)
-    batch, seq, heads, dim = q.shape
-    num_blocks, block_size, kv_heads = k_pool.shape[:3]
-    lib = _build.load("paged_attention")
-    out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    status = lib.paged_attention(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), out.data_ptr(),
-        block_tables.data_ptr(), starts.data_ptr(), lengths.data_ptr(),
-        batch, seq, heads, kv_heads, dim, num_blocks, block_size,
-        block_tables.shape[1], KERNEL_DTYPES[q.dtype],
-        float(dim ** -0.5 if scale is None else scale),
-        float(softcap or 0.0), int(window or 0), stream,
-    )
-    _build.check(status, "paged_attention")
+    pools = (k_pool, v_pool)
+    _check_inputs("ragged_paged_attention", q, pools, block_tables,
+                  {"starts": starts, "lengths": lengths}, batch=q.shape[0], quantized=False)
+    out = _launch("paged_attention", q, pools, block_tables, starts, lengths, softcap, window, scale)
     ragged_paged_attention.launches += 1
     return out
 
 
 ragged_paged_attention.launches = 0
-
-
-def _check_quant_inputs(q, k_pool, k_scale, v_pool, v_scale, block_tables, starts, lengths) -> None:
-    name = "ragged_paged_attention_quant"
-    batch, _, heads, dim = q.shape
-    if q.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {q.device}")
-    tensors = (
-        ("k_pool", k_pool), ("k_scale", k_scale), ("v_pool", v_pool), ("v_scale", v_scale),
-        ("block_tables", block_tables), ("starts", starts), ("lengths", lengths),
-    )
-    for label, tensor in tensors:
-        if tensor.device != q.device:
-            raise ValueError(f"{name}: {label} on {tensor.device}, q on {q.device}")
-    if q.dtype not in KERNEL_DTYPES:
-        raise TypeError(f"{name}: q must be one of {list(KERNEL_DTYPES)}, got {q.dtype}")
-    if k_pool.dtype != torch.int8 or v_pool.dtype != torch.int8:
-        raise TypeError(f"{name}: the pools must be int8, got {k_pool.dtype}/{v_pool.dtype}")
-    if k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32:
-        raise TypeError(f"{name}: scales must be float32, got {k_scale.dtype}/{v_scale.dtype}")
-    if k_pool.dim() != 4 or k_pool.shape != v_pool.shape or k_pool.shape[3] != dim:
-        raise ValueError(
-            f"{name}: pools must be [N, Bs, KVH, D] matching q {tuple(q.shape)}, got "
-            f"{tuple(k_pool.shape)}/{tuple(v_pool.shape)}"
-        )
-    if k_scale.shape != k_pool.shape[:3] or v_scale.shape != k_pool.shape[:3]:
-        raise ValueError(
-            f"{name}: scales must be [N, Bs, KVH] {tuple(k_pool.shape[:3])}, got "
-            f"{tuple(k_scale.shape)}/{tuple(v_scale.shape)}"
-        )
-    if not fused_shapes_ok(heads, k_pool.shape[2], dim, quantized=True):
-        raise ValueError(
-            f"{name}: {heads} heads over {k_pool.shape[2]} kv heads at head_dim {dim} "
-            f"(needs an even grouping of at most {MAX_TILE_ROWS} and a head_dim that is "
-            f"a multiple of 16 up to {MAX_HEAD_DIM})"
-        )
-    if block_tables.dtype != torch.int32 or block_tables.dim() != 2 or block_tables.shape[0] != batch:
-        raise ValueError(
-            f"{name}: block_tables must be int32 [{batch}, M], got "
-            f"{block_tables.dtype} {tuple(block_tables.shape)}"
-        )
-    for label, tensor in (("starts", starts), ("lengths", lengths)):
-        if tensor.dtype != torch.int32 or tensor.shape != (batch,):
-            raise ValueError(
-                f"{name}: {label} must be int32 [{batch}], got {tensor.dtype} {tuple(tensor.shape)}"
-            )
-    for label, tensor in (("q", q),) + tensors:
-        if not tensor.is_contiguous():
-            raise ValueError(f"{name}: {label} must be contiguous")
-    for label, tensor in (("k_pool", k_pool), ("v_pool", v_pool)):
-        if tensor.data_ptr() % 16:
-            raise ValueError(f"{name}: {label} must be 16-byte aligned")
 
 
 def ragged_paged_attention_quant(
@@ -260,23 +239,150 @@ def ragged_paged_attention_quant(
         return paged_chunk_attention_quant(
             q, k_pool, k_scale, v_pool, v_scale, block_tables, starts, lengths, **family
         )
-    _check_quant_inputs(q, k_pool, k_scale, v_pool, v_scale, block_tables, starts, lengths)
-    batch, seq, heads, dim = q.shape
-    num_blocks, block_size, kv_heads = k_pool.shape[:3]
-    lib = _build.load("paged_attention")
-    out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    status = lib.paged_attention_quant(
-        q.data_ptr(), k_pool.data_ptr(), k_scale.data_ptr(), v_pool.data_ptr(),
-        v_scale.data_ptr(), out.data_ptr(), block_tables.data_ptr(), starts.data_ptr(),
-        lengths.data_ptr(), batch, seq, heads, kv_heads, dim, num_blocks, block_size,
-        block_tables.shape[1], KERNEL_DTYPES[q.dtype],
-        float(dim ** -0.5 if scale is None else scale),
-        float(softcap or 0.0), int(window or 0), stream,
-    )
-    _build.check(status, "paged_attention_quant")
+    pools = (k_pool, k_scale, v_pool, v_scale)
+    _check_inputs("ragged_paged_attention_quant", q, pools, block_tables,
+                  {"starts": starts, "lengths": lengths}, batch=q.shape[0], quantized=True)
+    out = _launch("paged_attention_quant", q, pools, block_tables, starts, lengths,
+                  softcap, window, scale)
     ragged_paged_attention_quant.launches += 1
     return out
 
 
 ragged_paged_attention_quant.launches = 0
+
+
+# ---------------------------------------------------------------------- #
+# The token-ragged form (B7, B8): the mixed prefill+decode step's launch
+# ---------------------------------------------------------------------- #
+def _check_tiles(name, q, q_offsets, offsets_host, *, batch, max_q_len, block_q) -> None:
+    """The spans must tile by ``block_q`` (JAX raises the same "tile"
+    error), and each row's span must start ``block_q``-aligned and lie
+    inside the flat tile. The offsets are checked on the host as the
+    caller built them (``offsets_host``), or else read from ``q_offsets``,
+    which makes the host wait for the card. (On the card a span outside
+    the tile is skipped by the kernel, never written.)"""
+    total_q = q.shape[0]
+    if q.dim() != 3:
+        raise ValueError(f"{name}: q must be a flat [Q, H, D] tile, got {tuple(q.shape)}")
+    if block_q <= 0 or max_q_len <= 0 or max_q_len % block_q or total_q % block_q:
+        raise ValueError(
+            f"{name}: ragged-q spans must tile by block_q={block_q} "
+            f"(max_q_len={max_q_len}, flat q={total_q})"
+        )
+    if q_offsets.shape != (batch,):
+        raise ValueError(f"{name}: q_offsets must be [{batch}], got {tuple(q_offsets.shape)}")
+    offsets = torch.as_tensor(
+        q_offsets.cpu() if offsets_host is None else offsets_host, dtype=torch.long)
+    if offsets.shape != (batch,):
+        raise ValueError(f"{name}: q_offsets_host must hold {batch} offsets")
+    if bool((offsets % block_q != 0).any()):
+        raise ValueError(f"{name}: every q_offsets[b] must be a multiple of the q tile {block_q}")
+    if bool(((offsets < 0) | (offsets + max_q_len > total_q)).any()):
+        raise ValueError(f"{name}: a row's span of {max_q_len} tokens lies outside q [{total_q}]")
+
+
+def _ragged_q(wrapper, entry, q, pools, block_tables, starts, lengths, q_offsets, *,
+              max_q_len, softcap, window, scale, block_q, q_offsets_host) -> torch.Tensor:
+    """B7 or B8 (C entry point ``entry``, counted on ``wrapper``): the
+    checks, then the kernel on the card or the plain version on the
+    CPU."""
+    name = wrapper.__name__
+    batch = block_tables.shape[0]
+    block_q = min(block_q or 8, max_q_len)
+    _check_tiles(name, q, q_offsets, q_offsets_host, batch=batch, max_q_len=max_q_len,
+                 block_q=block_q)
+    family = dict(softcap=softcap, window=window, scale=scale)
+    if q.device.type == "cpu":
+        plain = paged_ragged_q_attention_quant if len(pools) == 4 else paged_ragged_q_attention
+        return plain(q, *pools, block_tables, starts, lengths, q_offsets,
+                     max_q_len=max_q_len, block_q=block_q, **family)
+    _check_inputs(name, q, pools, block_tables,
+                  {"starts": starts, "lengths": lengths, "q_offsets": q_offsets},
+                  batch=batch, quantized=len(pools) == 4)
+    total_q, heads, dim = q.shape
+    num_blocks, block_size, kv_heads = pools[0].shape[:3]
+    # positions no row's span covers stay zero
+    out = torch.zeros_like(q)
+    status = getattr(_build.load("paged_attention"), entry)(
+        q.data_ptr(), *(p.data_ptr() for p in pools), out.data_ptr(),
+        block_tables.data_ptr(), starts.data_ptr(), lengths.data_ptr(), q_offsets.data_ptr(),
+        batch, total_q, max_q_len, block_q, heads, kv_heads, dim, num_blocks, block_size,
+        block_tables.shape[1], KERNEL_DTYPES[q.dtype],
+        float(dim ** -0.5 if scale is None else scale),
+        float(softcap or 0.0), int(window or 0),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(status, entry)
+    wrapper.launches += 1
+    return out
+
+
+def ragged_q_paged_attention(
+    q: torch.Tensor,             # [Q, H, D] flattened new-token tile
+    k_pool: torch.Tensor,        # [N, Bs, KVH, D]
+    v_pool: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, M] int32
+    starts: torch.Tensor,        # [B] int32 global position of each row's query 0
+    lengths: torch.Tensor,       # [B] int32 TOTAL live context (prefix + new)
+    q_offsets: torch.Tensor,     # [B] int32 row offsets into the flat q tile
+    *,
+    max_q_len: int,              # per-row span capacity in q
+    softcap: Optional[float] = None,
+    window: Optional[int] = None,  # None/0 = full attention
+    scale: Optional[float] = None,
+    block_q: Optional[int] = None,  # q tile (default 8, at most max_q_len)
+    q_offsets_host: Optional[Sequence[int]] = None,  # q_offsets' values, known
+                                                     # on the host (None: read)
+) -> torch.Tensor:
+    """Token-ragged paged attention (B7): one launch serves rows with
+    0 .. ``max_q_len`` new tokens each, the mixed prefill+decode step's
+    shape. Row ``b``'s live queries are ``lengths[b] - starts[b]`` tokens
+    at ``q_offsets[b] ..`` of the flat ``q`` tile (decode rows 1, prefill
+    windows their width, idle rows 0); spans are ``block_q``-aligned.
+    Returns the flat [Q, H, D] outputs: each live row equal to
+    :func:`ragged_paged_attention`'s for that row (bitwise on the card at
+    window 0), q tiles past a row's live count exactly zero, and
+    positions no span covers zero. Padding positions inside a live tile
+    are discarded by every caller (zero on the card; the plain version
+    computes them). A caller that built ``q_offsets`` on the host passes
+    the same values as ``q_offsets_host``, so that the checks need no
+    read from the card."""
+    return _ragged_q(
+        ragged_q_paged_attention, "paged_attention_ragged_q", q, (k_pool, v_pool),
+        block_tables, starts, lengths, q_offsets, max_q_len=max_q_len, softcap=softcap,
+        window=window, scale=scale, block_q=block_q, q_offsets_host=q_offsets_host,
+    )
+
+
+ragged_q_paged_attention.launches = 0
+
+
+def ragged_q_paged_attention_quant(
+    q: torch.Tensor,             # [Q, H, D]
+    k_pool: torch.Tensor,        # [N, Bs, KVH, D] int8
+    k_scale: torch.Tensor,       # [N, Bs, KVH] f32
+    v_pool: torch.Tensor,
+    v_scale: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, M] int32
+    starts: torch.Tensor,        # [B] int32
+    lengths: torch.Tensor,       # [B] int32 TOTAL live context
+    q_offsets: torch.Tensor,     # [B] int32
+    *,
+    max_q_len: int,
+    softcap: Optional[float] = None,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+    block_q: Optional[int] = None,
+    q_offsets_host: Optional[Sequence[int]] = None,
+) -> torch.Tensor:
+    """:func:`ragged_q_paged_attention` over int8 pools (B8): the scales
+    fold as in :func:`ragged_paged_attention_quant`, whose rows it equals."""
+    return _ragged_q(
+        ragged_q_paged_attention_quant, "paged_attention_ragged_q_quant", q,
+        (k_pool, k_scale, v_pool, v_scale), block_tables, starts, lengths, q_offsets,
+        max_q_len=max_q_len, softcap=softcap, window=window, scale=scale, block_q=block_q,
+        q_offsets_host=q_offsets_host,
+    )
+
+
+ragged_q_paged_attention_quant.launches = 0

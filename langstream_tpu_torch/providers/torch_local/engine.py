@@ -2,7 +2,8 @@
 ``torch-local``.
 
 Port of ``langstream_tpu/providers/jax_local/engine.py`` reduced to the
-split-prefill path over either KV layout:
+split-prefill path over either KV layout, and the mixed prefill+decode
+path over the paged one:
 
 - **Slot-based static batch**: every decode step runs ALL ``max_slots``
   slots through the model. Empty slots ride along masked.
@@ -22,6 +23,17 @@ split-prefill path over either KV layout:
   their first token is sampled in the same call; a finishing request
   frees its slot at once. A prompt longer than the largest bucket is
   prefilled in bucket-sized windows (``_prefill_long``).
+- **Mixed prefill+decode dispatch** (``prefill_mode="mixed"``, paged
+  only): admission reserves blocks but runs no prefill call; the slot
+  parks at a prompt watermark, and while any slot is admitting every
+  dispatch is one mixed step (``model.paged_mixed_step``, the token-ragged
+  kernels B7/B8) in which every ready slot decodes one token and up to
+  ``prefill_chunk`` prompt tokens of admitting slots ride along, shared
+  FIFO by admission order. The window that completes a prompt samples its
+  first token in the same step. Steps are unchained: each is processed
+  before the next is planned, which is all the JAX engine runs with
+  ``pipeline_decode`` off, its default (its ``mixed_carry`` chains on the
+  pipelined decode carry, not ported).
 - **K-step decode chunks**: the JAX ``lax.scan`` becomes a host loop of K
   steps whose sampled tokens stay on the device; the chunk's tokens cross
   to the host once, are emitted per chunk, and a stop in mid-chunk
@@ -35,8 +47,9 @@ split-prefill path over either KV layout:
 
 Not in this slice (ROADMAP.md): warm sessions (and the paged
 copy-on-write they need), the dense layout's cross-slot prefix copy, host
-KV tiers and handoffs, speculative and mixed dispatch, the pipelined
-carry, the supervisor and the telemetry planes.
+KV tiers and handoffs, speculative dispatch, the pipelined decode carry
+and the mixed-step carry that chains on it, the supervisor and the
+telemetry planes.
 """
 
 from __future__ import annotations
@@ -113,10 +126,23 @@ class _Slot:
     history: Optional[List[int]] = None  # tokens in cache + the pending one
     epoch: int = 0                  # bumps on assign/finish
     blocks: Optional[List[int]] = None   # paged: the slot's reserved pool blocks
+    prefilling: bool = False        # admitted, first token not sampled yet
+    # mixed dispatch: the next prompt index a mixed step teaches (None =
+    # not admitting through mixed steps); windows of up to prefill_chunk
+    # tokens ride successive steps until it reaches the prompt's end
+    prefill_pos: Optional[int] = None
+    prefill_seq: int = 0            # admission order (the FIFO budget share)
+    prefill_t0: float = 0.0         # admission time
+    prefill_reused: int = 0         # prompt tokens the prefix cache served
 
     @property
     def active(self) -> bool:
         return self.request is not None
+
+    @property
+    def ready(self) -> bool:
+        """Taking part in decode (its first token sampled)."""
+        return self.request is not None and not self.prefilling
 
 
 def _bucket(length: int, buckets: List[int]) -> int:
@@ -183,6 +209,12 @@ class DecodeEngine:
                                           # (the gather composition)
         prefix_cache: bool = True,
         kv_quant: Optional[str] = None,   # "int8" = int8 KV cache
+        prefill_mode: str = "split",      # paged prefill scheduling:
+                                          # "split" (bucketed prefill
+                                          # calls) | "mixed" (prompt
+                                          # windows ride the decode step)
+        prefill_chunk: int = 64,          # mixed: most prompt tokens one
+                                          # step carries
     ) -> None:
         self.device = resolve_device(device)
         self.config = config
@@ -196,9 +228,32 @@ class DecodeEngine:
             raise ValueError(f"unknown paged kernel {paged_kernel!r}")
         if kv_quant not in (None, "int8"):
             raise ValueError(f"unknown kv cache quantization {kv_quant!r}")
+        if prefill_mode not in ("split", "mixed"):
+            raise ValueError(f"unknown prefill mode {prefill_mode!r}")
+        if prefill_mode == "mixed" and kv_layout != "paged":
+            raise ValueError(
+                "prefill_mode 'mixed' requires kv_layout 'paged': the dense cache has no "
+                "per-row table for the token-ragged mixed step to address"
+            )
         self.kv_quant = kv_quant == "int8"
         self.kv_layout = kv_layout
         self.paged = kv_layout == "paged"
+        # mixed: admitting slots park at a prefill_pos watermark and every
+        # step carries up to prefill_chunk of their prompt tokens beside
+        # the decode rows, in one model call (paged_mixed_step)
+        self.prefill_mode = prefill_mode
+        self.mixed = prefill_mode == "mixed"
+        self.prefill_chunk = max(1, int(prefill_chunk))
+        # mixed step widths: powers of two up to the rounded-up budget, so
+        # every width tiles by the token-ragged kernel's q tile
+        cap = 1
+        while cap < self.prefill_chunk:
+            cap *= 2
+        widths = [min(8, cap)]
+        while widths[-1] < cap:
+            widths.append(widths[-1] * 2)
+        self._mixed_widths = widths
+        self._admit_seq = 0
         self.paged_kernel = paged_kernel if self.paged else None
         self.prefix_cache = prefix_cache
         model_lib.validate_family_params(config, params)
@@ -268,14 +323,18 @@ class DecodeEngine:
         return {
             "requests": 0,
             "prefill_calls": 0,
-            "decode_steps": 0,
-            "decode_time": 0.0,   # wall secs inside decode chunks
+            "decode_steps": 0,    # model decode steps, mixed steps included
+            "decode_time": 0.0,   # wall secs inside decode chunks and mixed steps
             "prefill_time": 0.0,  # wall secs inside prefill calls
             "ttft_time": 0.0,     # summed submit → first-token secs of
                                   # finished requests
             "warm_prefill_calls": 0,     # prefills at an offset (prefix hits)
             "prefix_hits": 0,            # admissions onto a cached prefix
             "prefix_tokens_reused": 0,   # prompt tokens those did not prefill
+            "mixed_steps": 0,            # mixed prefill+decode model calls
+            "mixed_time": 0.0,           # wall secs inside them (in decode_time too)
+            "mixed_admit_time": 0.0,     # summed admission → first-token secs
+                                         # of prompts the mixed steps carried
             # every call into the model, by model function
             "model_dispatches": {},
         }
@@ -394,6 +453,8 @@ class DecodeEngine:
                         self._drain_queue(block=False)
                     self._admit()
                     if self._any_active():
+                        # one K-step decode chunk over the ready slots, or
+                        # one mixed step while any slot is admitting
                         self._process_decode(self._dispatch_decode())
         except BaseException as exc:  # noqa: BLE001 — fail every waiter, re-raise
             logger.exception("engine loop crashed")
@@ -404,6 +465,13 @@ class DecodeEngine:
 
     def _any_active(self) -> bool:
         return any(slot.active for slot in self.slots)
+
+    def _any_admitting(self) -> bool:
+        """Mixed mode: slots parked at a prefill watermark, waiting for
+        steps to carry their prompt windows."""
+        return self.mixed and any(
+            slot.prefill_pos is not None and slot.request is not None for slot in self.slots
+        )
 
     def _drain_queue(self, block: bool) -> None:
         try:
@@ -433,6 +501,8 @@ class DecodeEngine:
                 else:
                     keep.append(request)
             self._pending = keep
+        if self.mixed:
+            return self._admit_mixed()
         if self.paged:
             return self._admit_paged()
         largest = self.prefill_buckets[-1]
@@ -543,17 +613,50 @@ class DecodeEngine:
             if not progressed:
                 return
 
+    def _admit_mixed(self) -> None:
+        """Mixed-mode admission: a request claims a slot and its
+        worst-case block reservation as on the split paged path, but no
+        prefill call runs here. The slot parks as admitting (its
+        ``prefill_pos`` watermark) and successive mixed steps carry
+        windows of its prompt beside the decoding rows
+        (:meth:`_dispatch_mixed`). Cold prompts are not published at
+        admission: their blocks fill over several steps, and a duplicate
+        matching the chain early would attend over rows not yet written.
+        They publish at finish, like partially matched prompts."""
+        while self._pending:
+            index = self._free_slot()
+            if index is None:
+                return
+            request = self._pending[0]
+            match = self.kv_manager.match(request.prompt_tokens) if self.prefix_cache else None
+            resume = self._paged_reserve(index, request, match, publish_cold=False)
+            if resume is None:
+                # pool exhausted even after eviction: wait for releases
+                return
+            self._pending.pop(0)
+            self._assign_slot(index, request)
+            slot = self.slots[index]
+            slot.prefilling = True
+            slot.prefill_pos = resume
+            slot.prefill_reused = resume
+            self._admit_seq += 1
+            slot.prefill_seq = self._admit_seq
+            slot.prefill_t0 = time.perf_counter()
+
     def _paged_reserve(
         self,
         index: int,
         request: GenerationRequest,
         match: Optional[Tuple[List[int], int]],
+        publish_cold: bool = True,
     ) -> Optional[int]:
         """Commit pool blocks for a request before it is admitted: the
         prefix chain ``match`` found (None with the prefix cache off),
         referenced, plus fresh blocks up to its worst case. Returns the
         resume offset (prompt tokens already in the pool), or None when
-        the pool cannot cover the reservation."""
+        the pool cannot cover the reservation. ``publish_cold``: publish a
+        fully cold prompt's blocks now (split mode; mixed mode publishes
+        at finish)."""
         slot = self.slots[index]
         manager = self.kv_manager
         size = self.block_size
@@ -581,7 +684,7 @@ class DecodeEngine:
             self.stats["prefix_hits"] += 1
             self.stats["prefix_tokens_reused"] += matched_tokens
             manager.stats["hit_tokens"] += matched_tokens
-        if self.prefix_cache and not matched_tokens:
+        if self.prefix_cache and publish_cold and not matched_tokens:
             # publish a fully cold prompt's blocks now so same-round
             # duplicates share them: the cold batch (or long prefill) that
             # writes them dispatches before any warm suffix of this round.
@@ -796,9 +899,13 @@ class DecodeEngine:
         self._emit_token(index, firsts[0], lps[0])
 
     def _dispatch_decode(self) -> Dict[str, Any]:
-        """Run one K-step decode chunk over every slot. Tokens, lengths
-        and counts chain on the device from step to step; the chunk's
-        sampled tokens cross to the host once at the end."""
+        """Run one K-step decode chunk over the ready slots. Tokens,
+        lengths and counts chain on the device from step to step; the
+        chunk's sampled tokens cross to the host once at the end. In
+        mixed mode, while any slot is admitting, the dispatch is one
+        mixed step instead (:meth:`_dispatch_mixed`)."""
+        if self._any_admitting():
+            return self._dispatch_mixed()
         started = time.perf_counter()
         slots = self.max_slots
         tokens = np.zeros((slots,), dtype=np.int64)
@@ -811,7 +918,7 @@ class DecodeEngine:
         for i, slot in enumerate(self.slots):
             lengths[i] = slot.length
             epochs[i] = slot.epoch
-            if slot.active:
+            if slot.ready:
                 active[i] = True
                 tokens[i] = slot.history[-1]
                 lengths[i] = slot.length + 1
@@ -823,7 +930,7 @@ class DecodeEngine:
                     steps = 1
         (temperature, top_k, top_p, seeds, bias_ids, bias_vals), tiers = (
             self._sampling_inputs(
-                [slot.request if slot.active else None for slot in self.slots]
+                [slot.request if slot.ready else None for slot in self.slots]
             )
         )
         tokens_d = self._to_device(tokens)
@@ -873,7 +980,138 @@ class DecodeEngine:
             "started": started,
         }
 
+    def _plan_windows(self, admitting: List[int]) -> Tuple[Dict[int, Tuple[int, int]], int]:
+        """FIFO token-budget plan over admitting slot indices: ``{slot:
+        (pos, n)}``, windows of at most ``prefill_chunk`` tokens in all,
+        shared by admission order so an early prompt is never starved by
+        a later burst, and the step's width (the smallest ladder width
+        that holds the longest window)."""
+        budget = self.prefill_chunk
+        windows: Dict[int, Tuple[int, int]] = {}
+        max_n = 1
+        for i in sorted(admitting, key=lambda i: self.slots[i].prefill_seq):
+            if budget <= 0:
+                break
+            slot = self.slots[i]
+            n = min(len(slot.request.prompt_tokens) - slot.prefill_pos, budget)
+            if n <= 0:
+                continue
+            windows[i] = (slot.prefill_pos, n)
+            budget -= n
+            max_n = max(max_n, n)
+        width = next(w for w in self._mixed_widths if w >= max_n)
+        return windows, width
+
+    def _dispatch_mixed(self) -> Dict[str, Any]:
+        """One mixed step: every ready slot rides as a one-token decode
+        row, and up to ``prefill_chunk`` prompt tokens of admitting slots
+        ride beside them as prefill windows, in one model call
+        (:func:`model.paged_mixed_step`). Sampling keeps the split paths'
+        semantics, so the two modes give the same tokens: decode rows
+        take penalties over their counts; a window that completes its
+        prompt samples the request's first token like a prefill (counts
+        reset, no penalty, then the token counted); bias applies to every
+        row; keys come from (seed, the row's cache length after the
+        step); rows that do not sample return 0 and leave their counts
+        alone."""
+        started = time.perf_counter()
+        slots = self.max_slots
+        plan, width = self._plan_windows([
+            i for i, slot in enumerate(self.slots)
+            if slot.prefill_pos is not None and slot.request is not None
+        ])
+        tokens = np.zeros((slots, width), dtype=np.int64)
+        offsets = np.zeros((slots,), dtype=np.int32)
+        num_tokens = np.zeros((slots,), dtype=np.int32)
+        decode_mask = np.zeros((slots,), dtype=bool)
+        completes = np.zeros((slots,), dtype=bool)
+        presence = np.zeros((slots,), dtype=np.float32)
+        frequency = np.zeros((slots,), dtype=np.float32)
+        for i, (pos, n) in plan.items():
+            prompt = self.slots[i].request.prompt_tokens
+            tokens[i, :n] = prompt[pos:pos + n]
+            offsets[i] = pos
+            num_tokens[i] = n
+            completes[i] = pos + n == len(prompt)
+        for i, slot in enumerate(self.slots):
+            if slot.request is not None:
+                presence[i] = slot.request.sampling.presence_penalty
+                frequency[i] = slot.request.sampling.frequency_penalty
+            if slot.ready:
+                tokens[i, 0] = slot.history[-1]
+                offsets[i] = slot.length
+                num_tokens[i] = 1
+                decode_mask[i] = True
+        # the windows are final once dispatched: advance the watermarks
+        for i, (pos, n) in plan.items():
+            self.slots[i].prefill_pos = pos + n
+        (temperature, top_k, top_p, seeds, bias_ids, bias_vals), tiers = (
+            self._sampling_inputs([slot.request for slot in self.slots])
+        )
+        offsets_d = self._to_device(offsets)
+        num_tokens_d = self._to_device(num_tokens)
+        decode_d = self._to_device(decode_mask)
+        completes_d = self._to_device(completes)
+        self._count_dispatch("paged_mixed_step")
+        logits = model_lib.paged_mixed_step(
+            self.config, self.params, self.cache, self._to_device(tokens), offsets_d,
+            num_tokens_d, self._to_device(self._block_tables), self.freqs,
+            kernel=self.paged_kernel,
+        )
+        sample_mask = decode_d | completes_d
+        counts = self._counts
+        counts[completes_d] = 0
+        penalized = (
+            logits
+            - self._to_device(presence)[:, None] * (counts > 0)
+            - self._to_device(frequency)[:, None] * counts
+        )
+        adjusted = torch.where(decode_d[:, None], penalized, logits)
+        adjusted = adjusted.scatter_add(1, bias_ids, bias_vals)
+        key = prng.sampling_keys(seeds, offsets_d + num_tokens_d)
+        sampled = sampling.sample(adjusted, temperature, top_k, key, top_p, **tiers)
+        lps = sampling.token_logprob(logits, sampled)
+        sampled = torch.where(sample_mask, sampled, torch.zeros_like(sampled))
+        rows = torch.arange(slots, device=self.device)
+        counts.index_put_((rows, sampled), sample_mask.to(torch.int32), accumulate=True)
+        return {
+            "mixed": True,
+            "plan": plan,
+            "sampled": sampled.cpu().numpy(),
+            "lps": lps.cpu().numpy(),
+            "decode_mask": decode_mask,
+            "completes": completes,
+            "epochs": [slot.epoch for slot in self.slots],
+            "started": started,
+        }
+
+    def _process_mixed(self, step: Dict[str, Any]) -> None:
+        """Emit a mixed step's tokens: decode rows advance by one, a
+        window that completed its prompt ends the slot's admission and
+        emits its first token, other rows emit nothing."""
+        ended = time.perf_counter()
+        wall = ended - step["started"]
+        self.stats["decode_steps"] += 1
+        self.stats["mixed_steps"] += 1
+        self.stats["decode_time"] += wall
+        self.stats["mixed_time"] += wall
+        sampled, lps = step["sampled"], step["lps"]
+        for i, slot in enumerate(self.slots):
+            if slot.epoch != step["epochs"][i] or not slot.active:
+                continue
+            if step["decode_mask"][i]:
+                slot.length += 1
+                self._emit_token(i, int(sampled[i]), float(lps[i]))
+            elif i in step["plan"] and step["completes"][i]:
+                slot.prefilling = False
+                slot.prefill_pos = None
+                self.stats["warm_prefill_calls" if slot.prefill_reused else "prefill_calls"] += 1
+                self.stats["mixed_admit_time"] += ended - slot.prefill_t0
+                self._emit_token(i, int(sampled[i]), float(lps[i]))
+
     def _process_decode(self, chunk: Dict[str, Any]) -> None:
+        if chunk.get("mixed"):
+            return self._process_mixed(chunk)
         steps = chunk["steps"]
         self.stats["decode_steps"] += steps
         self.stats["decode_time"] += time.perf_counter() - chunk["started"]
@@ -946,6 +1184,8 @@ class DecodeEngine:
             slot.blocks = None
             self._block_tables[index, :] = 0
         slot.request = None
+        slot.prefilling = False
+        slot.prefill_pos = None
         slot.epoch += 1
         slot.generated = None
         slot.logprobs = None

@@ -49,6 +49,8 @@ from langstream_tpu_torch.ops.flash_attention import (
 from langstream_tpu_torch.ops.paged_attention import (
     ragged_paged_attention,
     ragged_paged_attention_quant,
+    ragged_q_paged_attention,
+    ragged_q_paged_attention_quant,
 )
 from langstream_tpu_torch.ops.norms import rms_norm
 from langstream_tpu_torch.ops.rope import apply_rope, rope_frequencies
@@ -684,19 +686,44 @@ def decode_step(
 PAGED_KERNELS = ("fused", "reference")
 
 
-def _paged_attn(config, q, kv, tables, starts, totals, *, window, kernel):
+def _mixed_block_q(width: int) -> int:
+    """q tile of the token-ragged mixed launch: spans are ``width``
+    tokens per row, so the tile divides the span. Widths that are
+    multiples of 8 take 8-token tiles, others one tile per row."""
+    return 8 if width % 8 == 0 else width
+
+
+def _paged_attn(config, q, kv, tables, starts, totals, *, window, kernel, q_offsets=None):
     """Paged attention over a layer's pools ``kv``, one seam for every
     ragged case: decode (q [S, H, D], starts = lengths - 1),
-    prefill-at-offset and cold paged prefill (q [B, T, H, D]).
-    ``kernel="fused"`` goes through :func:`ragged_paged_attention` (B3,
-    or :func:`ragged_paged_attention_quant`, B6, over int8 pools), which
+    prefill-at-offset and cold paged prefill (q [B, T, H, D]), and, with
+    ``q_offsets`` (the JAX seam's ``q_lens`` switch), the mixed
+    prefill+decode step, where each row carries its own new-token count
+    ``totals - starts`` (decode rows 1, prefill windows their width, idle
+    rows 0). ``kernel="fused"`` goes through
+    :func:`ragged_paged_attention` (B3, or :func:`ragged_paged_attention_quant`,
+    B6, over int8 pools) or, for the mixed step, the token-ragged
+    :func:`ragged_q_paged_attention` (B7, or B8 over int8 pools) with the
+    rows at ``q_offsets`` (``b * W``) of the flattened [S*W, H, D] tile; each
     launches the CUDA kernel on a card tensor (or raises) and runs its
-    plain version on a CPU tensor; ``"reference"`` (asked for explicitly)
-    runs the gather composition on any device."""
+    plain version on a CPU tensor. ``"reference"`` (asked for explicitly)
+    runs the gather composition on any device, which already speaks
+    per-row starts and totals, so the mixed step needs no path of its
+    own there (positions past a row's count compute discarded values)."""
     family = _family(config, window)
     quant = "k_scale" in kv
     decode = q.dim() == 3
     if kernel == "fused":
+        if q_offsets is not None and not decode:
+            batch, width, heads, dim = q.shape
+            fn = ragged_q_paged_attention_quant if quant else ragged_q_paged_attention
+            # the flat tile holds row b at b * W, the values of q_offsets
+            out = fn(
+                q.reshape(batch * width, heads, dim), *_kv_args(kv), tables, starts, totals,
+                q_offsets, max_q_len=width, block_q=_mixed_block_q(width),
+                q_offsets_host=range(0, batch * width, width), **family,
+            )
+            return out.reshape(batch, width, heads, dim)
         fn = ragged_paged_attention_quant if quant else ragged_paged_attention
         out = fn(q[:, None] if decode else q, *_kv_args(kv), tables, starts, totals, **family)
         return out[:, 0] if decode else out
@@ -836,6 +863,58 @@ def paged_decode_step(
             window=windows[i] if windows else None, kernel=kernel,
         )
         x = _layer_tail(config, params, i, x, attn.reshape(slots, -1))
+    return _logits(config, params, _norm(config, x, params["final_norm"]))
+
+
+@torch.inference_mode()
+def paged_mixed_step(
+    config: LlamaConfig,
+    params: Dict[str, torch.Tensor],
+    cache: Dict[str, torch.Tensor],   # paged pool
+    tokens: torch.Tensor,             # [S, W] per-row new tokens
+    offsets: torch.Tensor,            # [S] int32 existing valid rows per slot
+    num_tokens: torch.Tensor,         # [S] int32 live new tokens (0 = idle row)
+    block_tables: torch.Tensor,       # [S, M] int32
+    freqs: torch.Tensor,
+    write_mask: Optional[torch.Tensor] = None,  # [S] bool
+    kernel: str = "fused",            # paged attention: fused | reference
+) -> torch.Tensor:
+    """The mixed prefill+decode step: :func:`paged_decode_step` and
+    :func:`paged_prefill_at_offset` as one model call over per-row token
+    counts. A decode row carries its pending token (``offsets = length,
+    num_tokens = 1``), an admitting row a window of its prompt
+    (``offsets`` = tokens taught so far), an idle row nothing
+    (``num_tokens = 0``). Every layer scatters the live positions' KV
+    through the tables (IN PLACE; padding and idle positions, and rows
+    off ``write_mask``, go to the null block), attends through the
+    token-ragged seam of :func:`_paged_attn`, and runs the whole [S, W]
+    grid through the projections, as the JAX step does. Returns the
+    logits [S, V] (f32) of each row's last live token, the one position
+    the engine samples."""
+    _require_dense(config)
+    validate_family_params(config, params)
+    slots, width = tokens.shape
+    valid = torch.arange(width, device=tokens.device)[None, :] < num_tokens[:, None]  # [S, W]
+    if write_mask is not None:
+        valid = valid & write_mask[:, None]
+    totals = offsets + num_tokens
+    # rows at a uniform stride of the flattened [S*W, H, D] tile, one
+    # tensor for every layer
+    q_offsets = torch.arange(slots, dtype=torch.int32, device=tokens.device) * width
+
+    def attend(i, q, k, v, window):
+        layer = {
+            leaf: paged_write_rows(cache[leaf][i], value, block_tables, offsets, valid)
+            for leaf, value in _new_rows(cache, k, v).items()
+        }
+        return _paged_attn(
+            config, q, layer, block_tables, offsets, totals, window=window, kernel=kernel,
+            q_offsets=q_offsets,
+        )
+
+    x = _prefill_scan(config, params, tokens, offsets, freqs, attend)
+    last = (num_tokens.long() - 1).clamp(0, width - 1)
+    x = x[torch.arange(slots, device=x.device), last]  # [S, hidden]
     return _logits(config, params, _norm(config, x, params["final_norm"]))
 
 

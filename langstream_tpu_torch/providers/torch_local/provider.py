@@ -9,13 +9,19 @@ Configuration, with the JAX provider's keys::
     engine: {max-slots: 16, max-seq-len: 4096, decode-chunk: 8,
              prefill-buckets: [64, 128], sampling-seed: 7,
              kv-layout: paged, kv-block-size: 16, kv-blocks: 4097,
-             paged-kernel: fused, prefix-cache: true, kv-quant: int8}
+             paged-kernel: fused, prefix-cache: true, kv-quant: int8,
+             prefill-mode: mixed, prefill-chunk: 64, mixed-carry: on}
 
 With no ``checkpoint`` the weights are random, drawn from ``seed`` on the
 device (checkpoint loading is not ported yet and raises). ``kv-quant:
 int8`` stores the KV cache as int8 with per-(position, kv head) scales on
-either layout. The top-level ``quantization: int8`` (int8 weights) is not
-ported yet and raises rather than serving bf16 weights.
+either layout. ``prefill-mode: mixed`` (paged only) carries prompt windows
+of up to ``prefill-chunk`` tokens in the decode step instead of separate
+prefill calls; ``mixed-carry`` is accepted, as in the JAX provider's
+configs, and ignored: the mixed-step carry chains on the pipelined decode
+carry, which is not ported. The top-level
+``quantization: int8`` (int8 weights) is not ported yet and raises rather
+than serving bf16 weights.
 """
 
 from __future__ import annotations
@@ -110,6 +116,8 @@ class TorchCompletionsService:
             prefix_cache=str(engine_config.get("prefix-cache", "true")).lower()
             not in ("0", "false", "no"),
             kv_quant=engine_config.get("kv-quant") or None,
+            prefill_mode=str(engine_config.get("prefill-mode") or "split").lower(),
+            prefill_chunk=int(engine_config.get("prefill-chunk") or 64),
         )
         self.engine.start()
 

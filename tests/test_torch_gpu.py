@@ -22,12 +22,19 @@ from langstream_tpu_torch.ops.attention import (
     paged_chunk_attention_quant,
     paged_decode_attention,
     paged_decode_attention_quant,
+    paged_ragged_q_attention,
+    paged_ragged_q_attention_quant,
     prefill_attention,
     quantize_kv,
 )
 from langstream_tpu_torch.ops.decode_kernel import flash_decode_attention, flash_decode_attention_quant
 from langstream_tpu_torch.ops.flash_attention import flash_prefill_attention, flash_prefill_attention_quant
-from langstream_tpu_torch.ops.paged_attention import ragged_paged_attention, ragged_paged_attention_quant
+from langstream_tpu_torch.ops.paged_attention import (
+    ragged_paged_attention,
+    ragged_paged_attention_quant,
+    ragged_q_paged_attention,
+    ragged_q_paged_attention_quant,
+)
 from langstream_tpu_torch.providers.torch_local import engine, model
 
 # bf16: p is rounded to bf16 before p·v and sums run in another order
@@ -180,6 +187,7 @@ def test_ragged_paged_kernel_matches_plain(dtype, heads, kv_heads, dim, softcap,
             assert float(out[b].float().abs().max()) == 0.0, "an empty row must yield zeros"
             continue
         assert _rel_err(out[b, :n], ref[b, :n]) < TOLERANCE[dtype], b
+        assert not bool(out[b, n:].any()), "positions past the new tokens are zero"
 
 
 @pytest.mark.gpu
@@ -308,6 +316,7 @@ def test_ragged_paged_quant_kernel_matches_plain(dtype, heads, kv_heads, dim, so
             assert float(out[b].float().abs().max()) == 0.0, "an empty row must yield zeros"
             continue
         assert _rel_err(out[b, :n], ref[b, :n]) < TOLERANCE[dtype], b
+        assert not bool(out[b, n:].any()), "positions past the new tokens are zero"
 
 
 @pytest.mark.gpu
@@ -348,3 +357,147 @@ def test_quant_kernels_are_deterministic_and_refuse():
     with pytest.raises(TypeError):
         flash_prefill_attention_quant(qg[:, None], good[:, :1], scales[:, :1].double(),
                                       good[:, :1], scales[:, :1].double())
+
+
+# ---------------------------------------------------------------------- #
+# B7, B8: the token-ragged kernels (the mixed step's launch) against their
+# plain versions, over B3's matrix; per row bitwise B3 / B6 at window 0
+# ---------------------------------------------------------------------- #
+RAGGED_Q_FAMILIES = PAGED_FAMILIES + [(16, 2, 80, 30.0, 0, 0.2)]  # + head_dim 80 (G 8)
+
+
+def _ragged_q_case(rng, device, torch_dtype, heads, kv_heads, dim, block_size, width, block_q):
+    """A mixed batch over a shuffled pool, spans packed at non-uniform
+    tile-aligned offsets of a longer flat tile: decode rows at contexts 1,
+    block_size, 96 and the full table; a warm window of width - 3 at
+    offset 33; a cold window of the full width; a one-token cold prompt;
+    an idle row. Returns the operands and the host rows (start, total,
+    offset)."""
+    table_width = 96 // block_size + 4
+    capacity = table_width * block_size
+    rows = [(0, 1), (block_size - 1, block_size), (95, 96), (capacity - 1, capacity),
+            (33, 33 + max(width - 3, 1)), (0, width), (0, 1), (0, 0)]
+    batch = len(rows)
+    num_blocks = batch * table_width + 1
+    order = rng.permutation(num_blocks - 1) + 1  # block 0 stays the null block
+    tables = order[: batch * table_width].reshape(batch, table_width).astype(np.int32)
+    tables[1, :1] = tables[0, :1]  # a shared prefix block
+    gaps = rng.integers(0, 3, size=batch) * block_q
+    offsets = np.cumsum(gaps + width) - width  # each span after the previous one and a gap
+    order_rows = rng.permutation(batch)  # spans in another order than the rows
+    q_offsets = np.zeros(batch, dtype=np.int32)
+    q_offsets[order_rows] = offsets
+    total_q = int(offsets[-1] + width + block_q)
+
+    def draw(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device, torch_dtype)
+
+    q = draw(total_q, heads, dim)
+    k_pool, v_pool = draw(num_blocks, block_size, kv_heads, dim), draw(num_blocks, block_size, kv_heads, dim)
+
+    def ints(values):
+        return torch.tensor(np.asarray(values), dtype=torch.int32, device=device)
+
+    starts, totals = zip(*rows)
+    hosts = list(zip(starts, totals, q_offsets.tolist()))
+    return q, (k_pool, v_pool), ints(tables), ints(starts), ints(totals), ints(q_offsets), hosts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", [False, True], ids=["B7", "B8"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("heads,kv_heads,dim,softcap,window,scale", RAGGED_Q_FAMILIES)
+@pytest.mark.parametrize("block_size", [8, 16, 32])
+@pytest.mark.parametrize("width", [8, 16, 64])
+def test_ragged_q_kernel_matches_plain(quant, dtype, heads, kv_heads, dim, softcap, window, scale,
+                                       block_size, width):
+    device = _card()
+    rng = np.random.default_rng(block_size * 1000 + width + (7 if quant else 0))
+    block_q = 8
+    q, pools, tables, starts, totals, q_offsets, hosts = _ragged_q_case(
+        rng, device, getattr(torch, dtype), heads, kv_heads, dim, block_size, width, block_q)
+    if quant:
+        pools = (*quantize_kv(pools[0]), *quantize_kv(pools[1]))
+    kernel = ragged_q_paged_attention_quant if quant else ragged_q_paged_attention
+    plain = paged_ragged_q_attention_quant if quant else paged_ragged_q_attention
+    family = dict(softcap=softcap, window=window, scale=scale)
+    before = kernel.launches
+    out = kernel(q, *pools, tables, starts, totals, q_offsets, max_q_len=width, block_q=block_q,
+                 **family)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    ref = plain(q, *pools, tables, starts, totals, q_offsets, max_q_len=width, block_q=block_q,
+                **family)
+    covered = torch.zeros(q.shape[0], dtype=torch.bool, device=device)
+    for b, (start, total, offset) in enumerate(hosts):
+        covered[offset:offset + width] = True
+        live = total - start
+        if live:
+            assert _rel_err(out[offset:offset + live], ref[offset:offset + live]) < TOLERANCE[dtype], b
+        # past the live count: zero, the dead tiles and the padding of the
+        # last live tile alike
+        assert not bool(out[offset + live:offset + width].any()), b
+    assert not bool(out[~covered].any()), "positions outside every span stay zero"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", [False, True], ids=["B7", "B8"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("heads,kv_heads,dim", [(32, 8, 128), (4, 4, 64), (16, 2, 80), (8, 4, 256)])
+def test_ragged_q_rows_are_bitwise_b3(quant, dtype, heads, kv_heads, dim):
+    """At window 0 every live row of B7 (B8) equals B3's (B6's) for that
+    row bit for bit: decode rows against a Tq = 1 launch, windows
+    against a Tq = W launch. The mixed step's parity with the split
+    paths rests on it."""
+    device = _card()
+    rng = np.random.default_rng(dim + heads)
+    width, block_size = 64, 16
+    q, pools, tables, starts, totals, q_offsets, hosts = _ragged_q_case(
+        rng, device, getattr(torch, dtype), heads, kv_heads, dim, block_size, width, 8)
+    if quant:
+        pools = (*quantize_kv(pools[0]), *quantize_kv(pools[1]))
+    ragged_q = ragged_q_paged_attention_quant if quant else ragged_q_paged_attention
+    fixed = ragged_paged_attention_quant if quant else ragged_paged_attention
+    family = dict(softcap=30.0, scale=0.1)
+    out = ragged_q(q, *pools, tables, starts, totals, q_offsets, max_q_len=width, block_q=8, **family)
+    spans = torch.stack([q[offset:offset + width] for _, _, offset in hosts])  # [B, W, H, D]
+    decode = fixed(spans[:, :1].contiguous(), *pools, tables, starts, totals, **family)
+    windows = fixed(spans.contiguous(), *pools, tables, starts, totals, **family)
+    torch.cuda.synchronize()
+    for b, (start, total, offset) in enumerate(hosts):
+        live = total - start
+        if live == 1:
+            assert torch.equal(out[offset], decode[b, 0]), b
+        if live >= 1:
+            assert torch.equal(out[offset:offset + live], windows[b, :live]), b
+
+
+@pytest.mark.gpu
+def test_ragged_q_kernels_are_deterministic_and_refuse():
+    device = _card()
+    rng = np.random.default_rng(8)
+    q, pools, tables, starts, totals, q_offsets, _ = _ragged_q_case(
+        rng, device, torch.bfloat16, 32, 8, 128, 16, 64, 8)
+    (kq, ks), (vq, vs) = quantize_kv(pools[0]), quantize_kv(pools[1])
+    args = (tables, starts, totals, q_offsets)
+    for fn, leaves in ((ragged_q_paged_attention, pools),
+                       (ragged_q_paged_attention_quant, (kq, ks, vq, vs))):
+        first = fn(q, *leaves, *args, max_q_len=64, block_q=8)
+        second = fn(q, *leaves, *args, max_q_len=64, block_q=8)
+        assert torch.equal(first, second)
+        with pytest.raises(ValueError, match="tile"):
+            fn(q, *leaves, *args, max_q_len=64, block_q=6)
+        with pytest.raises(ValueError, match="multiple"):
+            fn(q, *leaves, tables, starts, totals, q_offsets + 4, max_q_len=64, block_q=8)
+        with pytest.raises(ValueError, match="outside"):  # offsets given on the host
+            fn(q, *leaves, *args, max_q_len=64, block_q=8,
+               q_offsets_host=(q_offsets.cpu() + q.shape[0]).tolist())
+        with pytest.raises(ValueError):  # q_offsets on the CPU
+            fn(q, *leaves, tables, starts, totals, q_offsets.cpu(), max_q_len=64, block_q=8)
+        with pytest.raises(ValueError):  # head_dim 12 (8 for int8 cannot divide by 16 either)
+            fn(q[..., :12].contiguous(), *(t[..., :12].contiguous() if t.dim() == 4 else t
+                                           for t in leaves), *args, max_q_len=64, block_q=8)
+    with pytest.raises(TypeError):
+        ragged_q_paged_attention(q.half(), pools[0].half(), pools[1].half(), *args, max_q_len=64)
+    with pytest.raises(TypeError):  # bf16 pools to the int8 kernel
+        ragged_q_paged_attention_quant(q, pools[0], ks, pools[1], vs, *args, max_q_len=64)
