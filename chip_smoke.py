@@ -8,7 +8,10 @@ Phases (any failure propagates and the exit code is not 0):
 
 1. Device: the card's name, and its name and power limit from nvidia-smi.
 2. Kernels: build every CUDA kernel of the serving paths from
-   ``langstream_tpu_torch/csrc`` (one nvcc per source, started together),
+   ``langstream_tpu_torch/csrc`` (one nvcc per source, started together;
+   the paged kernels' registers and spills from ``ptxas -v`` and their
+   tensor-core instructions from ``cuobjdump -sass`` are printed, and the
+   bf16-q body must use HMMA and spill nothing),
    hold each against its plain PyTorch version at the paths' shapes
    (q bf16), and time kernel, plain version, the PyTorch library call
    (``scaled_dot_product_attention``, a yardstick only; over a dequantized
@@ -18,7 +21,9 @@ Phases (any failure propagates and the exit code is not 0):
    is left out; each kernel's wall time per call with the host in the
    loop is printed beside it. B1 flash prefill and B2 flash decode carry
    the dense path; B3 ragged paged attention the paged path, at a decode
-   and a prefill-at-offset shape; B4, B5 and B6 are their int8-KV twins,
+   and a prefill-at-offset shape (both in the kernels line: the decode
+   shape's fields, and ``prefill_*`` fields and launches by shape beside
+   them); B4, B5 and B6 are their int8-KV twins,
    at the same shapes over ``quantize_kv`` of the same activations. B7
    (and B8 over int8 pools), the token-ragged kernel of the mixed step,
    at its shape (32 rows of a 64-wide span: decode rows, two windows,
@@ -65,6 +70,8 @@ import dataclasses
 import functools
 import gc
 import json
+import os
+import re
 import subprocess
 import sys
 import time
@@ -209,6 +216,53 @@ def entry(name, worst_abs, kernel_ms, plain_ms, bound_ms, bound_by, library_ms) 
         "replaces": f"langstream_tpu/ops/{replaces}", "max_abs_err": worst_abs, "ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
     }
+
+
+def _demangle(symbols):
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(symbols), capture_output=True,
+                             text=True, timeout=60, check=True).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        return {symbol: symbol for symbol in symbols}
+    return dict(zip(symbols, out)) if len(out) == len(symbols) else {s: s for s in symbols}
+
+
+def kernel_resources(source: str = "paged_attention") -> None:
+    """Registers and spilled bytes of each kernel of ``csrc/<source>.cu``
+    (``ptxas -v``, kept in the build's log) and its HMMA (tensor-core)
+    instructions in the SASS (``cuobjdump -sass``; None where the toolkit
+    has no cuobjdump). The bf16-q paged kernels must use the tensor cores
+    and spill nothing."""
+    kernels, current = {}, None
+    with open(_build.log_path(source)) as handle:
+        for line in handle:
+            if "Function properties for" in line:
+                current = line.split("Function properties for", 1)[1].strip()
+                kernels.setdefault(current, {"hmma": None})
+            elif current and "spill stores" in line:
+                found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+                kernels[current]["spill_bytes"] = int(found[1]) + int(found[2])
+            elif current and re.search(r"Used \d+ registers", line):
+                kernels[current]["registers"] = int(re.search(r"Used (\d+) registers", line)[1])
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME") or "/usr/local/cuda", "bin", "cuobjdump")
+    if os.path.exists(cuobjdump):
+        sass = subprocess.run([cuobjdump, "-sass", _build.library_path(source)], check=True,
+                              capture_output=True, text=True, timeout=300).stdout
+        current = None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                current = line.split("Function :", 1)[1].strip()
+                kernels.setdefault(current, {})["hmma"] = 0
+            elif current and re.search(r"\bHMMA\b", line):
+                kernels[current]["hmma"] += 1
+    names = _demangle(sorted(kernels))
+    for symbol in sorted(kernels):
+        info, name = kernels[symbol], names[symbol]
+        log(f"{source}.cu kernel {name}: {info.get('registers')} registers, "
+            f"{info.get('spill_bytes')} bytes spilled, {info.get('hmma')} HMMA in the SASS")
+        if "mma_kernel" in name:
+            assert info.get("spill_bytes") == 0, f"{name} spills"
+            assert info.get("hmma") is None or info["hmma"] > 0, f"{name}: no HMMA in the SASS"
 
 
 def check_prefill_kernel(device, quant: bool = False) -> dict:
@@ -383,7 +437,7 @@ def check_paged_kernel(device, quant: bool = False) -> dict:
         ("decode", 1, [max(n - 1, 0) for n in decode_lengths], decode_lengths),
         ("prefill-at-offset", 256, [0, 256, 512, 767], [256, 457, 609, 768]),
     ]
-    first_entry = None
+    result = None
     for label, seq, starts_host, lengths_host in cases:
         batch = len(starts_host)
         tables_host = (rng.permutation(num_blocks - 1) + 1)[: batch * width].reshape(batch, width)
@@ -437,9 +491,13 @@ def check_paged_kernel(device, quant: bool = False) -> dict:
             f"kernel_ms={kernel_ms:.4f} (call with host {wall_ms:.4f}) plain_ms={plain_ms:.4f} "
             f"library_ms={library_ms:.4f} (SDPA on the pre-gathered{' dequantized' if quant else ''} "
             f"view, untimed) bound_ms={bound_ms:.5f} ({bound_by})")
-        if first_entry is None:  # the decode shape stands for the kernel in the kernels line
-            first_entry = entry(name, worst_abs, kernel_ms, plain_ms, bound_ms, bound_by, library_ms)
-    return first_entry
+        if result is None:  # the decode shape's fields, then the prefill shape's own
+            result = entry(name, worst_abs, kernel_ms, plain_ms, bound_ms, bound_by, library_ms)
+        else:
+            result.update(prefill_max_abs_err=worst_abs, prefill_ms=kernel_ms,
+                          prefill_plain_ms=plain_ms, prefill_bound_ms=bound_ms,
+                          prefill_bound_by=bound_by, prefill_library_ms=library_ms)
+    return result
 
 
 def check_ragged_q_kernel(device, quant: bool = False) -> dict:
@@ -1065,6 +1123,12 @@ def serve_paged_and_check(label: str, kv_quant: bool = False, mixed: bool = Fals
     else:
         assert launches[paged] == layers * sum(calls.values()), (launches, calls)
         used = (paged,)
+        # B3/B6's launches by shape: decode steps, and prefill calls (cold
+        # and onto a cached prefix)
+        launches = dict(launches, **{
+            f"{paged}/decode": layers * calls.get("paged_decode_step", 0),
+            f"{paged}/prefill": layers * (calls.get("paged_prefill", 0)
+                                          + calls.get("paged_prefill_at_offset", 0))})
     assert all(launches[name] == 0 for name in KERNELS if name not in used), launches
     kind = (("mixed paged" if mixed else "paged") + (" int8 KV" if kv_quant else "")
             + (" warm" if warmup else " cold"))
@@ -1081,6 +1145,7 @@ def main() -> None:
     t0 = time.perf_counter()
     _build.build_all()
     log(f"built {sorted(_build.SIGNATURES)} in {time.perf_counter() - t0:.1f}s -> {_build.BUILD_DIR}")
+    kernel_resources("paged_attention")
     kernels = [check(device, quant) for quant in (False, True)
                for check in (check_prefill_kernel, check_decode_kernel, check_paged_kernel)]
     kernels += [check_ragged_q_kernel(device, quant) for quant in (False, True)]
@@ -1094,11 +1159,13 @@ def main() -> None:
     warm_split = functools.partial(serve_paged_and_check, warm=True)  # the mixed run's twin
     for serve, kv_quant, names in (
         (serve_dense_and_check, False, ("flash_prefill", "flash_decode")),
-        (serve_paged_and_check, False, ("paged_attention",)),
+        (serve_paged_and_check, False,
+         ("paged_attention", "paged_attention/decode", "paged_attention/prefill")),
         (warm_split, False, ()),
         (mixed, False, ("paged_attention_ragged_q",)),
         (serve_dense_and_check, True, ("flash_prefill_quant", "flash_decode_quant")),
-        (serve_paged_and_check, True, ("paged_attention_quant",)),
+        (serve_paged_and_check, True, ("paged_attention_quant", "paged_attention_quant/decode",
+                                       "paged_attention_quant/prefill")),
         (warm_split, True, ()),
         (mixed, True, ("paged_attention_ragged_q_quant",)),
     ):
@@ -1109,6 +1176,9 @@ def main() -> None:
     for item in kernels:
         item["launches"] = launches[item["name"]]
         assert item["launches"] > 0, item
+        for shape in ("decode", "prefill"):
+            if f"{item['name']}/{shape}" in launches:
+                item[f"{shape}_launches"] = launches[f"{item['name']}/{shape}"]
     log(label)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

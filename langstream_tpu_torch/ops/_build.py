@@ -30,6 +30,7 @@ BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), "build", "kernels")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # registers, spills and shared memory of each kernel, kept in the log
 ]
 
 # C signatures: every pointer and the stream are c_void_p (a bare int
@@ -108,6 +109,11 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
+def log_path(name: str) -> str:
+    """nvcc's output for the current library of ``name`` (``ptxas -v``)."""
+    return library_path(name) + ".log"
+
+
 def _start(name: str):
     """Start one nvcc for ``name`` (None when its library is current)."""
     target = library_path(name)
@@ -130,6 +136,8 @@ def _finish(job) -> None:
     output, _ = process.communicate()
     if process.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{output}")
+    with open(target + ".log", "w") as handle:
+        handle.write(output)
     os.replace(partial, target)  # atomic: a concurrent build never loads half a file
 
 

@@ -10,6 +10,17 @@ CTA per (kv head, row, q tile) that reads its row's table, start and
 length itself and walks only the table entries inside
 :func:`block_bounds`. Its design note is at the top of that file.
 
+What bounds it on the H100, and what the design does about it: at
+decode (one query token, G score rows a CTA) the one warp that computes
+the tile, walking a long row's key tiles one after another, while the
+k/v tiles stream through a three-stage ``cp.async`` ring; at
+prefill-at-offset (64 score rows a CTA) latency and the uneven key
+ranges of the CTAs rather than the arithmetic, so the products run on
+the tensor cores (``mma.sync`` bf16, the softmax state and the output
+accumulator in registers) and the CTAs of the last q tiles, which see
+the most keys, start first. bf16 q takes that body over bf16 or int8
+pools; f32 q (the tests) keeps the first version's FP32-FMA body.
+
 One launch serves every case the paged engine dispatches: decode (Tq=1,
 start = length-1), prefill-at-offset onto a cached prefix (start =
 offset) and cold paged prefill (start = 0). Query token ``t`` of row
@@ -59,7 +70,7 @@ from langstream_tpu_torch.ops.attention import (
 KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 MAX_HEAD_DIM = 256
 # a CTA's tile holds at most this many score rows (query tokens x the
-# query heads of one kv head); see the .cu
+# query heads of one kv head): MAX_ROWS in the .cu, four m16 row tiles
 MAX_TILE_ROWS = 64
 
 

@@ -501,3 +501,87 @@ def test_ragged_q_kernels_are_deterministic_and_refuse():
         ragged_q_paged_attention(q.half(), pools[0].half(), pools[1].half(), *args, max_q_len=64)
     with pytest.raises(TypeError):  # bf16 pools to the int8 kernel
         ragged_q_paged_attention_quant(q, pools[0], ks, pools[1], vs, *args, max_q_len=64)
+
+
+# ---------------------------------------------------------------------- #
+# B3, B6 (and B7, B8 over the same rows): the cases the tensor-core body
+# with its cp.async ring can get wrong. Key tiles are 64 keys (32 at
+# D 256) and the ring holds three of them.
+# ---------------------------------------------------------------------- #
+# id: heads, kv_heads, dim, block_size, seq, window, softcap, rows (start, total)
+EDGE_CASES = {
+    # several key tiles, starts aligned neither to the key tile nor the block
+    "unaligned-starts": (32, 8, 128, 16, 64, 0, None, [(37, 87), (130, 194), (201, 250), (135, 199)]),
+    # a window boundary inside a key tile and inside a block
+    "window-in-tile": (8, 4, 64, 8, 64, 37, 30.0, [(100, 164), (50, 90), (3, 40), (0, 1)]),
+    # G 1, odd live counts: the q tile's live rows are not a multiple of 16
+    "odd-rows-g1": (4, 4, 64, 16, 16, 0, None, [(10, 23), (0, 7), (55, 56), (70, 85)]),
+    # head dims padded in shared memory (80) and split across warps (256), G 8
+    "d80-g8": (16, 2, 80, 16, 64, 0, 50.0, [(0, 64), (77, 141), (300, 301), (19, 40)]),
+    "d256-g8": (16, 2, 256, 32, 64, 0, None, [(0, 64), (77, 141), (300, 301), (19, 40)]),
+    # lengths ending mid-stage of the ring: one key tile, two (fewer than the
+    # stages), and the ring wrapped with a partly live last tile
+    "ends-mid-stage": (32, 8, 128, 16, 16, 0, None, [(0, 5), (60, 65), (193, 209), (500, 513)]),
+}
+
+
+def _rows_case(rng, device, torch_dtype, heads, kv_heads, dim, block_size, seq, rows):
+    """A shuffled pool holding ``rows`` (start, total) with their own
+    tables; q of ``seq`` tokens per row (each row's new tokens at most
+    ``seq``)."""
+    table_width = max(total for _, total in rows) // block_size + 2
+    batch = len(rows)
+    num_blocks = batch * table_width + 1
+    order = rng.permutation(num_blocks - 1) + 1  # block 0 stays the null block
+    tables = order[: batch * table_width].reshape(batch, table_width).astype(np.int32)
+
+    def draw(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device, torch_dtype)
+
+    q = draw(batch, seq, heads, dim)
+    pools = (draw(num_blocks, block_size, kv_heads, dim), draw(num_blocks, block_size, kv_heads, dim))
+
+    def ints(values):
+        return torch.tensor(np.asarray(values), dtype=torch.int32, device=device)
+
+    starts, totals = zip(*rows)
+    return q, pools, ints(tables), ints(starts), ints(totals)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", [False, True], ids=["B3", "B6"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("case", sorted(EDGE_CASES))
+def test_ragged_paged_kernel_edge_cases(quant, dtype, case):
+    """B3 (B6) against the plain version at the edges of the key tiles,
+    the ring and the row tiles; zeros past each row's new tokens; at
+    window 0, B7's (B8's) rows over the same spans bitwise equal."""
+    device = _card()
+    heads, kv_heads, dim, block_size, seq, window, softcap, rows = EDGE_CASES[case]
+    rng = np.random.default_rng(sum(map(ord, case)) + (7 if quant else 0))
+    q, pools, tables, starts, totals = _rows_case(
+        rng, device, getattr(torch, dtype), heads, kv_heads, dim, block_size, seq, rows)
+    if quant:
+        pools = (*quantize_kv(pools[0]), *quantize_kv(pools[1]))
+    fixed = ragged_paged_attention_quant if quant else ragged_paged_attention
+    plain = paged_chunk_attention_quant if quant else paged_chunk_attention
+    family = dict(softcap=softcap, window=window)
+    out = fixed(q, *pools, tables, starts, totals, **family)
+    ref = plain(q, *pools, tables, starts, totals, **family)
+    torch.cuda.synchronize()
+    for b, (start, total) in enumerate(rows):
+        live = total - start
+        assert _rel_err(out[b, :live], ref[b, :live]) < TOLERANCE[dtype], (case, b)
+        assert not bool(out[b, live:].any()), (case, b)
+    if window:
+        return
+    ragged_q = ragged_q_paged_attention_quant if quant else ragged_q_paged_attention
+    batch = len(rows)
+    offsets = [b * seq for b in range(batch)]
+    flat = ragged_q(q.reshape(batch * seq, heads, dim), *pools, tables, starts, totals,
+                    torch.tensor(offsets, dtype=torch.int32, device=device), max_q_len=seq,
+                    block_q=8, q_offsets_host=offsets, **family)
+    torch.cuda.synchronize()
+    flat = flat.view(batch, seq, heads, dim)
+    for b, (start, total) in enumerate(rows):
+        assert torch.equal(flat[b, : total - start], out[b, : total - start]), (case, b)
