@@ -9,9 +9,10 @@ Phases (any failure propagates and the exit code is not 0):
 1. Device: the card's name, and its name and power limit from nvidia-smi.
 2. Kernels: build every CUDA kernel of the serving paths from
    ``langstream_tpu_torch/csrc`` (one nvcc per source, started together;
-   the paged kernels' registers and spills from ``ptxas -v`` and their
-   tensor-core instructions from ``cuobjdump -sass`` are printed, and the
-   bf16-q body must use HMMA and spill nothing),
+   the prefill and paged kernels' registers and spills from ``ptxas -v``
+   and their tensor-core instructions from ``cuobjdump -sass`` are
+   printed, and the bf16-q bodies, the prefill ``wgmma`` body and the
+   paged ``mma.sync`` one, must use HGMMA or HMMA and spill nothing),
    hold each against its plain PyTorch version at the paths' shapes
    (q bf16), and time kernel, plain version, the PyTorch library call
    (``scaled_dot_product_attention``, a yardstick only; over a dequantized
@@ -20,7 +21,9 @@ Phases (any failure propagates and the exit code is not 0):
    are enqueued while a sleep kernel holds the card, so the host's share
    is left out; each kernel's wall time per call with the host in the
    loop is printed beside it. B1 flash prefill and B2 flash decode carry
-   the dense path; B3 ragged paged attention the paged path, at a decode
+   the dense path (B1 and B4 also at the top prompt bucket, B 1 × T 1024,
+   where the work is bound by operations: the kernels line's ``long_*``
+   fields); B3 ragged paged attention the paged path, at a decode
    and a prefill-at-offset shape (both in the kernels line: the decode
    shape's fields, and ``prefill_*`` fields and launches by shape beside
    them); B4, B5 and B6 are their int8-KV twins,
@@ -229,16 +232,17 @@ def _demangle(symbols):
 
 def kernel_resources(source: str = "paged_attention") -> None:
     """Registers and spilled bytes of each kernel of ``csrc/<source>.cu``
-    (``ptxas -v``, kept in the build's log) and its HMMA (tensor-core)
-    instructions in the SASS (``cuobjdump -sass``; None where the toolkit
-    has no cuobjdump). The bf16-q paged kernels must use the tensor cores
-    and spill nothing."""
+    (``ptxas -v``, kept in the build's log) and its tensor-core
+    instructions in the SASS (``cuobjdump -sass``: HMMA from ``mma.sync``,
+    HGMMA from ``wgmma``; None where the toolkit has no cuobjdump). The
+    bf16-q kernels (the paged ``mma_kernel`` body, the prefill
+    ``wgmma_kernel`` body) must use the tensor cores and spill nothing."""
     kernels, current = {}, None
     with open(_build.log_path(source)) as handle:
         for line in handle:
             if "Function properties for" in line:
                 current = line.split("Function properties for", 1)[1].strip()
-                kernels.setdefault(current, {"hmma": None})
+                kernels.setdefault(current, {"hmma": None, "hgmma": None})
             elif current and "spill stores" in line:
                 found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
                 kernels[current]["spill_bytes"] = int(found[1]) + int(found[2])
@@ -252,28 +256,32 @@ def kernel_resources(source: str = "paged_attention") -> None:
         for line in sass.splitlines():
             if "Function :" in line:
                 current = line.split("Function :", 1)[1].strip()
-                kernels.setdefault(current, {})["hmma"] = 0
-            elif current and re.search(r"\bHMMA\b", line):
-                kernels[current]["hmma"] += 1
+                kernels.setdefault(current, {}).update(hmma=0, hgmma=0)
+            elif current:
+                for op in ("HMMA", "HGMMA"):
+                    if re.search(rf"\b{op}\b", line):
+                        kernels[current][op.lower()] += 1
     names = _demangle(sorted(kernels))
     for symbol in sorted(kernels):
         info, name = kernels[symbol], names[symbol]
         log(f"{source}.cu kernel {name}: {info.get('registers')} registers, "
-            f"{info.get('spill_bytes')} bytes spilled, {info.get('hmma')} HMMA in the SASS")
-        if "mma_kernel" in name:
+            f"{info.get('spill_bytes')} bytes spilled, {info.get('hmma')} HMMA and "
+            f"{info.get('hgmma')} HGMMA in the SASS")
+        if "mma_kernel" in name:  # paged_attention_mma_kernel, flash_prefill_wgmma_kernel
             assert info.get("spill_bytes") == 0, f"{name} spills"
-            assert info.get("hmma") is None or info["hmma"] > 0, f"{name}: no HMMA in the SASS"
+            assert info.get("hmma") is None or info["hmma"] + info["hgmma"] > 0, (
+                f"{name}: no tensor-core instruction in the SASS")
 
 
-def check_prefill_kernel(device, quant: bool = False) -> dict:
-    """B1 at a prefill call of the serving path: B=4, T=256, Llama-3-8B
-    heads; with ``quant``, B4 over ``quantize_kv`` of the same k/v."""
-    batch, seq, heads, kv_heads, dim = 4, 256, 32, 8, 128
+def _prefill_case(device, quant, lengths_host, seq):
+    """B1 (B4 with ``quant``) at one shape, Llama-3-8B heads: errors and
+    times against the plain version, SDPA and the bound."""
+    batch, heads, kv_heads, dim = len(lengths_host), 32, 8, 128
     gen = torch.Generator(device=device).manual_seed(1)
     q = torch.randn(batch, seq, heads, dim, device=device, generator=gen).bfloat16()
     k = torch.randn(batch, seq, kv_heads, dim, device=device, generator=gen).bfloat16()
     v = torch.randn(batch, seq, kv_heads, dim, device=device, generator=gen).bfloat16()
-    lengths = torch.tensor([256, 201, 97, 1], dtype=torch.int32, device=device)
+    lengths = torch.tensor(lengths_host, dtype=torch.int32, device=device)
     mask = torch.arange(seq, device=device)[None, :] < lengths[:, None]
     if quant:
         (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
@@ -296,11 +304,11 @@ def check_prefill_kernel(device, quant: bool = False) -> dict:
     out, ref = kernel(), plain()
     torch.cuda.synchronize()
     worst_abs = worst_rel = 0.0
-    for b, n in enumerate(lengths.tolist()):
+    for b, n in enumerate(lengths_host):
         a, r = errors(out[b, :n], ref[b, :n])
         worst_abs, worst_rel = max(worst_abs, a), max(worst_rel, r)
     name = "flash_prefill_quant" if quant else "flash_prefill"
-    assert worst_rel < KERNEL_TOLERANCE, f"{name} disagrees: {worst_rel}"
+    assert worst_rel < KERNEL_TOLERANCE, f"{name} [B={batch} T={seq}] disagrees: {worst_rel}"
     # SDPA yardstick: same function through one library call (bool mask)
     rows = torch.arange(seq, device=device)
     sdpa_mask = (rows[None, :] <= rows[:, None])[None, None] & mask[:, None, None, :]
@@ -324,6 +332,18 @@ def check_prefill_kernel(device, quant: bool = False) -> dict:
         f"library_ms={library_ms:.4f}{' (SDPA on a dequantized bf16 view, untimed)' if quant else ''} "
         f"bound_ms={bound_ms:.5f} ({bound_by})")
     return entry(name, worst_abs, kernel_ms, plain_ms, bound_ms, bound_by, library_ms)
+
+
+def check_prefill_kernel(device, quant: bool = False) -> dict:
+    """B1 at a prefill call of the serving path: B=4, T=256, Llama-3-8B
+    heads, lengths 256/201/97/1; with ``quant``, B4 over ``quantize_kv``
+    of the same k/v. Then the top prompt bucket, B=1, T=1024, where the
+    work is bound by operations: its fields are the ``long_*`` ones."""
+    result = _prefill_case(device, quant, [256, 201, 97, 1], 256)
+    long = _prefill_case(device, quant, [1024], 1024)
+    result.update({f"long_{key}": long[key] for key in (
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+    return result
 
 
 def check_decode_kernel(device, quant: bool = False) -> dict:
@@ -1145,7 +1165,8 @@ def main() -> None:
     t0 = time.perf_counter()
     _build.build_all()
     log(f"built {sorted(_build.SIGNATURES)} in {time.perf_counter() - t0:.1f}s -> {_build.BUILD_DIR}")
-    kernel_resources("paged_attention")
+    for source in ("flash_prefill", "paged_attention"):
+        kernel_resources(source)
     kernels = [check(device, quant) for quant in (False, True)
                for check in (check_prefill_kernel, check_decode_kernel, check_paged_kernel)]
     kernels += [check_ragged_q_kernel(device, quant) for quant in (False, True)]

@@ -175,7 +175,14 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+# a C entry point that cannot encode a TMA tensor map returns this plus
+# the CUresult of the encode
+ENCODE_FAILED = 10000
+
+
 def check(status: int, kernel: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a C entry point."""
+    if status >= ENCODE_FAILED:
+        raise RuntimeError(f"{kernel}: tensor map encode failed (CUresult {status - ENCODE_FAILED})")
     if status != 0:
         raise RuntimeError(f"{kernel}: CUDA error {status} at launch")

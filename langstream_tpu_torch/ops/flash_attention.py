@@ -4,8 +4,10 @@ Port of ``langstream_tpu/ops/flash_attention.py``. The TPU kernel
 (``_flash_kernel``, a Pallas call over a (batch, head, q block, k block)
 grid carrying the online softmax in VMEM scratch) becomes the Hopper
 kernel in ``csrc/flash_prefill.cu``: one CTA per (q tile, head, batch
-row) with the k-block loop inside the CTA. Its design note is at the top
-of that file.
+row) with the k-block loop inside the CTA; for bf16 q, warpgroup
+tensor-core products (``wgmma``) fed by TMA through tensor maps that the
+C entry point encodes on each call. Its design note is at the top of
+that file.
 
 :func:`flash_prefill_attention` keeps the JAX API's ``[B, T, H, D]``
 layout at its public face. On a CUDA tensor it launches the kernel or
@@ -72,6 +74,10 @@ def _check_inputs(q, k, v, lengths) -> None:
     for name, tensor in (("q", q), ("k", k), ("v", v), ("lengths", lengths)):
         if not tensor.is_contiguous():
             raise ValueError(f"flash_prefill_attention: {name} must be contiguous")
+    if q.dtype == torch.bfloat16:  # the tensor-core body reads q, k and v by TMA
+        for name, tensor in (("q", q), ("k", k), ("v", v)):
+            if tensor.data_ptr() % 16:
+                raise ValueError(f"flash_prefill_attention: {name} must be 16-byte aligned")
 
 
 def flash_prefill_attention(
@@ -152,7 +158,8 @@ def _check_quant_inputs(q, k, k_scale, v, v_scale, lengths) -> None:
     for label, tensor in (("q", q),) + tensors:
         if not tensor.is_contiguous():
             raise ValueError(f"{name}: {label} must be contiguous")
-    for label, tensor in (("k", k), ("v", v)):
+    aligned = (("q", q), ("k", k), ("v", v)) if q.dtype == torch.bfloat16 else (("k", k), ("v", v))
+    for label, tensor in aligned:
         if tensor.data_ptr() % 16:
             raise ValueError(f"{name}: {label} must be 16-byte aligned")
 

@@ -21,7 +21,9 @@ prefill calls; ``mixed-carry`` is accepted, as in the JAX provider's
 configs, and ignored: the mixed-step carry chains on the pipelined decode
 carry, which is not ported. The top-level
 ``quantization: int8`` (int8 weights) is not ported yet and raises rather
-than serving bf16 weights.
+than serving bf16 weights. So does every other key that the JAX provider
+honours and the port does not (:data:`UNPORTED_ENGINE_KEYS`,
+:data:`UNPORTED_KEYS`) when it is set to anything but the JAX default.
 """
 
 from __future__ import annotations
@@ -41,6 +43,46 @@ from langstream_tpu_torch.providers.torch_local.engine import (
 from langstream_tpu_torch.providers.torch_local.tokenizer import get_tokenizer
 
 logger = logging.getLogger(__name__)
+
+
+def _on(value: Any) -> bool:
+    return str(value).lower() in ("1", "true", "yes")
+
+
+# Keys the JAX provider honours that the port does not serve yet (ROADMAP.md,
+# Queue A), each with the test for a value other than the JAX default. Set,
+# they raise: served as if absent, a config would get another engine than
+# the one it asked for (``queue-timeout-s`` would never shed, ``mesh`` would
+# not shard).
+UNPORTED_ENGINE_KEYS = {
+    "kv-host-blocks": lambda value: int(value or 0) != 0,
+    "spec-decode": lambda value: str(value or "off").lower() != "off",
+    "spec-k": lambda value: int(value or 4) != 4,
+    "spec-ngram": lambda value: int(value or 2) != 2,
+    "pipeline-decode": _on,
+    "admission-chunk": bool,
+    "logprobs-top-k": lambda value: int(value or 0) != 0,
+    "queue-timeout-s": bool,
+    "precompile": _on,
+    "max-restarts": lambda value: int(value or 3) != 3,
+    "restart-window-s": lambda value: float(value or 600.0) != 600.0,
+}
+UNPORTED_KEYS = {
+    "slo": lambda value: any((value or {}).values()),  # JAX drops zero targets
+    "mesh": bool,
+}
+
+
+def _refuse_unported(config: Dict[str, Any], engine_config: Dict[str, Any]) -> None:
+    for keys, section, where in (
+        (UNPORTED_KEYS, config, ""), (UNPORTED_ENGINE_KEYS, engine_config, "engine."),
+    ):
+        for key, is_set in keys.items():
+            if is_set(section.get(key)):
+                raise NotImplementedError(
+                    f"{where}{key}: {section[key]!r} is not ported to langstream_tpu_torch "
+                    f"yet (see ROADMAP.md, Queue A); omit it"
+                )
 
 
 def _buckets(value: Any) -> Optional[List[int]]:
@@ -76,6 +118,8 @@ class TorchCompletionsService:
             )
         if quantization:
             raise ValueError(f"unknown quantization {quantization!r}")
+        engine_config = config.get("engine", {}) or {}
+        _refuse_unported(config, engine_config)
         model_config = model_lib.LlamaConfig.from_dict(
             config.get("model", {"preset": "tiny"})
         )
@@ -87,7 +131,6 @@ class TorchCompletionsService:
             "(%.2fB params, benchmarking only)", model_config.num_params() / 1e9,
         )
         self.tokenizer = get_tokenizer(config.get("tokenizer"))
-        engine_config = config.get("engine", {}) or {}
         if engine_config.get("sampling-seed") is not None:
             sampling_seed = int(engine_config["sampling-seed"])
         else:

@@ -360,6 +360,112 @@ def test_quant_kernels_are_deterministic_and_refuse():
 
 
 # ---------------------------------------------------------------------- #
+# B1, B4: the cases the warpgroup tensor-core body, with its TMA ring over
+# 4-D tensor maps, can get wrong. q tiles are 128 rows (64 at D 256), key
+# tiles 64.
+# ---------------------------------------------------------------------- #
+# id: heads, kv_heads, dim, seq, lengths, window, softcap
+PREFILL_EDGES = {
+    # one token: every box mostly past T
+    "t1": (8, 2, 128, 1, [1, 0], 0, None),
+    # T one past a key tile, G 1; lengths 0 and 1
+    "t65-g1": (4, 4, 64, 65, [65, 64, 1, 0], 0, None),
+    # T not a multiple of either tile, G 4, a window boundary inside a key tile
+    "t200-g4-window": (8, 2, 128, 200, [200, 150, 37, 1], 37, 30.0),
+    # one short of the top bucket, G 8: 8 q tiles, the diagonal at every offset
+    "t1023-g8": (16, 2, 128, 1023, [1023, 700], 0, None),
+    # D 256 (one consumer warpgroup, 64-row q tiles), G 4
+    "t200-d256": (8, 2, 256, 200, [200, 129, 64, 0], 0, None),
+    # D 64, G 8, a window of exactly one key tile
+    "t130-d64-g8-window": (16, 2, 64, 130, [130, 128, 127, 2], 64, 50.0),
+}
+# int8 k/v only: head dims the tiles pad (80 in a 128 tile, 32 in a 64 one)
+PREFILL_QUANT_EDGES = {
+    "t200-d80-g8": (16, 2, 80, 200, [200, 131, 1, 0], 0, 30.0),
+    "t97-d32-g4": (8, 2, 32, 97, [97, 65, 64], 20, None),
+}
+
+
+def _prefill_case(rng, device, heads, kv_heads, dim, seq, lengths, quant):
+    def draw(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device, torch.bfloat16)
+
+    batch = len(lengths)
+    q, k, v = draw(batch, seq, heads, dim), draw(batch, seq, kv_heads, dim), draw(batch, seq, kv_heads, dim)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=device)
+    if not quant:
+        return q, (k, v), lens
+    (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+    return q, (kq, ks, vq, vs), lens
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", [False, True], ids=["B1", "B4"])
+@pytest.mark.parametrize("case", sorted(PREFILL_EDGES) + sorted(PREFILL_QUANT_EDGES))
+def test_flash_prefill_edge_cases(quant, case):
+    """B1 (B4) against the plain version at the edges of the q and key
+    tiles and of the ring, row by row (every q-tile offset of the causal
+    diagonal), and bitwise equal on a repeated launch."""
+    if case in PREFILL_QUANT_EDGES and not quant:
+        pytest.skip("a head dim that only the int8 kernel takes")
+    device = _card()
+    heads, kv_heads, dim, seq, lengths, window, softcap = {**PREFILL_EDGES, **PREFILL_QUANT_EDGES}[case]
+    rng = np.random.default_rng(sum(map(ord, case)) + (3 if quant else 0))
+    q, kv, lens = _prefill_case(rng, device, heads, kv_heads, dim, seq, lengths, quant)
+    family = dict(softcap=softcap, window=window)
+    if quant:
+        out = flash_prefill_attention_quant(q, *kv[:2], *kv[2:], lengths=lens, **family)
+        again = flash_prefill_attention_quant(q, *kv[:2], *kv[2:], lengths=lens, **family)
+        ref = chunk_attention_quant(q, kv[0], kv[1], kv[2], kv[3], torch.zeros_like(lens), lens, **family)
+    else:
+        out = flash_prefill_attention(q, *kv, lengths=lens, **family)
+        again = flash_prefill_attention(q, *kv, lengths=lens, **family)
+        mask = torch.arange(seq, device=device)[None, :] < lens[:, None]
+        ref = prefill_attention(q, *kv, mask=mask, **family)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again), "a repeated launch must give the same bits"
+    for b, n in enumerate(lengths):
+        if n == 0:
+            assert not bool(out[b].any()), (case, b, "an empty prompt must yield zeros")
+            continue
+        # rows past the length attend to the live keys too (B1 without a
+        # window); with a window, or for B4's reference, only live rows
+        rows = seq if not (window or quant) else n
+        got, want = out[b, :rows].float(), ref[b, :rows].float()
+        per_row = (got - want).abs().amax(dim=(1, 2)) / want.abs().amax(dim=(1, 2))
+        assert float(per_row.max()) < TOLERANCE["bfloat16"], (case, b, int(per_row.argmax()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", [False, True], ids=["B1", "B4"])
+def test_flash_prefill_reads_no_row_past_its_own(quant):
+    """The 4-D tensor maps stop each batch row's tiles at T: the row after
+    a full-length row holds NaN (and is empty), so a tile that reached
+    into it would turn the first row's output to NaN."""
+    device = _card()
+    heads, kv_heads, dim, seq = 8, 2, 128, 200
+    rng = np.random.default_rng(23)
+    q, kv, lens = _prefill_case(rng, device, heads, kv_heads, dim, seq, [200, 0, 130], False)
+    k, v = (t.clone() for t in kv)
+    k[1], v[1] = float("nan"), float("nan")
+    if quant:
+        (kq, ks), (vq, vs) = quantize_kv(kv[0]), quantize_kv(kv[1])
+        ks[1], vs[1] = float("nan"), float("nan")
+        out = flash_prefill_attention_quant(q, kq, ks, vq, vs, lengths=lens)
+        ref = chunk_attention_quant(q, kq, ks, vq, vs, torch.zeros_like(lens), lens)
+    else:
+        out = flash_prefill_attention(q, k, v, lengths=lens)
+        mask = torch.arange(seq, device=device)[None, :] < lens[:, None]
+        ref = prefill_attention(q, *kv, mask=mask)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    assert not bool(out[1].any())
+    for b in (0, 2):
+        n = int(lens[b])
+        assert _rel_err(out[b, :n], ref[b, :n]) < TOLERANCE["bfloat16"], b
+
+
+# ---------------------------------------------------------------------- #
 # B7, B8: the token-ragged kernels (the mixed step's launch) against their
 # plain versions, over B3's matrix; per row bitwise B3 / B6 at window 0
 # ---------------------------------------------------------------------- #

@@ -2,6 +2,7 @@
 the CPU."""
 
 import ast
+import asyncio
 import json
 import pathlib
 import urllib.error
@@ -225,3 +226,54 @@ def test_provider_refuses_int8_weights():
         TorchCompletionsService({"model": {"preset": "tiny"}, "quantization": "int8"}, device="cpu")
     with pytest.raises(ValueError, match="unknown quantization"):
         TorchCompletionsService({"model": {"preset": "tiny"}, "quantization": "fp4"}, device="cpu")
+
+
+# one value other than the JAX default for each key the JAX provider
+# honours and the port does not serve yet: (where, key, value)
+UNPORTED = [
+    ("engine", "kv-host-blocks", 64),
+    ("engine", "spec-decode", "ngram"),
+    ("engine", "spec-k", 6),
+    ("engine", "spec-ngram", 3),
+    ("engine", "pipeline-decode", "true"),
+    ("engine", "admission-chunk", 2),
+    ("engine", "logprobs-top-k", 5),
+    ("engine", "queue-timeout-s", 1.5),
+    ("engine", "precompile", "yes"),
+    ("engine", "max-restarts", 5),
+    ("engine", "restart-window-s", 60),
+    ("top", "slo", {"ttft-ms-p95": 200}),
+    ("top", "mesh", {"tp": 2}),
+]
+# the JAX defaults, spelled out: served
+DEFAULTS = {
+    "engine": {"kv-host-blocks": 0, "spec-decode": "off", "spec-k": 4, "spec-ngram": 2,
+               "pipeline-decode": "", "admission-chunk": None, "logprobs-top-k": 0,
+               "queue-timeout-s": None, "precompile": "false", "max-restarts": 3,
+               "restart-window-s": 600, "max-slots": 2},
+    "slo": {"ttft-ms-p95": 0},
+    "mesh": None,
+}
+
+
+@pytest.mark.parametrize(
+    "where,key,value", UNPORTED + [("defaults", None, None)],
+    ids=[key for _, key, _ in UNPORTED] + ["defaults-serve"],
+)
+def test_provider_refuses_keys_it_does_not_port(where, key, value):
+    """Each key the JAX provider honours and the port does not raises
+    when set to a non-default value, instead of being served as if it were
+    absent; the defaults, spelled out, still serve."""
+    config = {"model": {"preset": "tiny", "max_seq_len": 64}, **DEFAULTS,
+              "engine": dict(DEFAULTS["engine"])}
+    if where == "defaults":
+        service = TorchCompletionsService(config, device="cpu")
+        try:
+            result = asyncio.run(service.get_text_completions(["once"], {"max-tokens": 3}))
+            assert result.completion_tokens == 3
+        finally:
+            service.engine.stop()
+        return
+    (config["engine"] if where == "engine" else config)[key] = value
+    with pytest.raises(NotImplementedError, match=f"{key}.*ROADMAP.md"):
+        TorchCompletionsService(config, device="cpu")
