@@ -9,10 +9,10 @@ Phases (any failure propagates and the exit code is not 0):
 1. Device: the card's name, and its name and power limit from nvidia-smi.
 2. Kernels: build every CUDA kernel of the serving paths from
    ``langstream_tpu_torch/csrc`` (one nvcc per source, started together;
-   the prefill and paged kernels' registers and spills from ``ptxas -v``
-   and their tensor-core instructions from ``cuobjdump -sass`` are
-   printed, and the bf16-q bodies, the prefill ``wgmma`` body and the
-   paged ``mma.sync`` one, must use HGMMA or HMMA and spill nothing),
+   every kernel's registers and spills from ``ptxas -v`` and its
+   tensor-core instructions from ``cuobjdump -sass`` are printed, and the
+   bf16-q bodies, the prefill ``wgmma`` body and the decode and paged
+   ``mma.sync`` ones, must use HGMMA or HMMA and spill nothing),
    hold each against its plain PyTorch version at the paths' shapes
    (q bf16), and time kernel, plain version, the PyTorch library call
    (``scaled_dot_product_attention``, a yardstick only; over a dequantized
@@ -23,10 +23,11 @@ Phases (any failure propagates and the exit code is not 0):
    loop is printed beside it. B1 flash prefill and B2 flash decode carry
    the dense path (B1 and B4 also at the top prompt bucket, B 1 × T 1024,
    where the work is bound by operations: the kernels line's ``long_*``
-   fields); B3 ragged paged attention the paged path, at a decode
-   and a prefill-at-offset shape (both in the kernels line: the decode
-   shape's fields, and ``prefill_*`` fields and launches by shape beside
-   them); B4, B5 and B6 are their int8-KV twins,
+   fields; B2 and B5 also at the same lengths over a T 4096 cache, a
+   printed time beside the T 1024 one); B3 ragged paged attention the
+   paged path, at a decode and a prefill-at-offset shape (both in the
+   kernels line: the decode shape's fields, and ``prefill_*`` fields and
+   launches by shape beside them); B4, B5 and B6 are their int8-KV twins,
    at the same shapes over ``quantize_kv`` of the same activations. B7
    (and B8 over int8 pools), the token-ragged kernel of the mixed step,
    at its shape (32 rows of a 64-wide span: decode rows, two windows,
@@ -235,8 +236,9 @@ def kernel_resources(source: str = "paged_attention") -> None:
     (``ptxas -v``, kept in the build's log) and its tensor-core
     instructions in the SASS (``cuobjdump -sass``: HMMA from ``mma.sync``,
     HGMMA from ``wgmma``; None where the toolkit has no cuobjdump). The
-    bf16-q kernels (the paged ``mma_kernel`` body, the prefill
-    ``wgmma_kernel`` body) must use the tensor cores and spill nothing."""
+    bf16-q kernels (the paged and decode ``mma_kernel`` bodies, the
+    prefill ``wgmma_kernel`` body) must use the tensor cores and spill
+    nothing."""
     kernels, current = {}, None
     with open(_build.log_path(source)) as handle:
         for line in handle:
@@ -267,7 +269,7 @@ def kernel_resources(source: str = "paged_attention") -> None:
         log(f"{source}.cu kernel {name}: {info.get('registers')} registers, "
             f"{info.get('spill_bytes')} bytes spilled, {info.get('hmma')} HMMA and "
             f"{info.get('hgmma')} HGMMA in the SASS")
-        if "mma_kernel" in name:  # paged_attention_mma_kernel, flash_prefill_wgmma_kernel
+        if "mma_kernel" in name:  # the paged and decode mma_kernel, flash_prefill_wgmma_kernel
             assert info.get("spill_bytes") == 0, f"{name} spills"
             assert info.get("hmma") is None or info["hmma"] + info["hgmma"] > 0, (
                 f"{name}: no tensor-core instruction in the SASS")
@@ -357,19 +359,35 @@ def check_decode_kernel(device, quant: bool = False) -> dict:
     lengths_host = [0, 1, max_len] + torch.randint(
         2, max_len, (slots - 3,), generator=torch.Generator().manual_seed(3)).tolist()
     lengths = torch.tensor(lengths_host, dtype=torch.int32, device=device)
+    long_len = 4 * max_len  # the same lengths over a 4x longer cache
+
+    def padded(t):
+        wide = torch.zeros((slots, long_len) + tuple(t.shape[2:]), dtype=t.dtype, device=device)
+        wide[:, :max_len] = t
+        return wide
+
     if quant:
         (kq, ks), (vq, vs) = quantize_kv(kc), quantize_kv(vc)
+        long_cache = [padded(t) for t in (kq, ks, vq, vs)]
 
         def kernel():
             return flash_decode_attention_quant(q, kq, ks, vq, vs, lengths)
+
+        def long_kernel():
+            return flash_decode_attention_quant(q, *long_cache, lengths)
 
         def plain():
             return decode_attention_quant(q, kq, ks, vq, vs, lengths)
 
         kc, vc = dequantize(kq, ks), dequantize(vq, vs)  # the SDPA yardstick's inputs
     else:
+        long_cache = [padded(t) for t in (kc, vc)]
+
         def kernel():
             return flash_decode_attention(q, kc, vc, lengths)
+
+        def long_kernel():
+            return flash_decode_attention(q, *long_cache, lengths)
 
         def plain():
             return decode_attention(q, kc, vc, lengths)
@@ -402,6 +420,18 @@ def check_decode_kernel(device, quant: bool = False) -> dict:
         f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f}"
         f"{' (SDPA on a dequantized bf16 view, untimed)' if quant else ''} "
         f"bound_ms={bound_ms:.5f} ({bound_by})")
+    # the reads follow the live context: the same lengths over T 4096
+    # agree with the plain version and take about the same time (a printed
+    # line, not a gate)
+    long_out = long_kernel()
+    torch.cuda.synchronize()
+    long_rel = max(errors(long_out[s], ref[s])[1] for s in range(1, slots))
+    assert long_rel < KERNEL_TOLERANCE, f"{name} at T={long_len} disagrees: {long_rel}"
+    assert not bool(long_out[0].any()), f"{name} at T={long_len}: an empty slot must decode to zeros"
+    long_ms = time_ms(long_kernel)
+    log(f"{label[0]} at T={long_len}, the same lengths: kernel_ms={long_ms:.4f} "
+        f"(T={max_len}: {kernel_ms:.4f}) max_rel_err={long_rel:.3e}")
+    del long_cache
     return entry(name, worst_abs, kernel_ms, plain_ms, bound_ms, bound_by, library_ms)
 
 
@@ -1165,7 +1195,7 @@ def main() -> None:
     t0 = time.perf_counter()
     _build.build_all()
     log(f"built {sorted(_build.SIGNATURES)} in {time.perf_counter() - t0:.1f}s -> {_build.BUILD_DIR}")
-    for source in ("flash_prefill", "paged_attention"):
+    for source in ("flash_prefill", "flash_decode", "paged_attention"):
         kernel_resources(source)
     kernels = [check(device, quant) for quant in (False, True)
                for check in (check_prefill_kernel, check_decode_kernel, check_paged_kernel)]

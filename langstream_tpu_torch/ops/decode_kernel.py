@@ -4,10 +4,14 @@ wrapper.
 Port of ``langstream_tpu/ops/decode_kernel.py``. The TPU kernel
 (``_decode_kernel``, body ``_decode_kernel_body``: a (slot, kv block)
 grid whose index maps clamp dead blocks so they cost no HBM traffic)
-becomes the Hopper kernel in ``csrc/flash_decode.cu``: one CTA per (kv
-head, slot) that walks only the live tiles, from the first tile inside the
-sliding window to the last tile holding a live row. Its design note is at
-the top of that file.
+becomes the Hopper kernel in ``csrc/flash_decode.cu``. For a bf16 q it
+splits each slot's live key tiles over the CTAs of one thread-block
+cluster (a number fixed by the shapes), splits every key tile over the
+CTA's warps, runs both products on the tensor cores over a ``cp.async``
+ring, and combines the partial softmax states in a fixed order, so the
+output is the same bits on every launch. Only tiles from the first
+inside the sliding window to the last holding a live row are read. Its
+design note is at the top of that file.
 
 :func:`flash_decode_attention` keeps the JAX API's shapes. On a CUDA
 tensor it launches the kernel or raises; on a CPU tensor it runs the

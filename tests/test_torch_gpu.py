@@ -691,3 +691,122 @@ def test_ragged_paged_kernel_edge_cases(quant, dtype, case):
     flat = flat.view(batch, seq, heads, dim)
     for b, (start, total) in enumerate(rows):
         assert torch.equal(flat[b, : total - start], out[b, : total - start]), (case, b)
+
+
+# ---------------------------------------------------------------------- #
+# B2, B5: the cases the tensor-core body, with each slot's keys cut into
+# live key tiles split over the CTAs of a cluster, each key tile split
+# over the CTA's warps and a cp.async ring per warp, can get wrong. At
+# these shapes the key tile is 64 (32 at D 256), and a slot has 1 (T 300)
+# or 2 (T 1024, split at the middle live tile) CTAs.
+# ---------------------------------------------------------------------- #
+# lengths at every tile edge (63, 64, 65 …), at the edges of 4, 8 and 12
+# tiles, and the whole cache
+DECODE_LENGTHS_300 = [0, 1, 63, 64, 65, 255, 256, 257, 300]
+DECODE_LENGTHS_1024 = DECODE_LENGTHS_300[:-1] + [511, 512, 513, 767, 768, 769, 1023, 1024]
+# id: heads, kv_heads, dim, max_len, lengths, window, softcap
+DECODE_EDGES = {
+    # T not a multiple of the tile, G 4 (Llama-3-8B heads): one CTA a slot
+    "t300-g4": (32, 8, 128, 300, DECODE_LENGTHS_300, 0, None),
+    # two CTAs a slot, G 1, D 64
+    "t1024-g1-d64": (8, 8, 64, 1024, DECODE_LENGTHS_1024, 0, None),
+    # D 256 (two warps a key group, 32-key tiles), G 2, a softcap
+    "t1024-g2-d256": (8, 4, 256, 1024, DECODE_LENGTHS_1024, 0, 50.0),
+    # a window whose first key falls inside a tile, G 8
+    "t300-g8-window": (16, 2, 128, 300, DECODE_LENGTHS_300, 37, None),
+    # a window of 300: its first key inside a tile, and whole tiles below
+    # it for the long slots
+    "t1024-g4-window": (32, 8, 128, 1024, DECODE_LENGTHS_1024, 300, None),
+    # G 8, D 64, a window of exactly one tile and a softcap
+    "t1024-g8-d64-window": (16, 2, 64, 1024, DECODE_LENGTHS_1024, 64, 30.0),
+    # G 32: two 16-head row tiles per kv head
+    "t300-g32": (32, 1, 128, 300, DECODE_LENGTHS_300, 0, None),
+}
+# int8 cache only: head dim 80 (padded to 128)
+DECODE_QUANT_EDGES = {
+    "t300-d80-g8": (16, 2, 80, 300, DECODE_LENGTHS_300, 0, 30.0),
+    "t1024-d80-g4-window": (8, 2, 80, 1024, DECODE_LENGTHS_1024, 300, None),
+}
+DECODE_EDGE_PARAMS = [pytest.param(False, case, id=f"B2-{case}") for case in sorted(DECODE_EDGES)] + [
+    pytest.param(True, case, id=f"B5-{case}") for case in sorted({**DECODE_EDGES, **DECODE_QUANT_EDGES})
+]
+
+
+def _decode_case(case, quant, dead_rows_nan=False):
+    """q, the cache operands the kernel reads, the operands the plain
+    version reads, lengths and the family of ``case``. With
+    ``dead_rows_nan``, every cache row outside a slot's live keys [window
+    start, length) holds NaN (its scales, for int8) in the kernel's
+    operands and zeros in the plain version's."""
+    device = _card()
+    heads, kv_heads, dim, max_len, lengths, window, softcap = {**DECODE_EDGES, **DECODE_QUANT_EDGES}[case]
+    rng = np.random.default_rng(sum(map(ord, case)) + (5 if quant else 0))
+
+    def draw(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device, torch.bfloat16)
+
+    slots = len(lengths)
+    q = draw(slots, heads, dim)
+    k, v = draw(slots, max_len, kv_heads, dim), draw(slots, max_len, kv_heads, dim)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=device)
+    cache = (*quantize_kv(k), *quantize_kv(v)) if quant else (k, v)
+    plain_cache = cache
+    if dead_rows_nan:
+        pos = torch.arange(max_len, device=device)[None, :]
+        lo = (lens[:, None] - window).clamp(min=0) if window else torch.zeros_like(lens[:, None])
+        dead = (pos >= lens[:, None]) | (pos < lo)  # [S, T]
+        if quant:
+            kq, ks, vq, vs = cache
+            nan_s = [t.masked_fill(dead[..., None], float("nan")) for t in (ks, vs)]
+            zero_s = [t.masked_fill(dead[..., None], 0.0) for t in (ks, vs)]
+            zero_v = [t.masked_fill(dead[..., None, None], 0) for t in (kq, vq)]
+            cache = (kq, nan_s[0], vq, nan_s[1])
+            plain_cache = (zero_v[0], zero_s[0], zero_v[1], zero_s[1])
+        else:
+            cache = tuple(t.masked_fill(dead[..., None, None], float("nan")) for t in (k, v))
+            plain_cache = tuple(t.masked_fill(dead[..., None, None], 0.0) for t in (k, v))
+    return q, cache, plain_cache, lens, dict(softcap=softcap, window=window)
+
+
+def _decode_pair(quant, q, cache, plain_cache, lens, family):
+    if quant:
+        return (flash_decode_attention_quant(q, *cache, lens, **family),
+                decode_attention_quant(q, *plain_cache, lens, **family))
+    return flash_decode_attention(q, *cache, lens, **family), decode_attention(q, *plain_cache, lens, **family)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant,case", DECODE_EDGE_PARAMS)
+def test_flash_decode_edge_cases(quant, case):
+    """B2 (B5) against the plain version at every tile edge and split point of
+    the length and of the window, slot by slot; an empty slot exactly
+    zero; bitwise equal on a repeated launch."""
+    q, cache, plain_cache, lens, family = _decode_case(case, quant)
+    out, ref = _decode_pair(quant, q, cache, plain_cache, lens, family)
+    again, _ = _decode_pair(quant, q, cache, plain_cache, lens, family)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again), "a repeated launch must give the same bits"
+    for s, n in enumerate(lens.tolist()):
+        if n == 0:
+            assert not bool(out[s].any()), (case, s, "an empty slot must decode to zeros")
+            continue
+        assert _rel_err(out[s], ref[s]) < TOLERANCE["bfloat16"], (case, s, n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant,case", DECODE_EDGE_PARAMS)
+def test_flash_decode_reads_no_dead_row(quant, case):
+    """Every cache row outside a slot's live keys holds NaN: a length-0
+    slot's whole cache, and in a live slot every row past its length and
+    below its window (so every whole key tile there too). No
+    NaN may reach the output, which must match the plain version over a
+    copy whose dead rows are zeros."""
+    q, cache, plain_cache, lens, family = _decode_case(case, quant, dead_rows_nan=True)
+    out, ref = _decode_pair(quant, q, cache, plain_cache, lens, family)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all()), case
+    for s, n in enumerate(lens.tolist()):
+        if n == 0:
+            assert not bool(out[s].any()), (case, s)
+            continue
+        assert _rel_err(out[s], ref[s]) < TOLERANCE["bfloat16"], (case, s, n)

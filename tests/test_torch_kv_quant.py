@@ -207,6 +207,27 @@ def test_flash_decode_quant_matches_pallas_kernel(heads, kv_heads, softcap, wind
     _close(out.numpy(), ref, 2e-4)
 
 
+@pytest.mark.parametrize("window", [0, 300])
+def test_flash_decode_quant_matches_pallas_kernel_at_split_edges(window):
+    """Llama-3-8B's group (32 q / 8 kv heads, D 128) over T 1024, lengths
+    at every key-tile edge of the card kernel (64-key tiles) and where its
+    split over the cluster's two CTAs changes, with and without a window
+    whose first key falls inside a tile."""
+    rng = np.random.default_rng(19)
+    lengths = np.array([0, 1, 63, 64, 65, 255, 256, 257, 511, 512, 513, 1024], dtype=np.int32)
+    slots, max_len, heads, kv_heads, dim = len(lengths), 1024, 32, 8, 128
+    q = _draw(rng, slots, heads, dim)
+    kc, ks = _quantized(rng, slots, max_len, kv_heads, dim)
+    vc, vs = _quantized(rng, slots, max_len, kv_heads, dim)
+    ref = jax_flash_decode_quant(
+        *map(jnp.asarray, (q, kc, ks, vc, vs, lengths)), window=jnp.int32(window),
+        block_k=64, interpret=True)
+    out = flash_decode_attention_quant(*map(_t, (q, kc, ks, vc, vs, lengths)), window=window)
+    for s, n in enumerate(lengths):
+        if n:  # an empty slot's row is don't-care on the plain path
+            _close(out[s].numpy(), np.asarray(ref)[s], 1e-5)
+
+
 @pytest.mark.parametrize("seq,heads,kv_heads,softcap,window", [
     (1, 4, 2, None, 0), (1, 8, 2, 30.0, 12), (10, 4, 4, None, 0), (10, 8, 2, 30.0, 12),
 ])

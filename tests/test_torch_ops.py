@@ -127,6 +127,33 @@ def test_flash_decode_cpu_path_matches_pallas_kernel(heads, kv_heads, softcap, w
             )
 
 
+# lengths at every key-tile edge of the card kernel at a serving cache
+# (64-key tiles at D 128), and where its split over the cluster's CTAs
+# changes (T 1024: two CTAs, split at the middle tile)
+SPLIT_EDGE_LENGTHS = [0, 1, 63, 64, 65, 255, 256, 257, 511, 512, 513, 1024]
+
+
+@pytest.mark.parametrize("window", [None, 300])
+def test_flash_decode_cpu_path_matches_pallas_kernel_at_split_edges(window):
+    """Llama-3-8B's group (32 q / 8 kv heads, D 128) over T 1024, with
+    and without a window whose first key falls inside a tile."""
+    rng = np.random.default_rng(6)
+    slots, max_len, heads, kv_heads, dim = len(SPLIT_EDGE_LENGTHS), 1024, 32, 8, 128
+    q = _draw(rng, slots, heads, dim)
+    kc, vc = _draw(rng, slots, max_len, kv_heads, dim), _draw(rng, slots, max_len, kv_heads, dim)
+    lengths = np.array(SPLIT_EDGE_LENGTHS, dtype=np.int32)
+    ref = jax_flash_decode(
+        jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), jnp.asarray(lengths),
+        window=window, block_k=64, interpret=True,
+    )
+    out = flash_decode_attention(_t(q), _t(kc), _t(vc), _t(lengths), window=window)
+    for s, n in enumerate(lengths):
+        if n:
+            np.testing.assert_allclose(
+                out[s].numpy(), np.asarray(ref[s]), rtol=1e-5, atol=1e-5
+            )
+
+
 def test_kernel_wrappers_count_only_card_launches():
     """On the CPU the wrappers take the plain path and count nothing."""
     rng = np.random.default_rng(5)
