@@ -41,24 +41,35 @@ Phases (any failure propagates and the exit code is not 0):
    dense ones, the windowed prefill of a long prompt (both layouts)
    against a one-shot prefill, and the int8 logits against the bf16 ones.
    Then one mixed step (``paged_mixed_step``, both caches) on the card
-   against the CPU and against the split calls on the card.
+   against the CPU and against the split calls on the card, and the
+   model with int8 weights (dense, paged and mixed calls) on the card
+   against the CPU.
 4. Dense serving: Llama-3-8B (bf16, random weights from seed 0) behind
    the port's OpenAI server, started as ``python -m langstream_tpu_torch
-   serve`` starts it, answering 16 concurrent chat and text completions
-   plus one SSE stream. The kernels' launch counters are zeroed just
-   before and read just after; B1 and B2 must have been launched once per
-   layer per model call. Then one eager decode step of that model: host
-   enqueue time against wall time (again in phase 6, over the int8 cache).
+   serve`` starts it (pipelined decode, its default), answering 16
+   concurrent chat and text completions plus one SSE stream. The
+   kernels' launch counters are zeroed just before and read just after;
+   B1 and B2 must have been launched once per layer per model call. Then
+   32 completions of 64 tokens each, where decode chunks must have been
+   chained (counted through a wrapper on the engine's
+   ``_dispatch_decode``), and one eager decode step of that model: host
+   enqueue time against wall time, and its device time (again in phase
+   6, over the int8 cache). The same with ``--no-pipeline-decode`` (no
+   chained chunk), in turns with the pipelined runs, and with
+   ``--quantization int8`` (int8 weights drawn on the card; B1 and B2 as
+   before), with a line holding the bf16 and int8 bare steps side by
+   side.
 5. Paged serving: the same model with ``--kv-layout paged``, answering 16
    chats that share a ~512-byte system message, 8 text completions and
    one SSE stream, all arriving cold. The prefix cache must have served
    tokens, B3 must have been launched once per layer per model call, and
-   no other kernel at all. Then the same burst on a new server after one
-   uncounted chat with that system message (the twin of the mixed run),
-   and with ``--prefill-mode mixed`` after that chat: no prefill model
-   call, B7 once per layer per mixed step, B3 once per layer per plain
-   decode step; and one bare paged decode step and one mixed step of
-   that model, host enqueue against wall time.
+   no other kernel at all. Then the same burst
+   on a new server after one uncounted chat with that system message (the
+   twin of the mixed run), and with ``--prefill-mode mixed`` after that
+   chat: no prefill model call, B7 once per layer per mixed step, B3 once
+   per layer per plain decode step, mixed steps chained (the carry's
+   invalidations printed by reason); and one bare paged decode step and
+   one mixed step of that model, host enqueue against wall time.
 6. int8 serving: phases 4 and 5 again, same model and traffic, with
    ``kv-quant: int8`` in the provider's engine config (``serve`` has no
    flag for it). Dense: B4 and B5 once per layer per model call; paged:
@@ -122,6 +133,7 @@ from langstream_tpu_torch.ops.paged_attention import (  # noqa: E402
 )
 from langstream_tpu_torch.providers.torch_local import model  # noqa: E402
 from langstream_tpu_torch.providers.torch_local.engine import long_prefill_windows  # noqa: E402
+from langstream_tpu_torch.providers.torch_local.quant import QTensor, quantize_params  # noqa: E402
 
 # H100 SXM published peaks (dense bf16 tensor cores, HBM3)
 PEAK_BF16_FLOPS = 989e12
@@ -728,6 +740,72 @@ def check_int8_against_bf16(device) -> None:
         f"max_rel_err={worst:.3e} (tol {INT8_TOLERANCE}), argmax agreement {agree:.2f}")
 
 
+def check_int8_weights_against_cpu(device) -> None:
+    """Llama-3-8B width, 2 layers, int8 weights (``quantize_params`` of
+    the bf16 ones): dense prefill + 2 decode steps (B1, B2), paged prefill
+    + 2 decode steps (B3), and paged prefill + two mixed steps (both rows
+    decoding beside an idle row, then row 0 decoding beside a window of
+    40 of row 1; B7), on the card against the same int8 weights on the
+    CPU, fed the same tokens."""
+    config = dataclasses.replace(model.LlamaConfig.llama3_8b(max_seq_len=128), num_layers=2)
+    params = quantize_params(model.init_params(config, seed=7, device=device))
+    cpu_params = {name: p.to("cpu") for name, p in params.items()}
+    rng = np.random.default_rng(13)
+    prompts = torch.from_numpy(rng.integers(0, config.vocab_size, size=(3, 48)))
+    lengths = torch.tensor([48, 30, 0], dtype=torch.int32)
+    fed = torch.from_numpy(rng.integers(0, config.vocab_size, size=(3, 40)))
+    block, width = 16, 128 // 16
+    tables = torch.zeros((3, width), dtype=torch.int32)
+    tables[:2] = torch.from_numpy((rng.permutation(2 * width) + 1).reshape(2, width).astype(np.int32))
+    active = torch.tensor([True, True, False])
+
+    def run(where, p, call):
+        freqs = model.model_freqs(config, device=where)
+        step = (lengths + 1).to(where)
+        w = active.to(where)
+        if call == "dense":
+            cache = model.init_cache(config, 3, 128, device=where)
+            out = [model.prefill(config, p, cache, prompts[:2].to(where), lengths[:2].to(where),
+                                 torch.tensor([0, 1], device=where), freqs)]
+            for j in range(2):
+                out.append(model.decode_step(config, p, cache, fed[:, j].to(where), step + j, freqs,
+                                             w)[w])
+            return out
+        cache = model.init_paged_cache(config, 2 * width + 1, block, device=where)
+        t = tables.to(where)
+        out = [model.paged_prefill(config, p, cache, prompts[:2].to(where), lengths[:2].to(where),
+                                   t[:2], freqs)]
+        if call == "paged":
+            for j in range(2):
+                out.append(model.paged_decode_step(config, p, cache, fed[:, j].to(where), step + j,
+                                                   t, freqs, w)[w])
+            return out
+        tokens = fed.clone()
+        offsets = torch.tensor([48, 30, 0], dtype=torch.int32)
+        num_tokens = torch.tensor([1, 1, 0], dtype=torch.int32)
+        out.append(model.paged_mixed_step(config, p, cache, tokens.to(where), offsets.to(where),
+                                          num_tokens.to(where), t, freqs)[w])
+        num_tokens = torch.tensor([1, 40, 0], dtype=torch.int32)
+        offsets = torch.tensor([49, 31, 0], dtype=torch.int32)
+        out.append(model.paged_mixed_step(config, p, cache, tokens.to(where), offsets.to(where),
+                                          num_tokens.to(where), t, freqs)[w])
+        return out
+
+    worst = {}
+    for call in ("dense", "paged", "mixed"):
+        card, cpu = run(device, params, call), run("cpu", cpu_params, call)
+        worst[call] = 0.0
+        for out, ref in zip(card, cpu):
+            out = out.float().cpu()
+            assert out.shape == ref.shape and bool(torch.isfinite(out).all()), call
+            worst[call] = max(worst[call], errors(out, ref)[1])
+        assert worst[call] < MODEL_TOLERANCE, f"int8-weight {call} calls on the card vs the CPU: {worst}"
+    log(f"int8 weights: Llama-3-8B width, 2 layers, card vs CPU max_rel_err dense (prefill + 2 decode "
+        f"steps, B1/B2) {worst['dense']:.3e}, paged (prefill + 2 decode steps, B3) "
+        f"{worst['paged']:.3e}, mixed (prefill + 2 mixed steps, B7) {worst['mixed']:.3e} "
+        f"(tol {MODEL_TOLERANCE})")
+
+
 def check_paged_model(device, kv_quant: bool = False) -> None:
     """Llama-3-8B width, 2 layers, paged layout (16-token blocks): cold
     prefill of two prompts, prefill-at-offset of a third row whose table
@@ -898,10 +976,17 @@ def check_mixed_model(device, kv_quant: bool = False) -> None:
         f"max_rel_err={to_split:.3e} (tol {MODEL_TOLERANCE})")
 
 
-def time_decode_step(engine, live: int = 512, iters: int = 5) -> None:
+def time_decode_step(engine, live: int = 512, iters: int = 5) -> dict:
     """One eager decode step of the stopped engine's model (all slots at
     ``live`` rows): host time to enqueue it against wall time to finish
-    it. Equal times mean the card waits on the host."""
+    it (equal times mean the card waits on the host), and its device
+    time. An eager step is over a thousand launches (tens per layer); a
+    sleep kernel cannot hold them all back, since the host blocks once the
+    launch queue is full and the card then waits on it. So for the device
+    time the step is captured once in a CUDA graph and the graph's replays
+    are timed as :func:`time_ms` times a kernel: the same kernels on the
+    same inputs, enqueued behind a sleep kernel, the host's share left
+    out."""
     slots = engine.max_slots
     tokens = torch.zeros(slots, dtype=torch.long, device=engine.device)
     lengths = torch.full((slots,), live, dtype=torch.int32, device=engine.device)
@@ -917,14 +1002,24 @@ def time_decode_step(engine, live: int = 512, iters: int = 5) -> None:
     enqueued = time.perf_counter()
     torch.cuda.synchronize()
     finished = time.perf_counter()
-    # every weight is read once per step except the embedding (a gather)
-    weight_bytes = sum(
-        p.numel() * p.element_size() for name, p in engine.params.items() if name != "embedding")
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        step()
+    device_ms = time_ms(graph.replay, warmup=2, iters=10)
+    del graph
+    # every weight is read once per step except the embedding (a gather);
+    # int8 weights count their scales
+    weight_bytes = sum(p.nbytes for name, p in engine.params.items() if name != "embedding")
+    timing = {"wall_ms": (finished - started) / iters * 1e3,
+              "enqueue_ms": (enqueued - started) / iters * 1e3, "device_ms": device_ms,
+              "weight_bytes": weight_bytes}
     cache = "int8" if engine.kv_quant else "bf16"
-    log(f"decode step (model only, {cache} KV cache, {slots} slots x {live} live rows): "
-        f"wall {(finished - started) / iters * 1e3:.2f} ms, host enqueue "
-        f"{(enqueued - started) / iters * 1e3:.2f} ms, weight-read bound "
-        f"{weight_bytes / PEAK_BYTES * 1e3:.2f} ms")
+    weights = "int8" if isinstance(engine.params["wq"], QTensor) else "bf16"
+    log(f"decode step (model only, {weights} weights, {cache} KV cache, {slots} slots x {live} live "
+        f"rows): wall {timing['wall_ms']:.2f} ms, host enqueue {timing['enqueue_ms']:.2f} ms, device "
+        f"{device_ms:.3f} ms (graph replay behind a sleep kernel), weight-read bound "
+        f"{weight_bytes / PEAK_BYTES * 1e3:.2f} ms ({weight_bytes / 1e9:.2f} GB)")
+    return timing
 
 
 def time_paged_steps(engine, live: int = 512, iters: int = 5) -> None:
@@ -995,7 +1090,10 @@ def prompt_text(rng, n_bytes: int) -> str:
 
 def start_llama_server(*extra: str, kv_quant: bool = False):
     """``serve`` with these flags; ``kv_quant`` adds ``kv-quant: int8`` to
-    the provider's engine config, the way a deployment asks for it."""
+    the provider's engine config, the way a deployment asks for it. The
+    decode chunk is 8, not ``bench.py``'s 32: a chunk is chained only while
+    every rider has two chunks of budget left, and at 32 no request of
+    these bursts (32-62 tokens) would ever chain."""
     args = build_parser().parse_args([
         "serve", "--model", "llama-3-8b", "--max-slots", "32", "--max-seq-len", "1024",
         "--decode-chunk", "8", "--host", "127.0.0.1", "--port", "0", *extra,
@@ -1006,8 +1104,9 @@ def start_llama_server(*extra: str, kv_quant: bool = False):
     t0 = time.perf_counter()
     service, server = start_server(args, config)
     log(f"serve {' '.join(extra) or '(dense)'}{' kv-quant: int8' if kv_quant else ''}: Llama-3-8B "
-        f"bf16 random weights up in {time.perf_counter() - t0:.1f}s "
-        f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated)")
+        f"{args.quantization or 'bf16'} random weights up in {time.perf_counter() - t0:.1f}s "
+        f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated; pipelined decode "
+        f"{service.engine.pipeline_decode}, mixed carry {service.engine.mixed_carry})")
     return service, server
 
 
@@ -1027,16 +1126,31 @@ def run_burst(service, server, jobs, warmup=()):
 
     for job in warmup:
         post(job)
-    service.engine.reset_stats()
+    engine = service.engine
+    # decode chunks dispatched off the previous chunk's carry, counted
+    # through a wrapper on the engine instance (the JAX engine has no
+    # stats key for them)
+    chained = [0]
+    dispatch = engine._dispatch_decode
+
+    def counted(*args, **kwargs):
+        chained[0] += kwargs.get("carry") is not None
+        return dispatch(*args, **kwargs)
+
+    engine._dispatch_decode = counted
+    engine.reset_stats()
     torch.cuda.reset_peak_memory_stats()
     for wrapper in KERNELS.values():
         wrapper.launches = 0
     started = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
-        replies = list(pool.map(post, jobs))
+    try:
+        with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+            replies = list(pool.map(post, jobs))
+    finally:
+        del engine._dispatch_decode  # the class's method again
     wall = time.perf_counter() - started
     launches = {name: wrapper.launches for name, wrapper in KERNELS.items()}
-    stats = dict(service.engine.stats)
+    stats = dict(engine.stats, chained_decode_chunks=chained[0])
     return replies, wall, launches, stats, torch.cuda.max_memory_allocated() / 2**30
 
 
@@ -1074,12 +1188,19 @@ def report(label, kind, jobs, wall, tokens, stats, launches, peak_gib) -> None:
         f"({stats['mixed_time']:.3f}s, {stats['mixed_time'] / max(mixed, 1) * 1e3:.1f} ms/step); "
         f"prefix hits {stats['prefix_hits']}, "
         f"reused tokens {stats['prefix_tokens_reused']}; model calls {stats['model_dispatches']}; "
+        f"chained decode chunks {stats['chained_decode_chunks']}, chained mixed steps "
+        f"{stats['mixed_steps_chained']}, carry invalidations {stats['mixed_carry_invalidations']}; "
         f"peak memory {peak_gib:.2f} GiB; launches {launches}")
     assert requests == len(jobs), (requests, len(jobs))
 
 
-def serve_dense_and_check(label: str, kv_quant: bool = False) -> dict:
-    service, server = start_llama_server(kv_quant=kv_quant)
+def serve_dense_and_check(label: str, kv_quant: bool = False, extra=()) -> dict:
+    """The dense burst through ``serve`` with ``extra`` flags (pipelined
+    unless ``--no-pipeline-decode``; ``--quantization int8`` for int8
+    weights): B1/B2 (B4/B5 over the int8 cache) once per layer per model
+    call, no other kernel, and chained decode chunks when pipelined.
+    Returns the launches and the bare decode step's timing."""
+    service, server = start_llama_server(*extra, kv_quant=kv_quant)
     rng = np.random.default_rng(0)
     jobs = []
     for i in range(16):
@@ -1094,12 +1215,23 @@ def serve_dense_and_check(label: str, kv_quant: bool = False) -> dict:
     jobs.append(("/v1/chat/completions", {
         "messages": [{"role": "user", "content": prompt_text(rng, 180)}],
         "max_tokens": 48, "stream": True}))
+    # then 31 text completions and one SSE chat, all of 64 tokens: with
+    # equal budgets every rider keeps two chunks of budget long enough for
+    # the pipelined engine to chain (the burst above, of 32-62 tokens,
+    # mostly does not allow it)
+    uniform = [("/v1/completions", {"prompt": prompt_text(rng, 150 + 4 * i), "max_tokens": 64})
+               for i in range(31)]
+    uniform.append(("/v1/chat/completions", {
+        "messages": [{"role": "user", "content": prompt_text(rng, 180)}],
+        "max_tokens": 64, "stream": True}))
     try:
         replies, wall, launches, stats, peak_gib = run_burst(service, server, jobs)
+        uniform_replies, uniform_wall, uniform_launches, uniform_stats, uniform_peak = run_burst(
+            service, server, uniform)
     finally:
         server.stop()
         service.engine.stop()
-    time_decode_step(service.engine)
+    timing = time_decode_step(service.engine)
     tokens = check_replies(jobs, replies)
     layers = model.LlamaConfig.llama3_8b().num_layers
     calls = stats["model_dispatches"]
@@ -1110,9 +1242,18 @@ def serve_dense_and_check(label: str, kv_quant: bool = False) -> dict:
     assert launches[decode] == layers * calls.get("decode_step", 0), (launches, calls)
     others = [name for name in KERNELS if name not in (prefill, decode)]
     assert all(launches[name] == 0 for name in others), launches
-    report(label, "dense int8 KV" if kv_quant else "dense", jobs, wall, tokens, stats, launches,
-           peak_gib)
-    return launches
+    kind = " ".join(["dense"] + [flag.lstrip("-") for flag in extra] + (["int8 KV"] if kv_quant else []))
+    report(label, kind, jobs, wall, tokens, stats, launches, peak_gib)
+    uniform_tokens = check_replies(uniform, uniform_replies)
+    report(label, kind + ", uniform 64-token burst", uniform, uniform_wall, uniform_tokens,
+           uniform_stats, uniform_launches, uniform_peak)
+    chained = stats["chained_decode_chunks"] + uniform_stats["chained_decode_chunks"]
+    if service.engine.pipeline_decode:
+        assert uniform_stats["chained_decode_chunks"] > 0, uniform_stats
+    else:
+        assert chained == 0, (stats, uniform_stats)
+    return dict(launches, timing=timing, peak_gib=peak_gib, tok_s=tokens / wall,
+                uniform_tok_s=uniform_tokens / uniform_wall)
 
 
 def serve_paged_and_check(label: str, kv_quant: bool = False, mixed: bool = False,
@@ -1164,8 +1305,12 @@ def serve_paged_and_check(label: str, kv_quant: bool = False, mixed: bool = Fals
     ragged_q = "paged_attention_ragged_q_quant" if kv_quant else "paged_attention_ragged_q"
     assert stats["prefix_tokens_reused"] > 0, stats
     assert launches[paged] > 0, launches
+    # pipelined (serve's default): the mixed burst chains mixed steps
+    # while its prompt windows last (its decode chunks, like the split
+    # burst's, chain only while every rider has two chunks of budget left)
     if mixed:
         assert not any(name.startswith("paged_prefill") for name in calls), calls
+        assert stats["mixed_steps_chained"] > 0, stats
         assert launches[ragged_q] > 0, launches
         assert launches[ragged_q] == layers * calls.get("paged_mixed_step", 0), (launches, calls)
         assert launches[paged] == layers * calls.get("paged_decode_step", 0), (launches, calls)
@@ -1201,20 +1346,31 @@ def main() -> None:
                for check in (check_prefill_kernel, check_decode_kernel, check_paged_kernel)]
     kernels += [check_ragged_q_kernel(device, quant) for quant in (False, True)]
     check_int8_against_bf16(device)
+    check_int8_weights_against_cpu(device)
     for kv_quant in (False, True):
         check_paged_model(device, kv_quant=kv_quant)
         check_mixed_model(device, kv_quant=kv_quant)
-    # each kernel's launches come from the serving phase of its own path
-    launches = {}
+    # each kernel's launches come from the serving phase of its own path;
+    # every phase runs serve's default, the pipelined decode, except the
+    # dense control, which runs in turns with it (pipelined, control,
+    # control, pipelined): the host's pace drifts within a run
+    launches, runs = {}, {}
     mixed = functools.partial(serve_paged_and_check, mixed=True)
     warm_split = functools.partial(serve_paged_and_check, warm=True)  # the mixed run's twin
+    pipelined = serve_dense_and_check
+    unpipelined = functools.partial(serve_dense_and_check, extra=("--no-pipeline-decode",))
+    int8_weights = functools.partial(serve_dense_and_check, extra=("--quantization", "int8"))
     for serve, kv_quant, names in (
-        (serve_dense_and_check, False, ("flash_prefill", "flash_decode")),
+        (pipelined, False, ("flash_prefill", "flash_decode")),
+        (unpipelined, False, ()),
+        (unpipelined, False, ()),
+        (pipelined, False, ()),
+        (int8_weights, False, ()),
         (serve_paged_and_check, False,
          ("paged_attention", "paged_attention/decode", "paged_attention/prefill")),
         (warm_split, False, ()),
         (mixed, False, ("paged_attention_ragged_q",)),
-        (serve_dense_and_check, True, ("flash_prefill_quant", "flash_decode_quant")),
+        (pipelined, True, ("flash_prefill_quant", "flash_decode_quant")),
         (serve_paged_and_check, True, ("paged_attention_quant", "paged_attention_quant/decode",
                                        "paged_attention_quant/prefill")),
         (warm_split, True, ()),
@@ -1222,8 +1378,23 @@ def main() -> None:
     ):
         counts = serve(label, kv_quant=kv_quant)
         launches.update({name: counts[name] for name in names})
+        runs.setdefault((serve, kv_quant), []).append(counts)
         gc.collect()
         torch.cuda.empty_cache()
+    turns = ", ".join(
+        f"{kind} {run['tok_s']:.1f} / {run['uniform_tok_s']:.1f}"
+        for kind, run in zip(("pipelined", "unpipelined", "unpipelined", "pipelined"),
+                             (*runs[pipelined, False][:1], *runs[unpipelined, False],
+                              runs[pipelined, False][1])))
+    log(f"dense bf16 in turns, tok/s of the mixed-length / uniform 64-token burst: {turns}")
+    # the int8-weight phase beside the bf16 phase just before it
+    bf16, int8 = runs[pipelined, False][-1], runs[int8_weights, False][0]
+    log(f"bare decode step, bf16 vs int8 weights (32 slots x 512 rows): wall "
+        f"{bf16['timing']['wall_ms']:.2f} vs {int8['timing']['wall_ms']:.2f} ms, host enqueue "
+        f"{bf16['timing']['enqueue_ms']:.2f} vs {int8['timing']['enqueue_ms']:.2f} ms, device "
+        f"{bf16['timing']['device_ms']:.3f} vs {int8['timing']['device_ms']:.3f} ms, weights read "
+        f"{bf16['timing']['weight_bytes'] / 1e9:.2f} vs {int8['timing']['weight_bytes'] / 1e9:.2f} GB; "
+        f"serving peak {bf16['peak_gib']:.2f} vs {int8['peak_gib']:.2f} GiB")
     for item in kernels:
         item["launches"] = launches[item["name"]]
         assert item["launches"] > 0, item

@@ -17,6 +17,8 @@ def build_parser() -> argparse.ArgumentParser:
     serve = sub.add_parser("serve", help="OpenAI-compatible HTTP server on the GPU")
     serve.add_argument("--model", default="tiny", help="model preset")
     serve.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    serve.add_argument("--quantization", default=None, choices=["int8"],
+                       help="weight-only int8 weights (random, drawn in int8 on the device)")
     serve.add_argument("--max-slots", type=int, default=8)
     serve.add_argument("--max-seq-len", type=int, default=2048)
     serve.add_argument("--decode-chunk", type=int, default=16)
@@ -46,8 +48,13 @@ def build_parser() -> argparse.ArgumentParser:
                        help="mixed prefill mode: most prompt tokens one step carries")
     serve.add_argument(
         "--mixed-carry", default="on", choices=["on", "off"],
-        help="mixed prefill mode: chain steps off the previous step's outputs "
-             "(accepted as the JAX serve's flag and ignored: the carry is not ported)",
+        help="mixed prefill mode: chain steps off the previous step's device "
+             "outputs (with the pipelined decode)",
+    )
+    serve.add_argument(
+        "--no-pipeline-decode", action="store_true",
+        help="disable pipelined decode dispatch (on by default): each chunk is "
+             "processed on the host before the next is dispatched",
     )
     serve.add_argument("--no-prefix-cache", action="store_true",
                        help="disable prompt-prefix KV reuse (on by default)")
@@ -60,7 +67,7 @@ def serve_config(args: argparse.Namespace) -> Dict[str, Any]:
     """The provider config ``serve`` builds from its flags. Engine keys
     without a flag (``kv-quant``, as in the JAX ``serve``) reach the
     engine through this config, as they do from a deployment's."""
-    return {
+    config: Dict[str, Any] = {
         "model": {"preset": args.model, "max_seq_len": args.max_seq_len},
         "engine": {
             "max-slots": args.max_slots,
@@ -74,8 +81,12 @@ def serve_config(args: argparse.Namespace) -> Dict[str, Any]:
             "prefill-mode": args.prefill_mode,
             "prefill-chunk": args.prefill_chunk,
             "mixed-carry": args.mixed_carry,
+            "pipeline-decode": not args.no_pipeline_decode,
         },
     }
+    if args.quantization:
+        config["quantization"] = args.quantization
+    return config
 
 
 def start_server(

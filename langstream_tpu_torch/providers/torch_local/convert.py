@@ -18,6 +18,7 @@ from langstream_tpu_torch.providers.torch_local.model import (
     LlamaConfig,
     validate_family_params,
 )
+from langstream_tpu_torch.providers.torch_local.quant import QTensor
 
 _TORCH_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "int8": torch.int8}
 
@@ -37,17 +38,19 @@ def params_from_jax(
     np_params: Dict[str, Any],
     config: LlamaConfig,
     device: torch.device | str = "cpu",
-) -> Dict[str, torch.Tensor]:
+) -> Dict[str, Any]:
     """JAX params (numpy arrays, or anything ``np.asarray`` takes) → the
-    port's param dict on ``device``, each leaf in its own dtype. Int8
-    weight-only leaves (the JAX ``QTensor``) are not ported yet."""
-    out: Dict[str, torch.Tensor] = {}
+    port's param dict on ``device``, each leaf in its own dtype. An int8
+    weight-only leaf (the JAX ``QTensor``, anything with ``q`` and
+    ``scale``) becomes the port's :class:`QTensor`: ``q`` int8, ``scale``
+    f32."""
+    out: Dict[str, Any] = {}
     for name, leaf in np_params.items():
         if hasattr(leaf, "scale") and hasattr(leaf, "q"):
-            raise NotImplementedError(
-                "int8 weight-only params are not ported yet (see ROADMAP.md)"
-            )
-        out[name] = tensor_from_numpy(leaf, device)
+            out[name] = QTensor(
+                q=tensor_from_numpy(leaf.q, device), scale=tensor_from_numpy(leaf.scale, device))
+        else:
+            out[name] = tensor_from_numpy(leaf, device)
     validate_family_params(config, out)
     return out
 

@@ -30,10 +30,23 @@ path over the paged one:
   kernels B7/B8) in which every ready slot decodes one token and up to
   ``prefill_chunk`` prompt tokens of admitting slots ride along, shared
   FIFO by admission order. The window that completes a prompt samples its
-  first token in the same step. Steps are unchained: each is processed
-  before the next is planned, which is all the JAX engine runs with
-  ``pipeline_decode`` off, its default (its ``mixed_carry`` chains on the
-  pipelined decode carry, not ported).
+  first token in the same step.
+- **Pipelined decode** (``pipeline_decode=True``; off by default, as in the
+  JAX engine, on in ``serve``): chunk N+1 is dispatched off chunk N's
+  device-resident final tokens, lengths, active mask, sampling tensors and
+  block tables BEFORE chunk N's tokens are processed on the host, when no
+  admission waits and every rider has two chunks of budget left
+  (:meth:`DecodeEngine._can_chain`). A chunk's tokens cross to the host
+  through pinned buffers behind a CUDA event, so processing N waits for N
+  only, never for N+1 queued behind it. Results are epoch-guarded: a
+  slot's surplus chunk after a stop is discarded.
+- **Mixed-step carry** (``mixed_carry=True``, the default; it needs
+  ``pipeline_decode``): while admissions chunk through mixed steps, step
+  N+1's windows are planned from the watermarks advanced at N's dispatch
+  (:meth:`DecodeEngine._plan_mixed_chain`) and dispatched off N's
+  device-resident sample; only the prompt-window tokens upload. A plan the
+  host cannot predict falls back to a host-built step, counted by reason
+  in ``stats["mixed_carry_invalidations"]``.
 - **K-step decode chunks**: the JAX ``lax.scan`` becomes a host loop of K
   steps whose sampled tokens stay on the device; the chunk's tokens cross
   to the host once, are emitted per chunk, and a stop in mid-chunk
@@ -44,11 +57,14 @@ path over the paged one:
 - **Dedicated engine thread**: callers enqueue requests (thread-safe
   :meth:`DecodeEngine.submit`, or ``await`` :meth:`DecodeEngine.generate`)
   and receive per-token callbacks on their own event loop.
+- **Weight-only int8** (``quantize="int8"``, or params that already hold
+  ``quant.QTensor`` leaves): the matmul weights in int8 with per-channel
+  scales, as the JAX engine's ``quantize``.
 
 Not in this slice (ROADMAP.md): warm sessions (and the paged
 copy-on-write they need), the dense layout's cross-slot prefix copy, host
-KV tiers and handoffs, speculative dispatch, the pipelined decode carry
-and the mixed-step carry that chains on it, the supervisor and the
+KV tiers and handoffs, speculative dispatch, the non-blocking prefill
+harvest (prefill calls here are synchronous), the supervisor and the
 telemetry planes.
 """
 
@@ -70,6 +86,7 @@ from langstream_tpu_torch.ops.paged_attention import fused_shapes_ok
 from langstream_tpu_torch.providers.torch_local import model as model_lib
 from langstream_tpu_torch.providers.torch_local import prng, sampling
 from langstream_tpu_torch.providers.torch_local.paged import PagedKVManager
+from langstream_tpu_torch.providers.torch_local.quant import QTensor, quantize_params
 
 logger = logging.getLogger(__name__)
 
@@ -215,6 +232,14 @@ class DecodeEngine:
                                           # windows ride the decode step)
         prefill_chunk: int = 64,          # mixed: most prompt tokens one
                                           # step carries
+        mixed_carry: bool = True,         # mixed: chain consecutive mixed
+                                          # steps off the previous step's
+                                          # device outputs; needs
+                                          # pipeline_decode
+        pipeline_decode: bool = False,    # dispatch chunk N+1 off chunk
+                                          # N's device carry before
+                                          # processing N on the host
+        quantize: Optional[str] = None,   # "int8" = weight-only int8
     ) -> None:
         self.device = resolve_device(device)
         self.config = config
@@ -244,6 +269,8 @@ class DecodeEngine:
         self.prefill_mode = prefill_mode
         self.mixed = prefill_mode == "mixed"
         self.prefill_chunk = max(1, int(prefill_chunk))
+        self.pipeline_decode = bool(pipeline_decode)
+        self.mixed_carry = self.mixed and bool(mixed_carry)
         # mixed step widths: powers of two up to the rounded-up budget, so
         # every width tiles by the token-ragged kernel's q tile
         cap = 1
@@ -256,6 +283,10 @@ class DecodeEngine:
         self._admit_seq = 0
         self.paged_kernel = paged_kernel if self.paged else None
         self.prefix_cache = prefix_cache
+        if quantize or any(isinstance(p, QTensor) for p in params.values()):
+            if quantize not in (None, "int8"):
+                raise ValueError(f"unknown quantization {quantize!r}")
+            params = quantize_params(params, config.num_experts)
         model_lib.validate_family_params(config, params)
         if (
             self.paged_kernel == "fused" and self.device.type == "cuda"
@@ -316,6 +347,9 @@ class DecodeEngine:
         self._thread: Optional[threading.Thread] = None
         self._running = False
         self._crashed: Optional[BaseException] = None
+        # end of the latest processed chunk: pipelined chunks overlap, so
+        # decode_time sums the union of their intervals
+        self._decode_busy_until = 0.0
         self.stats = self._fresh_stats()
 
     @staticmethod
@@ -324,7 +358,8 @@ class DecodeEngine:
             "requests": 0,
             "prefill_calls": 0,
             "decode_steps": 0,    # model decode steps, mixed steps included
-            "decode_time": 0.0,   # wall secs inside decode chunks and mixed steps
+            "decode_time": 0.0,   # wall secs inside decode chunks and mixed
+                                  # steps (the union of pipelined ones)
             "prefill_time": 0.0,  # wall secs inside prefill calls
             "ttft_time": 0.0,     # summed submit → first-token secs of
                                   # finished requests
@@ -335,6 +370,10 @@ class DecodeEngine:
             "mixed_time": 0.0,           # wall secs inside them (in decode_time too)
             "mixed_admit_time": 0.0,     # summed admission → first-token secs
                                          # of prompts the mixed steps carried
+            # mixed-step carry: steps chained off the previous step's
+            # device outputs, and why chains broke (reason -> events)
+            "mixed_steps_chained": 0,
+            "mixed_carry_invalidations": {},
             # every call into the model, by model function
             "model_dispatches": {},
         }
@@ -440,22 +479,50 @@ class DecodeEngine:
         )
         try:
             with torch.inference_mode():
+                inflight: Optional[Dict[str, Any]] = None
                 while self._running:
                     self._drain_queue(
                         block=not self._any_active() and not self._pending
+                        and inflight is None
                     )
                     if not self._running:
                         break
-                    if self._pending and any(not s.active for s in self.slots):
+                    if (
+                        self._pending and inflight is None
+                        and any(not s.active for s in self.slots)
+                    ):
                         # admission linger: let a burst land so prefill
-                        # batches fill up
+                        # batches fill up (not while a chunk is in flight:
+                        # it would delay that chunk's tokens)
                         time.sleep(0.003)
                         self._drain_queue(block=False)
                     self._admit()
-                    if self._any_active():
+                    if inflight is not None:
+                        # chain the next dispatch off the in-flight one's
+                        # device outputs BEFORE waiting for its tokens
+                        chained = None
+                        if inflight.get("mixed"):
+                            plan_next = self._plan_mixed_chain(inflight)
+                            if isinstance(plan_next, dict):
+                                chained = self._dispatch_mixed(carry=inflight, plan_next=plan_next)
+                            else:
+                                self._note_carry_invalidation(plan_next)
+                        elif self._can_chain(inflight):
+                            chained = self._dispatch_decode(carry=inflight)
+                        self._process_decode(inflight)
+                        inflight = chained
+                    if inflight is None and self._any_active():
                         # one K-step decode chunk over the ready slots, or
                         # one mixed step while any slot is admitting
-                        self._process_decode(self._dispatch_decode())
+                        inflight = self._dispatch_decode()
+                        if not self.pipeline_decode or (
+                            inflight.get("mixed") and not self.mixed_carry
+                        ):
+                            # unpipelined (and mixed with the carry off):
+                            # the next dispatch depends on this one's
+                            # bookkeeping
+                            self._process_decode(inflight)
+                            inflight = None
         except BaseException as exc:  # noqa: BLE001 — fail every waiter, re-raise
             logger.exception("engine loop crashed")
             self._crashed = exc
@@ -737,11 +804,42 @@ class DecodeEngine:
         return ids, values
 
     def _to_device(self, array: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(array).to(self.device)
+        """A copy of a host array on the device. On the card the copy goes
+        through pinned memory without blocking, so an upload never waits
+        for the work already queued (a pageable one syncs the stream)."""
+        tensor = torch.from_numpy(array)
+        if self.device.type == "cuda":
+            return tensor.pin_memory().to(self.device, non_blocking=True)
+        return tensor.clone()
+
+    def _to_host(self, *tensors: torch.Tensor) -> Tuple[List[torch.Tensor], Any]:
+        """Start copying device tensors to the host: on the card into
+        pinned buffers without blocking, behind an event that
+        :meth:`_from_host` waits on, so the copies finish with the work
+        queued before them and never wait for work queued after."""
+        if self.device.type != "cuda":
+            return list(tensors), None
+        buffers = []
+        for tensor in tensors:
+            buffer = torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=True)
+            buffer.copy_(tensor, non_blocking=True)
+            buffers.append(buffer)
+        event = torch.cuda.Event()
+        event.record()
+        return buffers, event
+
+    @staticmethod
+    def _from_host(copies: Tuple[List[torch.Tensor], Any]) -> List[np.ndarray]:
+        buffers, event = copies
+        if event is not None:
+            event.synchronize()
+        return [buffer.numpy() for buffer in buffers]
 
     def _sampling_inputs(self, requests: List[Optional[GenerationRequest]]):
-        """Per-row sampling tensors on the device, plus the host-known
-        tiers (any stochastic row, any truncated row)."""
+        """Per-row sampling tensors on the device (temperature, top-k,
+        top-p, seed, bias ids and values, presence and frequency
+        penalties [S, 1]), plus the host-known tiers (any stochastic row,
+        any truncated row)."""
         rows = [r.sampling if r is not None else SamplingParams() for r in requests]
         temperature = np.asarray([s.temperature for s in rows], dtype=np.float32)
         top_k = np.asarray([s.top_k for s in rows], dtype=np.int64)
@@ -750,15 +848,17 @@ class DecodeEngine:
             [self._request_seed(r) if r is not None else 0 for r in requests],
             dtype=np.int64,
         )
+        presence = np.asarray([[s.presence_penalty] for s in rows], dtype=np.float32)
+        frequency = np.asarray([[s.frequency_penalty] for s in rows], dtype=np.float32)
         bias_ids, bias_vals = self._bias_rows(requests)
         tiers = dict(
             stochastic=bool((temperature > 0).any()),
             truncated=bool((top_k > 0).any() or (top_p > 0).any()),
         )
-        tensors = [
+        tensors = tuple(
             self._to_device(a)
-            for a in (temperature, top_k, top_p, seeds, bias_ids, bias_vals)
-        ]
+            for a in (temperature, top_k, top_p, seeds, bias_ids, bias_vals, presence, frequency)
+        )
         return tensors, tiers
 
     def _count_dispatch(self, name: str) -> None:
@@ -795,7 +895,7 @@ class DecodeEngine:
         row's total cache length, so a warm continuation samples exactly
         like a cold run of the same full prompt. Resets the slots'
         penalty counts, then counts the sampled token."""
-        (temperature, top_k, top_p, seeds, bias_ids, bias_vals), tiers = (
+        (temperature, top_k, top_p, seeds, bias_ids, bias_vals, _, _), tiers = (
             self._sampling_inputs(requests)
         )
         adjusted = logits.scatter_add(1, bias_ids, bias_vals)
@@ -898,49 +998,72 @@ class DecodeEngine:
         self.stats["prefill_time"] += time.perf_counter() - started
         self._emit_token(index, firsts[0], lps[0])
 
-    def _dispatch_decode(self) -> Dict[str, Any]:
+    def _can_chain(self, inflight: Dict[str, Any]) -> bool:
+        """A chunk may be dispatched off the in-flight chunk's carry only
+        when no admission waits, no slot joined since that chunk (a slot
+        prefilled meanwhile joins the next fresh chunk), and every rider
+        has two chunks of budget and context left, so the blind chunk
+        cannot run a request past its end."""
+        if self._pending or self._any_admitting():
+            return False
+        budget = inflight["steps"]
+        for i, slot in enumerate(self.slots):
+            if not inflight["active"][i]:
+                if slot.ready:
+                    return False
+                continue
+            if not slot.active or slot.epoch != inflight["epochs"][i]:
+                return False
+            if len(slot.generated) + 2 * budget > slot.request.sampling.max_new_tokens:
+                return False
+            if slot.length + 1 + 2 * budget >= self.max_seq_len:
+                return False
+        return True
+
+    def _dispatch_decode(self, carry: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
         """Run one K-step decode chunk over the ready slots. Tokens,
         lengths and counts chain on the device from step to step; the
-        chunk's sampled tokens cross to the host once at the end. In
-        mixed mode, while any slot is admitting, the dispatch is one
+        chunk's sampled tokens start their copy to the host at the end.
+        With ``carry`` (the in-flight chunk's record) the chunk starts
+        from its device-resident final tokens, lengths, active mask,
+        sampling tensors and block tables: nothing crosses from the host.
+        In mixed mode, while any slot is admitting, a fresh dispatch is one
         mixed step instead (:meth:`_dispatch_mixed`)."""
-        if self._any_admitting():
+        if carry is None and self._any_admitting():
             return self._dispatch_mixed()
         started = time.perf_counter()
         slots = self.max_slots
-        tokens = np.zeros((slots,), dtype=np.int64)
-        lengths = np.zeros((slots,), dtype=np.int32)
-        active = np.zeros((slots,), dtype=bool)
-        presence = np.zeros((slots,), dtype=np.float32)
-        frequency = np.zeros((slots,), dtype=np.float32)
-        epochs = [0] * slots
-        steps = self.decode_chunk
-        for i, slot in enumerate(self.slots):
-            lengths[i] = slot.length
-            epochs[i] = slot.epoch
-            if slot.ready:
-                active[i] = True
-                tokens[i] = slot.history[-1]
-                lengths[i] = slot.length + 1
-                presence[i] = slot.request.sampling.presence_penalty
-                frequency[i] = slot.request.sampling.frequency_penalty
-                # a chunk writes cache positions up to length + steps - 1:
-                # drop to single steps near the context boundary
-                if self.max_seq_len - slot.length - 1 < steps:
-                    steps = 1
-        (temperature, top_k, top_p, seeds, bias_ids, bias_vals), tiers = (
-            self._sampling_inputs(
+        if carry is not None:
+            steps, active, epochs = carry["steps"], carry["active"], carry["epochs"]
+            sampling_d, tiers = carry["sampling"], carry["tiers"]
+            tokens_d, lengths_d = carry["final_tokens"], carry["final_lengths"]
+            active_d, tables_d = carry["active_dev"], carry["tables_dev"]
+        else:
+            tokens = np.zeros((slots,), dtype=np.int64)
+            lengths = np.zeros((slots,), dtype=np.int32)
+            active = np.zeros((slots,), dtype=bool)
+            epochs = [0] * slots
+            steps = self.decode_chunk
+            for i, slot in enumerate(self.slots):
+                lengths[i] = slot.length
+                epochs[i] = slot.epoch
+                if slot.ready:
+                    active[i] = True
+                    tokens[i] = slot.history[-1]
+                    lengths[i] = slot.length + 1
+                    # a chunk writes cache positions up to length + steps - 1:
+                    # drop to single steps near the context boundary
+                    if self.max_seq_len - slot.length - 1 < steps:
+                        steps = 1
+            sampling_d, tiers = self._sampling_inputs(
                 [slot.request if slot.ready else None for slot in self.slots]
             )
-        )
-        tokens_d = self._to_device(tokens)
-        lengths_d = self._to_device(lengths)
-        active_d = self._to_device(active)
-        presence_d = self._to_device(presence)[:, None]
-        frequency_d = self._to_device(frequency)[:, None]
-        rows = torch.arange(slots, device=self.device)
-        active_counts = active_d.to(torch.int32)
-        tables_d = self._to_device(self._block_tables) if self.paged else None
+            tokens_d = self._to_device(tokens)
+            lengths_d = self._to_device(lengths)
+            active_d = self._to_device(active)
+            tables_d = self._to_device(self._block_tables) if self.paged else None
+        temperature, top_k, top_p, seeds, bias_ids, bias_vals, presence_d, frequency_d = sampling_d
+        active_counts = active_d.to(torch.int32)[:, None]
         out_tokens, out_lps = [], []
         for _ in range(steps):
             if self.paged:
@@ -966,15 +1089,20 @@ class DecodeEngine:
             # logprob under the RAW untruncated distribution
             lps = sampling.token_logprob(logits, sampled)
             sampled = torch.where(active_d, sampled, torch.zeros_like(sampled))
-            self._counts.index_put_((rows, sampled), active_counts, accumulate=True)
+            self._counts.scatter_add_(1, sampled[:, None], active_counts)
             lengths_d = torch.where(active_d, lengths_d + 1, lengths_d)
             tokens_d = sampled
             out_tokens.append(sampled)
             out_lps.append(lps)
         return {
-            "out_tokens": torch.stack(out_tokens, dim=1).cpu().numpy(),
-            "out_lps": torch.stack(out_lps, dim=1).cpu().numpy(),
+            "out": self._to_host(torch.stack(out_tokens, dim=1), torch.stack(out_lps, dim=1)),
+            "final_tokens": tokens_d,
+            "final_lengths": lengths_d,
             "active": active,
+            "active_dev": active_d,
+            "tables_dev": tables_d,
+            "sampling": sampling_d,
+            "tiers": tiers,
             "epochs": epochs,
             "steps": steps,
             "started": started,
@@ -1002,7 +1130,61 @@ class DecodeEngine:
         width = next(w for w in self._mixed_widths if w >= max_n)
         return windows, width
 
-    def _dispatch_mixed(self) -> Dict[str, Any]:
+    def _plan_mixed_chain(self, inflight: Dict[str, Any]):
+        """Two-step window plan of the mixed-step carry: whether the next
+        mixed step is predictable on the host from the in-flight one and,
+        if so, its rows. The windows of step N+1 follow from the
+        watermarks advanced when N was dispatched and from N's
+        ``completes``; only N's sampled tokens are unknown to the host,
+        and they stay on the device. Returns ``{"riders", "windows",
+        "width"}`` or the reason the next step is host-built:
+        ``admission`` (work N's sampling tensors do not cover), ``budget``
+        (a rider could finish by length during N), ``width`` (the ladder
+        changes width), ``drained`` (no windows remain: plain chunks take
+        over), ``epoch`` (a carried row's slot was recycled)."""
+        if self._pending:
+            return "admission"
+        prev_plan = inflight["plan"]
+        riders: List[int] = []
+        admitting: List[int] = []
+        for i, slot in enumerate(self.slots):
+            carried = inflight["decode_mask"][i] or i in prev_plan
+            if slot.request is None:
+                if carried:
+                    return "epoch"
+                continue
+            if slot.epoch != inflight["epochs"][i]:
+                # admitted after the in-flight step was planned: its
+                # sampling params are not in the carried tensors
+                return "epoch" if carried else "admission"
+            if inflight["decode_mask"][i] or (i in prev_plan and inflight["completes"][i]):
+                riders.append(i)
+            elif slot.prefill_pos is not None:
+                admitting.append(i)
+        for i in riders:
+            # room for the in-flight token and the speculated one, so a
+            # rider can only finish mid-chain by a stop, never by length
+            generated = len(self.slots[i].generated or ())
+            if generated + 2 > self.slots[i].request.sampling.max_new_tokens:
+                return "budget"
+            if int(inflight["offsets"][i]) + int(inflight["num_tokens"][i]) + 2 >= self.max_seq_len:
+                return "budget"
+        windows, width = self._plan_windows(admitting)
+        if not windows:
+            return "drained"
+        if width != inflight["width"]:
+            return "width"
+        return {"riders": riders, "windows": windows, "width": width}
+
+    def _note_carry_invalidation(self, reason: str, events: int = 1) -> None:
+        invalidations = self.stats["mixed_carry_invalidations"]
+        invalidations[reason] = invalidations.get(reason, 0) + events
+
+    def _dispatch_mixed(
+        self,
+        carry: Optional[Dict[str, Any]] = None,
+        plan_next: Optional[Dict[str, Any]] = None,
+    ) -> Dict[str, Any]:
         """One mixed step: every ready slot rides as a one-token decode
         row, and up to ``prefill_chunk`` prompt tokens of admitting slots
         ride beside them as prefill windows, in one model call
@@ -1013,91 +1195,132 @@ class DecodeEngine:
         reset, no penalty, then the token counted); bias applies to every
         row; keys come from (seed, the row's cache length after the
         step); rows that do not sample return 0 and leave their counts
-        alone."""
+        alone.
+
+        With ``carry`` (the in-flight step's record) and ``plan_next``
+        (:meth:`_plan_mixed_chain`) the step chains on the device: each
+        rider's pending token is the in-flight step's device-resident
+        sample (``chain_mask`` splices it into column 0), its offset the
+        in-flight row's offset plus its count, and the tables and
+        sampling tensors are the carry's; only the window tokens and the
+        per-row counts upload."""
         started = time.perf_counter()
         slots = self.max_slots
-        plan, width = self._plan_windows([
-            i for i, slot in enumerate(self.slots)
-            if slot.prefill_pos is not None and slot.request is not None
-        ])
+        chained = carry is not None
+        if chained:
+            plan, riders, width = plan_next["windows"], plan_next["riders"], plan_next["width"]
+        else:
+            plan, width = self._plan_windows([
+                i for i, slot in enumerate(self.slots)
+                if slot.prefill_pos is not None and slot.request is not None
+            ])
+            riders = [i for i, slot in enumerate(self.slots) if slot.ready]
         tokens = np.zeros((slots, width), dtype=np.int64)
         offsets = np.zeros((slots,), dtype=np.int32)
         num_tokens = np.zeros((slots,), dtype=np.int32)
         decode_mask = np.zeros((slots,), dtype=bool)
         completes = np.zeros((slots,), dtype=bool)
-        presence = np.zeros((slots,), dtype=np.float32)
-        frequency = np.zeros((slots,), dtype=np.float32)
+        chain_mask = np.zeros((slots,), dtype=bool)
         for i, (pos, n) in plan.items():
             prompt = self.slots[i].request.prompt_tokens
             tokens[i, :n] = prompt[pos:pos + n]
             offsets[i] = pos
             num_tokens[i] = n
             completes[i] = pos + n == len(prompt)
-        for i, slot in enumerate(self.slots):
-            if slot.request is not None:
-                presence[i] = slot.request.sampling.presence_penalty
-                frequency[i] = slot.request.sampling.frequency_penalty
-            if slot.ready:
-                tokens[i, 0] = slot.history[-1]
-                offsets[i] = slot.length
-                num_tokens[i] = 1
-                decode_mask[i] = True
-        # the windows are final once dispatched: advance the watermarks
+        for i in riders:
+            if chained:
+                chain_mask[i] = True
+                offsets[i] = int(carry["offsets"][i]) + int(carry["num_tokens"][i])
+            else:
+                tokens[i, 0] = self.slots[i].history[-1]
+                offsets[i] = self.slots[i].length
+            num_tokens[i] = 1
+            decode_mask[i] = True
+        # the windows are final once dispatched: advance the watermarks,
+        # which the next step's plan (chained or fresh) starts from
         for i, (pos, n) in plan.items():
             self.slots[i].prefill_pos = pos + n
-        (temperature, top_k, top_p, seeds, bias_ids, bias_vals), tiers = (
-            self._sampling_inputs([slot.request for slot in self.slots])
-        )
+        if chained:
+            sampling_d, tiers = carry["sampling"], carry["tiers"]
+            tables_d = carry["tables_dev"]
+        else:
+            # every live row's params, planned or not, so a chained step
+            # can reuse these tensors when the budget reaches a row this
+            # step skipped
+            sampling_d, tiers = self._sampling_inputs([slot.request for slot in self.slots])
+            tables_d = self._to_device(self._block_tables)
+        temperature, top_k, top_p, seeds, bias_ids, bias_vals, presence_d, frequency_d = sampling_d
+        tokens_d = self._to_device(tokens)
+        if chained:
+            tokens_d[:, 0] = torch.where(
+                self._to_device(chain_mask), carry["sampled_dev"], tokens_d[:, 0])
         offsets_d = self._to_device(offsets)
         num_tokens_d = self._to_device(num_tokens)
         decode_d = self._to_device(decode_mask)
         completes_d = self._to_device(completes)
         self._count_dispatch("paged_mixed_step")
         logits = model_lib.paged_mixed_step(
-            self.config, self.params, self.cache, self._to_device(tokens), offsets_d,
-            num_tokens_d, self._to_device(self._block_tables), self.freqs,
-            kernel=self.paged_kernel,
+            self.config, self.params, self.cache, tokens_d, offsets_d,
+            num_tokens_d, tables_d, self.freqs, kernel=self.paged_kernel,
         )
         sample_mask = decode_d | completes_d
         counts = self._counts
-        counts[completes_d] = 0
-        penalized = (
-            logits
-            - self._to_device(presence)[:, None] * (counts > 0)
-            - self._to_device(frequency)[:, None] * counts
-        )
+        counts.masked_fill_(completes_d[:, None], 0)
+        penalized = logits - presence_d * (counts > 0) - frequency_d * counts
         adjusted = torch.where(decode_d[:, None], penalized, logits)
         adjusted = adjusted.scatter_add(1, bias_ids, bias_vals)
         key = prng.sampling_keys(seeds, offsets_d + num_tokens_d)
         sampled = sampling.sample(adjusted, temperature, top_k, key, top_p, **tiers)
         lps = sampling.token_logprob(logits, sampled)
         sampled = torch.where(sample_mask, sampled, torch.zeros_like(sampled))
-        rows = torch.arange(slots, device=self.device)
-        counts.index_put_((rows, sampled), sample_mask.to(torch.int32), accumulate=True)
+        counts.scatter_add_(1, sampled[:, None], sample_mask.to(torch.int32)[:, None])
         return {
             "mixed": True,
+            "chained": chained,
+            "width": width,
             "plan": plan,
-            "sampled": sampled.cpu().numpy(),
-            "lps": lps.cpu().numpy(),
+            "out": self._to_host(sampled, lps),
+            "sampled_dev": sampled,
             "decode_mask": decode_mask,
             "completes": completes,
+            "offsets": offsets,
+            "num_tokens": num_tokens,
+            "sampling": sampling_d,
+            "tiers": tiers,
+            "tables_dev": tables_d,
             "epochs": [slot.epoch for slot in self.slots],
             "started": started,
         }
 
+    def _busy_since(self, started: float, ended: float) -> float:
+        """Seconds of [started, ended] not yet counted: pipelined chunks
+        overlap, so decode time sums the union of their intervals."""
+        busy = max(0.0, ended - max(started, self._decode_busy_until))
+        self._decode_busy_until = max(self._decode_busy_until, ended)
+        return busy
+
     def _process_mixed(self, step: Dict[str, Any]) -> None:
         """Emit a mixed step's tokens: decode rows advance by one, a
         window that completed its prompt ends the slot's admission and
-        emits its first token, other rows emit nothing."""
+        emits its first token, other rows emit nothing. A chained step's
+        row whose request ended while the step was in flight is counted
+        as a ``stale_row`` invalidation."""
+        sampled, lps = self._from_host(step["out"])
         ended = time.perf_counter()
-        wall = ended - step["started"]
+        busy = self._busy_since(step["started"], ended)
         self.stats["decode_steps"] += 1
         self.stats["mixed_steps"] += 1
-        self.stats["decode_time"] += wall
-        self.stats["mixed_time"] += wall
-        sampled, lps = step["sampled"], step["lps"]
+        self.stats["decode_time"] += busy
+        self.stats["mixed_time"] += busy
+        if step["chained"]:
+            self.stats["mixed_steps_chained"] += 1
+        stale_rows = 0
         for i, slot in enumerate(self.slots):
             if slot.epoch != step["epochs"][i] or not slot.active:
+                if step["chained"] and (
+                    step["decode_mask"][i] or (i in step["plan"] and step["completes"][i])
+                ):
+                    stale_rows += 1
                 continue
             if step["decode_mask"][i]:
                 slot.length += 1
@@ -1108,14 +1331,16 @@ class DecodeEngine:
                 self.stats["warm_prefill_calls" if slot.prefill_reused else "prefill_calls"] += 1
                 self.stats["mixed_admit_time"] += ended - slot.prefill_t0
                 self._emit_token(i, int(sampled[i]), float(lps[i]))
+        if stale_rows:
+            self._note_carry_invalidation("stale_row", stale_rows)
 
     def _process_decode(self, chunk: Dict[str, Any]) -> None:
         if chunk.get("mixed"):
             return self._process_mixed(chunk)
+        out, lps = self._from_host(chunk["out"])
         steps = chunk["steps"]
         self.stats["decode_steps"] += steps
-        self.stats["decode_time"] += time.perf_counter() - chunk["started"]
-        out, lps = chunk["out_tokens"], chunk["out_lps"]
+        self.stats["decode_time"] += self._busy_since(chunk["started"], time.perf_counter())
         for i, slot in enumerate(self.slots):
             if not chunk["active"][i] or slot.epoch != chunk["epochs"][i]:
                 continue

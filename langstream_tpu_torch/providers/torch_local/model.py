@@ -11,7 +11,10 @@ Attention goes through the kernel wrappers in ``ops/``: on the card they
 launch the hand-written CUDA kernels, on the CPU they run the plain
 versions. Dense prefill-at-offset attention is plain PyTorch everywhere,
 as the JAX package leaves it to XLA. The matrix products outside
-attention stay ``torch.matmul``.
+attention stay ``torch.matmul``, through ``quant.qmatmul``: a weight may
+be a :class:`~langstream_tpu_torch.providers.torch_local.quant.QTensor`
+(weight-only int8, ``quantize="int8"`` in the engine), contracted against
+its int8 values with the scale on the output, in every call kind.
 
 The int8 KV cache (``kv_quant``) is chosen by the ``k_scale`` leaf, as in
 the JAX package: each layer's new k/v rows are quantized once
@@ -54,6 +57,7 @@ from langstream_tpu_torch.ops.paged_attention import (
 )
 from langstream_tpu_torch.ops.norms import rms_norm
 from langstream_tpu_torch.ops.rope import apply_rope, rope_frequencies
+from langstream_tpu_torch.providers.torch_local.quant import qmatmul
 
 _NOT_PORTED = (
     "is not ported to langstream_tpu_torch yet (see ROADMAP.md, Queue A)"
@@ -392,7 +396,8 @@ def model_freqs(
 
 def validate_family_params(config: LlamaConfig, params: Dict[str, Any]) -> None:
     """Fail fast when family-specific tensors are missing (a qkv_bias or
-    post_norms config would otherwise run silently without them)."""
+    post_norms config would otherwise run silently without them). A
+    weight may be a tensor or an int8 ``QTensor``."""
     required = []
     if config.qkv_bias:
         required += ["bq", "bk", "bv"]
@@ -417,16 +422,12 @@ def layer_windows(config: LlamaConfig) -> Optional[List[int]]:
     ]
 
 
-def _matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    return x @ (w if w.dtype == x.dtype else w.to(x.dtype))
-
-
 def _project_qkv(normed, params, i):
     """q/k/v projections with optional biases (Qwen-2); flat
     [..., H*D] / [..., KVH*D] — callers reshape to heads."""
-    q = _matmul(normed, params["wq"][i])
-    k = _matmul(normed, params["wk"][i])
-    v = _matmul(normed, params["wv"][i])
+    q = qmatmul(normed, params["wq"][i])
+    k = qmatmul(normed, params["wk"][i])
+    v = qmatmul(normed, params["wv"][i])
     if "bq" in params:
         q = q + params["bq"][i].to(q.dtype)
         k = k + params["bk"][i].to(k.dtype)
@@ -456,20 +457,21 @@ def _embed(config: LlamaConfig, params, tokens: torch.Tensor) -> torch.Tensor:
 
 def _mlp_block(config: LlamaConfig, normed: torch.Tensor, params, i) -> torch.Tensor:
     """Dense gated MLP (SwiGLU, or GeGLU for Gemma) on normed activations."""
-    gate = _matmul(normed, params["w_gate"][i])
-    up = _matmul(normed, params["w_up"][i])
+    gate = qmatmul(normed, params["w_gate"][i])
+    up = qmatmul(normed, params["w_up"][i])
     if config.act == "gelu_tanh":
         activated = F.gelu(gate, approximate="tanh")
     else:
         activated = F.silu(gate)
-    return _matmul(activated * up, params["w_down"][i])
+    return qmatmul(activated * up, params["w_down"][i])
 
 
 def _logits(config: LlamaConfig, params, x: torch.Tensor) -> torch.Tensor:
     if config.tie_embeddings:
+        # the embedding is never quantized: the tied head stays in x's dtype
         logits = (x @ params["embedding"].T.to(x.dtype)).float()
     else:
-        logits = _matmul(x, params["lm_head"]).float()
+        logits = qmatmul(x, params["lm_head"]).float()
     cap = config.final_logit_softcap
     if cap is not None:
         logits = cap * torch.tanh(logits / cap)
@@ -524,7 +526,7 @@ def _chunk_attn(config, q, kv, starts, totals, window=None):
 def _layer_tail(config, params, i, x, attn):
     """Output projection, residuals, the MLP block and the optional
     sandwich norms — shared by prefill and decode."""
-    attn = _matmul(attn, params["wo"][i])
+    attn = qmatmul(attn, params["wo"][i])
     if "post_attn_norm" in params:
         attn = _norm(config, attn, params["post_attn_norm"][i])
     x = x + attn

@@ -6,24 +6,28 @@ Configuration, with the JAX provider's keys::
 
     model: {preset: "llama-3-8b"}      # or explicit dims; default "tiny"
     seed: 0                            # random-init weight seed
+    quantization: int8                 # weight-only int8 weights
     engine: {max-slots: 16, max-seq-len: 4096, decode-chunk: 8,
              prefill-buckets: [64, 128], sampling-seed: 7,
              kv-layout: paged, kv-block-size: 16, kv-blocks: 4097,
              paged-kernel: fused, prefix-cache: true, kv-quant: int8,
-             prefill-mode: mixed, prefill-chunk: 64, mixed-carry: on}
+             prefill-mode: mixed, prefill-chunk: 64, mixed-carry: on,
+             pipeline-decode: true}
 
 With no ``checkpoint`` the weights are random, drawn from ``seed`` on the
-device (checkpoint loading is not ported yet and raises). ``kv-quant:
-int8`` stores the KV cache as int8 with per-(position, kv head) scales on
-either layout. ``prefill-mode: mixed`` (paged only) carries prompt windows
-of up to ``prefill-chunk`` tokens in the decode step instead of separate
-prefill calls; ``mixed-carry`` is accepted, as in the JAX provider's
-configs, and ignored: the mixed-step carry chains on the pipelined decode
-carry, which is not ported. The top-level
-``quantization: int8`` (int8 weights) is not ported yet and raises rather
-than serving bf16 weights. So does every other key that the JAX provider
-honours and the port does not (:data:`UNPORTED_ENGINE_KEYS`,
-:data:`UNPORTED_KEYS`) when it is set to anything but the JAX default.
+device (checkpoint loading is not ported yet and raises); with
+``quantization: int8`` they are drawn directly in int8 on the device
+(``quant.init_quantized_params``), so the model-dtype weights are never
+made. ``kv-quant: int8`` stores the KV cache as int8 with per-(position,
+kv head) scales on either layout. ``prefill-mode: mixed`` (paged only)
+carries prompt windows of up to ``prefill-chunk`` tokens in the decode
+step instead of separate prefill calls. ``pipeline-decode`` dispatches
+each decode chunk off the previous one's device outputs before the host
+processes them (off unless set, as in the JAX provider; ``serve`` sets
+it), and ``mixed-carry`` (on unless set off) chains mixed steps the same
+way on top of it. Every other key that the JAX provider honours and the
+port does not (:data:`UNPORTED_ENGINE_KEYS`, :data:`UNPORTED_KEYS`)
+raises when it is set to anything but the JAX default.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from langstream_tpu_torch.providers.torch_local.engine import (
     DecodeEngine,
     SamplingParams,
 )
+from langstream_tpu_torch.providers.torch_local.quant import init_quantized_params
 from langstream_tpu_torch.providers.torch_local.tokenizer import get_tokenizer
 
 logger = logging.getLogger(__name__)
@@ -59,7 +64,6 @@ UNPORTED_ENGINE_KEYS = {
     "spec-decode": lambda value: str(value or "off").lower() != "off",
     "spec-k": lambda value: int(value or 4) != 4,
     "spec-ngram": lambda value: int(value or 2) != 2,
-    "pipeline-decode": _on,
     "admission-chunk": bool,
     "logprobs-top-k": lambda value: int(value or 0) != 0,
     "queue-timeout-s": bool,
@@ -110,25 +114,25 @@ class TorchCompletionsService:
                 "checkpoint loading is not ported to langstream_tpu_torch yet "
                 "(see ROADMAP.md); omit `checkpoint` for random weights"
             )
-        quantization = config.get("quantization")
-        if quantization == "int8":
-            raise NotImplementedError(
-                "quantization: int8 (int8 weight-only params) is not ported to "
-                "langstream_tpu_torch yet (see ROADMAP.md, Queue A); omit it for bf16 weights"
-            )
-        if quantization:
+        quantization = config.get("quantization") or None
+        if quantization not in (None, "int8"):
             raise ValueError(f"unknown quantization {quantization!r}")
         engine_config = config.get("engine", {}) or {}
         _refuse_unported(config, engine_config)
         model_config = model_lib.LlamaConfig.from_dict(
             config.get("model", {"preset": "tiny"})
         )
-        params = model_lib.init_params(
-            model_config, seed=int(config.get("seed", 0)), device=self.device
-        )
+        seed = int(config.get("seed", 0))
+        if quantization == "int8":
+            # drawn directly in int8 on the device: Llama-3-8B never holds
+            # its bf16 weights
+            params = init_quantized_params(model_config, seed=seed, device=self.device)
+        else:
+            params = model_lib.init_params(model_config, seed=seed, device=self.device)
         logger.warning(
-            "torch-local: no checkpoint configured — RANDOM weights "
-            "(%.2fB params, benchmarking only)", model_config.num_params() / 1e9,
+            "torch-local: no checkpoint configured — RANDOM %sweights "
+            "(%.2fB params, benchmarking only)", "int8 " if quantization else "",
+            model_config.num_params() / 1e9,
         )
         self.tokenizer = get_tokenizer(config.get("tokenizer"))
         if engine_config.get("sampling-seed") is not None:
@@ -161,6 +165,10 @@ class TorchCompletionsService:
             kv_quant=engine_config.get("kv-quant") or None,
             prefill_mode=str(engine_config.get("prefill-mode") or "split").lower(),
             prefill_chunk=int(engine_config.get("prefill-chunk") or 64),
+            mixed_carry=str(engine_config.get("mixed-carry", "on")).lower()
+            not in ("0", "false", "no", "off"),
+            pipeline_decode=_on(engine_config.get("pipeline-decode", "")),
+            quantize=quantization,
         )
         self.engine.start()
 

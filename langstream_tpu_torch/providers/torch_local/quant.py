@@ -1,0 +1,148 @@
+"""Weight-only int8 weights for serving.
+
+Port of ``langstream_tpu/providers/jax_local/quant.py``. The large matmul
+weights are stored as int8 with one f32 scale per output channel, taken
+over the contraction (input) axis: half the bytes of bf16 weights.
+
+:func:`qmatmul` keeps the reference's arithmetic: it contracts against
+``q.to(x.dtype)`` and multiplies the output by ``scale.to(x.dtype)``. A
+per-output-channel scale commutes with the contraction, so the scale is
+an elementwise op on activations, not on the weight. Eager PyTorch fuses
+nothing, so ``q.to(x.dtype)`` writes a model-dtype copy of the weight on
+every call and the product reads it back; the JAX package relies on XLA
+to fuse that cast into the dot instead.
+
+:class:`QTensor` slices its layer axis with ``w[i]``, ``q`` and ``scale``
+together, so the model indexes a stacked int8 weight the way it indexes
+a stacked model-dtype one.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class QTensor:
+    """An int8 weight: ``q`` int8 in the weight's shape, ``scale`` f32 in
+    the weight's shape minus the contraction (second-to-last) axis."""
+
+    q: torch.Tensor
+    scale: torch.Tensor
+
+    def __getitem__(self, index) -> "QTensor":
+        """One layer of a stacked weight ([L, in, out] → [in, out]): the
+        leading axis of ``q`` and ``scale`` sliced together."""
+        if self.q.dim() < 3:
+            raise IndexError("only a stacked QTensor ([L, in, out]) is indexed by layer")
+        return QTensor(self.q[index], self.scale[index])
+
+    @property
+    def nbytes(self) -> int:
+        return self.q.nbytes + self.scale.nbytes
+
+    def to(self, device: Any) -> "QTensor":
+        return QTensor(self.q.to(device), self.scale.to(device))
+
+
+def quantize(w: torch.Tensor, contract_axis: int = -2) -> QTensor:
+    """Symmetric per-channel int8: the scale is the abs-max over the
+    contraction axis over 127, floored at 1e-8; values round half to
+    even. For a stacked weight [L, in, out], scale is [L, out]."""
+    w32 = w.float()
+    absmax = w32.abs().amax(dim=contract_axis, keepdim=True)
+    scale = torch.clamp_min(absmax, 1e-8) / 127.0
+    q = torch.clamp(torch.round(w32 / scale), -127, 127).to(torch.int8)
+    return QTensor(q=q, scale=scale.squeeze(contract_axis))
+
+
+def dq(w: Any, dtype: torch.dtype) -> torch.Tensor:
+    """Dequantize-or-cast: a QTensor → its weight in ``dtype``, a plain
+    tensor → cast."""
+    if isinstance(w, QTensor):
+        return w.q.to(dtype) * w.scale.unsqueeze(-2).to(dtype)
+    return w if w.dtype == dtype else w.to(dtype)
+
+
+def qmatmul(x: torch.Tensor, w: Any) -> torch.Tensor:
+    """``x @ w`` against an optionally quantized weight, the scale applied
+    to the output: the JAX ``qeinsum`` for the model's one contraction
+    (``"...h,hd->...d"``, x's last axis against w's second-to-last)."""
+    if isinstance(w, QTensor):
+        return (x @ w.q.to(x.dtype)) * w.scale.to(x.dtype)
+    return x @ (w if w.dtype == x.dtype else w.to(x.dtype))
+
+
+# the dense family's matmul weights; embedding and norms stay in their
+# dtype (a lookup and elementwise ops)
+QUANTIZED_PARAMS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "lm_head")
+
+
+def quantize_params(params: Dict[str, Any], num_experts: int = 0) -> Dict[str, Any]:
+    """Quantize the large matmul weights of a stacked param dict.
+    Idempotent: leaves already quantized pass through. MoE expert
+    weights stay as they are, as in the JAX package."""
+    out = dict(params)
+    moe_names = {"w_gate", "w_up", "w_down"} if num_experts else set()
+    for name in QUANTIZED_PARAMS:
+        if name in out and name not in moe_names and not isinstance(out[name], QTensor):
+            out[name] = quantize(out[name])
+    return out
+
+
+def init_quantized_params(
+    config, seed: int = 0, direct: Optional[bool] = None, device: Any = "cpu",
+) -> Dict[str, Any]:
+    """Random int8 weights drawn directly on ``device`` from a generator
+    seeded with ``seed``: the model-dtype weights are never made, so
+    Llama-3-8B takes ~8.5 GB instead of 16 GB of bf16 first. ``direct=None``
+    picks by size: small models go through ``init_params`` and
+    :func:`quantize_params`. The numbers are not ``jax.random``'s."""
+    from langstream_tpu_torch.providers.torch_local import model as model_lib
+
+    if direct is None:
+        direct = config.num_params() >= 5e8 and not config.num_experts
+    if not direct or config.num_experts:
+        return quantize_params(
+            model_lib.init_params(config, seed=seed, device=device), config.num_experts)
+    generator = torch.Generator(device=device).manual_seed(seed)
+    h = config.hidden_size
+    nh, nkv, hd = config.num_heads, config.num_kv_heads, config.dims_per_head
+    f, v, layers = config.intermediate_size, config.vocab_size, config.num_layers
+    scale = 1.0 / math.sqrt(h) / 127.0
+
+    def q_init(shape):
+        q = torch.randint(-127, 128, shape, generator=generator, dtype=torch.int8, device=device)
+        return QTensor(q=q, scale=torch.full(shape[:-2] + shape[-1:], scale, device=device))
+
+    def full(shape, value):
+        return torch.full(shape, value, dtype=torch.float32, device=device)
+
+    norm_fill = 0.0 if config.norm_plus_one else 1.0
+    embedding = torch.empty((v, h), dtype=config.dtype, device=device)
+    out: Dict[str, Any] = {
+        "embedding": embedding.normal_(0.0, 1.0 / math.sqrt(h), generator=generator),
+        "wq": q_init((layers, h, nh * hd)),
+        "wk": q_init((layers, h, nkv * hd)),
+        "wv": q_init((layers, h, nkv * hd)),
+        "wo": q_init((layers, nh * hd, h)),
+        "w_gate": q_init((layers, h, f)),
+        "w_up": q_init((layers, h, f)),
+        "w_down": q_init((layers, f, h)),
+        "attn_norm": full((layers, h), norm_fill),
+        "mlp_norm": full((layers, h), norm_fill),
+        "final_norm": full((h,), norm_fill),
+    }
+    if config.post_norms:
+        out["post_attn_norm"] = full((layers, h), norm_fill)
+        out["post_mlp_norm"] = full((layers, h), norm_fill)
+    if config.qkv_bias:
+        for name, width in (("bq", nh * hd), ("bk", nkv * hd), ("bv", nkv * hd)):
+            out[name] = full((layers, width), 0.0)
+    if not config.tie_embeddings:
+        out["lm_head"] = q_init((h, v))
+    return out

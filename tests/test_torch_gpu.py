@@ -8,6 +8,7 @@ test, never at import). Run on a GPU machine with::
 port does not need.)
 """
 
+import asyncio
 import dataclasses
 
 import numpy as np
@@ -35,7 +36,7 @@ from langstream_tpu_torch.ops.paged_attention import (
     ragged_q_paged_attention,
     ragged_q_paged_attention_quant,
 )
-from langstream_tpu_torch.providers.torch_local import engine, model
+from langstream_tpu_torch.providers.torch_local import engine, model, quant
 
 # bf16: p is rounded to bf16 before p·v and sums run in another order
 # than the plain einsum; f32: only the summation order differs
@@ -810,3 +811,119 @@ def test_flash_decode_reads_no_dead_row(quant, case):
             assert not bool(out[s].any()), (case, s)
             continue
         assert _rel_err(out[s], ref[s]) < TOLERANCE["bfloat16"], (case, s, n)
+
+
+# ---------------------------------------------------------------------- #
+# int8 weights and the carries on the card
+# ---------------------------------------------------------------------- #
+# the model on the card (bf16, kernels, cuBLAS) against the CPU (bf16,
+# plain path): the GEMMs round bf16 activations differently
+MODEL_TOLERANCE = 5e-2
+
+
+def _small_llama(max_seq_len):
+    """Llama-3's heads (head_dim 128, GQA 4) at a small width, 2 layers."""
+    return dataclasses.replace(
+        model.LlamaConfig.llama3_8b(max_seq_len=max_seq_len), num_layers=2, hidden_size=1024,
+        intermediate_size=2048, num_heads=8, num_kv_heads=2, head_dim=128, vocab_size=4096)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("call", ["dense", "paged", "mixed"])
+def test_int8_weight_model_calls_match_cpu(call):
+    """int8 weights (``quantize_params`` of bf16 ones) through prefill and
+    two decode steps (dense: B1, B2), paged prefill and two paged decode
+    steps (B3), or paged prefill and one mixed step (B7): the card's
+    logits within MODEL_TOLERANCE of the same calls on the CPU, fed the
+    same tokens."""
+    device = _card()
+    config = _small_llama(128)
+    params = quant.quantize_params(model.init_params(config, seed=5, device=device))
+    assert isinstance(params["wq"], quant.QTensor) and params["wq"].q.dtype == torch.int8
+    cpu_params = {name: leaf.to("cpu") for name, leaf in params.items()}
+    rng = np.random.default_rng(5)
+    prompts = torch.from_numpy(rng.integers(0, config.vocab_size, size=(2, 40)))
+    lengths = torch.tensor([40, 23], dtype=torch.int32)
+    fed = torch.from_numpy(rng.integers(0, config.vocab_size, size=(2, 16)))
+    tables = torch.arange(1, 17, dtype=torch.int32).view(2, 8)
+
+    def run(where, p):
+        freqs = model.model_freqs(config, device=where)
+        step = (lengths + 1).to(where)
+        if call == "dense":
+            cache = model.init_cache(config, 2, 128, device=where)
+            stages = [model.prefill(config, p, cache, prompts.to(where), lengths.to(where),
+                                    torch.tensor([0, 1], device=where), freqs)]
+            for j in range(2):
+                stages.append(model.decode_step(config, p, cache, fed[:, j].to(where), step + j, freqs))
+            return stages
+        cache = model.init_paged_cache(config, 17, 16, device=where)
+        t = tables.to(where)
+        stages = [model.paged_prefill(config, p, cache, prompts.to(where), lengths.to(where), t, freqs)]
+        if call == "paged":
+            for j in range(2):
+                stages.append(model.paged_decode_step(config, p, cache, fed[:, j].to(where), step + j, t,
+                                                      freqs))
+            return stages
+        # row 0 decodes its next token, row 1 re-teaches a window of 16 from 23
+        tokens = fed.clone()
+        offsets = torch.tensor([40, 23], dtype=torch.int32)
+        num_tokens = torch.tensor([1, 16], dtype=torch.int32)
+        stages.append(model.paged_mixed_step(config, p, cache, tokens.to(where), offsets.to(where),
+                                             num_tokens.to(where), t, freqs))
+        return stages
+
+    card = run(device, params)
+    cpu = run("cpu", cpu_params)
+    for index, (out, ref) in enumerate(zip(card, cpu)):
+        out = out.float().cpu()
+        assert bool(torch.isfinite(out).all()), (call, index)
+        assert _rel_err(out, ref) < MODEL_TOLERANCE, (call, index, _rel_err(out, ref))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["dense", "paged", "mixed"])
+def test_pipelined_engine_matches_serial(layout):
+    """Greedy streams of a 2-layer engine on the card, six concurrent
+    requests over four slots: pipelined (``pipeline_decode``, and the
+    mixed-step carry in the mixed layout) equal serial, and the pipelined
+    engine chained."""
+    device = _card()
+    config = _small_llama(256)
+    params = model.init_params(config, seed=6, device=device)
+    extra = {
+        "dense": {}, "paged": dict(kv_layout="paged"),
+        "mixed": dict(kv_layout="paged", prefill_mode="mixed", prefill_chunk=32),
+    }[layout]
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, config.vocab_size, size=n).tolist() for n in (12, 30, 45, 60, 20, 50)]
+
+    def run(pipeline):
+        eng = engine.DecodeEngine(config, params, device=device, max_slots=4, prefill_buckets=[32, 64],
+                                  decode_chunk=4, pipeline_decode=pipeline, **extra)
+        chained = [0]
+        dispatch = eng._dispatch_decode
+
+        def counted(*args, **kwargs):
+            chained[0] += kwargs.get("carry") is not None
+            return dispatch(*args, **kwargs)
+
+        eng._dispatch_decode = counted
+
+        async def main():
+            return await asyncio.gather(*[
+                eng.generate(prompt, engine.SamplingParams(max_new_tokens=20)) for prompt in prompts])
+
+        try:
+            results = asyncio.run(main())
+        finally:
+            eng.stop()
+        return [r.tokens for r in results], chained[0], eng.stats
+
+    serial, _, _ = run(False)
+    pipelined, chained, stats = run(True)
+    assert pipelined == serial
+    assert all(len(tokens) == 20 for tokens in serial)
+    assert chained > 0, stats
+    if layout == "mixed":
+        assert stats["mixed_steps_chained"] > 0, stats

@@ -427,9 +427,9 @@ def test_mixed_refusals_and_plumbing(weights):
                    "kv-block-size": "8", "prefill-mode": "mixed", "prefill-chunk": "24",
                    "mixed-carry": "off"},
     }, device="cpu")
-    try:  # mixed-carry is accepted and ignored: the carry is not ported
+    try:  # mixed-carry reaches the engine
         assert (service.engine.prefill_mode, service.engine.mixed,
-                service.engine.prefill_chunk) == ("mixed", True, 24)
+                service.engine.prefill_chunk, service.engine.mixed_carry) == ("mixed", True, 24, False)
     finally:
         service.engine.stop()
     args = build_parser().parse_args([

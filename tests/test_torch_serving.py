@@ -1,5 +1,5 @@
 """The port's OpenAI server, its import rules and its device rules, on
-the CPU."""
+the CPU; the provider's int8 weights against the JAX int8 engine."""
 
 import ast
 import asyncio
@@ -8,11 +8,14 @@ import pathlib
 import urllib.error
 import urllib.request
 
+import numpy as np
 import pytest
 import torch
 
+from langstream_tpu.providers.jax_local import engine as jax_engine
+from langstream_tpu.providers.jax_local import model as jax_model
 from langstream_tpu_torch.cli.main import build_parser, serve_config, start_server
-from langstream_tpu_torch.providers.torch_local import engine, model
+from langstream_tpu_torch.providers.torch_local import engine, model, quant
 from langstream_tpu_torch.providers.torch_local.provider import TorchCompletionsService
 
 torch.set_num_threads(2)
@@ -220,10 +223,35 @@ def test_provider_kv_quant_serves_chat_text_and_sse():
 
 
 def test_provider_refuses_int8_weights():
-    """``quantization: int8`` (int8 weights) is not ported: the provider
-    raises instead of serving the model-dtype weights."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TorchCompletionsService({"model": {"preset": "tiny"}, "quantization": "int8"}, device="cpu")
+    """``quantization: int8`` serves int8 weights: the provider's engine
+    holds the port's ``quantize_params`` of the random weights of its
+    seed, and its greedy tokens equal the JAX engine's with
+    ``quantize="int8"`` over the same model-dtype weights. Any other
+    quantization is refused."""
+    config = {"model": {"preset": "tiny", "max_seq_len": 64}, "seed": 3, "quantization": "int8",
+              "engine": {"max-slots": 2, "decode-chunk": 4, "prefill-buckets": [16]}}
+    service = TorchCompletionsService(config, device="cpu")
+    tcfg = model.LlamaConfig.tiny(max_seq_len=64)
+    weights = model.init_params(tcfg, seed=3)
+    jcfg = jax_model.LlamaConfig.tiny(max_seq_len=64)
+    reference = jax_engine.DecodeEngine(
+        jcfg, {name: np.asarray(leaf) for name, leaf in weights.items()}, quantize="int8",
+        max_slots=2, max_seq_len=64, prefill_buckets=[16], decode_chunk=4, prefix_cache=False)
+    try:
+        expected = quant.quantize_params(weights)
+        for name in quant.QUANTIZED_PARAMS:
+            leaf = service.engine.params[name]
+            assert isinstance(leaf, quant.QTensor), name
+            assert torch.equal(leaf.q, expected[name].q) and torch.equal(leaf.scale, expected[name].scale)
+        prompt = service.tokenizer.encode("once upon a time")
+        got = asyncio.run(service.engine.generate(prompt, engine.SamplingParams(max_new_tokens=9)))
+        want = asyncio.run(reference.generate(prompt, jax_engine.SamplingParams(max_new_tokens=9)))
+        assert got.tokens == want.tokens and len(got.tokens) == 9
+        text = asyncio.run(service.get_text_completions(["once upon"], {"max-tokens": 5}))
+        assert text.completion_tokens == 5
+    finally:
+        service.engine.stop()
+        reference.stop()
     with pytest.raises(ValueError, match="unknown quantization"):
         TorchCompletionsService({"model": {"preset": "tiny"}, "quantization": "fp4"}, device="cpu")
 
@@ -235,7 +263,6 @@ UNPORTED = [
     ("engine", "spec-decode", "ngram"),
     ("engine", "spec-k", 6),
     ("engine", "spec-ngram", 3),
-    ("engine", "pipeline-decode", "true"),
     ("engine", "admission-chunk", 2),
     ("engine", "logprobs-top-k", 5),
     ("engine", "queue-timeout-s", 1.5),
