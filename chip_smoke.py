@@ -46,19 +46,28 @@ Phases (any failure propagates and the exit code is not 0):
    against the CPU.
 4. Dense serving: Llama-3-8B (bf16, random weights from seed 0) behind
    the port's OpenAI server, started as ``python -m langstream_tpu_torch
-   serve`` starts it (pipelined decode, its default), answering 16
-   concurrent chat and text completions plus one SSE stream. The
-   kernels' launch counters are zeroed just before and read just after;
-   B1 and B2 must have been launched once per layer per model call. Then
-   32 completions of 64 tokens each, where decode chunks must have been
-   chained (counted through a wrapper on the engine's
-   ``_dispatch_decode``), and one eager decode step of that model: host
-   enqueue time against wall time, and its device time (again in phase
-   6, over the int8 cache). The same with ``--no-pipeline-decode`` (no
-   chained chunk), in turns with the pipelined runs, and with
-   ``--quantization int8`` (int8 weights drawn on the card; B1 and B2 as
-   before), with a line holding the bf16 and int8 bare steps side by
-   side.
+   serve --precompile`` starts it (pipelined decode, its default): every
+   decode chunk and mixed step variant is captured as a CUDA graph before
+   traffic (the seconds, the variants and the graph pool are printed),
+   and every serving phase replays them, capturing nothing (checked per
+   burst; the graphs replayed and captured are printed). It answers 16
+   concurrent chat and text completions plus one SSE stream. Each kernel
+   counts its own launches on the card, a replayed graph's included
+   (``ops/launches.py``), and each wrapper the launches the host enqueued
+   eagerly (prefill); both are zeroed just before the burst and read just
+   after. B1 and B2 must have run once per layer per model call, the
+   model calls counted by the engine at dispatch. Then 32 completions of 64
+   tokens each, where decode chunks must have been chained (counted
+   through a wrapper on the engine's ``_dispatch_decode``), and one bare
+   decode step of that model, eager and as a CUDA graph: wall and host
+   enqueue time of each, and the device time (again in phase 6, over the
+   int8 cache). The same with the engine built with ``step_graphs=False``
+   (the eager control, in turns with the graphed runs: graphed, eager,
+   ..., graphed), with ``--no-pipeline-decode`` (no chained chunk; in
+   turns with the pipelined runs: pipelined, unpipelined, unpipelined,
+   pipelined), and with ``--quantization int8`` (int8 weights drawn on
+   the card; B1 and B2 as before), with a line holding the bf16 and int8
+   bare steps side by side.
 5. Paged serving: the same model with ``--kv-layout paged``, answering 16
    chats that share a ~512-byte system message, 8 text completions and
    one SSE stream, all arriving cold. The prefix cache must have served
@@ -69,7 +78,8 @@ Phases (any failure propagates and the exit code is not 0):
    chat: no prefill model call, B7 once per layer per mixed step, B3 once
    per layer per plain decode step, mixed steps chained (the carry's
    invalidations printed by reason); and one bare paged decode step and
-   one mixed step of that model, host enqueue against wall time.
+   one mixed step of that model, eager and graphed, with their device
+   time.
 6. int8 serving: phases 4 and 5 again, same model and traffic, with
    ``kv-quant: int8`` in the provider's engine config (``serve`` has no
    flag for it). Dense: B4 and B5 once per layer per model call; paged:
@@ -102,6 +112,7 @@ import torch.nn.functional as F  # noqa: E402
 
 from langstream_tpu_torch.cli.main import build_parser, serve_config, start_server  # noqa: E402
 from langstream_tpu_torch.ops import _build  # noqa: E402
+from langstream_tpu_torch.ops import launches as launches_lib  # noqa: E402
 from langstream_tpu_torch.ops.attention import (  # noqa: E402
     chunk_attention_quant,
     decode_attention,
@@ -133,6 +144,7 @@ from langstream_tpu_torch.ops.paged_attention import (  # noqa: E402
 )
 from langstream_tpu_torch.providers.torch_local import model  # noqa: E402
 from langstream_tpu_torch.providers.torch_local.engine import long_prefill_windows  # noqa: E402
+from langstream_tpu_torch.providers.torch_local.graphs import capture  # noqa: E402
 from langstream_tpu_torch.providers.torch_local.quant import QTensor, quantize_params  # noqa: E402
 
 # H100 SXM published peaks (dense bf16 tensor cores, HBM3)
@@ -976,17 +988,47 @@ def check_mixed_model(device, kv_quant: bool = False) -> None:
         f"max_rel_err={to_split:.3e} (tol {MODEL_TOLERANCE})")
 
 
-def time_decode_step(engine, live: int = 512, iters: int = 5) -> dict:
-    """One eager decode step of the stopped engine's model (all slots at
-    ``live`` rows): host time to enqueue it against wall time to finish
-    it (equal times mean the card waits on the host), and its device
-    time. An eager step is over a thousand launches (tens per layer); a
-    sleep kernel cannot hold them all back, since the host blocks once the
-    launch queue is full and the card then waits on it. So for the device
-    time the step is captured once in a CUDA graph and the graph's replays
-    are timed as :func:`time_ms` times a kernel: the same kernels on the
-    same inputs, enqueued behind a sleep kernel, the host's share left
-    out."""
+def _bare_step(step, iters: int = 5) -> dict:
+    """Wall and host-enqueue ms of ``step`` eager and as a CUDA graph of
+    it replayed, and the graph's device ms: replays timed as
+    :func:`time_ms` times a kernel, enqueued behind a sleep kernel, the
+    host's share left out. An eager step is over a thousand launches; a
+    sleep kernel cannot hold them all back (the host blocks once the
+    launch queue is full), so the device time comes from the graph."""
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        started = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        enqueued = time.perf_counter()
+        torch.cuda.synchronize()
+        finished = time.perf_counter()
+        return (finished - started) / iters * 1e3, (enqueued - started) / iters * 1e3
+
+    wall_ms, enqueue_ms = timed(step)
+    graph = torch.cuda.CUDAGraph()
+    with capture(graph):
+        step()
+    graph_wall_ms, graph_enqueue_ms = timed(graph.replay)
+    device_ms = time_ms(graph.replay, warmup=2, iters=10)
+    del graph
+    return {"wall_ms": wall_ms, "enqueue_ms": enqueue_ms, "graph_wall_ms": graph_wall_ms,
+            "graph_enqueue_ms": graph_enqueue_ms, "device_ms": device_ms}
+
+
+def _bare_line(label: str, timing: dict) -> str:
+    return (f"{label}: eager wall {timing['wall_ms']:.2f} ms, host enqueue {timing['enqueue_ms']:.2f} "
+            f"ms; graphed wall {timing['graph_wall_ms']:.3f} ms, host enqueue "
+            f"{timing['graph_enqueue_ms']:.3f} ms; device {timing['device_ms']:.3f} ms (graph replay "
+            f"behind a sleep kernel); card busy {timing['device_ms'] / timing['wall_ms']:.0%} of the "
+            f"eager step, {timing['device_ms'] / timing['graph_wall_ms']:.0%} of the graphed one")
+
+
+def time_decode_step(engine, live: int = 512) -> dict:
+    """One decode step of the stopped engine's model (all slots at
+    ``live`` rows), eager and graphed (:func:`_bare_step`)."""
     slots = engine.max_slots
     tokens = torch.zeros(slots, dtype=torch.long, device=engine.device)
     lengths = torch.full((slots,), live, dtype=torch.int32, device=engine.device)
@@ -994,40 +1036,25 @@ def time_decode_step(engine, live: int = 512, iters: int = 5) -> dict:
     def step():
         model.decode_step(engine.config, engine.params, engine.cache, tokens, lengths, engine.freqs)
 
-    step()
-    torch.cuda.synchronize()
-    started = time.perf_counter()
-    for _ in range(iters):
-        step()
-    enqueued = time.perf_counter()
-    torch.cuda.synchronize()
-    finished = time.perf_counter()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        step()
-    device_ms = time_ms(graph.replay, warmup=2, iters=10)
-    del graph
+    timing = _bare_step(step)
     # every weight is read once per step except the embedding (a gather);
     # int8 weights count their scales
     weight_bytes = sum(p.nbytes for name, p in engine.params.items() if name != "embedding")
-    timing = {"wall_ms": (finished - started) / iters * 1e3,
-              "enqueue_ms": (enqueued - started) / iters * 1e3, "device_ms": device_ms,
-              "weight_bytes": weight_bytes}
+    timing["weight_bytes"] = weight_bytes
     cache = "int8" if engine.kv_quant else "bf16"
     weights = "int8" if isinstance(engine.params["wq"], QTensor) else "bf16"
-    log(f"decode step (model only, {weights} weights, {cache} KV cache, {slots} slots x {live} live "
-        f"rows): wall {timing['wall_ms']:.2f} ms, host enqueue {timing['enqueue_ms']:.2f} ms, device "
-        f"{device_ms:.3f} ms (graph replay behind a sleep kernel), weight-read bound "
-        f"{weight_bytes / PEAK_BYTES * 1e3:.2f} ms ({weight_bytes / 1e9:.2f} GB)")
+    log(_bare_line(f"decode step (model only, {weights} weights, {cache} KV cache, {slots} slots x "
+                   f"{live} live rows)", timing)
+        + f", weight-read bound {weight_bytes / PEAK_BYTES * 1e3:.2f} ms ({weight_bytes / 1e9:.2f} GB)")
     return timing
 
 
-def time_paged_steps(engine, live: int = 512, iters: int = 5) -> None:
-    """One eager paged decode step and one mixed step (64 wide, one row a
+def time_paged_steps(engine, live: int = 512) -> dict:
+    """One paged decode step and one mixed step (64 wide, one row a
     64-token window, the others decoding) of the stopped engine's model,
-    every slot at ``live`` rows over its own blocks: host enqueue time
-    against wall time for each. The mixed step runs its whole [S, 64]
-    grid through the projections, as the JAX step does."""
+    every slot at ``live`` rows over its own blocks, eager and graphed
+    (:func:`_bare_step`). The mixed step runs its whole [S, 64] grid
+    through the projections, as the JAX step does."""
     slots, width = engine.max_slots, 64
     device = engine.device
     blocks_per_row = (engine.num_blocks - 1) // slots
@@ -1047,24 +1074,18 @@ def time_paged_steps(engine, live: int = 512, iters: int = 5) -> None:
                                num_tokens, tables, engine.freqs)
 
     cache = "int8" if engine.kv_quant else "bf16"
+    timings = {}
     for label, step in (("paged decode step", decode), ("mixed step (W 64)", mixed)):
-        step()
-        torch.cuda.synchronize()
-        started = time.perf_counter()
-        for _ in range(iters):
-            step()
-        enqueued = time.perf_counter()
-        torch.cuda.synchronize()
-        finished = time.perf_counter()
-        log(f"{label} (model only, {cache} paged KV cache, {slots} slots x {live} live rows): "
-            f"wall {(finished - started) / iters * 1e3:.2f} ms, host enqueue "
-            f"{(enqueued - started) / iters * 1e3:.2f} ms")
+        timings[label] = _bare_step(step)
+        log(_bare_line(f"{label} (model only, {cache} paged KV cache, {slots} slots x {live} live "
+                       f"rows)", timings[label]))
     hidden, inter = engine.config.hidden_size, engine.config.intermediate_size
     layer = hidden * engine.config.dims_per_head * (
         2 * engine.config.num_heads + 2 * engine.config.num_kv_heads) + 3 * hidden * inter
     flops = 2.0 * slots * width * (engine.config.num_layers * layer + hidden * engine.config.vocab_size / width)
     log(f"mixed step matmul FLOPs {flops:.3e} (all {slots} x {width} rows through every "
         f"projection): {flops / PEAK_BF16_FLOPS * 1e3:.2f} ms at the bf16 peak")
+    return timings
 
 
 WORDS = ["stream", "token", "kernel", "batch", "event", "topic", "agent", "model",
@@ -1088,32 +1109,58 @@ def prompt_text(rng, n_bytes: int) -> str:
     return text.strip()
 
 
-def start_llama_server(*extra: str, kv_quant: bool = False):
-    """``serve`` with these flags; ``kv_quant`` adds ``kv-quant: int8`` to
-    the provider's engine config, the way a deployment asks for it. The
-    decode chunk is 8, not ``bench.py``'s 32: a chunk is chained only while
-    every rider has two chunks of budget left, and at 32 no request of
-    these bursts (32-62 tokens) would ever chain."""
+def graph_pool_gib(engine):
+    """GiB of the device segments in the engine's shared graph pool (None
+    when eager, or where the allocator's snapshot does not name pools)."""
+    if engine.steps.pool is None:
+        return None
+    pool = tuple(engine.steps.pool)
+    segments = torch.cuda.memory_snapshot()
+    if not segments or "segment_pool_id" not in segments[0]:
+        return None
+    return sum(seg["total_size"] for seg in segments if tuple(seg["segment_pool_id"]) == pool) / 2**30
+
+
+def start_llama_server(*extra: str, kv_quant: bool = False, graphs: bool = True):
+    """``serve --precompile`` with these flags; ``kv_quant`` adds
+    ``kv-quant: int8`` to the provider's engine config, the way a
+    deployment asks for it; ``graphs=False`` builds the engine with eager
+    dispatch (the control; no flag or key reaches that). The decode chunk
+    is 8, not ``bench.py``'s 32: a chunk is chained only while every rider
+    has two chunks of budget left, and at 32 no request of these bursts
+    (32-62 tokens) would ever chain."""
     args = build_parser().parse_args([
         "serve", "--model", "llama-3-8b", "--max-slots", "32", "--max-seq-len", "1024",
-        "--decode-chunk", "8", "--host", "127.0.0.1", "--port", "0", *extra,
+        "--decode-chunk", "8", "--precompile", "--host", "127.0.0.1", "--port", "0", *extra,
     ])
     config = serve_config(args)
     if kv_quant:
         config["engine"]["kv-quant"] = "int8"
     t0 = time.perf_counter()
-    service, server = start_server(args, config)
-    log(f"serve {' '.join(extra) or '(dense)'}{' kv-quant: int8' if kv_quant else ''}: Llama-3-8B "
-        f"{args.quantization or 'bf16'} random weights up in {time.perf_counter() - t0:.1f}s "
-        f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated; pipelined decode "
-        f"{service.engine.pipeline_decode}, mixed carry {service.engine.mixed_carry})")
+    service, server = start_server(args, config, step_graphs=graphs)
+    engine = service.engine
+    pool = graph_pool_gib(engine)
+    log(f"serve {' '.join(extra) or '(dense)'}{' kv-quant: int8' if kv_quant else ''}"
+        f"{'' if graphs else ' EAGER (step_graphs=False)'}: Llama-3-8B "
+        f"{args.quantization or 'bf16'} random weights up in {time.perf_counter() - t0:.1f}s, "
+        f"precompile {engine.precompile_s:.2f}s ({engine.steps.stats['captured']} step variants "
+        f"{'captured as CUDA graphs' if engine.steps.graphed else 'warmed eagerly'} in "
+        f"{engine.steps.stats['capture_s']:.2f}s, the rest prefill calls; graph pool "
+        f"{'n/a' if pool is None else f'{pool:.3f} GiB'}); {torch.cuda.memory_allocated() / 2**30:.2f} "
+        f"GiB allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved; pipelined decode "
+        f"{engine.pipeline_decode}, mixed carry {engine.mixed_carry}")
     return service, server
 
 
 def run_burst(service, server, jobs, warmup=()):
-    """All jobs at once against the server: the main path's run, with
-    every kernel's launch count zeroed just before and read just after.
-    The ``warmup`` jobs are answered one by one before that, uncounted."""
+    """All jobs at once against the server: the main path's run. Returns
+    the kernels' launches on the card during the burst, from their device
+    counters (a replayed graph's kernels included), and the wrappers'
+    counts of launches the host enqueued (eager calls: a replay runs no
+    wrapper), both zeroed just before and read just after. The ``warmup`` jobs
+    are answered one by one before that, uncounted. A graphed engine must
+    capture nothing during the burst: every decode chunk and mixed step
+    is a replay of a graph ``precompile`` captured."""
     url = f"http://127.0.0.1:{server.port}"
 
     def post(job):
@@ -1142,16 +1189,24 @@ def run_burst(service, server, jobs, warmup=()):
     torch.cuda.reset_peak_memory_stats()
     for wrapper in KERNELS.values():
         wrapper.launches = 0
-    started = time.perf_counter()
+    runner = dict(engine.steps.stats)
     try:
-        with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
-            replies = list(pool.map(post, jobs))
+        with launches_lib.device_launches() as launches:
+            started = time.perf_counter()
+            with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+                replies = list(pool.map(post, jobs))
+            wall = time.perf_counter() - started
     finally:
         del engine._dispatch_decode  # the class's method again
-    wall = time.perf_counter() - started
-    launches = {name: wrapper.launches for name, wrapper in KERNELS.items()}
-    stats = dict(engine.stats, chained_decode_chunks=chained[0])
-    return replies, wall, launches, stats, torch.cuda.max_memory_allocated() / 2**30
+    host = {name: wrapper.launches for name, wrapper in KERNELS.items()}
+    stats = dict(engine.stats, chained_decode_chunks=chained[0], graphed=engine.steps.graphed,
+                 step_runs=engine.steps.stats["replayed"] - runner["replayed"],
+                 step_captures=engine.steps.stats["captured"] - runner["captured"])
+    if engine.steps.graphed:
+        assert stats["step_captures"] == 0, "a step variant was captured while serving"
+        assert stats["step_runs"] > 0 and all(
+            entry.graph is not None for entry in engine.steps._entries.values())
+    return replies, wall, launches, host, stats, torch.cuda.max_memory_allocated() / 2**30
 
 
 def check_replies(jobs, replies) -> int:
@@ -1173,7 +1228,7 @@ def check_replies(jobs, replies) -> int:
     return tokens + streamed
 
 
-def report(label, kind, jobs, wall, tokens, stats, launches, peak_gib) -> None:
+def report(label, kind, jobs, wall, tokens, stats, launches, host, peak_gib) -> None:
     requests = stats["requests"]
     mixed, plain = stats["mixed_steps"], stats["decode_steps"] - stats["mixed_steps"]
     plain_time = stats["decode_time"] - stats["mixed_time"]
@@ -1190,17 +1245,21 @@ def report(label, kind, jobs, wall, tokens, stats, launches, peak_gib) -> None:
         f"reused tokens {stats['prefix_tokens_reused']}; model calls {stats['model_dispatches']}; "
         f"chained decode chunks {stats['chained_decode_chunks']}, chained mixed steps "
         f"{stats['mixed_steps_chained']}, carry invalidations {stats['mixed_carry_invalidations']}; "
-        f"peak memory {peak_gib:.2f} GiB; launches {launches}")
+        f"step {'graphs replayed' if stats['graphed'] else 'bodies run eagerly'} {stats['step_runs']}, "
+        f"captured {stats['step_captures']}; peak memory {peak_gib:.2f} GiB allocated (a replay "
+        f"allocates nothing: the graph pool is apart); launches on the card {launches}, of them "
+        f"enqueued eagerly {host}")
     assert requests == len(jobs), (requests, len(jobs))
 
 
-def serve_dense_and_check(label: str, kv_quant: bool = False, extra=()) -> dict:
+def serve_dense_and_check(label: str, kv_quant: bool = False, extra=(), graphs: bool = True) -> dict:
     """The dense burst through ``serve`` with ``extra`` flags (pipelined
     unless ``--no-pipeline-decode``; ``--quantization int8`` for int8
-    weights): B1/B2 (B4/B5 over the int8 cache) once per layer per model
-    call, no other kernel, and chained decode chunks when pipelined.
-    Returns the launches and the bare decode step's timing."""
-    service, server = start_llama_server(*extra, kv_quant=kv_quant)
+    weights; ``graphs=False``: the eager control): B1/B2 (B4/B5 over the
+    int8 cache) once per layer per model call, no other kernel, and
+    chained decode chunks when pipelined. Returns the launches, tok/s and
+    mean TTFT of both bursts, and the bare decode step's timing."""
+    service, server = start_llama_server(*extra, kv_quant=kv_quant, graphs=graphs)
     rng = np.random.default_rng(0)
     jobs = []
     for i in range(16):
@@ -1225,9 +1284,9 @@ def serve_dense_and_check(label: str, kv_quant: bool = False, extra=()) -> dict:
         "messages": [{"role": "user", "content": prompt_text(rng, 180)}],
         "max_tokens": 64, "stream": True}))
     try:
-        replies, wall, launches, stats, peak_gib = run_burst(service, server, jobs)
-        uniform_replies, uniform_wall, uniform_launches, uniform_stats, uniform_peak = run_burst(
-            service, server, uniform)
+        replies, wall, launches, host, stats, peak_gib = run_burst(service, server, jobs)
+        (uniform_replies, uniform_wall, uniform_launches, uniform_host, uniform_stats,
+         uniform_peak) = run_burst(service, server, uniform)
     finally:
         server.stop()
         service.engine.stop()
@@ -1242,18 +1301,23 @@ def serve_dense_and_check(label: str, kv_quant: bool = False, extra=()) -> dict:
     assert launches[decode] == layers * calls.get("decode_step", 0), (launches, calls)
     others = [name for name in KERNELS if name not in (prefill, decode)]
     assert all(launches[name] == 0 for name in others), launches
-    kind = " ".join(["dense"] + [flag.lstrip("-") for flag in extra] + (["int8 KV"] if kv_quant else []))
-    report(label, kind, jobs, wall, tokens, stats, launches, peak_gib)
+    # prefill runs eagerly; a decode step only in the eager control
+    assert host == dict(launches, **{decode: 0 if graphs else launches[decode]}), (host, launches)
+    kind = " ".join(["dense"] + [flag.lstrip("-") for flag in extra] + (["int8 KV"] if kv_quant else [])
+                    + ([] if graphs else ["EAGER"]))
+    report(label, kind, jobs, wall, tokens, stats, launches, host, peak_gib)
     uniform_tokens = check_replies(uniform, uniform_replies)
     report(label, kind + ", uniform 64-token burst", uniform, uniform_wall, uniform_tokens,
-           uniform_stats, uniform_launches, uniform_peak)
+           uniform_stats, uniform_launches, uniform_host, uniform_peak)
     chained = stats["chained_decode_chunks"] + uniform_stats["chained_decode_chunks"]
     if service.engine.pipeline_decode:
         assert uniform_stats["chained_decode_chunks"] > 0, uniform_stats
     else:
         assert chained == 0, (stats, uniform_stats)
     return dict(launches, timing=timing, peak_gib=peak_gib, tok_s=tokens / wall,
-                uniform_tok_s=uniform_tokens / uniform_wall)
+                uniform_tok_s=uniform_tokens / uniform_wall,
+                ttft_ms=stats["ttft_time"] / stats["requests"] * 1e3,
+                uniform_ttft_ms=uniform_stats["ttft_time"] / uniform_stats["requests"] * 1e3)
 
 
 def serve_paged_and_check(label: str, kv_quant: bool = False, mixed: bool = False,
@@ -1292,7 +1356,7 @@ def serve_paged_and_check(label: str, kv_quant: bool = False, mixed: bool = Fals
     if not (warm or mixed):
         warmup = []
     try:
-        replies, wall, launches, stats, peak_gib = run_burst(service, server, jobs, warmup)
+        replies, wall, launches, host, stats, peak_gib = run_burst(service, server, jobs, warmup)
     finally:
         server.stop()
         service.engine.stop()
@@ -1315,19 +1379,21 @@ def serve_paged_and_check(label: str, kv_quant: bool = False, mixed: bool = Fals
         assert launches[ragged_q] == layers * calls.get("paged_mixed_step", 0), (launches, calls)
         assert launches[paged] == layers * calls.get("paged_decode_step", 0), (launches, calls)
         used = (paged, ragged_q)
+        # every step a replay: nothing enqueued eagerly
+        assert not any(host.values()), host
     else:
         assert launches[paged] == layers * sum(calls.values()), (launches, calls)
         used = (paged,)
-        # B3/B6's launches by shape: decode steps, and prefill calls (cold
-        # and onto a cached prefix)
-        launches = dict(launches, **{
-            f"{paged}/decode": layers * calls.get("paged_decode_step", 0),
-            f"{paged}/prefill": layers * (calls.get("paged_prefill", 0)
-                                          + calls.get("paged_prefill_at_offset", 0))})
+        # B3/B6's launches by shape: prefill calls (cold and onto a cached
+        # prefix), enqueued eagerly, and decode steps, the rest (replays)
+        prefills = layers * (calls.get("paged_prefill", 0) + calls.get("paged_prefill_at_offset", 0))
+        assert host == dict.fromkeys(KERNELS, 0) | {paged: prefills}, (host, calls)
+        launches = dict(launches, **{f"{paged}/decode": launches[paged] - host[paged],
+                                     f"{paged}/prefill": host[paged]})
     assert all(launches[name] == 0 for name in KERNELS if name not in used), launches
     kind = (("mixed paged" if mixed else "paged") + (" int8 KV" if kv_quant else "")
             + (" warm" if warmup else " cold"))
-    report(label, kind, jobs, wall, tokens, stats, launches, peak_gib)
+    report(label, kind, jobs, wall, tokens, stats, launches, host, peak_gib)
     return launches
 
 
@@ -1358,10 +1424,12 @@ def main() -> None:
     mixed = functools.partial(serve_paged_and_check, mixed=True)
     warm_split = functools.partial(serve_paged_and_check, warm=True)  # the mixed run's twin
     pipelined = serve_dense_and_check
+    eager = functools.partial(serve_dense_and_check, graphs=False)
     unpipelined = functools.partial(serve_dense_and_check, extra=("--no-pipeline-decode",))
     int8_weights = functools.partial(serve_dense_and_check, extra=("--quantization", "int8"))
     for serve, kv_quant, names in (
         (pipelined, False, ("flash_prefill", "flash_decode")),
+        (eager, False, ()),
         (unpipelined, False, ()),
         (unpipelined, False, ()),
         (pipelined, False, ()),
@@ -1381,20 +1449,35 @@ def main() -> None:
         runs.setdefault((serve, kv_quant), []).append(counts)
         gc.collect()
         torch.cuda.empty_cache()
-    turns = ", ".join(
-        f"{kind} {run['tok_s']:.1f} / {run['uniform_tok_s']:.1f}"
-        for kind, run in zip(("pipelined", "unpipelined", "unpipelined", "pipelined"),
-                             (*runs[pipelined, False][:1], *runs[unpipelined, False],
-                              runs[pipelined, False][1])))
-    log(f"dense bf16 in turns, tok/s of the mixed-length / uniform 64-token burst: {turns}")
+
+    def turns(kinds, phases):
+        return ", ".join(
+            f"{kind} {run['tok_s']:.1f} / {run['uniform_tok_s']:.1f} tok/s, TTFT "
+            f"{run['ttft_ms']:.1f} / {run['uniform_ttft_ms']:.1f} ms"
+            for kind, run in zip(kinds, phases))
+
+    graphed_runs = runs[pipelined, False]
+    log("dense bf16 in turns, graphed against eager (both pipelined), mixed-length / uniform "
+        "64-token burst: " + turns(("graphed", "eager", "graphed"),
+                                   (graphed_runs[0], runs[eager, False][0], graphed_runs[1])))
+    log("dense bf16 in turns, the carry (both graphed), mixed-length / uniform 64-token burst: "
+        + turns(("pipelined", "unpipelined", "unpipelined", "pipelined"),
+                (graphed_runs[0], *runs[unpipelined, False], graphed_runs[1])))
+    bare = [(kind, run["timing"]) for kind, run in zip(
+        ("graphed", "eager", "unpipelined", "unpipelined", "graphed"),
+        (graphed_runs[0], runs[eager, False][0], *runs[unpipelined, False], graphed_runs[1]))]
+    log("bare bf16 decode step in the five dense bf16 phases (eager wall / graphed wall / device "
+        "ms): " + ", ".join(f"{t['wall_ms']:.2f} / {t['graph_wall_ms']:.3f} / {t['device_ms']:.3f}"
+                            for _, t in bare))
     # the int8-weight phase beside the bf16 phase just before it
     bf16, int8 = runs[pipelined, False][-1], runs[int8_weights, False][0]
-    log(f"bare decode step, bf16 vs int8 weights (32 slots x 512 rows): wall "
-        f"{bf16['timing']['wall_ms']:.2f} vs {int8['timing']['wall_ms']:.2f} ms, host enqueue "
-        f"{bf16['timing']['enqueue_ms']:.2f} vs {int8['timing']['enqueue_ms']:.2f} ms, device "
+    log(f"bare decode step, bf16 vs int8 weights (32 slots x 512 rows): eager wall "
+        f"{bf16['timing']['wall_ms']:.2f} vs {int8['timing']['wall_ms']:.2f} ms, graphed wall "
+        f"{bf16['timing']['graph_wall_ms']:.3f} vs {int8['timing']['graph_wall_ms']:.3f} ms, device "
         f"{bf16['timing']['device_ms']:.3f} vs {int8['timing']['device_ms']:.3f} ms, weights read "
         f"{bf16['timing']['weight_bytes'] / 1e9:.2f} vs {int8['timing']['weight_bytes'] / 1e9:.2f} GB; "
-        f"serving peak {bf16['peak_gib']:.2f} vs {int8['peak_gib']:.2f} GiB")
+        f"serving peak {bf16['peak_gib']:.2f} vs {int8['peak_gib']:.2f} GiB; uniform burst "
+        f"{bf16['uniform_tok_s']:.1f} vs {int8['uniform_tok_s']:.1f} tok/s")
     for item in kernels:
         item["launches"] = launches[item["name"]]
         assert item["launches"] > 0, item

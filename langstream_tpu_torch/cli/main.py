@@ -23,6 +23,17 @@ def build_parser() -> argparse.ArgumentParser:
     serve.add_argument("--max-seq-len", type=int, default=2048)
     serve.add_argument("--decode-chunk", type=int, default=16)
     serve.add_argument(
+        "--admission-chunk", type=int, default=0,
+        help="cap the decode chunk at this many steps while admissions "
+             "wait, so new requests join the batch sooner (TTFT lever; "
+             "0 = off)",
+    )
+    serve.add_argument(
+        "--precompile", action="store_true",
+        help="capture every decode and mixed step variant's CUDA graph and run "
+             "every prefill variant once before serving",
+    )
+    serve.add_argument(
         "--kv-layout", default="dense", choices=["dense", "paged"],
         help="KV cache layout: dense per-slot regions, or a paged block pool "
              "with a persistent refcounted prefix cache",
@@ -82,6 +93,8 @@ def serve_config(args: argparse.Namespace) -> Dict[str, Any]:
             "prefill-chunk": args.prefill_chunk,
             "mixed-carry": args.mixed_carry,
             "pipeline-decode": not args.no_pipeline_decode,
+            "admission-chunk": args.admission_chunk or "",
+            "precompile": bool(args.precompile),
         },
     }
     if args.quantization:
@@ -90,12 +103,15 @@ def serve_config(args: argparse.Namespace) -> Dict[str, Any]:
 
 
 def start_server(
-    args: argparse.Namespace, config: Optional[Dict[str, Any]] = None
+    args: argparse.Namespace, config: Optional[Dict[str, Any]] = None, *,
+    step_graphs: bool = True,
 ) -> Tuple[TorchCompletionsService, OpenAIApiServer]:
     """Build the service (random weights from seed 0) from ``config``
     (default: :func:`serve_config` of ``args``) and start the server
-    thread; the caller owns stopping both."""
-    service = TorchCompletionsService(config or serve_config(args), device=args.device)
+    thread; the caller owns stopping both. ``step_graphs=False`` serves
+    with eager dispatch, a control for measurements."""
+    service = TorchCompletionsService(
+        config or serve_config(args), device=args.device, step_graphs=step_graphs)
     server = OpenAIApiServer(service, model=args.model, host=args.host, port=args.port)
     server.start()
     return service, server

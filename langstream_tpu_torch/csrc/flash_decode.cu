@@ -80,6 +80,18 @@
 
 namespace {
 
+// Launches of each kernel form of this library, counted on the card by
+// the grid's first thread, so a kernel replayed from a CUDA graph counts
+// once per replay; read and zeroed through flash_decode_launch_counts.
+// Forms: 0 bf16 KV (B2), 1 int8 KV (B5).
+constexpr int FORMS = 2;
+__device__ unsigned long long g_launches[FORMS];
+
+__device__ __forceinline__ void count_launch(int form) {
+  if (threadIdx.x + threadIdx.y + threadIdx.z == 0 && blockIdx.x + blockIdx.y + blockIdx.z == 0)
+    atomicAdd(&g_launches[form], 1ull);
+}
+
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr size_t SMEM_LIMIT = 232448;  // dynamic shared memory a block may use
@@ -153,6 +165,7 @@ flash_decode_fma_kernel(const T* __restrict__ q, const KV* __restrict__ kc,
                     int kv_heads, int dim, float scale, float softcap, int window,
                     Layout L) {
   constexpr bool QUANT = is_int8<KV>();
+  count_launch(QUANT);
   extern __shared__ float4 smem4[];
   char* base = reinterpret_cast<char*>(smem4);
   KV* sV = reinterpret_cast<KV*>(base + L.v);
@@ -474,6 +487,7 @@ flash_decode_mma_kernel(const __nv_bfloat16* __restrict__ q, const KV* __restric
   using M = Mma<KV, DP>;
   constexpr bool QUANT = M::QUANT;
   constexpr int BK = M::BK, PITCH = M::PITCH, NTH = M::NT, KG = M::KG;
+  count_launch(QUANT);
   constexpr int GT = 32 * M::COLS;      // threads of a key group
   constexpr int NO = DP / 8 / M::COLS;  // n8 column sub-tiles of this warp's O
   constexpr int KQ = DP / 16;           // k-steps of Q.K^T
@@ -944,4 +958,17 @@ extern "C" int flash_decode_quant(const void* q, const void* kc, const void* k_s
                max_len, heads, kv_heads, dim, scale, softcap, window,
                static_cast<cudaStream_t>(stream)};
   return int(dispatch<int8_t>(dtype, a));
+}
+
+// Copies the launch counts of this library's kernel forms (see
+// g_launches) into out[FORMS] and, with reset, zeroes them. Waits for the
+// device first. Returns the cudaError_t.
+extern "C" int flash_decode_launch_counts(unsigned long long* out, int reset) {
+  cudaError_t err = cudaDeviceSynchronize();
+  if (err == cudaSuccess) err = cudaMemcpyFromSymbol(out, g_launches, sizeof(g_launches));
+  if (err == cudaSuccess && reset) {
+    const unsigned long long zeros[FORMS] = {};
+    err = cudaMemcpyToSymbol(g_launches, zeros, sizeof(g_launches));
+  }
+  return int(err);
 }

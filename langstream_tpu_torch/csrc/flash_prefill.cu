@@ -82,6 +82,18 @@
 
 namespace {
 
+// Launches of each kernel form of this library, counted on the card by
+// the grid's first thread, so a kernel replayed from a CUDA graph counts
+// once per replay; read and zeroed through flash_prefill_launch_counts.
+// Forms: 0 bf16 KV (B1), 1 int8 KV (B4).
+constexpr int FORMS = 2;
+__device__ unsigned long long g_launches[FORMS];
+
+__device__ __forceinline__ void count_launch(int form) {
+  if (threadIdx.x + threadIdx.y + threadIdx.z == 0 && blockIdx.x + blockIdx.y + blockIdx.z == 0)
+    atomicAdd(&g_launches[form], 1ull);
+}
+
 constexpr int BQ = 64;    // q rows per CTA
 constexpr int BK = 64;    // k rows per tile
 constexpr int NT = 256;   // threads: 4 per q row
@@ -121,6 +133,7 @@ flash_prefill_fma_kernel(const float* __restrict__ q, const KV* __restrict__ k,
                          const float* __restrict__ v_scale, int seq, int heads,
                          int kv_heads, int dim, float scale, float softcap, int window) {
   constexpr bool QUANT = is_int8<KV>();
+  count_launch(QUANT);
   constexpr int DP = D + 4;   // padded f32 row of q/k/v tiles
   constexpr int PP = BK + 4;  // padded f32 row of the p tile
   constexpr int NX = D / 16;  // float4 column groups per thread in p.v
@@ -554,6 +567,7 @@ flash_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            int kv_heads, int dim, float scale, float softcap, int window) {
   using L = Wg<KV, D, NWG>;
   constexpr bool QUANT = L::QUANT;
+  count_launch(QUANT);
   constexpr int KT = L::KT;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -1089,4 +1103,17 @@ extern "C" int flash_prefill_quant(const void* q, const void* k, const void* k_s
     return dispatch_f32_quant(dim, q, k, v, k_scale, v_scale, out, lengths, batch, seq, heads,
                               kv_heads, scale, softcap, window, s);
   return int(cudaErrorInvalidValue);
+}
+
+// Copies the launch counts of this library's kernel forms (see
+// g_launches) into out[FORMS] and, with reset, zeroes them. Waits for the
+// device first. Returns the cudaError_t.
+extern "C" int flash_prefill_launch_counts(unsigned long long* out, int reset) {
+  cudaError_t err = cudaDeviceSynchronize();
+  if (err == cudaSuccess) err = cudaMemcpyFromSymbol(out, g_launches, sizeof(g_launches));
+  if (err == cudaSuccess && reset) {
+    const unsigned long long zeros[FORMS] = {};
+    err = cudaMemcpyToSymbol(g_launches, zeros, sizeof(g_launches));
+  }
+  return int(err);
 }

@@ -110,6 +110,19 @@
 
 namespace {
 
+// Launches of each kernel form of this library, counted on the card by
+// the grid's first thread, so a kernel replayed from a CUDA graph counts
+// once per replay; read and zeroed through paged_attention_launch_counts.
+// Forms: 0 B3, 1 B6 (int8 pools), 2 B7 (the token-ragged form:
+// q_offsets set), 3 B8.
+constexpr int FORMS = 4;
+__device__ unsigned long long g_launches[FORMS];
+
+__device__ __forceinline__ void count_launch(int form) {
+  if (threadIdx.x + threadIdx.y + threadIdx.z == 0 && blockIdx.x + blockIdx.y + blockIdx.z == 0)
+    atomicAdd(&g_launches[form], 1ull);
+}
+
 constexpr int MAX_ROWS = 64;   // score rows (q tokens x query heads) per CTA
 constexpr size_t SMEM_LIMIT = 232448;  // dynamic shared memory a block may use
 constexpr float NEG_INF = -1e30f;
@@ -264,6 +277,7 @@ paged_attention_fma_kernel(const float* __restrict__ q, const KV* __restrict__ k
                            int max_blocks, int block_q, int bk, float scale,
                            float softcap, int window, Layout L) {
   constexpr bool QUANT = is_int8<KV>();
+  count_launch((q_offsets ? 2 : 0) + QUANT);
   extern __shared__ float4 smem4[];
   char* base = reinterpret_cast<char*>(smem4);
   KV* sV = reinterpret_cast<KV*>(base + L.v);
@@ -562,6 +576,7 @@ paged_attention_mma_kernel(const __nv_bfloat16* __restrict__ q, const KV* __rest
   using M = Mma<KV, DP>;
   constexpr bool QUANT = M::QUANT;
   constexpr int BK = M::BK, PITCH = M::PITCH;
+  count_launch((q_offsets ? 2 : 0) + QUANT);
   constexpr int NS = BK / 8;   // n8 key sub-tiles of S
   constexpr int NO = DP / 8 / M::COLS;  // n8 column sub-tiles of this warp's O
   constexpr int NTH = M::NT;
@@ -1083,4 +1098,17 @@ extern "C" int paged_attention_ragged_q_quant(
   return int(dispatch(true, dtype, q, kp, vp, out, tables, starts, lengths, q_offsets, k_scale,
                       v_scale, batch, total_q, max_q_len, block_q, heads, kv_heads, dim,
                       num_blocks, block_size, max_blocks, scale, softcap, window, stream));
+}
+
+// Copies the launch counts of this library's kernel forms (see
+// g_launches) into out[FORMS] and, with reset, zeroes them. Waits for the
+// device first. Returns the cudaError_t.
+extern "C" int paged_attention_launch_counts(unsigned long long* out, int reset) {
+  cudaError_t err = cudaDeviceSynchronize();
+  if (err == cudaSuccess) err = cudaMemcpyFromSymbol(out, g_launches, sizeof(g_launches));
+  if (err == cudaSuccess && reset) {
+    const unsigned long long zeros[FORMS] = {};
+    err = cudaMemcpyToSymbol(g_launches, zeros, sizeof(g_launches));
+  }
+  return int(err);
 }

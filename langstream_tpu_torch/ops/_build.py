@@ -21,7 +21,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Optional
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
@@ -43,6 +43,8 @@ SIGNATURES = {
         "flash_prefill_quant": [
             _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P,
         ],
+        # the device launch counters (ops/launches.py): out [forms] u64, reset
+        "flash_prefill_launch_counts": [_P, _I],
     },
     "flash_decode": {
         "flash_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
@@ -50,6 +52,8 @@ SIGNATURES = {
         "flash_decode_quant": [
             _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P,
         ],
+        # the device launch counters (ops/launches.py): out [forms] u64, reset
+        "flash_decode_launch_counts": [_P, _I],
     },
     "paged_attention": {
         "paged_attention": [
@@ -80,6 +84,7 @@ SIGNATURES = {
             _I, _I, _I, _I, _I,
             _F, _F, _I, _P,
         ],
+        "paged_attention_launch_counts": [_P, _I],
     },
 }
 
@@ -173,6 +178,13 @@ def load(name: str) -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _loaded[name] = lib
         return lib
+
+
+def loaded(name: str) -> Optional[ctypes.CDLL]:
+    """The library for ``csrc/<name>.cu`` if this process has loaded it
+    (None: none of its kernels has run here)."""
+    with _lock:
+        return _loaded.get(name)
 
 
 # a C entry point that cannot encode a TMA tensor map returns this plus

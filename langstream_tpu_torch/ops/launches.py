@@ -1,0 +1,61 @@
+"""Count the port's kernels as the card ran them.
+
+Each kernel wrapper counts, in Python, the launches it enqueues. A kernel
+enqueued while a CUDA graph captures runs again on every replay of the
+graph, where no Python runs, so those counts say nothing of a replayed
+step. Each kernel also counts itself on the card: the first thread of its
+grid adds one to a device counter of its form (``count_launch`` in each
+``csrc/*.cu``), on a replay as on an eager launch. :func:`device_launches`
+reads those counters around a block, under the wrappers' names:
+
+- ``flash_prefill.cu``: ``flash_prefill`` (B1), ``flash_prefill_quant`` (B4);
+- ``flash_decode.cu``: ``flash_decode`` (B2), ``flash_decode_quant`` (B5);
+- ``paged_attention.cu``: ``paged_attention`` (B3),
+  ``paged_attention_quant`` (B6), ``paged_attention_ragged_q`` (B7),
+  ``paged_attention_ragged_q_quant`` (B8).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+from typing import Dict, Iterator
+
+from langstream_tpu_torch.ops import _build
+
+# library -> its kernel forms, in the order of its device counters
+FORMS = {
+    "flash_prefill": ("flash_prefill", "flash_prefill_quant"),
+    "flash_decode": ("flash_decode", "flash_decode_quant"),
+    "paged_attention": ("paged_attention", "paged_attention_quant",
+                        "paged_attention_ragged_q", "paged_attention_ragged_q_quant"),
+}
+KERNEL_NAMES = tuple(name for forms in FORMS.values() for name in forms)
+
+
+def read(reset: bool = False) -> Dict[str, int]:
+    """Every kernel form's launches on the card since its library was
+    loaded or last reset (0 for a library not loaded in this process),
+    after the device's queued work; ``reset`` zeroes them."""
+    counts = dict.fromkeys(KERNEL_NAMES, 0)
+    for library, forms in FORMS.items():
+        lib = _build.loaded(library)
+        if lib is None:
+            continue
+        values = (ctypes.c_ulonglong * len(forms))()
+        _build.check(getattr(lib, f"{library}_launch_counts")(values, int(reset)),
+                     f"{library}_launch_counts")
+        counts.update(zip(forms, values))
+    return counts
+
+
+@contextlib.contextmanager
+def device_launches() -> Iterator[Dict[str, int]]:
+    """Yields a dict that, once the block has ended, holds every kernel
+    form's launches on the card during the block (each name of
+    :data:`KERNEL_NAMES`). Waits for the device at both ends; another
+    thread's kernels in the block count too."""
+    read(reset=True)
+    counts = dict.fromkeys(KERNEL_NAMES, 0)
+    yield counts
+    counts.update(read())

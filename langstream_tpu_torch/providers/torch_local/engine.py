@@ -47,10 +47,19 @@ path over the paged one:
   device-resident sample; only the prompt-window tokens upload. A plan the
   host cannot predict falls back to a host-built step, counted by reason
   in ``stats["mixed_carry_invalidations"]``.
-- **K-step decode chunks**: the JAX ``lax.scan`` becomes a host loop of K
+- **K-step decode chunks**: the JAX ``lax.scan`` becomes a loop of K
   steps whose sampled tokens stay on the device; the chunk's tokens cross
   to the host once, are emitted per chunk, and a stop in mid-chunk
   discards the rest of the chunk (the slot's length stops at the stop).
+  While admissions wait, ``admission_chunk`` (when set) caps the chunk.
+- **One CUDA graph per step variant** (``graphs.py``): each decode chunk
+  (step count × sampling tier) and each mixed step (width × tier) that
+  :meth:`DecodeEngine._variant_keys` lists is captured once, as the JAX
+  engine jits ``_get_decode`` and ``_get_mixed``, and replayed with one
+  launch; :meth:`DecodeEngine.precompile` captures them all, and runs
+  every prefill variant once, before traffic. On the CPU, and with
+  ``step_graphs=False`` (an eager control on the card), the same body
+  runs op by op through the same static buffers, uncaptured.
 - **On-device sampling**: greedy / temperature / top-k / top-p, presence
   and frequency penalties over a per-slot count array, logit bias, and
   per-request keys from (seed, position) that reproduce ``jax.random``.
@@ -85,6 +94,13 @@ from langstream_tpu_torch.device import resolve_device
 from langstream_tpu_torch.ops.paged_attention import fused_shapes_ok
 from langstream_tpu_torch.providers.torch_local import model as model_lib
 from langstream_tpu_torch.providers.torch_local import prng, sampling
+from langstream_tpu_torch.providers.torch_local.graphs import (
+    TIERS,
+    StepRunner,
+    Variant,
+    sampling_tier,
+    to_device,
+)
 from langstream_tpu_torch.providers.torch_local.paged import PagedKVManager
 from langstream_tpu_torch.providers.torch_local.quant import QTensor, quantize_params
 
@@ -240,11 +256,24 @@ class DecodeEngine:
                                           # N's device carry before
                                           # processing N on the host
         quantize: Optional[str] = None,   # "int8" = weight-only int8
+        admission_chunk: Optional[int] = None,  # cap the decode chunk at
+                                          # this many steps while
+                                          # admissions wait (None = off)
+        step_graphs: bool = True,         # decode chunks and mixed steps
+                                          # as one CUDA graph per variant
+                                          # (eager on the CPU); False =
+                                          # eager dispatch
     ) -> None:
         self.device = resolve_device(device)
         self.config = config
         self.max_slots = max_slots
         self.decode_chunk = max(1, decode_chunk)
+        # TTFT lever, as in the JAX engine: while requests wait for a slot,
+        # a fresh chunk runs at most this many steps so a slot frees sooner
+        self.admission_chunk = (
+            min(int(admission_chunk), self.decode_chunk)
+            if admission_chunk and int(admission_chunk) > 0 else None
+        )
         self.max_seq_len = min(max_seq_len or config.max_seq_len, config.max_seq_len)
         self.prefill_buckets = sorted(prefill_buckets or self._default_buckets())
         if kv_layout not in ("dense", "paged"):
@@ -340,6 +369,11 @@ class DecodeEngine:
             (max_slots, config.vocab_size), dtype=torch.int32, device=self.device
         )
         self.slots = [_Slot() for _ in range(max_slots)]
+        # every decode chunk and mixed step goes through the step runner
+        self.steps = StepRunner(
+            self.device, graphs=step_graphs, body=self._step_body, dummy=self._step_dummy,
+        )
+        self.precompile_s: Optional[float] = None
         self.base_seed = seed
         self._seed_sequence = 0
         self._queue: "queue.Queue[Optional[GenerationRequest]]" = queue.Queue()
@@ -804,21 +838,17 @@ class DecodeEngine:
         return ids, values
 
     def _to_device(self, array: np.ndarray) -> torch.Tensor:
-        """A copy of a host array on the device. On the card the copy goes
-        through pinned memory without blocking, so an upload never waits
-        for the work already queued (a pageable one syncs the stream)."""
-        tensor = torch.from_numpy(array)
-        if self.device.type == "cuda":
-            return tensor.pin_memory().to(self.device, non_blocking=True)
-        return tensor.clone()
+        return to_device(array, self.device)
 
     def _to_host(self, *tensors: torch.Tensor) -> Tuple[List[torch.Tensor], Any]:
         """Start copying device tensors to the host: on the card into
         pinned buffers without blocking, behind an event that
         :meth:`_from_host` waits on, so the copies finish with the work
-        queued before them and never wait for work queued after."""
+        queued before them and never wait for work queued after. Either
+        way the copy is taken now: a step's outputs are the runner's
+        static buffers, which the next step of its variant overwrites."""
         if self.device.type != "cuda":
-            return list(tensors), None
+            return [tensor.clone() for tensor in tensors], None
         buffers = []
         for tensor in tensors:
             buffer = torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=True)
@@ -835,35 +865,51 @@ class DecodeEngine:
             event.synchronize()
         return [buffer.numpy() for buffer in buffers]
 
-    def _sampling_inputs(self, requests: List[Optional[GenerationRequest]]):
-        """Per-row sampling tensors on the device (temperature, top-k,
+    def _sampling_arrays(
+        self, requests: List[Optional[GenerationRequest]]
+    ) -> Tuple[Dict[str, np.ndarray], str]:
+        """Per-row sampling arrays by step input name (temperature, top-k,
         top-p, seed, bias ids and values, presence and frequency
-        penalties [S, 1]), plus the host-known tiers (any stochastic row,
-        any truncated row)."""
+        penalties [S, 1]; None rows are inactive), and the batch's
+        host-known sampling tier (:data:`graphs.TIERS`)."""
         rows = [r.sampling if r is not None else SamplingParams() for r in requests]
         temperature = np.asarray([s.temperature for s in rows], dtype=np.float32)
         top_k = np.asarray([s.top_k for s in rows], dtype=np.int64)
         top_p = np.asarray([s.top_p for s in rows], dtype=np.float32)
-        seeds = np.asarray(
-            [self._request_seed(r) if r is not None else 0 for r in requests],
-            dtype=np.int64,
-        )
-        presence = np.asarray([[s.presence_penalty] for s in rows], dtype=np.float32)
-        frequency = np.asarray([[s.frequency_penalty] for s in rows], dtype=np.float32)
         bias_ids, bias_vals = self._bias_rows(requests)
-        tiers = dict(
+        arrays = {
+            "temperature": temperature,
+            "top_k": top_k,
+            "top_p": top_p,
+            "seeds": np.asarray(
+                [self._request_seed(r) if r is not None else 0 for r in requests], dtype=np.int64),
+            "bias_ids": bias_ids,
+            "bias_vals": bias_vals,
+            "presence": np.asarray([[s.presence_penalty] for s in rows], dtype=np.float32),
+            "frequency": np.asarray([[s.frequency_penalty] for s in rows], dtype=np.float32),
+        }
+        tier = sampling_tier(
             stochastic=bool((temperature > 0).any()),
             truncated=bool((top_k > 0).any() or (top_p > 0).any()),
         )
-        tensors = tuple(
-            self._to_device(a)
-            for a in (temperature, top_k, top_p, seeds, bias_ids, bias_vals, presence, frequency)
-        )
-        return tensors, tiers
+        return arrays, tier
 
-    def _count_dispatch(self, name: str) -> None:
+    def _sample(self, logits: torch.Tensor, x: Dict[str, torch.Tensor], positions: torch.Tensor,
+                tier: str, raw: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Bias, then sample ``logits`` (penalized where the caller
+        penalized them) with the sampling tensors ``x`` at keys from (seed,
+        ``positions``); returns the tokens and their logprobs under the
+        RAW untruncated distribution ``raw`` (default ``logits``)."""
+        adjusted = logits.scatter_add(1, x["bias_ids"], x["bias_vals"])
+        key = prng.sampling_keys(x["seeds"], positions)
+        stochastic, truncated = TIERS[tier]
+        sampled = sampling.sample(adjusted, x["temperature"], x["top_k"], key, x["top_p"],
+                                  stochastic=stochastic, truncated=truncated)
+        return sampled, sampling.token_logprob(logits if raw is None else raw, sampled)
+
+    def _count_dispatch(self, name: str, calls: int = 1) -> None:
         dispatches = self.stats["model_dispatches"]
-        dispatches[name] = dispatches.get(name, 0) + 1
+        dispatches[name] = dispatches.get(name, 0) + calls
 
     def _table_rows(self, slot_ids: np.ndarray) -> torch.Tensor:
         return self._to_device(self._block_tables[slot_ids])
@@ -895,13 +941,10 @@ class DecodeEngine:
         row's total cache length, so a warm continuation samples exactly
         like a cold run of the same full prompt. Resets the slots'
         penalty counts, then counts the sampled token."""
-        (temperature, top_k, top_p, seeds, bias_ids, bias_vals, _, _), tiers = (
-            self._sampling_inputs(requests)
-        )
-        adjusted = logits.scatter_add(1, bias_ids, bias_vals)
-        key = prng.sampling_keys(seeds, self._to_device(positions))
-        sampled = sampling.sample(adjusted, temperature, top_k, key, top_p, **tiers)
-        lps = sampling.token_logprob(logits, sampled)
+        arrays, tier = self._sampling_arrays(requests)
+        sampled, lps = self._sample(
+            logits, {name: self._to_device(a) for name, a in arrays.items()},
+            self._to_device(positions), tier)
         slots_d = self._to_device(slot_ids)
         self._counts[slots_d] = 0
         self._counts.index_put_(
@@ -1020,30 +1063,204 @@ class DecodeEngine:
                 return False
         return True
 
+    # ------------------------------------------------------------------ #
+    # step variants (the JAX engine's jitted decode and mixed programs)
+    # ------------------------------------------------------------------ #
+    def _variant_keys(self) -> List[Variant]:
+        """Every step variant the engine can dispatch, as the decode and
+        mixed entries of the JAX engine's ``_variant_jobs``: the decode
+        step counts {decode_chunk, 1, admission_chunk} and, mixed, the
+        widths of the ladder, each at every sampling tier."""
+        steps = {self.decode_chunk, 1}
+        if self.admission_chunk:
+            steps.add(self.admission_chunk)
+        keys = [Variant("decode", n, tier) for n in sorted(steps) for tier in TIERS]
+        if self.mixed:
+            keys += [Variant("mixed", width, tier) for width in self._mixed_widths for tier in TIERS]
+        return keys
+
+    def _step_dummy(self, key: Variant) -> Dict[str, np.ndarray]:
+        """``key``'s step inputs with every row inactive: no cache row
+        changes (a masked dense write keeps the old value, a masked paged
+        one goes to the null block) and no count moves."""
+        slots = self.max_slots
+        arrays, _ = self._sampling_arrays([None] * slots)
+        if self.paged:
+            arrays["tables"] = np.zeros((slots, self.max_blocks), dtype=np.int32)
+        if key.kind == "decode":
+            arrays.update(tokens=np.zeros((slots,), dtype=np.int64),
+                          lengths=np.zeros((slots,), dtype=np.int32),
+                          active=np.zeros((slots,), dtype=bool))
+        else:
+            arrays.update(tokens=np.zeros((slots, key.size), dtype=np.int64),
+                          offsets=np.zeros((slots,), dtype=np.int32),
+                          num_tokens=np.zeros((slots,), dtype=np.int32),
+                          decode=np.zeros((slots,), dtype=bool),
+                          completes=np.zeros((slots,), dtype=bool),
+                          chain_tokens=np.zeros((slots,), dtype=np.int64),
+                          chain_mask=np.zeros((slots,), dtype=bool))
+        return arrays
+
+    def _step_body(self, key: Variant):
+        return (self._decode_body if key.kind == "decode" else self._mixed_body)(key.size, key.tier)
+
+    def _decode_body(self, steps: int, tier: str):
+        """The K-step decode chunk over every slot: tokens, lengths and
+        counts chain on the device from step to step; inactive rows write
+        no cache row, sample 0 and count nothing."""
+
+        def chunk(x: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+            tokens, lengths, active = x["tokens"], x["lengths"], x["active"]
+            active_counts = active.to(torch.int32)[:, None]
+            out_tokens, out_lps = [], []
+            for _ in range(steps):
+                if self.paged:
+                    logits = model_lib.paged_decode_step(
+                        self.config, self.params, self.cache, tokens, lengths,
+                        x["tables"], self.freqs, write_mask=active, kernel=self.paged_kernel,
+                    )
+                else:
+                    logits = model_lib.decode_step(
+                        self.config, self.params, self.cache, tokens, lengths,
+                        self.freqs, write_mask=active,
+                    )
+                # presence/frequency penalties over generated tokens
+                counts = self._counts
+                penalized = logits - x["presence"] * (counts > 0) - x["frequency"] * counts
+                sampled, lps = self._sample(penalized, x, lengths, tier, raw=logits)
+                sampled = torch.where(active, sampled, torch.zeros_like(sampled))
+                self._counts.scatter_add_(1, sampled[:, None], active_counts)
+                lengths = torch.where(active, lengths + 1, lengths)
+                tokens = sampled
+                out_tokens.append(sampled)
+                out_lps.append(lps)
+            return {"tokens": torch.stack(out_tokens, dim=1), "logprobs": torch.stack(out_lps, dim=1),
+                    "final_tokens": tokens, "final_lengths": lengths}
+
+        return chunk
+
+    def _mixed_body(self, width: int, tier: str):
+        """One mixed step ``width`` tokens wide (:meth:`_dispatch_mixed`
+        has the sampling semantics); a chained step's riders take their
+        pending token from ``chain_tokens`` where ``chain_mask`` is set,
+        as the JAX mixed program takes its carry operands."""
+
+        def step(x: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+            first = torch.where(x["chain_mask"], x["chain_tokens"], x["tokens"][:, 0])
+            tokens = torch.cat([first[:, None], x["tokens"][:, 1:]], dim=1)
+            decode, completes = x["decode"], x["completes"]
+            logits = model_lib.paged_mixed_step(
+                self.config, self.params, self.cache, tokens, x["offsets"],
+                x["num_tokens"], x["tables"], self.freqs, kernel=self.paged_kernel,
+            )
+            sample_mask = decode | completes
+            counts = self._counts
+            counts.masked_fill_(completes[:, None], 0)
+            penalized = logits - x["presence"] * (counts > 0) - x["frequency"] * counts
+            adjusted = torch.where(decode[:, None], penalized, logits)
+            sampled, lps = self._sample(adjusted, x, x["offsets"] + x["num_tokens"], tier, raw=logits)
+            sampled = torch.where(sample_mask, sampled, torch.zeros_like(sampled))
+            counts.scatter_add_(1, sampled[:, None], sample_mask.to(torch.int32)[:, None])
+            return {"sampled": sampled, "logprobs": lps}
+
+        return step
+
+    def precompile(self) -> None:
+        """Capture every step variant (:meth:`_variant_keys`) and run every
+        prefill variant the engine can dispatch once, before traffic, so
+        that no capture, kernel build or library first use ever stalls
+        live requests (the JAX engine's ``precompile``). Runs before
+        :meth:`start`, while nothing else enqueues work on the card. Its
+        dummy rows are all inactive or, for prefill, one token of slot 0
+        (put back after) or of the paged null block: the cache and the
+        penalty counts end as they were."""
+        if self._thread is not None:
+            raise RuntimeError("precompile() must run before start()")
+        started = time.perf_counter()
+        keys = self._variant_keys()
+        with torch.inference_mode():
+            for key in keys:
+                self.steps.prepare(key)
+            if not self.mixed:
+                # mixed mode admits through mixed steps: no prefill call
+                self._warm_prefill()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.precompile_s = time.perf_counter() - started
+        logger.info("precompiled %d step variants and the prefill calls in %.1fs",
+                    len(keys), self.precompile_s)
+
+    def _warm_prefill(self) -> None:
+        """Each (pow2 group, bucket) prefill variant once, with first-token
+        sampling at every tier: cold prefill, and prefill at an offset
+        where the engine dispatches it (paged warm batches at every group
+        size; dense long prompts, one at a time). Every row is one token
+        of slot 0 (dense; its rows are saved and put back) or of the null
+        block (paged: the tables are all 0); no count is touched."""
+        saved = None if self.paged else {leaf: t[:, 0].clone() for leaf, t in self.cache.items()}
+        size = 1
+        while size <= self.max_slots:
+            arrays, _ = self._sampling_arrays([None] * size)
+            x = {name: self._to_device(a) for name, a in arrays.items()}
+            ones = self._to_device(np.ones((size,), dtype=np.int32))
+            zeros = self._to_device(np.zeros((size,), dtype=np.int32))
+            if self.paged:
+                rows = self._to_device(np.zeros((size, self.max_blocks), dtype=np.int32))
+            else:
+                rows = self._to_device(np.zeros((size,), dtype=np.int64))
+            for bucket in self.prefill_buckets:
+                tokens = self._to_device(np.zeros((size, bucket), dtype=np.int64))
+                if self.paged:
+                    logits = model_lib.paged_prefill(
+                        self.config, self.params, self.cache, tokens, ones, rows, self.freqs,
+                        kernel=self.paged_kernel)
+                    model_lib.paged_prefill_at_offset(
+                        self.config, self.params, self.cache, tokens, ones, zeros, rows,
+                        self.freqs, kernel=self.paged_kernel)
+                else:
+                    logits = model_lib.prefill(
+                        self.config, self.params, self.cache, tokens, ones, rows, self.freqs)
+                    if size == 1:
+                        model_lib.prefill_at_offset(
+                            self.config, self.params, self.cache, tokens, ones, zeros, rows,
+                            self.freqs)
+                for tier in TIERS:
+                    self._sample(logits, x, ones, tier)
+            size *= 2
+        if saved is not None:
+            for leaf, rows in saved.items():
+                self.cache[leaf][:, 0].copy_(rows)
+
     def _dispatch_decode(self, carry: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
-        """Run one K-step decode chunk over the ready slots. Tokens,
-        lengths and counts chain on the device from step to step; the
-        chunk's sampled tokens start their copy to the host at the end.
-        With ``carry`` (the in-flight chunk's record) the chunk starts
-        from its device-resident final tokens, lengths, active mask,
-        sampling tensors and block tables: nothing crosses from the host.
-        In mixed mode, while any slot is admitting, a fresh dispatch is one
-        mixed step instead (:meth:`_dispatch_mixed`)."""
+        """Run one K-step decode chunk over the ready slots through the
+        step runner (one graph replay on the card); the chunk's sampled
+        tokens start their copy to the host at once. With ``carry`` (the
+        in-flight chunk's record) the chunk is the same variant and starts
+        from its final tokens and lengths on the device, with its active
+        mask, sampling tensors and block tables: nothing crosses from the
+        host. While requests wait for a slot a fresh chunk runs at most
+        ``admission_chunk`` steps. In mixed mode, while any slot is
+        admitting, a fresh dispatch is one mixed step instead
+        (:meth:`_dispatch_mixed`)."""
         if carry is None and self._any_admitting():
             return self._dispatch_mixed()
         started = time.perf_counter()
         slots = self.max_slots
         if carry is not None:
-            steps, active, epochs = carry["steps"], carry["active"], carry["epochs"]
-            sampling_d, tiers = carry["sampling"], carry["tiers"]
-            tokens_d, lengths_d = carry["final_tokens"], carry["final_lengths"]
-            active_d, tables_d = carry["active_dev"], carry["tables_dev"]
+            key, active, epochs = carry["key"], carry["active"], carry["epochs"]
+            # read here only: this chunk's replay overwrites them
+            final = carry.pop("outputs")
+            inputs = dict(carry["inputs"], tokens=final["final_tokens"],
+                          lengths=final["final_lengths"])
         else:
             tokens = np.zeros((slots,), dtype=np.int64)
             lengths = np.zeros((slots,), dtype=np.int32)
             active = np.zeros((slots,), dtype=bool)
             epochs = [0] * slots
             steps = self.decode_chunk
+            if self.admission_chunk and self._pending:
+                # someone waits for a slot: a short chunk frees one sooner
+                steps = self.admission_chunk
             for i, slot in enumerate(self.slots):
                 lengths[i] = slot.length
                 epochs[i] = slot.epoch
@@ -1055,56 +1272,24 @@ class DecodeEngine:
                     # drop to single steps near the context boundary
                     if self.max_seq_len - slot.length - 1 < steps:
                         steps = 1
-            sampling_d, tiers = self._sampling_inputs(
+            inputs, tier = self._sampling_arrays(
                 [slot.request if slot.ready else None for slot in self.slots]
             )
-            tokens_d = self._to_device(tokens)
-            lengths_d = self._to_device(lengths)
-            active_d = self._to_device(active)
-            tables_d = self._to_device(self._block_tables) if self.paged else None
-        temperature, top_k, top_p, seeds, bias_ids, bias_vals, presence_d, frequency_d = sampling_d
-        active_counts = active_d.to(torch.int32)[:, None]
-        out_tokens, out_lps = [], []
-        for _ in range(steps):
+            inputs.update(tokens=tokens, lengths=lengths, active=active)
             if self.paged:
-                self._count_dispatch("paged_decode_step")
-                logits = model_lib.paged_decode_step(
-                    self.config, self.params, self.cache, tokens_d, lengths_d,
-                    tables_d, self.freqs, write_mask=active_d, kernel=self.paged_kernel,
-                )
-            else:
-                self._count_dispatch("decode_step")
-                logits = model_lib.decode_step(
-                    self.config, self.params, self.cache, tokens_d, lengths_d,
-                    self.freqs, write_mask=active_d,
-                )
-            # presence/frequency penalties over generated tokens
-            counts = self._counts
-            adjusted = logits - presence_d * (counts > 0) - frequency_d * counts
-            adjusted = adjusted.scatter_add(1, bias_ids, bias_vals)
-            key = prng.sampling_keys(seeds, lengths_d)
-            sampled = sampling.sample(
-                adjusted, temperature, top_k, key, top_p, **tiers
-            )
-            # logprob under the RAW untruncated distribution
-            lps = sampling.token_logprob(logits, sampled)
-            sampled = torch.where(active_d, sampled, torch.zeros_like(sampled))
-            self._counts.scatter_add_(1, sampled[:, None], active_counts)
-            lengths_d = torch.where(active_d, lengths_d + 1, lengths_d)
-            tokens_d = sampled
-            out_tokens.append(sampled)
-            out_lps.append(lps)
+                inputs["tables"] = self._block_tables
+            key = Variant("decode", steps, tier)
+        inputs, outputs = self.steps.run(key, inputs)
+        # counted here, on the host: a replay runs none of the body
+        self._count_dispatch("paged_decode_step" if self.paged else "decode_step", key.size)
         return {
-            "out": self._to_host(torch.stack(out_tokens, dim=1), torch.stack(out_lps, dim=1)),
-            "final_tokens": tokens_d,
-            "final_lengths": lengths_d,
+            "key": key,
+            "out": self._to_host(outputs["tokens"], outputs["logprobs"]),
+            "inputs": inputs,
+            "outputs": outputs,
             "active": active,
-            "active_dev": active_d,
-            "tables_dev": tables_d,
-            "sampling": sampling_d,
-            "tiers": tiers,
             "epochs": epochs,
-            "steps": steps,
+            "steps": key.size,
             "started": started,
         }
 
@@ -1240,54 +1425,37 @@ class DecodeEngine:
         # which the next step's plan (chained or fresh) starts from
         for i, (pos, n) in plan.items():
             self.slots[i].prefill_pos = pos + n
+        step = dict(tokens=tokens, offsets=offsets, num_tokens=num_tokens, decode=decode_mask,
+                    completes=completes, chain_mask=chain_mask)
         if chained:
-            sampling_d, tiers = carry["sampling"], carry["tiers"]
-            tables_d = carry["tables_dev"]
+            # the same variant (the plan keeps the width, the tier is the
+            # carry's); the sample is read here only: this step's replay
+            # overwrites it
+            key = carry["key"]
+            inputs = dict(carry["inputs"], chain_tokens=carry.pop("outputs")["sampled"], **step)
         else:
             # every live row's params, planned or not, so a chained step
             # can reuse these tensors when the budget reaches a row this
             # step skipped
-            sampling_d, tiers = self._sampling_inputs([slot.request for slot in self.slots])
-            tables_d = self._to_device(self._block_tables)
-        temperature, top_k, top_p, seeds, bias_ids, bias_vals, presence_d, frequency_d = sampling_d
-        tokens_d = self._to_device(tokens)
-        if chained:
-            tokens_d[:, 0] = torch.where(
-                self._to_device(chain_mask), carry["sampled_dev"], tokens_d[:, 0])
-        offsets_d = self._to_device(offsets)
-        num_tokens_d = self._to_device(num_tokens)
-        decode_d = self._to_device(decode_mask)
-        completes_d = self._to_device(completes)
+            inputs, tier = self._sampling_arrays([slot.request for slot in self.slots])
+            inputs.update(tables=self._block_tables,
+                          chain_tokens=np.zeros((slots,), dtype=np.int64), **step)
+            key = Variant("mixed", width, tier)
+        inputs, outputs = self.steps.run(key, inputs)
         self._count_dispatch("paged_mixed_step")
-        logits = model_lib.paged_mixed_step(
-            self.config, self.params, self.cache, tokens_d, offsets_d,
-            num_tokens_d, tables_d, self.freqs, kernel=self.paged_kernel,
-        )
-        sample_mask = decode_d | completes_d
-        counts = self._counts
-        counts.masked_fill_(completes_d[:, None], 0)
-        penalized = logits - presence_d * (counts > 0) - frequency_d * counts
-        adjusted = torch.where(decode_d[:, None], penalized, logits)
-        adjusted = adjusted.scatter_add(1, bias_ids, bias_vals)
-        key = prng.sampling_keys(seeds, offsets_d + num_tokens_d)
-        sampled = sampling.sample(adjusted, temperature, top_k, key, top_p, **tiers)
-        lps = sampling.token_logprob(logits, sampled)
-        sampled = torch.where(sample_mask, sampled, torch.zeros_like(sampled))
-        counts.scatter_add_(1, sampled[:, None], sample_mask.to(torch.int32)[:, None])
         return {
             "mixed": True,
+            "key": key,
             "chained": chained,
             "width": width,
             "plan": plan,
-            "out": self._to_host(sampled, lps),
-            "sampled_dev": sampled,
+            "out": self._to_host(outputs["sampled"], outputs["logprobs"]),
+            "inputs": inputs,
+            "outputs": outputs,
             "decode_mask": decode_mask,
             "completes": completes,
             "offsets": offsets,
             "num_tokens": num_tokens,
-            "sampling": sampling_d,
-            "tiers": tiers,
-            "tables_dev": tables_d,
             "epochs": [slot.epoch for slot in self.slots],
             "started": started,
         }

@@ -12,7 +12,7 @@ Configuration, with the JAX provider's keys::
              kv-layout: paged, kv-block-size: 16, kv-blocks: 4097,
              paged-kernel: fused, prefix-cache: true, kv-quant: int8,
              prefill-mode: mixed, prefill-chunk: 64, mixed-carry: on,
-             pipeline-decode: true}
+             pipeline-decode: true, admission-chunk: 4, precompile: true}
 
 With no ``checkpoint`` the weights are random, drawn from ``seed`` on the
 device (checkpoint loading is not ported yet and raises); with
@@ -25,7 +25,10 @@ step instead of separate prefill calls. ``pipeline-decode`` dispatches
 each decode chunk off the previous one's device outputs before the host
 processes them (off unless set, as in the JAX provider; ``serve`` sets
 it), and ``mixed-carry`` (on unless set off) chains mixed steps the same
-way on top of it. Every other key that the JAX provider honours and the
+way on top of it. ``admission-chunk`` caps a decode chunk at that many
+steps while requests wait for a slot, and ``precompile`` captures every
+step variant's CUDA graph and runs every prefill variant once before the
+engine starts (the JAX engine's ``precompile``). Every other key that the JAX provider honours and the
 port does not (:data:`UNPORTED_ENGINE_KEYS`, :data:`UNPORTED_KEYS`)
 raises when it is set to anything but the JAX default.
 """
@@ -64,10 +67,8 @@ UNPORTED_ENGINE_KEYS = {
     "spec-decode": lambda value: str(value or "off").lower() != "off",
     "spec-k": lambda value: int(value or 4) != 4,
     "spec-ngram": lambda value: int(value or 2) != 2,
-    "admission-chunk": bool,
     "logprobs-top-k": lambda value: int(value or 0) != 0,
     "queue-timeout-s": bool,
-    "precompile": _on,
     "max-restarts": lambda value: int(value or 3) != 3,
     "restart-window-s": lambda value: float(value or 600.0) != 600.0,
 }
@@ -107,7 +108,10 @@ class TorchCompletionsService:
     ``consume_chunk(answer_id, index, chunk, last)``; it is called on the
     caller's event loop as deltas decode."""
 
-    def __init__(self, config: Dict[str, Any], device: Any = "cuda") -> None:
+    def __init__(self, config: Dict[str, Any], device: Any = "cuda", *,
+                 step_graphs: bool = True) -> None:
+        """``step_graphs=False`` builds the engine with eager dispatch, a
+        control for measurements; no config key reaches it."""
         self.device = resolve_device(device)
         if config.get("checkpoint"):
             raise NotImplementedError(
@@ -169,7 +173,16 @@ class TorchCompletionsService:
             not in ("0", "false", "no", "off"),
             pipeline_decode=_on(engine_config.get("pipeline-decode", "")),
             quantize=quantization,
+            admission_chunk=(
+                int(engine_config["admission-chunk"])
+                if engine_config.get("admission-chunk") else None
+            ),
+            step_graphs=step_graphs,
         )
+        if _on(engine_config.get("precompile", "")):
+            # every step variant captured and every prefill variant run
+            # before the first request, so none stalls live traffic
+            self.engine.precompile()
         self.engine.start()
 
     async def get_chat_completions(

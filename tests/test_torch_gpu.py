@@ -36,7 +36,20 @@ from langstream_tpu_torch.ops.paged_attention import (
     ragged_q_paged_attention,
     ragged_q_paged_attention_quant,
 )
+from langstream_tpu_torch.ops import launches as launches_lib
 from langstream_tpu_torch.providers.torch_local import engine, model, quant
+
+# the kernel wrappers under the names of ops/launches.py's device counters
+WRAPPERS = {
+    "flash_prefill": flash_prefill_attention,
+    "flash_prefill_quant": flash_prefill_attention_quant,
+    "flash_decode": flash_decode_attention,
+    "flash_decode_quant": flash_decode_attention_quant,
+    "paged_attention": ragged_paged_attention,
+    "paged_attention_quant": ragged_paged_attention_quant,
+    "paged_attention_ragged_q": ragged_q_paged_attention,
+    "paged_attention_ragged_q_quant": ragged_q_paged_attention_quant,
+}
 
 # bf16: p is rounded to bf16 before p·v and sums run in another order
 # than the plain einsum; f32: only the summation order differs
@@ -927,3 +940,132 @@ def test_pipelined_engine_matches_serial(layout):
     assert chained > 0, stats
     if layout == "mixed":
         assert stats["mixed_steps_chained"] > 0, stats
+
+
+MIXED_LAYOUT = dict(kv_layout="paged", prefill_mode="mixed", prefill_chunk=32)
+# layout -> engine settings; every one but "mixed" runs chunks of 2 while
+# requests wait (admission_chunk, a variant of its own). With it, this
+# traffic leaves the mixed layout no mixed step to chain (every chain
+# plan finds an admission waiting), so "mixed" runs without it, for the
+# mixed carry, and "mixed-admission" with it.
+GRAPH_LAYOUTS = {
+    "dense": dict(admission_chunk=2),
+    "paged": dict(kv_layout="paged", admission_chunk=2),
+    "mixed": MIXED_LAYOUT,
+    "mixed-admission": dict(MIXED_LAYOUT, admission_chunk=2),
+}
+
+
+def _graph_engine(config, params, layout, graphs, **kwargs):
+    return engine.DecodeEngine(config, params, device=params["embedding"].device, max_slots=4,
+                               prefill_buckets=[32, 64], decode_chunk=4, pipeline_decode=True,
+                               step_graphs=graphs, **GRAPH_LAYOUTS[layout], **kwargs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quantize", [None, "int8"], ids=["bf16-weights", "int8-weights"])
+@pytest.mark.parametrize("kv_quant", [None, "int8"], ids=["bf16-kv", "int8-kv"])
+@pytest.mark.parametrize("layout", sorted(GRAPH_LAYOUTS))
+def test_graphed_engine_captures_every_variant_and_matches_eager(layout, kv_quant, quantize):
+    """``precompile`` captures every step variant as a CUDA graph (every
+    mixed width in the mixed layouts, the admission chunk's step count);
+    serving then captures nothing, and its greedy and seeded streams over
+    six concurrent requests on four slots, pipelined with the carries,
+    equal an eager engine's. The kernels the card ran while serving
+    (counted by the kernels' device counters, replays included) hold the
+    chip check's gate: each path's kernels once per layer per model call,
+    no other kernel; in the eager run they equal the wrappers' counts."""
+    device = _card()
+    config = _small_llama(256)
+    params = model.init_params(config, seed=8, device=device)
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, config.vocab_size, size=n).tolist() for n in (12, 30, 45, 60, 20, 50)]
+    samplings = [
+        engine.SamplingParams(max_new_tokens=20) if i % 3 else
+        engine.SamplingParams(max_new_tokens=20, temperature=0.8, top_p=0.9, seed=i)
+        for i in range(len(prompts))
+    ]
+
+    def run(graphs):
+        eng = _graph_engine(config, params, layout, graphs, kv_quant=kv_quant, quantize=quantize)
+        if graphs:
+            eng.precompile()
+        captured = eng.steps.stats["captured"]
+        chained = [0]
+        dispatch = eng._dispatch_decode
+
+        def counted(*args, **kwargs):
+            chained[0] += kwargs.get("carry") is not None
+            return dispatch(*args, **kwargs)
+
+        eng._dispatch_decode = counted
+        for wrapper in WRAPPERS.values():
+            wrapper.launches = 0
+
+        async def main():
+            return await asyncio.gather(*[eng.generate(p, s) for p, s in zip(prompts, samplings)])
+
+        try:
+            with launches_lib.device_launches() as launches:
+                results = asyncio.run(main())
+        finally:
+            eng.stop()
+        if not graphs:
+            assert launches == {name: wrapper.launches for name, wrapper in WRAPPERS.items()}
+        return [r.tokens for r in results], eng, captured, launches, chained[0]
+
+    eager, _, _, _, _ = run(False)
+    graphed, eng, captured, launches, chained = run(True)
+    mixed = layout.startswith("mixed")
+    keys = eng._variant_keys()
+    assert {k.size for k in keys if k.kind == "decode"} == ({1, 4} if layout == "mixed" else {1, 2, 4})
+    assert captured == len(keys) == eng.steps.stats["captured"]
+    assert all(entry.graph is not None for entry in eng.steps._entries.values())
+    if mixed:
+        assert {k.size for k in eng.steps._entries if k.kind == "mixed"} == set(eng._mixed_widths)
+    assert graphed == eager
+    assert all(len(tokens) == 20 for tokens in graphed)
+    if layout != "mixed-admission":
+        assert chained > 0, eng.stats
+    if layout == "mixed":
+        assert eng.stats["mixed_steps_chained"] > 0, eng.stats
+    calls, layers, q = eng.stats["model_dispatches"], config.num_layers, "_quant" if kv_quant else ""
+    if layout == "dense":
+        expect = {f"flash_prefill{q}": layers * calls.get("prefill", 0),
+                  f"flash_decode{q}": layers * calls.get("decode_step", 0)}
+    elif layout == "paged":
+        expect = {f"paged_attention{q}": layers * sum(calls.values())}
+    else:
+        expect = {f"paged_attention_ragged_q{q}": layers * calls.get("paged_mixed_step", 0),
+                  f"paged_attention{q}": layers * calls.get("paged_decode_step", 0)}
+    assert all(count > 0 for count in expect.values()), (expect, calls)
+    assert launches == {name: expect.get(name, 0) for name in launches}, (launches, calls)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", sorted(GRAPH_LAYOUTS))
+def test_precompile_leaves_cache_and_counts_on_the_card(layout):
+    """On the card, ``precompile``'s warm-up runs, captures and prefill
+    calls leave a cache and penalty counts filled with seeded noise as
+    they were (the paged null block aside), over both cache types."""
+    device = _card()
+    config = _small_llama(256)
+    params = model.init_params(config, seed=9, device=device)
+    for kv_quant in (None, "int8"):
+        eng = _graph_engine(config, params, layout, True, kv_quant=kv_quant)
+        gen = torch.Generator(device=device).manual_seed(9)
+        for leaf in eng.cache.values():
+            if leaf.dtype == torch.int8:
+                leaf.copy_(torch.randint(-100, 100, leaf.shape, device=device, generator=gen))
+            else:
+                leaf.copy_(torch.randn(leaf.shape, device=device, generator=gen))
+        eng._counts.copy_(torch.randint(0, 3, eng._counts.shape, device=device, generator=gen))
+        before = {name: leaf.clone() for name, leaf in eng.cache.items()}
+        counts = eng._counts.clone()
+        eng.precompile()
+        torch.cuda.synchronize()
+        live = slice(1, None) if eng.paged else slice(None)
+        for name, leaf in eng.cache.items():
+            assert torch.equal(leaf[:, live], before[name][:, live]), (kv_quant, name)
+        assert torch.equal(eng._counts, counts), kv_quant
+        assert eng.stats["model_dispatches"] == {}

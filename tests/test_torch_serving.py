@@ -263,10 +263,8 @@ UNPORTED = [
     ("engine", "spec-decode", "ngram"),
     ("engine", "spec-k", 6),
     ("engine", "spec-ngram", 3),
-    ("engine", "admission-chunk", 2),
     ("engine", "logprobs-top-k", 5),
     ("engine", "queue-timeout-s", 1.5),
-    ("engine", "precompile", "yes"),
     ("engine", "max-restarts", 5),
     ("engine", "restart-window-s", 60),
     ("top", "slo", {"ttft-ms-p95": 200}),
@@ -304,3 +302,38 @@ def test_provider_refuses_keys_it_does_not_port(where, key, value):
     (config["engine"] if where == "engine" else config)[key] = value
     with pytest.raises(NotImplementedError, match=f"{key}.*ROADMAP.md"):
         TorchCompletionsService(config, device="cpu")
+
+
+# keys the port serves since the step runner: (key, value, engine attribute check)
+SERVED_SINCE_GRAPHS = {
+    "admission-chunk": ("2", lambda eng: eng.admission_chunk == 2),
+    "precompile": ("yes", lambda eng: eng.precompile_s is not None
+                   and eng.steps.stats["captured"] == len(eng._variant_keys())),
+}
+
+
+@pytest.mark.parametrize("key", sorted(SERVED_SINCE_GRAPHS))
+def test_provider_serves_precompile_and_admission_chunk(key):
+    """``admission-chunk`` and ``precompile`` reach the engine from the
+    provider config (string-coerced, as the JAX provider reads them) and
+    from ``serve``'s flags, and the service answers; after
+    ``precompile`` no step variant is captured while serving."""
+    value, reached = SERVED_SINCE_GRAPHS[key]
+    config = {"model": {"preset": "tiny", "max_seq_len": 64},
+              "engine": {"max-slots": 2, "decode-chunk": 4, "prefill-buckets": [16], key: value}}
+    service = TorchCompletionsService(config, device="cpu")
+    try:
+        eng = service.engine
+        assert reached(eng), key
+        captured = eng.steps.stats["captured"]
+        result = asyncio.run(service.get_text_completions(["once"], {"max-tokens": 6}))
+        assert result.completion_tokens == 6
+        if key == "precompile":
+            assert eng.steps.stats["captured"] == captured and eng.steps.stats["replayed"] > 0
+    finally:
+        service.engine.stop()
+    flag = {"admission-chunk": ["--admission-chunk", "2"], "precompile": ["--precompile"]}[key]
+    served = serve_config(build_parser().parse_args(["serve", *flag]))["engine"]
+    assert served[key] == {"admission-chunk": 2, "precompile": True}[key]
+    default = serve_config(build_parser().parse_args(["serve"]))["engine"]
+    assert not default[key]
