@@ -43,20 +43,32 @@ Phases (any failure propagates and the exit code is not 0):
    Then one mixed step (``paged_mixed_step``, both caches) on the card
    against the CPU and against the split calls on the card, and the
    model with int8 weights (dense, paged and mixed calls) on the card
-   against the CPU.
+   against the CPU. Then, per layout and cache type, one admission round
+   of the engine (cold group, warm batch on the paged layout, a prompt in
+   windows) replayed from prefill graphs against the same round run
+   eagerly (``step_graphs=False``): bit for bit equal logits, equal first
+   tokens. Then the MLP of a large prefill call in row slices
+   (``model.MLP_ROWS``): the graph pool of the prefill lattice captured
+   with the MLP in one pass and in slices, and one 32 × 1024 call sliced,
+   replayed, equal bit for bit to its eager run and within the model
+   tolerance of the one-pass MLP.
 4. Dense serving: Llama-3-8B (bf16, random weights from seed 0) behind
    the port's OpenAI server, started as ``python -m langstream_tpu_torch
    serve --precompile`` starts it (pipelined decode, its default): every
-   decode chunk and mixed step variant is captured as a CUDA graph before
-   traffic (the seconds, the variants and the graph pool are printed),
-   and every serving phase replays them, capturing nothing (checked per
-   burst; the graphs replayed and captured are printed). It answers 16
-   concurrent chat and text completions plus one SSE stream. Each kernel
-   counts its own launches on the card, a replayed graph's included
+   decode chunk, mixed step and prefill variant (the model call by kind,
+   bucket and group; the first-token sampling by group and tier) is
+   captured as a CUDA graph before traffic (the seconds and variants of
+   each, and the graph pool, are printed), and every serving phase
+   replays them, capturing nothing (checked per burst: every prefill
+   model call is a replay; the graphs replayed by kind and captured are
+   printed, and the prefill harvests that found their record ready, that
+   waited, and that left it in flight). It answers 16 concurrent chat
+   and text completions plus one SSE stream. Each kernel counts its own
+   launches on the card, a replayed graph's included
    (``ops/launches.py``), and each wrapper the launches the host enqueued
-   eagerly (prefill); both are zeroed just before the burst and read just
-   after. B1 and B2 must have run once per layer per model call, the
-   model calls counted by the engine at dispatch. Then 32 completions of 64
+   eagerly (none but in the eager control); both are zeroed just before
+   the burst and read just after. B1 and B2 must have run once per layer
+   per model call, the model calls counted by the engine at dispatch. Then 32 completions of 64
    tokens each, where decode chunks must have been chained (counted
    through a wrapper on the engine's ``_dispatch_decode``), and one bare
    decode step of that model, eager and as a CUDA graph: wall and host
@@ -65,14 +77,20 @@ Phases (any failure propagates and the exit code is not 0):
    (the eager control, in turns with the graphed runs: graphed, eager,
    ..., graphed), with ``--no-pipeline-decode`` (no chained chunk; in
    turns with the pipelined runs: pipelined, unpipelined, unpipelined,
-   pipelined), and with ``--quantization int8`` (int8 weights drawn on
-   the card; B1 and B2 as before), with a line holding the bf16 and int8
-   bare steps side by side.
+   pipelined), with the engine's ``join_prefills`` off (the JAX engine's
+   harvest: in turns, join, JAX, JAX, join), and with ``--quantization
+   int8`` (int8 weights drawn on the card; B1 and B2 as before; in turns
+   join, JAX, JAX with ``--admission-chunk 2``, join with it, JAX, join),
+   with a line holding the bf16 and int8 bare steps side by side.
 5. Paged serving: the same model with ``--kv-layout paged``, answering 16
    chats that share a ~512-byte system message, 8 text completions and
    one SSE stream, all arriving cold. The prefix cache must have served
    tokens, B3 must have been launched once per layer per model call, and
-   no other kernel at all. Then the same burst
+   no other kernel at all; B3's own card counter of its launches with
+   more than one q token per slot (``ops/launches.py``'s ``SHAPES``) must
+   read once per layer per prefill call, and the rest once per layer per
+   decode step (the kernels line's ``prefill_launches`` and
+   ``decode_launches``). Then the same burst
    on a new server after one uncounted chat with that system message (the
    twin of the mixed run), and with ``--prefill-mode mixed`` after that
    chat: no prefill model call, B7 once per layer per mixed step, B3 once
@@ -142,6 +160,7 @@ from langstream_tpu_torch.ops.paged_attention import (  # noqa: E402
     ragged_q_paged_attention,
     ragged_q_paged_attention_quant,
 )
+from langstream_tpu_torch.providers.torch_local import engine as engine_lib  # noqa: E402
 from langstream_tpu_torch.providers.torch_local import model  # noqa: E402
 from langstream_tpu_torch.providers.torch_local.engine import long_prefill_windows  # noqa: E402
 from langstream_tpu_torch.providers.torch_local.graphs import capture  # noqa: E402
@@ -988,6 +1007,147 @@ def check_mixed_model(device, kv_quant: bool = False) -> None:
         f"max_rel_err={to_split:.3e} (tol {MODEL_TOLERANCE})")
 
 
+def check_prefill_graphs(device, kv_quant: bool = False) -> None:
+    """Llama-3-8B width, 2 layers, 4 slots, buckets 64/128/256, each
+    layout: one admission round (two cold prompts in one group; a third,
+    cold on the dense layout and warm onto the first's blocks on the paged
+    one; a 300-token prompt in windows) through an engine whose prefill
+    variants ``precompile`` captured as CUDA graphs, and through one built
+    with ``step_graphs=False`` (the same bodies run eagerly). They run the
+    same kernels on the same inputs: every prefill call's logits must be
+    bit for bit equal, and so the first tokens and logprobs; the graphed
+    round captures nothing."""
+    config = dataclasses.replace(model.LlamaConfig.llama3_8b(max_seq_len=512), num_layers=2)
+    params = model.init_params(config, seed=7, device=device)
+    rng = np.random.default_rng(15)
+    shared = rng.integers(0, config.vocab_size, size=80).tolist()
+    sampling = engine_lib.SamplingParams
+    requests = [
+        (shared + rng.integers(0, config.vocab_size, size=20).tolist(), sampling(max_new_tokens=4)),
+        (rng.integers(0, config.vocab_size, size=90).tolist(),
+         sampling(max_new_tokens=4, temperature=0.8, top_p=0.9, seed=1)),
+        (shared + rng.integers(0, config.vocab_size, size=27).tolist(),
+         sampling(max_new_tokens=4, temperature=1.0, top_k=20, seed=2)),
+        (rng.integers(0, config.vocab_size, size=300).tolist(), sampling(max_new_tokens=4)),
+    ]
+    cache = "int8" if kv_quant else "bf16"
+    for layout in ("dense", "paged"):
+        rounds = {}
+        for graphs in (True, False):
+            eng = engine_lib.DecodeEngine(
+                config, params, device=device, max_slots=4, max_seq_len=512,
+                prefill_buckets=[64, 128, 256], kv_layout=layout, kv_block_size=16,
+                kv_quant="int8" if kv_quant else None, step_graphs=graphs)
+            if graphs:
+                eng.precompile()
+            captured = eng.steps.stats["captured"]
+            logits = []
+            step = eng.steps.run
+
+            def recorded(key, inputs, _step=step, _logits=logits):
+                staged, outputs = _step(key, inputs)
+                if key.kind in ("prefill", "prefill_offset"):
+                    _logits.append((key, outputs["logits"].clone()))
+                return staged, outputs
+
+            eng.steps.run = recorded
+            with torch.inference_mode():
+                for prompt, params_ in requests:
+                    eng._pending.append(engine_lib.GenerationRequest(prompt_tokens=prompt, sampling=params_))
+                eng._admit()
+                while eng._prefill_inflight:
+                    eng._harvest_prefills(block=True)
+            firsts = [(slot.generated[0], slot.logprobs[0]) for slot in eng.slots if slot.active]
+            eng.stop()
+            assert not graphs or eng.steps.stats["captured"] == captured, (
+                "a prefill variant was captured while serving")
+            rounds[graphs] = (firsts, logits, dict(eng.stats["model_dispatches"]), captured)
+            del eng
+        (firsts, logits, calls, captured), (eager_firsts, eager_logits, _, _) = rounds[True], rounds[False]
+        assert [key for key, _ in logits] == [key for key, _ in eager_logits]
+        assert all(bool(torch.isfinite(value).all()) for _, value in logits)
+        pairs = list(zip(logits, eager_logits))
+        worst = max(float((mine - theirs).abs().max()) for (_, mine), (_, theirs) in pairs)
+        bitwise = all(torch.equal(mine, theirs) for (_, mine), (_, theirs) in pairs)
+        assert bitwise, f"{layout} {cache}: prefill replay logits differ from eager by {worst}"
+        assert firsts == eager_firsts and len(firsts) == 4, (firsts, eager_firsts)
+        log(f"prefill graphs ({layout}, {cache} KV cache, Llama-3-8B width, 2 layers, {captured} variants "
+            f"captured): {len(logits)} prefill calls {calls}, replayed, logits bit for bit equal to the "
+            f"eager run (max |diff| {worst}), first tokens and logprobs equal")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def check_mlp_slices(device) -> None:
+    """Llama-3-8B width, 2 layers (the graph pool holds about one layer's
+    activations at a time, so depth moves it little), 32 slots × 1024
+    context, the dense bf16 cache: the prefill lattice captured with the
+    MLP in one pass (``model.MLP_ROWS`` past every call) and in slices of
+    ``MLP_ROWS`` rows (as served), each engine's graph pool printed; then
+    one admission round of 32 prompts in the 1024 bucket (32768 rows, 8
+    slices) through each, and through the sliced bodies run eagerly
+    (``step_graphs=False``). The sliced replay must equal its eager run
+    bit for bit (logits, first tokens and logprobs); against the one-pass
+    MLP the logits may differ by the matrix products' rounding, and must
+    stay within MODEL_TOLERANCE."""
+    config = dataclasses.replace(model.LlamaConfig.llama3_8b(max_seq_len=1024), num_layers=2)
+    params = model.init_params(config, seed=8, device=device)
+    rng = np.random.default_rng(16)
+    sampling = engine_lib.SamplingParams
+    requests = [(rng.integers(0, config.vocab_size, size=int(n)).tolist(),
+                 sampling(max_new_tokens=4, temperature=0.8, seed=i))
+                for i, n in enumerate(rng.integers(600, 1000, size=32))]
+    sliced_rows = model.MLP_ROWS
+    rounds = {}
+    try:
+        for name, rows, graphs in (("one pass", 1 << 30, True), ("sliced", sliced_rows, True),
+                                   ("sliced eager", sliced_rows, False)):
+            model.MLP_ROWS = rows
+            eng = engine_lib.DecodeEngine(config, params, device=device, max_slots=32,
+                                          max_seq_len=1024, decode_chunk=8, step_graphs=graphs)
+            eng.precompile()
+            pool = graph_pool_gib(eng)
+            logits = []
+            step = eng.steps.run
+
+            def recorded(key, inputs, _step=step, _logits=logits):
+                staged, outputs = _step(key, inputs)
+                if key.kind == "prefill":
+                    _logits.append((key, outputs["logits"].clone()))
+                return staged, outputs
+
+            eng.steps.run = recorded
+            with torch.inference_mode():
+                for prompt, params_ in requests:
+                    eng._pending.append(engine_lib.GenerationRequest(prompt_tokens=prompt, sampling=params_))
+                eng._admit()
+                eng._harvest_prefills(block=True, every=True)
+            firsts = [(slot.generated[0], slot.logprobs[0]) for slot in eng.slots if slot.active]
+            eng.stop()
+            rounds[name] = (pool, logits, firsts, eng.precompile_s)
+            del eng, step
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        model.MLP_ROWS = sliced_rows
+    (_, one, one_firsts, _), (_, sliced, firsts, _), (_, eager, eager_firsts, _) = (
+        rounds["one pass"], rounds["sliced"], rounds["sliced eager"])
+    assert [key for key, _ in sliced] == [engine_lib.Variant("prefill", 1024, "", 32)], sliced
+    assert [key for key, _ in one] == [key for key, _ in eager] == [key for key, _ in sliced]
+    assert torch.equal(sliced[0][1], eager[0][1]) and firsts == eager_firsts and len(firsts) == 32
+    assert bool(torch.isfinite(sliced[0][1]).all())
+    to_one = errors(one[0][1], sliced[0][1])[1]
+    assert to_one < MODEL_TOLERANCE, f"sliced MLP vs one pass: {to_one}"
+    same_firsts = sum(a[0] == b[0] for a, b in zip(firsts, one_firsts))
+    bitwise = torch.equal(one[0][1], sliced[0][1])
+    log(f"MLP in slices of {sliced_rows} rows (Llama-3-8B width, 2 layers, 32 slots x 1024, the "
+        f"prefill lattice captured): graph pool {rounds['one pass'][0]:.3f} GiB with the MLP in one "
+        f"pass, {rounds['sliced'][0]:.3f} GiB sliced (precompile {rounds['one pass'][3]:.2f} vs "
+        f"{rounds['sliced'][3]:.2f} s); one 32 x 1024 prefill call: sliced replay == sliced eager "
+        f"bit for bit (logits, first tokens, logprobs); sliced vs one pass max_rel_err={to_one:.3e} "
+        f"(tol {MODEL_TOLERANCE}; bit for bit: {bitwise}), {same_firsts}/32 first tokens equal")
+
+
 def _bare_step(step, iters: int = 5) -> dict:
     """Wall and host-enqueue ms of ``step`` eager and as a CUDA graph of
     it replayed, and the graph's device ms: replays timed as
@@ -1140,14 +1300,24 @@ def start_llama_server(*extra: str, kv_quant: bool = False, graphs: bool = True)
     service, server = start_server(args, config, step_graphs=graphs)
     engine = service.engine
     pool = graph_pool_gib(engine)
+    kinds = engine.steps.stats["kinds"]
+
+    def graphs_of(names):
+        return (sum(kinds.get(kind, {}).get("captured", 0) for kind in names),
+                sum(kinds.get(kind, {}).get("capture_s", 0.0) for kind in names))
+
+    steps, step_s = graphs_of(("decode", "mixed"))
+    prefill, prefill_s = graphs_of(engine_lib.PREFILL_KINDS)
+    how = "captured as CUDA graphs" if engine.steps.graphed else "warmed eagerly"
     log(f"serve {' '.join(extra) or '(dense)'}{' kv-quant: int8' if kv_quant else ''}"
         f"{'' if graphs else ' EAGER (step_graphs=False)'}: Llama-3-8B "
         f"{args.quantization or 'bf16'} random weights up in {time.perf_counter() - t0:.1f}s, "
-        f"precompile {engine.precompile_s:.2f}s ({engine.steps.stats['captured']} step variants "
-        f"{'captured as CUDA graphs' if engine.steps.graphed else 'warmed eagerly'} in "
-        f"{engine.steps.stats['capture_s']:.2f}s, the rest prefill calls; graph pool "
-        f"{'n/a' if pool is None else f'{pool:.3f} GiB'}); {torch.cuda.memory_allocated() / 2**30:.2f} "
-        f"GiB allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved; pipelined decode "
+        f"precompile {engine.precompile_s:.2f}s ({steps} step variants {how} in {step_s:.2f}s; "
+        f"{prefill} prefill variants {how} in {prefill_s:.2f}s, by kind "
+        f"{ {kind: kinds[kind]['captured'] for kind in engine_lib.PREFILL_KINDS if kind in kinds} }; "
+        f"graph pool {'n/a' if pool is None else f'{pool:.3f} GiB'}); "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved; pipelined decode "
         f"{engine.pipeline_decode}, mixed carry {engine.mixed_carry}")
     return service, server
 
@@ -1159,8 +1329,12 @@ def run_burst(service, server, jobs, warmup=()):
     counts of launches the host enqueued (eager calls: a replay runs no
     wrapper), both zeroed just before and read just after. The ``warmup`` jobs
     are answered one by one before that, uncounted. A graphed engine must
-    capture nothing during the burst: every decode chunk and mixed step
-    is a replay of a graph ``precompile`` captured."""
+    capture nothing during the burst: every decode chunk, mixed step and
+    prefill call is a replay of a graph ``precompile`` captured. The
+    engine's prefill harvests are counted through a wrapper on its
+    ``_harvest_prefills``: records emitted that were done when their
+    harvest came ("ready") or that it waited for ("waited"), and harvests
+    that left the oldest record in flight ("left")."""
     url = f"http://127.0.0.1:{server.port}"
 
     def post(job):
@@ -1185,23 +1359,48 @@ def run_burst(service, server, jobs, warmup=()):
         return dispatch(*args, **kwargs)
 
     engine._dispatch_decode = counted
+    harvests = {"ready": 0, "waited": 0, "left": 0}
+    harvest = engine._harvest_prefills
+
+    def harvest_counted(block=False, every=False):
+        done = [record["out"][1] is None or record["out"][1].query()
+                for record in engine._prefill_inflight]
+        harvest(block=block, every=every)
+        taken = len(done) - len(engine._prefill_inflight)
+        for ready in done[:taken]:  # each record found done or waited for
+            harvests["ready" if ready else "waited"] += 1
+        if done and not taken:
+            harvests["left"] += 1
+
+    engine._harvest_prefills = harvest_counted
     engine.reset_stats()
     torch.cuda.reset_peak_memory_stats()
     for wrapper in KERNELS.values():
         wrapper.launches = 0
     runner = dict(engine.steps.stats)
+    replays = {kind: kind_stats["replayed"] for kind, kind_stats in runner["kinds"].items()}
     try:
-        with launches_lib.device_launches() as launches:
+        with launches_lib.device_launches(shapes=True) as launches:
             started = time.perf_counter()
             with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
                 replies = list(pool.map(post, jobs))
             wall = time.perf_counter() - started
     finally:
-        del engine._dispatch_decode  # the class's method again
+        del engine._dispatch_decode  # the class's methods again
+        del engine._harvest_prefills
     host = {name: wrapper.launches for name, wrapper in KERNELS.items()}
+    by_kind = {kind: kind_stats["replayed"] - replays.get(kind, 0)
+               for kind, kind_stats in engine.steps.stats["kinds"].items()}
     stats = dict(engine.stats, chained_decode_chunks=chained[0], graphed=engine.steps.graphed,
                  step_runs=engine.steps.stats["replayed"] - runner["replayed"],
-                 step_captures=engine.steps.stats["captured"] - runner["captured"])
+                 step_captures=engine.steps.stats["captured"] - runner["captured"],
+                 runs_by_kind={kind: n for kind, n in by_kind.items() if n}, harvests=harvests)
+    # every prefill model call went through the runner, a replay when graphed
+    calls = engine.stats["model_dispatches"]
+    prefill_calls = sum(n for name, n in calls.items() if "prefill" in name)
+    assert by_kind.get("prefill", 0) + by_kind.get("prefill_offset", 0) == prefill_calls, (by_kind, calls)
+    records = engine.stats["prefill_calls"] + engine.stats["warm_prefill_calls"]
+    assert engine.mixed or by_kind.get("first_token", 0) == records, (by_kind, engine.stats)
     if engine.steps.graphed:
         assert stats["step_captures"] == 0, "a step variant was captured while serving"
         assert stats["step_runs"] > 0 and all(
@@ -1245,21 +1444,26 @@ def report(label, kind, jobs, wall, tokens, stats, launches, host, peak_gib) -> 
         f"reused tokens {stats['prefix_tokens_reused']}; model calls {stats['model_dispatches']}; "
         f"chained decode chunks {stats['chained_decode_chunks']}, chained mixed steps "
         f"{stats['mixed_steps_chained']}, carry invalidations {stats['mixed_carry_invalidations']}; "
-        f"step {'graphs replayed' if stats['graphed'] else 'bodies run eagerly'} {stats['step_runs']}, "
-        f"captured {stats['step_captures']}; peak memory {peak_gib:.2f} GiB allocated (a replay "
+        f"step {'graphs replayed' if stats['graphed'] else 'bodies run eagerly'} {stats['step_runs']} "
+        f"(by kind {stats['runs_by_kind']}), captured {stats['step_captures']}; prefill harvests "
+        f"{stats['harvests']}; peak memory {peak_gib:.2f} GiB allocated (a replay "
         f"allocates nothing: the graph pool is apart); launches on the card {launches}, of them "
         f"enqueued eagerly {host}")
     assert requests == len(jobs), (requests, len(jobs))
 
 
-def serve_dense_and_check(label: str, kv_quant: bool = False, extra=(), graphs: bool = True) -> dict:
+def serve_dense_and_check(label: str, kv_quant: bool = False, extra=(), graphs: bool = True,
+                          join: bool = True) -> dict:
     """The dense burst through ``serve`` with ``extra`` flags (pipelined
     unless ``--no-pipeline-decode``; ``--quantization int8`` for int8
-    weights; ``graphs=False``: the eager control): B1/B2 (B4/B5 over the
-    int8 cache) once per layer per model call, no other kernel, and
-    chained decode chunks when pipelined. Returns the launches, tok/s and
-    mean TTFT of both bursts, and the bare decode step's timing."""
+    weights; ``graphs=False``: the eager control; ``join=False``: the
+    engine's ``join_prefills`` off, the JAX engine's harvest): B1/B2
+    (B4/B5 over the int8 cache) once per layer per model call, no other
+    kernel, and chained decode chunks when pipelined. Returns the
+    launches, tok/s and mean TTFT of both bursts, and the bare decode
+    step's timing."""
     service, server = start_llama_server(*extra, kv_quant=kv_quant, graphs=graphs)
+    service.engine.join_prefills = join  # before any request reaches the engine
     rng = np.random.default_rng(0)
     jobs = []
     for i in range(16):
@@ -1301,10 +1505,13 @@ def serve_dense_and_check(label: str, kv_quant: bool = False, extra=(), graphs: 
     assert launches[decode] == layers * calls.get("decode_step", 0), (launches, calls)
     others = [name for name in KERNELS if name not in (prefill, decode)]
     assert all(launches[name] == 0 for name in others), launches
-    # prefill runs eagerly; a decode step only in the eager control
-    assert host == dict(launches, **{decode: 0 if graphs else launches[decode]}), (host, launches)
+    # every prefill call and decode chunk a replay; eagerly enqueued only
+    # in the eager control
+    assert host == ({name: launches[name] for name in KERNELS} if not graphs
+                    else dict.fromkeys(KERNELS, 0)), (host, launches)
+    assert not any(launches[name] for name in launches_lib.SHAPES), launches
     kind = " ".join(["dense"] + [flag.lstrip("-") for flag in extra] + (["int8 KV"] if kv_quant else [])
-                    + ([] if graphs else ["EAGER"]))
+                    + ([] if graphs else ["EAGER"]) + ([] if join else ["JAX harvest"]))
     report(label, kind, jobs, wall, tokens, stats, launches, host, peak_gib)
     uniform_tokens = check_replies(uniform, uniform_replies)
     report(label, kind + ", uniform 64-token burst", uniform, uniform_wall, uniform_tokens,
@@ -1378,19 +1585,25 @@ def serve_paged_and_check(label: str, kv_quant: bool = False, mixed: bool = Fals
         assert launches[ragged_q] > 0, launches
         assert launches[ragged_q] == layers * calls.get("paged_mixed_step", 0), (launches, calls)
         assert launches[paged] == layers * calls.get("paged_decode_step", 0), (launches, calls)
+        assert launches[f"{paged}/prefill"] == 0, launches
         used = (paged, ragged_q)
-        # every step a replay: nothing enqueued eagerly
-        assert not any(host.values()), host
     else:
         assert launches[paged] == layers * sum(calls.values()), (launches, calls)
         used = (paged,)
-        # B3/B6's launches by shape: prefill calls (cold and onto a cached
-        # prefix), enqueued eagerly, and decode steps, the rest (replays)
-        prefills = layers * (calls.get("paged_prefill", 0) + calls.get("paged_prefill_at_offset", 0))
-        assert host == dict.fromkeys(KERNELS, 0) | {paged: prefills}, (host, calls)
-        launches = dict(launches, **{f"{paged}/decode": launches[paged] - host[paged],
-                                     f"{paged}/prefill": host[paged]})
+        # B3/B6's launches by shape, from the card's own counter of its
+        # launches with more than one q token per slot: every prefill call
+        # (cold and onto a cached prefix) and every decode step a replay
+        prefills = calls.get("paged_prefill", 0) + calls.get("paged_prefill_at_offset", 0)
+        assert prefills > 0, calls
+        assert launches[f"{paged}/prefill"] == layers * prefills, (launches, calls)
+        launches = dict(launches, **{f"{paged}/decode": launches[paged] - launches[f"{paged}/prefill"]})
+        assert launches[f"{paged}/decode"] == layers * calls.get("paged_decode_step", 0), (
+            launches, calls)
+    # nothing enqueued eagerly: every step and prefill call a replay
+    assert not any(host.values()), host
     assert all(launches[name] == 0 for name in KERNELS if name not in used), launches
+    other = "paged_attention/prefill" if kv_quant else "paged_attention_quant/prefill"
+    assert launches[other] == 0, launches
     kind = (("mixed paged" if mixed else "paged") + (" int8 KV" if kv_quant else "")
             + (" warm" if warmup else " cold"))
     report(label, kind, jobs, wall, tokens, stats, launches, host, peak_gib)
@@ -1416,6 +1629,8 @@ def main() -> None:
     for kv_quant in (False, True):
         check_paged_model(device, kv_quant=kv_quant)
         check_mixed_model(device, kv_quant=kv_quant)
+        check_prefill_graphs(device, kv_quant=kv_quant)
+    check_mlp_slices(device)
     # each kernel's launches come from the serving phase of its own path;
     # every phase runs serve's default, the pipelined decode, except the
     # dense control, which runs in turns with it (pipelined, control,
@@ -1426,13 +1641,26 @@ def main() -> None:
     pipelined = serve_dense_and_check
     eager = functools.partial(serve_dense_and_check, graphs=False)
     unpipelined = functools.partial(serve_dense_and_check, extra=("--no-pipeline-decode",))
-    int8_weights = functools.partial(serve_dense_and_check, extra=("--quantization", "int8"))
+    jax_harvest = functools.partial(serve_dense_and_check, join=False)
+    int8_flags = ("--quantization", "int8")
+    int8_weights = functools.partial(serve_dense_and_check, extra=int8_flags)
+    int8_jax = functools.partial(serve_dense_and_check, extra=int8_flags, join=False)
+    short = ("--admission-chunk", "2")
+    int8_short = functools.partial(serve_dense_and_check, extra=int8_flags + short)
+    int8_jax_short = functools.partial(serve_dense_and_check, extra=int8_flags + short, join=False)
     for serve, kv_quant, names in (
         (pipelined, False, ("flash_prefill", "flash_decode")),
+        (jax_harvest, False, ()),
         (eager, False, ()),
         (unpipelined, False, ()),
         (unpipelined, False, ()),
+        (jax_harvest, False, ()),
         (pipelined, False, ()),
+        (int8_weights, False, ()),
+        (int8_jax, False, ()),
+        (int8_jax_short, False, ()),
+        (int8_short, False, ()),
+        (int8_jax, False, ()),
         (int8_weights, False, ()),
         (serve_paged_and_check, False,
          ("paged_attention", "paged_attention/decode", "paged_attention/prefill")),
@@ -1463,6 +1691,15 @@ def main() -> None:
     log("dense bf16 in turns, the carry (both graphed), mixed-length / uniform 64-token burst: "
         + turns(("pipelined", "unpipelined", "unpipelined", "pipelined"),
                 (graphed_runs[0], *runs[unpipelined, False], graphed_runs[1])))
+    log("dense bf16 in turns, the harvest (both graphed and pipelined): join_prefills against the "
+        "JAX engine's harvest, mixed-length / uniform 64-token burst: "
+        + turns(("join", "JAX", "JAX", "join"),
+                (graphed_runs[0], *runs[jax_harvest, False], graphed_runs[1])))
+    log("int8 weights in turns, the harvest and --admission-chunk 2, mixed-length / uniform "
+        "64-token burst: " + turns(
+            ("join", "JAX", "JAX + admission-chunk 2", "join + admission-chunk 2", "JAX", "join"),
+            (runs[int8_weights, False][0], runs[int8_jax, False][0], runs[int8_jax_short, False][0],
+             runs[int8_short, False][0], runs[int8_jax, False][1], runs[int8_weights, False][1])))
     bare = [(kind, run["timing"]) for kind, run in zip(
         ("graphed", "eager", "unpipelined", "unpipelined", "graphed"),
         (graphed_runs[0], runs[eager, False][0], *runs[unpipelined, False], graphed_runs[1]))]

@@ -114,13 +114,17 @@ namespace {
 // the grid's first thread, so a kernel replayed from a CUDA graph counts
 // once per replay; read and zeroed through paged_attention_launch_counts.
 // Forms: 0 B3, 1 B6 (int8 pools), 2 B7 (the token-ragged form:
-// q_offsets set), 3 B8.
-constexpr int FORMS = 4;
+// q_offsets set), 3 B8; and, counted besides 0 and 1, 4 and 5: B3 and B6
+// launched with more than one q token per slot (seq > 1, a prefill call
+// cold or at an offset, where a decode step has one).
+constexpr int FORMS = 6;
 __device__ unsigned long long g_launches[FORMS];
 
-__device__ __forceinline__ void count_launch(int form) {
-  if (threadIdx.x + threadIdx.y + threadIdx.z == 0 && blockIdx.x + blockIdx.y + blockIdx.z == 0)
-    atomicAdd(&g_launches[form], 1ull);
+__device__ __forceinline__ void count_launch(bool quant, const int* q_offsets, int seq) {
+  if (threadIdx.x + threadIdx.y + threadIdx.z == 0 && blockIdx.x + blockIdx.y + blockIdx.z == 0) {
+    atomicAdd(&g_launches[(q_offsets ? 2 : 0) + quant], 1ull);
+    if (!q_offsets && seq > 1) atomicAdd(&g_launches[4 + quant], 1ull);
+  }
 }
 
 constexpr int MAX_ROWS = 64;   // score rows (q tokens x query heads) per CTA
@@ -277,7 +281,7 @@ paged_attention_fma_kernel(const float* __restrict__ q, const KV* __restrict__ k
                            int max_blocks, int block_q, int bk, float scale,
                            float softcap, int window, Layout L) {
   constexpr bool QUANT = is_int8<KV>();
-  count_launch((q_offsets ? 2 : 0) + QUANT);
+  count_launch(QUANT, q_offsets, seq);
   extern __shared__ float4 smem4[];
   char* base = reinterpret_cast<char*>(smem4);
   KV* sV = reinterpret_cast<KV*>(base + L.v);
@@ -576,7 +580,7 @@ paged_attention_mma_kernel(const __nv_bfloat16* __restrict__ q, const KV* __rest
   using M = Mma<KV, DP>;
   constexpr bool QUANT = M::QUANT;
   constexpr int BK = M::BK, PITCH = M::PITCH;
-  count_launch((q_offsets ? 2 : 0) + QUANT);
+  count_launch(QUANT, q_offsets, seq);
   constexpr int NS = BK / 8;   // n8 key sub-tiles of S
   constexpr int NO = DP / 8 / M::COLS;  // n8 column sub-tiles of this warp's O
   constexpr int NTH = M::NT;

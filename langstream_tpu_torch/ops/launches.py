@@ -13,6 +13,12 @@ reads those counters around a block, under the wrappers' names:
 - ``paged_attention.cu``: ``paged_attention`` (B3),
   ``paged_attention_quant`` (B6), ``paged_attention_ragged_q`` (B7),
   ``paged_attention_ragged_q_quant`` (B8).
+
+B3 and B6 run both a decode step (one q token per slot) and a prefill
+call (a bucket of them). With ``shapes``, the counts also hold
+``paged_attention/prefill`` and ``paged_attention_quant/prefill``: the
+launches of those two with more than one q token per slot, counted on the
+card by a counter of their own (:data:`SHAPES`).
 """
 
 from __future__ import annotations
@@ -28,16 +34,21 @@ FORMS = {
     "flash_prefill": ("flash_prefill", "flash_prefill_quant"),
     "flash_decode": ("flash_decode", "flash_decode_quant"),
     "paged_attention": ("paged_attention", "paged_attention_quant",
-                        "paged_attention_ragged_q", "paged_attention_ragged_q_quant"),
+                        "paged_attention_ragged_q", "paged_attention_ragged_q_quant",
+                        "paged_attention/prefill", "paged_attention_quant/prefill"),
 }
-KERNEL_NAMES = tuple(name for forms in FORMS.values() for name in forms)
+# counters of a kernel's launches at one shape, counted besides its total
+SHAPES = ("paged_attention/prefill", "paged_attention_quant/prefill")
+KERNEL_NAMES = tuple(name for forms in FORMS.values() for name in forms if name not in SHAPES)
 
 
-def read(reset: bool = False) -> Dict[str, int]:
+def read(reset: bool = False, shapes: bool = False) -> Dict[str, int]:
     """Every kernel form's launches on the card since its library was
     loaded or last reset (0 for a library not loaded in this process),
-    after the device's queued work; ``reset`` zeroes them."""
-    counts = dict.fromkeys(KERNEL_NAMES, 0)
+    after the device's queued work; ``reset`` zeroes them. ``shapes``
+    adds the counts of :data:`SHAPES`."""
+    names = KERNEL_NAMES + (SHAPES if shapes else ())
+    counts = dict.fromkeys(names, 0)
     for library, forms in FORMS.items():
         lib = _build.loaded(library)
         if lib is None:
@@ -45,17 +56,18 @@ def read(reset: bool = False) -> Dict[str, int]:
         values = (ctypes.c_ulonglong * len(forms))()
         _build.check(getattr(lib, f"{library}_launch_counts")(values, int(reset)),
                      f"{library}_launch_counts")
-        counts.update(zip(forms, values))
+        counts.update((name, n) for name, n in zip(forms, values) if name in counts)
     return counts
 
 
 @contextlib.contextmanager
-def device_launches() -> Iterator[Dict[str, int]]:
+def device_launches(shapes: bool = False) -> Iterator[Dict[str, int]]:
     """Yields a dict that, once the block has ended, holds every kernel
     form's launches on the card during the block (each name of
-    :data:`KERNEL_NAMES`). Waits for the device at both ends; another
-    thread's kernels in the block count too."""
+    :data:`KERNEL_NAMES`, and with ``shapes`` of :data:`SHAPES`). Waits
+    for the device at both ends; another thread's kernels in the block
+    count too."""
     read(reset=True)
-    counts = dict.fromkeys(KERNEL_NAMES, 0)
+    counts = dict.fromkeys(KERNEL_NAMES + (SHAPES if shapes else ()), 0)
     yield counts
-    counts.update(read())
+    counts.update(read(shapes=shapes))

@@ -20,9 +20,20 @@ path over the paged one:
   cannot cover a reservation even after LRU eviction, the request waits.
 - **Continuous batching**: requests join mid-flight. Cold requests that
   share a prompt bucket are prefilled together (power-of-two groups) and
-  their first token is sampled in the same call; a finishing request
-  frees its slot at once. A prompt longer than the largest bucket is
-  prefilled in bucket-sized windows (``_prefill_long``).
+  their first token is sampled on the card right behind the call; a
+  finishing request frees its slot at once. A prompt longer than the
+  largest bucket is prefilled in bucket-sized windows (``_prefill_long``).
+- **Non-blocking prefill**: a prefill call is dispatched without waiting
+  for the card. Its slots stay ``prefilling`` (out of decode) and its
+  record joins ``_prefill_inflight``; the run loop's harvest points
+  (:meth:`DecodeEngine._harvest_at_loop`) emit the first tokens later,
+  in dispatch order. A prefill queued behind a decode chunk in flight so
+  never stalls the host. Once no chunk is on the card, the next fresh
+  chunk would queue behind every prefill in flight, so the loop waits
+  for them all first and their slots join that chunk
+  (``join_prefills``); with ``join_prefills=False`` it blocks, as the
+  JAX engine, only when decode has nothing to run, and decode chunks of
+  running slots go on past a prefill still running.
 - **Mixed prefill+decode dispatch** (``prefill_mode="mixed"``, paged
   only): admission reserves blocks but runs no prefill call; the slot
   parks at a prompt watermark, and while any slot is admitting every
@@ -53,13 +64,16 @@ path over the paged one:
   discards the rest of the chunk (the slot's length stops at the stop).
   While admissions wait, ``admission_chunk`` (when set) caps the chunk.
 - **One CUDA graph per step variant** (``graphs.py``): each decode chunk
-  (step count × sampling tier) and each mixed step (width × tier) that
+  (step count × sampling tier), each mixed step (width × tier), each
+  prefill model call (cold or at an offset × bucket × pow2 group) and
+  each first-token sampling (group × tier) that
   :meth:`DecodeEngine._variant_keys` lists is captured once, as the JAX
-  engine jits ``_get_decode`` and ``_get_mixed``, and replayed with one
-  launch; :meth:`DecodeEngine.precompile` captures them all, and runs
-  every prefill variant once, before traffic. On the CPU, and with
-  ``step_graphs=False`` (an eager control on the card), the same body
-  runs op by op through the same static buffers, uncaptured.
+  engine jits ``_get_decode``, ``_get_mixed``, ``_get_prefill`` and
+  ``_get_prefill_offset``, and replayed with one launch;
+  :meth:`DecodeEngine.precompile` captures them all before traffic. On
+  the CPU, and with ``step_graphs=False`` (an eager control on the
+  card), the same body runs op by op through the same static buffers,
+  uncaptured.
 - **On-device sampling**: greedy / temperature / top-k / top-p, presence
   and frequency penalties over a per-slot count array, logit bias, and
   per-request keys from (seed, position) that reproduce ``jax.random``.
@@ -72,9 +86,8 @@ path over the paged one:
 
 Not in this slice (ROADMAP.md): warm sessions (and the paged
 copy-on-write they need), the dense layout's cross-slot prefix copy, host
-KV tiers and handoffs, speculative dispatch, the non-blocking prefill
-harvest (prefill calls here are synchronous), the supervisor and the
-telemetry planes.
+KV tiers and handoffs, speculative dispatch, the replay of a resurrected
+session at harvest, the supervisor and the telemetry planes.
 """
 
 from __future__ import annotations
@@ -99,12 +112,15 @@ from langstream_tpu_torch.providers.torch_local.graphs import (
     StepRunner,
     Variant,
     sampling_tier,
-    to_device,
 )
 from langstream_tpu_torch.providers.torch_local.paged import PagedKVManager
 from langstream_tpu_torch.providers.torch_local.quant import QTensor, quantize_params
 
 logger = logging.getLogger(__name__)
+
+# the step variants of a prefill call: the model call, cold or at an
+# offset, and the first-token sampling behind it
+PREFILL_KINDS = ("prefill", "prefill_offset", "first_token")
 
 
 @dataclasses.dataclass
@@ -259,10 +275,15 @@ class DecodeEngine:
         admission_chunk: Optional[int] = None,  # cap the decode chunk at
                                           # this many steps while
                                           # admissions wait (None = off)
-        step_graphs: bool = True,         # decode chunks and mixed steps
-                                          # as one CUDA graph per variant
-                                          # (eager on the CPU); False =
-                                          # eager dispatch
+        step_graphs: bool = True,         # decode chunks, mixed steps and
+                                          # prefill calls as one CUDA graph
+                                          # per variant (eager on the CPU);
+                                          # False = eager dispatch
+        join_prefills: bool = True,       # with no chunk in flight, wait
+                                          # for every prefill in flight
+                                          # before a fresh chunk, which
+                                          # they then join (False = the
+                                          # JAX engine's harvest)
     ) -> None:
         self.device = resolve_device(device)
         self.config = config
@@ -299,6 +320,7 @@ class DecodeEngine:
         self.mixed = prefill_mode == "mixed"
         self.prefill_chunk = max(1, int(prefill_chunk))
         self.pipeline_decode = bool(pipeline_decode)
+        self.join_prefills = bool(join_prefills)
         self.mixed_carry = self.mixed and bool(mixed_carry)
         # mixed step widths: powers of two up to the rounded-up budget, so
         # every width tiles by the token-ragged kernel's q tile
@@ -369,15 +391,20 @@ class DecodeEngine:
             (max_slots, config.vocab_size), dtype=torch.int32, device=self.device
         )
         self.slots = [_Slot() for _ in range(max_slots)]
-        # every decode chunk and mixed step goes through the step runner
+        # every decode chunk, mixed step and prefill call goes through the
+        # step runner; a prefill variant first met while serving warms up
+        # on its own call, never on a dummy that writes another slot's rows
         self.steps = StepRunner(
             self.device, graphs=step_graphs, body=self._step_body, dummy=self._step_dummy,
+            warm_on_call=lambda key: key.kind in PREFILL_KINDS,
         )
         self.precompile_s: Optional[float] = None
         self.base_seed = seed
         self._seed_sequence = 0
         self._queue: "queue.Queue[Optional[GenerationRequest]]" = queue.Queue()
         self._pending: List[GenerationRequest] = []  # owned by the engine thread
+        # prefill calls dispatched and not yet harvested, oldest first
+        self._prefill_inflight: List[Dict[str, Any]] = []  # owned by the engine thread
         self._thread: Optional[threading.Thread] = None
         self._running = False
         self._crashed: Optional[BaseException] = None
@@ -394,7 +421,8 @@ class DecodeEngine:
             "decode_steps": 0,    # model decode steps, mixed steps included
             "decode_time": 0.0,   # wall secs inside decode chunks and mixed
                                   # steps (the union of pipelined ones)
-            "prefill_time": 0.0,  # wall secs inside prefill calls
+            "prefill_time": 0.0,  # wall secs dispatching prefill calls and
+                                  # waiting for them at harvest
             "ttft_time": 0.0,     # summed submit → first-token secs of
                                   # finished requests
             "warm_prefill_calls": 0,     # prefills at an offset (prefix hits)
@@ -443,6 +471,7 @@ class DecodeEngine:
         if self._thread is not None:
             self._thread.join(timeout=30)
             self._thread = None
+        self._prefill_inflight = []
 
     def submit(self, request: GenerationRequest) -> None:
         """Enqueue a request; safe from any thread. Its ``future`` (an
@@ -517,7 +546,7 @@ class DecodeEngine:
                 while self._running:
                     self._drain_queue(
                         block=not self._any_active() and not self._pending
-                        and inflight is None
+                        and inflight is None and not self._prefill_inflight
                     )
                     if not self._running:
                         break
@@ -530,6 +559,9 @@ class DecodeEngine:
                         # it would delay that chunk's tokens)
                         time.sleep(0.003)
                         self._drain_queue(block=False)
+                    # prefills dispatch without blocking: they queue behind
+                    # the chunk in flight, and their slots join decode once
+                    # harvested
                     self._admit()
                     if inflight is not None:
                         # chain the next dispatch off the in-flight one's
@@ -545,7 +577,8 @@ class DecodeEngine:
                             chained = self._dispatch_decode(carry=inflight)
                         self._process_decode(inflight)
                         inflight = chained
-                    if inflight is None and self._any_active():
+                    self._harvest_at_loop(inflight)
+                    if inflight is None and (self._any_ready() or self._any_admitting()):
                         # one K-step decode chunk over the ready slots, or
                         # one mixed step while any slot is admitting
                         inflight = self._dispatch_decode()
@@ -557,6 +590,7 @@ class DecodeEngine:
                             # bookkeeping
                             self._process_decode(inflight)
                             inflight = None
+                            self._harvest_prefills(block=False)
         except BaseException as exc:  # noqa: BLE001 — fail every waiter, re-raise
             logger.exception("engine loop crashed")
             self._crashed = exc
@@ -566,6 +600,9 @@ class DecodeEngine:
 
     def _any_active(self) -> bool:
         return any(slot.active for slot in self.slots)
+
+    def _any_ready(self) -> bool:
+        return any(slot.ready for slot in self.slots)
 
     def _any_admitting(self) -> bool:
         """Mixed mode: slots parked at a prefill watermark, waiting for
@@ -837,9 +874,6 @@ class DecodeEngine:
                 values[row, column] = value
         return ids, values
 
-    def _to_device(self, array: np.ndarray) -> torch.Tensor:
-        return to_device(array, self.device)
-
     def _to_host(self, *tensors: torch.Tensor) -> Tuple[List[torch.Tensor], Any]:
         """Start copying device tensors to the host: on the card into
         pinned buffers without blocking, behind an event that
@@ -911,53 +945,62 @@ class DecodeEngine:
         dispatches = self.stats["model_dispatches"]
         dispatches[name] = dispatches.get(name, 0) + calls
 
-    def _table_rows(self, slot_ids: np.ndarray) -> torch.Tensor:
-        return self._to_device(self._block_tables[slot_ids])
-
-    def _prefill_at_offset(self, tokens, lengths, offsets, slot_ids) -> torch.Tensor:
-        """One prefill-at-offset model call on either layout; host arrays
-        in, logits [B, V] out."""
-        args = (self._to_device(tokens), self._to_device(lengths), self._to_device(offsets))
+    def _prefill_call(self, kind: str, tokens: np.ndarray, lengths: np.ndarray,
+                      slot_ids: np.ndarray, offsets: Optional[np.ndarray] = None
+                      ) -> torch.Tensor:
+        """Stage and run one prefill model call (``kind`` "prefill", cold,
+        or "prefill_offset") on either layout through the step runner;
+        host arrays in. Returns its logits [B, V] f32: the variant's
+        static output, which its next run overwrites."""
+        group, bucket = tokens.shape
+        inputs = dict(tokens=tokens, lengths=lengths)
+        if offsets is not None:
+            inputs["offsets"] = offsets
         if self.paged:
-            self._count_dispatch("paged_prefill_at_offset")
-            return model_lib.paged_prefill_at_offset(
-                self.config, self.params, self.cache, *args,
-                self._table_rows(slot_ids), self.freqs, kernel=self.paged_kernel,
-            )
-        self._count_dispatch("prefill_at_offset")
-        return model_lib.prefill_at_offset(
-            self.config, self.params, self.cache, *args,
-            self._to_device(slot_ids), self.freqs,
-        )
+            inputs["tables"] = self._block_tables[slot_ids]
+        else:
+            inputs["slot_ids"] = slot_ids
+        _, outputs = self.steps.run(Variant(kind, bucket, "", group), inputs)
+        # counted here, on the host: a replay runs none of the body
+        self._count_dispatch(("paged_" if self.paged else "")
+                             + ("prefill" if kind == "prefill" else "prefill_at_offset"))
+        return outputs["logits"]
 
-    def _sample_first(
+    def _first_token_arrays(
+        self, requests: List[Optional[GenerationRequest]]
+    ) -> Tuple[Dict[str, np.ndarray], str]:
+        """The first-token sampling's per-row arrays and tier: those of
+        :meth:`_sampling_arrays` but the penalties, which a first token
+        does not take."""
+        arrays, tier = self._sampling_arrays(requests)
+        del arrays["presence"], arrays["frequency"]
+        return arrays, tier
+
+    def _first_token(
         self,
         requests: List[GenerationRequest],
         slot_ids: np.ndarray,
         logits: torch.Tensor,
         positions: np.ndarray,
-    ) -> Tuple[List[int], List[float]]:
-        """First-token sampling after a prefill. ``positions`` is each
-        row's total cache length, so a warm continuation samples exactly
-        like a cold run of the same full prompt. Resets the slots'
-        penalty counts, then counts the sampled token."""
-        arrays, tier = self._sampling_arrays(requests)
-        sampled, lps = self._sample(
-            logits, {name: self._to_device(a) for name, a in arrays.items()},
-            self._to_device(positions), tier)
-        slots_d = self._to_device(slot_ids)
-        self._counts[slots_d] = 0
-        self._counts.index_put_(
-            (slots_d, sampled), torch.ones_like(sampled, dtype=torch.int32),
-            accumulate=True,
-        )
-        return sampled.cpu().tolist(), lps.cpu().tolist()
+    ) -> Tuple[List[torch.Tensor], Any]:
+        """First-token sampling of a prefill call's ``logits``, replayed
+        right behind it on the card: ``positions`` is each row's total
+        cache length, so a warm continuation samples exactly like a cold
+        run of the same full prompt; the slots' penalty counts reset, then
+        count the sampled token. Returns the tokens' and logprobs' copy to
+        the host, started now (:meth:`_to_host`): a later group of the
+        same variant overwrites the static outputs."""
+        arrays, tier = self._first_token_arrays(requests)
+        arrays.update(logits=logits, slot_ids=slot_ids, positions=positions)
+        _, outputs = self.steps.run(Variant("first_token", 0, tier, len(requests)), arrays)
+        return self._to_host(outputs["tokens"], outputs["logprobs"])
 
     def _prefill_batch(
         self, batch: List[Tuple[int, GenerationRequest]], bucket: int
     ) -> None:
-        """Cold prefills with the first token sampled in the same call,
-        then emitted. Groups split to power-of-two sizes."""
+        """Cold prefills with the first token sampled right behind the
+        call, dispatched without blocking: :meth:`_harvest_prefills`
+        emits the tokens. Groups split to power-of-two sizes."""
         for group in _pow2_groups(batch):
             started = time.perf_counter()
             size = len(group)
@@ -970,33 +1013,20 @@ class DecodeEngine:
                 lengths[row] = len(prompt)
                 slot_ids[row] = index
                 self._assign_slot(index, request)
-            if self.paged:
-                self._count_dispatch("paged_prefill")
-                logits = model_lib.paged_prefill(
-                    self.config, self.params, self.cache, self._to_device(tokens),
-                    self._to_device(lengths), self._table_rows(slot_ids), self.freqs,
-                    kernel=self.paged_kernel,
-                )
-            else:
-                self._count_dispatch("prefill")
-                logits = model_lib.prefill(
-                    self.config, self.params, self.cache, self._to_device(tokens),
-                    self._to_device(lengths), self._to_device(slot_ids), self.freqs,
-                )
-            firsts, lps = self._sample_first(
-                [request for _, request in group], slot_ids, logits, lengths
-            )
+                self.slots[index].prefilling = True
+            logits = self._prefill_call("prefill", tokens, lengths, slot_ids)
+            out = self._first_token([request for _, request in group], slot_ids, logits, lengths)
             self.stats["prefill_calls"] += 1
             self.stats["prefill_time"] += time.perf_counter() - started
-            for row, (index, _) in enumerate(group):
-                self._emit_token(index, firsts[row], lps[row])
+            self._prefill_inflight.append({"group": list(group), "out": out})
 
     def _prefill_warm_batch(
         self, batch: List[Tuple[int, GenerationRequest, int]], bucket: int
     ) -> None:
         """Admissions onto a cached prefix that share a suffix bucket: one
         prefill-at-offset call writes every suffix. Groups split to
-        power-of-two sizes, like cold prefill."""
+        power-of-two sizes and dispatch without blocking, like cold
+        prefill."""
         for group in _pow2_groups(batch):
             started = time.perf_counter()
             size = len(group)
@@ -1011,22 +1041,27 @@ class DecodeEngine:
                 offsets[row] = reused
                 slot_ids[row] = index
                 self._assign_slot(index, request)
-            logits = self._prefill_at_offset(tokens, lengths, offsets, slot_ids)
-            firsts, lps = self._sample_first(
+                self.slots[index].prefilling = True
+            logits = self._prefill_call("prefill_offset", tokens, lengths, slot_ids, offsets)
+            out = self._first_token(
                 [request for _, request, _ in group], slot_ids, logits, offsets + lengths
             )
             self.stats["warm_prefill_calls"] += 1
             self.stats["prefill_time"] += time.perf_counter() - started
-            for row, (index, _, _) in enumerate(group):
-                self._emit_token(index, firsts[row], lps[row])
+            self._prefill_inflight.append({
+                "group": [(index, request) for index, request, _ in group], "out": out,
+            })
 
     def _prefill_long(self, index: int, request: GenerationRequest, reused: int) -> None:
         """Chunked prefill of a prompt (or suffix past a cached prefix)
-        longer than the largest bucket: one prefill-at-offset call per
-        window of :func:`long_prefill_windows`. Only the final window's
-        sample is kept."""
+        longer than the largest bucket: one group-1 prefill-at-offset call
+        per window of :func:`long_prefill_windows`, without blocking. Only
+        the final window samples (the JAX windows each sample, but each
+        resets the slot's counts first, so only the last one's count
+        stays) and records the first token for the harvest."""
         prompt = request.prompt_tokens
         self._assign_slot(index, request)
+        self.slots[index].prefilling = True
         started = time.perf_counter()
         slot_ids = np.asarray([index], dtype=np.int64)
         for offset, bucket in long_prefill_windows(len(prompt), reused, self.prefill_buckets):
@@ -1035,19 +1070,54 @@ class DecodeEngine:
             tokens[0, : len(chunk)] = chunk
             lengths = np.asarray([len(chunk)], dtype=np.int32)
             offsets = np.asarray([offset], dtype=np.int32)
-            logits = self._prefill_at_offset(tokens, lengths, offsets, slot_ids)
-        firsts, lps = self._sample_first([request], slot_ids, logits, offsets + lengths)
+            logits = self._prefill_call("prefill_offset", tokens, lengths, slot_ids, offsets)
+        out = self._first_token([request], slot_ids, logits, offsets + lengths)
         self.stats["warm_prefill_calls" if reused else "prefill_calls"] += 1
         self.stats["prefill_time"] += time.perf_counter() - started
-        self._emit_token(index, firsts[0], lps[0])
+        self._prefill_inflight.append({"group": [(index, request)], "out": out})
+
+    def _harvest_at_loop(self, inflight: Optional[Dict[str, Any]]) -> None:
+        """The run loop's harvest point, once the chunk in flight (if any)
+        is processed or chained; ``inflight`` is the chunk on the card
+        now. With no chunk on the card, a fresh chunk would queue behind
+        every prefill in flight anyway: ``join_prefills`` waits for them
+        all, so that their slots ride it, and the card idles only for the
+        host's turn. Otherwise, as the JAX engine: wait for the oldest
+        only when decode has nothing to run anyway."""
+        if inflight is None and self.join_prefills:
+            self._harvest_prefills(block=True, every=True)
+            return
+        self._harvest_prefills(
+            block=inflight is None and not self._any_ready() and not self._any_admitting()
+        )
+
+    def _harvest_prefills(self, block: bool = False, every: bool = False) -> None:
+        """Emit the first tokens of finished prefill calls, oldest first
+        (the card runs them in order, so a younger one is not done while
+        the oldest is not). ``block`` waits for the oldest one, and with
+        ``every`` for every one. The wait counts in ``prefill_time``, as
+        in the JAX engine."""
+        while self._prefill_inflight:
+            record = self._prefill_inflight[0]
+            event = record["out"][1]
+            if not block and event is not None and not event.query():
+                return
+            waited = time.perf_counter()
+            firsts, lps = self._from_host(record["out"])
+            self.stats["prefill_time"] += time.perf_counter() - waited
+            self._prefill_inflight.pop(0)
+            for row, (index, _) in enumerate(record["group"]):
+                self.slots[index].prefilling = False
+                self._emit_token(index, int(firsts[row]), float(lps[row]))
+            block = every
 
     def _can_chain(self, inflight: Dict[str, Any]) -> bool:
         """A chunk may be dispatched off the in-flight chunk's carry only
-        when no admission waits, no slot joined since that chunk (a slot
-        prefilled meanwhile joins the next fresh chunk), and every rider
-        has two chunks of budget and context left, so the blind chunk
-        cannot run a request past its end."""
-        if self._pending or self._any_admitting():
+        when no admission waits, no prefill is in flight, no slot joined
+        since that chunk (a slot prefilled meanwhile joins the next fresh
+        chunk), and every rider has two chunks of budget and context left,
+        so the blind chunk cannot run a request past its end."""
+        if self._pending or self._prefill_inflight or self._any_admitting():
             return False
         budget = inflight["steps"]
         for i, slot in enumerate(self.slots):
@@ -1067,23 +1137,62 @@ class DecodeEngine:
     # step variants (the JAX engine's jitted decode and mixed programs)
     # ------------------------------------------------------------------ #
     def _variant_keys(self) -> List[Variant]:
-        """Every step variant the engine can dispatch, as the decode and
-        mixed entries of the JAX engine's ``_variant_jobs``: the decode
-        step counts {decode_chunk, 1, admission_chunk} and, mixed, the
-        widths of the ladder, each at every sampling tier."""
+        """Every step variant the engine can dispatch, as the JAX engine's
+        ``_variant_jobs``: the decode step counts {decode_chunk, 1,
+        admission_chunk} and, mixed, the widths of the ladder, each at
+        every sampling tier; split, the prefill lattice of every pow2
+        group up to ``max_slots`` × every bucket (:meth:`_prefill_keys`)."""
         steps = {self.decode_chunk, 1}
         if self.admission_chunk:
             steps.add(self.admission_chunk)
         keys = [Variant("decode", n, tier) for n in sorted(steps) for tier in TIERS]
         if self.mixed:
             keys += [Variant("mixed", width, tier) for width in self._mixed_widths for tier in TIERS]
+        return keys + self._prefill_keys()
+
+    def _prefill_keys(self) -> List[Variant]:
+        """The prefill variants: cold at every (group, bucket); at an
+        offset where the engine dispatches one (paged warm batches at
+        every group, long prompts' windows at group 1); the first-token
+        sampling at every (group, tier). Mixed mode admits through mixed
+        steps and dispatches none, as in the JAX engine."""
+        keys: List[Variant] = []
+        group = 1
+        while not self.mixed and group <= self.max_slots:
+            for bucket in self.prefill_buckets:
+                keys.append(Variant("prefill", bucket, "", group))
+                if self.paged or group == 1:
+                    keys.append(Variant("prefill_offset", bucket, "", group))
+            keys += [Variant("first_token", 0, tier, group) for tier in TIERS]
+            group *= 2
         return keys
 
     def _step_dummy(self, key: Variant) -> Dict[str, np.ndarray]:
-        """``key``'s step inputs with every row inactive: no cache row
-        changes (a masked dense write keeps the old value, a masked paged
-        one goes to the null block) and no count moves."""
+        """``key``'s step inputs for a warm-up before traffic. Decode and
+        mixed: every row inactive, so no cache row changes (a masked dense
+        write keeps the old value, a masked paged one goes to the null
+        block) and no count moves. Prefill: one token a row, of slot 0 on
+        the dense layout (whose rows it rewrites: :meth:`precompile` puts
+        them back) or of the paged null block; the first-token sampling
+        resets slot 0's counts (put back too)."""
         slots = self.max_slots
+        if key.kind in PREFILL_KINDS:
+            group = key.group
+            rows = np.zeros((group,), dtype=np.int64)
+            ones = np.ones((group,), dtype=np.int32)
+            if key.kind == "first_token":
+                arrays, _ = self._first_token_arrays([None] * group)
+                arrays.update(logits=np.zeros((group, self.config.vocab_size), dtype=np.float32),
+                              slot_ids=rows, positions=ones)
+                return arrays
+            arrays = dict(tokens=np.zeros((group, key.size), dtype=np.int64), lengths=ones)
+            if key.kind == "prefill_offset":
+                arrays["offsets"] = np.zeros((group,), dtype=np.int32)
+            if self.paged:
+                arrays["tables"] = np.zeros((group, self.max_blocks), dtype=np.int32)
+            else:
+                arrays["slot_ids"] = rows
+            return arrays
         arrays, _ = self._sampling_arrays([None] * slots)
         if self.paged:
             arrays["tables"] = np.zeros((slots, self.max_blocks), dtype=np.int32)
@@ -1102,7 +1211,50 @@ class DecodeEngine:
         return arrays
 
     def _step_body(self, key: Variant):
-        return (self._decode_body if key.kind == "decode" else self._mixed_body)(key.size, key.tier)
+        if key.kind == "decode":
+            return self._decode_body(key.size, key.tier)
+        if key.kind == "mixed":
+            return self._mixed_body(key.size, key.tier)
+        if key.kind == "first_token":
+            return self._first_token_body(key.tier)
+        return self._prefill_body(key.kind)
+
+    def _prefill_body(self, kind: str):
+        """One prefill model call, cold or at ``offsets``, over the rows'
+        dense slots or paged tables: the JAX ``_get_prefill`` and
+        ``_get_prefill_offset`` programs up to their logits."""
+
+        def call(x: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+            rows = x["tables"] if self.paged else x["slot_ids"]
+            args = (self.config, self.params, self.cache, x["tokens"], x["lengths"])
+            if kind == "prefill" and self.paged:
+                logits = model_lib.paged_prefill(*args, rows, self.freqs, kernel=self.paged_kernel)
+            elif kind == "prefill":
+                logits = model_lib.prefill(*args, rows, self.freqs)
+            elif self.paged:
+                logits = model_lib.paged_prefill_at_offset(
+                    *args, x["offsets"], rows, self.freqs, kernel=self.paged_kernel)
+            else:
+                logits = model_lib.prefill_at_offset(*args, x["offsets"], rows, self.freqs)
+            return {"logits": logits}
+
+        return call
+
+    def _first_token_body(self, tier: str):
+        """The JAX prefill programs' ``sample_first``: bias, sample at keys
+        from (seed, total length), the logprob under the raw logits; then
+        the rows' slots' penalty counts reset and count the sampled token
+        (the rows name distinct slots, so setting the count to 1 is
+        JAX's add of 1 to a zeroed row)."""
+
+        def first(x: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+            sampled, lps = self._sample(x["logits"], x, x["positions"], tier)
+            slots = x["slot_ids"]
+            self._counts.index_fill_(0, slots, 0)
+            self._counts.index_put_((slots, sampled), torch.ones_like(sampled, dtype=torch.int32))
+            return {"tokens": sampled, "logprobs": lps}
+
+        return first
 
     def _decode_body(self, steps: int, tier: str):
         """The K-step decode chunk over every slot: tokens, lengths and
@@ -1166,70 +1318,33 @@ class DecodeEngine:
         return step
 
     def precompile(self) -> None:
-        """Capture every step variant (:meth:`_variant_keys`) and run every
-        prefill variant the engine can dispatch once, before traffic, so
-        that no capture, kernel build or library first use ever stalls
-        live requests (the JAX engine's ``precompile``). Runs before
-        :meth:`start`, while nothing else enqueues work on the card. Its
-        dummy rows are all inactive or, for prefill, one token of slot 0
-        (put back after) or of the paged null block: the cache and the
-        penalty counts end as they were."""
+        """Capture every step variant (:meth:`_variant_keys`), prefill's
+        included, before traffic, so that no capture, kernel build or
+        library first use ever stalls live requests (the JAX engine's
+        ``precompile``). Runs before :meth:`start`, while nothing else
+        enqueues work on the card. The dummy inputs (:meth:`_step_dummy`)
+        rewrite slot 0's dense rows and penalty counts, which are put back
+        after, and the paged null block: the cache and the counts end as
+        they were."""
         if self._thread is not None:
             raise RuntimeError("precompile() must run before start()")
         started = time.perf_counter()
         keys = self._variant_keys()
         with torch.inference_mode():
-            for key in keys:
+            rows = None if self.paged else {leaf: t[:, 0].clone() for leaf, t in self.cache.items()}
+            counts = self._counts[0].clone()
+            # the largest prefill first: the later, smaller graphs reuse
+            # its segments of the shared pool instead of adding their own
+            for key in sorted(keys, key=lambda key: key.group * key.size, reverse=True):
                 self.steps.prepare(key)
-            if not self.mixed:
-                # mixed mode admits through mixed steps: no prefill call
-                self._warm_prefill()
+            if rows is not None:
+                for leaf, saved in rows.items():
+                    self.cache[leaf][:, 0].copy_(saved)
+            self._counts[0].copy_(counts)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.precompile_s = time.perf_counter() - started
-        logger.info("precompiled %d step variants and the prefill calls in %.1fs",
-                    len(keys), self.precompile_s)
-
-    def _warm_prefill(self) -> None:
-        """Each (pow2 group, bucket) prefill variant once, with first-token
-        sampling at every tier: cold prefill, and prefill at an offset
-        where the engine dispatches it (paged warm batches at every group
-        size; dense long prompts, one at a time). Every row is one token
-        of slot 0 (dense; its rows are saved and put back) or of the null
-        block (paged: the tables are all 0); no count is touched."""
-        saved = None if self.paged else {leaf: t[:, 0].clone() for leaf, t in self.cache.items()}
-        size = 1
-        while size <= self.max_slots:
-            arrays, _ = self._sampling_arrays([None] * size)
-            x = {name: self._to_device(a) for name, a in arrays.items()}
-            ones = self._to_device(np.ones((size,), dtype=np.int32))
-            zeros = self._to_device(np.zeros((size,), dtype=np.int32))
-            if self.paged:
-                rows = self._to_device(np.zeros((size, self.max_blocks), dtype=np.int32))
-            else:
-                rows = self._to_device(np.zeros((size,), dtype=np.int64))
-            for bucket in self.prefill_buckets:
-                tokens = self._to_device(np.zeros((size, bucket), dtype=np.int64))
-                if self.paged:
-                    logits = model_lib.paged_prefill(
-                        self.config, self.params, self.cache, tokens, ones, rows, self.freqs,
-                        kernel=self.paged_kernel)
-                    model_lib.paged_prefill_at_offset(
-                        self.config, self.params, self.cache, tokens, ones, zeros, rows,
-                        self.freqs, kernel=self.paged_kernel)
-                else:
-                    logits = model_lib.prefill(
-                        self.config, self.params, self.cache, tokens, ones, rows, self.freqs)
-                    if size == 1:
-                        model_lib.prefill_at_offset(
-                            self.config, self.params, self.cache, tokens, ones, zeros, rows,
-                            self.freqs)
-                for tier in TIERS:
-                    self._sample(logits, x, ones, tier)
-            size *= 2
-        if saved is not None:
-            for leaf, rows in saved.items():
-                self.cache[leaf][:, 0].copy_(rows)
+        logger.info("precompiled %d step variants in %.1fs", len(keys), self.precompile_s)
 
     def _dispatch_decode(self, carry: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
         """Run one K-step decode chunk over the ready slots through the
@@ -1238,10 +1353,10 @@ class DecodeEngine:
         in-flight chunk's record) the chunk is the same variant and starts
         from its final tokens and lengths on the device, with its active
         mask, sampling tensors and block tables: nothing crosses from the
-        host. While requests wait for a slot a fresh chunk runs at most
-        ``admission_chunk`` steps. In mixed mode, while any slot is
-        admitting, a fresh dispatch is one mixed step instead
-        (:meth:`_dispatch_mixed`)."""
+        host. While requests wait for a slot, or a prefill is in flight, a
+        fresh chunk runs at most ``admission_chunk`` steps. In mixed mode,
+        while any slot is admitting, a fresh dispatch is one mixed step
+        instead (:meth:`_dispatch_mixed`)."""
         if carry is None and self._any_admitting():
             return self._dispatch_mixed()
         started = time.perf_counter()
@@ -1258,7 +1373,7 @@ class DecodeEngine:
             active = np.zeros((slots,), dtype=bool)
             epochs = [0] * slots
             steps = self.decode_chunk
-            if self.admission_chunk and self._pending:
+            if self.admission_chunk and (self._pending or self._prefill_inflight):
                 # someone waits for a slot: a short chunk frees one sooner
                 steps = self.admission_chunk
             for i, slot in enumerate(self.slots):
@@ -1327,7 +1442,7 @@ class DecodeEngine:
         (a rider could finish by length during N), ``width`` (the ladder
         changes width), ``drained`` (no windows remain: plain chunks take
         over), ``epoch`` (a carried row's slot was recycled)."""
-        if self._pending:
+        if self._pending or self._prefill_inflight:
             return "admission"
         prev_plan = inflight["plan"]
         riders: List[int] = []
@@ -1646,7 +1761,9 @@ class DecodeEngine:
         for request in self._pending:
             fail(request)
         self._pending = []
+        self._prefill_inflight = []
         for slot in self.slots:
             if slot.active:
                 fail(slot.request)
                 slot.request = None
+                slot.prefilling = False

@@ -1,19 +1,24 @@
-"""The step runner: the engine's decode chunks and mixed steps, one CUDA
-graph per variant.
+"""The step runner: the engine's decode chunks, mixed steps and prefill
+calls, one CUDA graph per variant.
 
 Port of the JAX engine's unit of dispatch
 (``langstream_tpu/providers/jax_local/engine.py``): a decode chunk there
 is one jitted program per step count (``_get_decode``, a ``lax.scan`` of
 K decode + sample steps, cached in ``_decode_fns``), a mixed step one per
-width (``_get_mixed``, ``_mixed_fns``); ``_variant_jobs`` lists every
-variant and ``precompile`` builds them all before traffic. Here a
-:class:`Variant` (kind, size, sampling tier) is one ``torch.cuda.CUDAGraph``
-of the engine's step body, which the engine thread replays with one
-launch instead of enqueueing a thousand from Python.
+width (``_get_mixed``, ``_mixed_fns``), a prefill one per bucket, cold
+(``_get_prefill``) or at an offset (``_get_prefill_offset``), compiled
+once per power-of-two group size; ``_variant_jobs`` lists every variant
+and ``precompile`` builds them all before traffic. Here a
+:class:`Variant` is one ``torch.cuda.CUDAGraph`` of the engine's step
+body, which the engine thread replays with one launch instead of
+enqueueing a thousand from Python.
 
 The JAX program picks its sampling tier on the device (``lax.cond``); a
 graph cannot branch, so the host-known tier (:data:`TIERS`) is part of
-the key and a greedy batch never pays the [S, V] sort.
+the key and a greedy batch never pays the [S, V] sort. A prefill is two
+graphs replayed back to back: the model call, keyed (kind, bucket,
+group), writes the logits, and a first-token graph, keyed (group, tier),
+samples them; so the tier does not multiply the prefill lattice.
 
 The runner keeps ``Variant -> (graph, static inputs, static outputs)``:
 
@@ -25,20 +30,25 @@ The runner keeps ``Variant -> (graph, static inputs, static outputs)``:
   stream and never at the same time, and no tensor of the pool outlives a
   replay, so one variant's scratch is free for the next.
 - **Staging.** :meth:`StepRunner.run` takes every input by name: a host
-  array goes through a pinned buffer the runner owns (two sets a
-  variant, used in turns, so a buffer is never rewritten while its last
-  upload may still be queued) into the static input without blocking; a
-  device tensor (a carried output of the previous step) is copied into it
-  on the device. Either copy is enqueued before the replay, so it reads
+  array is copied into a fresh pinned buffer and from there into the
+  static input without blocking (PyTorch's pinned-memory cache reuses
+  that buffer only once the upload is done, so staging never waits for
+  the card, however many runs are queued); a device tensor (a carried
+  output of the previous step, a prefill's logits) is copied into it on
+  the device. Either copy is enqueued before the replay, so it reads
   the previous replay's outputs before this one overwrites them. A
   caller that keeps an output past the next :meth:`run` of the same
   variant must copy it first.
 - **Capture.** A variant is captured on first use (as a jit compiles on
   first use) or at the engine's ``precompile``: the body runs once on the
-  capture stream on the engine's all-inactive dummy inputs (which leave
-  the cache, but for the paged null block, and the penalty counts as
-  they were), then once under capture. A capture that fails raises,
-  naming the variant; nothing falls back to eager dispatch.
+  capture stream, then once under capture. At ``precompile`` it runs on
+  the engine's dummy inputs. On first use a decode or mixed variant runs
+  on its all-inactive dummy (which leaves the cache, but for the paged
+  null block, and the penalty counts as they were); a variant that
+  ``warm_on_call`` names (prefill: its dummy writes a real slot's rows)
+  runs on the call's own inputs instead, which its body may run twice
+  on: it writes the same rows and counts again. A capture that fails
+  raises, naming the variant; nothing falls back to eager dispatch.
 
 A replay runs no Python: the kernel wrappers count the launches they
 enqueue at the warm-up and the capture, never at a replay. What a
@@ -58,7 +68,7 @@ import contextlib
 import dataclasses
 import gc
 import time
-from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple, Union
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -82,11 +92,15 @@ def sampling_tier(stochastic: bool, truncated: bool) -> str:
 class Variant(NamedTuple):
     """One step program: ``kind`` "decode" (a chunk of ``size`` decode +
     sample steps) or "mixed" (one mixed step ``size`` tokens wide), at
-    sampling ``tier``."""
+    sampling ``tier``; "prefill" or "prefill_offset" (the model call of a
+    cold prefill or one at an offset, ``group`` rows of a ``size``-token
+    bucket, no tier), or "first_token" (the first-token sampling of
+    ``group`` rows at ``tier``, no size)."""
 
     kind: str
     size: int
-    tier: str
+    tier: str = ""
+    group: int = 0
 
 
 @contextlib.contextmanager
@@ -106,27 +120,12 @@ def capture(graph: Any, pool: Any = None, stream: Any = None):
             gc.enable()
 
 
-def to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A copy of a host array on ``device``. On the card the copy goes
-    through pinned memory without blocking, so an upload never waits for
-    the work already queued (a pageable one syncs the stream)."""
-    tensor = torch.from_numpy(array)
-    if device.type == "cuda":
-        return tensor.pin_memory().to(device, non_blocking=True)
-    return tensor.clone()
-
-
 @dataclasses.dataclass
 class _Entry:
     body: Callable[[Tensors], Tensors]
     inputs: Tensors
     outputs: Tensors = dataclasses.field(default_factory=dict)
     graph: Optional[Any] = None
-    # two sets of pinned staging buffers, used in turns, and the event
-    # recorded after each set's last uploads
-    pinned: List[Tensors] = dataclasses.field(default_factory=lambda: [{}, {}])
-    staged: List[Any] = dataclasses.field(default_factory=lambda: [None, None])
-    turn: int = 0
 
 
 class StepRunner:
@@ -136,8 +135,9 @@ class StepRunner:
 
     ``body(key)`` returns the variant's step, a function from a dict of
     input tensors to a dict of output tensors; ``dummy(key)`` its inputs
-    as host arrays of every row inactive (they fix the static inputs'
-    shapes and dtypes)."""
+    as host arrays (they fix the static inputs' shapes and dtypes);
+    ``warm_on_call(key)`` whether a variant first met in :meth:`run`
+    warms up on the call's own inputs instead of its dummy."""
 
     def __init__(
         self,
@@ -146,23 +146,25 @@ class StepRunner:
         graphs: bool,
         body: Callable[[Variant], Callable[[Tensors], Tensors]],
         dummy: Callable[[Variant], Dict[str, np.ndarray]],
+        warm_on_call: Callable[[Variant], bool] = lambda key: False,
     ) -> None:
         self.device = device
         self.graphed = graphs and device.type == "cuda"
         self._body = body
         self._dummy = dummy
+        self._warm_on_call = warm_on_call
         self._entries: Dict[Variant, _Entry] = {}
         # one pool and one capture stream for every graph of this runner
         self.pool = torch.cuda.graph_pool_handle() if self.graphed else None
         self._stream = torch.cuda.Stream(device) if self.graphed else None
         # captures (uncaptured: warm-up runs) and their seconds, replays
-        # (uncaptured: runs of the body)
-        self.stats: Dict[str, Any] = {"captured": 0, "capture_s": 0.0, "replayed": 0}
+        # (uncaptured: runs of the body), in all and by variant kind
+        self.stats: Dict[str, Any] = {"captured": 0, "capture_s": 0.0, "replayed": 0, "kinds": {}}
 
     def prepare(self, key: Variant) -> None:
-        """Capture ``key`` now, if it is not yet."""
+        """Capture ``key`` now on its dummy inputs, if it is not yet."""
         if key not in self._entries:
-            self._entries[key] = self._capture(key)
+            self._entries[key] = self._capture(key, self._dummy(key))
 
     def run(self, key: Variant, inputs: Inputs) -> Tuple[Tensors, Tensors]:
         """One step of ``key`` on ``inputs`` (every input by name: host
@@ -170,9 +172,11 @@ class StepRunner:
         device inputs it ran on and its outputs: the static buffers, which
         the next run of the same variant overwrites."""
         if key not in self._entries:
-            self._entries[key] = self._capture(key)
+            self._entries[key] = self._capture(
+                key, inputs if self._warm_on_call(key) else self._dummy(key))
         entry = self._entries[key]
         self.stats["replayed"] += 1
+        self._kind(key)["replayed"] += 1
         self._stage(entry, inputs)
         if entry.graph is None:
             for name, value in entry.body(entry.inputs).items():
@@ -184,12 +188,11 @@ class StepRunner:
     # ------------------------------------------------------------------ #
     def _stage(self, entry: _Entry, inputs: Inputs) -> None:
         """Copy ``inputs`` into the static inputs, host arrays through
-        this turn's pinned buffers, device tensors on the device (a
-        tensor that is the static input itself stays)."""
+        fresh pinned buffers, device tensors on the device (a tensor that
+        is the static input itself stays)."""
         if inputs.keys() != entry.inputs.keys():
             raise ValueError(
                 f"step inputs {sorted(inputs)} do not match the variant's {sorted(entry.inputs)}")
-        host = {}
         for name, value in inputs.items():
             static = entry.inputs[name]
             source = torch.from_numpy(value) if isinstance(value, np.ndarray) else value
@@ -198,52 +201,37 @@ class StepRunner:
                     f"step input {name}: {source.dtype} {tuple(source.shape)}, the variant takes "
                     f"{static.dtype} {tuple(static.shape)}")
             if isinstance(value, np.ndarray):
-                host[name] = source
+                if self.device.type == "cuda":
+                    source = source.pin_memory()
+                static.copy_(source, non_blocking=True)
             elif value is not static:
                 static.copy_(value)
-        if not host:
-            return
-        if self.device.type != "cuda":
-            for name, source in host.items():
-                entry.inputs[name].copy_(source)
-            return
-        turn = entry.turn
-        entry.turn ^= 1
-        if entry.staged[turn] is not None:
-            # the uploads out of these buffers two stagings ago (done long
-            # since: the step between them was processed on the host)
-            entry.staged[turn].synchronize()
-        pinned = entry.pinned[turn]
-        for name, source in host.items():
-            buffer = pinned.get(name)
-            if buffer is None:
-                buffer = pinned[name] = torch.empty(
-                    source.shape, dtype=source.dtype, pin_memory=True)
-            buffer.copy_(source)
-            entry.inputs[name].copy_(buffer, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
-        entry.staged[turn] = event
 
-    def _capture(self, key: Variant) -> _Entry:
-        """Warm ``key``'s body up on its dummy inputs and capture it."""
+    def _kind(self, key: Variant) -> Dict[str, Any]:
+        return self.stats["kinds"].setdefault(
+            key.kind, {"captured": 0, "capture_s": 0.0, "replayed": 0})
+
+    def _capture(self, key: Variant, inputs: Inputs) -> _Entry:
+        """Warm ``key``'s body up on ``inputs`` and capture it."""
         started = time.perf_counter()
         try:
-            entry = self._warm_and_capture(key)
+            entry = self._warm_and_capture(key, inputs)
         except Exception as exc:
             raise RuntimeError(f"capturing step variant {key} failed: {exc}") from exc
-        self.stats["captured"] += 1
-        self.stats["capture_s"] += time.perf_counter() - started
+        seconds = time.perf_counter() - started
+        for stats in (self.stats, self._kind(key)):
+            stats["captured"] += 1
+            stats["capture_s"] += seconds
         return entry
 
-    def _warm_and_capture(self, key: Variant) -> _Entry:
+    def _warm_and_capture(self, key: Variant, inputs: Inputs) -> _Entry:
         body = self._body(key)
-        dummy = self._dummy(key)
         entry = _Entry(body=body, inputs={
-            name: torch.empty(array.shape, dtype=torch.from_numpy(array).dtype, device=self.device)
-            for name, array in dummy.items()
+            name: torch.empty(tuple(value.shape), device=self.device, dtype=(
+                torch.from_numpy(value).dtype if isinstance(value, np.ndarray) else value.dtype))
+            for name, value in inputs.items()
         })
-        self._stage(entry, dummy)
+        self._stage(entry, inputs)
         if not self.graphed:
             # the warm-up run alone (kernel loads, cuBLAS first use)
             entry.outputs = {name: torch.empty_like(value)

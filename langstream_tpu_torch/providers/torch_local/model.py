@@ -466,6 +466,27 @@ def _mlp_block(config: LlamaConfig, normed: torch.Tensor, params, i) -> torch.Te
     return qmatmul(activated * up, params["w_down"][i])
 
 
+# rows of one pass through the MLP: a call of more rows (a prefill of
+# group × bucket tokens) runs it in slices of this many, so that its
+# largest intermediates, each rows × intermediate_size, are one slice's.
+# A captured prefill keeps its peak in the engine's graph pool for as long
+# as the engine lives.
+MLP_ROWS = 4096
+
+
+def _mlp(config: LlamaConfig, normed: torch.Tensor, params, i) -> torch.Tensor:
+    """:func:`_mlp_block` over ``normed`` [..., hidden], in slices of
+    :data:`MLP_ROWS` rows (each row's result is the same computation;
+    the block keeps ``normed``'s width and dtype)."""
+    rows = normed.reshape(-1, normed.shape[-1])
+    if rows.shape[0] <= MLP_ROWS:
+        return _mlp_block(config, normed, params, i)
+    out = torch.empty_like(rows)
+    for start in range(0, rows.shape[0], MLP_ROWS):
+        out[start:start + MLP_ROWS] = _mlp_block(config, rows[start:start + MLP_ROWS], params, i)
+    return out.reshape(normed.shape)
+
+
 def _logits(config: LlamaConfig, params, x: torch.Tensor) -> torch.Tensor:
     if config.tie_embeddings:
         # the embedding is never quantized: the tied head stays in x's dtype
@@ -531,7 +552,7 @@ def _layer_tail(config, params, i, x, attn):
         attn = _norm(config, attn, params["post_attn_norm"][i])
     x = x + attn
     normed = _norm(config, x, params["mlp_norm"][i])
-    delta = _mlp_block(config, normed, params, i)
+    delta = _mlp(config, normed, params, i)
     if "post_mlp_norm" in params:
         delta = _norm(config, delta, params["post_mlp_norm"][i])
     return x + delta
@@ -594,7 +615,7 @@ def prefill(
         for leaf, value in new.items():
             rows = cache[leaf][i]  # [S, max_len, KVH(, D)] view
             rows[slot_ids, :seq] = value.to(rows.dtype)
-            rows[slot_ids, seq:] = 0
+            rows[slot_ids, seq:] = rows.new_zeros(())  # on the device: capturable
         return _prefill_attn(config, q, new, lengths, window=window)
 
     x = _prefill_scan(config, params, tokens, torch.zeros_like(lengths), freqs, attend)

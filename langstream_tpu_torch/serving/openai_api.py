@@ -65,6 +65,14 @@ def _options_from_request(body: Dict[str, Any], model: str) -> Dict[str, Any]:
     return options
 
 
+class _HTTPServer(ThreadingHTTPServer):
+    # the JAX server's listen backlog (aiohttp's TCPSite default): a burst
+    # of concurrent clients overflows http.server's default of 5, and an
+    # overflowed connection may be reset before it is served
+    request_queue_size = 128
+    daemon_threads = True
+
+
 class OpenAIApiServer:
     """Serves the OpenAI surface for one model from a background thread."""
 
@@ -80,7 +88,7 @@ class OpenAIApiServer:
         self.model = model
         self.host = host
         self.port = port
-        self._httpd: Optional[ThreadingHTTPServer] = None
+        self._httpd: Optional[_HTTPServer] = None
         self._thread: Optional[threading.Thread] = None
 
     def start(self) -> None:
@@ -96,8 +104,7 @@ class OpenAIApiServer:
             def log_message(self, fmt: str, *args: Any) -> None:
                 logger.debug("%s " + fmt, self.address_string(), *args)
 
-        self._httpd = ThreadingHTTPServer((self.host, self.port), Handler)
-        self._httpd.daemon_threads = True
+        self._httpd = _HTTPServer((self.host, self.port), Handler)
         self.port = self._httpd.server_address[1]
         self._thread = threading.Thread(
             target=self._httpd.serve_forever, name="openai-api", daemon=True

@@ -10,6 +10,7 @@ port does not need.)
 
 import asyncio
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -1069,3 +1070,149 @@ def test_precompile_leaves_cache_and_counts_on_the_card(layout):
             assert torch.equal(leaf[:, live], before[name][:, live]), (kv_quant, name)
         assert torch.equal(eng._counts, counts), kv_quant
         assert eng.stats["model_dispatches"] == {}
+
+
+# ---------------------------------------------------------------------- #
+# prefill as CUDA graphs, and its harvest
+# ---------------------------------------------------------------------- #
+# the kernel a prefill replay launches -> (layout, kv cache)
+PREFILL_GRAPH_CASES = {"B1": ("dense", None), "B4": ("dense", "int8"),
+                       "B3": ("paged", None), "B6": ("paged", "int8")}
+
+
+def _by_hand(eng, requests):
+    """Admit ``requests`` in one round and harvest every record, on the
+    test's thread (no engine thread); returns each slot's first token and
+    logprob."""
+    with torch.inference_mode():
+        for prompt, sampling in requests:
+            eng._pending.append(engine.GenerationRequest(prompt_tokens=prompt, sampling=sampling))
+        eng._admit()
+        while eng._prefill_inflight:
+            eng._harvest_prefills(block=True)
+    return [(slot.generated[0], slot.logprobs[0]) for slot in eng.slots if slot.active]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", sorted(PREFILL_GRAPH_CASES))
+def test_prefill_graph_replay_matches_eager(kernel):
+    """One admission round (two cold prompts in one group, a third that is
+    cold on the dense layout and warm onto the first's blocks on the paged
+    one, a prompt past the largest bucket in windows) replayed from the
+    graphs ``precompile`` captured, and the same round run eagerly
+    (``step_graphs=False``): the prefill calls' logits bit for bit equal
+    (the same kernels on the same inputs), and so the first tokens and
+    logprobs. The replays captured nothing, and the card ran the path's
+    kernel once per layer per cold or paged model call (device counters;
+    B3/B6 all at the prefill shape); eagerly, the wrappers counted the same."""
+    device = _card()
+    layout, kv_quant = PREFILL_GRAPH_CASES[kernel]
+    config = _small_llama(256)
+    params = model.init_params(config, seed=10, device=device)
+    rng = np.random.default_rng(10)
+    shared = rng.integers(0, config.vocab_size, size=40).tolist()
+    requests = [
+        (shared + rng.integers(0, config.vocab_size, size=5).tolist(),
+         engine.SamplingParams(max_new_tokens=4)),
+        (rng.integers(0, config.vocab_size, size=50).tolist(),
+         engine.SamplingParams(max_new_tokens=4, temperature=0.8, top_p=0.9, seed=1)),
+        (shared + rng.integers(0, config.vocab_size, size=9).tolist(),
+         engine.SamplingParams(max_new_tokens=4, temperature=1.0, top_k=20, seed=2)),
+        (rng.integers(0, config.vocab_size, size=100).tolist(), engine.SamplingParams(max_new_tokens=4)),
+    ]
+
+    def run(graphs):
+        eng = engine.DecodeEngine(config, params, device=device, max_slots=4, prefill_buckets=[32, 64],
+                                  decode_chunk=4, kv_layout=layout, kv_block_size=16, kv_quant=kv_quant,
+                                  step_graphs=graphs)
+        if graphs:
+            eng.precompile()
+        captured = eng.steps.stats["captured"]
+        logits = []
+        step = eng.steps.run
+
+        def recorded(key, inputs):
+            staged, outputs = step(key, inputs)
+            if key.kind in ("prefill", "prefill_offset"):
+                logits.append((key, outputs["logits"].clone()))
+            return staged, outputs
+
+        eng.steps.run = recorded
+        for wrapper in WRAPPERS.values():
+            wrapper.launches = 0
+        try:
+            with launches_lib.device_launches(shapes=True) as launches:
+                firsts = _by_hand(eng, requests)
+        finally:
+            eng.stop()
+        if graphs:
+            assert eng.steps.stats["captured"] == captured
+        else:
+            assert all(launches[name] == wrapper.launches for name, wrapper in WRAPPERS.items())
+        return firsts, logits, launches, eng
+
+    eager, eager_logits, _, _ = run(False)
+    graphed, graphed_logits, launches, eng = run(True)
+    assert [key for key, _ in graphed_logits] == [key for key, _ in eager_logits]
+    for (key, mine), (_, theirs) in zip(graphed_logits, eager_logits):
+        assert torch.equal(mine, theirs), key
+    assert graphed == eager and len(graphed) == 4
+    calls, q = eng.stats["model_dispatches"], "_quant" if kv_quant else ""
+    if layout == "dense":
+        expect = {f"flash_prefill{q}": config.num_layers * calls["prefill"]}
+        assert calls["prefill_at_offset"] >= 2  # the long prompt's windows: plain attention
+    else:
+        # every B3/B6 launch a prefill call's, more than one q token per slot
+        prefills = config.num_layers * (calls["paged_prefill"] + calls["paged_prefill_at_offset"])
+        expect = {f"paged_attention{q}": prefills, f"paged_attention{q}/prefill": prefills}
+        assert eng.stats["warm_prefill_calls"] == 1
+    assert launches == {name: expect.get(name, 0) for name in launches}, (launches, calls)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["dense", "paged"])
+def test_prefill_behind_inflight_chunk_is_harvested_without_blocking(layout):
+    """Slot 0 decodes; a sleep kernel holds the card, then its chunk is
+    dispatched and slot 1's prefill replays behind it. A harvest that
+    must not block returns at once with the record in flight and slot 1
+    still out of decode; once the card has run both, a harvest emits slot
+    1's first token: the one the same request gets alone on an eager
+    engine (the same kernels on the same inputs)."""
+    device = _card()
+    config = _small_llama(256)
+    params = model.init_params(config, seed=11, device=device)
+    rng = np.random.default_rng(11)
+    first = (rng.integers(0, config.vocab_size, size=20).tolist(), engine.SamplingParams(max_new_tokens=12))
+    late = (rng.integers(0, config.vocab_size, size=30).tolist(),
+            engine.SamplingParams(max_new_tokens=12, temperature=0.8, seed=4))
+    args = dict(device=device, max_slots=4, prefill_buckets=[32, 64], decode_chunk=4, kv_layout=layout,
+                pipeline_decode=True)
+    eng = engine.DecodeEngine(config, params, **args)
+    eng.precompile()
+    try:
+        with torch.inference_mode():
+            _by_hand(eng, [first])
+            torch.cuda._sleep(200_000_000)  # ~0.1 s at <= 2 GHz
+            chunk = eng._dispatch_decode()
+            eng._pending.append(engine.GenerationRequest(prompt_tokens=late[0], sampling=late[1]))
+            eng._admit()
+            started = time.perf_counter()
+            eng._harvest_prefills(block=False)
+            waited = time.perf_counter() - started
+            assert len(eng._prefill_inflight) == 1 and eng.slots[1].prefilling, waited
+            assert waited < 0.02, waited
+            assert not eng._can_chain(chunk)
+            eng._process_decode(chunk)
+            torch.cuda.synchronize()
+            eng._harvest_prefills(block=False)
+            assert eng._prefill_inflight == [] and eng.slots[1].ready
+            got = (eng.slots[1].generated[0], eng.slots[1].logprobs[0])
+            assert len(eng.slots[0].generated) == 5
+    finally:
+        eng.stop()
+    alone = engine.DecodeEngine(config, params, step_graphs=False, **args)
+    try:
+        want = _by_hand(alone, [late])[0]
+    finally:
+        alone.stop()
+    assert got == want

@@ -9,7 +9,9 @@ the carries through the static buffers and the variant list;
 ``tests/test_torch_gpu.py`` holds the graphs themselves on the card.
 
 - ``_variant_keys()`` lists exactly the decode step counts and mixed
-  widths of the JAX engine's ``_variant_jobs``, at every sampling tier.
+  widths of the JAX engine's ``_variant_jobs``, at every sampling tier,
+  and its prefill lattice (cold and at an offset, by bucket and group,
+  and a first-token variant by group and tier) on both layouts.
 - Token streams and logprobs of the staged engine equal the JAX engine's
   and those of an engine built with ``step_graphs=False``, greedy and
   seeded, on the dense and paged layouts, the int8 KV cache, int8
@@ -19,15 +21,17 @@ the carries through the static buffers and the variant list;
 - ``admission_chunk`` shortens chunks while admissions wait and keeps the
   tokens, as in the JAX package's ``tests/test_engine.py``, on the dense
   layout and with mixed prefill.
-- ``precompile`` captures every variant, leaves the cache (but for the
-  paged null block) and the penalty counts as they were, and serving after
-  it equals serving without it.
+- ``precompile`` captures every variant, the prefill lattice's
+  included, leaves the cache (but for the paged null block) and the
+  penalty counts as they were, and serving after it equals serving
+  without it.
 - The counters: the engine counts a step's model calls on the host, at
   dispatch, the same with or without graphs; the runner leaves the
   kernel wrappers' counts to the body.
 """
 
 import asyncio
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -138,29 +142,52 @@ def _run_all(*engines):
 # the variant list
 # ---------------------------------------------------------------------- #
 @pytest.mark.parametrize("admission_chunk", [None, 2, 8], ids=["none", "2", "capped"])
-@pytest.mark.parametrize("layout", ["dense", "mixed"])
+@pytest.mark.parametrize("layout", ["dense", "paged", "mixed"])
 def test_variant_keys_cover_jax_variant_jobs(weights, layout, admission_chunk):
     """The decode step counts and mixed widths of ``_variant_keys()`` are
     those of the JAX engine's ``_variant_jobs`` for the same settings
     (an admission chunk above the decode chunk is capped to it), each at
-    every sampling tier; a split engine has no mixed variant."""
+    every sampling tier; a split engine has no mixed variant. The
+    prefill lattice too: every (bucket, group) of the JAX cold prefill
+    jobs; at an offset, every one of the JAX jobs on the paged layout and
+    their group-1 entries on the dense one (where the port dispatches an
+    offset only for a long prompt's windows); a first-token sampling per
+    group and tier; none in mixed mode."""
     kwargs = dict(decode_chunk=8, admission_chunk=admission_chunk)
+    if layout == "paged":
+        kwargs.update(PAGED)
     if layout == "mixed":
         kwargs.update(MIXED, prefill_chunk=40)
     ported = _port(weights, **kwargs)
     reference = _jax(weights, **kwargs)
-    jobs = {id(fn) for fn, _ in reference._variant_jobs()}
-    want_steps = {steps for steps, fn in reference._decode_fns.items() if id(fn) in jobs}
-    want_widths = {width for width, fn in reference._mixed_fns.items() if id(fn) in jobs}
+    jobs = reference._variant_jobs()
+    ids = {id(fn) for fn, _ in jobs}
+    want_steps = {steps for steps, fn in reference._decode_fns.items() if id(fn) in ids}
+    want_widths = {width for width, fn in reference._mixed_fns.items() if id(fn) in ids}
+    prefill_fns = {id(fn): ("prefill", bucket) for bucket, fn in reference._compiled_prefill.items()}
+    prefill_fns.update({id(fn): ("prefill_offset", bucket)
+                        for bucket, fn in reference._prefill_offset_fns.items()})
+    # (kind, bucket, group): the group is the rows of the tokens argument
+    want_prefill = {(*prefill_fns[id(fn)], args[2].shape[0]) for fn, args in jobs if id(fn) in prefill_fns}
+    if layout == "dense":
+        want_prefill = {job for job in want_prefill if job[0] == "prefill" or job[2] == 1}
+    groups = {group for _, _, group in want_prefill}
     keys = ported._variant_keys()
     assert len(keys) == len(set(keys))
     assert {k.size for k in keys if k.kind == "decode"} == want_steps
     assert {k.size for k in keys if k.kind == "mixed"} == want_widths
+    assert {(k.kind, k.size, k.group) for k in keys if k.kind.startswith("prefill")} == want_prefill
     assert set(keys) == {Variant(kind, size, tier)
                          for kind, sizes in (("decode", want_steps), ("mixed", want_widths))
-                         for size in sizes for tier in TIERS}
+                         for size in sizes for tier in TIERS} | {
+        Variant(kind, bucket, "", group) for kind, bucket, group in want_prefill} | {
+        Variant("first_token", 0, tier, group) for group in groups for tier in TIERS}
     assert want_steps == ({8, 1} | ({admission_chunk} if admission_chunk == 2 else set()))
     assert bool(want_widths) == (layout == "mixed")
+    assert groups == (set() if layout == "mixed" else {1, 2})
+    assert {(kind, bucket) for kind, bucket, group in want_prefill if group == 2} == (
+        set() if layout == "mixed" else {("prefill", 16), ("prefill", 32)}
+        | ({("prefill_offset", 16), ("prefill_offset", 32)} if layout == "paged" else set()))
     ported.stop()
     reference.stop()
 
@@ -180,7 +207,9 @@ def test_staged_streams_match_jax_and_uncaptured(weights, config):
     _same(got, eager)
     assert [len(r.tokens) for r in got] == [17, 16, 15, 10, 12, 9]
     ran = {key.kind for key in staged.steps._entries}
-    assert ran == ({"decode", "mixed"} if config == "mixed-carry" else {"decode"})
+    # split: cold prefill, and at an offset the 70-token prompt's windows
+    assert ran == ({"decode", "mixed"} if config == "mixed-carry"
+                   else {"decode", "prefill", "prefill_offset", "first_token"})
     assert {key.tier for key in staged.steps._entries} >= {"greedy", "truncated"}
     assert staged.steps.stats["replayed"] > 0 and unstaged.steps.stats["replayed"] > 0
     if config == "mixed-carry":
@@ -247,12 +276,12 @@ def test_admission_chunk_shortens_chunks_and_matches_jax(weights, layout):
 # ---------------------------------------------------------------------- #
 # precompile
 # ---------------------------------------------------------------------- #
-@pytest.mark.parametrize("config", ["dense", "int8-kv", "mixed-carry"])
+@pytest.mark.parametrize("config", ["dense", "paged", "int8-kv", "mixed-carry"])
 def test_precompile_leaves_state_and_streams_alone(weights, config):
-    """``precompile`` captures every variant and runs the prefill calls on
-    a cache and counts filled with seeded noise: both end as they were
-    (the paged null block aside), no model call is counted, and a
-    precompiled engine serves what a cold one serves without capturing
+    """``precompile`` captures every variant, the prefill lattice's
+    included, on a cache and counts filled with seeded noise: both end as
+    they were (the paged null block aside), no model call is counted, and
+    a precompiled engine serves what a cold one serves without capturing
     again."""
     kwargs = CONFIGS[config]
     eng = _port(weights, **kwargs)
@@ -267,6 +296,10 @@ def test_precompile_leaves_state_and_streams_alone(weights, config):
     eng.precompile()
     try:
         assert eng.steps.stats["captured"] == len(eng._variant_keys()) > 0
+        prefill = {kind: stats["captured"] for kind, stats in eng.steps.stats["kinds"].items()
+                   if kind in engine.PREFILL_KINDS}
+        assert prefill == ({} if eng.mixed else {
+            "prefill": 4, "prefill_offset": 4 if eng.paged else 2, "first_token": 6})
         assert eng.precompile_s is not None
         for name, leaf in eng.cache.items():
             live = slice(1, None) if eng.paged else slice(None)  # block 0: the null block
@@ -397,3 +430,21 @@ def test_device_launch_counts_name_every_kernel_and_read_zero_unloaded():
     with launches.device_launches() as counts:
         pass
     assert counts == dict.fromkeys(launches.KERNEL_NAMES, 0)
+
+
+def test_device_launch_counters_match_each_library_and_shapes_read_zero():
+    """Each library's list of forms is as long as its ``csrc`` counter
+    array (the read copies that many counters into it), and the
+    prefill-shape counters of B3 and B6 read as 0 with ``shapes``, apart
+    from the eight kernels' names."""
+    csrc = Path(launches.__file__).resolve().parent.parent / "csrc"
+    for library, forms in launches.FORMS.items():
+        source = (csrc / f"{library}.cu").read_text()
+        assert f"constexpr int FORMS = {len(forms)};" in source, library
+    assert launches.SHAPES == ("paged_attention/prefill", "paged_attention_quant/prefill")
+    assert not set(launches.SHAPES) & set(launches.KERNEL_NAMES)
+    names = launches.KERNEL_NAMES + launches.SHAPES
+    assert launches.read(shapes=True) == dict.fromkeys(names, 0)
+    with launches.device_launches(shapes=True) as counts:
+        pass
+    assert counts == dict.fromkeys(names, 0)

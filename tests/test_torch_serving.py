@@ -3,6 +3,7 @@ the CPU; the provider's int8 weights against the JAX int8 engine."""
 
 import ast
 import asyncio
+import concurrent.futures
 import json
 import pathlib
 import urllib.error
@@ -64,6 +65,18 @@ def test_chat_and_text_completions(server):
     assert [c["index"] for c in text["choices"]] == [0, 1]
     assert text["usage"]["completion_tokens"] == 10
     assert len(text["choices"][0]["logprobs"]["token_logprobs"]) == 5
+
+
+def test_burst_of_concurrent_clients_is_answered(server):
+    """64 clients connect at once, more than http.server's default listen
+    backlog of 5 holds: the server listens with the JAX server's backlog
+    (aiohttp's 128), and every client is answered."""
+    def complete(i):
+        return json.loads(_post(server + "/v1/completions", {"prompt": f"burst {i}", "max_tokens": 2}))
+
+    with concurrent.futures.ThreadPoolExecutor(64) as pool:
+        replies = list(pool.map(complete, range(64)))
+    assert [reply["usage"]["completion_tokens"] for reply in replies] == [2] * 64
 
 
 @pytest.mark.parametrize("chat", [True, False])
