@@ -25,9 +25,11 @@ Phases (any failure propagates and the exit code is not 0):
    where the work is bound by operations: the kernels line's ``long_*``
    fields; B2 and B5 also at the same lengths over a T 4096 cache, a
    printed time beside the T 1024 one); B3 ragged paged attention the
-   paged path, at a decode and a prefill-at-offset shape (both in the
-   kernels line: the decode shape's fields, and ``prefill_*`` fields and
-   launches by shape beside them); B4, B5 and B6 are their int8-KV twins,
+   paged path, at a decode, a prefill-at-offset and a speculative verify
+   shape (32 rows × Tq 5, launched as a verify block and counted by the
+   card in its own class; all in the kernels line: the decode shape's
+   fields, and ``prefill_*`` and ``verify_*`` fields and launches by
+   shape beside them); B4, B5 and B6 are their int8-KV twins,
    at the same shapes over ``quantize_kv`` of the same activations. B7
    (and B8 over int8 pools), the token-ragged kernel of the mixed step,
    at its shape (32 rows of a 64-wide span: decode rows, two windows,
@@ -51,7 +53,15 @@ Phases (any failure propagates and the exit code is not 0):
    (``model.MLP_ROWS``): the graph pool of the prefill lattice captured
    with the MLP in one pass and in slices, and one 32 × 1024 call sliced,
    replayed, equal bit for bit to its eager run and within the model
-   tolerance of the one-pass MLP.
+   tolerance of the one-pass MLP. Then, per layout and cache type, at 2
+   layers: a session follow-up warm at an offset (paged: after a
+   copy-on-write of its boundary block) and a prompt admitted onto
+   another request's prefix (dense: a cross-slot copy; paged: a
+   prefix-cache hit), their last-token logits against a cold prefill of
+   the same prompt; a verify block of 1 + 4 tokens against five decode
+   steps. And the graph pool of the 2-layer 32 × 1024 lattice without
+   and with this slice's variants (dense prefill at an offset at every
+   group, the prefix copies), and of a spec engine.
 4. Dense serving: Llama-3-8B (bf16, random weights from seed 0) behind
    the port's OpenAI server, started as ``python -m langstream_tpu_torch
    serve --precompile`` starts it (pipelined decode, its default): every
@@ -73,15 +83,18 @@ Phases (any failure propagates and the exit code is not 0):
    through a wrapper on the engine's ``_dispatch_decode``), and one bare
    decode step of that model, eager and as a CUDA graph: wall and host
    enqueue time of each, and the device time (again in phase 6, over the
-   int8 cache). The same with the engine built with ``step_graphs=False``
+   int8 cache). Then the in-turns controls, at 8 layers
+   (``CONTROL_LAYERS``), each series with its own twin of the main path
+   at that depth: the engine built with ``step_graphs=False``
    (the eager control, in turns with the graphed runs: graphed, eager,
    ..., graphed), with ``--no-pipeline-decode`` (no chained chunk; in
    turns with the pipelined runs: pipelined, unpipelined, unpipelined,
    pipelined), with the engine's ``join_prefills`` off (the JAX engine's
    harvest: in turns, join, JAX, JAX, join), and with ``--quantization
    int8`` (int8 weights drawn on the card; B1 and B2 as before; in turns
-   join, JAX, JAX with ``--admission-chunk 2``, join with it, JAX, join),
-   with a line holding the bf16 and int8 bare steps side by side.
+   join, JAX, JAX with ``--admission-chunk 2``, join with it, JAX, join,
+   after one full-depth int8-weight phase), with a line holding the bf16
+   and int8 bare steps of the full-depth phases side by side.
 5. Paged serving: the same model with ``--kv-layout paged``, answering 16
    chats that share a ~512-byte system message, 8 text completions and
    one SSE stream, all arriving cold. The prefix cache must have served
@@ -103,6 +116,23 @@ Phases (any failure propagates and the exit code is not 0):
    flag for it). Dense: B4 and B5 once per layer per model call; paged:
    B6 once per layer per model call; mixed: B8 per mixed step and B6 per
    decode step; no other kernel launched.
+7. Sessions: 16 users × 3 chat turns sent with the OpenAI ``user`` field
+   (a ~300-byte system message; turn n + 1 resends turn n's messages
+   with the reply and a new message), then 8 sessionless chats sharing a
+   ~530-byte system message, dense bf16, paged bf16 and paged int8 KV:
+   tok/s, mean TTFT by turn, session and prefix hits, reused tokens,
+   copy-on-write copies and copy replays. Gates: every request
+   answered, no capture, each kernel once per layer per model call;
+   dense 32 session hits (no eviction) and prefix hits; paged
+   copy-on-write copies.
+8. Speculative decoding: ``engine.spec-decode: ngram``, ``spec-k`` 4, 16
+   greedy completions of 128 tokens on repeating prompts, dense and
+   paged, each in turns with its spec-off twin (the count of streams
+   equal to the twin's printed, not gated: bf16 near-ties on random
+   weights), and paged over the int8 cache. Gates: drafts made and
+   accepted; dense: no decode-kernel launch (verify attends in plain
+   PyTorch); paged: B3 (B6) once per layer per model call, its verify
+   launches by the card's own counter once per layer per verify step.
 
 The line before the last holds the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -181,6 +211,9 @@ INT8_TOLERANCE = 5e-2
 # bytes of the int8 cache per live position and kv head beyond the values:
 # one f32 k scale and one f32 v scale
 SCALE_BYTES = 8
+# depth of the in-turns control phases of earlier slices (the main paths
+# run at Llama-3-8B's full 32 layers)
+CONTROL_LAYERS = 8
 # (name, source, TPU kernel) of each kernel, B1-B8
 SOURCES = {
     "flash_prefill": ("flash_prefill.cu", "flash_attention.py:64"),
@@ -508,11 +541,14 @@ def _paged_bound(seq, heads, kv_heads, dim, block_size, table_width, starts, len
 
 
 def check_paged_kernel(device, quant: bool = False) -> dict:
-    """B3 at the paged path's two shapes, Llama-3-8B heads, bf16, 16-token
-    blocks, in one pool of 2049 blocks through seeded permuted tables
-    (rows 0 and 1 share their prefix blocks): a decode step of 32 rows
-    over 1024 positions, and a prefill-at-offset of 4 rows. With
-    ``quant``, B6 over ``quantize_kv`` of the same pools."""
+    """B3 at the paged path's three shapes, Llama-3-8B heads, bf16,
+    16-token blocks, in one pool of 2049 blocks through seeded permuted
+    tables (rows 0 and 1 share their prefix blocks): a decode step of 32
+    rows over 1024 positions, a prefill-at-offset of 4 rows, and a
+    speculative verify block of 32 rows × Tq 5 (1 + spec_k 4; live lengths
+    up to 1024, 1 to 5 new tokens a row), launched as a verify block and
+    counted by the card in its own class (``paged_attention/verify``).
+    With ``quant``, B6 over ``quantize_kv`` of the same pools."""
     heads, kv_heads, dim, block_size, num_blocks, width = 32, 8, 128, 16, 2049, 64
     gen = torch.Generator(device=device).manual_seed(4)
     k_pool = torch.randn(num_blocks, block_size, kv_heads, dim, device=device, generator=gen).bfloat16()
@@ -526,9 +562,12 @@ def check_paged_kernel(device, quant: bool = False) -> dict:
     name = "paged_attention_quant" if quant else "paged_attention"
     rng = np.random.default_rng(4)
     decode_lengths = [0, 1, 16, 17, 1024] + rng.integers(2, 1025, size=27).tolist()
+    verify_lengths = [5, 16, 17, 1024] + rng.integers(6, 1025, size=28).tolist()
+    verify_new = [5, 1, 5, 5] + rng.integers(1, 6, size=28).tolist()
     cases = [
         ("decode", 1, [max(n - 1, 0) for n in decode_lengths], decode_lengths),
         ("prefill-at-offset", 256, [0, 256, 512, 767], [256, 457, 609, 768]),
+        ("verify", 5, [n - m for n, m in zip(verify_lengths, verify_new)], verify_lengths),
     ]
     result = None
     for label, seq, starts_host, lengths_host in cases:
@@ -542,7 +581,7 @@ def check_paged_kernel(device, quant: bool = False) -> dict:
 
         def kernel():
             fn = ragged_paged_attention_quant if quant else ragged_paged_attention
-            return fn(q, *pools, tables, starts, lengths)
+            return fn(q, *pools, tables, starts, lengths, verify=label == "verify")
 
         def plain():
             if seq == 1:
@@ -551,8 +590,14 @@ def check_paged_kernel(device, quant: bool = False) -> dict:
             fn = paged_chunk_attention_quant if quant else paged_chunk_attention
             return fn(q, *pools, tables, starts, lengths)
 
-        out, ref = kernel(), plain()
+        with launches_lib.device_launches(shapes=True) as counted:
+            out = kernel()
+        ref = plain()
         torch.cuda.synchronize()
+        shape = {"decode": None, "prefill-at-offset": "prefill", "verify": "verify"}[label]
+        assert counted[name] == 1 and all(
+            counted[f"{name}/{other}"] == (other == shape) for other in ("prefill", "verify")), (
+            label, counted)
         worst_abs = worst_rel = 0.0
         for b, (start, total) in enumerate(zip(starts_host, lengths_host)):
             if total == 0:
@@ -583,13 +628,14 @@ def check_paged_kernel(device, quant: bool = False) -> dict:
             f"pairs]: max_abs_err={worst_abs:.3e} max_rel_err={worst_rel:.3e} (tol {KERNEL_TOLERANCE}) "
             f"kernel_ms={kernel_ms:.4f} (call with host {wall_ms:.4f}) plain_ms={plain_ms:.4f} "
             f"library_ms={library_ms:.4f} (SDPA on the pre-gathered{' dequantized' if quant else ''} "
-            f"view, untimed) bound_ms={bound_ms:.5f} ({bound_by})")
-        if result is None:  # the decode shape's fields, then the prefill shape's own
+            f"view, untimed) bound_ms={bound_ms:.5f} ({bound_by}); the card counted the launch "
+            f"{ {key: n for key, n in counted.items() if key.startswith(name + '/') or key == name} }")
+        if shape is None:  # the decode shape's fields, then each other shape's own
             result = entry(name, worst_abs, kernel_ms, plain_ms, bound_ms, bound_by, library_ms)
         else:
-            result.update(prefill_max_abs_err=worst_abs, prefill_ms=kernel_ms,
-                          prefill_plain_ms=plain_ms, prefill_bound_ms=bound_ms,
-                          prefill_bound_by=bound_by, prefill_library_ms=library_ms)
+            result.update({f"{shape}_{key}": value for key, value in (
+                ("max_abs_err", worst_abs), ("ms", kernel_ms), ("plain_ms", plain_ms),
+                ("bound_ms", bound_ms), ("bound_by", bound_by), ("library_ms", library_ms))})
     return result
 
 
@@ -1148,6 +1194,179 @@ def check_mlp_slices(device) -> None:
         f"(tol {MODEL_TOLERANCE}; bit for bit: {bitwise}), {same_firsts}/32 first tokens equal")
 
 
+def _reuse_engine(config, params, device, layout, kv_quant, **kwargs):
+    return engine_lib.DecodeEngine(
+        config, params, device=device, max_slots=4, max_seq_len=512, prefill_buckets=[64, 128, 256],
+        kv_layout=layout, kv_block_size=16, kv_quant="int8" if kv_quant else None, **kwargs)
+
+
+def _recorded_rounds(eng, rounds):
+    """Each round's (prompt, session) submitted while the engine thread is
+    stopped, then run to its end (greedy, 4 tokens). Returns the results
+    and the logits of each round's last prefill model call."""
+    logits = []
+    step = eng.steps.run
+
+    def recorded(key, inputs):
+        staged, outputs = step(key, inputs)
+        if key.kind in ("prefill", "prefill_offset"):
+            logits.append(outputs["logits"].float().cpu().clone())
+        return staged, outputs
+
+    eng.steps.run = recorded
+    results, last = [], []
+    try:
+        for make in rounds:
+            prompt, session = make(results)
+            future = concurrent.futures.Future()
+            eng.submit(engine_lib.GenerationRequest(
+                prompt_tokens=prompt, sampling=engine_lib.SamplingParams(max_new_tokens=4),
+                session_id=session, future=future))
+            eng.start()
+            results.append(future.result(timeout=600))
+            eng.stop()
+            last.append(logits[-1])
+    finally:
+        eng.stop()
+        del eng.steps.run
+    return results, last
+
+
+def check_reuse_logits(device, kv_quant: bool = False) -> None:
+    """Llama-3-8B width, 2 layers, 4 slots, buckets 64/128/256, graphed, per
+    layout: a 100-token prompt A with a session; its follow-up B, A's
+    prompt and answer cut at 90 tokens (inside a 16-token block) and 30
+    more, warm at offset 90 on A's pinned slot (paged: a copy-on-write of
+    A's published boundary block); then C, sessionless, A's first 80
+    tokens and 25 more (dense: a cross-slot copy of 80 rows; paged: a
+    prefix-cache hit). The last-token logits of B's and C's prefill at an
+    offset within MODEL_TOLERANCE of a cold prefill of the same prompt on
+    an engine with the prefix cache off."""
+    config = dataclasses.replace(model.LlamaConfig.llama3_8b(max_seq_len=512), num_layers=2)
+    params = model.init_params(config, seed=7, device=device)
+    rng = np.random.default_rng(17)
+    prompt_a = rng.integers(0, config.vocab_size, size=100).tolist()
+    more_b = rng.integers(0, config.vocab_size, size=30).tolist()
+    prompt_c = prompt_a[:80] + rng.integers(0, config.vocab_size, size=25).tolist()
+    rounds = [lambda done: (prompt_a, "s"),
+              lambda done: ((prompt_a + done[0].tokens)[:90] + more_b, "s"),
+              lambda done: (prompt_c, None)]
+    cache = "int8" if kv_quant else "bf16"
+    for layout in ("dense", "paged"):
+        eng = _reuse_engine(config, params, device, layout, kv_quant)
+        results, warm = _recorded_rounds(eng, rounds)
+        prompts = [(prompt_a + results[0].tokens)[:90] + more_b, prompt_c]
+        cold_eng = _reuse_engine(config, params, device, layout, kv_quant, prefix_cache=False)
+        _, cold = _recorded_rounds(cold_eng, [lambda done, p=p: (p, None) for p in prompts])
+        stats = dict(eng.stats, cow_copies=eng.kv_manager.stats["cow_copies"] if eng.paged else 0,
+                     copies=eng.steps.stats["kinds"].get("copy" if layout == "dense" else "block_copy",
+                                                         {}).get("replayed", 0))
+        assert stats["session_hits"] == 1 and stats["prefix_hits"] >= 1, stats
+        assert stats["copies"] >= 1 and (layout == "dense" or stats["cow_copies"] == 1), stats
+        worst = [errors(mine, theirs)[1] for mine, theirs in zip(warm[1:], cold)]
+        assert all(bool(torch.isfinite(x).all()) for x in warm)
+        assert max(worst) < MODEL_TOLERANCE, f"{layout} {cache}: warm / copied vs cold logits {worst}"
+        log(f"reuse reference ({layout}, {cache} KV cache, Llama-3-8B width, 2 layers): session "
+            f"follow-up warm at offset 90 max_rel_err={worst[0]:.3e}, {'copied' if layout == 'dense' else 'prefix-hit'} "
+            f"prefix of 80 max_rel_err={worst[1]:.3e} against a cold prefill (tol {MODEL_TOLERANCE}); "
+            f"session_hits {stats['session_hits']}, prefix_hits {stats['prefix_hits']}, reused "
+            f"{stats['prefix_tokens_reused']}, cow_copies {stats['cow_copies']}, "
+            f"{'copy' if layout == 'dense' else 'block_copy'} replays {stats['copies']}")
+        del eng, cold_eng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def check_verify_model(device, kv_quant: bool = False) -> None:
+    """Llama-3-8B width, 2 layers: after a 48-token prefill, one verify
+    block of 1 + 4 tokens (``verify_step``, dense; ``paged_verify_step``,
+    B3/B6 launched as a verify block) against the same five tokens fed by
+    five decode steps (B2/B5; B3/B6) on a twin cache: the logits at each
+    of the five positions within MODEL_TOLERANCE; the card counts the
+    paged verify's launches, one per layer, in their own class."""
+    config = dataclasses.replace(model.LlamaConfig.llama3_8b(max_seq_len=128), num_layers=2)
+    params = model.init_params(config, seed=7, device=device)
+    freqs = model.model_freqs(config, device=device)
+    rng = np.random.default_rng(19)
+    prompt = torch.from_numpy(rng.integers(0, config.vocab_size, size=(1, 48))).to(device)
+    block = torch.from_numpy(rng.integers(0, config.vocab_size, size=(1, 5))).to(device)
+    i32 = dict(dtype=torch.int32, device=device)
+    tables = torch.arange(1, 9, **i32)[None]
+    cache = "int8" if kv_quant else "bf16"
+    name = "paged_attention_quant" if kv_quant else "paged_attention"
+    worst = {}
+    for layout in ("dense", "paged"):
+        caches = []
+        for _ in range(2):
+            if layout == "dense":
+                c = model.init_cache(config, 1, 128, kv_quant=kv_quant, device=device)
+                model.prefill(config, params, c, prompt, torch.tensor([48], **i32),
+                              torch.tensor([0], device=device), freqs)
+            else:
+                c = model.init_paged_cache(config, 9, 16, kv_quant=kv_quant, device=device)
+                model.paged_prefill(config, params, c, prompt, torch.tensor([48], **i32), tables, freqs)
+            caches.append(c)
+        args = (block, torch.tensor([49], **i32), torch.tensor([5], **i32))
+        with launches_lib.device_launches(shapes=True) as counted:
+            if layout == "dense":
+                verified = model.verify_step(config, params, caches[0], *args, freqs)
+            else:
+                verified = model.paged_verify_step(config, params, caches[0], *args, tables, freqs)
+        steps = []
+        for t in range(5):
+            step_args = (block[:, t], torch.tensor([49 + t], **i32))
+            if layout == "dense":
+                steps.append(model.decode_step(config, params, caches[1], *step_args, freqs))
+            else:
+                steps.append(model.paged_decode_step(config, params, caches[1], *step_args, tables, freqs))
+        stepped = torch.stack(steps, dim=1)
+        assert verified.shape == stepped.shape and bool(torch.isfinite(verified).all())
+        worst[layout] = errors(verified.float().cpu(), stepped.float().cpu())[1]
+        assert worst[layout] < MODEL_TOLERANCE, f"{layout} {cache} verify vs decode steps: {worst}"
+        if layout == "paged":
+            assert counted[name] == counted[f"{name}/verify"] == config.num_layers, counted
+            assert counted[f"{name}/prefill"] == 0, counted
+    log(f"verify reference ({cache} KV cache, Llama-3-8B width, 2 layers): a 1 + 4 block against 5 "
+        f"decode steps, max_rel_err dense (verify_step, plain attention) {worst['dense']:.3e}, paged "
+        f"(paged_verify_step, {'B6' if kv_quant else 'B3'} counted as verify launches) "
+        f"{worst['paged']:.3e} (tol {MODEL_TOLERANCE})")
+
+
+def check_graph_pool(device) -> None:
+    """Llama-3-8B width, 2 layers, 32 slots × 1024, dense bf16: the graph
+    pool of the variants captured before this slice's (decode chunks,
+    cold prefill at every group, at an offset at group 1, first tokens),
+    then with this slice's added (prefill at an offset at every group,
+    the prefix copies); and a spec engine's pool (spec chunks in place of
+    decode chunks)."""
+    config = dataclasses.replace(model.LlamaConfig.llama3_8b(max_seq_len=1024), num_layers=2)
+    params = model.init_params(config, seed=8, device=device)
+    pools = {}
+    for spec in ("off", "ngram"):
+        eng = engine_lib.DecodeEngine(config, params, device=device, max_slots=32, max_seq_len=1024,
+                                      decode_chunk=8, spec_decode=spec)
+        keys = sorted(eng._variant_keys(), key=lambda key: key.group * key.size, reverse=True)
+        earlier = [key for key in keys if key.kind not in ("copy", "spec")
+                   and (key.kind != "prefill_offset" or key.group == 1)]
+        with torch.inference_mode():
+            if spec == "off":
+                for key in earlier:
+                    eng.steps.prepare(key)
+                pools["earlier"] = graph_pool_gib(eng)
+            started = time.perf_counter()
+            for key in keys:
+                eng.steps.prepare(key)
+            pools[spec] = (graph_pool_gib(eng), len(keys), time.perf_counter() - started)
+        eng.stop()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"graph pool (Llama-3-8B width, 2 layers, 32 slots x 1024, dense bf16): {pools['earlier']:.3f} GiB "
+        f"with the variants of before this slice, {pools['off'][0]:.3f} GiB with its dense prefill at an "
+        f"offset at every group and the prefix copies ({pools['off'][1]} variants); spec engine "
+        f"{pools['ngram'][0]:.3f} GiB ({pools['ngram'][1]} variants, captured in {pools['ngram'][2]:.1f} s)")
+
+
 def _bare_step(step, iters: int = 5) -> dict:
     """Wall and host-enqueue ms of ``step`` eager and as a CUDA graph of
     it replayed, and the graph's device ms: replays timed as
@@ -1281,10 +1500,13 @@ def graph_pool_gib(engine):
     return sum(seg["total_size"] for seg in segments if tuple(seg["segment_pool_id"]) == pool) / 2**30
 
 
-def start_llama_server(*extra: str, kv_quant: bool = False, graphs: bool = True):
+def start_llama_server(*extra: str, kv_quant: bool = False, graphs: bool = True,
+                       engine_config=None, layers=None):
     """``serve --precompile`` with these flags; ``kv_quant`` adds
     ``kv-quant: int8`` to the provider's engine config, the way a
-    deployment asks for it; ``graphs=False`` builds the engine with eager
+    deployment asks for it, and ``engine_config`` its other keys (``serve``
+    has no flag for either); ``layers`` cuts the model's depth (the
+    in-turns controls); ``graphs=False`` builds the engine with eager
     dispatch (the control; no flag or key reaches that). The decode chunk
     is 8, not ``bench.py``'s 32: a chunk is chained only while every rider
     has two chunks of budget left, and at 32 no request of these bursts
@@ -1296,6 +1518,9 @@ def start_llama_server(*extra: str, kv_quant: bool = False, graphs: bool = True)
     config = serve_config(args)
     if kv_quant:
         config["engine"]["kv-quant"] = "int8"
+    config["engine"].update(engine_config or {})
+    if layers:
+        config["model"]["num_layers"] = layers
     t0 = time.perf_counter()
     service, server = start_server(args, config, step_graphs=graphs)
     engine = service.engine
@@ -1306,10 +1531,12 @@ def start_llama_server(*extra: str, kv_quant: bool = False, graphs: bool = True)
         return (sum(kinds.get(kind, {}).get("captured", 0) for kind in names),
                 sum(kinds.get(kind, {}).get("capture_s", 0.0) for kind in names))
 
-    steps, step_s = graphs_of(("decode", "mixed"))
+    steps, step_s = graphs_of(("decode", "spec", "mixed", "copy", "block_copy"))
     prefill, prefill_s = graphs_of(engine_lib.PREFILL_KINDS)
     how = "captured as CUDA graphs" if engine.steps.graphed else "warmed eagerly"
     log(f"serve {' '.join(extra) or '(dense)'}{' kv-quant: int8' if kv_quant else ''}"
+        f"{''.join(f' {key}: {value}' for key, value in (engine_config or {}).items())}"
+        f"{f' at {layers} layers' if layers else ''}"
         f"{'' if graphs else ' EAGER (step_graphs=False)'}: Llama-3-8B "
         f"{args.quantization or 'bf16'} random weights up in {time.perf_counter() - t0:.1f}s, "
         f"precompile {engine.precompile_s:.2f}s ({steps} step variants {how} in {step_s:.2f}s; "
@@ -1453,16 +1680,17 @@ def report(label, kind, jobs, wall, tokens, stats, launches, host, peak_gib) -> 
 
 
 def serve_dense_and_check(label: str, kv_quant: bool = False, extra=(), graphs: bool = True,
-                          join: bool = True) -> dict:
+                          join: bool = True, layers=None) -> dict:
     """The dense burst through ``serve`` with ``extra`` flags (pipelined
     unless ``--no-pipeline-decode``; ``--quantization int8`` for int8
     weights; ``graphs=False``: the eager control; ``join=False``: the
-    engine's ``join_prefills`` off, the JAX engine's harvest): B1/B2
+    engine's ``join_prefills`` off, the JAX engine's harvest; ``layers``:
+    the model cut to that depth, for the in-turns controls): B1/B2
     (B4/B5 over the int8 cache) once per layer per model call, no other
     kernel, and chained decode chunks when pipelined. Returns the
     launches, tok/s and mean TTFT of both bursts, and the bare decode
     step's timing."""
-    service, server = start_llama_server(*extra, kv_quant=kv_quant, graphs=graphs)
+    service, server = start_llama_server(*extra, kv_quant=kv_quant, graphs=graphs, layers=layers)
     service.engine.join_prefills = join  # before any request reaches the engine
     rng = np.random.default_rng(0)
     jobs = []
@@ -1496,7 +1724,7 @@ def serve_dense_and_check(label: str, kv_quant: bool = False, extra=(), graphs: 
         service.engine.stop()
     timing = time_decode_step(service.engine)
     tokens = check_replies(jobs, replies)
-    layers = model.LlamaConfig.llama3_8b().num_layers
+    layers = service.engine.config.num_layers
     calls = stats["model_dispatches"]
     prefill, decode = (
         ("flash_prefill_quant", "flash_decode_quant") if kv_quant else ("flash_prefill", "flash_decode"))
@@ -1511,7 +1739,8 @@ def serve_dense_and_check(label: str, kv_quant: bool = False, extra=(), graphs: 
                     else dict.fromkeys(KERNELS, 0)), (host, launches)
     assert not any(launches[name] for name in launches_lib.SHAPES), launches
     kind = " ".join(["dense"] + [flag.lstrip("-") for flag in extra] + (["int8 KV"] if kv_quant else [])
-                    + ([] if graphs else ["EAGER"]) + ([] if join else ["JAX harvest"]))
+                    + ([] if graphs else ["EAGER"]) + ([] if join else ["JAX harvest"])
+                    + ([f"{layers} layers"] if layers != model.LlamaConfig.llama3_8b().num_layers else []))
     report(label, kind, jobs, wall, tokens, stats, launches, host, peak_gib)
     uniform_tokens = check_replies(uniform, uniform_replies)
     report(label, kind + ", uniform 64-token burst", uniform, uniform_wall, uniform_tokens,
@@ -1610,6 +1839,156 @@ def serve_paged_and_check(label: str, kv_quant: bool = False, mixed: bool = Fals
     return launches
 
 
+def _post_all(server, jobs):
+    """All jobs at once, uncounted; returns the replies."""
+    url = f"http://127.0.0.1:{server.port}"
+
+    def post(job):
+        path, body = job
+        request = urllib.request.Request(url + path, data=json.dumps(body).encode(),
+                                         headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(request, timeout=600) as response:
+            return response.read().decode()
+
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        return list(pool.map(post, jobs))
+
+
+def _answered(jobs, replies):
+    """Every reply complete (its max_tokens, or stopped); returns the
+    completion tokens and the replies' texts."""
+    tokens, texts = 0, []
+    for (path, body), raw in zip(jobs, replies):
+        choice = json.loads(raw)["choices"][0]
+        got = json.loads(raw)["usage"]["completion_tokens"]
+        assert got == body["max_tokens"] or choice["finish_reason"] == "stop", (path, got, choice)
+        tokens += got
+        texts.append(choice["message"]["content"] if "message" in choice else choice["text"])
+    return tokens, texts
+
+
+def _kernel_gates(stats, launches, host, paged: bool, kv_quant: bool) -> None:
+    """The kernels of the burst's path, each once per layer per model
+    call by its card counter, and no other: dense B1 (B4) per cold
+    prefill call and B2 (B5) per decode step (prefill at an offset and
+    the verify block attend in plain PyTorch); paged B3 (B6) per call,
+    split by its card counters into prefill calls, verify steps and
+    decode steps; nothing enqueued eagerly (every step a replay)."""
+    layers = model.LlamaConfig.llama3_8b().num_layers
+    calls = stats["model_dispatches"]
+    q = "_quant" if kv_quant else ""
+    if paged:
+        name = f"paged_attention{q}"
+        prefills = calls.get("paged_prefill", 0) + calls.get("paged_prefill_at_offset", 0)
+        expect = {name: layers * sum(calls.values()), f"{name}/prefill": layers * prefills,
+                  f"{name}/verify": layers * calls.get("paged_verify_step", 0)}
+    else:
+        expect = {f"flash_prefill{q}": layers * calls.get("prefill", 0),
+                  f"flash_decode{q}": layers * calls.get("decode_step", 0)}
+    assert launches == {name: expect.get(name, 0) for name in launches}, (launches, calls)
+    assert not any(host.values()), host
+
+
+def serve_sessions_and_check(label: str, paged: bool = False, kv_quant: bool = False) -> dict:
+    """Sessions through ``serve --precompile`` (pipelined): 16 users × 3
+    turns of chat, each turn sent with the OpenAI ``user`` field and a
+    ~300-byte system message, turn n + 1 the messages of turn n, its
+    reply and a new user message; then 8 sessionless chats sharing a
+    ~530-byte system message (dense: cross-slot copies). Each burst of 16
+    (8) at once, counted as the main path's (:func:`run_burst`). Gates:
+    every request answered, nothing captured while serving, each kernel
+    once per layer per model call; dense: 32 session hits (32 slots, 16
+    users: no eviction) and prefix hits; paged: copy-on-write copies."""
+    extra = ["--kv-layout", "paged", "--kv-block-size", "16"] if paged else []
+    service, server = start_llama_server(*extra, kv_quant=kv_quant)
+    rng = np.random.default_rng(5)
+    system = {"role": "system", "content": prompt_text(rng, 300)}
+    chats = [[system, {"role": "user", "content": f"user {u}: " + prompt_text(rng, 40 + 4 * u)}]
+             for u in range(16)]
+    shared = {"role": "system", "content": prompt_text(rng, 530)}
+    turns, total = [], {"session_hits": 0, "prefix_hits": 0, "prefix_tokens_reused": 0}
+    cow = service.engine.kv_manager.stats["cow_copies"] if paged else 0
+    try:
+        for turn in range(4):
+            if turn < 3:
+                jobs = [("/v1/chat/completions", {"messages": chats[u], "max_tokens": 24,
+                                                  "user": f"user-{u}"}) for u in range(16)]
+            else:
+                jobs = [("/v1/chat/completions", {"max_tokens": 24, "messages": [
+                    shared, {"role": "user", "content": f"question {i}: " + prompt_text(rng, 30)}]})
+                    for i in range(8)]
+            replies, wall, launches, host, stats, peak_gib = run_burst(service, server, jobs)
+            tokens, texts = _answered(jobs, replies)
+            _kernel_gates(stats, launches, host, paged, kv_quant)
+            for key in total:
+                total[key] += stats[key]
+            copies = {kind: n for kind, n in stats["runs_by_kind"].items() if kind in ("copy", "block_copy")}
+            turns.append(dict(tok_s=tokens / wall, ttft_ms=stats["ttft_time"] / stats["requests"] * 1e3,
+                              copies=copies, **{key: stats[key] for key in total}))
+            if turn < 2:
+                for u in range(16):
+                    chats[u] = chats[u] + [{"role": "assistant", "content": texts[u]}, {
+                        "role": "user", "content": f"turn {turn + 2}: " + prompt_text(rng, 30)}]
+    finally:
+        server.stop()
+        service.engine.stop()
+    cow = (service.engine.kv_manager.stats["cow_copies"] - cow) if paged else 0
+    kind = ("paged" if paged else "dense") + (" int8 KV" if kv_quant else "")
+    log(f"sessions {kind} [{label}]: " + "; ".join(
+        f"{'turn ' + str(n + 1) if n < 3 else 'sessionless shared prefix'} {t['tok_s']:.1f} tok/s, mean "
+        f"TTFT {t['ttft_ms']:.1f} ms, session_hits {t['session_hits']}, prefix_hits {t['prefix_hits']}, "
+        f"reused {t['prefix_tokens_reused']}, copy replays {t['copies']}" for n, t in enumerate(turns))
+        + f"; in all session_hits {total['session_hits']}, prefix_hits {total['prefix_hits']}, "
+        f"prefix_tokens_reused {total['prefix_tokens_reused']}, cow_copies {cow}")
+    if paged:
+        assert cow > 0, cow
+    else:
+        assert total["session_hits"] == 32 and total["prefix_hits"] > 0, total
+    return dict(total, cow_copies=cow, turns=turns)
+
+
+def serve_spec_and_check(label: str, paged: bool = False, spec: bool = True, kv_quant: bool = False) -> dict:
+    """Speculative decoding through ``serve --precompile`` (pipelined) with
+    ``engine.spec-decode: ngram``, ``spec-k`` 4 (``spec=False``: the
+    spec-off twin): 16 greedy text completions of 128 new tokens, each on
+    a prompt whose text repeats, at once. Gates: every request answered,
+    nothing captured, each kernel once per layer per model call (the
+    verify steps attend in plain PyTorch on the dense layout; paged they
+    are B3/B6's verify launches, by the card's own counter); with spec,
+    drafts were made and accepted. Returns the texts, to be compared with
+    the twin's."""
+    extra = ["--kv-layout", "paged", "--kv-block-size", "16"] if paged else []
+    engine_config = {"spec-decode": "ngram", "spec-k": 4} if spec else {}
+    service, server = start_llama_server(*extra, kv_quant=kv_quant, engine_config=engine_config)
+    rng = np.random.default_rng(7)
+    jobs = []
+    for i in range(16):
+        phrase = prompt_text(rng, 24 + 2 * i) + " "
+        jobs.append(("/v1/completions", {"prompt": phrase * (6 + i % 4), "max_tokens": 128,
+                                         "temperature": 0}))
+    try:
+        replies, wall, launches, host, stats, peak_gib = run_burst(service, server, jobs)
+    finally:
+        server.stop()
+        service.engine.stop()
+    tokens, texts = _answered(jobs, replies)
+    _kernel_gates(stats, launches, host, paged, kv_quant)
+    calls = stats["model_dispatches"]
+    if spec:
+        assert calls.get("paged_verify_step" if paged else "verify_step", 0) > 0, calls
+        assert stats["tokens_drafted"] > 0 and stats["tokens_draft_accepted"] > 0, stats
+    kind = ("paged" if paged else "dense") + (" int8 KV" if kv_quant else "") + (
+        " spec-decode ngram" if spec else " spec off")
+    log(f"spec {kind} [{label}]: {stats['requests']} requests, {tokens} completion tokens in {wall:.3f}s = "
+        f"{tokens / wall:.1f} tok/s; mean TTFT {stats['ttft_time'] / stats['requests'] * 1e3:.1f} ms; "
+        f"decode steps {stats['decode_steps']} ({stats['decode_time']:.3f}s), tokens drafted "
+        f"{stats['tokens_drafted']}, accepted {stats['tokens_draft_accepted']}; model calls {calls}; chained "
+        f"chunks {stats['chained_decode_chunks']}; graphs replayed by kind {stats['runs_by_kind']}, captured "
+        f"{stats['step_captures']}; launches on the card {launches}")
+    return dict(launches, texts=texts, tok_s=tokens / wall,
+                ttft_ms=stats["ttft_time"] / stats["requests"] * 1e3)
+
+
 def main() -> None:
     device = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -1630,38 +2009,57 @@ def main() -> None:
         check_paged_model(device, kv_quant=kv_quant)
         check_mixed_model(device, kv_quant=kv_quant)
         check_prefill_graphs(device, kv_quant=kv_quant)
+        check_reuse_logits(device, kv_quant=kv_quant)
+        check_verify_model(device, kv_quant=kv_quant)
     check_mlp_slices(device)
+    check_graph_pool(device)
     # each kernel's launches come from the serving phase of its own path;
     # every phase runs serve's default, the pipelined decode, except the
     # dense control, which runs in turns with it (pipelined, control,
     # control, pipelined): the host's pace drifts within a run
     launches, runs = {}, {}
+    # the in-turns controls of earlier slices (graphed against eager, the
+    # decode carry, the harvest, int8 weights with the harvest and the
+    # admission chunk) run at CONTROL_LAYERS, each series with its own
+    # twin of the main path at that depth; the main paths at full depth
+    small = dict(layers=CONTROL_LAYERS)
     mixed = functools.partial(serve_paged_and_check, mixed=True)
     warm_split = functools.partial(serve_paged_and_check, warm=True)  # the mixed run's twin
     pipelined = serve_dense_and_check
-    eager = functools.partial(serve_dense_and_check, graphs=False)
-    unpipelined = functools.partial(serve_dense_and_check, extra=("--no-pipeline-decode",))
-    jax_harvest = functools.partial(serve_dense_and_check, join=False)
+    ctl_pipelined = functools.partial(serve_dense_and_check, **small)
+    eager = functools.partial(serve_dense_and_check, graphs=False, **small)
+    unpipelined = functools.partial(serve_dense_and_check, extra=("--no-pipeline-decode",), **small)
+    jax_harvest = functools.partial(serve_dense_and_check, join=False, **small)
     int8_flags = ("--quantization", "int8")
     int8_weights = functools.partial(serve_dense_and_check, extra=int8_flags)
-    int8_jax = functools.partial(serve_dense_and_check, extra=int8_flags, join=False)
+    ctl_int8 = functools.partial(serve_dense_and_check, extra=int8_flags, **small)
+    int8_jax = functools.partial(serve_dense_and_check, extra=int8_flags, join=False, **small)
     short = ("--admission-chunk", "2")
-    int8_short = functools.partial(serve_dense_and_check, extra=int8_flags + short)
-    int8_jax_short = functools.partial(serve_dense_and_check, extra=int8_flags + short, join=False)
+    int8_short = functools.partial(serve_dense_and_check, extra=int8_flags + short, **small)
+    int8_jax_short = functools.partial(serve_dense_and_check, extra=int8_flags + short, join=False,
+                                       **small)
+    sessions = serve_sessions_and_check
+    paged_sessions = functools.partial(serve_sessions_and_check, paged=True)
+    spec = serve_spec_and_check
+    spec_off = functools.partial(serve_spec_and_check, spec=False)
+    paged_spec = functools.partial(serve_spec_and_check, paged=True)
+    paged_spec_off = functools.partial(serve_spec_and_check, paged=True, spec=False)
     for serve, kv_quant, names in (
         (pipelined, False, ("flash_prefill", "flash_decode")),
+        (ctl_pipelined, False, ()),
         (jax_harvest, False, ()),
         (eager, False, ()),
         (unpipelined, False, ()),
         (unpipelined, False, ()),
         (jax_harvest, False, ()),
-        (pipelined, False, ()),
+        (ctl_pipelined, False, ()),
         (int8_weights, False, ()),
+        (ctl_int8, False, ()),
         (int8_jax, False, ()),
         (int8_jax_short, False, ()),
         (int8_short, False, ()),
         (int8_jax, False, ()),
-        (int8_weights, False, ()),
+        (ctl_int8, False, ()),
         (serve_paged_and_check, False,
          ("paged_attention", "paged_attention/decode", "paged_attention/prefill")),
         (warm_split, False, ()),
@@ -1671,6 +2069,14 @@ def main() -> None:
                                        "paged_attention_quant/prefill")),
         (warm_split, True, ()),
         (mixed, True, ("paged_attention_ragged_q_quant",)),
+        (sessions, False, ()),
+        (paged_sessions, False, ()),
+        (paged_sessions, True, ()),
+        (spec, False, ()),
+        (spec_off, False, ()),
+        (paged_spec, False, ("paged_attention/verify",)),
+        (paged_spec_off, False, ()),
+        (paged_spec, True, ("paged_attention_quant/verify",)),
     ):
         counts = serve(label, kv_quant=kv_quant)
         launches.update({name: counts[name] for name in names})
@@ -1684,30 +2090,31 @@ def main() -> None:
             f"{run['ttft_ms']:.1f} / {run['uniform_ttft_ms']:.1f} ms"
             for kind, run in zip(kinds, phases))
 
-    graphed_runs = runs[pipelined, False]
-    log("dense bf16 in turns, graphed against eager (both pipelined), mixed-length / uniform "
+    graphed_runs = runs[ctl_pipelined, False]
+    depth = f" ({CONTROL_LAYERS} layers)"
+    log(f"dense bf16 in turns{depth}, graphed against eager (both pipelined), mixed-length / uniform "
         "64-token burst: " + turns(("graphed", "eager", "graphed"),
                                    (graphed_runs[0], runs[eager, False][0], graphed_runs[1])))
-    log("dense bf16 in turns, the carry (both graphed), mixed-length / uniform 64-token burst: "
+    log(f"dense bf16 in turns{depth}, the carry (both graphed), mixed-length / uniform 64-token burst: "
         + turns(("pipelined", "unpipelined", "unpipelined", "pipelined"),
                 (graphed_runs[0], *runs[unpipelined, False], graphed_runs[1])))
-    log("dense bf16 in turns, the harvest (both graphed and pipelined): join_prefills against the "
+    log(f"dense bf16 in turns{depth}, the harvest (both graphed and pipelined): join_prefills against the "
         "JAX engine's harvest, mixed-length / uniform 64-token burst: "
         + turns(("join", "JAX", "JAX", "join"),
                 (graphed_runs[0], *runs[jax_harvest, False], graphed_runs[1])))
-    log("int8 weights in turns, the harvest and --admission-chunk 2, mixed-length / uniform "
+    log(f"int8 weights in turns{depth}, the harvest and --admission-chunk 2, mixed-length / uniform "
         "64-token burst: " + turns(
             ("join", "JAX", "JAX + admission-chunk 2", "join + admission-chunk 2", "JAX", "join"),
-            (runs[int8_weights, False][0], runs[int8_jax, False][0], runs[int8_jax_short, False][0],
-             runs[int8_short, False][0], runs[int8_jax, False][1], runs[int8_weights, False][1])))
+            (runs[ctl_int8, False][0], runs[int8_jax, False][0], runs[int8_jax_short, False][0],
+             runs[int8_short, False][0], runs[int8_jax, False][1], runs[ctl_int8, False][1])))
     bare = [(kind, run["timing"]) for kind, run in zip(
         ("graphed", "eager", "unpipelined", "unpipelined", "graphed"),
         (graphed_runs[0], runs[eager, False][0], *runs[unpipelined, False], graphed_runs[1]))]
-    log("bare bf16 decode step in the five dense bf16 phases (eager wall / graphed wall / device "
-        "ms): " + ", ".join(f"{t['wall_ms']:.2f} / {t['graph_wall_ms']:.3f} / {t['device_ms']:.3f}"
-                            for _, t in bare))
-    # the int8-weight phase beside the bf16 phase just before it
-    bf16, int8 = runs[pipelined, False][-1], runs[int8_weights, False][0]
+    log(f"bare bf16 decode step in the five dense bf16 control phases{depth} (eager wall / graphed wall "
+        "/ device ms): " + ", ".join(f"{t['wall_ms']:.2f} / {t['graph_wall_ms']:.3f} / {t['device_ms']:.3f}"
+                                     for _, t in bare))
+    # the int8-weight phase beside the bf16 one, both at full depth
+    bf16, int8 = runs[pipelined, False][0], runs[int8_weights, False][0]
     log(f"bare decode step, bf16 vs int8 weights (32 slots x 512 rows): eager wall "
         f"{bf16['timing']['wall_ms']:.2f} vs {int8['timing']['wall_ms']:.2f} ms, graphed wall "
         f"{bf16['timing']['graph_wall_ms']:.3f} vs {int8['timing']['graph_wall_ms']:.3f} ms, device "
@@ -1715,10 +2122,16 @@ def main() -> None:
         f"{bf16['timing']['weight_bytes'] / 1e9:.2f} vs {int8['timing']['weight_bytes'] / 1e9:.2f} GB; "
         f"serving peak {bf16['peak_gib']:.2f} vs {int8['peak_gib']:.2f} GiB; uniform burst "
         f"{bf16['uniform_tok_s']:.1f} vs {int8['uniform_tok_s']:.1f} tok/s")
+    for twins, kind in (((spec, False), "dense"), ((paged_spec, False), "paged")):
+        on, off = runs[twins][0], runs[{spec: spec_off, paged_spec: paged_spec_off}[twins[0]], False][0]
+        same = sum(a == b for a, b in zip(on["texts"], off["texts"]))
+        log(f"spec {kind} in turns with its spec-off twin: {on['tok_s']:.1f} vs {off['tok_s']:.1f} tok/s, "
+            f"mean TTFT {on['ttft_ms']:.1f} vs {off['ttft_ms']:.1f} ms; {same}/16 greedy streams equal to "
+            f"the twin's (printed, not gated: bf16 near-ties on random weights)")
     for item in kernels:
         item["launches"] = launches[item["name"]]
         assert item["launches"] > 0, item
-        for shape in ("decode", "prefill"):
+        for shape in ("decode", "prefill", "verify"):
             if f"{item['name']}/{shape}" in launches:
                 item[f"{shape}_launches"] = launches[f"{item['name']}/{shape}"]
     log(label)

@@ -116,14 +116,18 @@ namespace {
 // Forms: 0 B3, 1 B6 (int8 pools), 2 B7 (the token-ragged form:
 // q_offsets set), 3 B8; and, counted besides 0 and 1, 4 and 5: B3 and B6
 // launched with more than one q token per slot (seq > 1, a prefill call
-// cold or at an offset, where a decode step has one).
-constexpr int FORMS = 6;
+// cold or at an offset, where a decode step has one), unless the caller
+// marks the launch a speculative verify block (verify set), counted in
+// 6 and 7 instead.
+constexpr int FORMS = 8;
 __device__ unsigned long long g_launches[FORMS];
 
-__device__ __forceinline__ void count_launch(bool quant, const int* q_offsets, int seq) {
+__device__ __forceinline__ void count_launch(bool quant, const int* q_offsets, int seq,
+                                             int verify) {
   if (threadIdx.x + threadIdx.y + threadIdx.z == 0 && blockIdx.x + blockIdx.y + blockIdx.z == 0) {
     atomicAdd(&g_launches[(q_offsets ? 2 : 0) + quant], 1ull);
-    if (!q_offsets && seq > 1) atomicAdd(&g_launches[4 + quant], 1ull);
+    if (verify) atomicAdd(&g_launches[6 + quant], 1ull);
+    else if (!q_offsets && seq > 1) atomicAdd(&g_launches[4 + quant], 1ull);
   }
 }
 
@@ -279,9 +283,9 @@ paged_attention_fma_kernel(const float* __restrict__ q, const KV* __restrict__ k
                            const float* __restrict__ v_scale, int total_rows, int seq, int heads,
                            int kv_heads, int dim, int num_blocks, int block_size,
                            int max_blocks, int block_q, int bk, float scale,
-                           float softcap, int window, Layout L) {
+                           float softcap, int window, int verify, Layout L) {
   constexpr bool QUANT = is_int8<KV>();
-  count_launch(QUANT, q_offsets, seq);
+  count_launch(QUANT, q_offsets, seq, verify);
   extern __shared__ float4 smem4[];
   char* base = reinterpret_cast<char*>(smem4);
   KV* sV = reinterpret_cast<KV*>(base + L.v);
@@ -576,11 +580,11 @@ paged_attention_mma_kernel(const __nv_bfloat16* __restrict__ q, const KV* __rest
                            const float* __restrict__ k_scale, const float* __restrict__ v_scale,
                            int total_rows, int seq, int heads, int kv_heads, int dim,
                            int num_blocks, int block_size, int max_blocks, int block_q,
-                           float scale, float softcap, int window) {
+                           float scale, float softcap, int window, int verify) {
   using M = Mma<KV, DP>;
   constexpr bool QUANT = M::QUANT;
   constexpr int BK = M::BK, PITCH = M::PITCH;
-  count_launch(QUANT, q_offsets, seq);
+  count_launch(QUANT, q_offsets, seq, verify);
   constexpr int NS = BK / 8;   // n8 key sub-tiles of S
   constexpr int NO = DP / 8 / M::COLS;  // n8 column sub-tiles of this warp's O
   constexpr int NTH = M::NT;
@@ -957,7 +961,7 @@ struct Args {
   int batch, total_rows, seq, block_q_req, heads, kv_heads, dim, num_blocks, block_size,
       max_blocks;
   float scale, softcap;
-  int window;
+  int window, verify;
   cudaStream_t stream;
 };
 
@@ -980,7 +984,7 @@ cudaError_t launch_fma(const Args& a) {
       static_cast<const float*>(a.q), static_cast<const KV*>(a.kp), static_cast<const KV*>(a.vp),
       static_cast<float*>(a.out), a.tables, a.starts, a.lengths, a.q_offsets, a.k_scale,
       a.v_scale, a.total_rows, a.seq, a.heads, a.kv_heads, a.dim, a.num_blocks, a.block_size,
-      a.max_blocks, block_q, bk, a.scale, a.softcap, a.window, L);
+      a.max_blocks, block_q, bk, a.scale, a.softcap, a.window, a.verify, L);
   return cudaGetLastError();
 }
 
@@ -1000,7 +1004,8 @@ cudaError_t launch_mma(const Args& a) {
       static_cast<const __nv_bfloat16*>(a.q), static_cast<const KV*>(a.kp),
       static_cast<const KV*>(a.vp), static_cast<__nv_bfloat16*>(a.out), a.tables, a.starts,
       a.lengths, a.q_offsets, a.k_scale, a.v_scale, a.total_rows, a.seq, a.heads, a.kv_heads,
-      a.dim, a.num_blocks, a.block_size, a.max_blocks, block_q, a.scale, a.softcap, a.window);
+      a.dim, a.num_blocks, a.block_size, a.max_blocks, block_q, a.scale, a.softcap, a.window,
+      a.verify);
   return cudaGetLastError();
 }
 
@@ -1022,7 +1027,7 @@ cudaError_t dispatch(bool quant, int dtype, const void* q, const void* kp, const
                      const void* q_offsets, const void* k_scale, const void* v_scale, int batch,
                      int total_rows, int seq, int block_q_req, int heads, int kv_heads, int dim,
                      int num_blocks, int block_size, int max_blocks, float scale, float softcap,
-                     int window, void* stream) {
+                     int window, int verify, void* stream) {
   if (batch <= 0 || seq <= 0) return cudaSuccess;
   if (kv_heads <= 0 || heads % kv_heads != 0 || heads / kv_heads > MAX_ROWS ||
       dim % (quant ? 16 : 8) != 0 || dim <= 0 || dim > 256 || num_blocks <= 0 ||
@@ -1034,7 +1039,7 @@ cudaError_t dispatch(bool quant, int dtype, const void* q, const void* kp, const
                static_cast<const int*>(lengths), static_cast<const int*>(q_offsets),
                static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
                batch, total_rows, seq, block_q_req, heads, kv_heads, dim, num_blocks, block_size,
-               max_blocks, scale, softcap, window, static_cast<cudaStream_t>(stream)};
+               max_blocks, scale, softcap, window, verify, static_cast<cudaStream_t>(stream)};
   if (dtype == 0) return quant ? launch_bf16<int8_t>(a) : launch_bf16<__nv_bfloat16>(a);
   if (dtype == 1) return quant ? launch_fma<int8_t>(a) : launch_fma<float>(a);
   return cudaErrorInvalidValue;
@@ -1045,16 +1050,17 @@ cudaError_t dispatch(bool quant, int dtype, const void* q, const void* kp, const
 // dtype: 0 = bfloat16, 1 = float32. dim must be a multiple of 8 and at
 // most 256; at most 64 query heads per kv head. softcap <= 0 disables
 // capping; window <= 0 is full attention. tables [batch, max_blocks],
-// starts and lengths [batch] are int32. Returns cudaGetLastError().
+// starts and lengths [batch] are int32. verify != 0 counts the launch as
+// a speculative verify block (g_launches). Returns cudaGetLastError().
 extern "C" int paged_attention(const void* q, const void* kp, const void* vp,
                                void* out, const void* tables, const void* starts,
                                const void* lengths, int batch, int seq, int heads,
                                int kv_heads, int dim, int num_blocks, int block_size,
                                int max_blocks, int dtype, float scale, float softcap,
-                               int window, void* stream) {
+                               int window, int verify, void* stream) {
   return int(dispatch(false, dtype, q, kp, vp, out, tables, starts, lengths, nullptr, nullptr,
                       nullptr, batch, batch * seq, seq, 0, heads, kv_heads, dim, num_blocks,
-                      block_size, max_blocks, scale, softcap, window, stream));
+                      block_size, max_blocks, scale, softcap, window, verify, stream));
 }
 
 // The int8 pools: kp/vp int8 [N, Bs, KVH, D] with k_scale/v_scale [N, Bs,
@@ -1067,10 +1073,10 @@ extern "C" int paged_attention_quant(const void* q, const void* kp, const void* 
                                      const void* lengths, int batch, int seq, int heads,
                                      int kv_heads, int dim, int num_blocks, int block_size,
                                      int max_blocks, int dtype, float scale, float softcap,
-                                     int window, void* stream) {
+                                     int window, int verify, void* stream) {
   return int(dispatch(true, dtype, q, kp, vp, out, tables, starts, lengths, nullptr, k_scale,
                       v_scale, batch, batch * seq, seq, 0, heads, kv_heads, dim, num_blocks,
-                      block_size, max_blocks, scale, softcap, window, stream));
+                      block_size, max_blocks, scale, softcap, window, verify, stream));
 }
 
 // The token-ragged form (B7): q/out a flat [total_q, H, D] tile, row b's
@@ -1087,7 +1093,7 @@ extern "C" int paged_attention_ragged_q(const void* q, const void* kp, const voi
   if (block_q <= 0) return int(cudaErrorInvalidValue);
   return int(dispatch(false, dtype, q, kp, vp, out, tables, starts, lengths, q_offsets, nullptr,
                       nullptr, batch, total_q, max_q_len, block_q, heads, kv_heads, dim,
-                      num_blocks, block_size, max_blocks, scale, softcap, window, stream));
+                      num_blocks, block_size, max_blocks, scale, softcap, window, 0, stream));
 }
 
 // B8: paged_attention_ragged_q over the int8 pools and scales of
@@ -1101,7 +1107,7 @@ extern "C" int paged_attention_ragged_q_quant(
   if (block_q <= 0) return int(cudaErrorInvalidValue);
   return int(dispatch(true, dtype, q, kp, vp, out, tables, starts, lengths, q_offsets, k_scale,
                       v_scale, batch, total_q, max_q_len, block_q, heads, kv_heads, dim,
-                      num_blocks, block_size, max_blocks, scale, softcap, window, stream));
+                      num_blocks, block_size, max_blocks, scale, softcap, window, 0, stream));
 }
 
 // Copies the launch counts of this library's kernel forms (see

@@ -60,13 +60,13 @@ SIGNATURES = {
             _P, _P, _P, _P, _P, _P, _P,          # q, pools, out, tables, starts, lengths
             _I, _I, _I, _I, _I, _I, _I, _I, _I,  # batch, seq, heads, kv_heads, dim,
                                                  # blocks, block size, table width, dtype
-            _F, _F, _I, _P,                      # scale, softcap, window, stream
+            _F, _F, _I, _I, _P,                  # scale, softcap, window, verify, stream
         ],
         "paged_attention_quant": [
             _P, _P, _P, _P, _P, _P,              # q, k pool, k scales, v pool, v scales, out
             _P, _P, _P,                          # tables, starts, lengths
             _I, _I, _I, _I, _I, _I, _I, _I, _I,  # as paged_attention
-            _F, _F, _I, _P,
+            _F, _F, _I, _I, _P,
         ],
         "paged_attention_ragged_q": [
             _P, _P, _P, _P, _P, _P, _P, _P,      # q, pools, out, tables, starts,

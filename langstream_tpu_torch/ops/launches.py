@@ -14,11 +14,14 @@ reads those counters around a block, under the wrappers' names:
   ``paged_attention_quant`` (B6), ``paged_attention_ragged_q`` (B7),
   ``paged_attention_ragged_q_quant`` (B8).
 
-B3 and B6 run both a decode step (one q token per slot) and a prefill
-call (a bucket of them). With ``shapes``, the counts also hold
-``paged_attention/prefill`` and ``paged_attention_quant/prefill``: the
-launches of those two with more than one q token per slot, counted on the
-card by a counter of their own (:data:`SHAPES`).
+B3 and B6 run a decode step (one q token per slot), a prefill call (a
+bucket of them) and a speculative verify step (1 + k of them). With
+``shapes``, the counts also hold ``paged_attention/prefill`` and
+``paged_attention_quant/prefill``: the launches of those two with more
+than one q token per slot that are not verify blocks; and
+``paged_attention/verify`` and ``paged_attention_quant/verify``: the
+verify launches (``verify=True`` at the wrapper). Each is counted on the
+card by a counter of its own (:data:`SHAPES`).
 """
 
 from __future__ import annotations
@@ -35,10 +38,12 @@ FORMS = {
     "flash_decode": ("flash_decode", "flash_decode_quant"),
     "paged_attention": ("paged_attention", "paged_attention_quant",
                         "paged_attention_ragged_q", "paged_attention_ragged_q_quant",
-                        "paged_attention/prefill", "paged_attention_quant/prefill"),
+                        "paged_attention/prefill", "paged_attention_quant/prefill",
+                        "paged_attention/verify", "paged_attention_quant/verify"),
 }
 # counters of a kernel's launches at one shape, counted besides its total
-SHAPES = ("paged_attention/prefill", "paged_attention_quant/prefill")
+SHAPES = ("paged_attention/prefill", "paged_attention_quant/prefill",
+          "paged_attention/verify", "paged_attention_quant/verify")
 KERNEL_NAMES = tuple(name for forms in FORMS.values() for name in forms if name not in SHAPES)
 
 

@@ -167,9 +167,10 @@ def _check_inputs(name, q, pools, block_tables, row_ints, *, batch, quantized) -
             raise ValueError(f"{name}: {label} must be 16-byte aligned")
 
 
-def _launch(entry, q, pools, block_tables, starts, lengths, softcap, window, scale):
+def _launch(entry, q, pools, block_tables, starts, lengths, softcap, window, scale, verify):
     """One launch of B3 (``entry`` paged_attention) or B6
-    (paged_attention_quant) into a new output; returns it."""
+    (paged_attention_quant) into a new output; returns it. ``verify``
+    counts it on the card as a verify block (``ops/launches.py``)."""
     batch, seq, heads, dim = q.shape
     num_blocks, block_size, kv_heads = pools[0].shape[:3]
     out = torch.empty_like(q)
@@ -179,7 +180,7 @@ def _launch(entry, q, pools, block_tables, starts, lengths, softcap, window, sca
         batch, seq, heads, kv_heads, dim, num_blocks, block_size,
         block_tables.shape[1], KERNEL_DTYPES[q.dtype],
         float(dim ** -0.5 if scale is None else scale),
-        float(softcap or 0.0), int(window or 0),
+        float(softcap or 0.0), int(window or 0), int(verify),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(status, entry)
@@ -197,12 +198,15 @@ def ragged_paged_attention(
     softcap: Optional[float] = None,
     window: Optional[int] = None,  # None/0 = full attention
     scale: Optional[float] = None,
+    verify: bool = False,          # a speculative verify block: counted apart
 ) -> torch.Tensor:
-    """One launch over the block pool for decode, prefill-at-offset and
-    cold paged prefill. Returns [B, Tq, H, D]. Outputs past a row's
-    new-token count (``t >= lengths[b] - starts[b]``) are discarded by
-    every caller: the kernel computes nothing there, writes zeros and
-    never faults. A row with no live key yields zeros on the card."""
+    """One launch over the block pool for decode, prefill-at-offset, cold
+    paged prefill and the speculative verify block (``verify``: the same
+    launch, counted on the card in a class of its own). Returns [B, Tq,
+    H, D]. Outputs past a row's new-token count (``t >= lengths[b] -
+    starts[b]``) are discarded by every caller: the kernel computes
+    nothing there, writes zeros and never faults. A row with no live key
+    yields zeros on the card."""
     if q.device.type == "cpu":
         family = dict(softcap=softcap, window=window, scale=scale)
         if q.shape[1] == 1:
@@ -215,7 +219,8 @@ def ragged_paged_attention(
     pools = (k_pool, v_pool)
     _check_inputs("ragged_paged_attention", q, pools, block_tables,
                   {"starts": starts, "lengths": lengths}, batch=q.shape[0], quantized=False)
-    out = _launch("paged_attention", q, pools, block_tables, starts, lengths, softcap, window, scale)
+    out = _launch("paged_attention", q, pools, block_tables, starts, lengths, softcap, window, scale,
+                  verify)
     ragged_paged_attention.launches += 1
     return out
 
@@ -236,6 +241,7 @@ def ragged_paged_attention_quant(
     softcap: Optional[float] = None,
     window: Optional[int] = None,  # None/0 = full attention
     scale: Optional[float] = None,
+    verify: bool = False,
 ) -> torch.Tensor:
     """:func:`ragged_paged_attention` over int8 pools. Returns [B, Tq, H,
     D] in q's dtype; the same callers' contract (outputs past a row's new
@@ -254,7 +260,7 @@ def ragged_paged_attention_quant(
     _check_inputs("ragged_paged_attention_quant", q, pools, block_tables,
                   {"starts": starts, "lengths": lengths}, batch=q.shape[0], quantized=True)
     out = _launch("paged_attention_quant", q, pools, block_tables, starts, lengths,
-                  softcap, window, scale)
+                  softcap, window, scale, verify)
     ragged_paged_attention_quant.launches += 1
     return out
 

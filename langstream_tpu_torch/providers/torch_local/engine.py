@@ -18,6 +18,20 @@ path over the paged one:
   only its suffix. Every request reserves its worst case (prompt +
   max_new_tokens) at admission, so decode never allocates; when the pool
   cannot cover a reservation even after LRU eviction, the request waits.
+- **KV reuse across requests**: a request with a ``session_id`` (the
+  OpenAI ``session_id`` or ``user`` field) pins its slot at finish, and a
+  follow-up whose prompt extends (or shares at least ``WARM_MIN_PREFIX``
+  tokens of) the pinned history prefills only its suffix at an offset;
+  the least recently used pinned slot is evicted under slot pressure.
+  Warm-eligible requests are admitted first (:meth:`_scan_admission`,
+  bounded by ``MAX_HEAD_SKIPS``). On the dense layout with
+  ``prefix_cache``, a finished sessionless slot keeps its history too,
+  and a cold request whose prompt shares a prefix with any slot's rows
+  copies them on the card (``Variant("copy", bucket)``, one graph per
+  bucket) instead of prefilling them (:meth:`_find_prefix_source`). On the
+  paged layout a session keeps its blocks; a follow-up that diverges
+  inside a shared block copies that block first (copy-on-write,
+  ``Variant("block_copy")``).
 - **Continuous batching**: requests join mid-flight. Cold requests that
   share a prompt bucket are prefilled together (power-of-two groups) and
   their first token is sampled on the card right behind the call; a
@@ -83,11 +97,15 @@ path over the paged one:
 - **Weight-only int8** (``quantize="int8"``, or params that already hold
   ``quant.QTensor`` leaves): the matmul weights in int8 with per-channel
   scales, as the JAX engine's ``quantize``.
+- **Speculative decoding** (``spec_decode="ngram"``): every step of a
+  decode chunk drafts up to ``spec_k`` tokens per slot from the slot's
+  token history on the card, verifies the ``1 + spec_k`` block in one
+  model call and accepts 1 to ``spec_k + 1`` tokens a slot
+  (``spec_decode.py``), one graph per (steps, tier), ``Variant("spec")``.
 
-Not in this slice (ROADMAP.md): warm sessions (and the paged
-copy-on-write they need), the dense layout's cross-slot prefix copy, host
-KV tiers and handoffs, speculative dispatch, the replay of a resurrected
-session at harvest, the supervisor and the telemetry planes.
+Not in this slice (ROADMAP.md): host KV tiers and handoffs, the replay of
+a resurrected session at harvest, top-K logprobs, the supervisor and the
+telemetry planes.
 """
 
 from __future__ import annotations
@@ -107,6 +125,7 @@ from langstream_tpu_torch.device import resolve_device
 from langstream_tpu_torch.ops.paged_attention import fused_shapes_ok
 from langstream_tpu_torch.providers.torch_local import model as model_lib
 from langstream_tpu_torch.providers.torch_local import prng, sampling
+from langstream_tpu_torch.providers.torch_local import spec_decode as spec_lib
 from langstream_tpu_torch.providers.torch_local.graphs import (
     TIERS,
     StepRunner,
@@ -146,6 +165,8 @@ class GenerationRequest:
     stop_tokens: Set[int] = dataclasses.field(default_factory=set)
     # called with (token_id, is_last) — on ``loop`` when one is set
     on_token: Optional[Callable[[int, bool], None]] = None
+    # KV-cache affinity: the slot is pinned for this session at finish
+    session_id: Optional[str] = None
     # an asyncio future (with ``loop``) or a concurrent.futures.Future
     future: Optional[Any] = None
     loop: Optional[Any] = None
@@ -175,6 +196,8 @@ class _Slot:
     history: Optional[List[int]] = None  # tokens in cache + the pending one
     epoch: int = 0                  # bumps on assign/finish
     blocks: Optional[List[int]] = None   # paged: the slot's reserved pool blocks
+    session_id: Optional[str] = None     # pinned session (slot free but warm)
+    last_used: float = 0.0          # monotonic; the LRU eviction order
     prefilling: bool = False        # admitted, first token not sampled yet
     # mixed dispatch: the next prompt index a mixed step teaches (None =
     # not admitting through mixed steps); windows of up to prefill_chunk
@@ -284,6 +307,10 @@ class DecodeEngine:
                                           # before a fresh chunk, which
                                           # they then join (False = the
                                           # JAX engine's harvest)
+        spec_decode: str = "off",         # "off" | "ngram" (self-drafting
+                                          # speculative decoding)
+        spec_k: int = 4,                  # drafted tokens per decode step
+        spec_ngram: int = 2,              # suffix n-gram the drafter matches
     ) -> None:
         self.device = resolve_device(device)
         self.config = config
@@ -305,12 +332,20 @@ class DecodeEngine:
             raise ValueError(f"unknown kv cache quantization {kv_quant!r}")
         if prefill_mode not in ("split", "mixed"):
             raise ValueError(f"unknown prefill mode {prefill_mode!r}")
+        if spec_decode not in ("off", "ngram"):
+            raise ValueError(f"unknown spec decode mode {spec_decode!r}")
         if prefill_mode == "mixed" and kv_layout != "paged":
             raise ValueError(
                 "prefill_mode 'mixed' requires kv_layout 'paged': the dense cache has no "
                 "per-row table for the token-ragged mixed step to address"
             )
         self.kv_quant = kv_quant == "int8"
+        self.spec_decode = spec_decode
+        self.spec = spec_decode == "ngram"
+        self.spec_k = max(1, int(spec_k))
+        self.spec_ngram = max(1, int(spec_ngram))
+        # tokens one decode step can emit a slot (the verify block's width)
+        self.spec_block = self.spec_k + 1 if self.spec else 1
         self.kv_layout = kv_layout
         self.paged = kv_layout == "paged"
         # mixed: admitting slots park at a prefill_pos watermark and every
@@ -381,19 +416,18 @@ class DecodeEngine:
             self.cache = model_lib.init_cache(
                 config, max_slots, self.max_seq_len, kv_quant=self.kv_quant, device=self.device
             )
-            if prefix_cache:
-                logger.info(
-                    "prefix_cache on the dense layout: the cross-slot prefix "
-                    "copy is not ported yet, so dense prompts prefill cold"
-                )
         # per-slot generated-token counts for presence/frequency penalties
         self._counts = torch.zeros(
             (max_slots, config.vocab_size), dtype=torch.int32, device=self.device
         )
         self.slots = [_Slot() for _ in range(max_slots)]
-        # every decode chunk, mixed step and prefill call goes through the
-        # step runner; a prefill variant first met while serving warms up
-        # on its own call, never on a dummy that writes another slot's rows
+        # pinned sessions whose warm cache was evicted -> the history length
+        # it held, so a follow-up's re-prefill is booked as recompute
+        self._evicted_sessions: Dict[str, int] = {}
+        # every decode chunk, mixed step, prefill call and KV copy goes
+        # through the step runner; a prefill variant first met while
+        # serving warms up on its own call, never on a dummy that writes
+        # another slot's rows (a copy's dummy copies a slot onto itself)
         self.steps = StepRunner(
             self.device, graphs=step_graphs, body=self._step_body, dummy=self._step_dummy,
             warm_on_call=lambda key: key.kind in PREFILL_KINDS,
@@ -421,13 +455,23 @@ class DecodeEngine:
             "decode_steps": 0,    # model decode steps, mixed steps included
             "decode_time": 0.0,   # wall secs inside decode chunks and mixed
                                   # steps (the union of pipelined ones)
+            "tokens_generated": 0,
             "prefill_time": 0.0,  # wall secs dispatching prefill calls and
                                   # waiting for them at harvest
             "ttft_time": 0.0,     # summed submit → first-token secs of
                                   # finished requests
             "warm_prefill_calls": 0,     # prefills at an offset (prefix hits)
-            "prefix_hits": 0,            # admissions onto a cached prefix
+            "session_hits": 0,           # admissions onto a pinned session
+            "prefix_hits": 0,            # admissions onto another request's
+                                         # rows (dense copy, paged chain)
             "prefix_tokens_reused": 0,   # prompt tokens those did not prefill
+            # speculative decoding: drafted candidates, and those accepted
+            "tokens_drafted": 0,
+            "tokens_draft_accepted": 0,
+            # tokens computed for nothing, by reason: "evicted_recompute"
+            # (a follow-up re-prefilling its evicted session's rows),
+            # "draft_rejected" (drafts the verify pass rejected)
+            "tokens_wasted": {},
             "mixed_steps": 0,            # mixed prefill+decode model calls
             "mixed_time": 0.0,           # wall secs inside them (in decode_time too)
             "mixed_admit_time": 0.0,     # summed admission → first-token secs
@@ -507,11 +551,13 @@ class DecodeEngine:
         *,
         stop_tokens: Optional[Set[int]] = None,
         on_token: Optional[Callable[[int, bool], None]] = None,
+        session_id: Optional[str] = None,
         handle: Optional[List[GenerationRequest]] = None,
     ) -> GenerationResult:
-        """Asyncio entry: submit and await the result. Pass ``handle``
-        (an empty list) to receive the live request, whose ``cancel()``
-        ends generation at the next token boundary."""
+        """Asyncio entry: submit and await the result. ``session_id`` pins
+        the slot for the session's next turn. Pass ``handle`` (an empty
+        list) to receive the live request, whose ``cancel()`` ends
+        generation at the next token boundary."""
         loop = asyncio.get_running_loop()
         future: "asyncio.Future[GenerationResult]" = loop.create_future()
         request = GenerationRequest(
@@ -519,6 +565,7 @@ class DecodeEngine:
             sampling=sampling_params,
             stop_tokens=stop_tokens or set(),
             on_token=on_token,
+            session_id=session_id,
             future=future,
             loop=loop,
         )
@@ -627,10 +674,22 @@ class DecodeEngine:
                 self._pending.append(item)
 
     def _admit(self) -> None:
-        """Move pending requests into free slots. Cold requests sharing a
-        prompt bucket are prefilled in one batched call (FIFO; a request
-        in another bucket starts the next round); a prompt longer than the
-        largest bucket is prefilled at once in windows."""
+        """Move pending requests into slots, the JAX engine's admission.
+        Warm-session follow-ups are admitted first; cold requests sharing
+        a prompt bucket are prefilled in one batched call (FIFO; a request
+        in another bucket starts the next round), warm follow-ups sharing a
+        suffix bucket in one call at an offset; a prompt longer than the
+        largest bucket is prefilled in windows. On the dense layout with
+        ``prefix_cache``, a cold request whose prompt shares at least
+        ``WARM_MIN_PREFIX`` tokens with another slot's rows copies them
+        and prefills only its suffix.
+
+        A round with copies dispatches cold batch → copies → long warm
+        suffixes → warm suffixes: a copy reads rows whose writes are
+        already enqueued and never rows a warm prefill is about to
+        overwrite (every call is enqueued on the one stream in this
+        order). Without copies it is warm first (a warm suffix is much
+        cheaper than a cold batch)."""
         if any(r.cancelled for r in self._pending):
             keep = []
             for request in self._pending:
@@ -645,43 +704,314 @@ class DecodeEngine:
             return self._admit_paged()
         largest = self.prefill_buckets[-1]
         while self._pending:
-            batch: List[Tuple[int, GenerationRequest]] = []
-            bucket: Optional[int] = None
-            free = [i for i, slot in enumerate(self.slots) if not slot.active]
-            while self._pending and free:
-                request = self._pending[0]
-                if len(request.prompt_tokens) > largest:
-                    self._pending.pop(0)
-                    index = free.pop(0)
+            cold: List[Tuple[int, GenerationRequest]] = []
+            cold_bucket: Optional[int] = None
+            # suffix bucket -> [(slot, request, reused prefix length)]
+            warm: Dict[int, List[Tuple[int, GenerationRequest, int]]] = {}
+            copies: List[Tuple[int, int, int]] = []  # (src, dst, rows)
+            # session follow-ups with a long suffix, dispatched at round end
+            long_warm: List[Tuple[int, GenerationRequest, int]] = []
+            sources: Set[int] = set()        # copy sources, kept from eviction
+            cold_reserved: Set[int] = set()  # this round's cold slots
+            warm_reserved: Set[int] = set()  # this round's warm slots
+            progressed = False
+            while self._pending:
+                position, index, reused = self._scan_admission(frozenset(sources))
+                if index is None:
+                    break
+                request = self._pending[position]
+                if position > 0:
+                    self._note_head_skip()
+                if reused is not None:
+                    suffix = len(request.prompt_tokens) - reused
+                    suffix_bucket = _bucket(suffix, self.prefill_buckets)
+                    self._pending.pop(position)
+                    self.slots[index].request = request  # reserve the slot
+                    self.stats["session_hits"] += 1
+                    warm_reserved.add(index)
+                    if suffix > largest or reused + suffix_bucket > self.max_seq_len:
+                        # too big for one window, or a window at the offset
+                        # would pass max_seq_len: the windowed path, at
+                        # round end
+                        long_warm.append((index, request, reused))
+                    else:
+                        warm.setdefault(suffix_bucket, []).append((index, request, reused))
+                    continue
+                prompt_len = len(request.prompt_tokens)
+                found = (self._find_prefix_source(request, frozenset(cold_reserved),
+                                                  frozenset(warm_reserved))
+                         if self.prefix_cache else None)
+                if found is not None:
+                    src, lcp, in_round = found
+                    suffix_bucket = _bucket(prompt_len - lcp, self.prefill_buckets)
+                    needs_long = prompt_len - lcp > largest or lcp + suffix_bucket > self.max_seq_len
+                    if src == index:
+                        # the chosen slot holds the prefix itself (a
+                        # finished slot's history): the rows are in place
+                        self._pending.pop(position)
+                        self.slots[index].request = request
+                        self.stats["prefix_hits"] += 1
+                        self.stats["prefix_tokens_reused"] += lcp
+                        if needs_long:
+                            self._prefill_long(index, request, lcp)
+                            progressed = True
+                        else:
+                            warm.setdefault(suffix_bucket, []).append((index, request, lcp))
+                            warm_reserved.add(index)
+                        continue
+                    if needs_long and not in_round:
+                        # the windowed suffix dispatches now, so the copy
+                        # does too (the source's rows are all enqueued)
+                        self._pending.pop(position)
+                        self.slots[index].request = request
+                        self._dispatch_prefix_copy(src, index, lcp)
+                        self._prefill_long(index, request, lcp)
+                        progressed = True
+                        continue
+                    if not needs_long:
+                        self._pending.pop(position)
+                        self.slots[index].request = request
+                        copies.append((src, index, lcp))
+                        sources.add(src)
+                        warm.setdefault(suffix_bucket, []).append((index, request, lcp))
+                        warm_reserved.add(index)
+                        continue
+                    # a long suffix over an in-round source, whose prefill
+                    # is not enqueued yet: cold
+                if prompt_len > largest:
+                    self._pending.pop(position)
                     self.slots[index].request = request  # reserve the slot
                     self._prefill_long(index, request, 0)
+                    progressed = True
                     continue
-                size = _bucket(len(request.prompt_tokens), self.prefill_buckets)
-                if bucket is None:
-                    bucket = size
-                elif size != bucket:
-                    break
-                self._pending.pop(0)
-                index = free.pop(0)
+                bucket = _bucket(prompt_len, self.prefill_buckets)
+                if cold_bucket is None:
+                    cold_bucket = bucket
+                elif bucket != cold_bucket:
+                    break  # different bucket: next outer round
+                self._pending.pop(position)
                 self.slots[index].request = request  # reserve the slot
-                batch.append((index, request))
-            if not batch:
+                cold.append((index, request))
+                cold_reserved.add(index)
+                if len(cold) >= self.max_slots:
+                    break
+            if copies:
+                if cold:
+                    self._prefill_batch(cold, cold_bucket)
+                    progressed = True
+                for src, dst, rows in copies:
+                    self._dispatch_prefix_copy(src, dst, rows)
+                for index, request, reused in long_warm:
+                    self._prefill_long(index, request, reused)
+                    progressed = True
+                for suffix_bucket, batch in warm.items():
+                    self._prefill_warm_batch(batch, suffix_bucket)
+                    progressed = True
+            else:
+                for index, request, reused in long_warm:
+                    self._prefill_long(index, request, reused)
+                    progressed = True
+                for suffix_bucket, batch in warm.items():
+                    self._prefill_warm_batch(batch, suffix_bucket)
+                    progressed = True
+                if cold:
+                    self._prefill_batch(cold, cold_bucket)
+                    progressed = True
+            if not progressed:
                 return
-            self._prefill_batch(batch, bucket)
 
-    def _free_slot(self) -> Optional[int]:
+    # a partial prefix match must cover at least this many tokens to be
+    # worth a warm admission; a full extension of the pinned history always
+    # qualifies
+    WARM_MIN_PREFIX = 16
+    # warm-first fairness: after this many jump-aheads the queue head is
+    # admitted regardless, so warm traffic cannot starve it
+    MAX_HEAD_SKIPS = 4
+    # evicted sessions remembered for the recompute ledger (FIFO)
+    MAX_EVICTED_SESSIONS = 512
+
+    def _note_head_skip(self) -> None:
+        head = self._pending[0]
+        head._skipped = getattr(head, "_skipped", 0) + 1  # type: ignore[attr-defined]
+
+    def _scan_admission(self, exclude: frozenset = frozenset()
+                        ) -> Tuple[int, Optional[int], Optional[int]]:
+        """The warm-first admission policy every admission path shares:
+        the first pending request (at most ``2 × max_slots`` deep) whose
+        pinned session slot can serve it warm, unless the queue head has
+        been skipped ``MAX_HEAD_SKIPS`` times; else the queue head into a
+        free or evictable slot (:meth:`_find_slot`, never one of
+        ``exclude``). Returns (position in ``_pending``, slot or None,
+        session prefix length or None)."""
+        position, index, session_lcp = 0, None, None
+        head = self._pending[0]
+        if getattr(head, "_skipped", 0) < self.MAX_HEAD_SKIPS:
+            for p, queued in enumerate(self._pending[: max(2 * self.max_slots, 8)]):
+                warm_index = self._find_warm_slot(queued)
+                if warm_index is None:
+                    continue
+                lcp = self._session_warm(warm_index, queued)
+                if lcp is not None:
+                    position, index, session_lcp = p, warm_index, lcp
+                    break
+        if index is None:
+            index = self._find_slot(self._pending[position], exclude)
+            if index is not None:
+                session_lcp = self._session_warm(index, self._pending[position])
+        return position, index, session_lcp
+
+    def _find_warm_slot(self, request: GenerationRequest) -> Optional[int]:
+        if request.session_id is None:
+            return None
         for i, slot in enumerate(self.slots):
-            if not slot.active:
+            if not slot.active and slot.session_id == request.session_id and slot.history is not None:
                 return i
         return None
 
+    def _find_slot(self, request: GenerationRequest, exclude: frozenset = frozenset()
+                   ) -> Optional[int]:
+        """The request's pinned slot; else a free unpinned slot not in
+        ``exclude`` (this round's copy sources, whose rows must stay until
+        the copies are enqueued); else the least recently used pinned
+        slot not in ``exclude``, evicted."""
+        warm = self._find_warm_slot(request)
+        if warm is not None:
+            return warm
+        for i, slot in enumerate(self.slots):
+            if not slot.active and slot.session_id is None and i not in exclude:
+                return i
+        victim: Optional[int] = None
+        for i, slot in enumerate(self.slots):
+            if not slot.active and i not in exclude and (
+                victim is None or slot.last_used < self.slots[victim].last_used
+            ):
+                victim = i
+        return victim
+
+    def _session_warm(self, index: int, request: GenerationRequest) -> Optional[int]:
+        """The reusable prefix of a warm admission onto the request's
+        pinned slot, or None (cold): the longest common prefix of the
+        prompt and the pinned history, at least ``WARM_MIN_PREFIX`` tokens
+        unless the prompt extends the whole history, and never the whole
+        prompt (its last token is prefilled again for fresh logits)."""
+        slot = self.slots[index]
+        prompt = request.prompt_tokens
+        if not (request.session_id is not None and slot.session_id == request.session_id
+                and slot.history):
+            return None
+        lcp = self._lcp(prompt, slot.history)
+        if lcp == len(prompt):
+            lcp = len(prompt) - 1
+        if lcp <= 0:
+            return None
+        if lcp != len(slot.history) and lcp < self.WARM_MIN_PREFIX:
+            return None
+        return lcp
+
+    @staticmethod
+    def _lcp(a: List[int], b: List[int]) -> int:
+        """Longest common prefix of two token lists (64-token slices first)."""
+        limit = min(len(a), len(b))
+        lcp = 0
+        while lcp < limit:
+            n = min(64, limit - lcp)
+            if a[lcp:lcp + n] == b[lcp:lcp + n]:
+                lcp += n
+                continue
+            while lcp < limit and a[lcp] == b[lcp]:
+                lcp += 1
+            break
+        return lcp
+
+    def _find_prefix_source(self, request: GenerationRequest, cold_reserved: frozenset,
+                            warm_reserved: frozenset) -> Optional[Tuple[int, int, bool]]:
+        """The dense slot whose rows share the longest prefix with a
+        sessionless cold request: (slot, rows, in_round) or None. Sources:
+        this round's cold reservations (``in_round``: their prefill is
+        enqueued before the copies; the n > 1 choices case), and slots
+        with a history and no reservation of this round (decoding,
+        prefilling, pinned or finished), whose copyable rows stop at their
+        length. This round's warm reservations are skipped: their rows are
+        about to change."""
+        prompt = request.prompt_tokens
+        full = len(prompt) - 1  # the last token is always prefilled again
+        best: Optional[Tuple[int, int, bool]] = None
+        for i, slot in enumerate(self.slots):
+            if i in cold_reserved:
+                history = slot.request.prompt_tokens if slot.request else None
+                in_round = True
+            elif i in warm_reserved:
+                continue
+            else:
+                history = slot.history
+                in_round = False
+                if slot.length < self.WARM_MIN_PREFIX:
+                    continue
+            if not history:
+                continue
+            lcp = self._lcp(prompt, history)
+            if not in_round:
+                # a live slot's newest history token has no row yet
+                lcp = min(lcp, slot.length)
+            if lcp == len(prompt):
+                lcp = len(prompt) - 1
+            if lcp < self.WARM_MIN_PREFIX:
+                continue
+            if best is None or lcp > best[1]:
+                best = (i, lcp, in_round)
+                if lcp >= full:
+                    break
+        return best
+
+    def _note_eviction(self, session_id: str, cached_tokens: int) -> None:
+        """Remember a pinned session whose warm rows were evicted, so that
+        its follow-up's re-prefill is booked as recompute (bounded FIFO)."""
+        if cached_tokens <= 0:
+            return
+        evicted = self._evicted_sessions
+        evicted.pop(session_id, None)
+        while len(evicted) >= self.MAX_EVICTED_SESSIONS:
+            evicted.pop(next(iter(evicted)))
+        evicted[session_id] = cached_tokens
+
+    def _waste(self, reason: str, tokens: int) -> None:
+        if tokens > 0:
+            wasted = self.stats["tokens_wasted"]
+            wasted[reason] = wasted.get(reason, 0) + tokens
+
+    def _dispatch_prefix_copy(self, src: int, dst: int, length: int) -> None:
+        """Copy dense cache rows [0, length) of slot ``src`` into ``dst`` in
+        bucket-sized windows, each one replay of ``Variant("copy",
+        bucket)``. A window may copy past ``length``: those rows are
+        overwritten by the suffix prefill or lie past the slot's length,
+        and decode writes a row before it reads it."""
+        largest = self.prefill_buckets[-1]
+        position = 0
+        while position < length:
+            remaining = length - position
+            bucket = largest if remaining > largest else _bucket(remaining, self.prefill_buckets)
+            self.steps.run(Variant("copy", bucket), dict(
+                src=np.asarray([src], dtype=np.int64), dst=np.asarray([dst], dtype=np.int64),
+                offset=np.asarray([position], dtype=np.int64)))
+            position += bucket
+        self.stats["prefix_hits"] += 1
+        self.stats["prefix_tokens_reused"] += length
+
+    def _dispatch_block_copy(self, src: int, dst: int) -> None:
+        """Copy pool block ``src`` into ``dst`` across every layer and leaf
+        (copy-on-write), one replay of ``Variant("block_copy")``."""
+        self.steps.run(Variant("block_copy", 0), dict(
+            src=np.asarray([src], dtype=np.int64), dst=np.asarray([dst], dtype=np.int64)))
+        self.kv_manager.stats["cow_copies"] += 1
+
     def _admit_paged(self) -> None:
-        """Paged admission. Block-granular matching against the prefix
-        cache: shared blocks are referenced through the table, never
-        copied, so a shared system or RAG prefix survives any slot
-        turnover. Every request reserves its worst case up front; when
-        the pool (after LRU eviction) cannot cover it, the request stays
-        pending until running requests release blocks.
+        """Paged admission. Warm-session follow-ups first
+        (:meth:`_scan_admission`); otherwise block-granular matching
+        against the prefix cache: shared blocks are referenced through the
+        table, never copied, so a shared system or RAG prefix survives any
+        slot turnover. Every request reserves its worst case up front;
+        when the pool (after LRU eviction) cannot cover it, the request
+        stays pending until running requests release blocks.
 
         A round dispatches cold batch → long prefills → warm suffixes, so
         a suffix admitted onto blocks published this round reads rows
@@ -695,22 +1025,25 @@ class DecodeEngine:
             long_entries: List[Tuple[int, GenerationRequest, int]] = []
             progressed = False
             while self._pending:
-                index = self._free_slot()
+                position, index, session_lcp = self._scan_admission()
                 if index is None:
                     break
-                request = self._pending[0]
+                request = self._pending[position]
                 # probe the resume offset without committing, so the
                 # cold-bucket grouping can end the round before any block
                 # moves (match() only touches LRU ticks); the probe's match
                 # is handed to _paged_reserve so the chain walk runs once
                 prompt_len = len(request.prompt_tokens)
                 probe_match = None
-                probe = 0
-                if self.prefix_cache:
+                if session_lcp is not None:
+                    probe = session_lcp
+                elif self.prefix_cache:
                     probe_match = self.kv_manager.match(request.prompt_tokens)
                     probe = probe_match[1]
                     while probe >= prompt_len:
                         probe -= self.block_size
+                else:
+                    probe = 0
                 suffix = prompt_len - probe
                 needs_long = suffix > largest or (
                     probe > 0
@@ -722,13 +1055,17 @@ class DecodeEngine:
                         cold_bucket = bucket
                     elif bucket != cold_bucket:
                         break  # different bucket: next outer round
-                resume = self._paged_reserve(index, request, probe_match)
+                resume = self._paged_reserve(index, request, session_lcp, probe_match)
                 if resume is None:
                     # pool exhausted even after eviction: every block is
                     # referenced by running work — wait for releases
                     break
-                self._pending.pop(0)
+                if position > 0:
+                    self._note_head_skip()
+                self._pending.pop(position)
                 self.slots[index].request = request  # reserve the slot
+                if session_lcp is not None:
+                    self.stats["session_hits"] += 1
                 if needs_long:
                     long_entries.append((index, request, resume))
                 elif resume == 0:
@@ -753,26 +1090,32 @@ class DecodeEngine:
 
     def _admit_mixed(self) -> None:
         """Mixed-mode admission: a request claims a slot and its
-        worst-case block reservation as on the split paged path, but no
-        prefill call runs here. The slot parks as admitting (its
-        ``prefill_pos`` watermark) and successive mixed steps carry
-        windows of its prompt beside the decoding rows
-        (:meth:`_dispatch_mixed`). Cold prompts are not published at
-        admission: their blocks fill over several steps, and a duplicate
-        matching the chain early would attend over rows not yet written.
-        They publish at finish, like partially matched prompts."""
+        worst-case block reservation as on the split paged path (warm
+        sessions first, the same :meth:`_scan_admission`), but no prefill
+        call runs here. The slot parks as admitting (its ``prefill_pos``
+        watermark) and successive mixed steps carry windows of its prompt
+        beside the decoding rows (:meth:`_dispatch_mixed`). Cold prompts
+        are not published at admission: their blocks fill over several
+        steps, and a duplicate matching the chain early would attend over
+        rows not yet written. They publish at finish, like partially
+        matched prompts."""
         while self._pending:
-            index = self._free_slot()
+            position, index, session_lcp = self._scan_admission()
             if index is None:
                 return
-            request = self._pending[0]
-            match = self.kv_manager.match(request.prompt_tokens) if self.prefix_cache else None
-            resume = self._paged_reserve(index, request, match, publish_cold=False)
+            request = self._pending[position]
+            match = (self.kv_manager.match(request.prompt_tokens)
+                     if session_lcp is None and self.prefix_cache else None)
+            resume = self._paged_reserve(index, request, session_lcp, match, publish_cold=False)
             if resume is None:
                 # pool exhausted even after eviction: wait for releases
                 return
-            self._pending.pop(0)
-            self._assign_slot(index, request)
+            if position > 0:
+                self._note_head_skip()
+            self._pending.pop(position)
+            if session_lcp is not None:
+                self.stats["session_hits"] += 1
+            self._assign_slot(index, request, reused=resume)
             slot = self.slots[index]
             slot.prefilling = True
             slot.prefill_pos = resume
@@ -785,62 +1128,122 @@ class DecodeEngine:
         self,
         index: int,
         request: GenerationRequest,
+        session_lcp: Optional[int],
         match: Optional[Tuple[List[int], int]],
         publish_cold: bool = True,
     ) -> Optional[int]:
-        """Commit pool blocks for a request before it is admitted: the
-        prefix chain ``match`` found (None with the prefix cache off),
-        referenced, plus fresh blocks up to its worst case. Returns the
-        resume offset (prompt tokens already in the pool), or None when
-        the pool cannot cover the reservation. ``publish_cold``: publish a
-        fully cold prompt's blocks now (split mode; mixed mode publishes
-        at finish)."""
+        """Commit pool blocks for a request before it is admitted. Returns
+        the resume offset (prompt tokens already in the pool for this
+        slot), or None when the pool cannot cover the reservation.
+
+        A session follow-up (``session_lcp``) keeps its slot's blocks: a
+        boundary block it diverges inside is copied to a private block
+        first when it is shared (copy-on-write), shared blocks in the
+        region it overwrites are swapped for fresh ones (a whole overwrite
+        needs no copy), and the reservation grows or shrinks to its worst
+        case: a published chain is never written after publication.
+        Otherwise the slot's old blocks (an evicted session) are released
+        and the request references the prefix chain ``match`` found (None
+        with the prefix cache off), plus fresh blocks up to its worst
+        case. ``publish_cold``: publish a fully cold prompt's blocks now
+        (split mode; mixed mode publishes at finish)."""
         slot = self.slots[index]
         manager = self.kv_manager
         size = self.block_size
         prompt = request.prompt_tokens
         need_tokens = min(len(prompt) + request.sampling.max_new_tokens, self.max_seq_len)
         need_blocks = -(-need_tokens // size)
-        matched: List[int] = []
-        matched_tokens = 0
-        if match is not None:
-            # the admission probe already walked the chain; nothing can
-            # change it between probe and commit
-            matched, matched_tokens = list(match[0]), match[1]
-        # re-prefill at least the last prompt token so fresh logits exist
-        # for the first sample
-        while matched and matched_tokens >= len(prompt):
-            matched.pop()
-            matched_tokens -= size
-        manager.ref(matched)
-        fresh = manager.allocate(need_blocks - len(matched))
-        if fresh is None:
-            manager.release(matched)
-            return None
-        slot.blocks = matched + fresh
-        if matched_tokens:
-            self.stats["prefix_hits"] += 1
-            self.stats["prefix_tokens_reused"] += matched_tokens
-            manager.stats["hit_tokens"] += matched_tokens
-        if self.prefix_cache and publish_cold and not matched_tokens:
-            # publish a fully cold prompt's blocks now so same-round
-            # duplicates share them: the cold batch (or long prefill) that
-            # writes them dispatches before any warm suffix of this round.
-            # Partially matched prompts publish their tail at finish.
-            manager.publish(prompt, slot.blocks)
+        if session_lcp is not None and slot.blocks:
+            blocks = list(slot.blocks)
+            keep_full, partial = divmod(session_lcp, size)
+            replace: List[int] = []
+            cow: Optional[int] = None
+            if partial and keep_full < len(blocks) and manager.is_shared(blocks[keep_full]):
+                cow = keep_full
+                replace.append(keep_full)
+            for j in range(keep_full + (1 if partial else 0), min(len(blocks), need_blocks)):
+                if manager.is_shared(blocks[j]):
+                    replace.append(j)
+            fresh = manager.allocate(len(replace) + max(0, need_blocks - len(blocks)))
+            if fresh is None:
+                return None
+            for j, new in zip(replace, fresh):
+                if j == cow:
+                    self._dispatch_block_copy(blocks[j], new)
+                manager.unref(blocks[j])
+                blocks[j] = new
+            blocks.extend(fresh[len(replace):])
+            for extra in blocks[need_blocks:]:
+                manager.unref(extra)  # shrink to this request's worst case
+            slot.blocks = blocks[:need_blocks]
+            resume = session_lcp
+        else:
+            if slot.blocks:
+                # a new owner evicts this slot's pinned session or leftover
+                if slot.session_id is not None:
+                    self._note_eviction(slot.session_id, slot.length)
+                manager.release(slot.blocks)
+                slot.blocks = None
+                slot.session_id = None
+                slot.history = None
+                slot.length = 0
+            matched: List[int] = []
+            matched_tokens = 0
+            if self.prefix_cache:
+                # the admission probe already walked the chain; nothing can
+                # change it between probe and commit
+                matched, matched_tokens = (
+                    (list(match[0]), match[1]) if match is not None else manager.match(prompt))
+            # re-prefill at least the last prompt token so fresh logits
+            # exist for the first sample
+            while matched and matched_tokens >= len(prompt):
+                matched.pop()
+                matched_tokens -= size
+            manager.ref(matched)
+            fresh = manager.allocate(need_blocks - len(matched))
+            if fresh is None:
+                manager.release(matched)
+                return None
+            slot.blocks = matched + fresh
+            if matched_tokens:
+                self.stats["prefix_hits"] += 1
+                self.stats["prefix_tokens_reused"] += matched_tokens
+                manager.stats["hit_tokens"] += matched_tokens
+            if self.prefix_cache and publish_cold and not matched_tokens:
+                # publish a fully cold prompt's blocks now so same-round
+                # duplicates share them: the cold batch (or long prefill)
+                # that writes them dispatches before any warm suffix of
+                # this round. Partially matched prompts publish their tail
+                # at finish.
+                manager.publish(prompt, slot.blocks)
+            resume = matched_tokens
         table = self._block_tables[index]
         table[:] = 0
         table[: len(slot.blocks)] = slot.blocks
-        return matched_tokens
+        return resume
 
-    def _assign_slot(self, index: int, request: GenerationRequest) -> None:
+    def _assign_slot(self, index: int, request: GenerationRequest, reused: int = 0) -> None:
+        """Reset a slot's bookkeeping for a newly admitted request;
+        ``reused``: cache tokens this admission did not prefill (a
+        session, a prefix copy or a paged prefix hit)."""
         slot = self.slots[index]
+        if slot.session_id is not None and slot.session_id != request.session_id and slot.history:
+            # a new owner evicts this pinned session's warm rows
+            self._note_eviction(slot.session_id, slot.length)
+        if request.session_id is not None:
+            cached = self._evicted_sessions.pop(request.session_id, None)
+            if cached:
+                self._waste("evicted_recompute", min(cached, len(request.prompt_tokens)) - reused)
         slot.request = request
         slot.generated = []
         slot.logprobs = []
         slot.history = list(request.prompt_tokens)
+        slot.session_id = None
         slot.length = len(request.prompt_tokens)
+        slot.last_used = time.monotonic()
         slot.epoch += 1
+        slot.prefill_pos = None  # mixed admission parks it again after this
+        slot.prefill_reused = 0
 
     def _request_seed(self, request: GenerationRequest) -> int:
         """The request's sampling seed: explicit (OpenAI `seed`) or a
@@ -1040,7 +1443,7 @@ class DecodeEngine:
                 lengths[row] = len(suffix)
                 offsets[row] = reused
                 slot_ids[row] = index
-                self._assign_slot(index, request)
+                self._assign_slot(index, request, reused)
                 self.slots[index].prefilling = True
             logits = self._prefill_call("prefill_offset", tokens, lengths, slot_ids, offsets)
             out = self._first_token(
@@ -1060,7 +1463,7 @@ class DecodeEngine:
         resets the slot's counts first, so only the last one's count
         stays) and records the first token for the harvest."""
         prompt = request.prompt_tokens
-        self._assign_slot(index, request)
+        self._assign_slot(index, request, reused)
         self.slots[index].prefilling = True
         started = time.perf_counter()
         slot_ids = np.asarray([index], dtype=np.int64)
@@ -1116,10 +1519,13 @@ class DecodeEngine:
         when no admission waits, no prefill is in flight, no slot joined
         since that chunk (a slot prefilled meanwhile joins the next fresh
         chunk), and every rider has two chunks of budget and context left,
-        so the blind chunk cannot run a request past its end."""
+        so the blind chunk cannot run a request past its end (a spec
+        step emits up to ``spec_block`` tokens)."""
         if self._pending or self._prefill_inflight or self._any_admitting():
             return False
-        budget = inflight["steps"]
+        # the most tokens a chunk can emit a slot: a spec step may accept
+        # every draft and the bonus token
+        budget = inflight["steps"] * self.spec_block
         for i, slot in enumerate(self.slots):
             if not inflight["active"][i]:
                 if slot.ready:
@@ -1140,20 +1546,27 @@ class DecodeEngine:
         """Every step variant the engine can dispatch, as the JAX engine's
         ``_variant_jobs``: the decode step counts {decode_chunk, 1,
         admission_chunk} and, mixed, the widths of the ladder, each at
-        every sampling tier; split, the prefill lattice of every pow2
-        group up to ``max_slots`` × every bucket (:meth:`_prefill_keys`)."""
+        every sampling tier (a decode chunk is a "spec" chunk with
+        ``spec_decode``); split, the prefill lattice of every pow2 group up
+        to ``max_slots`` × every bucket (:meth:`_prefill_keys`); the KV
+        copies: the paged block copy, or the dense prefix copy of every
+        bucket with ``prefix_cache``."""
         steps = {self.decode_chunk, 1}
         if self.admission_chunk:
             steps.add(self.admission_chunk)
-        keys = [Variant("decode", n, tier) for n in sorted(steps) for tier in TIERS]
+        chunk = "spec" if self.spec else "decode"
+        keys = [Variant(chunk, n, tier) for n in sorted(steps) for tier in TIERS]
         if self.mixed:
             keys += [Variant("mixed", width, tier) for width in self._mixed_widths for tier in TIERS]
+        if self.paged:
+            keys.append(Variant("block_copy", 0))
+        elif self.prefix_cache:
+            keys += [Variant("copy", bucket) for bucket in self.prefill_buckets]
         return keys + self._prefill_keys()
 
     def _prefill_keys(self) -> List[Variant]:
-        """The prefill variants: cold at every (group, bucket); at an
-        offset where the engine dispatches one (paged warm batches at
-        every group, long prompts' windows at group 1); the first-token
+        """The prefill variants: cold and at an offset (warm batches,
+        long prompts' windows) at every (group, bucket); the first-token
         sampling at every (group, tier). Mixed mode admits through mixed
         steps and dispatches none, as in the JAX engine."""
         keys: List[Variant] = []
@@ -1161,8 +1574,7 @@ class DecodeEngine:
         while not self.mixed and group <= self.max_slots:
             for bucket in self.prefill_buckets:
                 keys.append(Variant("prefill", bucket, "", group))
-                if self.paged or group == 1:
-                    keys.append(Variant("prefill_offset", bucket, "", group))
+                keys.append(Variant("prefill_offset", bucket, "", group))
             keys += [Variant("first_token", 0, tier, group) for tier in TIERS]
             group *= 2
         return keys
@@ -1174,8 +1586,15 @@ class DecodeEngine:
         block) and no count moves. Prefill: one token a row, of slot 0 on
         the dense layout (whose rows it rewrites: :meth:`precompile` puts
         them back) or of the paged null block; the first-token sampling
-        resets slot 0's counts (put back too)."""
+        resets slot 0's counts (put back too). A copy: slot 0 (the null
+        block) onto itself, which changes nothing, so a copy first met
+        while serving warms up on it safely."""
         slots = self.max_slots
+        if key.kind in ("copy", "block_copy"):
+            arrays = dict(src=np.zeros((1,), dtype=np.int64), dst=np.zeros((1,), dtype=np.int64))
+            if key.kind == "copy":
+                arrays["offset"] = np.zeros((1,), dtype=np.int64)
+            return arrays
         if key.kind in PREFILL_KINDS:
             group = key.group
             rows = np.zeros((group,), dtype=np.int64)
@@ -1196,10 +1615,12 @@ class DecodeEngine:
         arrays, _ = self._sampling_arrays([None] * slots)
         if self.paged:
             arrays["tables"] = np.zeros((slots, self.max_blocks), dtype=np.int32)
-        if key.kind == "decode":
+        if key.kind in ("decode", "spec"):
             arrays.update(tokens=np.zeros((slots,), dtype=np.int64),
                           lengths=np.zeros((slots,), dtype=np.int32),
                           active=np.zeros((slots,), dtype=bool))
+            if key.kind == "spec":
+                arrays["history"] = np.zeros((slots, self.max_seq_len), dtype=np.int32)
         else:
             arrays.update(tokens=np.zeros((slots, key.size), dtype=np.int64),
                           offsets=np.zeros((slots,), dtype=np.int32),
@@ -1213,6 +1634,12 @@ class DecodeEngine:
     def _step_body(self, key: Variant):
         if key.kind == "decode":
             return self._decode_body(key.size, key.tier)
+        if key.kind == "spec":
+            return self._spec_body(key.size, key.tier)
+        if key.kind == "copy":
+            return self._copy_body(key.size)
+        if key.kind == "block_copy":
+            return self._block_copy_body()
         if key.kind == "mixed":
             return self._mixed_body(key.size, key.tier)
         if key.kind == "first_token":
@@ -1291,6 +1718,89 @@ class DecodeEngine:
 
         return chunk
 
+    def _spec_body(self, steps: int, tier: str):
+        """The K-step speculative decode chunk (the JAX
+        ``_get_spec_decode``): each step drafts from the slots' token
+        history on the card, verifies the [S, 1 + spec_k] block in one
+        model call (``verify_step``; paged ``paged_verify_step``, B3 or B6
+        at Tq = 1 + spec_k) and accepts 1 to spec_k + 1 tokens a slot
+        (``spec_decode.accept_block``, its counts updated in place); the
+        accepted tokens extend the history, and a rejected suffix rolls
+        back by not advancing the length. Outputs [S, steps, 1 + spec_k]
+        tokens, logprobs and the valid mask, and the drafted counts [S,
+        steps]."""
+        k, width = self.spec_k, self.max_seq_len
+        stochastic, truncated = TIERS[tier]
+
+        def chunk(x: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+            tokens, lengths, active, history = x["tokens"], x["lengths"], x["active"], x["history"]
+            rows = torch.arange(tokens.shape[0], device=tokens.device)
+            out_tokens, out_lps, out_valid, out_drafted = [], [], [], []
+            for _ in range(steps):
+                drafts, num = spec_lib.draft_ngram(history, lengths, active, ngram=self.spec_ngram, k=k)
+                block = torch.cat([tokens[:, None], drafts], dim=1)  # [S, 1 + k]
+                valid_lens = torch.where(active, 1 + num, torch.zeros_like(num))
+                if self.paged:
+                    logits = model_lib.paged_verify_step(
+                        self.config, self.params, self.cache, block, lengths, valid_lens,
+                        x["tables"], self.freqs, write_mask=active, kernel=self.paged_kernel)
+                else:
+                    logits = model_lib.verify_step(
+                        self.config, self.params, self.cache, block, lengths, valid_lens,
+                        self.freqs, write_mask=active)
+                emitted, lps, valid = spec_lib.accept_block(
+                    logits, block, num, self._counts, active, x, lengths,
+                    stochastic=stochastic, truncated=truncated)
+                accepted = valid.sum(dim=1)  # [S] tokens emitted
+                # the emitted tokens extend the history at lengths ..
+                # lengths + accepted - 1; the rest go to a dropped column
+                positions = lengths.long()[:, None] + torch.arange(k + 1, device=tokens.device)
+                positions = torch.where(valid, positions, torch.full_like(positions, width))
+                extended = torch.cat([history, history[:, :1]], dim=1)
+                extended.scatter_(1, positions, emitted.to(history.dtype))
+                history = extended[:, :width]
+                last = emitted[rows, (accepted - 1).clamp(0, k)]
+                tokens = torch.where(active & (accepted > 0), last, tokens)
+                lengths = lengths + torch.where(active, accepted, torch.zeros_like(accepted)).to(lengths.dtype)
+                out_tokens.append(emitted)
+                out_lps.append(lps)
+                out_valid.append(valid)
+                out_drafted.append(num)
+            return {"tokens": torch.stack(out_tokens, dim=1), "logprobs": torch.stack(out_lps, dim=1),
+                    "valid": torch.stack(out_valid, dim=1), "drafted": torch.stack(out_drafted, dim=1),
+                    "final_tokens": tokens, "final_lengths": lengths, "final_history": history}
+
+        return chunk
+
+    def _copy_body(self, bucket: int):
+        """The dense prefix copy (the JAX ``_get_copy_prefix``): rows
+        [offset, offset + bucket) of slot ``src`` into slot ``dst``, every
+        layer and leaf, IN PLACE. A window past the cache's end starts at
+        ``max_len - bucket`` instead, as JAX's dynamic slice clamps."""
+        max_len = self.max_seq_len
+
+        def copy(x: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+            start = x["offset"].clamp(0, max(max_len - bucket, 0))
+            rows = start + torch.arange(min(bucket, max_len), device=start.device)
+            for leaf in self.cache.values():
+                flat = leaf.view(leaf.shape[0], leaf.shape[1] * max_len, *leaf.shape[3:])
+                flat.index_copy_(1, x["dst"] * max_len + rows,
+                                 flat.index_select(1, x["src"] * max_len + rows))
+            return {}
+
+        return copy
+
+    def _block_copy_body(self):
+        """The paged copy-on-write (the JAX ``_get_block_copy``): pool
+        block ``src`` into ``dst``, every layer and leaf, IN PLACE."""
+
+        def copy(x: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+            for leaf in self.cache.values():
+                leaf.index_copy_(1, x["dst"], leaf.index_select(1, x["src"]))
+            return {}
+
+        return copy
+
     def _mixed_body(self, width: int, tier: str):
         """One mixed step ``width`` tokens wide (:meth:`_dispatch_mixed`
         has the sampling semantics); a chained step's riders take their
@@ -1367,6 +1877,8 @@ class DecodeEngine:
             final = carry.pop("outputs")
             inputs = dict(carry["inputs"], tokens=final["final_tokens"],
                           lengths=final["final_lengths"])
+            if self.spec:
+                inputs["history"] = final["final_history"]
         else:
             tokens = np.zeros((slots,), dtype=np.int64)
             lengths = np.zeros((slots,), dtype=np.int32)
@@ -1376,6 +1888,9 @@ class DecodeEngine:
             if self.admission_chunk and (self._pending or self._prefill_inflight):
                 # someone waits for a slot: a short chunk frees one sooner
                 steps = self.admission_chunk
+            # the drafting source: each ready slot's token history, the
+            # pending token included (history[i, t] = the token at t)
+            history = np.zeros((slots, self.max_seq_len), dtype=np.int32) if self.spec else None
             for i, slot in enumerate(self.slots):
                 lengths[i] = slot.length
                 epochs[i] = slot.epoch
@@ -1383,9 +1898,12 @@ class DecodeEngine:
                     active[i] = True
                     tokens[i] = slot.history[-1]
                     lengths[i] = slot.length + 1
-                    # a chunk writes cache positions up to length + steps - 1:
-                    # drop to single steps near the context boundary
-                    if self.max_seq_len - slot.length - 1 < steps:
+                    if history is not None:
+                        history[i, : len(slot.history)] = slot.history
+                    # a chunk writes cache positions up to length + steps
+                    # × spec_block - 1: drop to single steps near the
+                    # context boundary (the drafter keeps one step inside)
+                    if self.max_seq_len - slot.length - 1 < steps * self.spec_block:
                         steps = 1
             inputs, tier = self._sampling_arrays(
                 [slot.request if slot.ready else None for slot in self.slots]
@@ -1393,13 +1911,19 @@ class DecodeEngine:
             inputs.update(tokens=tokens, lengths=lengths, active=active)
             if self.paged:
                 inputs["tables"] = self._block_tables
-            key = Variant("decode", steps, tier)
+            if history is not None:
+                inputs["history"] = history
+            key = Variant("spec" if self.spec else "decode", steps, tier)
         inputs, outputs = self.steps.run(key, inputs)
         # counted here, on the host: a replay runs none of the body
-        self._count_dispatch("paged_decode_step" if self.paged else "decode_step", key.size)
+        call = "verify_step" if self.spec else "decode_step"
+        self._count_dispatch(("paged_" if self.paged else "") + call, key.size)
+        host = [outputs["tokens"], outputs["logprobs"]]
+        if self.spec:
+            host += [outputs["valid"], outputs["drafted"]]
         return {
             "key": key,
-            "out": self._to_host(outputs["tokens"], outputs["logprobs"]),
+            "out": self._to_host(*host),
             "inputs": inputs,
             "outputs": outputs,
             "active": active,
@@ -1620,20 +2144,38 @@ class DecodeEngine:
     def _process_decode(self, chunk: Dict[str, Any]) -> None:
         if chunk.get("mixed"):
             return self._process_mixed(chunk)
-        out, lps = self._from_host(chunk["out"])
-        steps = chunk["steps"]
+        out, lps, *spec = self._from_host(chunk["out"])
+        steps, active = chunk["steps"], chunk["active"]
         self.stats["decode_steps"] += steps
         self.stats["decode_time"] += self._busy_since(chunk["started"], time.perf_counter())
+        if spec:
+            # a step emits 1 + its leading accepted drafts a slot: the 1 is
+            # the token the verify logits fund either way
+            valid, drafted = spec
+            drafted_total = int(drafted[active].sum())
+            accepted_total = int(valid[active].sum()) - int(active.sum()) * steps
+            self.stats["tokens_drafted"] += drafted_total
+            self.stats["tokens_draft_accepted"] += accepted_total
+            self._waste("draft_rejected", drafted_total - accepted_total)
         for i, slot in enumerate(self.slots):
-            if not chunk["active"][i] or slot.epoch != chunk["epochs"][i]:
+            if not active[i] or slot.epoch != chunk["epochs"][i]:
                 continue
             for j in range(steps):
                 if not slot.active:
                     # finished mid-chunk: surplus tokens discarded; the
                     # length stopped at the stop, so later rows are dead
                     break
-                slot.length += 1
-                self._emit_token(i, int(out[i, j]), float(lps[i, j]))
+                if not spec:
+                    slot.length += 1
+                    self._emit_token(i, int(out[i, j]), float(lps[i, j]))
+                    continue
+                # a True-prefix of the block; a stop inside it discards the
+                # rest as a stop inside a chunk does
+                for b in range(self.spec_block):
+                    if not valid[i, j, b] or not slot.active:
+                        break
+                    slot.length += 1
+                    self._emit_token(i, int(out[i, j, b]), float(lps[i, j, b]))
 
     def _emit_token(self, index: int, token: int, logprob: float = 0.0) -> None:
         """Record a newly generated token for a slot; finish if stopping."""
@@ -1643,6 +2185,7 @@ class DecodeEngine:
             request._first_token_ts = time.perf_counter()  # type: ignore[attr-defined]
         slot.generated.append(token)
         slot.logprobs.append(logprob)
+        self.stats["tokens_generated"] += 1
         hit_stop = token in request.stop_tokens
         if not hit_stop:
             slot.history.append(token)
@@ -1681,24 +2224,50 @@ class DecodeEngine:
         submitted = getattr(request, "_submit_ts", None)
         if submitted is not None:
             self.stats["ttft_time"] += request._first_token_ts - submitted
-        if self.paged and slot.blocks is not None:
-            if self.prefix_cache:
-                # publish the completed prefix (prompt + generated): only
-                # rows actually IN the cache (the final sampled token is
-                # never written), full blocks only. The chain outlives the
-                # slot, refcounted by the map, until LRU eviction needs it
-                self.kv_manager.publish(slot.history[: slot.length], slot.blocks)
-            self.kv_manager.release(slot.blocks)
-            slot.blocks = None
-            self._block_tables[index, :] = 0
         slot.request = None
         slot.prefilling = False
         slot.prefill_pos = None
         slot.epoch += 1
         slot.generated = None
         slot.logprobs = None
+        # keep only the history whose rows are IN the cache (the final
+        # sampled token is never written)
+        history = slot.history[: slot.length]
+        slot.session_id = None
         slot.history = None
-        slot.length = 0
+        if request.session_id is not None:
+            # pin the slot for the session's next turn
+            slot.session_id = request.session_id
+            slot.last_used = time.monotonic()
+            slot.history = history
+        if self.paged and slot.blocks is not None:
+            if self.prefix_cache:
+                # publish the completed prefix (prompt + generated), full
+                # blocks only. The chain outlives the slot, refcounted by
+                # the map, until LRU eviction needs it
+                self.kv_manager.publish(history, slot.blocks)
+            if slot.session_id is not None:
+                # a pinned session holds only the blocks its history
+                # fills, not its worst-case reservation
+                keep = -(-slot.length // self.block_size)
+                for extra in slot.blocks[keep:]:
+                    self.kv_manager.unref(extra)
+                slot.blocks = slot.blocks[:keep]
+                self._block_tables[index, keep:] = 0
+            else:
+                # sessionless: unpublished blocks free now, published ones
+                # stay matchable until LRU eviction needs them
+                self.kv_manager.release(slot.blocks)
+                slot.blocks = None
+                self._block_tables[index, :] = 0
+                slot.length = 0
+        elif slot.session_id is None:
+            if self.prefix_cache:
+                # the slot is free, and its rows stay for a later request
+                # sharing their prefix to salvage or copy
+                slot.history = history
+            else:
+                slot.length = 0
         if request.future is not None:
             self._post_future(request, result)
 

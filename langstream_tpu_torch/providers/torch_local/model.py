@@ -469,8 +469,10 @@ def _mlp_block(config: LlamaConfig, normed: torch.Tensor, params, i) -> torch.Te
 # rows of one pass through the MLP: a call of more rows (a prefill of
 # group × bucket tokens) runs it in slices of this many, so that its
 # largest intermediates, each rows × intermediate_size, are one slice's.
-# A captured prefill keeps its peak in the engine's graph pool for as long
-# as the engine lives.
+# Dense prefill-at-offset attention slices its calls by the same count of
+# query rows (its f32 scores are rows × heads × max_len). A captured
+# prefill keeps its peak in the engine's graph pool for as long as the
+# engine lives.
 MLP_ROWS = 4096
 
 
@@ -636,7 +638,8 @@ def prefill_at_offset(
     """Prefill of a suffix into cache slots that already hold a prefix:
     positions are offset by the prefix, the new KV rows are written at
     ``offset .. offset + T - 1`` (IN PLACE), and attention runs over
-    prefix + suffix (:func:`chunk_attention`). The caller keeps
+    prefix + suffix (:func:`chunk_attention`, in slices of rows of at most
+    :data:`MLP_ROWS` query tokens). The caller keeps
     ``offset + T <= max_len``; past it the window is clamped to end at
     ``max_len``, as JAX's ``dynamic_update_slice`` clamps. Returns the
     logits [B, V] (f32) of each row's last real suffix token."""
@@ -649,13 +652,20 @@ def prefill_at_offset(
     write_start = offsets.long().clamp(0, max(max_len - seq, 0))
     rows = write_start[:, None] + torch.arange(seq, device=tokens.device)[None, :]  # [B, T]
 
+    # rows of the batch a pass of attention takes (:data:`MLP_ROWS` query rows)
+    per = max(1, MLP_ROWS // seq)
+
     def attend(i, q, k, v, window):
-        layer = {}
-        for leaf, value in _new_rows(cache, k, v).items():
+        new = _new_rows(cache, k, v)
+        for leaf, value in new.items():
             stored = cache[leaf][i]
             stored[slots[:, None], rows] = value.to(stored.dtype)
-            layer[leaf] = stored[slots]
-        return _chunk_attn(config, q, layer, offsets, totals, window=window)
+        out = torch.empty_like(q)
+        for start in range(0, q.shape[0], per):
+            part = slice(start, start + per)
+            layer = {leaf: cache[leaf][i][slots[part]] for leaf in new}
+            out[part] = _chunk_attn(config, q[part], layer, offsets[part], totals[part], window=window)
+        return out
 
     x = _prefill_scan(config, params, tokens, offsets, freqs, attend)
     return _last_token_logits(config, params, x, lengths)
@@ -716,7 +726,8 @@ def _mixed_block_q(width: int) -> int:
     return 8 if width % 8 == 0 else width
 
 
-def _paged_attn(config, q, kv, tables, starts, totals, *, window, kernel, q_offsets=None):
+def _paged_attn(config, q, kv, tables, starts, totals, *, window, kernel, q_offsets=None,
+                verify=False):
     """Paged attention over a layer's pools ``kv``, one seam for every
     ragged case: decode (q [S, H, D], starts = lengths - 1),
     prefill-at-offset and cold paged prefill (q [B, T, H, D]), and, with
@@ -732,7 +743,9 @@ def _paged_attn(config, q, kv, tables, starts, totals, *, window, kernel, q_offs
     plain version on a CPU tensor. ``"reference"`` (asked for explicitly)
     runs the gather composition on any device, which already speaks
     per-row starts and totals, so the mixed step needs no path of its
-    own there (positions past a row's count compute discarded values)."""
+    own there (positions past a row's count compute discarded values).
+    ``verify``: the launch is a speculative verify block, which the card
+    counts in a class of its own."""
     family = _family(config, window)
     quant = "k_scale" in kv
     decode = q.dim() == 3
@@ -748,7 +761,8 @@ def _paged_attn(config, q, kv, tables, starts, totals, *, window, kernel, q_offs
             )
             return out.reshape(batch, width, heads, dim)
         fn = ragged_paged_attention_quant if quant else ragged_paged_attention
-        out = fn(q[:, None] if decode else q, *_kv_args(kv), tables, starts, totals, **family)
+        out = fn(q[:, None] if decode else q, *_kv_args(kv), tables, starts, totals, verify=verify,
+                 **family)
         return out[:, 0] if decode else out
     if kernel != "reference":
         raise ValueError(f"unknown paged kernel {kernel!r}")
@@ -941,6 +955,110 @@ def paged_mixed_step(
     return _logits(config, params, _norm(config, x, params["final_norm"]))
 
 
-def verify_step(*args, **kwargs):
-    """Speculative-decode verify pass (JAX ``model.verify_step``)."""
-    raise NotImplementedError(f"verify_step {_NOT_PORTED}")
+def _block_positions(lengths: torch.Tensor, valid_lens: torch.Tensor, seq: int,
+                     write_mask: Optional[torch.Tensor]):
+    """A verify block's rows: the offsets (``lengths - 1``), which block
+    positions hold a real token (``t < valid_lens``), the totals
+    (``offsets + valid_lens``) and the positions to write (real, and on a
+    row of ``write_mask``)."""
+    offsets = (lengths - 1).to(torch.int32)
+    mask = torch.arange(seq, device=lengths.device)[None, :] < valid_lens[:, None]
+    totals = offsets + valid_lens.to(torch.int32)
+    writes = mask if write_mask is None else mask & write_mask[:, None]
+    return offsets, totals, writes
+
+
+@torch.inference_mode()
+def verify_step(
+    config: LlamaConfig,
+    params: Dict[str, torch.Tensor],
+    cache: Dict[str, torch.Tensor],
+    tokens: torch.Tensor,      # [S, B] the pending token + the drafted block
+    lengths: torch.Tensor,     # [S] int32 cache length INCLUDING tokens[:, 0]
+    valid_lens: torch.Tensor,  # [S] int32 real tokens in the block (1 +
+                               # drafted; 0 = inactive row)
+    freqs: torch.Tensor,
+    write_mask: Optional[torch.Tensor] = None,  # [S] bool
+) -> torch.Tensor:
+    """Speculative verify (the JAX ``verify_step``): :func:`decode_step`
+    over a [S, B] block a slot. The block sits at each slot's current
+    position (``tokens[:, 0]`` is the pending token whose row a decode
+    step would write, the rest drafted candidates); the KV of every real
+    block position is written IN PLACE, attention runs causally over
+    prefix + block (:func:`chunk_attention`, plain PyTorch, as the JAX
+    package leaves it to XLA), and the logits of EVERY position [S, B, V]
+    (f32) come back, for the acceptance pass. Rows past a slot's real
+    tokens, and rows off ``write_mask``, keep the cache's old values, so a
+    rejected suffix rolls back by a length rewind alone. Each row writes
+    a window of B distinct positions (its block, clamped inside the cache
+    as JAX's dropped out-of-range writes leave the end of the cache)."""
+    _require_dense(config)
+    validate_family_params(config, params)
+    slots, seq = tokens.shape
+    max_len = cache["k"].shape[2]
+    offsets, totals, writes = _block_positions(lengths, valid_lens, seq, write_mask)
+    rows = torch.arange(slots, device=tokens.device)[:, None]
+    # the window [start, start + B) of each row holds its block's
+    # positions that fit; block position t lands at window index
+    # t + shift, and a window index keeps its old value unless the block
+    # position mapped onto it is written
+    start = offsets.long().clamp(0, max(max_len - seq, 0))
+    window = start[:, None] + torch.arange(seq, device=tokens.device)[None, :]  # [S, B]
+    source = window - offsets.long()[:, None]  # the block position at each window index
+    written = (source >= 0) & (source < seq) & torch.gather(writes, 1, source.clamp(0, seq - 1))
+
+    def attend(i, q, k, v, window_size):
+        layer = {}
+        for leaf, value in _new_rows(cache, k, v).items():
+            stored = cache[leaf][i]  # [S, T, KVH(, D)] view
+            placed = torch.gather(value.to(stored.dtype), 1, source.clamp(0, seq - 1).view(
+                slots, seq, *([1] * (value.dim() - 2))).expand_as(value))
+            keep = written.view(slots, seq, *([1] * (value.dim() - 2)))
+            stored[rows, window] = torch.where(keep, placed, stored[rows, window])
+            layer[leaf] = stored
+        return _chunk_attn(config, q, layer, offsets, totals, window=window_size)
+
+    x = _prefill_scan(config, params, tokens, offsets, freqs, attend)
+    return _logits(config, params, _norm(config, x, params["final_norm"]))
+
+
+@torch.inference_mode()
+def paged_verify_step(
+    config: LlamaConfig,
+    params: Dict[str, torch.Tensor],
+    cache: Dict[str, torch.Tensor],   # paged pool
+    tokens: torch.Tensor,             # [S, B] the block a slot
+    lengths: torch.Tensor,            # [S] int32 length INCLUDING tokens[:, 0]
+    valid_lens: torch.Tensor,         # [S] int32 real tokens (0 = inactive)
+    block_tables: torch.Tensor,       # [S, M] int32
+    freqs: torch.Tensor,
+    write_mask: Optional[torch.Tensor] = None,  # [S] bool
+    kernel: str = "fused",            # paged attention: fused | reference
+) -> torch.Tensor:
+    """Paged twin of :func:`verify_step` (the JAX ``paged_verify_step``):
+    the block's KV scatters into table-addressed blocks (IN PLACE; masked
+    and overflow rows go to the null block), and attention is the ragged
+    kernel's prefill-at-offset form at Tq = B (B3, or B6 over int8 pools;
+    its launches count in their own class on the card,
+    ``ops/launches.py``). Blocks were reserved worst-case at admission,
+    so verify never allocates and rollback is a length rewind. Returns
+    the logits [S, B, V] (f32) of every position."""
+    _require_dense(config)
+    validate_family_params(config, params)
+    offsets, totals, writes = _block_positions(lengths, valid_lens, tokens.shape[1], write_mask)
+    # an inactive row (length 0) attends over nothing: start and total 0
+    starts = offsets.clamp(min=0)
+    totals = torch.maximum(totals, starts)
+
+    def attend(i, q, k, v, window):
+        layer = {
+            leaf: paged_write_rows(cache[leaf][i], value, block_tables, offsets, writes)
+            for leaf, value in _new_rows(cache, k, v).items()
+        }
+        return _paged_attn(
+            config, q, layer, block_tables, starts, totals, window=window, kernel=kernel,
+            verify=True,
+        )
+
+    x = _prefill_scan(config, params, tokens, starts, freqs, attend)
+    return _logits(config, params, _norm(config, x, params["final_norm"]))

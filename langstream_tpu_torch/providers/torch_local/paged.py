@@ -29,9 +29,9 @@ holds what:
   id would otherwise let a *different* chain's key resolve to a stale
   child whose KV belongs to the old prefix).
 
-Copy-on-write is decided here (:meth:`is_shared`); executing it (a
-private copy of a shared block before a write into it) belongs to the
-engine's session path, which is not ported yet.
+Copy-on-write is decided here (:meth:`is_shared`); the engine's session
+path executes it (a private copy of a shared block before a write into
+it, ``engine._dispatch_block_copy``).
 
 **Two tiers**: when a :class:`HostKVArena` is attached, eviction
 *demotes* victim chains into bounded host RAM instead of dropping them,

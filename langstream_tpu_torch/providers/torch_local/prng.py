@@ -91,6 +91,14 @@ def uniform(key: Key, width: int) -> torch.Tensor:
     return torch.clamp_min(floats * 1.0 + _F32_TINY, _F32_TINY)
 
 
+def unit_uniform(key: Key) -> torch.Tensor:
+    """``jax.random.uniform(key)`` (one value in [0, 1), minval 0) per
+    key: word 0 of the key's draw, with no ``tiny`` floor."""
+    bits = random_bits(key, 1)[:, 0]
+    mantissa = ((bits >> 9) | 0x3F800000).to(torch.int32)
+    return torch.clamp_min(mantissa.view(torch.float32) - 1.0, 0.0)
+
+
 def gumbel(key: Key, width: int) -> torch.Tensor:
     return -torch.log(-torch.log(uniform(key, width)))
 

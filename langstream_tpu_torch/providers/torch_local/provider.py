@@ -12,7 +12,8 @@ Configuration, with the JAX provider's keys::
              kv-layout: paged, kv-block-size: 16, kv-blocks: 4097,
              paged-kernel: fused, prefix-cache: true, kv-quant: int8,
              prefill-mode: mixed, prefill-chunk: 64, mixed-carry: on,
-             pipeline-decode: true, admission-chunk: 4, precompile: true}
+             pipeline-decode: true, admission-chunk: 4, precompile: true,
+             spec-decode: ngram, spec-k: 4, spec-ngram: 2}
 
 With no ``checkpoint`` the weights are random, drawn from ``seed`` on the
 device (checkpoint loading is not ported yet and raises); with
@@ -28,9 +29,17 @@ it), and ``mixed-carry`` (on unless set off) chains mixed steps the same
 way on top of it. ``admission-chunk`` caps a decode chunk at that many
 steps while requests wait for a slot, and ``precompile`` captures every
 step variant's CUDA graph and runs every prefill variant once before the
-engine starts (the JAX engine's ``precompile``). Every other key that the JAX provider honours and the
-port does not (:data:`UNPORTED_ENGINE_KEYS`, :data:`UNPORTED_KEYS`)
-raises when it is set to anything but the JAX default.
+engine starts (the JAX engine's ``precompile``). ``spec-decode: ngram``
+drafts ``spec-k`` tokens a decode step from each slot's own history
+(matching its trailing ``spec-ngram`` tokens) and verifies them in one
+model call. A request's ``session-id`` option (the OpenAI ``session_id``
+or ``user`` field) pins its KV rows for the session's next turn. Every
+other key that the JAX provider honours and the port does not
+(:data:`UNPORTED_ENGINE_KEYS`, :data:`UNPORTED_KEYS`) raises when it is
+set to anything but the JAX default. The JAX provider's ``supervisor``
+(on by default there: an engine crash resumes every live stream) cannot
+be refused as a default: the port serves ``supervisor: false``, and a
+crash fails every waiter.
 """
 
 from __future__ import annotations
@@ -64,10 +73,8 @@ def _on(value: Any) -> bool:
 # not shard).
 UNPORTED_ENGINE_KEYS = {
     "kv-host-blocks": lambda value: int(value or 0) != 0,
-    "spec-decode": lambda value: str(value or "off").lower() != "off",
-    "spec-k": lambda value: int(value or 4) != 4,
-    "spec-ngram": lambda value: int(value or 2) != 2,
     "logprobs-top-k": lambda value: int(value or 0) != 0,
+    "watchdog": lambda value: str(value).lower() in ("1", "true", "yes", "on"),
     "queue-timeout-s": bool,
     "max-restarts": lambda value: int(value or 3) != 3,
     "restart-window-s": lambda value: float(value or 600.0) != 600.0,
@@ -178,6 +185,11 @@ class TorchCompletionsService:
                 if engine_config.get("admission-chunk") else None
             ),
             step_graphs=step_graphs,
+            # speculative decoding: off | ngram (a value the engine does
+            # not know raises there, as in the JAX engine)
+            spec_decode=str(engine_config.get("spec-decode") or "off").lower(),
+            spec_k=int(engine_config.get("spec-k") or 4),
+            spec_ngram=int(engine_config.get("spec-ngram") or 2),
         )
         if _on(engine_config.get("precompile", "")):
             # every step variant captured and every prefill variant run
@@ -303,6 +315,7 @@ class TorchCompletionsService:
             prompt_tokens, sampling,
             stop_tokens=set(self.tokenizer.eos_ids),
             on_token=on_token,
+            session_id=options.get("session-id"),
             handle=handle,
         )
         if stop_cut:

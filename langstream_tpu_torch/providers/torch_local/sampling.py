@@ -54,16 +54,20 @@ def sample(
     *,
     stochastic: bool,
     truncated: bool,
+    masked: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Per-slot sampling: greedy where temperature == 0, else a sample
     from the (optionally truncated) temperature softmax. ``stochastic`` /
     ``truncated`` say whether ANY row has temperature > 0 / truncation —
     the caller knows them from the host-side request parameters, so
-    deciding the tier costs no device sync."""
+    deciding the tier costs no device sync. A caller that holds the
+    truncation mask of these logits already passes it as ``masked``."""
     greedy = torch.argmax(logits, dim=-1)
     if not stochastic:
         return greedy
-    scaled = truncation_mask(logits, top_k, top_p) if truncated else logits
+    scaled = logits
+    if truncated:
+        scaled = truncation_mask(logits, top_k, top_p) if masked is None else masked
     scaled = scaled / torch.clamp_min(temperature, 1e-6)[:, None]
     sampled = prng.categorical(key, scaled)
     return torch.where(temperature > 0, sampled, greedy)

@@ -62,6 +62,11 @@ def _options_from_request(body: Dict[str, Any], model: str) -> Dict[str, Any]:
     for source, target in mapping.items():
         if body.get(source) is not None:
             options[target] = body[source]
+    # KV-cache affinity: the explicit session_id, else the OpenAI `user`
+    # field (stable per end user)
+    session = body.get("session_id") or body.get("user")
+    if session:
+        options["session-id"] = str(session)
     return options
 
 
@@ -263,11 +268,15 @@ class OpenAIApiServer:
     @staticmethod
     async def _complete_n(complete, options: Dict[str, Any], n: int):
         """n independent generations over the engine's slots; explicit
-        seeds derive per choice (seed + index) so choices differ."""
+        seeds derive per choice (seed + index) so choices differ. Only
+        choice 0 keeps the session: n pinned slots for one session would
+        evict other sessions' warm rows."""
         per_choice = [dict(options) for _ in range(n)]
-        if n > 1 and options.get("seed") is not None:
-            for index, choice_options in enumerate(per_choice):
+        for index, choice_options in enumerate(per_choice):
+            if n > 1 and options.get("seed") is not None:
                 choice_options["seed"] = int(options["seed"]) + index
+            if index > 0:
+                choice_options.pop("session-id", None)
         tasks = [asyncio.ensure_future(complete(options_override=o)) for o in per_choice]
         try:
             return await asyncio.gather(*tasks)

@@ -79,7 +79,7 @@ def _jax(weights, **kwargs):
     args = dict(BASE, **kwargs)
     args.pop("step_graphs", None)
     paged = args.get("kv_layout") == "paged"
-    return jax_engine.DecodeEngine(jcfg, jparams, prefix_cache=paged,
+    return jax_engine.DecodeEngine(jcfg, jparams, prefix_cache=args.pop("prefix_cache", paged),
                                    **({"paged_kernel": "reference"} if paged else {}), **args)
 
 
@@ -148,12 +148,11 @@ def test_variant_keys_cover_jax_variant_jobs(weights, layout, admission_chunk):
     those of the JAX engine's ``_variant_jobs`` for the same settings
     (an admission chunk above the decode chunk is capped to it), each at
     every sampling tier; a split engine has no mixed variant. The
-    prefill lattice too: every (bucket, group) of the JAX cold prefill
-    jobs; at an offset, every one of the JAX jobs on the paged layout and
-    their group-1 entries on the dense one (where the port dispatches an
-    offset only for a long prompt's windows); a first-token sampling per
-    group and tier; none in mixed mode."""
-    kwargs = dict(decode_chunk=8, admission_chunk=admission_chunk)
+    prefill lattice too: every (bucket, group) of the JAX prefill jobs,
+    cold and at an offset; a first-token sampling per group and tier;
+    none in mixed mode. And the KV copies: the dense prefix copy at every
+    bucket, the paged block copy."""
+    kwargs = dict(decode_chunk=8, admission_chunk=admission_chunk, prefix_cache=True)
     if layout == "paged":
         kwargs.update(PAGED)
     if layout == "mixed":
@@ -169,8 +168,9 @@ def test_variant_keys_cover_jax_variant_jobs(weights, layout, admission_chunk):
                         for bucket, fn in reference._prefill_offset_fns.items()})
     # (kind, bucket, group): the group is the rows of the tokens argument
     want_prefill = {(*prefill_fns[id(fn)], args[2].shape[0]) for fn, args in jobs if id(fn) in prefill_fns}
-    if layout == "dense":
-        want_prefill = {job for job in want_prefill if job[0] == "prefill" or job[2] == 1}
+    want_copies = {Variant("copy", bucket) for bucket, fn in reference._copy_fns.items() if id(fn) in ids}
+    if id(reference._block_copy_fn) in ids:
+        want_copies.add(Variant("block_copy", 0))
     groups = {group for _, _, group in want_prefill}
     keys = ported._variant_keys()
     assert len(keys) == len(set(keys))
@@ -181,13 +181,15 @@ def test_variant_keys_cover_jax_variant_jobs(weights, layout, admission_chunk):
                          for kind, sizes in (("decode", want_steps), ("mixed", want_widths))
                          for size in sizes for tier in TIERS} | {
         Variant(kind, bucket, "", group) for kind, bucket, group in want_prefill} | {
-        Variant("first_token", 0, tier, group) for group in groups for tier in TIERS}
+        Variant("first_token", 0, tier, group) for group in groups for tier in TIERS} | want_copies
     assert want_steps == ({8, 1} | ({admission_chunk} if admission_chunk == 2 else set()))
     assert bool(want_widths) == (layout == "mixed")
     assert groups == (set() if layout == "mixed" else {1, 2})
     assert {(kind, bucket) for kind, bucket, group in want_prefill if group == 2} == (
-        set() if layout == "mixed" else {("prefill", 16), ("prefill", 32)}
-        | ({("prefill_offset", 16), ("prefill_offset", 32)} if layout == "paged" else set()))
+        set() if layout == "mixed" else {("prefill", 16), ("prefill", 32), ("prefill_offset", 16),
+                                         ("prefill_offset", 32)})
+    assert want_copies == ({Variant("copy", 16), Variant("copy", 32)} if layout == "dense"
+                           else {Variant("block_copy", 0)})
     ported.stop()
     reference.stop()
 
@@ -299,7 +301,7 @@ def test_precompile_leaves_state_and_streams_alone(weights, config):
         prefill = {kind: stats["captured"] for kind, stats in eng.steps.stats["kinds"].items()
                    if kind in engine.PREFILL_KINDS}
         assert prefill == ({} if eng.mixed else {
-            "prefill": 4, "prefill_offset": 4 if eng.paged else 2, "first_token": 6})
+            "prefill": 4, "prefill_offset": 4, "first_token": 6})
         assert eng.precompile_s is not None
         for name, leaf in eng.cache.items():
             live = slice(1, None) if eng.paged else slice(None)  # block 0: the null block
@@ -435,13 +437,14 @@ def test_device_launch_counts_name_every_kernel_and_read_zero_unloaded():
 def test_device_launch_counters_match_each_library_and_shapes_read_zero():
     """Each library's list of forms is as long as its ``csrc`` counter
     array (the read copies that many counters into it), and the
-    prefill-shape counters of B3 and B6 read as 0 with ``shapes``, apart
-    from the eight kernels' names."""
+    prefill-shape and verify counters of B3 and B6 read as 0 with
+    ``shapes``, apart from the eight kernels' names."""
     csrc = Path(launches.__file__).resolve().parent.parent / "csrc"
     for library, forms in launches.FORMS.items():
         source = (csrc / f"{library}.cu").read_text()
         assert f"constexpr int FORMS = {len(forms)};" in source, library
-    assert launches.SHAPES == ("paged_attention/prefill", "paged_attention_quant/prefill")
+    assert launches.SHAPES == ("paged_attention/prefill", "paged_attention_quant/prefill",
+                               "paged_attention/verify", "paged_attention_quant/verify")
     assert not set(launches.SHAPES) & set(launches.KERNEL_NAMES)
     names = launches.KERNEL_NAMES + launches.SHAPES
     assert launches.read(shapes=True) == dict.fromkeys(names, 0)

@@ -120,7 +120,7 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError):
         model.init_params(moe)
     with pytest.raises(NotImplementedError):
-        model.verify_step()
+        model.verify_step(moe, {}, {}, None, None, None, None)
 
 
 def _assert_int8_cache(cache, shape):

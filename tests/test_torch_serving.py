@@ -273,10 +273,8 @@ def test_provider_refuses_int8_weights():
 # honours and the port does not serve yet: (where, key, value)
 UNPORTED = [
     ("engine", "kv-host-blocks", 64),
-    ("engine", "spec-decode", "ngram"),
-    ("engine", "spec-k", 6),
-    ("engine", "spec-ngram", 3),
     ("engine", "logprobs-top-k", 5),
+    ("engine", "watchdog", "on"),
     ("engine", "queue-timeout-s", 1.5),
     ("engine", "max-restarts", 5),
     ("engine", "restart-window-s", 60),
@@ -286,7 +284,7 @@ UNPORTED = [
 # the JAX defaults, spelled out: served
 DEFAULTS = {
     "engine": {"kv-host-blocks": 0, "spec-decode": "off", "spec-k": 4, "spec-ngram": 2,
-               "pipeline-decode": "", "admission-chunk": None, "logprobs-top-k": 0,
+               "watchdog": "false", "pipeline-decode": "", "admission-chunk": None, "logprobs-top-k": 0,
                "queue-timeout-s": None, "precompile": "false", "max-restarts": 3,
                "restart-window-s": 600, "max-slots": 2},
     "slo": {"ttft-ms-p95": 0},
