@@ -59,7 +59,11 @@ Phases (any failure propagates and the exit code is not 0):
    another request's prefix (dense: a cross-slot copy; paged: a
    prefix-cache hit), their last-token logits against a cold prefill of
    the same prompt; a verify block of 1 + 4 tokens against five decode
-   steps. And the graph pool of the 2-layer 32 × 1024 lattice without
+   steps; top-K logprobs (K 5) on each engine path (dense, paged, mixed,
+   the verify block dense and paged): an engine on the card against its
+   twin on the CPU, three greedy requests, ids and logprobs compared
+   while the streams agree (an id that differs must be a near-tie). And
+   the graph pool of the 2-layer 32 × 1024 lattice without
    and with this slice's variants (dense prefill at an offset at every
    group, the prefix copies), and of a spec engine.
 4. Dense serving: Llama-3-8B (bf16, random weights from seed 0) behind
@@ -133,6 +137,21 @@ Phases (any failure propagates and the exit code is not 0):
    accepted; dense: no decode-kernel launch (verify attends in plain
    PyTorch); paged: B3 (B6) once per layer per model call, its verify
    launches by the card's own counter once per layer per verify step.
+9. Checkpoint: the random weights of phase 4 (``init_params`` of
+   Llama-3-8B, seed 0, drawn on the card) written as a HF Llama directory
+   (``config.json``, safetensors shards and their index) under ``build/``
+   by this script's own writer (so the script needs no ``safetensors``
+   package), after checking the disk holds it; read back with
+   ``weights.load_safetensors_checkpoint``: every leaf equal bit for bit,
+   ``quantize_params`` equal; the write and load seconds and the loading
+   peak printed. Then ``serve --checkpoint DIR --logprobs-top-k 5
+   --precompile`` answers phase 4's dense burst with half the chats
+   asking ``top_logprobs: 5`` and a text completion the legacy
+   ``logprobs: 3``: every request answered, B1 and B2 once per layer per
+   model call, every alternatives list sorted and at most 0 with the
+   greedy token first and its own logprob; tok/s, TTFT, load seconds and
+   peak beside phase 4's, and the streams equal to phase 4's (printed,
+   not gated). The directory is removed at the end.
 
 The line before the last holds the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -145,6 +164,8 @@ import gc
 import json
 import os
 import re
+import shutil
+import struct
 import subprocess
 import sys
 import time
@@ -152,16 +173,12 @@ import urllib.request
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-if not torch.cuda.is_available():
-    sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
-
-import torch.nn.functional as F  # noqa: E402
-
-from langstream_tpu_torch.cli.main import build_parser, serve_config, start_server  # noqa: E402
-from langstream_tpu_torch.ops import _build  # noqa: E402
-from langstream_tpu_torch.ops import launches as launches_lib  # noqa: E402
-from langstream_tpu_torch.ops.attention import (  # noqa: E402
+from langstream_tpu_torch.cli.main import build_parser, serve_config, start_server
+from langstream_tpu_torch.ops import _build
+from langstream_tpu_torch.ops import launches as launches_lib
+from langstream_tpu_torch.ops.attention import (
     chunk_attention_quant,
     decode_attention,
     decode_attention_quant,
@@ -175,26 +192,30 @@ from langstream_tpu_torch.ops.attention import (  # noqa: E402
     prefill_attention,
     quantize_kv,
 )
-from langstream_tpu_torch.ops.decode_kernel import (  # noqa: E402
+from langstream_tpu_torch.ops.decode_kernel import (
     flash_decode_attention,
     flash_decode_attention_quant,
 )
-from langstream_tpu_torch.ops.flash_attention import (  # noqa: E402
+from langstream_tpu_torch.ops.flash_attention import (
     flash_prefill_attention,
     flash_prefill_attention_quant,
 )
-from langstream_tpu_torch.ops.paged_attention import (  # noqa: E402
+from langstream_tpu_torch.ops.paged_attention import (
     block_bounds,
     ragged_paged_attention,
     ragged_paged_attention_quant,
     ragged_q_paged_attention,
     ragged_q_paged_attention_quant,
 )
-from langstream_tpu_torch.providers.torch_local import engine as engine_lib  # noqa: E402
-from langstream_tpu_torch.providers.torch_local import model  # noqa: E402
-from langstream_tpu_torch.providers.torch_local.engine import long_prefill_windows  # noqa: E402
-from langstream_tpu_torch.providers.torch_local.graphs import capture  # noqa: E402
-from langstream_tpu_torch.providers.torch_local.quant import QTensor, quantize_params  # noqa: E402
+from langstream_tpu_torch.providers.torch_local import engine as engine_lib
+from langstream_tpu_torch.providers.torch_local import model
+from langstream_tpu_torch.providers.torch_local.engine import long_prefill_windows
+from langstream_tpu_torch.providers.torch_local.graphs import capture
+from langstream_tpu_torch.providers.torch_local.quant import (
+    QUANTIZED_PARAMS,
+    QTensor,
+    quantize_params,
+)
 
 # H100 SXM published peaks (dense bf16 tensor cores, HBM3)
 PEAK_BF16_FLOPS = 989e12
@@ -296,6 +317,105 @@ def entry(name, worst_abs, kernel_ms, plain_ms, bound_ms, bound_by, library_ms) 
         "replaces": f"langstream_tpu/ops/{replaces}", "max_abs_err": worst_abs, "ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
     }
+
+
+# ---------------------------------------------------------------------- #
+# a HuggingFace checkpoint of the port's params, written without the
+# safetensors package: the script needs only torch and numpy
+# ---------------------------------------------------------------------- #
+SAFETENSORS_NAMES = {torch.bfloat16: "BF16", torch.float16: "F16", torch.float32: "F32"}
+
+
+def hf_tensors(config, params):
+    """(HF name, tensor) of the port's params in a HF Llama (Qwen-2 with
+    biases) checkpoint's layout: each layer's ``[in, out]`` matrix as the
+    ``[out, in]`` view HF stores, norms and biases as they are. Views
+    only: nothing is copied until the writer writes it."""
+    if config.post_norms or config.num_experts:
+        raise ValueError("the writer writes the Llama and Qwen-2 layouts only")
+    yield "model.embed_tokens.weight", params["embedding"]
+    for i in range(config.num_layers):
+        p = f"model.layers.{i}."
+        for leaf, name in (("wq", "self_attn.q_proj"), ("wk", "self_attn.k_proj"),
+                           ("wv", "self_attn.v_proj"), ("wo", "self_attn.o_proj"),
+                           ("w_gate", "mlp.gate_proj"), ("w_up", "mlp.up_proj"),
+                           ("w_down", "mlp.down_proj")):
+            yield p + name + ".weight", params[leaf][i].t()
+        if config.qkv_bias:
+            for leaf, name in (("bq", "q_proj"), ("bk", "k_proj"), ("bv", "v_proj")):
+                yield p + f"self_attn.{name}.bias", params[leaf][i]
+        yield p + "input_layernorm.weight", params["attn_norm"][i]
+        yield p + "post_attention_layernorm.weight", params["mlp_norm"][i]
+    yield "model.norm.weight", params["final_norm"]
+    if not config.tie_embeddings:
+        yield "lm_head.weight", params["lm_head"].t()
+
+
+def write_safetensors(path, tensors) -> int:
+    """One safetensors file of ``tensors`` ((name, tensor) pairs, on any
+    device): the 8-byte little-endian length of a JSON header giving each
+    tensor's dtype, shape and byte range from the header's end (padded
+    with spaces to 8 bytes, as the package pads it), then each tensor's
+    bytes in order, copied to the host one at a time. Returns the bytes
+    written."""
+    header, offset = {"__metadata__": {"format": "pt"}}, 0
+    for name, tensor in tensors:
+        nbytes = tensor.numel() * tensor.element_size()
+        header[name] = {"dtype": SAFETENSORS_NAMES[tensor.dtype], "shape": list(tensor.shape),
+                        "data_offsets": [offset, offset + nbytes]}
+        offset += nbytes
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as fh:
+        fh.write(struct.pack("<Q", len(raw)))
+        fh.write(raw)
+        for _, tensor in tensors:
+            host = tensor.contiguous().cpu()
+            fh.write(memoryview(host.view(torch.uint8).numpy()))
+            del host
+    return 8 + len(raw) + offset
+
+
+def write_hf_checkpoint(path, config, params, max_shard_bytes: int = 5 * 10**9) -> int:
+    """A HF Llama (Qwen-2) model directory of ``params``: ``config.json``,
+    shards of at most ``max_shard_bytes`` of tensor data each, named as
+    ``save_pretrained`` names them, and the index mapping every tensor to
+    its shard. Returns the bytes of the shards."""
+    os.makedirs(path, exist_ok=True)
+    hf = {
+        "architectures": ["Qwen2ForCausalLM" if config.qkv_bias else "LlamaForCausalLM"],
+        "model_type": "qwen2" if config.qkv_bias else "llama",
+        "vocab_size": config.vocab_size, "hidden_size": config.hidden_size,
+        "intermediate_size": config.intermediate_size, "num_hidden_layers": config.num_layers,
+        "num_attention_heads": config.num_heads, "num_key_value_heads": config.num_kv_heads,
+        "rope_theta": config.rope_theta, "rms_norm_eps": config.norm_eps,
+        "max_position_embeddings": config.max_seq_len,
+        "tie_word_embeddings": config.tie_embeddings, "torch_dtype": str(config.dtype)[6:],
+    }
+    if config.head_dim:
+        hf["head_dim"] = config.head_dim
+    if config.rope_scaling:
+        kind, factor, low, high, original = config.rope_scaling
+        hf["rope_scaling"] = {"rope_type": kind, "factor": factor, "low_freq_factor": low,
+                              "high_freq_factor": high, "original_max_position_embeddings": original}
+    with open(os.path.join(path, "config.json"), "w") as fh:
+        json.dump(hf, fh, indent=2)
+    shards, size = [[]], 0
+    for name, tensor in hf_tensors(config, params):
+        nbytes = tensor.numel() * tensor.element_size()
+        if shards[-1] and size + nbytes > max_shard_bytes:
+            shards.append([])
+            size = 0
+        shards[-1].append((name, tensor))
+        size += nbytes
+    weight_map, written = {}, 0
+    for number, shard in enumerate(shards, 1):
+        fname = f"model-{number:05d}-of-{len(shards):05d}.safetensors"
+        written += write_safetensors(os.path.join(path, fname), shard)
+        weight_map.update(dict.fromkeys((name for name, _ in shard), fname))
+    with open(os.path.join(path, "model.safetensors.index.json"), "w") as fh:
+        json.dump({"metadata": {"total_size": written}, "weight_map": weight_map}, fh, indent=2)
+    return written
 
 
 def _demangle(symbols):
@@ -1367,6 +1487,113 @@ def check_graph_pool(device) -> None:
         f"{pools['ngram'][0]:.3f} GiB ({pools['ngram'][1]} variants, captured in {pools['ngram'][2]:.1f} s)")
 
 
+# the paths of the top-K check: engine keys of each
+TOPK_PATHS = {
+    "dense": {},
+    "paged": dict(kv_layout="paged", kv_block_size=16),
+    "mixed": dict(kv_layout="paged", kv_block_size=16, prefill_mode="mixed", prefill_chunk=32),
+    "verify dense": dict(spec_decode="ngram", spec_k=4),
+    "verify paged": dict(kv_layout="paged", kv_block_size=16, spec_decode="ngram", spec_k=4),
+}
+
+
+def _serve_engine(eng, requests):
+    """Every (prompt, new tokens) request submitted with the engine
+    thread stopped, greedy, then run to its end; the results."""
+    futures = []
+    for prompt, new_tokens in requests:
+        future = concurrent.futures.Future()
+        eng.submit(engine_lib.GenerationRequest(
+            prompt_tokens=prompt, sampling=engine_lib.SamplingParams(max_new_tokens=new_tokens),
+            future=future))
+        futures.append(future)
+    try:
+        eng.start()
+        return [future.result(timeout=600) for future in futures]
+    finally:
+        eng.stop()
+
+
+def compare_tops(card, cpu, tolerance: float):
+    """The card's greedy results against the CPU's, token by token while
+    their streams agree (up to and including the first token where they
+    part: a near-tie the two devices' bf16 sums break differently; every
+    step up to there saw the same tokens). Logprobs by rank within
+    ``tolerance`` of max |CPU logprob|; ids equal, or, where the two
+    devices rank differently, a near-tie: the card's id scores within the
+    tolerance of the CPU's value at that rank on the CPU too (below the
+    CPU's K-th value when it is not in the CPU's list). On each device the
+    sampled token ranks first with its own logprob. Returns (positions,
+    ids equal, ids, worst relative logprob error, worst absolute)."""
+    positions = equal = total = 0
+    worst_rel = worst_abs = 0.0
+    for mine, ref in zip(card, cpu):
+        assert mine.top_logprobs is not None and len(mine.top_logprobs) == len(mine.tokens)
+        for j, ((ids, lps), (ref_ids, ref_lps)) in enumerate(zip(mine.top_logprobs, ref.top_logprobs)):
+            for result, k in ((mine, ids), (ref, ref_ids)):
+                assert k[0] == result.tokens[j], (j, k, result.tokens[j])
+            assert ids[0] == mine.tokens[j] and abs(lps[0] - mine.logprobs[j]) <= 1e-5, (j, ids, lps)
+            assert lps == sorted(lps, reverse=True) and lps[0] <= 0 and len(set(ids)) == len(ids)
+            a, b = np.asarray(lps), np.asarray(ref_lps)
+            scale = float(np.abs(b).max())
+            diff = float(np.abs(a - b).max())
+            worst_abs, worst_rel = max(worst_abs, diff), max(worst_rel, diff / scale)
+            bound = tolerance * scale
+            for rank, (got, want) in enumerate(zip(ids, ref_ids)):
+                total += 1
+                if got == want:
+                    equal += 1
+                    continue
+                if got in ref_ids:
+                    assert abs(ref_lps[ref_ids.index(got)] - lps[rank]) <= bound, (j, ids, ref_ids)
+                else:
+                    assert ref_lps[-1] >= lps[rank] - bound, (j, ids, lps, ref_ids, ref_lps)
+            positions += 1
+            if mine.tokens[j] != ref.tokens[j]:
+                break
+    assert worst_rel < tolerance, f"top-K logprobs on the card vs the CPU: {worst_rel}"
+    return positions, equal, total, worst_rel, worst_abs
+
+
+def check_top_logprobs(device, kv_quant: bool = False, config=None, layers: int = 2) -> None:
+    """Top-K logprobs on each engine path at Llama-3-8B width cut to 2
+    layers, over the bf16 or the int8 cache: an engine with
+    ``logprobs_topk=5`` on the card (graph replays of the decode chunk,
+    the mixed step, the spec chunk and the first-token sampling; B1/B2,
+    B3, B7/B3, the verify block, and their int8 twins) against its twin
+    on the CPU over the same weights, three greedy requests (one of them
+    repeating, so the drafter drafts): :func:`compare_tops`."""
+    config = dataclasses.replace(config or model.LlamaConfig.llama3_8b(max_seq_len=256),
+                                 num_layers=layers)
+    params = model.init_params(config, seed=7, device=device)
+    cpu_params = {name: p.cpu() for name, p in params.items()}
+    rng = np.random.default_rng(23)
+    vocab = config.vocab_size
+    requests = [(rng.integers(0, vocab, size=20).tolist(), 6),
+                (rng.integers(0, vocab, size=12).tolist(), 6),
+                (rng.integers(0, vocab, size=6).tolist() * 5, 8)]
+    args = dict(max_slots=4, max_seq_len=256, prefill_buckets=[32], decode_chunk=4,
+                logprobs_topk=5, kv_quant="int8" if kv_quant else None, seed=0)
+    lines, started = [], time.perf_counter()
+    for path, keys in TOPK_PATHS.items():
+        card = _serve_engine(engine_lib.DecodeEngine(config, params, device=device, **args, **keys),
+                             requests)
+        cpu = _serve_engine(engine_lib.DecodeEngine(config, cpu_params, device="cpu", **args, **keys),
+                            requests)
+        positions, equal, total, rel, worst = compare_tops(card, cpu, MODEL_TOLERANCE)
+        same = sum(a.tokens == b.tokens for a, b in zip(card, cpu))
+        # the engines hold reference cycles (their thread, the runner's
+        # bodies): collect them so the serving phases find the card empty
+        gc.collect()
+        torch.cuda.empty_cache()
+        lines.append(f"{path} {positions} positions, ids {equal}/{total} equal, max_rel_err {rel:.3e} "
+                     f"(max abs {worst:.3e}), streams equal {same}/{len(requests)}")
+    log(f"top-K logprobs (K 5, {'int8' if kv_quant else 'bf16'} KV, Llama-3-8B width, {layers} layers), "
+        f"card engine vs CPU engine, greedy, compared while the streams agree: " + "; ".join(lines)
+        + f" (tol {MODEL_TOLERANCE}; a differing id must be a near-tie within it); "
+        f"{time.perf_counter() - started:.1f}s")
+
+
 def _bare_step(step, iters: int = 5) -> dict:
     """Wall and host-enqueue ms of ``step`` eager and as a CUDA graph of
     it replayed, and the graph's device ms: replays timed as
@@ -1538,7 +1765,8 @@ def start_llama_server(*extra: str, kv_quant: bool = False, graphs: bool = True,
         f"{''.join(f' {key}: {value}' for key, value in (engine_config or {}).items())}"
         f"{f' at {layers} layers' if layers else ''}"
         f"{'' if graphs else ' EAGER (step_graphs=False)'}: Llama-3-8B "
-        f"{args.quantization or 'bf16'} random weights up in {time.perf_counter() - t0:.1f}s, "
+        f"{args.quantization or 'bf16'} {'checkpoint' if args.checkpoint else 'random'} weights up in "
+        f"{time.perf_counter() - t0:.1f}s (weights {service.load_s:.1f}s), "
         f"precompile {engine.precompile_s:.2f}s ({steps} step variants {how} in {step_s:.2f}s; "
         f"{prefill} prefill variants {how} in {prefill_s:.2f}s, by kind "
         f"{ {kind: kinds[kind]['captured'] for kind in engine_lib.PREFILL_KINDS if kind in kinds} }; "
@@ -1679,6 +1907,26 @@ def report(label, kind, jobs, wall, tokens, stats, launches, host, peak_gib) -> 
     assert requests == len(jobs), (requests, len(jobs))
 
 
+def dense_jobs(rng):
+    """The dense burst: 8 chats and 8 text completions of 32-62 tokens
+    (every fourth sampled with a seed, the rest greedy), then one SSE
+    chat."""
+    jobs = []
+    for i in range(16):
+        body = {"max_tokens": int(32 + 2 * i)}
+        if i % 4 == 3:
+            body.update(temperature=0.8, top_p=0.9, seed=i)
+        if i % 2 == 0:
+            jobs.append(("/v1/chat/completions", dict(
+                body, messages=[{"role": "user", "content": prompt_text(rng, 100 + 12 * i)}])))
+        else:
+            jobs.append(("/v1/completions", dict(body, prompt=prompt_text(rng, 100 + 12 * i))))
+    jobs.append(("/v1/chat/completions", {
+        "messages": [{"role": "user", "content": prompt_text(rng, 180)}],
+        "max_tokens": 48, "stream": True}))
+    return jobs
+
+
 def serve_dense_and_check(label: str, kv_quant: bool = False, extra=(), graphs: bool = True,
                           join: bool = True, layers=None) -> dict:
     """The dense burst through ``serve`` with ``extra`` flags (pipelined
@@ -1693,19 +1941,7 @@ def serve_dense_and_check(label: str, kv_quant: bool = False, extra=(), graphs: 
     service, server = start_llama_server(*extra, kv_quant=kv_quant, graphs=graphs, layers=layers)
     service.engine.join_prefills = join  # before any request reaches the engine
     rng = np.random.default_rng(0)
-    jobs = []
-    for i in range(16):
-        body = {"max_tokens": int(32 + 2 * i)}
-        if i % 4 == 3:
-            body.update(temperature=0.8, top_p=0.9, seed=i)
-        if i % 2 == 0:
-            jobs.append(("/v1/chat/completions", dict(
-                body, messages=[{"role": "user", "content": prompt_text(rng, 100 + 12 * i)}])))
-        else:
-            jobs.append(("/v1/completions", dict(body, prompt=prompt_text(rng, 100 + 12 * i))))
-    jobs.append(("/v1/chat/completions", {
-        "messages": [{"role": "user", "content": prompt_text(rng, 180)}],
-        "max_tokens": 48, "stream": True}))
+    jobs = dense_jobs(rng)
     # then 31 text completions and one SSE chat, all of 64 tokens: with
     # equal budgets every rider keeps two chunks of budget long enough for
     # the pipelined engine to chain (the burst above, of 32-62 tokens,
@@ -1751,6 +1987,7 @@ def serve_dense_and_check(label: str, kv_quant: bool = False, extra=(), graphs: 
     else:
         assert chained == 0, (stats, uniform_stats)
     return dict(launches, timing=timing, peak_gib=peak_gib, tok_s=tokens / wall,
+                load_s=service.load_s, texts=_answered(jobs[:-1], replies[:-1])[1],
                 uniform_tok_s=uniform_tokens / uniform_wall,
                 ttft_ms=stats["ttft_time"] / stats["requests"] * 1e3,
                 uniform_ttft_ms=uniform_stats["ttft_time"] / uniform_stats["requests"] * 1e3)
@@ -1989,6 +2226,146 @@ def serve_spec_and_check(label: str, paged: bool = False, spec: bool = True, kv_
                 ttft_ms=stats["ttft_time"] / stats["requests"] * 1e3)
 
 
+CHECKPOINT_DIR = os.path.join("build", "llama3-8b-checkpoint")
+
+
+def check_checkpoint(device, path: str = CHECKPOINT_DIR) -> dict:
+    """The checkpoint gate: ``init_params(llama3_8b, seed=0)`` drawn on
+    the card as the provider draws it, written as a HF Llama directory
+    (``config.json``, 5 GB shards and their index) by
+    :func:`write_hf_checkpoint`, loaded back with
+    ``weights.load_safetensors_checkpoint``: its config equal to the
+    drawn one, every leaf equal bit for bit, and ``quantize_params`` of
+    each loaded matrix equal to that of the drawn one. Raises when the
+    disk cannot hold the files. Returns the write and load seconds and
+    the loading peak."""
+    from langstream_tpu_torch.providers.torch_local import weights
+
+    config = model.LlamaConfig.llama3_8b()
+    needed = int(config.num_params() * 2 * 1.05)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    free = shutil.disk_usage(os.path.dirname(path)).free
+    if free < needed:
+        raise RuntimeError(f"the checkpoint gate needs {needed / 1e9:.1f} GB of disk under "
+                           f"{os.path.dirname(path)}, {free / 1e9:.1f} GB are free")
+    drawn = model.init_params(config, seed=0, device=device)
+    started = time.perf_counter()
+    written = write_hf_checkpoint(path, config, drawn)
+    write_s = time.perf_counter() - started
+    shards = sorted(f for f in os.listdir(path) if f.endswith(".safetensors"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    started = time.perf_counter()
+    loaded_config, loaded = weights.load_safetensors_checkpoint(path, device=device)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - started
+    peak = torch.cuda.max_memory_allocated()
+    assert loaded_config == config, (loaded_config, config)
+    assert sorted(loaded) == sorted(drawn), (sorted(loaded), sorted(drawn))
+    for name, leaf in drawn.items():
+        assert loaded[name].dtype == leaf.dtype and torch.equal(loaded[name], leaf), name
+    for name in QUANTIZED_PARAMS:  # one matrix at a time: the int8 twins of both
+        mine = quantize_params({name: loaded[name]})[name]
+        theirs = quantize_params({name: drawn[name]})[name]
+        assert torch.equal(mine.q, theirs.q) and torch.equal(mine.scale, theirs.scale), name
+        del mine, theirs
+    gib = 2**30
+    result = dict(write_s=write_s, load_s=load_s, bytes=written, shards=len(shards),
+                  load_peak_gib=peak / gib, load_added_gib=(peak - held) / gib)
+    log(f"checkpoint gate: Llama-3-8B bf16 (init_params seed 0 on the card) written as a HF Llama "
+        f"directory of {len(shards)} safetensors shards, {written / 1e9:.2f} GB in {write_s:.1f}s "
+        f"({written / write_s / 1e9:.2f} GB/s), loaded with weights.load_safetensors_checkpoint in "
+        f"{load_s:.1f}s ({written / load_s / 1e9:.2f} GB/s): config equal, {len(drawn)} leaves equal "
+        f"bit for bit, quantize_params equal; loading peak {peak / gib:.2f} GiB allocated "
+        f"({held / gib:.2f} GiB of it the drawn params, {(peak - held) / gib:.2f} GiB the load)")
+    del drawn, loaded
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
+def serve_checkpoint_and_check(label: str, path: str, random_run: dict, gate: dict) -> None:
+    """The checkpoint phase: ``serve --checkpoint DIR --logprobs-top-k 5
+    --precompile`` (dense bf16, pipelined) over the gate's directory,
+    answering the dense phase's burst, with half the chats asking
+    ``logprobs: true, top_logprobs: 5`` and one text completion the
+    legacy ``logprobs: 3``. Gates: every request answered, B1 and B2 once
+    per layer per model call and no other kernel (:func:`_kernel_gates`);
+    every alternatives list of the replies sorted, at most 0, its first
+    the greedy token's own logprob; in the engine's results (read through
+    a wrapper on its ``generate``) every greedy token ranked first, and
+    each token's logprob equal to its own entry wherever it appears.
+    Prints tok/s, mean TTFT, the weights' load seconds and the served
+    peak beside the random-weight dense phase's, and (not gated: prefill
+    groups depend on arrival timing, and cuBLAS may pick another kernel
+    for another M) how many streams equal that phase's."""
+    service, server = start_llama_server("--checkpoint", path, "--logprobs-top-k", "5")
+    assert service.engine.logprobs_topk == 5 and service.top_logprobs_limit == 5
+    rng = np.random.default_rng(0)
+    jobs = dense_jobs(rng)  # the random-weight dense phase's jobs
+    for i, (route, body) in enumerate(jobs[:-1]):
+        if route.endswith("chat/completions") and i % 4 == 0:
+            body.update(logprobs=True, top_logprobs=5)
+    jobs[1][1]["logprobs"] = 3
+    results = []
+    generate = service.engine.generate
+
+    async def recorded(prompt_tokens, sampling_params, **kwargs):
+        result = await generate(prompt_tokens, sampling_params, **kwargs)
+        results.append((sampling_params, result))
+        return result
+
+    service.engine.generate = recorded
+    try:
+        replies, wall, launches, host, stats, peak_gib = run_burst(service, server, jobs)
+    finally:
+        del service.engine.generate
+        server.stop()
+        service.engine.stop()
+    tokens = check_replies(jobs, replies)
+    _kernel_gates(stats, launches, host, paged=False, kv_quant=False)
+    report(label, "dense checkpoint --logprobs-top-k 5", jobs, wall, tokens, stats, launches, host,
+           peak_gib)
+    lists = 0
+    for (route, body), raw in zip(jobs[:-1], replies[:-1]):
+        if not body.get("logprobs"):
+            continue
+        block = json.loads(raw)["choices"][0]["logprobs"]
+        if route.endswith("chat/completions"):
+            for entry in block["content"]:
+                values = [top["logprob"] for top in entry["top_logprobs"]]
+                assert len(values) == 5 and values == sorted(values, reverse=True) and values[0] <= 0
+                assert abs(values[0] - entry["logprob"]) < 1e-4, entry  # greedy
+                lists += 1
+        else:
+            for row, logprob in zip(block["top_logprobs"], block["token_logprobs"]):
+                assert 0 < len(row) <= 3 and all(v <= 0 for v in row.values()), row
+                assert abs(max(row.values()) - logprob) < 1e-4, (row, logprob)  # greedy
+                lists += 1
+    assert lists > 0
+    ranked = 0
+    for sampling_params, result in results:
+        assert result.top_logprobs is not None and len(result.top_logprobs) == len(result.tokens)
+        for token, logprob, (ids, lps) in zip(result.tokens, result.logprobs, result.top_logprobs):
+            assert len(ids) == 5 and len(set(ids)) == 5 and lps == sorted(lps, reverse=True), (ids, lps)
+            if token in ids:
+                assert abs(lps[ids.index(token)] - logprob) <= 1e-5, (token, logprob, ids, lps)
+            if not sampling_params.temperature:
+                assert ids[0] == token, (token, ids, lps)  # argmax and top-K both take the lowest id
+                ranked += 1
+    _, texts = _answered(jobs[:-1], replies[:-1])
+    same = sum(a == b for a, b in zip(texts, random_run["texts"]))
+    log(f"checkpoint serving [{label}]: {tokens / wall:.1f} vs {random_run['tok_s']:.1f} tok/s (random-weight "
+        f"dense phase), mean TTFT {stats['ttft_time'] / stats['requests'] * 1e3:.1f} vs "
+        f"{random_run['ttft_ms']:.1f} ms, weights loaded in {service.load_s:.1f}s vs drawn in "
+        f"{random_run['load_s']:.1f}s, served peak {peak_gib:.2f} vs {random_run['peak_gib']:.2f} GiB "
+        f"(the gate's loading peak {gate['load_peak_gib']:.2f} GiB); {lists} alternatives lists in the "
+        f"replies checked, {ranked} greedy tokens ranked first of their top 5; {same}/{len(texts)} "
+        f"streams equal to the random-weight phase's (printed, not gated: the same weights, but "
+        f"prefill groups follow arrival timing)")
+
+
 def main() -> None:
     device = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -2011,6 +2388,7 @@ def main() -> None:
         check_prefill_graphs(device, kv_quant=kv_quant)
         check_reuse_logits(device, kv_quant=kv_quant)
         check_verify_model(device, kv_quant=kv_quant)
+        check_top_logprobs(device, kv_quant=kv_quant)
     check_mlp_slices(device)
     check_graph_pool(device)
     # each kernel's launches come from the serving phase of its own path;
@@ -2128,6 +2506,13 @@ def main() -> None:
         log(f"spec {kind} in turns with its spec-off twin: {on['tok_s']:.1f} vs {off['tok_s']:.1f} tok/s, "
             f"mean TTFT {on['ttft_ms']:.1f} vs {off['ttft_ms']:.1f} ms; {same}/16 greedy streams equal to "
             f"the twin's (printed, not gated: bf16 near-ties on random weights)")
+    # a real checkpoint's path: the provider's own weights written as a HF
+    # directory and read back, then served with top-K logprobs
+    try:
+        gate = check_checkpoint(device)
+        serve_checkpoint_and_check(label, CHECKPOINT_DIR, runs[pipelined, False][0], gate)
+    finally:
+        shutil.rmtree(CHECKPOINT_DIR, ignore_errors=True)
     for item in kernels:
         item["launches"] = launches[item["name"]]
         assert item["launches"] > 0, item
@@ -2141,4 +2526,6 @@ def main() -> None:
 
 
 if __name__ == "__main__":
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
     main()

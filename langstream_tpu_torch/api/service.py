@@ -8,7 +8,7 @@ package).
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,4 +39,7 @@ class ChatCompletionResult:
     # per-token text pieces + log-probabilities (OpenAI-style logprobs)
     tokens: Optional[List[str]] = None
     logprobs: Optional[List[float]] = None
+    # per-token top-K alternatives (OpenAI `top_logprobs`): one list of
+    # (token text, logprob) pairs per generated token
+    top_logprobs: Optional[List[List[Tuple[str, float]]]] = None
 

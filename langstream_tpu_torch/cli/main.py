@@ -7,6 +7,7 @@ import argparse
 import logging
 from typing import Any, Dict, List, Optional, Tuple
 
+from langstream_tpu_torch.providers.torch_local.model import LlamaConfig
 from langstream_tpu_torch.providers.torch_local.provider import TorchCompletionsService
 from langstream_tpu_torch.serving.openai_api import OpenAIApiServer
 
@@ -15,10 +16,17 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="python -m langstream_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
     serve = sub.add_parser("serve", help="OpenAI-compatible HTTP server on the GPU")
-    serve.add_argument("--model", default="tiny", help="model preset")
+    serve.add_argument("--model", default="tiny",
+                       help="model preset, or the served model's name with --checkpoint")
+    serve.add_argument("--checkpoint", default=None,
+                       help="HuggingFace model directory (safetensors or pytorch_model.bin); "
+                            "omit for random weights")
+    serve.add_argument("--tokenizer", default=None,
+                       help="HuggingFace tokenizer directory (needs the transformers package)")
     serve.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     serve.add_argument("--quantization", default=None, choices=["int8"],
-                       help="weight-only int8 weights (random, drawn in int8 on the device)")
+                       help="weight-only int8 weights (the checkpoint's, quantized on the "
+                            "device; without one, random, drawn in int8 on the device)")
     serve.add_argument("--max-slots", type=int, default=8)
     serve.add_argument("--max-seq-len", type=int, default=2048)
     serve.add_argument("--decode-chunk", type=int, default=16)
@@ -69,15 +77,23 @@ def build_parser() -> argparse.ArgumentParser:
     )
     serve.add_argument("--no-prefix-cache", action="store_true",
                        help="disable prompt-prefix KV reuse (on by default)")
+    serve.add_argument(
+        "--logprobs-top-k", type=int, default=0,
+        help="enable OpenAI top_logprobs up to K alternatives per token (static: "
+             "every step computes the top K; 0 = off)",
+    )
     serve.add_argument("--host", default="0.0.0.0")
     serve.add_argument("--port", type=int, default=8000)
     return parser
 
 
 def serve_config(args: argparse.Namespace) -> Dict[str, Any]:
-    """The provider config ``serve`` builds from its flags. Engine keys
-    without a flag (``kv-quant``, as in the JAX ``serve``) reach the
-    engine through this config, as they do from a deployment's."""
+    """The provider config ``serve`` builds from its flags, as the JAX
+    ``serve`` builds it. Engine keys without a flag (``kv-quant``, as in
+    the JAX ``serve``) reach the engine through this config, as they do
+    from a deployment's. With ``--checkpoint`` the checkpoint's config
+    gives the model, and a ``--model`` that is no preset is only the
+    served name."""
     config: Dict[str, Any] = {
         "model": {"preset": args.model, "max_seq_len": args.max_seq_len},
         "engine": {
@@ -95,8 +111,24 @@ def serve_config(args: argparse.Namespace) -> Dict[str, Any]:
             "pipeline-decode": not args.no_pipeline_decode,
             "admission-chunk": args.admission_chunk or "",
             "precompile": bool(args.precompile),
+            "logprobs-top-k": args.logprobs_top_k,
         },
     }
+    try:
+        LlamaConfig.from_dict({"preset": args.model})
+        known_preset = True
+    except KeyError:
+        known_preset = False
+    if args.checkpoint:
+        config["checkpoint"] = args.checkpoint
+        if not known_preset:
+            config["model"] = {}
+    elif not known_preset:
+        raise SystemExit(
+            f"unknown model preset {args.model!r} and no --checkpoint given; pass a preset "
+            "(tiny, llama-3-1b, llama-3-8b, llama-3-70b) or point --checkpoint at a model directory")
+    if args.tokenizer:
+        config["tokenizer"] = {"type": "hf", "path": args.tokenizer}
     if args.quantization:
         config["quantization"] = args.quantization
     return config
@@ -106,9 +138,9 @@ def start_server(
     args: argparse.Namespace, config: Optional[Dict[str, Any]] = None, *,
     step_graphs: bool = True,
 ) -> Tuple[TorchCompletionsService, OpenAIApiServer]:
-    """Build the service (random weights from seed 0) from ``config``
-    (default: :func:`serve_config` of ``args``) and start the server
-    thread; the caller owns stopping both. ``step_graphs=False`` serves
+    """Build the service (the checkpoint's weights, or random ones from
+    seed 0) from ``config`` (default: :func:`serve_config` of ``args``)
+    and start the server thread; the caller owns stopping both. ``step_graphs=False`` serves
     with eager dispatch, a control for measurements."""
     service = TorchCompletionsService(
         config or serve_config(args), device=args.device, step_graphs=step_graphs)

@@ -102,10 +102,16 @@ path over the paged one:
   token history on the card, verifies the ``1 + spec_k`` block in one
   model call and accepts 1 to ``spec_k + 1`` tokens a slot
   (``spec_decode.py``), one graph per (steps, tier), ``Variant("spec")``.
+- **Top-K logprobs** (``logprobs_topk`` K > 0, static per engine as in the
+  JAX engine, since it shapes every step's outputs): every sampling body
+  also returns the K largest raw logits' ids and logprobs
+  (:func:`sampling.top_logprobs`, ranked as ``lax.top_k`` ranks them) as
+  static outputs of its graph; they cross to the host in the same copy as
+  the tokens and land in ``GenerationResult.top_logprobs``.
 
 Not in this slice (ROADMAP.md): host KV tiers and handoffs, the replay of
-a resurrected session at harvest, top-K logprobs, the supervisor and the
-telemetry planes.
+a resurrected session at harvest, the supervisor and the telemetry
+planes.
 """
 
 from __future__ import annotations
@@ -185,6 +191,10 @@ class GenerationResult:
     finish_reason: str = "stop"
     # per-token log-probability under the untruncated distribution
     logprobs: List[float] = dataclasses.field(default_factory=list)
+    # per-token top-K alternatives (OpenAI `top_logprobs`): one (ids,
+    # logprobs) pair per generated token; None when the engine runs with
+    # logprobs_topk=0
+    top_logprobs: Optional[List[Tuple[List[int], List[float]]]] = None
 
 
 @dataclasses.dataclass
@@ -193,6 +203,7 @@ class _Slot:
     length: int = 0                 # valid cache length
     generated: Optional[List[int]] = None
     logprobs: Optional[List[float]] = None
+    tops: Optional[List[Tuple[List[int], List[float]]]] = None  # top-K
     history: Optional[List[int]] = None  # tokens in cache + the pending one
     epoch: int = 0                  # bumps on assign/finish
     blocks: Optional[List[int]] = None   # paged: the slot's reserved pool blocks
@@ -311,6 +322,9 @@ class DecodeEngine:
                                           # speculative decoding)
         spec_k: int = 4,                  # drafted tokens per decode step
         spec_ngram: int = 2,              # suffix n-gram the drafter matches
+        logprobs_topk: int = 0,           # top-K alternatives a token
+                                          # (OpenAI `top_logprobs`); static:
+                                          # it shapes every step's outputs
     ) -> None:
         self.device = resolve_device(device)
         self.config = config
@@ -346,6 +360,7 @@ class DecodeEngine:
         self.spec_ngram = max(1, int(spec_ngram))
         # tokens one decode step can emit a slot (the verify block's width)
         self.spec_block = self.spec_k + 1 if self.spec else 1
+        self.logprobs_topk = max(0, int(logprobs_topk))
         self.kv_layout = kv_layout
         self.paged = kv_layout == "paged"
         # mixed: admitting slots park at a prefill_pos watermark and every
@@ -1237,6 +1252,7 @@ class DecodeEngine:
         slot.request = request
         slot.generated = []
         slot.logprobs = []
+        slot.tops = [] if self.logprobs_topk else None
         slot.history = list(request.prompt_tokens)
         slot.session_id = None
         slot.length = len(request.prompt_tokens)
@@ -1344,6 +1360,32 @@ class DecodeEngine:
                                   stochastic=stochastic, truncated=truncated)
         return sampled, sampling.token_logprob(logits if raw is None else raw, sampled)
 
+    def _tops(self, logits: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """A sampling body's top-K outputs over its raw ``logits`` [...,
+        V]: ``top_ids`` int32 and ``top_lps`` f32 [..., K]; none with K 0."""
+        if not self.logprobs_topk:
+            return {}
+        ids, lps = sampling.top_logprobs(logits, self.logprobs_topk)
+        return {"top_ids": ids, "top_lps": lps}
+
+    @staticmethod
+    def _stack_tops(steps: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
+        """A chunk's per-step top-K outputs stacked on the step axis (1)."""
+        if not steps or not steps[0]:
+            return {}
+        return {name: torch.stack([step[name] for step in steps], dim=1) for name in steps[0]}
+
+    def _host_tops(self, outputs: Dict[str, torch.Tensor]) -> List[torch.Tensor]:
+        """The top-K outputs that ride a step's copy to the host."""
+        return [outputs["top_ids"], outputs["top_lps"]] if self.logprobs_topk else []
+
+    @staticmethod
+    def _top(tops: List[np.ndarray], *index) -> Optional[Tuple[List[int], List[float]]]:
+        """One token's (ids, logprobs) from the host copies, or None."""
+        if not tops:
+            return None
+        return tops[0][index].tolist(), tops[1][index].tolist()
+
     def _count_dispatch(self, name: str, calls: int = 1) -> None:
         dispatches = self.stats["model_dispatches"]
         dispatches[name] = dispatches.get(name, 0) + calls
@@ -1396,7 +1438,7 @@ class DecodeEngine:
         arrays, tier = self._first_token_arrays(requests)
         arrays.update(logits=logits, slot_ids=slot_ids, positions=positions)
         _, outputs = self.steps.run(Variant("first_token", 0, tier, len(requests)), arrays)
-        return self._to_host(outputs["tokens"], outputs["logprobs"])
+        return self._to_host(outputs["tokens"], outputs["logprobs"], *self._host_tops(outputs))
 
     def _prefill_batch(
         self, batch: List[Tuple[int, GenerationRequest]], bucket: int
@@ -1506,12 +1548,12 @@ class DecodeEngine:
             if not block and event is not None and not event.query():
                 return
             waited = time.perf_counter()
-            firsts, lps = self._from_host(record["out"])
+            firsts, lps, *tops = self._from_host(record["out"])
             self.stats["prefill_time"] += time.perf_counter() - waited
             self._prefill_inflight.pop(0)
             for row, (index, _) in enumerate(record["group"]):
                 self.slots[index].prefilling = False
-                self._emit_token(index, int(firsts[row]), float(lps[row]))
+                self._emit_token(index, int(firsts[row]), float(lps[row]), self._top(tops, row))
             block = every
 
     def _can_chain(self, inflight: Dict[str, Any]) -> bool:
@@ -1679,7 +1721,7 @@ class DecodeEngine:
             slots = x["slot_ids"]
             self._counts.index_fill_(0, slots, 0)
             self._counts.index_put_((slots, sampled), torch.ones_like(sampled, dtype=torch.int32))
-            return {"tokens": sampled, "logprobs": lps}
+            return {"tokens": sampled, "logprobs": lps, **self._tops(x["logits"])}
 
         return first
 
@@ -1691,7 +1733,7 @@ class DecodeEngine:
         def chunk(x: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
             tokens, lengths, active = x["tokens"], x["lengths"], x["active"]
             active_counts = active.to(torch.int32)[:, None]
-            out_tokens, out_lps = [], []
+            out_tokens, out_lps, out_tops = [], [], []
             for _ in range(steps):
                 if self.paged:
                     logits = model_lib.paged_decode_step(
@@ -1713,8 +1755,9 @@ class DecodeEngine:
                 tokens = sampled
                 out_tokens.append(sampled)
                 out_lps.append(lps)
+                out_tops.append(self._tops(logits))
             return {"tokens": torch.stack(out_tokens, dim=1), "logprobs": torch.stack(out_lps, dim=1),
-                    "final_tokens": tokens, "final_lengths": lengths}
+                    "final_tokens": tokens, "final_lengths": lengths, **self._stack_tops(out_tops)}
 
         return chunk
 
@@ -1735,7 +1778,7 @@ class DecodeEngine:
         def chunk(x: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
             tokens, lengths, active, history = x["tokens"], x["lengths"], x["active"], x["history"]
             rows = torch.arange(tokens.shape[0], device=tokens.device)
-            out_tokens, out_lps, out_valid, out_drafted = [], [], [], []
+            out_tokens, out_lps, out_valid, out_drafted, out_tops = [], [], [], [], []
             for _ in range(steps):
                 drafts, num = spec_lib.draft_ngram(history, lengths, active, ngram=self.spec_ngram, k=k)
                 block = torch.cat([tokens[:, None], drafts], dim=1)  # [S, 1 + k]
@@ -1751,6 +1794,8 @@ class DecodeEngine:
                 emitted, lps, valid = spec_lib.accept_block(
                     logits, block, num, self._counts, active, x, lengths,
                     stochastic=stochastic, truncated=truncated)
+                # each block position's alternatives under its raw logits
+                out_tops.append(self._tops(logits))
                 accepted = valid.sum(dim=1)  # [S] tokens emitted
                 # the emitted tokens extend the history at lengths ..
                 # lengths + accepted - 1; the rest go to a dropped column
@@ -1768,7 +1813,8 @@ class DecodeEngine:
                 out_drafted.append(num)
             return {"tokens": torch.stack(out_tokens, dim=1), "logprobs": torch.stack(out_lps, dim=1),
                     "valid": torch.stack(out_valid, dim=1), "drafted": torch.stack(out_drafted, dim=1),
-                    "final_tokens": tokens, "final_lengths": lengths, "final_history": history}
+                    "final_tokens": tokens, "final_lengths": lengths, "final_history": history,
+                    **self._stack_tops(out_tops)}
 
         return chunk
 
@@ -1823,7 +1869,7 @@ class DecodeEngine:
             sampled, lps = self._sample(adjusted, x, x["offsets"] + x["num_tokens"], tier, raw=logits)
             sampled = torch.where(sample_mask, sampled, torch.zeros_like(sampled))
             counts.scatter_add_(1, sampled[:, None], sample_mask.to(torch.int32)[:, None])
-            return {"sampled": sampled, "logprobs": lps}
+            return {"sampled": sampled, "logprobs": lps, **self._tops(logits)}
 
         return step
 
@@ -1921,6 +1967,7 @@ class DecodeEngine:
         host = [outputs["tokens"], outputs["logprobs"]]
         if self.spec:
             host += [outputs["valid"], outputs["drafted"]]
+        host += self._host_tops(outputs)
         return {
             "key": key,
             "out": self._to_host(*host),
@@ -2088,7 +2135,7 @@ class DecodeEngine:
             "chained": chained,
             "width": width,
             "plan": plan,
-            "out": self._to_host(outputs["sampled"], outputs["logprobs"]),
+            "out": self._to_host(outputs["sampled"], outputs["logprobs"], *self._host_tops(outputs)),
             "inputs": inputs,
             "outputs": outputs,
             "decode_mask": decode_mask,
@@ -2112,7 +2159,7 @@ class DecodeEngine:
         emits its first token, other rows emit nothing. A chained step's
         row whose request ended while the step was in flight is counted
         as a ``stale_row`` invalidation."""
-        sampled, lps = self._from_host(step["out"])
+        sampled, lps, *tops = self._from_host(step["out"])
         ended = time.perf_counter()
         busy = self._busy_since(step["started"], ended)
         self.stats["decode_steps"] += 1
@@ -2131,20 +2178,21 @@ class DecodeEngine:
                 continue
             if step["decode_mask"][i]:
                 slot.length += 1
-                self._emit_token(i, int(sampled[i]), float(lps[i]))
+                self._emit_token(i, int(sampled[i]), float(lps[i]), self._top(tops, i))
             elif i in step["plan"] and step["completes"][i]:
                 slot.prefilling = False
                 slot.prefill_pos = None
                 self.stats["warm_prefill_calls" if slot.prefill_reused else "prefill_calls"] += 1
                 self.stats["mixed_admit_time"] += ended - slot.prefill_t0
-                self._emit_token(i, int(sampled[i]), float(lps[i]))
+                self._emit_token(i, int(sampled[i]), float(lps[i]), self._top(tops, i))
         if stale_rows:
             self._note_carry_invalidation("stale_row", stale_rows)
 
     def _process_decode(self, chunk: Dict[str, Any]) -> None:
         if chunk.get("mixed"):
             return self._process_mixed(chunk)
-        out, lps, *spec = self._from_host(chunk["out"])
+        out, lps, *rest = self._from_host(chunk["out"])
+        spec, tops = (rest[:2], rest[2:]) if self.spec else ([], rest)
         steps, active = chunk["steps"], chunk["active"]
         self.stats["decode_steps"] += steps
         self.stats["decode_time"] += self._busy_since(chunk["started"], time.perf_counter())
@@ -2167,7 +2215,7 @@ class DecodeEngine:
                     break
                 if not spec:
                     slot.length += 1
-                    self._emit_token(i, int(out[i, j]), float(lps[i, j]))
+                    self._emit_token(i, int(out[i, j]), float(lps[i, j]), self._top(tops, i, j))
                     continue
                 # a True-prefix of the block; a stop inside it discards the
                 # rest as a stop inside a chunk does
@@ -2175,16 +2223,21 @@ class DecodeEngine:
                     if not valid[i, j, b] or not slot.active:
                         break
                     slot.length += 1
-                    self._emit_token(i, int(out[i, j, b]), float(lps[i, j, b]))
+                    self._emit_token(i, int(out[i, j, b]), float(lps[i, j, b]),
+                                     self._top(tops, i, j, b))
 
-    def _emit_token(self, index: int, token: int, logprob: float = 0.0) -> None:
-        """Record a newly generated token for a slot; finish if stopping."""
+    def _emit_token(self, index: int, token: int, logprob: float = 0.0,
+                    top: Optional[Tuple[List[int], List[float]]] = None) -> None:
+        """Record a newly generated token (with its top-K alternatives
+        when the engine keeps them) for a slot; finish if stopping."""
         slot = self.slots[index]
         request = slot.request
         if not slot.generated:
             request._first_token_ts = time.perf_counter()  # type: ignore[attr-defined]
         slot.generated.append(token)
         slot.logprobs.append(logprob)
+        if slot.tops is not None:
+            slot.tops.append(top if top is not None else ([], []))
         self.stats["tokens_generated"] += 1
         hit_stop = token in request.stop_tokens
         if not hit_stop:
@@ -2211,14 +2264,18 @@ class DecodeEngine:
         request = slot.request
         generated = list(slot.generated)
         logprobs = list(slot.logprobs)
+        tops = list(slot.tops) if slot.tops is not None else None
         if generated and generated[-1] in request.stop_tokens:
             generated = generated[:-1]
             logprobs = logprobs[:-1]
+            if tops is not None:
+                tops = tops[:-1]
         result = GenerationResult(
             tokens=generated,
             prompt_tokens=len(request.prompt_tokens),
             finish_reason=reason,
             logprobs=logprobs,
+            top_logprobs=tops,
         )
         self.stats["requests"] += 1
         submitted = getattr(request, "_submit_ts", None)
@@ -2230,6 +2287,7 @@ class DecodeEngine:
         slot.epoch += 1
         slot.generated = None
         slot.logprobs = None
+        slot.tops = None
         # keep only the history whose rows are IN the cache (the final
         # sampled token is never written)
         history = slot.history[: slot.length]

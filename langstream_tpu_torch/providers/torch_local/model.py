@@ -277,6 +277,58 @@ def normalize_rope_scaling(value: Any) -> Optional[Tuple]:
     return ("llama3", *(float(value[key]) for key in keys))
 
 
+def config_from_hf(hf_config: Any) -> LlamaConfig:
+    """The JAX package's ``model.config_from_hf``: a HuggingFace config
+    (an object with the ``config.json`` keys as attributes) → LlamaConfig.
+    Qwen-2 adds the q/k/v biases; Gemma-2 its softcaps, query scalar,
+    sliding window (even layers slide, odd layers full, checked against
+    ``layer_types``), sandwich norms and tanh-GELU; ``num_local_experts``
+    (Mixtral) becomes ``num_experts``."""
+    rope_scaling = normalize_rope_scaling(getattr(hf_config, "rope_scaling", None))
+    model_type = getattr(hf_config, "model_type", "")
+    gemma2 = model_type == "gemma2"
+    if gemma2:
+        layer_types = getattr(hf_config, "layer_types", None)
+        if layer_types is not None:
+            expected = [
+                "sliding_attention" if i % 2 == 0 else "full_attention"
+                for i in range(hf_config.num_hidden_layers)
+            ]
+            if list(layer_types) != expected:
+                raise ValueError(f"unsupported gemma2 layer_types pattern: {layer_types}")
+    family: Dict[str, Any] = {}
+    if model_type == "qwen2":
+        family = dict(qkv_bias=True)
+    if gemma2:
+        family = dict(
+            attn_logit_softcap=getattr(hf_config, "attn_logit_softcapping", None),
+            final_logit_softcap=getattr(hf_config, "final_logit_softcapping", None),
+            query_pre_attn_scalar=float(getattr(hf_config, "query_pre_attn_scalar", 0) or 0) or None,
+            sliding_window=getattr(hf_config, "sliding_window", 0) or 0,
+            norm_plus_one=True,
+            post_norms=True,
+            scale_embedding=True,
+            act="gelu_tanh",
+        )
+    return LlamaConfig(
+        vocab_size=hf_config.vocab_size,
+        hidden_size=hf_config.hidden_size,
+        intermediate_size=hf_config.intermediate_size,
+        num_layers=hf_config.num_hidden_layers,
+        num_heads=hf_config.num_attention_heads,
+        num_kv_heads=getattr(hf_config, "num_key_value_heads", hf_config.num_attention_heads),
+        head_dim=getattr(hf_config, "head_dim", None),
+        rope_theta=getattr(hf_config, "rope_theta", 10000.0),
+        norm_eps=hf_config.rms_norm_eps,
+        max_seq_len=hf_config.max_position_embeddings,
+        tie_embeddings=getattr(hf_config, "tie_word_embeddings", False),
+        num_experts=getattr(hf_config, "num_local_experts", 0) or 0,
+        num_experts_per_tok=getattr(hf_config, "num_experts_per_tok", 2),
+        rope_scaling=rope_scaling,
+        **family,
+    )
+
+
 def _require_dense(config: LlamaConfig) -> None:
     if config.num_experts:
         raise NotImplementedError(f"the MoE MLP (num_experts > 0) {_NOT_PORTED}")

@@ -5,6 +5,8 @@ Port of ``JaxCompletionsService`` (``providers/jax_local/provider.py``).
 Configuration, with the JAX provider's keys::
 
     model: {preset: "llama-3-8b"}      # or explicit dims; default "tiny"
+    checkpoint: "/models/llama-3-8b"   # HF dir; omit = random weights
+    tokenizer: {type: "hf", path: "/models/llama-3-8b"}
     seed: 0                            # random-init weight seed
     quantization: int8                 # weight-only int8 weights
     engine: {max-slots: 16, max-seq-len: 4096, decode-chunk: 8,
@@ -13,13 +15,22 @@ Configuration, with the JAX provider's keys::
              paged-kernel: fused, prefix-cache: true, kv-quant: int8,
              prefill-mode: mixed, prefill-chunk: 64, mixed-carry: on,
              pipeline-decode: true, admission-chunk: 4, precompile: true,
-             spec-decode: ngram, spec-k: 4, spec-ngram: 2}
+             spec-decode: ngram, spec-k: 4, spec-ngram: 2, logprobs-top-k: 5}
 
-With no ``checkpoint`` the weights are random, drawn from ``seed`` on the
-device (checkpoint loading is not ported yet and raises); with
-``quantization: int8`` they are drawn directly in int8 on the device
-(``quant.init_quantized_params``), so the model-dtype weights are never
-made. ``kv-quant: int8`` stores the KV cache as int8 with per-(position,
+``checkpoint`` names a HuggingFace model directory, loaded in bf16 onto
+the device as the JAX provider dispatches (``weights.load_checkpoint``):
+safetensors files, else ``pytorch_model.bin``; an orbax directory and a
+mixture-of-experts model raise. Its ``config.json`` gives the model, and
+``model`` is ignored; with ``quantization: int8`` the engine quantizes
+the loaded weights (``quant.quantize_params``) and the bf16 ones are
+freed. With no ``checkpoint`` the weights are random, drawn from
+``seed`` on the device; with ``quantization: int8`` they are drawn
+directly in int8 on the device (``quant.init_quantized_params``), so the
+model-dtype weights are never made. ``tokenizer: {type: hf, path}``
+serves the checkpoint's own tokenizer (it needs the ``transformers``
+package); the default is the byte tokenizer. ``logprobs-top-k`` K keeps
+the K most likely alternatives of every token, which a request asks for
+with the OpenAI ``top_logprobs`` (up to K). ``kv-quant: int8`` stores the KV cache as int8 with per-(position,
 kv head) scales on either layout. ``prefill-mode: mixed`` (paged only)
 carries prompt windows of up to ``prefill-chunk`` tokens in the decode
 step instead of separate prefill calls. ``pipeline-decode`` dispatches
@@ -46,6 +57,7 @@ from __future__ import annotations
 
 import logging
 import secrets
+import time
 import uuid
 from typing import Any, Dict, List, Optional
 
@@ -58,6 +70,7 @@ from langstream_tpu_torch.providers.torch_local.engine import (
 )
 from langstream_tpu_torch.providers.torch_local.quant import init_quantized_params
 from langstream_tpu_torch.providers.torch_local.tokenizer import get_tokenizer
+from langstream_tpu_torch.providers.torch_local.weights import load_checkpoint
 
 logger = logging.getLogger(__name__)
 
@@ -73,7 +86,6 @@ def _on(value: Any) -> bool:
 # not shard).
 UNPORTED_ENGINE_KEYS = {
     "kv-host-blocks": lambda value: int(value or 0) != 0,
-    "logprobs-top-k": lambda value: int(value or 0) != 0,
     "watchdog": lambda value: str(value).lower() in ("1", "true", "yes", "on"),
     "queue-timeout-s": bool,
     "max-restarts": lambda value: int(value or 3) != 3,
@@ -120,32 +132,38 @@ class TorchCompletionsService:
         """``step_graphs=False`` builds the engine with eager dispatch, a
         control for measurements; no config key reaches it."""
         self.device = resolve_device(device)
-        if config.get("checkpoint"):
-            raise NotImplementedError(
-                "checkpoint loading is not ported to langstream_tpu_torch yet "
-                "(see ROADMAP.md); omit `checkpoint` for random weights"
-            )
         quantization = config.get("quantization") or None
         if quantization not in (None, "int8"):
             raise ValueError(f"unknown quantization {quantization!r}")
         engine_config = config.get("engine", {}) or {}
         _refuse_unported(config, engine_config)
-        model_config = model_lib.LlamaConfig.from_dict(
-            config.get("model", {"preset": "tiny"})
-        )
-        seed = int(config.get("seed", 0))
-        if quantization == "int8":
-            # drawn directly in int8 on the device: Llama-3-8B never holds
-            # its bf16 weights
-            params = init_quantized_params(model_config, seed=seed, device=self.device)
-        else:
-            params = model_lib.init_params(model_config, seed=seed, device=self.device)
-        logger.warning(
-            "torch-local: no checkpoint configured — RANDOM %sweights "
-            "(%.2fB params, benchmarking only)", "int8 " if quantization else "",
-            model_config.num_params() / 1e9,
-        )
+        # the tokenizer first: a missing `transformers` fails before the
+        # weights load
         self.tokenizer = get_tokenizer(config.get("tokenizer"))
+        checkpoint = config.get("checkpoint")
+        started = time.perf_counter()
+        if checkpoint:
+            # the checkpoint's config.json gives the model; `model` is
+            # ignored, as in the JAX provider
+            model_config, params = load_checkpoint(str(checkpoint), device=self.device)
+            logger.info("loaded checkpoint %s (%.2fB params)", checkpoint,
+                        model_config.num_params() / 1e9)
+        else:
+            model_config = model_lib.LlamaConfig.from_dict(config.get("model", {"preset": "tiny"}))
+            seed = int(config.get("seed", 0))
+            if quantization == "int8":
+                # drawn directly in int8 on the device: Llama-3-8B never
+                # holds its bf16 weights
+                params = init_quantized_params(model_config, seed=seed, device=self.device)
+            else:
+                params = model_lib.init_params(model_config, seed=seed, device=self.device)
+            logger.warning(
+                "torch-local: no checkpoint configured — RANDOM %sweights "
+                "(%.2fB params, benchmarking only)", "int8 " if quantization else "",
+                model_config.num_params() / 1e9,
+            )
+        # seconds to load (or draw) the weights
+        self.load_s = time.perf_counter() - started
         if engine_config.get("sampling-seed") is not None:
             sampling_seed = int(engine_config["sampling-seed"])
         else:
@@ -190,7 +208,15 @@ class TorchCompletionsService:
             spec_decode=str(engine_config.get("spec-decode") or "off").lower(),
             spec_k=int(engine_config.get("spec-k") or 4),
             spec_ngram=int(engine_config.get("spec-ngram") or 2),
+            # OpenAI `top_logprobs`: static K per engine (it shapes every
+            # step's outputs); requests may ask for any n <= K
+            logprobs_topk=int(engine_config.get("logprobs-top-k", 0) or 0),
         )
+        # the engine holds its own (quantized) copy: free the loaded one
+        del params
+        # the most top_logprobs alternatives a token (0 = none): the
+        # server validates requests against it
+        self.top_logprobs_limit = self.engine.logprobs_topk
         if _on(engine_config.get("precompile", "")):
             # every step variant captured and every prefill variant run
             # before the first request, so none stalls live traffic
@@ -329,7 +355,7 @@ class TorchCompletionsService:
                 if cut != -1:
                     text = text[:cut]
                     stop_trimmed = True
-        kept_tokens, kept_logprobs = result.tokens, result.logprobs
+        kept_tokens, kept_logprobs, kept_tops = result.tokens, result.logprobs, result.top_logprobs
         if stop_cut or stop_trimmed:
             # drop the tokens past the stop so per-token data aligns with
             # the trimmed content
@@ -342,6 +368,8 @@ class TorchCompletionsService:
                 kept += 1
             kept_tokens = result.tokens[:kept]
             kept_logprobs = result.logprobs[:kept]
+            if kept_tops is not None:
+                kept_tops = kept_tops[:kept]
         if stream_consumer is not None and not last_sent[0]:
             # terminal marker when the stop token arrived without a
             # trailing streamed delta
@@ -362,4 +390,12 @@ class TorchCompletionsService:
                 if want_logprobs else None
             ),
             logprobs=list(kept_logprobs) if want_logprobs else None,
+            # K single-token decodes a token: only when the request asked
+            # for alternatives (top-logprobs > 0)
+            top_logprobs=(
+                [[(self.tokenizer.decode([int(tid)]), float(tlp)) for tid, tlp in zip(ids, lps)]
+                 for ids, lps in kept_tops]
+                if want_logprobs and kept_tops is not None
+                and int(options.get("top-logprobs") or 0) > 0 else None
+            ),
         )

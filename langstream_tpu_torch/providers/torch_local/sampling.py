@@ -11,7 +11,7 @@ with no truncation skip the sort.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -78,3 +78,24 @@ def token_logprob(logits: torch.Tensor, token: torch.Tensor) -> torch.Tensor:
     logits32 = logits.float()
     picked = torch.gather(logits32, 1, token.long()[:, None])[:, 0]
     return picked - torch.logsumexp(logits32, dim=-1)
+
+
+def top_logprobs(logits: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The JAX engine's ``_top_logprobs``: the ``k`` largest raw logits
+    over the last axis (int32 ids) and their logprobs under the raw
+    untruncated distribution (f32), ranked as ``lax.top_k`` ranks them:
+    in the total order of f32 (+0 above -0, NaN on top) and, among equal
+    values, the lower id first. ``torch.topk`` promises no order among
+    ties, so it ranks one int64 key per entry: the order-preserving int32
+    image of the value's bits in the high word, ``V - 1 - id`` in the low
+    word, which makes every key distinct."""
+    logits32 = logits.float()
+    vocab = logits32.shape[-1]
+    bits = logits32.view(torch.int32)
+    ordered = bits ^ ((bits >> 31) & 0x7FFFFFFF)  # negatives: flip all but the sign
+    ids = torch.arange(vocab, dtype=torch.int64, device=logits32.device)
+    keys = (ordered.to(torch.int64) << 32) | (vocab - 1 - ids)
+    top = torch.topk(keys, k, dim=-1).values
+    top_ids = vocab - 1 - (top & 0xFFFFFFFF)
+    lse = torch.logsumexp(logits32, dim=-1, keepdim=True)
+    return top_ids.to(torch.int32), torch.gather(logits32, -1, top_ids) - lse

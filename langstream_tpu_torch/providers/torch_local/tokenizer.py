@@ -1,10 +1,16 @@
-"""Tokenizers for the torch-local provider.
+"""Tokenizers for the torch-local provider, copies of the JAX
+provider's.
 
-:class:`ByteTokenizer` is a dependency-free byte-level tokenizer (bytes
-plus BOS/EOS/PAD specials) used by tests and random-weight serving, with
-an incremental :class:`StreamDecoder` that buffers partial UTF-8 so
-streamed chunks never split a multibyte character. A copy of the JAX
-provider's; the HuggingFace tokenizer is not ported yet.
+- :class:`ByteTokenizer`: a dependency-free byte-level tokenizer (bytes
+  plus BOS/EOS/PAD specials) used by tests and random-weight serving.
+- :class:`HFTokenizer`: a local HuggingFace tokenizer (Llama-3 etc.) and
+  its chat template, through the ``transformers`` package, imported only
+  when one is built.
+
+Both expose ``encode``, ``decode``, ``apply_chat_template``, ``bos_id`` /
+``eos_ids``, ``vocab_size`` and an incremental :class:`StreamDecoder`
+that buffers partial UTF-8 so streamed chunks never split a multibyte
+character.
 """
 
 from __future__ import annotations
@@ -15,7 +21,7 @@ from typing import Any, Dict, List, Optional, Sequence
 class StreamDecoder:
     """Incremental detokenizer: feed token ids, get printable text deltas."""
 
-    def __init__(self, tokenizer: "ByteTokenizer") -> None:
+    def __init__(self, tokenizer: Any) -> None:
         self.tokenizer = tokenizer
         self._pending: List[int] = []
         self._emitted = 0
@@ -81,14 +87,55 @@ class ByteTokenizer:
         return StreamDecoder(self)
 
 
+class HFTokenizer:
+    """A local HuggingFace tokenizer (no network: ``local_files_only``)."""
+
+    def __init__(self, path: str) -> None:
+        try:
+            from transformers import AutoTokenizer
+        except ImportError as error:
+            raise ImportError(
+                "the HuggingFace tokenizer (tokenizer type 'hf') needs the `transformers` "
+                "package, which is not installed"
+            ) from error
+        self._tk = AutoTokenizer.from_pretrained(path, local_files_only=True)
+        self.vocab_size = len(self._tk)
+
+    @property
+    def bos_id(self) -> int:
+        return self._tk.bos_token_id
+
+    @property
+    def eos_ids(self) -> List[int]:
+        ids = [self._tk.eos_token_id]
+        # Llama-3 also stops on <|eot_id|>
+        eot = self._tk.convert_tokens_to_ids("<|eot_id|>")
+        if isinstance(eot, int) and eot >= 0 and eot != ids[0]:
+            ids.append(eot)
+        return [i for i in ids if i is not None]
+
+    @property
+    def pad_id(self) -> int:
+        return self._tk.pad_token_id or 0
+
+    def encode(self, text: str, add_bos: bool = True) -> List[int]:
+        return self._tk.encode(text, add_special_tokens=add_bos)
+
+    def decode(self, tokens: Sequence[int]) -> str:
+        return self._tk.decode(tokens, skip_special_tokens=True)
+
+    def apply_chat_template(self, messages: List[Dict[str, str]]) -> List[int]:
+        return self._tk.apply_chat_template(messages, add_generation_prompt=True)
+
+    def stream_decoder(self) -> StreamDecoder:
+        return StreamDecoder(self)
+
+
 def get_tokenizer(config: Optional[Dict[str, Any]]) -> Any:
     config = config or {}
     kind = config.get("type", "byte")
     if kind == "byte":
         return ByteTokenizer(config)
     if kind in ("huggingface", "hf"):
-        raise NotImplementedError(
-            "the HuggingFace tokenizer is not ported to langstream_tpu_torch "
-            "yet (see ROADMAP.md)"
-        )
+        return HFTokenizer(config["path"])
     raise ValueError(f"unknown tokenizer type {kind!r}")

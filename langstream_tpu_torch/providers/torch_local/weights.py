@@ -1,0 +1,336 @@
+"""HuggingFace checkpoint directories → the port's stacked param dict
+(Llama, Qwen-2, Gemma-2).
+
+Port of ``langstream_tpu/providers/jax_local/weights.py`` and of the JAX
+``model.load_hf_checkpoint``, with no ``safetensors`` or ``transformers``
+package: the port reads both file formats itself.
+
+- :class:`SafetensorsDir` reads the safetensors format: an 8-byte
+  little-endian header length, a JSON header that gives each tensor's
+  ``dtype``, ``shape`` and ``data_offsets`` (measured from the end of the
+  header) beside an optional ``__metadata__``, then the raw little-endian
+  bytes. One file, or shards named by ``model.safetensors.index.json``.
+  Each tensor is read alone into a fresh host buffer and viewed in its
+  dtype (numpy has no bf16, so the bytes cross as ``uint8``).
+- :class:`TorchBinDir` reads ``pytorch_model.bin`` (or the shards that
+  ``pytorch_model.bin.index.json`` names) through ``torch.load(...,
+  weights_only=True, mmap=True)``.
+
+Both loaders map the HF names onto the JAX package's layout: each layer's
+``[out, in]`` matrix transposed to ``[in, out]`` and stacked on a leading
+layer axis; norms (and Qwen-2's q/k/v biases) in f32; Gemma-2's four
+norms; ``lm_head`` unless the embeddings are tied. Each stacked leaf is
+allocated once on the device and filled layer by layer (a ``torch.stack``
+would hold every layer twice), so at most one source tensor is on the
+host at a time, and the transpose runs on the device. A tensor stored in
+another dtype than the config's is cast once, rounding to nearest even,
+through f32 when it is a 16-bit float: the JAX loaders go through f32,
+which holds every f16 and bf16 value exactly, so the bits are theirs.
+
+Mixtral (``num_local_experts``) raises before any tensor is read: the
+MoE MLP is not ported (ROADMAP.md, behind A10).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import struct
+import types
+from typing import Any, Dict, Iterator, Optional, Tuple
+
+import torch
+
+from langstream_tpu_torch.device import resolve_device
+from langstream_tpu_torch.providers.torch_local.model import (
+    LlamaConfig,
+    config_from_hf,
+    validate_family_params,
+)
+
+# safetensors dtype names → torch dtypes
+SAFETENSORS_DTYPES = {
+    "BF16": torch.bfloat16, "F16": torch.float16, "F32": torch.float32, "F64": torch.float64,
+    "I8": torch.int8, "U8": torch.uint8, "I16": torch.int16, "I32": torch.int32,
+    "I64": torch.int64, "BOOL": torch.bool,
+}
+
+SAFETENSORS_INDEX = "model.safetensors.index.json"
+BIN_FILE = "pytorch_model.bin"
+BIN_INDEX = "pytorch_model.bin.index.json"
+
+
+def read_safetensors_header(path: str) -> Tuple[Dict[str, Any], int]:
+    """A safetensors file's header (``__metadata__`` dropped) and the
+    byte offset its data starts at."""
+    with open(path, "rb") as fh:
+        prefix = fh.read(8)
+        if len(prefix) != 8:
+            raise ValueError(f"{path}: not a safetensors file (no header length)")
+        (length,) = struct.unpack("<Q", prefix)
+        if length > os.path.getsize(path) - 8:
+            raise ValueError(f"{path}: header length {length} runs past the end of the file")
+        header = json.loads(fh.read(length))
+    header.pop("__metadata__", None)
+    return header, 8 + length
+
+
+class SafetensorsDir:
+    """Lazy tensor access over a HF checkpoint directory: one or more
+    ``*.safetensors`` files, or the shards ``model.safetensors.index.json``
+    maps. :meth:`get` returns a CPU tensor in the file's dtype."""
+
+    def __init__(self, path: str) -> None:
+        self.path = path
+        index = os.path.join(path, SAFETENSORS_INDEX)
+        if os.path.exists(index):
+            with open(index) as fh:
+                files = sorted(set(json.load(fh)["weight_map"].values()))
+        else:
+            files = sorted(f for f in os.listdir(path) if f.endswith(".safetensors"))
+        # name -> (file, dtype name, shape, absolute [begin, end))
+        self._entries: Dict[str, Tuple[str, str, Tuple[int, ...], int, int]] = {}
+        for fname in files:
+            file_path = os.path.join(path, fname)
+            header, data_start = read_safetensors_header(file_path)
+            for name, info in header.items():
+                begin, end = info["data_offsets"]
+                self._entries[name] = (file_path, info["dtype"], tuple(info["shape"]),
+                                       data_start + begin, data_start + end)
+        if not self._entries:
+            raise FileNotFoundError(f"no *.safetensors under {path}")
+
+    def keys(self) -> Iterator[str]:
+        return iter(self._entries)
+
+    def get(self, name: str) -> torch.Tensor:
+        if name not in self._entries:
+            raise KeyError(f"tensor {name} is not in the checkpoint at {self.path}")
+        file_path, dtype_name, shape, begin, end = self._entries[name]
+        if dtype_name not in SAFETENSORS_DTYPES:
+            raise ValueError(f"tensor {name} has unsupported dtype {dtype_name}")
+        dtype = SAFETENSORS_DTYPES[dtype_name]
+        count = 1
+        for dim in shape:
+            count *= dim
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        if end - begin != count * itemsize:
+            raise ValueError(f"tensor {name}: {end - begin} bytes for {dtype} {list(shape)}")
+        buffer = torch.empty(end - begin, dtype=torch.uint8)
+        with open(file_path, "rb") as fh:
+            fh.seek(begin)
+            if fh.readinto(buffer.numpy()) != end - begin:
+                raise ValueError(f"tensor {name}: {file_path} ends inside its data")
+        return buffer.view(dtype).reshape(shape)
+
+    def close(self) -> None:
+        """Nothing stays open between reads."""
+
+
+class TorchBinDir:
+    """Lazy tensor access over ``pytorch_model.bin`` or the shards
+    ``pytorch_model.bin.index.json`` maps, each memory-mapped once it is
+    first needed (``torch.load(..., weights_only=True, mmap=True)``)."""
+
+    def __init__(self, path: str) -> None:
+        self.path = path
+        index = os.path.join(path, BIN_INDEX)
+        if os.path.exists(index):
+            with open(index) as fh:
+                self._name_to_file = dict(json.load(fh)["weight_map"])
+            self._files: Dict[str, Dict[str, torch.Tensor]] = {}
+        elif os.path.exists(os.path.join(path, BIN_FILE)):
+            self._files = {BIN_FILE: self._open(BIN_FILE)}
+            self._name_to_file = dict.fromkeys(self._files[BIN_FILE], BIN_FILE)
+        else:
+            raise FileNotFoundError(
+                f"no *.safetensors, {BIN_FILE} or {BIN_INDEX} under {path}")
+
+    def _open(self, fname: str) -> Dict[str, torch.Tensor]:
+        return torch.load(os.path.join(self.path, fname), map_location="cpu",
+                          weights_only=True, mmap=True)
+
+    def keys(self) -> Iterator[str]:
+        return iter(self._name_to_file)
+
+    def get(self, name: str) -> torch.Tensor:
+        if name not in self._name_to_file:
+            raise KeyError(f"tensor {name} is not in the checkpoint at {self.path}")
+        fname = self._name_to_file[name]
+        if fname not in self._files:
+            self._files[fname] = self._open(fname)
+        return self._files[fname][name]
+
+    def close(self) -> None:
+        self._files.clear()
+
+
+def load_config(path: str) -> LlamaConfig:
+    """A LlamaConfig from a HF ``config.json``, with the JAX loader's
+    defaults for keys ``save_pretrained`` leaves out (it omits values
+    equal to the architecture's default: Gemma ties its embeddings by
+    default, Llama and Qwen do not)."""
+    with open(os.path.join(path, "config.json")) as fh:
+        hf = json.load(fh)
+    hf.setdefault("rms_norm_eps", 1e-5)
+    hf.setdefault("max_position_embeddings", 4096)
+    hf.setdefault("tie_word_embeddings", hf.get("model_type") in ("gemma", "gemma2"))
+    return config_from_hf(types.SimpleNamespace(**hf))
+
+
+def _require_dense(config: LlamaConfig) -> None:
+    if config.num_experts:
+        raise NotImplementedError(
+            f"a mixture-of-experts checkpoint ({config.num_experts} experts, Mixtral) cannot be "
+            "loaded: the MoE MLP is not ported to langstream_tpu_torch (see ROADMAP.md, A10)")
+
+
+def param_shapes(config: LlamaConfig) -> Dict[str, Tuple[int, ...]]:
+    """The shape of every leaf of the dense family's param dict."""
+    h, f, v, layers = config.hidden_size, config.intermediate_size, config.vocab_size, config.num_layers
+    q, kv = config.num_heads * config.dims_per_head, config.num_kv_heads * config.dims_per_head
+    shapes = {
+        "embedding": (v, h), "wq": (layers, h, q), "wk": (layers, h, kv), "wv": (layers, h, kv),
+        "wo": (layers, q, h), "w_gate": (layers, h, f), "w_up": (layers, h, f),
+        "w_down": (layers, f, h), "attn_norm": (layers, h), "mlp_norm": (layers, h),
+        "final_norm": (h,),
+    }
+    if config.post_norms:
+        shapes.update(post_attn_norm=(layers, h), post_mlp_norm=(layers, h))
+    if config.qkv_bias:
+        shapes.update(bq=(layers, q), bk=(layers, kv), bv=(layers, kv))
+    if not config.tie_embeddings:
+        shapes["lm_head"] = (h, v)
+    return shapes
+
+
+def _cast(tensor: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Round to ``dtype`` once, through f32 from a 16-bit float (exact),
+    as the JAX loaders do."""
+    if tensor.dtype == dtype:
+        return tensor
+    if tensor.dtype in (torch.float16, torch.bfloat16):
+        tensor = tensor.float()
+    return tensor.to(dtype)
+
+
+def _load_params(store: Any, config: LlamaConfig, device: torch.device) -> Dict[str, torch.Tensor]:
+    """The stacked param dict from ``store`` (``get(name)`` → a host
+    tensor in the file's dtype): matrices in ``config.dtype``, norms and
+    biases in f32."""
+    dtype, layers = config.dtype, config.num_layers
+    shapes = param_shapes(config)
+
+    def fetch(name: str, transpose: bool) -> torch.Tensor:
+        tensor = store.get(name).to(device)
+        return tensor.t() if transpose else tensor
+
+    def leaf(key: str, name: str, cast=dtype, transpose: bool = False) -> torch.Tensor:
+        tensor = fetch(name, transpose)
+        if tuple(tensor.shape) != shapes[key]:
+            raise ValueError(f"{name}: shape {list(tensor.shape)}, the config wants {list(shapes[key])}")
+        return _cast(tensor, cast).contiguous()
+
+    def stacked(key: str, pattern: str, cast=dtype, transpose: bool = True) -> torch.Tensor:
+        out = torch.empty(shapes[key], dtype=cast, device=device)
+        for layer in range(layers):
+            name = pattern.format(layer)
+            tensor = fetch(name, transpose)
+            if tuple(tensor.shape) != shapes[key][1:]:
+                raise ValueError(
+                    f"{name}: shape {list(tensor.shape)}, the config wants {list(shapes[key][1:])}")
+            out[layer].copy_(_cast(tensor, cast))
+            del tensor
+        return out
+
+    f32 = torch.float32
+    prefix = "model.layers.{}."
+    params = {
+        "embedding": leaf("embedding", "model.embed_tokens.weight"),
+        "wq": stacked("wq", prefix + "self_attn.q_proj.weight"),
+        "wk": stacked("wk", prefix + "self_attn.k_proj.weight"),
+        "wv": stacked("wv", prefix + "self_attn.v_proj.weight"),
+        "wo": stacked("wo", prefix + "self_attn.o_proj.weight"),
+        "w_gate": stacked("w_gate", prefix + "mlp.gate_proj.weight"),
+        "w_up": stacked("w_up", prefix + "mlp.up_proj.weight"),
+        "w_down": stacked("w_down", prefix + "mlp.down_proj.weight"),
+        "attn_norm": stacked("attn_norm", prefix + "input_layernorm.weight", f32, False),
+    }
+    if config.post_norms:
+        # Gemma-2's sandwich: post_attention_layernorm is the POST-attn
+        # norm, the feedforward pair wraps the MLP
+        params["post_attn_norm"] = stacked(
+            "post_attn_norm", prefix + "post_attention_layernorm.weight", f32, False)
+        params["mlp_norm"] = stacked("mlp_norm", prefix + "pre_feedforward_layernorm.weight", f32, False)
+        params["post_mlp_norm"] = stacked(
+            "post_mlp_norm", prefix + "post_feedforward_layernorm.weight", f32, False)
+    else:
+        params["mlp_norm"] = stacked("mlp_norm", prefix + "post_attention_layernorm.weight", f32, False)
+    params["final_norm"] = leaf("final_norm", "model.norm.weight", f32)
+    if config.qkv_bias:
+        for key, proj in (("bq", "q_proj"), ("bk", "k_proj"), ("bv", "v_proj")):
+            params[key] = stacked(key, prefix + f"self_attn.{proj}.bias", f32, False)
+    if not config.tie_embeddings:
+        params["lm_head"] = leaf("lm_head", "lm_head.weight", transpose=True)
+    validate_family_params(config, params)
+    return params
+
+
+def _load(store_type, path: str, dtype: Any, config: Optional[LlamaConfig], device: Any
+          ) -> Tuple[LlamaConfig, Dict[str, torch.Tensor]]:
+    device = resolve_device(device)
+    config = dataclasses.replace(config or load_config(path), dtype=dtype)
+    _require_dense(config)  # before any tensor is read
+    store = store_type(path)
+    try:
+        return config, _load_params(store, config, device)
+    finally:
+        store.close()
+
+
+def load_safetensors_checkpoint(
+    path: str, dtype: Any = torch.bfloat16, config: Optional[LlamaConfig] = None,
+    device: Any = "cuda",
+) -> Tuple[LlamaConfig, Dict[str, torch.Tensor]]:
+    """(config, stacked params on ``device``) from a directory of
+    safetensors files; ``config`` defaults to its ``config.json``'s."""
+    return _load(SafetensorsDir, path, dtype, config, device)
+
+
+def load_hf_checkpoint(
+    path: str, dtype: Any = torch.bfloat16, config: Optional[LlamaConfig] = None,
+    device: Any = "cuda",
+) -> Tuple[LlamaConfig, Dict[str, torch.Tensor]]:
+    """(config, stacked params on ``device``) from a HF directory without
+    safetensors: ``pytorch_model.bin`` or its index's shards, mapped to
+    the same names. The JAX ``load_hf_checkpoint`` instantiates the
+    ``transformers`` model for this; the port reads the same tensors."""
+    return _load(TorchBinDir, path, dtype, config, device)
+
+
+def has_safetensors(path: str) -> bool:
+    return os.path.isdir(path) and any(
+        f.endswith(".safetensors") or f == SAFETENSORS_INDEX for f in os.listdir(path))
+
+
+def is_orbax_dir(path: str) -> bool:
+    """The JAX provider's test for an orbax checkpoint: numeric step
+    subdirectories."""
+    return os.path.isdir(path) and any(
+        entry.isdigit() and os.path.isdir(os.path.join(path, entry)) for entry in os.listdir(path))
+
+
+def load_checkpoint(path: str, device: Any = "cuda") -> Tuple[LlamaConfig, Dict[str, torch.Tensor]]:
+    """The JAX provider's checkpoint dispatch: safetensors files → the
+    safetensors loader; numeric step subdirectories (orbax) → raise, not
+    ported; otherwise → the ``pytorch_model.bin`` loader. Both in bf16."""
+    if has_safetensors(path):
+        return load_safetensors_checkpoint(path, device=device)
+    if is_orbax_dir(path):
+        raise NotImplementedError(
+            f"{path} is an orbax checkpoint (numeric step directories): loading it is not ported "
+            "to langstream_tpu_torch (see ROADMAP.md, A11)")
+    if not os.path.isdir(path):
+        raise FileNotFoundError(f"checkpoint directory {path} does not exist")
+    return load_hf_checkpoint(path, device=device)

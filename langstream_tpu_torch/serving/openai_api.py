@@ -9,6 +9,14 @@ Port of ``langstream_tpu/serving/openai_api.py`` (an aiohttp app there):
 - ``POST /v1/completions`` — prompt in (legacy text completions).
 - ``GET /v1/models`` and ``GET /healthz``.
 
+``logprobs`` returns each token's logprob; ``top_logprobs: n`` (with
+``logprobs: true``, n at most the service's ``top_logprobs_limit``, the
+engine's ``logprobs-top-k``) adds its n most likely alternatives: in the
+chat format a ``logprobs.content`` entry per token, in the legacy text
+format a ``{token: logprob}`` dict per token. A text completion's integer
+``logprobs: K`` asks for K alternatives, clamped to the limit. A streamed
+chat carries the ``logprobs.content`` entries in its final chunk.
+
 Each request runs on its own handler thread, which drives the service's
 coroutines on a private event loop (``asyncio.run``); the engine thread
 posts tokens onto that loop.
@@ -23,7 +31,7 @@ import threading
 import time
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 from langstream_tpu_torch.api.service import ChatMessage
 
@@ -34,13 +42,58 @@ def _sse(payload: Dict[str, Any]) -> bytes:
     return b"data: " + json.dumps(payload, ensure_ascii=False).encode() + b"\n\n"
 
 
-def _options_from_request(body: Dict[str, Any], model: str) -> Dict[str, Any]:
+def _chat_logprobs_content(result, n_top: int) -> List[Dict[str, Any]]:
+    """The chat format's ``logprobs.content``: one entry per token with
+    its ``n_top`` ranked alternatives."""
+    return [
+        {"token": token, "logprob": logprob,
+         "top_logprobs": [{"token": text, "logprob": value} for text, value in tops[:n_top]]}
+        for token, logprob, tops in zip(result.tokens, result.logprobs, result.top_logprobs)
+    ]
+
+
+def _logprobs_block(result, options: Dict[str, Any], chat: bool) -> Dict[str, Any]:
+    """A choice's ``logprobs``: the tokens and their logprobs, with the
+    alternatives the request asked for."""
+    block: Dict[str, Any] = {"tokens": result.tokens, "token_logprobs": result.logprobs}
+    n_top = int(options.get("top-logprobs") or 0)
+    if result.top_logprobs is None or n_top <= 0:
+        return block
+    if chat:
+        block["content"] = _chat_logprobs_content(result, n_top)
+    else:
+        # legacy text format: a {token: logprob} dict per position. Two ids
+        # may decode to the same text: the first (higher-ranked) one keeps
+        # its logprob, so a dict may hold fewer than n_top keys
+        legacy = []
+        for tops in result.top_logprobs:
+            row: Dict[str, float] = {}
+            for text, value in tops[:n_top]:
+                row.setdefault(text, value)
+            legacy.append(row)
+        block["top_logprobs"] = legacy
+    return block
+
+
+def _options_from_request(body: Dict[str, Any], model: str, topk_limit: int = 0) -> Dict[str, Any]:
     """OpenAI request params → service option names. Raises ValueError
     (→ HTTP 400) on malformed values so bad requests fail BEFORE burning a
     generation."""
     options: Dict[str, Any] = {"model": body.get("model") or model}
-    if body.get("top_logprobs"):
-        raise ValueError("top_logprobs is not supported by this server yet")
+    if body.get("top_logprobs") is not None:
+        try:
+            n_top = int(body["top_logprobs"])
+        except (TypeError, ValueError):
+            raise ValueError("top_logprobs must be an integer") from None
+        if not 0 <= n_top <= 20:
+            raise ValueError("top_logprobs must be between 0 and 20")
+        if n_top > 0 and not body.get("logprobs"):
+            raise ValueError("top_logprobs requires logprobs: true")
+        if n_top > topk_limit:
+            raise ValueError(
+                f"top_logprobs={n_top} exceeds this server's limit of {topk_limit} (start the "
+                f"server with --logprobs-top-k >= {n_top})")
+        body = dict(body, top_logprobs=n_top)
     mapping = {
         "temperature": "temperature",
         "top_p": "top-p",
@@ -51,6 +104,7 @@ def _options_from_request(body: Dict[str, Any], model: str) -> Dict[str, Any]:
         "presence_penalty": "presence-penalty",
         "frequency_penalty": "frequency-penalty",
         "logprobs": "logprobs",
+        "top_logprobs": "top-logprobs",
         "seed": "seed",
     }
     if body.get("logit_bias") is not None:
@@ -90,6 +144,8 @@ class OpenAIApiServer:
         port: int = 8000,
     ) -> None:
         self.completions = completions
+        # the most top_logprobs alternatives the service keeps (0 = none)
+        self._topk_limit = int(getattr(completions, "top_logprobs_limit", 0) or 0)
         self.model = model
         self.host = host
         self.port = port
@@ -218,9 +274,7 @@ class OpenAIApiServer:
             else:
                 choice["text"] = result.content
             if result.logprobs is not None:
-                choice["logprobs"] = {
-                    "tokens": result.tokens, "token_logprobs": result.logprobs,
-                }
+                choice["logprobs"] = _logprobs_block(result, options, chat)
             choices.append(choice)
         completion_tokens = sum(r.completion_tokens for r in results)
         self._json(handler, 200, {
@@ -254,8 +308,16 @@ class OpenAIApiServer:
             if isinstance(prompt, list):
                 prompt = "".join(str(p) for p in prompt)
             prompt_texts, messages = [str(prompt)], []
+            # legacy completions spell "K alternatives" as an integer
+            # `logprobs: K`: it reaches the top-logprobs option, clamped to
+            # the server's limit (with the feature off it keeps meaning the
+            # sampled token's logprob alone)
+            lp = body.get("logprobs")
+            if (isinstance(lp, int) and not isinstance(lp, bool) and lp > 0
+                    and body.get("top_logprobs") is None and self._topk_limit > 0):
+                body = dict(body, top_logprobs=min(lp, self._topk_limit))
         try:
-            options = _options_from_request(body, self.model)
+            options = _options_from_request(body, self.model, self._topk_limit)
         except (ValueError, TypeError) as error:
             return f"invalid request parameter: {error}"
         n = body.get("n", 1) if body.get("n") is not None else 1
@@ -343,6 +405,10 @@ class OpenAIApiServer:
                 final: Dict[str, Any] = {"index": 0, "finish_reason": result.finish_reason}
                 if chat:
                     final["delta"] = {}
+                    if result.top_logprobs is not None and int(options.get("top-logprobs") or 0) > 0:
+                        # every token's entry, in the final chunk
+                        final["logprobs"] = {"content": _chat_logprobs_content(
+                            result, int(options["top-logprobs"]))}
                 else:
                     final["text"] = ""
                 write(frame(final, usage={

@@ -273,7 +273,6 @@ def test_provider_refuses_int8_weights():
 # honours and the port does not serve yet: (where, key, value)
 UNPORTED = [
     ("engine", "kv-host-blocks", 64),
-    ("engine", "logprobs-top-k", 5),
     ("engine", "watchdog", "on"),
     ("engine", "queue-timeout-s", 1.5),
     ("engine", "max-restarts", 5),
