@@ -99,6 +99,20 @@ Phases (any failure propagates and the exit code is not 0):
    join, JAX, JAX with ``--admission-chunk 2``, join with it, JAX, join,
    after one full-depth int8-weight phase), with a line holding the bf16
    and int8 bare steps of the full-depth phases side by side.
+   Every server runs the engine supervisor and the decode-stall watchdog
+   at ``serve``'s defaults (on). After the first dense phase's bursts,
+   on its server, the crash phase (:func:`serve_crash_and_check`): the
+   dense burst's 16 completions (every fourth seeded with presence and
+   frequency penalties, four streamed) once uncrashed, then with
+   ``engine_thread_crash@step=2`` armed and one request posted while the
+   supervisor rebuilds; gated: one restart, every request 200 but that
+   one (503 with Retry-After), each stream's deltas the tokens pushed to
+   it once each, every live session resurrected, crash-replay tokens,
+   B1 and B2 launched after the rebuilt engine's precompile by their
+   card counters, no capture after it, the memory after within 0.5 GiB
+   of that at the crash and the peak at most the served peak plus the
+   dead engine's KV cache; printed: recovery seconds, memory, streams
+   equal to the uncrashed run's.
 5. Paged serving: the same model with ``--kv-layout paged``, answering 16
    chats that share a ~512-byte system message, 8 text completions and
    one SSE stream, all arriving cold. The prefix cache must have served
@@ -153,6 +167,16 @@ Phases (any failure propagates and the exit code is not 0):
    peak beside phase 4's, and the streams equal to phase 4's (printed,
    not gated). The directory is removed at the end.
 
+10. Recovery at ``CONTROL_LAYERS``: the watchdog's escalation
+   (:func:`serve_watchdog_and_check`: ``stuck_step`` wedges a decode
+   dispatch for 14 s under thresholds cut short in the provider config;
+   gated: the trips reach ``escalate-trips``, one restart, every session
+   resurrected and answered, the condemned engine silent and its thread
+   ended) and load shedding (:func:`serve_shedding_and_check`: 96
+   completions on 32 slots at ``--queue-timeout-s 0.25``; gated: some
+   shed, each 503 with Retry-After, the rest 200, ``/metrics``'
+   ``requests_shed_total`` equal to the 503s).
+
 The line before the last holds the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -169,11 +193,14 @@ import struct
 import subprocess
 import sys
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+STARTED = time.perf_counter()  # the script's wall time is printed at its end
 
 from langstream_tpu_torch.cli.main import build_parser, serve_config, start_server
 from langstream_tpu_torch.ops import _build
@@ -1928,7 +1955,7 @@ def dense_jobs(rng):
 
 
 def serve_dense_and_check(label: str, kv_quant: bool = False, extra=(), graphs: bool = True,
-                          join: bool = True, layers=None) -> dict:
+                          join: bool = True, layers=None, crash: bool = False) -> dict:
     """The dense burst through ``serve`` with ``extra`` flags (pipelined
     unless ``--no-pipeline-decode``; ``--quantization int8`` for int8
     weights; ``graphs=False``: the eager control; ``join=False``: the
@@ -1937,8 +1964,12 @@ def serve_dense_and_check(label: str, kv_quant: bool = False, extra=(), graphs: 
     (B4/B5 over the int8 cache) once per layer per model call, no other
     kernel, and chained decode chunks when pipelined. Returns the
     launches, tok/s and mean TTFT of both bursts, and the bare decode
-    step's timing."""
+    step's timing. ``crash``: then the crash phase on the same server
+    (:func:`serve_crash_and_check`), its served peak from the server's
+    start on."""
+    torch.cuda.reset_peak_memory_stats()
     service, server = start_llama_server(*extra, kv_quant=kv_quant, graphs=graphs, layers=layers)
+    start_peak = torch.cuda.max_memory_allocated() / 2**30
     service.engine.join_prefills = join  # before any request reaches the engine
     rng = np.random.default_rng(0)
     jobs = dense_jobs(rng)
@@ -1955,9 +1986,11 @@ def serve_dense_and_check(label: str, kv_quant: bool = False, extra=(), graphs: 
         replies, wall, launches, host, stats, peak_gib = run_burst(service, server, jobs)
         (uniform_replies, uniform_wall, uniform_launches, uniform_host, uniform_stats,
          uniform_peak) = run_burst(service, server, uniform)
+        if crash:
+            serve_crash_and_check(label, service, server, max(start_peak, peak_gib, uniform_peak))
     finally:
         server.stop()
-        service.engine.stop()
+        service.close()
     timing = time_decode_step(service.engine)
     tokens = check_replies(jobs, replies)
     layers = service.engine.config.num_layers
@@ -1991,6 +2024,274 @@ def serve_dense_and_check(label: str, kv_quant: bool = False, extra=(), graphs: 
                 uniform_tok_s=uniform_tokens / uniform_wall,
                 ttft_ms=stats["ttft_time"] / stats["requests"] * 1e3,
                 uniform_ttft_ms=uniform_stats["ttft_time"] / uniform_stats["requests"] * 1e3)
+
+
+# the crash phase's fault: the engine thread dies after this many decode
+# chunks of the burst are processed (every session admitted by then has
+# emitted tokens: the 16 share the first chunk)
+CRASH_STEP = 2
+
+
+def crash_jobs(rng):
+    """The dense burst's 16 completions for the crash phase: every fourth
+    seeded at temperature 0.8 with presence and frequency penalties, and
+    four of the chats streamed (SSE)."""
+    jobs = dense_jobs(rng)[:-1]
+    for i, (path, body) in enumerate(jobs):
+        if i % 4 == 3:
+            body.update(presence_penalty=0.5, frequency_penalty=0.3)
+        if i % 4 == 0:
+            body["stream"] = True
+    return jobs
+
+
+def _post_status(server, path, body):
+    """(status, headers, body text) of one request, errors included."""
+    request = urllib.request.Request(f"http://127.0.0.1:{server.port}{path}",
+                                     data=json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(request, timeout=600) as response:
+            return response.status, dict(response.headers), response.read().decode()
+    except urllib.error.HTTPError as error:
+        return error.code, dict(error.headers), error.read().decode()
+
+
+def _reply_text(raw: str, stream: bool):
+    """A reply's text, completion tokens and finish reason; a stream's text
+    is its deltas joined, and it must end with [DONE]."""
+    if not stream:
+        reply = json.loads(raw)
+        choice = reply["choices"][0]
+        return (choice["message"]["content"] if "message" in choice else choice["text"],
+                reply["usage"]["completion_tokens"], choice["finish_reason"])
+    frames = [f[len("data: "):] for f in raw.split("\n\n") if f.startswith("data: ")]
+    assert frames[-1] == "[DONE]", "the SSE stream must end with [DONE]"
+    text = ""
+    for frame in frames[:-2]:
+        choice = json.loads(frame)["choices"][0]
+        text += choice.get("delta", {}).get("content", "") or choice.get("text", "")
+    final = json.loads(frames[-2])
+    return text, final["usage"]["completion_tokens"], final["choices"][0]["finish_reason"]
+
+
+def serve_crash_and_check(label: str, service, server, served_peak_gib: float) -> None:
+    """The crash phase, on the full-depth dense server (supervisor and
+    watchdog at their defaults): :func:`crash_jobs` answered once
+    uncrashed, then again with ``engine_thread_crash@step=CRASH_STEP``
+    armed, and one request posted while the supervisor rebuilds (from
+    inside the rebuild, so it lands in the window). Gates: one restart,
+    serving again; every request 200 but the one in the window, 503 with
+    Retry-After; each SSE stream's deltas the decode of exactly the token
+    ids streamed to it, as many as its usage counts; every live session
+    at the crash resurrected (at least 8 of them with emitted tokens);
+    crash-replay tokens booked; B1 and B2 launched after the rebuilt
+    engine's precompile, by their card counters; nothing captured after
+    it; the allocated memory after within 0.5 GiB of that at the crash,
+    and the peak from the crash on at most the served peak plus the dead
+    engine's KV cache. Printed: recovery seconds, the memory, the streams
+    equal to the uncrashed run's (not gated: a bf16 replay prefill writes
+    rows a decode step wrote before)."""
+    from langstream_tpu_torch.runtime import faults
+    from langstream_tpu_torch.runtime import supervisor as supervisor_lib
+
+    rng = np.random.default_rng(1)
+    jobs = crash_jobs(rng)
+    sup = service.supervisor
+    first = service.engine
+    assert sup is not None and sup.restarts == 0 and sup.watchdog is not None
+    twin = _post_all(server, jobs)
+    gc.collect()  # what is allocated at the crash is then the server's own
+    # each stream's token ids as the server pushed them to its decoder
+    pushed = []
+    stream_decoder = service.tokenizer.stream_decoder
+
+    def recording_decoder():
+        decoder = stream_decoder()
+        ids = []
+        pushed.append(ids)
+        push = decoder.push
+
+        def record(token_id):
+            ids.append(int(token_id))
+            return push(token_id)
+
+        decoder.push = record
+        return decoder
+
+    info = {}
+    drain = first.drain_for_recovery
+
+    def drained():
+        requests = drain()
+        info.update(live=len(requests), replayed=sum(1 for r in requests if r.replay_tokens),
+                    before_gib=torch.cuda.memory_allocated() / 2**30,
+                    kv_gib=sum(t.numel() * t.element_size() for t in first.cache.values()) / 2**30)
+        torch.cuda.reset_peak_memory_stats()
+        return requests
+
+    factory = sup.factory
+
+    def rebuild():
+        info["window"] = _post_status(server, "/v1/completions", {"prompt": "in the window",
+                                                                  "max_tokens": 4})
+        started = time.perf_counter()
+        engine = factory()
+        info["factory_s"] = time.perf_counter() - started
+        info["precompile_s"] = engine.precompile_s
+        info["launches"] = launches_lib.read(shapes=True)
+        info["captured"] = engine.steps.stats["captured"]
+        return engine
+
+    resurrected = supervisor_lib.SESSIONS_RESURRECTED.value()
+    first.drain_for_recovery = drained
+    sup.factory = rebuild
+    service.tokenizer.stream_decoder = recording_decoder
+    faults.configure(f"engine_thread_crash@step={CRASH_STEP}")
+    try:
+        with launches_lib.device_launches(shapes=True) as launches:
+            started = time.perf_counter()
+            with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+                replies = list(pool.map(lambda job: _post_status(server, *job), jobs))
+            wall = time.perf_counter() - started
+    finally:
+        faults.reset()
+        sup.factory = factory
+        del service.tokenizer.stream_decoder
+    gc.collect()
+    engine = service.engine
+    after_gib = torch.cuda.memory_allocated() / 2**30
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    status, headers, raw = info["window"]
+    same = tokens = 0
+    for (path, body), (code, _, reply), twin_raw in zip(jobs, replies, twin):
+        if code == 200:
+            text, got, _ = _reply_text(reply, body.get("stream", False))
+            tokens += got
+            same += text == _reply_text(twin_raw, body.get("stream", False))[0]
+    after = {name: launches[name] - info["launches"][name] for name in launches}
+    log(f"crash [{label}]: engine_thread_crash@step={CRASH_STEP} with {info['live']} live sessions "
+        f"({info['replayed']} with emitted tokens), recovered in {sup.last_recovery_s:.3f}s (the factory "
+        f"{info['factory_s']:.3f}s, its precompile {info['precompile_s']:.3f}s; restarts {sup.restarts}, "
+        f"state {sup.state}); {len(jobs)} requests answered {sorted(code for code, _, _ in replies)} in "
+        f"{wall:.3f}s ({tokens} completion tokens), the one in the rebuild window {status} with "
+        f"Retry-After {headers.get('Retry-After')}; crash-replay tokens "
+        f"{engine.stats['tokens_wasted'].get('crash_replay')}; launches after the rebuilt engine's "
+        f"precompile {after}; allocated {info['before_gib']:.2f} GiB at the crash, peak {peak_gib:.2f} GiB "
+        f"during the rebuild (served peak {served_peak_gib:.2f}, dead engine's KV "
+        f"{info['kv_gib']:.2f}), {after_gib:.2f} GiB after; {same}/{len(jobs)} streams equal to the "
+        f"uncrashed run's (printed, not gated: bf16 replay prefill over decode-written KV)")
+    assert sup.restarts == 1 and sup.state == "serving" and engine is not first, (sup.restarts, sup.state)
+    assert status == 503 and int(headers["Retry-After"]) >= 1, (status, headers, raw)
+    for (path, body), (code, _, reply) in zip(jobs, replies):
+        assert code == 200, (path, code, reply)
+        text, got, finish = _reply_text(reply, body.get("stream", False))
+        assert got == body["max_tokens"] or finish == "stop", (path, got, finish)
+        if body.get("stream"):
+            matches = [ids for ids in pushed if service.tokenizer.decode(ids) == text]
+            assert any(len(ids) == got for ids in matches), (text, got, [len(ids) for ids in pushed])
+    assert len(pushed) == sum(bool(body.get("stream")) for _, body in jobs), len(pushed)
+    assert supervisor_lib.SESSIONS_RESURRECTED.value() - resurrected == info["live"], info
+    assert info["replayed"] >= 8, info
+    assert engine.stats["tokens_wasted"].get("crash_replay", 0) > 0, engine.stats["tokens_wasted"]
+    assert after["flash_prefill"] > 0 and after["flash_decode"] > 0, after
+    assert engine.steps.stats["captured"] == info["captured"], "a variant was captured after the rebuild"
+    assert abs(after_gib - info["before_gib"]) <= 0.5, (after_gib, info)
+    assert peak_gib <= served_peak_gib + info["kv_gib"], (peak_gib, served_peak_gib, info)
+
+
+def serve_watchdog_and_check(label: str) -> None:
+    """Watchdog escalation at ``CONTROL_LAYERS``: the watchdog's
+    thresholds cut short through the provider config, and
+    ``stuck_step@step=3;dur=14`` wedging the third decode dispatch of a
+    16-request burst. The watchdog trips, escalates, and the supervisor
+    condemns the engine; its thread outlives the 10 s join and wakes
+    while the rebuilt engine captures its graphs. Gates: the trips reach
+    ``escalate-trips``; one restart; every live session resurrected and
+    every request answered 200; the condemned engine emits nothing after
+    its drain and its thread ends."""
+    from langstream_tpu_torch.runtime import faults
+
+    settings = {"interval": 0.1, "no-progress-s": 1.0, "trip-cooldown-s": 0.3, "escalate-trips": 2,
+                "escalate-window-s": 120, "capture-seconds": 1.0}
+    service, server = start_llama_server(engine_config={"watchdog": settings}, layers=CONTROL_LAYERS)
+    captures = os.environ.get("LANGSTREAM_PROFILE_DIR", "")
+    before = set(os.listdir(captures)) if os.path.isdir(captures) else set()
+    sup = service.supervisor
+    first, dog = service.engine, sup.watchdog
+    rng = np.random.default_rng(2)
+    jobs = [("/v1/completions", {"prompt": prompt_text(rng, 120 + 8 * i), "max_tokens": 48})
+            for i in range(16)]
+    info = {}
+    drain = first.drain_for_recovery
+
+    def drained():
+        requests = drain()
+        info.update(live=len(requests), generated=first.stats["tokens_generated"])
+        return requests
+
+    first.drain_for_recovery = drained
+    faults.configure("stuck_step@step=3;dur=14")
+    try:
+        started = time.perf_counter()
+        replies = _post_all(server, jobs)
+        wall = time.perf_counter() - started
+        zombie = first._thread
+        if zombie is not None:
+            zombie.join(timeout=60)
+        assert zombie is None or not zombie.is_alive(), "the condemned engine thread did not end"
+        assert first.stats["tokens_generated"] == info["generated"], "the condemned engine emitted"
+        tokens, _ = _answered(jobs, replies)
+        assert dog.trips >= settings["escalate-trips"], dog.trips
+        assert sup.restarts == 1 and sup.state == "serving", (sup.restarts, sup.state)
+        assert info["live"] == len(jobs), info
+        # the trip's torch.profiler capture (printed, not gated)
+        new = sorted(set(os.listdir(captures)) - before) if os.path.isdir(captures) else []
+        traces = [os.path.join(captures, name, "trace.json") for name in new]
+        sizes = [os.path.getsize(path) for path in traces if os.path.exists(path)]
+        log(f"watchdog [{label}]: {CONTROL_LAYERS} layers, stuck_step@step=3;dur=14, watchdog {settings}: "
+            f"{dog.trips} trips, escalated, rebuilt in {sup.last_recovery_s:.3f}s; {info['live']} live "
+            f"sessions resurrected, {len(jobs)} requests answered in {wall:.3f}s ({tokens} completion "
+            f"tokens); the condemned engine emitted nothing after its drain and its thread ended; "
+            f"the trip's profiler capture: {len(new)} directories, Chrome traces of {sizes} bytes")
+    finally:
+        faults.reset()
+        server.stop()
+        service.close()
+
+
+def serve_shedding_and_check(label: str) -> None:
+    """Load shedding at ``CONTROL_LAYERS``: ``--queue-timeout-s 0.25``
+    against 96 concurrent completions of 64 tokens on 32 slots. Gates: at
+    least one request shed; each shed request answered 503 with
+    Retry-After, every other 200; ``requests_shed_total{reason=
+    "queue_timeout"}`` on ``/metrics`` equal to the 503s."""
+    service, server = start_llama_server("--queue-timeout-s", "0.25", layers=CONTROL_LAYERS)
+    rng = np.random.default_rng(3)
+    jobs = [("/v1/completions", {"prompt": prompt_text(rng, 100 + 2 * i), "max_tokens": 64})
+            for i in range(96)]
+    try:
+        started = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+            replies = list(pool.map(lambda job: _post_status(server, *job), jobs))
+        wall = time.perf_counter() - started
+        with urllib.request.urlopen(f"http://127.0.0.1:{server.port}/metrics", timeout=60) as response:
+            exposition = response.read().decode()
+    finally:
+        server.stop()
+        service.close()
+    shed = [reply for reply in replies if reply[0] == 503]
+    served = [reply for reply in replies if reply[0] == 200]
+    assert shed and len(shed) + len(served) == len(jobs), [reply[0] for reply in replies]
+    assert all(int(headers["Retry-After"]) >= 1 and "queue timeout" in raw for _, headers, raw in shed)
+    line = 'requests_shed_total{reason="queue_timeout"} '
+    exposed = [float(row[len(line):]) for row in exposition.splitlines() if row.startswith(line)]
+    assert exposed == [float(len(shed))], (exposed, len(shed))
+    retry = sorted(int(headers["Retry-After"]) for _, headers, _ in shed)
+    log(f"shedding [{label}]: {CONTROL_LAYERS} layers, --queue-timeout-s 0.25, 96 requests on 32 slots in "
+        f"{wall:.3f}s: {len(served)} answered 200, {len(shed)} shed with 503 (Retry-After "
+        f"{retry[0]}-{retry[-1]} s), /metrics requests_shed_total{{reason=\"queue_timeout\"}} "
+        f"{exposed[0]:.0f}")
 
 
 def serve_paged_and_check(label: str, kv_quant: bool = False, mixed: bool = False,
@@ -2032,7 +2333,7 @@ def serve_paged_and_check(label: str, kv_quant: bool = False, mixed: bool = Fals
         replies, wall, launches, host, stats, peak_gib = run_burst(service, server, jobs, warmup)
     finally:
         server.stop()
-        service.engine.stop()
+        service.close()
     if mixed:
         time_paged_steps(service.engine)
     tokens = check_replies(jobs, replies)
@@ -2168,7 +2469,7 @@ def serve_sessions_and_check(label: str, paged: bool = False, kv_quant: bool = F
                         "role": "user", "content": f"turn {turn + 2}: " + prompt_text(rng, 30)}]
     finally:
         server.stop()
-        service.engine.stop()
+        service.close()
     cow = (service.engine.kv_manager.stats["cow_copies"] - cow) if paged else 0
     kind = ("paged" if paged else "dense") + (" int8 KV" if kv_quant else "")
     log(f"sessions {kind} [{label}]: " + "; ".join(
@@ -2207,7 +2508,7 @@ def serve_spec_and_check(label: str, paged: bool = False, spec: bool = True, kv_
         replies, wall, launches, host, stats, peak_gib = run_burst(service, server, jobs)
     finally:
         server.stop()
-        service.engine.stop()
+        service.close()
     tokens, texts = _answered(jobs, replies)
     _kernel_gates(stats, launches, host, paged, kv_quant)
     calls = stats["model_dispatches"]
@@ -2322,7 +2623,7 @@ def serve_checkpoint_and_check(label: str, path: str, random_run: dict, gate: di
     finally:
         del service.engine.generate
         server.stop()
-        service.engine.stop()
+        service.close()
     tokens = check_replies(jobs, replies)
     _kernel_gates(stats, launches, host, paged=False, kv_quant=False)
     report(label, "dense checkpoint --logprobs-top-k 5", jobs, wall, tokens, stats, launches, host,
@@ -2367,6 +2668,8 @@ def serve_checkpoint_and_check(label: str, path: str, random_run: dict, gate: di
 
 
 def main() -> None:
+    # the watchdog's trip captures go under build/, which git ignores
+    os.environ.setdefault("LANGSTREAM_PROFILE_DIR", os.path.join("build", "profiles"))
     device = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     label = card_label()
@@ -2404,6 +2707,7 @@ def main() -> None:
     mixed = functools.partial(serve_paged_and_check, mixed=True)
     warm_split = functools.partial(serve_paged_and_check, warm=True)  # the mixed run's twin
     pipelined = serve_dense_and_check
+    dense_crash = functools.partial(serve_dense_and_check, crash=True)  # then the crash phase
     ctl_pipelined = functools.partial(serve_dense_and_check, **small)
     eager = functools.partial(serve_dense_and_check, graphs=False, **small)
     unpipelined = functools.partial(serve_dense_and_check, extra=("--no-pipeline-decode",), **small)
@@ -2423,7 +2727,7 @@ def main() -> None:
     paged_spec = functools.partial(serve_spec_and_check, paged=True)
     paged_spec_off = functools.partial(serve_spec_and_check, paged=True, spec=False)
     for serve, kv_quant, names in (
-        (pipelined, False, ("flash_prefill", "flash_decode")),
+        (dense_crash, False, ("flash_prefill", "flash_decode")),
         (ctl_pipelined, False, ()),
         (jax_harvest, False, ()),
         (eager, False, ()),
@@ -2492,7 +2796,7 @@ def main() -> None:
         "/ device ms): " + ", ".join(f"{t['wall_ms']:.2f} / {t['graph_wall_ms']:.3f} / {t['device_ms']:.3f}"
                                      for _, t in bare))
     # the int8-weight phase beside the bf16 one, both at full depth
-    bf16, int8 = runs[pipelined, False][0], runs[int8_weights, False][0]
+    bf16, int8 = runs[dense_crash, False][0], runs[int8_weights, False][0]
     log(f"bare decode step, bf16 vs int8 weights (32 slots x 512 rows): eager wall "
         f"{bf16['timing']['wall_ms']:.2f} vs {int8['timing']['wall_ms']:.2f} ms, graphed wall "
         f"{bf16['timing']['graph_wall_ms']:.3f} vs {int8['timing']['graph_wall_ms']:.3f} ms, device "
@@ -2510,15 +2814,21 @@ def main() -> None:
     # directory and read back, then served with top-K logprobs
     try:
         gate = check_checkpoint(device)
-        serve_checkpoint_and_check(label, CHECKPOINT_DIR, runs[pipelined, False][0], gate)
+        serve_checkpoint_and_check(label, CHECKPOINT_DIR, runs[dense_crash, False][0], gate)
     finally:
         shutil.rmtree(CHECKPOINT_DIR, ignore_errors=True)
+    # the watchdog's escalation and load shedding, at CONTROL_LAYERS
+    for phase in (serve_watchdog_and_check, serve_shedding_and_check):
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase(label)
     for item in kernels:
         item["launches"] = launches[item["name"]]
         assert item["launches"] > 0, item
         for shape in ("decode", "prefill", "verify"):
             if f"{item['name']}/{shape}" in launches:
                 item[f"{shape}_launches"] = launches[f"{item['name']}/{shape}"]
+    log(f"chip_smoke: {time.perf_counter() - STARTED:.1f}s of wall time since torch was imported")
     log(label)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

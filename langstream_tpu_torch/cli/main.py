@@ -7,6 +7,7 @@ import argparse
 import logging
 from typing import Any, Dict, List, Optional, Tuple
 
+from langstream_tpu_torch.providers.torch_local.engine import engines_histograms, engines_snapshot
 from langstream_tpu_torch.providers.torch_local.model import LlamaConfig
 from langstream_tpu_torch.providers.torch_local.provider import TorchCompletionsService
 from langstream_tpu_torch.serving.openai_api import OpenAIApiServer
@@ -82,6 +83,27 @@ def build_parser() -> argparse.ArgumentParser:
         help="enable OpenAI top_logprobs up to K alternatives per token (static: "
              "every step computes the top K; 0 = off)",
     )
+    serve.add_argument(
+        "--no-watchdog", action="store_true",
+        help="disable the decode-stall watchdog (on by default for serve: step-latency "
+             "degradation, no-progress and KV-pool livelock detection, with evidence capture "
+             "and, after repeated trips, an engine restart)",
+    )
+    serve.add_argument(
+        "--no-supervisor", action="store_true",
+        help="disable the engine supervisor (on by default: an engine crash or a watchdog "
+             "escalation snapshots every live session, rebuilds the engine and resumes each "
+             "stream bitwise)",
+    )
+    serve.add_argument(
+        "--max-restarts", type=int, default=3,
+        help="supervisor: engine rebuilds allowed inside the restart window before giving up",
+    )
+    serve.add_argument(
+        "--queue-timeout-s", type=float, default=0,
+        help="admission deadline: a request pending longer is shed with 503 and Retry-After "
+             "(0 = off)",
+    )
     serve.add_argument("--host", default="0.0.0.0")
     serve.add_argument("--port", type=int, default=8000)
     return parser
@@ -112,6 +134,12 @@ def serve_config(args: argparse.Namespace) -> Dict[str, Any]:
             "admission-chunk": args.admission_chunk or "",
             "precompile": bool(args.precompile),
             "logprobs-top-k": args.logprobs_top_k,
+            # the decode-stall watchdog: on by default for serve
+            "watchdog": not args.no_watchdog,
+            # the engine supervisor: crash → snapshot → rebuild → resume
+            "supervisor": not args.no_supervisor,
+            "max-restarts": args.max_restarts,
+            "queue-timeout-s": args.queue_timeout_s or "",
         },
     }
     try:
@@ -140,11 +168,13 @@ def start_server(
 ) -> Tuple[TorchCompletionsService, OpenAIApiServer]:
     """Build the service (the checkpoint's weights, or random ones from
     seed 0) from ``config`` (default: :func:`serve_config` of ``args``)
-    and start the server thread; the caller owns stopping both. ``step_graphs=False`` serves
-    with eager dispatch, a control for measurements."""
+    and start the server thread; the caller owns stopping both (``server.stop()``,
+    ``service.close()``). ``step_graphs=False`` serves with eager dispatch, a control
+    for measurements."""
     service = TorchCompletionsService(
         config or serve_config(args), device=args.device, step_graphs=step_graphs)
-    server = OpenAIApiServer(service, model=args.model, host=args.host, port=args.port)
+    server = OpenAIApiServer(service, model=args.model, host=args.host, port=args.port,
+                             gauges=engines_snapshot, histograms=engines_histograms)
     server.start()
     return service, server
 
@@ -160,4 +190,4 @@ def main(argv: Optional[List[str]] = None) -> None:
         pass
     finally:
         server.stop()
-        service.engine.stop()
+        service.close()

@@ -109,9 +109,21 @@ path over the paged one:
   static outputs of its graph; they cross to the host in the same copy as
   the tokens and land in ``GenerationResult.top_logprobs``.
 
-Not in this slice (ROADMAP.md): host KV tiers and handoffs, the replay of
-a resurrected session at harvest, the supervisor and the telemetry
-planes.
+- **Self-healing** (``runtime/supervisor.py``): with ``on_crash`` set, a
+  crashed engine thread hands its live sessions to the hook instead of
+  failing every waiter; :meth:`DecodeEngine.drain_for_recovery` turns
+  each into a replay request, and a rebuilt engine prefills ``prompt +
+  replay[:-1]`` and fast-forwards the slot through the accepted tokens
+  (:meth:`DecodeEngine._resume_replay`): the pending token and the
+  penalty counts are written in place into the static buffers the
+  graphs read, so the continuation is bitwise the uncrashed one. The
+  fault points of ``runtime/faults.py`` (``dispatch_error``,
+  ``stuck_step``, ``engine_thread_crash``) sit on the host, never inside
+  a capture. ``queue_timeout_s`` sheds a request that waited longer for
+  admission with a typed ``QueueTimeoutError`` (HTTP 503).
+
+Not in this slice (ROADMAP.md): host KV tiers and handoffs and the
+telemetry planes beyond ``/metrics``' gauges.
 """
 
 from __future__ import annotations
@@ -120,13 +132,16 @@ import asyncio
 import dataclasses
 import logging
 import queue
+import sys
 import threading
 import time
+import weakref
 from typing import Any, Callable, Dict, List, Optional, Set, Tuple
 
 import numpy as np
 import torch
 
+from langstream_tpu_torch.api import errors as api_errors
 from langstream_tpu_torch.device import resolve_device
 from langstream_tpu_torch.ops.paged_attention import fused_shapes_ok
 from langstream_tpu_torch.providers.torch_local import model as model_lib
@@ -140,8 +155,146 @@ from langstream_tpu_torch.providers.torch_local.graphs import (
 )
 from langstream_tpu_torch.providers.torch_local.paged import PagedKVManager
 from langstream_tpu_torch.providers.torch_local.quant import QTensor, quantize_params
+from langstream_tpu_torch.runtime import faults, flight
+from langstream_tpu_torch.runtime.threadsafe import stable_items, stable_list
 
 logger = logging.getLogger(__name__)
+
+# live engines, for /metrics (weak: a stopped engine's tensors must not
+# be pinned by the metrics path; a superseded one is retired at once)
+_LIVE_ENGINES: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def _supervisor_module():
+    """The supervisor module iff something in this process imported it:
+    an unsupervised process exports none of the recovery families."""
+    return sys.modules.get("langstream_tpu_torch.runtime.supervisor")
+
+
+def engines_histograms() -> Dict[str, Dict[str, float]]:
+    """Histogram snapshots for ``/metrics``: the supervisor's
+    ``engine_recovery_seconds`` once a supervisor exists."""
+    supervisor_mod = _supervisor_module()
+    return supervisor_mod.supervisor_histograms() if supervisor_mod is not None else {}
+
+
+def engines_snapshot() -> Dict[str, float]:
+    """Prometheus gauges over every live engine of this process, as the
+    JAX ``engines_snapshot`` gives them: the recovery, shedding and
+    watchdog families under the JAX names (``engine_restarts_total``,
+    ``sessions_resurrected_total``, ``engine_degraded``,
+    ``requests_shed_total{reason}``, ``watchdog_trips_total``), the paged
+    pool's and speculation's series under theirs, and the engine's own
+    counters as ``torch_engine_*`` where the JAX engine says
+    ``jax_engine_*``."""
+    out: Dict[str, float] = {}
+    tokens = steps = chunks = requests = 0
+    session_hits = prefix_hits = prefix_tokens = 0
+    decode_time = prefill_time = 0.0
+    paged_engines = kv_blocks_in_use = kv_blocks_total = 0
+    prefix_hit_tokens = prefix_evictions = 0
+    spec_engines = spec_drafted = spec_accepted = 0
+    wasted: Dict[str, int] = dict.fromkeys(("evicted_recompute", "draft_rejected", "crash_replay"), 0)
+    shed_engines = 0
+    shed: Dict[str, int] = {"queue_timeout": 0}
+    # snapshot-tolerant reads: a supervisor rebuild registers the new
+    # engine from the dying engine thread, and the engine thread adds new
+    # wasted/shed reasons while a scrape iterates
+    live_engines = stable_list(_LIVE_ENGINES)
+    for engine in live_engines:
+        stats = engine.stats
+        tokens += stats["tokens_generated"]
+        steps += stats["decode_steps"]
+        chunks += stats["decode_chunks"]
+        requests += stats["requests"]
+        decode_time += stats["decode_time"]
+        prefill_time += stats["prefill_time"]
+        session_hits += stats["session_hits"]
+        prefix_hits += stats["prefix_hits"]
+        prefix_tokens += stats["prefix_tokens_reused"]
+        for reason, count in stable_items(stats["tokens_wasted"]):
+            wasted[reason] = wasted.get(reason, 0) + count
+        if engine.queue_timeout_s:
+            shed_engines += 1
+        for reason, count in stable_items(stats["requests_shed"]):
+            shed[reason] = shed.get(reason, 0) + count
+        if engine.spec:
+            spec_engines += 1
+            spec_drafted += stats["tokens_drafted"]
+            spec_accepted += stats["tokens_draft_accepted"]
+        if engine.kv_manager is not None:
+            paged_engines += 1
+            kv_blocks_in_use += engine.kv_manager.blocks_in_use
+            kv_blocks_total += engine.num_blocks
+            prefix_hit_tokens += engine.kv_manager.stats["hit_tokens"]
+            prefix_evictions += engine.kv_manager.stats["evictions"]
+    if live_engines:
+        # the series exist from construction (0 included): rate() alerts
+        # need them before the first trip
+        from langstream_tpu_torch.runtime.watchdog import trips_total
+
+        out["watchdog_trips_total"] = float(trips_total())
+        out["torch_engine_queue_depth"] = float(sum(e.queue_depth for e in live_engines))
+    if paged_engines:
+        out["kv_blocks_in_use"] = float(kv_blocks_in_use)
+        out["kv_blocks_total"] = float(kv_blocks_total)
+        out["prefix_cache_hit_tokens_total"] = float(prefix_hit_tokens)
+        out["prefix_cache_evictions_total"] = float(prefix_evictions)
+    if spec_engines:
+        out["spec_tokens_drafted_total"] = float(spec_drafted)
+        out["spec_tokens_accepted_total"] = float(spec_accepted)
+        out["spec_acceptance_rate"] = round(spec_accepted / spec_drafted, 4) if spec_drafted else 0.0
+    if shed_engines or any(shed.values()):
+        # admission deadlines armed (or sheds already made)
+        for reason, count in sorted(shed.items()):
+            out[f'requests_shed_total{{reason="{reason}"}}'] = float(count)
+    # the recovery families exist even with no live engine: mid-rebuild is
+    # when an operator scrapes for them
+    supervisor_mod = _supervisor_module()
+    if supervisor_mod is not None:
+        out.update(supervisor_mod.supervisor_gauges())
+    if not (tokens or steps):
+        return out
+    out["torch_engine_requests"] = float(requests)
+    out["torch_engine_session_hits"] = float(session_hits)
+    out["torch_engine_prefix_hits"] = float(prefix_hits)
+    out["torch_engine_prefix_tokens_reused"] = float(prefix_tokens)
+    out["torch_engine_tokens_generated"] = float(tokens)
+    out["torch_engine_decode_steps"] = float(steps)
+    out["torch_engine_decode_chunks"] = float(chunks)
+    out["torch_engine_decode_time_seconds"] = round(decode_time, 6)
+    out["torch_engine_prefill_time_seconds"] = round(prefill_time, 6)
+    if steps:
+        out["torch_engine_decode_ms_per_step"] = round(decode_time / steps * 1e3, 4)
+    for reason, count in sorted(wasted.items()):
+        out[f'torch_engine_tokens_wasted_total{{reason="{reason}"}}'] = float(count)
+    return out
+
+
+def fail_request_future(request: "GenerationRequest", error: BaseException) -> None:
+    """Deliver ``error`` to a request's waiter from any thread: the one
+    future-failing path of crash fail-fast, load shedding, the retired
+    queue's stragglers and the supervisor's give-up."""
+    future = request.future
+    if future is None:
+        return
+
+    def resolve() -> None:
+        if not future.done():
+            future.set_exception(error)
+
+    if request.loop is not None:
+        try:
+            request.loop.call_soon_threadsafe(resolve)
+        except RuntimeError:
+            pass  # the waiter's loop is already closed
+    else:
+        resolve()
+
+
+class _Condemned(Exception):
+    """Raised on a condemned engine's thread before it would launch:
+    the supervisor took over while the thread slept or worked."""
 
 # the step variants of a prefill call: the model call, cold or at an
 # offset, and the first-token sampling behind it
@@ -179,6 +332,15 @@ class GenerationRequest:
     # set from ANY thread via cancel(); the engine finishes the request
     # with reason "cancelled" at the next token boundary
     cancelled: bool = False
+    # session resurrection (runtime/supervisor.py): the tokens a crashed
+    # engine had already emitted. drain_for_recovery rewrites
+    # prompt_tokens to prompt + replay[:-1], prefilled as any prompt, and
+    # the harvest fast-forwards the slot through them instead of emitting
+    # a fresh sample. prompt_len keeps the original prompt length
+    replay_tokens: Optional[List[int]] = None
+    replay_logprobs: Optional[List[float]] = None
+    replay_tops: Optional[List[Tuple[List[int], List[float]]]] = None
+    prompt_len: Optional[int] = None
 
     def cancel(self) -> None:
         self.cancelled = True
@@ -325,7 +487,15 @@ class DecodeEngine:
         logprobs_topk: int = 0,           # top-K alternatives a token
                                           # (OpenAI `top_logprobs`); static:
                                           # it shapes every step's outputs
+        queue_timeout_s: Optional[float] = None,  # admission deadline: a
+                                          # request pending longer is shed
+                                          # with QueueTimeoutError (None = off)
     ) -> None:
+        # chaos and evidence planes, as every JAX engine construction arms
+        # them (a rebuilt engine re-arms the same spec; the arrival
+        # counters are process-global, so a one-shot fault stays consumed)
+        faults.configure_from_env()
+        flight.configure_from_env()
         self.device = resolve_device(device)
         self.config = config
         self.max_slots = max_slots
@@ -457,10 +627,23 @@ class DecodeEngine:
         self._thread: Optional[threading.Thread] = None
         self._running = False
         self._crashed: Optional[BaseException] = None
+        # supervised mode (runtime/supervisor.py): a crashed engine thread
+        # hands its live sessions to this hook instead of failing every
+        # waiter. Unset, the engine fails fast
+        self.on_crash: Optional[Callable[[BaseException], None]] = None
+        self.queue_timeout_s = float(queue_timeout_s) if queue_timeout_s else None
+        # EWMA seconds per decode step: the Retry-After estimate of a shed
+        self._step_ewma: Optional[float] = None
+        # set once drain_for_recovery swept the queue: a later submit
+        # fails itself, since nothing reads the queue again
+        self._recovery_drained = False
         # end of the latest processed chunk: pipelined chunks overlap, so
         # decode_time sums the union of their intervals
         self._decode_busy_until = 0.0
         self.stats = self._fresh_stats()
+        _LIVE_ENGINES.add(self)
+        flight.record("engine_start", slots=max_slots, ctx=self.max_seq_len,
+                      layout=kv_layout, device=str(self.device))
 
     @staticmethod
     def _fresh_stats() -> Dict[str, Any]:
@@ -468,6 +651,11 @@ class DecodeEngine:
             "requests": 0,
             "prefill_calls": 0,
             "decode_steps": 0,    # model decode steps, mixed steps included
+            "decode_chunks": 0,   # decode chunks and mixed steps processed
+            # tokens an average active slot gained, summed over chunks:
+            # decode_steps without speculation (the watchdog's per-token
+            # normalizer, as the JAX engine's)
+            "decode_token_steps": 0.0,
             "decode_time": 0.0,   # wall secs inside decode chunks and mixed
                                   # steps (the union of pipelined ones)
             "tokens_generated": 0,
@@ -485,8 +673,11 @@ class DecodeEngine:
             "tokens_draft_accepted": 0,
             # tokens computed for nothing, by reason: "evicted_recompute"
             # (a follow-up re-prefilling its evicted session's rows),
-            # "draft_rejected" (drafts the verify pass rejected)
+            # "draft_rejected" (drafts the verify pass rejected),
+            # "crash_replay" (a resurrected session's replay prefill)
             "tokens_wasted": {},
+            # requests failed fast at their admission deadline, by reason
+            "requests_shed": {},
             "mixed_steps": 0,            # mixed prefill+decode model calls
             "mixed_time": 0.0,           # wall secs inside them (in decode_time too)
             "mixed_admit_time": 0.0,     # summed admission → first-token secs
@@ -515,6 +706,9 @@ class DecodeEngine:
     # ------------------------------------------------------------------ #
     def start(self) -> None:
         if self._crashed is not None:
+            if self.on_crash is not None:
+                raise api_errors.EngineRebuildingError(
+                    "engine is rebuilding after a crash; retry shortly", retry_after_s=2.0)
             raise RuntimeError("decode engine crashed") from self._crashed
         if self._thread is not None:
             return
@@ -531,12 +725,25 @@ class DecodeEngine:
             self._thread.join(timeout=30)
             self._thread = None
         self._prefill_inflight = []
+        flight.record("engine_stop", tokens=self.stats["tokens_generated"],
+                      requests=self.stats["requests"], decode_steps=self.stats["decode_steps"])
+        flight.flush()
+
+    @property
+    def queue_depth(self) -> int:
+        """Requests waiting for a slot: the submit queue and the pending
+        list (each read an atomic snapshot)."""
+        return self._queue.qsize() + len(self._pending)
 
     def submit(self, request: GenerationRequest) -> None:
         """Enqueue a request; safe from any thread. Its ``future`` (an
         asyncio future with ``loop`` set, or a concurrent.futures.Future)
-        receives the :class:`GenerationResult`."""
+        receives the :class:`GenerationResult`. A crashed engine under a
+        supervisor raises :class:`EngineRebuildingError` (HTTP 503)."""
         if self._crashed is not None:
+            if self.on_crash is not None:
+                raise api_errors.EngineRebuildingError(
+                    "engine is rebuilding after a crash; retry shortly", retry_after_s=2.0)
             raise RuntimeError("decode engine crashed") from self._crashed
         bias = request.sampling.logit_bias
         if bias and len(bias) > self.MAX_LOGIT_BIAS:
@@ -557,7 +764,15 @@ class DecodeEngine:
         request._submit_ts = time.perf_counter()  # type: ignore[attr-defined]
         self._queue.put(request)
         if self._crashed is not None:
-            self._fail_all_pending()
+            # crashed between the check above and the put: the loop never
+            # drains the queue again
+            if self.on_crash is None:
+                self._fail_all_pending()
+            elif self._recovery_drained:
+                # the recovery drain already swept the queue: fail any
+                # stray (this request too, unless the drain took it) with
+                # the typed retryable error
+                self._fail_stragglers()
 
     async def generate(
         self,
@@ -653,10 +868,26 @@ class DecodeEngine:
                             self._process_decode(inflight)
                             inflight = None
                             self._harvest_prefills(block=False)
+        except _Condemned:
+            # the supervisor took this engine over while its thread slept
+            # or worked: it owns the sessions now, and nothing is launched
+            # or emitted from here
+            logger.warning("condemned engine thread exits")
         except BaseException as exc:  # noqa: BLE001 — fail every waiter, re-raise
             logger.exception("engine loop crashed")
+            # the crash flag first, so a racing submit either lands in the
+            # queue the hook drains or raises
             self._crashed = exc
             self._running = False
+            # the flight artifact is the crash's on-disk evidence
+            flight.record("engine_crash", error=repr(exc)[:512])
+            flight.flush()
+            if self.on_crash is not None:
+                # supervised: the live sessions stay in the queue, pending
+                # list and slots for the hook, which runs the whole heal
+                # arc on this dying thread; the crash is logged and handled
+                self.on_crash(exc)
+                return
             self._fail_all_pending()
             raise
 
@@ -704,7 +935,9 @@ class DecodeEngine:
         already enqueued and never rows a warm prefill is about to
         overwrite (every call is enqueued on the one stream in this
         order). Without copies it is warm first (a warm suffix is much
-        cheaper than a cold batch)."""
+        cheaper than a cold batch). A request that waited past
+        ``queue_timeout_s`` is shed first (:meth:`_shed_expired`)."""
+        self._shed_expired()
         if any(r.cancelled for r in self._pending):
             keep = []
             for request in self._pending:
@@ -834,6 +1067,47 @@ class DecodeEngine:
                     progressed = True
             if not progressed:
                 return
+
+    def _shed_expired(self) -> None:
+        """Admission deadlines (``queue_timeout_s``): a pending request
+        older than the deadline fails fast with a typed
+        :class:`QueueTimeoutError` instead of starving in the queue while
+        its caller times out anyway."""
+        timeout = self.queue_timeout_s
+        if not timeout or not self._pending:
+            return
+        now = time.perf_counter()
+        keep: List[GenerationRequest] = []
+        for request in self._pending:
+            waited = now - getattr(request, "_submit_ts", now)
+            if waited < timeout:
+                keep.append(request)
+            else:
+                self._shed(request, waited)
+        self._pending = keep
+
+    def _shed(self, request: GenerationRequest, waited: float) -> None:
+        shed = self.stats["requests_shed"]
+        shed["queue_timeout"] = shed.get("queue_timeout", 0) + 1
+        self.stats["requests"] += 1
+        # Retry-After ≈ when a slot plausibly frees: the backlog this
+        # request would wait behind × the EWMA step time
+        step_s = self._step_ewma if self._step_ewma else 0.05
+        retry_after = max(1.0, len(self._pending) * step_s)
+        flight.record("request_shed", reason="queue_timeout", waited_s=round(waited, 3),
+                      queue_depth=len(self._pending), retry_after_s=round(retry_after, 3))
+        fail_request_future(request, api_errors.QueueTimeoutError(
+            f"request waited {waited:.2f}s in the admission queue (queue timeout "
+            f"{self.queue_timeout_s}s); shed before admission — retry later",
+            retry_after_s=retry_after))
+
+    def _check_condemned(self) -> None:
+        """Called before any launch: a thread the supervisor condemned
+        (``request_restart``) while it slept in a wedged step or worked
+        must launch nothing on the retired engine's released state. A
+        plain :meth:`stop` condemns nothing."""
+        if self._crashed is not None:
+            raise _Condemned()
 
     # a partial prefix match must cover at least this many tokens to be
     # worth a warm admission; a full extension of the pinned history always
@@ -1000,6 +1274,7 @@ class DecodeEngine:
         bucket)``. A window may copy past ``length``: those rows are
         overwritten by the suffix prefill or lie past the slot's length,
         and decode writes a row before it reads it."""
+        self._check_condemned()
         largest = self.prefill_buckets[-1]
         position = 0
         while position < length:
@@ -1015,6 +1290,7 @@ class DecodeEngine:
     def _dispatch_block_copy(self, src: int, dst: int) -> None:
         """Copy pool block ``src`` into ``dst`` across every layer and leaf
         (copy-on-write), one replay of ``Variant("block_copy")``."""
+        self._check_condemned()
         self.steps.run(Variant("block_copy", 0), dict(
             src=np.asarray([src], dtype=np.int64), dst=np.asarray([dst], dtype=np.int64)))
         self.kv_manager.stats["cow_copies"] += 1
@@ -1446,6 +1722,8 @@ class DecodeEngine:
         """Cold prefills with the first token sampled right behind the
         call, dispatched without blocking: :meth:`_harvest_prefills`
         emits the tokens. Groups split to power-of-two sizes."""
+        faults.check("dispatch_error")
+        self._check_condemned()
         for group in _pow2_groups(batch):
             started = time.perf_counter()
             size = len(group)
@@ -1463,7 +1741,8 @@ class DecodeEngine:
             out = self._first_token([request for _, request in group], slot_ids, logits, lengths)
             self.stats["prefill_calls"] += 1
             self.stats["prefill_time"] += time.perf_counter() - started
-            self._prefill_inflight.append({"group": list(group), "out": out})
+            self._prefill_inflight.append({"group": list(group), "out": out,
+                                           "epochs": self._epochs(group)})
 
     def _prefill_warm_batch(
         self, batch: List[Tuple[int, GenerationRequest, int]], bucket: int
@@ -1472,6 +1751,8 @@ class DecodeEngine:
         prefill-at-offset call writes every suffix. Groups split to
         power-of-two sizes and dispatch without blocking, like cold
         prefill."""
+        faults.check("dispatch_error")
+        self._check_condemned()
         for group in _pow2_groups(batch):
             started = time.perf_counter()
             size = len(group)
@@ -1493,8 +1774,10 @@ class DecodeEngine:
             )
             self.stats["warm_prefill_calls"] += 1
             self.stats["prefill_time"] += time.perf_counter() - started
+            pairs = [(index, request) for index, request, _ in group]
             self._prefill_inflight.append({
-                "group": [(index, request) for index, request, _ in group], "out": out,
+                "group": pairs, "out": out, "epochs": self._epochs(pairs),
+                "reused": {index: reused for index, _, reused in group},
             })
 
     def _prefill_long(self, index: int, request: GenerationRequest, reused: int) -> None:
@@ -1504,6 +1787,8 @@ class DecodeEngine:
         the final window samples (the JAX windows each sample, but each
         resets the slot's counts first, so only the last one's count
         stays) and records the first token for the harvest."""
+        faults.check("dispatch_error")
+        self._check_condemned()
         prompt = request.prompt_tokens
         self._assign_slot(index, request, reused)
         self.slots[index].prefilling = True
@@ -1519,7 +1804,15 @@ class DecodeEngine:
         out = self._first_token([request], slot_ids, logits, offsets + lengths)
         self.stats["warm_prefill_calls" if reused else "prefill_calls"] += 1
         self.stats["prefill_time"] += time.perf_counter() - started
-        self._prefill_inflight.append({"group": [(index, request)], "out": out})
+        self._prefill_inflight.append({"group": [(index, request)], "out": out,
+                                       "epochs": self._epochs([(index, request)]),
+                                       "reused": {index: reused}})
+
+    def _epochs(self, group: List[Tuple[int, GenerationRequest]]) -> List[int]:
+        """The slots' epochs when a prefill record is made: the harvest
+        emits only into slots still holding them (a recovery drain bumps
+        every live slot's)."""
+        return [self.slots[index].epoch for index, _ in group]
 
     def _harvest_at_loop(self, inflight: Optional[Dict[str, Any]]) -> None:
         """The run loop's harvest point, once the chunk in flight (if any)
@@ -1551,10 +1844,67 @@ class DecodeEngine:
             firsts, lps, *tops = self._from_host(record["out"])
             self.stats["prefill_time"] += time.perf_counter() - waited
             self._prefill_inflight.pop(0)
-            for row, (index, _) in enumerate(record["group"]):
+            for row, (index, request) in enumerate(record["group"]):
+                if self.slots[index].epoch != record["epochs"][row]:
+                    continue  # drained for recovery meanwhile
                 self.slots[index].prefilling = False
-                self._emit_token(index, int(firsts[row]), float(lps[row]), self._top(tops, row))
+                if request.replay_tokens:
+                    # a resurrected session: fast-forward through its
+                    # accepted tokens instead of emitting the prefill's
+                    # own sample (_resume_replay)
+                    self._resume_replay(index, request, reused=record.get("reused", {}).get(index, 0))
+                else:
+                    self._emit_token(index, int(firsts[row]), float(lps[row]), self._top(tops, row))
             block = every
+
+    def _resume_replay(self, index: int, request: GenerationRequest, reused: int = 0) -> None:
+        """Fast-forward a resurrected session (the JAX engine's
+        ``_resume_replay``). The harvested prefill taught the cache
+        ``prompt + replay[:-1]``; the slot takes the accepted tokens as
+        generated and ``replay[-1]`` as its pending token, whose KV row the
+        next decode step writes, so the continuation samples at position
+        ``len(prompt) + len(replay)`` with the key the uncrashed run used.
+        The prefill's own sample is discarded (its logits saw no penalty
+        state, and the caller already holds that position's token), and
+        the penalty counts are restored exactly (:meth:`_restore_counts`).
+        The replayed tokens are not emitted again: the caller's stream has
+        them; they re-enter the result through ``slot.generated``.
+
+        The pending token lives on the host (``slot.history[-1]``, staged
+        into the next chunk's static input); the counts row is written IN
+        PLACE into the buffer the captured graphs read."""
+        slot = self.slots[index]
+        replay = list(request.replay_tokens)
+        slot.generated = replay
+        lps = list(request.replay_logprobs or [])
+        slot.logprobs = lps + [0.0] * (len(replay) - len(lps))
+        if slot.tops is not None:
+            tops = list(request.replay_tops or [])
+            slot.tops = tops + [([], [])] * (len(replay) - len(tops))
+        slot.history.append(replay[-1])
+        self._restore_counts(index, replay)
+        # the TTFT anchor of the resumed span: the next emitted token is
+        # the first this engine produces for the request
+        request._first_token_ts = time.perf_counter()  # type: ignore[attr-defined]
+        self._waste("crash_replay", len(request.prompt_tokens) - reused)
+        flight.record("session_resume", slot=index, replayed=len(replay), reused_tokens=reused)
+        if request.cancelled:
+            self._finish(index, "cancelled")
+        elif (len(replay) >= request.sampling.max_new_tokens
+              or slot.length + 1 >= self.max_seq_len):
+            # the crash raced the finish: close it as the oracle did
+            self._finish(index, "length")
+
+    def _restore_counts(self, index: int, tokens: List[int]) -> None:
+        """Overwrite slot ``index``'s penalty-count row with the exact
+        multiset of ``tokens``, in place and in stream order after the
+        first-token sampling that reset it: a rebound tensor would leave
+        the captured graphs reading the old storage."""
+        row = np.zeros((self.config.vocab_size,), dtype=np.int32)
+        for token in tokens:
+            if 0 <= token < self.config.vocab_size:
+                row[token] += 1
+        self._counts[index].copy_(torch.from_numpy(row))
 
     def _can_chain(self, inflight: Dict[str, Any]) -> bool:
         """A chunk may be dispatched off the in-flight chunk's carry only
@@ -1915,6 +2265,12 @@ class DecodeEngine:
         instead (:meth:`_dispatch_mixed`)."""
         if carry is None and self._any_admitting():
             return self._dispatch_mixed()
+        # chaos on the host, before anything is staged or replayed: a
+        # dispatch that errs, or one that wedges (stuck_step sleeps) and
+        # may wake condemned
+        faults.check("dispatch_error")
+        faults.maybe_sleep("stuck_step")
+        self._check_condemned()
         started = time.perf_counter()
         slots = self.max_slots
         if carry is not None:
@@ -2009,7 +2365,8 @@ class DecodeEngine:
         ``completes``; only N's sampled tokens are unknown to the host,
         and they stay on the device. Returns ``{"riders", "windows",
         "width"}`` or the reason the next step is host-built:
-        ``admission`` (work N's sampling tensors do not cover), ``budget``
+        ``admission`` (work N's sampling tensors do not cover), ``replay``
+        (a resurrected session's prompt completes in N), ``budget``
         (a rider could finish by length during N), ``width`` (the ladder
         changes width), ``drained`` (no windows remain: plain chunks take
         over), ``epoch`` (a carried row's slot was recycled)."""
@@ -2029,6 +2386,10 @@ class DecodeEngine:
                 # sampling params are not in the carried tensors
                 return "epoch" if carried else "admission"
             if inflight["decode_mask"][i] or (i in prev_plan and inflight["completes"][i]):
+                if i in prev_plan and slot.request.replay_tokens:
+                    # a replay's completing window: its pending token is
+                    # replay[-1], not the step's sample
+                    return "replay"
                 riders.append(i)
             elif slot.prefill_pos is not None:
                 admitting.append(i)
@@ -2075,6 +2436,9 @@ class DecodeEngine:
         in-flight row's offset plus its count, and the tables and
         sampling tensors are the carry's; only the window tokens and the
         per-row counts upload."""
+        faults.check("dispatch_error")
+        faults.maybe_sleep("stuck_step")
+        self._check_condemned()
         started = time.perf_counter()
         slots = self.max_slots
         chained = carry is not None
@@ -2162,7 +2526,10 @@ class DecodeEngine:
         sampled, lps, *tops = self._from_host(step["out"])
         ended = time.perf_counter()
         busy = self._busy_since(step["started"], ended)
+        self._note_step_time(ended - step["started"])
         self.stats["decode_steps"] += 1
+        self.stats["decode_chunks"] += 1
+        self.stats["decode_token_steps"] += 1.0
         self.stats["mixed_steps"] += 1
         self.stats["decode_time"] += busy
         self.stats["mixed_time"] += busy
@@ -2184,9 +2551,16 @@ class DecodeEngine:
                 slot.prefill_pos = None
                 self.stats["warm_prefill_calls" if slot.prefill_reused else "prefill_calls"] += 1
                 self.stats["mixed_admit_time"] += ended - slot.prefill_t0
-                self._emit_token(i, int(sampled[i]), float(lps[i]), self._top(tops, i))
+                if slot.request.replay_tokens:
+                    # a resurrected session: fast-forward (_resume_replay)
+                    self._resume_replay(i, slot.request, reused=slot.prefill_reused)
+                else:
+                    self._emit_token(i, int(sampled[i]), float(lps[i]), self._top(tops, i))
         if stale_rows:
             self._note_carry_invalidation("stale_row", stale_rows)
+        # chaos: the engine thread dies after this step's tokens reached
+        # their callers (the JAX engine's point)
+        faults.check("engine_thread_crash")
 
     def _process_decode(self, chunk: Dict[str, Any]) -> None:
         if chunk.get("mixed"):
@@ -2194,8 +2568,15 @@ class DecodeEngine:
         out, lps, *rest = self._from_host(chunk["out"])
         spec, tops = (rest[:2], rest[2:]) if self.spec else ([], rest)
         steps, active = chunk["steps"], chunk["active"]
+        ended = time.perf_counter()
+        self._note_step_time((ended - chunk["started"]) / max(steps, 1))
         self.stats["decode_steps"] += steps
-        self.stats["decode_time"] += self._busy_since(chunk["started"], time.perf_counter())
+        self.stats["decode_chunks"] += 1
+        self.stats["decode_time"] += self._busy_since(chunk["started"], ended)
+        n_active = int(active.sum())
+        # per accepted token: a spec step yields 1 + its accepted drafts
+        self.stats["decode_token_steps"] += (
+            int(spec[0][active].sum()) / n_active if spec and n_active else float(steps))
         if spec:
             # a step emits 1 + its leading accepted drafts a slot: the 1 is
             # the token the verify logits fund either way
@@ -2225,6 +2606,14 @@ class DecodeEngine:
                     slot.length += 1
                     self._emit_token(i, int(out[i, j, b]), float(lps[i, j, b]),
                                      self._top(tops, i, j, b))
+        # chaos: the engine thread dies after this chunk's tokens reached
+        # their callers; the supervisor resurrects every live session from
+        # exactly here (the JAX engine's point)
+        faults.check("engine_thread_crash")
+
+    def _note_step_time(self, step_s: float) -> None:
+        """The EWMA seconds per decode step (the Retry-After of a shed)."""
+        self._step_ewma = step_s if self._step_ewma is None else 0.8 * self._step_ewma + 0.2 * step_s
 
     def _emit_token(self, index: int, token: int, logprob: float = 0.0,
                     top: Optional[Tuple[List[int], List[float]]] = None) -> None:
@@ -2270,9 +2659,12 @@ class DecodeEngine:
             logprobs = logprobs[:-1]
             if tops is not None:
                 tops = tops[:-1]
+        # a resurrected session's prompt_tokens hold prompt + replay[:-1]:
+        # usage reports the original prompt
         result = GenerationResult(
             tokens=generated,
-            prompt_tokens=len(request.prompt_tokens),
+            prompt_tokens=request.prompt_len if request.prompt_len is not None
+            else len(request.prompt_tokens),
             finish_reason=reason,
             logprobs=logprobs,
             top_logprobs=tops,
@@ -2336,8 +2728,13 @@ class DecodeEngine:
             self._post_future(
                 request,
                 GenerationResult(
-                    tokens=[], prompt_tokens=len(request.prompt_tokens),
+                    # a resurrected request cancelled before re-admission
+                    # still owes its caller the tokens already delivered
+                    tokens=list(request.replay_tokens or []),
+                    prompt_tokens=request.prompt_len if request.prompt_len is not None
+                    else len(request.prompt_tokens),
                     finish_reason="cancelled",
+                    logprobs=list(request.replay_logprobs or []),
                 ),
             )
 
@@ -2360,24 +2757,6 @@ class DecodeEngine:
     def _fail_all_pending(self) -> None:
         """Fail every waiter promptly: queued, pending and in a slot."""
         error = RuntimeError("decode engine crashed; see logs")
-
-        def fail(request: GenerationRequest) -> None:
-            future = request.future
-            if future is None:
-                return
-
-            def resolve() -> None:
-                if not future.done():
-                    future.set_exception(error)
-
-            if request.loop is not None:
-                try:
-                    request.loop.call_soon_threadsafe(resolve)
-                except RuntimeError:
-                    pass  # the waiter's loop is already closed
-            else:
-                resolve()
-
         while True:
             try:
                 item = self._queue.get_nowait()
@@ -2386,11 +2765,109 @@ class DecodeEngine:
             if item is not None:
                 self._pending.append(item)
         for request in self._pending:
-            fail(request)
+            fail_request_future(request, error)
         self._pending = []
         self._prefill_inflight = []
         for slot in self.slots:
             if slot.active:
-                fail(slot.request)
+                fail_request_future(slot.request, error)
                 slot.request = None
                 slot.prefilling = False
+
+    def _fail_stragglers(self) -> None:
+        """Fail, with the typed retryable error, any request left in this
+        retired engine's queue after the recovery drain swept it; requests
+        the drain took ride the resurrection."""
+        error = api_errors.EngineRebuildingError(
+            "engine is rebuilding after a crash; retry shortly", retry_after_s=2.0)
+        while True:
+            try:
+                item = self._queue.get_nowait()
+            except queue.Empty:
+                return
+            if item is not None:
+                fail_request_future(item, error)
+
+    # ------------------------------------------------------------------ #
+    # supervisor takeover (runtime/supervisor.py)
+    # ------------------------------------------------------------------ #
+    def drain_for_recovery(self) -> List[GenerationRequest]:
+        """Every live session of this dead or condemned engine as a
+        request the supervisor resubmits to a rebuilt one (the JAX
+        engine's ``drain_for_recovery``). A slot with emitted tokens
+        becomes a REPLAY request: ``prompt_tokens`` is rewritten to
+        ``prompt + generated[:-1]`` and the emitted tokens ride
+        ``replay_tokens``; queued, pending and still-prefilling requests
+        (no token reached their caller) go back untouched. Slots are
+        neutralized first (request dropped, epoch bumped), so a condemned
+        thread that wakes later emits into no resurrected stream."""
+        requests: List[GenerationRequest] = []
+        # the flag first, then the sweep: a submit whose put lands after
+        # this point is either collected below or fails itself in submit()
+        self._recovery_drained = True
+        while True:
+            try:
+                item = self._queue.get_nowait()
+            except queue.Empty:
+                break
+            if item is not None:
+                self._pending.append(item)
+        for slot in self.slots:
+            if not slot.active:
+                continue
+            request = slot.request
+            generated = list(slot.generated or [])
+            logprobs = list(slot.logprobs or [])
+            tops = list(slot.tops) if slot.tops is not None else None
+            slot.request = None
+            slot.prefilling = False
+            slot.prefill_pos = None
+            slot.epoch += 1
+            original = request.prompt_len if request.prompt_len is not None else len(
+                request.prompt_tokens)
+            if generated:
+                request.prompt_len = original
+                request.prompt_tokens = request.prompt_tokens[:original] + generated[:-1]
+                request.replay_tokens = generated
+                request.replay_logprobs = logprobs
+                request.replay_tops = tops
+            requests.append(request)
+        requests.extend(self._pending)
+        self._pending = []
+        self._prefill_inflight = []
+        return requests
+
+    def retire(self) -> None:
+        """Drop this engine from the ``/metrics`` aggregation at once (a
+        superseded engine must not count beside its replacement)."""
+        _LIVE_ENGINES.discard(self)
+
+    def release(self) -> None:
+        """Free a retired engine's device state before its replacement
+        allocates: wait for the work its stream has queued (a pipelined
+        chunk may be in flight at the crash, and the caching allocator
+        would hand its blocks to the new engine while it still writes
+        them), then reset its graphs and drop the KV cache, the penalty
+        counts and the step runner's static buffers. The weights are the
+        replacement's too and stay. A condemned thread that wakes later
+        checks ``_running`` before any launch (``_check_condemned``)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.steps.release()
+        self.cache = {}
+        self._counts = None
+        self._prefill_inflight = []
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    def absorb_stats(self, previous: Dict[str, Any]) -> None:
+        """Carry a crashed predecessor's cumulative counters into this
+        engine (before its thread starts), so no ``/metrics`` series
+        resets mid-incident."""
+        for key, value in previous.items():
+            if isinstance(value, dict):
+                mine = self.stats.setdefault(key, {})
+                for reason, count in value.items():
+                    mine[reason] = mine.get(reason, 0) + count
+            elif isinstance(value, (int, float)):
+                self.stats[key] = self.stats.get(key, 0) + value

@@ -48,7 +48,11 @@ The runner keeps ``Variant -> (graph, static inputs, static outputs)``:
   ``warm_on_call`` names (prefill: its dummy writes a real slot's rows)
   runs on the call's own inputs instead, which its body may run twice
   on: it writes the same rows and counts again. A capture that fails
-  raises, naming the variant; nothing falls back to eager dispatch.
+  raises, naming the variant; nothing falls back to eager dispatch. A
+  capture runs on the runner's own stream in ``thread_local`` mode
+  (:func:`capture`), so a rebuilt engine captures while other threads
+  live. :meth:`StepRunner.release` drops every graph and buffer when the
+  engine supervisor retires the engine.
 
 A replay runs no Python: the kernel wrappers count the launches they
 enqueue at the warm-up and the capture, never at a replay. What a
@@ -105,15 +109,22 @@ class Variant(NamedTuple):
 
 @contextlib.contextmanager
 def capture(graph: Any, pool: Any = None, stream: Any = None):
-    """``torch.cuda.graph`` with Python's cyclic garbage collector held
-    off: a collection during the capture may free another, unreachable
-    engine's graphs, and destroying a graph while a stream captures is a
-    call the capture forbids, which invalidates it (cuBLAS then reports
-    the failure at its next product)."""
+    """``torch.cuda.graph`` in ``thread_local`` capture mode, with
+    Python's cyclic garbage collector held off. The mode: a capture
+    forbids unsafe CUDA calls (a device synchronize, a blocking query)
+    from the capturing thread only, so a rebuilt engine's ``precompile``
+    can capture while the server's threads, the watchdog and a condemned
+    engine's thread live (the default ``global`` mode would fail the
+    capture on any of them). The capture stream is the runner's own, not
+    the legacy default stream, so no other thread's work joins it. The
+    collector: a collection during the capture may free another,
+    unreachable engine's graphs, and destroying a graph while a stream
+    captures invalidates the capture (cuBLAS then reports the failure at
+    its next product)."""
     enabled = gc.isenabled()
     gc.disable()
     try:
-        with torch.cuda.graph(graph, pool=pool, stream=stream):
+        with torch.cuda.graph(graph, pool=pool, stream=stream, capture_error_mode="thread_local"):
             yield
     finally:
         if enabled:
@@ -160,6 +171,17 @@ class StepRunner:
         # captures (uncaptured: warm-up runs) and their seconds, replays
         # (uncaptured: runs of the body), in all and by variant kind
         self.stats: Dict[str, Any] = {"captured": 0, "capture_s": 0.0, "replayed": 0, "kinds": {}}
+
+    def release(self) -> None:
+        """Drop every variant: its graph reset (the graph's share of the
+        pool handed back), its static inputs and outputs freed, and the
+        pool handle itself. The caller first waits for the work the
+        graphs have queued; the runner captures afresh if used again."""
+        for entry in self._entries.values():
+            if entry.graph is not None:
+                entry.graph.reset()
+        self._entries.clear()
+        self.pool = torch.cuda.graph_pool_handle() if self.graphed else None
 
     def prepare(self, key: Variant) -> None:
         """Capture ``key`` now on its dummy inputs, if it is not yet."""

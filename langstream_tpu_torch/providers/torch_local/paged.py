@@ -3,8 +3,8 @@
 Port of ``langstream_tpu/providers/jax_local/paged.py``, pure Python, kept
 whole (host tier and handoff hooks included) so that later slices keep
 its schema. The rolling chain digest it keys the host tier by is copied
-here from ``langstream_tpu/fleet/router.py``; the JAX package's chaos
-hook in :meth:`PagedKVManager.allocate` is not ported.
+here from ``langstream_tpu/fleet/router.py``. :meth:`PagedKVManager.allocate`
+holds the ``pool_exhausted`` fault point (``runtime/faults.py``).
 
 The device side is a global block pool ``[layers, num_blocks, block_size,
 kv_heads, head_dim]`` (``model.init_paged_cache``) addressed through
@@ -50,6 +50,8 @@ import hashlib
 import threading
 from collections import deque
 from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple
+
+from langstream_tpu_torch.runtime import faults
 
 # the reserved null block: block tables point padding / masked writes
 # here; attention never reads it through a live length mask
@@ -315,6 +317,10 @@ class PagedKVManager:
         genuinely cannot satisfy the request (every block referenced)."""
         if n <= 0:
             return []
+        if faults.fire("pool_exhausted") is not None:
+            # chaos (LANGSTREAM_FAULTS=pool_exhausted@...): report an
+            # exhausted pool without touching real state
+            return None
         if len(self._free) < n:
             self._evict(n - len(self._free))
         if len(self._free) < n:

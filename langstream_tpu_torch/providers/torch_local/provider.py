@@ -15,7 +15,9 @@ Configuration, with the JAX provider's keys::
              paged-kernel: fused, prefix-cache: true, kv-quant: int8,
              prefill-mode: mixed, prefill-chunk: 64, mixed-carry: on,
              pipeline-decode: true, admission-chunk: 4, precompile: true,
-             spec-decode: ngram, spec-k: 4, spec-ngram: 2, logprobs-top-k: 5}
+             spec-decode: ngram, spec-k: 4, spec-ngram: 2, logprobs-top-k: 5,
+             supervisor: true, max-restarts: 3, restart-window-s: 600,
+             watchdog: on, queue-timeout-s: 30}
 
 ``checkpoint`` names a HuggingFace model directory, loaded in bf16 onto
 the device as the JAX provider dispatches (``weights.load_checkpoint``):
@@ -44,23 +46,43 @@ engine starts (the JAX engine's ``precompile``). ``spec-decode: ngram``
 drafts ``spec-k`` tokens a decode step from each slot's own history
 (matching its trailing ``spec-ngram`` tokens) and verifies them in one
 model call. A request's ``session-id`` option (the OpenAI ``session_id``
-or ``user`` field) pins its KV rows for the session's next turn. Every
-other key that the JAX provider honours and the port does not
+or ``user`` field) pins its KV rows for the session's next turn.
+
+The engine supervisor (``runtime/supervisor.py``) is on by default, as in
+the JAX provider: a crash of the engine thread, or a watchdog
+escalation, snapshots every live session, releases the dead engine's
+device state, rebuilds the engine through a factory that holds the
+weights already on the card (and precompiles when the config asks), and
+resumes each stream bitwise; new requests meanwhile get 503 with
+``Retry-After``. ``max-restarts`` rebuilds within ``restart-window-s``
+are allowed, then it gives up and fails the waiters. ``supervisor:
+false`` (or ``LANGSTREAM_SUPERVISOR=0``) serves unsupervised: a crash
+fails every waiter. The supervisor heals Python-level crashes and wedged
+steps; a sticky CUDA error (an illegal address, say) poisons the
+process's CUDA context, and no rebuild in the process survives it.
+``watchdog`` (off unless set, as in the JAX provider; ``serve`` sets it
+on) runs the decode-stall watchdog; it also takes a mapping of
+:class:`~langstream_tpu_torch.runtime.watchdog.EngineWatchdog` settings
+(``interval``, ``no-progress-s``, ``trip-cooldown-s``,
+``escalate-trips``, ``escalate-window-s``, ``capture-profile``, ...),
+which turns it on with them. ``queue-timeout-s`` sheds a request that
+waited longer for admission with a 503 and ``Retry-After``.
+
+Every other key that the JAX provider honours and the port does not
 (:data:`UNPORTED_ENGINE_KEYS`, :data:`UNPORTED_KEYS`) raises when it is
-set to anything but the JAX default. The JAX provider's ``supervisor``
-(on by default there: an engine crash resumes every live stream) cannot
-be refused as a default: the port serves ``supervisor: false``, and a
-crash fails every waiter.
+set to anything but the JAX default.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import secrets
 import time
 import uuid
 from typing import Any, Dict, List, Optional
 
+from langstream_tpu_torch.api import errors as api_errors
 from langstream_tpu_torch.api.service import ChatChunk, ChatCompletionResult, ChatMessage
 from langstream_tpu_torch.device import resolve_device
 from langstream_tpu_torch.providers.torch_local import model as model_lib
@@ -82,14 +104,9 @@ def _on(value: Any) -> bool:
 # Keys the JAX provider honours that the port does not serve yet (ROADMAP.md,
 # Queue A), each with the test for a value other than the JAX default. Set,
 # they raise: served as if absent, a config would get another engine than
-# the one it asked for (``queue-timeout-s`` would never shed, ``mesh`` would
-# not shard).
+# the one it asked for (``mesh`` would not shard).
 UNPORTED_ENGINE_KEYS = {
     "kv-host-blocks": lambda value: int(value or 0) != 0,
-    "watchdog": lambda value: str(value).lower() in ("1", "true", "yes", "on"),
-    "queue-timeout-s": bool,
-    "max-restarts": lambda value: int(value or 3) != 3,
-    "restart-window-s": lambda value: float(value or 600.0) != 600.0,
 }
 UNPORTED_KEYS = {
     "slo": lambda value: any((value or {}).values()),  # JAX drops zero targets
@@ -107,6 +124,16 @@ def _refuse_unported(config: Dict[str, Any], engine_config: Dict[str, Any]) -> N
                     f"{where}{key}: {section[key]!r} is not ported to langstream_tpu_torch "
                     f"yet (see ROADMAP.md, Queue A); omit it"
                 )
+
+
+def _watchdog_settings(value: Any) -> Optional[Dict[str, Any]]:
+    """The watchdog's settings from the ``watchdog`` key: None (off) for
+    an unset or false flag; ``{}`` (the defaults) for a true one; a
+    mapping of :class:`EngineWatchdog` keyword arguments, dashes or
+    underscores, for a mapping."""
+    if isinstance(value, dict):
+        return {str(key).replace("-", "_"): setting for key, setting in value.items()}
+    return {} if str(value).lower() in ("1", "true", "yes", "on") else None
 
 
 def _buckets(value: Any) -> Optional[List[int]]:
@@ -170,8 +197,7 @@ class TorchCompletionsService:
             # real entropy by default, so unseeded requests differ across
             # processes
             sampling_seed = secrets.randbits(32)
-        self.engine = DecodeEngine(
-            model_config, params,
+        engine_kwargs = dict(
             device=self.device,
             max_slots=int(engine_config.get("max-slots", 8)),
             max_seq_len=(
@@ -211,17 +237,102 @@ class TorchCompletionsService:
             # OpenAI `top_logprobs`: static K per engine (it shapes every
             # step's outputs); requests may ask for any n <= K
             logprobs_topk=int(engine_config.get("logprobs-top-k", 0) or 0),
+            # admission deadline: a request pending longer is shed with a
+            # typed 503 instead of starving in the queue
+            queue_timeout_s=(
+                float(engine_config["queue-timeout-s"])
+                if engine_config.get("queue-timeout-s") else None
+            ),
         )
-        # the engine holds its own (quantized) copy: free the loaded one
+        precompile = _on(engine_config.get("precompile", ""))
+        weights = {"params": params}
         del params
+
+        def build_engine() -> DecodeEngine:
+            # the supervisor's rebuild runs this closure: the weights on
+            # the card are reused, never reloaded or drawn again
+            engine = DecodeEngine(model_config, weights["params"], **engine_kwargs)
+            # the engine holds the weights it serves (quantized, if asked):
+            # a rebuild takes those, and a loaded bf16 copy is freed
+            weights["params"] = engine.params
+            if precompile:
+                # every step variant captured and every prefill variant
+                # run before the first request, so none stalls traffic
+                engine.precompile()
+            return engine
+
+        watchdog = _watchdog_settings(engine_config.get(
+            "watchdog", os.environ.get("LANGSTREAM_WATCHDOG", "")))
+
+        def build_watchdog(engine: DecodeEngine):
+            from langstream_tpu_torch.runtime.watchdog import EngineWatchdog
+
+            return EngineWatchdog(engine, **watchdog)
+
+        # the engine supervisor: on by default, as in the JAX provider
+        self._supervisor = None
+        self._engine: Optional[DecodeEngine] = None
+        self._watchdog = None
+        supervised = str(engine_config.get(
+            "supervisor", os.environ.get("LANGSTREAM_SUPERVISOR", "1"))).lower() not in (
+            "0", "false", "no", "off")
+        if supervised:
+            from langstream_tpu_torch.runtime.supervisor import EngineSupervisor
+
+            self._supervisor = EngineSupervisor(
+                build_engine,
+                max_restarts=int(engine_config.get("max-restarts") or 3),
+                restart_window_s=float(engine_config.get("restart-window-s") or 600.0),
+                watchdog_factory=build_watchdog if watchdog is not None else None,
+            )
+        else:
+            self._engine = build_engine()
+            self._engine.start()
+            if watchdog is not None:
+                self._watchdog = build_watchdog(self._engine)
+                self._watchdog.start()
         # the most top_logprobs alternatives a token (0 = none): the
         # server validates requests against it
         self.top_logprobs_limit = self.engine.logprobs_topk
-        if _on(engine_config.get("precompile", "")):
-            # every step variant captured and every prefill variant run
-            # before the first request, so none stalls live traffic
-            self.engine.precompile()
-        self.engine.start()
+
+    @property
+    def engine(self) -> DecodeEngine:
+        """The current engine: the supervisor swaps it on a rebuild, so
+        callers read it here each time instead of keeping it."""
+        if self._supervisor is not None:
+            return self._supervisor.engine
+        return self._engine
+
+    @property
+    def supervisor(self):
+        """The engine supervisor, or None when serving unsupervised."""
+        return self._supervisor
+
+    @property
+    def watchdog(self):
+        """The current engine's watchdog, or None (the supervisor builds a
+        new one with every rebuilt engine)."""
+        if self._supervisor is not None:
+            return self._supervisor.watchdog
+        return self._watchdog
+
+    def available(self) -> Optional[float]:
+        """None while accepting work; else the seconds a caller should
+        wait (the supervisor is rebuilding a crashed engine). A supervisor
+        past its restart budget is ``failed``: its callers get a 500."""
+        supervisor = self._supervisor
+        if supervisor is not None and supervisor.state == "rebuilding":
+            return supervisor.retry_after()
+        return None
+
+    def close(self) -> None:
+        """Stop the watchdog and the engine (the supervisor owns both)."""
+        if self._supervisor is not None:
+            self._supervisor.stop()
+            return
+        if self.watchdog is not None:
+            self.watchdog.stop()
+        self.engine.stop()
 
     async def get_chat_completions(
         self,
@@ -251,6 +362,13 @@ class TorchCompletionsService:
         options: Dict[str, Any],
         stream_consumer: Optional[Any] = None,
     ) -> ChatCompletionResult:
+        wait = self.available()
+        if wait is not None:
+            # the supervisor is rebuilding: new work bounces with the typed
+            # retryable error before any engine work (the engine's submit
+            # backstops the race)
+            raise api_errors.EngineRebuildingError(
+                "engine is rebuilding after a crash; retry shortly", retry_after_s=wait)
         sampling = SamplingParams(
             temperature=float(options.get("temperature") or 0.0),
             top_k=int(options.get("top-k") or 0),

@@ -8,6 +8,19 @@ Port of ``langstream_tpu/serving/openai_api.py`` (an aiohttp app there):
   OpenAI chunk format, terminated by ``data: [DONE]``.
 - ``POST /v1/completions`` — prompt in (legacy text completions).
 - ``GET /v1/models`` and ``GET /healthz``.
+- ``GET /metrics`` — Prometheus text from the injected ``gauges`` and
+  ``histograms`` providers (``serve`` injects the engine's
+  ``engines_snapshot`` / ``engines_histograms``: the engine gauges, the
+  supervisor's recovery series, the sheds and the watchdog's trips).
+
+A typed :class:`~langstream_tpu_torch.api.errors.UnavailableError` (the
+engine rebuilding after a crash, a request shed at its queue deadline)
+answers 503 with ``Retry-After``, never 500: while the service's
+``available()`` says it rebuilds, a request is refused before any work;
+a streamed request sends its SSE headers only with its first delta, so
+a stream shed before it started gets the 503 too. With ``n`` > 1 the
+first real error among the choices reaches the client, not a sibling's
+cancellation.
 
 ``logprobs`` returns each token's logprob; ``top_logprobs: n`` (with
 ``logprobs: true``, n at most the service's ``top_logprobs_limit``, the
@@ -27,12 +40,15 @@ from __future__ import annotations
 import asyncio
 import json
 import logging
+import math
 import threading
 import time
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, List, Optional, Tuple
 
+from langstream_tpu_torch.api import errors as api_errors
+from langstream_tpu_torch.api.metrics import prometheus_text
 from langstream_tpu_torch.api.service import ChatMessage
 
 logger = logging.getLogger(__name__)
@@ -142,8 +158,12 @@ class OpenAIApiServer:
         model: str = "torch-local",
         host: str = "0.0.0.0",
         port: int = 8000,
+        gauges=None,       # () -> Dict[str, float], rendered on /metrics
+        histograms=None,   # () -> Dict[str, Dict[str, float]]
     ) -> None:
         self.completions = completions
+        self._gauges = gauges
+        self._histograms = histograms
         # the most top_logprobs alternatives the service keeps (0 = none)
         self._topk_limit = int(getattr(completions, "top_logprobs_limit", 0) or 0)
         self.model = model
@@ -205,8 +225,29 @@ class OpenAIApiServer:
             "type": "invalid_request_error" if status == 400 else "server_error",
         }})
 
+    @staticmethod
+    def _unavailable(handler, message: str, retry_after_s: float) -> None:
+        """A bounded 503 with ``Retry-After`` (whole seconds, at least 1):
+        the engine rebuilds, or the queue shed the request."""
+        data = json.dumps({"error": {"message": message, "type": "overloaded_error"}}).encode()
+        handler.send_response(503)
+        handler.send_header("Content-Type", "application/json")
+        handler.send_header("Content-Length", str(len(data)))
+        handler.send_header("Retry-After", str(max(1, math.ceil(retry_after_s))))
+        handler.end_headers()
+        handler.wfile.write(data)
+
     def _get(self, handler: BaseHTTPRequestHandler) -> None:
-        if handler.path == "/healthz":
+        if handler.path == "/metrics":
+            data = prometheus_text(
+                {}, self._gauges() if self._gauges else {},
+                self._histograms() if self._histograms else {}).encode()
+            handler.send_response(200)
+            handler.send_header("Content-Type", "text/plain; version=0.0.4")
+            handler.send_header("Content-Length", str(len(data)))
+            handler.end_headers()
+            handler.wfile.write(data)
+        elif handler.path == "/healthz":
             self._json(handler, 200, {"status": "ok", "model": self.model})
         elif handler.path == "/v1/models":
             self._json(handler, 200, {"object": "list", "data": [{
@@ -226,7 +267,19 @@ class OpenAIApiServer:
             return
         try:
             length = int(handler.headers.get("Content-Length") or 0)
-            body = json.loads(handler.rfile.read(length) or b"{}")
+            raw = handler.rfile.read(length)
+        except ValueError:
+            self._error(handler, 400, "invalid Content-Length")
+            return
+        # degraded mode: while the supervisor rebuilds a crashed engine,
+        # new work (streams included) answers 503 before any work
+        probe = getattr(self.completions, "available", None)
+        retry_in = probe() if callable(probe) else None
+        if retry_in is not None:
+            self._unavailable(handler, "engine is rebuilding after a crash; retry shortly", retry_in)
+            return
+        try:
+            body = json.loads(raw or b"{}")
         except (ValueError, json.JSONDecodeError):
             self._error(handler, 400, "invalid JSON body")
             return
@@ -259,6 +312,9 @@ class OpenAIApiServer:
             return
         try:
             results = asyncio.run(self._complete_n(complete, options, n))
+        except api_errors.UnavailableError as error:
+            self._unavailable(handler, str(error), error.retry_after_s)
+            return
         except (ValueError, TypeError) as error:
             self._error(handler, 400, str(error))
             return
@@ -342,19 +398,42 @@ class OpenAIApiServer:
         tasks = [asyncio.ensure_future(complete(options_override=o)) for o in per_choice]
         try:
             return await asyncio.gather(*tasks)
-        except BaseException:
-            for task in tasks:
-                task.cancel()  # free the siblings' slots
-            raise
+        except BaseException as first:
+            # a real failure cancels the siblings so their slots free; but
+            # when the first exception gather surfaces is a sibling's
+            # cancellation, the real error may still be pending in another
+            # choice, and cancelling it would lose the error the client
+            # needs (a 503 becomes a dropped connection)
+            if not isinstance(first, asyncio.CancelledError):
+                for task in tasks:
+                    if not task.done():
+                        task.cancel()
+            outcomes = await asyncio.gather(*tasks, return_exceptions=True)
+            if isinstance(first, asyncio.CancelledError):
+                for outcome in outcomes:
+                    if isinstance(outcome, BaseException) and not isinstance(
+                            outcome, asyncio.CancelledError):
+                        first = outcome
+                        break
+            raise first
 
     def _stream(self, handler, complete, chat: bool, completion_id: str,
                 created: int, options: Dict[str, Any]) -> None:
-        handler.send_response(200)
-        handler.send_header("Content-Type", "text/event-stream")
-        handler.send_header("Cache-Control", "no-cache")
-        handler.send_header("Connection", "close")
-        handler.end_headers()
+        """The SSE response. Its headers go out with the first delta (or
+        the end of a generation that produced none), so a request that
+        fails before it started, shed at its queue deadline or refused by
+        a rebuilding engine, still gets its plain 503 or error status."""
         chunk_object = "chat.completion.chunk" if chat else "text_completion"
+
+        def open_stream() -> None:
+            handler.send_response(200)
+            handler.send_header("Content-Type", "text/event-stream")
+            handler.send_header("Cache-Control", "no-cache")
+            handler.send_header("Connection", "close")
+            handler.end_headers()
+            if chat:
+                write(frame({"index": 0, "delta": {"role": "assistant", "content": ""},
+                             "finish_reason": None}))
 
         def frame(choice: Dict[str, Any], **extra) -> bytes:
             return _sse({
@@ -382,11 +461,21 @@ class OpenAIApiServer:
 
             task = asyncio.ensure_future(run())
             try:
-                if chat:
-                    write(frame({"index": 0, "delta": {"role": "assistant", "content": ""},
-                                 "finish_reason": None}))
+                opened = False
                 while True:
                     content, last = await chunks.get()
+                    if not opened:
+                        if task.done() and task.exception() is not None:
+                            # failed before its first delta: a plain status
+                            error = task.exception()
+                            if isinstance(error, api_errors.UnavailableError):
+                                self._unavailable(handler, str(error), error.retry_after_s)
+                            else:
+                                self._error(handler, 400 if isinstance(error, (ValueError, TypeError))
+                                            else 500, str(error))
+                            return
+                        open_stream()
+                        opened = True
                     if content:
                         choice: Dict[str, Any] = {"index": 0, "finish_reason": None}
                         if chat:

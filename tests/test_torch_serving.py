@@ -273,13 +273,19 @@ def test_provider_refuses_int8_weights():
 # honours and the port does not serve yet: (where, key, value)
 UNPORTED = [
     ("engine", "kv-host-blocks", 64),
-    ("engine", "watchdog", "on"),
-    ("engine", "queue-timeout-s", 1.5),
-    ("engine", "max-restarts", 5),
-    ("engine", "restart-window-s", 60),
     ("top", "slo", {"ttft-ms-p95": 200}),
     ("top", "mesh", {"tp": 2}),
 ]
+# keys the port serves since the self-healing slice, each with a value
+# other than the JAX default and the check that the service honours it
+HONOURED = {
+    "watchdog": ("on", lambda service: service.watchdog is not None
+                 and service.supervisor.watchdog is service.watchdog
+                 and service.watchdog.engine is service.engine),
+    "queue-timeout-s": (1.5, lambda service: service.engine.queue_timeout_s == 1.5),
+    "max-restarts": (5, lambda service: service.supervisor.max_restarts == 5),
+    "restart-window-s": (60, lambda service: service.supervisor.restart_window_s == 60.0),
+}
 # the JAX defaults, spelled out: served
 DEFAULTS = {
     "engine": {"kv-host-blocks": 0, "spec-decode": "off", "spec-k": 4, "spec-ngram": 2,
@@ -289,16 +295,22 @@ DEFAULTS = {
     "slo": {"ttft-ms-p95": 0},
     "mesh": None,
 }
+CASES = UNPORTED[:1] + [("engine", key, value) for key, (value, _) in HONOURED.items()] + UNPORTED[1:]
 
 
 @pytest.mark.parametrize(
-    "where,key,value", UNPORTED + [("defaults", None, None)],
-    ids=[key for _, key, _ in UNPORTED] + ["defaults-serve"],
+    "where,key,value", CASES + [("defaults", None, None)],
+    ids=[key for _, key, _ in CASES] + ["defaults-serve"],
 )
 def test_provider_refuses_keys_it_does_not_port(where, key, value):
     """Each key the JAX provider honours and the port does not raises
     when set to a non-default value, instead of being served as if it were
-    absent; the defaults, spelled out, still serve."""
+    absent; the keys the port serves since the self-healing slice
+    (``watchdog``, ``queue-timeout-s``, ``max-restarts``,
+    ``restart-window-s``) reach the service: the watchdog built and
+    watching the engine, the engine's admission deadline, the
+    supervisor's restart budget and window; the defaults, spelled out,
+    still serve."""
     config = {"model": {"preset": "tiny", "max_seq_len": 64}, **DEFAULTS,
               "engine": dict(DEFAULTS["engine"])}
     if where == "defaults":
@@ -306,10 +318,22 @@ def test_provider_refuses_keys_it_does_not_port(where, key, value):
         try:
             result = asyncio.run(service.get_text_completions(["once"], {"max-tokens": 3}))
             assert result.completion_tokens == 3
+            # the defaults: supervised, no watchdog, no deadline
+            assert service.supervisor is not None and service.watchdog is None
+            assert service.engine.queue_timeout_s is None
         finally:
-            service.engine.stop()
+            service.close()
         return
     (config["engine"] if where == "engine" else config)[key] = value
+    if key in HONOURED:
+        service = TorchCompletionsService(config, device="cpu")
+        try:
+            assert HONOURED[key][1](service), key
+            result = asyncio.run(service.get_text_completions(["once"], {"max-tokens": 3}))
+            assert result.completion_tokens == 3
+        finally:
+            service.close()
+        return
     with pytest.raises(NotImplementedError, match=f"{key}.*ROADMAP.md"):
         TorchCompletionsService(config, device="cpu")
 
