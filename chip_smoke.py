@@ -177,14 +177,37 @@ Phases (any failure propagates and the exit code is not 0):
    shed, each 503 with Retry-After, the rest 200, ``/metrics``'
    ``requests_shed_total`` equal to the 503s).
 
+11. Embeddings and vector search (no kernel of their own: the encoder is
+   plain PyTorch in f32, the search one matrix-vector product and a
+   top-k). MiniLM-L6 at full width (``EncoderConfig.minilm_l6``, random
+   weights drawn on the card, seed 0) on the card against the CPU, within
+   1e-4 on unit vectors, no NaN, padding rows zero, TF32 off; device and
+   wall ms per call at (rows, bucket) (1, 16), (8, 256), (64, 256) beside
+   the f32 bound. Those weights written as a HF BERT directory under
+   ``build/`` and loaded back onto the card with ``weights.load_hf_bert``
+   bit for bit. Then ``serve --precompile`` at ``CONTROL_LAYERS`` with a
+   ``TorchEmbeddingsService`` (``preset: minilm-l6``, byte tokenizer):
+   16 chats fired with 512 texts in requests of 1-64 inputs (every
+   request 200, 16 sampled vectors within 1e-4 of the CPU's, no capture),
+   the one-text call's HTTP and embedder wall against its device time;
+   then embeddings called while a fresh engine's ``precompile`` captures
+   (answered, equal to the CPU's; every variant captured). Then the
+   vector store at 262,144 x 384 f32 through ``upsert``: 256 cosine
+   top-10 queries against the host's numpy ranking (near-tie swaps
+   within 1e-5 allowed and counted), after 1,000 deletes and re-upserts
+   again, and l2 on 65,536 rows; upsert seconds, the first search's
+   upload, ms per search against the bound (the matrix read once).
+
 The line before the last holds the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
+import asyncio
 import concurrent.futures
 import dataclasses
 import functools
 import gc
+import http.server
 import json
 import os
 import re
@@ -262,6 +285,14 @@ SCALE_BYTES = 8
 # depth of the in-turns control phases of earlier slices (the main paths
 # run at Llama-3-8B's full 32 layers)
 CONTROL_LAYERS = 8
+# H100 SXM FP32 peak outside the tensor cores: the encoder and the vector
+# search run in f32, and nothing turns TF32 on
+PEAK_FP32_FLOPS = 66.9e12
+# the f32 encoder on the card against the CPU, on unit vectors: cuBLAS and
+# the CPU's GEMMs sum in other orders
+EMBED_TOLERANCE = 1e-4
+# search scores on the card against the host's numpy scores (unit vectors)
+SEARCH_TOLERANCE = 1e-5
 # (name, source, TPU kernel) of each kernel, B1-B8
 SOURCES = {
     "flash_prefill": ("flash_prefill.cu", "flash_attention.py:64"),
@@ -350,7 +381,8 @@ def entry(name, worst_abs, kernel_ms, plain_ms, bound_ms, bound_by, library_ms) 
 # a HuggingFace checkpoint of the port's params, written without the
 # safetensors package: the script needs only torch and numpy
 # ---------------------------------------------------------------------- #
-SAFETENSORS_NAMES = {torch.bfloat16: "BF16", torch.float16: "F16", torch.float32: "F32"}
+SAFETENSORS_NAMES = {torch.bfloat16: "BF16", torch.float16: "F16", torch.float32: "F32",
+                     torch.int64: "I64"}
 
 
 def hf_tensors(config, params):
@@ -1755,13 +1787,14 @@ def graph_pool_gib(engine):
 
 
 def start_llama_server(*extra: str, kv_quant: bool = False, graphs: bool = True,
-                       engine_config=None, layers=None):
+                       engine_config=None, layers=None, embeddings=None):
     """``serve --precompile`` with these flags; ``kv_quant`` adds
     ``kv-quant: int8`` to the provider's engine config, the way a
     deployment asks for it, and ``engine_config`` its other keys (``serve``
     has no flag for either); ``layers`` cuts the model's depth (the
     in-turns controls); ``graphs=False`` builds the engine with eager
-    dispatch (the control; no flag or key reaches that). The decode chunk
+    dispatch (the control; no flag or key reaches that); ``embeddings``
+    serves ``/v1/embeddings`` from that service. The decode chunk
     is 8, not ``bench.py``'s 32: a chunk is chained only while every rider
     has two chunks of budget left, and at 32 no request of these bursts
     (32-62 tokens) would ever chain."""
@@ -1776,7 +1809,7 @@ def start_llama_server(*extra: str, kv_quant: bool = False, graphs: bool = True,
     if layers:
         config["model"]["num_layers"] = layers
     t0 = time.perf_counter()
-    service, server = start_server(args, config, step_graphs=graphs)
+    service, server = start_server(args, config, step_graphs=graphs, embeddings=embeddings)
     engine = service.engine
     pool = graph_pool_gib(engine)
     kinds = engine.steps.stats["kinds"]
@@ -2667,6 +2700,525 @@ def serve_checkpoint_and_check(label: str, path: str, random_run: dict, gate: di
         f"prefill groups follow arrival timing)")
 
 
+# ---------------------------------------------------------------------- #
+# embeddings and vector search (the encoder, its HF loader, the
+# embeddings service beside the completions engine, the vector store)
+# ---------------------------------------------------------------------- #
+BERT_DIR = os.path.join("build", "minilm-checkpoint")
+ENCODER_SHAPES = ((1, 16), (8, 256), (64, 256))  # (rows, bucket) timed
+
+
+def encoder_bound(config, rows: int, bucket: int):
+    """(ms, "bytes" or "operations"): the least time of one encoder call
+    at (rows, bucket) in f32: every padded token through every layer
+    (8 h² + 4 h f for the projections and the MLP, 4 T h for QKᵀ and
+    P·V, a multiply-add two operations) over the FP32 peak, against the
+    layer weights read once, the embedding and position rows gathered,
+    the ids and mask in and the vectors out over the HBM rate."""
+    h, f, layers = config.hidden_size, config.intermediate_size, config.num_layers
+    tokens = rows * bucket
+    flops = tokens * layers * (8 * h * h + 4 * h * f + 4 * bucket * h)
+    weights = layers * (4 * h * h + 2 * h * f + 9 * h + f)
+    nbytes = 4 * (weights + tokens * h + bucket * h + rows * h) + 5 * tokens
+    by_ops, by_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
+
+
+def _cpu_twin(config, params):
+    from langstream_tpu_torch.providers.torch_local.embeddings import TorchEmbedder
+    from langstream_tpu_torch.providers.torch_local.tokenizer import ByteTokenizer
+
+    return TorchEmbedder(config, {name: leaf.cpu() for name, leaf in params.items()},
+                         ByteTokenizer(), device="cpu")
+
+
+def check_encoder_against_cpu(device, label: str):
+    """MiniLM-L6 at full width (all-MiniLM-L6-v2's shape, f32), random
+    weights drawn on the card (``init_encoder_params`` seed 0, the
+    provider's draw for ``preset: minilm-l6``): a batch of 8 texts of
+    mixed lengths and one of 5 (three pow2 padding rows) on the card
+    against the CPU run of the same weights, within ``EMBED_TOLERANCE``,
+    no NaN, padding rows zero. TF32 must be off. Then device ms (CUDA
+    events, the encoder alone) and wall ms per call (the embedder's
+    ``encode_batch``: ids up, its own stream, vectors down) at
+    ``ENCODER_SHAPES``, each beside its f32 bound, and its kernels by
+    device time from a profiler trace. Returns (config,
+    params, timings)."""
+    from langstream_tpu_torch.providers.torch_local.embeddings import (
+        EncoderConfig,
+        TorchEmbedder,
+        encode,
+        init_encoder_params,
+    )
+    from langstream_tpu_torch.providers.torch_local.tokenizer import ByteTokenizer
+
+    assert not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on"
+    assert torch.get_float32_matmul_precision() == "highest", torch.get_float32_matmul_precision()
+    config = EncoderConfig.minilm_l6()
+    params = init_encoder_params(config, seed=0, device=device)
+    card = TorchEmbedder(config, params, ByteTokenizer(), device=device)
+    cpu = _cpu_twin(config, params)
+    rng = np.random.default_rng(14)
+    texts = [prompt_text(rng, n) for n in (12, 40, 90, 150, 230, 300, 600, 1000)]
+    worst = 0.0
+    for batch in (texts, texts[:5]):
+        tokens, mask = card.batch(batch)
+        got, want = card.encode_batch(tokens, mask), cpu.encode_batch(tokens, mask)
+        assert not torch.isnan(got).any()
+        worst = max(worst, float((got - want).abs().max()))
+        assert worst <= EMBED_TOLERANCE, (tokens.shape, worst)
+        assert torch.equal(got[len(batch):], torch.zeros_like(got[len(batch):]))
+    log(f"encoder [{label}]: MiniLM-L6 f32 (h 384, 6 layers, 12 heads, f 1536) on the card against "
+        f"the CPU, batches of 8 and 5 texts (rows 8, buckets {card.batch(texts)[0].shape[1]} and "
+        f"{card.batch(texts[:5])[0].shape[1]}): max abs {worst:.3e} (tol {EMBED_TOLERANCE}), no NaN, "
+        f"padding rows zero")
+    timings = []
+    with torch.inference_mode():
+        for rows, bucket in ENCODER_SHAPES:
+            tokens = rng.integers(0, config.vocab_size, (rows, bucket)).astype(np.int32)
+            mask = np.ones((rows, bucket), dtype=bool)
+            ids, keep = torch.from_numpy(tokens).to(device), torch.from_numpy(mask).to(device)
+            device_ms = one_call_ms(lambda: encode(config, params, ids, keep))
+            wall_ms = call_ms(lambda: card.encode_batch(tokens, mask), iters=10)
+            bound_ms, bound_by = encoder_bound(config, rows, bucket)
+            timings.append(dict(rows=rows, bucket=bucket, device_ms=device_ms, wall_ms=wall_ms,
+                                bound_ms=bound_ms, bound_by=bound_by))
+            log(f"encoder [{label}]: ({rows}, {bucket}) by kernel: "
+                + top_kernels(lambda: encode(config, params, ids, keep)))
+            log(f"encoder [{label}]: (rows, bucket) ({rows}, {bucket}): device {device_ms:.4f} ms, "
+                f"wall {wall_ms:.4f} ms per call, f32 bound {bound_ms:.4f} ms ({bound_by}; "
+                f"{rows * bucket / device_ms * 1e3:.0f} tokens/s, "
+                f"{rows / wall_ms * 1e3:.1f} vectors/s)")
+    return config, params, timings
+
+
+def bert_tensors(config, params, token_types):
+    """(HF name, tensor) of the encoder's params in a HF ``BertModel``
+    checkpoint's layout: each layer's ``[in, out]`` matrix as the ``[out,
+    in]`` view HF stores, with ``token_types`` (2 rows) and a pooler and
+    the position-id buffer, which the loader must skip."""
+    h, layers = config.hidden_size, config.num_layers
+    out = [("embeddings.word_embeddings.weight", params["tok_emb"]),
+           ("embeddings.position_embeddings.weight", params["pos_emb"]),
+           ("embeddings.token_type_embeddings.weight", token_types),
+           ("embeddings.LayerNorm.weight", params["emb_norm_w"]),
+           ("embeddings.LayerNorm.bias", params["emb_norm_b"]),
+           ("embeddings.position_ids", torch.arange(config.max_positions)[None])]
+    for i in range(layers):
+        p = f"encoder.layer.{i}."
+        for key, name in (("q", "attention.self.query"), ("k", "attention.self.key"),
+                          ("v", "attention.self.value"), ("o", "attention.output.dense"),
+                          ("_in", "intermediate.dense"), ("_out", "output.dense")):
+            out.append((p + name + ".weight", params["w" + key][i].t()))
+            out.append((p + name + ".bias", params["b" + key][i]))
+        for key, name in (("attn_norm", "attention.output.LayerNorm"), ("mlp_norm", "output.LayerNorm")):
+            out.append((p + name + ".weight", params[key + "_w"][i]))
+            out.append((p + name + ".bias", params[key + "_b"][i]))
+    out += [("pooler.dense.weight", torch.zeros(h, h)), ("pooler.dense.bias", torch.zeros(h))]
+    return out
+
+
+def check_bert_checkpoint(device, config, params, label: str, path: str = BERT_DIR) -> None:
+    """The encoder's drawn weights written as a HF BERT directory
+    (``config.json``, one safetensors file, random token-type rows) by
+    this script's writer, loaded back onto the card with
+    ``weights.load_hf_bert``: config equal, every leaf bit for bit, the
+    token-type row 0 folded into ``tok_emb`` as the card adds it."""
+    from langstream_tpu_torch.providers.torch_local import weights
+
+    token_types = torch.randn(2, config.hidden_size, device=device,
+                              generator=torch.Generator(device=device).manual_seed(1)) * 0.02
+    os.makedirs(path, exist_ok=True)
+    try:
+        with open(os.path.join(path, "config.json"), "w") as fh:
+            json.dump({"architectures": ["BertModel"], "model_type": "bert",
+                       "vocab_size": config.vocab_size, "hidden_size": config.hidden_size,
+                       "intermediate_size": config.intermediate_size,
+                       "num_hidden_layers": config.num_layers,
+                       "num_attention_heads": config.num_heads,
+                       "max_position_embeddings": config.max_positions,
+                       "layer_norm_eps": config.norm_eps, "hidden_act": "gelu",
+                       "type_vocab_size": 2, "torch_dtype": "float32"}, fh, indent=2)
+        started = time.perf_counter()
+        written = write_safetensors(os.path.join(path, "model.safetensors"),
+                                    bert_tensors(config, params, token_types))
+        write_s = time.perf_counter() - started
+        started = time.perf_counter()
+        loaded_config, loaded = weights.load_hf_bert(path, device=device)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - started
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    assert loaded_config == config, (loaded_config, config)
+    assert sorted(loaded) == sorted(params)
+    want = dict(params, tok_emb=params["tok_emb"] + token_types[0][None, :])
+    for name, leaf in want.items():
+        assert loaded[name].device == leaf.device and loaded[name].dtype == leaf.dtype, name
+        assert torch.equal(loaded[name], leaf), name
+    log(f"BERT checkpoint [{label}]: MiniLM-L6 f32 written as a HF BERT directory "
+        f"({written / 1e6:.1f} MB of safetensors) in {write_s:.2f}s, loaded onto the card with "
+        f"weights.load_hf_bert in {load_s:.2f}s: config equal, {len(want)} leaves equal bit for "
+        f"bit (token-type row 0 folded into tok_emb)")
+
+
+def one_call_ms(fn, repeats: int = 5) -> float:
+    """Device time of one call of ``fn`` that launches hundreds of small
+    kernels (the eager encoder: about 290 a call): :func:`time_ms` over a
+    single call behind the sleep kernel, the median of ``repeats``. Ten
+    calls' launches overflow the card's queue of pending work, and the
+    host then paces the card again inside the timed window."""
+    return float(np.median([time_ms(fn, warmup=1, iters=1) for _ in range(repeats)]))
+
+
+def top_kernels(fn, top: int = 5) -> str:
+    """The kernels of one call of ``fn`` from a ``torch.profiler`` trace:
+    their count, the sum of their durations (gaps between them left
+    out), and the ``top`` by device time (name, calls, µs); or why there
+    is none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+
+    def device_us(event):
+        return getattr(event, "self_device_time_total", None) or getattr(
+            event, "self_cuda_time_total", 0.0)
+
+    kernels = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                     key=device_us, reverse=True)
+    if not kernels:
+        return "no kernel in the trace (not measured)"
+    return (f"{sum(e.count for e in kernels)} kernels, {sum(device_us(e) for e in kernels):.0f} µs "
+            f"summed; top: " + "; ".join(f"{e.key[:48]} x{e.count} {device_us(e):.0f} µs"
+                                         for e in kernels[:top]))
+
+
+def _post_timed(server, path, body):
+    """(status, body text, seconds to the answer) of one request."""
+    started = time.perf_counter()
+    status, _, raw = _post_status(server, path, body)
+    return status, raw, time.perf_counter() - started
+
+
+def serve_embeddings_and_check(label: str, device, config, params) -> dict:
+    """Embeddings beside the completions engine, as the JAX ``serve`` runs
+    both in one process: ``serve --precompile`` with Llama-3-8B at
+    ``CONTROL_LAYERS`` and a ``TorchEmbeddingsService`` over
+    ``embeddings-model: {preset: minilm-l6}`` and the byte tokenizer (its
+    weights the encoder check's draw). 16 chat completions fired together
+    with an embeddings burst of 512 texts (40-1200 bytes) in requests of
+    1-64 inputs, after each half alone (the controls). Gates: every
+    request 200, every vector 384 floats in order, 16 sampled vectors
+    within ``EMBED_TOLERANCE`` of the CPU's and every vector within it of
+    the embeddings-alone burst's, no capture while serving. Then the one-text call (the query path of RAG)
+    by HTTP and by the embedder, against its device time. Then a fresh
+    engine's ``precompile`` with embeddings calls running through it:
+    calls inside the capture window answered and equal to the CPU's, and
+    every variant captured."""
+    from langstream_tpu_torch.providers.torch_local.embeddings import encode
+    from langstream_tpu_torch.providers.torch_local.provider import TorchEmbeddingsService
+
+    embeddings = TorchEmbeddingsService({"embeddings-model": {"preset": "minilm-l6"}}, device=device)
+    assert all(torch.equal(embeddings.embedder.params[name], leaf) for name, leaf in params.items())
+    cpu = _cpu_twin(config, params)
+    rng = np.random.default_rng(15)
+    chats = [("/v1/chat/completions", {"max_tokens": 32 + 2 * i, "messages": [
+        {"role": "user", "content": prompt_text(rng, 100 + 12 * i)}]}) for i in range(16)]
+    texts, requests = [], []
+    while len(texts) < 512:
+        size = min(int(rng.integers(1, 65)), 512 - len(texts))
+        batch = [prompt_text(rng, int(rng.integers(40, 1201))) for _ in range(size)]
+        requests.append(("/v1/embeddings", {"input": batch if size > 1 else batch[0]}))
+        texts += batch
+    jobs = chats + requests
+    order = rng.permutation(len(jobs))
+    def fire(batch, order):
+        """All of ``batch`` at once, in ``order``; every reply 200."""
+        started = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(len(batch)) as pool:
+            futures = {int(i): pool.submit(_post_timed, server, *batch[i]) for i in order}
+            replies = [futures[i].result() for i in range(len(batch))]
+        assert all(status == 200 for status, _, _ in replies), [r[:2] for r in replies if r[0] != 200]
+        return replies, time.perf_counter() - started
+
+    def vectors_of(replies):
+        vectors = []
+        for (_, body), (_, raw, _) in zip(requests, replies):
+            data = json.loads(raw)["data"]
+            want = body["input"] if isinstance(body["input"], list) else [body["input"]]
+            assert [d["index"] for d in data] == list(range(len(want)))
+            assert all(len(d["embedding"]) == config.hidden_size for d in data)
+            vectors += [d["embedding"] for d in data]
+        assert len(vectors) == len(texts) == 512
+        return vectors
+
+    service, server = start_llama_server(layers=CONTROL_LAYERS, embeddings=embeddings)
+    try:
+        engine = service.engine
+        captured = engine.steps.stats["captured"]
+        # each half alone first (the controls), then both at once
+        alone, _ = fire(requests, range(len(requests)))
+        alone_vectors = vectors_of(alone)
+        embed_alone = max(seconds for _, _, seconds in alone)
+        chats_alone, _ = fire(chats, range(len(chats)))
+        chat_alone = max(seconds for _, _, seconds in chats_alone)
+        chat_alone_tokens, _ = _answered(chats, [raw for _, raw, _ in chats_alone])
+        replies, wall = fire(jobs, order)
+        assert engine.steps.stats["captured"] == captured, "a step variant was captured while serving"
+        tokens, _ = _answered(chats, [raw for _, raw, _ in replies[:16]])
+        vectors = vectors_of(replies[16:])
+        drift = float((torch.tensor(vectors) - torch.tensor(alone_vectors)).abs().max())
+        assert drift <= EMBED_TOLERANCE, drift
+        embed_wall = max(seconds for _, _, seconds in replies[16:])
+        chat_wall = max(seconds for _, _, seconds in replies[:16])
+        sample = rng.choice(len(texts), 16, replace=False)
+        reference = torch.tensor(cpu.embed([texts[i] for i in sample]))
+        worst = float((torch.tensor([vectors[i] for i in sample]) - reference).abs().max())
+        assert worst <= EMBED_TOLERANCE, worst
+        # the query path: one short text, by HTTP and by the embedder
+        query = "which stream processor batches the tokens on the card?"
+        http_ms, nodelay_ms = [], []
+        for _ in range(20):
+            status, _, seconds = _post_timed(server, "/v1/embeddings", {"input": query})
+            assert status == 200
+            http_ms.append(seconds * 1e3)
+        # the same with TCP_NODELAY on the server's connections (a probe of
+        # the headers-then-body writes against delayed ACKs; not served so)
+        http.server.BaseHTTPRequestHandler.disable_nagle_algorithm = True
+        try:
+            for _ in range(20):
+                status, _, seconds = _post_timed(server, "/v1/embeddings", {"input": query})
+                assert status == 200
+                nodelay_ms.append(seconds * 1e3)
+        finally:
+            http.server.BaseHTTPRequestHandler.disable_nagle_algorithm = False
+        embedder = embeddings.embedder
+        embed_ms = call_ms(lambda: embedder.embed([query]), iters=20)
+        tokens_np, mask_np = embedder.batch([query])
+        ids, keep = torch.from_numpy(tokens_np).to(device), torch.from_numpy(mask_np).to(device)
+        with torch.inference_mode():
+            device_ms = one_call_ms(lambda: encode(config, params, ids, keep))
+    finally:
+        server.stop()
+        service.close()
+    result = dict(vectors_s=512 / embed_wall, embed_wall=embed_wall, chat_tok_s=tokens / chat_wall,
+                  vectors_s_alone=512 / embed_alone, chat_tok_s_alone=chat_alone_tokens / chat_alone,
+                  http_ms=float(np.median(http_ms)), nodelay_ms=float(np.median(nodelay_ms)),
+                  embed_ms=embed_ms, device_ms=device_ms,
+                  bucket=tokens_np.shape[1])
+    log(f"embeddings serving [{label}]: {len(requests)} embeddings requests (512 texts, 40-1200 bytes, "
+        f"1-64 a request) beside 16 chats on Llama-3-8B at {CONTROL_LAYERS} layers, all 200 in "
+        f"{wall:.3f}s: {result['vectors_s']:.1f} vectors/s (the last vector at {embed_wall:.3f}s; "
+        f"alone {result['vectors_s_alone']:.1f}), chats {tokens} tokens at "
+        f"{result['chat_tok_s']:.1f} tok/s (the last at {chat_wall:.3f}s; alone "
+        f"{result['chat_tok_s_alone']:.1f}); vectors equal to the embeddings-alone burst's within "
+        f"{drift:.3e}; "
+        f"16 sampled vectors within {worst:.3e} of the CPU's (tol {EMBED_TOLERANCE}); no capture while "
+        f"serving; one-text call (rows 1, bucket {result['bucket']}): HTTP wall "
+        f"{result['http_ms']:.3f} ms (median of 20; {result['nodelay_ms']:.3f} with TCP_NODELAY on the "
+        f"server's sockets), embed() wall {embed_ms:.3f} ms, device "
+        f"{device_ms:.4f} ms, wall / device {embed_ms / device_ms:.1f}x")
+    gc.collect()
+    torch.cuda.empty_cache()
+    result.update(embeddings_during_capture(label, embeddings, cpu, rng))
+    return result
+
+
+def embeddings_during_capture(label: str, embeddings, cpu, rng) -> dict:
+    """A fresh ``serve --precompile`` engine (Llama-3-8B at
+    ``CONTROL_LAYERS``) built on one thread while two threads keep calling
+    ``embeddings.compute_embeddings``: the calls that overlap the engine's
+    ``precompile`` (timed through a wrapper on it) must be answered and
+    equal the CPU's, and the capture must complete: every variant
+    captured, then a chat answered."""
+    batches = [[prompt_text(rng, int(n)) for n in rng.integers(40, 1201, size)]
+               for size in (1, 3, 8, 17)]
+    references = [torch.tensor(cpu.embed(batch)) for batch in batches]
+    window = {}
+    precompile = engine_lib.DecodeEngine.precompile
+
+    def timed(engine):
+        window["start"] = time.perf_counter()
+        try:
+            precompile(engine)
+        finally:
+            window["end"] = time.perf_counter()
+
+    calls = []  # (start, end, max abs error) of each call
+    built = concurrent.futures.Future()
+
+    def embed_until_built(offset):
+        i = offset
+        while not built.done():
+            batch, reference = batches[i % len(batches)], references[i % len(batches)]
+            started = time.perf_counter()
+            got = torch.tensor(asyncio.run(embeddings.compute_embeddings(batch)))
+            calls.append((started, time.perf_counter(), float((got - reference).abs().max())))
+            i += 1
+
+    engine_lib.DecodeEngine.precompile = timed
+    try:
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            callers = [pool.submit(embed_until_built, offset) for offset in (0, 2)]
+            try:
+                built.set_result(start_llama_server(layers=CONTROL_LAYERS))
+            except BaseException as error:
+                built.set_exception(error)
+            for caller in callers:
+                caller.result()
+    finally:
+        engine_lib.DecodeEngine.precompile = precompile
+    service, server = built.result()
+    try:
+        engine = service.engine
+        assert engine.steps.graphed and all(entry.graph is not None
+                                            for entry in engine.steps._entries.values())
+        assert engine.steps.stats["captured"] == len(engine._variant_keys()), engine.steps.stats
+        status, raw, _ = _post_timed(server, "/v1/chat/completions", {
+            "max_tokens": 16, "messages": [{"role": "user", "content": "after the capture"}]})
+        assert status == 200, raw
+    finally:
+        server.stop()
+        service.close()
+    inside = [call for call in calls if call[0] < window["end"] and call[1] > window["start"]]
+    assert inside, (window, calls[:3])
+    worst = max(error for _, _, error in calls)
+    assert worst <= EMBED_TOLERANCE, worst
+    log(f"embeddings during a capture [{label}]: {len(calls)} calls (1-17 texts) while a fresh "
+        f"engine was built, {len(inside)} of them inside its precompile "
+        f"({window['end'] - window['start']:.2f}s, {engine.steps.stats['captured']} variants "
+        f"captured, all of them), all answered within {worst:.3e} of the CPU's; a chat "
+        f"answered after")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(capture_calls=len(inside), capture_s=window["end"] - window["start"])
+
+
+def _rank_reference(scores: np.ndarray, k: int) -> np.ndarray:
+    """The numpy path's ranking of one column of host scores: the ``k``
+    largest, ties to the lower row."""
+    top = np.argpartition(-scores, k)[:k]
+    return top[np.lexsort((top, -scores[top]))]
+
+
+def _check_ranking(got, want, scores, label) -> int:
+    """The card's ids against the host's: equal, except where two rows'
+    host scores differ by at most ``SEARCH_TOLERANCE`` (a near-tie that
+    f32 sums in another order may swap). Returns the near-tie swaps."""
+    swaps = 0
+    for position, (mine, theirs) in enumerate(zip(got, want)):
+        if mine != theirs:
+            assert abs(scores[mine] - scores[theirs]) <= SEARCH_TOLERANCE, (
+                label, position, mine, theirs, scores[mine], scores[theirs])
+            swaps += 1
+    return swaps
+
+
+def check_vector_search(device, label: str, rows: int = 262144, l2_rows: int = 65536) -> dict:
+    """The vector store at ``rows`` (262,144) x 384 f32 (384 MiB on the card):
+    unit vectors from a seeded rng, each through ``upsert`` as a sink
+    writes them; 256 cosine queries with top-10 against the host's numpy
+    scores (ids equal but for near-ties, scores within
+    ``SEARCH_TOLERANCE``), the numpy path itself for 8 of them; 1,000
+    deletes and 1,000 re-upserts, then 64 queries again (a partial
+    upload); 16 l2 queries on an ``l2_rows`` (65,536) store against its
+    numpy path.
+    Prints the upsert seconds, the first search (with the upload), the
+    wall and device ms per search against the bound: the matrix read once
+    at the HBM rate."""
+    from langstream_tpu_torch.agents.vectorstore import VectorStore
+    from langstream_tpu_torch.providers.torch_local.sampling import lax_top_k
+
+    dims, k = 384, 10
+    rng = np.random.default_rng(16)
+    data = rng.standard_normal((rows, dims), dtype=np.float32)
+    data /= np.linalg.norm(data, axis=1, keepdims=True)
+    store = VectorStore(dims, metric="cosine", device=device)
+    started = time.perf_counter()
+    for i in range(rows):
+        store.upsert(f"doc-{i}", data[i], {"n": i})
+    upsert_s = time.perf_counter() - started
+    queries = rng.standard_normal((256, dims), dtype=np.float32)
+    queries = np.stack([q / (float(np.linalg.norm(q)) or 1.0) for q in queries])  # as search does
+
+    def compare(count, label_):
+        host = store._matrix[:rows]
+        scores = host @ queries[:count].T
+        swaps = 0
+        for j in range(count):
+            got = store.search(queries[j], k)
+            ids = [store._index[r["id"]] for r in got]
+            for row, record in zip(ids, got):
+                assert abs(record["similarity"] - scores[row, j]) <= SEARCH_TOLERANCE, (j, row)
+            swaps += _check_ranking(ids, _rank_reference(scores[:, j], k), scores[:, j],
+                                    f"{label_} query {j}")
+        return swaps
+
+    torch.cuda.synchronize()
+    started = time.perf_counter()
+    store.search(queries[0], k)
+    first_ms = (time.perf_counter() - started) * 1e3
+    started = time.perf_counter()
+    for q in queries:
+        store.search(q, k)
+    search_ms = (time.perf_counter() - started) / len(queries) * 1e3
+    swaps = compare(256, "cosine")
+    for j in range(8):  # the numpy path itself
+        _check_ranking([store._index[r["id"]] for r in store.search(queries[j], k)],
+                       store._search_numpy(queries[j], k, rows)[1], store._matrix[:rows] @ queries[j],
+                       f"numpy path query {j}")
+    matrix = store._resident
+    q = torch.from_numpy(queries[1]).to(device)
+    padding = torch.arange(matrix.shape[0], device=device) >= rows
+    device_ms = time_ms(lambda: lax_top_k((matrix @ q).masked_fill(padding, float("-inf")), k))
+    gemv_ms = time_ms(lambda: matrix @ q)
+    bound_ms = rows * dims * 4 / PEAK_BYTES * 1e3
+    # deletes and re-upserts: ~3000 dirty rows, uploaded at the next search
+    victims = rng.choice(rows, 1000, replace=False)
+    for i in victims:
+        assert store.delete(f"doc-{i}")
+    fresh = rng.standard_normal((1000, dims), dtype=np.float32)
+    for i, vector in zip(victims, fresh):
+        store.upsert(f"doc-{i}", vector / np.linalg.norm(vector))
+    dirty = len(store._dirty)
+    started = time.perf_counter()
+    store.search(queries[0], k)
+    partial_ms = (time.perf_counter() - started) * 1e3
+    swaps += compare(64, "after deletes")
+    del store, matrix
+    gc.collect()
+    torch.cuda.empty_cache()
+    l2 = VectorStore(dims, metric="l2", device=device)
+    for i in range(l2_rows):
+        l2.upsert(f"doc-{i}", data[i])
+    for j in range(16):
+        got = l2.search(queries[j], k)
+        _, rows_np = l2._search_numpy(queries[j], k, l2_rows)
+        host = -np.linalg.norm(l2._matrix[:l2_rows] - queries[j], axis=1)
+        swaps += _check_ranking([l2._index[r["id"]] for r in got], rows_np, host, f"l2 query {j}")
+        for record in got:
+            row = l2._index[record["id"]]
+            assert abs(record["similarity"] + host[row] ** 2) <= SEARCH_TOLERANCE, (j, row)
+    del l2, data
+    gc.collect()
+    torch.cuda.empty_cache()
+    result = dict(upsert_s=upsert_s, first_ms=first_ms, search_ms=search_ms, device_ms=device_ms,
+                  gemv_ms=gemv_ms, bound_ms=bound_ms, partial_ms=partial_ms, swaps=swaps)
+    log(f"vector search [{label}]: {rows} x {dims} f32 ({rows * dims * 4 / 2**20:.0f} MiB on the card), "
+        f"{rows} upserts in {upsert_s:.2f}s; first search (with the whole upload) {first_ms:.2f} ms; "
+        f"cosine top-{k}: wall {search_ms:.4f} ms per search (256 queries), device {device_ms:.4f} ms "
+        f"(the product alone {gemv_ms:.4f} ms) against the bound {bound_ms:.4f} ms (bytes: the matrix "
+        f"read once); ids of 256 + 64 cosine and 16 l2 ({l2_rows} rows) queries equal the host's "
+        f"numpy ranking, {swaps} near-tie swaps within {SEARCH_TOLERANCE}; after 1000 deletes + "
+        f"1000 re-upserts "
+        f"({dirty} dirty rows) the next search {partial_ms:.2f} ms")
+    return result
+
+
 def main() -> None:
     # the watchdog's trip captures go under build/, which git ignores
     os.environ.setdefault("LANGSTREAM_PROFILE_DIR", os.path.join("build", "profiles"))
@@ -2822,6 +3374,15 @@ def main() -> None:
         gc.collect()
         torch.cuda.empty_cache()
         phase(label)
+    # embeddings and vector search: the encoder against the CPU, its HF
+    # loader, the embeddings service beside the engine, the store
+    gc.collect()
+    torch.cuda.empty_cache()
+    encoder_config, encoder_params, _ = check_encoder_against_cpu(device, label)
+    check_bert_checkpoint(device, encoder_config, encoder_params, label)
+    serve_embeddings_and_check(label, device, encoder_config, encoder_params)
+    del encoder_params
+    check_vector_search(device, label)
     for item in kernels:
         item["launches"] = launches[item["name"]]
         assert item["launches"] > 0, item

@@ -9,7 +9,10 @@ from typing import Any, Dict, List, Optional, Tuple
 
 from langstream_tpu_torch.providers.torch_local.engine import engines_histograms, engines_snapshot
 from langstream_tpu_torch.providers.torch_local.model import LlamaConfig
-from langstream_tpu_torch.providers.torch_local.provider import TorchCompletionsService
+from langstream_tpu_torch.providers.torch_local.provider import (
+    TorchCompletionsService,
+    TorchEmbeddingsService,
+)
 from langstream_tpu_torch.serving.openai_api import OpenAIApiServer
 
 
@@ -104,6 +107,11 @@ def build_parser() -> argparse.ArgumentParser:
         help="admission deadline: a request pending longer is shed with 503 and Retry-After "
              "(0 = off)",
     )
+    serve.add_argument(
+        "--embeddings-checkpoint", default=None,
+        help="HuggingFace BERT directory (MiniLM and its kin, with its tokenizer): serve "
+             "POST /v1/embeddings from it on --device",
+    )
     serve.add_argument("--host", default="0.0.0.0")
     serve.add_argument("--port", type=int, default=8000)
     return parser
@@ -164,17 +172,24 @@ def serve_config(args: argparse.Namespace) -> Dict[str, Any]:
 
 def start_server(
     args: argparse.Namespace, config: Optional[Dict[str, Any]] = None, *,
-    step_graphs: bool = True,
+    step_graphs: bool = True, embeddings: Optional[TorchEmbeddingsService] = None,
 ) -> Tuple[TorchCompletionsService, OpenAIApiServer]:
     """Build the service (the checkpoint's weights, or random ones from
     seed 0) from ``config`` (default: :func:`serve_config` of ``args``)
     and start the server thread; the caller owns stopping both (``server.stop()``,
-    ``service.close()``). ``step_graphs=False`` serves with eager dispatch, a control
-    for measurements."""
+    ``service.close()``, and ``server.embeddings.close()`` when set). The server
+    answers ``/v1/embeddings`` from ``embeddings``, else from a
+    :class:`TorchEmbeddingsService` over ``--embeddings-checkpoint`` when it is
+    given. ``step_graphs=False`` serves with eager dispatch, a control for
+    measurements."""
+    if embeddings is None and args.embeddings_checkpoint:
+        embeddings = TorchEmbeddingsService(
+            {"embeddings-model": {"checkpoint": args.embeddings_checkpoint}}, device=args.device)
     service = TorchCompletionsService(
         config or serve_config(args), device=args.device, step_graphs=step_graphs)
-    server = OpenAIApiServer(service, model=args.model, host=args.host, port=args.port,
-                             gauges=engines_snapshot, histograms=engines_histograms)
+    server = OpenAIApiServer(service, embeddings, model=args.model, host=args.host,
+                             port=args.port, gauges=engines_snapshot,
+                             histograms=engines_histograms)
     server.start()
     return service, server
 
@@ -191,3 +206,5 @@ def main(argv: Optional[List[str]] = None) -> None:
     finally:
         server.stop()
         service.close()
+        if server.embeddings is not None:
+            server.embeddings.close()

@@ -64,3 +64,14 @@ def cache_from_jax(
     D]`` pool have the same shapes on both sides, and so does the int8
     cache (int8 values, f32 ``k_scale``/``v_scale`` without the head dim)."""
     return {name: tensor_from_numpy(leaf, device) for name, leaf in np_cache.items()}
+
+
+def encoder_params_from_jax(
+    np_params: Dict[str, Any], device: torch.device | str = "cpu"
+) -> Dict[str, torch.Tensor]:
+    """The JAX encoder's params (``embeddings.init_encoder_params`` or
+    ``load_hf_bert``; numpy arrays, or anything ``np.asarray`` takes) →
+    the port's encoder param dict on ``device``. Both sides keep the same
+    names, shapes and ``[in, out]`` layout, so each leaf crosses as it
+    is, in its own dtype."""
+    return {name: tensor_from_numpy(leaf, device) for name, leaf in np_params.items()}

@@ -1,8 +1,9 @@
-"""The ``torch-local`` completions service: chat and text completions on
-one GPU.
+"""The ``torch-local`` service provider: chat and text completions, and
+embeddings, on one GPU.
 
-Port of ``JaxCompletionsService`` (``providers/jax_local/provider.py``).
-Configuration, with the JAX provider's keys::
+Port of ``JaxCompletionsService``, ``JaxEmbeddingsService`` and
+``JaxLocalServiceProvider`` (``providers/jax_local/provider.py``).
+Completions configuration, with the JAX provider's keys::
 
     model: {preset: "llama-3-8b"}      # or explicit dims; default "tiny"
     checkpoint: "/models/llama-3-8b"   # HF dir; omit = random weights
@@ -71,10 +72,23 @@ waited longer for admission with a 503 and ``Retry-After``.
 Every other key that the JAX provider honours and the port does not
 (:data:`UNPORTED_ENGINE_KEYS`, :data:`UNPORTED_KEYS`) raises when it is
 set to anything but the JAX default.
+
+Embeddings configuration (:class:`TorchEmbeddingsService`)::
+
+    embeddings-model: {checkpoint: "/models/all-MiniLM-L6-v2"}  # HF BERT dir
+    embeddings-model: {preset: minilm-l6, max-length: 256}      # random weights
+    tokenizer: {type: "byte"}          # without a checkpoint
+
+A ``checkpoint`` (or a ``model`` name holding ``/``) is loaded with
+``weights.load_hf_bert`` and served with its directory's own HF
+tokenizer; otherwise the encoder is ``EncoderConfig.from_dict`` of the
+mapping (the random ``tiny`` preset when it is empty), over the
+``tokenizer`` key's tokenizer.
 """
 
 from __future__ import annotations
 
+import asyncio
 import logging
 import os
 import secrets
@@ -83,16 +97,28 @@ import uuid
 from typing import Any, Dict, List, Optional
 
 from langstream_tpu_torch.api import errors as api_errors
-from langstream_tpu_torch.api.service import ChatChunk, ChatCompletionResult, ChatMessage
+from langstream_tpu_torch.api.service import (
+    ChatChunk,
+    ChatCompletionResult,
+    ChatMessage,
+    CompletionsService,
+    EmbeddingsService,
+    ServiceProvider,
+)
 from langstream_tpu_torch.device import resolve_device
 from langstream_tpu_torch.providers.torch_local import model as model_lib
+from langstream_tpu_torch.providers.torch_local.embeddings import (
+    EncoderConfig,
+    TorchEmbedder,
+    init_encoder_params,
+)
 from langstream_tpu_torch.providers.torch_local.engine import (
     DecodeEngine,
     SamplingParams,
 )
 from langstream_tpu_torch.providers.torch_local.quant import init_quantized_params
-from langstream_tpu_torch.providers.torch_local.tokenizer import get_tokenizer
-from langstream_tpu_torch.providers.torch_local.weights import load_checkpoint
+from langstream_tpu_torch.providers.torch_local.tokenizer import HFTokenizer, get_tokenizer
+from langstream_tpu_torch.providers.torch_local.weights import load_checkpoint, load_hf_bert
 
 logger = logging.getLogger(__name__)
 
@@ -147,7 +173,7 @@ def _buckets(value: Any) -> Optional[List[int]]:
     return None
 
 
-class TorchCompletionsService:
+class TorchCompletionsService(CompletionsService):
     """Completions over a :class:`DecodeEngine`; the surface the port's
     OpenAI server calls (``get_chat_completions`` /
     ``get_text_completions``). A ``stream_consumer`` is any object with
@@ -517,3 +543,65 @@ class TorchCompletionsService:
                 and int(options.get("top-logprobs") or 0) > 0 else None
             ),
         )
+
+
+class TorchEmbeddingsService(EmbeddingsService):
+    """Embeddings from the encoder of ``embeddings.py`` on ``device`` (the
+    card unless the caller asks for the CPU); ``JaxEmbeddingsService``'s
+    keys (module docstring)."""
+
+    def __init__(self, config: Dict[str, Any], model: Optional[str] = None,
+                 device: Any = "cuda") -> None:
+        device = resolve_device(device)
+        embeddings_config = config.get("embeddings-model", {}) or {}
+        checkpoint = embeddings_config.get("checkpoint") or (
+            model if model and "/" in str(model) else None
+        )
+        if checkpoint:
+            encoder_config, params = load_hf_bert(checkpoint, device=device)
+            tokenizer = HFTokenizer(checkpoint)
+        else:
+            encoder_config = EncoderConfig.from_dict(
+                embeddings_config if embeddings_config else {"preset": "tiny"}
+            )
+            params = init_encoder_params(encoder_config, device=device)
+            tokenizer = get_tokenizer(config.get("tokenizer"))
+            if not embeddings_config:
+                logger.warning("torch-local embeddings: no checkpoint — random tiny encoder")
+        self.embedder = TorchEmbedder(
+            encoder_config, params, tokenizer,
+            max_length=int(embeddings_config.get("max-length", 256)), device=device,
+        )
+
+    async def compute_embeddings(self, texts: List[str]) -> List[List[float]]:
+        # the device call runs off the event loop
+        return await asyncio.get_running_loop().run_in_executor(
+            None, self.embedder.embed, texts
+        )
+
+
+class TorchLocalServiceProvider(ServiceProvider):
+    """The ``torch-local`` provider: owns a ``resources:`` entry of
+    ``type: torch-local`` (or ``torch``), or one holding a ``torch-local``
+    key, and hands out its completions and embeddings services on
+    ``device``. Callers cache the services per resource entry: each call
+    builds a new one (a completions service is a whole engine)."""
+
+    name = "torch-local"
+
+    def __init__(self, device: Any = "cuda") -> None:
+        self.device = device
+
+    def supports(self, resource_config: Dict[str, Any]) -> bool:
+        return (
+            resource_config.get("type") in ("torch-local", "torch")
+            or "torch-local" in resource_config
+        )
+
+    def get_completions_service(self, resource_config: Dict[str, Any]) -> TorchCompletionsService:
+        return TorchCompletionsService(resource_config, device=self.device)
+
+    def get_embeddings_service(
+        self, resource_config: Dict[str, Any], model: Optional[str] = None
+    ) -> TorchEmbeddingsService:
+        return TorchEmbeddingsService(resource_config, model, device=self.device)

@@ -80,22 +80,30 @@ def token_logprob(logits: torch.Tensor, token: torch.Tensor) -> torch.Tensor:
     return picked - torch.logsumexp(logits32, dim=-1)
 
 
+def lax_top_k(values: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``lax.top_k`` over the last axis: the ``k`` largest values (f32)
+    and their int64 indices, ranked as ``lax.top_k`` ranks them: in the
+    total order of f32 (+0 above -0, NaN on top) and, among equal values,
+    the lower index first. ``torch.topk`` promises no order among ties,
+    so it ranks one int64 key per entry: the order-preserving int32 image
+    of the value's bits in the high word, ``N - 1 - index`` in the low
+    word, which makes every key distinct."""
+    values32 = values.float()
+    count = values32.shape[-1]
+    bits = values32.view(torch.int32)
+    ordered = bits ^ ((bits >> 31) & 0x7FFFFFFF)  # negatives: flip all but the sign
+    ids = torch.arange(count, dtype=torch.int64, device=values32.device)
+    keys = (ordered.to(torch.int64) << 32) | (count - 1 - ids)
+    top = torch.topk(keys, k, dim=-1).values
+    top_ids = count - 1 - (top & 0xFFFFFFFF)
+    return torch.gather(values32, -1, top_ids), top_ids
+
+
 def top_logprobs(logits: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The JAX engine's ``_top_logprobs``: the ``k`` largest raw logits
-    over the last axis (int32 ids) and their logprobs under the raw
-    untruncated distribution (f32), ranked as ``lax.top_k`` ranks them:
-    in the total order of f32 (+0 above -0, NaN on top) and, among equal
-    values, the lower id first. ``torch.topk`` promises no order among
-    ties, so it ranks one int64 key per entry: the order-preserving int32
-    image of the value's bits in the high word, ``V - 1 - id`` in the low
-    word, which makes every key distinct."""
+    over the last axis (int32 ids, in :func:`lax_top_k`'s order) and
+    their logprobs under the raw untruncated distribution (f32)."""
     logits32 = logits.float()
-    vocab = logits32.shape[-1]
-    bits = logits32.view(torch.int32)
-    ordered = bits ^ ((bits >> 31) & 0x7FFFFFFF)  # negatives: flip all but the sign
-    ids = torch.arange(vocab, dtype=torch.int64, device=logits32.device)
-    keys = (ordered.to(torch.int64) << 32) | (vocab - 1 - ids)
-    top = torch.topk(keys, k, dim=-1).values
-    top_ids = vocab - 1 - (top & 0xFFFFFFFF)
+    top, top_ids = lax_top_k(logits32, k)
     lse = torch.logsumexp(logits32, dim=-1, keepdim=True)
-    return top_ids.to(torch.int32), torch.gather(logits32, -1, top_ids) - lse
+    return top_ids.to(torch.int32), top - lse

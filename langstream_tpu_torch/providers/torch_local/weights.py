@@ -29,6 +29,11 @@ which holds every f16 and bf16 value exactly, so the bits are theirs.
 
 Mixtral (``num_local_experts``) raises before any tensor is read: the
 MoE MLP is not ported (ROADMAP.md, behind A10).
+
+:func:`load_hf_bert` reads a HuggingFace BERT directory (MiniLM and its
+kin) into the encoder's params of ``embeddings.py`` with the same two
+readers: the JAX ``load_hf_bert`` instantiates the ``transformers``
+model for this, the port reads the same tensors.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 import torch
 
 from langstream_tpu_torch.device import resolve_device
+from langstream_tpu_torch.providers.torch_local.embeddings import EncoderConfig
 from langstream_tpu_torch.providers.torch_local.model import (
     LlamaConfig,
     config_from_hf,
@@ -334,3 +340,118 @@ def load_checkpoint(path: str, device: Any = "cuda") -> Tuple[LlamaConfig, Dict[
     if not os.path.isdir(path):
         raise FileNotFoundError(f"checkpoint directory {path} does not exist")
     return load_hf_checkpoint(path, device=device)
+
+
+# BertConfig's defaults, for keys a config.json leaves out
+BERT_DEFAULTS = {
+    "vocab_size": 30522, "hidden_size": 768, "intermediate_size": 3072,
+    "num_hidden_layers": 12, "num_attention_heads": 12, "max_position_embeddings": 512,
+    "layer_norm_eps": 1e-12,
+}
+
+
+class _StateDict:
+    """A model object's ``state_dict()`` as a tensor store."""
+
+    def __init__(self, state: Dict[str, torch.Tensor]) -> None:
+        self._state = state
+
+    def keys(self) -> Iterator[str]:
+        return iter(self._state)
+
+    def get(self, name: str) -> torch.Tensor:
+        return self._state[name]
+
+    def close(self) -> None:
+        self._state = {}
+
+
+def _bert_params(store: Any, config: EncoderConfig, device: torch.device) -> Dict[str, torch.Tensor]:
+    """The encoder's stacked params from a BERT ``store``: each layer's
+    ``[out, in]`` matrix transposed and stacked, every leaf rounded to
+    ``config.dtype`` once and the norms widened back to f32 from it (the
+    JAX loader's order), ``token_type_embeddings[0]`` folded into
+    ``tok_emb``. The keys may carry the ``bert.`` prefix of a task
+    model's checkpoint; ``pooler.*`` and ``embeddings.position_ids`` are
+    not read."""
+    names = set(store.keys())
+    prefix = ("bert." if "embeddings.word_embeddings.weight" not in names
+              and "bert.embeddings.word_embeddings.weight" in names else "")
+    dtype, f32 = config.dtype, torch.float32
+    shapes = config.param_shapes()
+
+    def fetch(name: str, transpose: bool, want) -> torch.Tensor:
+        tensor = store.get(prefix + name).to(device)
+        tensor = tensor.t() if transpose else tensor
+        if tuple(tensor.shape) != tuple(want):
+            raise ValueError(f"{prefix + name}: shape {list(tensor.shape)}, the config wants {list(want)}")
+        return _cast(tensor, dtype)
+
+    def leaf(key: str, name: str, widen: bool = False) -> torch.Tensor:
+        tensor = fetch(name, False, shapes[key])
+        return (tensor.to(f32) if widen else tensor).contiguous()
+
+    def stacked(key: str, pattern: str, transpose: bool = True, widen: bool = False) -> torch.Tensor:
+        out = torch.empty(shapes[key], dtype=f32 if widen else dtype, device=device)
+        for layer in range(config.num_layers):
+            out[layer].copy_(fetch(pattern.format(layer), transpose, shapes[key][1:]))
+        return out
+
+    p = "encoder.layer.{}."
+    params = {
+        "tok_emb": leaf("tok_emb", "embeddings.word_embeddings.weight"),
+        "pos_emb": leaf("pos_emb", "embeddings.position_embeddings.weight"),
+        "emb_norm_w": leaf("emb_norm_w", "embeddings.LayerNorm.weight", widen=True),
+        "emb_norm_b": leaf("emb_norm_b", "embeddings.LayerNorm.bias", widen=True),
+    }
+    for key, name in (("q", "attention.self.query"), ("k", "attention.self.key"),
+                      ("v", "attention.self.value"), ("o", "attention.output.dense"),
+                      ("_in", "intermediate.dense"), ("_out", "output.dense")):
+        params["w" + key] = stacked("w" + key, p + name + ".weight")
+        params["b" + key] = stacked("b" + key, p + name + ".bias", transpose=False)
+    for key, name in (("attn_norm", "attention.output.LayerNorm"), ("mlp_norm", "output.LayerNorm")):
+        params[key + "_w"] = stacked(key + "_w", p + name + ".weight", transpose=False, widen=True)
+        params[key + "_b"] = stacked(key + "_b", p + name + ".bias", transpose=False, widen=True)
+    # token_type embeddings fold into token embeddings (single-segment use)
+    token_type = "embeddings.token_type_embeddings.weight"
+    if prefix + token_type in names:
+        segment = _cast(store.get(prefix + token_type)[0].to(device), dtype)
+        params["tok_emb"] = params["tok_emb"] + segment[None, :]
+    return params
+
+
+def load_hf_bert(path_or_model: Any, device: Any = "cuda", dtype: torch.dtype = torch.float32
+                 ) -> Tuple[EncoderConfig, Dict[str, torch.Tensor]]:
+    """(config, encoder params on ``device``) from a HuggingFace
+    BERT-architecture checkpoint, as the JAX ``load_hf_bert`` gives them:
+    a local directory (``config.json`` with ``model_type: bert``, and
+    safetensors files or ``pytorch_model.bin``), or a model object with
+    ``config`` and ``state_dict()``. A directory of another architecture
+    raises before any tensor is read."""
+    device = resolve_device(device)
+    if isinstance(path_or_model, (str, os.PathLike)):
+        path = os.fspath(path_or_model)
+        with open(os.path.join(path, "config.json")) as fh:
+            hf = json.load(fh)
+        if hf.get("model_type") != "bert":
+            raise ValueError(f"{path} holds a {hf.get('model_type')!r} model, not a BERT-architecture "
+                             "encoder (model_type 'bert')")
+        hf = types.SimpleNamespace(**{**BERT_DEFAULTS, **hf})
+        store = SafetensorsDir(path) if has_safetensors(path) else TorchBinDir(path)
+    else:
+        hf = path_or_model.config
+        store = _StateDict(path_or_model.state_dict())
+    config = EncoderConfig(
+        vocab_size=hf.vocab_size,
+        hidden_size=hf.hidden_size,
+        intermediate_size=hf.intermediate_size,
+        num_layers=hf.num_hidden_layers,
+        num_heads=hf.num_attention_heads,
+        max_positions=hf.max_position_embeddings,
+        norm_eps=hf.layer_norm_eps,
+        dtype=dtype,
+    )
+    try:
+        return config, _bert_params(store, config, device)
+    finally:
+        store.close()

@@ -1,5 +1,5 @@
 """OpenAI-compatible HTTP serving surface over the port's completions
-service, on the standard library's ``ThreadingHTTPServer``.
+and embeddings services, on the standard library's ``ThreadingHTTPServer``.
 
 Port of ``langstream_tpu/serving/openai_api.py`` (an aiohttp app there):
 
@@ -7,6 +7,9 @@ Port of ``langstream_tpu/serving/openai_api.py`` (an aiohttp app there):
   ``"stream": true`` the answer arrives as SSE ``data:`` chunks in the
   OpenAI chunk format, terminated by ``data: [DONE]``.
 - ``POST /v1/completions`` — prompt in (legacy text completions).
+- ``POST /v1/embeddings`` — ``input`` (a string or a list) in, one vector
+  per input out, from the injected embeddings service; 503 "no
+  embeddings service configured" without one.
 - ``GET /v1/models`` and ``GET /healthz``.
 - ``GET /metrics`` — Prometheus text from the injected ``gauges`` and
   ``histograms`` providers (``serve`` injects the engine's
@@ -154,6 +157,7 @@ class OpenAIApiServer:
     def __init__(
         self,
         completions,
+        embeddings=None,
         *,
         model: str = "torch-local",
         host: str = "0.0.0.0",
@@ -162,6 +166,7 @@ class OpenAIApiServer:
         histograms=None,   # () -> Dict[str, Dict[str, float]]
     ) -> None:
         self.completions = completions
+        self.embeddings = embeddings
         self._gauges = gauges
         self._histograms = histograms
         # the most top_logprobs alternatives the service keeps (0 = none)
@@ -262,7 +267,7 @@ class OpenAIApiServer:
             chat = True
         elif handler.path == "/v1/completions":
             chat = False
-        else:
+        elif handler.path != "/v1/embeddings":
             self._error(handler, 404, f"no route {handler.path}")
             return
         try:
@@ -270,6 +275,9 @@ class OpenAIApiServer:
             raw = handler.rfile.read(length)
         except ValueError:
             self._error(handler, 400, "invalid Content-Length")
+            return
+        if handler.path == "/v1/embeddings":
+            self._embeddings(handler, raw)
             return
         # degraded mode: while the supervisor rebuilds a crashed engine,
         # new work (streams included) answers 503 before any work
@@ -344,6 +352,47 @@ class OpenAIApiServer:
                 "completion_tokens": completion_tokens,
                 "total_tokens": results[0].prompt_tokens + completion_tokens,
             },
+        })
+
+    def _embeddings(self, handler: BaseHTTPRequestHandler, raw: bytes) -> None:
+        """``/v1/embeddings``, as the JAX server answers it."""
+        if self.embeddings is None:
+            self._error(handler, 503, "no embeddings service configured")
+            return
+        try:
+            body = json.loads(raw or b"{}")
+        except (ValueError, json.JSONDecodeError):
+            self._error(handler, 400, "invalid JSON body")
+            return
+        if not isinstance(body, dict):
+            self._error(handler, 400, "the body must be a JSON object")
+            return
+        texts = body.get("input")
+        if texts is None:
+            self._error(handler, 400, "input is required")
+            return
+        if isinstance(texts, str):
+            texts = [texts]
+        if not isinstance(texts, list):
+            self._error(handler, 400, "input must be a string or a list of strings")
+            return
+        try:
+            vectors = asyncio.run(self.embeddings.compute_embeddings([str(t) for t in texts]))
+        except api_errors.UnavailableError as error:
+            self._unavailable(handler, str(error), error.retry_after_s)
+            return
+        except Exception as error:  # noqa: BLE001 — the request boundary reports it
+            logger.exception("embeddings failed")
+            self._error(handler, 500, str(error))
+            return
+        self._json(handler, 200, {
+            "object": "list",
+            "model": body.get("model") or self.model,
+            "data": [
+                {"object": "embedding", "index": i, "embedding": vector}
+                for i, vector in enumerate(vectors)
+            ],
+            "usage": {"prompt_tokens": 0, "total_tokens": 0},
         })
 
     def _parse(self, body: Dict[str, Any], chat: bool):

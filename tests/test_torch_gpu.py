@@ -1216,3 +1216,195 @@ def test_prefill_behind_inflight_chunk_is_harvested_without_blocking(layout):
     finally:
         alone.stop()
     assert got == want
+
+
+# ---------------------------------------------------------------------- #
+# embeddings and vector search on the card
+# ---------------------------------------------------------------------- #
+# the f32 encoder and search on the card against the CPU: cuBLAS and the
+# CPU's GEMMs sum in other orders (unit vectors)
+EMBED_TOLERANCE = 1e-4
+SEARCH_TOLERANCE = 1e-5
+
+
+def _embed_texts(rng, count):
+    words = ["stream", "vector", "kernel", "topic", "agent", "card", "search", "token"]
+    return [" ".join(rng.choice(words, int(rng.integers(2, 300)))) for _ in range(count)]
+
+
+@pytest.mark.gpu
+def test_encoder_on_the_card_matches_cpu_at_minilm_width():
+    """MiniLM-L6 at full width, weights drawn on the card: batches of 8
+    and 5 texts (three padding rows) within ``EMBED_TOLERANCE`` of the
+    CPU run of the same weights, no NaN, padding rows zero."""
+    from langstream_tpu_torch.providers.torch_local.embeddings import (
+        EncoderConfig,
+        TorchEmbedder,
+        init_encoder_params,
+    )
+    from langstream_tpu_torch.providers.torch_local.tokenizer import ByteTokenizer
+
+    device = _card()
+    config = EncoderConfig.minilm_l6()
+    params = init_encoder_params(config, seed=3, device=device)
+    card = TorchEmbedder(config, params, ByteTokenizer(), device=device)
+    cpu = TorchEmbedder(config, {k: v.cpu() for k, v in params.items()}, ByteTokenizer(), device="cpu")
+    texts = _embed_texts(np.random.default_rng(3), 8)
+    for batch in (texts, texts[:5], texts[:1]):
+        tokens, mask = card.batch(batch)
+        got, want = card.encode_batch(tokens, mask), cpu.encode_batch(tokens, mask)
+        assert got.device.type == "cpu" and not torch.isnan(got).any()
+        assert float((got - want).abs().max()) <= EMBED_TOLERANCE
+        assert torch.equal(got[len(batch):], torch.zeros_like(got[len(batch):]))
+    assert len(card.embed(texts)) == 8
+
+
+@pytest.mark.gpu
+def test_load_hf_bert_onto_the_card_bit_for_bit(tmp_path):
+    """``load_hf_bert`` onto the card equals the same load on the CPU bit
+    for bit, from a model object and from a ``pytorch_model.bin``
+    directory (f32 and bf16)."""
+    import json
+    import types
+
+    from langstream_tpu_torch.providers.torch_local import weights
+
+    device = _card()
+    hf = dict(vocab_size=500, hidden_size=64, intermediate_size=128, num_hidden_layers=2,
+              num_attention_heads=4, max_position_embeddings=128, layer_norm_eps=1e-12)
+    gen = torch.Generator().manual_seed(4)
+    h, f = hf["hidden_size"], hf["intermediate_size"]
+    state = {"embeddings.word_embeddings.weight": torch.randn(500, h, generator=gen),
+             "embeddings.position_embeddings.weight": torch.randn(128, h, generator=gen),
+             "embeddings.token_type_embeddings.weight": torch.randn(2, h, generator=gen),
+             "embeddings.LayerNorm.weight": torch.randn(h, generator=gen),
+             "embeddings.LayerNorm.bias": torch.randn(h, generator=gen)}
+    for i in range(2):
+        p = f"encoder.layer.{i}."
+        for name, shape in (("attention.self.query", (h, h)), ("attention.self.key", (h, h)),
+                            ("attention.self.value", (h, h)), ("attention.output.dense", (h, h)),
+                            ("intermediate.dense", (f, h)), ("output.dense", (h, f)),
+                            ("attention.output.LayerNorm", (h,)), ("output.LayerNorm", (h,))):
+            state[p + name + ".weight"] = torch.randn(shape, generator=gen)
+            state[p + name + ".bias"] = torch.randn(shape[0], generator=gen)
+    obj = types.SimpleNamespace(config=types.SimpleNamespace(**hf), state_dict=lambda: state)
+    torch.save(state, tmp_path / "pytorch_model.bin")
+    (tmp_path / "config.json").write_text(json.dumps(dict(hf, model_type="bert")))
+    for source in (obj, str(tmp_path)):
+        for dtype in (torch.float32, torch.bfloat16):
+            card_config, card = weights.load_hf_bert(source, device=device, dtype=dtype)
+            cpu_config, cpu = weights.load_hf_bert(source, device="cpu", dtype=dtype)
+            assert card_config == cpu_config and sorted(card) == sorted(cpu)
+            for name, leaf in cpu.items():
+                assert card[name].device.type == "cuda" and card[name].dtype == leaf.dtype, name
+                assert torch.equal(card[name].cpu(), leaf), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["cosine", "dot", "l2"])
+def test_vector_search_on_the_card_matches_numpy_and_ties(metric):
+    """4096 unit vectors x 384 (with exact duplicates) in a store on the
+    card: its ids equal the CPU store's (``lax.top_k``'s order: on a tie
+    the lower row first) and the numpy path's but for near-ties, scores
+    within ``SEARCH_TOLERANCE``; after deletes and re-upserts (a partial
+    upload) still."""
+    from langstream_tpu_torch.agents.vectorstore import VectorStore
+
+    device = _card()
+    rng = np.random.default_rng(5)
+    data = rng.standard_normal((4096, 384), dtype=np.float32)
+    data /= np.linalg.norm(data, axis=1, keepdims=True)
+    data[[100, 2000, 4000]] = data[7]  # ties with row 7
+    card = VectorStore(384, metric=metric, device=device)
+    cpu = VectorStore(384, metric=metric, device="cpu")
+    host = VectorStore(384, metric=metric, use_torch=False)
+    for store in (card, cpu, host):
+        for i, vector in enumerate(data):
+            store.upsert(f"d{i}", vector)
+    queries = np.concatenate([data[[7]], rng.standard_normal((15, 384), dtype=np.float32)])
+    queries /= np.linalg.norm(queries, axis=1, keepdims=True)  # at the data's scale
+
+    def compare():
+        matrix = host._matrix[:len(host)]
+        for query in queries:
+            got, want, plain = card.search(query, 12), cpu.search(query, 12), host.search(query, 12)
+            assert [r["id"] for r in got] == [r["id"] for r in want]
+            for mine, theirs in zip(got, want):
+                assert abs(mine["similarity"] - theirs["similarity"]) <= SEARCH_TOLERANCE
+            q = query / np.linalg.norm(query) if metric == "cosine" else query
+            exact = -np.linalg.norm(matrix - q, axis=1) if metric == "l2" else matrix @ q
+            for mine, theirs in zip(got, plain):  # numpy orders exact ties its own way
+                if mine["id"] != theirs["id"]:
+                    rows = host._index[mine["id"]], host._index[theirs["id"]]
+                    assert abs(exact[rows[0]] - exact[rows[1]]) <= SEARCH_TOLERANCE, rows
+
+    compare()
+    top = [r["id"] for r in card.search(data[7], 4)]
+    assert top == ["d7", "d100", "d2000", "d4000"]
+    for i in rng.choice(4096, 50, replace=False):
+        for store in (card, cpu, host):
+            store.delete(f"d{i}")
+    for i in range(50):
+        for store in (card, cpu, host):
+            store.upsert(f"new{i}", data[i])
+    compare()
+    assert torch.equal(card._resident.cpu(), torch.from_numpy(card._matrix))
+
+
+@pytest.mark.gpu
+def test_embeddings_served_while_an_engine_captures():
+    """``precompile`` of a graphed engine (Llama-3's heads at a small
+    width) on one thread while another keeps embedding on the card: the
+    capture completes (every variant captured, then a request served)
+    and every embedding equals the CPU's within ``EMBED_TOLERANCE``,
+    calls inside the capture included."""
+    import threading
+
+    from langstream_tpu_torch.providers.torch_local.embeddings import (
+        EncoderConfig,
+        TorchEmbedder,
+        init_encoder_params,
+    )
+    from langstream_tpu_torch.providers.torch_local.tokenizer import ByteTokenizer
+
+    device = _card()
+    config = EncoderConfig.minilm_l6()
+    params = init_encoder_params(config, seed=6, device=device)
+    card = TorchEmbedder(config, params, ByteTokenizer(), device=device)
+    cpu = TorchEmbedder(config, {k: v.cpu() for k, v in params.items()}, ByteTokenizer(), device="cpu")
+    rng = np.random.default_rng(6)
+    batches = [_embed_texts(rng, n) for n in (1, 3, 8)]
+    references = [torch.tensor(cpu.embed(batch)) for batch in batches]
+    llama = _small_llama(256)
+    eng = _graph_engine(llama, model.init_params(llama, seed=6, device=device), "dense", True)
+    done = threading.Event()
+    calls = []
+
+    def embed_until_done():
+        i = 0
+        while not done.is_set():
+            started = time.perf_counter()
+            got = torch.tensor(card.embed(batches[i % 3]))
+            calls.append((started, time.perf_counter(), float((got - references[i % 3]).abs().max())))
+            i += 1
+
+    worker = threading.Thread(target=embed_until_done)
+    worker.start()
+    try:
+        time.sleep(0.5)
+        window = time.perf_counter()
+        eng.precompile()
+        window = (window, time.perf_counter())
+    finally:
+        done.set()
+        worker.join(timeout=120)
+    assert not worker.is_alive()
+    try:
+        assert eng.steps.stats["captured"] == len(eng._variant_keys())
+        assert all(entry.graph is not None for entry in eng.steps._entries.values())
+        result = asyncio.run(eng.generate([1, 2, 3, 4, 5], engine.SamplingParams(max_new_tokens=6)))
+        assert len(result.tokens) == 6
+    finally:
+        eng.stop()
+    assert any(start < window[1] and end > window[0] for start, end, _ in calls), (window, calls[:3])
+    assert max(error for _, _, error in calls) <= EMBED_TOLERANCE
