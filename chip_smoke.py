@@ -87,16 +87,16 @@ Phases (any failure propagates and the exit code is not 0):
    through a wrapper on the engine's ``_dispatch_decode``), and one bare
    decode step of that model, eager and as a CUDA graph: wall and host
    enqueue time of each, and the device time (again in phase 6, over the
-   int8 cache). Then the in-turns controls, at 8 layers
-   (``CONTROL_LAYERS``), each series with its own twin of the main path
-   at that depth: the engine built with ``step_graphs=False``
-   (the eager control, in turns with the graphed runs: graphed, eager,
-   ..., graphed), with ``--no-pipeline-decode`` (no chained chunk; in
-   turns with the pipelined runs: pipelined, unpipelined, unpipelined,
-   pipelined), with the engine's ``join_prefills`` off (the JAX engine's
-   harvest: in turns, join, JAX, JAX, join), and with ``--quantization
-   int8`` (int8 weights drawn on the card; B1 and B2 as before; in turns
-   join, JAX, JAX with ``--admission-chunk 2``, join with it, JAX, join,
+   int8 cache). Then the in-turns controls, at 2 layers
+   (``CONTROL_LAYERS``; 8 until phase 12 came), each series with its own
+   twin of the main path at that depth: the engine built with
+   ``step_graphs=False`` (the eager control, in turns with the graphed
+   runs: graphed, eager, ..., graphed), with ``--no-pipeline-decode`` (no
+   chained chunk; in turns with the pipelined runs: pipelined,
+   unpipelined, pipelined), with the engine's ``join_prefills`` off (the
+   JAX engine's harvest: in turns, join, JAX, join), and with
+   ``--quantization int8`` (int8 weights drawn on the card; B1 and B2 as
+   before; join, JAX, JAX with ``--admission-chunk 2``, join with it,
    after one full-depth int8-weight phase), with a line holding the bf16
    and int8 bare steps of the full-depth phases side by side.
    Every server runs the engine supervisor and the decode-stall watchdog
@@ -167,7 +167,7 @@ Phases (any failure propagates and the exit code is not 0):
    peak beside phase 4's, and the streams equal to phase 4's (printed,
    not gated). The directory is removed at the end.
 
-10. Recovery at ``CONTROL_LAYERS``: the watchdog's escalation
+10. Recovery at ``RECOVERY_LAYERS``: the watchdog's escalation
    (:func:`serve_watchdog_and_check`: ``stuck_step`` wedges a decode
    dispatch for 14 s under thresholds cut short in the provider config;
    gated: the trips reach ``escalate-trips``, one restart, every session
@@ -185,7 +185,7 @@ Phases (any failure propagates and the exit code is not 0):
    wall ms per call at (rows, bucket) (1, 16), (8, 256), (64, 256) beside
    the f32 bound. Those weights written as a HF BERT directory under
    ``build/`` and loaded back onto the card with ``weights.load_hf_bert``
-   bit for bit. Then ``serve --precompile`` at ``CONTROL_LAYERS`` with a
+   bit for bit. Then ``serve --precompile`` at ``RECOVERY_LAYERS`` with a
    ``TorchEmbeddingsService`` (``preset: minilm-l6``, byte tokenizer):
    16 chats fired with 512 texts in requests of 1-64 inputs (every
    request 200, 16 sampled vectors within 1e-4 of the CPU's, no capture),
@@ -197,6 +197,35 @@ Phases (any failure propagates and the exit code is not 0):
    within 1e-5 allowed and counted), after 1,000 deletes and re-upserts
    again, and l2 on 65,536 rows; upsert seconds, the first search's
    upload, ms per search against the bound (the matrix read once).
+
+12. Disaggregation and the host tier (no kernel of their own: B3, or B6
+   over int8 pools, serves the imported and promoted chains). Llama-3-8B
+   at full width with int8 weights drawn once on the card and shared by
+   every engine of the phase, paged, buckets 128-2048, ``max_seq_len``
+   4096, eager dispatch, pipelined. The handoff over bf16 and then int8
+   pools (:func:`check_handoff`): a prefill engine A and a decode engine
+   B (``kv_blocks`` 1025 each); four prompts of 1500-2048 tokens, greedy
+   and seeded in turn; A answers each whole (the oracle), then exports a
+   2-token leg, which crosses ``fleet.handoff.handoff_records`` (256 KiB
+   budget) and the ``HandoffAssembler`` to B's ``kv_import`` replay.
+   Gates: B's stream A's (a first divergence only at a near-tie, within
+   5e-2 nats: the replay prefills the row that A wrote in a decode step),
+   B's imported rows the payload bit for bit, B's prefix hits every full
+   block, B3 (B6) once per layer per model call by its card counter, no
+   abort, the ``engines_snapshot`` deltas; a record set missing its last
+   chunk and a ``block_size`` 99 payload replay cold with A's stream.
+   Printed beside a plain pinned ``copy_``: export and import ms and
+   GB/s, the host's wait before the export, records and encode /
+   assemble s, the decode leg's TTFT with the import and cold. Then the
+   host tier over int8 and then bf16 pools (:func:`check_host_tier`):
+   ``kv_blocks`` 600, ``kv_host_blocks`` 1024 against a never-evicting
+   oracle; a 2048-token prompt, six 2048-token strangers, the prompt and
+   128 tokens more, greedy then seeded. Gates: streams equal, the
+   promoted rows the oracle's bit for bit, demotions and promotions, no
+   abort; with ``host_promote_torn@step=1`` the streams still the
+   oracle's and an abort counted. Printed: pinned host bytes, the
+   demotion's host ms per block, promotion ms and GB/s, prompt 2's TTFT
+   promoted, cold and as an HBM hit.
 
 The line before the last holds the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -215,9 +244,11 @@ import shutil
 import struct
 import subprocess
 import sys
+import threading
 import time
 import urllib.error
 import urllib.request
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -283,8 +314,11 @@ INT8_TOLERANCE = 5e-2
 # one f32 k scale and one f32 v scale
 SCALE_BYTES = 8
 # depth of the in-turns control phases of earlier slices (the main paths
-# run at Llama-3-8B's full 32 layers)
-CONTROL_LAYERS = 8
+# run at Llama-3-8B's full 32 layers); cut from 8 to keep the smoke
+# inside its time limit beside phase 12
+CONTROL_LAYERS = 2
+# depth of the watchdog, shedding and embeddings phases' engines
+RECOVERY_LAYERS = 8
 # H100 SXM FP32 peak outside the tensor cores: the encoder and the vector
 # search run in f32, and nothing turns TF32 on
 PEAK_FP32_FLOPS = 66.9e12
@@ -2234,7 +2268,7 @@ def serve_crash_and_check(label: str, service, server, served_peak_gib: float) -
 
 
 def serve_watchdog_and_check(label: str) -> None:
-    """Watchdog escalation at ``CONTROL_LAYERS``: the watchdog's
+    """Watchdog escalation at ``RECOVERY_LAYERS``: the watchdog's
     thresholds cut short through the provider config, and
     ``stuck_step@step=3;dur=14`` wedging the third decode dispatch of a
     16-request burst. The watchdog trips, escalates, and the supervisor
@@ -2247,7 +2281,7 @@ def serve_watchdog_and_check(label: str) -> None:
 
     settings = {"interval": 0.1, "no-progress-s": 1.0, "trip-cooldown-s": 0.3, "escalate-trips": 2,
                 "escalate-window-s": 120, "capture-seconds": 1.0}
-    service, server = start_llama_server(engine_config={"watchdog": settings}, layers=CONTROL_LAYERS)
+    service, server = start_llama_server(engine_config={"watchdog": settings}, layers=RECOVERY_LAYERS)
     captures = os.environ.get("LANGSTREAM_PROFILE_DIR", "")
     before = set(os.listdir(captures)) if os.path.isdir(captures) else set()
     sup = service.supervisor
@@ -2282,7 +2316,7 @@ def serve_watchdog_and_check(label: str) -> None:
         new = sorted(set(os.listdir(captures)) - before) if os.path.isdir(captures) else []
         traces = [os.path.join(captures, name, "trace.json") for name in new]
         sizes = [os.path.getsize(path) for path in traces if os.path.exists(path)]
-        log(f"watchdog [{label}]: {CONTROL_LAYERS} layers, stuck_step@step=3;dur=14, watchdog {settings}: "
+        log(f"watchdog [{label}]: {RECOVERY_LAYERS} layers, stuck_step@step=3;dur=14, watchdog {settings}: "
             f"{dog.trips} trips, escalated, rebuilt in {sup.last_recovery_s:.3f}s; {info['live']} live "
             f"sessions resurrected, {len(jobs)} requests answered in {wall:.3f}s ({tokens} completion "
             f"tokens); the condemned engine emitted nothing after its drain and its thread ended; "
@@ -2294,12 +2328,12 @@ def serve_watchdog_and_check(label: str) -> None:
 
 
 def serve_shedding_and_check(label: str) -> None:
-    """Load shedding at ``CONTROL_LAYERS``: ``--queue-timeout-s 0.25``
+    """Load shedding at ``RECOVERY_LAYERS``: ``--queue-timeout-s 0.25``
     against 96 concurrent completions of 64 tokens on 32 slots. Gates: at
     least one request shed; each shed request answered 503 with
     Retry-After, every other 200; ``requests_shed_total{reason=
     "queue_timeout"}`` on ``/metrics`` equal to the 503s."""
-    service, server = start_llama_server("--queue-timeout-s", "0.25", layers=CONTROL_LAYERS)
+    service, server = start_llama_server("--queue-timeout-s", "0.25", layers=RECOVERY_LAYERS)
     rng = np.random.default_rng(3)
     jobs = [("/v1/completions", {"prompt": prompt_text(rng, 100 + 2 * i), "max_tokens": 64})
             for i in range(96)]
@@ -2321,7 +2355,7 @@ def serve_shedding_and_check(label: str) -> None:
     exposed = [float(row[len(line):]) for row in exposition.splitlines() if row.startswith(line)]
     assert exposed == [float(len(shed))], (exposed, len(shed))
     retry = sorted(int(headers["Retry-After"]) for _, headers, _ in shed)
-    log(f"shedding [{label}]: {CONTROL_LAYERS} layers, --queue-timeout-s 0.25, 96 requests on 32 slots in "
+    log(f"shedding [{label}]: {RECOVERY_LAYERS} layers, --queue-timeout-s 0.25, 96 requests on 32 slots in "
         f"{wall:.3f}s: {len(served)} answered 200, {len(shed)} shed with 503 (Retry-After "
         f"{retry[0]}-{retry[-1]} s), /metrics requests_shed_total{{reason=\"queue_timeout\"}} "
         f"{exposed[0]:.0f}")
@@ -2907,7 +2941,7 @@ def _post_timed(server, path, body):
 def serve_embeddings_and_check(label: str, device, config, params) -> dict:
     """Embeddings beside the completions engine, as the JAX ``serve`` runs
     both in one process: ``serve --precompile`` with Llama-3-8B at
-    ``CONTROL_LAYERS`` and a ``TorchEmbeddingsService`` over
+    ``RECOVERY_LAYERS`` and a ``TorchEmbeddingsService`` over
     ``embeddings-model: {preset: minilm-l6}`` and the byte tokenizer (its
     weights the encoder check's draw). 16 chat completions fired together
     with an embeddings burst of 512 texts (40-1200 bytes) in requests of
@@ -2956,7 +2990,7 @@ def serve_embeddings_and_check(label: str, device, config, params) -> dict:
         assert len(vectors) == len(texts) == 512
         return vectors
 
-    service, server = start_llama_server(layers=CONTROL_LAYERS, embeddings=embeddings)
+    service, server = start_llama_server(layers=RECOVERY_LAYERS, embeddings=embeddings)
     try:
         engine = service.engine
         captured = engine.steps.stats["captured"]
@@ -3011,7 +3045,7 @@ def serve_embeddings_and_check(label: str, device, config, params) -> dict:
                   embed_ms=embed_ms, device_ms=device_ms,
                   bucket=tokens_np.shape[1])
     log(f"embeddings serving [{label}]: {len(requests)} embeddings requests (512 texts, 40-1200 bytes, "
-        f"1-64 a request) beside 16 chats on Llama-3-8B at {CONTROL_LAYERS} layers, all 200 in "
+        f"1-64 a request) beside 16 chats on Llama-3-8B at {RECOVERY_LAYERS} layers, all 200 in "
         f"{wall:.3f}s: {result['vectors_s']:.1f} vectors/s (the last vector at {embed_wall:.3f}s; "
         f"alone {result['vectors_s_alone']:.1f}), chats {tokens} tokens at "
         f"{result['chat_tok_s']:.1f} tok/s (the last at {chat_wall:.3f}s; alone "
@@ -3030,7 +3064,7 @@ def serve_embeddings_and_check(label: str, device, config, params) -> dict:
 
 def embeddings_during_capture(label: str, embeddings, cpu, rng) -> dict:
     """A fresh ``serve --precompile`` engine (Llama-3-8B at
-    ``CONTROL_LAYERS``) built on one thread while two threads keep calling
+    ``RECOVERY_LAYERS``) built on one thread while two threads keep calling
     ``embeddings.compute_embeddings``: the calls that overlap the engine's
     ``precompile`` (timed through a wrapper on it) must be answered and
     equal the CPU's, and the capture must complete: every variant
@@ -3065,7 +3099,7 @@ def embeddings_during_capture(label: str, embeddings, cpu, rng) -> dict:
         with concurrent.futures.ThreadPoolExecutor(2) as pool:
             callers = [pool.submit(embed_until_built, offset) for offset in (0, 2)]
             try:
-                built.set_result(start_llama_server(layers=CONTROL_LAYERS))
+                built.set_result(start_llama_server(layers=RECOVERY_LAYERS))
             except BaseException as error:
                 built.set_exception(error)
             for caller in callers:
@@ -3219,6 +3253,448 @@ def check_vector_search(device, label: str, rows: int = 262144, l2_rows: int = 6
     return result
 
 
+# ---------------------------------------------------------------------- #
+# disaggregation and the host tier: the KV handoff between a prefill and
+# a decode engine, demotion and promotion through pinned host memory
+# ---------------------------------------------------------------------- #
+DISAGG_BUCKETS = [128, 256, 512, 1024, 2048]
+DISAGG_SEQ = 4096
+# top-K each phase-12 engine keeps: the stream gate reads the oracle's
+# alternatives where two bf16 runs part
+DISAGG_TOPK = 8
+# two bf16 runs of the same state may part only at a near-tie: until the
+# first differing token the chosen tokens' logprobs agree within this, and
+# there the other run's token is in the oracle's top-K with a logprob
+# within this of its own (greedy: also within this of the oracle's pick)
+NEAR_TIE = 5e-2
+DISAGG_SAMPLINGS = {
+    "greedy": dict(max_new_tokens=12),
+    # the seeded sampling of the JAX package's tests/test_disagg.py
+    "seeded": dict(max_new_tokens=12, temperature=0.9, top_k=8, top_p=0.9, seed=1234,
+                   presence_penalty=0.4, frequency_penalty=0.25),
+}
+
+
+def _disagg_engine(config, params, kv_quant: bool, **kwargs):
+    """A paged engine of phase 12 at Llama-3-8B width over the shared int8
+    weights (the supervisor's factory shares them the same way), started;
+    eager dispatch (no graph to capture per engine) and the pipelined
+    decode, ``serve``'s default."""
+    eng = engine_lib.DecodeEngine(
+        config, params, device="cuda", max_slots=8, max_seq_len=DISAGG_SEQ,
+        prefill_buckets=DISAGG_BUCKETS, decode_chunk=4, kv_layout="paged", kv_block_size=16,
+        kv_quant="int8" if kv_quant else None, logprobs_topk=DISAGG_TOPK, step_graphs=False,
+        pipeline_decode=True, **kwargs)
+    eng.start()
+    return eng
+
+
+def _generate(eng, prompt, sampling, **fields):
+    """One request through ``submit``; returns the result and its TTFT
+    (ms, the engine's submit to first token; a replay's first token is
+    the first its resumed span emits)."""
+    future = concurrent.futures.Future()
+    request = engine_lib.GenerationRequest(
+        prompt_tokens=list(prompt), sampling=engine_lib.SamplingParams(**sampling), future=future)
+    for name, value in fields.items():
+        setattr(request, name, value)
+    before = eng.stats["ttft_time"]
+    eng.submit(request)
+    result = future.result(timeout=600)
+    return result, (eng.stats["ttft_time"] - before) * 1e3
+
+
+def same_stream(got, want, greedy: bool, label: str) -> bool:
+    """True when ``got`` equals the oracle ``want`` token for token; False
+    when they part at a near-tie (:data:`NEAR_TIE`): a replay prefills the
+    row of the prompt's last sampled token that the oracle wrote in a
+    decode step, and bf16 GEMMs of other shapes round it otherwise.
+    Raises on any other difference."""
+    if got.tokens == want.tokens:
+        return True
+    assert len(got.tokens) == len(want.tokens), (label, got.tokens, want.tokens)
+    first = next(j for j, (a, b) in enumerate(zip(got.tokens, want.tokens)) if a != b)
+    for j in range(first):
+        assert abs(got.logprobs[j] - want.logprobs[j]) <= NEAR_TIE, (label, j, got.logprobs, want.logprobs)
+    ids, lps = want.top_logprobs[first]
+    token = got.tokens[first]
+    assert token in ids, (label, first, token, ids)
+    other = lps[ids.index(token)]
+    assert abs(got.logprobs[first] - other) <= NEAR_TIE, (label, first, got.logprobs[first], other)
+    if greedy:
+        assert want.logprobs[first] - other <= NEAR_TIE, (label, first, want.logprobs[first], other)
+    return False
+
+
+def _clear_prefix_cache(eng) -> None:
+    """Unpublish every cached chain of an idle engine's pool (no slot
+    holds a block between requests), so the next request runs cold."""
+    eng.kv_manager._evict(eng.num_blocks)
+    assert eng.kv_manager.blocks_in_use == 0, eng.kv_manager.blocks_in_use
+
+
+def _pool_rows(eng, blocks) -> dict:
+    index = torch.tensor(blocks, dtype=torch.long, device=eng.device)
+    return {leaf: value.index_select(1, index).cpu() for leaf, value in eng.cache.items()}
+
+
+def plain_copy_ms(nbytes: int):
+    """A plain pinned ``copy_`` of ``nbytes``: device to host and host to
+    device (ms each)."""
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    d2h = call_ms(lambda: host.copy_(dev, non_blocking=True), iters=5)
+    h2d = call_ms(lambda: dev.copy_(host, non_blocking=True), iters=5)
+    del dev, host
+    return d2h, h2d
+
+
+def _kv_kernel_gate(eng, calls_before, entries_before, counts, kv_quant: bool) -> Tuple[int, int]:
+    """B3 (B6) once per layer per model call of the engine in the window,
+    by the card's counters (prefill calls by their own), and no other
+    kernel. A variant first met in the window runs its body once more to
+    warm up (eager: to make its outputs): ``size`` decode steps for a
+    decode chunk, one call for a prefill; those count too. Returns the
+    window's model calls and warm-up calls."""
+    layers = eng.config.num_layers
+    calls = {k: n - calls_before.get(k, 0) for k, n in eng.stats["model_dispatches"].items()}
+    new = [key for key in eng.steps._entries if key not in entries_before]
+    warm_decode = sum(key.size for key in new if key.kind == "decode")
+    warm_prefill = sum(1 for key in new if key.kind in ("prefill", "prefill_offset"))
+    name = f"paged_attention{'_quant' if kv_quant else ''}"
+    prefills = calls.get("paged_prefill", 0) + calls.get("paged_prefill_at_offset", 0) + warm_prefill
+    expect = {name: layers * (sum(calls.values()) + warm_decode + warm_prefill),
+              f"{name}/prefill": layers * prefills}
+    assert counts == {k: expect.get(k, 0) for k in counts}, (counts, calls, new)
+    assert expect[name] > 0 and expect[f"{name}/prefill"] > 0, expect
+    return sum(calls.values()), warm_decode + warm_prefill
+
+
+def check_handoff(label: str, config, params, kv_quant: bool) -> dict:
+    """The KV handoff at Llama-3-8B width: engine A the prefill leg, B the
+    decode leg (``kv_blocks`` 1025 each). Four prompts of 1500-2048 tokens
+    (seed 12), greedy and seeded in turn: A answers each whole (the
+    oracle, 12 tokens), then a 2-token leg with ``export_handoff``; its
+    payload goes through ``fleet.handoff.handoff_records`` (256 KiB
+    chunks) and the ``HandoffAssembler`` to B, which replays the manifest
+    with ``kv_import``. Gates: B's stream A's (:func:`same_stream`); B's
+    pool rows of the imported chain equal to the payload bit for bit; B's
+    ``hit_tokens`` grown by every full block of the prompt; B3 (B6) once
+    per layer per model call of the replay; no ``handoff_aborted``; the
+    ``engines_snapshot`` deltas equal the engines' counts. Then a record
+    set missing its last chunk and a torn payload (``block_size`` 99)
+    both replay cold with A's stream. Printed beside a plain pinned
+    ``copy_`` of the same bytes: export ms and GB/s (gather and D2H) with
+    the host's wait for the work queued before it, records and their
+    encode / assemble seconds, import ms and GB/s (H2D and scatter), and
+    the decode leg's TTFT with the import against the same replay cold on
+    B."""
+    from langstream_tpu_torch.fleet.handoff import (
+        HandoffAssembler,
+        handoff_records,
+        manifest_for_request,
+        payload_nbytes,
+    )
+
+    gc.collect()
+    base = engine_lib.engines_snapshot()
+    a = _disagg_engine(config, params, kv_quant, kv_blocks=1025)
+    b = _disagg_engine(config, params, kv_quant, kv_blocks=1025)
+    exports, imports = [], []
+    export_fn, import_fn = a._export_handoff, b._import_handoff
+
+    def timed_export(slot, history):
+        started = time.perf_counter()
+        torch.cuda.synchronize()  # the host's wait for work queued before the export
+        waited = time.perf_counter()
+        payload = export_fn(slot, history)
+        exports.append((waited - started, time.perf_counter() - waited, payload_nbytes(payload)))
+        return payload
+
+    def timed_import(payload):
+        torch.cuda.synchronize()
+        started = time.perf_counter()
+        ok = import_fn(payload)
+        torch.cuda.synchronize()
+        imports.append((time.perf_counter() - started, payload_nbytes(payload), ok))
+        return ok
+
+    # one uncounted round first, greedy and seeded: a variant's first use
+    # runs its body once more (eager: to make its outputs), which would
+    # land in the first prompt's times
+    warm_prompt = [int(t) for t in np.random.default_rng(11).integers(1, config.vocab_size, size=2048)]
+    for sampling in DISAGG_SAMPLINGS.values():
+        leg, _ = _generate(a, warm_prompt, dict(sampling, max_new_tokens=2), export_handoff=True)
+        replay = dict(replay_tokens=leg.tokens, prompt_len=len(warm_prompt))
+        _generate(b, warm_prompt + leg.tokens[:1], sampling, kv_import=leg.kv_handoff, **replay)
+        _clear_prefix_cache(b)
+        _generate(b, warm_prompt + leg.tokens[:1], sampling, **replay)
+        _clear_prefix_cache(b)
+        _clear_prefix_cache(a)
+    warm_handoffs = len(DISAGG_SAMPLINGS)
+    a._export_handoff, b._import_handoff = timed_export, timed_import
+    rng = np.random.default_rng(12)
+    lengths = [2048, 1500, *(int(n) for n in rng.integers(1501, 2048, size=2))]
+    prompts = [[int(t) for t in rng.integers(1, config.vocab_size, size=n)] for n in lengths]
+    kind = "int8 KV" if kv_quant else "bf16 KV"
+    rows, first = [], None
+    try:
+        for i, prompt in enumerate(prompts):
+            name = ("greedy", "seeded")[i % 2]
+            sampling = DISAGG_SAMPLINGS[name]
+            want, _ = _generate(a, prompt, sampling)
+            # the leg runs cold, as the oracle did: its rows and first two
+            # tokens are the oracle's bit for bit
+            _clear_prefix_cache(a)
+            leg, _ = _generate(a, prompt, dict(sampling, max_new_tokens=2), export_handoff=True)
+            assert leg.tokens == want.tokens[:2], (leg.tokens, want.tokens)
+            payload = leg.kv_handoff
+            full = len(prompt) // 16
+            assert len(payload["tokens"]) == 16 * ((len(prompt) + 1) // 16), len(payload["tokens"])
+            started = time.perf_counter()
+            records = handoff_records(payload, manifest_for_request(prompt, leg.tokens, sampling))
+            encode_s = time.perf_counter() - started
+            # a record holds whole blocks, at least one: at this width one
+            # block outgrows the 256 KiB budget, so each record is a block
+            itemsize = {"bfloat16": 2, "int8": 1, "float32": 4}
+            largest = max(sum(int(np.prod(spec["shape"])) * itemsize[spec["dtype"]]
+                              for spec in r["arrays"].values()) for r in records)
+            per_block = payload_nbytes(payload) // len(payload["arrays"]["k"][0])
+            assert largest <= max(256 * 1024, per_block), (largest, per_block)
+            started = time.perf_counter()
+            asm = HandoffAssembler()
+            assembled = None
+            for record in records:
+                assembled = asm.offer(record, now=0.0) or assembled
+            assemble_s = time.perf_counter() - started
+            manifest = assembled["manifest"]
+            replay = list(manifest["generated"])
+            fields = dict(replay_tokens=replay, replay_logprobs=list(leg.logprobs),
+                          replay_tops=list(leg.top_logprobs), prompt_len=len(prompt))
+            hits = b.kv_manager.stats["hit_tokens"]
+            calls, entries = dict(b.stats["model_dispatches"]), set(b.steps._entries)
+            with launches_lib.device_launches(shapes=True) as counts:
+                got, ttft = _generate(b, manifest["prompt_tokens"] + replay[:-1], manifest["sampling"],
+                                      kv_import=assembled["payload"], **fields)
+            model_calls, warm_calls = _kv_kernel_gate(b, calls, entries, counts, kv_quant)
+            assert b.kv_manager.stats["hit_tokens"] - hits >= full * 16, (
+                b.kv_manager.stats["hit_tokens"] - hits, full)
+            chain, matched = b.kv_manager.match(payload["tokens"])
+            assert matched == len(payload["tokens"]), (matched, len(payload["tokens"]))
+            for leaf, value in _pool_rows(b, chain).items():
+                assert torch.equal(value, assembled["payload"]["arrays"][leaf]), leaf
+            exact = same_stream(got, want, name == "greedy", f"handoff {kind} prompt {i}")
+            _clear_prefix_cache(b)
+            cold, cold_ttft = _generate(b, prompt + replay[:-1], sampling, **fields)
+            cold_exact = same_stream(cold, want, name == "greedy", f"cold replay {kind} prompt {i}")
+            _clear_prefix_cache(b)
+            rows.append(dict(len=len(prompt), sampling=name, records=len(records), largest=largest,
+                             launches=counts[f"paged_attention{'_quant' if kv_quant else ''}"],
+                             model_calls=model_calls, warm_calls=warm_calls,
+                             encode_s=encode_s,
+                             assemble_s=assemble_s, ttft=ttft, cold_ttft=cold_ttft, exact=exact,
+                             cold_exact=cold_exact))
+            if first is None:
+                first = (prompt, want, leg, records, fields)
+        # a prefill replica that died mid-handoff, and a torn payload
+        prompt, want, leg, records, fields = first
+        torn = HandoffAssembler(orphan_timeout_s=1.0)
+        assert all(torn.offer(record, now=0.0) is None for record in records[:-1])
+        assert torn.gc(now=2.0), torn.pending_ids()
+        missing, _ = _generate(b, prompt + leg.tokens[:1], DISAGG_SAMPLINGS["greedy"], **fields)
+        torn_exact = same_stream(missing, want, True, f"missing last chunk {kind}")
+        _clear_prefix_cache(b)
+        aborted = b.stats["tokens_wasted"].get("handoff_aborted", 0)
+        imported = b.stats["handoff_imports"]
+        bad = dict(leg.kv_handoff, block_size=99)
+        broken, _ = _generate(b, prompt + leg.tokens[:1], DISAGG_SAMPLINGS["greedy"], kv_import=bad,
+                              **fields)
+        bad_exact = same_stream(broken, want, True, f"block_size 99 {kind}")
+        assert b.stats["tokens_wasted"]["handoff_aborted"] - aborted == len(leg.kv_handoff["tokens"])
+        assert b.stats["handoff_imports"] == imported
+        gc.collect()
+        snap = engine_lib.engines_snapshot()
+        delta = {key: snap[key] - base.get(key, 0.0) for key in (
+            "kv_handoff_exports_total", "kv_handoff_exported_bytes_total", "kv_handoff_imports_total",
+            "kv_handoff_imported_bytes_total", "kv_handoff_imported_tokens_total")}
+        assert delta == {
+            "kv_handoff_exports_total": a.stats["handoff_exports"],
+            "kv_handoff_exported_bytes_total": a.stats["handoff_export_bytes"],
+            "kv_handoff_imports_total": b.stats["handoff_imports"],
+            "kv_handoff_imported_bytes_total": b.stats["handoff_import_bytes"],
+            "kv_handoff_imported_tokens_total": b.stats["handoff_import_tokens"],
+        }, (delta, a.stats, b.stats)
+        assert a.stats["handoff_exports"] == b.stats["handoff_imports"] == len(prompts) + warm_handoffs
+        assert a.stats["tokens_wasted"].get("handoff_aborted", 0) == 0
+    finally:
+        a.stop()
+        b.stop()
+    nbytes = max(n for _, _, n in exports)
+    d2h_ms, h2d_ms = plain_copy_ms(nbytes)
+    ok_imports = [(s, n) for s, n, ok in imports if ok]
+    log(f"handoff {kind} [{label}]: Llama-3-8B int8 weights, eager, pipelined; " + "; ".join(
+        f"prompt {r['len']} {r['sampling']}: {r['records']} records of at most {r['largest']} B, encode {r['encode_s']:.3f} s, "
+        f"assemble {r['assemble_s']:.3f} s, B3/B6 {r['launches']} launches on the card for {r['model_calls']} model calls and {r['warm_calls']} warm-up calls, decode-leg TTFT with the import {r['ttft']:.1f} ms vs cold "
+        f"{r['cold_ttft']:.1f} ms, stream {'equal' if r['exact'] else 'parted at a near-tie'} "
+        f"(cold {'equal' if r['cold_exact'] else 'parted at a near-tie'})" for r in rows)
+        + "; export (gather + D2H) " + ", ".join(
+            f"{e * 1e3:.2f} ms = {n / e / 1e9:.2f} GB/s after a {w * 1e3:.3f} ms wait" for w, e, n in exports)
+        + "; import (H2D + scatter) " + ", ".join(
+            f"{s * 1e3:.2f} ms = {n / s / 1e9:.2f} GB/s" for s, n in ok_imports)
+        + f"; plain pinned copy_ of {nbytes / 2**20:.1f} MiB: D2H {d2h_ms:.2f} ms = "
+        f"{nbytes / d2h_ms / 1e6:.2f} GB/s, H2D {h2d_ms:.2f} ms = {nbytes / h2d_ms / 1e6:.2f} GB/s; "
+        f"torn: missing last chunk {'equal' if torn_exact else 'parted at a near-tie'}, block_size 99 "
+        f"{'equal' if bad_exact else 'parted at a near-tie'} ({len(leg.kv_handoff['tokens'])} tokens "
+        f"billed handoff_aborted); engines_snapshot deltas {delta}")
+    return dict(rows=rows, exports=exports, imports=imports, plain=(nbytes, d2h_ms, h2d_ms))
+
+
+def _tier_scenario(eng, prompt1, prompt2, thrash, sampling):
+    """Prompt 1, the thrash prompts, prompt 2 (prompt 1 and 128 tokens
+    more); returns prompt 1's and 2's results, and prompt 2's TTFT."""
+    first, _ = _generate(eng, prompt1, sampling)
+    for prompt in thrash:
+        _generate(eng, prompt, sampling)
+    second, ttft = _generate(eng, prompt2, sampling)
+    return [first, second], ttft
+
+
+def check_host_tier(label: str, config, params, kv_quant: bool) -> dict:
+    """The host-DRAM tier at Llama-3-8B width (``tests/test_kv_tiers.py``'s
+    scenario, scaled): an engine with ``kv_blocks`` 600 and
+    ``kv_host_blocks`` 1024, and an oracle with the default pool (8 slots
+    x 256 blocks + 1), which never evicts. Prompt 1 is 2048 tokens, six
+    thrash prompts of 2048 tokens demote its chain, and prompt 2, prompt 1
+    and 128 tokens more, promotes it; greedy then seeded, 8 new tokens,
+    on the same engine pair. Gates: the streams the oracle's, token for
+    token (the promoted rows are the demoted ones, and both engines
+    prefill the same suffix at the same offset); the tiered engine's pool
+    rows of prompt 2's chain equal to the oracle's bit for bit;
+    demotions, promotions, no promote aborts, no arena eviction. Then a
+    fresh tiered engine under ``LANGSTREAM_FAULTS=host_promote_torn@step=1``
+    (set and cleared here): the streams the oracle's
+    (:func:`same_stream`: the torn promotion falls back to a cold prefill
+    in windows) and promote aborts. Printed: the pinned host bytes held,
+    ms per demoted block in admission (the host's time in the hook: it
+    only enqueues), promote ms and GB/s (synchronized around the call),
+    prompt 2's TTFT promoted, cold (the torn run) and an HBM hit (the
+    oracle)."""
+    from langstream_tpu_torch.runtime import faults
+
+    rng = np.random.default_rng(13)
+    prompt1 = [int(t) for t in rng.integers(1, config.vocab_size, size=2048)]
+    prompt2 = prompt1 + [int(t) for t in rng.integers(1, config.vocab_size, size=128)]
+    thrash = [[int(t) for t in rng.integers(1, config.vocab_size, size=2048)] for _ in range(6)]
+    samplings = (dict(max_new_tokens=8), dict(max_new_tokens=8, temperature=0.8, seed=7))
+    kind = "int8 KV" if kv_quant else "bf16 KV"
+    started = time.perf_counter()
+    tiered = _disagg_engine(config, params, kv_quant, kv_blocks=600, kv_host_blocks=1024)
+    build_s = time.perf_counter() - started  # with the arena's memory pinned
+    oracle = _disagg_engine(config, params, kv_quant)
+    demotes, promotes = [], []
+    demote_fn, promote_fn = tiered.kv_manager._demote_data, tiered._promote_host_chain
+
+    def timed_demote(block):
+        started = time.perf_counter()
+        out = demote_fn(block)
+        demotes.append(time.perf_counter() - started)
+        return out
+
+    def timed_promote(prompt, matched, matched_tokens, entries, fresh):
+        torch.cuda.synchronize()
+        started = time.perf_counter()
+        count = promote_fn(prompt, matched, matched_tokens, entries, fresh)
+        torch.cuda.synchronize()
+        promotes.append((time.perf_counter() - started, sum(e.nbytes for e in entries[:count])))
+        return count
+
+    tiered.kv_manager._demote_data = timed_demote
+    tiered._promote_host_chain = timed_promote
+    try:
+        ttfts = []
+        for n, sampling in enumerate(samplings):
+            got, ttft = _tier_scenario(tiered, prompt1, prompt2, thrash, sampling)
+            want, hbm_ttft = _tier_scenario(oracle, prompt1, prompt2, thrash, sampling)
+            assert [r.tokens for r in got] == [r.tokens for r in want], (n, got, want)
+            ttfts.append((ttft, hbm_ttft))
+            if n == 0:
+                oracle_first = want
+                chain_t, matched_t = tiered.kv_manager.match(prompt2)
+                chain_o, matched_o = oracle.kv_manager.match(prompt2)
+                assert matched_t == matched_o >= 2048, (matched_t, matched_o)
+                rows_t, rows_o = _pool_rows(tiered, chain_t[:128]), _pool_rows(oracle, chain_o[:128])
+                for leaf in rows_t:
+                    assert torch.equal(rows_t[leaf], rows_o[leaf]), leaf
+        stats = {key: tiered.stats[key] for key in (
+            "host_demotions", "host_demote_bytes", "host_promotions", "host_promote_bytes",
+            "kv_host_hit_tokens", "host_promote_aborts")}
+        arena = tiered.kv_host_arena.snapshot_stats()
+        entry = next(iter(tiered.kv_host_arena._entries.values()))
+        pinned = all(rows.is_pinned() for rows in entry.data.values())
+        held = arena["blocks_in_use"] * entry.nbytes
+        assert stats["host_demotions"] > 0 and stats["host_promotions"] > 0, stats
+        assert stats["host_promote_aborts"] == 0, stats
+        assert oracle.kv_manager.stats["evictions"] == 0, oracle.kv_manager.stats
+        assert pinned
+    finally:
+        tiered.stop()
+    faults.reset()
+    os.environ["LANGSTREAM_FAULTS"] = "host_promote_torn@step=1"
+    try:
+        torn = _disagg_engine(config, params, kv_quant, kv_blocks=600, kv_host_blocks=1024)
+    finally:
+        del os.environ["LANGSTREAM_FAULTS"]
+    try:
+        # first use of the long path's variants, uncounted (prompt 2's
+        # cold fallback runs the 2048-token window at an offset)
+        _generate(torn, [int(t) for t in rng.integers(1, config.vocab_size, size=2100)], samplings[0])
+        got, cold_ttft = _tier_scenario(torn, prompt1, prompt2, thrash, samplings[0])
+        torn_exact = [same_stream(g, w, True, f"torn promotion {kind}") for g, w in zip(got, oracle_first)]
+        assert torn.stats["host_promote_aborts"] >= 1 and torn.stats["host_promotions"] == 0, torn.stats
+    finally:
+        torn.stop()
+        oracle.stop()
+        faults.reset()
+    per_block = sum(demotes) / len(demotes) * 1e3
+    log(f"host tier {kind} [{label}]: Llama-3-8B int8 weights, eager, pipelined; the tiered engine "
+        f"built in {build_s:.2f} s, its arena's memory pinned; {stats}; arena "
+        f"{arena}; {held / 2**30:.3f} GiB of {'pinned' if pinned else 'pageable'} host memory held "
+        f"({entry.nbytes} B a block); demote {per_block:.4f} ms of host time per block in admission "
+        f"({len(demotes)} blocks); promote (H2D + scatter, synchronized) {len(promotes)} calls, "
+        f"{sum(n for _, n in promotes) / 2**20:.1f} MiB in {sum(s for s, _ in promotes) * 1e3:.2f} ms = "
+        f"{sum(n for _, n in promotes) / sum(s for s, _ in promotes) / 1e9:.2f} GB/s, the largest "
+        f"{max(n for _, n in promotes) / 2**20:.1f} MiB in {max(promotes, key=lambda p: p[1])[0] * 1e3:.2f} ms"
+        + f"; prompt 2's TTFT promoted {ttfts[0][0]:.1f} ms (greedy) / {ttfts[1][0]:.1f} ms (seeded), "
+        f"cold (torn promotion) {cold_ttft:.1f} ms, HBM hit (oracle) {ttfts[0][1]:.1f} ms; torn run "
+        f"{torn.stats['host_promote_aborts']} promote aborts, streams "
+        f"{['equal' if e else 'parted at a near-tie' for e in torn_exact]}")
+    return dict(stats=stats, demote_ms=per_block, promotes=promotes, ttfts=ttfts, cold_ttft=cold_ttft)
+
+
+def check_disagg_and_tiers(label: str) -> None:
+    """Phase 12 at Llama-3-8B width: int8 weights drawn once on the card
+    (seed 0) and shared by every engine of the phase; the handoff over
+    bf16 and int8 pools, then the host tier over int8 and bf16 pools."""
+    from langstream_tpu_torch.providers.torch_local.quant import init_quantized_params
+
+    started = time.perf_counter()
+    config = model.LlamaConfig.llama3_8b()
+    params = init_quantized_params(config, seed=0, device="cuda")
+    parts = []
+    for check, kv_quant in ((check_handoff, False), (check_handoff, True),
+                            (check_host_tier, True), (check_host_tier, False)):
+        part = time.perf_counter()
+        check(label, config, params, kv_quant)
+        gc.collect()
+        torch.cuda.empty_cache()
+        parts.append(f"{check.__name__} {'int8' if kv_quant else 'bf16'} KV {time.perf_counter() - part:.1f} s")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 12 (disaggregation and the host tier) [{label}]: {time.perf_counter() - started:.1f} s "
+        f"({', '.join(parts)}; {threading.active_count()} threads in the process)")
+
+
 def main() -> None:
     # the watchdog's trip captures go under build/, which git ignores
     os.environ.setdefault("LANGSTREAM_PROFILE_DIR", os.path.join("build", "profiles"))
@@ -3284,16 +3760,12 @@ def main() -> None:
         (jax_harvest, False, ()),
         (eager, False, ()),
         (unpipelined, False, ()),
-        (unpipelined, False, ()),
-        (jax_harvest, False, ()),
         (ctl_pipelined, False, ()),
         (int8_weights, False, ()),
         (ctl_int8, False, ()),
         (int8_jax, False, ()),
         (int8_jax_short, False, ()),
         (int8_short, False, ()),
-        (int8_jax, False, ()),
-        (ctl_int8, False, ()),
         (serve_paged_and_check, False,
          ("paged_attention", "paged_attention/decode", "paged_attention/prefill")),
         (warm_split, False, ()),
@@ -3330,21 +3802,21 @@ def main() -> None:
         "64-token burst: " + turns(("graphed", "eager", "graphed"),
                                    (graphed_runs[0], runs[eager, False][0], graphed_runs[1])))
     log(f"dense bf16 in turns{depth}, the carry (both graphed), mixed-length / uniform 64-token burst: "
-        + turns(("pipelined", "unpipelined", "unpipelined", "pipelined"),
+        + turns(("pipelined", "unpipelined", "pipelined"),
                 (graphed_runs[0], *runs[unpipelined, False], graphed_runs[1])))
     log(f"dense bf16 in turns{depth}, the harvest (both graphed and pipelined): join_prefills against the "
         "JAX engine's harvest, mixed-length / uniform 64-token burst: "
-        + turns(("join", "JAX", "JAX", "join"),
+        + turns(("join", "JAX", "join"),
                 (graphed_runs[0], *runs[jax_harvest, False], graphed_runs[1])))
     log(f"int8 weights in turns{depth}, the harvest and --admission-chunk 2, mixed-length / uniform "
         "64-token burst: " + turns(
-            ("join", "JAX", "JAX + admission-chunk 2", "join + admission-chunk 2", "JAX", "join"),
+            ("join", "JAX", "JAX + admission-chunk 2", "join + admission-chunk 2"),
             (runs[ctl_int8, False][0], runs[int8_jax, False][0], runs[int8_jax_short, False][0],
-             runs[int8_short, False][0], runs[int8_jax, False][1], runs[ctl_int8, False][1])))
+             runs[int8_short, False][0])))
     bare = [(kind, run["timing"]) for kind, run in zip(
-        ("graphed", "eager", "unpipelined", "unpipelined", "graphed"),
+        ("graphed", "eager", "unpipelined", "graphed"),
         (graphed_runs[0], runs[eager, False][0], *runs[unpipelined, False], graphed_runs[1]))]
-    log(f"bare bf16 decode step in the five dense bf16 control phases{depth} (eager wall / graphed wall "
+    log(f"bare bf16 decode step in the four dense bf16 control phases{depth} (eager wall / graphed wall "
         "/ device ms): " + ", ".join(f"{t['wall_ms']:.2f} / {t['graph_wall_ms']:.3f} / {t['device_ms']:.3f}"
                                      for _, t in bare))
     # the int8-weight phase beside the bf16 one, both at full depth
@@ -3369,7 +3841,7 @@ def main() -> None:
         serve_checkpoint_and_check(label, CHECKPOINT_DIR, runs[dense_crash, False][0], gate)
     finally:
         shutil.rmtree(CHECKPOINT_DIR, ignore_errors=True)
-    # the watchdog's escalation and load shedding, at CONTROL_LAYERS
+    # the watchdog's escalation and load shedding, at RECOVERY_LAYERS
     for phase in (serve_watchdog_and_check, serve_shedding_and_check):
         gc.collect()
         torch.cuda.empty_cache()
@@ -3383,6 +3855,11 @@ def main() -> None:
     serve_embeddings_and_check(label, device, encoder_config, encoder_params)
     del encoder_params
     check_vector_search(device, label)
+    # disaggregation and the host tier: the handoff between two engines,
+    # demote and promote
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_disagg_and_tiers(label)
     for item in kernels:
         item["launches"] = launches[item["name"]]
         assert item["launches"] > 0, item

@@ -58,6 +58,12 @@ def build_parser() -> argparse.ArgumentParser:
              "worst case, slots x ceil(max_seq/block) + 1)",
     )
     serve.add_argument(
+        "--kv-host-blocks", type=int, default=0,
+        help="paged layout: host-DRAM demotion tier capacity in blocks (0 = off): evicted "
+             "prefix blocks are copied to pinned host memory and promoted back when a prompt "
+             "continues their chain, instead of being prefilled again",
+    )
+    serve.add_argument(
         "--paged-kernel", default="fused", choices=["fused", "reference"],
         help="paged attention: the ragged CUDA kernel over the block tables "
              "(default) or the gather composition in plain PyTorch",
@@ -133,6 +139,7 @@ def serve_config(args: argparse.Namespace) -> Dict[str, Any]:
             "kv-layout": args.kv_layout,
             "kv-block-size": args.kv_block_size,
             "kv-blocks": args.kv_blocks,
+            "kv-host-blocks": args.kv_host_blocks or "",
             "paged-kernel": args.paged_kernel,
             "prefix-cache": not args.no_prefix_cache,
             "prefill-mode": args.prefill_mode,

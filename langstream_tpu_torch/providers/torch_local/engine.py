@@ -122,8 +122,31 @@ path over the paged one:
   a capture. ``queue_timeout_s`` sheds a request that waited longer for
   admission with a typed ``QueueTimeoutError`` (HTTP 503).
 
-Not in this slice (ROADMAP.md): host KV tiers and handoffs and the
-telemetry planes beyond ``/metrics``' gauges.
+- **Prefill/decode disaggregation** (``fleet/handoff.py``, paged layout):
+  a request with ``export_handoff`` gathers its published block chain off
+  the pool at finish (``GenerationResult.kv_handoff``: tokens and the
+  per-leaf pool rows ``[layers, blocks, block_size, kv_heads(, head_dim)]``,
+  the JAX payload's shapes and leaf names); a request carrying
+  ``kv_import`` has that payload scattered into freshly reserved blocks
+  and published before the admission scan (:meth:`_import_pending_handoffs`),
+  so its own admission is a prefix hit. The gather and the scatter are
+  eager ``index_select`` / ``index_copy_`` per cache leaf on the engine's
+  current stream, where the step graphs replay, so they are ordered
+  against every replay. A failed import is counted (``handoff_aborted``)
+  and the request prefills cold.
+- **Host-DRAM KV tier** (``kv_host_blocks`` N > 0, paged layout): the
+  prefix cache's LRU eviction demotes each victim block into a bounded
+  arena (``paged.HostKVArena``, keyed by the chain digest) through a
+  non-blocking copy into pinned host memory on the engine's stream
+  (:meth:`_demote_block_data`); an admission whose prompt continues its
+  HBM match into the arena promotes those entries back into its fresh
+  blocks (:meth:`_promote_host_chain`, an H2D copy queued behind the
+  demotion on the same stream) instead of prefilling them. A torn
+  promotion (fault point ``host_promote_torn``) aborts before anything
+  publishes and the admission prefills cold.
+
+Not in this slice (ROADMAP.md): the telemetry planes beyond ``/metrics``'
+gauges.
 """
 
 from __future__ import annotations
@@ -153,7 +176,8 @@ from langstream_tpu_torch.providers.torch_local.graphs import (
     Variant,
     sampling_tier,
 )
-from langstream_tpu_torch.providers.torch_local.paged import PagedKVManager
+from langstream_tpu_torch.fleet.handoff import as_tensor, payload_nbytes
+from langstream_tpu_torch.providers.torch_local.paged import HostKVArena, HostKVEntry, PagedKVManager
 from langstream_tpu_torch.providers.torch_local.quant import QTensor, quantize_params
 from langstream_tpu_torch.runtime import faults, flight
 from langstream_tpu_torch.runtime.threadsafe import stable_items, stable_list
@@ -184,7 +208,8 @@ def engines_snapshot() -> Dict[str, float]:
     watchdog families under the JAX names (``engine_restarts_total``,
     ``sessions_resurrected_total``, ``engine_degraded``,
     ``requests_shed_total{reason}``, ``watchdog_trips_total``), the paged
-    pool's and speculation's series under theirs, and the engine's own
+    pool's, the KV handoff's, the host tier's and speculation's series
+    under theirs, and the engine's own
     counters as ``torch_engine_*`` where the JAX engine says
     ``jax_engine_*``."""
     out: Dict[str, float] = {}
@@ -193,8 +218,17 @@ def engines_snapshot() -> Dict[str, float]:
     decode_time = prefill_time = 0.0
     paged_engines = kv_blocks_in_use = kv_blocks_total = 0
     prefix_hit_tokens = prefix_evictions = 0
+    handoff_exported_bytes = handoff_imported_bytes = 0
+    handoff_exports = handoff_imports = handoff_imported_tokens = 0
+    host_engines = kv_host_blocks_in_use = kv_host_blocks_total = 0
+    host_demotions = host_promotions = host_evictions = 0
+    host_demote_bytes = host_promote_bytes = 0
+    kv_host_hit_tokens = host_promote_aborts = 0
     spec_engines = spec_drafted = spec_accepted = 0
-    wasted: Dict[str, int] = dict.fromkeys(("evicted_recompute", "draft_rejected", "crash_replay"), 0)
+    # "handoff_aborted": tokens whose KV handoff import aborted (pool
+    # pressure, a torn payload, a layout mismatch) and prefilled again
+    wasted: Dict[str, int] = dict.fromkeys(
+        ("evicted_recompute", "draft_rejected", "crash_replay", "handoff_aborted"), 0)
     shed_engines = 0
     shed: Dict[str, int] = {"queue_timeout": 0}
     # snapshot-tolerant reads: a supervisor rebuild registers the new
@@ -228,6 +262,24 @@ def engines_snapshot() -> Dict[str, float]:
             kv_blocks_total += engine.num_blocks
             prefix_hit_tokens += engine.kv_manager.stats["hit_tokens"]
             prefix_evictions += engine.kv_manager.stats["evictions"]
+            handoff_exports += stats["handoff_exports"]
+            handoff_exported_bytes += stats["handoff_export_bytes"]
+            handoff_imports += stats["handoff_imports"]
+            handoff_imported_bytes += stats["handoff_import_bytes"]
+            handoff_imported_tokens += stats["handoff_import_tokens"]
+            arena = engine.kv_host_arena
+            if arena is not None:
+                host_engines += 1
+                arena_stats = arena.snapshot_stats()
+                kv_host_blocks_in_use += arena_stats["blocks_in_use"]
+                kv_host_blocks_total += arena.capacity_blocks
+                host_evictions += arena_stats["evictions"]
+                host_demotions += stats["host_demotions"]
+                host_demote_bytes += stats["host_demote_bytes"]
+                host_promotions += stats["host_promotions"]
+                host_promote_bytes += stats["host_promote_bytes"]
+                kv_host_hit_tokens += stats["kv_host_hit_tokens"]
+                host_promote_aborts += stats["host_promote_aborts"]
     if live_engines:
         # the series exist from construction (0 included): rate() alerts
         # need them before the first trip
@@ -240,6 +292,25 @@ def engines_snapshot() -> Dict[str, float]:
         out["kv_blocks_total"] = float(kv_blocks_total)
         out["prefix_cache_hit_tokens_total"] = float(prefix_hit_tokens)
         out["prefix_cache_evictions_total"] = float(prefix_evictions)
+        # the KV handoff's series exist on every paged engine from
+        # construction: a decode replica importing nothing scrapes a flat 0
+        out["kv_handoff_exports_total"] = float(handoff_exports)
+        out["kv_handoff_exported_bytes_total"] = float(handoff_exported_bytes)
+        out["kv_handoff_imports_total"] = float(handoff_imports)
+        out["kv_handoff_imported_bytes_total"] = float(handoff_imported_bytes)
+        out["kv_handoff_imported_tokens_total"] = float(handoff_imported_tokens)
+    if host_engines:
+        # the host tier's series, only where one is configured (an
+        # untiered deployment's exposition stays as it was)
+        out["kv_host_blocks_in_use"] = float(kv_host_blocks_in_use)
+        out["kv_host_blocks_total"] = float(kv_host_blocks_total)
+        out["kv_host_demotions_total"] = float(host_demotions)
+        out["kv_host_demoted_bytes_total"] = float(host_demote_bytes)
+        out["kv_host_promotions_total"] = float(host_promotions)
+        out["kv_host_promoted_bytes_total"] = float(host_promote_bytes)
+        out["kv_host_hit_tokens_total"] = float(kv_host_hit_tokens)
+        out["kv_host_promote_aborts_total"] = float(host_promote_aborts)
+        out["kv_host_evictions_total"] = float(host_evictions)
     if spec_engines:
         out["spec_tokens_drafted_total"] = float(spec_drafted)
         out["spec_tokens_accepted_total"] = float(spec_accepted)
@@ -341,6 +412,15 @@ class GenerationRequest:
     replay_logprobs: Optional[List[float]] = None
     replay_tops: Optional[List[Tuple[List[int], List[float]]]] = None
     prompt_len: Optional[int] = None
+    # prefill/decode disaggregation (fleet/handoff.py): a prefill-leg
+    # request asks the engine to export its published KV chain at finish
+    # (GenerationResult.kv_handoff); a decode-leg replay request carries
+    # the assembled payload, imported into the pool before admission so
+    # the replay prefill hits the prefix cache instead of recomputing it
+    export_handoff: bool = False
+    kv_import: Optional[Dict[str, Any]] = None
+    # the prefill replica's export stamp (wall seconds, from the manifest)
+    handoff_export_ts: Optional[float] = None
 
     def cancel(self) -> None:
         self.cancelled = True
@@ -357,6 +437,10 @@ class GenerationResult:
     # logprobs) pair per generated token; None when the engine runs with
     # logprobs_topk=0
     top_logprobs: Optional[List[Tuple[List[int], List[float]]]] = None
+    # disaggregation prefill leg (request.export_handoff): the published
+    # KV chain, tokens and per-leaf pool rows (fleet/handoff.py chunks it
+    # into records)
+    kv_handoff: Optional[Dict[str, Any]] = None
 
 
 @dataclasses.dataclass
@@ -449,6 +533,11 @@ class DecodeEngine:
         kv_block_size: int = 16,          # paged: tokens per pool block
         kv_blocks: Optional[int] = None,  # paged: pool size (None = the
                                           # dense-equivalent worst case)
+        kv_host_blocks: int = 0,          # paged: host-DRAM demotion tier
+                                          # capacity in blocks: evicted
+                                          # chains demote there and are
+                                          # promoted back on a digest
+                                          # match (0 = off)
         paged_kernel: str = "fused",      # paged attention: "fused" (the
                                           # ragged kernel) | "reference"
                                           # (the gather composition)
@@ -575,6 +664,8 @@ class DecodeEngine:
         self.params = {name: p.to(self.device) for name, p in params.items()}
         self.freqs = model_lib.model_freqs(config, device=self.device)
         self.kv_manager: Optional[PagedKVManager] = None
+        self.kv_host_blocks = 0
+        self.kv_host_arena: Optional[HostKVArena] = None
         # device state, mutated in place only on the engine thread
         if self.paged:
             self.block_size = max(1, int(kv_block_size))
@@ -590,6 +681,14 @@ class DecodeEngine:
                     f"{self.block_size})"
                 )
             self.kv_manager = PagedKVManager(self.num_blocks, self.block_size)
+            # two-tier pool: a bounded host-RAM arena below the block pool.
+            # Eviction demotes victim blocks into it (a D2H copy into
+            # pinned memory) and admission promotes digest matches back
+            # (an H2D scatter) before falling back to a cold prefill
+            self.kv_host_blocks = max(0, int(kv_host_blocks or 0))
+            if self.kv_host_blocks:
+                self.kv_host_arena = HostKVArena(self.kv_host_blocks)
+                self.kv_manager.attach_host(self.kv_host_arena, self._demote_block_data)
             # host-authoritative block tables [slots, max_blocks]; rows are
             # uploaded per dispatch (0 = the null block)
             self._block_tables = np.zeros((max_slots, self.max_blocks), dtype=np.int32)
@@ -597,6 +696,15 @@ class DecodeEngine:
                 config, self.num_blocks, self.block_size, kv_quant=self.kv_quant,
                 device=self.device,
             )
+            if self.kv_host_arena is not None and self.device.type == "cuda":
+                # pin the arena's host memory now: a pinned allocation costs
+                # about a millisecond per MiB, which a demotion would pay
+                # per block inside an admission's eviction pass. Freed here,
+                # the buffers stay in the caching host allocator, where the
+                # demotions' buffers of the same sizes come from
+                pinned = [self._host_buffer(value[:, 0]) for _ in range(self.kv_host_blocks)
+                          for value in self.cache.values()]
+                del pinned
         else:
             self.cache = model_lib.init_cache(
                 config, max_slots, self.max_seq_len, kv_quant=self.kv_quant, device=self.device
@@ -688,6 +796,23 @@ class DecodeEngine:
             "mixed_carry_invalidations": {},
             # every call into the model, by model function
             "model_dispatches": {},
+            # paged-KV handoff (prefill/decode disaggregation): exports
+            # gathered off this engine's pool, imports written into it,
+            # and the device bytes each way
+            "handoff_exports": 0,
+            "handoff_export_bytes": 0,
+            "handoff_imports": 0,
+            "handoff_import_bytes": 0,
+            "handoff_import_tokens": 0,
+            # host-DRAM tier: blocks moved each way with their bytes,
+            # prompt tokens promotions served instead of a prefill, and
+            # promotions that tore and fell back to a cold prefill
+            "host_demotions": 0,
+            "host_demote_bytes": 0,
+            "host_promotions": 0,
+            "host_promote_bytes": 0,
+            "kv_host_hit_tokens": 0,
+            "host_promote_aborts": 0,
         }
 
     def reset_stats(self) -> None:
@@ -783,11 +908,16 @@ class DecodeEngine:
         on_token: Optional[Callable[[int, bool], None]] = None,
         session_id: Optional[str] = None,
         handle: Optional[List[GenerationRequest]] = None,
+        request_fields: Optional[Dict[str, Any]] = None,
     ) -> GenerationResult:
         """Asyncio entry: submit and await the result. ``session_id`` pins
         the slot for the session's next turn. Pass ``handle`` (an empty
         list) to receive the live request, whose ``cancel()`` ends
-        generation at the next token boundary."""
+        generation at the next token boundary. ``request_fields`` sets
+        extra :class:`GenerationRequest` fields before submit: the
+        disaggregation seam (``export_handoff`` on the prefill leg;
+        ``kv_import``, ``replay_tokens`` and ``prompt_len`` on the decode
+        leg's warm admission)."""
         loop = asyncio.get_running_loop()
         future: "asyncio.Future[GenerationResult]" = loop.create_future()
         request = GenerationRequest(
@@ -799,6 +929,10 @@ class DecodeEngine:
             future=future,
             loop=loop,
         )
+        for name, value in (request_fields or {}).items():
+            if not hasattr(request, name):
+                raise TypeError(f"GenerationRequest has no field {name!r}")
+            setattr(request, name, value)
         if handle is not None:
             handle.append(request)
         self.start()
@@ -946,6 +1080,7 @@ class DecodeEngine:
                 else:
                     keep.append(request)
             self._pending = keep
+        self._import_pending_handoffs()
         if self.mixed:
             return self._admit_mixed()
         if self.paged:
@@ -1295,6 +1430,209 @@ class DecodeEngine:
             src=np.asarray([src], dtype=np.int64), dst=np.asarray([dst], dtype=np.int64)))
         self.kv_manager.stats["cow_copies"] += 1
 
+    # ------------------------------------------------------------------ #
+    # paged-KV handoff (prefill/decode disaggregation, fleet/handoff.py)
+    # ------------------------------------------------------------------ #
+    def _block_index(self, blocks: List[int]) -> torch.Tensor:
+        """Block ids as a device index, uploaded without waiting for the
+        stream (a blocking upload would wait for a chunk in flight)."""
+        index = torch.tensor(blocks, dtype=torch.long)
+        if self.device.type == "cuda":
+            index = index.pin_memory().to(self.device, non_blocking=True)
+        return index
+
+    def _host_buffer(self, like: torch.Tensor) -> torch.Tensor:
+        """A host tensor shaped as ``like``, pinned when the pool is on
+        the card (a non-blocking copy into it then runs on the copy
+        engine, ordered on the stream that enqueued it)."""
+        return torch.empty(like.shape, dtype=like.dtype, pin_memory=self.device.type == "cuda")
+
+    def _export_handoff(self, slot: _Slot, history: List[int]) -> Optional[Dict[str, Any]]:
+        """The finishing slot's published chain for the topic fabric: the
+        full blocks of ``history`` (the rows in the cache; exactly what
+        :meth:`PagedKVManager.publish` made matchable; the final sampled
+        token is never in the cache, so it rides the manifest's replay).
+        Returns the payload ``fleet.handoff.handoff_records`` chunks, or
+        None when no full block exists yet.
+
+        The rows are gathered on the card and copied into pinned host
+        memory behind everything the stream has queued, so the host waits
+        for a pipelined chunk in flight too. That is correct: the rows
+        lie in full blocks below the slot's length, and a chunk in flight
+        writes only at its rows' lengths or above."""
+        full = len(history) // self.block_size
+        if full <= 0 or not slot.blocks:
+            return None
+        index = self._block_index(slot.blocks[:full])
+        arrays: Dict[str, torch.Tensor] = {}
+        for leaf, value in self.cache.items():
+            rows = value.index_select(1, index)
+            arrays[leaf] = self._host_buffer(rows)
+            arrays[leaf].copy_(rows, non_blocking=True)
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        payload = {
+            "tokens": list(history[: full * self.block_size]),
+            "arrays": arrays,
+            "block_size": self.block_size,
+            "kv_quant": bool(self.kv_quant),
+            # stamped after the rows reached the host: transit measures
+            # the fabric, not this replica's copy
+            "export_ts": time.time(),
+        }
+        nbytes = payload_nbytes(payload)
+        self.stats["handoff_exports"] += 1
+        self.stats["handoff_export_bytes"] += nbytes
+        flight.record("kv_handoff_export", tokens=full * self.block_size, blocks=full, nbytes=nbytes)
+        return payload
+
+    def _import_pending_handoffs(self) -> None:
+        """Import every pending request's handoff payload before the
+        admission scan, on the engine thread (the manager's owner): the
+        written chain publishes under the normal ``(parent_block, chunk)``
+        keys, so the request's own admission, and any other admission
+        sharing the prefix, hits the prefix cache instead of prefilling.
+        A failed import bills ``handoff_aborted`` and the request
+        prefills cold, never a caller-visible error; so does a payload
+        sent to an engine with no prefix cache to import into (the dense
+        layout, or ``prefix_cache`` off), which the JAX engine ignores
+        without a count."""
+        for request in self._pending:
+            if request.kv_import is not None:
+                payload, request.kv_import = request.kv_import, None
+                self._import_handoff(payload)
+
+    def _import_handoff(self, payload: Dict[str, Any]) -> bool:
+        manager = self.kv_manager
+        tokens = list(payload.get("tokens") or [])
+        arrays = payload.get("arrays") or {}
+        size = int(payload.get("block_size", 0) or 0)
+        full = len(tokens) // size if size else 0
+
+        def aborted(reason: str) -> bool:
+            self._waste("handoff_aborted", len(tokens))
+            flight.record("kv_handoff_import_aborted", reason=reason, tokens=len(tokens))
+            return False
+
+        if (
+            not self.paged
+            or not self.prefix_cache
+            or full <= 0
+            or size != self.block_size
+            or bool(payload.get("kv_quant", False)) != bool(self.kv_quant)
+            or set(arrays) != set(self.cache)
+        ):
+            return aborted("layout_mismatch")
+        for leaf, expect in self.cache.items():
+            if tuple(arrays[leaf].shape) != (expect.shape[0], full, *expect.shape[2:]):
+                return aborted("shape_mismatch")
+        reserved = manager.import_session(tokens)
+        if reserved is None:
+            return aborted("pool_exhausted")
+        chain, fresh = reserved
+        try:
+            if fresh:
+                # only the blocks the pool does not already hold are
+                # written; a resident prefix keeps its rows (the same
+                # content, bit for bit)
+                start = len(chain)
+                index = self._block_index(fresh)
+                for leaf, value in self.cache.items():
+                    rows = as_tensor(arrays[leaf])[:, start:full].contiguous()
+                    value.index_copy_(1, index, rows.to(self.device, value.dtype, non_blocking=True))
+        except Exception:  # noqa: BLE001 — unwind before any id recycles
+            manager.abort_import(chain + fresh)
+            raise
+        manager.commit_import(tokens, chain + fresh)
+        nbytes = payload.get("nbytes")
+        if not isinstance(nbytes, (int, float)):
+            nbytes = payload_nbytes(payload)
+        self.stats["handoff_imports"] += 1
+        self.stats["handoff_import_bytes"] += int(nbytes)
+        self.stats["handoff_import_tokens"] += len(tokens)
+        flight.record("kv_handoff_import", tokens=len(tokens), blocks_written=len(fresh),
+                      blocks_local=len(chain), nbytes=int(nbytes))
+        return True
+
+    # ------------------------------------------------------------------ #
+    # host-DRAM KV tier: demotion and promotion
+    # ------------------------------------------------------------------ #
+    def _demote_block_data(self, block: int) -> Optional[Tuple[Dict[str, torch.Tensor], int]]:
+        """The manager's data-plane hook while it demotes one victim block
+        (inside the eviction pass of ``allocate``, on the engine thread):
+        copy the block's pool rows, every layer and leaf, into pinned host
+        memory without waiting. The copy is enqueued on the engine's
+        stream before the block id returns to the free list, so it runs
+        before any new owner's write to the block, and the promotion's H2D
+        copy of the same buffer queues behind it; nothing on the host
+        reads the buffer's values (the pinned allocator does not reuse a
+        freed buffer before its copy has finished). Returns ``(leaf ->
+        [layers, block_size, kv_heads(, head_dim)], nbytes)``."""
+        data: Dict[str, torch.Tensor] = {}
+        for leaf, value in self.cache.items():
+            rows = value[:, block]
+            data[leaf] = self._host_buffer(rows)
+            data[leaf].copy_(rows, non_blocking=True)
+        nbytes = sum(rows.nbytes for rows in data.values())
+        self.stats["host_demotions"] += 1
+        self.stats["host_demote_bytes"] += nbytes
+        flight.record("kv_host_demote", block=block, nbytes=nbytes)
+        return data, nbytes
+
+    def _host_probe(self, prompt: List[int], match: Optional[Tuple[List[int], int]]
+                    ) -> List[HostKVEntry]:
+        """The host tier's continuation of the HBM prefix match: the
+        demoted entries extending ``match``'s chain, cut at the first entry
+        without rows (an accounting-only entry cannot be promoted)."""
+        if not self.prefix_cache or self.kv_host_arena is None:
+            return []
+        start = len(match[0]) if match is not None else 0
+        out: List[HostKVEntry] = []
+        for entry in self.kv_manager.host_match(prompt, start):
+            if entry.data is None:
+                break
+            out.append(entry)
+        return out
+
+    def _promote_host_chain(self, prompt: List[int], matched: List[int], matched_tokens: int,
+                            entries: List[HostKVEntry], fresh: List[int]) -> int:
+        """Scatter ``entries`` (the host tier's continuation of the matched
+        chain) into the first ``len(entries)`` fresh blocks, then publish
+        the promoted chain. The H2D copies and the scatter are enqueued on
+        the engine's stream here, so any reader (this round's suffix
+        prefill, a later mixed window) runs after them. Any failure aborts
+        before anything publishes (``host_promote_aborts``): the fresh
+        blocks stay private and the admission prefills cold. Returns the
+        promoted blocks (0 = aborted)."""
+        count = len(entries)
+        target = fresh[:count]
+        size = self.block_size
+        try:
+            if faults.fire("host_promote_torn") is not None:
+                raise RuntimeError("chaos: torn host promotion")
+            for leaf, expect in self.cache.items():
+                for entry in entries:
+                    if tuple(entry.data[leaf].shape) != (expect.shape[0], *expect.shape[2:]):
+                        raise ValueError(f"host entry of shape {tuple(entry.data[leaf].shape)} "
+                                         f"does not fit pool leaf {leaf}")
+            index = self._block_index(target)
+            for leaf, value in self.cache.items():
+                rows = torch.stack(
+                    [entry.data[leaf].to(self.device, non_blocking=True) for entry in entries], dim=1)
+                value.index_copy_(1, index, rows)
+        except Exception:  # noqa: BLE001 — abort before anything publishes
+            self.stats["host_promote_aborts"] += 1
+            flight.record("kv_host_promote_aborted", blocks=count, tokens=count * size)
+            return 0
+        self.kv_manager.publish(list(prompt[: matched_tokens + count * size]), matched + target)
+        nbytes = sum(entry.nbytes for entry in entries)
+        self.stats["host_promotions"] += count
+        self.stats["host_promote_bytes"] += nbytes
+        self.stats["kv_host_hit_tokens"] += count * size
+        self.kv_host_arena.note_promoted(count)
+        flight.record("kv_host_promote", blocks=count, tokens=count * size, nbytes=nbytes)
+        return count
+
     def _admit_paged(self) -> None:
         """Paged admission. Warm-session follow-ups first
         (:meth:`_scan_admission`); otherwise block-granular matching
@@ -1326,12 +1664,19 @@ class DecodeEngine:
                 # is handed to _paged_reserve so the chain walk runs once
                 prompt_len = len(request.prompt_tokens)
                 probe_match = None
+                host_probe: List[HostKVEntry] = []
                 if session_lcp is not None:
                     probe = session_lcp
                 elif self.prefix_cache:
                     probe_match = self.kv_manager.match(request.prompt_tokens)
-                    probe = probe_match[1]
+                    # the host tier continues the HBM match: demoted
+                    # entries extend the probe as resident blocks would
+                    # (the reservation promotes them)
+                    host_probe = self._host_probe(request.prompt_tokens, probe_match)
+                    probe = probe_match[1] + len(host_probe) * self.block_size
                     while probe >= prompt_len:
+                        if host_probe:
+                            host_probe.pop()
                         probe -= self.block_size
                 else:
                     probe = 0
@@ -1346,7 +1691,8 @@ class DecodeEngine:
                         cold_bucket = bucket
                     elif bucket != cold_bucket:
                         break  # different bucket: next outer round
-                resume = self._paged_reserve(index, request, session_lcp, probe_match)
+                resume = self._paged_reserve(index, request, session_lcp, probe_match,
+                                             host_entries=host_probe)
                 if resume is None:
                     # pool exhausted even after eviction: every block is
                     # referenced by running work — wait for releases
@@ -1357,7 +1703,10 @@ class DecodeEngine:
                 self.slots[index].request = request  # reserve the slot
                 if session_lcp is not None:
                     self.stats["session_hits"] += 1
-                if needs_long:
+                if resume < probe or needs_long:
+                    # (resume < probe: a torn promotion fell back toward
+                    # cold, and the probe's cold/warm grouping no longer
+                    # holds; the long path takes any resume offset)
                     long_entries.append((index, request, resume))
                 elif resume == 0:
                     cold.append((index, request))
@@ -1395,9 +1744,13 @@ class DecodeEngine:
             if index is None:
                 return
             request = self._pending[position]
-            match = (self.kv_manager.match(request.prompt_tokens)
-                     if session_lcp is None and self.prefix_cache else None)
-            resume = self._paged_reserve(index, request, session_lcp, match, publish_cold=False)
+            match = None
+            host_probe: List[HostKVEntry] = []
+            if session_lcp is None and self.prefix_cache:
+                match = self.kv_manager.match(request.prompt_tokens)
+                host_probe = self._host_probe(request.prompt_tokens, match)
+            resume = self._paged_reserve(index, request, session_lcp, match, publish_cold=False,
+                                         host_entries=host_probe)
             if resume is None:
                 # pool exhausted even after eviction: wait for releases
                 return
@@ -1422,6 +1775,7 @@ class DecodeEngine:
         session_lcp: Optional[int],
         match: Optional[Tuple[List[int], int]],
         publish_cold: bool = True,
+        host_entries: Optional[List[HostKVEntry]] = None,
     ) -> Optional[int]:
         """Commit pool blocks for a request before it is admitted. Returns
         the resume offset (prompt tokens already in the pool for this
@@ -1436,8 +1790,10 @@ class DecodeEngine:
         Otherwise the slot's old blocks (an evicted session) are released
         and the request references the prefix chain ``match`` found (None
         with the prefix cache off), plus fresh blocks up to its worst
-        case. ``publish_cold``: publish a fully cold prompt's blocks now
-        (split mode; mixed mode publishes at finish)."""
+        case. ``host_entries`` (the admission's :meth:`_host_probe`)
+        continue that chain from the host tier: they are promoted into the
+        first fresh blocks. ``publish_cold``: publish a fully cold prompt's
+        blocks now (split mode; mixed mode publishes at finish)."""
         slot = self.slots[index]
         manager = self.kv_manager
         size = self.block_size
@@ -1485,8 +1841,14 @@ class DecodeEngine:
                 # change it between probe and commit
                 matched, matched_tokens = (
                     (list(match[0]), match[1]) if match is not None else manager.match(prompt))
+            promote = list(host_entries or [])
             # re-prefill at least the last prompt token so fresh logits
-            # exist for the first sample
+            # exist for the first sample. Host entries trim first: they
+            # continue the HBM chain, so they are its tail
+            total = matched_tokens + size * len(promote)
+            while promote and total >= len(prompt):
+                promote.pop()
+                total -= size
             while matched and matched_tokens >= len(prompt):
                 matched.pop()
                 matched_tokens -= size
@@ -1495,19 +1857,28 @@ class DecodeEngine:
             if fresh is None:
                 manager.release(matched)
                 return None
+            promoted = 0
+            if promote:
+                # the fresh allocation covers every block past the match,
+                # so the promotion writes the first len(promote) of them;
+                # an abort leaves them private cold blocks
+                promoted = self._promote_host_chain(prompt, matched, matched_tokens, promote, fresh)
             slot.blocks = matched + fresh
             if matched_tokens:
                 self.stats["prefix_hits"] += 1
                 self.stats["prefix_tokens_reused"] += matched_tokens
                 manager.stats["hit_tokens"] += matched_tokens
-            if self.prefix_cache and publish_cold and not matched_tokens:
+            if promoted:
+                self.stats["prefix_tokens_reused"] += promoted * size
+            if self.prefix_cache and publish_cold and not matched_tokens and not promoted:
                 # publish a fully cold prompt's blocks now so same-round
                 # duplicates share them: the cold batch (or long prefill)
                 # that writes them dispatches before any warm suffix of
                 # this round. Partially matched prompts publish their tail
-                # at finish.
+                # at finish (a promoted chain is published already, and
+                # publishing its unwritten tail here would expose it).
                 manager.publish(prompt, slot.blocks)
-            resume = matched_tokens
+            resume = matched_tokens + promoted * size
         table = self._block_tables[index]
         table[:] = 0
         table[: len(slot.blocks)] = slot.blocks
@@ -2696,6 +3067,10 @@ class DecodeEngine:
                 # blocks only. The chain outlives the slot, refcounted by
                 # the map, until LRU eviction needs it
                 self.kv_manager.publish(history, slot.blocks)
+                if request.export_handoff and reason != "cancelled":
+                    # disaggregation prefill leg: gather the chain just
+                    # published while the slot's refs still pin it
+                    result.kv_handoff = self._export_handoff(slot, history)
             if slot.session_id is not None:
                 # a pinned session holds only the blocks its history
                 # fills, not its worst-case reservation

@@ -41,7 +41,9 @@ rolling chain digest (:func:`prompt_digests`) rather than
 ``(parent_block, chunk)``: pool block ids recycle the moment a chain is
 evicted, so a block-keyed host entry could resolve a recycled id to
 another chain's rows — the digest encodes the whole token prefix and
-never recycles. The port's engine attaches no host tier yet.
+never recycles. The engine attaches the tier with ``kv_host_blocks`` > 0
+(``engine.DecodeEngine._demote_block_data`` is its data-plane hook), and
+imports a prefill replica's handoff through :meth:`PagedKVManager.import_session`.
 """
 
 from __future__ import annotations

@@ -13,6 +13,7 @@ Completions configuration, with the JAX provider's keys::
     engine: {max-slots: 16, max-seq-len: 4096, decode-chunk: 8,
              prefill-buckets: [64, 128], sampling-seed: 7,
              kv-layout: paged, kv-block-size: 16, kv-blocks: 4097,
+             kv-host-blocks: 8192,
              paged-kernel: fused, prefix-cache: true, kv-quant: int8,
              prefill-mode: mixed, prefill-chunk: 64, mixed-carry: on,
              pipeline-decode: true, admission-chunk: 4, precompile: true,
@@ -34,7 +35,9 @@ serves the checkpoint's own tokenizer (it needs the ``transformers``
 package); the default is the byte tokenizer. ``logprobs-top-k`` K keeps
 the K most likely alternatives of every token, which a request asks for
 with the OpenAI ``top_logprobs`` (up to K). ``kv-quant: int8`` stores the KV cache as int8 with per-(position,
-kv head) scales on either layout. ``prefill-mode: mixed`` (paged only)
+kv head) scales on either layout. ``kv-host-blocks`` N (paged only)
+keeps up to N evicted prefix blocks in pinned host memory and promotes
+them back when a prompt continues their chain. ``prefill-mode: mixed`` (paged only)
 carries prompt windows of up to ``prefill-chunk`` tokens in the decode
 step instead of separate prefill calls. ``pipeline-decode`` dispatches
 each decode chunk off the previous one's device outputs before the host
@@ -70,8 +73,8 @@ which turns it on with them. ``queue-timeout-s`` sheds a request that
 waited longer for admission with a 503 and ``Retry-After``.
 
 Every other key that the JAX provider honours and the port does not
-(:data:`UNPORTED_ENGINE_KEYS`, :data:`UNPORTED_KEYS`) raises when it is
-set to anything but the JAX default.
+(:data:`UNPORTED_KEYS`; every engine key is served) raises when it is set
+to anything but the JAX default.
 
 Embeddings configuration (:class:`TorchEmbeddingsService`)::
 
@@ -131,25 +134,19 @@ def _on(value: Any) -> bool:
 # Queue A), each with the test for a value other than the JAX default. Set,
 # they raise: served as if absent, a config would get another engine than
 # the one it asked for (``mesh`` would not shard).
-UNPORTED_ENGINE_KEYS = {
-    "kv-host-blocks": lambda value: int(value or 0) != 0,
-}
 UNPORTED_KEYS = {
     "slo": lambda value: any((value or {}).values()),  # JAX drops zero targets
     "mesh": bool,
 }
 
 
-def _refuse_unported(config: Dict[str, Any], engine_config: Dict[str, Any]) -> None:
-    for keys, section, where in (
-        (UNPORTED_KEYS, config, ""), (UNPORTED_ENGINE_KEYS, engine_config, "engine."),
-    ):
-        for key, is_set in keys.items():
-            if is_set(section.get(key)):
-                raise NotImplementedError(
-                    f"{where}{key}: {section[key]!r} is not ported to langstream_tpu_torch "
-                    f"yet (see ROADMAP.md, Queue A); omit it"
-                )
+def _refuse_unported(config: Dict[str, Any]) -> None:
+    for key, is_set in UNPORTED_KEYS.items():
+        if is_set(config.get(key)):
+            raise NotImplementedError(
+                f"{key}: {config[key]!r} is not ported to langstream_tpu_torch "
+                f"yet (see ROADMAP.md, Queue A); omit it"
+            )
 
 
 def _watchdog_settings(value: Any) -> Optional[Dict[str, Any]]:
@@ -189,7 +186,7 @@ class TorchCompletionsService(CompletionsService):
         if quantization not in (None, "int8"):
             raise ValueError(f"unknown quantization {quantization!r}")
         engine_config = config.get("engine", {}) or {}
-        _refuse_unported(config, engine_config)
+        _refuse_unported(config)
         # the tokenizer first: a missing `transformers` fails before the
         # weights load
         self.tokenizer = get_tokenizer(config.get("tokenizer"))
@@ -240,6 +237,8 @@ class TorchCompletionsService(CompletionsService):
             kv_blocks=(
                 int(engine_config["kv-blocks"]) if engine_config.get("kv-blocks") else None
             ),
+            # host-DRAM demotion tier below the block pool (0 = off)
+            kv_host_blocks=int(engine_config.get("kv-host-blocks") or 0),
             paged_kernel=str(engine_config.get("paged-kernel") or "fused").lower(),
             prefix_cache=str(engine_config.get("prefix-cache", "true")).lower()
             not in ("0", "false", "no"),

@@ -42,6 +42,10 @@ decide what firing means):
 ``pool_exhausted``       the paged block allocator reports an exhausted
                          pool (``allocate`` returns None) — admission
                          backpressure on demand
+``host_promote_torn``    a host-tier promotion raises before its H2D
+                         scatter (``engine._promote_host_chain``): it
+                         aborts before anything publishes and the
+                         admission prefills cold
 =====================  ==================================================
 
 Unarmed (the default) every check is one attribute read — chaos costs

@@ -1408,3 +1408,114 @@ def test_embeddings_served_while_an_engine_captures():
         eng.stop()
     assert any(start < window[1] and end > window[0] for start, end, _ in calls), (window, calls[:3])
     assert max(error for _, _, error in calls) <= EMBED_TOLERANCE
+
+
+# ---------------------------------------------------------------------- #
+# disaggregation and the host tier on the card
+# ---------------------------------------------------------------------- #
+def _f32_llama(max_seq_len):
+    """:func:`_small_llama` in f32: a replay prefills one row that the
+    oracle wrote in a decode step, and only f32 keeps the two in step."""
+    return dataclasses.replace(_small_llama(max_seq_len), dtype=torch.float32)
+
+
+def _paged_gate(eng, calls_before, entries_before, counts, kv_quant):
+    """B3 (B6) once per layer per model call in the window, by its card
+    counter, and no other kernel; a variant first met there runs its body
+    once more to make its outputs (``size`` steps of a decode chunk, one
+    call of a prefill), and those count too."""
+    name = "paged_attention_quant" if kv_quant else "paged_attention"
+    calls = {k: n - calls_before.get(k, 0) for k, n in eng.stats["model_dispatches"].items()}
+    new = [key for key in eng.steps._entries if key not in entries_before]
+    warm = sum(key.size if key.kind == "decode" else key.kind in ("prefill", "prefill_offset") for key in new)
+    expect = eng.config.num_layers * (sum(calls.values()) + warm)
+    assert expect > 0 and counts[name] == expect, (counts, calls, new)
+    assert all(n == 0 for k, n in counts.items() if k != name), counts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_quant", [None, "int8"], ids=["B3", "B6"])
+def test_handoff_replay_on_the_card_matches_unified(kv_quant):
+    """A prefill engine on the card exports a 2-token leg's chain; the
+    records cross the assembler and a second engine imports and replays
+    them: its pool rows equal the payload bit for bit, its stream the
+    unified engine's, greedy and seeded, and B3 (B6) ran once per layer
+    per model call of the replay by its card counter."""
+    from langstream_tpu_torch.fleet.handoff import HandoffAssembler, handoff_records, manifest_for_request
+
+    device = _card()
+    config = _f32_llama(512)
+    params = model.init_params(config, seed=8, device=device)
+    # eager: a graph's first use runs its body once more, uncounted by the engine
+    kwargs = dict(device=device, max_slots=4, max_seq_len=512, prefill_buckets=[32, 64, 128],
+                  decode_chunk=4, kv_layout="paged", kv_block_size=16, kv_quant=kv_quant,
+                  step_graphs=False)
+    a, b = engine.DecodeEngine(config, params, **kwargs), engine.DecodeEngine(config, params, **kwargs)
+    prompt = np.random.default_rng(8).integers(1, config.vocab_size, size=150).tolist()
+    run = lambda eng, p, s, **kw: asyncio.run(eng.generate(p, engine.SamplingParams(**s), **kw))
+    try:
+        for sampling in (dict(max_new_tokens=10), dict(max_new_tokens=10, temperature=0.9, top_k=8, seed=3)):
+            a.kv_manager._evict(a.num_blocks)  # the oracle runs cold
+            want = run(a, prompt, sampling)
+            a.kv_manager._evict(a.num_blocks)  # and so does the leg
+            leg = run(a, prompt, dict(sampling, max_new_tokens=2), request_fields={"export_handoff": True})
+            assert leg.tokens == want.tokens[:2]
+            asm = HandoffAssembler()
+            assembled = None
+            for record in handoff_records(leg.kv_handoff, manifest_for_request(prompt, leg.tokens, sampling),
+                                          max_chunk_bytes=64 * 1024):
+                assembled = asm.offer(record, now=0.0) or assembled
+            replay = assembled["manifest"]["generated"]
+            calls, entries = dict(b.stats["model_dispatches"]), set(b.steps._entries)
+            with launches_lib.device_launches() as counts:
+                got = run(b, prompt + replay[:-1], sampling, request_fields={
+                    "kv_import": assembled["payload"], "replay_tokens": replay, "prompt_len": len(prompt)})
+            _paged_gate(b, calls, entries, counts, kv_quant)
+            assert got.tokens == want.tokens
+            chain, matched = b.kv_manager.match(leg.kv_handoff["tokens"])
+            assert matched == 144
+            index = torch.tensor(chain, device=device)
+            for leaf, rows in assembled["payload"]["arrays"].items():
+                assert torch.equal(b.cache[leaf].index_select(1, index).cpu(), rows), leaf
+            b.kv_manager._evict(b.num_blocks)
+        assert b.stats["handoff_imports"] == 2 and a.stats["handoff_exports"] == 2
+        assert b.stats["tokens_wasted"].get("handoff_aborted", 0) == 0
+    finally:
+        a.stop()
+        b.stop()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_quant", [None, "int8"], ids=["B3", "B6"])
+def test_host_promotion_on_the_card_matches_unified(kv_quant):
+    """A chain demoted to pinned host memory under pool pressure and
+    promoted back by a prompt that continues it: the stream equals a
+    never-evicting engine's, and B3 (B6) ran once per layer per model
+    call of that admission by its card counter."""
+    device = _card()
+    config = _f32_llama(128)
+    params = model.init_params(config, seed=9, device=device)
+    kwargs = dict(device=device, max_slots=4, max_seq_len=128, prefill_buckets=[16, 32, 64],
+                  kv_layout="paged", kv_block_size=8, kv_quant=kv_quant, step_graphs=False)
+    tiered = engine.DecodeEngine(config, params, kv_blocks=20, kv_host_blocks=32, **kwargs)
+    oracle = engine.DecodeEngine(config, params, **kwargs)
+    prompt1 = list(range(1, 33))
+    prompt2 = prompt1 + list(range(101, 109))
+    thrash = [[(i * 31 + j) % 240 + 2 for j in range(32)] for i in range(6)]
+    sampling = engine.SamplingParams(max_new_tokens=8)
+    run = lambda eng, p: asyncio.run(eng.generate(p, sampling)).tokens
+    try:
+        outs = {}
+        for name, eng in (("tiered", tiered), ("oracle", oracle)):
+            outs[name] = [run(eng, prompt1)] + [run(eng, p) for p in thrash]
+            calls, entries = dict(eng.stats["model_dispatches"]), set(eng.steps._entries)
+            with launches_lib.device_launches() as counts:
+                outs[name].append(run(eng, prompt2))
+            _paged_gate(eng, calls, entries, counts, kv_quant)
+        assert outs["tiered"] == outs["oracle"]
+        assert tiered.stats["host_promotions"] > 0 and tiered.stats["host_promote_aborts"] == 0
+        entry = next(iter(tiered.kv_host_arena._entries.values()))
+        assert all(rows.is_pinned() for rows in entry.data.values())
+    finally:
+        tiered.stop()
+        oracle.stop()

@@ -272,13 +272,16 @@ def test_provider_refuses_int8_weights():
 # one value other than the JAX default for each key the JAX provider
 # honours and the port does not serve yet: (where, key, value)
 UNPORTED = [
-    ("engine", "kv-host-blocks", 64),
     ("top", "slo", {"ttft-ms-p95": 200}),
     ("top", "mesh", {"tp": 2}),
 ]
-# keys the port serves since the self-healing slice, each with a value
-# other than the JAX default and the check that the service honours it
+# keys the port serves since the self-healing slice (and kv-host-blocks
+# since the host-tier slice), each with a value other than the JAX default
+# and the check that the service honours it
 HONOURED = {
+    "kv-host-blocks": (64, lambda service: service.engine.kv_host_blocks == 64
+                       and service.engine.kv_host_arena.capacity_blocks == 64
+                       and service.engine.kv_manager.host is service.engine.kv_host_arena),
     "watchdog": ("on", lambda service: service.watchdog is not None
                  and service.supervisor.watchdog is service.watchdog
                  and service.watchdog.engine is service.engine),
@@ -295,7 +298,9 @@ DEFAULTS = {
     "slo": {"ttft-ms-p95": 0},
     "mesh": None,
 }
-CASES = UNPORTED[:1] + [("engine", key, value) for key, (value, _) in HONOURED.items()] + UNPORTED[1:]
+# the other engine keys a honoured key needs (the host tier is paged only)
+NEEDS = {"kv-host-blocks": {"kv-layout": "paged"}}
+CASES = [("engine", key, value) for key, (value, _) in HONOURED.items()] + UNPORTED
 
 
 @pytest.mark.parametrize(
@@ -307,10 +312,11 @@ def test_provider_refuses_keys_it_does_not_port(where, key, value):
     when set to a non-default value, instead of being served as if it were
     absent; the keys the port serves since the self-healing slice
     (``watchdog``, ``queue-timeout-s``, ``max-restarts``,
-    ``restart-window-s``) reach the service: the watchdog built and
-    watching the engine, the engine's admission deadline, the
-    supervisor's restart budget and window; the defaults, spelled out,
-    still serve."""
+    ``restart-window-s``) and the host-tier slice (``kv-host-blocks``)
+    reach the service: the watchdog built and watching the engine, the
+    engine's admission deadline, the supervisor's restart budget and
+    window, the host arena attached to the paged pool; the defaults,
+    spelled out, still serve."""
     config = {"model": {"preset": "tiny", "max_seq_len": 64}, **DEFAULTS,
               "engine": dict(DEFAULTS["engine"])}
     if where == "defaults":
@@ -325,6 +331,7 @@ def test_provider_refuses_keys_it_does_not_port(where, key, value):
             service.close()
         return
     (config["engine"] if where == "engine" else config)[key] = value
+    config["engine"].update(NEEDS.get(key, {}))
     if key in HONOURED:
         service = TorchCompletionsService(config, device="cpu")
         try:
