@@ -227,16 +227,47 @@ Phases (any failure propagates and the exit code is not 0):
    demotion's host ms per block, promotion ms and GB/s, prompt 2's TTFT
    promoted, cold and as an HBM hit.
 
+The accounting plane rides the phases above, with no server of its own.
+The flight recorder is on for the whole run (``build/flight``, as
+``serve`` turns it on), and every burst's requests carry their own trace
+ids. After each dense and paged burst, ``/metrics``' ``torch_engine_mfu``,
+``torch_engine_mbu`` and ``torch_engine_prefill_mfu`` (the engine's cost
+model over its busy decode and prefill time, against the H100's peaks;
+a mixed burst makes no prefill call) are printed beside tok/s and TTFT,
+each gated in (0, 1.05]; every dense burst raises the TTFT and request
+histograms' ``_count`` by exactly its requests and TPOT's by those of
+more than one token. Each bare step (the decode step of phases 4 and 6,
+the paged decode and mixed steps of phase 5) prints the cost model's
+bytes and FLOPs over its graph's device ms: its roofline share. In phase
+4 at full depth the mixed-length burst's journeys must all be in the
+flight artifact, each tiling its request, and render through
+``python -m langstream_tpu_torch journey``. The shedding phase (10, run
+before the watchdog's since this slice) runs with the SLO
+``{ttft-ms-p95: 1, tpot-ms-p95: 1}``: ``torch_engine_slo_ttft_burn_rate_5m``
+above 1 and blame booked, ``queue`` among its stages; its server,
+started with ``--profile-kernels`` (the process's first profiler, which
+leaves CUPTI attached to every later launch, so after every timed
+serving phase), then answers an uncounted dense burst of 32 × 192 tokens
+with one ``/debug/profile?seconds=1`` capture whose ``trace.json`` must
+hold B1 or B2 kernel events (their shares of the window's kernel time
+printed). In phase 12 the
+handoff's decode legs' journeys start with ``handoff_transit`` and
+``handoff_import`` (class ``handoff-import``), its prefill legs' end in
+``handoff_export``, and the host tier's prompt 2 is admitted as
+``host-promote``.
+
 The line before the last holds the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 import asyncio
 import concurrent.futures
+import contextlib
 import dataclasses
 import functools
 import gc
 import http.server
+import io
 import json
 import os
 import re
@@ -256,7 +287,8 @@ import torch.nn.functional as F
 
 STARTED = time.perf_counter()  # the script's wall time is printed at its end
 
-from langstream_tpu_torch.cli.main import build_parser, serve_config, start_server
+from langstream_tpu_torch.cli.main import build_parser, serve_config, start_flight, start_server
+from langstream_tpu_torch.cli.main import main as cli_main
 from langstream_tpu_torch.ops import _build
 from langstream_tpu_torch.ops import launches as launches_lib
 from langstream_tpu_torch.ops.attention import (
@@ -290,6 +322,8 @@ from langstream_tpu_torch.ops.paged_attention import (
 )
 from langstream_tpu_torch.providers.torch_local import engine as engine_lib
 from langstream_tpu_torch.providers.torch_local import model
+from langstream_tpu_torch.runtime import accounting, flight
+from langstream_tpu_torch.runtime import journey as journey_lib
 from langstream_tpu_torch.providers.torch_local.engine import long_prefill_windows
 from langstream_tpu_torch.providers.torch_local.graphs import capture
 from langstream_tpu_torch.providers.torch_local.quant import (
@@ -319,6 +353,9 @@ SCALE_BYTES = 8
 CONTROL_LAYERS = 2
 # depth of the watchdog, shedding and embeddings phases' engines
 RECOVERY_LAYERS = 8
+# the shedding phase's SLO: targets every answered request breaks, so the
+# burn rate and the blame by journey stage must show
+SHEDDING_SLO = {"ttft-ms-p95": 1, "tpot-ms-p95": 1}
 # H100 SXM FP32 peak outside the tensor cores: the encoder and the vector
 # search run in f32, and nothing turns TF32 on
 PEAK_FP32_FLOPS = 66.9e12
@@ -1725,6 +1762,17 @@ def _bare_line(label: str, timing: dict) -> str:
             f"eager step, {timing['device_ms'] / timing['graph_wall_ms']:.0%} of the graphed one")
 
 
+def roofline_share(label: str, cost_flops: float, cost_bytes: float, device_ms: float) -> str:
+    """The cost model's FLOPs and bytes for one graphed step over its
+    device ms, as shares of the card's peaks: the roofline share of the
+    step with no host gap in it."""
+    mbu = cost_bytes / (device_ms / 1e3) / PEAK_BYTES
+    mfu = cost_flops / (device_ms / 1e3) / PEAK_BF16_FLOPS
+    assert 0 < mbu <= 1.05 and 0 < mfu <= 1.05, (label, mbu, mfu)
+    return (f"{label}: cost model {cost_bytes / 1e9:.3f} GB and {cost_flops / 1e12:.3f} TFLOP over the "
+            f"graph's device {device_ms:.3f} ms = MBU {mbu:.3f}, MFU {mfu:.4f} of the H100's peaks")
+
+
 def time_decode_step(engine, live: int = 512) -> dict:
     """One decode step of the stopped engine's model (all slots at
     ``live`` rows), eager and graphed (:func:`_bare_step`)."""
@@ -1745,6 +1793,15 @@ def time_decode_step(engine, live: int = 512) -> dict:
     log(_bare_line(f"decode step (model only, {weights} weights, {cache} KV cache, {slots} slots x "
                    f"{live} live rows)", timing)
         + f", weight-read bound {weight_bytes / PEAK_BYTES * 1e3:.2f} ms ({weight_bytes / 1e9:.2f} GB)")
+    # the engine's own cost model for this step: every slot reads its live
+    # rows and writes one
+    cost = engine.cost_model
+    kv_tokens = slots * cost.kv_read_tokens(live)
+    timing["cost_bytes"] = cost.decode_chunk_bytes(1, slots, kv_tokens)
+    timing["cost_flops"] = cost.decode_chunk_flops(1, slots, kv_tokens)
+    timing["mbu"] = timing["cost_bytes"] / (timing["device_ms"] / 1e3) / PEAK_BYTES
+    log(roofline_share(f"bare decode step roofline ({weights} weights, {cache} KV cache)",
+                       timing["cost_flops"], timing["cost_bytes"], timing["device_ms"]))
     return timing
 
 
@@ -1773,11 +1830,23 @@ def time_paged_steps(engine, live: int = 512) -> dict:
                                num_tokens, tables, engine.freqs)
 
     cache = "int8" if engine.kv_quant else "bf16"
+    cost = engine.cost_model
+    row_kv = cost.kv_read_tokens(live + 1)
+    # the mixed step: row 0 a 64-token window at offset ``live``, the
+    # others one decode token each
+    costs = {"paged decode step": (cost.decode_chunk_flops(1, slots, slots * row_kv),
+                                   cost.decode_chunk_bytes(1, slots, slots * row_kv)),
+             "mixed step (W 64)": (
+                 cost.mixed_step_flops(slots - 1, (slots - 1) * row_kv, [(live, width)]),
+                 cost.mixed_step_bytes((slots - 1) * row_kv + cost.kv_read_tokens(live + width),
+                                       slots - 1 + width))}
     timings = {}
     for label, step in (("paged decode step", decode), ("mixed step (W 64)", mixed)):
         timings[label] = _bare_step(step)
         log(_bare_line(f"{label} (model only, {cache} paged KV cache, {slots} slots x {live} live "
                        f"rows)", timings[label]))
+        log(roofline_share(f"bare {label} roofline ({cache} paged KV cache)", *costs[label],
+                           timings[label]["device_ms"]))
     hidden, inter = engine.config.hidden_size, engine.config.intermediate_size
     layer = hidden * engine.config.dims_per_head * (
         2 * engine.config.num_heads + 2 * engine.config.num_kv_heads) + 3 * hidden * inter
@@ -1821,14 +1890,15 @@ def graph_pool_gib(engine):
 
 
 def start_llama_server(*extra: str, kv_quant: bool = False, graphs: bool = True,
-                       engine_config=None, layers=None, embeddings=None):
+                       engine_config=None, layers=None, embeddings=None, slo=None):
     """``serve --precompile`` with these flags; ``kv_quant`` adds
     ``kv-quant: int8`` to the provider's engine config, the way a
     deployment asks for it, and ``engine_config`` its other keys (``serve``
     has no flag for either); ``layers`` cuts the model's depth (the
     in-turns controls); ``graphs=False`` builds the engine with eager
     dispatch (the control; no flag or key reaches that); ``embeddings``
-    serves ``/v1/embeddings`` from that service. The decode chunk
+    serves ``/v1/embeddings`` from that service; ``slo`` is the provider
+    config's ``slo`` key (its p95 targets). The decode chunk
     is 8, not ``bench.py``'s 32: a chunk is chained only while every rider
     has two chunks of budget left, and at 32 no request of these bursts
     (32-62 tokens) would ever chain."""
@@ -1842,6 +1912,8 @@ def start_llama_server(*extra: str, kv_quant: bool = False, graphs: bool = True,
     config["engine"].update(engine_config or {})
     if layers:
         config["model"]["num_layers"] = layers
+    if slo:
+        config["slo"] = slo
     t0 = time.perf_counter()
     service, server = start_server(args, config, step_graphs=graphs, embeddings=embeddings)
     engine = service.engine
@@ -1871,7 +1943,26 @@ def start_llama_server(*extra: str, kv_quant: bool = False, graphs: bool = True,
     return service, server
 
 
-def run_burst(service, server, jobs, warmup=()):
+def scrape(server) -> dict:
+    """``/metrics`` as {series (with its labels): value}; a histogram's
+    ``_count`` lines included."""
+    with urllib.request.urlopen(f"http://127.0.0.1:{server.port}/metrics", timeout=60) as response:
+        text = response.read().decode()
+    out = {}
+    for row in text.splitlines():
+        if row and not row.startswith("#"):
+            name, _, value = row.rpartition(" ")
+            out[name] = float(value)
+    return out
+
+
+# the latency histograms whose counts a burst must raise by its requests
+LATENCY_FAMILIES = ("torch_engine_ttft_seconds", "torch_engine_tpot_seconds",
+                    "torch_engine_request_seconds")
+BURSTS = [0]  # bursts run so far: each burst's trace ids are unique
+
+
+def run_burst(service, server, jobs, warmup=(), profile_s: float = 0.0):
     """All jobs at once against the server: the main path's run. Returns
     the kernels' launches on the card during the burst, from their device
     counters (a replayed graph's kernels included), and the wrappers'
@@ -1883,19 +1974,37 @@ def run_burst(service, server, jobs, warmup=()):
     engine's prefill harvests are counted through a wrapper on its
     ``_harvest_prefills``: records emitted that were done when their
     harvest came ("ready") or that it waited for ("waited"), and harvests
-    that left the oldest record in flight ("left")."""
+    that left the oldest record in flight ("left"). Each job carries its
+    own trace id (``stats["trace_ids"]``, in job order); ``/metrics`` is
+    scraped after the burst (``stats["gauges"]``: the engine's MFU, MBU
+    and prefill MFU of this burst alone, its stats reset before it) and
+    the latency histograms' counts before and after it
+    (``stats["histogram_counts"]``). ``profile_s`` > 0: one
+    ``/debug/profile`` capture of that many seconds while the burst runs
+    (``stats["profile"]``, its directory)."""
     url = f"http://127.0.0.1:{server.port}"
+    BURSTS[0] += 1
+    trace_ids = [f"burst{BURSTS[0]}-{i}" for i in range(len(jobs))]
 
-    def post(job):
+    def post(job, trace_id=None):
         path, body = job
-        request = urllib.request.Request(
-            url + path, data=json.dumps(body).encode(),
-            headers={"Content-Type": "application/json"})
+        headers = {"Content-Type": "application/json"}
+        if trace_id:
+            headers["x-langstream-trace-id"] = trace_id
+        request = urllib.request.Request(url + path, data=json.dumps(body).encode(), headers=headers)
         with urllib.request.urlopen(request, timeout=600) as response:
+            assert not trace_id or response.headers["x-langstream-trace-id"] == trace_id
             return response.read().decode()
+
+    def profile():
+        # once the burst is under way
+        time.sleep(0.05)
+        with urllib.request.urlopen(f"{url}/debug/profile?seconds={profile_s}", timeout=600) as response:
+            return json.loads(response.read())["path"]
 
     for job in warmup:
         post(job)
+    before = scrape(server)
     engine = service.engine
     # decode chunks dispatched off the previous chunk's carry, counted
     # through a wrapper on the engine instance (the JAX engine has no
@@ -1931,19 +2040,25 @@ def run_burst(service, server, jobs, warmup=()):
     try:
         with launches_lib.device_launches(shapes=True) as launches:
             started = time.perf_counter()
-            with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
-                replies = list(pool.map(post, jobs))
-            wall = time.perf_counter() - started
+            with concurrent.futures.ThreadPoolExecutor(len(jobs) + 1) as pool:
+                captured = pool.submit(profile) if profile_s else None
+                replies = list(pool.map(post, jobs, trace_ids))
+                wall = time.perf_counter() - started
+                profiled = captured.result() if captured else None
     finally:
         del engine._dispatch_decode  # the class's methods again
         del engine._harvest_prefills
+    after = scrape(server)
     host = {name: wrapper.launches for name, wrapper in KERNELS.items()}
     by_kind = {kind: kind_stats["replayed"] - replays.get(kind, 0)
                for kind, kind_stats in engine.steps.stats["kinds"].items()}
     stats = dict(engine.stats, chained_decode_chunks=chained[0], graphed=engine.steps.graphed,
                  step_runs=engine.steps.stats["replayed"] - runner["replayed"],
                  step_captures=engine.steps.stats["captured"] - runner["captured"],
-                 runs_by_kind={kind: n for kind, n in by_kind.items() if n}, harvests=harvests)
+                 runs_by_kind={kind: n for kind, n in by_kind.items() if n}, harvests=harvests,
+                 trace_ids=trace_ids, gauges=after, profile=profiled,
+                 histogram_counts={family: after[f"{family}_count"] - before[f"{family}_count"]
+                                   for family in LATENCY_FAMILIES})
     # every prefill model call went through the runner, a replay when graphed
     calls = engine.stats["model_dispatches"]
     prefill_calls = sum(n for name, n in calls.items() if "prefill" in name)
@@ -1955,6 +2070,117 @@ def run_burst(service, server, jobs, warmup=()):
         assert stats["step_runs"] > 0 and all(
             entry.graph is not None for entry in engine.steps._entries.values())
     return replies, wall, launches, host, stats, torch.cuda.max_memory_allocated() / 2**30
+
+
+def completion_counts(jobs, replies):
+    """Each reply's completion tokens (a stream's from its final frame)."""
+    counts = []
+    for (_, body), raw in zip(jobs, replies):
+        if body.get("stream"):
+            frames = [f[len("data: "):] for f in raw.split("\n\n") if f.startswith("data: ")]
+            counts.append(json.loads(frames[-2])["usage"]["completion_tokens"])
+        else:
+            counts.append(json.loads(raw)["usage"]["completion_tokens"])
+    return counts
+
+
+def check_histograms(label, kind, jobs, replies, stats) -> None:
+    """The burst raised the TTFT and request-seconds histograms' counts by
+    exactly its requests, and TPOT's by those with more than one token
+    (a one-token answer has no inter-token gap)."""
+    counts = stats["histogram_counts"]
+    multi = sum(n > 1 for n in completion_counts(jobs, replies))
+    want = {"torch_engine_ttft_seconds": len(jobs), "torch_engine_request_seconds": len(jobs),
+            "torch_engine_tpot_seconds": multi}
+    assert counts == want, (counts, want)
+    log(f"latency histograms [{label}] {kind}: _count rose by {counts} for {len(jobs)} requests answered "
+        f"({multi} of more than one token)")
+
+
+def check_roofline(label, kind, stats, tok_s, ttft_ms, prefill: bool = True) -> dict:
+    """The burst's cumulative MFU, MBU and prefill MFU from ``/metrics``
+    (the cost model's modeled work over busy decode time and prefill
+    time, against the H100's peaks), printed beside its tok/s and TTFT,
+    each in (0, 1.05]. ``prefill`` False: a mixed burst, whose prompts
+    ride the mixed steps (their work is in MFU) and make no prefill call."""
+    gauges = stats["gauges"]
+    names = ["torch_engine_mfu", "torch_engine_mbu"] + (["torch_engine_prefill_mfu"] if prefill else [])
+    shares = {name[len("torch_engine_"):]: gauges[name] for name in names}
+    assert all(0 < value <= 1.05 for value in shares.values()), (kind, shares)
+    # the serving engine's own counters, beside /metrics' sum over every
+    # engine of the process (a stopped engine counts there until collected)
+    own = (stats["decode_flops"] / stats["decode_time"] / PEAK_BF16_FLOPS,
+           stats["decode_bytes"] / stats["decode_time"] / PEAK_BYTES)
+    log(f"roofline [{label}] {kind}: " + ", ".join(f"{name} {value:.4f}" for name, value in shares.items())
+        + f" (the engine's own: mfu {own[0]:.4f}, mbu {own[1]:.4f})"
+        + ("" if prefill else ", prefill_mfu n/a (no prefill call: windows ride the mixed steps)")
+        + f" of the H100's peaks ({PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s, {PEAK_BYTES / 1e12:.2f} TB/s); "
+        f"goodput {gauges.get('torch_engine_goodput_ratio')}, slot occupancy "
+        f"{gauges.get('torch_engine_slot_occupancy')}; {tok_s:.1f} tok/s, mean TTFT {ttft_ms:.1f} ms")
+    return shares
+
+
+def artifact_journeys(trace_ids) -> dict:
+    """The flight artifact's ``journey`` records of these trace ids."""
+    flight.flush()
+    wanted = set(trace_ids)
+    return {record["trace_id"]: record for record in flight.read_artifact(flight.RECORDER.path)
+            if record.get("kind") == "journey" and record.get("trace_id") in wanted}
+
+
+def check_journeys(label, kind, trace_ids, imported: bool = False) -> dict:
+    """Every request's journey is in the flight artifact and tiles its
+    request: no negative or overlapping stage, and the stages cover the
+    wall from submit to finish (a leg with a handoff import, the JAX
+    ledger's invariant: at least 95%, the import's end to the admission
+    uncovered); the port's ``journey`` subcommand renders them."""
+    records = artifact_journeys(trace_ids)
+    assert set(records) == set(trace_ids), sorted(set(trace_ids) - set(records))
+    for record in records.values():
+        leg = journey_lib.Journey(record["trace_id"])
+        leg.add(record)
+        assert not leg.overlaps() and not leg.negatives() and not leg.missing_stages(), record
+        assert leg.coverage() >= (0.95 if imported else 1 - 1e-6), (leg.coverage(), record)
+    rendered = io.StringIO()
+    with contextlib.redirect_stdout(rendered):
+        cli_main(["journey", flight.RECORDER.path, "--trace-id", trace_ids[0]])
+    lines = rendered.getvalue().splitlines()
+    assert lines[0].startswith("1 journey(s)") and lines[1].startswith(trace_ids[0]), lines[:2]
+    classes = {}
+    for record in records.values():
+        classes[record["admit_class"]] = classes.get(record["admit_class"], 0) + 1
+    log(f"journeys [{label}] {kind}: {len(records)} in the flight artifact, each tiling its request; "
+        f"admission classes {classes}; `journey --trace-id {trace_ids[0]}`: " + " | ".join(
+            line.strip() for line in lines[1:]))
+    return records
+
+
+def profile_shares(label, directory: str) -> None:
+    """The kernels' shares of the card's time in a ``/debug/profile``
+    capture (shares, never counts: a busy trace can drop kernel records):
+    the trace must hold B1 or B2 kernel events."""
+    with open(os.path.join(directory, "trace.json")) as handle:
+        events = json.load(handle)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
+    total = sum(e["dur"] for e in kernels)
+    by_name = {}
+    for e in kernels:
+        name = e["name"]
+        short = next((k for k in ("flash_prefill", "flash_decode") if k in name), name[:60])
+        by_name[short] = by_name.get(short, 0.0) + e["dur"]
+    categories = {}
+    for e in events:
+        categories[e.get("cat")] = categories.get(e.get("cat"), 0) + 1
+    assert any(k in by_name for k in ("flash_prefill", "flash_decode")), (sorted(by_name)[:20], categories)
+    with open(os.path.join(directory, "device_memory.json")) as handle:
+        memory = json.load(handle)["devices"][0]["memory_stats"]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    log(f"/debug/profile [{label}]: {len(kernels)} kernel events, {total / 1e3:.1f} ms of kernel time in the "
+        f"window; B1 flash_prefill {by_name.get('flash_prefill', 0.0) / total:.1%}, B2 flash_decode "
+        f"{by_name.get('flash_decode', 0.0) / total:.1%} of it; top: "
+        + ", ".join(f"{name} {t / total:.1%}" for name, t in top)
+        + f"; device memory at the capture {memory.get('allocated_bytes.all.current', 0) / 2**30:.2f} GiB "
+        f"allocated, peak {memory.get('allocated_bytes.all.peak', 0) / 2**30:.2f} GiB")
 
 
 def check_replies(jobs, replies) -> int:
@@ -2054,6 +2280,9 @@ def serve_dense_and_check(label: str, kv_quant: bool = False, extra=(), graphs: 
         (uniform_replies, uniform_wall, uniform_launches, uniform_host, uniform_stats,
          uniform_peak) = run_burst(service, server, uniform)
         if crash:
+            # the main path's full-depth phase: the mixed-length burst's
+            # journeys
+            check_journeys(label, "dense", stats["trace_ids"])
             serve_crash_and_check(label, service, server, max(start_peak, peak_gib, uniform_peak))
     finally:
         server.stop()
@@ -2078,15 +2307,22 @@ def serve_dense_and_check(label: str, kv_quant: bool = False, extra=(), graphs: 
                     + ([] if graphs else ["EAGER"]) + ([] if join else ["JAX harvest"])
                     + ([f"{layers} layers"] if layers != model.LlamaConfig.llama3_8b().num_layers else []))
     report(label, kind, jobs, wall, tokens, stats, launches, host, peak_gib)
+    check_histograms(label, kind, jobs, replies, stats)
+    roofline = check_roofline(label, kind, stats, tokens / wall,
+                              stats["ttft_time"] / stats["requests"] * 1e3)
     uniform_tokens = check_replies(uniform, uniform_replies)
     report(label, kind + ", uniform 64-token burst", uniform, uniform_wall, uniform_tokens,
            uniform_stats, uniform_launches, uniform_host, uniform_peak)
+    uniform_roofline = check_roofline(label, kind + ", uniform 64-token burst", uniform_stats,
+                                      uniform_tokens / uniform_wall,
+                                      uniform_stats["ttft_time"] / uniform_stats["requests"] * 1e3)
     chained = stats["chained_decode_chunks"] + uniform_stats["chained_decode_chunks"]
     if service.engine.pipeline_decode:
         assert uniform_stats["chained_decode_chunks"] > 0, uniform_stats
     else:
         assert chained == 0, (stats, uniform_stats)
     return dict(launches, timing=timing, peak_gib=peak_gib, tok_s=tokens / wall,
+                roofline=roofline, uniform_roofline=uniform_roofline,
                 load_s=service.load_s, texts=_answered(jobs[:-1], replies[:-1])[1],
                 uniform_tok_s=uniform_tokens / uniform_wall,
                 ttft_ms=stats["ttft_time"] / stats["requests"] * 1e3,
@@ -2329,11 +2565,18 @@ def serve_watchdog_and_check(label: str) -> None:
 
 def serve_shedding_and_check(label: str) -> None:
     """Load shedding at ``RECOVERY_LAYERS``: ``--queue-timeout-s 0.25``
-    against 96 concurrent completions of 64 tokens on 32 slots. Gates: at
-    least one request shed; each shed request answered 503 with
-    Retry-After, every other 200; ``requests_shed_total{reason=
-    "queue_timeout"}`` on ``/metrics`` equal to the 503s."""
-    service, server = start_llama_server("--queue-timeout-s", "0.25", layers=RECOVERY_LAYERS)
+    against 96 concurrent completions of 64 tokens on 32 slots, with the
+    SLO ``SHEDDING_SLO`` (1 ms p95 TTFT and TPOT, which every answered
+    request breaks). Gates: at least one request shed; each shed request
+    answered 503 with Retry-After, every other 200;
+    ``requests_shed_total{reason="queue_timeout"}`` on ``/metrics`` equal
+    to the 503s; the TTFT burn rate over 5 minutes above 1, and blame
+    booked by journey stage, ``queue`` among the stages. Then, on the same
+    server (``--profile-kernels``: the first profiler of the process, so
+    it runs before the watchdog's capture), one ``/debug/profile``
+    capture during a dense burst (:func:`profile_shares`)."""
+    service, server = start_llama_server("--queue-timeout-s", "0.25", "--profile-kernels",
+                                         layers=RECOVERY_LAYERS, slo=SHEDDING_SLO)
     rng = np.random.default_rng(3)
     jobs = [("/v1/completions", {"prompt": prompt_text(rng, 100 + 2 * i), "max_tokens": 64})
             for i in range(96)]
@@ -2344,9 +2587,19 @@ def serve_shedding_and_check(label: str) -> None:
         wall = time.perf_counter() - started
         with urllib.request.urlopen(f"http://127.0.0.1:{server.port}/metrics", timeout=60) as response:
             exposition = response.read().decode()
+        # then, uncounted, a dense burst of 32 completions of 192 tokens
+        # with one /debug/profile capture while it runs (the server primed
+        # the profiler at start: --profile-kernels). The capture's start
+        # stalls the engine for longer than the queue deadline, so the
+        # deadline is lifted for this burst
+        service.engine.queue_timeout_s = None
+        busy = [("/v1/completions", {"prompt": prompt_text(rng, 120 + 2 * i), "max_tokens": 192})
+                for i in range(32)]
+        profiled = run_burst(service, server, busy, profile_s=1.0)[4]["profile"]
     finally:
         server.stop()
         service.close()
+    profile_shares(label, profiled)
     shed = [reply for reply in replies if reply[0] == 503]
     served = [reply for reply in replies if reply[0] == 200]
     assert shed and len(shed) + len(served) == len(jobs), [reply[0] for reply in replies]
@@ -2355,10 +2608,22 @@ def serve_shedding_and_check(label: str) -> None:
     exposed = [float(row[len(line):]) for row in exposition.splitlines() if row.startswith(line)]
     assert exposed == [float(len(shed))], (exposed, len(shed))
     retry = sorted(int(headers["Retry-After"]) for _, headers, _ in shed)
+    slo = {}
+    for row in exposition.splitlines():
+        if row.startswith("torch_engine_slo_"):
+            name, _, value = row.rpartition(" ")
+            slo[name] = float(value)
+    blame = {name[len("torch_engine_slo_blame_total"):]: value for name, value in slo.items()
+             if name.startswith("torch_engine_slo_blame_total")}
+    assert slo["torch_engine_slo_ttft_burn_rate_5m"] > 1, slo
+    assert sum(blame.values()) > 0 and any('stage="queue"' in name for name in blame), blame
     log(f"shedding [{label}]: {RECOVERY_LAYERS} layers, --queue-timeout-s 0.25, 96 requests on 32 slots in "
         f"{wall:.3f}s: {len(served)} answered 200, {len(shed)} shed with 503 (Retry-After "
         f"{retry[0]}-{retry[-1]} s), /metrics requests_shed_total{{reason=\"queue_timeout\"}} "
-        f"{exposed[0]:.0f}")
+        f"{exposed[0]:.0f}; slo {SHEDDING_SLO}: " + ", ".join(
+            f"{name[len('torch_engine_slo_'):]} {value:g}" for name, value in slo.items()
+            if not name.startswith("torch_engine_slo_blame_total"))
+        + f"; blame {blame}")
 
 
 def serve_paged_and_check(label: str, kv_quant: bool = False, mixed: bool = False,
@@ -2441,6 +2706,8 @@ def serve_paged_and_check(label: str, kv_quant: bool = False, mixed: bool = Fals
     kind = (("mixed paged" if mixed else "paged") + (" int8 KV" if kv_quant else "")
             + (" warm" if warmup else " cold"))
     report(label, kind, jobs, wall, tokens, stats, launches, host, peak_gib)
+    check_roofline(label, kind, stats, tokens / wall, stats["ttft_time"] / stats["requests"] * 1e3,
+                   prefill=not mixed)
     return launches
 
 
@@ -3411,10 +3678,10 @@ def check_handoff(label: str, config, params, kv_quant: bool) -> dict:
         exports.append((waited - started, time.perf_counter() - waited, payload_nbytes(payload)))
         return payload
 
-    def timed_import(payload):
+    def timed_import(payload, **kwargs):
         torch.cuda.synchronize()
         started = time.perf_counter()
-        ok = import_fn(payload)
+        ok = import_fn(payload, **kwargs)
         torch.cuda.synchronize()
         imports.append((time.perf_counter() - started, payload_nbytes(payload), ok))
         return ok
@@ -3437,7 +3704,9 @@ def check_handoff(label: str, config, params, kv_quant: bool) -> dict:
     lengths = [2048, 1500, *(int(n) for n in rng.integers(1501, 2048, size=2))]
     prompts = [[int(t) for t in rng.integers(1, config.vocab_size, size=n)] for n in lengths]
     kind = "int8 KV" if kv_quant else "bf16 KV"
+    pool = "int8" if kv_quant else "bf16"
     rows, first = [], None
+    legs, replays = [], []  # the trace ids of the prefill legs and the decode legs
     try:
         for i, prompt in enumerate(prompts):
             name = ("greedy", "seeded")[i % 2]
@@ -3446,13 +3715,16 @@ def check_handoff(label: str, config, params, kv_quant: bool) -> dict:
             # the leg runs cold, as the oracle did: its rows and first two
             # tokens are the oracle's bit for bit
             _clear_prefix_cache(a)
-            leg, _ = _generate(a, prompt, dict(sampling, max_new_tokens=2), export_handoff=True)
+            legs.append(f"handoff-{pool}-{i}-prefill")
+            leg, _ = _generate(a, prompt, dict(sampling, max_new_tokens=2), export_handoff=True,
+                               trace_id=legs[-1])
             assert leg.tokens == want.tokens[:2], (leg.tokens, want.tokens)
             payload = leg.kv_handoff
             full = len(prompt) // 16
             assert len(payload["tokens"]) == 16 * ((len(prompt) + 1) // 16), len(payload["tokens"])
             started = time.perf_counter()
-            records = handoff_records(payload, manifest_for_request(prompt, leg.tokens, sampling))
+            records = handoff_records(payload, manifest_for_request(prompt, leg.tokens, sampling,
+                                                                    export_ts=payload["export_ts"]))
             encode_s = time.perf_counter() - started
             # a record holds whole blocks, at least one: at this width one
             # block outgrows the 256 KiB budget, so each record is a block
@@ -3473,9 +3745,11 @@ def check_handoff(label: str, config, params, kv_quant: bool) -> dict:
                           replay_tops=list(leg.top_logprobs), prompt_len=len(prompt))
             hits = b.kv_manager.stats["hit_tokens"]
             calls, entries = dict(b.stats["model_dispatches"]), set(b.steps._entries)
+            replays.append(f"handoff-{pool}-{i}-decode")
             with launches_lib.device_launches(shapes=True) as counts:
                 got, ttft = _generate(b, manifest["prompt_tokens"] + replay[:-1], manifest["sampling"],
-                                      kv_import=assembled["payload"], **fields)
+                                      kv_import=assembled["payload"], trace_id=replays[-1],
+                                      handoff_export_ts=manifest["export_ts"], **fields)
             model_calls, warm_calls = _kv_kernel_gate(b, calls, entries, counts, kv_quant)
             assert b.kv_manager.stats["hit_tokens"] - hits >= full * 16, (
                 b.kv_manager.stats["hit_tokens"] - hits, full)
@@ -3526,6 +3800,15 @@ def check_handoff(label: str, config, params, kv_quant: bool) -> dict:
         }, (delta, a.stats, b.stats)
         assert a.stats["handoff_exports"] == b.stats["handoff_imports"] == len(prompts) + warm_handoffs
         assert a.stats["tokens_wasted"].get("handoff_aborted", 0) == 0
+        # the legs' journeys: the prefill leg ends in its export, the
+        # decode leg starts with the transit and the import
+        exported = check_journeys(label, f"handoff prefill legs, {kind}", legs)
+        assert all("handoff_export" in [st["stage"] for st in r["stages"]] for r in exported.values())
+        imported = check_journeys(label, f"handoff decode legs, {kind}", replays, imported=True)
+        for record in imported.values():
+            stages = [st["stage"] for st in record["stages"]]
+            assert record["admit_class"] == "handoff-import", record
+            assert stages[:3] == ["handoff_transit", "queue", "handoff_import"], stages
     finally:
         a.stop()
         b.stop()
@@ -3549,13 +3832,14 @@ def check_handoff(label: str, config, params, kv_quant: bool) -> dict:
     return dict(rows=rows, exports=exports, imports=imports, plain=(nbytes, d2h_ms, h2d_ms))
 
 
-def _tier_scenario(eng, prompt1, prompt2, thrash, sampling):
+def _tier_scenario(eng, prompt1, prompt2, thrash, sampling, trace_id=None):
     """Prompt 1, the thrash prompts, prompt 2 (prompt 1 and 128 tokens
-    more); returns prompt 1's and 2's results, and prompt 2's TTFT."""
+    more, with ``trace_id``); returns prompt 1's and 2's results, and
+    prompt 2's TTFT."""
     first, _ = _generate(eng, prompt1, sampling)
     for prompt in thrash:
         _generate(eng, prompt, sampling)
-    second, ttft = _generate(eng, prompt2, sampling)
+    second, ttft = _generate(eng, prompt2, sampling, trace_id=trace_id)
     return [first, second], ttft
 
 
@@ -3611,9 +3895,10 @@ def check_host_tier(label: str, config, params, kv_quant: bool) -> dict:
     tiered.kv_manager._demote_data = timed_demote
     tiered._promote_host_chain = timed_promote
     try:
-        ttfts = []
+        ttfts, promoted = [], []
         for n, sampling in enumerate(samplings):
-            got, ttft = _tier_scenario(tiered, prompt1, prompt2, thrash, sampling)
+            promoted.append(f"host-tier-{'int8' if kv_quant else 'bf16'}-{n}")
+            got, ttft = _tier_scenario(tiered, prompt1, prompt2, thrash, sampling, promoted[-1])
             want, hbm_ttft = _tier_scenario(oracle, prompt1, prompt2, thrash, sampling)
             assert [r.tokens for r in got] == [r.tokens for r in want], (n, got, want)
             ttfts.append((ttft, hbm_ttft))
@@ -3636,6 +3921,9 @@ def check_host_tier(label: str, config, params, kv_quant: bool) -> dict:
         assert stats["host_promote_aborts"] == 0, stats
         assert oracle.kv_manager.stats["evictions"] == 0, oracle.kv_manager.stats
         assert pinned
+        # prompt 2's admissions were served by the host tier
+        journeys = check_journeys(label, f"host tier prompt 2, {kind}", promoted)
+        assert all(r["admit_class"] == "host-promote" for r in journeys.values()), journeys
     finally:
         tiered.stop()
     faults.reset()
@@ -3696,8 +3984,14 @@ def check_disagg_and_tiers(label: str) -> None:
 
 
 def main() -> None:
-    # the watchdog's trip captures go under build/, which git ignores
+    # the watchdog's trip captures and /debug/profile's go under build/,
+    # which git ignores; so does the flight artifact, on as in `serve`
+    # (every journey, decode chunk and prefill record of the run)
     os.environ.setdefault("LANGSTREAM_PROFILE_DIR", os.path.join("build", "profiles"))
+    os.environ.setdefault(flight.ENV_VAR, os.path.join("build", "flight"))
+    log(f"flight recorder -> {start_flight('chip_smoke')}")
+    # the engines' cost model divides by the peaks this script's bounds use
+    assert accounting.PeakSpecs.from_env() == accounting.PeakSpecs(PEAK_BF16_FLOPS, PEAK_BYTES)
     device = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     label = card_label()
@@ -3841,8 +4135,11 @@ def main() -> None:
         serve_checkpoint_and_check(label, CHECKPOINT_DIR, runs[dense_crash, False][0], gate)
     finally:
         shutil.rmtree(CHECKPOINT_DIR, ignore_errors=True)
-    # the watchdog's escalation and load shedding, at RECOVERY_LAYERS
-    for phase in (serve_watchdog_and_check, serve_shedding_and_check):
+    # load shedding (and the profile capture) and the watchdog's
+    # escalation, at RECOVERY_LAYERS: the server of the shedding phase
+    # brings the profiler up in this thread, before the watchdog's capture
+    # would in its own (CUPTI stays attached from the first capture on)
+    for phase in (serve_shedding_and_check, serve_watchdog_and_check):
         gc.collect()
         torch.cuda.empty_cache()
         phase(label)

@@ -1,10 +1,19 @@
 """``python -m langstream_tpu_torch serve``: the OpenAI-compatible server
-over the port's engine, mirroring ``langstream-tpu serve``."""
+over the port's engine, mirroring ``langstream-tpu serve``; and
+``python -m langstream_tpu_torch journey``: request journeys joined from
+flight artifacts, mirroring ``langstream-tpu journey``.
+
+``serve`` turns the flight recorder on, as the JAX ``serve`` does: into
+``$LANGSTREAM_FLIGHT_DIR`` (an empty value turns it off), by default
+``bench_artifacts/flight`` beside the checkout, stamped with this
+replica's identity (``$HOSTNAME``, else the host name; role ``unified``)."""
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
+import socket
 from typing import Any, Dict, List, Optional, Tuple
 
 from langstream_tpu_torch.providers.torch_local.engine import engines_histograms, engines_snapshot
@@ -13,6 +22,8 @@ from langstream_tpu_torch.providers.torch_local.provider import (
     TorchCompletionsService,
     TorchEmbeddingsService,
 )
+from langstream_tpu_torch.runtime import flight, tracing
+from langstream_tpu_torch.runtime.journey import run_journey
 from langstream_tpu_torch.serving.openai_api import OpenAIApiServer
 
 
@@ -118,9 +129,49 @@ def build_parser() -> argparse.ArgumentParser:
         help="HuggingFace BERT directory (MiniLM and its kin, with its tokenizer): serve "
              "POST /v1/embeddings from it on --device",
     )
+    serve.add_argument(
+        "--profile-kernels", action="store_true",
+        help="bring the profiler's device tracing up at start, so that GET /debug/profile "
+             "records the card's kernels; CUPTI then stays attached and every launch of the "
+             "process pays for it (off: a capture records host operators only)",
+    )
     serve.add_argument("--host", default="0.0.0.0")
     serve.add_argument("--port", type=int, default=8000)
+    journey = sub.add_parser(
+        "journey", help="join flight artifacts ($LANGSTREAM_FLIGHT_DIR) by trace id into "
+                        "per-request waterfalls, per-stage p50/p95 and SLO blame")
+    journey.add_argument("paths", nargs="+",
+                         help="flight_*.jsonl artifacts and/or directories of them")
+    journey.add_argument("--trace-id", default=None,
+                         help="render the full stage waterfall of one request")
+    journey.add_argument("--slo-ttft-ms", type=float, default=0.0,
+                         help="TTFT SLO for blame attribution (0 = no TTFT blame)")
+    journey.add_argument("--slo-tpot-ms", type=float, default=0.0,
+                         help="per-token TPOT SLO for blame attribution (0 = no TPOT blame)")
+    journey.add_argument("--top", type=int, default=3,
+                         help="how many of the slowest requests' waterfalls to render")
+    journey.add_argument("--json", action="store_true",
+                         help="emit the joined journeys as JSON instead of tables")
     return parser
+
+
+def default_flight_dir() -> str:
+    """``bench_artifacts/flight`` beside the checkout when the package runs
+    from one (where ``tools/ab_analyze.py`` looks), else under the working
+    directory."""
+    repo_root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    if os.path.isdir(os.path.join(repo_root, "bench_artifacts")):
+        return os.path.join(repo_root, "bench_artifacts", "flight")
+    return os.path.join("bench_artifacts", "flight")
+
+
+def start_flight(run_id: str) -> Optional[str]:
+    """Stamp this replica's identity and turn the flight recorder on
+    (``$LANGSTREAM_FLIGHT_DIR``, empty = off, default
+    :func:`default_flight_dir`); returns the artifact's path or None."""
+    flight.set_identity(os.environ.get("HOSTNAME") or socket.gethostname(), "unified")
+    directory = os.environ.get(flight.ENV_VAR, default_flight_dir())
+    return flight.configure(directory, run_id=run_id) if directory else None
 
 
 def serve_config(args: argparse.Namespace) -> Dict[str, Any]:
@@ -192,6 +243,10 @@ def start_server(
     if embeddings is None and args.embeddings_checkpoint:
         embeddings = TorchEmbeddingsService(
             {"embeddings-model": {"checkpoint": args.embeddings_checkpoint}}, device=args.device)
+    if args.profile_kernels:
+        # /debug/profile captures from a handler thread: the profiler's
+        # device tracing must first come up in this one
+        tracing.prime_profiler()
     service = TorchCompletionsService(
         config or serve_config(args), device=args.device, step_graphs=step_graphs)
     server = OpenAIApiServer(service, embeddings, model=args.model, host=args.host,
@@ -204,6 +259,15 @@ def start_server(
 def main(argv: Optional[List[str]] = None) -> None:
     logging.basicConfig(level=logging.INFO)
     args = build_parser().parse_args(argv)
+    if args.command == "journey":
+        for line in run_journey(args.paths, trace_id=args.trace_id, slo_ttft_ms=args.slo_ttft_ms,
+                                slo_tpot_ms=args.slo_tpot_ms, as_json=args.json,
+                                waterfalls=args.top):
+            print(line)
+        return
+    path = start_flight(f"serve-{args.model}")
+    if path:
+        print(f"flight recorder -> {path}", flush=True)
     service, server = start_server(args)
     print(f"serving {args.model} on http://{args.host}:{server.port}", flush=True)
     try:

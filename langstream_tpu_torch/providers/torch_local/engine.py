@@ -145,8 +145,20 @@ path over the paged one:
   promotion (fault point ``host_promote_torn``) aborts before anything
   publishes and the admission prefills cold.
 
-Not in this slice (ROADMAP.md): the telemetry planes beyond ``/metrics``'
-gauges.
+- **Accounting** (``runtime/accounting.py``, ``runtime/journey.py``): a
+  cost model built from the config, the weights' and the cache's widths
+  and the layout charges each decode chunk and mixed step its modeled
+  FLOPs and bytes (from the context its riders held at dispatch) and each
+  prefill call its FLOPs, for per-chunk MFU and MBU against the H100's
+  peaks and the cumulative ``torch_engine_mfu`` / ``_mbu`` /
+  ``_prefill_mfu`` over the busy-time union. Every generated token is
+  booked useful or wasted by reason, and ``_finish`` observes TTFT, TPOT
+  and request seconds, ticks the SLO tracker (``slo``) and emits the
+  request's journey (its stages tiling submit to finish, with the
+  admission class), which feeds the per-stage histograms and the SLO
+  blame. With the flight recorder or a tracer on, each prefill call,
+  decode chunk, mixed step, request and journey is recorded there too;
+  all of it is host arithmetic on the engine thread, outside every graph.
 """
 
 from __future__ import annotations
@@ -165,6 +177,7 @@ import numpy as np
 import torch
 
 from langstream_tpu_torch.api import errors as api_errors
+from langstream_tpu_torch.api.metrics import Histogram
 from langstream_tpu_torch.device import resolve_device
 from langstream_tpu_torch.ops.paged_attention import fused_shapes_ok
 from langstream_tpu_torch.providers.torch_local import model as model_lib
@@ -179,14 +192,48 @@ from langstream_tpu_torch.providers.torch_local.graphs import (
 from langstream_tpu_torch.fleet.handoff import as_tensor, payload_nbytes
 from langstream_tpu_torch.providers.torch_local.paged import HostKVArena, HostKVEntry, PagedKVManager
 from langstream_tpu_torch.providers.torch_local.quant import QTensor, quantize_params
-from langstream_tpu_torch.runtime import faults, flight
+from langstream_tpu_torch.runtime import accounting, faults, flight
+from langstream_tpu_torch.runtime import journey as journey_ledger
 from langstream_tpu_torch.runtime.threadsafe import stable_items, stable_list
+from langstream_tpu_torch.runtime.tracing import get_tracer
 
 logger = logging.getLogger(__name__)
 
 # live engines, for /metrics (weak: a stopped engine's tensors must not
 # be pinned by the metrics path; a superseded one is retired at once)
 _LIVE_ENGINES: "weakref.WeakSet" = weakref.WeakSet()
+
+# latency histograms across every engine of the process, the JAX engine's
+# buckets: the decode step (a chunk's wall over its steps), and per request
+# TTFT (submit → first token), TPOT (the mean gap after the first token)
+# and end to end, observed at finish; the SLO tracker reads snapshots of
+# TTFT and TPOT
+DECODE_STEP_SECONDS = Histogram(
+    "torch_engine_decode_step_seconds",
+    buckets=(0.001, 0.002, 0.005, 0.01, 0.02, 0.035, 0.05, 0.075, 0.1, 0.15, 0.25, 0.5, 1.0))
+TTFT_SECONDS = Histogram(
+    "torch_engine_ttft_seconds",
+    buckets=(0.01, 0.025, 0.05, 0.1, 0.2, 0.35, 0.5, 0.75, 1.0, 2.0, 5.0, 10.0, 30.0))
+TPOT_SECONDS = Histogram(
+    "torch_engine_tpot_seconds",
+    buckets=(0.002, 0.005, 0.01, 0.02, 0.035, 0.05, 0.075, 0.1, 0.15, 0.25, 0.5, 1.0))
+REQUEST_SECONDS = Histogram("torch_engine_request_seconds")
+# per-chunk roofline shares of the card's peaks
+_UTIL_BUCKETS = (0.01, 0.02, 0.05, 0.1, 0.15, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 1.0)
+MFU_PER_CHUNK = Histogram("torch_engine_mfu_per_chunk", buckets=_UTIL_BUCKETS)
+MBU_PER_CHUNK = Histogram("torch_engine_mbu_per_chunk", buckets=_UTIL_BUCKETS)
+
+# the goodput ledger's waste reasons, the JAX engine's: tokens decoded for
+# a cancelled request; a follow-up re-prefilling its evicted session's
+# rows; drafts the verify pass rejected; a resurrected session's replay
+# prefill; prompt padding (bucket rounding and window shifts on the split
+# path, a mixed step's padded windows); tokens a chained mixed step sampled
+# for rows whose request had ended; a KV handoff import that aborted
+WASTE_REASONS = ("cancelled", "evicted_recompute", "draft_rejected", "crash_replay",
+                 "prefill_padding", "carry_invalidated", "handoff_aborted")
+# why mixed-step chains broke, the JAX engine's reasons
+CARRY_INVALIDATIONS = ("admission", "replay", "budget", "epoch", "condemned", "width",
+                       "drained", "stale_row")
 
 
 def _supervisor_module():
@@ -196,10 +243,16 @@ def _supervisor_module():
 
 
 def engines_histograms() -> Dict[str, Dict[str, float]]:
-    """Histogram snapshots for ``/metrics``: the supervisor's
-    ``engine_recovery_seconds`` once a supervisor exists."""
+    """Histogram snapshots for ``/metrics``: the engine's latency and
+    per-chunk roofline histograms, the journey stages', and the
+    supervisor's ``engine_recovery_seconds`` once a supervisor exists."""
+    out = {h.name: h.snapshot() for h in (DECODE_STEP_SECONDS, TTFT_SECONDS, TPOT_SECONDS,
+                                          REQUEST_SECONDS, MFU_PER_CHUNK, MBU_PER_CHUNK)}
+    out.update(journey_ledger.stage_histograms())
     supervisor_mod = _supervisor_module()
-    return supervisor_mod.supervisor_histograms() if supervisor_mod is not None else {}
+    if supervisor_mod is not None:
+        out.update(supervisor_mod.supervisor_histograms())
+    return out
 
 
 def engines_snapshot() -> Dict[str, float]:
@@ -208,9 +261,10 @@ def engines_snapshot() -> Dict[str, float]:
     watchdog families under the JAX names (``engine_restarts_total``,
     ``sessions_resurrected_total``, ``engine_degraded``,
     ``requests_shed_total{reason}``, ``watchdog_trips_total``), the paged
-    pool's, the KV handoff's, the host tier's and speculation's series
-    under theirs, and the engine's own
-    counters as ``torch_engine_*`` where the JAX engine says
+    pool's, the KV handoff's, the host tier's, speculation's and the
+    mixed carry's series under theirs, and the engine's own counters, the
+    goodput ledger, slot occupancy, MFU and MBU against the card's peaks
+    and the SLO gauges as ``torch_engine_*`` where the JAX engine says
     ``jax_engine_*``."""
     out: Dict[str, float] = {}
     tokens = steps = chunks = requests = 0
@@ -225,10 +279,13 @@ def engines_snapshot() -> Dict[str, float]:
     host_demote_bytes = host_promote_bytes = 0
     kv_host_hit_tokens = host_promote_aborts = 0
     spec_engines = spec_drafted = spec_accepted = 0
-    # "handoff_aborted": tokens whose KV handoff import aborted (pool
-    # pressure, a torn payload, a layout mismatch) and prefilled again
-    wasted: Dict[str, int] = dict.fromkeys(
-        ("evicted_recompute", "draft_rejected", "crash_replay", "handoff_aborted"), 0)
+    mixed_engines = mixed_chained = 0
+    active_slot_steps = total_slot_steps = useful_tokens = 0
+    decode_flops = decode_bytes = prefill_flops = 0.0
+    peaks: Optional[accounting.PeakSpecs] = None
+    wasted: Dict[str, int] = dict.fromkeys(WASTE_REASONS, 0)
+    # pre-seeded: every series exists before its first event
+    carry_invalidations: Dict[str, int] = dict.fromkeys(CARRY_INVALIDATIONS, 0)
     shed_engines = 0
     shed: Dict[str, int] = {"queue_timeout": 0}
     # snapshot-tolerant reads: a supervisor rebuild registers the new
@@ -246,8 +303,23 @@ def engines_snapshot() -> Dict[str, float]:
         session_hits += stats["session_hits"]
         prefix_hits += stats["prefix_hits"]
         prefix_tokens += stats["prefix_tokens_reused"]
+        active_slot_steps += stats["active_slot_steps"]
+        total_slot_steps += stats["decode_steps"] * engine.max_slots
+        useful_tokens += stats["tokens_useful"]
         for reason, count in stable_items(stats["tokens_wasted"]):
             wasted[reason] = wasted.get(reason, 0) + count
+        decode_flops += stats["decode_flops"]
+        decode_bytes += stats["decode_bytes"]
+        prefill_flops += stats["prefill_flops"]
+        peaks = engine.peaks
+        if engine.slo is not None:
+            # the targets are config: visible from the first scrape
+            out.update(engine.slo.gauges())
+        if engine.mixed:
+            mixed_engines += 1
+            mixed_chained += stats["mixed_steps_chained"]
+            for reason, count in stable_items(stats["mixed_carry_invalidations"]):
+                carry_invalidations[reason] = carry_invalidations.get(reason, 0) + count
         if engine.queue_timeout_s:
             shed_engines += 1
         for reason, count in stable_items(stats["requests_shed"]):
@@ -315,6 +387,12 @@ def engines_snapshot() -> Dict[str, float]:
         out["spec_tokens_drafted_total"] = float(spec_drafted)
         out["spec_tokens_accepted_total"] = float(spec_accepted)
         out["spec_acceptance_rate"] = round(spec_accepted / spec_drafted, 4) if spec_drafted else 0.0
+    if mixed_engines:
+        # the mixed-step carry's chains and their breaks by reason, from
+        # construction (process-wide: read deltas)
+        out["torch_engine_mixed_steps_chained_total"] = float(mixed_chained)
+        for reason, count in sorted(carry_invalidations.items()):
+            out[f'mixed_carry_invalidations_total{{reason="{reason}"}}'] = float(count)
     if shed_engines or any(shed.values()):
         # admission deadlines armed (or sheds already made)
         for reason, count in sorted(shed.items()):
@@ -337,8 +415,25 @@ def engines_snapshot() -> Dict[str, float]:
     out["torch_engine_prefill_time_seconds"] = round(prefill_time, 6)
     if steps:
         out["torch_engine_decode_ms_per_step"] = round(decode_time / steps * 1e3, 4)
+    if total_slot_steps:
+        out["torch_engine_slot_occupancy"] = round(active_slot_steps / total_slot_steps, 4)
+    # the goodput ledger: tokens useful, and wasted by reason
+    out["torch_engine_tokens_useful_total"] = float(useful_tokens)
     for reason, count in sorted(wasted.items()):
         out[f'torch_engine_tokens_wasted_total{{reason="{reason}"}}'] = float(count)
+    accounted = useful_tokens + sum(wasted.values())
+    if accounted:
+        out["torch_engine_goodput_ratio"] = round(useful_tokens / accounted, 4)
+    # roofline shares of all decode work so far: modeled FLOPs and bytes
+    # over the busy decode time (the union of pipelined chunks' intervals)
+    if peaks is not None and decode_time > 0:
+        out["torch_engine_mfu"] = round(accounting.CostModel.mfu(decode_flops, decode_time, peaks), 6)
+        out["torch_engine_mbu"] = round(accounting.CostModel.mbu(decode_bytes, decode_time, peaks), 6)
+    if peaks is not None and prefill_time > 0 and prefill_flops:
+        # prefill runs in its own calls and is bound by operations: a gauge
+        # of its own
+        out["torch_engine_prefill_mfu"] = round(
+            accounting.CostModel.mfu(prefill_flops, prefill_time, peaks), 6)
     return out
 
 
@@ -419,8 +514,12 @@ class GenerationRequest:
     # the replay prefill hits the prefix cache instead of recomputing it
     export_handoff: bool = False
     kv_import: Optional[Dict[str, Any]] = None
-    # the prefill replica's export stamp (wall seconds, from the manifest)
+    # the prefill replica's export stamp (wall seconds, from the manifest):
+    # the decode leg's journey starts with its handoff_transit stage
     handoff_export_ts: Optional[float] = None
+    # end-to-end trace context (the x-langstream-trace-id header, or one
+    # the server minted): tags the request's spans and its journey
+    trace_id: Optional[str] = None
 
     def cancel(self) -> None:
         self.cancelled = True
@@ -579,6 +678,9 @@ class DecodeEngine:
         queue_timeout_s: Optional[float] = None,  # admission deadline: a
                                           # request pending longer is shed
                                           # with QueueTimeoutError (None = off)
+        slo: Optional[Dict[str, float]] = None,  # p95 targets,
+                                          # {"ttft_ms_p95", "tpot_ms_p95"}:
+                                          # burn rates and blame on /metrics
     ) -> None:
         # chaos and evidence planes, as every JAX engine construction arms
         # them (a rebuilt engine re-arms the same spec; the arrival
@@ -714,6 +816,22 @@ class DecodeEngine:
             (max_slots, config.vocab_size), dtype=torch.int32, device=self.device
         )
         self.slots = [_Slot() for _ in range(max_slots)]
+        # the accounting plane: modeled FLOPs and bytes of every dispatch
+        # from the shape, the weights' and the cache's widths and the
+        # layout, over measured wall time and the card's peaks
+        self.peaks = accounting.PeakSpecs.from_env()
+        self.cost_model = accounting.CostModel.from_model_config(
+            config,
+            weight_quant="int8" if any(isinstance(p, QTensor) for p in self.params.values()) else None,
+            kv_quant=self.kv_quant,
+            kv_block_size=self.block_size if self.paged else 1,
+            paged_kernel=self.paged_kernel,
+        )
+        # SLO burn rates over the process-wide TTFT and TPOT histograms
+        self.slo = (accounting.SLOTracker(slo, {"ttft": TTFT_SECONDS, "tpot": TPOT_SECONDS})
+                    if slo else None)
+        # per-request spans (the no-op tracer unless LANGSTREAM_TRACE_DIR)
+        self.tracer = get_tracer("engine")
         # pinned sessions whose warm cache was evicted -> the history length
         # it held, so a follow-up's re-prefill is booked as recompute
         self._evicted_sessions: Dict[str, int] = {}
@@ -748,6 +866,8 @@ class DecodeEngine:
         # end of the latest processed chunk: pipelined chunks overlap, so
         # decode_time sums the union of their intervals
         self._decode_busy_until = 0.0
+        # end of the latest processed mixed step (0 after a plain chunk)
+        self._last_mixed_end = 0.0
         self.stats = self._fresh_stats()
         _LIVE_ENGINES.add(self)
         flight.record("engine_start", slots=max_slots, ctx=self.max_seq_len,
@@ -766,7 +886,15 @@ class DecodeEngine:
             "decode_token_steps": 0.0,
             "decode_time": 0.0,   # wall secs inside decode chunks and mixed
                                   # steps (the union of pipelined ones)
+            "active_slot_steps": 0,  # active slots summed over decode steps
             "tokens_generated": 0,
+            # the goodput ledger: tokens that reached a live caller (the
+            # wasted ones are in tokens_wasted)
+            "tokens_useful": 0,
+            # modeled work: decode chunks and mixed steps, and prefill calls
+            "decode_flops": 0.0,
+            "decode_bytes": 0.0,
+            "prefill_flops": 0.0,
             "prefill_time": 0.0,  # wall secs dispatching prefill calls and
                                   # waiting for them at harvest
             "ttft_time": 0.0,     # summed submit → first-token secs of
@@ -779,10 +907,7 @@ class DecodeEngine:
             # speculative decoding: drafted candidates, and those accepted
             "tokens_drafted": 0,
             "tokens_draft_accepted": 0,
-            # tokens computed for nothing, by reason: "evicted_recompute"
-            # (a follow-up re-prefilling its evicted session's rows),
-            # "draft_rejected" (drafts the verify pass rejected),
-            # "crash_replay" (a resurrected session's replay prefill)
+            # tokens computed for nothing, by reason (WASTE_REASONS)
             "tokens_wasted": {},
             # requests failed fast at their admission deadline, by reason
             "requests_shed": {},
@@ -886,7 +1011,10 @@ class DecodeEngine:
                 f"prompt of {len(request.prompt_tokens)} tokens exceeds the "
                 f"context limit of {limit} (max_seq_len {self.max_seq_len})"
             )
+        # durations from perf_counter; the wall twin places the journey's
+        # stages on a timeline other processes share
         request._submit_ts = time.perf_counter()  # type: ignore[attr-defined]
+        request._submit_wall = time.time()  # type: ignore[attr-defined]
         self._queue.put(request)
         if self._crashed is not None:
             # crashed between the check above and the put: the loop never
@@ -908,12 +1036,14 @@ class DecodeEngine:
         on_token: Optional[Callable[[int, bool], None]] = None,
         session_id: Optional[str] = None,
         handle: Optional[List[GenerationRequest]] = None,
+        trace_id: Optional[str] = None,
         request_fields: Optional[Dict[str, Any]] = None,
     ) -> GenerationResult:
         """Asyncio entry: submit and await the result. ``session_id`` pins
         the slot for the session's next turn. Pass ``handle`` (an empty
         list) to receive the live request, whose ``cancel()`` ends
-        generation at the next token boundary. ``request_fields`` sets
+        generation at the next token boundary. ``trace_id`` tags the
+        request's spans and journey. ``request_fields`` sets
         extra :class:`GenerationRequest` fields before submit: the
         disaggregation seam (``export_handoff`` on the prefill leg;
         ``kv_import``, ``replay_tokens`` and ``prompt_len`` on the decode
@@ -928,6 +1058,7 @@ class DecodeEngine:
             session_id=session_id,
             future=future,
             loop=loop,
+            trace_id=trace_id,
         )
         for name, value in (request_fields or {}).items():
             if not hasattr(request, name):
@@ -1493,16 +1624,23 @@ class DecodeEngine:
         keys, so the request's own admission, and any other admission
         sharing the prefix, hits the prefix cache instead of prefilling.
         A failed import bills ``handoff_aborted`` and the request
-        prefills cold, never a caller-visible error; so does a payload
-        sent to an engine with no prefix cache to import into (the dense
-        layout, or ``prefix_cache`` off), which the JAX engine ignores
-        without a count."""
+        prefills cold, never a caller-visible error. An engine with no
+        prefix cache to import into (the dense layout, or ``prefix_cache``
+        off) leaves the payload alone and bills nothing, as the JAX
+        engine: the request prefills cold. A successful import's window
+        is the journey's ``handoff_import`` stage, and its admission's
+        class ``handoff-import``."""
+        if not self.paged or not self.prefix_cache:
+            return
         for request in self._pending:
             if request.kv_import is not None:
                 payload, request.kv_import = request.kv_import, None
-                self._import_handoff(payload)
+                started = time.time()
+                if self._import_handoff(payload, trace_id=request.trace_id or ""):
+                    request._jt_import = (started, time.time())  # type: ignore[attr-defined]
+                    request._jt_admit_class = "handoff-import"  # type: ignore[attr-defined]
 
-    def _import_handoff(self, payload: Dict[str, Any]) -> bool:
+    def _import_handoff(self, payload: Dict[str, Any], trace_id: str = "") -> bool:
         manager = self.kv_manager
         tokens = list(payload.get("tokens") or [])
         arrays = payload.get("arrays") or {}
@@ -1511,13 +1649,12 @@ class DecodeEngine:
 
         def aborted(reason: str) -> bool:
             self._waste("handoff_aborted", len(tokens))
-            flight.record("kv_handoff_import_aborted", reason=reason, tokens=len(tokens))
+            flight.record("kv_handoff_import_aborted", reason=reason, tokens=len(tokens),
+                          trace_id=trace_id)
             return False
 
         if (
-            not self.paged
-            or not self.prefix_cache
-            or full <= 0
+            full <= 0
             or size != self.block_size
             or bool(payload.get("kv_quant", False)) != bool(self.kv_quant)
             or set(arrays) != set(self.cache)
@@ -1551,7 +1688,7 @@ class DecodeEngine:
         self.stats["handoff_import_bytes"] += int(nbytes)
         self.stats["handoff_import_tokens"] += len(tokens)
         flight.record("kv_handoff_import", tokens=len(tokens), blocks_written=len(fresh),
-                      blocks_local=len(chain), nbytes=int(nbytes))
+                      blocks_local=len(chain), nbytes=int(nbytes), trace_id=trace_id)
         return True
 
     # ------------------------------------------------------------------ #
@@ -1870,6 +2007,9 @@ class DecodeEngine:
                 manager.stats["hit_tokens"] += matched_tokens
             if promoted:
                 self.stats["prefix_tokens_reused"] += promoted * size
+                # the journey's admission class: the host tier served it
+                if getattr(request, "_jt_admit_class", None) is None:
+                    request._jt_admit_class = "host-promote"  # type: ignore[attr-defined]
             if self.prefix_cache and publish_cold and not matched_tokens and not promoted:
                 # publish a fully cold prompt's blocks now so same-round
                 # duplicates share them: the cold batch (or long prefill)
@@ -1887,7 +2027,13 @@ class DecodeEngine:
     def _assign_slot(self, index: int, request: GenerationRequest, reused: int = 0) -> None:
         """Reset a slot's bookkeeping for a newly admitted request;
         ``reused``: cache tokens this admission did not prefill (a
-        session, a prefix copy or a paged prefix hit)."""
+        session, a prefix copy or a paged prefix hit). Every admission
+        path passes here: it stamps the journey's queue → prefill boundary
+        and the admission class (unless a handoff import or a host
+        promotion classed it first)."""
+        request._admit_wall = time.time()  # type: ignore[attr-defined]
+        if getattr(request, "_jt_admit_class", None) is None:
+            request._jt_admit_class = "hbm-hit" if reused > 0 else "cold"  # type: ignore[attr-defined]
         slot = self.slots[index]
         if slot.session_id is not None and slot.session_id != request.session_id and slot.history:
             # a new owner evicts this pinned session's warm rows
@@ -2112,6 +2258,7 @@ class DecodeEngine:
             out = self._first_token([request for _, request in group], slot_ids, logits, lengths)
             self.stats["prefill_calls"] += 1
             self.stats["prefill_time"] += time.perf_counter() - started
+            self._charge_prefill(started, bucket, [(len(r.prompt_tokens), 0) for _, r in group])
             self._prefill_inflight.append({"group": list(group), "out": out,
                                            "epochs": self._epochs(group)})
 
@@ -2145,6 +2292,8 @@ class DecodeEngine:
             )
             self.stats["warm_prefill_calls"] += 1
             self.stats["prefill_time"] += time.perf_counter() - started
+            self._charge_prefill(started, bucket,
+                                 [(len(r.prompt_tokens) - reused, reused) for _, r, reused in group])
             pairs = [(index, request) for index, request, _ in group]
             self._prefill_inflight.append({
                 "group": pairs, "out": out, "epochs": self._epochs(pairs),
@@ -2165,7 +2314,8 @@ class DecodeEngine:
         self.slots[index].prefilling = True
         started = time.perf_counter()
         slot_ids = np.asarray([index], dtype=np.int64)
-        for offset, bucket in long_prefill_windows(len(prompt), reused, self.prefill_buckets):
+        windows = long_prefill_windows(len(prompt), reused, self.prefill_buckets)
+        for offset, bucket in windows:
             chunk = prompt[offset:offset + bucket]
             tokens = np.zeros((1, bucket), dtype=np.int64)
             tokens[0, : len(chunk)] = chunk
@@ -2175,9 +2325,30 @@ class DecodeEngine:
         out = self._first_token([request], slot_ids, logits, offsets + lengths)
         self.stats["warm_prefill_calls" if reused else "prefill_calls"] += 1
         self.stats["prefill_time"] += time.perf_counter() - started
+        # each window at its own offset (the shifted tail re-teaches a few
+        # rows: its padding is the overlap)
+        total = len(prompt)
+        self.stats["prefill_flops"] += sum(
+            self.cost_model.prefill_flops(min(bucket, total - offset), offset=offset)
+            for offset, bucket in windows)
+        self._waste("prefill_padding", sum(bucket for _, bucket in windows) - (total - reused))
         self._prefill_inflight.append({"group": [(index, request)], "out": out,
                                        "epochs": self._epochs([(index, request)]),
                                        "reused": {index: reused}})
+
+    def _charge_prefill(self, started: float, bucket: int, rows: List[Tuple[int, int]]) -> None:
+        """Book one batched prefill call's modeled FLOPs (each row's
+        ``(new tokens, offset)``), its bucket padding as waste, and its
+        ``prefill`` flight record."""
+        flops = sum(self.cost_model.prefill_flops(new, offset=offset) for new, offset in rows)
+        self.stats["prefill_flops"] += flops
+        live = sum(new for new, _ in rows)
+        self._waste("prefill_padding", len(rows) * bucket - live)
+        flight.record("prefill", bucket=bucket, batch=len(rows),
+                      warm=any(offset for _, offset in rows),
+                      reused_tokens=int(sum(offset for _, offset in rows)),
+                      wall_ms=round((time.perf_counter() - started) * 1e3, 3),
+                      queue_depth=len(self._pending), flops=flops)
 
     def _epochs(self, group: List[Tuple[int, GenerationRequest]]) -> List[int]:
         """The slots' epochs when a prefill record is made: the harvest
@@ -2258,7 +2429,8 @@ class DecodeEngine:
         # the first this engine produces for the request
         request._first_token_ts = time.perf_counter()  # type: ignore[attr-defined]
         self._waste("crash_replay", len(request.prompt_tokens) - reused)
-        flight.record("session_resume", slot=index, replayed=len(replay), reused_tokens=reused)
+        flight.record("session_resume", slot=index, replayed=len(replay), reused_tokens=reused,
+                      trace_id=request.trace_id or "")
         if request.cancelled:
             self._finish(index, "cancelled")
         elif (len(replay) >= request.sampling.max_new_tokens
@@ -2644,8 +2816,15 @@ class DecodeEngine:
         self._check_condemned()
         started = time.perf_counter()
         slots = self.max_slots
+        # the riders' (block-padded) contexts summed at dispatch: the cost
+        # model's attention and KV-read term
+        kv_tokens = 0
         if carry is not None:
             key, active, epochs = carry["key"], carry["active"], carry["epochs"]
+            # the JAX engine's estimate: the carried chunk advanced every
+            # rider by its steps (a block crossing, a stop inside the chunk
+            # and a spec step's extra tokens are not seen without a sync)
+            kv_tokens = carry["kv_tokens"] + int(active.sum()) * key.size
             # read here only: this chunk's replay overwrites them
             final = carry.pop("outputs")
             inputs = dict(carry["inputs"], tokens=final["final_tokens"],
@@ -2671,6 +2850,7 @@ class DecodeEngine:
                     active[i] = True
                     tokens[i] = slot.history[-1]
                     lengths[i] = slot.length + 1
+                    kv_tokens += self.cost_model.kv_read_tokens(slot.length + 1)
                     if history is not None:
                         history[i, : len(slot.history)] = slot.history
                     # a chunk writes cache positions up to length + steps
@@ -2687,6 +2867,15 @@ class DecodeEngine:
             if history is not None:
                 inputs["history"] = history
             key = Variant("spec" if self.spec else "decode", steps, tier)
+        # telemetry taken at dispatch: by processing time a rider's slot
+        # may hold another request. A chained chunk keeps its carry's
+        # (its riders are the same)
+        if carry is not None:
+            telemetry = carry["telemetry"]
+        elif self.tracer.enabled or flight.RECORDER.enabled:
+            telemetry = self._telemetry([i for i in range(slots) if active[i]])
+        else:
+            telemetry = {}
         inputs, outputs = self.steps.run(key, inputs)
         # counted here, on the host: a replay runs none of the body
         call = "verify_step" if self.spec else "decode_step"
@@ -2704,7 +2893,28 @@ class DecodeEngine:
             "epochs": epochs,
             "steps": key.size,
             "started": started,
+            "kv_tokens": kv_tokens,
+            "telemetry": telemetry,
         }
+
+    def _telemetry(self, riders: List[int]) -> Dict[str, Any]:
+        """A dispatch's flight and tracer fields, taken when it is
+        dispatched: its riders' trace ids, the queue depth and the KV
+        pressure (the pool's blocks on the paged layout)."""
+        out: Dict[str, Any] = {
+            "trace_ids": ",".join(self.slots[i].request.trace_id for i in riders
+                                  if self.slots[i].request is not None
+                                  and self.slots[i].request.trace_id),
+            "queue_depth": len(self._pending),
+        }
+        if self.paged:
+            in_use = self.kv_manager.blocks_in_use
+            out.update(kv_frac=round(in_use / float(self.num_blocks), 4), kv_blocks=in_use,
+                       prefix_hit_tokens=self.kv_manager.stats["hit_tokens"])
+        else:
+            out["kv_frac"] = round(sum(slot.length for slot in self.slots if slot.active)
+                                   / float(self.max_slots * self.max_seq_len), 4)
+        return out
 
     def _plan_windows(self, admitting: List[int]) -> Tuple[Dict[int, Tuple[int, int]], int]:
         """FIFO token-budget plan over admitting slot indices: ``{slot:
@@ -2827,12 +3037,17 @@ class DecodeEngine:
         decode_mask = np.zeros((slots,), dtype=bool)
         completes = np.zeros((slots,), dtype=bool)
         chain_mask = np.zeros((slots,), dtype=bool)
+        kv_tokens = 0          # the decode rows' (block-padded) context reads
+        prefill_kv_tokens = 0  # the windows' prefix and window reads
+        padding = 0
         for i, (pos, n) in plan.items():
             prompt = self.slots[i].request.prompt_tokens
             tokens[i, :n] = prompt[pos:pos + n]
             offsets[i] = pos
             num_tokens[i] = n
             completes[i] = pos + n == len(prompt)
+            padding += width - n
+            prefill_kv_tokens += self.cost_model.kv_read_tokens(pos + n)
         for i in riders:
             if chained:
                 chain_mask[i] = True
@@ -2842,10 +3057,15 @@ class DecodeEngine:
                 offsets[i] = self.slots[i].length
             num_tokens[i] = 1
             decode_mask[i] = True
+            kv_tokens += self.cost_model.kv_read_tokens(int(offsets[i]) + 1)
         # the windows are final once dispatched: advance the watermarks,
         # which the next step's plan (chained or fresh) starts from
         for i, (pos, n) in plan.items():
             self.slots[i].prefill_pos = pos + n
+        # the padded [S, W] grid's ghost positions behind short windows
+        self._waste("prefill_padding", padding)
+        telemetry = (self._telemetry(riders) if self.tracer.enabled or flight.RECORDER.enabled
+                     else {})
         step = dict(tokens=tokens, offsets=offsets, num_tokens=num_tokens, decode=decode_mask,
                     completes=completes, chain_mask=chain_mask)
         if chained:
@@ -2879,6 +3099,10 @@ class DecodeEngine:
             "num_tokens": num_tokens,
             "epochs": [slot.epoch for slot in self.slots],
             "started": started,
+            "kv_tokens": kv_tokens,
+            "prefill_kv_tokens": prefill_kv_tokens,
+            "prefill_tokens": int(sum(n for _, n in plan.values())),
+            "telemetry": telemetry,
         }
 
     def _busy_since(self, started: float, ended: float) -> float:
@@ -2896,16 +3120,33 @@ class DecodeEngine:
         as a ``stale_row`` invalidation."""
         sampled, lps, *tops = self._from_host(step["out"])
         ended = time.perf_counter()
+        wall = ended - step["started"]
         busy = self._busy_since(step["started"], ended)
-        self._note_step_time(ended - step["started"])
+        self._note_step_time(wall)
+        # the card's idle time since the previous mixed step was processed
+        # (a chained step's collapses)
+        gap_ms = max(0.0, step["started"] - self._last_mixed_end) * 1e3 if self._last_mixed_end else 0.0
+        self._last_mixed_end = ended
+        n_decode = int(step["decode_mask"].sum())
         self.stats["decode_steps"] += 1
         self.stats["decode_chunks"] += 1
         self.stats["decode_token_steps"] += 1.0
         self.stats["mixed_steps"] += 1
         self.stats["decode_time"] += busy
         self.stats["mixed_time"] += busy
+        self.stats["active_slot_steps"] += n_decode
         if step["chained"]:
             self.stats["mixed_steps_chained"] += 1
+        DECODE_STEP_SECONDS.observe(wall)
+        flops = self.cost_model.mixed_step_flops(n_decode, step["kv_tokens"], list(step["plan"].values()))
+        nbytes = self.cost_model.mixed_step_bytes(step["kv_tokens"] + step["prefill_kv_tokens"],
+                                                  n_decode + step["prefill_tokens"])
+        mfu, mbu = self._charge_decode(flops, nbytes, wall, n_decode or step["plan"])
+        if self.tracer.enabled or flight.RECORDER.enabled:
+            self._record_chunk(step, 1, n_decode, wall, mfu, mbu, mixed=1, width=step["width"],
+                               prefill_rows=len(step["plan"]),
+                               prefill_tokens=step["prefill_tokens"],
+                               chained=int(step["chained"]), gap_ms=round(gap_ms, 3))
         stale_rows = 0
         for i, slot in enumerate(self.slots):
             if slot.epoch != step["epochs"][i] or not slot.active:
@@ -2928,6 +3169,9 @@ class DecodeEngine:
                 else:
                     self._emit_token(i, int(sampled[i]), float(lps[i]), self._top(tops, i))
         if stale_rows:
+            # a chained step sampled for rows whose request ended while it
+            # was in flight: the discarded work goes to the ledger
+            self._waste("carry_invalidated", stale_rows)
             self._note_carry_invalidation("stale_row", stale_rows)
         # chaos: the engine thread dies after this step's tokens reached
         # their callers (the JAX engine's point)
@@ -2939,12 +3183,25 @@ class DecodeEngine:
         out, lps, *rest = self._from_host(chunk["out"])
         spec, tops = (rest[:2], rest[2:]) if self.spec else ([], rest)
         steps, active = chunk["steps"], chunk["active"]
+        # a plain chunk ends a run of mixed steps: the next one's gap does
+        # not span it
+        self._last_mixed_end = 0.0
         ended = time.perf_counter()
-        self._note_step_time((ended - chunk["started"]) / max(steps, 1))
+        wall = ended - chunk["started"]
+        self._note_step_time(wall / max(steps, 1))
         self.stats["decode_steps"] += steps
         self.stats["decode_chunks"] += 1
         self.stats["decode_time"] += self._busy_since(chunk["started"], ended)
         n_active = int(active.sum())
+        self.stats["active_slot_steps"] += n_active * steps
+        DECODE_STEP_SECONDS.observe(wall / max(steps, 1))
+        # a pipelined chunk shares wall time with its neighbour, so its own
+        # MFU can read high; the cumulative gauges divide by the busy union
+        flops = self.cost_model.decode_chunk_flops(steps, n_active, chunk["kv_tokens"],
+                                                   block=self.spec_block)
+        nbytes = self.cost_model.decode_chunk_bytes(steps, n_active, chunk["kv_tokens"],
+                                                    block=self.spec_block)
+        mfu, mbu = self._charge_decode(flops, nbytes, wall, n_active)
         # per accepted token: a spec step yields 1 + its accepted drafts
         self.stats["decode_token_steps"] += (
             int(spec[0][active].sum()) / n_active if spec and n_active else float(steps))
@@ -2957,6 +3214,9 @@ class DecodeEngine:
             self.stats["tokens_drafted"] += drafted_total
             self.stats["tokens_draft_accepted"] += accepted_total
             self._waste("draft_rejected", drafted_total - accepted_total)
+        if self.tracer.enabled or flight.RECORDER.enabled:
+            extra = dict(drafted=drafted_total, accepted=accepted_total) if spec else {}
+            self._record_chunk(chunk, steps, n_active, wall, mfu, mbu, **extra)
         for i, slot in enumerate(self.slots):
             if not active[i] or slot.epoch != chunk["epochs"][i]:
                 continue
@@ -2982,6 +3242,42 @@ class DecodeEngine:
         # exactly here (the JAX engine's point)
         faults.check("engine_thread_crash")
 
+    def _charge_decode(self, flops: float, nbytes: float, wall: float, observed) -> Tuple[float, float]:
+        """Book a decode chunk's or mixed step's modeled work; returns its
+        MFU and MBU over its own wall, observed in the per-chunk
+        histograms when ``observed`` (it ran rows)."""
+        self.stats["decode_flops"] += flops
+        self.stats["decode_bytes"] += nbytes
+        mfu = accounting.CostModel.mfu(flops, wall, self.peaks)
+        mbu = accounting.CostModel.mbu(nbytes, wall, self.peaks)
+        if observed:
+            MFU_PER_CHUNK.observe(mfu)
+            MBU_PER_CHUNK.observe(mbu)
+        return mfu, mbu
+
+    def _record_chunk(self, chunk: Dict[str, Any], steps: int, active: int, wall: float,
+                      mfu: float, mbu: float, **extra: Any) -> None:
+        """The ``engine.decode_chunk`` span (tagged with every rider's
+        trace id) and the ``decode_chunk`` flight record of a processed
+        decode chunk or mixed step, with the JAX engine's fields."""
+        # (empty when the sinks came on after this dispatch)
+        telemetry = chunk["telemetry"] or self._telemetry([])
+        step_ms = round(wall / max(steps, 1) * 1e3, 3)
+        self.tracer.event("engine.decode_chunk", wall, start_wall=time.time() - wall,
+                          trace_ids=telemetry["trace_ids"], steps=steps, active=active,
+                          step_ms=step_ms, mfu=round(mfu, 6), mbu=round(mbu, 6))
+        fields: Dict[str, Any] = {}
+        if self.paged:
+            fields = dict(kv_blocks_in_use=telemetry["kv_blocks"], kv_blocks_total=self.num_blocks,
+                          prefix_hit_tokens=telemetry["prefix_hit_tokens"])
+        flight.record("decode_chunk", steps=steps, active=active, slots=self.max_slots,
+                      step_ms=step_ms, queue_depth=telemetry["queue_depth"],
+                      kv_frac=telemetry["kv_frac"], tokens=self.stats["tokens_generated"],
+                      mfu=round(mfu, 6), mbu=round(mbu, 6),
+                      tokens_useful=self.stats["tokens_useful"],
+                      tokens_wasted=sum(self.stats["tokens_wasted"].values()),
+                      **fields, **extra)
+
     def _note_step_time(self, step_s: float) -> None:
         """The EWMA seconds per decode step (the Retry-After of a shed)."""
         self._step_ewma = step_s if self._step_ewma is None else 0.8 * self._step_ewma + 0.2 * step_s
@@ -2993,7 +3289,10 @@ class DecodeEngine:
         slot = self.slots[index]
         request = slot.request
         if not slot.generated:
+            # the TTFT anchor, and its wall twin: the journey's prefill →
+            # decode boundary
             request._first_token_ts = time.perf_counter()  # type: ignore[attr-defined]
+            request._first_token_wall = time.time()  # type: ignore[attr-defined]
         slot.generated.append(token)
         slot.logprobs.append(logprob)
         if slot.tops is not None:
@@ -3041,9 +3340,35 @@ class DecodeEngine:
             top_logprobs=tops,
         )
         self.stats["requests"] += 1
-        submitted = getattr(request, "_submit_ts", None)
-        if submitted is not None:
-            self.stats["ttft_time"] += request._first_token_ts - submitted
+        # the goodput ledger: a cancelled request's tokens were decoded for
+        # a caller that stopped listening
+        if reason == "cancelled":
+            self._waste("cancelled", len(generated))
+        else:
+            self.stats["tokens_useful"] += len(generated)
+        # per-request latency, always: the SLO burn rates must not depend
+        # on a tracer
+        now = time.perf_counter()
+        submit_ts = getattr(request, "_submit_ts", now)
+        first_ts = getattr(request, "_first_token_ts", now)
+        self.stats["ttft_time"] += first_ts - submit_ts
+        ttft_ms = round((first_ts - submit_ts) * 1e3, 3)
+        tpot_ms = round((now - first_ts) / (len(generated) - 1) * 1e3, 3) if len(generated) > 1 else 0.0
+        TTFT_SECONDS.observe(max(0.0, ttft_ms / 1e3))
+        if len(generated) > 1:
+            TPOT_SECONDS.observe(max(0.0, tpot_ms / 1e3))
+        REQUEST_SECONDS.observe(max(0.0, now - submit_ts))
+        if self.slo is not None:
+            self.slo.tick()
+        if self.tracer.enabled or flight.RECORDER.enabled:
+            tid = request.trace_id or ""
+            self.tracer.event("engine.request", max(0.0, now - submit_ts), trace_id=tid,
+                              start_wall=getattr(request, "_submit_wall", time.time()), slot=index,
+                              prompt_tokens=len(request.prompt_tokens), tokens=len(generated),
+                              finish_reason=reason, ttft_ms=ttft_ms, tpot_ms=tpot_ms)
+            flight.record("request", trace_id=tid, prompt_tokens=len(request.prompt_tokens),
+                          tokens=len(generated), finish_reason=reason, ttft_ms=ttft_ms,
+                          tpot_ms=tpot_ms)
         slot.request = None
         slot.prefilling = False
         slot.prefill_pos = None
@@ -3070,7 +3395,10 @@ class DecodeEngine:
                 if request.export_handoff and reason != "cancelled":
                     # disaggregation prefill leg: gather the chain just
                     # published while the slot's refs still pin it
+                    started = time.time()
                     result.kv_handoff = self._export_handoff(slot, history)
+                    if result.kv_handoff is not None:
+                        request._jt_export = (started, time.time())  # type: ignore[attr-defined]
             if slot.session_id is not None:
                 # a pinned session holds only the blocks its history
                 # fills, not its worst-case reservation
@@ -3093,8 +3421,62 @@ class DecodeEngine:
                 slot.history = history
             else:
                 slot.length = 0
+        self._emit_journey(index, request, reason, len(generated), ttft_ms)
         if request.future is not None:
             self._post_future(request, result)
+
+    def _emit_journey(self, index: int, request: GenerationRequest, reason: str, tokens: int,
+                      ttft_ms: float) -> None:
+        """This leg's journey stages on the wall clock, tiled by
+        construction (``journey.StageBuilder``): the per-stage histograms
+        and the SLO blame always, the ``journey`` flight record and the
+        per-stage spans when those sinks are on (the JAX engine's)."""
+        now_wall = time.time()
+        submit_wall = getattr(request, "_submit_wall", now_wall)
+        admit_wall = getattr(request, "_admit_wall", submit_wall)
+        first_wall = getattr(request, "_first_token_wall", None)
+        import_window = getattr(request, "_jt_import", None)
+        export_window = getattr(request, "_jt_export", None)
+        admit_class = getattr(request, "_jt_admit_class", None) or "cold"
+        builder = journey_ledger.StageBuilder()
+        if request.handoff_export_ts is not None:
+            # the decode leg of a handoff: the prefill replica's export
+            # stamp to this submit is the fabric's and the assembler's time
+            builder.add("handoff_transit", request.handoff_export_ts, submit_wall)
+        builder.add("queue", submit_wall, import_window[0] if import_window else admit_wall)
+        if import_window:
+            builder.add("handoff_import", import_window[0], import_window[1])
+        builder.add("admit", admit_wall, admit_wall, admit_class=admit_class)
+        builder.add("prefill", admit_wall, first_wall if first_wall is not None else admit_wall)
+        decode_end = export_window[0] if export_window else now_wall
+        builder.add("decode", first_wall if first_wall is not None else admit_wall, decode_end)
+        if export_window:
+            builder.add("handoff_export", export_window[0], export_window[1])
+        builder.add("finish", export_window[1] if export_window else decode_end, now_wall,
+                    finish_reason=reason)
+        stages = builder.stages
+        journey_ledger.observe_stages(stages)
+        if self.slo is not None and self.slo.targets_s:
+            ttft_target = self.slo.targets_s.get("ttft")
+            if ttft_target is not None and ttft_ms / 1e3 > ttft_target:
+                self.slo.attribute("ttft", journey_ledger.blame_stage(stages, first_wall, "ttft"))
+            tpot_target = self.slo.targets_s.get("tpot")
+            if (tpot_target is not None and tokens > 1 and first_wall is not None
+                    and (decode_end - first_wall) / (tokens - 1) > tpot_target):
+                self.slo.attribute("tpot", journey_ledger.blame_stage(stages, first_wall, "tpot"))
+        if not (self.tracer.enabled or flight.RECORDER.enabled):
+            return
+        tid = request.trace_id or ""
+        flight.record("journey", trace_id=tid, session_id=request.session_id or "", slot=index,
+                      finish_reason=reason, tokens=tokens, admit_class=admit_class,
+                      first_token=first_wall, ttft_ms=ttft_ms,
+                      e2e_ms=round((now_wall - stages[0]["start"]) * 1e3, 3), stages=stages)
+        if self.tracer.enabled and tid:
+            replica = flight.get_identity().get("replica", "")
+            for stage in stages:
+                self.tracer.event(f"engine.journey.{stage['stage']}", stage["end"] - stage["start"],
+                                  trace_id=tid, start_wall=stage["start"], slot=index,
+                                  replica=replica)
 
     def _resolve_cancelled(self, request: GenerationRequest) -> None:
         """Resolve a request cancelled before it reached a slot."""

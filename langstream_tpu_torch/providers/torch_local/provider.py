@@ -50,7 +50,12 @@ engine starts (the JAX engine's ``precompile``). ``spec-decode: ngram``
 drafts ``spec-k`` tokens a decode step from each slot's own history
 (matching its trailing ``spec-ngram`` tokens) and verifies them in one
 model call. A request's ``session-id`` option (the OpenAI ``session_id``
-or ``user`` field) pins its KV rows for the session's next turn.
+or ``user`` field) pins its KV rows for the session's next turn, and its
+``trace-id`` option (the server's ``x-langstream-trace-id``) tags its
+spans and journey. ``slo: {ttft-ms-p95: 200, tpot-ms-p95: 30}`` (either
+target optional; a zero one is dropped) exports the SLO's burn rates over
+5 minutes and an hour and the violating requests' blame by journey stage
+on ``/metrics`` (``runtime/accounting.py``).
 
 The engine supervisor (``runtime/supervisor.py``) is on by default, as in
 the JAX provider: a crash of the engine thread, or a watchdog
@@ -135,7 +140,6 @@ def _on(value: Any) -> bool:
 # they raise: served as if absent, a config would get another engine than
 # the one it asked for (``mesh`` would not shard).
 UNPORTED_KEYS = {
-    "slo": lambda value: any((value or {}).values()),  # JAX drops zero targets
     "mesh": bool,
 }
 
@@ -268,6 +272,11 @@ class TorchCompletionsService(CompletionsService):
                 float(engine_config["queue-timeout-s"])
                 if engine_config.get("queue-timeout-s") else None
             ),
+            # SLO targets (`slo: {ttft-ms-p95: 200, tpot-ms-p95: 30}`, a
+            # zero target dropped, as in the JAX provider): burn rates and
+            # per-stage blame on /metrics
+            slo={str(key).replace("-", "_"): float(value)
+                 for key, value in (config.get("slo") or {}).items() if value} or None,
         )
         precompile = _on(engine_config.get("precompile", ""))
         weights = {"params": params}
@@ -486,6 +495,7 @@ class TorchCompletionsService(CompletionsService):
             on_token=on_token,
             session_id=options.get("session-id"),
             handle=handle,
+            trace_id=str(options["trace-id"]) if options.get("trace-id") else None,
         )
         if stop_cut:
             text = "".join(released_parts)

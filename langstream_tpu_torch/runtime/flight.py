@@ -1,14 +1,26 @@
 """Engine flight recorder — crash-surviving evidence on disk.
 
-The port's own copy of ``langstream_tpu/runtime/flight.py``, without the
-fleet identity stamp (the port serves no fleet yet). A bounded in-memory
-ring of samples, flushed periodically and at a crash or exit to a JSONL
-artifact, so a serve run that dies leaves on-disk evidence of why.
+The port's own copy of ``langstream_tpu/runtime/flight.py``. A bounded
+in-memory ring of samples, flushed periodically and at a crash or exit to
+a JSONL artifact, so a serve run that dies leaves on-disk evidence of
+why, and ``tools/ab_analyze.py`` and the journey ledger
+(``runtime/journey.py``) have the per-dispatch series to digest.
 
 One artifact per process under ``<dir>/flight_<utc>_<pid>.jsonl``; each
 line is ``{"ts": <epoch s>, "kind": <sample kind>, ...fields}``, the
 first a ``meta`` record. Kinds the port writes:
 
+- ``engine_start``      — engine built: slots, ctx, layout, device
+- ``prefill``           — one prefill call: bucket, batch, warm, reused
+  tokens, wall_ms, queue depth, modeled flops
+- ``decode_chunk``      — one decode chunk or mixed step (``mixed``=1):
+  steps, active, slots, step_ms, queue depth, kv_frac, cumulative tokens,
+  the chunk's MFU and MBU, the goodput ledger's running totals
+- ``request``           — one finished request: trace_id, tokens,
+  finish_reason, ttft_ms, tpot_ms
+- ``journey``           — one finished request leg's stages
+  (``runtime/journey.py``), joined by ``python -m langstream_tpu_torch
+  journey``
 - ``engine_crash``      — the engine loop died: error repr
 - ``engine_stop``       — clean engine shutdown and its counters
 - ``fault_injected``    — a deterministic chaos fault fired
@@ -22,6 +34,10 @@ first a ``meta`` record. Kinds the port writes:
   deadline: waited_s, queue_depth, retry_after_s
 - ``watchdog_trip`` / ``watchdog_escalation`` / ``watchdog_capture`` —
   the decode-stall watchdog (``runtime/watchdog.py``)
+
+The ``meta`` record also carries ``replica`` and ``fleet_role`` once
+:func:`set_identity` has stamped the process (``serve`` stamps its host
+name), so the journey ledger tells the replicas of a fleet apart.
 
 Disabled (the default) a record is one ``if``; enable it with
 :func:`configure` or the ``LANGSTREAM_FLIGHT_DIR`` environment variable
@@ -50,6 +66,8 @@ class FlightRecorder:
         # read is the disabled gate
         self.path: Optional[str] = None
         self.dropped = 0
+        # the process's replica id and role, stamped into the meta record
+        self.identity: Dict[str, str] = {}
         self._pending: Deque[Dict[str, Any]] = deque(maxlen=capacity)
         self._lock = threading.Lock()
         self._last_flush = 0.0
@@ -72,9 +90,26 @@ class FlightRecorder:
             if not self._atexit_registered:
                 self._atexit_registered = True
                 atexit.register(self.flush)
-        self.record("meta", pid=os.getpid(), run_id=run_id or "", argv=" ".join(sys.argv[:4]))
+            identity = dict(self.identity)
+        self.record("meta", pid=os.getpid(), run_id=run_id or "", argv=" ".join(sys.argv[:4]),
+                    **identity)
         self.flush()
         return self.path
+
+    def set_identity(self, replica: Optional[str], fleet_role: Optional[str] = None) -> None:
+        """Stamp this process's replica id and role. Before
+        :meth:`configure` it rides the artifact's first ``meta`` record;
+        after, a further ``meta`` record carries it (readers take the last
+        value seen)."""
+        with self._lock:
+            if replica:
+                self.identity["replica"] = str(replica)
+            if fleet_role:
+                self.identity["fleet_role"] = str(fleet_role)
+            identity = dict(self.identity)
+            enabled = self.path is not None
+        if enabled and identity:
+            self.record("meta", pid=os.getpid(), **identity)
 
     def record(self, kind: str, **fields: Any) -> None:
         """Append one sample; a no-op when disabled. Flushes when
@@ -125,6 +160,15 @@ def configure_from_env() -> Optional[str]:
     if directory and not RECORDER.enabled:
         return RECORDER.configure(directory)
     return RECORDER.path
+
+
+def set_identity(replica: Optional[str], fleet_role: Optional[str] = None) -> None:
+    RECORDER.set_identity(replica, fleet_role)
+
+
+def get_identity() -> Dict[str, str]:
+    with RECORDER._lock:
+        return dict(RECORDER.identity)
 
 
 def record(kind: str, **fields: Any) -> None:

@@ -13,8 +13,20 @@ Port of ``langstream_tpu/serving/openai_api.py`` (an aiohttp app there):
 - ``GET /v1/models`` and ``GET /healthz``.
 - ``GET /metrics`` — Prometheus text from the injected ``gauges`` and
   ``histograms`` providers (``serve`` injects the engine's
-  ``engines_snapshot`` / ``engines_histograms``: the engine gauges, the
-  supervisor's recovery series, the sheds and the watchdog's trips).
+  ``engines_snapshot`` / ``engines_histograms``: the engine gauges, MFU
+  and MBU, the goodput ledger, the SLO burn rates and blame, the latency
+  and journey-stage histograms, the supervisor's recovery series, the
+  sheds and the watchdog's trips).
+- ``GET /debug/profile?seconds=N`` — one ``torch.profiler`` capture of N
+  seconds (default 3, at most 60) while serving goes on
+  (``runtime/tracing.capture``): ``{"path", "seconds"}`` names the
+  directory holding ``trace.json`` and ``device_memory.json``; 400 on a
+  bad ``seconds``, 409 while another capture runs.
+
+A completion's trace id is the client's ``x-langstream-trace-id`` header,
+else the body's ``trace_id``, else one minted here; it reaches the engine
+as the ``trace-id`` option (the request's spans and journey carry it) and
+is echoed in the response's ``x-langstream-trace-id`` header.
 
 A typed :class:`~langstream_tpu_torch.api.errors.UnavailableError` (the
 engine rebuilding after a crash, a request shed at its queue deadline)
@@ -49,10 +61,12 @@ import time
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, List, Optional, Tuple
+from urllib.parse import parse_qs, urlsplit
 
 from langstream_tpu_torch.api import errors as api_errors
 from langstream_tpu_torch.api.metrics import prometheus_text
 from langstream_tpu_torch.api.service import ChatMessage
+from langstream_tpu_torch.runtime import tracing
 
 logger = logging.getLogger(__name__)
 
@@ -216,11 +230,14 @@ class OpenAIApiServer:
 
     # ------------------------------------------------------------------ #
     @staticmethod
-    def _json(handler: BaseHTTPRequestHandler, status: int, payload: Dict[str, Any]) -> None:
+    def _json(handler: BaseHTTPRequestHandler, status: int, payload: Dict[str, Any],
+              headers: Optional[Dict[str, str]] = None) -> None:
         data = json.dumps(payload, ensure_ascii=False).encode()
         handler.send_response(status)
         handler.send_header("Content-Type", "application/json")
         handler.send_header("Content-Length", str(len(data)))
+        for name, value in (headers or {}).items():
+            handler.send_header(name, value)
         handler.end_headers()
         handler.wfile.write(data)
 
@@ -259,8 +276,30 @@ class OpenAIApiServer:
                 "id": self.model, "object": "model",
                 "created": int(time.time()), "owned_by": "langstream-tpu",
             }]})
+        elif urlsplit(handler.path).path == "/debug/profile":
+            self._profile(handler)
         else:
             self._error(handler, 404, f"no route {handler.path}")
+
+    def _profile(self, handler: BaseHTTPRequestHandler) -> None:
+        """One profiler capture while serving goes on (this handler's
+        thread sleeps through it); a concurrent one gets 409."""
+        query = parse_qs(urlsplit(handler.path).query)
+        try:
+            seconds = float(query.get("seconds", ["3"])[0])
+        except ValueError:
+            self._error(handler, 400, "seconds must be a number")
+            return
+        try:
+            # capture() checks the range itself
+            path = tracing.capture(seconds)
+        except ValueError as error:
+            self._error(handler, 400, str(error))
+            return
+        except tracing.ProfileBusyError as error:
+            self._json(handler, 409, {"error": {"message": str(error), "type": "conflict"}})
+            return
+        self._json(handler, 200, {"path": path, "seconds": seconds})
 
     def _post(self, handler: BaseHTTPRequestHandler) -> None:
         if handler.path == "/v1/chat/completions":
@@ -299,6 +338,11 @@ class OpenAIApiServer:
             self._error(handler, 400, parsed)
             return
         messages, prompt_texts, options, n = parsed
+        # the trace context: the client's id, else one minted here; echoed
+        # back so the client can find the request's journey
+        trace_id = str(handler.headers.get(tracing.HTTP_TRACE_HEADER) or body.get("trace_id")
+                       or tracing.new_trace_id())
+        options["trace-id"] = trace_id
         created = int(time.time())
         completion_id = ("chatcmpl-" if chat else "cmpl-") + uuid.uuid4().hex
 
@@ -341,7 +385,7 @@ class OpenAIApiServer:
                 choice["logprobs"] = _logprobs_block(result, options, chat)
             choices.append(choice)
         completion_tokens = sum(r.completion_tokens for r in results)
-        self._json(handler, 200, {
+        self._json(handler, 200, headers={tracing.HTTP_TRACE_HEADER: trace_id}, payload={
             "id": completion_id,
             "object": "chat.completion" if chat else "text_completion",
             "created": created,
@@ -479,6 +523,7 @@ class OpenAIApiServer:
             handler.send_header("Content-Type", "text/event-stream")
             handler.send_header("Cache-Control", "no-cache")
             handler.send_header("Connection", "close")
+            handler.send_header(tracing.HTTP_TRACE_HEADER, options["trace-id"])
             handler.end_headers()
             if chat:
                 write(frame({"index": 0, "delta": {"role": "assistant", "content": ""},

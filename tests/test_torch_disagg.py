@@ -475,20 +475,27 @@ def test_jax_exported_records_import_into_the_port(weights, jax_streams):
                          ids=["dense", "no-prefix-cache"])
 def test_import_without_a_prefix_cache_is_counted(weights, overrides):
     """An engine with no prefix cache to import into (the dense layout, or
-    ``prefix_cache`` off) bills the payload as ``handoff_aborted``, not a
-    silent drop, and the replay prefills cold with the same stream."""
-    eng = _port_engine(weights, **overrides)
-    try:
-        layers = eng.config.num_layers
-        arrays = {leaf: torch.zeros((layers, 16, 16, *value.shape[3:]), dtype=value.dtype)
-                  for leaf, value in eng.cache.items()}
-        payload = {"tokens": PROMPT[:256], "arrays": arrays, "block_size": 16, "kv_quant": False}
-        want = _run(eng, PROMPT, GREEDY)
-        fields = {"replay_tokens": want.tokens[:2], "prompt_len": len(PROMPT)}
-        got = _run(eng, PROMPT + want.tokens[:1], GREEDY,
-                   request_fields=dict(fields, kv_import=payload))
-        assert got.tokens == want.tokens
-        assert eng.stats["tokens_wasted"]["handoff_aborted"] == 256
-        assert eng.stats["handoff_imports"] == 0
-    finally:
-        eng.stop()
+    ``prefix_cache`` off) leaves the payload alone and bills nothing, as
+    the JAX engine does (its ``_import_pending_handoffs`` returns before
+    its loop), so the two packages' ``/metrics`` agree; the replay
+    prefills cold with the same stream."""
+    jcfg, jparams, _, _ = weights
+    counts = {}
+    for package in ("port", "jax"):
+        eng = (_port_engine(weights, **overrides) if package == "port" else
+               jax_engine.DecodeEngine(jcfg, jparams, **dict(ENGINE_ARGS, **overrides)))
+        try:
+            layers = jcfg.num_layers
+            arrays = {leaf: np.zeros((layers, 16, 16, *value.shape[3:]), dtype=np.float32)
+                      for leaf, value in eng.cache.items()}
+            payload = {"tokens": PROMPT[:256], "arrays": arrays, "block_size": 16, "kv_quant": False}
+            want = _run(eng, PROMPT, GREEDY)
+            fields = {"replay_tokens": want.tokens[:2], "prompt_len": len(PROMPT)}
+            got = _run(eng, PROMPT + want.tokens[:1], GREEDY,
+                       request_fields=dict(fields, kv_import=payload))
+            assert got.tokens == want.tokens
+            counts[package] = (eng.stats["tokens_wasted"].get("handoff_aborted", 0),
+                               eng.stats["handoff_imports"])
+        finally:
+            eng.stop()
+    assert counts["port"] == counts["jax"] == (0, 0)

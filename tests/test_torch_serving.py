@@ -181,7 +181,7 @@ def _imports(path):
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     files = sorted((REPO / "langstream_tpu_torch").rglob("*.py"))
-    files.append(REPO / "chip_smoke.py")
+    files += [REPO / "chip_smoke.py", REPO / "serve_ab.py"]
     assert len(files) > 10
     for path in files:
         for name in _imports(path):
@@ -272,13 +272,15 @@ def test_provider_refuses_int8_weights():
 # one value other than the JAX default for each key the JAX provider
 # honours and the port does not serve yet: (where, key, value)
 UNPORTED = [
-    ("top", "slo", {"ttft-ms-p95": 200}),
     ("top", "mesh", {"tp": 2}),
 ]
-# keys the port serves since the self-healing slice (and kv-host-blocks
-# since the host-tier slice), each with a value other than the JAX default
-# and the check that the service honours it
+# keys the port serves since the self-healing slice (kv-host-blocks since
+# the host-tier slice, slo since the accounting slice), each with a value
+# other than the JAX default and the check that the service honours it
 HONOURED = {
+    "slo": ({"ttft-ms-p95": 200, "tpot-ms-p95": 0},
+            lambda service: service.engine.slo is not None
+            and service.engine.slo.targets_s == {"ttft": 0.2}),
     "kv-host-blocks": (64, lambda service: service.engine.kv_host_blocks == 64
                        and service.engine.kv_host_arena.capacity_blocks == 64
                        and service.engine.kv_manager.host is service.engine.kv_host_arena),
@@ -300,7 +302,10 @@ DEFAULTS = {
 }
 # the other engine keys a honoured key needs (the host tier is paged only)
 NEEDS = {"kv-host-blocks": {"kv-layout": "paged"}}
-CASES = [("engine", key, value) for key, (value, _) in HONOURED.items()] + UNPORTED
+# honoured keys at the config's top level, not under ``engine``
+TOP_LEVEL = {"slo"}
+CASES = [("top" if key in TOP_LEVEL else "engine", key, value)
+         for key, (value, _) in HONOURED.items()] + UNPORTED
 
 
 @pytest.mark.parametrize(
@@ -308,14 +313,15 @@ CASES = [("engine", key, value) for key, (value, _) in HONOURED.items()] + UNPOR
     ids=[key for _, key, _ in CASES] + ["defaults-serve"],
 )
 def test_provider_refuses_keys_it_does_not_port(where, key, value):
-    """Each key the JAX provider honours and the port does not raises
-    when set to a non-default value, instead of being served as if it were
-    absent; the keys the port serves since the self-healing slice
+    """Each key the JAX provider honours and the port does not (``mesh``)
+    raises when set to a non-default value, instead of being served as if
+    it were absent; the keys the port serves since the self-healing slice
     (``watchdog``, ``queue-timeout-s``, ``max-restarts``,
-    ``restart-window-s``) and the host-tier slice (``kv-host-blocks``)
-    reach the service: the watchdog built and watching the engine, the
-    engine's admission deadline, the supervisor's restart budget and
-    window, the host arena attached to the paged pool; the defaults,
+    ``restart-window-s``), the host-tier slice (``kv-host-blocks``) and
+    the accounting slice (``slo``) reach the service: the watchdog built
+    and watching the engine, the engine's admission deadline, the
+    supervisor's restart budget and window, the host arena attached to the
+    paged pool, the SLO tracker with its nonzero target; the defaults,
     spelled out, still serve."""
     config = {"model": {"preset": "tiny", "max_seq_len": 64}, **DEFAULTS,
               "engine": dict(DEFAULTS["engine"])}
@@ -324,9 +330,11 @@ def test_provider_refuses_keys_it_does_not_port(where, key, value):
         try:
             result = asyncio.run(service.get_text_completions(["once"], {"max-tokens": 3}))
             assert result.completion_tokens == 3
-            # the defaults: supervised, no watchdog, no deadline
+            # the defaults: supervised, no watchdog, no deadline, no SLO
+            # (a zero target is dropped)
             assert service.supervisor is not None and service.watchdog is None
             assert service.engine.queue_timeout_s is None
+            assert service.engine.slo is None
         finally:
             service.close()
         return
