@@ -227,6 +227,30 @@ Phases (any failure propagates and the exit code is not 0):
    demotion's host ms per block, promotion ms and GB/s, prompt 2's TTFT
    promoted, cold and as an HBM hit.
 
+13. Training (no kernel of its own: the differentiable forward keeps the
+   plain attention, as the JAX package's does; serving the trained
+   checkpoint runs B1 and B2). ``llama3_1b`` (Llama-3.2-1B's shape) at 2
+   layers and full width, one loss and its gradients in bf16 on the card
+   against the port in f32 on the CPU from the same weights (B 2 × T
+   128): the loss within 1e-2 relative, each leaf's gradient at cosine
+   0.99 or more. Then at full depth, B 4 × T 1024 with one row padded to
+   half, ``Trainer`` with AdamW at lr 1e-3 and remat, 6 steps on one
+   batch: every loss finite, the sixth below the first; printed: the
+   losses, each step's ms and the median, tokens/s, the peak, the step's
+   model FLOPs (and with the recompute) against 989 TFLOP/s; one step
+   without remat beside it. ``save_checkpoint`` after step 3 into
+   ``build/train-checkpoint`` with step 4 run at once: the ms until
+   ``save`` returns and until the write is committed, and GB/s; the
+   kernels of one remat step by device time (``torch.profiler``). A fresh
+   ``Trainer`` (seed 1) restores step 3: every parameter and Adam moment
+   bit for bit the step-3 state, its next loss within 1e-3 of step 4's.
+   ``TorchCompletionsService`` over the directory (dense, pipelined,
+   graphs): its params bit for bit the trainer's, four greedy text
+   completions, one at a time, equal to an engine built over the
+   trainer's step-3 tensors, and B1 and B2 launched by their card
+   counters, zeroed before the service and read after it. The directory
+   is removed at the end; the phase's wall time is printed.
+
 The accounting plane rides the phases above, with no server of its own.
 The flight recorder is on for the whole run (``build/flight``, as
 ``serve`` turns it on), and every burst's requests carry their own trace
@@ -269,10 +293,10 @@ import gc
 import http.server
 import io
 import json
+import math
 import os
 import re
 import shutil
-import struct
 import subprocess
 import sys
 import threading
@@ -326,6 +350,7 @@ from langstream_tpu_torch.runtime import accounting, flight
 from langstream_tpu_torch.runtime import journey as journey_lib
 from langstream_tpu_torch.providers.torch_local.engine import long_prefill_windows
 from langstream_tpu_torch.providers.torch_local.graphs import capture
+from langstream_tpu_torch.providers.torch_local.weights import write_safetensors
 from langstream_tpu_torch.providers.torch_local.quant import (
     QUANTIZED_PARAMS,
     QTensor,
@@ -449,13 +474,9 @@ def entry(name, worst_abs, kernel_ms, plain_ms, bound_ms, bound_by, library_ms) 
 
 
 # ---------------------------------------------------------------------- #
-# a HuggingFace checkpoint of the port's params, written without the
-# safetensors package: the script needs only torch and numpy
+# a HuggingFace checkpoint of the port's params, written by the port's
+# own safetensors writer: the script needs only torch and numpy
 # ---------------------------------------------------------------------- #
-SAFETENSORS_NAMES = {torch.bfloat16: "BF16", torch.float16: "F16", torch.float32: "F32",
-                     torch.int64: "I64"}
-
-
 def hf_tensors(config, params):
     """(HF name, tensor) of the port's params in a HF Llama (Qwen-2 with
     biases) checkpoint's layout: each layer's ``[in, out]`` matrix as the
@@ -479,31 +500,6 @@ def hf_tensors(config, params):
     yield "model.norm.weight", params["final_norm"]
     if not config.tie_embeddings:
         yield "lm_head.weight", params["lm_head"].t()
-
-
-def write_safetensors(path, tensors) -> int:
-    """One safetensors file of ``tensors`` ((name, tensor) pairs, on any
-    device): the 8-byte little-endian length of a JSON header giving each
-    tensor's dtype, shape and byte range from the header's end (padded
-    with spaces to 8 bytes, as the package pads it), then each tensor's
-    bytes in order, copied to the host one at a time. Returns the bytes
-    written."""
-    header, offset = {"__metadata__": {"format": "pt"}}, 0
-    for name, tensor in tensors:
-        nbytes = tensor.numel() * tensor.element_size()
-        header[name] = {"dtype": SAFETENSORS_NAMES[tensor.dtype], "shape": list(tensor.shape),
-                        "data_offsets": [offset, offset + nbytes]}
-        offset += nbytes
-    raw = json.dumps(header, separators=(",", ":")).encode()
-    raw += b" " * (-len(raw) % 8)
-    with open(path, "wb") as fh:
-        fh.write(struct.pack("<Q", len(raw)))
-        fh.write(raw)
-        for _, tensor in tensors:
-            host = tensor.contiguous().cpu()
-            fh.write(memoryview(host.view(torch.uint8).numpy()))
-            del host
-    return 8 + len(raw) + offset
 
 
 def write_hf_checkpoint(path, config, params, max_shard_bytes: int = 5 * 10**9) -> int:
@@ -3171,11 +3167,17 @@ def one_call_ms(fn, repeats: int = 5) -> float:
     return float(np.median([time_ms(fn, warmup=1, iters=1) for _ in range(repeats)]))
 
 
+# kernel kinds by name: cuBLAS GEMMs (nvjet, xmma, cutlass), PyTorch's
+# elementwise and reduce kernels; the rest is "other"
+KERNEL_KINDS = (("gemm", ("gemm", "nvjet", "xmma", "cutlass")), ("elementwise", ("elementwise",)),
+                ("reduce", ("reduce",)))
+
+
 def top_kernels(fn, top: int = 5) -> str:
     """The kernels of one call of ``fn`` from a ``torch.profiler`` trace:
     their count, the sum of their durations (gaps between them left
-    out), and the ``top`` by device time (name, calls, µs); or why there
-    is none."""
+    out), that sum by kind (:data:`KERNEL_KINDS`), and the ``top`` by
+    device time (name, calls, µs); or why there is none."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3189,12 +3191,21 @@ def top_kernels(fn, top: int = 5) -> str:
         return getattr(event, "self_device_time_total", None) or getattr(
             event, "self_cuda_time_total", 0.0)
 
-    kernels = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+    # a record_function range on the card (AdamW's step) spans kernels
+    # already counted
+    kernels = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                      and not getattr(e, "is_user_annotation", False)),
                      key=device_us, reverse=True)
     if not kernels:
         return "no kernel in the trace (not measured)"
+    kinds = dict.fromkeys([kind for kind, _ in KERNEL_KINDS] + ["other"], 0.0)
+    for event in kernels:
+        name = event.key.lower()
+        kind = next((kind for kind, marks in KERNEL_KINDS if any(m in name for m in marks)), "other")
+        kinds[kind] += device_us(event)
     return (f"{sum(e.count for e in kernels)} kernels, {sum(device_us(e) for e in kernels):.0f} µs "
-            f"summed; top: " + "; ".join(f"{e.key[:48]} x{e.count} {device_us(e):.0f} µs"
+            f"summed (" + ", ".join(f"{kind} {us:.0f}" for kind, us in kinds.items())
+            + "); top: " + "; ".join(f"{e.key[:48]} x{e.count} {device_us(e):.0f} µs"
                                          for e in kernels[:top]))
 
 
@@ -3983,6 +3994,265 @@ def check_disagg_and_tiers(label: str) -> None:
         f"({', '.join(parts)}; {threading.active_count()} threads in the process)")
 
 
+# ---------------------------------------------------------------------- #
+# training on the card: the differentiable forward, the CE loss, AdamW,
+# step-directory checkpoints, resume, and the checkpoint served back
+# ---------------------------------------------------------------------- #
+TRAIN_DIR = os.path.join("build", "train-checkpoint")
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, SAVE_AFTER = 4, 1024, 6, 3
+# the 2-layer train step on the card (bf16) against the CPU (f32) from the
+# same weights: the loss, relative, and each leaf's gradient by cosine
+TRAIN_LOSS_TOLERANCE = 1e-2
+TRAIN_GRAD_COSINE = 0.99
+# a resumed step's loss against the original's: the embedding and gather
+# backward on CUDA accumulate with atomics, so not bit for bit
+RESUME_TOLERANCE = 1e-3
+
+
+def train_flops(config, batch: int, seq: int, remat: bool) -> Tuple[float, float]:
+    """(model FLOPs, executed FLOPs) of one train step, from the code's
+    shapes: each matmul 2·m·n·k, the plain attention's two products over
+    the whole T×T grid per head (padding included: the plain version
+    computes it), the backward twice the forward; ``remat`` runs the
+    layers' forward once more."""
+    tokens = batch * seq
+    h, f, hd = config.hidden_size, config.intermediate_size, config.dims_per_head
+    nh, nkv = config.num_heads, config.num_kv_heads
+    layer = (2 * tokens * (h * (nh + 2 * nkv) * hd + nh * hd * h + 3 * h * f)
+             + 4 * batch * nh * seq * seq * hd)
+    forward = config.num_layers * layer + 2 * tokens * h * config.vocab_size
+    return 3 * forward, 3 * forward + (config.num_layers * layer if remat else 0)
+
+
+def _train_batch(config, batch: int, seq: int, seed: int):
+    """Random tokens [B, T] from ``seed`` with the last row right-padded
+    to half its length."""
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(1, config.vocab_size, size=(batch, seq)).astype(np.int32)
+    mask = np.ones((batch, seq), dtype=bool)
+    mask[-1, seq // 2:] = False
+    return tokens, mask
+
+
+def check_training_against_cpu(device, layers: int = 2, batch: int = 2, seq: int = 128) -> dict:
+    """``llama3_1b`` at full width and ``layers`` deep: one loss and its
+    gradients (``trainer.loss_fn``, the plain attention, remat on) in
+    bf16 on the card against the port in f32 on the CPU from the same
+    weights. Gates: the loss within ``TRAIN_LOSS_TOLERANCE`` relative,
+    every leaf's gradient at cosine ``TRAIN_GRAD_COSINE`` or more."""
+    from langstream_tpu_torch.training.trainer import loss_fn
+
+    config = dataclasses.replace(model.LlamaConfig.llama3_1b(), num_layers=layers)
+    cpu_config = dataclasses.replace(config, dtype=torch.float32)
+    params = model.init_params(config, seed=0, device=device)
+    tokens, mask = _train_batch(config, batch, seq, seed=1)
+    grads, losses = {}, {}
+    for side, where, cfg in (("card", device, config), ("cpu", torch.device("cpu"), cpu_config)):
+        leaves = {name: leaf.detach().to(where, cfg.dtype if leaf.dtype == config.dtype else leaf.dtype)
+                  .requires_grad_() for name, leaf in params.items()}
+        loss = loss_fn(cfg, leaves, torch.from_numpy(tokens).to(where), torch.from_numpy(mask).to(where),
+                       model.model_freqs(cfg, device=where), remat=True)
+        loss.backward()
+        losses[side] = float(loss.detach())
+        grads[side] = {name: leaf.grad.float().cpu() for name, leaf in leaves.items()}
+    cosines = {name: float(F.cosine_similarity(grads["card"][name].flatten(), grad.flatten(), dim=0))
+               for name, grad in grads["cpu"].items()}
+    loss_err = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
+    worst = min(cosines, key=cosines.get)
+    assert loss_err <= TRAIN_LOSS_TOLERANCE, (losses, loss_err)
+    assert all(math.isfinite(c) and c >= TRAIN_GRAD_COSINE for c in cosines.values()), cosines
+    return {"loss_card": losses["card"], "loss_cpu": losses["cpu"], "loss_err": loss_err,
+            "worst_leaf": worst, "worst_cosine": cosines[worst]}
+
+
+def _timed_step(trainer, tokens, mask) -> Tuple[float, float]:
+    torch.cuda.synchronize()
+    started = time.perf_counter()
+    loss = trainer.train_step(tokens, mask)  # a float: the step has ended
+    return loss, (time.perf_counter() - started) * 1e3
+
+
+def _state_tensors(trainer) -> dict:
+    state = trainer.opt_state
+    out = {f"params/{name}": leaf.detach() for name, leaf in trainer.params.items()}
+    out.update({f"mu/{name}": leaf for name, leaf in state["mu"].items()})
+    out.update({f"nu/{name}": leaf for name, leaf in state["nu"].items()})
+    return out
+
+
+def check_training(device, label: str) -> None:
+    """Phase 13: ``llama3_1b`` (Llama-3.2-1B's shape) trained on the card
+    at full depth, checkpointed, resumed and served back; see the module's
+    docstring. Writes under ``build/`` and removes its checkpoint."""
+    from langstream_tpu_torch.providers.torch_local.provider import TorchCompletionsService
+    from langstream_tpu_torch.training.checkpoint import CheckpointManager
+    from langstream_tpu_torch.training.trainer import TrainConfig, Trainer
+
+    started = time.perf_counter()
+    small = check_training_against_cpu(device)
+    log(f"training, 2 layers, card (bf16) vs CPU (f32) [{label}]: loss {small['loss_card']:.6f} vs "
+        f"{small['loss_cpu']:.6f} (rel {small['loss_err']:.2e}, tol {TRAIN_LOSS_TOLERANCE}), worst "
+        f"gradient cosine {small['worst_cosine']:.5f} ({small['worst_leaf']}; gate >= {TRAIN_GRAD_COSINE}), "
+        f"{time.perf_counter() - started:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    config = model.LlamaConfig.llama3_1b()
+    tokens, mask = _train_batch(config, TRAIN_BATCH, TRAIN_SEQ, seed=2)
+    # a save is the params and both Adam moments, in the params' dtypes
+    save_bytes = 3 * config.num_params() * 2
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    os.makedirs(TRAIN_DIR)
+    free = shutil.disk_usage(TRAIN_DIR).free
+    if free < 1.05 * save_bytes:
+        raise RuntimeError(f"the training phase needs {save_bytes / 1e9:.1f} GB of disk under "
+                           f"{TRAIN_DIR}, {free / 1e9:.1f} GB are free")
+    try:
+        drawn = model.init_params(config, seed=0, device=device)
+        trainer = Trainer(config, drawn, train_config=TrainConfig(learning_rate=1e-3, remat=True),
+                          device=device)
+        del drawn
+        manager = CheckpointManager(TRAIN_DIR)
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_ms = [], []
+        for step in range(1, TRAIN_STEPS + 1):
+            if step == SAVE_AFTER + 1:
+                # the step-3 state, kept on the card for the restore's gate
+                torch.cuda.synchronize()
+                train_peak = torch.cuda.max_memory_allocated() / 2**30
+                snapshot = {name: leaf.clone() for name, leaf in _state_tensors(trainer).items()}
+                torch.cuda.synchronize()
+                save_started = time.perf_counter()
+                trainer.save_checkpoint(manager)
+                save_ms = (time.perf_counter() - save_started) * 1e3
+            loss, ms = _timed_step(trainer, tokens, mask)  # step 4 runs beside the write
+            losses.append(loss)
+            step_ms.append(ms)
+            if step == SAVE_AFTER + 1:
+                manager.wait()
+                wait_ms = (time.perf_counter() - save_started) * 1e3
+        assert all(math.isfinite(loss) for loss in losses) and losses[-1] < losses[0], losses
+        written = sum(os.path.getsize(os.path.join(root, name))
+                      for root, _, names in os.walk(TRAIN_DIR) for name in names)
+        median_ms = float(np.median(step_ms[1:]))
+        model_flops, executed = train_flops(config, TRAIN_BATCH, TRAIN_SEQ, remat=True)
+        log(f"training llama3_1b ({config.num_params() / 1e9:.3f} B params, {config.num_layers} layers, bf16, AdamW, "
+            f"remat) B {TRAIN_BATCH} x T {TRAIN_SEQ}, one row padded to {TRAIN_SEQ // 2} [{label}]: losses "
+            + ", ".join(f"{loss:.4f}" for loss in losses)
+            + f"; step ms " + ", ".join(f"{ms:.1f}" for ms in step_ms)
+            + f" (median of steps 2-{TRAIN_STEPS} {median_ms:.1f}); "
+            f"{TRAIN_BATCH * TRAIN_SEQ / median_ms * 1e3:.0f} tokens/s; peak {train_peak:.2f} GiB; "
+            f"model FLOPs {model_flops:.3e} a step (MFU {model_flops / (median_ms / 1e3) / PEAK_BF16_FLOPS:.4f} "
+            f"of 989 TFLOP/s), executed with the recompute {executed:.3e} "
+            f"({executed / (median_ms / 1e3) / PEAK_BF16_FLOPS:.4f}; at the peak {executed / PEAK_BF16_FLOPS * 1e3:.1f} ms)")
+        log(f"checkpoint of step {SAVE_AFTER} [{label}]: save() returned in {save_ms:.0f} ms "
+            f"({written / save_ms / 1e6:.2f} GB/s to host memory), committed after {wait_ms:.0f} ms "
+            f"({written / wait_ms / 1e6:.2f} GB/s end to end), {written / 1e9:.2f} GB on disk; step "
+            f"{SAVE_AFTER + 1} beside the write {step_ms[SAVE_AFTER]:.1f} ms")
+
+        # one step without remat, after one that grows the allocator
+        trainer.train_config.remat = False
+        _timed_step(trainer, tokens, mask)
+        torch.cuda.reset_peak_memory_stats()
+        _, plain_ms = _timed_step(trainer, tokens, mask)
+        plain_peak = torch.cuda.max_memory_allocated() / 2**30
+        model_flops, executed = train_flops(config, TRAIN_BATCH, TRAIN_SEQ, remat=False)
+        log(f"training without remat [{label}]: {plain_ms:.1f} ms a step (remat {median_ms:.1f}), peak "
+            f"{plain_peak:.2f} GiB (remat {train_peak:.2f}), MFU "
+            f"{model_flops / (plain_ms / 1e3) / PEAK_BF16_FLOPS:.4f}")
+        # where a remat step's device time goes (two more steps)
+        trainer.train_config.remat = True
+        log(f"remat step's kernels [{label}]: "
+            + top_kernels(lambda: trainer.train_step(tokens, mask), top=8))
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # resume: a fresh trainer from another seed takes step 3 back
+        restore_started = time.perf_counter()
+        fresh = Trainer(config, model.init_params(config, seed=1, device=device),
+                        train_config=TrainConfig(learning_rate=1e-3, remat=True), device=device)
+        assert fresh.restore_checkpoint(CheckpointManager(TRAIN_DIR)) == SAVE_AFTER
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - restore_started
+        restored = _state_tensors(fresh)
+        assert restored.keys() == snapshot.keys()
+        for name, leaf in restored.items():
+            assert leaf.dtype == snapshot[name].dtype and torch.equal(leaf, snapshot[name]), name
+        resumed = fresh.train_step(tokens, mask)
+        resume_err = abs(resumed - losses[SAVE_AFTER]) / abs(losses[SAVE_AFTER])
+        assert resume_err <= RESUME_TOLERANCE, (resumed, losses[SAVE_AFTER])
+        log(f"resume [{label}]: a fresh trainer (seed 1) restored step {SAVE_AFTER} in {restore_s:.1f} s, "
+            f"{len(restored)} tensors bit for bit the step-{SAVE_AFTER} state; its next loss {resumed:.6f} "
+            f"vs {losses[SAVE_AFTER]:.6f} (rel {resume_err:.2e}, tol {RESUME_TOLERANCE})")
+        del fresh, restored
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # served back: the provider loads the step directory (the latest
+        # step, 3), against an engine over the trainer's own step-3 tensors
+        served = time.perf_counter()
+        engine_config = {"max-seq-len": 1024, "pipeline-decode": True, "sampling-seed": 0}
+        with launches_lib.device_launches() as counts:
+            service = TorchCompletionsService({
+                "checkpoint": TRAIN_DIR, "tokenizer": {"type": "byte"}, "engine": engine_config,
+            }, device=device)
+            try:
+                load_s = service.load_s
+                eng = service.engine
+                for name, leaf in eng.params.items():
+                    assert torch.equal(leaf, snapshot[f"params/{name}"]), name
+                calls = []  # (prompt tokens, sampling, stop tokens, result) of each request
+                generate = eng.generate
+
+                async def record(prompt_tokens, sampling_params, **kwargs):
+                    result = await generate(prompt_tokens, sampling_params, **kwargs)
+                    calls.append((prompt_tokens, sampling_params, kwargs.get("stop_tokens"), result))
+                    return result
+
+                eng.generate = record
+                rng = np.random.default_rng(3)
+
+                async def complete():
+                    # one request at a time: the same schedule on both
+                    # engines (a prefill group of one, then its decode)
+                    for n_bytes in (40, 90, 150, 220):
+                        await service.get_text_completions([prompt_text(rng, n_bytes)],
+                                                           {"max-tokens": 24})
+
+                asyncio.run(complete())
+            finally:
+                service.close()
+        assert counts["flash_prefill"] > 0 and counts["flash_decode"] > 0, counts
+        assert len(calls) == 4 and all(len(call[3].tokens) > 0 for call in calls), calls
+        twin = engine_lib.DecodeEngine(
+            config, {name[len("params/"):]: leaf for name, leaf in snapshot.items()
+                     if name.startswith("params/")},
+            device=device, max_slots=eng.max_slots, max_seq_len=eng.max_seq_len,
+            prefill_buckets=eng.prefill_buckets, decode_chunk=eng.decode_chunk,
+            pipeline_decode=eng.pipeline_decode)
+        twin.start()
+
+        async def replay():
+            return [(await twin.generate(prompt, sampling, stop_tokens=stop)).tokens
+                    for prompt, sampling, stop, _ in calls]
+
+        try:
+            twin_streams = asyncio.run(replay())
+        finally:
+            twin.stop()
+        served_streams = [list(call[3].tokens) for call in calls]
+        assert served_streams == [list(tokens) for tokens in twin_streams], (served_streams, twin_streams)
+        log(f"served back [{label}]: TorchCompletionsService over {TRAIN_DIR} (step {SAVE_AFTER}) loaded "
+            f"in {load_s:.1f} s, its params bit for bit the trainer's; 4 greedy text completions "
+            f"({sum(map(len, served_streams))} tokens) equal to an in-process engine's over the trainer's tensors; B1 {counts['flash_prefill']} "
+            f"and B2 {counts['flash_decode']} launches by their card counters; "
+            f"{time.perf_counter() - served:.1f} s")
+    finally:
+        shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    log(f"phase 13 (training) [{label}]: {time.perf_counter() - started:.1f} s (budget 90 s)")
+
+
 def main() -> None:
     # the watchdog's trip captures and /debug/profile's go under build/,
     # which git ignores; so does the flight artifact, on as in `serve`
@@ -4157,6 +4427,11 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     check_disagg_and_tiers(label)
+    # training: Llama-3.2-1B's shape at full depth with AdamW, its
+    # checkpoint, the resume, and the checkpoint served back (B1, B2)
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_training(device, label)
     for item in kernels:
         item["launches"] = launches[item["name"]]
         assert item["launches"] > 0, item

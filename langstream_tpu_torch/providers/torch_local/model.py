@@ -1,7 +1,7 @@
 """Llama-family decoder in PyTorch over a stacked-parameter dict.
 
 Port of ``langstream_tpu/providers/jax_local/model.py`` for the dense and
-paged serving paths. Parameters are a dict of tensors with the per-layer weights
+paged serving paths and the differentiable forward. Parameters are a dict of tensors with the per-layer weights
 stacked on a leading layer axis, in the JAX package's ``[in, out]``
 layout, so ``x @ W`` is what its ``qeinsum("...h,hd->...d")`` computed and
 parameters carry across unchanged (see ``convert.py``). The ``lax.scan``
@@ -15,6 +15,11 @@ attention stay ``torch.matmul``, through ``quant.qmatmul``: a weight may
 be a :class:`~langstream_tpu_torch.providers.torch_local.quant.QTensor`
 (weight-only int8, ``quantize="int8"`` in the engine), contracted against
 its int8 values with the scale on the output, in every call kind.
+
+:func:`forward` is the cache-free training and scoring path: the JAX
+``apply_layers`` loop with autograd, each stacked leaf taken apart once
+(:func:`unstack_layers`), attention through the plain
+``prefill_attention``, as the JAX package differentiates it.
 
 The int8 KV cache (``kv_quant``) is chosen by the ``k_scale`` leaf, as in
 the JAX package: each layer's new k/v rows are quantized once
@@ -30,6 +35,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from langstream_tpu_torch.ops.attention import (
     chunk_attention,
@@ -39,6 +45,7 @@ from langstream_tpu_torch.ops.attention import (
     paged_decode_attention,
     paged_decode_attention_quant,
     paged_write_rows,
+    prefill_attention,
     quantize_kv,
 )
 from langstream_tpu_torch.ops.decode_kernel import (
@@ -1114,3 +1121,97 @@ def paged_verify_step(
 
     x = _prefill_scan(config, params, tokens, starts, freqs, attend)
     return _logits(config, params, _norm(config, x, params["final_norm"]))
+
+
+# ---------------------------------------------------------------------- #
+# the differentiable forward (training and scoring)
+# ---------------------------------------------------------------------- #
+# the stacked leaves a layer reads, when the family has them
+LAYER_LEAVES = ("attn_norm", "wq", "wk", "wv", "bq", "bk", "bv", "wo", "post_attn_norm",
+                "mlp_norm", "post_mlp_norm", "w_gate", "w_up", "w_down")
+
+
+def unstack_layers(params: Dict[str, Any]) -> Dict[str, Tuple[torch.Tensor, ...]]:
+    """Each stacked layer leaf as a tuple of its layers, by one
+    ``unbind`` per leaf: ``layers[name][i]`` is layer i's view, and the
+    backward of all of them is one ``stack``. Indexing ``params[name][i]``
+    under autograd would instead give one ``select_backward`` per layer,
+    each a zero tensor the size of the whole leaf."""
+    return {name: params[name].unbind(0) for name in LAYER_LEAVES if name in params}
+
+
+def _train_layer(config, layers, i, x, mask, freqs, positions, window):
+    """Layer i of :func:`apply_layers`: the JAX ``layer_fn`` body over
+    ``x`` [B, T, H], attention through the plain ``prefill_attention``."""
+    batch, seq = x.shape[:2]
+    hd = config.dims_per_head
+    normed = _norm(config, x, layers["attn_norm"][i])
+    q, k, v = _project_qkv(normed, layers, i)
+    q = apply_rope(q.reshape(batch, seq, config.num_heads, hd), freqs, positions)
+    k = apply_rope(k.reshape(batch, seq, config.num_kv_heads, hd), freqs, positions)
+    v = v.reshape(batch, seq, config.num_kv_heads, hd)
+    attn = prefill_attention(q, k, v, mask=mask, **_family(config, window))
+    attn = qmatmul(attn.reshape(batch, seq, -1), layers["wo"][i])
+    if "post_attn_norm" in layers:
+        attn = _norm(config, attn, layers["post_attn_norm"][i])
+    x = x + attn
+    delta = _mlp_block(config, _norm(config, x, layers["mlp_norm"][i]), layers, i)
+    if "post_mlp_norm" in layers:
+        delta = _norm(config, delta, layers["post_mlp_norm"][i])
+    return x + delta
+
+
+def apply_layers(
+    config: LlamaConfig,
+    layers: Dict[str, Tuple[torch.Tensor, ...]],  # from unstack_layers
+    x: torch.Tensor,                 # [B, T, H] activations
+    mask: Optional[torch.Tensor],    # [B, T] valid-token mask or None
+    freqs: torch.Tensor,
+    remat: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The layer loop over activations → (x, MoE aux sum: 0, the model
+    is dense). Attention is the plain ``prefill_attention``, the
+    formulation the JAX package differentiates (its kernels have no
+    VJP). ``remat`` recomputes each layer in the backward
+    (``torch.utils.checkpoint``, non-reentrant) instead of keeping its
+    activations: the JAX trainer's ``jax.checkpoint`` over the whole
+    loss, with the same gradient and another peak."""
+    _require_dense(config)
+    batch, seq = x.shape[:2]
+    positions = torch.arange(seq, device=x.device)[None, :].expand(batch, seq)
+    # positions past the RoPE table clamp to its last row, as JAX's gather does
+    positions = positions.clamp(max=freqs.shape[1] - 1)
+    windows = layer_windows(config)
+    for i in range(len(layers["wq"])):
+        args = (config, layers, i, x, mask, freqs, positions, windows[i] if windows else None)
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(_train_layer, *args, use_reentrant=False)
+        else:
+            x = _train_layer(*args)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def forward(
+    config: LlamaConfig,
+    params: Dict[str, torch.Tensor],
+    tokens: torch.Tensor,                 # [B, T]
+    mask: Optional[torch.Tensor] = None,  # [B, T] valid-token mask
+    freqs: Optional[torch.Tensor] = None,
+    with_aux: bool = False,
+    remat: bool = False,
+):
+    """Cache-free full-sequence forward → logits [B, T, V] in f32, with
+    autograd (the training and scoring path; serving uses
+    :func:`prefill` and :func:`decode_step`). With ``with_aux`` also the
+    mean MoE load-balancing loss, 0 for the dense model. A MoE config
+    raises, as :func:`init_params` does."""
+    _require_dense(config)
+    validate_family_params(config, params)
+    if freqs is None:
+        freqs = model_freqs(config, device=tokens.device)
+    x = _embed(config, params, tokens)
+    x, aux = apply_layers(config, unstack_layers(params), x, mask, freqs, remat=remat)
+    logits = _logits(config, params, _norm(config, x, params["final_norm"]))
+    if with_aux:
+        return logits, aux / max(config.num_layers, 1)
+    return logits

@@ -23,9 +23,12 @@ Completions configuration, with the JAX provider's keys::
 
 ``checkpoint`` names a HuggingFace model directory, loaded in bf16 onto
 the device as the JAX provider dispatches (``weights.load_checkpoint``):
-safetensors files, else ``pytorch_model.bin``; an orbax directory and a
-mixture-of-experts model raise. Its ``config.json`` gives the model, and
-``model`` is ignored; with ``quantization: int8`` the engine quantizes
+safetensors files, else ``pytorch_model.bin``; or a directory of step
+directories that the port's ``training.checkpoint`` wrote (a trainer's
+saves or a ``save_model`` export), whose latest step loads in its own
+dtypes; an orbax directory of the JAX package and a mixture-of-experts
+model raise. Its ``config.json`` (or the step's meta) gives the model,
+and ``model`` is ignored; with ``quantization: int8`` the engine quantizes
 the loaded weights (``quant.quantize_params``) and the bf16 ones are
 freed. With no ``checkpoint`` the weights are random, drawn from
 ``seed`` on the device; with ``quantization: int8`` they are drawn

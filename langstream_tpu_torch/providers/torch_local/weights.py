@@ -30,6 +30,12 @@ which holds every f16 and bf16 value exactly, so the bits are theirs.
 Mixtral (``num_local_experts``) raises before any tensor is read: the
 MoE MLP is not ported (ROADMAP.md, behind A10).
 
+:func:`write_safetensors` writes the format, for the port's training
+checkpoints (``training/checkpoint.py``). :func:`load_checkpoint`
+dispatches as the JAX provider does, and loads a directory of step
+directories the port wrote through ``training.checkpoint.load_model``;
+an orbax directory of the JAX package raises before any tensor is read.
+
 :func:`load_hf_bert` reads a HuggingFace BERT directory (MiniLM and its
 kin) into the encoder's params of ``embeddings.py`` with the same two
 readers: the JAX ``load_hf_bert`` instantiates the ``transformers``
@@ -65,6 +71,33 @@ SAFETENSORS_DTYPES = {
 SAFETENSORS_INDEX = "model.safetensors.index.json"
 BIN_FILE = "pytorch_model.bin"
 BIN_INDEX = "pytorch_model.bin.index.json"
+
+
+def write_safetensors(path: str, tensors) -> int:
+    """One safetensors file of ``tensors`` ((name, tensor) pairs, on any
+    device): the 8-byte little-endian length of a JSON header giving each
+    tensor's dtype, shape and byte range from the header's end (padded
+    with spaces to 8 bytes, as the package pads it), then each tensor's
+    bytes in order, copied to the host one at a time. Returns the bytes
+    written."""
+    tensors = list(tensors)
+    names = {dtype: name for name, dtype in SAFETENSORS_DTYPES.items()}
+    header, offset = {"__metadata__": {"format": "pt"}}, 0
+    for name, tensor in tensors:
+        nbytes = tensor.numel() * tensor.element_size()
+        header[name] = {"dtype": names[tensor.dtype], "shape": list(tensor.shape),
+                        "data_offsets": [offset, offset + nbytes]}
+        offset += nbytes
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as fh:
+        fh.write(struct.pack("<Q", len(raw)))
+        fh.write(raw)
+        for _, tensor in tensors:
+            host = tensor.detach().contiguous().cpu().reshape(-1)
+            fh.write(memoryview(host.view(torch.uint8).numpy()))
+            del host
+    return 8 + len(raw) + offset
 
 
 def read_safetensors_header(path: str) -> Tuple[Dict[str, Any], int]:
@@ -329,14 +362,21 @@ def is_orbax_dir(path: str) -> bool:
 
 def load_checkpoint(path: str, device: Any = "cuda") -> Tuple[LlamaConfig, Dict[str, torch.Tensor]]:
     """The JAX provider's checkpoint dispatch: safetensors files → the
-    safetensors loader; numeric step subdirectories (orbax) → raise, not
-    ported; otherwise → the ``pytorch_model.bin`` loader. Both in bf16."""
+    safetensors loader; numeric step subdirectories → the latest step
+    through ``training.checkpoint.load_model`` when the port wrote it (a
+    trainer's save directory or a ``save_model`` export), else raise
+    before reading a tensor (an orbax checkpoint of the JAX package is
+    not read); otherwise → the ``pytorch_model.bin`` loader in bf16."""
     if has_safetensors(path):
         return load_safetensors_checkpoint(path, device=device)
     if is_orbax_dir(path):
-        raise NotImplementedError(
-            f"{path} is an orbax checkpoint (numeric step directories): loading it is not ported "
-            "to langstream_tpu_torch (see ROADMAP.md, A11)")
+        from langstream_tpu_torch.training.checkpoint import committed_steps, is_step_dir, load_model
+
+        if not is_step_dir(os.path.join(path, str(committed_steps(path)[-1]))):
+            raise NotImplementedError(
+                f"{path} is an orbax checkpoint (numeric step directories the port did not "
+                "write): loading it is not ported to langstream_tpu_torch (see ROADMAP.md, A11)")
+        return load_model(path, device=device)
     if not os.path.isdir(path):
         raise FileNotFoundError(f"checkpoint directory {path} does not exist")
     return load_hf_checkpoint(path, device=device)

@@ -1519,3 +1519,18 @@ def test_host_promotion_on_the_card_matches_unified(kv_quant):
     finally:
         tiered.stop()
         oracle.stop()
+
+
+@pytest.mark.gpu
+def test_training_step_on_the_card_matches_cpu():
+    """``chip_smoke``'s 2-layer check: ``llama3_1b`` at full width and 2
+    layers deep, one loss and its gradients (``trainer.loss_fn``, remat)
+    in bf16 on the card against the port in f32 on the CPU from the same
+    weights, B 2 × T 128 with a padded row: the loss within 1e-2
+    relative, every leaf's gradient at cosine 0.99 or more."""
+    device = _card()
+    import chip_smoke
+
+    result = chip_smoke.check_training_against_cpu(device)
+    assert result["loss_err"] <= chip_smoke.TRAIN_LOSS_TOLERANCE
+    assert result["worst_cosine"] >= chip_smoke.TRAIN_GRAD_COSINE
