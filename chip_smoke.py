@@ -88,17 +88,17 @@ Phases (any failure propagates and the exit code is not 0):
    decode step of that model, eager and as a CUDA graph: wall and host
    enqueue time of each, and the device time (again in phase 6, over the
    int8 cache). Then the in-turns controls, at 2 layers
-   (``CONTROL_LAYERS``; 8 until phase 12 came), each series with its own
-   twin of the main path at that depth: the engine built with
-   ``step_graphs=False`` (the eager control, in turns with the graphed
-   runs: graphed, eager, ..., graphed), with ``--no-pipeline-decode`` (no
-   chained chunk; in turns with the pipelined runs: pipelined,
-   unpipelined, pipelined), with the engine's ``join_prefills`` off (the
-   JAX engine's harvest: in turns, join, JAX, join), and with
-   ``--quantization int8`` (int8 weights drawn on the card; B1 and B2 as
-   before; join, JAX, JAX with ``--admission-chunk 2``, join with it,
-   after one full-depth int8-weight phase), with a line holding the bf16
-   and int8 bare steps of the full-depth phases side by side.
+   (``CONTROL_LAYERS``; 8 until phase 12 came), between two twins of the
+   main path at that depth: the engine's ``join_prefills`` off (the JAX
+   engine's harvest: join, JAX, ..., join), the engine built with
+   ``step_graphs=False`` (the eager control: graphed, eager, ...,
+   graphed; its host-enqueued launches must equal the card's), and
+   ``--no-pipeline-decode`` (no chained chunk: pipelined, unpipelined,
+   pipelined). Then ``--quantization int8`` at full depth (int8 weights
+   drawn on the card; B1 and B2 as before), with a line holding the bf16
+   and int8 bare steps side by side. The int8-weight controls (the JAX
+   harvest, ``--admission-chunk 2`` and their int8 twin) were cut for
+   the smoke's time when phase 14 came.
    Every server runs the engine supervisor and the decode-stall watchdog
    at ``serve``'s defaults (on). After the first dense phase's bursts,
    on its server, the crash phase (:func:`serve_crash_and_check`): the
@@ -121,10 +121,10 @@ Phases (any failure propagates and the exit code is not 0):
    more than one q token per slot (``ops/launches.py``'s ``SHAPES``) must
    read once per layer per prefill call, and the rest once per layer per
    decode step (the kernels line's ``prefill_launches`` and
-   ``decode_launches``). Then the same burst
-   on a new server after one uncounted chat with that system message (the
-   twin of the mixed run), and with ``--prefill-mode mixed`` after that
-   chat: no prefill model call, B7 once per layer per mixed step, B3 once
+   ``decode_launches``). Then the same burst with ``--prefill-mode
+   mixed`` on a new server after one uncounted chat with that system
+   message (its split twin was cut when phase 14 came):
+   no prefill model call, B7 once per layer per mixed step, B3 once
    per layer per plain decode step, mixed steps chained (the carry's
    invalidations printed by reason); and one bare paged decode step and
    one mixed step of that model, eager and graphed, with their device
@@ -145,9 +145,9 @@ Phases (any failure propagates and the exit code is not 0):
    copy-on-write copies.
 8. Speculative decoding: ``engine.spec-decode: ngram``, ``spec-k`` 4, 16
    greedy completions of 128 tokens on repeating prompts, dense and
-   paged, each in turns with its spec-off twin (the count of streams
-   equal to the twin's printed, not gated: bf16 near-ties on random
-   weights), and paged over the int8 cache. Gates: drafts made and
+   paged, and paged over the int8 cache (the spec-off twins were cut for
+   the smoke's time when phase 14 came:
+   speculation's gain is not measurable on random weights). Gates: drafts made and
    accepted; dense: no decode-kernel launch (verify attends in plain
    PyTorch); paged: B3 (B6) once per layer per model call, its verify
    launches by the card's own counter once per layer per verify step.
@@ -251,6 +251,30 @@ Phases (any failure propagates and the exit code is not 0):
    counters, zeroed before the service and read after it. The directory
    is removed at the end; the phase's wall time is printed.
 
+14. Mixtral (mixture of experts; no kernel of its own: ``ops/moe.py`` is
+   matrix products and a top-k, and the model's attention runs B1 and B2,
+   or B3 paged). ``mixtral_8x7b`` at full width (8 experts of 4096 ×
+   14336, top 2) and 2 layers, bf16, random from seed 0: two prompts (64
+   and 41 tokens) and 8 decode steps on the card, dense and paged, each
+   against one run of the port on the CPU in bf16 from the same weights.
+   The paged run and the CPU's route each token to the experts the
+   card's dense run chose (bf16 rounding flips a choice at a near-tie);
+   every token that would have gone elsewhere must be a near-tie (the
+   dense run's k-th and (k+1)-th router logits within
+   ``ROUTER_NEAR_TIE``, the router logits within it of the dense run's;
+   the flips are counted and printed). Then all 18 rows of each layout
+   within 5e-2 of max |logit|; B1 and B2 (B3)
+   once per layer per call by their card counters. That model written as
+   a HF Mixtral directory by this script's writer and loaded back bit for
+   bit (removed after). Then ``serve --model mixtral-8x7b --precompile``
+   at ``MOE_SERVE_LAYERS`` (16 of 32) layers answers phase 4's two
+   bursts, gated as phase 4 is (every request answered, no capture, B1
+   and B2 once per layer per model call, MFU, MBU and prefill MFU in (0,
+   1.05]); tok/s, TTFT, precompile s, the graph pool, the peak, and the
+   bare decode step's device ms and MBU printed.
+
+Each phase's wall time is printed in one line before the kernels'.
+
 The accounting plane rides the phases above, with no server of its own.
 The flight recorder is on for the whole run (``build/flight``, as
 ``serve`` turns it on), and every burst's requests carry their own trace
@@ -315,6 +339,7 @@ from langstream_tpu_torch.cli.main import build_parser, serve_config, start_flig
 from langstream_tpu_torch.cli.main import main as cli_main
 from langstream_tpu_torch.ops import _build
 from langstream_tpu_torch.ops import launches as launches_lib
+from langstream_tpu_torch.ops import moe as moe_lib
 from langstream_tpu_torch.ops.attention import (
     chunk_attention_quant,
     decode_attention,
@@ -479,19 +504,28 @@ def entry(name, worst_abs, kernel_ms, plain_ms, bound_ms, bound_by, library_ms) 
 # ---------------------------------------------------------------------- #
 def hf_tensors(config, params):
     """(HF name, tensor) of the port's params in a HF Llama (Qwen-2 with
-    biases) checkpoint's layout: each layer's ``[in, out]`` matrix as the
-    ``[out, in]`` view HF stores, norms and biases as they are. Views
-    only: nothing is copied until the writer writes it."""
-    if config.post_norms or config.num_experts:
-        raise ValueError("the writer writes the Llama and Qwen-2 layouts only")
+    biases, Mixtral with experts) checkpoint's layout: each layer's
+    ``[in, out]`` matrix as the ``[out, in]`` view HF stores (Mixtral's
+    router ``block_sparse_moe.gate`` ``[E, H]``, each expert's gate, up
+    and down as ``experts.{e}.w1`` / ``w3`` / ``w2``), norms and biases as
+    they are. Views only: nothing is copied until the writer writes it."""
+    if config.post_norms:
+        raise ValueError("the writer writes the Llama, Qwen-2 and Mixtral layouts only")
     yield "model.embed_tokens.weight", params["embedding"]
     for i in range(config.num_layers):
         p = f"model.layers.{i}."
         for leaf, name in (("wq", "self_attn.q_proj"), ("wk", "self_attn.k_proj"),
-                           ("wv", "self_attn.v_proj"), ("wo", "self_attn.o_proj"),
-                           ("w_gate", "mlp.gate_proj"), ("w_up", "mlp.up_proj"),
-                           ("w_down", "mlp.down_proj")):
+                           ("wv", "self_attn.v_proj"), ("wo", "self_attn.o_proj")):
             yield p + name + ".weight", params[leaf][i].t()
+        if config.num_experts:
+            yield p + "block_sparse_moe.gate.weight", params["router"][i].t()
+            for e in range(config.num_experts):
+                for leaf, name in (("w_gate", "w1"), ("w_up", "w3"), ("w_down", "w2")):
+                    yield p + f"block_sparse_moe.experts.{e}.{name}.weight", params[leaf][i, e].t()
+        else:
+            for leaf, name in (("w_gate", "mlp.gate_proj"), ("w_up", "mlp.up_proj"),
+                               ("w_down", "mlp.down_proj")):
+                yield p + name + ".weight", params[leaf][i].t()
         if config.qkv_bias:
             for leaf, name in (("bq", "q_proj"), ("bk", "k_proj"), ("bv", "v_proj")):
                 yield p + f"self_attn.{name}.bias", params[leaf][i]
@@ -503,14 +537,16 @@ def hf_tensors(config, params):
 
 
 def write_hf_checkpoint(path, config, params, max_shard_bytes: int = 5 * 10**9) -> int:
-    """A HF Llama (Qwen-2) model directory of ``params``: ``config.json``,
-    shards of at most ``max_shard_bytes`` of tensor data each, named as
-    ``save_pretrained`` names them, and the index mapping every tensor to
-    its shard. Returns the bytes of the shards."""
+    """A HF Llama (Qwen-2, Mixtral) model directory of ``params``:
+    ``config.json``, shards of at most ``max_shard_bytes`` of tensor data
+    each, named as ``save_pretrained`` names them, and the index mapping
+    every tensor to its shard. Returns the bytes of the shards."""
     os.makedirs(path, exist_ok=True)
+    family = "mixtral" if config.num_experts else "qwen2" if config.qkv_bias else "llama"
     hf = {
-        "architectures": ["Qwen2ForCausalLM" if config.qkv_bias else "LlamaForCausalLM"],
-        "model_type": "qwen2" if config.qkv_bias else "llama",
+        "architectures": [{"mixtral": "MixtralForCausalLM", "qwen2": "Qwen2ForCausalLM",
+                           "llama": "LlamaForCausalLM"}[family]],
+        "model_type": family,
         "vocab_size": config.vocab_size, "hidden_size": config.hidden_size,
         "intermediate_size": config.intermediate_size, "num_hidden_layers": config.num_layers,
         "num_attention_heads": config.num_heads, "num_key_value_heads": config.num_kv_heads,
@@ -520,6 +556,8 @@ def write_hf_checkpoint(path, config, params, max_shard_bytes: int = 5 * 10**9) 
     }
     if config.head_dim:
         hf["head_dim"] = config.head_dim
+    if config.num_experts:
+        hf.update(num_local_experts=config.num_experts, num_experts_per_tok=config.num_experts_per_tok)
     if config.rope_scaling:
         kind, factor, low, high, original = config.rope_scaling
         hf["rope_scaling"] = {"rope_type": kind, "factor": factor, "low_freq_factor": low,
@@ -1786,7 +1824,8 @@ def time_decode_step(engine, live: int = 512) -> dict:
     timing["weight_bytes"] = weight_bytes
     cache = "int8" if engine.kv_quant else "bf16"
     weights = "int8" if isinstance(engine.params["wq"], QTensor) else "bf16"
-    log(_bare_line(f"decode step (model only, {weights} weights, {cache} KV cache, {slots} slots x "
+    log(_bare_line(f"decode step (model only, {engine.config.num_layers} layers, {weights} weights, "
+                   f"{cache} KV cache, {slots} slots x "
                    f"{live} live rows)", timing)
         + f", weight-read bound {weight_bytes / PEAK_BYTES * 1e3:.2f} ms ({weight_bytes / 1e9:.2f} GB)")
     # the engine's own cost model for this step: every slot reads its live
@@ -1852,6 +1891,8 @@ def time_paged_steps(engine, live: int = 512) -> dict:
     return timings
 
 
+# the served presets' names in the log
+MODEL_NAMES = {"llama-3-8b": "Llama-3-8B", "mixtral-8x7b": "Mixtral-8x7B"}
 WORDS = ["stream", "token", "kernel", "batch", "event", "topic", "agent", "model",
          "cache", "device", "latency", "record", "gateway", "prompt", "answer"]
 KERNELS = {
@@ -1885,9 +1926,9 @@ def graph_pool_gib(engine):
     return sum(seg["total_size"] for seg in segments if tuple(seg["segment_pool_id"]) == pool) / 2**30
 
 
-def start_llama_server(*extra: str, kv_quant: bool = False, graphs: bool = True,
-                       engine_config=None, layers=None, embeddings=None, slo=None):
-    """``serve --precompile`` with these flags; ``kv_quant`` adds
+def start_llama_server(*extra: str, kv_quant: bool = False, graphs: bool = True, engine_config=None,
+                       layers=None, embeddings=None, slo=None, model_name: str = "llama-3-8b"):
+    """``serve --model MODEL_NAME --precompile`` with these flags; ``kv_quant`` adds
     ``kv-quant: int8`` to the provider's engine config, the way a
     deployment asks for it, and ``engine_config`` its other keys (``serve``
     has no flag for either); ``layers`` cuts the model's depth (the
@@ -1899,7 +1940,7 @@ def start_llama_server(*extra: str, kv_quant: bool = False, graphs: bool = True,
     has two chunks of budget left, and at 32 no request of these bursts
     (32-62 tokens) would ever chain."""
     args = build_parser().parse_args([
-        "serve", "--model", "llama-3-8b", "--max-slots", "32", "--max-seq-len", "1024",
+        "serve", "--model", model_name, "--max-slots", "32", "--max-seq-len", "1024",
         "--decode-chunk", "8", "--precompile", "--host", "127.0.0.1", "--port", "0", *extra,
     ])
     config = serve_config(args)
@@ -1926,7 +1967,7 @@ def start_llama_server(*extra: str, kv_quant: bool = False, graphs: bool = True,
     log(f"serve {' '.join(extra) or '(dense)'}{' kv-quant: int8' if kv_quant else ''}"
         f"{''.join(f' {key}: {value}' for key, value in (engine_config or {}).items())}"
         f"{f' at {layers} layers' if layers else ''}"
-        f"{'' if graphs else ' EAGER (step_graphs=False)'}: Llama-3-8B "
+        f"{'' if graphs else ' EAGER (step_graphs=False)'}: {MODEL_NAMES.get(model_name, model_name)} "
         f"{args.quantization or 'bf16'} {'checkpoint' if args.checkpoint else 'random'} weights up in "
         f"{time.perf_counter() - t0:.1f}s (weights {service.load_s:.1f}s), "
         f"precompile {engine.precompile_s:.2f}s ({steps} step variants {how} in {step_s:.2f}s; "
@@ -2244,7 +2285,8 @@ def dense_jobs(rng):
 
 
 def serve_dense_and_check(label: str, kv_quant: bool = False, extra=(), graphs: bool = True,
-                          join: bool = True, layers=None, crash: bool = False) -> dict:
+                          join: bool = True, layers=None, crash: bool = False,
+                          model_name: str = "llama-3-8b") -> dict:
     """The dense burst through ``serve`` with ``extra`` flags (pipelined
     unless ``--no-pipeline-decode``; ``--quantization int8`` for int8
     weights; ``graphs=False``: the eager control; ``join=False``: the
@@ -2255,9 +2297,10 @@ def serve_dense_and_check(label: str, kv_quant: bool = False, extra=(), graphs: 
     launches, tok/s and mean TTFT of both bursts, and the bare decode
     step's timing. ``crash``: then the crash phase on the same server
     (:func:`serve_crash_and_check`), its served peak from the server's
-    start on."""
+    start on. ``model_name``: the preset served (``--model``)."""
     torch.cuda.reset_peak_memory_stats()
-    service, server = start_llama_server(*extra, kv_quant=kv_quant, graphs=graphs, layers=layers)
+    service, server = start_llama_server(*extra, kv_quant=kv_quant, graphs=graphs, layers=layers,
+                                         model_name=model_name)
     start_peak = torch.cuda.max_memory_allocated() / 2**30
     service.engine.join_prefills = join  # before any request reaches the engine
     rng = np.random.default_rng(0)
@@ -2299,9 +2342,11 @@ def serve_dense_and_check(label: str, kv_quant: bool = False, extra=(), graphs: 
     assert host == ({name: launches[name] for name in KERNELS} if not graphs
                     else dict.fromkeys(KERNELS, 0)), (host, launches)
     assert not any(launches[name] for name in launches_lib.SHAPES), launches
-    kind = " ".join(["dense"] + [flag.lstrip("-") for flag in extra] + (["int8 KV"] if kv_quant else [])
+    preset = model.LlamaConfig.from_dict({"preset": model_name})
+    kind = " ".join(([] if model_name == "llama-3-8b" else [MODEL_NAMES.get(model_name, model_name)])
+                    + ["dense"] + [flag.lstrip("-") for flag in extra] + (["int8 KV"] if kv_quant else [])
                     + ([] if graphs else ["EAGER"]) + ([] if join else ["JAX harvest"])
-                    + ([f"{layers} layers"] if layers != model.LlamaConfig.llama3_8b().num_layers else []))
+                    + ([f"{layers} layers"] if layers != preset.num_layers else []))
     report(label, kind, jobs, wall, tokens, stats, launches, host, peak_gib)
     check_histograms(label, kind, jobs, replies, stats)
     roofline = check_roofline(label, kind, stats, tokens / wall,
@@ -2622,8 +2667,7 @@ def serve_shedding_and_check(label: str) -> None:
         + f"; blame {blame}")
 
 
-def serve_paged_and_check(label: str, kv_quant: bool = False, mixed: bool = False,
-                          warm: bool = False) -> dict:
+def serve_paged_and_check(label: str, kv_quant: bool = False, mixed: bool = False) -> dict:
     """The paged layout, split (bucketed prefill calls, B3/B6 for all) or
     ``mixed`` (``--prefill-mode mixed``: prompt windows ride the decode
     step, B7/B8 for mixed steps, B3/B6 for the plain decode steps
@@ -2631,9 +2675,8 @@ def serve_paged_and_check(label: str, kv_quant: bool = False, mixed: bool = Fals
     prompts share blocks the cold batch publishes at reserve and writes
     before a warm suffix reads them. The mixed engine publishes a cold
     prompt's blocks only when it finishes, so a burst that arrives at
-    once would find nothing to share: with ``warm`` (always with
-    ``mixed``) one chat with the system message is answered first,
-    uncounted, and the split run so is the mixed one's twin."""
+    once would find nothing to share: with ``mixed`` one chat with the
+    system message is answered first, uncounted."""
     extra = ["--kv-layout", "paged", "--kv-block-size", "16"]
     if mixed:
         extra += ["--prefill-mode", "mixed"]
@@ -2655,7 +2698,7 @@ def serve_paged_and_check(label: str, kv_quant: bool = False, mixed: bool = Fals
         "max_tokens": 40, "stream": True}))
     warmup = [("/v1/chat/completions", {
         "messages": [system, {"role": "user", "content": "warm up"}], "max_tokens": 8})]
-    if not (warm or mixed):
+    if not mixed:
         warmup = []
     try:
         replies, wall, launches, host, stats, peak_gib = run_burst(service, server, jobs, warmup)
@@ -2815,19 +2858,18 @@ def serve_sessions_and_check(label: str, paged: bool = False, kv_quant: bool = F
     return dict(total, cow_copies=cow, turns=turns)
 
 
-def serve_spec_and_check(label: str, paged: bool = False, spec: bool = True, kv_quant: bool = False) -> dict:
+def serve_spec_and_check(label: str, paged: bool = False, kv_quant: bool = False) -> dict:
     """Speculative decoding through ``serve --precompile`` (pipelined) with
-    ``engine.spec-decode: ngram``, ``spec-k`` 4 (``spec=False``: the
-    spec-off twin): 16 greedy text completions of 128 new tokens, each on
+    ``engine.spec-decode: ngram``, ``spec-k`` 4: 16 greedy text
+    completions of 128 new tokens, each on
     a prompt whose text repeats, at once. Gates: every request answered,
     nothing captured, each kernel once per layer per model call (the
     verify steps attend in plain PyTorch on the dense layout; paged they
-    are B3/B6's verify launches, by the card's own counter); with spec,
-    drafts were made and accepted. Returns the texts, to be compared with
-    the twin's."""
+    are B3/B6's verify launches, by the card's own counter); drafts were
+    made and accepted. Returns the launches, texts, tok/s and mean TTFT."""
     extra = ["--kv-layout", "paged", "--kv-block-size", "16"] if paged else []
-    engine_config = {"spec-decode": "ngram", "spec-k": 4} if spec else {}
-    service, server = start_llama_server(*extra, kv_quant=kv_quant, engine_config=engine_config)
+    service, server = start_llama_server(*extra, kv_quant=kv_quant,
+                                         engine_config={"spec-decode": "ngram", "spec-k": 4})
     rng = np.random.default_rng(7)
     jobs = []
     for i in range(16):
@@ -2842,11 +2884,9 @@ def serve_spec_and_check(label: str, paged: bool = False, spec: bool = True, kv_
     tokens, texts = _answered(jobs, replies)
     _kernel_gates(stats, launches, host, paged, kv_quant)
     calls = stats["model_dispatches"]
-    if spec:
-        assert calls.get("paged_verify_step" if paged else "verify_step", 0) > 0, calls
-        assert stats["tokens_drafted"] > 0 and stats["tokens_draft_accepted"] > 0, stats
-    kind = ("paged" if paged else "dense") + (" int8 KV" if kv_quant else "") + (
-        " spec-decode ngram" if spec else " spec off")
+    assert calls.get("paged_verify_step" if paged else "verify_step", 0) > 0, calls
+    assert stats["tokens_drafted"] > 0 and stats["tokens_draft_accepted"] > 0, stats
+    kind = ("paged" if paged else "dense") + (" int8 KV" if kv_quant else "") + " spec-decode ngram"
     log(f"spec {kind} [{label}]: {stats['requests']} requests, {tokens} completion tokens in {wall:.3f}s = "
         f"{tokens / wall:.1f} tok/s; mean TTFT {stats['ttft_time'] / stats['requests'] * 1e3:.1f} ms; "
         f"decode steps {stats['decode_steps']} ({stats['decode_time']:.3f}s), tokens drafted "
@@ -4034,25 +4074,36 @@ def _train_batch(config, batch: int, seq: int, seed: int):
     return tokens, mask
 
 
-def check_training_against_cpu(device, layers: int = 2, batch: int = 2, seq: int = 128) -> dict:
-    """``llama3_1b`` at full width and ``layers`` deep: one loss and its
-    gradients (``trainer.loss_fn``, the plain attention, remat on) in
-    bf16 on the card against the port in f32 on the CPU from the same
-    weights. Gates: the loss within ``TRAIN_LOSS_TOLERANCE`` relative,
-    every leaf's gradient at cosine ``TRAIN_GRAD_COSINE`` or more."""
+def check_training_against_cpu(device, layers: int = 2, batch: int = 2, seq: int = 128,
+                               config=None) -> dict:
+    """``llama3_1b`` (or the bf16 ``config`` given) at full width and
+    ``layers`` deep: one loss and its gradients (``trainer.loss_fn``, the
+    plain attention, remat on; a MoE config adds the router's aux loss,
+    its MLP in the capacity regime) in bf16 on the card against the port
+    in f32 on the CPU from the same weights. Gates: the loss within
+    ``TRAIN_LOSS_TOLERANCE`` relative, every leaf's gradient at cosine
+    ``TRAIN_GRAD_COSINE`` or more. A MoE config's CPU run routes each
+    token to the experts the card chose (:func:`routed_as`): bf16
+    activations flip a router's choice at a near-tie, which moves that
+    token's output by a whole expert; every token the CPU would have
+    routed otherwise must be such a near-tie on the card (its k-th and
+    (k+1)-th router logits within ``ROUTER_NEAR_TIE``, and within it of
+    the CPU's), and is counted."""
     from langstream_tpu_torch.training.trainer import loss_fn
 
-    config = dataclasses.replace(model.LlamaConfig.llama3_1b(), num_layers=layers)
+    config = dataclasses.replace(config or model.LlamaConfig.llama3_1b(), num_layers=layers)
     cpu_config = dataclasses.replace(config, dtype=torch.float32)
     params = model.init_params(config, seed=0, device=device)
     tokens, mask = _train_batch(config, batch, seq, seed=1)
-    grads, losses = {}, {}
+    grads, losses, choices = {}, {}, {}
     for side, where, cfg in (("card", device, config), ("cpu", torch.device("cpu"), cpu_config)):
         leaves = {name: leaf.detach().to(where, cfg.dtype if leaf.dtype == config.dtype else leaf.dtype)
                   .requires_grad_() for name, leaf in params.items()}
-        loss = loss_fn(cfg, leaves, torch.from_numpy(tokens).to(where), torch.from_numpy(mask).to(where),
-                       model.model_freqs(cfg, device=where), remat=True)
-        loss.backward()
+        with routed_as(choices.get("card") if side == "cpu" else None) as choices[side]:
+            loss = loss_fn(cfg, leaves, torch.from_numpy(tokens).to(where),
+                           torch.from_numpy(mask).to(where), model.model_freqs(cfg, device=where),
+                           remat=True)
+            loss.backward()
         losses[side] = float(loss.detach())
         grads[side] = {name: leaf.grad.float().cpu() for name, leaf in leaves.items()}
     cosines = {name: float(F.cosine_similarity(grads["card"][name].flatten(), grad.flatten(), dim=0))
@@ -4061,8 +4112,49 @@ def check_training_against_cpu(device, layers: int = 2, batch: int = 2, seq: int
     worst = min(cosines, key=cosines.get)
     assert loss_err <= TRAIN_LOSS_TOLERANCE, (losses, loss_err)
     assert all(math.isfinite(c) and c >= TRAIN_GRAD_COSINE for c in cosines.values()), cosines
+    flips = tokens_routed = 0
+    for (card_ids, card_logits), (cpu_ids, cpu_logits) in zip(choices["card"], choices["cpu"]):
+        k = card_ids.shape[-1]
+        differ = (card_ids.sort(-1).values != cpu_ids.sort(-1).values).any(-1)
+        top = card_logits.sort(-1, descending=True).values
+        gaps = (top[..., k - 1] - top[..., k])[differ]
+        noise = (card_logits - cpu_logits)[differ].abs()
+        assert not bool(differ.any()) or (float(gaps.max()) <= ROUTER_NEAR_TIE
+                                          and float(noise.max()) <= ROUTER_NEAR_TIE), (gaps, noise)
+        flips += int(differ.sum())
+        tokens_routed += differ.numel()
     return {"loss_card": losses["card"], "loss_cpu": losses["cpu"], "loss_err": loss_err,
-            "worst_leaf": worst, "worst_cosine": cosines[worst]}
+            "worst_leaf": worst, "worst_cosine": cosines[worst], "router_flips": flips,
+            "tokens_routed": tokens_routed}
+
+
+@contextlib.contextmanager
+def routed_as(choices=None):
+    """Yields a list of (expert ids, f32 router logits) of every routing
+    ``ops/moe.py`` makes in the block, on the host, in call order (a
+    remat recompute routes again). With ``choices``, such a list from a
+    run of the same calls, each routing takes the experts recorded there
+    instead of its own top-k (the gates renormalized over those
+    experts' probabilities); its own choice is what the yielded list
+    records."""
+    original = moe_lib._top_gates
+    taken = []
+
+    def top_gates(logits, k):
+        probs, gate_vals, gate_idx, onehot = original(logits, k)
+        taken.append((gate_idx.detach().cpu(), logits.detach().float().cpu()))
+        if choices is None:
+            return probs, gate_vals, gate_idx, onehot
+        ids = choices[len(taken) - 1][0].to(logits.device)
+        gate_vals = torch.gather(probs, -1, ids)
+        gate_vals = gate_vals / torch.clamp_min(gate_vals.sum(dim=-1, keepdim=True), 1e-9)
+        return probs, gate_vals, ids, moe_lib._one_hot(ids, logits.shape[-1])
+
+    moe_lib._top_gates = top_gates
+    try:
+        yield taken
+    finally:
+        moe_lib._top_gates = original
 
 
 def _timed_step(trainer, tokens, mask) -> Tuple[float, float]:
@@ -4252,6 +4344,231 @@ def check_training(device, label: str) -> None:
         shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     log(f"phase 13 (training) [{label}]: {time.perf_counter() - started:.1f} s (budget 90 s)")
 
+# ---------------------------------------------------------------------- #
+# phase 14: the Mixtral mixture-of-experts family
+# ---------------------------------------------------------------------- #
+MOE_CHECKPOINT_DIR = os.path.join("build", "mixtral-checkpoint")
+# depth of the served Mixtral-8x7B: its 32 layers are 93.4 GB of bf16
+# weights (the experts stay bf16 under int8 weights), more than one card
+# holds; 16 layers and the embedding and head are 46.96 GB
+MOE_SERVE_LAYERS = 16
+MOE_DECODE_STEPS = 8
+# the paged run and the CPU's take the dense card run's experts; where a
+# token's own top-k differs, the dense run's k-th and (k+1)-th router
+# logits must lie within this of each other, and the run's router logits
+# within this of the dense run's: a near-tie that rounding flipped.
+# Router logits of the random model are about N(0, 1) (normed
+# activations against N(0, 1/H) weights), so this is a tenth of their
+# scale; a flip needs a gap below the two runs' difference, printed (it
+# was 2.5e-2 to 3.0e-2 card against CPU). An expert routed wrongly parts
+# at the typical gap instead (about 0.4 between the 2nd and 3rd of 8)
+ROUTER_NEAR_TIE = 1e-1
+
+
+def _moe_run(config, params, where, layout: str, feed=None, choices=None):
+    """Two prompts (64 and 41 tokens) prefilled, then ``MOE_DECODE_STEPS``
+    decode steps of both rows, on ``layout`` (``paged``: 16-token
+    blocks). Decode feeds ``feed``, or its own argmax; each token goes
+    to the experts ``choices`` gave it, or to its own (:func:`routed_as`).
+    Returns the logits of each stage (f32, host), the routings (each MoE
+    MLP call's own expert ids and f32 router logits, on the host, in call
+    order: stage by stage, layer by layer), the tokens fed, the kernels'
+    launches on the card (by their device counters; empty off the card)
+    and the prompts' lengths."""
+    rng = np.random.default_rng(29)
+    prompts = torch.from_numpy(rng.integers(0, config.vocab_size, size=(2, 64)))
+    lengths = torch.tensor([64, 41], dtype=torch.int32)
+    freqs = model.model_freqs(config, device=where)
+    block, width = 16, 128 // 16
+    tables = (torch.from_numpy(rng.permutation(2 * width) + 1).view(2, width)
+              .to(torch.int32).to(where))
+    if layout == "paged":
+        cache = model.init_paged_cache(config, 2 * width + 1, block, device=where)
+    else:
+        cache = model.init_cache(config, 2, 128, device=where)
+    on_card = torch.device(where).type == "cuda"
+    stages, fed = [], []
+    with contextlib.ExitStack() as stack:
+        routings = stack.enter_context(routed_as(choices))
+        launches = stack.enter_context(launches_lib.device_launches(shapes=True)) if on_card else {}
+        if layout == "paged":
+            logits = model.paged_prefill(config, params, cache, prompts.to(where), lengths.to(where),
+                                         tables, freqs)
+        else:
+            logits = model.prefill(config, params, cache, prompts.to(where), lengths.to(where),
+                                   torch.arange(2, device=where), freqs)
+        stages.append(logits.float().cpu())
+        step_lengths = lengths + 1
+        for step in range(MOE_DECODE_STEPS):
+            tokens = feed[step] if feed is not None else stages[-1].argmax(-1)
+            fed.append(tokens)
+            args = (tokens.to(where), step_lengths.to(where))
+            if layout == "paged":
+                logits = model.paged_decode_step(config, params, cache, *args, tables, freqs)
+            else:
+                logits = model.decode_step(config, params, cache, *args, freqs)
+            stages.append(logits.float().cpu())
+            step_lengths = step_lengths + 1
+    assert len(routings) == config.num_layers * len(stages), (len(routings), len(stages))
+    return stages, routings, fed, dict(launches), lengths
+
+
+def _row_tokens(stage: int, row: int, lengths) -> slice:
+    """A routing's rows of ``row``'s real tokens: a prefill's [2, 64]
+    grid flattened, a decode step's one token a row."""
+    return slice(row * 64, row * 64 + int(lengths[row])) if stage == 0 else slice(row, row + 1)
+
+
+def routed_flips(run, reference, config, label: str) -> dict:
+    """For ``run``, routed as ``reference`` (the dense card run): every
+    real token whose own top-k experts differ from those it was given
+    must be a near-tie, the reference's k-th and (k+1)-th router logits
+    within ``ROUTER_NEAR_TIE`` and the run's router logits within it of
+    the reference's. Returns the flips, the tokens routed, the largest
+    gap of a flip and the largest router-logit difference."""
+    k, lengths = config.num_experts_per_tok, run[4]
+    flips = routed = 0
+    worst_gap = router_diff = 0.0
+    for call, ((ids, logits), (ref_ids, ref_logits)) in enumerate(zip(run[1], reference[1])):
+        for row in range(2):
+            tokens = _row_tokens(call // config.num_layers, row, lengths)
+            noise = (logits[tokens] - ref_logits[tokens]).abs().max(-1).values
+            differ = (ids[tokens].sort(-1).values != ref_ids[tokens].sort(-1).values).any(-1)
+            router_diff = max(router_diff, float(noise.max()))
+            routed += differ.numel()
+            if bool(differ.any()):
+                top = ref_logits[tokens].sort(-1, descending=True).values
+                gaps = (top[:, k - 1] - top[:, k])[differ]
+                assert float(gaps.max()) <= ROUTER_NEAR_TIE and float(noise[differ].max()) <= ROUTER_NEAR_TIE, (
+                    f"{label}: call {call}, row {row} would choose other experts than the card's dense run, "
+                    f"with router gaps {gaps.tolist()} and router logits {noise[differ].tolist()} off "
+                    f"(no near-tie)")
+                flips += int(differ.sum())
+                worst_gap = max(worst_gap, float(gaps.max()))
+    return dict(flips=flips, routed=routed, worst_gap=worst_gap, router_diff=router_diff)
+
+
+def check_moe_against_cpu(device, label: str):
+    """``mixtral_8x7b`` at full width, 2 layers, bf16, random from seed 0:
+    two prompts and 8 decode steps on the card, dense (B1, B2) and paged
+    (B3), each against one run of the port on the CPU in bf16 from the
+    same weights (dense, plain path, fed the card's dense tokens). The
+    paged run and the CPU's route every token to the experts the card's
+    dense run chose (:func:`routed_as`; bf16 rounding flips a choice at a
+    near-tie, which moves that token's output by a whole expert), each
+    token that would have gone elsewhere held to a near-tie
+    (:func:`routed_flips`); then every row of every stage of each layout
+    within ``MODEL_TOLERANCE`` of the stage's max |CPU logit|. B1 and B2
+    (B3) once per layer per call by their card counters. Returns the
+    config and the card's params."""
+    assert not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on: the router must run in f32"
+    started = time.perf_counter()
+    config = dataclasses.replace(model.LlamaConfig.mixtral_8x7b(max_seq_len=128), num_layers=2)
+    params = model.init_params(config, seed=0, device=device)
+    dense = _moe_run(config, params, device, "dense")
+    paged = _moe_run(config, params, device, "paged", feed=dense[2], choices=dense[1])
+    cpu_started = time.perf_counter()
+    cpu = _moe_run(config, {name: p.cpu() for name, p in params.items()}, "cpu", "dense", feed=dense[2],
+                   choices=dense[1])
+    cpu_s = time.perf_counter() - cpu_started
+    calls = 1 + MOE_DECODE_STEPS
+    layers = config.num_layers
+    launches = dense[3], paged[3]
+    assert launches[0]["flash_prefill"] == layers and launches[0]["flash_decode"] == layers * MOE_DECODE_STEPS, launches
+    assert launches[1]["paged_attention"] == layers * calls, launches
+    assert launches[1]["paged_attention/prefill"] == layers, launches
+    assert all(n == 0 for name, n in launches[0].items() if name not in ("flash_prefill", "flash_decode"))
+    assert all(n == 0 for name, n in launches[1].items()
+               if name not in ("paged_attention", "paged_attention/prefill"))
+    flips = {side: routed_flips(run, dense, config, f"MoE {side}") for side, run in (("paged", paged), ("CPU", cpu))}
+    errors = {}
+    for layout, run in (("dense", dense), ("paged", paged)):
+        worst, compared = 0.0, 0
+        for stage, (out, ref) in enumerate(zip(run[0], cpu[0])):
+            assert out.shape == ref.shape and bool(torch.isfinite(out).all()), (layout, stage)
+            worst = max(worst, float((out - ref).abs().max()) / float(ref.abs().max()))
+            compared += out.shape[0]
+        assert compared == 2 * calls, (layout, compared)
+        assert worst < MODEL_TOLERANCE, f"MoE {layout} model on the card disagrees with the CPU: {worst}"
+        errors[layout] = worst
+    log(f"MoE reference [{label}]: Mixtral-8x7B width (8 experts, top 2), 2 layers, bf16, seed 0; two "
+        f"prompts (64, 41 tokens) + {MOE_DECODE_STEPS} decode steps, card vs one CPU run (dense, plain, "
+        f"bf16; {cpu_s:.1f}s), the paged run and the CPU routed as the card's dense run: " + "; ".join(
+            f"{layout} ({'B1/B2' if layout == 'dense' else 'B3'}: {dict((n, c) for n, c in run[3].items() if c)}) "
+            f"max_rel_err {errors[layout]:.3e} over all {2 * calls} rows (tol {MODEL_TOLERANCE})"
+            for layout, run in (("dense", dense), ("paged", paged))) + "; " + "; ".join(
+            f"{side}: {f['flips']} of {f['routed']} token routings would have parted from the card's dense "
+            f"run, each at a near-tie (largest gap {f['worst_gap']:.3e} <= {ROUTER_NEAR_TIE}), router logits "
+            f"max |diff| {f['router_diff']:.3e}" for side, f in flips.items())
+        + f"; {time.perf_counter() - started:.1f}s")
+    return config, params, {layout: dict(run[3]) for layout, run in (("dense", dense), ("paged", paged))}
+
+
+def check_moe_checkpoint(device, config, params, label: str, path: str = MOE_CHECKPOINT_DIR) -> None:
+    """The 2-layer Mixtral's weights written as a HF Mixtral directory
+    (``block_sparse_moe`` experts and router) by
+    :func:`write_hf_checkpoint`, after checking the disk holds it, and
+    loaded back onto the card with ``weights.load_safetensors_checkpoint``:
+    its config equal, every leaf bit for bit. The directory is removed."""
+    from langstream_tpu_torch.providers.torch_local import weights
+
+    needed = int(config.num_params() * 2 * 1.05)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    free = shutil.disk_usage(os.path.dirname(path)).free
+    if free < needed:
+        raise RuntimeError(f"the MoE checkpoint gate needs {needed / 1e9:.1f} GB of disk under "
+                           f"{os.path.dirname(path)}, {free / 1e9:.1f} GB are free")
+    try:
+        started = time.perf_counter()
+        written = write_hf_checkpoint(path, config, params)
+        write_s = time.perf_counter() - started
+        started = time.perf_counter()
+        loaded_config, loaded = weights.load_safetensors_checkpoint(path, device=device)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - started
+        assert loaded_config == config, (loaded_config, config)
+        assert sorted(loaded) == sorted(params), (sorted(loaded), sorted(params))
+        for name, leaf in params.items():
+            assert loaded[name].dtype == leaf.dtype and torch.equal(loaded[name], leaf), name
+        with open(os.path.join(path, "model.safetensors.index.json")) as fh:
+            names = json.load(fh)["weight_map"]
+        experts = sum(".experts." in name for name in names)
+        log(f"MoE checkpoint [{label}]: the 2-layer Mixtral-8x7B written as a HF Mixtral directory "
+            f"({len(names)} tensors, {experts} of them experts' w1/w2/w3, the router as "
+            f"block_sparse_moe.gate), {written / 1e9:.2f} GB in {write_s:.1f}s, loaded with "
+            f"weights.load_safetensors_checkpoint in {load_s:.1f}s: config equal (num_experts "
+            f"{loaded_config.num_experts}, top {loaded_config.num_experts_per_tok}), {len(params)} leaves "
+            f"equal bit for bit (w_gate {list(loaded['w_gate'].shape)}, router {list(loaded['router'].shape)})")
+        del loaded
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+
+
+def check_moe(device, label: str) -> dict:
+    """Phase 14: the Mixtral family on the card. The 2-layer full-width
+    model against the CPU (:func:`check_moe_against_cpu`), its HF
+    checkpoint (:func:`check_moe_checkpoint`), then ``serve --model
+    mixtral-8x7b --precompile`` at ``MOE_SERVE_LAYERS`` layers answering
+    the dense phase's bursts (:func:`serve_dense_and_check`: every
+    request answered, no capture while serving, B1 and B2 once per layer
+    per model call by their card counters, MFU, MBU and prefill MFU in
+    (0, 1.05], the bare decode step's device ms and MBU). Returns the
+    served phase's counts."""
+    started = time.perf_counter()
+    config, params, _ = check_moe_against_cpu(device, label)
+    check_moe_checkpoint(device, config, params, label)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    served = serve_dense_and_check(label, model_name="mixtral-8x7b", layers=MOE_SERVE_LAYERS)
+    log(f"MoE phase [{label}]: Mixtral-8x7B at {MOE_SERVE_LAYERS} layers served: "
+        f"{served['tok_s']:.1f} / {served['uniform_tok_s']:.1f} tok/s (mixed-length / uniform burst), "
+        f"mean TTFT {served['ttft_ms']:.1f} / {served['uniform_ttft_ms']:.1f} ms, peak "
+        f"{served['peak_gib']:.2f} GiB, bare decode step {served['timing']['device_ms']:.3f} device ms "
+        f"(MBU {served['timing']['mbu']:.3f}); B1 {served['flash_prefill']}, B2 {served['flash_decode']} "
+        f"launches; the phase {time.perf_counter() - started:.1f}s")
+    return served
+
 
 def main() -> None:
     # the watchdog's trip captures and /debug/profile's go under build/,
@@ -4268,6 +4585,7 @@ def main() -> None:
     log(f"device: {name} ({torch.cuda.device_count()} visible); torch {torch.__version__} "
         f"CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
+    walls = []  # each phase's wall time, printed at the end
     _build.build_all()
     log(f"built {sorted(_build.SIGNATURES)} in {time.perf_counter() - t0:.1f}s -> {_build.BUILD_DIR}")
     for source in ("flash_prefill", "flash_decode", "paged_attention"):
@@ -4286,69 +4604,55 @@ def main() -> None:
         check_top_logprobs(device, kv_quant=kv_quant)
     check_mlp_slices(device)
     check_graph_pool(device)
+    walls.append(("kernels and 2-layer references", time.perf_counter() - t0))
     # each kernel's launches come from the serving phase of its own path;
     # every phase runs serve's default, the pipelined decode, except the
     # dense control, which runs in turns with it (pipelined, control,
     # control, pipelined): the host's pace drifts within a run
     launches, runs = {}, {}
     # the in-turns controls of earlier slices (graphed against eager, the
-    # decode carry, the harvest, int8 weights with the harvest and the
-    # admission chunk) run at CONTROL_LAYERS, each series with its own
-    # twin of the main path at that depth; the main paths at full depth
+    # decode carry, the harvest) run at CONTROL_LAYERS between two twins
+    # of the main path at that depth; the main paths at full depth. Cut
+    # for the smoke's time when phase 14 came: int8 weights with the JAX
+    # harvest and with ``--admission-chunk 2`` (and their int8 twin), the
+    # mixed run's warm split twins and the spec-off twins
     small = dict(layers=CONTROL_LAYERS)
     mixed = functools.partial(serve_paged_and_check, mixed=True)
-    warm_split = functools.partial(serve_paged_and_check, warm=True)  # the mixed run's twin
     pipelined = serve_dense_and_check
     dense_crash = functools.partial(serve_dense_and_check, crash=True)  # then the crash phase
     ctl_pipelined = functools.partial(serve_dense_and_check, **small)
     eager = functools.partial(serve_dense_and_check, graphs=False, **small)
     unpipelined = functools.partial(serve_dense_and_check, extra=("--no-pipeline-decode",), **small)
     jax_harvest = functools.partial(serve_dense_and_check, join=False, **small)
-    int8_flags = ("--quantization", "int8")
-    int8_weights = functools.partial(serve_dense_and_check, extra=int8_flags)
-    ctl_int8 = functools.partial(serve_dense_and_check, extra=int8_flags, **small)
-    int8_jax = functools.partial(serve_dense_and_check, extra=int8_flags, join=False, **small)
-    short = ("--admission-chunk", "2")
-    int8_short = functools.partial(serve_dense_and_check, extra=int8_flags + short, **small)
-    int8_jax_short = functools.partial(serve_dense_and_check, extra=int8_flags + short, join=False,
-                                       **small)
+    int8_weights = functools.partial(serve_dense_and_check, extra=("--quantization", "int8"))
     sessions = serve_sessions_and_check
     paged_sessions = functools.partial(serve_sessions_and_check, paged=True)
-    spec = serve_spec_and_check
-    spec_off = functools.partial(serve_spec_and_check, spec=False)
     paged_spec = functools.partial(serve_spec_and_check, paged=True)
-    paged_spec_off = functools.partial(serve_spec_and_check, paged=True, spec=False)
-    for serve, kv_quant, names in (
-        (dense_crash, False, ("flash_prefill", "flash_decode")),
-        (ctl_pipelined, False, ()),
-        (jax_harvest, False, ()),
-        (eager, False, ()),
-        (unpipelined, False, ()),
-        (ctl_pipelined, False, ()),
-        (int8_weights, False, ()),
-        (ctl_int8, False, ()),
-        (int8_jax, False, ()),
-        (int8_jax_short, False, ()),
-        (int8_short, False, ()),
-        (serve_paged_and_check, False,
+    for phase, serve, kv_quant, names in (
+        ("dense and crash", dense_crash, False, ("flash_prefill", "flash_decode")),
+        ("control: pipelined", ctl_pipelined, False, ()),
+        ("control: JAX harvest", jax_harvest, False, ()),
+        ("control: eager", eager, False, ()),
+        ("control: unpipelined", unpipelined, False, ()),
+        ("control: pipelined", ctl_pipelined, False, ()),
+        ("dense int8 weights", int8_weights, False, ()),
+        ("paged", serve_paged_and_check, False,
          ("paged_attention", "paged_attention/decode", "paged_attention/prefill")),
-        (warm_split, False, ()),
-        (mixed, False, ("paged_attention_ragged_q",)),
-        (pipelined, True, ("flash_prefill_quant", "flash_decode_quant")),
-        (serve_paged_and_check, True, ("paged_attention_quant", "paged_attention_quant/decode",
-                                       "paged_attention_quant/prefill")),
-        (warm_split, True, ()),
-        (mixed, True, ("paged_attention_ragged_q_quant",)),
-        (sessions, False, ()),
-        (paged_sessions, False, ()),
-        (paged_sessions, True, ()),
-        (spec, False, ()),
-        (spec_off, False, ()),
-        (paged_spec, False, ("paged_attention/verify",)),
-        (paged_spec_off, False, ()),
-        (paged_spec, True, ("paged_attention_quant/verify",)),
+        ("mixed", mixed, False, ("paged_attention_ragged_q",)),
+        ("dense int8 KV", pipelined, True, ("flash_prefill_quant", "flash_decode_quant")),
+        ("paged int8 KV", serve_paged_and_check, True, ("paged_attention_quant", "paged_attention_quant/decode",
+                                                        "paged_attention_quant/prefill")),
+        ("mixed int8 KV", mixed, True, ("paged_attention_ragged_q_quant",)),
+        ("sessions", sessions, False, ()),
+        ("paged sessions", paged_sessions, False, ()),
+        ("paged sessions int8 KV", paged_sessions, True, ()),
+        ("spec", serve_spec_and_check, False, ()),
+        ("paged spec", paged_spec, False, ("paged_attention/verify",)),
+        ("paged spec int8 KV", paged_spec, True, ("paged_attention_quant/verify",)),
     ):
+        started = time.perf_counter()
         counts = serve(label, kv_quant=kv_quant)
+        walls.append((phase, time.perf_counter() - started))
         launches.update({name: counts[name] for name in names})
         runs.setdefault((serve, kv_quant), []).append(counts)
         gc.collect()
@@ -4372,17 +4676,11 @@ def main() -> None:
         "JAX engine's harvest, mixed-length / uniform 64-token burst: "
         + turns(("join", "JAX", "join"),
                 (graphed_runs[0], *runs[jax_harvest, False], graphed_runs[1])))
-    log(f"int8 weights in turns{depth}, the harvest and --admission-chunk 2, mixed-length / uniform "
-        "64-token burst: " + turns(
-            ("join", "JAX", "JAX + admission-chunk 2", "join + admission-chunk 2"),
-            (runs[ctl_int8, False][0], runs[int8_jax, False][0], runs[int8_jax_short, False][0],
-             runs[int8_short, False][0])))
-    bare = [(kind, run["timing"]) for kind, run in zip(
-        ("graphed", "eager", "unpipelined", "graphed"),
-        (graphed_runs[0], runs[eager, False][0], *runs[unpipelined, False], graphed_runs[1]))]
-    log(f"bare bf16 decode step in the four dense bf16 control phases{depth} (eager wall / graphed wall "
-        "/ device ms): " + ", ".join(f"{t['wall_ms']:.2f} / {t['graph_wall_ms']:.3f} / {t['device_ms']:.3f}"
-                                     for _, t in bare))
+    bare = [run["timing"] for run in (graphed_runs[0], runs[jax_harvest, False][0], runs[eager, False][0],
+                                      *runs[unpipelined, False], graphed_runs[1])]
+    log(f"bare bf16 decode step in the five dense bf16 control phases{depth}, pipelined, JAX harvest, "
+        "eager, unpipelined, pipelined (eager wall / graphed wall / device ms): " + ", ".join(
+            f"{t['wall_ms']:.2f} / {t['graph_wall_ms']:.3f} / {t['device_ms']:.3f}" for t in bare))
     # the int8-weight phase beside the bf16 one, both at full depth
     bf16, int8 = runs[dense_crash, False][0], runs[int8_weights, False][0]
     log(f"bare decode step, bf16 vs int8 weights (32 slots x 512 rows): eager wall "
@@ -4392,19 +4690,15 @@ def main() -> None:
         f"{bf16['timing']['weight_bytes'] / 1e9:.2f} vs {int8['timing']['weight_bytes'] / 1e9:.2f} GB; "
         f"serving peak {bf16['peak_gib']:.2f} vs {int8['peak_gib']:.2f} GiB; uniform burst "
         f"{bf16['uniform_tok_s']:.1f} vs {int8['uniform_tok_s']:.1f} tok/s")
-    for twins, kind in (((spec, False), "dense"), ((paged_spec, False), "paged")):
-        on, off = runs[twins][0], runs[{spec: spec_off, paged_spec: paged_spec_off}[twins[0]], False][0]
-        same = sum(a == b for a, b in zip(on["texts"], off["texts"]))
-        log(f"spec {kind} in turns with its spec-off twin: {on['tok_s']:.1f} vs {off['tok_s']:.1f} tok/s, "
-            f"mean TTFT {on['ttft_ms']:.1f} vs {off['ttft_ms']:.1f} ms; {same}/16 greedy streams equal to "
-            f"the twin's (printed, not gated: bf16 near-ties on random weights)")
     # a real checkpoint's path: the provider's own weights written as a HF
     # directory and read back, then served with top-K logprobs
+    started = time.perf_counter()
     try:
         gate = check_checkpoint(device)
         serve_checkpoint_and_check(label, CHECKPOINT_DIR, runs[dense_crash, False][0], gate)
     finally:
         shutil.rmtree(CHECKPOINT_DIR, ignore_errors=True)
+    walls.append(("checkpoint", time.perf_counter() - started))
     # load shedding (and the profile capture) and the watchdog's
     # escalation, at RECOVERY_LAYERS: the server of the shedding phase
     # brings the profiler up in this thread, before the watchdog's capture
@@ -4412,26 +4706,44 @@ def main() -> None:
     for phase in (serve_shedding_and_check, serve_watchdog_and_check):
         gc.collect()
         torch.cuda.empty_cache()
+        started = time.perf_counter()
         phase(label)
+        walls.append((phase.__name__, time.perf_counter() - started))
     # embeddings and vector search: the encoder against the CPU, its HF
     # loader, the embeddings service beside the engine, the store
     gc.collect()
     torch.cuda.empty_cache()
+    started = time.perf_counter()
     encoder_config, encoder_params, _ = check_encoder_against_cpu(device, label)
     check_bert_checkpoint(device, encoder_config, encoder_params, label)
     serve_embeddings_and_check(label, device, encoder_config, encoder_params)
     del encoder_params
     check_vector_search(device, label)
+    walls.append(("embeddings and search", time.perf_counter() - started))
     # disaggregation and the host tier: the handoff between two engines,
     # demote and promote
     gc.collect()
     torch.cuda.empty_cache()
+    started = time.perf_counter()
     check_disagg_and_tiers(label)
+    walls.append(("disaggregation and host tier", time.perf_counter() - started))
     # training: Llama-3.2-1B's shape at full depth with AdamW, its
     # checkpoint, the resume, and the checkpoint served back (B1, B2)
     gc.collect()
     torch.cuda.empty_cache()
+    started = time.perf_counter()
     check_training(device, label)
+    walls.append(("training", time.perf_counter() - started))
+    # the Mixtral family: the 2-layer model against the CPU, its HF
+    # checkpoint, and 16 layers served (B1, B2; B3 at 2 layers)
+    gc.collect()
+    torch.cuda.empty_cache()
+    started = time.perf_counter()
+    check_moe(device, label)
+    walls.append(("mixtral (MoE)", time.perf_counter() - started))
+    log("phase wall times, longest first: " + ", ".join(
+        f"{name} {seconds:.1f}s" for name, seconds in sorted(walls, key=lambda item: -item[1]))
+        + f"; {sum(seconds for _, seconds in walls):.1f}s in all")
     for item in kernels:
         item["launches"] = launches[item["name"]]
         assert item["launches"] > 0, item

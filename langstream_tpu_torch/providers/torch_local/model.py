@@ -1,11 +1,13 @@
 """Llama-family decoder in PyTorch over a stacked-parameter dict.
 
 Port of ``langstream_tpu/providers/jax_local/model.py`` for the dense and
-paged serving paths and the differentiable forward. Parameters are a dict of tensors with the per-layer weights
-stacked on a leading layer axis, in the JAX package's ``[in, out]``
-layout, so ``x @ W`` is what its ``qeinsum("...h,hd->...d")`` computed and
-parameters carry across unchanged (see ``convert.py``). The ``lax.scan``
-over layers is a Python loop.
+paged serving paths and the differentiable forward, dense and
+mixture-of-experts (Mixtral). Parameters are a dict of tensors with the
+per-layer weights stacked on a leading layer axis, in the JAX package's
+``[in, out]`` layout, so ``x @ W`` is what its
+``qeinsum("...h,hd->...d")`` computed and parameters carry across
+unchanged (see ``convert.py``). The ``lax.scan`` over layers is a Python
+loop.
 
 Attention goes through the kernel wrappers in ``ops/``: on the card they
 launch the hand-written CUDA kernels, on the CPU they run the plain
@@ -15,6 +17,13 @@ attention stay ``torch.matmul``, through ``quant.qmatmul``: a weight may
 be a :class:`~langstream_tpu_torch.providers.torch_local.quant.QTensor`
 (weight-only int8, ``quantize="int8"`` in the engine), contracted against
 its int8 values with the scale on the output, in every call kind.
+
+A config with ``num_experts`` takes the MoE MLP of ``ops/moe.py``: every
+serving call in its exact regime (every expert on every token, nothing
+dropped), :func:`forward` in the capacity regime unless ``dropless``, as
+the JAX package trains. Its expert weights ``[L, E, H, F]`` / ``[L, E, F,
+H]`` and router ``[L, H, E]`` stay in the model dtype under int8 weights,
+as in the JAX package.
 
 :func:`forward` is the cache-free training and scoring path: the JAX
 ``apply_layers`` loop with autograd, each stacked leaf taken apart once
@@ -62,13 +71,10 @@ from langstream_tpu_torch.ops.paged_attention import (
     ragged_q_paged_attention,
     ragged_q_paged_attention_quant,
 )
+from langstream_tpu_torch.ops.moe import moe_mlp
 from langstream_tpu_torch.ops.norms import rms_norm
 from langstream_tpu_torch.ops.rope import apply_rope, rope_frequencies
 from langstream_tpu_torch.providers.torch_local.quant import qmatmul
-
-_NOT_PORTED = (
-    "is not ported to langstream_tpu_torch yet (see ROADMAP.md, Queue A)"
-)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,8 +93,8 @@ class LlamaConfig:
     norm_eps: float = 1e-5
     max_seq_len: int = 4096
     tie_embeddings: bool = False
-    # Mixture-of-experts (Mixtral family). 0 = dense SwiGLU MLP; the port
-    # raises on > 0 (MoE is not ported yet).
+    # Mixture-of-experts (Mixtral family). 0 = dense SwiGLU MLP;
+    # capacity_factor is the training regime's (serving never drops).
     num_experts: int = 0
     num_experts_per_tok: int = 2
     capacity_factor: float = 2.0
@@ -336,18 +342,14 @@ def config_from_hf(hf_config: Any) -> LlamaConfig:
     )
 
 
-def _require_dense(config: LlamaConfig) -> None:
-    if config.num_experts:
-        raise NotImplementedError(f"the MoE MLP (num_experts > 0) {_NOT_PORTED}")
-
-
 def init_params(
     config: LlamaConfig, seed: int = 0, device: torch.device | str = "cpu"
 ) -> Dict[str, torch.Tensor]:
     """Random-init (scaled normal) parameters with stacked layers, drawn
     on ``device`` from ``seed``. The numbers are not ``jax.random``'s;
-    parity tests carry the JAX params across with ``convert.py``."""
-    _require_dense(config)
+    parity tests carry the JAX params across with ``convert.py``. A MoE
+    config draws ``[L, E, ...]`` expert weights and the router with the
+    JAX scales, straight into the model dtype, as every leaf is."""
     generator = torch.Generator(device=device).manual_seed(seed)
     h, f, v = config.hidden_size, config.intermediate_size, config.vocab_size
     nh, nkv, hd = config.num_heads, config.num_kv_heads, config.dims_per_head
@@ -365,15 +367,16 @@ def init_params(
     def norm_init(shape):
         return torch.full(shape, norm_fill, dtype=torch.float32, device=device)
 
+    experts = (config.num_experts,) if config.num_experts else ()
     params = {
         "embedding": normal((v, h), scale),
         "wq": normal((layers, h, nh * hd), scale),
         "wk": normal((layers, h, nkv * hd), scale),
         "wv": normal((layers, h, nkv * hd), scale),
         "wo": normal((layers, nh * hd, h), deep),
-        "w_gate": normal((layers, h, f), scale),
-        "w_up": normal((layers, h, f), scale),
-        "w_down": normal((layers, f, h), deep),
+        "w_gate": normal((layers, *experts, h, f), scale),
+        "w_up": normal((layers, *experts, h, f), scale),
+        "w_down": normal((layers, *experts, f, h), deep),
         "attn_norm": norm_init((layers, h)),
         "mlp_norm": norm_init((layers, h)),
         "final_norm": norm_init((h,)),
@@ -384,6 +387,8 @@ def init_params(
     if config.qkv_bias:
         for name, width in (("bq", nh * hd), ("bk", nkv * hd), ("bv", nkv * hd)):
             params[name] = torch.zeros((layers, width), dtype=torch.float32, device=device)
+    if config.num_experts:
+        params["router"] = normal((layers, h, config.num_experts), scale)
     if not config.tie_embeddings:
         params["lm_head"] = normal((h, v), scale)
     return params
@@ -464,6 +469,8 @@ def validate_family_params(config: LlamaConfig, params: Dict[str, Any]) -> None:
         required += ["post_attn_norm", "post_mlp_norm"]
     if not config.tie_embeddings:
         required += ["lm_head"]
+    if config.num_experts:
+        required += ["router"]
     missing = [name for name in required if name not in params]
     if missing:
         raise ValueError(f"params missing {missing}, required by the model config")
@@ -514,15 +521,26 @@ def _embed(config: LlamaConfig, params, tokens: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def _mlp_block(config: LlamaConfig, normed: torch.Tensor, params, i) -> torch.Tensor:
-    """Dense gated MLP (SwiGLU, or GeGLU for Gemma) on normed activations."""
+def _mlp_block(config: LlamaConfig, normed: torch.Tensor, params, i, valid=None,
+               dropless: bool = True) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The gated MLP of layer i on normed activations → (residual delta,
+    MoE load-balancing aux loss, None for the dense MLP): SwiGLU, or GeGLU
+    for Gemma; with ``num_experts``, :func:`moe_mlp` in the exact regime
+    (``dropless``, every serving call) or the capacity regime with
+    ``valid`` keeping padding out of capacity (training)."""
+    if config.num_experts:
+        return moe_mlp(
+            normed, params["router"][i], params["w_gate"][i], params["w_up"][i],
+            params["w_down"][i], num_selected=config.num_experts_per_tok,
+            capacity_factor=None if dropless else config.capacity_factor, valid=valid,
+        )
     gate = qmatmul(normed, params["w_gate"][i])
     up = qmatmul(normed, params["w_up"][i])
     if config.act == "gelu_tanh":
         activated = F.gelu(gate, approximate="tanh")
     else:
         activated = F.silu(gate)
-    return qmatmul(activated * up, params["w_down"][i])
+    return qmatmul(activated * up, params["w_down"][i]), None
 
 
 # rows of one pass through the MLP: a call of more rows (a prefill of
@@ -535,16 +553,25 @@ def _mlp_block(config: LlamaConfig, normed: torch.Tensor, params, i) -> torch.Te
 MLP_ROWS = 4096
 
 
+def mlp_rows(config: LlamaConfig) -> int:
+    """Rows of one MLP pass: :data:`MLP_ROWS`, over the expert count for
+    the MoE MLP, whose intermediates are ``[E, rows, F]`` (the same bytes
+    a slice as the dense MLP's ``[rows, F]``)."""
+    return max(1, MLP_ROWS // max(config.num_experts, 1))
+
+
 def _mlp(config: LlamaConfig, normed: torch.Tensor, params, i) -> torch.Tensor:
-    """:func:`_mlp_block` over ``normed`` [..., hidden], in slices of
-    :data:`MLP_ROWS` rows (each row's result is the same computation;
-    the block keeps ``normed``'s width and dtype)."""
+    """The serving MLP (:func:`_mlp_block`, MoE in its exact regime) over
+    ``normed`` [..., hidden], in slices of :func:`mlp_rows` rows (each
+    row's result is the same computation: the exact regime routes each
+    token alone; the block keeps ``normed``'s width and dtype)."""
     rows = normed.reshape(-1, normed.shape[-1])
-    if rows.shape[0] <= MLP_ROWS:
-        return _mlp_block(config, normed, params, i)
+    step = mlp_rows(config)
+    if rows.shape[0] <= step:
+        return _mlp_block(config, normed, params, i)[0]
     out = torch.empty_like(rows)
-    for start in range(0, rows.shape[0], MLP_ROWS):
-        out[start:start + MLP_ROWS] = _mlp_block(config, rows[start:start + MLP_ROWS], params, i)
+    for start in range(0, rows.shape[0], step):
+        out[start:start + step] = _mlp_block(config, rows[start:start + step], params, i)[0]
     return out.reshape(normed.shape)
 
 
@@ -666,7 +693,6 @@ def prefill(
     the cache tensors are updated, not copied), and return the logits of
     each prompt's last real token [B, V] in f32. Over an int8 cache the
     prompt attends to its quantized rows."""
-    _require_dense(config)
     validate_family_params(config, params)
     seq = tokens.shape[1]
     slot_ids = slot_ids.long()
@@ -702,7 +728,6 @@ def prefill_at_offset(
     ``offset + T <= max_len``; past it the window is clamped to end at
     ``max_len``, as JAX's ``dynamic_update_slice`` clamps. Returns the
     logits [B, V] (f32) of each row's last real suffix token."""
-    _require_dense(config)
     validate_family_params(config, params)
     seq = tokens.shape[1]
     max_len = cache["k"].shape[2]
@@ -744,7 +769,6 @@ def decode_step(
     """One decode step for every slot: write the new token's KV at
     position ``lengths - 1`` (IN PLACE, only where ``write_mask``), attend
     over the cache, return next-token logits [S, V] in f32."""
-    _require_dense(config)
     validate_family_params(config, params)
     slots = tokens.shape[0]
     hd = config.dims_per_head
@@ -859,7 +883,6 @@ def paged_prefill(
         )
     if kernel != "reference":
         raise ValueError(f"unknown paged kernel {kernel!r}")
-    _require_dense(config)
     validate_family_params(config, params)
     batch, seq = tokens.shape
     valid = torch.arange(seq, device=tokens.device)[None, :] < lengths[:, None]
@@ -895,7 +918,6 @@ def paged_prefill_at_offset(
     written here: the engine admits suffixes at block boundaries into
     private blocks. Returns the logits [B, V] of each row's last real
     suffix token."""
-    _require_dense(config)
     validate_family_params(config, params)
     seq = tokens.shape[1]
     valid = torch.arange(seq, device=tokens.device)[None, :] < lengths[:, None]
@@ -932,7 +954,6 @@ def paged_decode_step(
     the decode case (Tq = 1, start = length - 1) of :func:`_paged_attn`.
     Decode never allocates: the engine reserves each request's worst case
     at admission. Returns next-token logits [S, V] in f32."""
-    _require_dense(config)
     validate_family_params(config, params)
     slots = tokens.shape[0]
     hd = config.dims_per_head
@@ -987,7 +1008,6 @@ def paged_mixed_step(
     grid through the projections, as the JAX step does. Returns the
     logits [S, V] (f32) of each row's last live token, the one position
     the engine samples."""
-    _require_dense(config)
     validate_family_params(config, params)
     slots, width = tokens.shape
     valid = torch.arange(width, device=tokens.device)[None, :] < num_tokens[:, None]  # [S, W]
@@ -1051,7 +1071,6 @@ def verify_step(
     rejected suffix rolls back by a length rewind alone. Each row writes
     a window of B distinct positions (its block, clamped inside the cache
     as JAX's dropped out-of-range writes leave the end of the cache)."""
-    _require_dense(config)
     validate_family_params(config, params)
     slots, seq = tokens.shape
     max_len = cache["k"].shape[2]
@@ -1102,7 +1121,6 @@ def paged_verify_step(
     ``ops/launches.py``). Blocks were reserved worst-case at admission,
     so verify never allocates and rollback is a length rewind. Returns
     the logits [S, B, V] (f32) of every position."""
-    _require_dense(config)
     validate_family_params(config, params)
     offsets, totals, writes = _block_positions(lengths, valid_lens, tokens.shape[1], write_mask)
     # an inactive row (length 0) attends over nothing: start and total 0
@@ -1128,7 +1146,7 @@ def paged_verify_step(
 # ---------------------------------------------------------------------- #
 # the stacked leaves a layer reads, when the family has them
 LAYER_LEAVES = ("attn_norm", "wq", "wk", "wv", "bq", "bk", "bv", "wo", "post_attn_norm",
-                "mlp_norm", "post_mlp_norm", "w_gate", "w_up", "w_down")
+                "mlp_norm", "post_mlp_norm", "w_gate", "w_up", "w_down", "router")
 
 
 def unstack_layers(params: Dict[str, Any]) -> Dict[str, Tuple[torch.Tensor, ...]]:
@@ -1140,9 +1158,10 @@ def unstack_layers(params: Dict[str, Any]) -> Dict[str, Tuple[torch.Tensor, ...]
     return {name: params[name].unbind(0) for name in LAYER_LEAVES if name in params}
 
 
-def _train_layer(config, layers, i, x, mask, freqs, positions, window):
+def _train_layer(config, layers, i, x, mask, freqs, positions, window, dropless):
     """Layer i of :func:`apply_layers`: the JAX ``layer_fn`` body over
-    ``x`` [B, T, H], attention through the plain ``prefill_attention``."""
+    ``x`` [B, T, H], attention through the plain ``prefill_attention`` →
+    (x, the layer's MoE aux loss or None)."""
     batch, seq = x.shape[:2]
     hd = config.dims_per_head
     normed = _norm(config, x, layers["attn_norm"][i])
@@ -1155,10 +1174,11 @@ def _train_layer(config, layers, i, x, mask, freqs, positions, window):
     if "post_attn_norm" in layers:
         attn = _norm(config, attn, layers["post_attn_norm"][i])
     x = x + attn
-    delta = _mlp_block(config, _norm(config, x, layers["mlp_norm"][i]), layers, i)
+    delta, aux = _mlp_block(config, _norm(config, x, layers["mlp_norm"][i]), layers, i,
+                            valid=mask, dropless=dropless)
     if "post_mlp_norm" in layers:
         delta = _norm(config, delta, layers["post_mlp_norm"][i])
-    return x + delta
+    return x + delta, aux
 
 
 def apply_layers(
@@ -1168,27 +1188,33 @@ def apply_layers(
     mask: Optional[torch.Tensor],    # [B, T] valid-token mask or None
     freqs: torch.Tensor,
     remat: bool = False,
+    dropless: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The layer loop over activations → (x, MoE aux sum: 0, the model
-    is dense). Attention is the plain ``prefill_attention``, the
-    formulation the JAX package differentiates (its kernels have no
-    VJP). ``remat`` recomputes each layer in the backward
+    """The layer loop over activations → (x, the sum of the layers' MoE
+    aux losses, 0 for the dense MLP). Attention is the plain
+    ``prefill_attention``, the formulation the JAX package differentiates
+    (its kernels have no VJP); the MoE MLP runs in the capacity regime
+    with ``mask`` as its valid tokens, or the exact one with
+    ``dropless``. ``remat`` recomputes each layer in the backward
     (``torch.utils.checkpoint``, non-reentrant) instead of keeping its
     activations: the JAX trainer's ``jax.checkpoint`` over the whole
     loss, with the same gradient and another peak."""
-    _require_dense(config)
     batch, seq = x.shape[:2]
     positions = torch.arange(seq, device=x.device)[None, :].expand(batch, seq)
     # positions past the RoPE table clamp to its last row, as JAX's gather does
     positions = positions.clamp(max=freqs.shape[1] - 1)
     windows = layer_windows(config)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(len(layers["wq"])):
-        args = (config, layers, i, x, mask, freqs, positions, windows[i] if windows else None)
+        args = (config, layers, i, x, mask, freqs, positions, windows[i] if windows else None,
+                dropless)
         if remat:
-            x = torch.utils.checkpoint.checkpoint(_train_layer, *args, use_reentrant=False)
+            x, layer_aux = torch.utils.checkpoint.checkpoint(_train_layer, *args, use_reentrant=False)
         else:
-            x = _train_layer(*args)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+            x, layer_aux = _train_layer(*args)
+        if layer_aux is not None:
+            aux = aux + layer_aux
+    return x, aux
 
 
 def forward(
@@ -1199,18 +1225,20 @@ def forward(
     freqs: Optional[torch.Tensor] = None,
     with_aux: bool = False,
     remat: bool = False,
+    dropless: bool = False,
 ):
     """Cache-free full-sequence forward → logits [B, T, V] in f32, with
     autograd (the training and scoring path; serving uses
     :func:`prefill` and :func:`decode_step`). With ``with_aux`` also the
-    mean MoE load-balancing loss, 0 for the dense model. A MoE config
-    raises, as :func:`init_params` does."""
-    _require_dense(config)
+    mean MoE load-balancing loss over the layers, 0 for the dense model.
+    ``dropless`` selects the exact MoE regime (scoring a dropless-trained
+    checkpoint); training keeps the capacity regime, as JAX's does."""
     validate_family_params(config, params)
     if freqs is None:
         freqs = model_freqs(config, device=tokens.device)
     x = _embed(config, params, tokens)
-    x, aux = apply_layers(config, unstack_layers(params), x, mask, freqs, remat=remat)
+    x, aux = apply_layers(config, unstack_layers(params), x, mask, freqs, remat=remat,
+                          dropless=dropless)
     logits = _logits(config, params, _norm(config, x, params["final_norm"]))
     if with_aux:
         return logits, aux / max(config.num_layers, 1)

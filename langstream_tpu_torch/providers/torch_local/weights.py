@@ -1,5 +1,5 @@
 """HuggingFace checkpoint directories → the port's stacked param dict
-(Llama, Qwen-2, Gemma-2).
+(Llama, Qwen-2, Gemma-2, Mixtral).
 
 Port of ``langstream_tpu/providers/jax_local/weights.py`` and of the JAX
 ``model.load_hf_checkpoint``, with no ``safetensors`` or ``transformers``
@@ -19,16 +19,17 @@ package: the port reads both file formats itself.
 Both loaders map the HF names onto the JAX package's layout: each layer's
 ``[out, in]`` matrix transposed to ``[in, out]`` and stacked on a leading
 layer axis; norms (and Qwen-2's q/k/v biases) in f32; Gemma-2's four
-norms; ``lm_head`` unless the embeddings are tied. Each stacked leaf is
-allocated once on the device and filled layer by layer (a ``torch.stack``
-would hold every layer twice), so at most one source tensor is on the
-host at a time, and the transpose runs on the device. A tensor stored in
-another dtype than the config's is cast once, rounding to nearest even,
-through f32 when it is a 16-bit float: the JAX loaders go through f32,
-which holds every f16 and bf16 value exactly, so the bits are theirs.
-
-Mixtral (``num_local_experts``) raises before any tensor is read: the
-MoE MLP is not ported (ROADMAP.md, behind A10).
+norms; Mixtral's experts ``block_sparse_moe.experts.{e}.w1`` / ``w3`` /
+``w2`` as ``w_gate`` / ``w_up`` / ``w_down`` ``[L, E, in, out]`` and its
+router ``block_sparse_moe.gate`` ``[E, H]`` as ``router`` ``[L, H, E]``;
+``lm_head`` unless the embeddings are tied. Each stacked leaf is
+allocated once on the device and filled layer by layer, expert by
+expert (a ``torch.stack`` would hold every layer twice), so at most one
+source tensor is on the host at a time, and the transpose runs on the
+device. A tensor stored in another dtype than the config's is cast
+once, rounding to nearest even, through f32 when it is a 16-bit float:
+the JAX loaders go through f32, which holds every f16 and bf16 value
+exactly, so the bits are theirs.
 
 :func:`write_safetensors` writes the format, for the port's training
 checkpoints (``training/checkpoint.py``). :func:`load_checkpoint`
@@ -45,6 +46,7 @@ model for this, the port reads the same tensors.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import os
 import struct
@@ -67,6 +69,9 @@ SAFETENSORS_DTYPES = {
     "I8": torch.int8, "U8": torch.uint8, "I16": torch.int16, "I32": torch.int32,
     "I64": torch.int64, "BOOL": torch.bool,
 }
+
+# the MoE leaves with an expert axis after the layer axis
+EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
 
 SAFETENSORS_INDEX = "model.safetensors.index.json"
 BIN_FILE = "pytorch_model.bin"
@@ -218,23 +223,20 @@ def load_config(path: str) -> LlamaConfig:
     return config_from_hf(types.SimpleNamespace(**hf))
 
 
-def _require_dense(config: LlamaConfig) -> None:
-    if config.num_experts:
-        raise NotImplementedError(
-            f"a mixture-of-experts checkpoint ({config.num_experts} experts, Mixtral) cannot be "
-            "loaded: the MoE MLP is not ported to langstream_tpu_torch (see ROADMAP.md, A10)")
-
-
 def param_shapes(config: LlamaConfig) -> Dict[str, Tuple[int, ...]]:
-    """The shape of every leaf of the dense family's param dict."""
+    """The shape of every leaf of the config's param dict (a MoE config's
+    expert weights with the expert axis after the layer axis)."""
     h, f, v, layers = config.hidden_size, config.intermediate_size, config.vocab_size, config.num_layers
     q, kv = config.num_heads * config.dims_per_head, config.num_kv_heads * config.dims_per_head
+    experts = (config.num_experts,) if config.num_experts else ()
     shapes = {
         "embedding": (v, h), "wq": (layers, h, q), "wk": (layers, h, kv), "wv": (layers, h, kv),
-        "wo": (layers, q, h), "w_gate": (layers, h, f), "w_up": (layers, h, f),
-        "w_down": (layers, f, h), "attn_norm": (layers, h), "mlp_norm": (layers, h),
+        "wo": (layers, q, h), "w_gate": (layers, *experts, h, f), "w_up": (layers, *experts, h, f),
+        "w_down": (layers, *experts, f, h), "attn_norm": (layers, h), "mlp_norm": (layers, h),
         "final_norm": (h,),
     }
+    if config.num_experts:
+        shapes["router"] = (layers, h, config.num_experts)
     if config.post_norms:
         shapes.update(post_attn_norm=(layers, h), post_mlp_norm=(layers, h))
     if config.qkv_bias:
@@ -258,7 +260,7 @@ def _load_params(store: Any, config: LlamaConfig, device: torch.device) -> Dict[
     """The stacked param dict from ``store`` (``get(name)`` → a host
     tensor in the file's dtype): matrices in ``config.dtype``, norms and
     biases in f32."""
-    dtype, layers = config.dtype, config.num_layers
+    dtype = config.dtype
     shapes = param_shapes(config)
 
     def fetch(name: str, transpose: bool) -> torch.Tensor:
@@ -272,28 +274,44 @@ def _load_params(store: Any, config: LlamaConfig, device: torch.device) -> Dict[
         return _cast(tensor, cast).contiguous()
 
     def stacked(key: str, pattern: str, cast=dtype, transpose: bool = True) -> torch.Tensor:
+        """Leaf ``key`` from one stored tensor a layer
+        (``pattern.format(layer)``), or a (layer, expert) for the expert
+        weights (``pattern.format(layer, expert)``)."""
+        lead = 2 if config.num_experts and key in EXPERT_LEAVES else 1
+        want = shapes[key][lead:]
         out = torch.empty(shapes[key], dtype=cast, device=device)
-        for layer in range(layers):
-            name = pattern.format(layer)
+        for index in itertools.product(*map(range, shapes[key][:lead])):
+            name = pattern.format(*index)
             tensor = fetch(name, transpose)
-            if tuple(tensor.shape) != shapes[key][1:]:
-                raise ValueError(
-                    f"{name}: shape {list(tensor.shape)}, the config wants {list(shapes[key][1:])}")
-            out[layer].copy_(_cast(tensor, cast))
+            if tuple(tensor.shape) != want:
+                raise ValueError(f"{name}: shape {list(tensor.shape)}, the config wants {list(want)}")
+            out[index].copy_(_cast(tensor, cast))
             del tensor
         return out
 
     f32 = torch.float32
     prefix = "model.layers.{}."
+    if config.num_experts:
+        moe = prefix + "block_sparse_moe."
+        mlp = {
+            "w_gate": stacked("w_gate", moe + "experts.{}.w1.weight"),
+            "w_up": stacked("w_up", moe + "experts.{}.w3.weight"),
+            "w_down": stacked("w_down", moe + "experts.{}.w2.weight"),
+            "router": stacked("router", moe + "gate.weight"),
+        }
+    else:
+        mlp = {
+            "w_gate": stacked("w_gate", prefix + "mlp.gate_proj.weight"),
+            "w_up": stacked("w_up", prefix + "mlp.up_proj.weight"),
+            "w_down": stacked("w_down", prefix + "mlp.down_proj.weight"),
+        }
     params = {
         "embedding": leaf("embedding", "model.embed_tokens.weight"),
         "wq": stacked("wq", prefix + "self_attn.q_proj.weight"),
         "wk": stacked("wk", prefix + "self_attn.k_proj.weight"),
         "wv": stacked("wv", prefix + "self_attn.v_proj.weight"),
         "wo": stacked("wo", prefix + "self_attn.o_proj.weight"),
-        "w_gate": stacked("w_gate", prefix + "mlp.gate_proj.weight"),
-        "w_up": stacked("w_up", prefix + "mlp.up_proj.weight"),
-        "w_down": stacked("w_down", prefix + "mlp.down_proj.weight"),
+        **mlp,
         "attn_norm": stacked("attn_norm", prefix + "input_layernorm.weight", f32, False),
     }
     if config.post_norms:
@@ -320,7 +338,6 @@ def _load(store_type, path: str, dtype: Any, config: Optional[LlamaConfig], devi
           ) -> Tuple[LlamaConfig, Dict[str, torch.Tensor]]:
     device = resolve_device(device)
     config = dataclasses.replace(config or load_config(path), dtype=dtype)
-    _require_dense(config)  # before any tensor is read
     store = store_type(path)
     try:
         return config, _load_params(store, config, device)

@@ -7,7 +7,9 @@ an optimizer step that updates the parameters in place.
 
 - The loss is :func:`loss_fn`: the causal cross-entropy over the
   differentiable ``model.forward``, whose attention is the plain
-  ``prefill_attention``, the formulation JAX differentiates.
+  ``prefill_attention``, the formulation JAX differentiates; a MoE model
+  (Mixtral) adds ``moe_aux_weight`` times the router's load-balancing
+  loss, its MLP in the capacity regime, as JAX's trains.
 - The optimizer is JAX's chain, ``optax.clip_by_global_norm(grad_clip)``
   then ``optax.adamw(lr, b1, b2, weight_decay)`` with eps 1e-8 and no
   mask (the decay reaches every leaf, norms included). The clip is
@@ -21,9 +23,8 @@ an optimizer step that updates the parameters in place.
   (``torch.utils.checkpoint``); JAX wraps the whole loss in
   ``jax.checkpoint(..., nothing_saveable)``. The gradient is the same,
   the peak memory is not.
-- A mesh with any axis above 1, pp included, raises (ROADMAP.md, A10),
-  and so does a MoE config; so ``TrainConfig`` has neither JAX's
-  ``moe_aux_weight`` nor its ``num_microbatches`` (A11).
+- A mesh with any axis above 1, pp and ep included, raises (ROADMAP.md,
+  A10), so ``TrainConfig`` has no ``num_microbatches`` (A11).
 """
 
 from __future__ import annotations
@@ -49,13 +50,18 @@ class TrainConfig:
     b2: float = 0.95
     grad_clip: float = 1.0
     remat: bool = True
+    # MoE load-balancing loss weight (ignored for dense models)
+    moe_aux_weight: float = 0.01
 
 
-def loss_fn(config, params, tokens, mask, freqs, remat: bool = False) -> torch.Tensor:
-    """Causal next-token cross-entropy, mean over valid positions (the
-    dense model has no MoE aux loss)."""
-    logits = model_lib.forward(config, params, tokens, mask=mask, freqs=freqs, remat=remat)
-    return causal_ce_loss(logits, tokens, mask)
+def loss_fn(config, params, tokens, mask, freqs, remat: bool = False,
+            moe_aux_weight: float = 0.01) -> torch.Tensor:
+    """Causal next-token cross-entropy, mean over valid positions, plus
+    ``moe_aux_weight`` times the router's load-balancing loss for a MoE
+    model (a dense model's aux loss is 0)."""
+    logits, aux = model_lib.forward(config, params, tokens, mask=mask, freqs=freqs,
+                                    with_aux=True, remat=remat)
+    return causal_ce_loss(logits, tokens, mask) + moe_aux_weight * aux
 
 
 @torch.no_grad()
@@ -83,7 +89,6 @@ class Trainer:
         device: Any = "cuda",
     ) -> None:
         require_single_card(mesh_config)
-        model_lib._require_dense(model_config)
         model_lib.validate_family_params(model_config, params)
         self.model_config = model_config
         self.train_config = train_config or TrainConfig()
@@ -107,7 +112,8 @@ class Trainer:
         mask = torch.as_tensor(mask, dtype=torch.bool).to(self.device)
         self.optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(self.model_config, self.params, tokens, mask, self.freqs,
-                       remat=self.train_config.remat)
+                       remat=self.train_config.remat,
+                       moe_aux_weight=self.train_config.moe_aux_weight)
         loss.backward()
         clip_by_global_norm_((p.grad for p in self.params.values()),
                              self.train_config.grad_clip)

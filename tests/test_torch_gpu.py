@@ -1534,3 +1534,24 @@ def test_training_step_on_the_card_matches_cpu():
     result = chip_smoke.check_training_against_cpu(device)
     assert result["loss_err"] <= chip_smoke.TRAIN_LOSS_TOLERANCE
     assert result["worst_cosine"] >= chip_smoke.TRAIN_GRAD_COSINE
+
+
+@pytest.mark.gpu
+def test_moe_training_step_on_the_card_matches_cpu():
+    """The MoE train step: ``tiny_moe`` widened to hidden 512 (4 heads of
+    128, intermediate 1024) with 8 experts, 2 layers, one loss (the CE
+    plus 0.01 × the router's aux loss, the capacity regime) and its
+    gradients in bf16 on the card against the port in f32 on the CPU
+    from the same weights, B 2 × T 128 with a padded row: the loss within
+    1e-2 relative, every leaf's gradient (the router's and the experts'
+    included) at cosine 0.99 or more."""
+    device = _card()
+    import chip_smoke
+
+    config = dataclasses.replace(model.LlamaConfig.tiny_moe(max_seq_len=256), hidden_size=512,
+                                 intermediate_size=1024, num_experts=8, dtype=torch.bfloat16)
+    result = chip_smoke.check_training_against_cpu(device, config=config)
+    print(f"MoE train step, card vs CPU: {result}")
+    assert result["loss_err"] <= chip_smoke.TRAIN_LOSS_TOLERANCE
+    assert result["worst_cosine"] >= chip_smoke.TRAIN_GRAD_COSINE
+    assert result["tokens_routed"] > 0

@@ -116,11 +116,29 @@ def test_prefill_and_decode_match_jax(preset):
 
 
 def test_unported_paths_raise():
-    moe = model.LlamaConfig.tiny_moe()
-    with pytest.raises(NotImplementedError):
-        model.init_params(moe)
-    with pytest.raises(NotImplementedError):
-        model.verify_step(moe, {}, {}, None, None, None, None)
+    """The paths this once refused now run: ``init_params(tiny_moe)`` has
+    JAX's leaves and shapes, and ``verify_step`` on it gives JAX's
+    logits (a block of 3 after a prefill of 10)."""
+    jcfg, tcfg = jax_model.LlamaConfig.tiny_moe(max_seq_len=MAX_LEN), model.LlamaConfig.tiny_moe(
+        max_seq_len=MAX_LEN)
+    drawn = model.init_params(tcfg)
+    assert {k: tuple(v.shape) for k, v in drawn.items()} == {
+        k: tuple(v.shape) for k, v in jax_model.init_params(jcfg).items()}
+    jparams, tparams = _params(jcfg, tcfg)
+    rng = np.random.default_rng(5)
+    prompt = rng.integers(0, jcfg.vocab_size, size=(2, 10)).astype(np.int32)
+    block = rng.integers(0, jcfg.vocab_size, size=(2, 3)).astype(np.int32)
+    jcache = jax_model.init_cache(jcfg, 2, MAX_LEN)
+    jcache, _ = jax_model.prefill(jcfg, jparams, jcache, jnp.asarray(prompt),
+                                  jnp.asarray([10, 10], jnp.int32), jnp.arange(2), jax_model.model_freqs(jcfg))
+    tcache = cache_from_jax({k: np.asarray(v) for k, v in jcache.items()})
+    step = (block, np.array([11, 11], np.int32), np.array([3, 2], np.int32))
+    _, jlogits = jax_model.verify_step(jcfg, jparams, jcache, *map(jnp.asarray, step),
+                                       jax_model.model_freqs(jcfg))
+    tlogits = model.verify_step(tcfg, tparams, tcache, *(torch.from_numpy(a) for a in step),
+                                model.model_freqs(tcfg))
+    _close(tlogits[0].numpy(), np.asarray(jlogits)[0])
+    _close(tlogits[1, :2].numpy(), np.asarray(jlogits)[1, :2])
 
 
 def _assert_int8_cache(cache, shape):

@@ -16,8 +16,8 @@ The same numpy-seeded tokens, and JAX params carried across with
   the model) whose first gradient the two frameworks round apart by
   more than 1e-3 of its size: Adam normalizes each coordinate by its
   own gradient, so there the rounding is the update;
-- the refusals: a MoE config, a mesh of size > 1, pp > 1, and
-  ``device="cuda"`` without CUDA.
+- the refusals: an ``ep`` axis of a MoE config, a mesh of size > 1,
+  pp > 1, and ``device="cuda"`` without CUDA.
 """
 
 import dataclasses
@@ -220,11 +220,13 @@ def test_trainer_refusals(case):
     _, tcfg, _, _, tokens, mask = _setup("tiny")
     params = _port_params("tiny")
     if case == "moe":
+        # MoE trains on one card; expert parallelism (an ep axis) is refused
         moe = model.LlamaConfig.tiny_moe()
-        with pytest.raises(NotImplementedError, match="MoE"):
-            trainer.Trainer(moe, params, device="cpu")
-        with pytest.raises(NotImplementedError, match="MoE"):
-            model.forward(moe, params, torch.from_numpy(tokens))
+        moe_params = model.init_params(moe)
+        with pytest.raises(NotImplementedError, match="A10"):
+            trainer.Trainer(moe, moe_params, mesh_config=MeshConfig(ep=2), device="cpu")
+        assert MeshConfig.from_config({"ep": 2}) == MeshConfig(ep=2)
+        trainer.Trainer(moe, moe_params, device="cpu")
     elif case in ("mesh", "pp"):
         mesh = MeshConfig(dp=2, fsdp=2) if case == "mesh" else MeshConfig(pp=2)
         assert mesh.size > 1

@@ -13,8 +13,9 @@
 - ``load_hf_checkpoint`` reads a ``pytorch_model.bin`` directory (a tiny
   ``transformers`` Llama saved with ``safe_serialization=False``, one
   file and sharded) into the params JAX's ``load_hf_checkpoint`` gives.
-- A Mixtral directory and an orbax directory raise before any tensor is
-  read.
+- A Mixtral directory, safetensors and ``pytorch_model.bin``, loads bit
+  for bit as JAX's loaders load it; an orbax directory raises before any
+  tensor is read.
 - The checkpoint writer of ``chip_smoke.py`` writes files the
   ``safetensors`` package reads back.
 - The provider with ``checkpoint`` serves the JAX provider's greedy and
@@ -275,30 +276,63 @@ def test_pytorch_model_bin_equals_jax(tmp_path, sharded):
                                                      tcfg))
 
 
-def _garbage_tensors(path):
-    """Files that raise if a loader reads them."""
-    with open(os.path.join(path, "model.safetensors"), "wb") as fh:
-        fh.write(b"\xff" * 64)
+MIXTRAL_HF = {
+    "model_type": "mixtral", "architectures": ["MixtralForCausalLM"], "vocab_size": 256,
+    "hidden_size": 64, "intermediate_size": 128, "num_hidden_layers": 2, "num_attention_heads": 4,
+    "num_key_value_heads": 2, "rope_theta": 1000000.0, "rms_norm_eps": 1e-5,
+    "max_position_embeddings": 256, "tie_word_embeddings": False, "num_local_experts": 4,
+    "num_experts_per_tok": 2,
+}
+
+
+def mixtral_state(config, params) -> dict:
+    """JAX ``tiny_moe`` params under the HF Mixtral names, as
+    ``tests/test_weights.py`` writes them: each ``[in, out]`` matrix as
+    the ``[out, in]`` tensor HF stores, the router ``[E, H]``, each
+    expert's ``w1`` / ``w3`` / ``w2`` (gate, up, down) apart."""
+    f32 = {name: np.asarray(leaf, np.float32) for name, leaf in params.items()}
+    state = {"model.embed_tokens.weight": f32["embedding"], "model.norm.weight": f32["final_norm"],
+             "lm_head.weight": f32["lm_head"].T}
+    for i in range(config.num_layers):
+        p = f"model.layers.{i}."
+        for leaf, name in (("wq", "self_attn.q_proj"), ("wk", "self_attn.k_proj"),
+                           ("wv", "self_attn.v_proj"), ("wo", "self_attn.o_proj")):
+            state[p + name + ".weight"] = f32[leaf][i].T
+        state[p + "block_sparse_moe.gate.weight"] = f32["router"][i].T
+        for e in range(config.num_experts):
+            for hf_w, ours in (("w1", "w_gate"), ("w3", "w_up"), ("w2", "w_down")):
+                state[p + f"block_sparse_moe.experts.{e}.{hf_w}.weight"] = f32[ours][i, e].T
+        state[p + "input_layernorm.weight"] = f32["attn_norm"][i]
+        state[p + "post_attention_layernorm.weight"] = f32["mlp_norm"][i]
+    return {name: torch.from_numpy(np.array(value, order="C")) for name, value in state.items()}
 
 
 @pytest.mark.parametrize("form", ["safetensors", "bin"])
 def test_mixtral_raises_before_reading(tmp_path, form):
-    hf = {"model_type": "mixtral", "vocab_size": 256, "hidden_size": 64, "intermediate_size": 128,
-          "num_hidden_layers": 2, "num_attention_heads": 4, "num_key_value_heads": 2,
-          "num_local_experts": 8, "num_experts_per_tok": 2}
-    with open(os.path.join(tmp_path, "config.json"), "w") as fh:
-        json.dump(hf, fh)
+    """A Mixtral directory (``block_sparse_moe`` experts and router) of
+    JAX's ``tiny_moe`` weights, as safetensors shards or a
+    ``pytorch_model.bin``: the port's loader and its checkpoint dispatch
+    give JAX's loader's config and bf16 params bit for bit (the
+    safetensors loader's, or ``load_hf_checkpoint`` through
+    ``transformers``), the experts stacked ``[L, E, in, out]``."""
+    jcfg = jax_model.LlamaConfig.tiny_moe()
+    state = mixtral_state(jcfg, jax_model.init_params(jcfg, seed=4))
     if form == "safetensors":
-        _garbage_tensors(tmp_path)
+        write_checkpoint(tmp_path, MIXTRAL_HF, state, sharded=True)
+        want_cfg, want = jax_weights.load_safetensors_checkpoint(str(tmp_path))
         load = weights.load_safetensors_checkpoint
     else:
-        with open(os.path.join(tmp_path, "pytorch_model.bin"), "wb") as fh:
-            fh.write(b"\xff" * 64)
+        with open(os.path.join(tmp_path, "config.json"), "w") as fh:
+            json.dump(MIXTRAL_HF, fh)
+        torch.save(state, os.path.join(tmp_path, "pytorch_model.bin"))
+        want_cfg, want = jax_model.load_hf_checkpoint(str(tmp_path))
         load = weights.load_hf_checkpoint
-    for call in (lambda: load(str(tmp_path), device="cpu"),
-                 lambda: weights.load_checkpoint(str(tmp_path), device="cpu")):
-        with pytest.raises(NotImplementedError, match="MoE.*ROADMAP.md"):
-            call()
+    assert want_cfg.num_experts == 4 and tuple(want["w_down"].shape) == (2, 4, 128, 64)
+    for tcfg, tparams in (load(str(tmp_path), device="cpu"),
+                          weights.load_checkpoint(str(tmp_path), device="cpu")):
+        assert_configs_equal(tcfg, want_cfg)
+        assert_params_equal(tparams, params_from_jax({k: np.asarray(v) for k, v in want.items()}, tcfg))
+        assert tuple(tparams["router"].shape) == (2, 64, 4)
 
 
 def test_orbax_directory_raises_before_reading(tmp_path):
@@ -325,7 +359,7 @@ def test_shape_mismatch_names_the_tensor(tmp_path):
 # ---------------------------------------------------------------------- #
 # the smoke's writer
 # ---------------------------------------------------------------------- #
-@pytest.mark.parametrize("family", ["tiny", "tiny_qwen2"])
+@pytest.mark.parametrize("family", ["tiny", "tiny_qwen2", "tiny_moe"])
 def test_smoke_writer_is_read_back_by_the_safetensors_package(tmp_path, family):
     """``chip_smoke.write_hf_checkpoint`` of the port's params, in shards
     with an index: the package reads every tensor back as the writer's
