@@ -113,7 +113,8 @@ Phases (any failure propagates and the exit code is not 0):
    of that at the crash and the peak at most the served peak plus the
    dead engine's KV cache; printed: recovery seconds, memory, streams
    equal to the uncrashed run's.
-5. Paged serving: the same model with ``--kv-layout paged``, answering 16
+5. Paged serving (at ``CUT_LAYERS``, 8, since phase 15 came): the same
+   model with ``--kv-layout paged``, answering 16
    chats that share a ~512-byte system message, 8 text completions and
    one SSE stream, all arriving cold. The prefix cache must have served
    tokens, B3 must have been launched once per layer per model call, and
@@ -129,12 +130,14 @@ Phases (any failure propagates and the exit code is not 0):
    invalidations printed by reason); and one bare paged decode step and
    one mixed step of that model, eager and graphed, with their device
    time.
-6. int8 serving: phases 4 and 5 again, same model and traffic, with
+6. int8 serving (at ``CUT_LAYERS`` since phase 15 came): phases 4 and 5
+   again, same traffic, with
    ``kv-quant: int8`` in the provider's engine config (``serve`` has no
    flag for it). Dense: B4 and B5 once per layer per model call; paged:
    B6 once per layer per model call; mixed: B8 per mixed step and B6 per
    decode step; no other kernel launched.
-7. Sessions: 16 users × 3 chat turns sent with the OpenAI ``user`` field
+7. Sessions (at ``CUT_LAYERS``, 8, since phase 15 came; full depth
+   before): 16 users × 3 chat turns sent with the OpenAI ``user`` field
    (a ~300-byte system message; turn n + 1 resends turn n's messages
    with the reply and a new message), then 8 sessionless chats sharing a
    ~530-byte system message, dense bf16, paged bf16 and paged int8 KV:
@@ -143,7 +146,8 @@ Phases (any failure propagates and the exit code is not 0):
    answered, no capture, each kernel once per layer per model call;
    dense 32 session hits (no eviction) and prefix hits; paged
    copy-on-write copies.
-8. Speculative decoding: ``engine.spec-decode: ngram``, ``spec-k`` 4, 16
+8. Speculative decoding (at ``CUT_LAYERS`` since phase 15 came):
+   ``engine.spec-decode: ngram``, ``spec-k`` 4, 16
    greedy completions of 128 tokens on repeating prompts, dense and
    paged, and paged over the int8 cache (the spec-off twins were cut for
    the smoke's time when phase 14 came:
@@ -267,11 +271,37 @@ Phases (any failure propagates and the exit code is not 0):
    once per layer per call by their card counters. That model written as
    a HF Mixtral directory by this script's writer and loaded back bit for
    bit (removed after). Then ``serve --model mixtral-8x7b --precompile``
-   at ``MOE_SERVE_LAYERS`` (16 of 32) layers answers phase 4's two
+   at ``MOE_SERVE_LAYERS`` (8 of 32; 16 until phase 15 came) layers
+   answers phase 4's two
    bursts, gated as phase 4 is (every request answered, no capture, B1
    and B2 once per layer per model call, MFU, MBU and prefill MFU in (0,
    1.05]); tok/s, TTFT, precompile s, the graph pool, the peak, and the
    bare decode step's device ms and MBU printed.
+
+15. Tensor parallelism (no kernel of its own: each rank launches B1, B2,
+   B3 and their int8 twins on its own heads). Two tp ranks, each a
+   process, share the card: they talk over gloo, which stages a card's
+   tensors through the host (NCCL refuses two ranks on one device), so
+   the step functions run eagerly; this process is rank 0 where one
+   serves. First Llama-3-8B at full width and 2 layers (16 heads over 4
+   of 128 a rank; both ranks started by ``parallel.launch`` with
+   :func:`tp_model_rank`): a dense prefill and 2 decode steps, a paged
+   prefill, a prefill at an offset and 2 decode steps, bf16 and int8 KV;
+   both ranks' logits equal bit for bit and within 5e-2 of the same
+   calls at tp=1 on the card and on the CPU; each rank's card counters
+   B1/B2 (B4/B5) or B3 (B6) once per layer per call. Then ``mesh: {tp:
+   2}`` Llama-3-8B at full depth, random from seed 0, served through the
+   provider and the OpenAI server (``cli.main.start_tp_server``,
+   eager, pipelined, no precompile; 9 slots, one 256 bucket): the
+   dense phase's first 8 greedy prompts and its SSE chat at once. Gates:
+   every request answered; each stream equal to a one-card engine's over
+   the same weights and prompts but for a near-tie (``same_stream``);
+   the follower replayed every record published, its token digest the
+   leader's; each rank's card counters B1 and B2 once per layer per
+   model call. Printed: each rank's peak GiB, the backend, the step
+   functions, tok/s and the bare eager step's wall, which measure two
+   ranks time-sharing one card over host-staged gloo, not a tp speed.
+   The ranks' output goes to ``build/tp/``.
 
 Each phase's wall time is printed in one line before the kernels'.
 
@@ -403,6 +433,10 @@ SCALE_BYTES = 8
 CONTROL_LAYERS = 2
 # depth of the watchdog, shedding and embeddings phases' engines
 RECOVERY_LAYERS = 8
+# depth of the paged, mixed, sessions, spec and int8-KV serving phases:
+# full depth until the tensor-parallel phase came, cut then by their
+# printed walls (each ~15-20 s of precompile at full depth)
+CUT_LAYERS = 8
 # the shedding phase's SLO: targets every answered request breaks, so the
 # burn rate and the blame by journey stage must show
 SHEDDING_SLO = {"ttft-ms-p95": 1, "tpot-ms-p95": 1}
@@ -2667,7 +2701,8 @@ def serve_shedding_and_check(label: str) -> None:
         + f"; blame {blame}")
 
 
-def serve_paged_and_check(label: str, kv_quant: bool = False, mixed: bool = False) -> dict:
+def serve_paged_and_check(label: str, kv_quant: bool = False, mixed: bool = False,
+                          layers=None) -> dict:
     """The paged layout, split (bucketed prefill calls, B3/B6 for all) or
     ``mixed`` (``--prefill-mode mixed``: prompt windows ride the decode
     step, B7/B8 for mixed steps, B3/B6 for the plain decode steps
@@ -2676,11 +2711,12 @@ def serve_paged_and_check(label: str, kv_quant: bool = False, mixed: bool = Fals
     before a warm suffix reads them. The mixed engine publishes a cold
     prompt's blocks only when it finishes, so a burst that arrives at
     once would find nothing to share: with ``mixed`` one chat with the
-    system message is answered first, uncounted."""
+    system message is answered first, uncounted. ``layers``: the model cut
+    to that depth."""
     extra = ["--kv-layout", "paged", "--kv-block-size", "16"]
     if mixed:
         extra += ["--prefill-mode", "mixed"]
-    service, server = start_llama_server(*extra, kv_quant=kv_quant)
+    service, server = start_llama_server(*extra, kv_quant=kv_quant, layers=layers)
     rng = np.random.default_rng(1)
     system = {"role": "system", "content": prompt_text(rng, 512)}
     jobs = []
@@ -2708,7 +2744,7 @@ def serve_paged_and_check(label: str, kv_quant: bool = False, mixed: bool = Fals
     if mixed:
         time_paged_steps(service.engine)
     tokens = check_replies(jobs, replies)
-    layers = model.LlamaConfig.llama3_8b().num_layers
+    layers = service.engine.config.num_layers
     calls = stats["model_dispatches"]
     paged = "paged_attention_quant" if kv_quant else "paged_attention"
     ragged_q = "paged_attention_ragged_q_quant" if kv_quant else "paged_attention_ragged_q"
@@ -2743,7 +2779,7 @@ def serve_paged_and_check(label: str, kv_quant: bool = False, mixed: bool = Fals
     other = "paged_attention/prefill" if kv_quant else "paged_attention_quant/prefill"
     assert launches[other] == 0, launches
     kind = (("mixed paged" if mixed else "paged") + (" int8 KV" if kv_quant else "")
-            + (" warm" if warmup else " cold"))
+            + (" warm" if warmup else " cold") + (f", {layers} layers" if layers != 32 else ""))
     report(label, kind, jobs, wall, tokens, stats, launches, host, peak_gib)
     check_roofline(label, kind, stats, tokens / wall, stats["ttft_time"] / stats["requests"] * 1e3,
                    prefill=not mixed)
@@ -2778,14 +2814,14 @@ def _answered(jobs, replies):
     return tokens, texts
 
 
-def _kernel_gates(stats, launches, host, paged: bool, kv_quant: bool) -> None:
+def _kernel_gates(stats, launches, host, paged: bool, kv_quant: bool, layers: int = 32) -> None:
     """The kernels of the burst's path, each once per layer per model
     call by its card counter, and no other: dense B1 (B4) per cold
     prefill call and B2 (B5) per decode step (prefill at an offset and
     the verify block attend in plain PyTorch); paged B3 (B6) per call,
     split by its card counters into prefill calls, verify steps and
-    decode steps; nothing enqueued eagerly (every step a replay)."""
-    layers = model.LlamaConfig.llama3_8b().num_layers
+    decode steps; nothing enqueued eagerly (every step a replay).
+    ``layers``: the served depth."""
     calls = stats["model_dispatches"]
     q = "_quant" if kv_quant else ""
     if paged:
@@ -2801,7 +2837,8 @@ def _kernel_gates(stats, launches, host, paged: bool, kv_quant: bool) -> None:
 
 
 def serve_sessions_and_check(label: str, paged: bool = False, kv_quant: bool = False) -> dict:
-    """Sessions through ``serve --precompile`` (pipelined): 16 users × 3
+    """Sessions through ``serve --precompile`` (pipelined) at
+    :data:`CUT_LAYERS` layers: 16 users × 3
     turns of chat, each turn sent with the OpenAI ``user`` field and a
     ~300-byte system message, turn n + 1 the messages of turn n, its
     reply and a new user message; then 8 sessionless chats sharing a
@@ -2811,7 +2848,7 @@ def serve_sessions_and_check(label: str, paged: bool = False, kv_quant: bool = F
     once per layer per model call; dense: 32 session hits (32 slots, 16
     users: no eviction) and prefix hits; paged: copy-on-write copies."""
     extra = ["--kv-layout", "paged", "--kv-block-size", "16"] if paged else []
-    service, server = start_llama_server(*extra, kv_quant=kv_quant)
+    service, server = start_llama_server(*extra, kv_quant=kv_quant, layers=CUT_LAYERS)
     rng = np.random.default_rng(5)
     system = {"role": "system", "content": prompt_text(rng, 300)}
     chats = [[system, {"role": "user", "content": f"user {u}: " + prompt_text(rng, 40 + 4 * u)}]
@@ -2830,7 +2867,7 @@ def serve_sessions_and_check(label: str, paged: bool = False, kv_quant: bool = F
                     for i in range(8)]
             replies, wall, launches, host, stats, peak_gib = run_burst(service, server, jobs)
             tokens, texts = _answered(jobs, replies)
-            _kernel_gates(stats, launches, host, paged, kv_quant)
+            _kernel_gates(stats, launches, host, paged, kv_quant, layers=CUT_LAYERS)
             for key in total:
                 total[key] += stats[key]
             copies = {kind: n for kind, n in stats["runs_by_kind"].items() if kind in ("copy", "block_copy")}
@@ -2844,7 +2881,7 @@ def serve_sessions_and_check(label: str, paged: bool = False, kv_quant: bool = F
         server.stop()
         service.close()
     cow = (service.engine.kv_manager.stats["cow_copies"] - cow) if paged else 0
-    kind = ("paged" if paged else "dense") + (" int8 KV" if kv_quant else "")
+    kind = ("paged" if paged else "dense") + (" int8 KV" if kv_quant else "") + f", {CUT_LAYERS} layers"
     log(f"sessions {kind} [{label}]: " + "; ".join(
         f"{'turn ' + str(n + 1) if n < 3 else 'sessionless shared prefix'} {t['tok_s']:.1f} tok/s, mean "
         f"TTFT {t['ttft_ms']:.1f} ms, session_hits {t['session_hits']}, prefix_hits {t['prefix_hits']}, "
@@ -2859,8 +2896,8 @@ def serve_sessions_and_check(label: str, paged: bool = False, kv_quant: bool = F
 
 
 def serve_spec_and_check(label: str, paged: bool = False, kv_quant: bool = False) -> dict:
-    """Speculative decoding through ``serve --precompile`` (pipelined) with
-    ``engine.spec-decode: ngram``, ``spec-k`` 4: 16 greedy text
+    """Speculative decoding through ``serve --precompile`` (pipelined) at
+    :data:`CUT_LAYERS` layers with ``engine.spec-decode: ngram``, ``spec-k`` 4: 16 greedy text
     completions of 128 new tokens, each on
     a prompt whose text repeats, at once. Gates: every request answered,
     nothing captured, each kernel once per layer per model call (the
@@ -2868,7 +2905,7 @@ def serve_spec_and_check(label: str, paged: bool = False, kv_quant: bool = False
     are B3/B6's verify launches, by the card's own counter); drafts were
     made and accepted. Returns the launches, texts, tok/s and mean TTFT."""
     extra = ["--kv-layout", "paged", "--kv-block-size", "16"] if paged else []
-    service, server = start_llama_server(*extra, kv_quant=kv_quant,
+    service, server = start_llama_server(*extra, kv_quant=kv_quant, layers=CUT_LAYERS,
                                          engine_config={"spec-decode": "ngram", "spec-k": 4})
     rng = np.random.default_rng(7)
     jobs = []
@@ -2882,11 +2919,12 @@ def serve_spec_and_check(label: str, paged: bool = False, kv_quant: bool = False
         server.stop()
         service.close()
     tokens, texts = _answered(jobs, replies)
-    _kernel_gates(stats, launches, host, paged, kv_quant)
+    _kernel_gates(stats, launches, host, paged, kv_quant, layers=CUT_LAYERS)
     calls = stats["model_dispatches"]
     assert calls.get("paged_verify_step" if paged else "verify_step", 0) > 0, calls
     assert stats["tokens_drafted"] > 0 and stats["tokens_draft_accepted"] > 0, stats
-    kind = ("paged" if paged else "dense") + (" int8 KV" if kv_quant else "") + " spec-decode ngram"
+    kind = (("paged" if paged else "dense") + (" int8 KV" if kv_quant else "")
+            + f" spec-decode ngram, {CUT_LAYERS} layers")
     log(f"spec {kind} [{label}]: {stats['requests']} requests, {tokens} completion tokens in {wall:.3f}s = "
         f"{tokens / wall:.1f} tok/s; mean TTFT {stats['ttft_time'] / stats['requests'] * 1e3:.1f} ms; "
         f"decode steps {stats['decode_steps']} ({stats['decode_time']:.3f}s), tokens drafted "
@@ -3622,25 +3660,26 @@ def _generate(eng, prompt, sampling, **fields):
     return result, (eng.stats["ttft_time"] - before) * 1e3
 
 
-def same_stream(got, want, greedy: bool, label: str) -> bool:
+def same_stream(got, want, greedy: bool, label: str, tolerance: float = NEAR_TIE) -> bool:
     """True when ``got`` equals the oracle ``want`` token for token; False
-    when they part at a near-tie (:data:`NEAR_TIE`): a replay prefills the
-    row of the prompt's last sampled token that the oracle wrote in a
-    decode step, and bf16 GEMMs of other shapes round it otherwise.
-    Raises on any other difference."""
+    when they part at a near-tie (within ``tolerance``, :data:`NEAR_TIE`
+    unless the caller states another): a replay prefills the row of the
+    prompt's last sampled token that the oracle wrote in a decode step,
+    and bf16 GEMMs of other shapes round it otherwise. Raises on any other
+    difference."""
     if got.tokens == want.tokens:
         return True
     assert len(got.tokens) == len(want.tokens), (label, got.tokens, want.tokens)
     first = next(j for j, (a, b) in enumerate(zip(got.tokens, want.tokens)) if a != b)
     for j in range(first):
-        assert abs(got.logprobs[j] - want.logprobs[j]) <= NEAR_TIE, (label, j, got.logprobs, want.logprobs)
+        assert abs(got.logprobs[j] - want.logprobs[j]) <= tolerance, (label, j, got.logprobs, want.logprobs)
     ids, lps = want.top_logprobs[first]
     token = got.tokens[first]
     assert token in ids, (label, first, token, ids)
     other = lps[ids.index(token)]
-    assert abs(got.logprobs[first] - other) <= NEAR_TIE, (label, first, got.logprobs[first], other)
+    assert abs(got.logprobs[first] - other) <= tolerance, (label, first, got.logprobs[first], other)
     if greedy:
-        assert want.logprobs[first] - other <= NEAR_TIE, (label, first, want.logprobs[first], other)
+        assert want.logprobs[first] - other <= tolerance, (label, first, want.logprobs[first], other)
     return False
 
 
@@ -4350,8 +4389,9 @@ def check_training(device, label: str) -> None:
 MOE_CHECKPOINT_DIR = os.path.join("build", "mixtral-checkpoint")
 # depth of the served Mixtral-8x7B: its 32 layers are 93.4 GB of bf16
 # weights (the experts stay bf16 under int8 weights), more than one card
-# holds; 16 layers and the embedding and head are 46.96 GB
-MOE_SERVE_LAYERS = 16
+# holds; 16 layers were served until the tensor-parallel phase came, cut
+# to 8 (23.74 GB) then by the phase's printed wall (its precompile)
+MOE_SERVE_LAYERS = 8
 MOE_DECODE_STEPS = 8
 # the paged run and the CPU's take the dense card run's experts; where a
 # token's own top-k differs, the dense run's k-th and (k+1)-th router
@@ -4570,6 +4610,366 @@ def check_moe(device, label: str) -> dict:
     return served
 
 
+# ---------------------------------------------------------------------- #
+# phase 15: tensor parallelism, two ranks sharing the card over gloo
+# ---------------------------------------------------------------------- #
+TP = 2
+# seconds a rank waits for the other (the rendezvous, every collective,
+# the mirror's join and the ranks' exits): a rank that dies fails the phase
+TP_TIMEOUT_S = 240
+TP_SEED = 7
+TP_LOGS = os.path.join("build", "tp")
+# the served tp phase: 9 slots, prompts in one 256 bucket (each eager
+# warm-up of a larger one stages 2 × 32 activations of its every token
+# through the host), the dense phase's first greedy prompts and its SSE
+# chat
+TP_REQUESTS = 8
+TP_SLOTS = TP_REQUESTS + 1  # the completions and the SSE chat at once
+TP_BUCKET = 256
+TP_TOPK = 5
+# the served tp streams against one card's: two bf16 steps of a logit at
+# the magnitudes these logits reach (8-16, where bf16 keeps 1/16). Every
+# rank's column products (q, k, v, the MLP's gate and up, the head) run
+# at half one card's width, where cuBLAS may sum in another order, so
+# the last bit of a hidden value, and with it a logit's bf16 step, can
+# differ from one card's (on the H100: a logprob 0.0622 apart at a token
+# both runs chose)
+TP_NEAR_TIE = 0.125
+
+
+def _tp_config(layers: int = 2):
+    return dataclasses.replace(model.LlamaConfig.llama3_8b(max_seq_len=256), num_layers=layers)
+
+
+def tp_sequence(config, params, where, kv_quant: bool, count: bool = False):
+    """The 2-layer tp check's model calls on ``where``: dense, a cold
+    prefill of two prompts and two decode steps; paged (16-token blocks),
+    a cold prefill, a prefill at an offset of a third row onto the first
+    prompt's first two blocks, and two decode steps (a fourth, empty row
+    rides along). Inputs from :data:`TP_SEED`. Returns the logits by call
+    (f32, on the host) and, with ``count``, each call's kernel launches
+    by the card's counters."""
+    rng = np.random.default_rng(TP_SEED)
+    prompts = torch.from_numpy(rng.integers(0, config.vocab_size, size=(2, 48)))
+    suffix = torch.from_numpy(rng.integers(0, config.vocab_size, size=(1, 16)))
+    steps = torch.from_numpy(rng.integers(0, config.vocab_size, size=(2, 4)))
+    width, block = 16, 16
+    tables = np.zeros((4, width), dtype=np.int32)
+    tables[:3] = (rng.permutation(4 * width) + 1)[: 3 * width].reshape(3, width)
+    tables[2, :2] = tables[0, :2]
+    tables = torch.from_numpy(tables).to(where)
+    i32 = dict(dtype=torch.int32, device=where)
+    lengths = torch.tensor([48, 30], **i32)
+    freqs = model.model_freqs(config, device=where)
+    active = torch.tensor([True, True, True, False], device=where)
+    logits, launches = {}, {}
+
+    def call(name, fn):
+        if count:
+            with launches_lib.device_launches(shapes=True) as counted:
+                out = fn()
+            launches[name] = {kernel: n for kernel, n in counted.items() if n}
+        else:
+            out = fn()
+        logits[name] = out.float().cpu()
+        return out
+
+    dense = model.init_cache(config, 3, 256, kv_quant=kv_quant, device=where)
+    call("prefill", lambda: model.prefill(config, params, dense, prompts.to(where), lengths,
+                                          torch.tensor([0, 2], device=where), freqs))
+    # slot 1 is empty: it rides along masked
+    dense_active = torch.tensor([True, False, True], device=where)
+    step_lengths = torch.tensor([49, 0, 31], **i32)
+    for step in range(2):
+        call(f"decode{step}", lambda: model.decode_step(
+            config, params, dense, steps[step, :3].to(where), step_lengths, freqs,
+            dense_active)[dense_active])
+        step_lengths = torch.where(dense_active, step_lengths + 1, step_lengths)
+    pool = model.init_paged_cache(config, 4 * width + 1, block, kv_quant=kv_quant, device=where)
+    call("paged_prefill", lambda: model.paged_prefill(config, params, pool, prompts.to(where), lengths,
+                                                      tables[:2], freqs))
+    call("paged_offset", lambda: model.paged_prefill_at_offset(
+        config, params, pool, suffix.to(where), torch.tensor([16], **i32), torch.tensor([32], **i32),
+        tables[2:3], freqs))
+    step_lengths = torch.tensor([49, 31, 49, 0], **i32)
+    for step in range(2):
+        call(f"paged_decode{step}", lambda: model.paged_decode_step(
+            config, params, pool, steps[step].to(where), step_lengths, tables, freqs, active)[active])
+        step_lengths = torch.where(active, step_lengths + 1, step_lengths)
+    return logits, launches
+
+
+def tp_model_rank(rank: int, world: int, device: str, payload: dict) -> None:
+    """One rank of the 2-layer tp check (started by ``parallel.launch``):
+    its shard of the same weights, drawn on the card from
+    :data:`TP_SEED` and cut leaf by leaf as drawn, its rank config, and
+    :func:`tp_sequence` over the bf16 and the int8 cache; the logits and
+    the launches of each call saved under ``payload["out"]``."""
+    from langstream_tpu_torch.parallel.mesh import MeshConfig, build_group
+
+    mesh = MeshConfig(tp=world)
+    group = build_group(mesh, device)
+    config = _tp_config()
+    params = model.init_params(config, seed=TP_SEED, device=device,
+                               keep=lambda name, leaf: model.shard_leaf(config, name, leaf, mesh, rank))
+    ranked = model.rank_config(config, group)
+    account = {"backend": group.backend,
+               "heads": [ranked.num_heads, ranked.num_kv_heads, ranked.dims_per_head]}
+    saved = {}
+    for kv_quant in (False, True):
+        logits, launches = tp_sequence(ranked, params, device, kv_quant, count=True)
+        saved.update({f"{int(kv_quant)}/{name}": value.numpy() for name, value in logits.items()})
+        account[f"launches{int(kv_quant)}"] = launches
+    np.savez(f"{payload['out']}.{rank}.npz", **saved)
+    with open(f"{payload['out']}.{rank}.json", "w") as out:
+        json.dump(account, out)
+
+
+def _ranks_log(name: str):
+    """A log file under :data:`TP_LOGS` for a rank process's output (the
+    smoke's own standard output stays its own)."""
+    os.makedirs(TP_LOGS, exist_ok=True)
+    return open(os.path.join(TP_LOGS, name), "w")
+
+
+def check_tp_model(device, label: str) -> None:
+    """Llama-3-8B width, 2 layers, two tp ranks sharing the card over gloo
+    (:func:`tp_model_rank`, two processes): each rank's logits (gathered
+    whole, so equal on both, bit for bit) within the model tolerance of
+    the same calls at tp=1 on the card and on the CPU, bf16 and int8 KV;
+    each rank's card counters show B1/B2 (B4/B5) or B3 (B6) once per layer
+    per call, on 16 heads over 4 of 128."""
+    from langstream_tpu_torch.parallel import launch
+    from langstream_tpu_torch.runtime.multihost import free_port
+
+    started = time.perf_counter()
+    out = os.path.join(TP_LOGS, "model")
+    with _ranks_log("model-ranks.log") as ranks_log:
+        children = launch.spawn_ranks(
+            "chip_smoke:tp_model_rank", {"out": out}, [str(device)] * TP,
+            f"127.0.0.1:{free_port()}", timeout_s=TP_TIMEOUT_S, ranks=range(TP),
+            stdout=ranks_log, stderr=subprocess.STDOUT)
+        try:
+            config = _tp_config()
+            params = model.init_params(config, seed=TP_SEED, device=device)
+            cpu_params = {name: p.cpu() for name, p in params.items()}
+            refs = {kv_quant: (tp_sequence(config, params, device, kv_quant)[0],
+                               tp_sequence(config, cpu_params, "cpu", kv_quant)[0])
+                    for kv_quant in (False, True)}
+            del params, cpu_params
+            codes = launch.stop_ranks(children, timeout_s=TP_TIMEOUT_S)
+        finally:
+            for child in children:
+                if child.poll() is None:
+                    child.kill()
+    assert codes == [0] * TP, (codes, open(os.path.join(TP_LOGS, "model-ranks.log")).read()[-4000:])
+    ranks = [dict(np.load(f"{out}.{rank}.npz")) for rank in range(TP)]
+    accounts = [json.load(open(f"{out}.{rank}.json")) for rank in range(TP)]
+    worst = {"tp=1 card": 0.0, "CPU": 0.0}
+    layers = config.num_layers
+    for kv_quant, (card, cpu) in refs.items():
+        q = "_quant" if kv_quant else ""
+        for name in card:
+            got = torch.from_numpy(ranks[0][f"{int(kv_quant)}/{name}"])
+            assert torch.equal(got, torch.from_numpy(ranks[1][f"{int(kv_quant)}/{name}"])), name
+            assert bool(torch.isfinite(got).all()), name
+            for where, ref in (("tp=1 card", card[name]), ("CPU", cpu[name])):
+                worst[where] = max(worst[where], errors(got, ref)[1])
+            if name.startswith("paged_"):
+                kernel = f"paged_attention{q}"
+                want = {kernel: layers}
+                if "decode" not in name:
+                    want[f"{kernel}/prefill"] = layers
+            else:
+                want = {f"flash_{'prefill' if name == 'prefill' else 'decode'}{q}": layers}
+            for account in accounts:
+                assert account[f"launches{int(kv_quant)}"][name] == want, (name, account)
+    for account in accounts:
+        assert account["heads"] == [16, 4, 128] and account["backend"] == "gloo", account
+    assert max(worst.values()) < MODEL_TOLERANCE, worst
+    log(f"tp reference [{label}]: Llama-3-8B width, 2 layers, tp={TP} (two ranks sharing the card over "
+        f"gloo, 16 heads over 4 of 128 a rank), dense prefill + 2 decode steps and paged prefill, "
+        f"prefill at an offset + 2 decode steps, bf16 and int8 KV: both ranks' logits equal bit for bit; "
+        + ", ".join(f"vs {where} max_rel_err={value:.3e}" for where, value in worst.items())
+        + f" (tol {MODEL_TOLERANCE}); each rank B1/B2, B3 (B4/B5, B6) {layers} a call by its card "
+        f"counters; {time.perf_counter() - started:.1f} s")
+
+
+def _tp_jobs():
+    """The dense phase's prompts (``dense_jobs``, seed 0): its first
+    :data:`TP_REQUESTS` greedy completions and its SSE chat."""
+    jobs = dense_jobs(np.random.default_rng(0))
+    greedy = [job for job in jobs[:-1] if "temperature" not in job[1]][:TP_REQUESTS]
+    return greedy + jobs[-1:]
+
+
+def _warm_launches(variants) -> dict:
+    """The model calls that warming ``variants`` (kind, size) up ran, by
+    the kernel's call: a cold prefill's one call (B1; a dense prefill at
+    an offset launches no kernel), a decode chunk's steps (B2)."""
+    pairs = [(variant[0], variant[1]) for variant in variants]  # (kind, size)
+    return {"prefill": sum(kind == "prefill" for kind, _ in pairs),
+            "decode": sum(size for kind, size in pairs if kind == "decode")}
+
+
+def time_tp_step(engine, live: int = 512, iters: int = 5) -> float:
+    """The bare eager decode step of a tp leader, every slot at ``live``
+    rows: one step dispatched through the engine's runner, so the record
+    reaches the followers, which run it too; the median wall in ms, the
+    host clock around the step and a synchronize."""
+    key = engine_lib.Variant("decode", 1, "greedy")
+    inputs = engine._step_dummy(key)
+    slots = engine.max_slots
+    inputs.update(tokens=np.arange(1, slots + 1, dtype=np.int64),
+                  lengths=np.full((slots,), live, dtype=np.int32), active=np.ones((slots,), dtype=bool))
+    walls = []
+    with torch.inference_mode():  # as the engine thread runs its steps
+        for _ in range(iters + 1):
+            started = time.perf_counter()
+            engine._run_step(key, inputs)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - started) * 1e3)
+    return float(np.median(walls[1:]))
+
+
+def serve_tp_and_check(label: str, device) -> dict:
+    """``mesh: {tp: 2}`` Llama-3-8B at full width and depth, random from
+    seed 0, served through the provider and the OpenAI server
+    (``cli.main.start_tp_server``, eager, pipelined; no precompile, so a
+    variant's first use runs its body once more, which the launch gates
+    count):
+    this process is rank 0 and serves; rank 1, a process of its own on
+    the same card, replays its dispatches. The dense phase's greedy
+    prompts and its SSE chat at once. Gates: every request answered;
+    each stream equal to a one-card engine's over the same weights and
+    prompts (the dense phase's path, eager) but for a near-tie
+    (:func:`same_stream`); the follower replayed every record published
+    and its token digest is the leader's; each rank's card counters B1
+    and B2 once per layer per model call. Prints each rank's peak GiB,
+    the backend, the step functions, tok/s and the bare eager step's
+    wall: two ranks time-sharing one card over host-staged gloo, not a
+    tp speed."""
+    import torch.distributed as dist
+
+    from langstream_tpu_torch.cli.main import start_tp_server
+    from langstream_tpu_torch.parallel import launch
+
+    started = time.perf_counter()
+    args = build_parser().parse_args([
+        "serve", "--model", "llama-3-8b", "--tp", str(TP), "--max-slots", str(TP_SLOTS),
+        "--max-seq-len", "1024", "--decode-chunk", "8", "--logprobs-top-k",
+        str(TP_TOPK), "--host", "127.0.0.1", "--port", "0", "--mirror-port", "0"])
+    config = serve_config(args)
+    config["engine"]["prefill-buckets"] = [TP_BUCKET]
+    report_path = os.path.join(TP_LOGS, "follower")
+    torch.cuda.reset_peak_memory_stats()
+    jobs = _tp_jobs()
+    results = {}
+    with _ranks_log("follower.log") as follower_log:
+        service, server, followers = start_tp_server(
+            args, config, devices=[str(device)] * TP, timeout_s=TP_TIMEOUT_S, report=report_path,
+            stdout=follower_log, stderr=subprocess.STDOUT)
+        up_s = time.perf_counter() - started
+        up_peak = torch.cuda.max_memory_allocated() / 2**30  # the burst resets it
+        engine = service.engine
+        post = engine._post_future
+
+        def captured(request, result):
+            results[tuple(request.prompt_tokens)] = (request, result)
+            post(request, result)
+
+        engine._post_future = captured
+        try:
+            replies, wall, launches, host, stats, peak_gib = run_burst(service, server, jobs)
+            # no precompile: each variant's first use during the burst ran its
+            # body once more (a cold prefill: its call again; a decode chunk:
+            # its steps on idle rows), every kernel launched as in a call
+            warm = _warm_launches(engine.steps.variants)
+            step_ms = time_tp_step(engine)
+        finally:
+            del engine._post_future
+            server.stop()
+            service.close()  # the stop record: the follower reports and exits
+            codes = launch.stop_ranks(followers, timeout_s=TP_TIMEOUT_S)
+            dist.destroy_process_group()
+    assert codes == [0], (codes, open(os.path.join(TP_LOGS, "follower.log")).read()[-4000:])
+    leader_peak = torch.cuda.max_memory_allocated() / 2**30
+    follower = json.load(open(f"{report_path}.1"))
+    mirror = engine.mirror
+    tokens = check_replies(jobs, replies)
+    calls = stats["model_dispatches"]
+    layers = engine.config.num_layers
+    want = {"flash_prefill": layers * (calls.get("prefill", 0) + warm["prefill"]),
+            "flash_decode": layers * (calls.get("decode_step", 0) + warm["decode"])}
+    assert launches == {name: want.get(name, 0) for name in launches}, (launches, calls, warm)
+    assert host == {name: want.get(name, 0) for name in KERNELS}, host  # eager: each enqueued
+    replayed = follower["model_calls"]
+    follower_warm = _warm_launches(follower["variants"])
+    assert follower["launches"]["flash_prefill"] == layers * (
+        replayed.get("prefill", 0) + follower_warm["prefill"]) > 0, follower
+    assert follower["launches"]["flash_decode"] == layers * (
+        replayed.get("decode", 0) + follower_warm["decode"]) > 0, follower
+    assert sum(follower["launches"].values()) == (follower["launches"]["flash_prefill"]
+                                                   + follower["launches"]["flash_decode"]), follower
+    assert follower["records"] == mirror.published - 1, (follower["records"], mirror.published)
+    assert follower["digest"] == mirror.digest.hexdigest(), (follower["digest"], mirror.digest.hexdigest())
+    assert engine.stats["step_functions"] == "eager" and engine.group.backend == "gloo"
+    assert (engine.config.num_heads, engine.config.num_kv_heads) == (16, 4)
+    assert len(results) == len(jobs), len(results)
+    served_ms = stats["decode_time"] / max(stats["decode_steps"], 1) * 1e3
+    log(f"tp serving [{label}]: Llama-3-8B bf16 random weights, 32 layers, mesh {{tp: {TP}}}: two ranks "
+        f"time-sharing one card over host-staged gloo (backend {engine.group.backend}), NOT a tp speed; "
+        f"step functions {stats['step_functions']}; up in {up_s:.1f} s (both ranks' weights; no "
+        f"precompile); {stats['requests']} requests, {tokens} tokens in {wall:.3f} s = "
+        f"{tokens / wall:.1f} tok/s, mean TTFT {stats['ttft_time'] / stats['requests'] * 1e3:.1f} ms, "
+        f"served decode step {served_ms:.1f} ms ({stats['decode_steps']} steps), bare eager step "
+        f"{step_ms:.2f} ms ({TP_SLOTS} slots x 512 rows); first uses warmed {warm}; peak GiB rank 0 "
+        f"{up_peak:.2f} up to serving, {leader_peak:.2f} serving, rank 1 {follower['peak_gib']:.2f} over "
+        f"its life (each allocator's own); model calls {calls}; rank 0 launches {launches}, rank 1 "
+        f"{dict((k, v) for k, v in follower['launches'].items() if v)} for {replayed}; records published "
+        f"{mirror.published} (stop included), replayed {follower['records']} {follower['kinds']}; token "
+        f"digest {mirror.digest.hexdigest()} both ranks; {time.perf_counter() - started:.1f} s")
+    # the one-card reference: the same weights (seed 0) and prompts, eager
+    engine.release()
+    del service, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    compared = time.perf_counter()
+    full = model.LlamaConfig.llama3_8b(max_seq_len=1024)
+    reference = engine_lib.DecodeEngine(
+        full, model.init_params(full, seed=0, device=device), device=device, max_slots=TP_SLOTS,
+        max_seq_len=1024, prefill_buckets=[TP_BUCKET], decode_chunk=8, logprobs_topk=TP_TOPK,
+        step_graphs=False, pipeline_decode=True)
+    reference.start()
+    try:
+        with concurrent.futures.ThreadPoolExecutor(len(results)) as pool:
+            wants = list(pool.map(lambda item: _generate(
+                reference, item[0].prompt_tokens, dataclasses.asdict(item[0].sampling),
+                stop_tokens=set(item[0].stop_tokens))[0], results.values()))
+    finally:
+        reference.stop()
+        reference.release()
+    equal = sum(same_stream(got, want, True, "tp=2 vs one card", tolerance=TP_NEAR_TIE)
+                for (_, got), want in zip(results.values(), wants))
+    first = [next((j for j, (a, b) in enumerate(zip(got.tokens, want.tokens)) if a != b), None)
+             for (_, got), want in zip(results.values(), wants)]
+    log(f"tp streams [{label}]: {equal} of {len(wants)} equal to a one-card engine's over the same weights "
+        f"and prompts (eager), the rest parting at near-ties within {TP_NEAR_TIE} nats (first differing "
+        f"token of each: {first}); {time.perf_counter() - compared:.1f} s")
+    return dict(tok_s=tokens / wall, step_ms=step_ms, leader_peak=leader_peak,
+                follower_peak=follower["peak_gib"], equal=equal)
+
+
+def check_tp(device, label: str) -> None:
+    """Phase 15: :func:`check_tp_model`, then :func:`serve_tp_and_check`."""
+    started = time.perf_counter()
+    check_tp_model(device, label)
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_tp_and_check(label, device)
+    log(f"phase 15 (tensor parallelism) [{label}]: {time.perf_counter() - started:.1f} s")
+
+
 def main() -> None:
     # the watchdog's trip captures and /debug/profile's go under build/,
     # which git ignores; so does the flight artifact, on as in `serve`
@@ -4617,8 +5017,12 @@ def main() -> None:
     # harvest and with ``--admission-chunk 2`` (and their int8 twin), the
     # mixed run's warm split twins and the spec-off twins
     small = dict(layers=CONTROL_LAYERS)
-    mixed = functools.partial(serve_paged_and_check, mixed=True)
-    pipelined = serve_dense_and_check
+    cut = dict(layers=CUT_LAYERS)
+    paged_cut = functools.partial(serve_paged_and_check, **cut)
+    mixed_cut = functools.partial(serve_paged_and_check, mixed=True, **cut)
+    dense_int8_kv = functools.partial(serve_dense_and_check, **cut)
+    paged_int8_kv = functools.partial(serve_paged_and_check, **cut)
+    mixed_int8_kv = functools.partial(serve_paged_and_check, mixed=True, **cut)
     dense_crash = functools.partial(serve_dense_and_check, crash=True)  # then the crash phase
     ctl_pipelined = functools.partial(serve_dense_and_check, **small)
     eager = functools.partial(serve_dense_and_check, graphs=False, **small)
@@ -4636,13 +5040,13 @@ def main() -> None:
         ("control: unpipelined", unpipelined, False, ()),
         ("control: pipelined", ctl_pipelined, False, ()),
         ("dense int8 weights", int8_weights, False, ()),
-        ("paged", serve_paged_and_check, False,
+        ("paged", paged_cut, False,
          ("paged_attention", "paged_attention/decode", "paged_attention/prefill")),
-        ("mixed", mixed, False, ("paged_attention_ragged_q",)),
-        ("dense int8 KV", pipelined, True, ("flash_prefill_quant", "flash_decode_quant")),
-        ("paged int8 KV", serve_paged_and_check, True, ("paged_attention_quant", "paged_attention_quant/decode",
-                                                        "paged_attention_quant/prefill")),
-        ("mixed int8 KV", mixed, True, ("paged_attention_ragged_q_quant",)),
+        ("mixed", mixed_cut, False, ("paged_attention_ragged_q",)),
+        ("dense int8 KV", dense_int8_kv, True, ("flash_prefill_quant", "flash_decode_quant")),
+        ("paged int8 KV", paged_int8_kv, True, ("paged_attention_quant", "paged_attention_quant/decode",
+                                                "paged_attention_quant/prefill")),
+        ("mixed int8 KV", mixed_int8_kv, True, ("paged_attention_ragged_q_quant",)),
         ("sessions", sessions, False, ()),
         ("paged sessions", paged_sessions, False, ()),
         ("paged sessions int8 KV", paged_sessions, True, ()),
@@ -4735,12 +5139,19 @@ def main() -> None:
     check_training(device, label)
     walls.append(("training", time.perf_counter() - started))
     # the Mixtral family: the 2-layer model against the CPU, its HF
-    # checkpoint, and 16 layers served (B1, B2; B3 at 2 layers)
+    # checkpoint, and MOE_SERVE_LAYERS served (B1, B2; B3 at 2 layers)
     gc.collect()
     torch.cuda.empty_cache()
     started = time.perf_counter()
     check_moe(device, label)
     walls.append(("mixtral (MoE)", time.perf_counter() - started))
+    # tensor parallelism: two ranks sharing the card over gloo, the
+    # 2-layer check and Llama-3-8B served at full depth (B1, B2, B3)
+    gc.collect()
+    torch.cuda.empty_cache()
+    started = time.perf_counter()
+    check_tp(device, label)
+    walls.append(("tensor parallelism", time.perf_counter() - started))
     log("phase wall times, longest first: " + ", ".join(
         f"{name} {seconds:.1f}s" for name, seconds in sorted(walls, key=lambda item: -item[1]))
         + f"; {sum(seconds for _, seconds in walls):.1f}s in all")

@@ -6,23 +6,41 @@ flight artifacts, mirroring ``langstream-tpu journey``.
 ``serve`` turns the flight recorder on, as the JAX ``serve`` does: into
 ``$LANGSTREAM_FLIGHT_DIR`` (an empty value turns it off), by default
 ``bench_artifacts/flight`` beside the checkout, stamped with this
-replica's identity (``$HOSTNAME``, else the host name; role ``unified``)."""
+replica's identity (``$HOSTNAME``, else the host name; role ``unified``).
+
+``serve --tp N`` serves the model over N tensor-parallel ranks, one
+process each (:func:`start_tp_server`): this process is rank 0, joins a
+gloo group with the N−1 follower ranks it starts itself
+(``parallel/launch.py``), rank r on card r (it refuses when the host has
+fewer cards; on ``--device cpu`` every rank runs on the CPU), builds the
+service and the HTTP surface, and publishes every dispatch to the
+followers through the dispatch mirror (``serving/mirror.py``), which
+replay it (:func:`follow`). Across hosts, the leader runs ``serve --tp N
+--followers N-1`` and each other host ``serve --tp N --follower-of
+HOST:PORT`` with the same flags, every process joining the group from
+its StatefulSet identity (``runtime.multihost``)."""
 
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import os
 import socket
 from typing import Any, Dict, List, Optional, Tuple
 
+import torch
+
+from langstream_tpu_torch.parallel import launch
+from langstream_tpu_torch.parallel.mesh import MeshConfig
 from langstream_tpu_torch.providers.torch_local.engine import engines_histograms, engines_snapshot
 from langstream_tpu_torch.providers.torch_local.model import LlamaConfig
 from langstream_tpu_torch.providers.torch_local.provider import (
     TorchCompletionsService,
     TorchEmbeddingsService,
+    mirror_fingerprint,
 )
-from langstream_tpu_torch.runtime import flight, tracing
+from langstream_tpu_torch.runtime import flight, multihost, tracing
 from langstream_tpu_torch.runtime.journey import run_journey
 from langstream_tpu_torch.serving.openai_api import OpenAIApiServer
 
@@ -42,6 +60,7 @@ def build_parser() -> argparse.ArgumentParser:
     serve.add_argument("--quantization", default=None, choices=["int8"],
                        help="weight-only int8 weights (the checkpoint's, quantized on the "
                             "device; without one, random, drawn in int8 on the device)")
+    serve.add_argument("--tp", type=int, default=1, help="tensor parallelism")
     serve.add_argument("--max-slots", type=int, default=8)
     serve.add_argument("--max-seq-len", type=int, default=2048)
     serve.add_argument("--decode-chunk", type=int, default=16)
@@ -137,6 +156,21 @@ def build_parser() -> argparse.ArgumentParser:
     )
     serve.add_argument("--host", default="0.0.0.0")
     serve.add_argument("--port", type=int, default=8000)
+    # tensor parallelism across processes: rank 0 serves HTTP and mirrors
+    # every dispatch; followers replay the stream on their shard. On one
+    # host --tp N starts the followers itself
+    serve.add_argument(
+        "--followers", type=int, default=0,
+        help="leader: number of follower hosts to wait for",
+    )
+    serve.add_argument(
+        "--mirror-port", type=int, default=8477,
+        help="leader: port the dispatch mirror listens on",
+    )
+    serve.add_argument(
+        "--follower-of", default=None, metavar="HOST:PORT",
+        help="run as a follower replaying the leader's dispatch stream",
+    )
     journey = sub.add_parser(
         "journey", help="join flight artifacts ($LANGSTREAM_FLIGHT_DIR) by trace id into "
                         "per-request waterfalls, per-stage p50/p95 and SLO blame")
@@ -225,6 +259,12 @@ def serve_config(args: argparse.Namespace) -> Dict[str, Any]:
         config["tokenizer"] = {"type": "hf", "path": args.tokenizer}
     if args.quantization:
         config["quantization"] = args.quantization
+    if args.tp > 1:
+        config["mesh"] = {"tp": args.tp}
+    if args.tp > 1 or args.followers or args.follower_of:
+        # every leader dispatch must replay on the followers in stream
+        # order: a supervisor rebuild would fork the stream
+        config["engine"]["supervisor"] = False
     return config
 
 
@@ -256,6 +296,128 @@ def start_server(
     return service, server
 
 
+def tp_devices(device: str, world: int) -> List[str]:
+    """The device of each rank on this host: card r for rank r (refused
+    when the host has fewer cards), or the CPU for every rank."""
+    if torch.device(device).type == "cpu":
+        return ["cpu"] * world
+    cards = torch.cuda.device_count()
+    if cards < world:
+        raise SystemExit(f"--tp {world} needs {world} cards on this host, it has {cards}")
+    return [f"cuda:{rank}" for rank in range(world)]
+
+
+def _refuse_spec_under_mirror(config: Dict[str, Any]) -> None:
+    """The JAX serve's configuration-time guard: the mirror replays fixed
+    records, and a speculative step carries the device token history
+    (the engine's check backstops it)."""
+    if str(config.get("engine", {}).get("spec-decode") or "off").lower() != "off":
+        raise SystemExit("--spec-decode is not supported with tensor-parallel serving "
+                         "(--tp/--followers/--follower-of) yet")
+
+
+def start_tp_server(
+    args: argparse.Namespace, config: Optional[Dict[str, Any]] = None, *,
+    devices: Optional[List[str]] = None, timeout_s: float = multihost.DEFAULT_TIMEOUT_S,
+    report: Optional[str] = None, **popen,
+):
+    """``serve --tp N`` on one host: start ranks 1 .. N−1 as followers
+    (``devices[r]``, default :func:`tp_devices`), join the group as rank
+    0 on ``devices[0]``, build the service from ``config`` (default:
+    :func:`serve_config`), wait for the followers to connect to the
+    mirror and start the server. Returns (service, server, followers);
+    the caller stops the server, then closes the service (which sends the
+    followers their ``stop``), then waits for the followers
+    (``launch.stop_ranks``). ``report``: a path each follower writes its
+    account to at the end, suffixed with its rank."""
+    config = config or serve_config(args)
+    _refuse_spec_under_mirror(config)
+    world = MeshConfig.from_config(config.get("mesh")).tp
+    devices = devices or tp_devices(args.device, world)
+    if len(devices) != world:
+        raise ValueError(f"tp={world} needs {world} devices, got {devices}")
+    from langstream_tpu_torch.serving.mirror import DispatchMirror
+
+    mirror = DispatchMirror(host="127.0.0.1", port=args.mirror_port,
+                            fingerprint=mirror_fingerprint(config))
+    address = f"127.0.0.1:{multihost.free_port()}"
+    payload = {"config": config, "mirror": f"127.0.0.1:{mirror.port}", "report": report}
+    followers = launch.spawn_ranks(f"{__name__}:follow", payload, devices, address,
+                                   timeout_s=timeout_s, **popen)
+    try:
+        os.environ.setdefault(launch.GLOO_IFNAME, "lo")  # one host: the loopback
+        multihost.initialize_distributed(0, world, address, timeout_s)
+        service = TorchCompletionsService(config, device=devices[0])
+        mirror.wait_for_followers(world - 1, timeout=timeout_s)
+        service.engine.mirror = mirror
+    except BaseException:
+        mirror.close()
+        for child in followers:
+            child.kill()
+        raise
+    server = OpenAIApiServer(service, None, model=args.model, host=args.host, port=args.port,
+                             gauges=engines_snapshot, histograms=engines_histograms)
+    server.start()
+    return service, server, followers
+
+
+def follow(rank: int, world: int, device: str, payload: Dict[str, Any]) -> Dict[str, Any]:
+    """A follower rank: build the service from the leader's ``config`` on
+    ``device`` (this rank's shard), stop its engine thread (the replay
+    owns the dispatches), connect to the leader's mirror and replay the
+    stream until ``stop``. Prints its account (records, model calls, the
+    token digest, its kernels' launches and peak memory) as one JSON line,
+    and writes it to ``payload["report"]`` suffixed with the rank."""
+    from langstream_tpu_torch.serving.mirror import FollowerExecutor
+
+    config = payload["config"]
+    service = TorchCompletionsService(config, device=device)
+    service.close()
+    executor = FollowerExecutor(service.engine)
+    host, _, port = payload["mirror"].rpartition(":")
+    executor.connect(host or "127.0.0.1", int(port), fingerprint=mirror_fingerprint(config))
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        from langstream_tpu_torch.ops import launches
+
+        launches.read(reset=True)  # the replay's launches only
+    print(f"follower {rank}/{world}: replaying the dispatch stream from {payload['mirror']}",
+          flush=True)
+    executor.run()
+    account = dict(executor.report(), rank=rank,
+                   peak_gib=torch.cuda.max_memory_allocated(device) / 2**30 if cuda else 0.0)
+    print(json.dumps({"follower": account}), flush=True)
+    if payload.get("report"):
+        with open(f"{payload['report']}.{rank}", "w") as out:
+            json.dump(account, out)
+    return account
+
+
+def _serve_multihost(args: argparse.Namespace) -> Optional[Tuple[Any, Any]]:
+    """Across hosts: join the group from the StatefulSet identity, then
+    follow (``--follower-of``; returns None) or lead (``--followers``:
+    the service with the mirror attached, and the server)."""
+    import torch.distributed as dist
+
+    config = serve_config(args)
+    _refuse_spec_under_mirror(config)
+    multihost.initialize_multihost()
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if args.follower_of:
+        follow(rank, world, args.device, {"config": config, "mirror": args.follower_of})
+        return None
+    from langstream_tpu_torch.serving.mirror import DispatchMirror
+
+    mirror = DispatchMirror(host=args.host, port=args.mirror_port,
+                            fingerprint=mirror_fingerprint(config))
+    service, server = start_server(args, config)
+    print(f"mirror: waiting for {args.followers} follower(s) on :{mirror.port}", flush=True)
+    mirror.wait_for_followers(args.followers)
+    service.engine.mirror = mirror
+    return service, server
+
+
 def main(argv: Optional[List[str]] = None) -> None:
     logging.basicConfig(level=logging.INFO)
     args = build_parser().parse_args(argv)
@@ -268,7 +430,16 @@ def main(argv: Optional[List[str]] = None) -> None:
     path = start_flight(f"serve-{args.model}")
     if path:
         print(f"flight recorder -> {path}", flush=True)
-    service, server = start_server(args)
+    followers: List[Any] = []
+    if args.followers or args.follower_of:
+        started = _serve_multihost(args)
+        if started is None:
+            return
+        service, server = started
+    elif args.tp > 1:
+        service, server, followers = start_tp_server(args)
+    else:
+        service, server = start_server(args)
     print(f"serving {args.model} on http://{args.host}:{server.port}", flush=True)
     try:
         server.serve_forever()
@@ -279,3 +450,9 @@ def main(argv: Optional[List[str]] = None) -> None:
         service.close()
         if server.embeddings is not None:
             server.embeddings.close()
+        mirror = service.engine.mirror
+        if mirror is not None:
+            # what the followers' accounts are held against
+            print(json.dumps({"mirror": {"published": mirror.published,
+                                         "digest": mirror.digest.hexdigest()}}), flush=True)
+        launch.stop_ranks(followers)

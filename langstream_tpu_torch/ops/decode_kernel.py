@@ -34,6 +34,7 @@ import torch
 
 from langstream_tpu_torch.ops import _build
 from langstream_tpu_torch.ops.attention import decode_attention, decode_attention_quant
+from langstream_tpu_torch.parallel.mesh import head_shard
 
 KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
@@ -198,3 +199,29 @@ def flash_decode_attention_quant(
 
 
 flash_decode_attention_quant.launches = 0
+
+
+def flash_decode_attention_sharded(
+    q: torch.Tensor,        # [S, H, D], every head
+    k_cache: torch.Tensor,  # [S, T, KVH, D]
+    v_cache: torch.Tensor,
+    lengths: torch.Tensor,  # [S] int32
+    *,
+    rank: int,
+    size: int,
+    k_scale: Optional[torch.Tensor] = None,  # [S, T, KVH] f32: an int8 cache
+    v_scale: Optional[torch.Tensor] = None,
+    **kwargs,
+) -> torch.Tensor:
+    """Flash decode under tensor parallelism, the JAX
+    ``flash_decode_attention_sharded``: tp rank ``rank`` of ``size``
+    launches the same kernel (B2, or B5 with scales) on its own H/size
+    query heads over its KVH/size kv heads of the cache, and returns them,
+    [S, H/size, D]. No collective: attention never mixes heads."""
+    q_l = head_shard(q, 1, rank, size)
+    k_l, v_l = (head_shard(t, 2, rank, size) for t in (k_cache, v_cache))
+    if k_scale is None:
+        return flash_decode_attention(q_l, k_l, v_l, lengths, **kwargs)
+    return flash_decode_attention_quant(
+        q_l, k_l, head_shard(k_scale, 2, rank, size), v_l, head_shard(v_scale, 2, rank, size),
+        lengths, **kwargs)

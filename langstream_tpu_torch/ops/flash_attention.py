@@ -22,6 +22,9 @@ Its plain version is :func:`~langstream_tpu_torch.ops.attention.
 chunk_attention_quant` with every start 0, the formula warm and long
 prefills use, so cold and warm int8 paths see the same algebra. Unlike
 the TPU body, the kernel keeps the scale-folded p in f32 for p·v.
+
+:func:`flash_prefill_attention_sharded` is the tensor-parallel
+counterpart: one tp rank's launch on its own heads.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import torch
 
 from langstream_tpu_torch.ops import _build
 from langstream_tpu_torch.ops.attention import chunk_attention_quant, prefill_attention
+from langstream_tpu_torch.parallel.mesh import head_shard
 
 KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 KERNEL_HEAD_DIMS = (64, 128, 256)
@@ -205,3 +209,30 @@ def flash_prefill_attention_quant(
 
 
 flash_prefill_attention_quant.launches = 0
+
+
+def flash_prefill_attention_sharded(
+    q: torch.Tensor,  # [B, T, H, D], every head
+    k: torch.Tensor,  # [B, T, KVH, D]
+    v: torch.Tensor,
+    *,
+    rank: int,
+    size: int,
+    k_scale: Optional[torch.Tensor] = None,  # [B, T, KVH] f32: int8 k/v
+    v_scale: Optional[torch.Tensor] = None,
+    **kwargs,
+) -> torch.Tensor:
+    """Flash prefill under tensor parallelism, the JAX
+    ``flash_prefill_attention_sharded``: tp rank ``rank`` of ``size``
+    launches the same kernel (B1, or B4 with scales) on its own heads,
+    H/size query heads over KVH/size kv heads (attention never mixes
+    heads, so no collective), and returns them, [B, T, H/size, D]. The
+    ranks' outputs concatenated over heads are the unsharded call's. A
+    tp rank of the model holds only its heads and calls the wrapper on
+    them directly."""
+    shard = [head_shard(t, 2, rank, size) for t in (q, k, v)]
+    if k_scale is None:
+        return flash_prefill_attention(*shard, **kwargs)
+    return flash_prefill_attention_quant(
+        shard[0], shard[1], head_shard(k_scale, 2, rank, size), shard[2],
+        head_shard(v_scale, 2, rank, size), **kwargs)

@@ -66,6 +66,7 @@ from langstream_tpu_torch.ops.attention import (
     paged_ragged_q_attention,
     paged_ragged_q_attention_quant,
 )
+from langstream_tpu_torch.parallel.mesh import head_shard
 
 KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 MAX_HEAD_DIM = 256
@@ -403,3 +404,32 @@ def ragged_q_paged_attention_quant(
 
 
 ragged_q_paged_attention_quant.launches = 0
+
+
+def ragged_paged_attention_sharded(
+    q: torch.Tensor,             # [B, Tq, H, D], every head
+    k_pool: torch.Tensor,        # [N, Bs, KVH, D]
+    v_pool: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, M] int32 (every rank's, whole)
+    starts: torch.Tensor,        # [B] int32
+    lengths: torch.Tensor,       # [B] int32
+    *,
+    rank: int,
+    size: int,
+    k_scale: Optional[torch.Tensor] = None,  # [N, Bs, KVH] f32: int8 pools
+    v_scale: Optional[torch.Tensor] = None,
+    **kwargs,
+) -> torch.Tensor:
+    """Ragged paged attention under tensor parallelism, the JAX
+    ``ragged_paged_attention_sharded``: tp rank ``rank`` of ``size``
+    launches the same kernel (B3, or B6 with scales) on its H/size query
+    heads over its KVH/size kv heads of the pool; the block tables,
+    starts and lengths are every rank's. Returns [B, Tq, H/size, D]. No
+    collective: attention never mixes kv heads."""
+    q_l = head_shard(q, 2, rank, size)
+    k_l, v_l = (head_shard(t, 2, rank, size) for t in (k_pool, v_pool))
+    if k_scale is None:
+        return ragged_paged_attention(q_l, k_l, v_l, block_tables, starts, lengths, **kwargs)
+    return ragged_paged_attention_quant(
+        q_l, k_l, head_shard(k_scale, 2, rank, size), v_l, head_shard(v_scale, 2, rank, size),
+        block_tables, starts, lengths, **kwargs)

@@ -145,6 +145,22 @@ path over the paged one:
   promotion (fault point ``host_promote_torn``) aborts before anything
   publishes and the admission prefills cold.
 
+- **Tensor parallelism** (``mesh_config`` with ``tp`` N > 1): the engine
+  is one rank of N processes (``parallel.mesh.build_group``), holding its
+  shard of the weights (``model.rank_params``, from the full tensors a
+  one-card engine draws or loads) and a KV cache of its own kv heads; no
+  pool is ever gathered. The model calls take the rank's config
+  (``model.rank_config``), whose group sums the row-sharded products and
+  gathers the vocabulary's columns, so every rank samples the same full
+  logits. Rank 0 serves with ``mirror`` set (``serving/mirror.py``): each
+  step it dispatches is published first, and the followers replay the
+  stream. Under tp the step functions run eagerly (a gloo collective
+  cannot sit inside a CUDA graph; ``stats["step_functions"]`` says so),
+  and the mixed step is refused for now (ROADMAP.md, A10). Under the
+  mirror, speculative decoding, a KV handoff and session resurrection are
+  refused, host-tier demotion is skipped, and the digest of every sampled
+  token tensor costs one copy to the host per sampling step.
+
 - **Accounting** (``runtime/accounting.py``, ``runtime/journey.py``): a
   cost model built from the config, the weights' and the cache's widths
   and the layout charges each decode chunk and mixed step its modeled
@@ -180,6 +196,12 @@ from langstream_tpu_torch.api import errors as api_errors
 from langstream_tpu_torch.api.metrics import Histogram
 from langstream_tpu_torch.device import resolve_device
 from langstream_tpu_torch.ops.paged_attention import fused_shapes_ok
+from langstream_tpu_torch.parallel.mesh import (
+    MeshConfig,
+    build_group,
+    require_serving_mesh,
+    validate_mesh,
+)
 from langstream_tpu_torch.providers.torch_local import model as model_lib
 from langstream_tpu_torch.providers.torch_local import prng, sampling
 from langstream_tpu_torch.providers.torch_local import spec_decode as spec_lib
@@ -681,6 +703,9 @@ class DecodeEngine:
         slo: Optional[Dict[str, float]] = None,  # p95 targets,
                                           # {"ttft_ms_p95", "tpot_ms_p95"}:
                                           # burn rates and blame on /metrics
+        mesh_config: Optional[MeshConfig] = None,  # tp N > 1: this process
+                                          # is one rank of N (torch.distributed
+                                          # up); other axes raise
     ) -> None:
         # chaos and evidence planes, as every JAX engine construction arms
         # them (a rebuilt engine re-arms the same spec; the arrival
@@ -688,6 +713,20 @@ class DecodeEngine:
         faults.configure_from_env()
         flight.configure_from_env()
         self.device = resolve_device(device)
+        mesh_config = mesh_config or MeshConfig()
+        require_serving_mesh(mesh_config)
+        validate_mesh(mesh_config, num_heads=config.num_heads, num_kv_heads=config.num_kv_heads,
+                      intermediate_size=config.intermediate_size,
+                      num_experts=config.num_experts, num_layers=config.num_layers)
+        self.mesh_config = mesh_config
+        self.tp = mesh_config.tp
+        if self.tp > 1 and prefill_mode == "mixed":
+            raise NotImplementedError(
+                "prefill_mode 'mixed' under tensor parallelism is not ported yet (see ROADMAP.md, "
+                "A10): serve tp with the split prefill")
+        # multi-rank serving: when set (serving/mirror.py), every step
+        # dispatch is published before it runs, for the followers to replay
+        self.mirror: Optional[Any] = None
         self.config = config
         self.max_slots = max_slots
         self.decode_chunk = max(1, decode_chunk)
@@ -748,8 +787,22 @@ class DecodeEngine:
         if quantize or any(isinstance(p, QTensor) for p in params.values()):
             if quantize not in (None, "int8"):
                 raise ValueError(f"unknown quantization {quantize!r}")
+            if self.tp > 1 and not isinstance(params.get("wo"), QTensor):
+                wq = params["wq"]
+                if wq.shape[-1] != config.num_heads * config.dims_per_head:
+                    # a row-sharded weight's scale is the whole row's
+                    raise ValueError("quantize the full weights before sharding them over tp")
             params = quantize_params(params, config.num_experts)
         model_lib.validate_family_params(config, params)
+        full_config = config
+        if self.tp > 1:
+            # this rank's shard and config (the heads, kv heads and
+            # intermediate width divided, the group for the collectives)
+            self.group = build_group(mesh_config, self.device)
+            params = model_lib.rank_params(config, params, mesh_config, self.group.rank)
+            config = self.config = model_lib.rank_config(config, self.group)
+        else:
+            self.group = None
         if (
             self.paged_kernel == "fused" and self.device.type == "cuda"
             and not fused_shapes_ok(
@@ -821,11 +874,12 @@ class DecodeEngine:
         # layout, over measured wall time and the card's peaks
         self.peaks = accounting.PeakSpecs.from_env()
         self.cost_model = accounting.CostModel.from_model_config(
-            config,
+            full_config,
             weight_quant="int8" if any(isinstance(p, QTensor) for p in self.params.values()) else None,
             kv_quant=self.kv_quant,
             kv_block_size=self.block_size if self.paged else 1,
             paged_kernel=self.paged_kernel,
+            tp=self.tp,
         )
         # SLO burn rates over the process-wide TTFT and TPOT histograms
         self.slo = (accounting.SLOTracker(slo, {"ttft": TTFT_SECONDS, "tpot": TPOT_SECONDS})
@@ -839,6 +893,9 @@ class DecodeEngine:
         # through the step runner; a prefill variant first met while
         # serving warms up on its own call, never on a dummy that writes
         # another slot's rows (a copy's dummy copies a slot onto itself)
+        # under tp a gloo collective cannot sit inside a CUDA graph: the
+        # step functions run eagerly
+        step_graphs = step_graphs and self.tp == 1
         self.steps = StepRunner(
             self.device, graphs=step_graphs, body=self._step_body, dummy=self._step_dummy,
             warm_on_call=lambda key: key.kind in PREFILL_KINDS,
@@ -869,6 +926,8 @@ class DecodeEngine:
         # end of the latest processed mixed step (0 after a plain chunk)
         self._last_mixed_end = 0.0
         self.stats = self._fresh_stats()
+        self.step_functions = "graphs" if self.steps.graphed else "eager"
+        self.stats["step_functions"] = self.step_functions
         _LIVE_ENGINES.add(self)
         flight.record("engine_start", slots=max_slots, ctx=self.max_seq_len,
                       layout=kv_layout, device=str(self.device))
@@ -942,6 +1001,7 @@ class DecodeEngine:
 
     def reset_stats(self) -> None:
         self.stats = self._fresh_stats()
+        self.stats["step_functions"] = self.step_functions
 
     def _default_buckets(self) -> List[int]:
         buckets, size = [], 64
@@ -978,6 +1038,12 @@ class DecodeEngine:
         flight.record("engine_stop", tokens=self.stats["tokens_generated"],
                       requests=self.stats["requests"], decode_steps=self.stats["decode_steps"])
         flight.flush()
+        if self.mirror is not None:
+            try:
+                self.mirror.publish("stop", {}, [])
+            except Exception:  # noqa: BLE001 — the writer died with a follower
+                logger.warning("mirror: stop record not delivered")
+            self.mirror.close()
 
     @property
     def queue_depth(self) -> int:
@@ -995,6 +1061,15 @@ class DecodeEngine:
                 raise api_errors.EngineRebuildingError(
                     "engine is rebuilding after a crash; retry shortly", retry_after_s=2.0)
             raise RuntimeError("decode engine crashed") from self._crashed
+        if self.mirror is not None and request.replay_tokens:
+            # the replay restores penalty counts in place, a write no
+            # mirror record carries
+            raise NotImplementedError(
+                "session resurrection over the dispatch mirror is not supported")
+        if self.mirror is not None and request.export_handoff:
+            # a rank's pool holds its kv heads only: an export would ship
+            # a shard of the session
+            raise NotImplementedError("a KV handoff export over the dispatch mirror is not supported")
         bias = request.sampling.logit_bias
         if bias and len(bias) > self.MAX_LOGIT_BIAS:
             raise ValueError(
@@ -1546,7 +1621,7 @@ class DecodeEngine:
         while position < length:
             remaining = length - position
             bucket = largest if remaining > largest else _bucket(remaining, self.prefill_buckets)
-            self.steps.run(Variant("copy", bucket), dict(
+            self._run_step(Variant("copy", bucket), dict(
                 src=np.asarray([src], dtype=np.int64), dst=np.asarray([dst], dtype=np.int64),
                 offset=np.asarray([position], dtype=np.int64)))
             position += bucket
@@ -1557,7 +1632,7 @@ class DecodeEngine:
         """Copy pool block ``src`` into ``dst`` across every layer and leaf
         (copy-on-write), one replay of ``Variant("block_copy")``."""
         self._check_condemned()
-        self.steps.run(Variant("block_copy", 0), dict(
+        self._run_step(Variant("block_copy", 0), dict(
             src=np.asarray([src], dtype=np.int64), dst=np.asarray([dst], dtype=np.int64)))
         self.kv_manager.stats["cow_copies"] += 1
 
@@ -1653,6 +1728,10 @@ class DecodeEngine:
                           trace_id=trace_id)
             return False
 
+        if self.mirror is not None:
+            # the import's scatter carries host arrays no mirror record
+            # ships: refused rather than forking the ranks' pools
+            return aborted("mirror")
         if (
             full <= 0
             or size != self.block_size
@@ -1704,7 +1783,11 @@ class DecodeEngine:
         copy of the same buffer queues behind it; nothing on the host
         reads the buffer's values (the pinned allocator does not reuse a
         freed buffer before its copy has finished). Returns ``(leaf ->
-        [layers, block_size, kv_heads(, head_dim)], nbytes)``."""
+        [layers, block_size, kv_heads(, head_dim)], nbytes)``, or None
+        under the mirror: no record carries the host tier, so nothing is
+        demoted."""
+        if self.mirror is not None:
+            return None
         data: Dict[str, torch.Tensor] = {}
         for leaf, value in self.cache.items():
             rows = value[:, block]
@@ -2179,6 +2262,45 @@ class DecodeEngine:
             return None
         return tops[0][index].tolist(), tops[1][index].tolist()
 
+    def _run_step(self, key: Variant, inputs: Dict[str, Any], chained: bool = False):
+        """Every dispatch of a step: :meth:`StepRunner.run`, published to
+        the mirror first when one is set. A record carries the variant and
+        its host arrays by name; a device operand is the follower's own
+        (a first-token sampling's logits), and a ``chained`` decode
+        carries nothing (``serving/mirror.py``). The sampled tokens feed
+        the mirror's digest."""
+        mirror = self.mirror
+        if mirror is not None:
+            self._check_mirror_layout()
+            if chained:
+                mirror.publish("decode_chained", {"size": key.size, "tier": key.tier}, [])
+            else:
+                names = sorted(name for name, value in inputs.items()
+                               if isinstance(value, np.ndarray))
+                carried = set(inputs) - set(names)
+                if carried - {"logits"} or (carried and key.kind != "first_token"):
+                    raise RuntimeError(f"step {key} carries device operands {sorted(carried)} "
+                                       "no mirror record ships")
+                from langstream_tpu_torch.serving.mirror import record_meta
+
+                mirror.publish(key.kind, record_meta(key, names), [inputs[name] for name in names])
+        staged, outputs = self.steps.run(key, inputs)
+        if mirror is not None and key.kind in ("first_token", "decode"):
+            mirror.digest.update(outputs["tokens"])
+        return staged, outputs
+
+    def _check_mirror_layout(self) -> None:
+        """What the followers' replay cannot speak yet (the JAX engine's
+        check): speculative decoding's steps carry the device token
+        history and variable-width outputs, and the mixed step has no
+        record of this slice (ROADMAP.md, A10). Fails loudly instead of
+        letting the ranks diverge."""
+        if self.spec:
+            raise NotImplementedError("the dispatch mirror does not support spec_decode yet")
+        if self.mixed:
+            raise NotImplementedError(
+                "the dispatch mirror does not support prefill_mode 'mixed' yet (see ROADMAP.md, A10)")
+
     def _count_dispatch(self, name: str, calls: int = 1) -> None:
         dispatches = self.stats["model_dispatches"]
         dispatches[name] = dispatches.get(name, 0) + calls
@@ -2198,7 +2320,7 @@ class DecodeEngine:
             inputs["tables"] = self._block_tables[slot_ids]
         else:
             inputs["slot_ids"] = slot_ids
-        _, outputs = self.steps.run(Variant(kind, bucket, "", group), inputs)
+        _, outputs = self._run_step(Variant(kind, bucket, "", group), inputs)
         # counted here, on the host: a replay runs none of the body
         self._count_dispatch(("paged_" if self.paged else "")
                              + ("prefill" if kind == "prefill" else "prefill_at_offset"))
@@ -2230,7 +2352,7 @@ class DecodeEngine:
         same variant overwrites the static outputs."""
         arrays, tier = self._first_token_arrays(requests)
         arrays.update(logits=logits, slot_ids=slot_ids, positions=positions)
-        _, outputs = self.steps.run(Variant("first_token", 0, tier, len(requests)), arrays)
+        _, outputs = self._run_step(Variant("first_token", 0, tier, len(requests)), arrays)
         return self._to_host(outputs["tokens"], outputs["logprobs"], *self._host_tops(outputs))
 
     def _prefill_batch(
@@ -2876,7 +2998,7 @@ class DecodeEngine:
             telemetry = self._telemetry([i for i in range(slots) if active[i]])
         else:
             telemetry = {}
-        inputs, outputs = self.steps.run(key, inputs)
+        inputs, outputs = self._run_step(key, inputs, chained=carry is not None)
         # counted here, on the host: a replay runs none of the body
         call = "verify_step" if self.spec else "decode_step"
         self._count_dispatch(("paged_" if self.paged else "") + call, key.size)
@@ -3082,7 +3204,7 @@ class DecodeEngine:
             inputs.update(tables=self._block_tables,
                           chain_tokens=np.zeros((slots,), dtype=np.int64), **step)
             key = Variant("mixed", width, tier)
-        inputs, outputs = self.steps.run(key, inputs)
+        inputs, outputs = self._run_step(key, inputs)
         self._count_dispatch("paged_mixed_step")
         return {
             "mixed": True,

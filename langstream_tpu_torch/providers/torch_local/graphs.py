@@ -72,7 +72,7 @@ import contextlib
 import dataclasses
 import gc
 import time
-from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -182,6 +182,11 @@ class StepRunner:
                 entry.graph.reset()
         self._entries.clear()
         self.pool = torch.cuda.graph_pool_handle() if self.graphed else None
+
+    @property
+    def variants(self) -> List[Variant]:
+        """The variants captured (or, uncaptured, warmed up) so far."""
+        return list(self._entries)
 
     def prepare(self, key: Variant) -> None:
         """Capture ``key`` now on its dummy inputs, if it is not yet."""

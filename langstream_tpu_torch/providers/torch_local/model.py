@@ -73,6 +73,7 @@ from langstream_tpu_torch.ops.paged_attention import (
 )
 from langstream_tpu_torch.ops.moe import moe_mlp
 from langstream_tpu_torch.ops.norms import rms_norm
+from langstream_tpu_torch.parallel.mesh import L
 from langstream_tpu_torch.ops.rope import apply_rope, rope_frequencies
 from langstream_tpu_torch.providers.torch_local.quant import qmatmul
 
@@ -343,13 +344,16 @@ def config_from_hf(hf_config: Any) -> LlamaConfig:
 
 
 def init_params(
-    config: LlamaConfig, seed: int = 0, device: torch.device | str = "cpu"
+    config: LlamaConfig, seed: int = 0, device: torch.device | str = "cpu", keep=None,
 ) -> Dict[str, torch.Tensor]:
     """Random-init (scaled normal) parameters with stacked layers, drawn
     on ``device`` from ``seed``. The numbers are not ``jax.random``'s;
     parity tests carry the JAX params across with ``convert.py``. A MoE
     config draws ``[L, E, ...]`` expert weights and the router with the
-    JAX scales, straight into the model dtype, as every leaf is."""
+    JAX scales, straight into the model dtype, as every leaf is.
+    ``keep(name, leaf)``, when given, is applied to each leaf as soon as
+    it is drawn (a tp rank keeps its shard, :func:`rank_params`): the
+    draws are the same, and the whole model is never held at once."""
     generator = torch.Generator(device=device).manual_seed(seed)
     h, f, v = config.hidden_size, config.intermediate_size, config.vocab_size
     nh, nkv, hd = config.num_heads, config.num_kv_heads, config.dims_per_head
@@ -367,31 +371,156 @@ def init_params(
     def norm_init(shape):
         return torch.full(shape, norm_fill, dtype=torch.float32, device=device)
 
+    params: Dict[str, torch.Tensor] = {}
+
+    def put(name, leaf):
+        params[name] = keep(name, leaf) if keep is not None else leaf
+
     experts = (config.num_experts,) if config.num_experts else ()
-    params = {
-        "embedding": normal((v, h), scale),
-        "wq": normal((layers, h, nh * hd), scale),
-        "wk": normal((layers, h, nkv * hd), scale),
-        "wv": normal((layers, h, nkv * hd), scale),
-        "wo": normal((layers, nh * hd, h), deep),
-        "w_gate": normal((layers, *experts, h, f), scale),
-        "w_up": normal((layers, *experts, h, f), scale),
-        "w_down": normal((layers, *experts, f, h), deep),
-        "attn_norm": norm_init((layers, h)),
-        "mlp_norm": norm_init((layers, h)),
-        "final_norm": norm_init((h,)),
-    }
+    put("embedding", normal((v, h), scale))
+    put("wq", normal((layers, h, nh * hd), scale))
+    put("wk", normal((layers, h, nkv * hd), scale))
+    put("wv", normal((layers, h, nkv * hd), scale))
+    put("wo", normal((layers, nh * hd, h), deep))
+    put("w_gate", normal((layers, *experts, h, f), scale))
+    put("w_up", normal((layers, *experts, h, f), scale))
+    put("w_down", normal((layers, *experts, f, h), deep))
+    put("attn_norm", norm_init((layers, h)))
+    put("mlp_norm", norm_init((layers, h)))
+    put("final_norm", norm_init((h,)))
     if config.post_norms:
-        params["post_attn_norm"] = norm_init((layers, h))
-        params["post_mlp_norm"] = norm_init((layers, h))
+        put("post_attn_norm", norm_init((layers, h)))
+        put("post_mlp_norm", norm_init((layers, h)))
     if config.qkv_bias:
         for name, width in (("bq", nh * hd), ("bk", nkv * hd), ("bv", nkv * hd)):
-            params[name] = torch.zeros((layers, width), dtype=torch.float32, device=device)
+            put(name, torch.zeros((layers, width), dtype=torch.float32, device=device))
     if config.num_experts:
-        params["router"] = normal((layers, h, config.num_experts), scale)
+        put("router", normal((layers, h, config.num_experts), scale))
     if not config.tie_embeddings:
-        params["lm_head"] = normal((h, v), scale)
+        put("lm_head", normal((h, v), scale))
     return params
+
+
+# ---------------------------------------------------------------------- #
+# tensor parallelism
+# ---------------------------------------------------------------------- #
+def logical_axes(config: LlamaConfig) -> Dict[str, Any]:
+    """Logical sharding axes per parameter, leaf for leaf the JAX
+    package's ``logical_axes`` (fed to ``parallel.mesh``'s rules)."""
+    if config.num_experts:
+        mlp_axes = {
+            "w_gate": L("layers", "expert", "embed", "mlp"),
+            "w_up": L("layers", "expert", "embed", "mlp"),
+            "w_down": L("layers", "expert", "mlp", "embed"),
+            "router": L("layers", "embed", None),
+        }
+    else:
+        mlp_axes = {
+            "w_gate": L("layers", "embed", "mlp"),
+            "w_up": L("layers", "embed", "mlp"),
+            "w_down": L("layers", "mlp", "embed"),
+        }
+    axes = {
+        "embedding": L("vocab", "embed"),
+        "wq": L("layers", "embed", "heads"),
+        "wk": L("layers", "embed", "heads"),
+        "wv": L("layers", "embed", "heads"),
+        "wo": L("layers", "heads", "embed"),
+        **mlp_axes,
+        "attn_norm": L("layers", None),
+        "mlp_norm": L("layers", None),
+        "final_norm": L(None),
+    }
+    if config.post_norms:
+        axes["post_attn_norm"] = L("layers", None)
+        axes["post_mlp_norm"] = L("layers", None)
+    if config.qkv_bias:
+        axes["bq"] = L("layers", "heads")
+        axes["bk"] = L("layers", "heads")
+        axes["bv"] = L("layers", "heads")
+    if not config.tie_embeddings:
+        axes["lm_head"] = L("embed", "vocab")
+    return axes
+
+
+@dataclasses.dataclass(frozen=True)
+class RankConfig(LlamaConfig):
+    """One tp rank's :class:`LlamaConfig` (:func:`rank_config`): the
+    fields of its shard, and its group (``parallel.mesh.TPGroup``), which
+    the model's collectives use; not part of the config's identity."""
+
+    tp_group: Any = dataclasses.field(default=None, compare=False, hash=False, repr=False)
+
+
+def rank_config(config: LlamaConfig, group: Any) -> RankConfig:
+    """One tp rank's config: the heads, kv heads and intermediate width
+    divided by the group's size, ``head_dim`` pinned (``dims_per_head``
+    would otherwise fall back to ``hidden_size // num_heads`` of the
+    divided head count), the vocabulary whole (the embedding's rows and
+    the head's columns are split in the params, and the logits gathered
+    whole), and the group itself, which the model's collectives use."""
+    tp = group.size
+    if config.vocab_size % tp:
+        raise ValueError(f"tp={tp} must divide vocab_size={config.vocab_size}")
+    fields = {field.name: getattr(config, field.name) for field in dataclasses.fields(LlamaConfig)}
+    fields.update(num_heads=config.num_heads // tp, num_kv_heads=config.num_kv_heads // tp,
+                  intermediate_size=config.intermediate_size // tp, head_dim=config.dims_per_head)
+    return RankConfig(**fields, tp_group=group)
+
+
+def rank_axes(config: LlamaConfig, params: Dict[str, Any]) -> Dict[str, Any]:
+    """:func:`logical_axes` over ``params`` as they are, int8 leaves
+    included (``quant.quantize_logical_axes``)."""
+    from langstream_tpu_torch.providers.torch_local.quant import quantize_logical_axes
+
+    return quantize_logical_axes(logical_axes(config), params)
+
+
+def shard_leaf(config: LlamaConfig, name: str, leaf: Any, mesh: Any, rank: int) -> Any:
+    """Rank ``rank``'s slice of one full leaf ``name`` (``keep`` of
+    :func:`init_params` for a rank)."""
+    from langstream_tpu_torch.parallel.mesh import shard_leaf as shard
+    from langstream_tpu_torch.providers.torch_local.quant import quantize_logical_axes
+
+    axes = quantize_logical_axes(logical_axes(config), {name: leaf})[name]
+    return shard(leaf, axes, mesh, rank)
+
+
+def rank_params(config: LlamaConfig, params: Dict[str, Any], mesh: Any, rank: int) -> Dict[str, Any]:
+    """This rank's shard of ``params``, which are the full model's (cut
+    here) or already the rank's (:func:`init_params` with a ``keep``,
+    a loader's per-rank slice: kept as they are). ``config`` is the full
+    model's."""
+    if mesh.tp == 1:
+        return params
+    wq = params["wq"]
+    width = (wq.q if hasattr(wq, "q") else wq).shape[-1]
+    full = config.num_heads * config.dims_per_head
+    if width == full // mesh.tp:
+        return params
+    if width != full:
+        raise ValueError(f"wq of width {width} is neither the model's ({full}) nor a tp={mesh.tp} "
+                         "shard of it")
+    from langstream_tpu_torch.parallel.mesh import shard_params
+
+    return shard_params(params, rank_axes(config, params), mesh, rank)
+
+
+def _tp(config: LlamaConfig):
+    """The config's tp group when it has more than one rank, else None."""
+    group = getattr(config, "tp_group", None)
+    return group if group is not None and group.size > 1 else None
+
+
+def _row_product(config: LlamaConfig, x: torch.Tensor, w: Any) -> torch.Tensor:
+    """``x @ w`` for a weight whose contraction rows are sharded over tp
+    (``wo``): each rank's partial sums, kept in f32, added across the
+    ranks and rounded once to x's dtype, as one card's product rounds its
+    f32 accumulation once."""
+    group = _tp(config)
+    if group is None:
+        return qmatmul(x, w)
+    return group.all_reduce(qmatmul(x, w, out_dtype=torch.float32)).to(x.dtype)
 
 
 def _cache_leaves(config: LlamaConfig, shape, kv_quant: bool, device) -> Dict[str, torch.Tensor]:
@@ -515,19 +644,31 @@ def _embed(config: LlamaConfig, params, tokens: torch.Tensor) -> torch.Tensor:
     # ids past the vocabulary clamp to its last row, as JAX's gather does
     # (the byte tokenizer's specials 256-258 exceed the tiny presets' 256)
     ids = tokens.long().clamp(0, config.vocab_size - 1)
-    x = params["embedding"][ids].to(config.dtype)
+    group = _tp(config)
+    if group is None:
+        x = params["embedding"][ids].to(config.dtype)
+    else:
+        # the rank's rows of the vocabulary: ids outside them look up
+        # nothing, and the ranks' rows add up to every id's
+        rows = params["embedding"].shape[0]
+        local = ids - group.rank * rows
+        inside = (local >= 0) & (local < rows)
+        x = params["embedding"][local.clamp(0, rows - 1)].to(config.dtype)
+        x = group.all_reduce(torch.where(inside[..., None], x, torch.zeros_like(x)))
     if config.scale_embedding:
         x = x * torch.tensor(math.sqrt(config.hidden_size), dtype=x.dtype)
     return x
 
 
 def _mlp_block(config: LlamaConfig, normed: torch.Tensor, params, i, valid=None,
-               dropless: bool = True) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+               dropless: bool = True, out_dtype=None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The gated MLP of layer i on normed activations → (residual delta,
     MoE load-balancing aux loss, None for the dense MLP): SwiGLU, or GeGLU
     for Gemma; with ``num_experts``, :func:`moe_mlp` in the exact regime
     (``dropless``, every serving call) or the capacity regime with
-    ``valid`` keeping padding out of capacity (training)."""
+    ``valid`` keeping padding out of capacity (training). ``out_dtype``:
+    the dense MLP's down projection in that dtype (a tp rank's f32 partial
+    sums)."""
     if config.num_experts:
         return moe_mlp(
             normed, params["router"][i], params["w_gate"][i], params["w_up"][i],
@@ -540,7 +681,7 @@ def _mlp_block(config: LlamaConfig, normed: torch.Tensor, params, i, valid=None,
         activated = F.gelu(gate, approximate="tanh")
     else:
         activated = F.silu(gate)
-    return qmatmul(activated * up, params["w_down"][i]), None
+    return qmatmul(activated * up, params["w_down"][i], out_dtype=out_dtype), None
 
 
 # rows of one pass through the MLP: a call of more rows (a prefill of
@@ -567,12 +708,20 @@ def _mlp(config: LlamaConfig, normed: torch.Tensor, params, i) -> torch.Tensor:
     token alone; the block keeps ``normed``'s width and dtype)."""
     rows = normed.reshape(-1, normed.shape[-1])
     step = mlp_rows(config)
+    group = _tp(config)
+    # under tp each row holds the rank's partial sums over its
+    # intermediate columns, kept in f32 and added across the ranks once
+    # for all slices, then rounded once (the MoE MLP's come in its dtype)
+    partial = {} if group is None else {"out_dtype": torch.float32}
     if rows.shape[0] <= step:
-        return _mlp_block(config, normed, params, i)[0]
-    out = torch.empty_like(rows)
-    for start in range(0, rows.shape[0], step):
-        out[start:start + step] = _mlp_block(config, rows[start:start + step], params, i)[0]
-    return out.reshape(normed.shape)
+        out = _mlp_block(config, normed, params, i, **partial)[0]
+    else:
+        out = torch.empty(rows.shape, dtype=partial.get("out_dtype", rows.dtype), device=rows.device)
+        for start in range(0, rows.shape[0], step):
+            out[start:start + step] = _mlp_block(config, rows[start:start + step], params, i,
+                                                 **partial)[0]
+        out = out.reshape(normed.shape)
+    return out if group is None else group.all_reduce(out).to(normed.dtype)
 
 
 def _logits(config: LlamaConfig, params, x: torch.Tensor) -> torch.Tensor:
@@ -581,6 +730,11 @@ def _logits(config: LlamaConfig, params, x: torch.Tensor) -> torch.Tensor:
         logits = (x @ params["embedding"].T.to(x.dtype)).float()
     else:
         logits = qmatmul(x, params["lm_head"]).float()
+    group = _tp(config)
+    if group is not None:
+        # the rank's columns of the vocabulary, gathered whole: every rank
+        # samples from the same full row
+        logits = group.all_gather(logits, dim=-1)
     cap = config.final_logit_softcap
     if cap is not None:
         logits = cap * torch.tanh(logits / cap)
@@ -635,7 +789,7 @@ def _chunk_attn(config, q, kv, starts, totals, window=None):
 def _layer_tail(config, params, i, x, attn):
     """Output projection, residuals, the MLP block and the optional
     sandwich norms — shared by prefill and decode."""
-    attn = qmatmul(attn, params["wo"][i])
+    attn = _row_product(config, attn, params["wo"][i])
     if "post_attn_norm" in params:
         attn = _norm(config, attn, params["post_attn_norm"][i])
     x = x + attn

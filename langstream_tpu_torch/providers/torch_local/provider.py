@@ -80,9 +80,17 @@ on) runs the decode-stall watchdog; it also takes a mapping of
 which turns it on with them. ``queue-timeout-s`` sheds a request that
 waited longer for admission with a 503 and ``Retry-After``.
 
-Every other key that the JAX provider honours and the port does not
-(:data:`UNPORTED_KEYS`; every engine key is served) raises when it is set
-to anything but the JAX default.
+``mesh: {tp: N}`` serves the model over N tensor-parallel ranks, one
+process each (``torch.distributed`` must be up, one rank per process:
+``serve --tp N`` starts them, ``runtime.multihost`` joins them across
+hosts). Every rank builds this service from the same config: it loads or
+draws the same full weights and keeps its shard (a checkpoint is read on
+the host and sliced before it reaches the card; random weights are sliced
+leaf by leaf as they are drawn), and its engine holds its own kv heads.
+Rank 0 serves; the others replay its dispatches (``serving/mirror.py``).
+Under tp the supervisor is off (a rebuilt leader cannot resynchronize its
+followers) and the step functions run eagerly. Axes other than ``tp``
+raise (ROADMAP.md, A10).
 
 Embeddings configuration (:class:`TorchEmbeddingsService`)::
 
@@ -117,6 +125,7 @@ from langstream_tpu_torch.api.service import (
     ServiceProvider,
 )
 from langstream_tpu_torch.device import resolve_device
+from langstream_tpu_torch.parallel.mesh import MeshConfig, tp_rank
 from langstream_tpu_torch.providers.torch_local import model as model_lib
 from langstream_tpu_torch.providers.torch_local.embeddings import (
     EncoderConfig,
@@ -127,7 +136,7 @@ from langstream_tpu_torch.providers.torch_local.engine import (
     DecodeEngine,
     SamplingParams,
 )
-from langstream_tpu_torch.providers.torch_local.quant import init_quantized_params
+from langstream_tpu_torch.providers.torch_local.quant import init_quantized_params, quantize_params
 from langstream_tpu_torch.providers.torch_local.tokenizer import HFTokenizer, get_tokenizer
 from langstream_tpu_torch.providers.torch_local.weights import load_checkpoint, load_hf_bert
 
@@ -138,22 +147,17 @@ def _on(value: Any) -> bool:
     return str(value).lower() in ("1", "true", "yes")
 
 
-# Keys the JAX provider honours that the port does not serve yet (ROADMAP.md,
-# Queue A), each with the test for a value other than the JAX default. Set,
-# they raise: served as if absent, a config would get another engine than
-# the one it asked for (``mesh`` would not shard).
-UNPORTED_KEYS = {
-    "mesh": bool,
-}
+def mirror_fingerprint(config: Dict[str, Any]) -> bytes:
+    """The leader's and followers' config digest over the keys that shape
+    the model calls (the JAX ``serve``'s ``_mirror_fingerprint``): the SLO
+    targets and the watchdog are left out, since a follower serves no
+    HTTP surface."""
+    from langstream_tpu_torch.serving.mirror import config_fingerprint
 
-
-def _refuse_unported(config: Dict[str, Any]) -> None:
-    for key, is_set in UNPORTED_KEYS.items():
-        if is_set(config.get(key)):
-            raise NotImplementedError(
-                f"{key}: {config[key]!r} is not ported to langstream_tpu_torch "
-                f"yet (see ROADMAP.md, Queue A); omit it"
-            )
+    scrubbed = {key: value for key, value in config.items() if key != "slo"}
+    scrubbed["engine"] = {key: value for key, value in (config.get("engine") or {}).items()
+                          if key != "watchdog"}
+    return config_fingerprint(scrubbed)
 
 
 def _watchdog_settings(value: Any) -> Optional[Dict[str, Any]]:
@@ -193,7 +197,9 @@ class TorchCompletionsService(CompletionsService):
         if quantization not in (None, "int8"):
             raise ValueError(f"unknown quantization {quantization!r}")
         engine_config = config.get("engine", {}) or {}
-        _refuse_unported(config)
+        mesh = MeshConfig.from_config(config.get("mesh"))
+        # a tp rank keeps its shard of every leaf (rank 0 of 1 keeps all)
+        rank = tp_rank(mesh)
         # the tokenizer first: a missing `transformers` fails before the
         # weights load
         self.tokenizer = get_tokenizer(config.get("tokenizer"))
@@ -202,18 +208,34 @@ class TorchCompletionsService(CompletionsService):
         if checkpoint:
             # the checkpoint's config.json gives the model; `model` is
             # ignored, as in the JAX provider
-            model_config, params = load_checkpoint(str(checkpoint), device=self.device)
+            if mesh.tp > 1:
+                # read on the host, quantized whole (a row-sharded weight's
+                # scale is the whole row's), and only the rank's shard
+                # goes to the card
+                model_config, params = load_checkpoint(str(checkpoint), device="cpu")
+                if quantization == "int8":
+                    params = quantize_params(params, model_config.num_experts)
+                params = {name: leaf.to(self.device) for name, leaf in model_lib.rank_params(
+                    model_config, params, mesh, rank).items()}
+            else:
+                model_config, params = load_checkpoint(str(checkpoint), device=self.device)
             logger.info("loaded checkpoint %s (%.2fB params)", checkpoint,
                         model_config.num_params() / 1e9)
         else:
             model_config = model_lib.LlamaConfig.from_dict(config.get("model", {"preset": "tiny"}))
             seed = int(config.get("seed", 0))
+            keep = None
+            if mesh.tp > 1:
+                def keep(name, leaf):
+                    return model_lib.shard_leaf(model_config, name, leaf, mesh, rank)
             if quantization == "int8":
                 # drawn directly in int8 on the device: Llama-3-8B never
                 # holds its bf16 weights
-                params = init_quantized_params(model_config, seed=seed, device=self.device)
+                params = init_quantized_params(model_config, seed=seed, device=self.device,
+                                               keep=keep)
             else:
-                params = model_lib.init_params(model_config, seed=seed, device=self.device)
+                params = model_lib.init_params(model_config, seed=seed, device=self.device,
+                                               keep=keep)
             logger.warning(
                 "torch-local: no checkpoint configured — RANDOM %sweights "
                 "(%.2fB params, benchmarking only)", "int8 " if quantization else "",
@@ -280,6 +302,7 @@ class TorchCompletionsService(CompletionsService):
             # per-stage blame on /metrics
             slo={str(key).replace("-", "_"): float(value)
                  for key, value in (config.get("slo") or {}).items() if value} or None,
+            mesh_config=mesh,
         )
         precompile = _on(engine_config.get("precompile", ""))
         weights = {"params": params}
@@ -310,7 +333,9 @@ class TorchCompletionsService(CompletionsService):
         self._supervisor = None
         self._engine: Optional[DecodeEngine] = None
         self._watchdog = None
-        supervised = str(engine_config.get(
+        # under tp a rebuilt leader could not resynchronize its followers:
+        # the supervisor is off, as the JAX serve turns it off under the mirror
+        supervised = mesh.tp == 1 and str(engine_config.get(
             "supervisor", os.environ.get("LANGSTREAM_SUPERVISOR", "1"))).lower() not in (
             "0", "false", "no", "off")
         if supervised:

@@ -68,13 +68,25 @@ def dq(w: Any, dtype: torch.dtype) -> torch.Tensor:
     return w if w.dtype == dtype else w.to(dtype)
 
 
-def qmatmul(x: torch.Tensor, w: Any) -> torch.Tensor:
+def qmatmul(x: torch.Tensor, w: Any, out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``x @ w`` against an optionally quantized weight, the scale applied
     to the output: the JAX ``qeinsum`` for the model's one contraction
-    (``"...h,hd->...d"``, x's last axis against w's second-to-last)."""
-    if isinstance(w, QTensor):
-        return (x @ w.q.to(x.dtype)) * w.scale.to(x.dtype)
-    return x @ (w if w.dtype == x.dtype else w.to(x.dtype))
+    (``"...h,hd->...d"``, x's last axis against w's second-to-last).
+    ``out_dtype`` (f32 under tensor parallelism, for a row-sharded
+    weight's partial sums) keeps the product's f32 accumulation unrounded:
+    cuBLAS writes it in that dtype on the card; elsewhere the product runs
+    in it."""
+    if out_dtype is None or out_dtype == x.dtype:
+        if isinstance(w, QTensor):
+            return (x @ w.q.to(x.dtype)) * w.scale.to(x.dtype)
+        return x @ (w if w.dtype == x.dtype else w.to(x.dtype))
+    weight = w.q if isinstance(w, QTensor) else w
+    if x.is_cuda:
+        flat = torch.mm(x.reshape(-1, x.shape[-1]), weight.to(x.dtype), out_dtype=out_dtype)
+        out = flat.reshape(*x.shape[:-1], flat.shape[-1])
+    else:
+        out = x.to(out_dtype) @ weight.to(out_dtype)
+    return out * w.scale.to(out_dtype) if isinstance(w, QTensor) else out
 
 
 # the dense family's matmul weights; embedding and norms stay in their
@@ -94,21 +106,47 @@ def quantize_params(params: Dict[str, Any], num_experts: int = 0) -> Dict[str, A
     return out
 
 
+def quantize_logical_axes(axes: Dict[str, Any], params: Dict[str, Any]) -> Dict[str, Any]:
+    """A logical-axes dict over quantized params, the JAX package's
+    ``quantize_logical_axes``: an int8 leaf's axes become a
+    :class:`QTensor` of axes, ``q`` the weight's and ``scale`` the
+    weight's without the contraction axis, so that a column-sharded
+    weight's scale (``wq``, ``wk``, ``wv``, ``w_gate``, ``w_up``,
+    ``lm_head``) splits with it and a row-sharded one's (``wo``,
+    ``w_down``) stays whole."""
+    from langstream_tpu_torch.parallel.mesh import L
+
+    out = dict(axes)
+    for name, value in params.items():
+        if isinstance(value, QTensor) and name in out:
+            names = out[name].names
+            out[name] = QTensor(q=L(*names), scale=L(*(names[:-2] + (names[-1],))))
+    return out
+
+
 def init_quantized_params(
-    config, seed: int = 0, direct: Optional[bool] = None, device: Any = "cpu",
+    config, seed: int = 0, direct: Optional[bool] = None, device: Any = "cpu", keep=None,
 ) -> Dict[str, Any]:
     """Random int8 weights drawn directly on ``device`` from a generator
     seeded with ``seed``: the model-dtype weights are never made, so
     Llama-3-8B takes ~8.5 GB instead of 16 GB of bf16 first. ``direct=None``
     picks by size: small models go through ``init_params`` and
-    :func:`quantize_params`. The numbers are not ``jax.random``'s."""
+    :func:`quantize_params`. The numbers are not ``jax.random``'s.
+    ``keep(name, leaf)`` is applied to each leaf once it is quantized (a
+    tp rank keeps its shard, as ``model.init_params`` does)."""
     from langstream_tpu_torch.providers.torch_local import model as model_lib
 
     if direct is None:
         direct = config.num_params() >= 5e8 and not config.num_experts
     if not direct or config.num_experts:
-        return quantize_params(
-            model_lib.init_params(config, seed=seed, device=device), config.num_experts)
+        moe_names = {"w_gate", "w_up", "w_down"} if config.num_experts else set()
+
+        def quantized(name, leaf):
+            if name in QUANTIZED_PARAMS and name not in moe_names:
+                leaf = quantize(leaf)
+            return keep(name, leaf) if keep is not None else leaf
+
+        return model_lib.init_params(config, seed=seed, device=device, keep=quantized)
     generator = torch.Generator(device=device).manual_seed(seed)
     h = config.hidden_size
     nh, nkv, hd = config.num_heads, config.num_kv_heads, config.dims_per_head
@@ -123,26 +161,29 @@ def init_quantized_params(
         return torch.full(shape, value, dtype=torch.float32, device=device)
 
     norm_fill = 0.0 if config.norm_plus_one else 1.0
+    out: Dict[str, Any] = {}
+
+    def put(name, leaf):
+        out[name] = keep(name, leaf) if keep is not None else leaf
+
     embedding = torch.empty((v, h), dtype=config.dtype, device=device)
-    out: Dict[str, Any] = {
-        "embedding": embedding.normal_(0.0, 1.0 / math.sqrt(h), generator=generator),
-        "wq": q_init((layers, h, nh * hd)),
-        "wk": q_init((layers, h, nkv * hd)),
-        "wv": q_init((layers, h, nkv * hd)),
-        "wo": q_init((layers, nh * hd, h)),
-        "w_gate": q_init((layers, h, f)),
-        "w_up": q_init((layers, h, f)),
-        "w_down": q_init((layers, f, h)),
-        "attn_norm": full((layers, h), norm_fill),
-        "mlp_norm": full((layers, h), norm_fill),
-        "final_norm": full((h,), norm_fill),
-    }
+    put("embedding", embedding.normal_(0.0, 1.0 / math.sqrt(h), generator=generator))
+    put("wq", q_init((layers, h, nh * hd)))
+    put("wk", q_init((layers, h, nkv * hd)))
+    put("wv", q_init((layers, h, nkv * hd)))
+    put("wo", q_init((layers, nh * hd, h)))
+    put("w_gate", q_init((layers, h, f)))
+    put("w_up", q_init((layers, h, f)))
+    put("w_down", q_init((layers, f, h)))
+    put("attn_norm", full((layers, h), norm_fill))
+    put("mlp_norm", full((layers, h), norm_fill))
+    put("final_norm", full((h,), norm_fill))
     if config.post_norms:
-        out["post_attn_norm"] = full((layers, h), norm_fill)
-        out["post_mlp_norm"] = full((layers, h), norm_fill)
+        put("post_attn_norm", full((layers, h), norm_fill))
+        put("post_mlp_norm", full((layers, h), norm_fill))
     if config.qkv_bias:
         for name, width in (("bq", nh * hd), ("bk", nkv * hd), ("bv", nkv * hd)):
-            out[name] = full((layers, width), 0.0)
+            put(name, full((layers, width), 0.0))
     if not config.tie_embeddings:
-        out["lm_head"] = q_init((h, v))
+        put("lm_head", q_init((h, v)))
     return out

@@ -85,6 +85,13 @@ class CostModel:
     - int8 weights: one byte a parameter (scales left out); int8 KV: int8
       values plus one f32 scale per (layer, position, kv head) for each
       of k and v.
+    - tensor parallelism (``tp_shards`` > 1): every count is per card.
+      The weights shard over tp (the whole parameter set, to the serving
+      approximation), the KV cache on its kv heads and the query heads'
+      FLOPs the same way, so weight bytes, KV row bytes and every FLOPs
+      accessor divide by ``tp_shards``; the block tables do not (every
+      rank's kernel reads them whole), and a handoff moves every rank's
+      rows.
     """
 
     params: int
@@ -98,6 +105,9 @@ class CostModel:
     # the paged attention the engine dispatches: "fused" | "reference"
     # (None = the dense layout: no table to charge for)
     paged_kernel: Optional[str] = None
+    # tensor-parallel ranks: the FLOPs accessors divide by it (the weight
+    # and KV row bytes are divided once, at construction)
+    tp_shards: int = 1
 
     @classmethod
     def from_model_config(
@@ -108,8 +118,10 @@ class CostModel:
         kv_quant: bool = False,
         kv_block_size: int = 1,
         paged_kernel: Optional[str] = None,
+        tp: int = 1,
     ) -> "CostModel":
         head_dim = config.dims_per_head
+        tp = max(1, int(tp))
         if kv_quant:
             kv_row_bytes = 2 * config.num_layers * config.num_kv_heads * (head_dim + 4)
         else:
@@ -121,10 +133,11 @@ class CostModel:
             num_heads=config.num_heads,
             num_kv_heads=config.num_kv_heads,
             head_dim=head_dim,
-            weight_bytes=params * (1 if weight_quant == "int8" else 2),
-            kv_row_bytes=kv_row_bytes,
+            weight_bytes=params * (1 if weight_quant == "int8" else 2) // tp,
+            kv_row_bytes=kv_row_bytes // tp,
             kv_block_size=max(1, int(kv_block_size)),
             paged_kernel=paged_kernel,
+            tp_shards=tp,
         )
 
     # ------------------------------------------------------------------ #
@@ -161,7 +174,7 @@ class CostModel:
             + 4.0 * (kv_tokens * block + in_block) * self.num_heads * self.head_dim
             * self.num_layers
         )
-        return per_step * steps
+        return per_step * steps / self.tp_shards
 
     def decode_chunk_bytes(self, steps: int, active: int, kv_tokens: int, block: int = 1) -> float:
         """Bytes of a decode chunk: the weights once a step, each slot's
@@ -177,8 +190,8 @@ class CostModel:
 
     def kv_handoff_bytes(self, tokens: int) -> float:
         """Bytes a paged-KV handoff moves for ``tokens`` rows of history,
-        block-padded (the handoff ships whole blocks)."""
-        return float(self.kv_row_bytes) * self.kv_read_tokens(int(tokens))
+        block-padded (the handoff ships whole blocks), every tp rank's."""
+        return float(self.kv_row_bytes) * self.tp_shards * self.kv_read_tokens(int(tokens))
 
     def kv_demote_bytes(self, tokens: int) -> float:
         """Device-to-host bytes to demote ``tokens`` rows into the host
@@ -201,7 +214,7 @@ class CostModel:
         return (
             2.0 * self.params * new_tokens
             + 4.0 * positions_sum * self.num_heads * self.head_dim * self.num_layers
-        )
+        ) / self.tp_shards
 
     def prefill_bytes(self, new_tokens: int, offset: int = 0) -> float:
         """Bytes of a prefill call: the weights once, the kernel-aware

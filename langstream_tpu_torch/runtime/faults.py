@@ -46,6 +46,10 @@ decide what firing means):
                          scatter (``engine._promote_host_chain``): it
                          aborts before anything publishes and the
                          admission prefills cold
+``mirror_follower``      a tp follower's replay raises before the Nth
+                         record (``serving/mirror.py``): a rank dying
+                         mid-stream, which must fail the leader's next
+                         collective within its time limit
 =====================  ==================================================
 
 Unarmed (the default) every check is one attribute read — chaos costs

@@ -1555,3 +1555,112 @@ def test_moe_training_step_on_the_card_matches_cpu():
     assert result["loss_err"] <= chip_smoke.TRAIN_LOSS_TOLERANCE
     assert result["worst_cosine"] >= chip_smoke.TRAIN_GRAD_COSINE
     assert result["tokens_routed"] > 0
+
+
+# ---------------------------------------------------------------------- #
+# tensor parallelism: a rank's launch on its head shard, two ranks on one card
+# ---------------------------------------------------------------------- #
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("kernel", ["prefill", "decode", "paged"])
+def test_sharded_launch_on_a_head_shard_matches_plain(kernel, quant):
+    """Each tp=2 rank's launch at Llama-3-8B's shard shape (H 32 over KVH
+    8 whole, 16 over 4 a rank, D 128, q bf16): B1/B2/B3 (B4/B5/B6 over
+    int8 k/v) on the rank's heads, one launch each, within the bf16
+    kernel tolerance of the plain version on the same heads."""
+    from langstream_tpu_torch.ops.decode_kernel import flash_decode_attention_sharded
+    from langstream_tpu_torch.ops.flash_attention import flash_prefill_attention_sharded
+    from langstream_tpu_torch.ops.paged_attention import ragged_paged_attention_sharded
+    from langstream_tpu_torch.parallel.mesh import head_shard
+
+    device = _card()
+    rng = np.random.default_rng(5)
+    heads, kv_heads, dim, size = 32, 8, 128, 2
+
+    def draw(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device, torch.bfloat16)
+
+    if kernel == "prefill":
+        q, k, v = draw(2, 128, heads, dim), draw(2, 128, kv_heads, dim), draw(2, 128, kv_heads, dim)
+        lengths = torch.tensor([128, 77], dtype=torch.int32, device=device)
+        rows = (k, v)
+    elif kernel == "decode":
+        q, k, v = draw(4, heads, dim), draw(4, 256, kv_heads, dim), draw(4, 256, kv_heads, dim)
+        lengths = torch.tensor([256, 100, 1, 37], dtype=torch.int32, device=device)
+        rows = (k, v)
+    else:
+        q, k, v = draw(3, 1, heads, dim), draw(33, 16, kv_heads, dim), draw(33, 16, kv_heads, dim)
+        tables = torch.from_numpy((rng.permutation(32) + 1).reshape(2, 16).astype(np.int32))
+        tables = torch.cat([tables, torch.zeros((1, 16), dtype=torch.int32)]).to(device)
+        lengths = torch.tensor([250, 17, 1], dtype=torch.int32, device=device)
+        rows = (k, v)
+    scales = {}
+    if quant:
+        (k, k_scale), (v, v_scale) = quantize_kv(rows[0]), quantize_kv(rows[1])
+        scales = dict(k_scale=k_scale, v_scale=v_scale)
+    for rank in range(size):
+        qs, ks, vs = head_shard(q, q.dim() - 2, rank, size), head_shard(k, 2, rank, size), \
+            head_shard(v, 2, rank, size)
+        shard_scales = {name: head_shard(value, 2, rank, size) for name, value in scales.items()}
+        if kernel == "prefill":
+            name = "flash_prefill"
+            call = lambda: flash_prefill_attention_sharded(q, k, v, rank=rank, size=size, lengths=lengths,
+                                                          **scales)
+            mask = torch.arange(128, device=device)[None, :] < lengths[:, None]
+            plain = (chunk_attention_quant(qs, ks, shard_scales["k_scale"], vs, shard_scales["v_scale"],
+                                           torch.zeros_like(lengths), lengths) if quant
+                     else prefill_attention(qs, ks, vs, mask=mask))
+            plain = plain[:, :77]
+        elif kernel == "decode":
+            name = "flash_decode"
+            call = lambda: flash_decode_attention_sharded(q, k, v, lengths, rank=rank, size=size, **scales)
+            plain = (decode_attention_quant(qs, ks, shard_scales["k_scale"], vs, shard_scales["v_scale"],
+                                            lengths) if quant else decode_attention(qs, ks, vs, lengths))
+        else:
+            name = "paged_attention"
+            call = lambda: ragged_paged_attention_sharded(q, k, v, tables, lengths - 1, lengths, rank=rank,
+                                                         size=size, **scales)
+            plain = (paged_decode_attention_quant(qs[:, 0], ks, shard_scales["k_scale"], vs,
+                                                  shard_scales["v_scale"], tables, lengths) if quant
+                     else paged_decode_attention(qs[:, 0], ks, vs, tables, lengths))[:, None]
+        name += "_quant" if quant else ""
+        with launches_lib.device_launches() as counts:
+            out = call()
+        assert counts[name] == 1 and sum(counts.values()) == 1, counts
+        assert out.shape[-2] == heads // size
+        got = out[:, :77] if kernel == "prefill" else out
+        assert _rel_err(got, plain) < TOLERANCE["bfloat16"], (kernel, rank)
+
+
+@pytest.mark.gpu
+def test_two_ranks_on_one_card_match_one_rank(tmp_path):
+    """Two tp ranks sharing the card over gloo (``parallel/launch.py``,
+    ``tests/torch_tp_worker.py``): a cold prefill and one decode step at
+    Llama-3-8B's head shape (16 heads over 4 of 128; 8 over 2 a rank),
+    bf16, 2 layers. Both ranks' logits equal bit for bit (gathered
+    whole) and within the model tolerance of one rank's on the card; each
+    rank launched B1 and B2 once per layer per call."""
+    import json
+    import pathlib
+
+    from langstream_tpu_torch.parallel import launch
+    from langstream_tpu_torch.runtime.multihost import free_port
+    import torch_tp_worker as worker
+
+    device = _card()
+    out = str(tmp_path / "ranks")
+    repo = pathlib.Path(__file__).resolve().parents[1]
+    children = launch.spawn_ranks("torch_tp_worker:card_decode_step", {"out": out},
+                                  ["cuda:0", "cuda:0"], f"127.0.0.1:{free_port()}", timeout_s=120,
+                                  ranks=range(2), path=[str(repo / "tests")], cwd=str(repo))
+    config = dataclasses.replace(model.LlamaConfig(**worker.CARD_CONFIG), dtype=torch.bfloat16)
+    want, _ = worker.card_calls(config, model.init_params(config, seed=0, device=device), str(device))
+    assert launch.stop_ranks(children, timeout_s=180) == [0, 0]
+    ranks = [dict(np.load(f"{out}.{rank}.npz")) for rank in range(2)]
+    accounts = [json.load(open(f"{out}.{rank}.json")) for rank in range(2)]
+    for call, logits in want.items():
+        np.testing.assert_array_equal(ranks[0][call], ranks[1][call])
+        assert _rel_err(torch.from_numpy(ranks[0][call]), torch.from_numpy(logits)) < 5e-2, call
+    for account in accounts:
+        assert account["backend"] == "gloo"
+        assert account["launches"] == {"prefill": {"flash_prefill": 2}, "decode": {"flash_decode": 2}}

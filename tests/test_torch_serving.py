@@ -181,7 +181,12 @@ def _imports(path):
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     files = sorted((REPO / "langstream_tpu_torch").rglob("*.py"))
-    files += [REPO / "chip_smoke.py", REPO / "serve_ab.py"]
+    # the tensor-parallel slice's modules, the follower's entry script and
+    # the ranks the CPU tests start are scanned by name: each must exist
+    tp_files = [REPO / "langstream_tpu_torch" / path for path in (
+        "serving/mirror.py", "runtime/multihost.py", "parallel/mesh.py", "parallel/launch.py")]
+    assert all(path in files for path in tp_files), tp_files
+    files += [REPO / "chip_smoke.py", REPO / "serve_ab.py", REPO / "tests" / "torch_tp_worker.py"]
     assert len(files) > 10
     for path in files:
         for name in _imports(path):
@@ -270,9 +275,10 @@ def test_provider_refuses_int8_weights():
 
 
 # one value other than the JAX default for each key the JAX provider
-# honours and the port does not serve yet: (where, key, value)
+# honours and the port does not serve yet: (where, key, value). The mesh's
+# tp axis is served since the tensor-parallel slice; its other axes are not
 UNPORTED = [
-    ("top", "mesh", {"tp": 2}),
+    ("top", "mesh", {"dp": 2}),
 ]
 # keys the port serves since the self-healing slice (kv-host-blocks since
 # the host-tier slice, slo since the accounting slice), each with a value
@@ -313,8 +319,8 @@ CASES = [("top" if key in TOP_LEVEL else "engine", key, value)
     ids=[key for _, key, _ in CASES] + ["defaults-serve"],
 )
 def test_provider_refuses_keys_it_does_not_port(where, key, value):
-    """Each key the JAX provider honours and the port does not (``mesh``)
-    raises when set to a non-default value, instead of being served as if
+    """Each key the JAX provider honours and the port does not (a ``mesh``
+    axis other than ``tp``) raises when set to a non-default value, instead of being served as if
     it were absent; the keys the port serves since the self-healing slice
     (``watchdog``, ``queue-timeout-s``, ``max-restarts``,
     ``restart-window-s``), the host-tier slice (``kv-host-blocks``) and
