@@ -302,6 +302,17 @@ Phases (any failure propagates and the exit code is not 0):
    functions, tok/s and the bare eager step's wall, which measure two
    ranks time-sharing one card over host-staged gloo, not a tp speed.
    The ranks' output goes to ``build/tp/``.
+16. Training on the mesh (no kernel of its own: the trainer
+   differentiates the plain attention, as JAX's does; the ring's chunk is
+   two einsums, Ulysses runs the plain attention on its heads). Two ranks
+   share the card over gloo, started once by ``parallel.launch``
+   (:func:`mesh_train_rank`): ``llama3_1b`` at full width and
+   ``MESH_LAYERS`` layers, B 4 × T 256, ``MESH_STEPS`` AdamW steps at
+   dp2, fsdp2, tp2 and pp2, then Mixtral-8x7B at full width and ``MESH_MOE_LAYERS``
+   layer at ep2; ring and Ulysses attention at sp=2 on Llama-3-8B's
+   attention shape; a checkpoint written at fsdp2 and restored at pp2.
+   Gates and prints: :func:`check_mesh_training`. The ranks' output goes
+   to ``build/mesh/``.
 
 Each phase's wall time is printed in one line before the kernels'.
 
@@ -4970,6 +4981,278 @@ def check_tp(device, label: str) -> None:
     log(f"phase 15 (tensor parallelism) [{label}]: {time.perf_counter() - started:.1f} s")
 
 
+# ---------------------------------------------------------------------- #
+# phase 16: training on the mesh
+# ---------------------------------------------------------------------- #
+# two ranks share the card over host-staged gloo (NCCL refuses two ranks
+# on one device): every collective, shard, pipeline tick and ring turn
+# runs at full width, none of it at NCCL's speed
+MESH_RANKS = 2
+MESH_TIMEOUT_S = 300
+MESH_LOGS = os.path.join("build", "mesh")
+MESH_CHECKPOINT_DIR = os.path.join("build", "mesh-checkpoint")
+# llama3_1b at full width, cut to MESH_LAYERS (at 4 the smoke ran past
+# its 1000 s on a slower host); Mixtral at MESH_MOE_LAYERS (one: no later
+# router sees the shares' rounding, so the card's ep2 run routes as its
+# one-card run does); MESH_STEPS cut from 3 when the smoke ran 1177.5 s
+# of its 1200 on a slower host (phase 12's engines at 8 layers broke its
+# near-tie gate: random weights that shallow sample off the top ids)
+MESH_LAYERS, MESH_MOE_LAYERS = 2, 1
+MESH_BATCH, MESH_SEQ, MESH_STEPS = 4, 256, 2
+MESHES = (("dp2", {"dp": 2}), ("fsdp2", {"fsdp": 2}), ("tp2", {"tp": 2}), ("pp2", {"pp": 2}),
+          ("ep2", {"ep": 2}))
+# ring and Ulysses at sp=2 on Llama-3-8B's attention: B, T, H, KVH, D
+SP_SHAPE = (1, 4096, 32, 8, 128)
+SP_TOLERANCE = 2e-2
+SP_GRAD_COSINE = 0.99
+
+
+def _digests(tensors) -> dict:
+    """Each tensor's bytes by SHA-1, on the host."""
+    import hashlib
+
+    return {name: hashlib.sha1(t.detach().to("cpu").contiguous().view(torch.uint8).numpy()).hexdigest()
+            for name, t in tensors.items()}
+
+
+def _mesh_run(rank, device, label, config, mesh, saved) -> dict:
+    """One mesh of phase 16 on this rank: the one-card Trainer's first
+    step from the same weights and batch on rank 0 (its loss and
+    gradients, the reference; once a config, kept in ``saved``), then
+    the mesh's Trainer for
+    :data:`MESH_STEPS` timed steps (its first step's gradients gathered to
+    rank 0), the replicas' digests, and at fsdp2 a checkpoint written, at
+    pp2 restored. Returns rank 0's account (the other ranks' peaks and
+    digests gathered into it)."""
+    import torch.distributed as dist
+
+    from langstream_tpu_torch.parallel import collectives
+    from langstream_tpu_torch.parallel.mesh import MeshConfig, mesh_coords
+    from langstream_tpu_torch.training.checkpoint import CheckpointManager
+    from langstream_tpu_torch.training.trainer import TrainConfig, Trainer
+
+    walls = {"start": time.perf_counter()}
+    tokens, mask = _train_batch(config, MESH_BATCH, MESH_SEQ, seed=3)
+    train = TrainConfig(learning_rate=1e-3, remat=True)
+    params = model.init_params(config, seed=0, device=device)
+    account = {"mesh": label}
+    if rank == 0:
+        if saved.get("config") != config:
+            saved.pop("reference", None)
+            reference = Trainer(config, params, train_config=train, device=device)
+            loss = reference.train_step(tokens, mask)
+            saved.update(config=config, reference=(loss, {name: p.grad for name, p in
+                                                          reference.params.items()}))
+            del reference
+        account["reference_loss"], ref_grads = saved["reference"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls["reference"] = time.perf_counter()
+    mesh_config = MeshConfig(**mesh)
+    trainer = Trainer(config, params, mesh_config=mesh_config, train_config=train, device=device)
+    del params
+    losses, step_ms, moved = [], [], []
+    for step in range(MESH_STEPS):
+        collectives.reset_bytes()
+        torch.cuda.synchronize()
+        started = time.perf_counter()
+        losses.append(trainer.train_step(tokens, mask))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - started) * 1e3)
+        moved.append(dict(collectives.BYTES_MOVED))
+        if step == 0:
+            gather_started = time.perf_counter()
+            grads = trainer.gathered({name: p.grad for name, p in trainer.params.items()})
+            walls["gather"] = time.perf_counter() - gather_started
+    walls["steps"] = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # every leaf bit for bit the same on the ranks that hold the same slice
+    found: list = [None] * MESH_RANKS
+    dist.all_gather_object(found, _digests(trainer.params))
+    replicas_differ = []
+    for name, splits in trainer._splits.items():
+        held = {}
+        for other, digests in enumerate(found):
+            coords = mesh_coords(mesh_config, other)
+            key = tuple(coords[axis] for _, axis in splits)
+            if held.setdefault(key, digests[name]) != digests[name]:
+                replicas_differ.append(name)
+    account.update(losses=losses, step_ms=step_ms, moved=moved, backend=trainer.group.backend,
+                   replicas_differ=replicas_differ)
+    if label == "fsdp2":
+        shutil.rmtree(MESH_CHECKPOINT_DIR, ignore_errors=True)
+        trainer.save_checkpoint(CheckpointManager(MESH_CHECKPOINT_DIR), wait=True)
+        written = trainer.gathered({name: p.detach() for name, p in trainer.params.items()})
+        if rank == 0:
+            saved["written"] = _digests(written)
+        del written
+    if label == "pp2":
+        account["restored_step"] = trainer.restore_checkpoint(CheckpointManager(MESH_CHECKPOINT_DIR))
+        restored = trainer.gathered({name: p.detach() for name, p in trainer.params.items()})
+        if rank == 0:
+            account["restored_equal"] = _digests(restored) == saved["written"]
+        del restored
+    walls["checks"] = time.perf_counter()
+    peaks: list = [None] * MESH_RANKS
+    dist.all_gather_object(peaks, peak)
+    account["peak_gib"] = peaks
+    if rank == 0:
+        cosines = {name: float(F.cosine_similarity(grad.to(device).float().flatten(),
+                                                   ref_grads[name].float().flatten(), dim=0))
+                   for name, grad in grads.items()}
+        worst = min(cosines, key=cosines.get)
+        account.update(worst_leaf=worst, worst_cosine=cosines[worst], leaves=len(cosines),
+                       all_finite=all(math.isfinite(c) for c in cosines.values()))
+        del ref_grads
+    # seconds: the reference and the draw, the trainer and its steps (the
+    # first step's gathered gradients apart), the digests and checkpoint
+    account["walls"] = {
+        "reference": walls["reference"] - walls["start"],
+        "steps": walls["steps"] - walls["reference"] - walls["gather"],
+        "gather": walls["gather"], "checks": walls["checks"] - walls["steps"],
+        "all": time.perf_counter() - walls["start"]}
+    del trainer, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return account
+
+
+def _sp_run(rank, device) -> list:
+    """Ring and Ulysses attention at sp=2 on :data:`SP_SHAPE` in bf16,
+    each rank holding the whole inputs: the output gathered whole and the
+    input gradients of ``sum(out * cotangent)``; rank 0 holds them against
+    the plain ``prefill_attention`` on the card."""
+    from langstream_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from langstream_tpu_torch.parallel.ring import ring_attention_sharded
+    from langstream_tpu_torch.parallel.ulysses import ulysses_attention_sharded
+
+    group = build_mesh(MeshConfig(sp=MESH_RANKS), device).axis("sp")
+    batch, seq, heads, kv_heads, dim = SP_SHAPE
+    gen = torch.Generator(device=device).manual_seed(5)
+    shapes = ((batch, seq, heads, dim), (batch, seq, kv_heads, dim), (batch, seq, kv_heads, dim))
+    inputs = [torch.randn(shape, generator=gen, device=device, dtype=torch.bfloat16) for shape in shapes]
+    cotangent = torch.randn(shapes[0], generator=gen, device=device, dtype=torch.bfloat16)
+    plain = None
+    if rank == 0:
+        leaves = [t.clone().requires_grad_() for t in inputs]
+        out = prefill_attention(*leaves)
+        (out.float() * cotangent.float()).sum().backward()
+        plain = (out.detach(), [leaf.grad for leaf in leaves])
+    accounts = []
+    for name, fn in (("ring", ring_attention_sharded), ("ulysses", ulysses_attention_sharded)):
+        leaves = [t.clone().requires_grad_() for t in inputs]
+        torch.cuda.synchronize()
+        started = time.perf_counter()
+        out = fn(*leaves, group)
+        (out.float() * cotangent.float()).sum().backward()
+        torch.cuda.synchronize()
+        account = {"kind": name, "ms": (time.perf_counter() - started) * 1e3}
+        if rank == 0:
+            ref, ref_grads = plain
+            account["rel_err"] = float((out.detach().float() - ref.float()).abs().max()
+                                       / ref.float().abs().max())
+            account["grad_cosines"] = [float(F.cosine_similarity(leaf.grad.float().flatten(),
+                                                                 want.float().flatten(), dim=0))
+                                       for leaf, want in zip(leaves, ref_grads)]
+        accounts.append(account)
+    return accounts
+
+
+def mesh_train_rank(rank: int, world: int, device: str, payload: dict) -> None:
+    """One rank of phase 16 (started by ``parallel.launch``): each mesh of
+    :data:`MESHES` in turn (llama3_1b at :data:`MESH_LAYERS`, Mixtral at
+    :data:`MESH_MOE_LAYERS` for ep2), then ring and Ulysses; rank 0 writes
+    the accounts to ``payload["out"]``."""
+    llama = dataclasses.replace(model.LlamaConfig.llama3_1b(max_seq_len=MESH_SEQ),
+                                num_layers=MESH_LAYERS)
+    mixtral = dataclasses.replace(model.LlamaConfig.mixtral_8x7b(max_seq_len=MESH_SEQ),
+                                  num_layers=MESH_MOE_LAYERS)
+    saved, accounts = {}, []
+    for label, mesh in MESHES:
+        accounts.append(_mesh_run(rank, device, label, mixtral if label == "ep2" else llama, mesh,
+                                  saved))
+    sp = _sp_run(rank, device)
+    if rank == 0:
+        with open(payload["out"], "w") as out:
+            json.dump({"meshes": accounts, "sp": sp}, out)
+
+
+def check_mesh_training(device, label: str) -> None:
+    """Phase 16: two ranks sharing the card over gloo, started once
+    (:func:`mesh_train_rank`, two processes): llama3_1b (Meta's
+    Llama-3.2-1B config) at full width and :data:`MESH_LAYERS` layers, B
+    :data:`MESH_BATCH` × T :data:`MESH_SEQ`, at dp2, fsdp2, tp2 and pp2,
+    and Mixtral-8x7B at full width and :data:`MESH_MOE_LAYERS` layer at
+    ep2. Gates per mesh: the first loss within ``TRAIN_LOSS_TOLERANCE``
+    of the one-card Trainer's on the card from the same weights and batch,
+    every gathered gradient leaf at cosine ``TRAIN_GRAD_COSINE`` or more,
+    :data:`MESH_STEPS` finite losses with the last below the first, every
+    replicated leaf bit for bit the same on both ranks; the fsdp2
+    checkpoint restored at pp2 bit for bit; ring and Ulysses at sp=2 on
+    :data:`SP_SHAPE` within :data:`SP_TOLERANCE` of the plain attention's
+    max |out|, input gradients at cosine :data:`SP_GRAD_COSINE` or more.
+    Prints each mesh's step ms, its collectives' bytes a step, each
+    rank's peak and the backend, and the phase's wall."""
+    from langstream_tpu_torch.parallel import launch
+    from langstream_tpu_torch.runtime.multihost import free_port
+
+    started = time.perf_counter()
+    out = os.path.join(MESH_LOGS, "accounts.json")
+    os.makedirs(MESH_LOGS, exist_ok=True)
+    try:
+        with open(os.path.join(MESH_LOGS, "ranks.log"), "w") as ranks_log:
+            children = launch.spawn_ranks(
+                "chip_smoke:mesh_train_rank", {"out": out}, [str(device)] * MESH_RANKS,
+                f"127.0.0.1:{free_port()}", timeout_s=MESH_TIMEOUT_S, ranks=range(MESH_RANKS),
+                stdout=ranks_log, stderr=subprocess.STDOUT)
+            try:
+                codes = launch.stop_ranks(children, timeout_s=4 * MESH_TIMEOUT_S)
+            finally:
+                for child in children:
+                    if child.poll() is None:
+                        child.kill()
+        assert codes == [0] * MESH_RANKS, (
+            codes, open(os.path.join(MESH_LOGS, "ranks.log")).read()[-4000:])
+        with open(out) as fh:
+            result = json.load(fh)
+    finally:
+        shutil.rmtree(MESH_CHECKPOINT_DIR, ignore_errors=True)
+    where = "two ranks time-sharing one card over host-staged gloo"
+    for account in result["meshes"]:
+        losses = account["losses"]
+        loss_err = abs(losses[0] - account["reference_loss"]) / abs(account["reference_loss"])
+        assert loss_err <= TRAIN_LOSS_TOLERANCE, account
+        assert account["all_finite"] and account["worst_cosine"] >= TRAIN_GRAD_COSINE, account
+        assert all(math.isfinite(loss) for loss in losses) and losses[-1] < losses[0], account
+        assert not account["replicas_differ"], account
+        assert account["backend"] == "gloo", account
+        if account["mesh"] == "pp2":
+            assert account["restored_step"] == MESH_STEPS and account["restored_equal"], account
+        per_step = [sum(moved.values()) for moved in account["moved"]]
+        log(f"mesh training {account['mesh']} [{label}; {where}]: "
+            f"{'Mixtral-8x7B width, ' + str(MESH_MOE_LAYERS) + ' layer' if account['mesh'] == 'ep2' else 'llama3_1b width, ' + str(MESH_LAYERS) + ' layers'}, "
+            f"B {MESH_BATCH} x T {MESH_SEQ}: losses {', '.join(f'{x:.5f}' for x in losses)} vs "
+            f"one card {account['reference_loss']:.5f} (rel {loss_err:.2e}, tol {TRAIN_LOSS_TOLERANCE}); "
+            f"worst gradient cosine {account['worst_cosine']:.5f} ({account['worst_leaf']}, "
+            f"{account['leaves']} leaves; gate >= {TRAIN_GRAD_COSINE}); replicas equal; step ms "
+            f"{', '.join(f'{x:.1f}' for x in account['step_ms'])}; collectives sent by rank 0 a step "
+            f"{', '.join(f'{x / 1e6:.1f}' for x in per_step)} MB "
+            f"({', '.join(f'{k} {v / 1e6:.1f}' for k, v in sorted(account['moved'][-1].items()))} MB "
+            f"in the last); peak GiB by rank {', '.join(f'{x:.2f}' for x in account['peak_gib'])}; "
+            f"backend {account['backend']}; wall "
+            + ", ".join(f"{k} {v:.1f}" for k, v in account["walls"].items()) + " s"
+            + (f"; the fsdp2 checkpoint restored at step {account['restored_step']} bit for bit"
+               if account["mesh"] == "pp2" else ""))
+    for account in result["sp"]:
+        assert account["rel_err"] <= SP_TOLERANCE, account
+        assert all(c >= SP_GRAD_COSINE for c in account["grad_cosines"]), account
+        log(f"sequence parallel {account['kind']} at sp=2 [{label}; {where}]: B, T, H, KVH, D "
+            f"{SP_SHAPE} bf16, forward + backward {account['ms']:.1f} ms; max err "
+            f"{account['rel_err']:.2e} of max |plain| (tol {SP_TOLERANCE}); input gradient cosines "
+            f"{', '.join(f'{c:.5f}' for c in account['grad_cosines'])} (gate >= {SP_GRAD_COSINE})")
+    log(f"phase 16 (training on the mesh) [{label}]: {time.perf_counter() - started:.1f} s")
+
+
 def main() -> None:
     # the watchdog's trip captures and /debug/profile's go under build/,
     # which git ignores; so does the flight artifact, on as in `serve`
@@ -5152,6 +5435,14 @@ def main() -> None:
     started = time.perf_counter()
     check_tp(device, label)
     walls.append(("tensor parallelism", time.perf_counter() - started))
+    # training on the mesh: two ranks sharing the card over gloo, dp2,
+    # fsdp2, tp2, pp2 and Mixtral at ep2, ring and Ulysses, a checkpoint
+    # across meshes
+    gc.collect()
+    torch.cuda.empty_cache()
+    started = time.perf_counter()
+    check_mesh_training(device, label)
+    walls.append(("training on the mesh", time.perf_counter() - started))
     log("phase wall times, longest first: " + ", ".join(
         f"{name} {seconds:.1f}s" for name, seconds in sorted(walls, key=lambda item: -item[1]))
         + f"; {sum(seconds for _, seconds in walls):.1f}s in all")

@@ -38,11 +38,12 @@ run inside a captured CUDA graph.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from langstream_tpu_torch.parallel import collectives
 from langstream_tpu_torch.providers.torch_local.sampling import lax_top_k
 
 
@@ -93,6 +94,17 @@ def moe_routing(
       aux_loss  [...] f32          — Switch-style load-balancing loss of
                                      each group (over valid tokens only)
     """
+    onehot, slots, gate_vals, aux_loss = _route(logits, num_selected, capacity, valid)
+    dispatch = torch.einsum("...ske,...skc->...sec", onehot, slots)
+    combine = torch.einsum("...sk,...ske,...skc->...sec", gate_vals, onehot, slots)
+    return dispatch, combine, aux_loss
+
+
+def _route(logits, num_selected, capacity, valid):
+    """:func:`moe_routing`'s pieces → (the one-hot of each choice's
+    expert [..., S, k, E], of its slot in that expert [..., S, k, C]
+    (zero where it did not fit), the renormalized gates [..., S, k], the
+    aux loss [...]); dispatch and combine are their products."""
     num_tokens, num_experts = logits.shape[-2:]
     lead = logits.shape[:-2]
     probs, gate_vals, _, onehot = _top_gates(logits, num_selected)  # onehot [..., S, k, E]
@@ -107,8 +119,6 @@ def moe_routing(
     # masked-out choices (padding tokens) have all-zero onehot rows
     fits = (pos_in_expert < capacity) & (onehot.sum(-1) > 0)
     pos_onehot = _one_hot(pos_in_expert, capacity) * fits[..., None].float()
-    dispatch = torch.einsum("...ske,...skc->...sec", onehot, pos_onehot)
-    combine = torch.einsum("...sk,...ske,...skc->...sec", gate_vals, onehot, pos_onehot)
 
     # E * sum_e (fraction of all top-k selections routed to e) * (mean
     # prob of e), means over valid tokens
@@ -121,25 +131,46 @@ def moe_routing(
     frac_routed = onehot.sum(dim=(-3, -2)) / (num_selected * denom)
     mean_prob = probs_masked.sum(dim=-2) / denom
     aux_loss = num_experts * torch.sum(frac_routed * mean_prob, dim=-1)
-    return dispatch, combine, aux_loss
+    return onehot, pos_onehot, gate_vals, aux_loss
 
 
 def moe_mlp(
     x: torch.Tensor,         # [..., H]
     router_w: torch.Tensor,  # [H, E]
-    w_gate: torch.Tensor,    # [E, H, F]
-    w_up: torch.Tensor,      # [E, H, F]
-    w_down: torch.Tensor,    # [E, F, H]
+    w_gate: torch.Tensor,    # [E_local, H, F]
+    w_up: torch.Tensor,      # [E_local, H, F]
+    w_down: torch.Tensor,    # [E_local, F, H]
     *,
     num_selected: int = 2,
     capacity_factor: Optional[float] = 2.0,
     group_size: int = 64,
     valid: Optional[torch.Tensor] = None,  # [...] bool, x's leading shape
+    share_group: Any = None,
+    first_expert: int = 0,
+    batch_group: Any = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """SwiGLU expert MLP → (output with x's shape, load-balancing aux
     loss). ``capacity_factor=None`` is the exact serving regime
     (:func:`_moe_mlp_dense`); otherwise tokens route in groups of
-    ``group_size`` against per-expert capacity."""
+    ``group_size`` against per-expert capacity.
+
+    On a training mesh (``parallel.mesh``):
+
+    - the expert weights may hold experts ``first_expert ..`` only (ep)
+      and a slice of each expert's intermediate columns (tp): the rank
+      computes their share of every token's output, and the shares are
+      summed over ``share_group`` (``parallel.collectives``'
+      ``reduce_sum``). The tokens and the gates enter the share through
+      ``enter``, whose backward sums the ranks' partial gradients; the
+      router and the aux loss, computed whole on every rank, need none.
+    - ``batch_group``: x holds this rank's rows of a global batch split
+      over the group. JAX routes within groups of ``group_size`` of the
+      *global* tokens, so a group may span two ranks: the router logits
+      are gathered over the batch (their backward reduce-scatters, since
+      each rank's loss is its own share), every rank routes every group
+      and counts the aux loss over all of them, and computes the groups
+      that hold its own rows, its rows alone.
+    """
     orig_shape = x.shape
     hidden = x.shape[-1]
     x2 = x.reshape(-1, hidden)
@@ -148,26 +179,47 @@ def moe_mlp(
     num_selected = min(num_selected, num_experts)
 
     if capacity_factor is None:
+        if share_group is not None or batch_group is not None:
+            raise ValueError("the exact MoE regime runs on one card's experts: a training "
+                             "mesh runs the capacity regime")
         valid2 = None if valid is None else valid.reshape(-1)
         y, aux = _moe_mlp_dense(x2, router_w, w_gate, w_up, w_down,
                                 num_selected=num_selected, valid=valid2)
         return y.reshape(orig_shape), aux
 
-    group = min(group_size, num_tokens)
-    pad = (-num_tokens) % group
     valid2 = (torch.ones((num_tokens,), dtype=torch.bool, device=x.device)
               if valid is None else valid.reshape(-1).bool())
+    logits = x2.float() @ router_w.float()
+    offset = 0
+    if batch_group is not None and batch_group.size > 1:
+        logits = collectives.gather(logits, batch_group, 0, reduce=True)
+        valid2 = collectives.all_gather_cat(batch_group, valid2, 0)
+        offset = batch_group.rank * num_tokens
+    total = logits.shape[0]
+    group = min(group_size, total)
+    pad = (-total) % group
     if pad:
-        x2 = F.pad(x2, (0, 0, 0, pad))
+        logits = F.pad(logits, (0, 0, 0, pad))
         valid2 = torch.cat([valid2, valid2.new_zeros((pad,))])
-    num_groups = x2.shape[0] // group
-    xg = x2.reshape(num_groups, group, hidden)
-    vg = valid2.reshape(num_groups, group)
+    num_groups = logits.shape[0] // group
     capacity = moe_capacity(group, num_experts, num_selected, capacity_factor)
-
-    logits = torch.einsum("gsh,he->gse", xg.float(), router_w.float())
-    dispatch, combine, aux = moe_routing(logits, num_selected, capacity, vg)
+    onehot, slots, gate_vals, aux = _route(logits.reshape(num_groups, group, num_experts),
+                                           num_selected, capacity,
+                                           valid2.reshape(num_groups, group))
     aux_loss = aux.mean()
+
+    # the groups that hold this rank's rows, and those rows within them
+    first, last = offset // group, -(-(offset + num_tokens) // group)
+    start = offset - first * group
+    rows = (last - first) * group
+    onehot, slots, gate_vals = (t[first:last] for t in (onehot, slots, gate_vals))
+    if share_group is not None:
+        x2 = collectives.enter(x2, share_group)
+        gate_vals = collectives.enter(gate_vals, share_group)
+    onehot = onehot[..., first_expert:first_expert + w_gate.shape[0]]
+    dispatch = torch.einsum("gske,gskc->gsec", onehot, slots)
+    combine = torch.einsum("gsk,gske,gskc->gsec", gate_vals, onehot, slots)
+    xg = F.pad(x2, (0, 0, start, rows - start - num_tokens)).reshape(last - first, group, hidden)
 
     dtype = x2.dtype
     expert_in = torch.einsum("gsec,gsh->egch", dispatch.to(dtype), xg)
@@ -175,7 +227,9 @@ def moe_mlp(
     up = torch.einsum("egch,ehf->egcf", expert_in, w_up)
     expert_out = torch.einsum("egcf,efh->egch", F.silu(gate) * up, w_down)
     y = torch.einsum("gsec,egch->gsh", combine.to(dtype), expert_out)
-    y = y.reshape(-1, hidden)[:num_tokens]
+    y = y.reshape(-1, hidden)[start:start + num_tokens]
+    if share_group is not None:
+        y = collectives.reduce_sum(y, share_group)
     return y.reshape(orig_shape), aux_loss
 
 

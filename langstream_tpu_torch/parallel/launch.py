@@ -1,4 +1,6 @@
-"""Start the ranks of a tensor-parallel group on one host.
+"""Start the ranks of one host: a tensor-parallel serving group, or a
+training world of ``mesh.size`` ranks (``training.Trainer`` with a
+``mesh_config``; ``parallel.mesh.build_mesh`` makes its groups).
 
 The calling process is rank 0. :func:`spawn_ranks` starts ranks 1 .. N−1
 as ``python -m langstream_tpu_torch.parallel.launch MODULE:FUNCTION``,
@@ -6,8 +8,9 @@ each with its rank, the group's size, the rendezvous address, its device
 and a JSON payload in its environment; :func:`main` (the child) joins the
 gloo group (``runtime.multihost.initialize_distributed``) and calls
 ``FUNCTION(rank, world_size, device, payload)``. ``serve --tp N`` starts
-its followers so (``cli.main.follow``), one card each; a caller that names
-the same card for two ranks shares it (they then talk over gloo).
+its followers so (``cli.main.follow``), one card each; a trainer's caller
+starts every rank so (``ranks=range(N)``). A caller that names the same
+card for two ranks shares it (they then talk over gloo).
 
 Each rank waits at most ``timeout_s`` for the rendezvous and for every
 collective, so a rank that dies fails the others instead of hanging
@@ -85,7 +88,9 @@ def main(argv: Sequence[str]) -> None:
     finally:
         import torch.distributed as dist
 
-        dist.destroy_process_group()
+        # a target may leave the world itself (for worlds of its own)
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
-"""The mesh: its configuration, the logical-axis rules, and the tensor
-parallel group.
+"""The mesh: its configuration, the logical-axis rules, and its ranks'
+process groups.
 
 Port of ``langstream_tpu/parallel/mesh.py``. The JAX package shards by
 SPMD from one process: a ``Mesh`` of devices, ``PartitionSpec``s from
@@ -11,28 +11,33 @@ process per rank instead (``torch.distributed``), so:
   :func:`split_dim` which dimension splits over ``tp``;
 - :func:`shard_params` gives this rank its contiguous slice of each leaf
   (what ``jax.device_put`` with a ``NamedSharding`` leaves on one
-  device);
-- :class:`TPGroup` (the counterpart of ``build_mesh``) holds the rank,
-  the size and the process group, and does the two collectives the
-  model needs, ``all_reduce`` (a row-sharded product's partial sums) and
-  ``all_gather`` (the vocabulary's columns).
+  device), over ``tp`` for serving, over every axis of a training mesh;
+- :func:`build_mesh` is the counterpart of JAX's ``build_mesh``: a world
+  of ``mesh.size`` ranks, rank r at JAX's device position r (row-major
+  over :data:`MESH_AXES`), with an :class:`AxisGroup` for each axis above
+  1 and for the axis sets the step reduces over (:class:`MeshGroup`);
+  :func:`build_group` builds serving's tp group alone, whose world is
+  its tp ranks. The model's collectives over a group are
+  ``parallel.collectives``' functions: ``reduce_sum`` (a row-sharded
+  product's partial sums), ``gather`` (the vocabulary's columns) and
+  ``enter`` (a replicated activation entering the sharded region), with
+  the backward each implies, so a forward under autograd trains.
 
-The backend follows from where the ranks sit (:func:`build_group`):
+The backend follows from where the ranks sit (:func:`backend_for`):
 gloo where any two ranks share a card, and on the CPU; NCCL where each
 rank has a card of its own. Gloo stages a card's tensors through the
 host, so a collective on it synchronizes the stream.
 
-Serving takes ``tp`` only (:func:`require_serving_mesh`); ``dp``,
-``fsdp``, ``sp``, ``pp`` and ``ep`` above 1 raise, and the trainer
-refuses any axis above 1 (:func:`require_single_card`). See ROADMAP.md,
-A10 and A11.
+Serving takes ``tp`` only (:func:`require_serving_mesh`; ROADMAP.md,
+A10); the trainer takes every mesh JAX's takes
+(``validate_mesh(..., allow_pp=True)``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import socket
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -122,17 +127,6 @@ def validate_mesh(
             )
 
 
-def require_single_card(config: Optional[MeshConfig]) -> None:
-    """Refuse a mesh with any axis above 1 (the trainer: tp training
-    waits on this module's group, ROADMAP.md A11)."""
-    wide = {axis: size for axis, size in zip(MESH_AXES, (config or MeshConfig()).axis_sizes())
-            if size > 1}
-    if wide:
-        raise NotImplementedError(
-            f"a mesh with {wide} is not ported to langstream_tpu_torch: it runs on one card "
-            "(see ROADMAP.md, A10)")
-
-
 def require_serving_mesh(config: Optional[MeshConfig]) -> None:
     """Serving shards over ``tp`` only: any other axis above 1 raises."""
     wide = {axis: size for axis, size in zip(MESH_AXES, (config or MeshConfig()).axis_sizes())
@@ -209,14 +203,15 @@ def split_dim(axes: LogicalAxes, mesh: MeshConfig, rules=None) -> Optional[int]:
     return spec.index("tp") if "tp" in spec else None
 
 
-def shard_slice(tensor: torch.Tensor, dim: Optional[int], rank: int, size: int) -> torch.Tensor:
+def shard_slice(tensor: torch.Tensor, dim: Optional[int], rank: int, size: int,
+                axis: str = "tp") -> torch.Tensor:
     """Rank ``rank``'s contiguous 1/``size`` of ``tensor`` along ``dim``
     (the whole tensor for ``dim`` None or ``size`` 1)."""
     if dim is None or size == 1:
         return tensor
     width = tensor.shape[dim]
     if width % size:
-        raise ValueError(f"tp={size} must divide dimension {dim} of size {width}")
+        raise ValueError(f"{axis}={size} must divide dimension {dim} of size {width}")
     part = width // size
     return tensor.narrow(dim, rank * part, part)
 
@@ -228,10 +223,12 @@ def head_shard(tensor: torch.Tensor, dim: int, rank: int, size: int) -> torch.Te
 
 
 def shard_params(params: Dict[str, Any], logical_axes: Dict[str, Any], mesh: MeshConfig,
-                 rank: int, rules=None) -> Dict[str, Any]:
+                 rank: Any, rules=None) -> Dict[str, Any]:
     """This rank's contiguous slice of each leaf, split as the rules split
-    it over ``tp`` (a copy; a replicated leaf is returned as it is). An
-    int8 leaf (``quant.QTensor``) takes axes of the same kind
+    it (a copy; a replicated leaf is returned as it is). ``rank`` is the
+    tp rank of a serving mesh, or this rank's coordinates by axis
+    (:meth:`MeshGroup.coords`) on a training mesh, which splits over every
+    axis. An int8 leaf (``quant.QTensor``) takes axes of the same kind
     (``quant.quantize_logical_axes``): its values and scale split
     together."""
     return {name: shard_leaf(leaf, logical_axes[name], mesh, rank, rules)
@@ -243,21 +240,32 @@ def shard_leaf(leaf: Any, axes: Any, mesh: MeshConfig, rank: int, rules=None) ->
     if hasattr(leaf, "q") and hasattr(leaf, "scale"):
         return type(leaf)(q=shard_leaf(leaf.q, axes.q, mesh, rank, rules),
                           scale=shard_leaf(leaf.scale, axes.scale, mesh, rank, rules))
-    dim = split_dim(axes, mesh, rules)
-    if dim is None:
+    coords = rank if isinstance(rank, Mapping) else {"tp": rank}
+    splits = leaf_splits(axes, mesh, rules)
+    if not splits:
         return leaf
+    for dim, axis in splits:
+        leaf = shard_slice(leaf, dim, coords.get(axis, 0), mesh.shape[axis], axis)
     # one contiguous copy: the full leaf's storage is not kept
-    return shard_slice(leaf, dim, rank, mesh.tp).clone(memory_format=torch.contiguous_format)
+    return leaf.clone(memory_format=torch.contiguous_format)
+
+
+def leaf_splits(axes: LogicalAxes, mesh: MeshConfig, rules=None) -> List[Tuple[int, str]]:
+    """(dimension, mesh axis) of each split dimension of a leaf with
+    ``axes``, in dimension order."""
+    spec = logical_to_physical(axes.names, mesh, rules)
+    return [(dim, axis) for dim, axis in enumerate(spec) if axis is not None]
 
 
 # ---------------------------------------------------------------------- #
-# the tensor-parallel group
+# the ranks' groups
 # ---------------------------------------------------------------------- #
-class TPGroup:
-    """The ranks of one tp group: this process's ``rank`` of ``size``, the
-    process group and its ``backend``, and the model's two collectives.
-    Sums run in f32 whatever the tensor's dtype (each partial is rounded
-    once, then added in f32), and every rank ends with the same values."""
+class AxisGroup:
+    """The ranks of one mesh axis, or of a set of axes, that share every
+    other coordinate: this process's ``rank`` of ``size`` (row-major over
+    the axes), the process group (None: the default group) and its
+    ``backend``. ``parallel.collectives`` runs the model's collectives
+    over it."""
 
     def __init__(self, rank: int, size: int, process_group: Any = None,
                  backend: str = "gloo") -> None:
@@ -267,34 +275,7 @@ class TPGroup:
         self.backend = backend
 
     def __repr__(self) -> str:
-        return f"TPGroup(rank={self.rank}, size={self.size}, backend={self.backend!r})"
-
-    def _staged(self, tensor: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        """A fresh contiguous copy the collective may overwrite: on the
-        host for gloo, on the tensor's own device for NCCL."""
-        device = tensor.device if self.backend == "nccl" else torch.device("cpu")
-        return tensor.detach().to(device=device, dtype=dtype, copy=True).contiguous()
-
-    def all_reduce(self, tensor: torch.Tensor) -> torch.Tensor:
-        """The sum of ``tensor`` over the ranks, in its dtype and device."""
-        if self.size == 1:
-            return tensor
-        import torch.distributed as dist
-
-        staged = self._staged(tensor, torch.float32)
-        dist.all_reduce(staged, group=self.process_group)
-        return staged.to(device=tensor.device, dtype=tensor.dtype)
-
-    def all_gather(self, tensor: torch.Tensor, dim: int = -1) -> torch.Tensor:
-        """The ranks' tensors concatenated along ``dim`` in rank order."""
-        if self.size == 1:
-            return tensor
-        import torch.distributed as dist
-
-        staged = self._staged(tensor, tensor.dtype)
-        parts = [torch.empty_like(staged) for _ in range(self.size)]
-        dist.all_gather(parts, staged, group=self.process_group)
-        return torch.cat(parts, dim=dim).to(tensor.device)
+        return f"AxisGroup(rank={self.rank}, size={self.size}, backend={self.backend!r})"
 
 
 def _card_identity(device: torch.device) -> str:
@@ -335,7 +316,7 @@ def tp_rank(mesh: MeshConfig) -> int:
     return _require_ranks(mesh).get_rank() if mesh.tp > 1 else 0
 
 
-def build_group(mesh: MeshConfig, device: Any) -> TPGroup:
+def build_group(mesh: MeshConfig, device: Any) -> AxisGroup:
     """This process's tp group over ``torch.distributed``, which must be
     up with one rank per tp shard (``runtime.multihost``). The ranks
     exchange where they sit to choose the backend; the default group is
@@ -344,10 +325,130 @@ def build_group(mesh: MeshConfig, device: Any) -> TPGroup:
     once, at the same point). tp=1 needs no process group."""
     require_serving_mesh(mesh)
     if mesh.tp == 1:
-        return TPGroup(0, 1)
+        return AxisGroup(0, 1)
     dist = _require_ranks(mesh)
     identities: List[Any] = [None] * mesh.tp
     dist.all_gather_object(identities, _card_identity(torch.device(device)))
     backend = backend_for(identities)
     group = None if dist.get_backend() == backend else dist.new_group(backend=backend)
-    return TPGroup(dist.get_rank(), mesh.tp, group, backend)
+    return AxisGroup(dist.get_rank(), mesh.tp, group, backend)
+
+
+# ---------------------------------------------------------------------- #
+# the training mesh: a world of mesh.size ranks
+# ---------------------------------------------------------------------- #
+def mesh_coords(mesh: MeshConfig, rank: int) -> Dict[str, int]:
+    """Rank ``rank``'s coordinate on each axis: JAX's device order,
+    row-major over :data:`MESH_AXES` (``build_mesh`` reshapes the device
+    list to the axis sizes)."""
+    coords = {}
+    for axis, size in reversed(list(zip(MESH_AXES, mesh.axis_sizes()))):
+        rank, coords[axis] = divmod(rank, size)
+    return {axis: coords[axis] for axis in MESH_AXES}
+
+
+def axis_members(mesh: MeshConfig, axes: Sequence[str], rank: int) -> List[int]:
+    """The ranks that share every coordinate of ``rank`` outside
+    ``axes``, in row-major order over ``axes``."""
+    mine = mesh_coords(mesh, rank)
+    return [other for other in range(mesh.size)
+            if all(c == mine[axis] for axis, c in mesh_coords(mesh, other).items()
+                   if axis not in axes)]
+
+
+class MeshGroup:
+    """This process's place in a training world of ``mesh.size`` ranks:
+    its ``rank``, its ``coords`` by axis, the ``backend``, and an
+    :class:`AxisGroup` for each set of axes :meth:`axis` is asked for
+    (built by :func:`build_mesh`; a set whose axes are all of size 1 is
+    a group of one)."""
+
+    def __init__(self, mesh: MeshConfig, rank: int, groups: Dict[Tuple[str, ...], AxisGroup],
+                 backend: str = "gloo") -> None:
+        self.mesh = mesh
+        self.rank = rank
+        self.coords = mesh_coords(mesh, rank)
+        self.backend = backend
+        self._groups = groups
+
+    def __repr__(self) -> str:
+        return f"MeshGroup({self.mesh}, rank={self.rank}, backend={self.backend!r})"
+
+    def axis(self, *axes: str) -> AxisGroup:
+        """The group over ``axes`` (those of size 1 left out)."""
+        key = tuple(axis for axis in MESH_AXES if axis in axes and self.mesh.shape[axis] > 1)
+        if not key:
+            return AxisGroup(0, 1, backend=self.backend)
+        return self._groups[key]
+
+    @property
+    def tp(self) -> AxisGroup:
+        return self.axis("tp")
+
+    @property
+    def batch(self) -> AxisGroup:
+        """The batch axes ``(dp, fsdp)``: the rows of the global batch
+        split over them in JAX's order."""
+        return self.axis(*BATCH_AXES)
+
+    @property
+    def world(self) -> AxisGroup:
+        return self.axis(*MESH_AXES)
+
+
+# the logical batch axis's mesh axes (DEFAULT_RULES["batch"])
+BATCH_AXES = ("dp", "fsdp")
+# the sets of axes a train step reduces over, beside each axis alone:
+# the batch, the MoE MLP's shares (tp × ep), and the whole world
+AXIS_SETS = (BATCH_AXES, ("tp", "ep"), MESH_AXES)
+
+
+def build_mesh(mesh: MeshConfig, device: Any) -> MeshGroup:
+    """This process's :class:`MeshGroup` over ``torch.distributed``,
+    which must be up with ``mesh.size`` ranks (``parallel.launch``,
+    ``runtime.multihost``); a mesh of size 1 needs none. The ranks
+    exchange where they sit to choose the backend, then every rank makes
+    every group, in the same order (``new_group`` is collective over the
+    world): one for each axis above 1 and for each set of
+    :data:`AXIS_SETS` with two or more such axes. The world itself is the
+    default group where its backend is the one chosen."""
+    if mesh.size == 1:
+        return MeshGroup(mesh, 0, {})
+    import torch.distributed as dist
+
+    if not dist.is_available() or not dist.is_initialized():
+        raise RuntimeError(
+            f"mesh {mesh} needs torch.distributed up with one process per rank: start the ranks "
+            "with parallel.launch (one host) or runtime.multihost.initialize_multihost")
+    world = dist.get_world_size()
+    if world != mesh.size:
+        raise ValueError(f"mesh {mesh} needs {mesh.size} ranks, torch.distributed has {world}")
+    rank = dist.get_rank()
+    identities: List[Any] = [None] * world
+    dist.all_gather_object(identities, _card_identity(torch.device(device)))
+    backend = backend_for(identities)
+    wide = [axis for axis in MESH_AXES if mesh.shape[axis] > 1]
+    keys = [(axis,) for axis in wide]
+    for axes in AXIS_SETS:
+        key = tuple(axis for axis in axes if axis in wide)
+        if len(key) > 1 and key not in keys:
+            keys.append(key)
+    groups: Dict[Tuple[str, ...], AxisGroup] = {}
+    for key in keys:
+        blocks = sorted({tuple(axis_members(mesh, key, other)) for other in range(world)})
+        for members in blocks:
+            if len(members) == world and dist.get_backend() == backend:
+                process_group = None
+            else:
+                process_group = dist.new_group(list(members), backend=backend)
+            if rank in members:
+                groups[key] = AxisGroup(members.index(rank), len(members), process_group, backend)
+    return MeshGroup(mesh, rank, groups, backend)
+
+
+def param_shardings(logical_axes: Dict[str, Any], mesh: MeshConfig,
+                    rules=None) -> Dict[str, Tuple[Optional[str], ...]]:
+    """Each leaf's split by dimension (the mesh axis, or None where it is
+    replicated): the entries of the ``PartitionSpec`` JAX's
+    ``param_shardings`` places it with."""
+    return {name: logical_to_physical(axes.names, mesh, rules) for name, axes in logical_axes.items()}

@@ -40,7 +40,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -73,6 +73,7 @@ from langstream_tpu_torch.ops.paged_attention import (
 )
 from langstream_tpu_torch.ops.moe import moe_mlp
 from langstream_tpu_torch.ops.norms import rms_norm
+from langstream_tpu_torch.parallel import collectives
 from langstream_tpu_torch.parallel.mesh import L
 from langstream_tpu_torch.ops.rope import apply_rope, rope_frequencies
 from langstream_tpu_torch.providers.torch_local.quant import qmatmul
@@ -446,26 +447,42 @@ def logical_axes(config: LlamaConfig) -> Dict[str, Any]:
 @dataclasses.dataclass(frozen=True)
 class RankConfig(LlamaConfig):
     """One tp rank's :class:`LlamaConfig` (:func:`rank_config`): the
-    fields of its shard, and its group (``parallel.mesh.TPGroup``), which
+    fields of its shard, and its group (``parallel.mesh.AxisGroup``), which
     the model's collectives use; not part of the config's identity."""
 
     tp_group: Any = dataclasses.field(default=None, compare=False, hash=False, repr=False)
+    # a training rank's MoE groups (:class:`MoEGroups`), None when serving
+    moe: Any = dataclasses.field(default=None, compare=False, hash=False, repr=False)
 
 
-def rank_config(config: LlamaConfig, group: Any) -> RankConfig:
+@dataclasses.dataclass(frozen=True)
+class MoEGroups:
+    """What a training rank's MoE MLP needs of the mesh: the group over
+    which the experts' shares are summed (``tp × ep``: each rank holds
+    ``num_experts / ep`` experts, each cut over tp on ``mlp``), the
+    global id of its first expert, and the batch axes' group, over whose
+    rows the routing groups run (JAX routes the global batch)."""
+
+    share: Any = None
+    first_expert: int = 0
+    batch: Any = None
+
+
+def rank_config(config: LlamaConfig, group: Any, moe: Optional[MoEGroups] = None) -> RankConfig:
     """One tp rank's config: the heads, kv heads and intermediate width
     divided by the group's size, ``head_dim`` pinned (``dims_per_head``
     would otherwise fall back to ``hidden_size // num_heads`` of the
     divided head count), the vocabulary whole (the embedding's rows and
     the head's columns are split in the params, and the logits gathered
-    whole), and the group itself, which the model's collectives use."""
+    whole), and the group itself, which the model's collectives use;
+    ``moe``: a training rank's MoE groups."""
     tp = group.size
     if config.vocab_size % tp:
         raise ValueError(f"tp={tp} must divide vocab_size={config.vocab_size}")
     fields = {field.name: getattr(config, field.name) for field in dataclasses.fields(LlamaConfig)}
     fields.update(num_heads=config.num_heads // tp, num_kv_heads=config.num_kv_heads // tp,
                   intermediate_size=config.intermediate_size // tp, head_dim=config.dims_per_head)
-    return RankConfig(**fields, tp_group=group)
+    return RankConfig(**fields, tp_group=group, moe=moe)
 
 
 def rank_axes(config: LlamaConfig, params: Dict[str, Any]) -> Dict[str, Any]:
@@ -520,7 +537,7 @@ def _row_product(config: LlamaConfig, x: torch.Tensor, w: Any) -> torch.Tensor:
     group = _tp(config)
     if group is None:
         return qmatmul(x, w)
-    return group.all_reduce(qmatmul(x, w, out_dtype=torch.float32)).to(x.dtype)
+    return collectives.reduce_sum(qmatmul(x, w, out_dtype=torch.float32), group).to(x.dtype)
 
 
 def _cache_leaves(config: LlamaConfig, shape, kv_quant: bool, device) -> Dict[str, torch.Tensor]:
@@ -654,7 +671,7 @@ def _embed(config: LlamaConfig, params, tokens: torch.Tensor) -> torch.Tensor:
         local = ids - group.rank * rows
         inside = (local >= 0) & (local < rows)
         x = params["embedding"][local.clamp(0, rows - 1)].to(config.dtype)
-        x = group.all_reduce(torch.where(inside[..., None], x, torch.zeros_like(x)))
+        x = collectives.reduce_sum(torch.where(inside[..., None], x, torch.zeros_like(x)), group)
     if config.scale_embedding:
         x = x * torch.tensor(math.sqrt(config.hidden_size), dtype=x.dtype)
     return x
@@ -670,10 +687,13 @@ def _mlp_block(config: LlamaConfig, normed: torch.Tensor, params, i, valid=None,
     the dense MLP's down projection in that dtype (a tp rank's f32 partial
     sums)."""
     if config.num_experts:
+        moe = getattr(config, "moe", None)
+        groups = {} if moe is None else dict(share_group=moe.share, first_expert=moe.first_expert,
+                                             batch_group=moe.batch)
         return moe_mlp(
             normed, params["router"][i], params["w_gate"][i], params["w_up"][i],
             params["w_down"][i], num_selected=config.num_experts_per_tok,
-            capacity_factor=None if dropless else config.capacity_factor, valid=valid,
+            capacity_factor=None if dropless else config.capacity_factor, valid=valid, **groups,
         )
     gate = qmatmul(normed, params["w_gate"][i])
     up = qmatmul(normed, params["w_up"][i])
@@ -721,20 +741,22 @@ def _mlp(config: LlamaConfig, normed: torch.Tensor, params, i) -> torch.Tensor:
             out[start:start + step] = _mlp_block(config, rows[start:start + step], params, i,
                                                  **partial)[0]
         out = out.reshape(normed.shape)
-    return out if group is None else group.all_reduce(out).to(normed.dtype)
+    return out if group is None else collectives.reduce_sum(out, group).to(normed.dtype)
 
 
 def _logits(config: LlamaConfig, params, x: torch.Tensor) -> torch.Tensor:
+    group = _tp(config)
+    if group is not None:
+        x = collectives.enter(x, group)
     if config.tie_embeddings:
         # the embedding is never quantized: the tied head stays in x's dtype
         logits = (x @ params["embedding"].T.to(x.dtype)).float()
     else:
         logits = qmatmul(x, params["lm_head"]).float()
-    group = _tp(config)
     if group is not None:
         # the rank's columns of the vocabulary, gathered whole: every rank
         # samples from the same full row
-        logits = group.all_gather(logits, dim=-1)
+        logits = collectives.gather(logits, group, logits.dim() - 1, reduce=False)
     cap = config.final_logit_softcap
     if cap is not None:
         logits = cap * torch.tanh(logits / cap)
@@ -1315,21 +1337,33 @@ def unstack_layers(params: Dict[str, Any]) -> Dict[str, Tuple[torch.Tensor, ...]
 def _train_layer(config, layers, i, x, mask, freqs, positions, window, dropless):
     """Layer i of :func:`apply_layers`: the JAX ``layer_fn`` body over
     ``x`` [B, T, H], attention through the plain ``prefill_attention`` →
-    (x, the layer's MoE aux loss or None)."""
+    (x, the layer's MoE aux loss or None). Under tp the normed
+    activations enter the rank's heads and intermediate columns through
+    ``collectives.enter`` and the partial sums of ``wo`` and ``w_down``
+    leave through ``collectives.reduce_sum``; the MoE MLP sums its shares
+    itself."""
     batch, seq = x.shape[:2]
     hd = config.dims_per_head
+    group = _tp(config)
     normed = _norm(config, x, layers["attn_norm"][i])
+    if group is not None:
+        normed = collectives.enter(normed, group)
     q, k, v = _project_qkv(normed, layers, i)
     q = apply_rope(q.reshape(batch, seq, config.num_heads, hd), freqs, positions)
     k = apply_rope(k.reshape(batch, seq, config.num_kv_heads, hd), freqs, positions)
     v = v.reshape(batch, seq, config.num_kv_heads, hd)
     attn = prefill_attention(q, k, v, mask=mask, **_family(config, window))
-    attn = qmatmul(attn.reshape(batch, seq, -1), layers["wo"][i])
+    attn = _row_product(config, attn.reshape(batch, seq, -1), layers["wo"][i])
     if "post_attn_norm" in layers:
         attn = _norm(config, attn, layers["post_attn_norm"][i])
     x = x + attn
-    delta, aux = _mlp_block(config, _norm(config, x, layers["mlp_norm"][i]), layers, i,
-                            valid=mask, dropless=dropless)
+    normed = _norm(config, x, layers["mlp_norm"][i])
+    if group is None or config.num_experts:
+        delta, aux = _mlp_block(config, normed, layers, i, valid=mask, dropless=dropless)
+    else:
+        partial = _mlp_block(config, collectives.enter(normed, group), layers, i,
+                             out_dtype=torch.float32)[0]
+        delta, aux = collectives.reduce_sum(partial, group).to(normed.dtype), None
     if "post_mlp_norm" in layers:
         delta = _norm(config, delta, layers["post_mlp_norm"][i])
     return x + delta, aux
@@ -1343,9 +1377,13 @@ def apply_layers(
     freqs: torch.Tensor,
     remat: bool = False,
     dropless: bool = False,
+    layer_offset: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The layer loop over activations → (x, the sum of the layers' MoE
-    aux losses, 0 for the dense MLP). Attention is the plain
+    aux losses, 0 for the dense MLP). ``layers`` may be a contiguous
+    slice of the stack, a pipeline stage's, whose first layer is layer
+    ``layer_offset`` of the model: Gemma-2's sliding and full windows
+    alternate by the global index. Attention is the plain
     ``prefill_attention``, the formulation the JAX package differentiates
     (its kernels have no VJP); the MoE MLP runs in the capacity regime
     with ``mask`` as its valid tokens, or the exact one with
@@ -1357,9 +1395,11 @@ def apply_layers(
     positions = torch.arange(seq, device=x.device)[None, :].expand(batch, seq)
     # positions past the RoPE table clamp to its last row, as JAX's gather does
     positions = positions.clamp(max=freqs.shape[1] - 1)
+    count = len(layers["wq"])
     windows = layer_windows(config)
+    windows = windows[layer_offset:layer_offset + count] if windows else None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(len(layers["wq"])):
+    for i in range(count):
         args = (config, layers, i, x, mask, freqs, positions, windows[i] if windows else None,
                 dropless)
         if remat:
@@ -1380,19 +1420,23 @@ def forward(
     with_aux: bool = False,
     remat: bool = False,
     dropless: bool = False,
+    layers: Optional[Dict[str, Sequence[torch.Tensor]]] = None,
 ):
     """Cache-free full-sequence forward → logits [B, T, V] in f32, with
     autograd (the training and scoring path; serving uses
     :func:`prefill` and :func:`decode_step`). With ``with_aux`` also the
     mean MoE load-balancing loss over the layers, 0 for the dense model.
     ``dropless`` selects the exact MoE regime (scoring a dropless-trained
-    checkpoint); training keeps the capacity regime, as JAX's does."""
+    checkpoint); training keeps the capacity regime, as JAX's does.
+    ``layers``: the layer leaves by name, each a sequence of its layers
+    (default :func:`unstack_layers` of ``params``; a sharded trainer
+    passes views that gather each layer's shards as it runs)."""
     validate_family_params(config, params)
     if freqs is None:
         freqs = model_freqs(config, device=tokens.device)
     x = _embed(config, params, tokens)
-    x, aux = apply_layers(config, unstack_layers(params), x, mask, freqs, remat=remat,
-                          dropless=dropless)
+    x, aux = apply_layers(config, unstack_layers(params) if layers is None else layers, x, mask,
+                          freqs, remat=remat, dropless=dropless)
     logits = _logits(config, params, _norm(config, x, params["final_norm"]))
     if with_aux:
         return logits, aux / max(config.num_layers, 1)

@@ -82,11 +82,28 @@ def qmatmul(x: torch.Tensor, w: Any, out_dtype: Optional[torch.dtype] = None) ->
         return x @ (w if w.dtype == x.dtype else w.to(x.dtype))
     weight = w.q if isinstance(w, QTensor) else w
     if x.is_cuda:
-        flat = torch.mm(x.reshape(-1, x.shape[-1]), weight.to(x.dtype), out_dtype=out_dtype)
+        flat = _WideProduct.apply(x.reshape(-1, x.shape[-1]), weight.to(x.dtype), out_dtype)
         out = flat.reshape(*x.shape[:-1], flat.shape[-1])
     else:
         out = x.to(out_dtype) @ weight.to(out_dtype)
     return out * w.scale.to(out_dtype) if isinstance(w, QTensor) else out
+
+
+class _WideProduct(torch.autograd.Function):
+    """``torch.mm`` with a wider output dtype, which has no derivative of
+    its own: the backward takes the gradient in the operands' dtype, as
+    the product in that dtype would."""
+
+    @staticmethod
+    def forward(ctx, x, w, out_dtype):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w, out_dtype=out_dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        grad = grad.to(x.dtype)
+        return grad @ w.T, x.T @ grad, None
 
 
 # the dense family's matmul weights; embedding and norms stay in their

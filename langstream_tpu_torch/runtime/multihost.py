@@ -2,8 +2,9 @@
 ranks of one host.
 
 Port of ``langstream_tpu/runtime/multihost.py``. A model served under
-tensor parallelism runs one process per rank; every rank must join one
-``torch.distributed`` group before it touches the model. The operator's
+tensor parallelism, or trained on a mesh, runs one process per rank;
+every rank must join one ``torch.distributed`` group before it touches
+the model. The operator's
 StatefulSet gives each pod a stable name, ``{sts}-{ordinal}``, behind a
 headless service, and ``LANGSTREAM_HOSTS_PER_REPLICA`` (H) groups pods
 ``r*H .. r*H+H-1`` into replica ``r``, whose local rank 0 is the
@@ -17,8 +18,9 @@ On one host, ``serve --tp N`` starts its N−1 follower ranks itself and
 each rank calls :func:`initialize_distributed` with the leader's address
 (``cli/main.py``).
 
-The default group is gloo; ``parallel.mesh.build_group`` adds an NCCL
-group where each rank has a card of its own. Every collective and the
+The default group is gloo; ``parallel.mesh.build_group`` (serving) and
+``build_mesh`` (training) add NCCL groups where each rank has a card of
+its own. Every collective and the
 rendezvous itself wait at most ``timeout_s``: a rank that died fails its
 peers instead of leaving them waiting.
 """

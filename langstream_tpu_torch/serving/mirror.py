@@ -3,8 +3,9 @@
 Port of ``langstream_tpu/serving/mirror.py``. Under tensor parallelism
 every rank is a process holding its head shard, and every rank must
 enter the same model calls in the same order, since the collectives
-(``parallel.mesh.TPGroup``) ride inside them. Only rank 0 sees traffic:
-it runs the engine and the HTTP surface, and its engine makes
+(``parallel.collectives`` over a ``parallel.mesh.AxisGroup``) ride
+inside them. Only rank 0 sees traffic: it runs the engine and the HTTP
+surface, and its engine makes
 timing-dependent host decisions (admission groups, buckets, chunk sizes,
 chaining). The followers cannot recompute that schedule; they replay it.
 

@@ -27,7 +27,7 @@ import torch
 from langstream_tpu.parallel import mesh as jax_mesh
 from langstream_tpu.providers.jax_local import model as jax_model
 from langstream_tpu.providers.jax_local import quant as jax_quant
-from langstream_tpu_torch.parallel import mesh
+from langstream_tpu_torch.parallel import collectives, mesh
 from langstream_tpu_torch.providers.torch_local import model, quant
 from langstream_tpu_torch.providers.torch_local.convert import params_from_jax
 
@@ -143,7 +143,7 @@ def test_rank_config_pins_head_dim():
     """Llama-3-8B at tp=2: 16 heads over 4 kv heads of 128, half the
     intermediate width, the vocabulary whole; Gemma-2's head_dim of 256
     pinned too (``hidden // heads`` would give 2304 // 4)."""
-    group = mesh.TPGroup(1, 2)
+    group = mesh.AxisGroup(1, 2)
     rank = model.rank_config(model.LlamaConfig.llama3_8b(), group)
     assert (rank.num_heads, rank.num_kv_heads, rank.dims_per_head) == (16, 4, 128)
     assert (rank.intermediate_size, rank.vocab_size) == (7168, 128256)
@@ -188,7 +188,8 @@ def test_backend_rule_and_group_of_one():
     one = mesh.build_group(mesh.MeshConfig(), "cpu")
     x = torch.arange(6.0).reshape(2, 3)
     assert (one.rank, one.size) == (0, 1)
-    assert one.all_reduce(x) is x and one.all_gather(x) is x
+    assert collectives.reduce_sum(x, one) is x and collectives.enter(x, one) is x
+    assert collectives.gather(x, one, 1, reduce=False) is x
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         mesh.require_serving_mesh(mesh.MeshConfig(dp=2, tp=2))
     mesh.require_serving_mesh(mesh.MeshConfig(tp=8))

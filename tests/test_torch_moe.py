@@ -47,6 +47,7 @@ from langstream_tpu.providers.jax_local import quant as jax_quant
 from langstream_tpu.training import trainer as jax_trainer
 from langstream_tpu_torch.api.service import ChatMessage
 from langstream_tpu_torch.ops import moe
+from langstream_tpu_torch.parallel.mesh import AxisGroup
 from langstream_tpu_torch.providers.torch_local import engine, model, quant
 from langstream_tpu_torch.providers.torch_local.convert import cache_from_jax, params_from_jax
 from langstream_tpu_torch.providers.torch_local.provider import TorchCompletionsService
@@ -194,6 +195,17 @@ def test_moe_mlp_matches_jax(regime):
                            valid=None if mask is None else torch.from_numpy(mask), **kwargs)
     _close(got.numpy(), want, MLP_TOLERANCE)
     np.testing.assert_allclose(float(aux), float(want_aux), rtol=ROUTING_TOLERANCE)
+
+
+@pytest.mark.parametrize("group", ["share_group", "batch_group"])
+def test_exact_regime_refuses_mesh_groups(group):
+    """The exact regime runs one card's experts whole: a training rank's
+    groups (its share of the experts, its rows of the batch) are the
+    capacity regime's only."""
+    x, router, weights, _ = _mlp_case()
+    with pytest.raises(ValueError, match="capacity regime"):
+        moe.moe_mlp(torch.from_numpy(x), torch.from_numpy(router), *map(torch.from_numpy, weights),
+                    capacity_factor=None, **{group: AxisGroup(0, 2)})
 
 
 # ---------------------------------------------------------------------- #

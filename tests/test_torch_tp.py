@@ -460,8 +460,9 @@ def test_cost_model_tp_shards_matches_jax(layout):
 def test_tp_refusals():
     """The mixed step under tp raises naming ROADMAP; a tp mesh in a
     process without ``torch.distributed`` raises naming how to start the
-    ranks; axes other than tp raise naming ROADMAP; the trainer keeps
-    refusing every axis above 1."""
+    ranks; axes other than tp raise naming ROADMAP; the trainer takes a
+    tp mesh, and without ``torch.distributed`` raises naming how to start
+    the ranks."""
     from langstream_tpu_torch.training import trainer
 
     config = model.LlamaConfig.tiny()
@@ -476,7 +477,7 @@ def test_tp_refusals():
     for axis in ("dp", "fsdp", "sp", "pp", "ep"):
         with pytest.raises(NotImplementedError, match=f"{axis}.*ROADMAP"):
             engine.DecodeEngine(config, params, device="cpu", mesh_config=MeshConfig(**{axis: 2}))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(RuntimeError, match="parallel.launch"):
         trainer.Trainer(config, params, mesh_config=MeshConfig(tp=2), device="cpu")
     with pytest.raises(ValueError, match="tp=3 must divide num_kv_heads=2"):
         engine.DecodeEngine(config, params, device="cpu", mesh_config=MeshConfig(tp=3))

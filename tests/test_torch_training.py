@@ -16,8 +16,9 @@ The same numpy-seeded tokens, and JAX params carried across with
   the model) whose first gradient the two frameworks round apart by
   more than 1e-3 of its size: Adam normalizes each coordinate by its
   own gradient, so there the rounding is the update;
-- the refusals: an ``ep`` axis of a MoE config, a mesh of size > 1,
-  pp > 1, and ``device="cuda"`` without CUDA.
+- the refusals: JAX's (ep on a dense model or not dividing the experts,
+  pp with fsdp or not dividing the layers), a mesh of size > 1 without a
+  ``torch.distributed`` world, and ``device="cuda"`` without CUDA.
 """
 
 import dataclasses
@@ -217,21 +218,33 @@ def test_trainer_copies_the_callers_params():
 
 @pytest.mark.parametrize("case", ["moe", "mesh", "pp", "cuda"])
 def test_trainer_refusals(case):
+    """The JAX trainer's refusals (an ep axis of a dense model, an ep or
+    pp that does not divide, pp with fsdp), a mesh of size > 1 with no
+    ``torch.distributed`` world to run on, and ``device="cuda"`` without
+    CUDA; a mesh of size 1 trains on one card."""
     _, tcfg, _, _, tokens, mask = _setup("tiny")
     params = _port_params("tiny")
     if case == "moe":
-        # MoE trains on one card; expert parallelism (an ep axis) is refused
         moe = model.LlamaConfig.tiny_moe()
         moe_params = model.init_params(moe)
-        with pytest.raises(NotImplementedError, match="A10"):
+        with pytest.raises(ValueError, match="requires an MoE model"):
+            trainer.Trainer(tcfg, params, mesh_config=MeshConfig(ep=2), device="cpu")
+        with pytest.raises(ValueError, match="must divide num_experts=4"):
+            trainer.Trainer(moe, moe_params, mesh_config=MeshConfig(ep=3), device="cpu")
+        with pytest.raises(RuntimeError, match="needs torch.distributed"):
             trainer.Trainer(moe, moe_params, mesh_config=MeshConfig(ep=2), device="cpu")
         assert MeshConfig.from_config({"ep": 2}) == MeshConfig(ep=2)
         trainer.Trainer(moe, moe_params, device="cpu")
     elif case in ("mesh", "pp"):
         mesh = MeshConfig(dp=2, fsdp=2) if case == "mesh" else MeshConfig(pp=2)
         assert mesh.size > 1
-        with pytest.raises(NotImplementedError, match="A10"):
+        with pytest.raises(RuntimeError, match="needs torch.distributed"):
             trainer.Trainer(tcfg, params, mesh_config=mesh, device="cpu")
+        if case == "pp":
+            with pytest.raises(ValueError, match="composes only with dp"):
+                trainer.Trainer(tcfg, params, mesh_config=MeshConfig(pp=2, fsdp=2), device="cpu")
+            with pytest.raises(ValueError, match="must divide num_layers"):
+                trainer.Trainer(tcfg, params, mesh_config=MeshConfig(pp=4), device="cpu")
         assert MeshConfig.from_config({"pipeline-parallelism": 2}) == MeshConfig(pp=2)
         trainer.Trainer(tcfg, params, mesh_config=MeshConfig(), device="cpu")  # size 1
     else:
