@@ -286,11 +286,17 @@ Phases (any failure propagates and the exit code is not 0):
    serves. First Llama-3-8B at full width and 2 layers (16 heads over 4
    of 128 a rank; both ranks started by ``parallel.launch`` with
    :func:`tp_model_rank`): a dense prefill and 2 decode steps, a paged
-   prefill, a prefill at an offset and 2 decode steps, bf16 and int8 KV;
-   both ranks' logits equal bit for bit and within 5e-2 of the same
-   calls at tp=1 on the card and on the CPU; each rank's card counters
-   B1/B2 (B4/B5) or B3 (B6) once per layer per call. Then ``mesh: {tp:
-   2}`` Llama-3-8B at full depth, random from seed 0, served through the
+   prefill, a prefill at an offset, 2 decode steps and a mixed step,
+   bf16 and int8 KV; both ranks' logits equal bit for bit and within
+   5e-2 of the same calls at tp=1 on the card and on the CPU; each rank's
+   card counters B1/B2 (B4/B5), B3 (B6) or B7 (B8) once per layer per
+   call. Then what ``serve --tp`` takes on one host, at 2 layers, each
+   against a one-card twin (:func:`serve_tp_features_and_check`): the
+   mixed step with the host tier, a KV handoff each way and a crash the
+   supervisor heals; spec decode over the paged verify; each rank's card
+   counters B7 once per layer per mixed step and B3 at the verify shape.
+   Then ``mesh: {tp: 2}`` Llama-3-8B at ``CUT_LAYERS`` layers (full depth
+   until the features part came), random from seed 0, served through the
    provider and the OpenAI server (``cli.main.start_tp_server``,
    eager, pipelined, no precompile; 9 slots, one 256 bucket): the
    dense phase's first 8 greedy prompts and its SSE chat at once. Gates:
@@ -446,7 +452,9 @@ CONTROL_LAYERS = 2
 RECOVERY_LAYERS = 8
 # depth of the paged, mixed, sessions, spec and int8-KV serving phases:
 # full depth until the tensor-parallel phase came, cut then by their
-# printed walls (each ~15-20 s of precompile at full depth)
+# printed walls (each ~15-20 s of precompile at full depth); and of phase
+# 15's served tp burst since its tp features part came (the smoke ran
+# 1143.3 s on a slow host with it at full depth)
 CUT_LAYERS = 8
 # the shedding phase's SLO: targets every answered request breaks, so the
 # burn rate and the blame by journey stage must show
@@ -4656,14 +4664,16 @@ def tp_sequence(config, params, where, kv_quant: bool, count: bool = False):
     """The 2-layer tp check's model calls on ``where``: dense, a cold
     prefill of two prompts and two decode steps; paged (16-token blocks),
     a cold prefill, a prefill at an offset of a third row onto the first
-    prompt's first two blocks, and two decode steps (a fourth, empty row
-    rides along). Inputs from :data:`TP_SEED`. Returns the logits by call
+    prompt's first two blocks, two decode steps (a fourth, empty row
+    rides along) and a mixed step (``paged_mixed_step``). Inputs from
+    :data:`TP_SEED`. Returns the logits by call
     (f32, on the host) and, with ``count``, each call's kernel launches
     by the card's counters."""
     rng = np.random.default_rng(TP_SEED)
     prompts = torch.from_numpy(rng.integers(0, config.vocab_size, size=(2, 48)))
     suffix = torch.from_numpy(rng.integers(0, config.vocab_size, size=(1, 16)))
     steps = torch.from_numpy(rng.integers(0, config.vocab_size, size=(2, 4)))
+    window = torch.from_numpy(rng.integers(0, config.vocab_size, size=(4, 16)))
     width, block = 16, 16
     tables = np.zeros((4, width), dtype=np.int32)
     tables[:3] = (rng.permutation(4 * width) + 1)[: 3 * width].reshape(3, width)
@@ -4707,6 +4717,12 @@ def tp_sequence(config, params, where, kv_quant: bool, count: bool = False):
         call(f"paged_decode{step}", lambda: model.paged_decode_step(
             config, params, pool, steps[step].to(where), step_lengths, tables, freqs, active)[active])
         step_lengths = torch.where(active, step_lengths + 1, step_lengths)
+    # one mixed step of 16-token spans (B7, B8 over int8 KV): a decode row,
+    # windows of 16 and 5 tokens, the empty row idle
+    counts = torch.tensor([1, 16, 5, 0], **i32)
+    call("paged_mixed", lambda: model.paged_mixed_step(
+        config, params, pool, window.to(where), torch.where(active, step_lengths - 1, 0), counts,
+        tables, freqs)[active])
     return logits, launches
 
 
@@ -4748,8 +4764,9 @@ def check_tp_model(device, label: str) -> None:
     (:func:`tp_model_rank`, two processes): each rank's logits (gathered
     whole, so equal on both, bit for bit) within the model tolerance of
     the same calls at tp=1 on the card and on the CPU, bf16 and int8 KV;
-    each rank's card counters show B1/B2 (B4/B5) or B3 (B6) once per layer
-    per call, on 16 heads over 4 of 128."""
+    each rank's card counters show B1/B2 (B4/B5), B3 (B6) or, for the
+    mixed step, B7 (B8) once per layer per call, on 16 heads over 4 of
+    128."""
     from langstream_tpu_torch.parallel import launch
     from langstream_tpu_torch.runtime.multihost import free_port
 
@@ -4786,7 +4803,9 @@ def check_tp_model(device, label: str) -> None:
             assert bool(torch.isfinite(got).all()), name
             for where, ref in (("tp=1 card", card[name]), ("CPU", cpu[name])):
                 worst[where] = max(worst[where], errors(got, ref)[1])
-            if name.startswith("paged_"):
+            if name == "paged_mixed":
+                want = {f"paged_attention_ragged_q{q}": layers}
+            elif name.startswith("paged_"):
                 kernel = f"paged_attention{q}"
                 want = {kernel: layers}
                 if "decode" not in name:
@@ -4800,10 +4819,11 @@ def check_tp_model(device, label: str) -> None:
     assert max(worst.values()) < MODEL_TOLERANCE, worst
     log(f"tp reference [{label}]: Llama-3-8B width, 2 layers, tp={TP} (two ranks sharing the card over "
         f"gloo, 16 heads over 4 of 128 a rank), dense prefill + 2 decode steps and paged prefill, "
-        f"prefill at an offset + 2 decode steps, bf16 and int8 KV: both ranks' logits equal bit for bit; "
+        f"prefill at an offset + 2 decode steps + a mixed step, bf16 and int8 KV: both ranks' logits "
+        f"equal bit for bit; "
         + ", ".join(f"vs {where} max_rel_err={value:.3e}" for where, value in worst.items())
-        + f" (tol {MODEL_TOLERANCE}); each rank B1/B2, B3 (B4/B5, B6) {layers} a call by its card "
-        f"counters; {time.perf_counter() - started:.1f} s")
+        + f" (tol {MODEL_TOLERANCE}); each rank B1/B2, B3, B7 (B4/B5, B6, B8) {layers} a call by its "
+        f"card counters; {time.perf_counter() - started:.1f} s")
 
 
 def _tp_jobs():
@@ -4844,8 +4864,9 @@ def time_tp_step(engine, live: int = 512, iters: int = 5) -> float:
 
 
 def serve_tp_and_check(label: str, device) -> dict:
-    """``mesh: {tp: 2}`` Llama-3-8B at full width and depth, random from
-    seed 0, served through the provider and the OpenAI server
+    """``mesh: {tp: 2}`` Llama-3-8B at full width and :data:`CUT_LAYERS`
+    layers (full depth until the tp features part came: the smoke's
+    time), random from seed 0, served through the provider and the OpenAI server
     (``cli.main.start_tp_server``, eager, pipelined; no precompile, so a
     variant's first use runs its body once more, which the launch gates
     count):
@@ -4872,6 +4893,7 @@ def serve_tp_and_check(label: str, device) -> dict:
         str(TP_TOPK), "--host", "127.0.0.1", "--port", "0", "--mirror-port", "0"])
     config = serve_config(args)
     config["engine"]["prefill-buckets"] = [TP_BUCKET]
+    config["model"]["num_layers"] = CUT_LAYERS
     report_path = os.path.join(TP_LOGS, "follower")
     torch.cuda.reset_peak_memory_stats()
     jobs = _tp_jobs()
@@ -4928,7 +4950,7 @@ def serve_tp_and_check(label: str, device) -> dict:
     assert (engine.config.num_heads, engine.config.num_kv_heads) == (16, 4)
     assert len(results) == len(jobs), len(results)
     served_ms = stats["decode_time"] / max(stats["decode_steps"], 1) * 1e3
-    log(f"tp serving [{label}]: Llama-3-8B bf16 random weights, 32 layers, mesh {{tp: {TP}}}: two ranks "
+    log(f"tp serving [{label}]: Llama-3-8B bf16 random weights, {CUT_LAYERS} layers, mesh {{tp: {TP}}}: two ranks "
         f"time-sharing one card over host-staged gloo (backend {engine.group.backend}), NOT a tp speed; "
         f"step functions {stats['step_functions']}; up in {up_s:.1f} s (both ranks' weights; no "
         f"precompile); {stats['requests']} requests, {tokens} tokens in {wall:.3f} s = "
@@ -4946,7 +4968,7 @@ def serve_tp_and_check(label: str, device) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     compared = time.perf_counter()
-    full = model.LlamaConfig.llama3_8b(max_seq_len=1024)
+    full = dataclasses.replace(model.LlamaConfig.llama3_8b(max_seq_len=1024), num_layers=CUT_LAYERS)
     reference = engine_lib.DecodeEngine(
         full, model.init_params(full, seed=0, device=device), device=device, max_slots=TP_SLOTS,
         max_seq_len=1024, prefill_buckets=[TP_BUCKET], decode_chunk=8, logprobs_topk=TP_TOPK,
@@ -4971,10 +4993,229 @@ def serve_tp_and_check(label: str, device) -> dict:
                 follower_peak=follower["peak_gib"], equal=equal)
 
 
+# the tp features part: Llama-3-8B at full width cut to this depth for the
+# smoke's time; the crash fires after the start's 4th processed step
+TP_FEATURE_LAYERS = 2
+TP_CRASH_STEP = 4
+TP_FEATURE_SEQ = 512
+
+
+def _feature_prompt(seed: int, length: int = 128) -> list:
+    return [int(t) for t in np.random.default_rng(seed).integers(1, 4000, size=length)]
+
+
+def _start_tp_features(device, flags, faults_spec=None):
+    """``serve --tp 2`` of Llama-3-8B at :data:`TP_FEATURE_LAYERS` layers
+    (random from seed 0) with ``flags``, the supervisor on (its default),
+    both ranks on the card; ``faults_spec`` arms the fault points for this
+    start only (``LANGSTREAM_FAULTS``, which the follower inherits and
+    never reaches). Returns (service, server, followers, report path)."""
+    from langstream_tpu_torch.cli.main import start_tp_server
+    from langstream_tpu_torch.runtime import faults
+
+    args = build_parser().parse_args([
+        "serve", "--model", "llama-3-8b", "--tp", str(TP), "--max-slots", "4",
+        "--max-seq-len", str(TP_FEATURE_SEQ), "--decode-chunk", "8", "--logprobs-top-k",
+        str(TP_TOPK), "--host", "127.0.0.1", "--port", "0", "--mirror-port", "0", *flags])
+    config = serve_config(args)
+    config["model"]["num_layers"] = TP_FEATURE_LAYERS
+    config["engine"]["prefill-buckets"] = [128, 256]
+    assert config["engine"]["supervisor"]
+    name = "features-" + ("spec" if "--spec-decode" in flags else "mixed")
+    report = os.path.join(TP_LOGS, name)
+    if faults_spec:
+        os.environ[faults.ENV_VAR] = faults_spec
+    try:
+        with _ranks_log(f"{name}.log") as ranks_log:
+            service, server, followers = start_tp_server(
+                args, config, devices=[str(device)] * TP, timeout_s=TP_TIMEOUT_S, report=report,
+                stdout=ranks_log, stderr=subprocess.STDOUT)
+    finally:
+        os.environ.pop(faults.ENV_VAR, None)
+    return service, server, followers, report
+
+
+def _stop_tp_features(service, server, followers, report) -> dict:
+    """Stop a features start (the stop record: the follower reports and
+    exits); the follower's account, held to the leader's mirror: every
+    record published replayed, the same token digest."""
+    import torch.distributed as dist
+
+    from langstream_tpu_torch.parallel import launch
+
+    mirror = service.mirror
+    try:
+        server.stop()
+        service.close()
+        codes = launch.stop_ranks(followers, timeout_s=TP_TIMEOUT_S)
+    finally:
+        dist.destroy_process_group()
+    assert codes == [0], (codes, report)
+    follower = json.load(open(f"{report}.1"))
+    assert follower["records"] == mirror.published - 1, (follower["records"], mirror.published)
+    assert follower["digest"] == mirror.digest.hexdigest(), (follower["digest"], mirror.digest.hexdigest())
+    return dict(follower, published=mirror.published)
+
+
+def serve_tp_features_and_check(label: str, device) -> dict:
+    """What ``serve --tp 2`` on one host takes beyond split serving, each
+    held against a one-card twin at the same depth (Llama-3-8B at
+    :data:`TP_FEATURE_LAYERS` layers, the same seed-0 weights, paged,
+    split, a pool that never evicts; streams equal but for a near-tie of
+    :data:`TP_NEAR_TIE`), in two starts of two ranks sharing the card:
+
+    (a) ``--kv-layout paged --prefill-mode mixed`` (pipelined, its carry
+    on), the prefix cache, a 48-block pool under a 64-block host tier,
+    the supervisor on and ``engine_thread_crash@step=`` :data:`TP_CRASH_STEP`:
+    two 128-token requests at once (the crash: one heal, the sessions
+    resurrected, their streams the uncrashed twin's), six more evicting
+    the first prompt's chain to the host tier, its continuation promoted
+    back (the never-evicted twin's stream), a session exported (the ranks'
+    kv heads gathered to one card's layout) and imported by a one-card
+    engine, and a one-card engine's export imported at tp=2, both decode
+    legs the twin's un-handed-off stream; each rank's card counters B7
+    once per layer per mixed step, the same on both ranks.
+    (b) ``--spec-decode ngram --kv-layout paged``: four repetitive greedy
+    prompts at once, equal to the twin's spec-off streams; each rank's
+    card counters B3 at the verify shape, the same on both ranks.
+
+    Both: the follower replayed every record published, its token digest
+    the leader's. Prints the part's wall time."""
+    from langstream_tpu_torch.runtime import faults
+
+    started = time.perf_counter()
+    config = dataclasses.replace(model.LlamaConfig.llama3_8b(max_seq_len=TP_FEATURE_SEQ),
+                                 num_layers=TP_FEATURE_LAYERS)
+    layers = config.num_layers
+    params = model.init_params(config, seed=0, device=device)
+
+    def one_card():
+        return engine_lib.DecodeEngine(
+            config, params, device=device, max_slots=4, max_seq_len=TP_FEATURE_SEQ,
+            prefill_buckets=[128, 256], decode_chunk=8, logprobs_topk=TP_TOPK, kv_layout="paged",
+            step_graphs=False, pipeline_decode=True)
+
+    greedy, seeded = dict(max_new_tokens=24), dict(max_new_tokens=24, temperature=0.8, seed=5)
+    crash_jobs = [(_feature_prompt(1), greedy), (_feature_prompt(2), seeded)]
+    thrash = [_feature_prompt(10 + i) for i in range(6)]
+    promoted = crash_jobs[0][0] + _feature_prompt(3, 16)
+    exported, imported = _feature_prompt(4), _feature_prompt(5)
+    leg = dict(seeded, max_new_tokens=2)
+    # the one-card export the tp start imports, before any fault is armed
+    twin = one_card()
+    twin.start()
+    y_leg, _ = _generate(twin, imported, leg, export_handoff=True)
+    assert y_leg.kv_handoff is not None
+
+    # (a) mixed, the host tier, the handoff and the crash
+    from langstream_tpu_torch.runtime import supervisor as supervisor_lib
+
+    resurrected = supervisor_lib.SESSIONS_RESURRECTED.value()
+    service, server, followers, report = _start_tp_features(device, [
+        "--kv-layout", "paged", "--prefill-mode", "mixed", "--kv-blocks", "48",
+        "--kv-host-blocks", "64"], faults_spec=f"engine_thread_crash@step={TP_CRASH_STEP}")
+    launches_lib.read(reset=True)
+    try:
+        with concurrent.futures.ThreadPoolExecutor(len(crash_jobs)) as pool:
+            crashed = list(pool.map(lambda job: _generate(service.engine, *job)[0], crash_jobs))
+        restarts = service.supervisor.restarts
+        for prompt in thrash:
+            _generate(service.engine, prompt, dict(max_new_tokens=8))
+        got_promoted, _ = _generate(service.engine, promoted, greedy)
+        x_leg, _ = _generate(service.engine, exported, leg, export_handoff=True)
+        got_y, _ = _generate(service.engine, imported + y_leg.tokens[:-1], seeded,
+                             replay_tokens=list(y_leg.tokens), prompt_len=len(imported),
+                             kv_import=y_leg.kv_handoff)
+        leader_launches = launches_lib.read(shapes=True)
+        stats = dict(service.engine.stats)
+    finally:
+        faults.reset()
+        account = _stop_tp_features(service, server, followers, report)
+    resurrected = supervisor_lib.SESSIONS_RESURRECTED.value() - resurrected
+    assert restarts == 1 and resurrected >= 1, (restarts, resurrected)
+    assert stats["tokens_wasted"].get("crash_replay", 0) > 0, stats["tokens_wasted"]
+    assert account["kinds"].get("release") == 1 and account["kinds"].get("rebuild") == 1, account
+    assert stats["host_demotions"] > 0 and stats["host_promotions"] > 0, stats
+    assert stats["handoff_exports"] == 1 and stats["handoff_imports"] == 1, stats
+    assert x_leg.kv_handoff is not None
+    for leaf, rows in x_leg.kv_handoff["arrays"].items():
+        assert rows.shape[3] == config.num_kv_heads, (leaf, rows.shape)  # one card's layout
+    mixed_steps = stats["model_dispatches"].get("paged_mixed_step", 0)
+    b7 = leader_launches["paged_attention_ragged_q"]
+    assert b7 == account["launches"]["paged_attention_ragged_q"], (leader_launches, account)
+    assert b7 % layers == 0 and b7 >= layers * mixed_steps > 0, (b7, mixed_steps)
+    # the twin: the uncrashed, never-evicted and un-handed-off streams
+    wants = [_generate(twin, *job)[0] for job in crash_jobs]
+    want_promoted, _ = _generate(twin, promoted, greedy)
+    want_x, _ = _generate(twin, exported, seeded)
+    want_y, _ = _generate(twin, imported, seeded)
+    importer = one_card()
+    importer.start()
+    try:
+        got_x, _ = _generate(importer, exported + x_leg.tokens[:-1], seeded,
+                             replay_tokens=list(x_leg.tokens), prompt_len=len(exported),
+                             kv_import=x_leg.kv_handoff)
+        assert importer.stats["handoff_imports"] == 1, importer.stats
+    finally:
+        importer.stop()
+        importer.release()
+    pairs = [("crash resumed greedy", crashed[0], wants[0], True),
+             ("crash resumed seeded", crashed[1], wants[1], False),
+             ("promoted", got_promoted, want_promoted, True),
+             ("tp=2 export -> one card", got_x, want_x, False),
+             ("one card export -> tp=2", got_y, want_y, False)]
+    equal = {name: same_stream(got, want, greedy_, name, tolerance=TP_NEAR_TIE)
+             for name, got, want, greedy_ in pairs}
+    mixed_s = time.perf_counter() - started
+
+    # (b) spec decode, the paged verify
+    spec_jobs = [([(j % 7) + 11 * (i + 1) for j in range(96)], dict(max_new_tokens=64))
+                 for i in range(4)]
+    service, server, followers, report = _start_tp_features(
+        device, ["--kv-layout", "paged", "--spec-decode", "ngram"])
+    launches_lib.read(reset=True)
+    try:
+        with concurrent.futures.ThreadPoolExecutor(len(spec_jobs)) as pool:
+            spec_got = list(pool.map(lambda job: _generate(service.engine, *job)[0], spec_jobs))
+        spec_launches = launches_lib.read(shapes=True)
+        spec_stats = dict(service.engine.stats)
+    finally:
+        spec_account = _stop_tp_features(service, server, followers, report)
+    verify_steps = spec_stats["model_dispatches"].get("paged_verify_step", 0)
+    verify = spec_launches["paged_attention/verify"]
+    assert verify == spec_account["launches"]["paged_attention/verify"], (spec_launches, spec_account)
+    assert verify % layers == 0 and verify >= layers * verify_steps > 0, (verify, verify_steps)
+    assert spec_stats["tokens_draft_accepted"] > 0, spec_stats
+    spec_want = [_generate(twin, *job)[0] for job in spec_jobs]
+    twin.stop()
+    twin.release()
+    spec_equal = sum(same_stream(got, want, True, "tp=2 spec vs one card spec off",
+                                 tolerance=TP_NEAR_TIE) for got, want in zip(spec_got, spec_want))
+    del params
+    log(f"tp features [{label}]: Llama-3-8B width, {layers} layers, two ranks sharing the card over "
+        f"gloo, the supervisor on; (a) mixed (pipelined carry: {stats['mixed_steps_chained']} of "
+        f"{stats['mixed_steps']} steps chained), engine_thread_crash@step={TP_CRASH_STEP} healed "
+        f"({restarts} restart, {resurrected} sessions resurrected), host tier {stats['host_demotions']} demotions / {stats['host_promotions']} "
+        f"promotions, handoff export + import across tp; streams equal to the one-card twin (else a "
+        f"near-tie within {TP_NEAR_TIE}): {equal}; B7 {b7} launches a rank for {mixed_steps} mixed "
+        f"steps ({layers} a step, first uses' warm-ups included), equal on both ranks; records "
+        f"published {account['published']} {account['kinds']}; (b) spec ngram paged: "
+        f"{spec_stats['tokens_draft_accepted']} of {spec_stats['tokens_drafted']} drafts accepted, "
+        f"{spec_equal} of {len(spec_jobs)} streams equal to the twin's spec off (the rest near-ties), "
+        f"B3 verify {verify} launches a rank for {verify_steps} verify steps, equal on both ranks; "
+        f"records {spec_account['published']} {spec_account['kinds']}; both starts' follower digests "
+        f"the leader's; mixed part {mixed_s:.1f} s, {time.perf_counter() - started:.1f} s in all")
+    return dict(equal=equal, spec_equal=spec_equal, seconds=time.perf_counter() - started)
+
+
 def check_tp(device, label: str) -> None:
-    """Phase 15: :func:`check_tp_model`, then :func:`serve_tp_and_check`."""
+    """Phase 15: :func:`check_tp_model`, :func:`serve_tp_features_and_check`,
+    then :func:`serve_tp_and_check`."""
     started = time.perf_counter()
     check_tp_model(device, label)
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_tp_features_and_check(label, device)
     gc.collect()
     torch.cuda.empty_cache()
     serve_tp_and_check(label, device)
@@ -5429,7 +5670,8 @@ def main() -> None:
     check_moe(device, label)
     walls.append(("mixtral (MoE)", time.perf_counter() - started))
     # tensor parallelism: two ranks sharing the card over gloo, the
-    # 2-layer check and Llama-3-8B served at full depth (B1, B2, B3)
+    # 2-layer check, the tp features at 2 layers (B3, B7) and Llama-3-8B
+    # served at CUT_LAYERS (B1, B2)
     gc.collect()
     torch.cuda.empty_cache()
     started = time.perf_counter()

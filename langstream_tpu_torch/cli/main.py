@@ -111,6 +111,15 @@ def build_parser() -> argparse.ArgumentParser:
              "outputs (with the pipelined decode)",
     )
     serve.add_argument(
+        "--spec-decode", default="off", choices=["off", "ngram"],
+        help="speculative decoding: self-drafting prompt-lookup drafts spec-k tokens per "
+             "decode step, one batched forward verifies them",
+    )
+    serve.add_argument("--spec-k", type=int, default=4,
+                       help="drafted tokens verified per decode step (spec-decode)")
+    serve.add_argument("--spec-ngram", type=int, default=2,
+                       help="suffix n-gram length the prompt-lookup drafter matches")
+    serve.add_argument(
         "--no-pipeline-decode", action="store_true",
         help="disable pipelined decode dispatch (on by default): each chunk is "
              "processed on the host before the next is dispatched",
@@ -230,6 +239,9 @@ def serve_config(args: argparse.Namespace) -> Dict[str, Any]:
             "prefill-mode": args.prefill_mode,
             "prefill-chunk": args.prefill_chunk,
             "mixed-carry": args.mixed_carry,
+            "spec-decode": args.spec_decode,
+            "spec-k": args.spec_k,
+            "spec-ngram": args.spec_ngram,
             "pipeline-decode": not args.no_pipeline_decode,
             "admission-chunk": args.admission_chunk or "",
             "precompile": bool(args.precompile),
@@ -261,9 +273,9 @@ def serve_config(args: argparse.Namespace) -> Dict[str, Any]:
         config["quantization"] = args.quantization
     if args.tp > 1:
         config["mesh"] = {"tp": args.tp}
-    if args.tp > 1 or args.followers or args.follower_of:
-        # every leader dispatch must replay on the followers in stream
-        # order: a supervisor rebuild would fork the stream
+    if args.followers or args.follower_of:
+        # across hosts the JAX serve turns the supervisor off under the
+        # mirror; on one host (--tp) the followers rebuild beside rank 0
         config["engine"]["supervisor"] = False
     return config
 
@@ -308,12 +320,12 @@ def tp_devices(device: str, world: int) -> List[str]:
 
 
 def _refuse_spec_under_mirror(config: Dict[str, Any]) -> None:
-    """The JAX serve's configuration-time guard: the mirror replays fixed
-    records, and a speculative step carries the device token history
-    (the engine's check backstops it)."""
+    """The JAX serve's configuration-time guard across hosts: its
+    multi-host mirror has no speculative record (the engine's check
+    backstops it). On one host (``--tp``) spec decode replays."""
     if str(config.get("engine", {}).get("spec-decode") or "off").lower() != "off":
-        raise SystemExit("--spec-decode is not supported with tensor-parallel serving "
-                         "(--tp/--followers/--follower-of) yet")
+        raise SystemExit("--spec-decode is not supported with multi-host serving "
+                         "(--followers/--follower-of)")
 
 
 def start_tp_server(
@@ -331,7 +343,6 @@ def start_tp_server(
     (``launch.stop_ranks``). ``report``: a path each follower writes its
     account to at the end, suffixed with its rank."""
     config = config or serve_config(args)
-    _refuse_spec_under_mirror(config)
     world = MeshConfig.from_config(config.get("mesh")).tp
     devices = devices or tp_devices(args.device, world)
     if len(devices) != world:
@@ -339,7 +350,7 @@ def start_tp_server(
     from langstream_tpu_torch.serving.mirror import DispatchMirror
 
     mirror = DispatchMirror(host="127.0.0.1", port=args.mirror_port,
-                            fingerprint=mirror_fingerprint(config))
+                            fingerprint=mirror_fingerprint(config), local=True)
     address = f"127.0.0.1:{multihost.free_port()}"
     payload = {"config": config, "mirror": f"127.0.0.1:{mirror.port}", "report": report}
     followers = launch.spawn_ranks(f"{__name__}:follow", payload, devices, address,
@@ -349,7 +360,7 @@ def start_tp_server(
         multihost.initialize_distributed(0, world, address, timeout_s)
         service = TorchCompletionsService(config, device=devices[0])
         mirror.wait_for_followers(world - 1, timeout=timeout_s)
-        service.engine.mirror = mirror
+        service.attach_mirror(mirror)
     except BaseException:
         mirror.close()
         for child in followers:
@@ -373,7 +384,8 @@ def follow(rank: int, world: int, device: str, payload: Dict[str, Any]) -> Dict[
     config = payload["config"]
     service = TorchCompletionsService(config, device=device)
     service.close()
-    executor = FollowerExecutor(service.engine)
+    # a heal on rank 0 (the supervisor) rebuilds this rank's engine too
+    executor = FollowerExecutor(service.engine, rebuild=service.build_engine)
     host, _, port = payload["mirror"].rpartition(":")
     executor.connect(host or "127.0.0.1", int(port), fingerprint=mirror_fingerprint(config))
     cuda = torch.device(device).type == "cuda"
@@ -414,7 +426,7 @@ def _serve_multihost(args: argparse.Namespace) -> Optional[Tuple[Any, Any]]:
     service, server = start_server(args, config)
     print(f"mirror: waiting for {args.followers} follower(s) on :{mirror.port}", flush=True)
     mirror.wait_for_followers(args.followers)
-    service.engine.mirror = mirror
+    service.attach_mirror(mirror)
     return service, server
 
 
@@ -450,7 +462,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         service.close()
         if server.embeddings is not None:
             server.embeddings.close()
-        mirror = service.engine.mirror
+        mirror = service.mirror
         if mirror is not None:
             # what the followers' accounts are held against
             print(json.dumps({"mirror": {"published": mirror.published,

@@ -49,6 +49,11 @@ live count ``lengths - starts``. They launch the same kernel body through
 the entry points ``paged_attention_ragged_q(_quant)``; their plain
 versions are ``paged_ragged_q_attention(_quant)``, which un-flatten the
 spans and run ``paged_chunk_attention(_quant)``.
+
+Under tensor parallelism a rank launches each on its own heads:
+:func:`ragged_paged_attention_sharded` (B3, B6) and
+:func:`ragged_q_paged_attention_sharded` (B7, B8), JAX's ``shard_map``
+twins, with no collective.
 """
 
 from __future__ import annotations
@@ -433,3 +438,35 @@ def ragged_paged_attention_sharded(
     return ragged_paged_attention_quant(
         q_l, k_l, head_shard(k_scale, 2, rank, size), v_l, head_shard(v_scale, 2, rank, size),
         block_tables, starts, lengths, **kwargs)
+
+
+def ragged_q_paged_attention_sharded(
+    q: torch.Tensor,             # [Q, H, D] flattened new-token tile, every head
+    k_pool: torch.Tensor,        # [N, Bs, KVH, D]
+    v_pool: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, M] int32 (every rank's, whole)
+    starts: torch.Tensor,        # [B] int32
+    lengths: torch.Tensor,       # [B] int32
+    q_offsets: torch.Tensor,     # [B] int32 (every rank's)
+    *,
+    rank: int,
+    size: int,
+    max_q_len: int,
+    k_scale: Optional[torch.Tensor] = None,  # [N, Bs, KVH] f32: int8 pools
+    v_scale: Optional[torch.Tensor] = None,
+    **kwargs,
+) -> torch.Tensor:
+    """Token-ragged paged attention under tensor parallelism, the JAX
+    ``ragged_q_paged_attention_sharded``: tp rank ``rank`` of ``size``
+    launches B7 (B8 with scales) on its H/size query heads over its
+    KVH/size kv heads, as :func:`ragged_paged_attention_sharded` does for
+    B3; the tables, starts, lengths and ``q_offsets`` are every rank's.
+    Returns [Q, H/size, D]. No collective."""
+    q_l = head_shard(q, 1, rank, size)
+    k_l, v_l = (head_shard(t, 2, rank, size) for t in (k_pool, v_pool))
+    if k_scale is None:
+        return ragged_q_paged_attention(q_l, k_l, v_l, block_tables, starts, lengths, q_offsets,
+                                        max_q_len=max_q_len, **kwargs)
+    return ragged_q_paged_attention_quant(
+        q_l, k_l, head_shard(k_scale, 2, rank, size), v_l, head_shard(v_scale, 2, rank, size),
+        block_tables, starts, lengths, q_offsets, max_q_len=max_q_len, **kwargs)

@@ -30,6 +30,9 @@ each partial rounded once, and every rank ends with the same values.
   ``concat_dim`` in rank order; the backward is the inverse all-to-all.
 - :func:`send` and :func:`recv`, plain point-to-point for the pipeline's
   schedule, which orders its backward itself.
+- :func:`broadcast`, one rank's tensor to every rank: a KV handoff
+  import's rows, which rank 0 alone holds, before each rank keeps its kv
+  heads (:func:`own_part`).
 
 Each call adds the bytes it moves (what the rank sends) to
 :data:`BYTES_MOVED` under its kind, which the chip smoke reads per step.
@@ -104,6 +107,25 @@ def reduce_scatter_sum(group, tensor: torch.Tensor, dim: int) -> torch.Tensor:
     _count("reduce_scatter", staged)
     _dist().reduce_scatter_tensor(out, staged, group=group.process_group)
     return out.to(device=tensor.device, dtype=tensor.dtype).movedim(0, dim)
+
+
+def broadcast(group, tensor: Optional[torch.Tensor], shape: Sequence[int], dtype: torch.dtype,
+              device: Any, src: int = 0) -> torch.Tensor:
+    """Rank ``src``'s ``tensor`` on every rank, on ``device`` (the other
+    ranks pass None, and every rank the ``shape`` and ``dtype`` that
+    ``src`` sends)."""
+    if group.size == 1:
+        return tensor.to(device)
+    dist = _dist()
+    if group.rank == src:
+        staged = _staged(group, tensor)
+        _count("broadcast", staged)
+    else:
+        on = device if group.backend == "nccl" else "cpu"
+        staged = torch.empty(tuple(shape), dtype=dtype, device=on)
+    root = dist.get_global_rank(group.process_group, src) if group.process_group is not None else src
+    dist.broadcast(staged, root, group=group.process_group)
+    return staged.to(device)
 
 
 def own_part(group, tensor: torch.Tensor, dim: int) -> torch.Tensor:

@@ -155,11 +155,19 @@ path over the paged one:
   logits. Rank 0 serves with ``mirror`` set (``serving/mirror.py``): each
   step it dispatches is published first, and the followers replay the
   stream. Under tp the step functions run eagerly (a gloo collective
-  cannot sit inside a CUDA graph; ``stats["step_functions"]`` says so),
-  and the mixed step is refused for now (ROADMAP.md, A10). Under the
-  mirror, speculative decoding, a KV handoff and session resurrection are
-  refused, host-tier demotion is skipped, and the digest of every sampled
-  token tensor costs one copy to the host per sampling step.
+  cannot sit inside a CUDA graph; ``stats["step_functions"]`` says so).
+  A mirror of one host's ranks (``serve --tp``) serves all the JAX engine
+  serves on one host's mesh: the mixed step and its carry, speculative
+  decoding, a KV handoff export (the ranks' kv heads gathered over the
+  group, so the payload is one card's) and import (rank 0 broadcasts the
+  rows, each rank keeps its kv heads), the host tier (each rank keeps its
+  kv heads of each demoted block under rank 0's digest) and session
+  resurrection (the counts restore is a record); every write outside a
+  step is published before it is made (:meth:`_publish`). A mirror across
+  hosts (``serve --followers``) keeps the JAX engine's multi-host
+  refusals: speculative decoding and session resurrection raise, an
+  import aborts (``mirror``) and demotion is skipped. The digest of every
+  sampled token tensor costs one copy to the host per sampling step.
 
 - **Accounting** (``runtime/accounting.py``, ``runtime/journey.py``): a
   cost model built from the config, the weights' and the cache's widths
@@ -196,6 +204,7 @@ from langstream_tpu_torch.api import errors as api_errors
 from langstream_tpu_torch.api.metrics import Histogram
 from langstream_tpu_torch.device import resolve_device
 from langstream_tpu_torch.ops.paged_attention import fused_shapes_ok
+from langstream_tpu_torch.parallel import collectives
 from langstream_tpu_torch.parallel.mesh import (
     MeshConfig,
     build_group,
@@ -218,6 +227,7 @@ from langstream_tpu_torch.runtime import accounting, faults, flight
 from langstream_tpu_torch.runtime import journey as journey_ledger
 from langstream_tpu_torch.runtime.threadsafe import stable_items, stable_list
 from langstream_tpu_torch.runtime.tracing import get_tracer
+from langstream_tpu_torch.serving.mirror import SAMPLED, record_meta
 
 logger = logging.getLogger(__name__)
 
@@ -253,6 +263,9 @@ MBU_PER_CHUNK = Histogram("torch_engine_mbu_per_chunk", buckets=_UTIL_BUCKETS)
 # for rows whose request had ended; a KV handoff import that aborted
 WASTE_REASONS = ("cancelled", "evicted_recompute", "draft_rejected", "crash_replay",
                  "prefill_padding", "carry_invalidated", "handoff_aborted")
+# the pool leaves' kv-head axis ([layers, blocks, block_size, kv_heads(,
+# head_dim)]), which a tp rank holds its part of
+KV_HEAD_AXIS = 3
 # why mixed-step chains broke, the JAX engine's reasons
 CARRY_INVALIDATIONS = ("admission", "replay", "budget", "epoch", "condemned", "width",
                        "drained", "stale_row")
@@ -720,12 +733,9 @@ class DecodeEngine:
                       num_experts=config.num_experts, num_layers=config.num_layers)
         self.mesh_config = mesh_config
         self.tp = mesh_config.tp
-        if self.tp > 1 and prefill_mode == "mixed":
-            raise NotImplementedError(
-                "prefill_mode 'mixed' under tensor parallelism is not ported yet (see ROADMAP.md, "
-                "A10): serve tp with the split prefill")
         # multi-rank serving: when set (serving/mirror.py), every step
-        # dispatch is published before it runs, for the followers to replay
+        # dispatch and every write to the pool or the counts outside a step
+        # is published before it runs, for the followers to replay
         self.mirror: Optional[Any] = None
         self.config = config
         self.max_slots = max_slots
@@ -843,7 +853,9 @@ class DecodeEngine:
             self.kv_host_blocks = max(0, int(kv_host_blocks or 0))
             if self.kv_host_blocks:
                 self.kv_host_arena = HostKVArena(self.kv_host_blocks)
-                self.kv_manager.attach_host(self.kv_host_arena, self._demote_block_data)
+                self.kv_host_arena.on_evict = self._note_host_evicted
+                self.kv_manager.attach_host(self.kv_host_arena, self._demote_block_data,
+                                            self._note_demoted)
             # host-authoritative block tables [slots, max_blocks]; rows are
             # uploaded per dispatch (0 = the null block)
             self._block_tables = np.zeros((max_slots, self.max_blocks), dtype=np.int32)
@@ -1045,6 +1057,22 @@ class DecodeEngine:
                 logger.warning("mirror: stop record not delivered")
             self.mirror.close()
 
+    def _mirror_crosses_hosts(self) -> bool:
+        """Rank 0 of a mirror whose followers sit on other hosts
+        (``serve --followers``): the engine keeps the JAX engine's
+        multi-host refusals. A mirror of one host's ranks (``serve --tp``)
+        serves what the JAX engine serves on one host's mesh."""
+        return self.mirror is not None and not self.mirror.local
+
+    def _publish(self, kind: str, meta: Dict[str, Any], arrays: list) -> None:
+        """Publish a record outside a step (a write to the pool or the
+        counts, a collective) when a mirror is set: before the write, so
+        the followers make it in stream order, and before the collective,
+        so they enter it too."""
+        if self.mirror is not None:
+            self._check_condemned()
+            self.mirror.publish(kind, meta, arrays)
+
     @property
     def queue_depth(self) -> int:
         """Requests waiting for a slot: the submit queue and the pending
@@ -1061,15 +1089,11 @@ class DecodeEngine:
                 raise api_errors.EngineRebuildingError(
                     "engine is rebuilding after a crash; retry shortly", retry_after_s=2.0)
             raise RuntimeError("decode engine crashed") from self._crashed
-        if self.mirror is not None and request.replay_tokens:
-            # the replay restores penalty counts in place, a write no
-            # mirror record carries
+        if request.replay_tokens and self._mirror_crosses_hosts():
+            # as the JAX engine under its multi-host mirror: on one host the
+            # replay's counts restore rides a record of its own
             raise NotImplementedError(
-                "session resurrection over the dispatch mirror is not supported")
-        if self.mirror is not None and request.export_handoff:
-            # a rank's pool holds its kv heads only: an export would ship
-            # a shard of the session
-            raise NotImplementedError("a KV handoff export over the dispatch mirror is not supported")
+                "session resurrection over the multi-host mirror is not supported")
         bias = request.sampling.logit_bias
         if bias and len(bias) > self.MAX_LOGIT_BIAS:
             raise ValueError(
@@ -1669,14 +1693,10 @@ class DecodeEngine:
         full = len(history) // self.block_size
         if full <= 0 or not slot.blocks:
             return None
-        index = self._block_index(slot.blocks[:full])
-        arrays: Dict[str, torch.Tensor] = {}
-        for leaf, value in self.cache.items():
-            rows = value.index_select(1, index)
-            arrays[leaf] = self._host_buffer(rows)
-            arrays[leaf].copy_(rows, non_blocking=True)
-        if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
+        blocks = slot.blocks[:full]
+        # under tp the followers enter the gather of their kv heads
+        self._publish("handoff_export", {}, [np.asarray(blocks, dtype=np.int32)])
+        arrays = self._gather_blocks(blocks)
         payload = {
             "tokens": list(history[: full * self.block_size]),
             "arrays": arrays,
@@ -1691,6 +1711,49 @@ class DecodeEngine:
         self.stats["handoff_export_bytes"] += nbytes
         flight.record("kv_handoff_export", tokens=full * self.block_size, blocks=full, nbytes=nbytes)
         return payload
+
+    def _gather_blocks(self, blocks: List[int]) -> Dict[str, torch.Tensor]:
+        """The pool rows of ``blocks``, every layer and leaf, in host
+        memory (``leaf -> [layers, len(blocks), block_size, kv_heads(,
+        head_dim)]``). Under tp each rank holds its kv heads: the ranks'
+        rows are gathered over the group along the kv-head axis in rank
+        order (every rank enters the gather; the followers at the
+        ``handoff_export`` record), so rank 0's are laid out as one card's
+        with every kv head."""
+        index = self._block_index(blocks)
+        arrays: Dict[str, torch.Tensor] = {}
+        for leaf, value in self.cache.items():
+            rows = value.index_select(1, index)
+            if self.group is not None:
+                rows = collectives.all_gather_cat(self.group, rows, dim=KV_HEAD_AXIS)
+            arrays[leaf] = self._host_buffer(rows)
+            arrays[leaf].copy_(rows, non_blocking=True)
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        return arrays
+
+    def _whole_shape(self, leaf: str, blocks: int) -> Tuple[int, ...]:
+        """Pool leaf ``leaf``'s rows of ``blocks`` blocks with every kv
+        head: a handoff payload's shape, which a tp rank's pool holds a
+        1/tp part of."""
+        shape = list(self.cache[leaf].shape)
+        shape[1] = blocks
+        shape[KV_HEAD_AXIS] *= self.tp
+        return tuple(shape)
+
+    def _write_blocks(self, blocks: List[int], rows: Optional[Dict[str, torch.Tensor]]) -> None:
+        """Write ``rows`` (leaf -> :meth:`_whole_shape` rows, on rank 0;
+        None on a follower, at the ``handoff_import`` record) into pool
+        ``blocks``, IN PLACE on the engine's stream. Under tp rank 0
+        broadcasts them over the group and each rank keeps its kv heads."""
+        index = self._block_index(blocks)
+        for leaf, value in self.cache.items():
+            part = rows[leaf].to(value.dtype) if rows is not None else None
+            if self.group is not None:
+                part = collectives.own_part(self.group, collectives.broadcast(
+                    self.group, part, self._whole_shape(leaf, len(blocks)), value.dtype,
+                    self.device), dim=KV_HEAD_AXIS)
+            value.index_copy_(1, index, part.to(self.device, non_blocking=True))
 
     def _import_pending_handoffs(self) -> None:
         """Import every pending request's handoff payload before the
@@ -1728,9 +1791,9 @@ class DecodeEngine:
                           trace_id=trace_id)
             return False
 
-        if self.mirror is not None:
-            # the import's scatter carries host arrays no mirror record
-            # ships: refused rather than forking the ranks' pools
+        if self._mirror_crosses_hosts():
+            # as the JAX engine under its multi-host mirror: refused rather
+            # than forking the ranks' pools
             return aborted("mirror")
         if (
             full <= 0
@@ -1739,8 +1802,8 @@ class DecodeEngine:
             or set(arrays) != set(self.cache)
         ):
             return aborted("layout_mismatch")
-        for leaf, expect in self.cache.items():
-            if tuple(arrays[leaf].shape) != (expect.shape[0], full, *expect.shape[2:]):
+        for leaf in self.cache:
+            if tuple(arrays[leaf].shape) != self._whole_shape(leaf, full):
                 return aborted("shape_mismatch")
         reserved = manager.import_session(tokens)
         if reserved is None:
@@ -1752,10 +1815,9 @@ class DecodeEngine:
                 # written; a resident prefix keeps its rows (the same
                 # content, bit for bit)
                 start = len(chain)
-                index = self._block_index(fresh)
-                for leaf, value in self.cache.items():
-                    rows = as_tensor(arrays[leaf])[:, start:full].contiguous()
-                    value.index_copy_(1, index, rows.to(self.device, value.dtype, non_blocking=True))
+                self._publish("handoff_import", {}, [np.asarray(fresh, dtype=np.int32)])
+                self._write_blocks(fresh, {leaf: as_tensor(arrays[leaf])[:, start:full].contiguous()
+                                           for leaf in self.cache})
         except Exception:  # noqa: BLE001 — unwind before any id recycles
             manager.abort_import(chain + fresh)
             raise
@@ -1784,20 +1846,48 @@ class DecodeEngine:
         reads the buffer's values (the pinned allocator does not reuse a
         freed buffer before its copy has finished). Returns ``(leaf ->
         [layers, block_size, kv_heads(, head_dim)], nbytes)``, or None
-        under the mirror: no record carries the host tier, so nothing is
-        demoted."""
-        if self.mirror is not None:
+        under a mirror across hosts (as the JAX engine's): nothing is
+        demoted. Under tp the rows are this rank's kv heads, and the
+        followers copy theirs out at the ``host_demote`` record the arena's
+        acceptance publishes (:meth:`_note_demoted`)."""
+        if self._mirror_crosses_hosts():
             return None
-        data: Dict[str, torch.Tensor] = {}
-        for leaf, value in self.cache.items():
-            rows = value[:, block]
-            data[leaf] = self._host_buffer(rows)
-            data[leaf].copy_(rows, non_blocking=True)
+        data = self._copy_block_out(block)
         nbytes = sum(rows.nbytes for rows in data.values())
         self.stats["host_demotions"] += 1
         self.stats["host_demote_bytes"] += nbytes
         flight.record("kv_host_demote", block=block, nbytes=nbytes)
         return data, nbytes
+
+    def _copy_block_out(self, block: int) -> Dict[str, torch.Tensor]:
+        """Pool block ``block``'s rows, every layer and leaf, into (pinned)
+        host memory without waiting."""
+        data: Dict[str, torch.Tensor] = {}
+        for leaf, value in self.cache.items():
+            rows = value[:, block]
+            data[leaf] = self._host_buffer(rows)
+            data[leaf].copy_(rows, non_blocking=True)
+        return data
+
+    def _copy_blocks_in(self, blocks: List[int], entries: List[Dict[str, torch.Tensor]]) -> None:
+        """Host rows ``entries`` (one :meth:`_copy_block_out` each) into
+        pool ``blocks``, IN PLACE on the engine's stream."""
+        index = self._block_index(blocks)
+        for leaf, value in self.cache.items():
+            rows = torch.stack([entry[leaf].to(self.device, non_blocking=True) for entry in entries],
+                               dim=1)
+            value.index_copy_(1, index, rows)
+
+    def _note_demoted(self, block: int, digest: str) -> None:
+        """The arena took ``block``'s rows under ``digest``: the followers
+        copy their kv heads of it into their tiers under the same key,
+        before any record that reuses the block."""
+        self._publish("host_demote", {"block": int(block), "digest": digest}, [])
+
+    def _note_host_evicted(self, digest: str) -> None:
+        """The arena's LRU dropped ``digest``: the followers drop theirs,
+        so that each tier holds what rank 0's holds."""
+        self._publish("host_evict", {"digest": digest}, [])
 
     def _host_probe(self, prompt: List[int], match: Optional[Tuple[List[int], int]]
                     ) -> List[HostKVEntry]:
@@ -1835,11 +1925,9 @@ class DecodeEngine:
                     if tuple(entry.data[leaf].shape) != (expect.shape[0], *expect.shape[2:]):
                         raise ValueError(f"host entry of shape {tuple(entry.data[leaf].shape)} "
                                          f"does not fit pool leaf {leaf}")
-            index = self._block_index(target)
-            for leaf, value in self.cache.items():
-                rows = torch.stack(
-                    [entry.data[leaf].to(self.device, non_blocking=True) for entry in entries], dim=1)
-                value.index_copy_(1, index, rows)
+            self._publish("host_promote", {"digests": [entry.digest for entry in entries]},
+                          [np.asarray(target, dtype=np.int32)])
+            self._copy_blocks_in(target, [entry.data for entry in entries])
         except Exception:  # noqa: BLE001 — abort before anything publishes
             self.stats["host_promote_aborts"] += 1
             flight.record("kv_host_promote_aborted", blocks=count, tokens=count * size)
@@ -2265,41 +2353,43 @@ class DecodeEngine:
     def _run_step(self, key: Variant, inputs: Dict[str, Any], chained: bool = False):
         """Every dispatch of a step: :meth:`StepRunner.run`, published to
         the mirror first when one is set. A record carries the variant and
-        its host arrays by name; a device operand is the follower's own
-        (a first-token sampling's logits), and a ``chained`` decode
-        carries nothing (``serving/mirror.py``). The sampled tokens feed
-        the mirror's digest."""
+        its host arrays by name; a device operand is the follower's own (a
+        first-token sampling's logits). A ``chained`` step (a decode or
+        spec chunk, a mixed step off the carry) publishes ``<kind>_chained``
+        with only its host arrays: its device operands are the carry's,
+        which the follower takes from its own previous step of that kind
+        (``serving/mirror.py``, ``CHAINED``). The sampled tokens feed the
+        mirror's digest."""
         mirror = self.mirror
         if mirror is not None:
+            # a thread the supervisor condemned publishes nothing
+            self._check_condemned()
             self._check_mirror_layout()
+            names = sorted(name for name, value in inputs.items() if isinstance(value, np.ndarray))
             if chained:
-                mirror.publish("decode_chained", {"size": key.size, "tier": key.tier}, [])
+                meta: Dict[str, Any] = {"size": key.size, "tier": key.tier}
+                if names:
+                    meta["names"] = names
+                mirror.publish(f"{key.kind}_chained", meta, [inputs[name] for name in names])
             else:
-                names = sorted(name for name, value in inputs.items()
-                               if isinstance(value, np.ndarray))
                 carried = set(inputs) - set(names)
                 if carried - {"logits"} or (carried and key.kind != "first_token"):
                     raise RuntimeError(f"step {key} carries device operands {sorted(carried)} "
                                        "no mirror record ships")
-                from langstream_tpu_torch.serving.mirror import record_meta
-
                 mirror.publish(key.kind, record_meta(key, names), [inputs[name] for name in names])
         staged, outputs = self.steps.run(key, inputs)
-        if mirror is not None and key.kind in ("first_token", "decode"):
-            mirror.digest.update(outputs["tokens"])
+        if mirror is not None and key.kind in SAMPLED:
+            mirror.digest.update(outputs[SAMPLED[key.kind]])
         return staged, outputs
 
     def _check_mirror_layout(self) -> None:
-        """What the followers' replay cannot speak yet (the JAX engine's
-        check): speculative decoding's steps carry the device token
-        history and variable-width outputs, and the mixed step has no
-        record of this slice (ROADMAP.md, A10). Fails loudly instead of
-        letting the ranks diverge."""
-        if self.spec:
-            raise NotImplementedError("the dispatch mirror does not support spec_decode yet")
-        if self.mixed:
+        """What the followers' replay does not take across hosts (the JAX
+        serve's check): speculative decoding, whose steps the JAX engine's
+        multi-host mirror has no record for. Fails loudly instead of
+        letting the ranks diverge. On one host every step replays."""
+        if self.spec and self._mirror_crosses_hosts():
             raise NotImplementedError(
-                "the dispatch mirror does not support prefill_mode 'mixed' yet (see ROADMAP.md, A10)")
+                "the multi-host dispatch mirror does not support spec_decode")
 
     def _count_dispatch(self, name: str, calls: int = 1) -> None:
         dispatches = self.stats["model_dispatches"]
@@ -2569,6 +2659,10 @@ class DecodeEngine:
         for token in tokens:
             if 0 <= token < self.config.vocab_size:
                 row[token] += 1
+        self._publish("counts", {"slot": int(index)}, [row])
+        self._write_counts(index, row)
+
+    def _write_counts(self, index: int, row: np.ndarray) -> None:
         self._counts[index].copy_(torch.from_numpy(row))
 
     def _can_chain(self, inflight: Dict[str, Any]) -> bool:
@@ -3204,7 +3298,7 @@ class DecodeEngine:
             inputs.update(tables=self._block_tables,
                           chain_tokens=np.zeros((slots,), dtype=np.int64), **step)
             key = Variant("mixed", width, tier)
-        inputs, outputs = self._run_step(key, inputs)
+        inputs, outputs = self._run_step(key, inputs, chained=chained)
         self._count_dispatch("paged_mixed_step")
         return {
             "mixed": True,
@@ -3729,7 +3823,17 @@ class DecodeEngine:
         them), then reset its graphs and drop the KV cache, the penalty
         counts and the step runner's static buffers. The weights are the
         replacement's too and stay. A condemned thread that wakes later
-        checks ``_running`` before any launch (``_check_condemned``)."""
+        checks ``_running`` before any launch (``_check_condemned``).
+
+        Under a mirror the followers release theirs at the ``release``
+        record; the mirror passes to the rebuilt engine (the provider's
+        factory), and this one publishes nothing more."""
+        mirror, self.mirror = self.mirror, None
+        if mirror is not None and not mirror.closed:
+            try:
+                mirror.publish("release", {}, [])
+            except Exception:  # noqa: BLE001 — the writer died with a follower
+                logger.warning("mirror: release record not delivered")
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.steps.release()

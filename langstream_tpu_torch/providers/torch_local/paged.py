@@ -138,6 +138,10 @@ class HostKVArena:
         self._children: Dict[str, int] = {}  # guarded-by: _lock
         self._lru: Dict[str, int] = {}  # guarded-by: _lock
         self._tick = 0  # guarded-by: _lock
+        # called with each digest the LRU drops (under the lock, on the
+        # thread that put): a tensor-parallel engine publishes it, so that
+        # the followers' tiers hold what this one holds
+        self.on_evict: Optional[Callable[[str], None]] = None
         self.stats: Dict[str, int] = {  # guarded-by: _lock
             "demoted_blocks": 0,   # entries accepted from the HBM tier
             "promoted_blocks": 0,  # entries scattered back to HBM
@@ -172,6 +176,8 @@ class HostKVArena:
             if self._children.get(digest, 0) == 0:
                 self._remove_locked(digest)
                 self.stats["evictions"] += 1
+                if self.on_evict is not None:
+                    self.on_evict(digest)
                 return True
         return False
 
@@ -281,6 +287,7 @@ class PagedKVManager:
         self._demote_data: Optional[
             Callable[[int], Optional[Tuple[Dict[str, object], int]]]
         ] = None
+        self._on_demoted: Optional[Callable[[int, str], None]] = None
         self.stats: Dict[str, int] = {
             "hit_tokens": 0,       # prompt tokens served from cached blocks
             "evictions": 0,        # cached blocks unpublished under pressure
@@ -447,6 +454,7 @@ class PagedKVManager:
         demote_data: Optional[
             Callable[[int], Optional[Tuple[Dict[str, object], int]]]
         ] = None,
+        on_demoted: Optional[Callable[[int, str], None]] = None,
     ) -> None:
         """Attach the host-DRAM demotion tier. ``demote_data(block)``
         is the data-plane hook — the engine's D2H gather of one
@@ -455,9 +463,11 @@ class PagedKVManager:
         as an un-tiered eviction would). None keeps the arena
         accounting-only: entries carry no rows but matching, LRU and
         capacity backpressure behave identically (the fleet sim's
-        mode)."""
+        mode). ``on_demoted(block, digest)`` is told of each block the
+        arena took (a tensor-parallel engine publishes it)."""
         self.host = arena
         self._demote_data = demote_data
+        self._on_demoted = on_demoted
 
     def chain_digest(self, block: int) -> Optional[str]:
         """Rolling chain digest (:func:`_chunk_digest`) of the token
@@ -526,6 +536,8 @@ class PagedKVManager:
             data, nbytes = fetched
         if host.put(digest, parent_digest, key[1], data, nbytes):
             self.stats["demotions"] += 1
+            if self._on_demoted is not None:
+                self._on_demoted(block, digest)
 
     def host_match(self, tokens: Sequence[int], start_block: int) -> List[HostKVEntry]:
         """Consecutive host-tier entries continuing the HBM chain from

@@ -87,10 +87,16 @@ hosts). Every rank builds this service from the same config: it loads or
 draws the same full weights and keeps its shard (a checkpoint is read on
 the host and sliced before it reaches the card; random weights are sliced
 leaf by leaf as they are drawn), and its engine holds its own kv heads.
-Rank 0 serves; the others replay its dispatches (``serving/mirror.py``).
-Under tp the supervisor is off (a rebuilt leader cannot resynchronize its
-followers) and the step functions run eagerly. Axes other than ``tp``
-raise (ROADMAP.md, A10).
+Rank 0 serves; the others replay its dispatches (``serving/mirror.py``,
+attached with :meth:`TorchCompletionsService.attach_mirror`). The step
+functions run eagerly under tp. The supervisor stays on: a heal publishes
+``release`` from the dead engine and ``rebuild`` from the factory, and the
+followers rebuild beside rank 0 (``serve --followers`` turns it off, as the
+JAX serve does across hosts). The heal covers what the fault points model,
+which fire before a step publishes: a crash of rank 0 after it published a
+step and before it entered that step's collectives would leave the
+followers waiting in the group until its time limit. Axes other than
+``tp`` raise (ROADMAP.md, A10).
 
 Embeddings configuration (:class:`TorchEmbeddingsService`)::
 
@@ -308,10 +314,18 @@ class TorchCompletionsService(CompletionsService):
         weights = {"params": params}
         del params
 
+        # the dispatch mirror of rank 0 under tp (attach_mirror)
+        self.mirror = None
+
         def build_engine() -> DecodeEngine:
             # the supervisor's rebuild runs this closure: the weights on
             # the card are reused, never reloaded or drawn again
+            if self.mirror is not None:
+                # a heal under tp: the followers build theirs beside this
+                # one (the group is built collectively)
+                self.mirror.publish("rebuild", {}, [])
             engine = DecodeEngine(model_config, weights["params"], **engine_kwargs)
+            engine.mirror = self.mirror
             # the engine holds the weights it serves (quantized, if asked):
             # a rebuild takes those, and a loaded bf16 copy is freed
             weights["params"] = engine.params
@@ -333,9 +347,9 @@ class TorchCompletionsService(CompletionsService):
         self._supervisor = None
         self._engine: Optional[DecodeEngine] = None
         self._watchdog = None
-        # under tp a rebuilt leader could not resynchronize its followers:
-        # the supervisor is off, as the JAX serve turns it off under the mirror
-        supervised = mesh.tp == 1 and str(engine_config.get(
+        # a follower rank's engine factory (serving/mirror.py, rebuild)
+        self.build_engine = build_engine
+        supervised = str(engine_config.get(
             "supervisor", os.environ.get("LANGSTREAM_SUPERVISOR", "1"))).lower() not in (
             "0", "false", "no", "off")
         if supervised:
@@ -364,6 +378,12 @@ class TorchCompletionsService(CompletionsService):
         if self._supervisor is not None:
             return self._supervisor.engine
         return self._engine
+
+    def attach_mirror(self, mirror) -> None:
+        """Rank 0 under tp: publish every dispatch of this engine, and of
+        each engine the supervisor rebuilds, to ``mirror``."""
+        self.mirror = mirror
+        self.engine.mirror = mirror
 
     @property
     def supervisor(self):

@@ -16,8 +16,9 @@ chaining). The followers cannot recompute that schedule; they replay it.
   ``group``) and its host input arrays by name. The kinds are the
   variants' own, ``prefill``, ``prefill_offset``, ``first_token`` (the
   first-token sampling behind a prefill, which the port dispatches as a
-  step of its own), ``decode``, ``copy`` and ``block_copy``; then
-  ``decode_chained`` and ``stop``.
+  step of its own), ``decode``, ``spec``, ``mixed``, ``copy`` and
+  ``block_copy``; then ``decode_chained``, ``spec_chained``,
+  ``mixed_chained``, the records below, and ``stop``.
 - Each follower builds the identical engine (same config, so the same
   seed, weights and variants, over its own shard of the weights and of
   the KV pool) and replays the stream with :class:`FollowerExecutor`
@@ -32,14 +33,37 @@ chaining). The followers cannot recompute that schedule; they replay it.
   data never crosses), and copy-on-write publishes ``block_copy``, so
   the followers make the same pool mutations on their kv-head shard
   without the block allocator or the prefix cache's bookkeeping.
+- The mixed step publishes ``mixed`` (its host arrays: windows, counts,
+  masks, tables, sampling arrays) and, chained off the carry,
+  ``mixed_chained`` with the window delta only; the follower takes the
+  tables, sampling arrays and the previous ``sampled`` from its own mixed
+  carry (the JAX contract). A speculative chunk publishes ``spec`` with
+  the token history as a host array, and ``spec_chained`` nothing: the
+  follower chains from its own ``final_tokens``, ``final_lengths`` and
+  ``final_history``. :data:`CHAINED` names what each chained kind takes
+  from the follower's previous step.
+- Writes outside a step are records too, published before the write:
+  ``handoff_export`` (the blocks whose rows every rank gathers over the
+  tp group), ``handoff_import`` (the fresh blocks rank 0 broadcasts the
+  payload's rows into, each rank keeping its kv heads), ``host_demote``
+  (a block the host tier took, by digest), ``host_evict`` (a digest the
+  tier dropped), ``host_promote`` (digests into fresh blocks), ``counts``
+  (a resurrected session's penalty-count row), and the supervisor's
+  heal: ``release`` (the followers free their engine's device state and
+  drop their carries and tier) and ``rebuild`` (they build a new engine
+  from the same config, meeting rank 0's in the group). Pool data never
+  rides a frame: it crosses over the tp group.
 - Both sides keep a digest of every token tensor they sampled
   (:class:`TokenDigest`, in dispatch order); at ``stop`` the follower
   reports it with its record count and its kernels' launches, and a
   follower that diverged shows a digest unlike the leader's.
 
-Not replayed (the engine refuses them under the mirror, as the JAX engine
-does): speculative decoding, the mixed prefill+decode step (ROADMAP.md
-A10), a KV handoff, session resurrection; host-tier demotion is skipped.
+A mirror is of one host (``local``: ``serve --tp``, whose ranks share a
+host as the JAX mesh's devices do) or across hosts (``serve
+--followers``). Across hosts the engine keeps the JAX engine's multi-host
+refusals: speculative decoding and session resurrection raise, a KV
+handoff import aborts, host-tier demotion is skipped, and the serve turns
+the supervisor off.
 
 Transport: a length-prefixed JSON header plus raw array bytes over TCP,
 byte for byte the JAX package's frames (nothing executable crosses the
@@ -58,7 +82,7 @@ import queue
 import socket
 import struct
 import threading
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -82,6 +106,17 @@ _HEADER = struct.Struct("!I")  # payload length
 _ALLOWED_DTYPES = frozenset(
     ("int32", "uint32", "float32", "bool", "int64", "float64")
 )
+
+
+# the output holding a step's sampled tokens, which both sides digest
+SAMPLED = {"first_token": "tokens", "decode": "tokens", "spec": "tokens", "mixed": "sampled"}
+# a chained record's device operands: each input the follower takes from
+# its own previous step of the kind, by the output that holds it
+CHAINED = {
+    "decode": {"tokens": "final_tokens", "lengths": "final_lengths"},
+    "spec": {"tokens": "final_tokens", "lengths": "final_lengths", "history": "final_history"},
+    "mixed": {"chain_tokens": "sampled"},
+}
 
 
 def _encode_record(kind: str, meta: Dict[str, Any], arrays: list) -> bytes:
@@ -178,7 +213,10 @@ class DispatchMirror:
         host: str = "0.0.0.0",
         port: int = 0,
         fingerprint: bytes = _ANY_FINGERPRINT,
+        local: bool = False,
     ) -> None:
+        # the followers are this host's ranks (serve --tp), not other hosts'
+        self.local = bool(local)
         self._server = socket.create_server((host, port))
         self.port = self._server.getsockname()[1]
         self._fingerprint = fingerprint
@@ -241,6 +279,10 @@ class DispatchMirror:
     def followers(self) -> int:
         return len(self._followers)
 
+    @property
+    def closed(self) -> bool:
+        return self._closed
+
     def publish(self, kind: str, meta: Dict[str, Any], arrays: list) -> None:
         if self._error is not None:
             raise RuntimeError("mirror writer failed") from self._error
@@ -288,6 +330,11 @@ class DispatchMirror:
         self._server.close()
 
 
+# records that are not steps: writes outside a step, and the heal
+_ENGINE_RECORDS = frozenset(("handoff_export", "handoff_import", "host_demote", "host_evict",
+                             "host_promote", "counts", "release", "rebuild"))
+
+
 def record_meta(key: Any, names: List[str]) -> Dict[str, Any]:
     """A step record's meta: the variant's fields and its arrays' names."""
     return {"size": key.size, "tier": key.tier, "group": key.group, "names": names}
@@ -300,20 +347,28 @@ class FollowerExecutor:
     The engine must be built with the leader's config and must not be
     running (the executor owns its dispatches). Outputs are dropped but
     the last prefill call's logits (a ``first_token`` samples them) and
-    the last decode chunk's inputs and outputs (a ``decode_chained``
-    chains from them); the sampled tokens feed :attr:`digest`."""
+    the last step of each chaining kind, its inputs and outputs (a
+    ``<kind>_chained`` record chains from them); the sampled tokens feed
+    :attr:`digest`. ``rebuild`` builds a new engine from the same config,
+    for a ``rebuild`` record (the leader's supervisor healed a crash);
+    :attr:`host_tier` holds this rank's kv heads of each block rank 0's
+    host tier holds, by digest."""
 
-    def __init__(self, engine) -> None:
+    def __init__(self, engine, rebuild: Optional[Callable[[], Any]] = None) -> None:
         self.engine = engine
+        self._rebuild = rebuild
         self._sock: Optional[socket.socket] = None
         self._logits = None
-        # the last decode chunk: (variant, its device inputs, its outputs)
-        self._carry: Optional[Tuple[Any, Dict[str, Any], Dict[str, Any]]] = None
+        # the last step of each kind in CHAINED: (variant, its device
+        # inputs, its outputs)
+        self._carries: Dict[str, Tuple[Any, Dict[str, Any], Dict[str, Any]]] = {}
+        self.host_tier: Dict[str, Dict[str, Any]] = {}
         self.records = 0
         # records replayed by kind, and the digest of the sampled tokens
         self.kinds: Dict[str, int] = {}
         self.digest = TokenDigest()
-        # model calls replayed: prefill calls by kind, decode steps
+        # model calls replayed: prefill calls by kind, decode, verify and
+        # mixed steps
         self.model_calls: Dict[str, int] = {}
 
     def connect(
@@ -362,15 +417,21 @@ class FollowerExecutor:
         from langstream_tpu_torch.providers.torch_local.graphs import Variant
 
         engine = self.engine
-        if kind == "decode_chained":
-            if self._carry is None:
-                raise ValueError("mirror: a chained decode before any decode")
-            key, inputs, outputs = self._carry
-            inputs = dict(inputs, tokens=outputs["final_tokens"], lengths=outputs["final_lengths"])
+        # writable copies: the frame's buffers are read-only
+        named = {name: np.array(array) for name, array in zip(meta.get("names", ()), arrays)}
+        base = kind[: -len("_chained")] if kind.endswith("_chained") else kind
+        if base != kind:
+            if base not in self._carries:
+                raise ValueError(f"mirror: a chained {base} before any {base}")
+            key, inputs, outputs = self._carries[base]
+            inputs = dict(inputs, **named, **{name: outputs[output]
+                                              for name, output in CHAINED[base].items()})
+        elif kind in _ENGINE_RECORDS:
+            self._engine_record(kind, meta, arrays)
+            return
         else:
             key = Variant(kind, int(meta["size"]), meta["tier"], int(meta["group"]))
-            # writable copies: the frame's buffers are read-only
-            inputs = {name: np.array(array) for name, array in zip(meta["names"], arrays)}
+            inputs = named
             if kind == "first_token":
                 if self._logits is None:
                     raise ValueError("mirror: a first-token sampling before any prefill")
@@ -379,20 +440,52 @@ class FollowerExecutor:
         if kind in ("prefill", "prefill_offset"):
             self._logits = outputs["logits"]
             self.model_calls[kind] = self.model_calls.get(kind, 0) + 1
-        elif kind in ("decode", "decode_chained"):
-            self._carry = (key, staged, outputs)
-            self.model_calls["decode"] = self.model_calls.get("decode", 0) + key.size
-        if kind in ("first_token", "decode", "decode_chained"):
-            self.digest.update(outputs["tokens"])
+        elif base in CHAINED:
+            self._carries[base] = (key, staged, outputs)
+            calls = "verify" if base == "spec" else base
+            self.model_calls[calls] = self.model_calls.get(calls, 0) + (
+                1 if base == "mixed" else key.size)
+        if base in SAMPLED:
+            self.digest.update(outputs[SAMPLED[base]])
+
+    def _engine_record(self, kind: str, meta: Dict[str, Any], arrays: list) -> None:
+        """A write outside a step, or the supervisor's heal, as rank 0's
+        engine made it (``engine.py``: the same helpers, on this rank's kv
+        heads)."""
+        engine = self.engine
+        if kind == "handoff_export":
+            engine._gather_blocks(arrays[0].tolist())
+        elif kind == "handoff_import":
+            engine._write_blocks(arrays[0].tolist(), None)
+        elif kind == "host_demote":
+            self.host_tier[meta["digest"]] = engine._copy_block_out(int(meta["block"]))
+        elif kind == "host_evict":
+            self.host_tier.pop(meta["digest"], None)
+        elif kind == "host_promote":
+            engine._copy_blocks_in(arrays[0].tolist(),
+                                   [self.host_tier[digest] for digest in meta["digests"]])
+        elif kind == "counts":
+            engine._write_counts(int(meta["slot"]), np.array(arrays[0]))
+        elif kind == "release":
+            engine.release()
+            self._logits = None
+            self._carries.clear()
+            self.host_tier.clear()
+        else:  # rebuild
+            if self._rebuild is None:
+                raise ValueError("mirror: a rebuild record and no engine factory")
+            self.engine = self._rebuild()
 
     def report(self) -> Dict[str, Any]:
         """The follower's account at the end of its stream: records by
-        kind, model calls, the token digest, its kernels' launches on the
+        kind, model calls, the token digest, the blocks its host tier
+        holds, its kernels' launches on the
         card (``ops.launches``; zeros on the CPU) and its step variants."""
         from langstream_tpu_torch.ops import launches
 
         return {"records": self.records, "kinds": dict(self.kinds),
                 "model_calls": dict(self.model_calls), "digest": self.digest.hexdigest(),
+                "host_tier": len(self.host_tier),
                 "launches": launches.read(shapes=True),
                 # every variant warmed or captured: a first use runs its body
                 # once more (a decode variant: its steps, on idle rows)

@@ -17,10 +17,11 @@ package's, on the CPU:
 - the handshake: a follower with another config's fingerprint rejected
   while a matching one joins, and the leader blocking (with a time limit)
   until its followers join;
-- what the mirror refuses: speculative decoding and the mixed step at
-  dispatch, a handoff export and session resurrection at submit, a
-  handoff import aborted with reason ``mirror``; host-tier demotion
-  skipped.
+- what a mirror across hosts refuses, as the JAX engine's multi-host
+  mirror does: speculative decoding at dispatch, session resurrection at
+  submit, a handoff import aborted with reason ``mirror``, host-tier
+  demotion skipped, the supervisor off; the mixed step replays (a
+  follower replaying a one-card leader's mixed steps and their carry).
 """
 
 import asyncio
@@ -144,17 +145,19 @@ async def _drive(engine):
 
 
 @pytest.mark.parametrize("layout,kv_quant", [("dense", False), ("dense", True), ("paged", False),
-                                             ("paged", True)],
-                         ids=["dense", "dense-int8kv", "paged", "paged-int8kv"])
+                                             ("paged", True), ("mixed", True)],
+                         ids=["dense", "dense-int8kv", "paged", "paged-int8kv", "mixed-int8kv"])
 def test_follower_process_replays_to_the_leaders_cache_and_tokens(tmp_path, layout, kv_quant):
+    """The mixed case runs the mixed step with its carry over a mirror
+    across hosts (the default scope), as the JAX mirror replays it."""
     config = worker.preset("tiny", max_seq_len=128)
     jparams = jax_model.init_params(jax_model.LlamaConfig.tiny(), seed=3)
     params_path = str(tmp_path / "tiny.npz")
     np.savez(params_path, **{k: np.asarray(v) for k, v in jparams.items()})
     fingerprint = mirror.config_fingerprint({"case": layout, "kv_quant": kv_quant})
     leader = engine_lib.DecodeEngine(config, worker.load_params(params_path, config, False),
-                                     device="cpu", kv_layout=layout,
-                                     kv_quant="int8" if kv_quant else None, **worker.ENGINE_ARGS)
+                                     device="cpu", kv_quant="int8" if kv_quant else None,
+                                     **worker.layout_args(layout), **worker.ENGINE_ARGS)
     dispatch = mirror.DispatchMirror(host="127.0.0.1", port=0, fingerprint=fingerprint)
     kinds = []
     publish = dispatch.publish
@@ -188,10 +191,16 @@ def test_follower_process_replays_to_the_leaders_cache_and_tokens(tmp_path, layo
     saved = np.load(out + ".npz")
     assert report["records"] == dispatch.published - 1 == len(kinds) - 1
     assert report["digest"] == dispatch.digest.hexdigest()
-    assert set(kinds) <= {"prefill", "prefill_offset", "first_token", "decode", "decode_chained",
-                          "copy", "block_copy", "stop"}
-    assert {"prefill", "first_token", "decode", "decode_chained"} <= set(kinds)
-    assert ("block_copy" if layout == "paged" else "copy") in kinds or \
+    if layout == "mixed":
+        assert set(kinds) <= {"mixed", "mixed_chained", "decode", "decode_chained", "block_copy",
+                              "stop"}
+        assert {"mixed", "mixed_chained", "decode"} <= set(kinds)
+        assert leader.stats["mixed_steps_chained"] > 0
+    else:
+        assert set(kinds) <= {"prefill", "prefill_offset", "first_token", "decode",
+                              "decode_chained", "copy", "block_copy", "stop"}
+        assert {"prefill", "first_token", "decode", "decode_chained"} <= set(kinds)
+    assert ("copy" if layout == "dense" else "block_copy") in kinds or \
         leader.stats["prefix_hits"] + leader.stats["session_hits"] > 0
     np.testing.assert_array_equal(saved["counts"], leader._counts.numpy())
     for leaf, value in leader.cache.items():
@@ -256,32 +265,57 @@ def test_handshake_rejects_another_config_and_waits_for_followers():
 
 
 def test_what_the_mirror_refuses():
+    """Across hosts (the default scope, ``serve --followers``) the engine
+    keeps the JAX engine's multi-host refusals: speculative decoding at
+    dispatch, session resurrection at submit, a handoff import aborted
+    with reason ``mirror``, host-tier demotion skipped, and the serve
+    turns the supervisor off and refuses spec decode. The mixed step and a
+    handoff export pass (the JAX mirror replays one, the JAX engine
+    gathers the other). On one host (``local``) none of these is
+    refused."""
+    from langstream_tpu_torch.cli.main import build_parser, serve_config
+
     config = model.LlamaConfig.tiny(max_seq_len=128)
     params = model.init_params(config, seed=1)
     args = dict(device="cpu", max_slots=2, max_seq_len=128, prefill_buckets=[16, 32])
-    unused = mirror.DispatchMirror(host="127.0.0.1", port=0)
+    across = mirror.DispatchMirror(host="127.0.0.1", port=0)
+    local = mirror.DispatchMirror(host="127.0.0.1", port=0, local=True)
+    assert not across.local and local.local
     try:
         spec = engine_lib.DecodeEngine(config, params, spec_decode="ngram", **args)
-        spec.mirror = unused
-        with pytest.raises(NotImplementedError, match="spec_decode"):
+        spec.mirror = across
+        with pytest.raises(NotImplementedError, match="multi-host.*spec_decode"):
             spec._check_mirror_layout()
+        spec.mirror = local
+        spec._check_mirror_layout()
         mixed = engine_lib.DecodeEngine(config, params, kv_layout="paged", prefill_mode="mixed",
                                         kv_block_size=8, **args)
-        mixed.mirror = unused
-        with pytest.raises(NotImplementedError, match="mixed.*ROADMAP"):
-            mixed._check_mirror_layout()
+        mixed.mirror = across
+        mixed._check_mirror_layout()
         paged = engine_lib.DecodeEngine(config, params, kv_layout="paged", kv_block_size=8,
                                         kv_host_blocks=4, **args)
-        paged.mirror = unused
+        paged.mirror = across
         sampling = engine_lib.SamplingParams(max_new_tokens=2)
         with pytest.raises(NotImplementedError, match="resurrection"):
             paged.submit(engine_lib.GenerationRequest([1, 2, 3], sampling, replay_tokens=[4]))
-        with pytest.raises(NotImplementedError, match="handoff"):
-            paged.submit(engine_lib.GenerationRequest([1, 2, 3], sampling, export_handoff=True))
         payload = {"tokens": list(range(16)), "block_size": 8, "arrays": {}, "kv_quant": False}
         assert paged._import_handoff(payload) is False
         assert paged.stats["tokens_wasted"]["handoff_aborted"] == 16
         assert paged._demote_block_data(1) is None and paged.stats["host_demotions"] == 0
         assert spec.stats["step_functions"] == "eager"  # graphs are a card thing
+        # one host: the demotion copies the block out (the record goes out
+        # when the arena takes it)
+        paged.mirror = local
+        data, nbytes = paged._demote_block_data(1)
+        assert set(data) == set(paged.cache) and paged.stats["host_demotions"] == 1
+        followers = serve_config(build_parser().parse_args(["serve", "--tp", "2", "--followers", "1"]))
+        assert followers["engine"]["supervisor"] is False
+        assert serve_config(build_parser().parse_args(["serve", "--tp", "2"]))["engine"]["supervisor"]
+        from langstream_tpu_torch.cli.main import _refuse_spec_under_mirror
+
+        followers["engine"]["spec-decode"] = "ngram"
+        with pytest.raises(SystemExit, match="multi-host"):
+            _refuse_spec_under_mirror(followers)
     finally:
-        unused.close()
+        across.close()
+        local.close()

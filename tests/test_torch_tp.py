@@ -8,11 +8,13 @@ same numpy-seeded inputs and the JAX weights, carried across with
 
 - each sharded kernel wrapper (``flash_prefill_attention_sharded``,
   ``flash_decode_attention_sharded``, ``ragged_paged_attention_sharded``,
+  ``ragged_q_paged_attention_sharded``,
   bf16-free f32 and over int8 k/v): the ranks' plain outputs concatenated
   over heads against JAX's sharded wrapper in interpret mode on a tp=2
   mesh and against the unsharded call, within 1e-5;
 - the tp=2 model calls (``prefill``, ``prefill_at_offset``,
-  ``decode_step`` and their paged twins) on Llama, Qwen-2, Gemma-2 and
+  ``decode_step``, their paged twins and ``paged_mixed_step``, B7 or B8
+  per rank) on Llama, Qwen-2, Gemma-2 and
   the MoE ``tiny_moe`` (experts split on ``mlp``), f32 and int8 KV,
   model-dtype and int8 weights, against the JAX model within 1e-4 of
   max |logit| (the tolerance of ``tests/test_torch_model.py``); every
@@ -24,10 +26,12 @@ same numpy-seeded inputs and the JAX weights, carried across with
   drives them; the follower's token digest equal to the leader's and its
   records the leader's; the MoE ``tiny_moe`` the same;
 - ``serve --tp 2 --device cpu`` starting its follower rank and answering
-  as the one-card server does;
+  as the one-card server does, split, ``--prefill-mode mixed`` and
+  ``--spec-decode ngram``, with the supervisor on;
 - the cost model's ``tp_shards`` against the JAX goldens of
-  ``tests/test_efficiency.py``, and the refusals (the mixed step under tp,
-  a tp mesh without ``torch.distributed``).
+  ``tests/test_efficiency.py``, and the refusals (across hosts, the
+  supervisor off and spec decode refused; a tp mesh without
+  ``torch.distributed``).
 """
 
 import asyncio
@@ -56,6 +60,9 @@ from langstream_tpu.ops.paged_attention import (
     ragged_paged_attention_quant_sharded as jax_paged_quant_sharded,
 )
 from langstream_tpu.ops.paged_attention import ragged_paged_attention_sharded as jax_paged_sharded
+from langstream_tpu.ops.paged_attention import (
+    ragged_q_paged_attention_sharded as jax_ragged_q_sharded,
+)
 from langstream_tpu.parallel.mesh import MeshConfig as JaxMeshConfig
 from langstream_tpu.providers.jax_local import engine as jax_engine
 from langstream_tpu.providers.jax_local import model as jax_model
@@ -75,6 +82,9 @@ from langstream_tpu_torch.ops.paged_attention import (
     ragged_paged_attention,
     ragged_paged_attention_quant,
     ragged_paged_attention_sharded,
+    ragged_q_paged_attention,
+    ragged_q_paged_attention_quant,
+    ragged_q_paged_attention_sharded,
 )
 from langstream_tpu_torch.parallel import launch
 from langstream_tpu_torch.parallel.mesh import MeshConfig
@@ -219,6 +229,45 @@ def test_ragged_paged_sharded_matches_jax(shape, quant):
     _close(got, whole, KERNEL_TOLERANCE)
 
 
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+def test_ragged_q_paged_sharded_matches_jax(quant):
+    """B7 (B8 over int8 pools) per rank on its kv heads, the mixed step's
+    token-ragged launch: a decode row (1 token), a prefill window (5
+    tokens at an offset) and an idle row in a flat tile of 8-token spans;
+    the tables, starts, lengths and q offsets every rank's. Held on every
+    live position."""
+    batch, width, max_len, heads, kv_heads, dim = 3, 8, 64, 8, 2, 32
+    rng = np.random.default_rng(17 + quant)
+    k_pool, v_pool, tables = _paged_pools(rng, batch, max_len, kv_heads, dim)
+    starts = np.array([40, 12, 0], np.int32)
+    counts = np.array([1, 5, 0], np.int32)
+    lengths = starts + counts
+    q_offsets = np.arange(batch, dtype=np.int32) * width
+    q = rng.standard_normal((batch * width, heads, dim)).astype(np.float32)
+    args = (tables, starts, lengths, q_offsets)
+    tq = torch.from_numpy(q)
+    targs = [torch.from_numpy(a) for a in args]
+    kw = dict(max_q_len=width, block_q=width)
+    if quant:
+        (kq, ks), (vq, vs) = jax_quantize_kv(jnp.asarray(k_pool)), jax_quantize_kv(jnp.asarray(v_pool))
+        want = jax_ragged_q_sharded(jnp.asarray(q), kq, vq, *map(jnp.asarray, args), _mesh(),
+                                    k_scale=ks, v_scale=vs, interpret=True, **kw)
+        tkq, tks, tvq, tvs = (torch.from_numpy(np.array(a)) for a in (kq, ks, vq, vs))
+        got = _ranks(lambda r: ragged_q_paged_attention_sharded(
+            tq, tkq, tvq, *targs, k_scale=tks, v_scale=tvs, rank=r, size=TP, **kw))
+        whole = ragged_q_paged_attention_quant(tq, tkq, tks, tvq, tvs, *targs, **kw).numpy()
+    else:
+        want = jax_ragged_q_sharded(*map(jnp.asarray, (q, k_pool, v_pool, *args)), _mesh(),
+                                    interpret=True, **kw)
+        tk, tv = torch.from_numpy(k_pool), torch.from_numpy(v_pool)
+        got = _ranks(lambda r: ragged_q_paged_attention_sharded(tq, tk, tv, *targs, rank=r, size=TP,
+                                                                **kw))
+        whole = ragged_q_paged_attention(tq, tk, tv, *targs, **kw).numpy()
+    live = np.concatenate([np.arange(b * width, b * width + counts[b]) for b in range(batch)])
+    _close(got[live], np.asarray(want)[live], KERNEL_TOLERANCE)
+    _close(got[live], whole[live], KERNEL_TOLERANCE)
+
+
 # ---------------------------------------------------------------------- #
 # the ranks: model calls and engines over two gloo processes
 # ---------------------------------------------------------------------- #
@@ -317,6 +366,9 @@ def _jax_calls(case):
             cache, out[f"decode{step}"] = jax_model.paged_decode_step(
                 config, params, cache, x["decode_tokens"][step], x["decode_lengths"][step],
                 x["tables"], freqs, **ref)
+        cache, out["mixed"] = jax_model.paged_mixed_step(
+            config, params, cache, x["mixed_tokens"], x["mixed_offsets"], x["mixed_counts"],
+            x["tables"], freqs, **ref)
     return {name: np.asarray(logits) for name, logits in out.items()}
 
 
@@ -378,15 +430,16 @@ def test_tp2_engine_streams_match_tp1_and_jax(ranks, case):
 # ---------------------------------------------------------------------- #
 # serve --tp 2
 # ---------------------------------------------------------------------- #
-def test_serve_tp2_starts_its_follower_and_answers_as_one_card():
-    """``python -m langstream_tpu_torch serve --tp 2 --device cpu``: the
-    leader starts its follower rank, serves a greedy completion equal to
-    a one-card service's over the same random weights (seed 0, each rank
-    keeping its shard as the leaves are drawn), and at SIGINT sends the
-    follower its stop: the follower's account shows every record
-    published and the leader's token digest."""
+def _serve_tp2(mode_flags, engine_keys):
+    """``python -m langstream_tpu_torch serve --tp 2 --device cpu`` with
+    ``mode_flags``: the leader starts its follower rank, serves a greedy
+    completion equal to a one-card service's (``engine_keys`` added to its
+    engine config) over the same random weights (seed 0, each rank keeping
+    its shard as the leaves are drawn), and at SIGINT sends the follower
+    its stop: the follower's account shows every record published and the
+    leader's token digest. Returns the follower's record counts by kind."""
     flags = ["--model", "tiny", "--device", "cpu", "--max-slots", "2", "--max-seq-len", "128",
-             "--decode-chunk", "4", "--no-watchdog"]
+             "--decode-chunk", "4", "--no-watchdog", *mode_flags]
     env = dict(os.environ, LANGSTREAM_FLIGHT_DIR="", PYTHONPATH=str(REPO))
     leader = subprocess.Popen(
         [sys.executable, "-m", "langstream_tpu_torch", "serve", "--tp", "2", "--port", "0",
@@ -416,15 +469,38 @@ def test_serve_tp2_starts_its_follower_and_answers_as_one_card():
     follower = next(a["follower"] for a in accounts if "follower" in a)
     mirror = next(a["mirror"] for a in accounts if "mirror" in a)
     assert follower["rank"] == 1 and follower["records"] == mirror["published"] - 1
-    assert follower["digest"] == mirror["digest"] and follower["kinds"]["first_token"] == 1
+    assert follower["digest"] == mirror["digest"]
     one_card = TorchCompletionsService(
         {"model": {"preset": "tiny", "max_seq_len": 128},
-         "engine": {"max-slots": 2, "max-seq-len": 128, "decode-chunk": 4}}, device="cpu")
+         "engine": dict({"max-slots": 2, "max-seq-len": 128, "decode-chunk": 4}, **engine_keys)},
+        device="cpu")
     try:
         want = asyncio.run(one_card.get_text_completions(["once upon a time"], {"max-tokens": 8}))
     finally:
         one_card.close()
     assert served == want.content
+    return follower["kinds"]
+
+
+def test_serve_tp2_starts_its_follower_and_answers_as_one_card():
+    """``serve --tp 2 --device cpu``, the supervisor on (its default):
+    see :func:`_serve_tp2`."""
+    kinds = _serve_tp2([], {})
+    assert kinds["first_token"] == 1
+
+
+@pytest.mark.parametrize("mode", ["mixed", "spec"])
+def test_serve_tp2_mixed_and_spec_answer_as_one_card(mode):
+    """``serve --tp 2 --device cpu --kv-layout paged --prefill-mode mixed``
+    and ``--spec-decode ngram``, the supervisor on: the follower replays
+    the mixed steps (the spec chunks) and the answer is one card's."""
+    if mode == "mixed":
+        kinds = _serve_tp2(["--kv-layout", "paged", "--prefill-mode", "mixed"],
+                           {"kv-layout": "paged", "prefill-mode": "mixed"})
+        assert kinds["mixed"] >= 1
+    else:
+        kinds = _serve_tp2(["--spec-decode", "ngram"], {"spec-decode": "ngram"})
+        assert kinds["spec"] >= 1
 
 
 # ---------------------------------------------------------------------- #
@@ -458,16 +534,30 @@ def test_cost_model_tp_shards_matches_jax(layout):
 
 
 def test_tp_refusals():
-    """The mixed step under tp raises naming ROADMAP; a tp mesh in a
+    """Across hosts (``serve --followers``/``--follower-of``) the serve
+    keeps the JAX serve's refusals: the supervisor off and spec decode
+    refused (the engine's resurrection, import and demotion refusals are
+    ``tests/test_torch_mirror.py``'s); on one host (``--tp``) the
+    supervisor stays on and the mixed step under tp passes the engine's
+    checks, up to its need of ``torch.distributed``. A tp mesh in a
     process without ``torch.distributed`` raises naming how to start the
     ranks; axes other than tp raise naming ROADMAP; the trainer takes a
     tp mesh, and without ``torch.distributed`` raises naming how to start
     the ranks."""
+    from langstream_tpu_torch.cli.main import _refuse_spec_under_mirror, build_parser, serve_config
     from langstream_tpu_torch.training import trainer
 
     config = model.LlamaConfig.tiny()
     params = model.init_params(config)
-    with pytest.raises(NotImplementedError, match="mixed.*ROADMAP"):
+    for flags in (["--followers", "1"], ["--follower-of", "leader:8477"]):
+        across = serve_config(build_parser().parse_args(["serve", "--tp", "2", *flags,
+                                                         "--spec-decode", "ngram"]))
+        assert across["engine"]["supervisor"] is False
+        with pytest.raises(SystemExit, match="multi-host"):
+            _refuse_spec_under_mirror(across)
+    one_host = serve_config(build_parser().parse_args(["serve", "--tp", "2", "--spec-decode", "ngram"]))
+    assert one_host["engine"]["supervisor"] is True and one_host["engine"]["spec-decode"] == "ngram"
+    with pytest.raises(RuntimeError, match="serve --tp"):
         engine.DecodeEngine(config, params, device="cpu", kv_layout="paged", prefill_mode="mixed",
                             mesh_config=MeshConfig(tp=2))
     with pytest.raises(RuntimeError, match="serve --tp"):

@@ -34,13 +34,23 @@ ENGINE_ARGS = dict(max_slots=4, max_seq_len=128, prefill_buckets=[16, 32, 64], k
                    decode_chunk=4, pipeline_decode=True, seed=0)
 
 
+def layout_args(layout: str) -> Dict[str, Any]:
+    """The engine arguments of a test layout: dense, paged, or mixed (the
+    paged layout with the mixed prefill+decode step)."""
+    if layout == "mixed":
+        return dict(kv_layout="paged", prefill_mode="mixed", prefill_chunk=16)
+    return dict(kv_layout=layout)
+
+
 def preset(name: str, max_seq_len: int = MAX_LEN) -> model.LlamaConfig:
     return PRESETS[name](max_seq_len=max_seq_len)
 
 
 def call_inputs(vocab: int) -> Dict[str, np.ndarray]:
     """One sequence's host inputs: a prefill of 3 rows, a suffix at their
-    offsets, two decode steps, and the paged rows' block tables."""
+    offsets, two decode steps, the paged rows' block tables, and a mixed
+    step of 8-token spans after the decode steps (a decode row, windows of
+    5 and 3 tokens)."""
     rng = np.random.default_rng(7)
     lengths = np.array([16, 9, 12], np.int32)
     suffix = np.array([8, 3, 5], np.int32)
@@ -56,6 +66,9 @@ def call_inputs(vocab: int) -> Dict[str, np.ndarray]:
         "decode_tokens": rng.integers(0, vocab, size=(2, SLOTS)).astype(np.int32),
         "decode_lengths": np.stack([lengths + suffix + 1, lengths + suffix + 2]).astype(np.int32),
         "tables": tables,
+        "mixed_tokens": rng.integers(0, vocab, size=(SLOTS, 8)).astype(np.int32),
+        "mixed_offsets": (lengths + suffix + 2).astype(np.int32),
+        "mixed_counts": np.array([1, 5, 3], np.int32),
     }
 
 
@@ -99,6 +112,9 @@ def run_calls(config: model.LlamaConfig, params: Dict[str, Any], layout: str, kv
             out[f"decode{step}"] = model.paged_decode_step(
                 config, params, cache, _t(x["decode_tokens"][step]), _t(x["decode_lengths"][step]),
                 tables, freqs)
+        out["mixed"] = model.paged_mixed_step(
+            config, params, cache, _t(x["mixed_tokens"]), _t(x["mixed_offsets"]),
+            _t(x["mixed_counts"]), tables, freqs)
     return {name: logits.numpy() for name, logits in out.items()}
 
 
@@ -193,8 +209,8 @@ def replay_follower(rank: int, world: int, device: str, payload: Dict[str, Any])
     config = preset(payload["preset"], max_seq_len=128)
     params = load_params(payload["params"], config, False)
     engine = engine_lib.DecodeEngine(
-        config, params, device=device, kv_layout=payload["layout"],
-        kv_quant="int8" if payload["kv_quant"] else None, **ENGINE_ARGS)
+        config, params, device=device, kv_quant="int8" if payload["kv_quant"] else None,
+        **layout_args(payload["layout"]), **ENGINE_ARGS)
     follower = FollowerExecutor(engine)
     follower.connect("127.0.0.1", payload["port"], timeout=120,
                      fingerprint=bytes.fromhex(payload["fingerprint"]))
@@ -287,3 +303,120 @@ def follower_dies(rank: int, world: int, device: str, payload: Dict[str, Any]) -
     engine.stop()
     with open(f"{payload['out']}.json", "w") as out:
         json.dump({"outcome": outcome, "seconds": seconds}, out)
+
+
+# ---------------------------------------------------------------------- #
+# serve --tp on one host: what the mirror replays (test_torch_tp_features)
+# ---------------------------------------------------------------------- #
+def features_config(engine: Dict[str, Any], world: int) -> Dict[str, Any]:
+    """The provider config of a features case: ``tiny`` at 128 tokens,
+    random weights from seed 0, sampling seed 11, over tp=``world``."""
+    return {"model": {"preset": "tiny", "max_seq_len": 128}, "seed": 0, "mesh": {"tp": world},
+            "engine": dict({"max-slots": 4, "max-seq-len": 128, "prefill-buckets": [16, 32, 64],
+                            "decode-chunk": 4, "sampling-seed": 11}, **engine)}
+
+
+def _job_fields(fields: Dict[str, Any]) -> Dict[str, Any]:
+    """A job's request fields; a ``kv_import`` names a saved payload."""
+    fields = dict(fields)
+    if isinstance(fields.get("kv_import"), str):
+        fields["kv_import"] = load_payload(fields["kv_import"])
+    return fields
+
+
+def save_payload(path: str, payload: Dict[str, Any]) -> None:
+    """A handoff payload (tokens, per-leaf host rows) as ``<path>.npz``."""
+    np.savez(f"{path}.npz", tokens=np.asarray(payload["tokens"], dtype=np.int64),
+             block_size=payload["block_size"], kv_quant=payload["kv_quant"],
+             **{f"leaf/{leaf}": np.asarray(rows) for leaf, rows in payload["arrays"].items()})
+
+
+def load_payload(path: str) -> Dict[str, Any]:
+    with np.load(f"{path}.npz") as stored:
+        return {"tokens": stored["tokens"].tolist(), "block_size": int(stored["block_size"]),
+                "kv_quant": bool(stored["kv_quant"]),
+                "arrays": {key[len("leaf/"):]: torch.from_numpy(stored[key])
+                           for key in stored.files if key.startswith("leaf/")}}
+
+
+async def run_jobs(engine_of, jobs, together: bool, out: str, sampling_params=engine_lib.SamplingParams):
+    """``jobs`` of (prompt, sampling, request fields) through the engine
+    ``engine_of()`` returns at each submit, all at once or one after
+    another: each result's tokens, logprobs and finish reason; a handoff
+    export is saved as ``<out>.<job>.npz``."""
+
+    async def one(index, prompt, sampling, fields):
+        result = await engine_of().generate(list(prompt), sampling_params(**sampling),
+                                            request_fields=_job_fields(fields))
+        exported = getattr(result, "kv_handoff", None)
+        if exported is not None:
+            save_payload(f"{out}.{index}", exported)
+        return {"tokens": list(result.tokens), "logprobs": [float(x) for x in result.logprobs],
+                "finish_reason": result.finish_reason, "exported": exported is not None}
+
+    if together:
+        return list(await asyncio.gather(*(one(i, *job) for i, job in enumerate(jobs))))
+    return [await one(i, *job) for i, job in enumerate(jobs)]
+
+
+FEATURE_STATS = ("mixed_steps", "mixed_steps_chained", "tokens_drafted", "tokens_draft_accepted",
+                 "handoff_exports", "handoff_imports", "host_demotions", "host_promotions",
+                 "kv_host_hit_tokens", "prefix_tokens_reused", "step_functions")
+
+
+def tp_features(rank: int, world: int, device: str, payload: Dict[str, Any]) -> None:
+    """Each case of ``payload["cases"]`` served as ``serve --tp`` serves
+    it on one host: every rank builds the provider's service from the
+    case's config; rank 0 attaches a one-host dispatch mirror
+    (``attach_mirror``, as ``cli.main.start_tp_server``) and runs the
+    case's jobs through the current engine (the supervisor's, rebuilt
+    after a crash the case's ``faults`` inject), and the other ranks run
+    ``cli.main.follow``. Rank 0 writes its results, its published record
+    count, digest and stats, the supervisor's restarts and the sessions
+    it resurrected to ``<out>.<case>.json``; each follower its account to
+    ``<out>.<case>.<rank>``."""
+    import torch.distributed as dist
+
+    from langstream_tpu_torch.cli.main import follow
+    from langstream_tpu_torch.providers.torch_local.provider import (
+        TorchCompletionsService,
+        mirror_fingerprint,
+    )
+    from langstream_tpu_torch.runtime import faults, supervisor
+    from langstream_tpu_torch.serving.mirror import DispatchMirror
+
+    for case in payload["cases"]:
+        out = f"{payload['out']}.{case['name']}"
+        config = features_config(case["engine"], world)
+        mirror = None
+        if rank == 0:
+            mirror = DispatchMirror(host="127.0.0.1", port=0, fingerprint=mirror_fingerprint(config),
+                                    local=True)
+        port = [mirror.port if mirror is not None else 0]
+        dist.broadcast_object_list(port, src=0)
+        if rank:
+            follow(rank, world, device, {"config": config, "mirror": f"127.0.0.1:{port[0]}",
+                                         "report": out})
+            continue
+        service = TorchCompletionsService(config, device=device)
+        mirror.wait_for_followers(world - 1, timeout=120)
+        service.attach_mirror(mirror)
+        resurrected = supervisor.SESSIONS_RESURRECTED.value()
+        if case.get("faults"):
+            faults.configure(case["faults"])
+        try:
+            results = asyncio.run(run_jobs(lambda: service.engine, case["jobs"],
+                                           case.get("together", False), out))
+        finally:
+            faults.reset()
+            engine = service.engine
+            service.close()
+        stats = {key: engine.stats[key] for key in FEATURE_STATS}
+        with open(f"{out}.json", "w") as written:
+            json.dump({"results": results, "published": mirror.published,
+                       "digest": mirror.digest.hexdigest(), "stats": stats,
+                       "restarts": service.supervisor.restarts,
+                       "resurrected": supervisor.SESSIONS_RESURRECTED.value() - resurrected,
+                       "kv_heads": int(engine.cache["k"].shape[3]),
+                       "host_tier": (engine.kv_host_arena.blocks_in_use
+                                     if engine.kv_host_arena is not None else 0)}, written)
