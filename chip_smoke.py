@@ -320,6 +320,15 @@ Phases (any failure propagates and the exit code is not 0):
    Gates and prints: :func:`check_mesh_training`. The ranks' output goes
    to ``build/mesh/``.
 
+17. The LangStream app (no kernel of its own: B1 and B2 through the
+   app's engine): ``python -m langstream_tpu_torch apps run`` on the
+   shipped ``torch-completions`` app as a subprocess (Llama-3-8B at full
+   width, ``APP_LAYERS`` of 32 layers, random bf16 weights, 4 slots ×
+   512, decode chunk 8, ``precompile``), eight chat clients on the port's
+   own WebSocket client asking two questions each under their own
+   session. Gates and prints: :func:`serve_app_and_check`. The app's log
+   goes to ``build/app/``.
+
 Each phase's wall time is printed in one line before the kernels'.
 
 The accounting plane rides the phases above, with no server of its own.
@@ -2036,7 +2045,12 @@ def start_llama_server(*extra: str, kv_quant: bool = False, graphs: bool = True,
 def scrape(server) -> dict:
     """``/metrics`` as {series (with its labels): value}; a histogram's
     ``_count`` lines included."""
-    with urllib.request.urlopen(f"http://127.0.0.1:{server.port}/metrics", timeout=60) as response:
+    return scrape_url(f"http://127.0.0.1:{server.port}/metrics")
+
+
+def scrape_url(url: str) -> dict:
+    """A ``/metrics`` URL's series as {series (with its labels): value}."""
+    with urllib.request.urlopen(url, timeout=60) as response:
         text = response.read().decode()
     out = {}
     for row in text.splitlines():
@@ -5494,6 +5508,275 @@ def check_mesh_training(device, label: str) -> None:
     log(f"phase 16 (training on the mesh) [{label}]: {time.perf_counter() - started:.1f} s")
 
 
+# ---------------------------------------------------------------------- #
+# 17. the LangStream app: `apps run` on the shipped torch-completions app
+# ---------------------------------------------------------------------- #
+APP_DIR = os.path.join("langstream_tpu_torch", "examples", "applications", "torch-completions")
+APP_LOGS = os.path.join("build", "app")
+APP_LAYERS = 2  # Llama-3-8B at full width, 2 of 32 layers: the phase's time
+APP_CLIENTS = 8
+APP_MAX_TOKENS = 48
+# the served answers against the direct service's: a stream may part at a
+# near-tie of the direct run (top-2 logprobs within this) where batching
+# rounds bf16 otherwise
+APP_NEAR_TIE = 0.125
+APP_INSTANCE = f"""\
+instance:
+  streamingCluster:
+    type: memory
+  computeCluster:
+    type: local
+  globals:
+    model: "llama-3-8b"
+    num-layers: {APP_LAYERS}
+    tp: 1
+    max-slots: 4
+    max-seq-len: 512
+    max-tokens: {APP_MAX_TOKENS}
+    decode-chunk: 8
+    precompile: true
+"""
+
+
+def _get_json(url: str):
+    with urllib.request.urlopen(url, timeout=120) as response:
+        return json.loads(response.read().decode())
+
+
+async def _chat_client(base: str, client: int, questions) -> dict:
+    """One chat client on the port's WebSocket client: its questions one
+    after another, each answer's chunk frames until the last."""
+    from langstream_tpu_torch.gateway import websocket
+
+    session = f"app-client-{client}"
+    ws = await websocket.connect(f"{base}/v1/chat/default/torch-completions/chat"
+                                 f"?param:session-id={session}")
+    answers = []
+    try:
+        for question in questions:
+            sent = time.perf_counter()
+            await ws.send_json({"value": question})
+            frames, first = [], None
+            while True:
+                message = await asyncio.wait_for(ws.receive(), 300)
+                assert message.type == "text", (session, message)
+                record = message.json()["record"]
+                first = first or time.perf_counter()
+                frames.append(record)
+                if record["headers"].get("stream-last-message") == "true":
+                    break
+            answers.append({"question": question, "frames": frames, "ttft_s": first - sent,
+                            "done": time.perf_counter()})
+    finally:
+        await ws.close()
+    return {"session": session, "answers": answers}
+
+
+async def _history(base: str, session: str, count: int) -> list:
+    """The session's whole answers, from the app's history gateway."""
+    from langstream_tpu_torch.gateway import websocket
+
+    ws = await websocket.connect(f"{base}/v1/consume/default/torch-completions/consume-history"
+                                 f"?param:sessionId={session}&option:position=earliest")
+    try:
+        out = []
+        while len(out) < count:
+            message = await asyncio.wait_for(ws.receive(), 120)
+            out.append(message.json()["record"])
+        return out
+    finally:
+        await ws.close()
+
+
+def _parting_is_a_near_tie(tokenizer, answer: str, direct, label: str) -> bool:
+    """True when the served ``answer`` equals the text of the direct run
+    (a ``GenerationResult`` with top-K logprobs); False when they part
+    where the direct run had a near-tie (its top two logprobs within
+    :data:`APP_NEAR_TIE`). The answers are text, and a byte token of a
+    multibyte character shows as nothing until the character completes,
+    so the parting token lies within a few tokens after the longest
+    prefix of whole characters they share. Raises on any other
+    difference."""
+    if answer == tokenizer.decode(direct.tokens):
+        return True
+    shared, text = 0, ""
+    walker = tokenizer.stream_decoder()
+    for k, token in enumerate(direct.tokens):
+        text += walker.push(token)
+        if not answer.startswith(text):
+            break
+        shared = k + 1
+    window = range(max(0, shared - 3), min(len(direct.top_logprobs), shared + 4))
+    gaps = [float(direct.top_logprobs[j][1][0] - direct.top_logprobs[j][1][1]) for j in window]
+    assert gaps and min(gaps) <= APP_NEAR_TIE, (label, shared, gaps, answer,
+                                                tokenizer.decode(direct.tokens))
+    return False
+
+
+def _app_questions(client: int):
+    rng = np.random.default_rng(1000 + client)
+    return [f"question {turn} of client {client}: what is a "
+            + " ".join(rng.choice(WORDS, size=4 + turn)) + "?" for turn in range(2)]
+
+
+def serve_app_and_check(label: str) -> dict:
+    """Phase 17: ``python -m langstream_tpu_torch apps run`` on the shipped
+    ``torch-completions`` app, as a subprocess (its log in
+    ``build/app/``), with an instance of Llama-3-8B at full width cut to
+    :data:`APP_LAYERS` layers (random bf16 weights drawn on the card from
+    the provider's seed), 4 slots × 512, decode chunk 8, ``precompile``
+    on. :data:`APP_CLIENTS` chat clients on the port's own WebSocket
+    client, each under its own session id, ask two questions each, all
+    clients at once. Gates: every question answered; each client sees
+    only its own session's chunks, each answer's ending with
+    ``stream-last-message: true``, and they concatenate to the answer the
+    app's ``consume-history`` gateway serves; the gateway's ``/metrics``
+    shows the engine's counters (16 requests, the tokens); its
+    ``/debug/launches`` deltas over the burst: B1 once per layer per
+    prefill call and B2 once per layer per decode step (the engine's
+    model calls), no other kernel, no CUDA graph captured; SIGTERM stops
+    the app (exit 0). Then the port's ``TorchCompletionsService`` over
+    the same resolved configuration, in this process, answers the same
+    rendered messages under the same sessions (each client's two in
+    turn, the clients at once), with top-5 logprobs: each served answer
+    equals its answer but for a near-tie (:func:`_parting_is_a_near_tie`).
+    Printed with no claim: the phase's wall, the output tok/s and mean
+    TTFT the clients saw, the direct run's."""
+    from langstream_tpu_torch.compiler import build_application
+    from langstream_tpu_torch.providers.torch_local.provider import TorchCompletionsService
+
+    started = time.perf_counter()
+    os.makedirs(APP_LOGS, exist_ok=True)
+    instance = os.path.join(APP_LOGS, "instance.yaml")
+    with open(instance, "w") as fh:
+        fh.write(APP_INSTANCE)
+    log_path = os.path.join(APP_LOGS, "apps_run.log")
+    log_file = open(log_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "langstream_tpu_torch", "apps", "run", APP_DIR,
+         "--instance", instance, "--gateway-port", "0"],
+        stdout=subprocess.PIPE, stderr=log_file, text=True)
+    lines, base = [], None
+    try:
+        deadline = time.perf_counter() + 300
+        while base is None:
+            line = proc.stdout.readline()
+            assert line and time.perf_counter() < deadline, (
+                f"apps run exited before its gateway listened (see {log_path})", proc.poll(), lines)
+            lines.append(line.rstrip())
+            found = re.match(r"gateway on (ws://[^/]+)/v1/", line)
+            if found:
+                base = found.group(1)
+        up_s = time.perf_counter() - started
+        http_base = base.replace("ws://", "http://")
+        before = _get_json(f"{http_base}/debug/launches")
+        metrics_before = scrape_url(f"{http_base}/metrics")
+
+        async def burst():
+            t0 = time.perf_counter()
+            clients = await asyncio.gather(*[
+                _chat_client(base, c, _app_questions(c)) for c in range(APP_CLIENTS)])
+            wall = time.perf_counter() - t0
+            histories = await asyncio.gather(*[
+                _history(base, client["session"], 2) for client in clients])
+            return clients, histories, wall
+
+        clients, histories, wall = asyncio.run(burst())
+        after = _get_json(f"{http_base}/debug/launches")
+        metrics = scrape_url(f"{http_base}/metrics")
+    finally:
+        proc.terminate()
+        try:
+            stdout, _ = proc.communicate(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            stdout, _ = proc.communicate()
+        log_file.close()
+    lines += stdout.splitlines()
+    assert proc.returncode == 0 and "application stopped" in lines, (proc.returncode, lines[-5:])
+    # the answers: each client its own session's chunks, whole answers
+    answered = 0
+    messages = {}
+    for client, history in zip(clients, histories):
+        session = client["session"]
+        assert [h["value"]["question"] for h in history] == [a["question"] for a in client["answers"]]
+        for answer, record in zip(client["answers"], history):
+            frames = answer["frames"]
+            assert all(f["headers"]["langstream-client-session-id"] == session for f in frames)
+            assert len({f["headers"]["stream-id"] for f in frames}) == 1, frames
+            assert [f["headers"]["stream-last-message"] for f in frames] == (
+                ["false"] * (len(frames) - 1) + ["true"])
+            assert [int(f["headers"]["stream-index"]) for f in frames] == list(range(len(frames)))
+            assert "".join(f["value"] for f in frames) == record["value"]["answer"], session
+            assert record["headers"]["langstream-client-session-id"] == session
+            prompt = json.loads(record["value"]["prompt"])
+            messages[(session, answer["question"])] = (prompt["messages"], record["value"]["answer"])
+            answered += 1
+    assert answered == APP_CLIENTS * 2, answered
+    # the engine's counters on the gateway's /metrics
+    requests = metrics["torch_engine_requests"] - metrics_before.get("torch_engine_requests", 0)
+    tokens = (metrics["torch_engine_tokens_generated"]
+              - metrics_before.get("torch_engine_tokens_generated", 0))
+    assert requests == answered and tokens > 0, (requests, tokens)
+    # the kernels through the app, by the card's counters
+    delta = {name: after["launches"][name] - before["launches"][name] for name in after["launches"]}
+    calls = {name: after["model_calls"].get(name, 0) - before["model_calls"].get(name, 0)
+             for name in after["model_calls"]}
+    captured = {kind: n - before["graphs_captured"].get(kind, 0)
+                for kind, n in after["graphs_captured"].items()}
+    expect = {"flash_prefill": APP_LAYERS * calls.get("prefill", 0),
+              "flash_decode": APP_LAYERS * calls.get("decode_step", 0)}
+    assert delta == {name: expect.get(name, 0) for name in delta}, (delta, calls)
+    assert expect["flash_prefill"] > 0 and expect["flash_decode"] > 0, (delta, calls)
+    assert not any(captured.values()), captured
+    served = time.perf_counter() - started
+    # the direct service over the same resolved configuration
+    application = build_application(APP_DIR, instance_file=instance)
+    config = json.loads(json.dumps(application.resources["gpu-llm"]["configuration"]))
+    config["engine"]["logprobs-top-k"] = 5
+    direct_started = time.perf_counter()
+    service = TorchCompletionsService(config, device="cuda")
+    tokenizer = service.tokenizer
+    try:
+        async def direct():
+            async def one_client(client):
+                out = []
+                for answer in client["answers"]:
+                    rendered, served_answer = messages[(client["session"], answer["question"])]
+                    prompt = tokenizer.apply_chat_template(rendered)
+                    result = await service.engine.generate(
+                        prompt, engine_lib.SamplingParams(max_new_tokens=APP_MAX_TOKENS),
+                        stop_tokens=set(tokenizer.eos_ids), session_id=client["session"])
+                    out.append((served_answer, result))
+                return out
+
+            t0 = time.perf_counter()
+            runs = await asyncio.gather(*[one_client(client) for client in clients])
+            return runs, time.perf_counter() - t0
+
+        runs, direct_wall = asyncio.run(direct())
+    finally:
+        service.close()
+    equal = sum(_parting_is_a_near_tie(tokenizer, served_answer, result, label)
+                for run in runs for served_answer, result in run)
+    direct_tokens = sum(len(result.tokens) for run in runs for _, result in run)
+    ttfts = [a["ttft_s"] for client in clients for a in client["answers"]]
+    wall_s = time.perf_counter() - started
+    log(f"phase 17 (LangStream app) [{label}]: `apps run` torch-completions, Llama-3-8B at "
+        f"{APP_LAYERS} of 32 layers (random bf16 weights), 4 slots x 512, {APP_CLIENTS} chat clients "
+        f"x 2 questions through the gateway: up in {up_s:.1f} s, {answered} answers in {wall:.2f} s, "
+        f"{tokens:.0f} tokens, {tokens / wall:.1f} tok/s and mean TTFT "
+        f"{1e3 * sum(ttfts) / len(ttfts):.1f} ms as the clients saw them; the direct service "
+        f"{direct_tokens} tokens in {direct_wall:.2f} s ({direct_tokens / direct_wall:.1f} tok/s); "
+        f"{equal} of {answered} answers equal to the direct service's, {answered - equal} parted at "
+        f"near-ties (within {APP_NEAR_TIE}); launches on the card B1 {delta['flash_prefill']}, B2 "
+        f"{delta['flash_decode']} for {calls.get('prefill', 0)} prefill calls and "
+        f"{calls.get('decode_step', 0)} decode steps (model calls {calls}), no graph captured; "
+        f"served part {served:.1f} s, direct part {time.perf_counter() - direct_started:.1f} s, "
+        f"phase {wall_s:.1f} s")
+    return {"tok_s": tokens / wall, "wall_s": wall_s}
+
+
 def main() -> None:
     # the watchdog's trip captures and /debug/profile's go under build/,
     # which git ignores; so does the flight artifact, on as in `serve`
@@ -5685,6 +5968,13 @@ def main() -> None:
     started = time.perf_counter()
     check_mesh_training(device, label)
     walls.append(("training on the mesh", time.perf_counter() - started))
+    # the LangStream app: `apps run` as a subprocess, chat clients through
+    # its gateway (B1, B2 by the app's card counters)
+    gc.collect()
+    torch.cuda.empty_cache()
+    started = time.perf_counter()
+    serve_app_and_check(label)
+    walls.append(("LangStream app", time.perf_counter() - started))
     log("phase wall times, longest first: " + ", ".join(
         f"{name} {seconds:.1f}s" for name, seconds in sorted(walls, key=lambda item: -item[1]))
         + f"; {sum(seconds for _, seconds in walls):.1f}s in all")

@@ -1,8 +1,9 @@
 """Counters, histograms and the Prometheus text renderer.
 
 The port's own copy of what ``langstream_tpu/api/metrics.py`` gives the
-engine supervisor, the watchdog and the ``/metrics`` route:
-:class:`Counter`, :class:`Histogram` and :func:`prometheus_text`, the
+engine supervisor, the watchdog, the agent runner, the gateway and the
+``/metrics`` routes: :class:`Counter`, :class:`Histogram`,
+:class:`MetricsReporter` and :func:`prometheus_text`, the
 same classic exposition (format 0.0.4), so the port's ``/metrics`` and
 the JAX server's render a series alike.
 """
@@ -72,6 +73,56 @@ class Histogram:
         out["sum"] = total_sum
         out["count"] = total_count
         return out
+
+
+class MetricsReporter:
+    """Namespaced counter/histogram registry; ``with_prefix`` mirrors the
+    reference's ``MetricsReporter.withPodName/withAgentName`` chaining."""
+
+    def __init__(self, prefix: str = "") -> None:
+        self.prefix = prefix
+        # registry dicts: inserts hold the lock (get-or-create races
+        # must not lose a counter); with_prefix SHARES the dicts with
+        # the child reporter by reference, which is a lock-free read
+        self._counters: Dict[str, Counter] = {}  # guarded-by: _lock (writes)
+        self._histograms: Dict[str, Histogram] = {}  # guarded-by: _lock (writes)
+        self._lock = threading.Lock()
+
+    def with_prefix(self, prefix: str) -> "MetricsReporter":
+        child = MetricsReporter(
+            f"{self.prefix}_{prefix}" if self.prefix else prefix
+        )
+        child._counters = self._counters  # shared registry
+        child._histograms = self._histograms
+        child._lock = self._lock
+        return child
+
+    def counter(self, name: str) -> Counter:
+        full = f"{self.prefix}_{name}" if self.prefix else name
+        with self._lock:
+            counter = self._counters.get(full)
+            if counter is None:
+                counter = Counter(full)
+                self._counters[full] = counter
+            return counter
+
+    def histogram(self, name: str, buckets=None) -> Histogram:
+        full = f"{self.prefix}_{name}" if self.prefix else name
+        with self._lock:
+            histogram = self._histograms.get(full)
+            if histogram is None:
+                histogram = Histogram(full, buckets)
+                self._histograms[full] = histogram
+            return histogram
+
+    def snapshot(self) -> Dict[str, int]:
+        with self._lock:
+            return {name: c.value() for name, c in self._counters.items()}
+
+    def histogram_snapshots(self) -> Dict[str, Dict[str, float]]:
+        with self._lock:
+            histograms = dict(self._histograms)
+        return {name: h.snapshot() for name, h in histograms.items()}
 
 
 _METRIC_NAME = re.compile(r"[^a-zA-Z0-9_:]")

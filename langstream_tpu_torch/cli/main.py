@@ -18,11 +18,23 @@ followers through the dispatch mirror (``serving/mirror.py``), which
 replay it (:func:`follow`). Across hosts, the leader runs ``serve --tp N
 --followers N-1`` and each other host ``serve --tp N --follower-of
 HOST:PORT`` with the same flags, every process joining the group from
-its StatefulSet identity (``runtime.multihost``)."""
+its StatefulSet identity (``runtime.multihost``).
+
+``python -m langstream_tpu_torch apps run <dir> --instance ...`` runs a
+LangStream application in this process, as ``langstream-tpu apps run``
+does (``langstream_tpu/cli/main.py``): the app is parsed and planned,
+every agent runs on the in-memory broker, its ``torch-local`` resources
+serve on the card (``--device cpu`` for the CPU), and its gateways listen
+on ``--gateway-port`` (0 picks a free one; the line ``gateway on
+ws://HOST:PORT/v1/...`` names it). SIGINT or SIGTERM drains the agents,
+stops the gateway and closes the engines. The JAX command's agent
+``/metrics`` port (``--http-port``) is not ported; the gateway's
+``/metrics`` serves the engine's series."""
 
 from __future__ import annotations
 
 import argparse
+import asyncio
 import json
 import logging
 import os
@@ -180,6 +192,15 @@ def build_parser() -> argparse.ArgumentParser:
         "--follower-of", default=None, metavar="HOST:PORT",
         help="run as a follower replaying the leader's dispatch stream",
     )
+    apps = sub.add_parser("apps", help="LangStream application commands")
+    apps_sub = apps.add_subparsers(dest="apps_command", required=True)
+    run = apps_sub.add_parser("run", help="run an application in this process, with its gateways")
+    run.add_argument("app_dir")
+    run.add_argument("-i", "--instance", default=None)
+    run.add_argument("-s", "--secrets", default=None)
+    run.add_argument("--gateway-port", type=int, default=8091)
+    run.add_argument("--tenant", default="default")
+    run.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     journey = sub.add_parser(
         "journey", help="join flight artifacts ($LANGSTREAM_FLIGHT_DIR) by trace id into "
                         "per-request waterfalls, per-stage p50/p95 and SLO blame")
@@ -430,9 +451,53 @@ def _serve_multihost(args: argparse.Namespace) -> Optional[Tuple[Any, Any]]:
     return service, server
 
 
+async def apps_run(args: argparse.Namespace) -> None:
+    """``apps run``: the app and its gateways until SIGINT or SIGTERM, or
+    until an agent runner fails (its error propagates)."""
+    import signal
+
+    from langstream_tpu_torch.gateway import GatewayServer
+    from langstream_tpu_torch.runtime.local import run_application
+
+    runner = await run_application(args.app_dir, instance_file=args.instance,
+                                   secrets_file=args.secrets, device=args.device)
+    gateway = None
+    try:
+        print(f"application {runner.application.application_id} running on {runner.device}:",
+              flush=True)
+        for node in runner.plan.agents:
+            print(f"  agent {node.id}: {node.input_topic or '(source)'} -> "
+                  f"{node.output_topic or '(sink)'}", flush=True)
+        if runner.application.gateways:
+            gateway = GatewayServer(port=args.gateway_port)
+            gateway.register_local_runner(runner, tenant=args.tenant)
+            await gateway.start()
+            print(f"gateway on ws://{gateway.host}:{gateway.port}/v1/...", flush=True)
+        loop = asyncio.get_running_loop()
+        stop = asyncio.Event()
+        for signum in (signal.SIGINT, signal.SIGTERM):
+            loop.add_signal_handler(signum, stop.set)
+        join = asyncio.ensure_future(runner.join())
+        stopped = asyncio.ensure_future(stop.wait())
+        await asyncio.wait([join, stopped], return_when=asyncio.FIRST_COMPLETED)
+        stopped.cancel()
+        if join.done():
+            join.result()
+        else:
+            join.cancel()
+    finally:
+        if gateway is not None:
+            await gateway.stop()
+        await runner.stop()
+        print("application stopped", flush=True)
+
+
 def main(argv: Optional[List[str]] = None) -> None:
     logging.basicConfig(level=logging.INFO)
     args = build_parser().parse_args(argv)
+    if args.command == "apps":
+        asyncio.run(apps_run(args))
+        return
     if args.command == "journey":
         for line in run_journey(args.paths, trace_id=args.trace_id, slo_ttft_ms=args.slo_ttft_ms,
                                 slo_tpot_ms=args.slo_tpot_ms, as_json=args.json,

@@ -290,6 +290,21 @@ def engines_histograms() -> Dict[str, Dict[str, float]]:
     return out
 
 
+def engines_dispatches() -> Dict[str, Dict[str, int]]:
+    """Host counters over every live engine of this process: the model
+    calls by function (``stats["model_dispatches"]``) and the CUDA graphs
+    captured by kind (``steps.stats``). The gateway's
+    ``/debug/launches`` serves them beside the kernels' card counters."""
+    calls: Dict[str, int] = {}
+    captured: Dict[str, int] = {}
+    for engine in stable_list(_LIVE_ENGINES):
+        for function, count in stable_items(engine.stats["model_dispatches"]):
+            calls[function] = calls.get(function, 0) + count
+        for kind, counts in stable_items(engine.steps.stats["kinds"]):
+            captured[kind] = captured.get(kind, 0) + counts.get("captured", 0)
+    return {"model_calls": calls, "graphs_captured": captured}
+
+
 def engines_snapshot() -> Dict[str, float]:
     """Prometheus gauges over every live engine of this process, as the
     JAX ``engines_snapshot`` gives them: the recovery, shedding and

@@ -233,7 +233,9 @@ class LlamaConfig:
     @classmethod
     def from_dict(cls, config: Dict[str, Any]) -> "LlamaConfig":
         known = {f.name for f in dataclasses.fields(cls)}
-        clean = {k.replace("-", "_"): v for k, v in config.items()}
+        # an empty value (an app's placeholder with an empty default, as
+        # `num_layers: "${globals.num-layers:-}"`) leaves the field unset
+        clean = {k.replace("-", "_"): v for k, v in config.items() if v != ""}
         if isinstance(clean.get("dtype"), str):
             # checkpoints and configs spell the dtype by name ("bfloat16")
             clean["dtype"] = getattr(torch, clean["dtype"])

@@ -45,6 +45,9 @@ logger = logging.getLogger(__name__)
 # a body ``trace_id``), the server mints an id without one and echoes it,
 # and the engine tags the request's spans and journey with it
 HTTP_TRACE_HEADER = "x-langstream-trace-id"
+# the record header that carries a trace id from the gateway through every
+# topic hop and agent into the engine (the JAX package's TRACE_ID_HEADER)
+TRACE_ID_HEADER = "langstream-trace-id"
 
 
 def new_trace_id() -> str:
