@@ -208,8 +208,8 @@ Phases (any failure propagates and the exit code is not 0):
    every engine of the phase, paged, buckets 128-2048, ``max_seq_len``
    4096, eager dispatch, pipelined. The handoff over bf16 and then int8
    pools (:func:`check_handoff`): a prefill engine A and a decode engine
-   B (``kv_blocks`` 1025 each); four prompts of 1500-2048 tokens, greedy
-   and seeded in turn; A answers each whole (the oracle), then exports a
+   B (``kv_blocks`` 1025 each); two prompts, 2048 tokens greedy and 1500
+   seeded (two more cut for the smoke's time when phase 18 came); A answers each whole (the oracle), then exports a
    2-token leg, which crosses ``fleet.handoff.handoff_records`` (256 KiB
    budget) and the ``HandoffAssembler`` to B's ``kv_import`` replay.
    Gates: B's stream A's (a first divergence only at a near-tie, within
@@ -223,8 +223,9 @@ Phases (any failure propagates and the exit code is not 0):
    assemble s, the decode leg's TTFT with the import and cold. Then the
    host tier over int8 and then bf16 pools (:func:`check_host_tier`):
    ``kv_blocks`` 600, ``kv_host_blocks`` 1024 against a never-evicting
-   oracle; a 2048-token prompt, six 2048-token strangers, the prompt and
-   128 tokens more, greedy then seeded. Gates: streams equal, the
+   oracle; a 2048-token prompt, six 2048-token strangers (one new token
+   each; the oracle, which they cannot change, skips them), the prompt
+   and 128 tokens more, greedy then seeded. Gates: streams equal, the
    promoted rows the oracle's bit for bit, demotions and promotions, no
    abort; with ``host_promote_torn@step=1`` the streams still the
    oracle's and an abort counted. Printed: pinned host bytes, the
@@ -328,6 +329,19 @@ Phases (any failure propagates and the exit code is not 0):
    own WebSocket client asking two questions each under their own
    session. Gates and prints: :func:`serve_app_and_check`. The app's log
    goes to ``build/app/``.
+18. The RAG app (no kernel of its own: B3 through the app's paged
+   engine; the encoder and the vector search are plain PyTorch, as the
+   JAX package's are plain ``jnp``): ``apps run`` on the shipped
+   ``torch-rag`` app as a subprocess with ``--http-port`` (Llama-3-8B at
+   full width, ``APP_LAYERS`` of 32 layers, random bf16 weights, paged
+   KV in blocks of 16, 4 slots × 4096, prefill buckets up to 1024,
+   decode chunk 8, ``precompile``; the ``minilm-l6`` encoder with random
+   weights, byte tokenizer, max length 256; chunks of at most 400
+   characters): ``RAG_DOCS`` seeded documents of 2–6 KB through the
+   ``ingest`` gateway, then eight clients on the port's WebSocket client
+   asking two questions each through ``ask`` and reading ``answers``
+   under their own session. Gates and prints: :func:`serve_rag_and_check`.
+   The app's log goes to ``build/app-rag/``.
 
 Each phase's wall time is printed in one line before the kernels'.
 
@@ -370,6 +384,7 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import glob
 import http.server
 import io
 import json
@@ -3762,8 +3777,9 @@ def _kv_kernel_gate(eng, calls_before, entries_before, counts, kv_quant: bool) -
 
 def check_handoff(label: str, config, params, kv_quant: bool) -> dict:
     """The KV handoff at Llama-3-8B width: engine A the prefill leg, B the
-    decode leg (``kv_blocks`` 1025 each). Four prompts of 1500-2048 tokens
-    (seed 12), greedy and seeded in turn: A answers each whole (the
+    decode leg (``kv_blocks`` 1025 each). Two prompts (seed 12), 2048
+    tokens greedy and 1500 seeded (two more of 1501-2047 tokens were cut
+    for the smoke's time when phase 18 came): A answers each whole (the
     oracle, 12 tokens), then a 2-token leg with ``export_handoff``; its
     payload goes through ``fleet.handoff.handoff_records`` (256 KiB
     chunks) and the ``HandoffAssembler`` to B, which replays the manifest
@@ -3824,7 +3840,10 @@ def check_handoff(label: str, config, params, kv_quant: bool) -> dict:
     warm_handoffs = len(DISAGG_SAMPLINGS)
     a._export_handoff, b._import_handoff = timed_export, timed_import
     rng = np.random.default_rng(12)
-    lengths = [2048, 1500, *(int(n) for n in rng.integers(1501, 2048, size=2))]
+    lengths = [2048, 1500]
+    # the lengths of two more prompts, cut for the smoke's time when phase
+    # 18 came: still drawn, so that these two prompts' tokens stay as they were
+    rng.integers(1501, 2048, size=2)
     prompts = [[int(t) for t in rng.integers(1, config.vocab_size, size=n)] for n in lengths]
     kind = "int8 KV" if kv_quant else "bf16 KV"
     pool = "int8" if kv_quant else "bf16"
@@ -3958,10 +3977,11 @@ def check_handoff(label: str, config, params, kv_quant: bool) -> dict:
 def _tier_scenario(eng, prompt1, prompt2, thrash, sampling, trace_id=None):
     """Prompt 1, the thrash prompts, prompt 2 (prompt 1 and 128 tokens
     more, with ``trace_id``); returns prompt 1's and 2's results, and
-    prompt 2's TTFT."""
+    prompt 2's TTFT. A thrash prompt only fills the pool: it is answered
+    with one token, from its prefill, and its answer is not read."""
     first, _ = _generate(eng, prompt1, sampling)
     for prompt in thrash:
-        _generate(eng, prompt, sampling)
+        _generate(eng, prompt, dict(sampling, max_new_tokens=1))
     second, ttft = _generate(eng, prompt2, sampling, trace_id=trace_id)
     return [first, second], ttft
 
@@ -3971,9 +3991,11 @@ def check_host_tier(label: str, config, params, kv_quant: bool) -> dict:
     scenario, scaled): an engine with ``kv_blocks`` 600 and
     ``kv_host_blocks`` 1024, and an oracle with the default pool (8 slots
     x 256 blocks + 1), which never evicts. Prompt 1 is 2048 tokens, six
-    thrash prompts of 2048 tokens demote its chain, and prompt 2, prompt 1
-    and 128 tokens more, promotes it; greedy then seeded, 8 new tokens,
-    on the same engine pair. Gates: the streams the oracle's, token for
+    thrash prompts of 2048 tokens (one new token each) demote its chain,
+    and prompt 2, prompt 1 and 128 tokens more, promotes it; greedy then
+    seeded, 8 new tokens, on the same engine pair. The oracle answers
+    prompts 1 and 2 alone: it never evicts, so the thrash prompts change
+    nothing it computes (cut for the smoke's time when phase 18 came). Gates: the streams the oracle's, token for
     token (the promoted rows are the demoted ones, and both engines
     prefill the same suffix at the same offset); the tiered engine's pool
     rows of prompt 2's chain equal to the oracle's bit for bit;
@@ -4022,7 +4044,7 @@ def check_host_tier(label: str, config, params, kv_quant: bool) -> dict:
         for n, sampling in enumerate(samplings):
             promoted.append(f"host-tier-{'int8' if kv_quant else 'bf16'}-{n}")
             got, ttft = _tier_scenario(tiered, prompt1, prompt2, thrash, sampling, promoted[-1])
-            want, hbm_ttft = _tier_scenario(oracle, prompt1, prompt2, thrash, sampling)
+            want, hbm_ttft = _tier_scenario(oracle, prompt1, prompt2, (), sampling)
             assert [r.tokens for r in got] == [r.tokens for r in want], (n, got, want)
             ttfts.append((ttft, hbm_ttft))
             if n == 0:
@@ -5588,28 +5610,42 @@ async def _history(base: str, session: str, count: int) -> list:
         await ws.close()
 
 
-def _parting_is_a_near_tie(tokenizer, answer: str, direct, label: str) -> bool:
-    """True when the served ``answer`` equals the text of the direct run
-    (a ``GenerationResult`` with top-K logprobs); False when they part
-    where the direct run had a near-tie (its top two logprobs within
-    :data:`APP_NEAR_TIE`). The answers are text, and a byte token of a
-    multibyte character shows as nothing until the character completes,
-    so the parting token lies within a few tokens after the longest
-    prefix of whole characters they share. Raises on any other
-    difference."""
-    if answer == tokenizer.decode(direct.tokens):
+def _app_env(logs: str) -> dict:
+    """The environment of an ``apps run`` subprocess: the flight recorder
+    on, into ``<logs>/flight`` (emptied first), so that
+    :func:`_served_tokens` reads each answer's token ids."""
+    directory = os.path.join(logs, "flight")
+    shutil.rmtree(directory, ignore_errors=True)
+    return dict(os.environ, **{flight.ENV_VAR: directory})
+
+
+def _served_tokens(logs: str) -> dict:
+    """The token ids of every request the app process's engine answered,
+    by trace id, from the ``request`` records of its flight artifact
+    (flushed when the engine stops)."""
+    out = {}
+    for path in glob.glob(os.path.join(logs, "flight", "*.jsonl")):
+        for entry in flight.read_artifact(path):
+            if entry["kind"] == "request" and entry.get("trace_id"):
+                assert entry["trace_id"] not in out, entry
+                out[entry["trace_id"]] = entry["token_ids"]
+    return out
+
+
+def _tokens_part_at_a_near_tie(served: list, direct, label: str) -> bool:
+    """True when the ``served`` token ids are those of the direct run (a
+    ``GenerationResult`` with top-K logprobs); False when they part at a
+    token where the direct run had a near-tie (its top two logprobs within
+    :data:`APP_NEAR_TIE`). Raises on any other difference. The ids are
+    compared, not the answers' text: at Llama-3-8B's vocabulary the byte
+    tokenizer decodes almost every id to no text at all."""
+    if list(served) == list(direct.tokens):
         return True
-    shared, text = 0, ""
-    walker = tokenizer.stream_decoder()
-    for k, token in enumerate(direct.tokens):
-        text += walker.push(token)
-        if not answer.startswith(text):
-            break
-        shared = k + 1
-    window = range(max(0, shared - 3), min(len(direct.top_logprobs), shared + 4))
-    gaps = [float(direct.top_logprobs[j][1][0] - direct.top_logprobs[j][1][1]) for j in window]
-    assert gaps and min(gaps) <= APP_NEAR_TIE, (label, shared, gaps, answer,
-                                                tokenizer.decode(direct.tokens))
+    part = next((k for k, (a, b) in enumerate(zip(served, direct.tokens)) if a != b),
+                min(len(served), len(direct.tokens)))
+    assert part < len(direct.top_logprobs), (label, part, served, direct.tokens)
+    gap = float(direct.top_logprobs[part][1][0] - direct.top_logprobs[part][1][1])
+    assert gap <= APP_NEAR_TIE, (label, part, gap, served, direct.tokens)
     return False
 
 
@@ -5638,10 +5674,12 @@ def serve_app_and_check(label: str) -> dict:
     the app (exit 0). Then the port's ``TorchCompletionsService`` over
     the same resolved configuration, in this process, answers the same
     rendered messages under the same sessions (each client's two in
-    turn, the clients at once), with top-5 logprobs: each served answer
-    equals its answer but for a near-tie (:func:`_parting_is_a_near_tie`).
-    Printed with no claim: the phase's wall, the output tok/s and mean
-    TTFT the clients saw, the direct run's."""
+    turn, the clients at once), with top-5 logprobs: each served answer's
+    token ids (the app's flight ``request`` record under the answer's
+    trace id, :func:`_served_tokens`) equal its ids but for a near-tie
+    (:func:`_tokens_part_at_a_near_tie`). Printed with no claim: the
+    phase's wall, the output tok/s and mean TTFT the clients saw, the
+    direct run's, and how many answers have any text."""
     from langstream_tpu_torch.compiler import build_application
     from langstream_tpu_torch.providers.torch_local.provider import TorchCompletionsService
 
@@ -5655,7 +5693,7 @@ def serve_app_and_check(label: str) -> dict:
     proc = subprocess.Popen(
         [sys.executable, "-m", "langstream_tpu_torch", "apps", "run", APP_DIR,
          "--instance", instance, "--gateway-port", "0"],
-        stdout=subprocess.PIPE, stderr=log_file, text=True)
+        stdout=subprocess.PIPE, stderr=log_file, text=True, env=_app_env(APP_LOGS))
     lines, base = [], None
     try:
         deadline = time.perf_counter() + 300
@@ -5710,9 +5748,12 @@ def serve_app_and_check(label: str) -> dict:
             assert "".join(f["value"] for f in frames) == record["value"]["answer"], session
             assert record["headers"]["langstream-client-session-id"] == session
             prompt = json.loads(record["value"]["prompt"])
-            messages[(session, answer["question"])] = (prompt["messages"], record["value"]["answer"])
+            messages[(session, answer["question"])] = (prompt["messages"],
+                                                       record["headers"]["langstream-trace-id"])
             answered += 1
     assert answered == APP_CLIENTS * 2, answered
+    served_tokens = _served_tokens(APP_LOGS)
+    assert len(served_tokens) == answered, sorted(served_tokens)
     # the engine's counters on the gateway's /metrics
     requests = metrics["torch_engine_requests"] - metrics_before.get("torch_engine_requests", 0)
     tokens = (metrics["torch_engine_tokens_generated"]
@@ -5742,12 +5783,12 @@ def serve_app_and_check(label: str) -> dict:
             async def one_client(client):
                 out = []
                 for answer in client["answers"]:
-                    rendered, served_answer = messages[(client["session"], answer["question"])]
+                    rendered, trace_id = messages[(client["session"], answer["question"])]
                     prompt = tokenizer.apply_chat_template(rendered)
                     result = await service.engine.generate(
                         prompt, engine_lib.SamplingParams(max_new_tokens=APP_MAX_TOKENS),
                         stop_tokens=set(tokenizer.eos_ids), session_id=client["session"])
-                    out.append((served_answer, result))
+                    out.append((served_tokens[trace_id], result))
                 return out
 
             t0 = time.perf_counter()
@@ -5757,8 +5798,9 @@ def serve_app_and_check(label: str) -> dict:
         runs, direct_wall = asyncio.run(direct())
     finally:
         service.close()
-    equal = sum(_parting_is_a_near_tie(tokenizer, served_answer, result, label)
-                for run in runs for served_answer, result in run)
+    equal = sum(_tokens_part_at_a_near_tie(served, result, label)
+                for run in runs for served, result in run)
+    texts = sum(bool(record["value"]["answer"]) for history in histories for record in history)
     direct_tokens = sum(len(result.tokens) for run in runs for _, result in run)
     ttfts = [a["ttft_s"] for client in clients for a in client["answers"]]
     wall_s = time.perf_counter() - started
@@ -5768,13 +5810,377 @@ def serve_app_and_check(label: str) -> dict:
         f"{tokens:.0f} tokens, {tokens / wall:.1f} tok/s and mean TTFT "
         f"{1e3 * sum(ttfts) / len(ttfts):.1f} ms as the clients saw them; the direct service "
         f"{direct_tokens} tokens in {direct_wall:.2f} s ({direct_tokens / direct_wall:.1f} tok/s); "
-        f"{equal} of {answered} answers equal to the direct service's, {answered - equal} parted at "
-        f"near-ties (within {APP_NEAR_TIE}); launches on the card B1 {delta['flash_prefill']}, B2 "
+        f"{equal} of {answered} answers' token ids equal to the direct service's, "
+        f"{answered - equal} parted at near-ties (within {APP_NEAR_TIE}), {texts} of {answered} "
+        f"answers with any text; launches on the card B1 {delta['flash_prefill']}, B2 "
         f"{delta['flash_decode']} for {calls.get('prefill', 0)} prefill calls and "
         f"{calls.get('decode_step', 0)} decode steps (model calls {calls}), no graph captured; "
         f"served part {served:.1f} s, direct part {time.perf_counter() - direct_started:.1f} s, "
         f"phase {wall_s:.1f} s")
     return {"tok_s": tokens / wall, "wall_s": wall_s}
+
+
+# ---------------------------------------------------------------------- #
+# 18. the RAG app: `apps run` on the shipped torch-rag app
+# ---------------------------------------------------------------------- #
+RAG_DIR = os.path.join("langstream_tpu_torch", "examples", "applications", "torch-rag")
+RAG_LOGS = os.path.join("build", "app-rag")
+RAG_DOCS = 128
+RAG_CLIENTS = 8
+RAG_TOP_K = 4
+RAG_CHUNK, RAG_OVERLAP = 400, 50  # the app's text-splitter, in characters here
+RAG_INSTANCE = f"""\
+instance:
+  streamingCluster:
+    type: memory
+  computeCluster:
+    type: local
+  globals:
+    model: "llama-3-8b"
+    num-layers: {APP_LAYERS}
+    max-slots: 4
+    max-seq-len: 4096
+    max-tokens: {APP_MAX_TOKENS}
+    decode-chunk: 8
+    precompile: true
+    kv-layout: paged
+    kv-block-size: 16
+    prefill-buckets: "64,128,256,512,1024"
+    embeddings-model: minilm-l6
+    embeddings-max-length: 256
+    embedding-dimensions: 384
+    chunk-length-function: length
+"""
+
+
+def rag_documents() -> list:
+    """``RAG_DOCS`` documents of 2–6 KB: one to three paragraphs of
+    sentences of seeded :data:`WORDS`, each paragraph longer than a
+    chunk, so that most chunks come near :data:`RAG_CHUNK` characters."""
+    rng = np.random.default_rng(1800)
+    docs = []
+    for _ in range(RAG_DOCS):
+        size, count = int(rng.integers(2048, 6144)), int(rng.integers(1, 4))
+        paragraphs = []
+        for _ in range(count):
+            paragraph = ""
+            while len(paragraph) < size // count:
+                paragraph += " ".join(rng.choice(WORDS, size=int(rng.integers(4, 14)))).capitalize()
+                paragraph += ". "
+            paragraphs.append(paragraph.strip())
+        docs.append("\n\n".join(paragraphs))
+    return docs
+
+
+def _rag_questions(chunks, client: int) -> list:
+    """Two questions of ``client``, each drawn from the words of a seeded
+    chunk: a run of 40 of them, as long as most chunks' first 256 bytes
+    (the random encoder pools its tokens' states, so a short question
+    sits nearest the short chunks, and the prompts stay short)."""
+    rng = np.random.default_rng(1900 + client)
+    out = []
+    for turn in range(2):
+        words = chunks[int(rng.integers(len(chunks)))].replace(".", "").lower().split()
+        start = int(rng.integers(0, max(1, len(words) - 40)))
+        out.append(f"question {turn} of client {client}: what about "
+                   + " ".join(words[start:start + 40]) + "?")
+    return out
+
+
+async def _rag_client(base: str, client: int, questions) -> dict:
+    """One client: its session's ``answers`` consumer, then its questions
+    through ``ask`` one after another, each answer awaited."""
+    from langstream_tpu_torch.gateway import websocket
+
+    session = f"rag-client-{client}"
+    consume = await websocket.connect(f"{base}/v1/consume/default/torch-rag/answers"
+                                      f"?param:sessionId={session}&option:position=earliest")
+    produce = await websocket.connect(f"{base}/v1/produce/default/torch-rag/ask"
+                                      f"?param:sessionId={session}")
+    answers = []
+    try:
+        for question in questions:
+            sent = time.perf_counter()
+            await produce.send_json({"value": question})
+            ack = await asyncio.wait_for(produce.receive(), 60)
+            assert ack.json()["status"] == "OK", ack.json()
+            message = await asyncio.wait_for(consume.receive(), 300)
+            assert message.type == "text", (session, message)
+            answers.append({"question": question, "record": message.json()["record"],
+                            "latency_s": time.perf_counter() - sent})
+    finally:
+        await produce.close()
+        await consume.close()
+    return {"session": session, "answers": answers}
+
+
+def _post_json(url: str, body) -> dict:
+    request = urllib.request.Request(url, data=json.dumps(body).encode(), method="POST",
+                                     headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(request, timeout=60) as response:
+        return json.loads(response.read().decode())
+
+
+def _direct_scores(store, vector) -> Tuple[dict, list]:
+    """Every stored chunk's score against ``vector`` in the direct store,
+    by text, and its top :data:`RAG_TOP_K` texts."""
+    query = np.asarray(vector, dtype=np.float32)
+    query = query / (float(np.linalg.norm(query)) or 1.0)
+    matrix = store._matrix[: len(store)]
+    scores = (torch.from_numpy(matrix).cuda() @ torch.from_numpy(query).cuda()).cpu().numpy()
+    texts = [store._meta[doc_id]["text"] for doc_id in store._ids]
+    by_text = {text: float(score) for text, score in zip(texts, scores)}
+    top = [hit["text"] for hit in store.search(vector, RAG_TOP_K)]
+    return by_text, top
+
+
+def serve_rag_and_check(label: str) -> dict:
+    """Phase 18: ``python -m langstream_tpu_torch apps run`` on the
+    shipped ``torch-rag`` app as a subprocess with ``--http-port`` (its
+    log in ``build/app-rag/``), at :data:`RAG_INSTANCE`.
+
+    Ingest: :func:`rag_documents` through the ``ingest`` gateway's HTTP
+    produce, one by one; the phase waits until the ingest node's
+    ``records_out`` on ``--http-port``'s ``/metrics`` (the records its
+    ``index-chunk`` sink wrote) equals the chunk count of the port's own
+    splitter over the same documents. Query: :data:`RAG_CLIENTS` clients,
+    all at once, each asking two questions (:func:`_rag_questions`) under
+    its own ``sessionId``. Gates: 16 answers, each to its own session,
+    each with a ``context`` of :data:`RAG_TOP_K` rows whose similarities
+    descend; the app's card counters over the burst (``/debug/launches``):
+    B3 once per layer per model call, its prefill-shape launches once per
+    layer per prefill call (cold and at an offset) and the rest once per
+    layer per decode step, no other kernel, no CUDA graph captured. SIGTERM
+    stops the app (exit 0). Then, in this process: a direct
+    ``TorchEmbeddingsService`` of the same preset and seed embeds the
+    same chunks into a direct store on the card; each answer's
+    ``question_embeddings`` is within :data:`EMBED_TOLERANCE` of the
+    direct service's vector for its question, and its ``context`` equals
+    the direct store's top-4 for that vector (a swap allowed, and
+    counted, where the two rows' direct scores are within
+    :data:`SEARCH_TOLERANCE`; each similarity within
+    :data:`EMBED_TOLERANCE` of its direct score). A direct
+    ``TorchCompletionsService`` over the same resolved configuration
+    answers the prompt the app's step renders from each answer's
+    ``context`` and question (each client's two in turn under its
+    session, the clients at once), with top-5 logprobs: each served
+    answer's token ids (:func:`_served_tokens`, by the answer's trace id;
+    its text their decoding) equal the direct run's but for a near-tie
+    (:func:`_tokens_part_at_a_near_tie`).
+    Printed with no claim: start-up, ingest seconds, chunks/s and the
+    encoder's calls, the burst's tok/s, the answers' mean latency at the
+    clients and the engine's mean TTFT, the direct service's tok/s, B3's
+    launches by shape, the phase's wall."""
+    from langstream_tpu_torch.agents.el import render_template
+    from langstream_tpu_torch.agents.text import RecursiveCharacterTextSplitter
+    from langstream_tpu_torch.agents.transform import TransformContext
+    from langstream_tpu_torch.agents.vectorstore import VectorStore
+    from langstream_tpu_torch.api.records import Record
+    from langstream_tpu_torch.compiler import build_application, build_execution_plan
+    from langstream_tpu_torch.providers.torch_local.provider import (
+        TorchCompletionsService,
+        TorchEmbeddingsService,
+    )
+
+    started = time.perf_counter()
+    documents = rag_documents()
+    splitter = RecursiveCharacterTextSplitter(chunk_size=RAG_CHUNK, chunk_overlap=RAG_OVERLAP,
+                                              length_function=len)
+    chunks = [chunk for doc in documents for chunk in splitter.split_text(doc)]
+    assert max(len(chunk) for chunk in chunks) <= RAG_CHUNK, max(map(len, chunks))
+    os.makedirs(RAG_LOGS, exist_ok=True)
+    instance = os.path.join(RAG_LOGS, "instance.yaml")
+    with open(instance, "w") as fh:
+        fh.write(RAG_INSTANCE)
+    log_path = os.path.join(RAG_LOGS, "apps_run.log")
+    log_file = open(log_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "langstream_tpu_torch", "apps", "run", RAG_DIR,
+         "--instance", instance, "--gateway-port", "0", "--http-port", "0"],
+        stdout=subprocess.PIPE, stderr=log_file, text=True, env=_app_env(RAG_LOGS))
+    lines, base, metrics_url = [], None, None
+    ingest_metric = "agent_split_document_records_out_total"
+    try:
+        deadline = time.perf_counter() + 300
+        while base is None:
+            line = proc.stdout.readline()
+            assert line and time.perf_counter() < deadline, (
+                f"apps run exited before its gateway listened (see {log_path})", proc.poll(), lines)
+            lines.append(line.rstrip())
+            found = re.match(r"metrics on (http://\S+)/metrics", line)
+            metrics_url = found.group(1) if found else metrics_url
+            found = re.match(r"gateway on (ws://[^/]+)/v1/", line)
+            if found:
+                base = found.group(1)
+        assert metrics_url is not None, lines
+        up_s = time.perf_counter() - started
+        http_base = base.replace("ws://", "http://")
+        # ingest: every document through the gateway, then the sink's count
+        t0 = time.perf_counter()
+        for document in documents:
+            reply = _post_json(f"{http_base}/api/gateways/produce/default/torch-rag/ingest",
+                               {"value": document})
+            assert reply["status"] == "OK", reply
+        written, deadline = 0.0, time.perf_counter() + 300
+        while written < len(chunks):
+            assert time.perf_counter() < deadline and proc.poll() is None, (written, len(chunks))
+            time.sleep(0.05)
+            agent_metrics = scrape_url(f"{metrics_url}/metrics")
+            written = agent_metrics.get(ingest_metric, 0.0)
+        ingest_s = time.perf_counter() - t0
+        assert written == len(chunks), (written, len(chunks))
+        encoder_calls = agent_metrics["agent_split_document_embeddings_calls_total"]
+        assert agent_metrics["agent_split_document_embeddings_texts_total"] == len(chunks)
+        # the query burst
+        before = _get_json(f"{http_base}/debug/launches")
+        metrics_before = scrape_url(f"{metrics_url}/metrics")
+
+        async def burst():
+            t1 = time.perf_counter()
+            clients = await asyncio.gather(*[
+                _rag_client(base, c, _rag_questions(chunks, c)) for c in range(RAG_CLIENTS)])
+            return clients, time.perf_counter() - t1
+
+        clients, wall = asyncio.run(burst())
+        after = _get_json(f"{http_base}/debug/launches")
+        metrics = scrape_url(f"{metrics_url}/metrics")
+    finally:
+        proc.terminate()
+        try:
+            stdout, _ = proc.communicate(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            stdout, _ = proc.communicate()
+        log_file.close()
+    lines += stdout.splitlines()
+    assert proc.returncode == 0 and "application stopped" in lines, (proc.returncode, lines[-5:])
+    answers = [(client["session"], answer) for client in clients for answer in client["answers"]]
+    assert len(answers) == RAG_CLIENTS * 2, len(answers)
+    served_tokens = _served_tokens(RAG_LOGS)
+    assert len(served_tokens) == len(answers), sorted(served_tokens)
+    for session, answer in answers:
+        record = answer["record"]
+        assert record["headers"]["langstream-client-session-id"] == session, record["headers"]
+        value = record["value"]
+        # random weights over the byte tokenizer: most of the vocabulary
+        # decodes to no text, so an answer may be empty; its token ids are
+        # what the direct run is held to below
+        assert value["question"] == answer["question"] and isinstance(value["answer"], str), value
+        answer["token_ids"] = served_tokens[record["headers"]["langstream-trace-id"]]
+        similarities = [row["similarity"] for row in value["context"]]
+        assert len(similarities) == RAG_TOP_K and similarities == sorted(similarities, reverse=True)
+    # the engine's counters on the agent's /metrics
+    requests = metrics["torch_engine_requests"] - metrics_before.get("torch_engine_requests", 0)
+    tokens = (metrics["torch_engine_tokens_generated"]
+              - metrics_before.get("torch_engine_tokens_generated", 0))
+    assert requests == len(answers) and tokens > 0, (requests, tokens)
+    ttft = "torch_engine_ttft_seconds"
+    ttft_ms = 1e3 * ((metrics[f"{ttft}_sum"] - metrics_before.get(f"{ttft}_sum", 0.0))
+                     / (metrics[f"{ttft}_count"] - metrics_before.get(f"{ttft}_count", 0.0)))
+    # B3 through the app, by its card counters
+    delta = {name: after["launches"][name] - before["launches"][name] for name in after["launches"]}
+    calls = {name: after["model_calls"].get(name, 0) - before["model_calls"].get(name, 0)
+             for name in after["model_calls"]}
+    captured = {kind: n - before["graphs_captured"].get(kind, 0)
+                for kind, n in after["graphs_captured"].items()}
+    prefills = calls.get("paged_prefill", 0) + calls.get("paged_prefill_at_offset", 0)
+    expect = {"paged_attention": APP_LAYERS * sum(calls.values()),
+              "paged_attention/prefill": APP_LAYERS * prefills}
+    assert delta == {name: expect.get(name, 0) for name in delta}, (delta, calls)
+    decode = delta["paged_attention"] - delta["paged_attention/prefill"]
+    assert decode == APP_LAYERS * calls.get("paged_decode_step", 0), (delta, calls)
+    assert calls.get("paged_prefill_at_offset", 0) > 0 and decode > 0, calls
+    assert not any(captured.values()), captured
+    served = time.perf_counter() - started
+    # the direct encoder and store
+    application = build_application(RAG_DIR, instance_file=instance)
+    config = json.loads(json.dumps(application.resources["gpu-llm"]["configuration"]))
+    direct_started = time.perf_counter()
+    encoder = TorchEmbeddingsService(config, device="cuda")
+    # in the app's batches of up to 16 (its embed-chunk's batch-size)
+    chunk_vectors = [vector for i in range(0, len(chunks), 16)
+                     for vector in encoder.embedder.embed(chunks[i:i + 16])]
+    question_vectors = encoder.embedder.embed([answer["question"] for _, answer in answers])
+    encoder.close()
+    store = VectorStore(len(chunk_vectors[0]), device="cuda")
+    for i, (chunk, vector) in enumerate(zip(chunks, chunk_vectors)):
+        store.upsert(f"chunk-{i}", vector, {"text": chunk})
+    swaps = 0
+    for (session, answer), direct_q in zip(answers, question_vectors):
+        value = answer["record"]["value"]
+        served_q = np.asarray(value["question_embeddings"], dtype=np.float32)
+        assert float(np.abs(served_q - np.asarray(direct_q)).max()) <= EMBED_TOLERANCE, session
+        scores, top = _direct_scores(store, value["question_embeddings"])
+        context = [row["text"] for row in value["context"]]
+        for position, (mine, theirs) in enumerate(zip(context, top)):
+            if mine != theirs:
+                assert abs(scores[mine] - scores[theirs]) <= SEARCH_TOLERANCE, (
+                    label, session, position, scores[mine], scores[theirs])
+                swaps += 1
+        for row in value["context"]:
+            assert abs(row["similarity"] - scores[row["text"]]) <= EMBED_TOLERANCE, (
+                session, row["similarity"], scores[row["text"]])
+    # the direct completions over the prompts the app's step rendered
+    plan = build_execution_plan(application)
+    steps = [step for node in plan.agents for spec in node.processors
+             for step in spec.configuration.get("steps", [])
+             if step.get("type") == "ai-chat-completions"]
+    (template,) = [message["content"] for message in steps[0]["messages"]]
+    config["engine"]["logprobs-top-k"] = 5
+    service = TorchCompletionsService(config, device="cuda")
+    tokenizer = service.tokenizer
+    try:
+        async def direct():
+            async def one_client(client):
+                out = []
+                for answer in client["answers"]:
+                    value = dict(answer["record"]["value"])
+                    served_answer = value.pop("answer")
+                    assert served_answer == tokenizer.decode(answer["token_ids"]), value
+                    ctx = TransformContext(Record(value=value))
+                    rendered = render_template(template, ctx.el_context())
+                    prompt = tokenizer.apply_chat_template([{"role": "user", "content": rendered}])
+                    result = await service.engine.generate(
+                        prompt, engine_lib.SamplingParams(max_new_tokens=APP_MAX_TOKENS),
+                        stop_tokens=set(tokenizer.eos_ids), session_id=client["session"])
+                    out.append((answer["token_ids"], result, len(prompt)))
+                return out
+
+            t2 = time.perf_counter()
+            runs = await asyncio.gather(*[one_client(client) for client in clients])
+            return runs, time.perf_counter() - t2
+
+        runs, direct_wall = asyncio.run(direct())
+    finally:
+        service.close()
+    equal = sum(_tokens_part_at_a_near_tie(served, result, label)
+                for run in runs for served, result, _ in run)
+    texts = sum(bool(answer["record"]["value"]["answer"]) for _, answer in answers)
+    direct_tokens = sum(len(result.tokens) for run in runs for _, result, _ in run)
+    prompt_tokens = [n for run in runs for _, _, n in run]
+    latency = [answer["latency_s"] for _, answer in answers]
+    wall_s = time.perf_counter() - started
+    log(f"phase 18 (RAG app) [{label}]: `apps run` torch-rag, Llama-3-8B at {APP_LAYERS} of 32 "
+        f"layers (random bf16 weights), paged KV (blocks of 16), 4 slots x 4096, MiniLM-L6 encoder "
+        f"(random, byte tokenizer, max length 256): up in {up_s:.1f} s; ingest {len(documents)} "
+        f"documents ({sum(map(len, documents)) / 1e6:.2f} MB) -> {len(chunks)} chunks in "
+        f"{ingest_s:.2f} s ({len(chunks) / ingest_s:.1f} chunks/s, {encoder_calls:.0f} encoder "
+        f"calls); {RAG_CLIENTS} clients x 2 questions (prompts {min(prompt_tokens)}-"
+        f"{max(prompt_tokens)} tokens): {len(answers)} answers in {wall:.2f} s, {tokens:.0f} "
+        f"tokens, {tokens / wall:.1f} tok/s, mean answer latency at the clients "
+        f"{1e3 * sum(latency) / len(latency):.1f} ms, engine mean TTFT {ttft_ms:.1f} ms; the "
+        f"direct service {direct_tokens} tokens in {direct_wall:.2f} s "
+        f"({direct_tokens / direct_wall:.1f} tok/s); contexts equal to the direct store's top-"
+        f"{RAG_TOP_K} with {swaps} near-tie swaps (within {SEARCH_TOLERANCE}); {equal} of "
+        f"{len(answers)} answers' token ids equal to the direct service's, "
+        f"{len(answers) - equal} parted at near-ties (within {APP_NEAR_TIE}), {texts} of "
+        f"{len(answers)} answers with any text; B3 launches on the card {delta['paged_attention']}: "
+        f"prefill shape {delta['paged_attention/prefill']} for {prefills} prefill calls "
+        f"({calls.get('paged_prefill_at_offset', 0)} at an offset), decode shape {decode} for "
+        f"{calls.get('paged_decode_step', 0)} decode steps (model calls {calls}), no graph "
+        f"captured; served part {served:.1f} s, direct part "
+        f"{time.perf_counter() - direct_started:.1f} s, phase {wall_s:.1f} s")
+    return {"tok_s": tokens / wall, "wall_s": wall_s, "launches": delta}
 
 
 def main() -> None:
@@ -5975,6 +6381,13 @@ def main() -> None:
     started = time.perf_counter()
     serve_app_and_check(label)
     walls.append(("LangStream app", time.perf_counter() - started))
+    # the RAG app: `apps run` with --http-port, ingest through its gateway,
+    # clients asking through it (B3 by the app's card counters)
+    gc.collect()
+    torch.cuda.empty_cache()
+    started = time.perf_counter()
+    serve_rag_and_check(label)
+    walls.append(("RAG app", time.perf_counter() - started))
     log("phase wall times, longest first: " + ", ".join(
         f"{name} {seconds:.1f}s" for name, seconds in sorted(walls, key=lambda item: -item[1]))
         + f"; {sum(seconds for _, seconds in walls):.1f}s in all")

@@ -19,12 +19,14 @@ copy the source context, set ``stream-id`` / ``stream-index`` /
 ``OpenAICompletionService.java:126,290-300``) is implemented here on the
 caller side so every provider streams identically.
 
-The port's own copy of ``langstream_tpu/agents/genai.py``: the model-free
-steps, ``ai-chat-completions`` and ``ai-text-completions`` over the
-``torch-local`` service. The service's engine thread posts each token
-back to the agent's event loop, where the batcher emits chunk records.
-``compute-ai-embeddings`` and ``query`` are not yet ported, and a
-``steps`` list that holds one is refused by name.
+The port's own copy of ``langstream_tpu/agents/genai.py``, every step
+type of it: the model-free steps, ``ai-chat-completions`` and
+``ai-text-completions`` over the ``torch-local`` service (its engine
+thread posts each token back to the agent's event loop, where the batcher
+emits chunk records), ``compute-ai-embeddings`` (records micro-batched
+through :class:`~langstream_tpu_torch.runtime.batching.BatchExecutor`
+into one encoder call on the card) and ``query`` (a datasource of the
+app's ``resources:``, on the app's device).
 """
 
 from __future__ import annotations
@@ -32,13 +34,14 @@ from __future__ import annotations
 import asyncio
 import json
 import logging
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 from langstream_tpu_torch.api.agent import SingleRecordProcessor
 from langstream_tpu_torch.api.records import Record
 from langstream_tpu_torch.api.service import ChatChunk, ChatMessage
 from langstream_tpu_torch.agents.el import Expression, render_template
 from langstream_tpu_torch.agents.transform import TransformContext
+from langstream_tpu_torch.runtime.batching import BatchExecutor
 from langstream_tpu_torch.runtime.tracing import TRACE_ID_HEADER
 
 logger = logging.getLogger(__name__)
@@ -198,6 +201,103 @@ class ComputeStep(Step):
 # ---------------------------------------------------------------------- #
 # AI steps
 # ---------------------------------------------------------------------- #
+class ComputeAIEmbeddingsStep(Step):
+    """Micro-batched embeddings (``ComputeAIEmbeddingsStep.java:46``):
+    records coalesce through a batch executor into one padded encoder
+    call; per-key ordering is the runner's concern, batching is ours."""
+
+    def __init__(self, config, agent) -> None:
+        super().__init__(config, agent)
+        self.text_template = config.get("text", "{{ value }}")
+        self.embeddings_field = config.get("embeddings-field", "value.embeddings")
+        self.model = config.get("model")
+        self.batch_size = int(config.get("batch-size", 10))
+        # reference default flush-interval: 0 = immediate; a small linger
+        # lets concurrent records of one poll coalesce
+        self.flush_interval = float(config.get("flush-interval", 0.01))
+        self._executor: Optional[BatchExecutor] = None
+        self._service = None
+        self._calls = self._texts = None
+
+    async def start(self) -> None:
+        registry = self.agent.service_registry()
+        self._service = registry.embeddings(
+            self.config.get("ai-service"), model=self.model
+        )
+        self._executor = BatchExecutor(
+            self.batch_size, self._process_batch, flush_interval=self.flush_interval
+        )
+        # the encoder's calls and texts on the agent's /metrics (the port's own)
+        metrics = getattr(getattr(self.agent, "context", None), "metrics", None)
+        if metrics is not None:
+            self._calls = metrics.counter("embeddings_calls")
+            self._texts = metrics.counter("embeddings_texts")
+
+    async def _process_batch(self, items: List[Any]) -> None:
+        texts = [text for text, _future in items]
+        if self._calls is not None:
+            self._calls.count()
+            self._texts.count(len(texts))
+        try:
+            vectors = await self._service.compute_embeddings(texts)
+            if len(vectors) != len(items):
+                raise ValueError(
+                    f"embeddings service returned {len(vectors)} vectors "
+                    f"for {len(items)} texts"
+                )
+            for (_text, future), vector in zip(items, vectors):
+                if not future.done():
+                    future.set_result(vector)
+        except asyncio.CancelledError:
+            for _text, future in items:
+                future.cancel()
+            raise
+        except Exception as error:  # noqa: BLE001 — routed to every record of the batch
+            for _text, future in items:
+                if not future.done():
+                    future.set_exception(error)
+
+    async def apply(self, ctx: TransformContext) -> None:
+        text = render_template(self.text_template, ctx.el_context())
+        future = asyncio.get_running_loop().create_future()
+        await self._executor.add((text, future))
+        vector = await future
+        ctx.set_field(self.embeddings_field, vector)
+
+    async def close(self) -> None:
+        if self._executor is not None:
+            await self._executor.close()
+
+
+class QueryStep(Step):
+    """Datasource query (``QueryStep.java:35``): ``fields`` evaluate to
+    params, results land in ``output-field``."""
+
+    def __init__(self, config, agent) -> None:
+        super().__init__(config, agent)
+        self.query = config["query"]
+        self.output_field = config.get("output-field", "value.query-result")
+        self.only_first = bool(config.get("only-first", False))
+        self.mode = config.get("mode", "query")  # query | execute
+        self._fields = [Expression(f) for f in config.get("fields", [])]
+        self._datasource = None
+
+    async def start(self) -> None:
+        self._datasource = self.agent.datasource_registry().resolve(
+            self.config.get("datasource", "datasource")
+        )
+
+    async def apply(self, ctx: TransformContext) -> None:
+        el_ctx = ctx.el_context()
+        params = [f.evaluate(el_ctx) for f in self._fields]
+        if self.mode == "execute":
+            result: Any = await self._datasource.execute(self.query, params)
+        else:
+            rows = await self._datasource.query(self.query, params)
+            result = rows[0] if (self.only_first and rows) else rows
+        ctx.set_field(self.output_field, result)
+
+
 class _ChunkBatcher:
     """Exponential chunk batching: emit after 1, 2, 4, ... accumulated
     chunks up to ``min_chunks``, then every ``min_chunks``
@@ -371,9 +471,6 @@ class TextCompletionsStep(ChatCompletionsStep):
         await super().apply(ctx)
 
 
-# the RAG path's steps, planned but not yet ported
-NOT_PORTED_STEPS = ("compute-ai-embeddings", "query")
-
 _STEP_TYPES = {
     "drop": DropStep,
     "drop-fields": DropFieldsStep,
@@ -384,6 +481,8 @@ _STEP_TYPES = {
     "compute": ComputeStep,
     "ai-chat-completions": ChatCompletionsStep,
     "ai-text-completions": TextCompletionsStep,
+    "compute-ai-embeddings": ComputeAIEmbeddingsStep,
+    "query": QueryStep,
 }
 
 
@@ -396,17 +495,13 @@ class GenAIToolKitAgent(SingleRecordProcessor):
     def __init__(self) -> None:
         self.steps: List[Step] = []
         self._service_registry = None
+        self._datasource_registry = None
 
     async def init(self, configuration: Dict[str, Any]) -> None:
         self.configuration = configuration
         for step_config in configuration.get("steps", []):
             step_type = step_config.get("type")
             step_cls = _STEP_TYPES.get(step_type)
-            if step_type in NOT_PORTED_STEPS:
-                raise ValueError(
-                    f"GenAI step type {step_type!r} is not yet ported to langstream_tpu_torch; "
-                    f"ported: {sorted(_STEP_TYPES)}"
-                )
             if step_cls is None:
                 raise ValueError(
                     f"unknown GenAI step type {step_type!r}; "
@@ -421,6 +516,8 @@ class GenAIToolKitAgent(SingleRecordProcessor):
     async def close(self) -> None:
         for step in self.steps:
             await step.close()
+        if self._datasource_registry is not None:
+            await self._datasource_registry.close()
 
     # -- wiring helpers used by steps --------------------------------- #
     def service_registry(self):
@@ -431,6 +528,14 @@ class GenAIToolKitAgent(SingleRecordProcessor):
             shared = getattr(self.context, "service_provider_registry", None)
             self._service_registry = shared or ServiceProviderRegistry(resources)
         return self._service_registry
+
+    def datasource_registry(self):
+        """The datasources of the app's ``resources:``, on the app's device."""
+        if self._datasource_registry is None:
+            from langstream_tpu_torch.agents.datasource import context_registry
+
+            self._datasource_registry = context_registry(self.context)
+        return self._datasource_registry
 
     def topic_producer(self, topic: str):
         connections = getattr(self.context, "topic_connections", None)

@@ -245,21 +245,23 @@ def shared_store(name: str, dimensions: int, **kwargs) -> VectorStore:
 
 
 class VectorStoreDataSource(DataSource):
-    """Datasource adapter: JSON query specs against a named store on the
-    config's ``device`` (the card unless it says ``cpu``).
+    """Datasource adapter: JSON query specs against a named store on
+    ``device``: the app's, which the :class:`DataSourceRegistry
+    <langstream_tpu_torch.agents.datasource.DataSourceRegistry>` hands
+    it, the card unless the caller asks for the CPU.
 
     Query spec: ``{"action": "search", "vector": ?, "top-k": 5}`` or
     ``{"action": "upsert", "id": ?, "vector": ?, "metadata": {...}}`` —
     ``?`` placeholders fill from params in order.
     """
 
-    def __init__(self, config: Dict[str, Any]) -> None:
+    def __init__(self, config: Dict[str, Any], device: Any = "cuda") -> None:
         self.store = shared_store(
             config.get("name", "default"),
             int(config.get("dimensions", 384)),
             metric=config.get("metric", "cosine"),
             persist_path=config.get("persist-path"),
-            device=config.get("device", "cuda"),
+            device=device,
         )
 
     async def query(self, query: str, params: List[Any]) -> List[Dict[str, Any]]:

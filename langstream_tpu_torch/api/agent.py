@@ -230,6 +230,7 @@ class AgentContext:
         bad_record_handler: Optional[Callable[[Record, BaseException], None]] = None,
         service_provider_registry=None,
         resources: Optional[Dict[str, Dict[str, Any]]] = None,
+        device: Any = "cuda",
     ) -> None:
         self.agent_id = agent_id
         self.application_id = application_id
@@ -243,6 +244,9 @@ class AgentContext:
         # resolved `resources:` section of configuration.yaml (datasources,
         # ai services) so agents can look up shared service configs
         self.resources = resources or {}
+        # the app's device (the card unless the caller asked for the CPU):
+        # the datasources an agent resolves live on it
+        self.device = device
 
     def persistent_state_directory(self) -> Optional[str]:
         """Per-agent durable scratch dir (reference:

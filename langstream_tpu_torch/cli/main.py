@@ -26,10 +26,14 @@ does (``langstream_tpu/cli/main.py``): the app is parsed and planned,
 every agent runs on the in-memory broker, its ``torch-local`` resources
 serve on the card (``--device cpu`` for the CPU), and its gateways listen
 on ``--gateway-port`` (0 picks a free one; the line ``gateway on
-ws://HOST:PORT/v1/...`` names it). SIGINT or SIGTERM drains the agents,
-stops the gateway and closes the engines. The JAX command's agent
-``/metrics`` port (``--http-port``) is not ported; the gateway's
-``/metrics`` serves the engine's series."""
+ws://HOST:PORT/v1/...`` names it). ``--http-port PORT`` (off unless
+given; 0 picks a free one, named by the line ``metrics on
+http://HOST:PORT/metrics``) serves the runner's HTTP surface
+(``runtime/pod.py``): ``/info``, ``/metrics`` with each agent node's
+record counters and the engine's series, ``/ready``, ``/ok`` and
+``/debug/profile``. SIGINT or SIGTERM drains the agents, stops the
+gateway and the HTTP surface and closes the engines. The gateway's
+``/metrics`` serves the engine's series too."""
 
 from __future__ import annotations
 
@@ -201,6 +205,9 @@ def build_parser() -> argparse.ArgumentParser:
     run.add_argument("--gateway-port", type=int, default=8091)
     run.add_argument("--tenant", default="default")
     run.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    run.add_argument("--http-port", type=int, default=-1,
+                     help="serve the runner's /info, /metrics, /ready and /debug/profile on this "
+                          "port (0 picks a free one; off unless given)")
     journey = sub.add_parser(
         "journey", help="join flight artifacts ($LANGSTREAM_FLIGHT_DIR) by trace id into "
                         "per-request waterfalls, per-stage p50/p95 and SLO blame")
@@ -461,13 +468,22 @@ async def apps_run(args: argparse.Namespace) -> None:
 
     runner = await run_application(args.app_dir, instance_file=args.instance,
                                    secrets_file=args.secrets, device=args.device)
-    gateway = None
+    gateway = http = None
     try:
         print(f"application {runner.application.application_id} running on {runner.device}:",
               flush=True)
         for node in runner.plan.agents:
             print(f"  agent {node.id}: {node.input_topic or '(source)'} -> "
                   f"{node.output_topic or '(sink)'}", flush=True)
+        if args.http_port >= 0:
+            from langstream_tpu_torch.runtime.pod import AgentHttpServer
+
+            http = AgentHttpServer(info=runner.info, metrics=runner.metrics,
+                                   gauges=engines_snapshot, histograms=engines_histograms,
+                                   port=args.http_port, host="127.0.0.1")
+            await http.start()
+            http.ready = True
+            print(f"metrics on http://{http.host}:{http.port}/metrics", flush=True)
         if runner.application.gateways:
             gateway = GatewayServer(port=args.gateway_port)
             gateway.register_local_runner(runner, tenant=args.tenant)
@@ -488,6 +504,8 @@ async def apps_run(args: argparse.Namespace) -> None:
     finally:
         if gateway is not None:
             await gateway.stop()
+        if http is not None:
+            await http.stop()
         await runner.stop()
         print("application stopped", flush=True)
 

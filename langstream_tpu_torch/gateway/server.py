@@ -59,7 +59,8 @@ from langstream_tpu_torch.runtime.tracing import TRACE_ID_HEADER, get_tracer, ne
 logger = logging.getLogger(__name__)
 
 _REASONS = {200: "OK", 400: "Bad Request", 401: "Unauthorized", 404: "Not Found",
-            405: "Method Not Allowed", 500: "Internal Server Error", 504: "Gateway Timeout"}
+            405: "Method Not Allowed", 409: "Conflict", 500: "Internal Server Error",
+            503: "Service Unavailable", 504: "Gateway Timeout"}
 _ENGINE_MODULE = "langstream_tpu_torch.providers.torch_local.engine"
 
 
@@ -109,6 +110,30 @@ def json_response(value: Any, status: int = 200) -> Response:
 
 def text_response(text: str, status: int = 200) -> Response:
     return Response(status, text.encode("utf-8"), "text/plain; charset=utf-8")
+
+
+async def read_request(reader: asyncio.StreamReader) -> Optional[Request]:
+    """One HTTP/1.1 request off ``reader``; None for a malformed start line."""
+    start, headers = await websocket.read_head(reader)
+    fields = start.split(" ")
+    if len(fields) != 3:
+        return None
+    method, target, _version = fields
+    length = int(headers.get("content-length", "0") or 0)
+    body = await reader.readexactly(length) if length else b""
+    split = urllib.parse.urlsplit(target)
+    return Request(method, urllib.parse.unquote(split.path),
+                   urllib.parse.parse_qsl(split.query, keep_blank_values=True), headers, body)
+
+
+async def write_response(writer: asyncio.StreamWriter, response: Response) -> None:
+    """``response`` as the one answer of the connection."""
+    writer.write((
+        f"HTTP/1.1 {response.status} {_REASONS.get(response.status, 'Error')}\r\n"
+        f"Content-Type: {response.content_type}\r\n"
+        f"Content-Length: {len(response.body)}\r\nConnection: close\r\n\r\n"
+    ).encode("latin-1") + response.body)
+    await writer.drain()
 
 
 class _RegisteredApp:
@@ -183,25 +208,12 @@ class GatewayServer:
         task = asyncio.current_task()
         self._connections.add(task)
         try:
-            start, headers = await websocket.read_head(reader)
-            fields = start.split(" ")
-            if len(fields) != 3:
+            request = await read_request(reader)
+            if request is None:
                 return
-            method, target, _version = fields
-            length = int(headers.get("content-length", "0") or 0)
-            body = await reader.readexactly(length) if length else b""
-            split = urllib.parse.urlsplit(target)
-            request = Request(method, urllib.parse.unquote(split.path),
-                              urllib.parse.parse_qsl(split.query, keep_blank_values=True),
-                              headers, body)
             response = await self._dispatch(request, reader, writer)
             if response is not None:
-                writer.write((
-                    f"HTTP/1.1 {response.status} {_REASONS.get(response.status, 'Error')}\r\n"
-                    f"Content-Type: {response.content_type}\r\n"
-                    f"Content-Length: {len(response.body)}\r\nConnection: close\r\n\r\n"
-                ).encode("latin-1") + response.body)
-                await writer.drain()
+                await write_response(writer, response)
         except (ConnectionError, asyncio.IncompleteReadError, asyncio.CancelledError):
             pass
         except Exception:  # noqa: BLE001 — one broken request must not stop the server

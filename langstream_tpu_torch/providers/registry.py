@@ -1,4 +1,4 @@
-"""Provider registry: resource config → completions services.
+"""Provider registry: resource config → completions and embeddings services.
 
 The port's own copy of ``langstream_tpu/providers/registry.py`` (the
 reference's ``ServiceProviderRegistry.java:58``): given the app's
@@ -6,9 +6,10 @@ reference's ``ServiceProviderRegistry.java:58``): given the app's
 (cached) completions services. The port has one provider, ``torch-local``
 (``providers/torch_local/provider.py``); the registry hands it the
 ``device`` the app runs on, the card unless the caller asks for the CPU.
-A resource no provider owns (``jax-local``, ``open-ai-configuration``,
-...) is refused with its name. Embeddings services wait for the RAG
-path's steps.
+Completions services are cached per resource, embeddings services per
+resource and model (the ``compute-ai-embeddings`` step's ``model``). A
+resource no provider owns (``jax-local``, ``open-ai-configuration``,
+...) is refused with its name.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from __future__ import annotations
 import asyncio
 from typing import Any, Dict, List, Optional, Tuple
 
-from langstream_tpu_torch.api.service import CompletionsService, ServiceProvider
+from langstream_tpu_torch.api.service import CompletionsService, EmbeddingsService, ServiceProvider
 
 
 class ServiceProviderRegistry:
@@ -28,6 +29,7 @@ class ServiceProviderRegistry:
         self.device = device
         self._providers: Optional[List[ServiceProvider]] = None
         self._completions: Dict[str, CompletionsService] = {}
+        self._embeddings: Dict[Tuple[str, Optional[str]], EmbeddingsService] = {}
 
     def _provider_instances(self) -> List[ServiceProvider]:
         if self._providers is None:
@@ -63,11 +65,22 @@ class ServiceProviderRegistry:
             )
         return self._completions[name]
 
+    def embeddings(self, resource_name: Optional[str] = None,
+                   model: Optional[str] = None) -> EmbeddingsService:
+        name, resource, provider = self._find(resource_name)
+        key = (name, model)
+        if key not in self._embeddings:
+            self._embeddings[key] = provider.get_embeddings_service(
+                resource.get("configuration", resource), model=model
+            )
+        return self._embeddings[key]
+
     async def close(self) -> None:
         """Close every service; the port's ``close`` is a plain method
         that joins the engine thread, so it runs off the event loop."""
-        services = list(self._completions.values())
+        services = [*self._completions.values(), *self._embeddings.values()]
         self._completions.clear()
+        self._embeddings.clear()
         loop = asyncio.get_running_loop()
         for service in services:
             await loop.run_in_executor(None, service.close)

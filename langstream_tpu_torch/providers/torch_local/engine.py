@@ -3597,9 +3597,12 @@ class DecodeEngine:
                               start_wall=getattr(request, "_submit_wall", time.time()), slot=index,
                               prompt_tokens=len(request.prompt_tokens), tokens=len(generated),
                               finish_reason=reason, ttft_ms=ttft_ms, tpot_ms=tpot_ms)
+            # the port's record also holds the answer's token ids, so that a
+            # request served behind text (an app's answer) can be held
+            # against another run token by token
             flight.record("request", trace_id=tid, prompt_tokens=len(request.prompt_tokens),
                           tokens=len(generated), finish_reason=reason, ttft_ms=ttft_ms,
-                          tpot_ms=tpot_ms)
+                          tpot_ms=tpot_ms, token_ids=[int(t) for t in generated])
         slot.request = None
         slot.prefilling = False
         slot.prefill_pos = None

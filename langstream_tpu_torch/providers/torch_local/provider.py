@@ -33,7 +33,9 @@ the loaded weights (``quant.quantize_params``) and the bf16 ones are
 freed. With no ``checkpoint`` the weights are random, drawn from
 ``seed`` on the device; with ``quantization: int8`` they are drawn
 directly in int8 on the device (``quant.init_quantized_params``), so the
-model-dtype weights are never made. ``tokenizer: {type: hf, path}``
+model-dtype weights are never made; with ``$LS_WEIGHTS_CACHE_DIR`` set,
+a later start loads that draw from the directory instead
+(``quant.init_quantized_params_cached``; off by default). ``tokenizer: {type: hf, path}``
 serves the checkpoint's own tokenizer (it needs the ``transformers``
 package); the default is the byte tokenizer. ``logprobs-top-k`` K keeps
 the K most likely alternatives of every token, which a request asks for
@@ -142,7 +144,7 @@ from langstream_tpu_torch.providers.torch_local.engine import (
     DecodeEngine,
     SamplingParams,
 )
-from langstream_tpu_torch.providers.torch_local.quant import init_quantized_params, quantize_params
+from langstream_tpu_torch.providers.torch_local.quant import init_quantized_params_cached, quantize_params
 from langstream_tpu_torch.providers.torch_local.tokenizer import HFTokenizer, get_tokenizer
 from langstream_tpu_torch.providers.torch_local.weights import load_checkpoint, load_hf_bert
 
@@ -236,9 +238,10 @@ class TorchCompletionsService(CompletionsService):
                     return model_lib.shard_leaf(model_config, name, leaf, mesh, rank)
             if quantization == "int8":
                 # drawn directly in int8 on the device: Llama-3-8B never
-                # holds its bf16 weights
-                params = init_quantized_params(model_config, seed=seed, device=self.device,
-                                               keep=keep)
+                # holds its bf16 weights; loaded from $LS_WEIGHTS_CACHE_DIR
+                # instead when that names a directory
+                params = init_quantized_params_cached(model_config, seed=seed,
+                                                      device=self.device, keep=keep)
             else:
                 params = model_lib.init_params(model_config, seed=seed, device=self.device,
                                                keep=keep)

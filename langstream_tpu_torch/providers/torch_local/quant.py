@@ -204,3 +204,137 @@ def init_quantized_params(
     if not config.tie_embeddings:
         put("lm_head", q_init((h, v)))
     return out
+
+
+# the fields whose values change what a draw holds (the JAX package's
+# list): runtime knobs such as ``use_flash`` stay out, so runs that differ
+# only in them share an entry
+_CACHE_SIG_FIELDS = (
+    "vocab_size", "hidden_size", "intermediate_size", "num_layers",
+    "num_heads", "num_kv_heads", "head_dim", "num_experts",
+    "num_experts_per_tok", "tie_embeddings", "post_norms",
+    "qkv_bias", "norm_plus_one", "scale_embedding", "act", "dtype",
+)
+_CACHE_STALE_S = 300.0
+
+
+def weights_cache_key(config, seed: int) -> str:
+    """The JAX package's key: readable dims, the norm convention, a SHA-1
+    digest of the weight-relevant fields, and the seed. Shape-identical
+    configs whose draws differ (a norm-convention flip fills norms with 0
+    instead of 1; sandwich norms, qkv biases, a tied head) never share an
+    entry."""
+    import hashlib
+
+    known = {f.name for f in dataclasses.fields(type(config))}
+    signature = "|".join(f"{name}={getattr(config, name)!r}"
+                         for name in _CACHE_SIG_FIELDS if name in known)
+    convention = "".join(tag for tag, on in (
+        ("z1", config.norm_plus_one), ("pn", config.post_norms),
+        ("qb", config.qkv_bias), ("te", config.tie_embeddings)) if on) or "std"
+    digest = hashlib.sha1(signature.encode()).hexdigest()[:10]
+    return (f"int8_{config.num_layers}L_{config.hidden_size}h_{config.num_params()}p_"
+            f"{convention}_{digest}_s{seed}")
+
+
+def _leaves(params: Dict[str, Any]):
+    """(name, part, tensor) of each stored leaf: a QTensor is two."""
+    for name, value in params.items():
+        if isinstance(value, QTensor):
+            yield name, "q", value.q
+            yield name, "scale", value.scale
+        else:
+            yield name, "", value
+
+
+def _storable(tensor: torch.Tensor):
+    """A host numpy array of ``tensor``; bf16 rides as its uint16 bits."""
+    host = tensor.detach().cpu()
+    if host.dtype == torch.bfloat16:
+        return host.view(torch.int16).numpy().view("uint16")
+    return host.numpy()
+
+
+def _load_cached(path: str, device: Any) -> Dict[str, Any]:
+    import json
+
+    import numpy as np
+
+    with np.load(path, allow_pickle=False) as data:
+        manifest = json.loads(bytes(data["manifest"]).decode())
+        parts: Dict[str, Dict[str, torch.Tensor]] = {}
+        for i, (name, part, dtype, shape) in enumerate(manifest):
+            raw = data[f"a{i}"]
+            if dtype == "torch.bfloat16":
+                tensor = torch.from_numpy(raw.view("int16")).view(torch.bfloat16)
+            else:
+                tensor = torch.from_numpy(raw)
+            if str(tensor.dtype) != dtype or list(tensor.shape) != shape:
+                raise ValueError(f"leaf {name}{'.' + part if part else ''} does not match its "
+                                 "manifest")
+            parts.setdefault(name, {})[part] = tensor.to(device)
+    out: Dict[str, Any] = {}
+    for name, leaf in parts.items():
+        out[name] = QTensor(q=leaf["q"], scale=leaf["scale"]) if "q" in leaf else leaf[""]
+    return out
+
+
+def init_quantized_params_cached(config, seed: int = 0, cache_dir: Optional[str] = None,
+                                 device: Any = "cpu", keep=None) -> Dict[str, Any]:
+    """:func:`init_quantized_params` with an opt-in cache on disk, the JAX
+    package's ``init_quantized_params_cached``: off unless ``cache_dir``
+    or ``$LS_WEIGHTS_CACHE_DIR`` names a directory, and then a retry
+    loads the draw instead of drawing and quantizing again. Off, or with
+    ``keep`` (a tp rank keeps only its shard, and a shard is not cached),
+    it is the plain draw on ``device``.
+
+    An entry is ``<key>.npz`` (:func:`weights_cache_key`): one array per
+    leaf (a QTensor's ``q`` and ``scale`` apart; bf16 as uint16 bits)
+    and a manifest of each leaf's name, part, dtype and shape. Its format
+    is the port's own: the port draws with a torch generator, so its
+    entries are not the JAX package's. Writes are atomic (a temporary
+    file, then ``os.replace``); temporary files older than 5 minutes,
+    left by a killed writer, are swept; an entry that cannot be used is
+    deleted and the weights drawn again. The loaded leaves go to
+    ``device``."""
+    import json
+    import logging
+    import os
+    import time
+
+    import numpy as np
+
+    cache_dir = cache_dir or os.environ.get("LS_WEIGHTS_CACHE_DIR", "")
+    if not cache_dir or keep is not None:
+        return init_quantized_params(config, seed=seed, device=device, keep=keep)
+    os.makedirs(cache_dir, exist_ok=True)
+    now = time.time()
+    for name in os.listdir(cache_dir):
+        if ".tmp" in name:
+            stale = os.path.join(cache_dir, name)
+            try:
+                if now - os.path.getmtime(stale) > _CACHE_STALE_S:
+                    os.unlink(stale)
+            except OSError:
+                pass
+    path = os.path.join(cache_dir, weights_cache_key(config, seed) + ".npz")
+    if os.path.exists(path):
+        try:
+            return _load_cached(path, device)
+        except Exception as error:  # noqa: BLE001 — a torn or stale entry is drawn again
+            try:
+                os.unlink(path)
+            except OSError:
+                pass
+            logging.getLogger(__name__).warning(
+                "weights cache %s unusable (%r); drawing the weights again", path, error)
+    params = init_quantized_params(config, seed=seed, device=device)
+    manifest, arrays = [], {}
+    for i, (name, part, tensor) in enumerate(_leaves(params)):
+        manifest.append([name, part, str(tensor.dtype), list(tensor.shape)])
+        arrays[f"a{i}"] = _storable(tensor)
+    arrays["manifest"] = np.frombuffer(json.dumps(manifest).encode(), np.uint8).copy()
+    tmp = f"{path}.tmp{os.getpid()}.npz"
+    np.savez(tmp, **arrays)
+    os.replace(tmp, path)
+    return params

@@ -13,8 +13,9 @@ the reference's test strategy (``AbstractApplicationRunner.java:58``).
 The port's own copy of ``langstream_tpu/runtime/local.py``. Every agent
 of an app shares one service registry on ``device`` (one engine per
 ``torch-local`` resource), the card unless the caller passes
-``device="cpu"``; without CUDA, starting an app that holds a model
-raises. Asset provisioning and plugin directories are not ported: an
+``device="cpu"``; without CUDA, building the runner raises. The device
+reaches every agent in its context (``AgentContext.device``), so the
+datasources an agent resolves (the vector store) live on it too. Asset provisioning and plugin directories are not ported: an
 app that declares assets is refused before anything starts.
 """
 
@@ -115,6 +116,7 @@ class LocalApplicationRunner:
             global_agent_id=f"{self.application.application_id}-{node.id}",
             service_provider_registry=self._service_provider_registry,
             resources=self.application.resources,
+            device=self.device,
         )
 
     async def _build_agent(self, spec, context: AgentContext):

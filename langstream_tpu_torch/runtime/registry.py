@@ -7,12 +7,16 @@ port's built-in agents register lazily here (the JAX package keeps the
 table in ``agents/__init__.py``); applications may register custom
 agents with :func:`register_agent`.
 
-The port carries the agents of the completions pipeline: ``identity``,
-``composite-agent``, ``document-to-json`` and the GenAI toolkit
-(``ai-tools``, every declarative step type but ``compute-ai-embeddings``
-and ``query``). Every other built-in type of the JAX package plans
-(``compiler/planner.py``) but is refused here, by name, when the runner
-builds it.
+The port carries the agents of the completions and RAG pipelines:
+``identity``, ``composite-agent``, the GenAI toolkit (``ai-tools``, every
+declarative step type, ``compute-ai-embeddings`` and ``query`` among
+them), the text agents (``text-splitter``, ``document-to-json``,
+``text-normaliser``, ``language-detector``, ``text-extractor``), the
+vector agents (``vector-db-sink``, ``query-vector-db``), ``re-rank`` and
+``flare-controller``. Every other built-in type of the JAX package (the
+flow agents, python agents, sources and connectors, ``http-request``,
+``langserve-invoke``, ...) plans (``compiler/planner.py``) but is refused
+here, by name, when the runner builds it.
 """
 
 from __future__ import annotations
@@ -46,7 +50,15 @@ _BUILTIN = {
     "identity": ("langstream_tpu_torch.runtime.runner", "IdentityProcessor"),
     "composite-agent": ("langstream_tpu_torch.runtime.composite", "CompositeAgentProcessor"),
     "ai-tools": ("langstream_tpu_torch.agents.genai", "GenAIToolKitAgent"),
+    "text-splitter": ("langstream_tpu_torch.agents.text", "TextSplitterAgent"),
     "document-to-json": ("langstream_tpu_torch.agents.text", "DocumentToJsonAgent"),
+    "text-normaliser": ("langstream_tpu_torch.agents.text", "TextNormaliserAgent"),
+    "language-detector": ("langstream_tpu_torch.agents.text", "LanguageDetectorAgent"),
+    "text-extractor": ("langstream_tpu_torch.agents.text", "TextExtractorAgent"),
+    "vector-db-sink": ("langstream_tpu_torch.agents.vector", "VectorDBSinkAgent"),
+    "query-vector-db": ("langstream_tpu_torch.agents.vector", "QueryVectorDBAgent"),
+    "re-rank": ("langstream_tpu_torch.agents.rerank", "ReRankAgent"),
+    "flare-controller": ("langstream_tpu_torch.agents.flare", "FlareControllerAgent"),
 }
 for _type, (_module, _cls) in _BUILTIN.items():
     register_agent(_type, _lazy(_module, _cls))

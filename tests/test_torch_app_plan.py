@@ -10,8 +10,10 @@ package's, over every example app.
   policy, resources), gateways and resources; where JAX's placeholder
   resolution fails, the port's fails too.
 - What the port does not carry is refused by name: an agent type it
-  lacks when the runner builds it, the RAG path's GenAI steps, brokers
-  other than the in-memory one, gateways with authentication, assets.
+  lacks when the runner builds it, brokers other than the in-memory one,
+  gateways with authentication, assets. The RAG path's GenAI steps,
+  refused until the port carried them, now build; a step type neither
+  package knows is refused.
 """
 
 import asyncio
@@ -107,21 +109,28 @@ def test_composite_merge_of_genai_steps(tmp_path):
 
 def test_unported_agent_type_is_refused_by_name_at_start():
     plan = build_execution_plan(build_application(str(REPO / "examples" / "applications"
-                                                       / "text-processing")))
+                                                       / "http-request-processor")))
     runner = LocalApplicationRunner(plan, device="cpu")
-    with pytest.raises(ValueError, match="'text-extractor' is not yet ported"):
+    with pytest.raises(ValueError, match="'http-request' is not yet ported"):
         asyncio.run(runner.start())
-    with pytest.raises(ValueError, match="'vector-db-sink' is not yet ported"):
-        create_agent("vector-db-sink")
+    with pytest.raises(ValueError, match="'webcrawler-source' is not yet ported"):
+        create_agent("webcrawler-source")
     with pytest.raises(ValueError, match="unknown agent type 'no-such-agent'"):
         create_agent("no-such-agent")
 
 
 @pytest.mark.parametrize("step", ["compute-ai-embeddings", "query"])
 def test_rag_steps_are_refused_by_name(step):
+    """The RAG steps were refused by name until the port carried them:
+    now each builds, and a step type neither package knows is refused."""
+    from langstream_tpu_torch.agents import genai
+
     agent = create_agent("ai-tools")
-    with pytest.raises(ValueError, match=f"'{step}' is not yet ported"):
-        asyncio.run(agent.init({"steps": [{"type": step, "query": "q"}]}))
+    asyncio.run(agent.init({"steps": [{"type": step, "query": "q"}]}))
+    assert type(agent.steps[0]) is {"compute-ai-embeddings": genai.ComputeAIEmbeddingsStep,
+                                    "query": genai.QueryStep}[step]
+    with pytest.raises(ValueError, match="unknown GenAI step type 'no-such-step'"):
+        asyncio.run(create_agent("ai-tools").init({"steps": [{"type": "no-such-step"}]}))
 
 
 @pytest.mark.parametrize("broker", ["kafka", "pulsar", "pravega", "tpulog"])

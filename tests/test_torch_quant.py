@@ -11,10 +11,20 @@ JAX ``quantize_params`` of the same weights on both sides, on ``tiny``,
 the two frameworks sum in another order). Engine: greedy and seeded
 token streams of the port's int8 engine equal the JAX int8 engine's;
 ``init_quantized_params`` draws int8 directly and serves a request.
+Weight cache (``init_quantized_params_cached``, as the JAX package's
+cases in ``tests/test_quant.py`` and ``tests/test_observability.py``): a
+cached load equals a fresh draw bit for bit; a norm-convention flip and
+another seed get entries of their own and their own weights; a corrupt
+entry is drawn again; with no directory it is the plain draw; a stale
+temporary file is swept and a fresh one kept; the provider's int8 draw
+goes through it under ``LS_WEIGHTS_CACHE_DIR``.
 """
 
 import asyncio
+import dataclasses
 import functools
+import os
+import time
 
 import jax
 import jax.numpy as jnp
@@ -342,3 +352,111 @@ def test_init_quantized_params_direct_shapes_and_one_request(preset):
         assert len(result.tokens) == 4 and result.finish_reason == "length"
     finally:
         eng.stop()
+
+
+# ---------------------------------------------------------------------- #
+# the weight cache
+# ---------------------------------------------------------------------- #
+def _assert_same_params(got, want):
+    assert sorted(got) == sorted(want)
+    for name, leaf in want.items():
+        parts = (("q", "scale") if isinstance(leaf, quant.QTensor) else (None,))
+        assert isinstance(got[name], quant.QTensor) == isinstance(leaf, quant.QTensor), name
+        for part in parts:
+            a = getattr(got[name], part) if part else got[name]
+            b = getattr(leaf, part) if part else leaf
+            assert a.dtype == b.dtype and a.shape == b.shape and a.device == b.device, name
+            assert torch.equal(a, b), name
+
+
+def _entries(path):
+    return sorted(n for n in os.listdir(path) if n.endswith(".npz"))
+
+
+@pytest.mark.parametrize("preset", ["tiny", "tiny_gemma2"])
+def test_weights_cache_round_trips_bit_for_bit(tmp_path, preset):
+    config = getattr(model.LlamaConfig, preset)(max_seq_len=64)
+    fresh = quant.init_quantized_params(config, seed=3)
+    first = quant.init_quantized_params_cached(config, seed=3, cache_dir=str(tmp_path))
+    assert _entries(tmp_path) == [quant.weights_cache_key(config, 3) + ".npz"]
+    _assert_same_params(first, fresh)
+    loaded = quant.init_quantized_params_cached(config, seed=3, cache_dir=str(tmp_path))
+    _assert_same_params(loaded, fresh)  # bf16 and int8 leaves through the file
+    # another seed is an entry of its own, with other weights
+    other = quant.init_quantized_params_cached(config, seed=4, cache_dir=str(tmp_path))
+    assert len(_entries(tmp_path)) == 2
+    assert not torch.equal(other["wq"].q, fresh["wq"].q)
+
+
+def test_weights_cache_key_separates_norm_conventions(tmp_path):
+    config = model.LlamaConfig.tiny(max_seq_len=64)
+    flipped = dataclasses.replace(config, norm_plus_one=True)
+    assert config.num_params() == flipped.num_params()
+    quant.init_quantized_params_cached(config, cache_dir=str(tmp_path))
+    quant.init_quantized_params_cached(flipped, cache_dir=str(tmp_path))
+    assert len(_entries(tmp_path)) == 2
+    warm_flipped = quant.init_quantized_params_cached(flipped, cache_dir=str(tmp_path))
+    warm = quant.init_quantized_params_cached(config, cache_dir=str(tmp_path))
+    assert not torch.equal(warm_flipped["final_norm"], warm["final_norm"])
+    _assert_same_params(warm_flipped, quant.init_quantized_params(flipped))
+    # the keys of the other conventions differ too
+    keys = {quant.weights_cache_key(dataclasses.replace(config, **{field: True}), 0)
+            for field in ("norm_plus_one", "post_norms", "qkv_bias", "tie_embeddings")}
+    assert len(keys | {quant.weights_cache_key(config, 0)}) == 5
+
+
+def test_weights_cache_heals_a_corrupt_entry(tmp_path):
+    config = model.LlamaConfig.tiny(max_seq_len=64)
+    quant.init_quantized_params_cached(config, seed=5, cache_dir=str(tmp_path))
+    (entry,) = _entries(tmp_path)
+    (tmp_path / entry).write_bytes(b"garbage")
+    healed = quant.init_quantized_params_cached(config, seed=5, cache_dir=str(tmp_path))
+    _assert_same_params(healed, quant.init_quantized_params(config, seed=5))
+    assert _entries(tmp_path) == [entry] and (tmp_path / entry).stat().st_size > 1000
+    _assert_same_params(quant.init_quantized_params_cached(config, seed=5,
+                                                           cache_dir=str(tmp_path)), healed)
+
+
+def test_weights_cache_off_is_the_plain_draw(tmp_path, monkeypatch):
+    config = model.LlamaConfig.tiny(max_seq_len=64)
+    monkeypatch.delenv("LS_WEIGHTS_CACHE_DIR", raising=False)
+    monkeypatch.chdir(tmp_path)
+    _assert_same_params(quant.init_quantized_params_cached(config, seed=6),
+                        quant.init_quantized_params(config, seed=6))
+    assert os.listdir(tmp_path) == []
+    # a tp rank's shard is never cached
+    shard = quant.init_quantized_params_cached(config, seed=6, cache_dir=str(tmp_path / "c"),
+                                               keep=lambda name, leaf: leaf)
+    _assert_same_params(shard, quant.init_quantized_params(config, seed=6))
+    assert not (tmp_path / "c").exists()
+    # the environment turns it on
+    monkeypatch.setenv("LS_WEIGHTS_CACHE_DIR", str(tmp_path / "env"))
+    quant.init_quantized_params_cached(config, seed=6)
+    assert len(_entries(tmp_path / "env")) == 1
+
+
+def test_weights_cache_sweeps_stale_temporary_files(tmp_path):
+    config = model.LlamaConfig.tiny(max_seq_len=64)
+    stale, live = tmp_path / "x.npz.tmp123.npz", tmp_path / "y.npz.tmp456.npz"
+    stale.write_bytes(b"partial")
+    live.write_bytes(b"partial")
+    old = time.time() - 600
+    os.utime(stale, (old, old))
+    quant.init_quantized_params_cached(config, cache_dir=str(tmp_path))
+    assert not stale.exists() and live.exists()
+    assert not any(".tmp" in n for n in os.listdir(tmp_path) if n != live.name)
+
+
+def test_provider_int8_draw_goes_through_the_weights_cache(tmp_path, monkeypatch):
+    from langstream_tpu_torch.providers.torch_local.provider import TorchCompletionsService
+
+    monkeypatch.setenv("LS_WEIGHTS_CACHE_DIR", str(tmp_path))
+    config = {"model": {"preset": "tiny"}, "quantization": "int8", "seed": 2,
+              "engine": {"max-slots": 2, "max-seq-len": 64, "supervisor": False}}
+    services = [TorchCompletionsService(config, device="cpu") for _ in range(2)]
+    try:
+        assert len(_entries(tmp_path)) == 1
+        _assert_same_params(services[1].engine.params, services[0].engine.params)
+    finally:
+        for service in services:
+            service.close()

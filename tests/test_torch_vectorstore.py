@@ -164,7 +164,7 @@ def test_files_load_in_the_other_package(tmp_path, writer, metric):
 def test_datasource_query_and_execute_match_jax():
     name = f"corpus-{uuid.uuid4().hex}"
     reference = jax_vectorstore.VectorStoreDataSource({"name": name, "dimensions": 4})
-    port = vectorstore.VectorStoreDataSource({"name": name, "dimensions": 4, "device": "cpu"})
+    port = vectorstore.VectorStoreDataSource({"name": name, "dimensions": 4}, device="cpu")
     assert port.store is vectorstore.shared_store(name, 4)  # one store per name
     upsert = json.dumps({"action": "upsert", "id": "?", "vector": "?", "metadata": {"text": "?"}})
     rows = [("a", [1.0, 0.0, 0.0, 0.0], "alpha"), ("b", [0.9, 0.1, 0.0, 0.0], "beta"),
