@@ -5619,17 +5619,23 @@ def _app_env(logs: str) -> dict:
     return dict(os.environ, **{flight.ENV_VAR: directory})
 
 
-def _served_tokens(logs: str) -> dict:
-    """The token ids of every request the app process's engine answered,
-    by trace id, from the ``request`` records of its flight artifact
-    (flushed when the engine stops)."""
+def _served_requests(logs: str) -> dict:
+    """The ``request`` records of every request the app process's engine
+    answered, by trace id, from its flight artifact (flushed when the
+    engine stops): their ``token_ids`` and, with ``logprobs-top-k``, each
+    token's ``top_logprobs``."""
     out = {}
     for path in glob.glob(os.path.join(logs, "flight", "*.jsonl")):
         for entry in flight.read_artifact(path):
             if entry["kind"] == "request" and entry.get("trace_id"):
                 assert entry["trace_id"] not in out, entry
-                out[entry["trace_id"]] = entry["token_ids"]
+                out[entry["trace_id"]] = entry
     return out
+
+
+def _served_tokens(logs: str) -> dict:
+    """The token ids of :func:`_served_requests`, by trace id."""
+    return {trace_id: entry["token_ids"] for trace_id, entry in _served_requests(logs).items()}
 
 
 def _tokens_part_at_a_near_tie(served: list, direct, label: str) -> bool:
@@ -6183,6 +6189,300 @@ def serve_rag_and_check(label: str) -> dict:
     return {"tok_s": tokens / wall, "wall_s": wall_s, "launches": delta}
 
 
+
+# ---------------------------------------------------------------------- #
+# 19. the chatbot-memory app: `apps run` on the shipped torch-chatbot-memory
+# ---------------------------------------------------------------------- #
+CHAT_DIR = os.path.join("langstream_tpu_torch", "examples", "applications",
+                        "torch-chatbot-memory")
+CHAT_LOGS = os.path.join("build", "app-chat")
+CHAT_CLIENTS = 8
+CHAT_TURNS = 3
+CHAT_QUESTION_BYTES = 48  # one token a byte under the byte tokenizer
+# 8 slots x 2048 rows of blocks of 16 (1025 blocks): no session is evicted
+# between its turns. The prefix cache is off, so that a prompt reuses KV
+# only through its session's pinned blocks, and the oracle's prompts
+# prefill cold
+CHAT_INSTANCE = f"""\
+instance:
+  streamingCluster:
+    type: memory
+  computeCluster:
+    type: local
+  globals:
+    model: "llama-3-8b"
+    num-layers: {APP_LAYERS}
+    max-slots: 8
+    max-seq-len: 2048
+    max-tokens: {APP_MAX_TOKENS}
+    decode-chunk: 8
+    precompile: true
+    kv-layout: paged
+    kv-block-size: 16
+    prefill-buckets: "64,128,256,512"
+    prefix-cache: false
+    logprobs-top-k: 2
+"""
+# the isolation child: a python agent that names the heavy modules loaded
+CHAT_PROBE = """\
+import sys
+
+
+class Modules:
+    def process(self, record):
+        return [sorted(name for name in ("torch", "numpy") if name in sys.modules)]
+"""
+
+
+def _chat_questions(client: int) -> list:
+    """``client``'s three questions, each :data:`CHAT_QUESTION_BYTES`
+    bytes of seeded :data:`WORDS`."""
+    rng = np.random.default_rng(1950 + client)
+    out = []
+    for turn in range(CHAT_TURNS):
+        text = f"c{client} t{turn}:"
+        while len(text) < CHAT_QUESTION_BYTES:
+            text += " " + str(rng.choice(WORDS))
+        out.append(text[:CHAT_QUESTION_BYTES - 1] + "?")
+    return out
+
+
+async def _memory_client(base: str, sessions, questions) -> list:
+    """Each question through the ``chat`` gateway under its session (one
+    socket a session), each answer awaited before the next question: the
+    answer's record and the seconds it took."""
+    from langstream_tpu_torch.gateway import websocket
+
+    sockets = {}
+    out = []
+    try:
+        for session, question in zip(sessions, questions):
+            if session not in sockets:
+                sockets[session] = await websocket.connect(
+                    f"{base}/v1/chat/default/torch-chatbot-memory/chat?param:session-id={session}")
+            sent = time.perf_counter()
+            await sockets[session].send_json({"value": question})
+            message = await asyncio.wait_for(sockets[session].receive(), 300)
+            assert message.type == "text", (session, message)
+            out.append({"session": session, "question": question,
+                        "record": message.json()["record"], "latency_s": time.perf_counter() - sent})
+    finally:
+        for ws in sockets.values():
+            await ws.close()
+    return out
+
+
+def _isolation_child_start() -> Tuple[float, list]:
+    """Milliseconds from spawning an ``isolation: process`` python agent to
+    its first answer, and the heavy modules its child had loaded."""
+    from langstream_tpu_torch.api.records import Record
+    from langstream_tpu_torch.runtime.registry import create_agent
+
+    probe_dir = os.path.join(CHAT_LOGS, "probe")
+    os.makedirs(probe_dir, exist_ok=True)
+    with open(os.path.join(probe_dir, "chat_probe.py"), "w") as fh:
+        fh.write(CHAT_PROBE)
+
+    async def spawn():
+        started = time.perf_counter()
+        agent = create_agent("python-processor")
+        await agent.init({"className": "chat_probe.Modules", "pythonPath": [probe_dir],
+                          "isolation": "process"})
+        (record,) = await agent.process_record(Record(value=None))
+        elapsed = time.perf_counter() - started
+        await agent.close()
+        return elapsed * 1e3, record.value
+
+    return asyncio.run(spawn())
+
+
+def serve_chat_and_check(label: str) -> dict:
+    """Phase 19: ``python -m langstream_tpu_torch apps run`` on the shipped
+    ``torch-chatbot-memory`` app as a subprocess with ``--http-port`` (its
+    log in ``build/app-chat/``), at :data:`CHAT_INSTANCE`: Llama-3-8B at
+    full width cut to :data:`APP_LAYERS` layers (random bf16 weights),
+    paged KV in blocks of 16, 8 slots x 2048, ``precompile``, the prefix
+    cache off.
+
+    Burst: :data:`CHAT_CLIENTS` chat clients at once, each under its own
+    ``session-id``, asking :data:`CHAT_TURNS` questions of
+    :data:`CHAT_QUESTION_BYTES` bytes through the ``chat`` gateway, each
+    answer awaited before the next. The app's python agents render each
+    turn as the session's transcript so far then its question, so turns 2
+    and 3 extend their session's pinned blocks (at least
+    ``WARM_MIN_PREFIX`` tokens) and prefill at an offset, through B3.
+    Oracle, in the same app: each follow-up's rendered text asked under a
+    fresh session (empty history, so the same rendered prompt), prefilled
+    cold. Gates: every answer reaches its own session, with its question
+    and the history of the turns before it; ``torch_engine_session_hits``
+    on the gateway's ``/metrics`` at least 2 per follow-up turn of every
+    client; each follow-up's token ids (the app's flight ``request``
+    records, by the answer's ``langstream-trace-id``) equal its oracle's,
+    or part from them where the oracle's top two logprobs are within
+    :data:`APP_NEAR_TIE`; over the burst the app's card counters show B3
+    alone (once per layer per model call), its prefill-shape launches once
+    per layer per prefill call, prefill calls at an offset, no graph
+    captured; the app node's ``records_in``/``records_out`` (its
+    ``python-processor`` steps run in it) equal the answers; SIGTERM stops
+    the app (exit 0). Then an ``isolation: process`` python agent is
+    spawned from this process and timed to its first answer, its child
+    loading no torch. Printed with no claim: tok/s and the answers'
+    latency at the clients for turn 1 against turns 2-3, how many answers
+    have any text, B3's launches by shape, the child's start."""
+    started = time.perf_counter()
+    os.makedirs(CHAT_LOGS, exist_ok=True)
+    instance = os.path.join(CHAT_LOGS, "instance.yaml")
+    with open(instance, "w") as fh:
+        fh.write(CHAT_INSTANCE)
+    log_path = os.path.join(CHAT_LOGS, "apps_run.log")
+    log_file = open(log_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "langstream_tpu_torch", "apps", "run", CHAT_DIR,
+         "--instance", instance, "--gateway-port", "0", "--http-port", "0"],
+        stdout=subprocess.PIPE, stderr=log_file, text=True, env=_app_env(CHAT_LOGS))
+    lines, base, metrics_url = [], None, None
+    sessions = [[f"chat-client-{c}"] * CHAT_TURNS for c in range(CHAT_CLIENTS)]
+    questions = [_chat_questions(c) for c in range(CHAT_CLIENTS)]
+    try:
+        deadline = time.perf_counter() + 300
+        while base is None:
+            line = proc.stdout.readline()
+            assert line and time.perf_counter() < deadline, (
+                f"apps run exited before its gateway listened (see {log_path})", proc.poll(), lines)
+            lines.append(line.rstrip())
+            found = re.match(r"metrics on (http://\S+)/metrics", line)
+            metrics_url = found.group(1) if found else metrics_url
+            found = re.match(r"gateway on (ws://[^/]+)/v1/", line)
+            if found:
+                base = found.group(1)
+        assert metrics_url is not None, lines
+        up_s = time.perf_counter() - started
+        http_base = base.replace("ws://", "http://")
+        before = _get_json(f"{http_base}/debug/launches")
+        metrics_before = scrape_url(f"{http_base}/metrics")
+
+        async def burst():
+            t0 = time.perf_counter()
+            clients = await asyncio.gather(*[
+                _memory_client(base, sessions[c], questions[c]) for c in range(CHAT_CLIENTS)])
+            return clients, time.perf_counter() - t0
+
+        clients, wall = asyncio.run(burst())
+        after = _get_json(f"{http_base}/debug/launches")
+        metrics = scrape_url(f"{http_base}/metrics")
+        # the oracle: each follow-up's rendered text under a fresh session
+        follow_ups = [answer for client in clients for answer in client[1:]]
+        oracle_asks = [[(f"chat-oracle-{c}-{t}", a["record"]["value"]["history"] + a["question"])
+                        for t, a in enumerate(client[1:])] for c, client in enumerate(clients)]
+
+        async def oracle():
+            t1 = time.perf_counter()
+            runs = await asyncio.gather(*[
+                _memory_client(base, [s for s, _ in asks], [q for _, q in asks])
+                for asks in oracle_asks])
+            return runs, time.perf_counter() - t1
+
+        oracles, oracle_wall = asyncio.run(oracle())
+        oracle_after = _get_json(f"{http_base}/debug/launches")
+        agent_metrics = scrape_url(f"{metrics_url}/metrics")
+    finally:
+        proc.terminate()
+        try:
+            stdout, _ = proc.communicate(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            stdout, _ = proc.communicate()
+        log_file.close()
+    lines += stdout.splitlines()
+    assert proc.returncode == 0 and "application stopped" in lines, (proc.returncode, lines[-5:])
+    served = _served_requests(CHAT_LOGS)
+    answers = [answer for client in clients for answer in client]
+    assert len(answers) == CHAT_CLIENTS * CHAT_TURNS, len(answers)
+    # every answer to its own session, after the turns before it
+    for client in clients:
+        history = ""
+        for answer in client:
+            record = answer["record"]
+            value = record["value"]
+            assert record["headers"]["langstream-client-session-id"] == answer["session"], record
+            assert value["sessionId"] == answer["session"] and value["question"] == answer["question"]
+            assert value["history"] == history, (answer["session"], value["history"], history)
+            assert isinstance(value["answer"], str)
+            history += value["question"] + value["answer"]
+    # the sessions' hits, on the gateway's /metrics
+    hits = metrics["torch_engine_session_hits"] - metrics_before.get("torch_engine_session_hits", 0)
+    assert hits >= CHAT_CLIENTS * (CHAT_TURNS - 1), hits
+    # each follow-up against its cold oracle
+    oracle_answers = [answer for run in oracles for answer in run]
+    assert len(oracle_answers) == len(follow_ups)
+    equal = 0
+    for warm, cold in zip(follow_ups, oracle_answers):
+        assert cold["record"]["value"]["history"] == "", cold["record"]["value"]
+        got = served[warm["record"]["headers"]["langstream-trace-id"]]
+        want = served[cold["record"]["headers"]["langstream-trace-id"]]
+        assert got["prompt_tokens"] == want["prompt_tokens"], (got, want)
+        if got["token_ids"] == want["token_ids"]:
+            equal += 1
+            continue
+        part = next((k for k, (a, b) in enumerate(zip(got["token_ids"], want["token_ids"]))
+                     if a != b), min(len(got["token_ids"]), len(want["token_ids"])))
+        lps = want["top_logprobs"][part][1]
+        assert lps[0] - lps[1] <= APP_NEAR_TIE, (label, warm["session"], part, lps)
+    # B3 through the app over the burst, by its card counters; then the
+    # oracle's cold prefills
+    delta = {name: after["launches"][name] - before["launches"][name] for name in after["launches"]}
+    calls = {name: after["model_calls"].get(name, 0) - before["model_calls"].get(name, 0)
+             for name in after["model_calls"]}
+    captured = {kind: n - before["graphs_captured"].get(kind, 0)
+                for kind, n in after["graphs_captured"].items()}
+    prefills = calls.get("paged_prefill", 0) + calls.get("paged_prefill_at_offset", 0)
+    expect = {"paged_attention": APP_LAYERS * sum(calls.values()),
+              "paged_attention/prefill": APP_LAYERS * prefills}
+    assert delta == {name: expect.get(name, 0) for name in delta}, (delta, calls)
+    decode = delta["paged_attention"] - delta["paged_attention/prefill"]
+    assert decode == APP_LAYERS * calls.get("paged_decode_step", 0) > 0, (delta, calls)
+    assert calls.get("paged_prefill_at_offset", 0) > 0, calls
+    assert not any(captured.values()), captured
+    oracle_calls = {name: oracle_after["model_calls"].get(name, 0) - after["model_calls"].get(name, 0)
+                    for name in oracle_after["model_calls"]}
+    assert oracle_calls.get("paged_prefill_at_offset", 0) == 0 < oracle_calls.get("paged_prefill", 0), (
+        oracle_calls)
+    # the app node (its python-processor steps inside) saw every question
+    total = len(answers) + len(oracle_answers)
+    node = "agent_to_json"
+    assert agent_metrics[f"{node}_records_in_total"] == total, agent_metrics.get(
+        f"{node}_records_in_total")
+    assert agent_metrics[f"{node}_records_out_total"] == total, agent_metrics.get(
+        f"{node}_records_out_total")
+    # the isolation child, timed from this process
+    child_ms, child_modules = _isolation_child_start()
+    assert child_modules == [], child_modules
+    tokens = {turn: sum(len(served[c[turn]["record"]["headers"]["langstream-trace-id"]]["token_ids"])
+                        for c in clients) for turn in range(CHAT_TURNS)}
+    latency = {turn: [c[turn]["latency_s"] for c in clients] for turn in range(CHAT_TURNS)}
+    first = 1e3 * sum(latency[0]) / len(latency[0])
+    later = [x for turn in range(1, CHAT_TURNS) for x in latency[turn]]
+    texts = sum(bool(a["record"]["value"]["answer"]) for a in answers)
+    wall_s = time.perf_counter() - started
+    log(f"phase 19 (chatbot-memory app) [{label}]: `apps run` torch-chatbot-memory, Llama-3-8B at "
+        f"{APP_LAYERS} of 32 layers (random bf16 weights), paged KV (blocks of 16), 8 slots x 2048, "
+        f"prefix cache off: up in {up_s:.1f} s; {CHAT_CLIENTS} clients x {CHAT_TURNS} turns of "
+        f"{CHAT_QUESTION_BYTES}-byte questions through the chat gateway: {len(answers)} answers in "
+        f"{wall:.2f} s, {sum(tokens.values())} tokens, {sum(tokens.values()) / wall:.1f} tok/s; "
+        f"answer latency at the clients (no chunks: the first frame is the answer) turn 1 "
+        f"{first:.1f} ms, turns 2-3 {1e3 * sum(later) / len(later):.1f} ms; session hits {hits:.0f}; "
+        f"{equal} of {len(follow_ups)} follow-ups' token ids equal to their cold oracle's "
+        f"({len(follow_ups) - equal} parted at near-ties within {APP_NEAR_TIE}), oracle "
+        f"{oracle_wall:.2f} s; {texts} of {len(answers)} answers with any text; B3 launches on the "
+        f"card over the burst {delta['paged_attention']}: prefill shape "
+        f"{delta['paged_attention/prefill']} for {prefills} prefill calls "
+        f"({calls.get('paged_prefill_at_offset', 0)} at an offset), decode shape {decode} for "
+        f"{calls.get('paged_decode_step', 0)} decode steps (model calls {calls}), the oracle's "
+        f"{oracle_calls}, no graph captured; node records in/out {total}; isolation child "
+        f"spawned and answering in {child_ms:.0f} ms, no torch loaded; phase {wall_s:.1f} s")
+    return {"wall_s": wall_s, "launches": delta, "child_ms": child_ms}
+
+
 def main() -> None:
     # the watchdog's trip captures and /debug/profile's go under build/,
     # which git ignores; so does the flight artifact, on as in `serve`
@@ -6388,6 +6688,14 @@ def main() -> None:
     started = time.perf_counter()
     serve_rag_and_check(label)
     walls.append(("RAG app", time.perf_counter() - started))
+    # the chatbot-memory app: `apps run` with --http-port, sessions of three
+    # turns through its chat gateway, their follow-ups at an offset (B3 by
+    # the app's card counters)
+    gc.collect()
+    torch.cuda.empty_cache()
+    started = time.perf_counter()
+    chat = serve_chat_and_check(label)
+    walls.append(("chatbot-memory app", time.perf_counter() - started))
     log("phase wall times, longest first: " + ", ".join(
         f"{name} {seconds:.1f}s" for name, seconds in sorted(walls, key=lambda item: -item[1]))
         + f"; {sum(seconds for _, seconds in walls):.1f}s in all")
@@ -6397,6 +6705,9 @@ def main() -> None:
         for shape in ("decode", "prefill", "verify"):
             if f"{item['name']}/{shape}" in launches:
                 item[f"{shape}_launches"] = launches[f"{item['name']}/{shape}"]
+        if item["name"] == "paged_attention":
+            # B3 through the chatbot app, by the app process's card counter
+            item["chat_app_launches"] = chat["launches"]["paged_attention"]
     log(f"chip_smoke: {time.perf_counter() - STARTED:.1f}s of wall time since torch was imported")
     log(label)
     log(json.dumps({"kernels": kernels}))

@@ -15,4 +15,8 @@ tested against. Entry points run on the CUDA card unless the caller passes
 - ``runtime``, ``serving``, ``cli``, ``api``, ``agents``, ``fleet``:
   recovery and accounting, the OpenAI server, ``serve``, the service
   interfaces, the vector store, the KV handoff's wire schema.
+- ``compiler``, ``model``, ``topics``, ``gateway``, ``agents``,
+  ``runtime``, ``utils``: LangStream apps (``apps run``): the app model,
+  planner and typed configuration check, the memory broker, the gateway,
+  every agent type but Camel's and Kafka Connect's, plugins and assets.
 """

@@ -171,8 +171,8 @@ class DataSourceRegistry:
             source = VectorStoreDataSource(config, device=self.device)
         elif service in NOT_PORTED_SERVICES:
             raise ValueError(
-                f"datasource service {service!r} is not yet ported to langstream_tpu_torch; "
-                "ported: 'sqlite', 'memory', 'vector'"
+                f"datasource service {service!r} is not yet ported to langstream_tpu_torch "
+                "(ROADMAP A7.4); ported: 'sqlite', 'memory', 'vector'"
             )
         else:
             raise ValueError(f"unknown datasource service {service!r}")

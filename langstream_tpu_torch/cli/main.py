@@ -33,7 +33,12 @@ http://HOST:PORT/metrics``) serves the runner's HTTP surface
 record counters and the engine's series, ``/ready``, ``/ok`` and
 ``/debug/profile``. SIGINT or SIGTERM drains the agents, stops the
 gateway and the HTTP surface and closes the engines. The gateway's
-``/metrics`` serves the engine's series too."""
+``/metrics`` serves the engine's series too.
+
+``python -m langstream_tpu_torch docs [TYPE] [--json]`` prints the typed
+agent-configuration table the planner checks (``model/docs.py``), and
+``plugins package DIR [-o ZIP]`` / ``plugins list`` package and list
+agent plugins (``runtime/plugins.py``), as ``langstream-tpu``'s do."""
 
 from __future__ import annotations
 
@@ -208,6 +213,15 @@ def build_parser() -> argparse.ArgumentParser:
     run.add_argument("--http-port", type=int, default=-1,
                      help="serve the runner's /info, /metrics, /ready and /debug/profile on this "
                           "port (0 picks a free one; off unless given)")
+    docs = sub.add_parser("docs", help="agent-type documentation")
+    docs.add_argument("agent_type", nargs="?", help="show one agent's docs")
+    docs.add_argument("--json", action="store_true", help="emit the JSON doc model")
+    plugins = sub.add_parser("plugins", help="agent plugin packaging")
+    plugins_sub = plugins.add_subparsers(dest="plugins_command", required=True)
+    pkg = plugins_sub.add_parser("package", help="zip a plugin dir (the NAR-build equivalent)")
+    pkg.add_argument("plugin_dir")
+    pkg.add_argument("-o", "--output", default=None)
+    plugins_sub.add_parser("list", help="show loaded plugins")
     journey = sub.add_parser(
         "journey", help="join flight artifacts ($LANGSTREAM_FLIGHT_DIR) by trace id into "
                         "per-request waterfalls, per-stage p50/p95 and SLO blame")
@@ -510,11 +524,72 @@ async def apps_run(args: argparse.Namespace) -> None:
         print("application stopped", flush=True)
 
 
+def docs_command(args: argparse.Namespace) -> None:
+    """``docs``: the table of every agent type, one type's properties, or
+    the JSON doc model."""
+    from langstream_tpu_torch.model.docs import all_docs, generate_docs_model, get_doc
+
+    if args.agent_type:
+        doc = get_doc(args.agent_type)
+        if doc is None:
+            raise SystemExit(f"no documentation for agent type {args.agent_type!r}")
+        if args.json:
+            print(json.dumps(doc.to_dict(), indent=2))
+            return
+        print(f"{doc.agent_type} ({doc.category})")
+        print(f"  {doc.description}")
+        for prop in doc.properties:
+            req = " (required)" if prop.required else ""
+            default = f" [default: {prop.default}]" if prop.default is not None else ""
+            print(f"  - {prop.name}: {prop.type}{req}{default}")
+            if prop.description:
+                print(f"      {prop.description}")
+            if prop.choices:
+                print(f"      choices: {', '.join(prop.choices)}")
+        return
+    if args.json:
+        print(json.dumps(generate_docs_model(), indent=2))
+        return
+    print("agent types (docs <type> for details):")
+    for name, doc in sorted(all_docs().items()):
+        print(f"  {name:28s} {doc.category:10s} {doc.description}")
+
+
+def plugins_command(args: argparse.Namespace) -> None:
+    """``plugins package``: validate a plugin directory and zip it;
+    ``plugins list``: the plugins of ``$LANGSTREAM_PLUGINS_DIR``."""
+    import zipfile
+
+    from langstream_tpu_torch.runtime.plugins import load_plugin, load_plugins, loaded_plugins
+
+    if args.plugins_command == "package":
+        plugin_dir = args.plugin_dir.rstrip("/")
+        load_plugin(plugin_dir)  # a bad manifest fails at build time
+        output = args.output or f"{os.path.basename(plugin_dir)}.zip"
+        with zipfile.ZipFile(output, "w", zipfile.ZIP_DEFLATED) as zf:
+            for root, _dirs, files in os.walk(plugin_dir):
+                for name in files:
+                    if not name.endswith(".pyc"):
+                        full = os.path.join(root, name)
+                        zf.write(full, os.path.relpath(full, plugin_dir))
+        print(f"packaged {plugin_dir} -> {output}")
+        return
+    if os.environ.get("LANGSTREAM_PLUGINS_DIR"):
+        load_plugins(os.environ["LANGSTREAM_PLUGINS_DIR"])
+    print(json.dumps(loaded_plugins(), indent=2))
+
+
 def main(argv: Optional[List[str]] = None) -> None:
     logging.basicConfig(level=logging.INFO)
     args = build_parser().parse_args(argv)
     if args.command == "apps":
         asyncio.run(apps_run(args))
+        return
+    if args.command == "docs":
+        docs_command(args)
+        return
+    if args.command == "plugins":
+        plugins_command(args)
         return
     if args.command == "journey":
         for line in run_journey(args.paths, trace_id=args.trace_id, slo_ttft_ms=args.slo_ttft_ms,

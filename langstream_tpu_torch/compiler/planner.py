@@ -21,8 +21,11 @@ The port's own copy of ``langstream_tpu/compiler/planner.py``. Planning
 needs each agent's kind, not its implementation, so the kind table names
 every built-in type of the JAX package and the port plans every example
 app, also those whose agents it has not ported: :func:`create_agent`
-refuses such a type, by name, when the runner starts. The JAX planner's
-typed configuration check (``model/docs.py``) is not ported.
+refuses such a type, by name, when the runner starts. Before anything
+else, :func:`build_execution_plan` holds every agent's raw configuration
+to the typed table of ``model/docs.py`` (and a ``camel-source``'s URI to
+its scheme table), as JAX's planner does: the same configurations are
+rejected, naming the same property.
 """
 
 from __future__ import annotations
@@ -337,6 +340,7 @@ def build_execution_plan(application: Application) -> ExecutionPlan:
     """``ComputeClusterRuntime.buildExecutionPlan`` equivalent
     (``langstream-api/.../runtime/ComputeClusterRuntime.java:32``)."""
     plan = ExecutionPlan(application=application)
+    _validate_agent_configs(application)
     # declared topics first (even if no agent references them: gateways may)
     for module in application.modules.values():
         for topic in module.topics.values():
@@ -346,6 +350,34 @@ def build_execution_plan(application: Application) -> ExecutionPlan:
             _build_pipeline_nodes(plan, pipeline, application)
     _validate(plan)
     return plan
+
+
+def _validate_agent_configs(application: Application) -> None:
+    """Typed config validation against the doc model BEFORE any planner
+    transforms (reference: ``ClassConfigValidator.java:60`` runs on the
+    raw agent configuration)."""
+    from langstream_tpu_torch.model.docs import validate_agent_config, validate_camel_uri
+
+    errors = []
+    for module in application.modules.values():
+        for pipeline in module.pipelines.values():
+            for agent in pipeline.agents:
+                errors.extend(validate_agent_config(agent.type, agent.configuration))
+                if agent.type == "camel-source":
+                    # an unsupported Camel URI fails at plan time, as in JAX
+                    options = agent.configuration.get("component-options")
+                    problem = validate_camel_uri(
+                        str(agent.configuration.get("component-uri") or ""),
+                        options if isinstance(options, dict) else None,
+                        expect_plugin_scheme=str(
+                            agent.configuration.get("expect-plugin-scheme", "")
+                        ).lower() in ("1", "true", "yes"),
+                    )
+                    if problem:
+                        errors.append(problem if problem.startswith("camel-source:")
+                                      else f"camel-source: {problem}")
+    if errors:
+        raise ValueError("invalid agent configuration:\n  " + "\n  ".join(errors))
 
 
 def _validate(plan: ExecutionPlan) -> None:

@@ -175,7 +175,7 @@ class GatewayServer:
             if gateway.authentication:
                 raise ValueError(
                     f"gateway {gateway.id!r} declares authentication, which is not yet "
-                    "ported to langstream_tpu_torch"
+                    "ported to langstream_tpu_torch (ROADMAP A7.2)"
                 )
         self._apps[(tenant, application.application_id)] = _RegisteredApp(
             application, topic_runtime
@@ -613,7 +613,8 @@ class GatewayServer:
         if service.get("service-url") or service.get("agent-id"):
             return json_response(
                 {"status": "ERROR", "reason": "the service gateway's proxy to an agent service "
-                                              "is not yet ported to langstream_tpu_torch"},
+                                              "is not yet ported to langstream_tpu_torch "
+                                              "(ROADMAP A7.2)"},
                 status=400,
             )
         input_topic = service.get("input-topic")

@@ -3597,12 +3597,15 @@ class DecodeEngine:
                               start_wall=getattr(request, "_submit_wall", time.time()), slot=index,
                               prompt_tokens=len(request.prompt_tokens), tokens=len(generated),
                               finish_reason=reason, ttft_ms=ttft_ms, tpot_ms=tpot_ms)
-            # the port's record also holds the answer's token ids, so that a
-            # request served behind text (an app's answer) can be held
-            # against another run token by token
+            # the port's record also holds the answer's token ids (and, with
+            # ``logprobs_topk``, each token's top-K ids and logprobs), so that
+            # a request served behind text (an app's answer) can be held
+            # against another run token by token, a parting judged by its gap
+            extra = {} if tops is None else {"top_logprobs": [
+                [[int(i) for i in ids], [float(x) for x in lps]] for ids, lps in tops]}
             flight.record("request", trace_id=tid, prompt_tokens=len(request.prompt_tokens),
                           tokens=len(generated), finish_reason=reason, ttft_ms=ttft_ms,
-                          tpot_ms=tpot_ms, token_ids=[int(t) for t in generated])
+                          tpot_ms=tpot_ms, token_ids=[int(t) for t in generated], **extra)
         slot.request = None
         slot.prefilling = False
         slot.prefill_pos = None

@@ -15,8 +15,14 @@ of an app shares one service registry on ``device`` (one engine per
 ``torch-local`` resource), the card unless the caller passes
 ``device="cpu"``; without CUDA, building the runner raises. The device
 reaches every agent in its context (``AgentContext.device``), so the
-datasources an agent resolves (the vector store) live on it too. Asset provisioning and plugin directories are not ported: an
-app that declares assets is refused before anything starts.
+datasources an agent resolves (the vector store) live on it too, and so
+do the assets it deploys (``jdbc-table``/``table`` on the sqlite
+datasource, ``vector-collection`` on the vector store): an app declaring
+an asset type no manager serves is refused, by name, before anything
+starts. Python agents get the app's ``python/`` and ``python/lib`` on
+their ``pythonPath``, service agents run under :class:`ServiceRunner`, and
+:func:`run_application` loads the plugin packages of
+``$LANGSTREAM_PLUGINS_DIR`` first, as the JAX runner does.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from langstream_tpu_torch.runtime.runner import (
     AgentRunner,
     IdentityProcessor,
     NullSink,
+    ServiceRunner,
     TopicConsumerSource,
     TopicProducerSink,
 )
@@ -77,11 +84,11 @@ class LocalApplicationRunner:
         self.runners: List[Any] = []
         self._tasks: List[asyncio.Task] = []
         self._started = asyncio.Event()
-        if plan.assets:
-            raise ValueError(
-                "assets (" + ", ".join(sorted(a.asset_type for a in plan.assets))
-                + ") are not yet ported to langstream_tpu_torch"
-            )
+        from langstream_tpu_torch.api.assets import refused_assets
+
+        refused = refused_assets(plan.assets)
+        if refused:
+            raise ValueError("; ".join(refused))
         # one provider registry per app: all agents share the same device
         # engines (one model, one KV cache pool per resource)
         from langstream_tpu_torch.providers.registry import ServiceProviderRegistry
@@ -102,6 +109,10 @@ class LocalApplicationRunner:
             if spec.creation_mode == "create-if-not-exists":
                 await admin.create_topic(spec)
         await admin.close()
+        if self.plan.assets:
+            from langstream_tpu_torch.api.assets import deploy_assets
+
+            await deploy_assets(self.plan.assets, self.application.resources, self.device)
 
     def _make_context(self, node: AgentNode, replica: int) -> AgentContext:
         state_dir = os.path.join(self.state_directory, node.id, str(replica))
@@ -123,15 +134,23 @@ class LocalApplicationRunner:
         agent = create_agent(spec.agent_type)
         agent.agent_id = spec.agent_id
         configuration = spec.configuration
+        if spec.agent_type.startswith("python-") and self.application.python_path:
+            configuration = dict(configuration)
+            paths = list(configuration.get("pythonPath", []))
+            for sub in ("", "lib"):
+                path = os.path.join(self.application.python_path, sub).rstrip("/")
+                if path not in paths and os.path.isdir(path):
+                    paths.append(path)
+            configuration["pythonPath"] = paths
         await agent.init(configuration)
         return agent
 
     async def _build_runner(self, node: AgentNode, replica: int):
         context = self._make_context(node, replica)
         if node.service is not None:
-            raise ValueError(
-                f"agent {node.id!r} is a service ({node.service.agent_type!r}); service "
-                "agents are not yet ported to langstream_tpu_torch"
+            service = await self._build_agent(node.service, context)
+            return ServiceRunner(
+                agent_id=node.id, service=service, context=context
             )
 
         # source
@@ -320,6 +339,11 @@ async def run_application(
     ``device``: the card unless the caller passes ``device="cpu"``."""
     from langstream_tpu_torch.compiler import build_application, build_execution_plan
 
+    plugins_dir = os.environ.get("LANGSTREAM_PLUGINS_DIR")
+    if plugins_dir:
+        from langstream_tpu_torch.runtime.plugins import load_plugins
+
+        load_plugins(plugins_dir)
     application = build_application(
         app_dir, instance_file=instance_file, secrets_file=secrets_file
     )

@@ -7,16 +7,20 @@ port's built-in agents register lazily here (the JAX package keeps the
 table in ``agents/__init__.py``); applications may register custom
 agents with :func:`register_agent`.
 
-The port carries the agents of the completions and RAG pipelines:
-``identity``, ``composite-agent``, the GenAI toolkit (``ai-tools``, every
-declarative step type, ``compute-ai-embeddings`` and ``query`` among
-them), the text agents (``text-splitter``, ``document-to-json``,
-``text-normaliser``, ``language-detector``, ``text-extractor``), the
-vector agents (``vector-db-sink``, ``query-vector-db``), ``re-rank`` and
-``flare-controller``. Every other built-in type of the JAX package (the
-flow agents, python agents, sources and connectors, ``http-request``,
-``langserve-invoke``, ...) plans (``compiler/planner.py``) but is refused
-here, by name, when the runner builds it.
+The port carries every built-in type of the JAX package's table
+(``langstream_tpu/agents/__init__.py``) but three: ``identity``,
+``composite-agent``, the GenAI toolkit (``ai-tools``, every declarative
+step type), the text agents, the vector agents, ``re-rank``,
+``flare-controller``, the flow agents (``dispatch``, ``timer-source``,
+``trigger-event``, ``log-event``), the python agents (in-process or
+``isolation: process``), ``webcrawler-source``, ``s3-source``,
+``file-source``, ``azure-blob-storage-source``, ``http-request``,
+``langserve-invoke``, ``exec-source`` and ``exec-sink``; plugin packages
+add theirs (``runtime/plugins.py``). ``camel-source``,
+``kafka-connect-source`` and ``kafka-connect-sink`` plan
+(``compiler/planner.py``) but are refused here, by name, when the runner
+builds them: their ``kafka:``/``pulsar:`` schemes and Kafka Connect need
+brokers the port does not have (ROADMAP A7.4).
 """
 
 from __future__ import annotations
@@ -59,6 +63,29 @@ _BUILTIN = {
     "query-vector-db": ("langstream_tpu_torch.agents.vector", "QueryVectorDBAgent"),
     "re-rank": ("langstream_tpu_torch.agents.rerank", "ReRankAgent"),
     "flare-controller": ("langstream_tpu_torch.agents.flare", "FlareControllerAgent"),
+    "python-processor": ("langstream_tpu_torch.agents.python_agents", "PythonProcessorAgent"),
+    "python-source": ("langstream_tpu_torch.agents.python_agents", "PythonSourceAgent"),
+    "python-sink": ("langstream_tpu_torch.agents.python_agents", "PythonSinkAgent"),
+    "python-service": ("langstream_tpu_torch.agents.python_agents", "PythonServiceAgent"),
+    "dispatch": ("langstream_tpu_torch.agents.flow", "DispatchAgent"),
+    "timer-source": ("langstream_tpu_torch.agents.flow", "TimerSourceAgent"),
+    "trigger-event": ("langstream_tpu_torch.agents.flow", "TriggerEventAgent"),
+    "log-event": ("langstream_tpu_torch.agents.flow", "LogEventAgent"),
+    "webcrawler-source": ("langstream_tpu_torch.agents.webcrawler", "WebCrawlerSource"),
+    "s3-source": ("langstream_tpu_torch.agents.storage", "S3Source"),
+    "file-source": ("langstream_tpu_torch.agents.storage", "FileSource"),
+    "azure-blob-storage-source": ("langstream_tpu_torch.agents.storage", "AzureBlobStorageSource"),
+    "http-request": ("langstream_tpu_torch.agents.http_request", "HttpRequestAgent"),
+    "langserve-invoke": ("langstream_tpu_torch.agents.http_request", "LangServeInvokeAgent"),
+    "exec-source": ("langstream_tpu_torch.agents.connector", "ExecSource"),
+    "exec-sink": ("langstream_tpu_torch.agents.connector", "ExecSink"),
+}
+# the JAX package's types the port refuses by name, with the ROADMAP item
+# each waits for
+NOT_PORTED = {
+    "camel-source": "A7.4: Camel's kafka: and pulsar: schemes need brokers the port lacks",
+    "kafka-connect-source": "A7.4: Kafka Connect needs a Kafka broker the port lacks",
+    "kafka-connect-sink": "A7.4: Kafka Connect needs a Kafka broker the port lacks",
 }
 for _type, (_module, _cls) in _BUILTIN.items():
     register_agent(_type, _lazy(_module, _cls))
@@ -66,17 +93,31 @@ for _type, (_module, _cls) in _BUILTIN.items():
 
 def create_agent(agent_type: str) -> Agent:
     """Instantiate the agent for ``agent_type``; a type of the JAX
-    package that the port lacks is refused by name."""
-    from langstream_tpu_torch.compiler.planner import _KIND
-
+    package that the port lacks is refused by name, with the ROADMAP item
+    it waits for."""
     factory = _AGENTS.get(agent_type)
     if factory is None:
-        if agent_type in _KIND:
+        if agent_type in NOT_PORTED:
             raise ValueError(
-                f"agent type {agent_type!r} is not yet ported to langstream_tpu_torch; "
-                f"ported: {agent_types()}"
+                f"agent type {agent_type!r} is not yet ported to langstream_tpu_torch "
+                f"(ROADMAP {NOT_PORTED[agent_type]})"
             )
         raise ValueError(f"unknown agent type {agent_type!r}; known: {agent_types()}")
-    agent = factory()
+    try:
+        agent = factory()
+    except (ImportError, AttributeError) as error:
+        raise ValueError(
+            f"agent type {agent_type!r} is registered but its implementation "
+            f"failed to load: {error}"
+        ) from error
     agent.agent_type = agent_type
     return agent
+
+
+def load_class(class_name: str) -> type:
+    """Load ``module.path.ClassName`` (used by custom python agents)."""
+    module_name, _, cls_name = class_name.rpartition(".")
+    if not module_name:
+        raise ValueError(f"className must be 'module.Class', got {class_name!r}")
+    module = importlib.import_module(module_name)
+    return getattr(module, cls_name)

@@ -40,6 +40,7 @@ from typing import Any, Dict, List, Optional
 from langstream_tpu_torch.api.agent import (
     AgentContext,
     AgentProcessor,
+    AgentService,
     AgentSink,
     AgentSource,
     RecordSink,
@@ -480,3 +481,39 @@ class AgentRunner:
             self._record_done(source_record)
             return
         raise error
+
+
+class ServiceRunner:
+    """Runs a Service agent (no record loop; reference:
+    ``AgentService.join``)."""
+
+    def __init__(self, *, agent_id: str, service: AgentService, context=None):
+        self.agent_id = agent_id
+        self.service = service
+        self.context = context or AgentContext(agent_id=agent_id)
+        self._stop = asyncio.Event()
+
+    def stop(self) -> None:
+        self._stop.set()
+
+    async def run(self) -> None:
+        await self.service.set_context(self.context)
+        await self.service.start()
+        try:
+            join_task = asyncio.ensure_future(self.service.join())
+            stop_task = asyncio.ensure_future(self._stop.wait())
+            await asyncio.wait(
+                [join_task, stop_task], return_when=asyncio.FIRST_COMPLETED
+            )
+            for task in (join_task, stop_task):
+                if not task.done():
+                    task.cancel()
+                    try:
+                        await task
+                    except asyncio.CancelledError:
+                        pass
+            if join_task.done() and not join_task.cancelled():
+                # a crashed service must propagate, not die silently
+                join_task.result()
+        finally:
+            await self.service.close()

@@ -36,8 +36,8 @@ def create_topic_runtime(streaming_cluster: Dict[str, Any]) -> TopicConnectionsR
     if factory is None:
         if kind in NOT_PORTED:
             raise ValueError(
-                f"streaming cluster type {kind!r} is not yet ported to langstream_tpu_torch; "
-                f"the port runs apps on the in-process broker (type: memory)"
+                f"streaming cluster type {kind!r} is not yet ported to langstream_tpu_torch "
+                f"(ROADMAP A7.4); the port runs apps on the in-process broker (type: memory)"
             )
         raise ValueError(
             f"unknown streaming cluster type {kind!r}; known: {sorted(_FACTORIES)}"

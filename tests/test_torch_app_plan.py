@@ -10,8 +10,9 @@ package's, over every example app.
   policy, resources), gateways and resources; where JAX's placeholder
   resolution fails, the port's fails too.
 - What the port does not carry is refused by name: an agent type it
-  lacks when the runner builds it, brokers other than the in-memory one,
-  gateways with authentication, assets. The RAG path's GenAI steps,
+  lacks when the runner builds it (Camel and Kafka Connect), brokers
+  other than the in-memory one, gateways with authentication, an asset
+  type it has no manager for. The RAG path's GenAI steps,
   refused until the port carried them, now build; a step type neither
   package knows is refused.
 """
@@ -108,13 +109,18 @@ def test_composite_merge_of_genai_steps(tmp_path):
 
 
 def test_unported_agent_type_is_refused_by_name_at_start():
+    """``http-request`` and ``webcrawler-source`` build since the port
+    carried them; Camel and Kafka Connect are refused by name, naming the
+    ROADMAP item they wait for."""
     plan = build_execution_plan(build_application(str(REPO / "examples" / "applications"
-                                                       / "http-request-processor")))
+                                                       / "camel-source")))
     runner = LocalApplicationRunner(plan, device="cpu")
-    with pytest.raises(ValueError, match="'http-request' is not yet ported"):
+    with pytest.raises(ValueError, match=r"'camel-source' is not yet ported.*ROADMAP A7\.4"):
         asyncio.run(runner.start())
-    with pytest.raises(ValueError, match="'webcrawler-source' is not yet ported"):
-        create_agent("webcrawler-source")
+    with pytest.raises(ValueError, match=r"'kafka-connect-source' is not yet ported.*A7\.4"):
+        create_agent("kafka-connect-source")
+    assert create_agent("http-request").agent_type == "http-request"
+    assert create_agent("webcrawler-source").agent_type == "webcrawler-source"
     with pytest.raises(ValueError, match="unknown agent type 'no-such-agent'"):
         create_agent("no-such-agent")
 
