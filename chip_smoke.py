@@ -155,8 +155,10 @@ Phases (any failure propagates and the exit code is not 0):
    accepted; dense: no decode-kernel launch (verify attends in plain
    PyTorch); paged: B3 (B6) once per layer per model call, its verify
    launches by the card's own counter once per layer per verify step.
-9. Checkpoint: the random weights of phase 4 (``init_params`` of
-   Llama-3-8B, seed 0, drawn on the card) written as a HF Llama directory
+9. Checkpoint (at ``CHECKPOINT_LAYERS``, 8 of 32, since phase 20 came;
+   full depth until then): the random weights of phase 4 cut to that
+   depth (``init_params`` of Llama-3-8B, seed 0, drawn on the card)
+   written as a HF Llama directory
    (``config.json``, safetensors shards and their index) under ``build/``
    by this script's own writer (so the script needs no ``safetensors``
    package), after checking the disk holds it; read back with
@@ -168,8 +170,7 @@ Phases (any failure propagates and the exit code is not 0):
    ``logprobs: 3``: every request answered, B1 and B2 once per layer per
    model call, every alternatives list sorted and at most 0 with the
    greedy token first and its own logprob; tok/s, TTFT, load seconds and
-   peak beside phase 4's, and the streams equal to phase 4's (printed,
-   not gated). The directory is removed at the end.
+   peak beside phase 4's (printed). The directory is removed at the end.
 
 10. Recovery at ``RECOVERY_LAYERS``: the watchdog's escalation
    (:func:`serve_watchdog_and_check`: ``stuck_step`` wedges a decode
@@ -272,7 +273,8 @@ Phases (any failure propagates and the exit code is not 0):
    once per layer per call by their card counters. That model written as
    a HF Mixtral directory by this script's writer and loaded back bit for
    bit (removed after). Then ``serve --model mixtral-8x7b --precompile``
-   at ``MOE_SERVE_LAYERS`` (8 of 32; 16 until phase 15 came) layers
+   at ``MOE_SERVE_LAYERS`` (4 of 32; 16 until phase 15 came, 8 until
+   phase 20 came) layers
    answers phase 4's two
    bursts, gated as phase 4 is (every request answered, no capture, B1
    and B2 once per layer per model call, MFU, MBU and prefill MFU in (0,
@@ -342,6 +344,22 @@ Phases (any failure propagates and the exit code is not 0):
    asking two questions each through ``ask`` and reading ``answers``
    under their own session. Gates and prints: :func:`serve_rag_and_check`.
    The app's log goes to ``build/app-rag/``.
+19. The chatbot-memory app (no kernel of its own: B3 through the app's
+   paged engine): ``apps run --http-port`` on the shipped
+   ``torch-chatbot-memory`` app as a subprocess (``APP_LAYERS`` layers,
+   paged, 8 slots × 2048, the prefix cache off), eight chat clients × 3
+   turns under their sessions, then cold oracle sessions. Gates and
+   prints: :func:`serve_chat_and_check`. The app's log goes to
+   ``build/app-chat/``.
+20. Apps across processes (no kernel of its own: B1 and B2 through the
+   agent-runner's engine): ``torch-completions`` as a ``tpulog`` broker
+   process, a Kafka facade broker process, ``application-setup`` and an
+   ``agent-runner`` per plan node, each a process of its own (phase 17's
+   instance but the broker); this process produces and reads through the
+   port's ``tpulog`` and Kafka clients, and restarts the LLM node's
+   runner mid-stream. Gates and prints:
+   :func:`serve_app_processes_and_check`. The processes' logs go to
+   ``build/app-procs/``.
 
 Each phase's wall time is printed in one line before the kernels'.
 
@@ -2446,7 +2464,7 @@ def serve_dense_and_check(label: str, kv_quant: bool = False, extra=(), graphs: 
         assert chained == 0, (stats, uniform_stats)
     return dict(launches, timing=timing, peak_gib=peak_gib, tok_s=tokens / wall,
                 roofline=roofline, uniform_roofline=uniform_roofline,
-                load_s=service.load_s, texts=_answered(jobs[:-1], replies[:-1])[1],
+                load_s=service.load_s,
                 uniform_tok_s=uniform_tokens / uniform_wall,
                 ttft_ms=stats["ttft_time"] / stats["requests"] * 1e3,
                 uniform_ttft_ms=uniform_stats["ttft_time"] / uniform_stats["requests"] * 1e3)
@@ -2984,11 +3002,16 @@ def serve_spec_and_check(label: str, paged: bool = False, kv_quant: bool = False
 
 
 CHECKPOINT_DIR = os.path.join("build", "llama3-8b-checkpoint")
+# the checkpoint phase's depth: full until phase 20 came, cut then by its
+# printed wall (a 16 GB directory written and read twice, and a
+# full-depth precompile)
+CHECKPOINT_LAYERS = CUT_LAYERS
 
 
 def check_checkpoint(device, path: str = CHECKPOINT_DIR) -> dict:
-    """The checkpoint gate: ``init_params(llama3_8b, seed=0)`` drawn on
-    the card as the provider draws it, written as a HF Llama directory
+    """The checkpoint gate: ``init_params(llama3_8b, seed=0)`` at
+    :data:`CHECKPOINT_LAYERS` layers drawn on the card as the provider
+    draws it, written as a HF Llama directory
     (``config.json``, 5 GB shards and their index) by
     :func:`write_hf_checkpoint`, loaded back with
     ``weights.load_safetensors_checkpoint``: its config equal to the
@@ -2998,7 +3021,7 @@ def check_checkpoint(device, path: str = CHECKPOINT_DIR) -> dict:
     the loading peak."""
     from langstream_tpu_torch.providers.torch_local import weights
 
-    config = model.LlamaConfig.llama3_8b()
+    config = dataclasses.replace(model.LlamaConfig.llama3_8b(), num_layers=CHECKPOINT_LAYERS)
     needed = int(config.num_params() * 2 * 1.05)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     free = shutil.disk_usage(os.path.dirname(path)).free
@@ -3030,7 +3053,8 @@ def check_checkpoint(device, path: str = CHECKPOINT_DIR) -> dict:
     gib = 2**30
     result = dict(write_s=write_s, load_s=load_s, bytes=written, shards=len(shards),
                   load_peak_gib=peak / gib, load_added_gib=(peak - held) / gib)
-    log(f"checkpoint gate: Llama-3-8B bf16 (init_params seed 0 on the card) written as a HF Llama "
+    log(f"checkpoint gate: Llama-3-8B bf16 at {CHECKPOINT_LAYERS} layers (init_params seed 0 on the "
+        f"card) written as a HF Llama "
         f"directory of {len(shards)} safetensors shards, {written / 1e9:.2f} GB in {write_s:.1f}s "
         f"({written / write_s / 1e9:.2f} GB/s), loaded with weights.load_safetensors_checkpoint in "
         f"{load_s:.1f}s ({written / load_s / 1e9:.2f} GB/s): config equal, {len(drawn)} leaves equal "
@@ -3054,9 +3078,7 @@ def serve_checkpoint_and_check(label: str, path: str, random_run: dict, gate: di
     a wrapper on its ``generate``) every greedy token ranked first, and
     each token's logprob equal to its own entry wherever it appears.
     Prints tok/s, mean TTFT, the weights' load seconds and the served
-    peak beside the random-weight dense phase's, and (not gated: prefill
-    groups depend on arrival timing, and cuBLAS may pick another kernel
-    for another M) how many streams equal that phase's."""
+    peak beside the random-weight dense phase's (at full depth)."""
     service, server = start_llama_server("--checkpoint", path, "--logprobs-top-k", "5")
     assert service.engine.logprobs_topk == 5 and service.top_logprobs_limit == 5
     rng = np.random.default_rng(0)
@@ -3081,9 +3103,9 @@ def serve_checkpoint_and_check(label: str, path: str, random_run: dict, gate: di
         server.stop()
         service.close()
     tokens = check_replies(jobs, replies)
-    _kernel_gates(stats, launches, host, paged=False, kv_quant=False)
-    report(label, "dense checkpoint --logprobs-top-k 5", jobs, wall, tokens, stats, launches, host,
-           peak_gib)
+    _kernel_gates(stats, launches, host, paged=False, kv_quant=False, layers=CHECKPOINT_LAYERS)
+    report(label, f"dense checkpoint at {CHECKPOINT_LAYERS} layers --logprobs-top-k 5", jobs, wall,
+           tokens, stats, launches, host, peak_gib)
     lists = 0
     for (route, body), raw in zip(jobs[:-1], replies[:-1]):
         if not body.get("logprobs"):
@@ -3111,16 +3133,12 @@ def serve_checkpoint_and_check(label: str, path: str, random_run: dict, gate: di
             if not sampling_params.temperature:
                 assert ids[0] == token, (token, ids, lps)  # argmax and top-K both take the lowest id
                 ranked += 1
-    _, texts = _answered(jobs[:-1], replies[:-1])
-    same = sum(a == b for a, b in zip(texts, random_run["texts"]))
-    log(f"checkpoint serving [{label}]: {tokens / wall:.1f} vs {random_run['tok_s']:.1f} tok/s (random-weight "
-        f"dense phase), mean TTFT {stats['ttft_time'] / stats['requests'] * 1e3:.1f} vs "
+    log(f"checkpoint serving [{label}]: {CHECKPOINT_LAYERS} layers, {tokens / wall:.1f} vs "
+        f"{random_run['tok_s']:.1f} tok/s (random-weight dense phase, 32 layers), mean TTFT {stats['ttft_time'] / stats['requests'] * 1e3:.1f} vs "
         f"{random_run['ttft_ms']:.1f} ms, weights loaded in {service.load_s:.1f}s vs drawn in "
         f"{random_run['load_s']:.1f}s, served peak {peak_gib:.2f} vs {random_run['peak_gib']:.2f} GiB "
         f"(the gate's loading peak {gate['load_peak_gib']:.2f} GiB); {lists} alternatives lists in the "
-        f"replies checked, {ranked} greedy tokens ranked first of their top 5; {same}/{len(texts)} "
-        f"streams equal to the random-weight phase's (printed, not gated: the same weights, but "
-        f"prefill groups follow arrival timing)")
+        f"replies checked, {ranked} greedy tokens ranked first of their top 5")
 
 
 # ---------------------------------------------------------------------- #
@@ -4446,7 +4464,7 @@ MOE_CHECKPOINT_DIR = os.path.join("build", "mixtral-checkpoint")
 # weights (the experts stay bf16 under int8 weights), more than one card
 # holds; 16 layers were served until the tensor-parallel phase came, cut
 # to 8 (23.74 GB) then by the phase's printed wall (its precompile)
-MOE_SERVE_LAYERS = 8
+MOE_SERVE_LAYERS = 4
 MOE_DECODE_STEPS = 8
 # the paged run and the CPU's take the dense card run's experts; where a
 # token's own top-k differs, the dense run's k-th and (k+1)-th router
@@ -6483,6 +6501,390 @@ def serve_chat_and_check(label: str) -> dict:
     return {"wall_s": wall_s, "launches": delta, "child_ms": child_ms}
 
 
+# ---------------------------------------------------------------------- #
+# 20. apps across processes: the broker, application-setup and one
+# agent-runner per plan node, each a process of its own
+# ---------------------------------------------------------------------- #
+PROCS_LOGS = os.path.join("build", "app-procs")
+PROCS_SESSIONS = 8
+PROCS_RESTART_QUESTIONS = 4
+PROCS_START_S = 300  # the longest wait for a process's line
+
+
+def _procs_instance(streaming_cluster: dict) -> str:
+    """Phase 17's instance of ``torch-completions`` on another broker."""
+    return APP_INSTANCE.replace("  streamingCluster:\n    type: memory\n",
+                                "  streamingCluster: " + json.dumps(streaming_cluster) + "\n")
+
+
+class _Proc:
+    """A child process of the phase: its stdout read line by line, its
+    stderr into ``<logs>/<name>.log``."""
+
+    def __init__(self, name: str, args, env=None) -> None:
+        self.name = name
+        self.log_path = os.path.join(PROCS_LOGS, f"{name}.log")
+        self._log = open(self.log_path, "w")
+        self.proc = subprocess.Popen([sys.executable, "-m", *args], stdout=subprocess.PIPE,
+                                     stderr=self._log, text=True, env=env or dict(os.environ))
+        self.lines = []
+
+    def wait_for(self, pattern: str, timeout: float = PROCS_START_S):
+        """The first stdout line matching ``pattern``, read on a thread
+        (the caller's event loop, if any, keeps running)."""
+        deadline = time.perf_counter() + timeout
+        while True:
+            line = self.proc.stdout.readline()
+            assert line and time.perf_counter() < deadline, (
+                f"{self.name} exited or stalled before {pattern!r} (see {self.log_path})",
+                self.proc.poll(), self.lines[-5:])
+            self.lines.append(line.rstrip())
+            found = re.search(pattern, line)
+            if found:
+                return found
+
+    def stop(self, timeout: float = 120, terminate: bool = True) -> int:
+        """SIGTERM (unless ``terminate`` is false: the process ends on its
+        own), then the exit code (killed after ``timeout``)."""
+        if terminate and self.proc.poll() is None:
+            self.proc.terminate()
+        try:
+            rest, _ = self.proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            rest, _ = self.proc.communicate()
+        self.lines += (rest or "").splitlines()
+        self._log.close()
+        return self.proc.returncode
+
+
+def _procs_questions(session: int) -> list:
+    rng = np.random.default_rng(2000 + session)
+    return [f"question {turn} of session {session}: what is a "
+            + " ".join(rng.choice(WORDS, size=4 + turn)) + "?" for turn in range(3)]
+
+
+async def _procs_produce(runtime, items) -> None:
+    """Produce ``items`` ((session, turn, trace id)) to ``input-topic``,
+    each question under its session's header and its own trace id."""
+    from langstream_tpu_torch.api.records import Record
+
+    producer = runtime.create_producer("chip-smoke", {"topic": "input-topic"})
+    for session, turn, trace_id in items:
+        name = f"procs-session-{session}"
+        await producer.write(Record(value=_procs_questions(session)[turn], key=name, headers=(
+            ("langstream-client-session-id", name), ("langstream-trace-id", trace_id))))
+    await producer.close()
+
+
+async def _procs_read(items, seen: dict, chunks: dict, readers) -> None:
+    """Read ``history-topic`` and ``output-topic`` until every trace id of
+    ``items`` has its answer and its last chunk. ``seen``: trace id ->
+    answer records (a second record of one trace id is a redelivery);
+    ``chunks``: trace id -> chunk records."""
+    history, output = readers
+    wanted = {trace_id for _, _, trace_id in items}
+    deadline = time.perf_counter() + PROCS_START_S
+
+    def last_chunk(trace_id):
+        return any(c.header("stream-last-message") == "true" for c in chunks.get(trace_id, ()))
+
+    while not all(trace_id in seen and last_chunk(trace_id) for trace_id in wanted):
+        assert time.perf_counter() < deadline, (sorted(wanted - set(seen)), sorted(seen))
+        for record in await history.read(100, 0.05):
+            seen.setdefault(record.header("langstream-trace-id"), []).append(record)
+        for record in await output.read(100, 0.05):
+            chunks.setdefault(record.header("langstream-trace-id"), []).append(record)
+
+
+def _procs_readers(runtime):
+    from langstream_tpu_torch.api.topics import OffsetPosition
+
+    return tuple(runtime.create_reader({"topic": topic}, OffsetPosition.EARLIEST)
+                 for topic in ("history-topic", "output-topic"))
+
+
+def _check_procs_answers(seen: dict, chunks: dict, trace_ids) -> dict:
+    """Each answer's chunks, one stream, in order, ending with the last
+    flag, concatenate to the answer on ``history-topic``; the answer keeps
+    its session's header. Returns the rendered messages by trace id."""
+    messages = {}
+    for trace_id in trace_ids:
+        record = seen[trace_id][0]
+        frames = sorted({c.header("stream-id"): None for c in chunks[trace_id]})
+        assert len(frames) == 1, (trace_id, frames)
+        ordered = sorted(chunks[trace_id], key=lambda c: int(c.header("stream-index")))
+        ordered = [c for i, c in enumerate(ordered) if int(c.header("stream-index")) == i]
+        assert [c.header("stream-last-message") for c in ordered] == (
+            ["false"] * (len(ordered) - 1) + ["true"]), trace_id
+        assert "".join(c.value for c in ordered) == record.value["answer"], trace_id
+        assert record.header("langstream-client-session-id") == record.key, trace_id
+        assert all(c.header("langstream-client-session-id") == record.key for c in ordered)
+        messages[trace_id] = json.loads(record.value["prompt"])["messages"]
+    return messages
+
+
+def _procs_kernel_gate(before: dict, after: dict):
+    """The ``/debug/launches`` deltas of a burst: B1 once per layer per
+    prefill call and B2 once per layer per decode step, no other kernel,
+    no graph captured. Returns the deltas and the model calls."""
+    delta = {k: after["launches"][k] - before["launches"][k] for k in after["launches"]}
+    calls = {k: after["model_calls"].get(k, 0) - before["model_calls"].get(k, 0)
+             for k in after["model_calls"]}
+    captured = {k: n - before["graphs_captured"].get(k, 0)
+                for k, n in after["graphs_captured"].items()}
+    expect = {"flash_prefill": APP_LAYERS * calls.get("prefill", 0),
+              "flash_decode": APP_LAYERS * calls.get("decode_step", 0)}
+    assert delta == {k: expect.get(k, 0) for k in delta}, (delta, calls)
+    assert expect["flash_prefill"] > 0 and expect["flash_decode"] > 0, (delta, calls)
+    assert not any(captured.values()), captured
+    return delta, calls
+
+
+def _runner_http(proc: _Proc) -> str:
+    return proc.wait_for(r"agent-runner \S+ on cuda(?::\d+)?: (http://\S+)/metrics").group(1)
+
+
+def _start_runners(name: str, plan, nodes, logs: str):
+    """One ``agent-runner`` for each of ``nodes`` of ``plan``, its pod
+    configuration under :data:`PROCS_LOGS`, the flight recorder into
+    ``logs/flight``."""
+    from langstream_tpu_torch.runtime.pod import pod_configuration
+
+    runners = []
+    for node in nodes:
+        config_path = os.path.join(PROCS_LOGS, f"{name}-{node.id}.json")
+        with open(config_path, "w") as fh:
+            json.dump(pod_configuration(plan, node), fh)
+        runners.append((node, _Proc(f"{name}-{node.id}", [
+            "langstream_tpu_torch", "agent-runner", "--config", config_path, "--http-port", "0"],
+            env=_app_env(logs))))
+    return runners
+
+
+def _procs_plan(streaming_cluster: dict, name: str):
+    from langstream_tpu_torch.compiler import build_application, build_execution_plan
+
+    instance = os.path.join(PROCS_LOGS, f"{name}-instance.yaml")
+    with open(instance, "w") as fh:
+        fh.write(_procs_instance(streaming_cluster))
+    application = build_application(APP_DIR, instance_file=instance)
+    return build_execution_plan(application), instance
+
+
+def serve_app_processes_and_check(label: str) -> dict:
+    """Phase 20: ``torch-completions`` deployed as LangStream deploys it,
+    one process a role, on a durable broker. The phase starts ``python -m
+    langstream_tpu_torch broker DIR`` (a ``tpulog`` broker over
+    ``build/app-procs/broker``) and the port's ``KafkaFacadeBroker``
+    (``python -m langstream_tpu_torch.topics.kafka.server``), one
+    ``application-setup`` per broker (the app's three topics), and one
+    ``agent-runner`` per node of each plan (the chat-completions node:
+    Llama-3-8B at full width, :data:`APP_LAYERS` of 32 layers, random
+    bf16 weights, 4 slots × 512, ``precompile``; phase 17's instance but
+    the broker). This process is the client: the port's ``tpulog``
+    client, then its Kafka client, produce :data:`PROCS_SESSIONS` sessions
+    × 2 questions (a wave a turn) to ``input-topic`` and read
+    ``history-topic`` and ``output-topic``. Gates: every question
+    answered over both brokers; each answer's chunks concatenate to it;
+    over ``tpulog`` the runner's ``/debug/launches`` deltas B1 once per
+    layer per prefill call and B2 once per layer per decode step, no other
+    kernel, no graph captured; the answers' token ids (the runners'
+    flight records) equal the direct service's over the same resolved
+    configuration but for near-ties (:func:`_tokens_part_at_a_near_tie`),
+    over both brokers. Then the LLM node's runner gets SIGTERM (exit 0,
+    its consumer leaves the group), :data:`PROCS_RESTART_QUESTIONS` more
+    questions are produced while it is down, and a new runner of the same
+    consumer group answers all of them: none lost; any redelivery (a trace
+    id answered twice) is counted and printed. The broker's native log
+    store and this process's native CRC32C are the libraries built from
+    ``langstream_tpu_torch/native/``. Printed with no claim: the
+    processes' up times, the waves' seconds, tok/s."""
+    from langstream_tpu_torch import native
+    from langstream_tpu_torch.providers.torch_local.provider import TorchCompletionsService
+    from langstream_tpu_torch.runtime.pod import application_document
+    from langstream_tpu_torch.topics import create_topic_runtime
+
+    started = time.perf_counter()
+    shutil.rmtree(PROCS_LOGS, ignore_errors=True)
+    os.makedirs(PROCS_LOGS)
+    procs = []
+    try:
+        broker = _Proc("broker", ["langstream_tpu_torch", "broker",
+                                  os.path.join(PROCS_LOGS, "broker"), "--port", "0"])
+        facade = _Proc("kafka", ["langstream_tpu_torch.topics.kafka.server", "--port", "0"])
+        procs += [broker, facade]
+        found = broker.wait_for(r"on (\S+:\d+) \(native log store (\S+)\)$")
+        address, store = found.group(1), found.group(2)
+        bootstrap = facade.wait_for(r"kafka facade broker on (\S+:\d+)$").group(1)
+        assert store == native.library_path("logstore"), (store, native.library_path("logstore"))
+        clusters = {"tpulog": {"type": "tpulog", "configuration": {"address": address}},
+                    "kafka": {"type": "kafka", "configuration": {"bootstrapServers": bootstrap}}}
+        plans = {name: _procs_plan(cluster, name)[0] for name, cluster in clusters.items()}
+        setups = [_Proc(f"setup-{name}", ["langstream_tpu_torch", "application-setup"],
+                        env=dict(os.environ, LANGSTREAM_APPLICATION=application_document(
+                            plan.application))) for name, plan in plans.items()]
+        for setup in setups:
+            assert setup.stop(PROCS_START_S, terminate=False) == 0, (setup.name, setup.lines[-5:])
+        # the runners of both brokers start at once
+        runner_sets = {name: _start_runners(name, plan, plan.agents, os.path.join(PROCS_LOGS, name))
+                       for name, plan in plans.items()}
+        procs += [proc for runners in runner_sets.values() for _, proc in runners]
+        http = {}
+        for name, runners in runner_sets.items():
+            for node, proc in runners:
+                http[proc.name] = _runner_http(proc)
+                proc.wait_for(r"agent-runner \S+ ready$")
+        up_s = time.perf_counter() - started
+
+        def llm(name):
+            """The runner of the chat-completions node."""
+            (node, proc), = [(n, p) for n, p in runner_sets[name]
+                             if "ai-chat-completions" in json.dumps(dataclasses.asdict(n))]
+            return node, proc
+
+        results = {}
+        for name in ("tpulog", "kafka"):
+            node, proc = llm(name)
+            runtime = create_topic_runtime(clusters[name])
+            before = _get_json(f"{http[proc.name]}/debug/launches")
+
+            turns = [[(s, t, f"procs-{name}-{s}-{t}") for s in range(PROCS_SESSIONS)]
+                     for t in range(2)]
+
+            async def burst():
+                readers = _procs_readers(runtime)
+                seen, chunks = {}, {}
+                waves = []
+                for items in turns:
+                    wave_started = time.perf_counter()
+                    await _procs_produce(runtime, items)
+                    await _procs_read(items, seen, chunks, readers)
+                    waves.append(time.perf_counter() - wave_started)
+                for reader in readers:
+                    await reader.close()
+                await runtime.close()
+                return seen, chunks, waves
+
+            seen, chunks, waves = asyncio.run(burst())
+            after = _get_json(f"{http[proc.name]}/debug/launches")
+            trace_ids = [trace for items in turns for _, _, trace in items]
+            messages = _check_procs_answers(seen, chunks, trace_ids)
+            results[name] = dict(seen=seen, waves=waves, messages=messages, before=before,
+                                 after=after, trace_ids=trace_ids)
+        # B1/B2 over tpulog by the runner's card counters
+        tpulog = results["tpulog"]
+        delta, calls = _procs_kernel_gate(tpulog["before"], tpulog["after"])
+        # the Kafka runner is done; the LLM node's runner over tpulog stops
+        _, kafka_proc = llm("kafka")
+        assert kafka_proc.stop() == 0, kafka_proc.lines[-5:]
+        node, first = llm("tpulog")
+        stop_started = time.perf_counter()
+        assert first.stop() == 0 and f"agent-runner {node.id} stopped" in first.lines, first.lines[-5:]
+        stopped_s = time.perf_counter() - stop_started
+        # questions while it is down, then a new runner of the same group
+        restart = [(s, 2, f"procs-restart-{s}") for s in range(PROCS_RESTART_QUESTIONS)]
+        runtime = create_topic_runtime(clusters["tpulog"])
+        asyncio.run(_procs_produce(runtime, restart))
+        restart_started = time.perf_counter()
+        (_, second), = _start_runners("tpulog-restart", plans["tpulog"], [node],
+                                      os.path.join(PROCS_LOGS, "tpulog-restart"))
+        procs.append(second)
+        # the direct service, on the card in this process, while the new
+        # runner comes up
+        application_config = plans["tpulog"].application.resources["gpu-llm"]["configuration"]
+        config = json.loads(json.dumps(application_config))
+        config["engine"]["logprobs-top-k"] = 5
+        service = TorchCompletionsService(config, device="cuda")
+        tokenizer = service.tokenizer
+        try:
+            async def direct():
+                async def one_session(session):
+                    out = {}
+                    for turn in range(2):
+                        trace_id = f"procs-tpulog-{session}-{turn}"
+                        prompt = tokenizer.apply_chat_template(tpulog["messages"][trace_id])
+                        out[turn] = await service.engine.generate(
+                            prompt, engine_lib.SamplingParams(max_new_tokens=APP_MAX_TOKENS),
+                            stop_tokens=set(tokenizer.eos_ids),
+                            session_id=f"procs-session-{session}")
+                    return session, out
+
+                return dict(await asyncio.gather(*[one_session(s) for s in range(PROCS_SESSIONS)]))
+
+            direct_started = time.perf_counter()
+            direct_runs = asyncio.run(direct())
+            direct_s = time.perf_counter() - direct_started
+        finally:
+            service.close()
+        _runner_http(second)
+        second.wait_for(r"agent-runner \S+ ready$")
+        restart_up_s = time.perf_counter() - restart_started
+
+        async def after_restart():
+            readers = _procs_readers(runtime)
+            seen, chunks = {}, {}
+            await _procs_read(restart, seen, chunks, readers)
+            # a last look for late redeliveries
+            for record in await readers[0].read(100, 0.3):
+                seen.setdefault(record.header("langstream-trace-id"), []).append(record)
+            for reader in readers:
+                await reader.close()
+            await runtime.close()
+            return seen, chunks
+
+        restart_seen, restart_chunks = asyncio.run(after_restart())
+        assert second.stop() == 0, second.lines[-5:]
+        restart_s = time.perf_counter() - restart_started
+        _check_procs_answers(restart_seen, restart_chunks, [t for _, _, t in restart])
+        redelivered = sum(len(records) - 1 for records in restart_seen.values())
+        lost = [t for _, _, t in restart if t not in restart_seen]
+        assert not lost, lost
+    finally:
+        for proc in procs:
+            if proc.proc.poll() is None:
+                proc.stop()
+    # the broker's native store, this process's native CRC32C (the Kafka
+    # client's record batches)
+    assert native.LOADED.get("kafkacodec") == native.library_path("kafkacodec"), native.LOADED
+    # token ids against the direct service, over both brokers
+    equal, parted, tokens = {}, {}, {}
+    for name in ("tpulog", "kafka"):
+        served = _served_tokens(os.path.join(PROCS_LOGS, name))
+        assert set(results[name]["trace_ids"]) <= set(served), (name, sorted(served))
+        equal[name] = 0
+        for session in range(PROCS_SESSIONS):
+            for turn in range(2):
+                trace_id = f"procs-{name}-{session}-{turn}"
+                equal[name] += _tokens_part_at_a_near_tie(
+                    served[trace_id], direct_runs[session][turn], f"{label} {name} {trace_id}")
+        parted[name] = 2 * PROCS_SESSIONS - equal[name]
+        tokens[name] = sum(len(served[t]) for t in results[name]["trace_ids"])
+    wall_s = time.perf_counter() - started
+    answered = {name: len(results[name]["trace_ids"]) for name in results}
+    log(f"phase 20 (apps across processes) [{label}]: torch-completions as a tpulog broker, a "
+        f"Kafka facade broker, application-setup and an agent-runner per plan node "
+        f"({len(plans['tpulog'].agents)} node(s)), each a process; Llama-3-8B at {APP_LAYERS} of 32 "
+        f"layers (random bf16 weights), 4 slots x 512; up in {up_s:.1f} s (brokers, setups, both "
+        f"runners); tpulog: {answered['tpulog']} answers in waves of "
+        f"{', '.join(f'{w:.2f}' for w in results['tpulog']['waves'])} s, {tokens['tpulog']} tokens, "
+        f"{tokens['tpulog'] / sum(results['tpulog']['waves']):.1f} tok/s; kafka: "
+        f"{answered['kafka']} answers in waves of "
+        f"{', '.join(f'{w:.2f}' for w in results['kafka']['waves'])} s, {tokens['kafka']} tokens; "
+        f"token ids equal to the direct service's {equal['tpulog']} / {equal['kafka']} of "
+        f"{2 * PROCS_SESSIONS} (tpulog / kafka; the rest parted at near-ties within {APP_NEAR_TIE}), "
+        f"direct {direct_s:.2f} s; B1 {delta['flash_prefill']}, B2 {delta['flash_decode']} on the "
+        f"tpulog runner's card counters for {calls.get('prefill', 0)} prefill calls and "
+        f"{calls.get('decode_step', 0)} decode steps (model calls {calls}), no graph captured; the "
+        f"LLM runner stopped by SIGTERM in {stopped_s:.1f} s, {PROCS_RESTART_QUESTIONS} questions "
+        f"produced while it was down, a new runner of its group up in {restart_up_s:.1f} s and all "
+        f"{PROCS_RESTART_QUESTIONS} answered ({restart_s:.1f} s from its start), 0 lost, "
+        f"{redelivered} redelivered; native log store {os.path.basename(store)}, native CRC32C "
+        f"{os.path.basename(native.LOADED['kafkacodec'])}; phase {wall_s:.1f} s (cut for it: the "
+        f"checkpoint phase at {CHECKPOINT_LAYERS} layers, Mixtral served at {MOE_SERVE_LAYERS})")
+    return {"launches": delta, "wall_s": wall_s, "redelivered": redelivered}
+
+
 def main() -> None:
     # the watchdog's trip captures and /debug/profile's go under build/,
     # which git ignores; so does the flight artifact, on as in `serve`
@@ -6696,6 +7098,14 @@ def main() -> None:
     started = time.perf_counter()
     chat = serve_chat_and_check(label)
     walls.append(("chatbot-memory app", time.perf_counter() - started))
+    # apps across processes: a tpulog broker and a Kafka facade broker,
+    # application-setup and an agent-runner per plan node, each a process
+    # (B1, B2 by the runner's card counters)
+    gc.collect()
+    torch.cuda.empty_cache()
+    started = time.perf_counter()
+    procs = serve_app_processes_and_check(label)
+    walls.append(("apps across processes", time.perf_counter() - started))
     log("phase wall times, longest first: " + ", ".join(
         f"{name} {seconds:.1f}s" for name, seconds in sorted(walls, key=lambda item: -item[1]))
         + f"; {sum(seconds for _, seconds in walls):.1f}s in all")
@@ -6708,6 +7118,9 @@ def main() -> None:
         if item["name"] == "paged_attention":
             # B3 through the chatbot app, by the app process's card counter
             item["chat_app_launches"] = chat["launches"]["paged_attention"]
+        if item["name"] in ("flash_prefill", "flash_decode"):
+            # B1, B2 through the agent-runner process, by its card counter
+            item["agent_runner_launches"] = procs["launches"][item["name"]]
     log(f"chip_smoke: {time.perf_counter() - STARTED:.1f}s of wall time since torch was imported")
     log(label)
     log(json.dumps({"kernels": kernels}))

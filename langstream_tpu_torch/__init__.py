@@ -16,7 +16,9 @@ tested against. Entry points run on the CUDA card unless the caller passes
   recovery and accounting, the OpenAI server, ``serve``, the service
   interfaces, the vector store, the KV handoff's wire schema.
 - ``compiler``, ``model``, ``topics``, ``gateway``, ``agents``,
-  ``runtime``, ``utils``: LangStream apps (``apps run``): the app model,
-  planner and typed configuration check, the memory broker, the gateway,
-  every agent type but Camel's and Kafka Connect's, plugins and assets.
+  ``runtime``, ``utils``, ``native``: LangStream apps (``apps run``, or
+  one process a role: ``broker``, ``application-setup``,
+  ``agent-runner``): the app model, planner and typed configuration
+  check, the brokers (``memory``, ``tpulog`` over the native log store,
+  ``kafka``), the gateway, every agent type, plugins and assets.
 """

@@ -23,7 +23,8 @@ its StatefulSet identity (``runtime.multihost``).
 ``python -m langstream_tpu_torch apps run <dir> --instance ...`` runs a
 LangStream application in this process, as ``langstream-tpu apps run``
 does (``langstream_tpu/cli/main.py``): the app is parsed and planned,
-every agent runs on the in-memory broker, its ``torch-local`` resources
+every agent runs on the broker its instance names (``memory``, ``tpulog``
+or ``kafka``), its ``torch-local`` resources
 serve on the card (``--device cpu`` for the CPU), and its gateways listen
 on ``--gateway-port`` (0 picks a free one; the line ``gateway on
 ws://HOST:PORT/v1/...`` names it). ``--http-port PORT`` (off unless
@@ -34,6 +35,18 @@ record counters and the engine's series, ``/ready``, ``/ok`` and
 ``/debug/profile``. SIGINT or SIGTERM drains the agents, stops the
 gateway and the HTTP surface and closes the engines. The gateway's
 ``/metrics`` serves the engine's series too.
+
+Across processes, as LangStream deploys an app (one pod a plan node):
+``python -m langstream_tpu_torch broker DIR [--host H] [--port P]`` serves
+a durable ``tpulog`` broker over ``DIR`` (it prints ``tpulog broker
+serving DIR on HOST:PORT (native log store LIB)``); ``application-setup
+[--delete] [--device cpu]`` creates the
+topics of the Application document in ``$LANGSTREAM_APPLICATION`` on the
+broker its instance names; and ``agent-runner --config
+pod-configuration.json [--http-port P] [--device cpu]`` runs one plan
+node (``runtime/pod.py``; ``pod_configuration(plan, node)`` writes the
+file) until SIGTERM, serving ``/info``, ``/metrics``, ``/ready``,
+``/debug/profile`` and ``/debug/launches``.
 
 ``python -m langstream_tpu_torch docs [TYPE] [--json]`` prints the typed
 agent-configuration table the planner checks (``model/docs.py``), and
@@ -213,6 +226,22 @@ def build_parser() -> argparse.ArgumentParser:
     run.add_argument("--http-port", type=int, default=-1,
                      help="serve the runner's /info, /metrics, /ready and /debug/profile on this "
                           "port (0 picks a free one; off unless given)")
+    broker = sub.add_parser("broker", help="serve a durable tpulog broker")
+    broker.add_argument("directory", help="broker data directory")
+    broker.add_argument("--host", default="127.0.0.1")
+    broker.add_argument("--port", type=int, default=4551, help="0 picks a free one")
+    # pod entry points (reference: AgentRunnerStarter.java:39,
+    # ApplicationSetupRunner.java:40)
+    runner = sub.add_parser("agent-runner", help="run one plan node from a mounted pod config")
+    runner.add_argument("--config", required=True, help="path to pod-configuration.json")
+    runner.add_argument("--http-port", type=int, default=8080,
+                        help="/info, /metrics, /ready, /debug/* port (0 picks a free one)")
+    runner.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    setup = sub.add_parser("application-setup",
+                           help="create the topics and assets of $LANGSTREAM_APPLICATION")
+    setup.add_argument("--delete", action="store_true",
+                       help="delete the topics whose deletion-mode is delete instead")
+    setup.add_argument("--device", default="cuda", help="the assets' device: cuda or cpu")
     docs = sub.add_parser("docs", help="agent-type documentation")
     docs.add_argument("agent_type", nargs="?", help="show one agent's docs")
     docs.add_argument("--json", action="store_true", help="emit the JSON doc model")
@@ -524,6 +553,30 @@ async def apps_run(args: argparse.Namespace) -> None:
         print("application stopped", flush=True)
 
 
+async def broker_serve(args: argparse.Namespace) -> None:
+    """``broker DIR``: the tpulog broker over ``DIR`` until SIGINT or
+    SIGTERM; it prints its address and the native log store's library
+    (built first, if needed) once it listens."""
+    import signal
+
+    from langstream_tpu_torch import native
+    from langstream_tpu_torch.topics.log.server import serve
+
+    native.load("logstore")
+    server = await serve(args.directory, host=args.host, port=args.port)
+    print(f"tpulog broker serving {args.directory} on {server.address} (native log store "
+          f"{native.LOADED['logstore']})", flush=True)
+    stop = asyncio.Event()
+    loop = asyncio.get_running_loop()
+    for signum in (signal.SIGINT, signal.SIGTERM):
+        loop.add_signal_handler(signum, stop.set)
+    try:
+        await stop.wait()
+    finally:
+        await server.close()
+        server.broker.close()
+
+
 def docs_command(args: argparse.Namespace) -> None:
     """``docs``: the table of every agent type, one type's properties, or
     the JSON doc model."""
@@ -584,6 +637,19 @@ def main(argv: Optional[List[str]] = None) -> None:
     args = build_parser().parse_args(argv)
     if args.command == "apps":
         asyncio.run(apps_run(args))
+        return
+    if args.command == "broker":
+        asyncio.run(broker_serve(args))
+        return
+    if args.command == "agent-runner":
+        from langstream_tpu_torch.runtime.pod import agent_runner_main
+
+        asyncio.run(agent_runner_main(args.config, http_port=args.http_port, device=args.device))
+        return
+    if args.command == "application-setup":
+        from langstream_tpu_torch.runtime.pod import application_setup_main
+
+        asyncio.run(application_setup_main(delete=args.delete, device=args.device))
         return
     if args.command == "docs":
         docs_command(args)

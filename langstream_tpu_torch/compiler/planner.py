@@ -24,7 +24,7 @@ app, also those whose agents it has not ported: :func:`create_agent`
 refuses such a type, by name, when the runner starts. Before anything
 else, :func:`build_execution_plan` holds every agent's raw configuration
 to the typed table of ``model/docs.py`` (and a ``camel-source``'s URI to
-its scheme table), as JAX's planner does: the same configurations are
+``agents/camel.py``'s scheme table), as JAX's planner does: the same configurations are
 rejected, naming the same property.
 """
 
@@ -356,7 +356,8 @@ def _validate_agent_configs(application: Application) -> None:
     """Typed config validation against the doc model BEFORE any planner
     transforms (reference: ``ClassConfigValidator.java:60`` runs on the
     raw agent configuration)."""
-    from langstream_tpu_torch.model.docs import validate_agent_config, validate_camel_uri
+    from langstream_tpu_torch.agents.camel import validate_component_uri
+    from langstream_tpu_torch.model.docs import validate_agent_config
 
     errors = []
     for module in application.modules.values():
@@ -366,7 +367,7 @@ def _validate_agent_configs(application: Application) -> None:
                 if agent.type == "camel-source":
                     # an unsupported Camel URI fails at plan time, as in JAX
                     options = agent.configuration.get("component-options")
-                    problem = validate_camel_uri(
+                    problem = validate_component_uri(
                         str(agent.configuration.get("component-uri") or ""),
                         options if isinstance(options, dict) else None,
                         expect_plugin_scheme=str(

@@ -136,6 +136,22 @@ async def write_response(writer: asyncio.StreamWriter, response: Response) -> No
     await writer.drain()
 
 
+async def launches_response() -> Response:
+    """``/debug/launches``: this process's engines' model calls and graphs
+    captured (``engines_dispatches``), and each kernel's launches on the
+    card since its library loaded (``ops/launches.py``)."""
+    engine_module = sys.modules.get(_ENGINE_MODULE)
+    out: Dict[str, Any] = {"model_calls": {}, "graphs_captured": {}}
+    if engine_module is not None:
+        out.update(engine_module.engines_dispatches())
+    from langstream_tpu_torch.ops import launches
+
+    # off the event loop: the read waits for the card
+    out["launches"] = await asyncio.get_running_loop().run_in_executor(
+        None, lambda: launches.read(shapes=True))
+    return json_response(out)
+
+
 class _RegisteredApp:
     def __init__(self, application: Application, topic_runtime) -> None:
         self.application = application
@@ -229,7 +245,7 @@ class GatewayServer:
         if request.path == "/metrics":
             return self._metrics()
         if request.path == "/debug/launches":
-            return await self._launches()
+            return await launches_response()
         if len(parts) == 5 and parts[0] == "v1" and parts[1] in ("produce", "consume", "chat"):
             request.match_info = dict(zip(("tenant", "application", "gateway"), parts[2:]))
             if request.method != "GET":
@@ -260,18 +276,6 @@ class GatewayServer:
         return Response(200, prometheus_text(self.metrics.snapshot(), gauges,
                                              histograms).encode("utf-8"),
                         "text/plain; charset=utf-8")
-
-    async def _launches(self) -> Response:
-        engine_module = sys.modules.get(_ENGINE_MODULE)
-        out: Dict[str, Any] = {"model_calls": {}, "graphs_captured": {}}
-        if engine_module is not None:
-            out.update(engine_module.engines_dispatches())
-        from langstream_tpu_torch.ops import launches
-
-        # off the event loop: the read waits for the card
-        out["launches"] = await asyncio.get_running_loop().run_in_executor(
-            None, lambda: launches.read(shapes=True))
-        return json_response(out)
 
     # ------------------------------------------------------------------ #
     # request validation (GatewayRequestHandler.validateRequest parity)

@@ -17,11 +17,10 @@ Validation is deliberately advisory-strict: unknown keys are errors for
 documented agents (matching ClassConfigValidator's default), but agent
 types with no doc entry pass through untouched (custom/python agents).
 
-The port's own copy of ``langstream_tpu/model/docs.py``: the same table
-(the three types the port refuses at start, ``camel-source`` and Kafka
-Connect's, keep their entries, so that the port plans what JAX plans and
-rejects what it rejects), and :func:`validate_camel_uri`, the plan-time
-part of ``langstream_tpu/agents/camel.py`` that JAX's planner calls.
+The port's own copy of ``langstream_tpu/model/docs.py``: the same table,
+so that the port plans what JAX plans and rejects what it rejects. A
+``camel-source``'s URI is judged at plan time by
+``agents/camel.py``'s ``validate_component_uri``, as in JAX.
 """
 
 from __future__ import annotations
@@ -508,67 +507,3 @@ for doc in [
              allow_unknown=True),
 ]:
     register_doc(doc)
-
-
-# ---------------------------------------------------------------------- #
-# camel-source URIs at plan time (``langstream_tpu/agents/camel.py``'s
-# ``validate_component_uri`` over its scheme table)
-# ---------------------------------------------------------------------- #
-# scheme -> what its URI path must name (None: may be empty)
-CAMEL_SCHEME_PATHS: Dict[str, Optional[str]] = {
-    "timer": None,
-    "file": "a directory path",
-    "kafka": "a topic name",
-    "netty-http": "a bind URL",
-    "aws2-s3": "a bucket name",
-    "azure-storage-blob": "accountName/containerName",
-    "pulsar": "a topic",
-}
-
-
-def _camel_uri_parts(uri: str, options: Optional[Dict[str, Any]]) -> Tuple[str, str]:
-    """(scheme, path) of a Camel endpoint URI, as camel's
-    ``parse_component_uri`` splits it."""
-    scheme, _, rest = uri.partition(":")
-    if not scheme or not rest:
-        raise ValueError(f"not a Camel endpoint URI: {uri!r}")
-    path = rest.partition("?")[0]
-    scheme = scheme.lower()
-    if scheme in ("timer", "kafka"):
-        path = path.strip("/")
-    return scheme, path
-
-
-def validate_camel_uri(
-    uri: str,
-    options: Optional[Dict[str, Any]] = None,
-    expect_plugin_scheme: bool = False,
-) -> Optional[str]:
-    """The plan-time error of an unsupported or unparseable
-    ``component-uri``, None when it maps to a known scheme. A placeholder
-    in the scheme defers the check; ``expect_plugin_scheme`` defers an
-    unknown scheme to runtime."""
-    if not uri:
-        return None
-    if "${" in uri.partition(":")[0]:
-        return None  # resolves per-deploy
-    try:
-        scheme, path = _camel_uri_parts(uri, options)
-    except ValueError as error:
-        return str(error)
-    if scheme in CAMEL_SCHEME_PATHS or scheme in ("http", "https"):
-        needs = "a URL" if scheme in ("http", "https") else CAMEL_SCHEME_PATHS[scheme]
-        if needs and not path.strip("/"):
-            return f"camel-source: {scheme} URI needs {needs} (got {uri!r})"
-        return None
-    if expect_plugin_scheme:
-        return None
-    supported = sorted(CAMEL_SCHEME_PATHS) + ["http", "https"]
-    return (
-        f"camel-source component {scheme!r} has no native mapping "
-        f"(supported: {', '.join(supported)}); register one "
-        "with register_camel_scheme from a plugin package (declare "
-        "`expect-plugin-scheme: true` on the agent so the planner defers "
-        "the check to runtime), or run the real Camel route in its own "
-        "process and bridge it with exec-source (agents/connector.py)"
-    )

@@ -8,19 +8,17 @@ table in ``agents/__init__.py``); applications may register custom
 agents with :func:`register_agent`.
 
 The port carries every built-in type of the JAX package's table
-(``langstream_tpu/agents/__init__.py``) but three: ``identity``,
+(``langstream_tpu/agents/__init__.py``): ``identity``,
 ``composite-agent``, the GenAI toolkit (``ai-tools``, every declarative
 step type), the text agents, the vector agents, ``re-rank``,
 ``flare-controller``, the flow agents (``dispatch``, ``timer-source``,
 ``trigger-event``, ``log-event``), the python agents (in-process or
 ``isolation: process``), ``webcrawler-source``, ``s3-source``,
 ``file-source``, ``azure-blob-storage-source``, ``http-request``,
-``langserve-invoke``, ``exec-source`` and ``exec-sink``; plugin packages
-add theirs (``runtime/plugins.py``). ``camel-source``,
-``kafka-connect-source`` and ``kafka-connect-sink`` plan
-(``compiler/planner.py``) but are refused here, by name, when the runner
-builds them: their ``kafka:``/``pulsar:`` schemes and Kafka Connect need
-brokers the port does not have (ROADMAP A7.4).
+``langserve-invoke``, ``exec-source``, ``exec-sink``, ``camel-source``
+(its ``pulsar:`` scheme refused by name when the agent starts, ROADMAP
+A7.4), ``kafka-connect-source`` and ``kafka-connect-sink``; plugin
+packages add theirs (``runtime/plugins.py``).
 """
 
 from __future__ import annotations
@@ -79,29 +77,18 @@ _BUILTIN = {
     "langserve-invoke": ("langstream_tpu_torch.agents.http_request", "LangServeInvokeAgent"),
     "exec-source": ("langstream_tpu_torch.agents.connector", "ExecSource"),
     "exec-sink": ("langstream_tpu_torch.agents.connector", "ExecSink"),
-}
-# the JAX package's types the port refuses by name, with the ROADMAP item
-# each waits for
-NOT_PORTED = {
-    "camel-source": "A7.4: Camel's kafka: and pulsar: schemes need brokers the port lacks",
-    "kafka-connect-source": "A7.4: Kafka Connect needs a Kafka broker the port lacks",
-    "kafka-connect-sink": "A7.4: Kafka Connect needs a Kafka broker the port lacks",
+    "camel-source": ("langstream_tpu_torch.agents.camel", "CamelSourceAgent"),
+    "kafka-connect-source": ("langstream_tpu_torch.agents.kafka_connect", "KafkaConnectSourceAgent"),
+    "kafka-connect-sink": ("langstream_tpu_torch.agents.kafka_connect", "KafkaConnectSinkAgent"),
 }
 for _type, (_module, _cls) in _BUILTIN.items():
     register_agent(_type, _lazy(_module, _cls))
 
 
 def create_agent(agent_type: str) -> Agent:
-    """Instantiate the agent for ``agent_type``; a type of the JAX
-    package that the port lacks is refused by name, with the ROADMAP item
-    it waits for."""
+    """Instantiate the agent for ``agent_type``."""
     factory = _AGENTS.get(agent_type)
     if factory is None:
-        if agent_type in NOT_PORTED:
-            raise ValueError(
-                f"agent type {agent_type!r} is not yet ported to langstream_tpu_torch "
-                f"(ROADMAP {NOT_PORTED[agent_type]})"
-            )
         raise ValueError(f"unknown agent type {agent_type!r}; known: {agent_types()}")
     try:
         agent = factory()

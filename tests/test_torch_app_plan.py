@@ -108,19 +108,22 @@ def test_composite_merge_of_genai_steps(tmp_path):
     assert plan_document(plan) == plan_document(want)
 
 
-def test_unported_agent_type_is_refused_by_name_at_start():
-    """``http-request`` and ``webcrawler-source`` build since the port
-    carried them; Camel and Kafka Connect are refused by name, naming the
-    ROADMAP item they wait for."""
-    plan = build_execution_plan(build_application(str(REPO / "examples" / "applications"
-                                                       / "camel-source")))
+def test_unported_agent_type_is_refused_by_name_at_start(tmp_path):
+    """Every agent type of the JAX package builds since the port carried
+    Camel and Kafka Connect; what is left unported, Camel's ``pulsar:``
+    scheme, plans as in JAX and is refused by name, naming the ROADMAP
+    item it waits for, when the runner starts it."""
+    (tmp_path / "pipeline.yaml").write_text(
+        "topics:\n  - name: out\n"
+        "pipeline:\n  - type: camel-source\n    output: out\n    configuration:\n"
+        "      component-uri: 'pulsar:persistent://public/default/t?webServiceUrl=http://h:8080'\n")
+    plan = build_execution_plan(build_application(str(tmp_path)))
     runner = LocalApplicationRunner(plan, device="cpu")
-    with pytest.raises(ValueError, match=r"'camel-source' is not yet ported.*ROADMAP A7\.4"):
+    with pytest.raises(ValueError, match=r"pulsar: scheme is not yet ported.*ROADMAP A7\.4"):
         asyncio.run(runner.start())
-    with pytest.raises(ValueError, match=r"'kafka-connect-source' is not yet ported.*A7\.4"):
-        create_agent("kafka-connect-source")
-    assert create_agent("http-request").agent_type == "http-request"
-    assert create_agent("webcrawler-source").agent_type == "webcrawler-source"
+    for agent_type in ("camel-source", "kafka-connect-source", "kafka-connect-sink",
+                       "http-request", "webcrawler-source"):
+        assert create_agent(agent_type).agent_type == agent_type
     with pytest.raises(ValueError, match="unknown agent type 'no-such-agent'"):
         create_agent("no-such-agent")
 
@@ -140,9 +143,20 @@ def test_rag_steps_are_refused_by_name(step):
 
 
 @pytest.mark.parametrize("broker", ["kafka", "pulsar", "pravega", "tpulog"])
-def test_other_brokers_are_refused_by_name(broker):
-    with pytest.raises(ValueError, match=f"'{broker}' is not yet ported"):
-        create_topic_runtime({"type": broker})
+def test_other_brokers_are_refused_by_name(broker, tmp_path):
+    """Pulsar and Pravega are refused by name, naming the ROADMAP item they
+    wait for; ``kafka`` and ``tpulog`` were refused so until the port
+    carried them, and now build."""
+    if broker in ("pulsar", "pravega"):
+        with pytest.raises(ValueError, match=rf"'{broker}' is not yet ported.*ROADMAP A7\.4"):
+            create_topic_runtime({"type": broker})
+        return
+    configuration = ({"bootstrapServers": "127.0.0.1:9092"} if broker == "kafka"
+                     else {"directory": str(tmp_path)})
+    runtime = create_topic_runtime({"type": broker, "configuration": configuration})
+    package = {"kafka": "kafka", "tpulog": "log"}[broker]
+    assert type(runtime).__module__.startswith(f"langstream_tpu_torch.topics.{package}.")
+    asyncio.run(runtime.close())
 
 
 def test_gateway_authentication_is_refused_by_name():

@@ -284,7 +284,6 @@ def test_the_table_covers_every_type_the_port_registers():
     documented = set(docs.all_docs())
     # the built-in table (plugins of other tests register their own types)
     assert not (set(registry._BUILTIN) | GENAI_STEP_TYPES) - documented
-    assert set(registry.NOT_PORTED) <= documented
 
 
 # the accepts and rejects of tests/test_docs.py, with the property each names
@@ -378,8 +377,10 @@ def test_planners_reject_the_same_configurations(tmp_path, seed):
 def test_camel_uris_judged_like_jax(uri, plugin):
     from langstream_tpu.agents.camel import validate_component_uri
 
+    from langstream_tpu_torch.agents import camel
+
     want = validate_component_uri(uri, None, expect_plugin_scheme=plugin)
-    got = docs.validate_camel_uri(uri, None, expect_plugin_scheme=plugin)
+    got = camel.validate_component_uri(uri, None, expect_plugin_scheme=plugin)
     assert (got is None) == (want is None)
     if want is not None:
         assert got == want.replace("langstream_tpu.agents.camel.register_camel_scheme",

@@ -207,8 +207,11 @@ def test_sink_like_jax(agents_dir, tmp_path, mode):
 @pytest.mark.parametrize("mode", ["in-process", "process"])
 def test_service_join_ends_on_close(agents_dir, tmp_path, mode):
     """The service's ``main`` says it started over a Unix socket; then
-    ``close`` ends the ``join`` waiting on it: isolated, with the same
-    error as JAX's, and no crash reported."""
+    ``close`` ends the ``join`` waiting on it. In-process, both packages
+    alike. Isolated, the port alone: ``join`` fails with "isolated agent
+    closed" and no crash is reported. The JAX package's isolated close can
+    leave its ``join`` waiting (its reader task is cancelled before it sees
+    the child's EOF), a fault of its own that this test does not wait on."""
     async def scenario(pkg):
         address = str(tmp_path / f"svc-{id(pkg)}-{mode}.sock")
         started = asyncio.get_running_loop().create_future()
@@ -237,13 +240,11 @@ def test_service_join_ends_on_close(agents_dir, tmp_path, mode):
                 outcome_ = str(error)
         return line, outcome_, (agent.agent_info().get("user") or {}).get("crashed")
 
-    got = run_both(scenario)
     if mode == "process":
-        # the JAX package's close can lose the race this test used to time
-        # (its reader task cancelled before it saw the child's EOF); the
-        # port fails every pending call at close, so only the port is held
-        assert got["port"] == (b"started\n", "isolated agent closed", False)
+        port = asyncio.run(asyncio.wait_for(scenario(PACKAGES["port"]), 3 * WAIT_S))
+        assert port == (b"started\n", "isolated agent closed", False)
     else:
+        got = run_both(scenario)
         assert got["port"] == got["jax"] == (b"started\n", "cancelled", None)
 
 

@@ -684,19 +684,18 @@ def test_registry_embeddings_cached_per_resource_and_model():
 
 
 def test_every_unported_agent_type_is_refused_by_name_and_the_new_ones_build():
-    """Since the remaining agent types came, Camel and Kafka Connect are
-    the JAX package's built-in types the port refuses, each by name; the
-    table is the JAX package's own (plugins other tests load register
-    their types in its registry)."""
+    """Since Camel and Kafka Connect came, the port builds every built-in
+    type of the JAX package's table (the table is the JAX package's own:
+    plugins other tests load register their types in its registry); what
+    is left unported is Camel's ``pulsar:`` scheme, refused by name
+    (``tests/test_torch_camel_connect.py``)."""
     from langstream_tpu import agents as jax_agents
 
     port_types = set(agent_types())
     assert set(jax_agents._BUILTIN) <= set(jax_agent_types())
-    unported = sorted(set(jax_agents._BUILTIN) - port_types)
-    assert unported == ["camel-source", "kafka-connect-sink", "kafka-connect-source"]
-    for agent_type in unported:
-        with pytest.raises(ValueError, match=f"'{agent_type}' is not yet ported.*ROADMAP A7.4"):
-            create_agent(agent_type)
+    assert sorted(set(jax_agents._BUILTIN) - port_types) == []
+    for agent_type in ("camel-source", "kafka-connect-sink", "kafka-connect-source"):
+        assert create_agent(agent_type).agent_type == agent_type
     for agent_type in NEW_TYPES:
         if agent_type in ("compute-ai-embeddings", "query"):
             agent = create_agent("ai-tools")

@@ -186,6 +186,13 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     tp_files = [REPO / "langstream_tpu_torch" / path for path in (
         "serving/mirror.py", "runtime/multihost.py", "parallel/mesh.py", "parallel/launch.py")]
     assert all(path in files for path in tp_files), tp_files
+    # and the brokers' and pod entry's modules, with the native loader
+    broker_files = [REPO / "langstream_tpu_torch" / path for path in (
+        "native/__init__.py", "topics/log/broker.py", "topics/log/server.py",
+        "topics/log/client.py", "topics/kafka/protocol.py", "topics/kafka/runtime.py",
+        "topics/kafka/server.py", "topics/kafka/avro.py", "runtime/pod.py", "agents/camel.py",
+        "agents/kafka_connect.py")]
+    assert all(path in files for path in broker_files), broker_files
     files += [REPO / "chip_smoke.py", REPO / "serve_ab.py", REPO / "tests" / "torch_tp_worker.py"]
     assert len(files) > 10
     for path in files:
